@@ -1,0 +1,227 @@
+"""The port's hand kernels on the card, against their plain versions.
+
+Every test here needs an NVIDIA GPU and skips without one.  This file
+imports neither JAX nor ramba_tpu, so it runs where only the port is
+installed; on the card, from the repo root (``--noconftest`` skips
+``tests/conftest.py``, which sets up JAX):
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
+
+Tolerances: integers and bools exact; float64 rtol=atol=1e-12 and float32
+rtol=atol=1e-6 (libdevice and torch's CUDA math may differ by ulps);
+bfloat16 rtol=1e-2 with atol=1e-2 times the largest |value| (the kernel
+computes bf16 in float32 and rounds once; the plain version rounds every
+op); float sums within n * eps * sum|x| (another reduction order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import ramba_tpu_torch as rt
+from ramba_tpu_torch import common
+from ramba_tpu_torch.core import fuser
+from ramba_tpu_torch.models import jacobi
+from ramba_tpu_torch.ops import elemred
+from ramba_tpu_torch.ops import kernel_backend as kb
+from ramba_tpu_torch.ops import stencil_kernel as sk
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float64: 1e-12, torch.float32: 1e-6, torch.bfloat16: 1e-2}
+EPS = {torch.float64: 2.0 ** -52, torch.float32: 2.0 ** -23}
+N = (1 << 16) + 37  # a ragged tail
+
+
+@pytest.fixture(autouse=True)
+def cuda_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the port's kernels run only there")
+    common.set_device("cuda:0")
+
+
+def _close(got, want, what):
+    assert got.dtype == want.dtype, f"{what}: {got.dtype} vs {want.dtype}"
+    if not got.is_floating_point():
+        assert torch.equal(got, want), what
+        return
+    tol = TOL[got.dtype]
+    g, w = got.double(), want.double()
+    atol = tol * max(1.0, w.abs().max().item()) if got.dtype == torch.bfloat16 \
+        else tol
+    torch.testing.assert_close(g, w, rtol=tol, atol=atol, equal_nan=True,
+                               msg=what)
+
+
+def _kernel_vs_plain(outs, what):
+    """Launch the elemred kernel on the program of ``outs`` and hold every
+    output against the plain version on the same leaves."""
+    p, vals = fuser.prepare_program([o.read_expr() for o in outs])
+    assert kb.classify(p, vals) == "elemred", what
+    before = elemred.launches
+    got = elemred.run(p, vals)
+    assert elemred.launches == before + 1
+    want = elemred.elemred_reference(p, vals)
+    # a float reduction of values built from the vector leaves: bound its
+    # rounding by n * eps * (sum of |leaf| + n) * 2
+    sum_abs = sum(v.double().abs().sum().item() for v in vals
+                  if isinstance(v, torch.Tensor) and v.ndim == 1) + N
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.ndim == 0 and g.dtype in EPS and not torch.equal(g, w):
+            bound = N * EPS[g.dtype] * sum_abs * 2
+            assert g.dtype == w.dtype and abs(g.item() - w.item()) <= bound, \
+                f"{what} out{k}: {g.item()} vs {w.item()}"
+        else:
+            _close(g, w, f"{what} out{k}")
+
+
+def _leaf(lo, hi, dtype, seed):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x = torch.rand(N, generator=g, device="cuda", dtype=torch.float64)
+    return rt.fromarray((lo + (hi - lo) * x).to(dtype))
+
+
+UNARY_DOMAIN = {"arccosh": (1.0, 4.0), "arcsin": (-0.95, 0.95),
+                "arccos": (-0.95, 0.95), "arctanh": (-0.95, 0.95),
+                "log": (0.05, 4.0), "log2": (0.05, 4.0), "log10": (0.05, 4.0),
+                "log1p": (-0.5, 4.0), "sqrt": (0.0, 4.0),
+                "reciprocal": (0.25, 4.0)}
+
+
+def _ufuncs(nin):
+    return sorted(f for f in kb.ELEM_OK if f in rt.__dict__
+                  and isinstance(getattr(np, f, None), np.ufunc)
+                  and getattr(np, f).nin == nin)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_every_unary_elem_ok_op(dtype):
+    names = _ufuncs(1)
+    leaves = {}
+    outs = []
+    for f in names:
+        dom = UNARY_DOMAIN.get(f, (-4.0, 4.0))
+        if dom not in leaves:
+            leaves[dom] = _leaf(*dom, dtype, len(leaves))
+        outs.append(getattr(rt, f)(leaves[dom]))
+    _kernel_vs_plain(outs, f"unary ops {names} in {dtype}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_every_binary_elem_ok_op(dtype):
+    x = _leaf(-4.0, 4.0, dtype, 1)
+    y = _leaf(0.25, 3.0, dtype, 2)
+    px = _leaf(0.1, 3.0, dtype, 3)
+    outs = [getattr(rt, f)(px if f == "power" else x, y) for f in _ufuncs(2)]
+    outs += [rt.where(x > 0.5, x, y), rt.maximum(x, 1.5) * 2 + 1]
+    _kernel_vs_plain(outs, f"binary ops in {dtype}")
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_integer_ops_with_zero_divisors(dtype):
+    a = rt.fromarray(torch.arange(N, device="cuda", dtype=dtype) % 201 - 100)
+    b = rt.fromarray(torch.arange(N, device="cuda", dtype=dtype) % 13 - 6)
+    c = a // b + (a % b) * 3 + rt.maximum(a, b) - rt.absolute(b) * rt.sign(a)
+    _kernel_vs_plain([c, rt.sum(c), rt.min(c), rt.max(c)], f"ints {dtype}")
+
+
+# min/max over bool stay on the generic lowering
+REDUCTIONS = [(r, d) for d in (torch.float32, torch.float64, torch.int32,
+                               torch.int64, torch.bool)
+              for r in ("sum", "prod", "min", "max", "mean")
+              if not (d == torch.bool and r in ("min", "max"))]
+
+
+@pytest.mark.parametrize("red,dtype", REDUCTIONS)
+def test_reductions(red, dtype):
+    src = torch.arange(N, device="cuda") % 7
+    x = rt.fromarray((src > 2) if dtype == torch.bool else
+                     (src.to(dtype) * 0.5 + 0.75 if dtype.is_floating_point
+                      else src.to(dtype) - 3))
+    v = x * 1 if dtype == torch.bool else x + 1
+    _kernel_vs_plain([getattr(rt, red)(v)], f"{red} {dtype}")
+
+
+def star2(a):
+    return (0.25 * (a[0, 1] + a[0, -1] + a[1, 0] + a[-1, 0])
+            + 0.125 * (a[0, 2] + a[0, -2] + a[2, 0] + a[-2, 0]))
+
+
+def pick(a):
+    v = a[0, 1]
+    if v > 0:
+        return v
+    return a[0, -1]
+
+
+def npk(a):
+    return (np.maximum(a[0, -1], a[0, 1])
+            + np.where(a[1, 0] > a[-1, 0], np.sqrt(np.abs(a[0, 0])), 0.5)
+            + np.floor_divide(a[0, 0], 0.3) + np.mod(a[1, 1], 0.7))
+
+
+def ints(a):
+    k = ((a[0, 1] > 0) + 2) // 3 + ((a[0, -1] < 0) * 5) % 4
+    return np.where(k > 1, a[0, 0], 0.5 * a[0, 1]) + np.sign(a[1, 1])
+
+
+def mix(a, b):
+    return a[0, 0] + 0.5 * (b[-1, 0] + b[1, 0])
+
+
+def shifted(a):
+    return a[-3, 0] + a[0, 5]
+
+
+BODIES = [("star2", star2, 1), ("pick", pick, 1), ("npk", npk, 1),
+          ("ints", ints, 1), ("mix", mix, 2), ("shifted", shifted, 1),
+          ("sweep", jacobi._kernels()["sweep"].func, 2),
+          ("lap", jacobi._kernels()["lap"].func, 1)]
+
+
+# floor_divide of bf16-rounded values jumps where the float32 ones do not
+STENCIL_CASES = [(*b, d) for b in BODIES
+                 for d in (torch.float32, torch.float64, torch.bfloat16)
+                 if not (b[0] == "npk" and d == torch.bfloat16)]
+
+
+@pytest.mark.parametrize("name,body,n_slots,dtype", STENCIL_CASES,
+                         ids=[f"{c[0]}-{c[3]}" for c in STENCIL_CASES])
+def test_stencil_bodies(name, body, n_slots, dtype):
+    slots = tuple(("arr", k) for k in range(n_slots))
+    tr = sk.trace(body, slots)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(n_slots)
+    arrs = [torch.randn(257, 300, generator=g, device="cuda").to(dtype)
+            for _ in range(n_slots)]
+    assert sk.available(body, tr.lo, tr.hi, slots, arrs), name
+    before = sk.launches
+    got = sk.run(body, tr.lo, tr.hi, slots, arrs)
+    assert sk.launches == before + 1
+    _close(got, sk.stencil_reference(body, tr.lo, tr.hi, slots, arrs), name)
+
+
+def test_sstencil_iterate_matches_chained():
+    x = rt.fromarray(torch.rand(300, 257, device="cuda"))
+    st = rt.stencil(star2)
+    before = sk.launches
+    it = rt.sstencil_iterate(st, x, 7)._value()
+    assert sk.launches == before + 7
+    y = x
+    for _ in range(7):
+        y = rt.sstencil(st, y)
+    _close(it, y._value(), "iterate vs chained")
+
+
+def test_main_path_launches_the_kernels():
+    n = 1 << 20
+    base = rt.arange(n) / 1000.0
+    rt.sync()
+    e0, s0 = elemred.launches, sk.launches
+    D = rt.sin(base) * rt.sin(base) + rt.cos(base) * rt.cos(base)
+    assert abs(float(rt.sum(D)) - n) <= n * EPS[torch.float64] * n
+    assert elemred.launches == e0 + 1
+    u = jacobi.jacobi2d(np.random.RandomState(0).rand(64, 64), 10)
+    rt.sync()
+    assert sk.launches == s0 + 10 and u.dtype == np.float64
