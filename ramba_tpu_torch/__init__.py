@@ -4,7 +4,9 @@ A NumPy drop-in whose operations are deferred into a lazy expression graph,
 fused at flush time into one program per flush and run on an NVIDIA GPU.
 Fused elementwise(+reduce) chains run through a generated Triton kernel
 (``ops/elemred.py``); 2-D stencils run through a hand-written CUDA C++ tile
-kernel (``ops/stencil_kernel.py``, ``csrc/stencil_tile.cuh``).
+kernel (``ops/stencil_kernel.py``, ``csrc/stencil_tile.cuh``); groupby's
+segment reductions run through a hand-written CUDA C++ kernel
+(``ops/segred.py``, ``csrc/segred.cuh``).
 
 Arrays live on ``cuda:0``.  The CPU is used only when asked for
 (``ramba_tpu_torch.common.set_device("cpu")`` or ``RAMBA_TORCH_DEVICE=cpu``).
@@ -31,6 +33,8 @@ from ramba_tpu_torch.ops.elementwise import *  # noqa: F401,F403
 from ramba_tpu_torch.ops.elementwise import (  # noqa: F401
     allclose, array_equal, cbrt, clip, isclose, select, where,
 )
+from ramba_tpu_torch.groupby import RambaGroupby  # noqa: F401
+from ramba_tpu_torch.ops.manipulation import take  # noqa: F401
 from ramba_tpu_torch.ops.reductions import (  # noqa: F401
     all, amax, amin, any, max, mean, min, prod, sum,
 )

@@ -226,7 +226,10 @@ def map_dtypes(fname: str, avals: Sequence[Aval]):
     # the few MAPFN entries that are not numpy ufuncs
     dt = np.result_type(*[_rule_arg(a) for a in avals])
     if fname in _FLOAT_ONLY and dt.kind not in "fc":
-        dt = np.dtype(np.float64)
+        # jnp's inexact promotion: float64 for 64-bit integers and for
+        # angle, float32 below that
+        wide = fname == "angle" or dt.itemsize == 8
+        dt = np.dtype(np.float64 if wide else np.float32)
     if fname in ("real", "imag") and dt.kind == "c":
         dt = np.dtype(np.float64 if dt.itemsize == 16 else np.float32)
     return tuple(dt for _ in avals), dt
@@ -429,9 +432,18 @@ UNARY: dict[str, Callable] = {
     "angle": torch.angle,
 }
 
-def _int_zero_safe(fn):
-    """NumPy's integer division by zero gives 0 (with a warning) where
-    torch raises; floats keep IEEE inf/nan."""
+def floor_div_by_zero(a: torch.Tensor) -> torch.Tensor:
+    """Integer ``a // 0`` as ``ramba_tpu`` gives it (XLA's division by zero,
+    then jnp's floor correction): the dtype's maximum for unsigned types;
+    -1 where ``a == 0`` and -2 elsewhere for signed ones."""
+    if not a.dtype.is_signed:
+        return torch.full_like(a, torch.iinfo(a.dtype).max)
+    return torch.where(a == 0, torch.full_like(a, -1), torch.full_like(a, -2))
+
+
+def _int_zero_safe(fn, by_zero):
+    """Integer division by zero gives ``by_zero(a)`` where torch raises;
+    floats keep IEEE inf/nan."""
 
     def op(a, b):
         if a.is_floating_point() or a.is_complex():
@@ -440,7 +452,7 @@ def _int_zero_safe(fn):
             a, b = a.to(torch.int8), b.to(torch.int8)
         zero = b == 0
         out = fn(a, torch.where(zero, torch.ones_like(b), b))
-        return torch.where(zero, torch.zeros_like(out), out)
+        return torch.where(zero, by_zero(a), out)
 
     return op
 
@@ -449,11 +461,11 @@ BINARY: dict[str, Callable] = {
     "add": torch.add, "subtract": torch.sub, "multiply": torch.mul,
     "true_divide": torch.true_divide, "divide": torch.true_divide,
     # floored division and modulo with numpy's signs (torch implements
-    # numpy's npy_divmod for floats)
-    "floor_divide": _int_zero_safe(torch.floor_divide),
-    "mod": _int_zero_safe(torch.remainder),
-    "remainder": _int_zero_safe(torch.remainder),
-    "fmod": _int_zero_safe(torch.fmod),
+    # numpy's npy_divmod for floats); integer x % 0 is 0 in both packages
+    "floor_divide": _int_zero_safe(torch.floor_divide, floor_div_by_zero),
+    "mod": _int_zero_safe(torch.remainder, torch.zeros_like),
+    "remainder": _int_zero_safe(torch.remainder, torch.zeros_like),
+    "fmod": _int_zero_safe(torch.fmod, torch.zeros_like),
     "power": torch.pow, "float_power": torch.float_power,
     "arctan2": torch.atan2, "hypot": torch.hypot,
     # maximum/minimum propagate NaN, fmax/fmin ignore it: same in torch
@@ -484,6 +496,138 @@ MAPFN.update(BINARY)
 MAPFN["where"] = _where
 
 
+# -- unsigned integers wider than 8 bits -------------------------------------
+# torch has conversions, views and copies for uint16/uint32/uint64 but almost
+# no arithmetic.  Such values are computed in an int64 carrier (uint16 and
+# uint32 by value, uint64 by bit pattern) and wrapped back to their width.
+# add, subtract, multiply, power, negative, the bitwise ops and equality
+# agree with the signed ops modulo 2**width; the table below holds the ops
+# that need the unsigned forms.
+
+_WIDE_UNSIGNED = {torch.uint16: 16, torch.uint32: 32, torch.uint64: 64}
+_SIGN_BIT = -(1 << 63)
+
+
+def _is_wide_unsigned(tdt) -> bool:
+    return tdt in _WIDE_UNSIGNED
+
+
+def _to_carrier(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int64) if t.dtype == torch.uint64 else t.to(torch.int64)
+
+
+def _from_carrier(c: torch.Tensor, tdt: torch.dtype) -> torch.Tensor:
+    if tdt == torch.uint64:
+        return c.view(torch.uint64)
+    return (c & ((1 << _WIDE_UNSIGNED[tdt]) - 1)).to(tdt)
+
+
+def _ukey(c, w):
+    """Order-preserving signed image of a carrier: compare these."""
+    return c ^ _SIGN_BIT if w == 64 else c
+
+
+def _umax(c, w):
+    return torch.full_like(c, -1 if w == 64 else (1 << w) - 1)
+
+
+def _udivmod(a, b, w):
+    """Unsigned floored quotient and remainder of carriers (b != 0)."""
+    if w < 64:
+        return torch.div(a, b, rounding_mode="floor"), torch.remainder(a, b)
+    big = b < 0  # a divisor of 2**63 or more: the quotient is 0 or 1
+    bs = torch.where(big, torch.ones_like(b), b)
+    # halve the dividend into int64 range, divide, double, correct once
+    q = torch.div((a >> 1) & ~_SIGN_BIT, bs, rounding_mode="floor") << 1
+    r = a - q * bs
+    fix = _ukey(r, 64) >= _ukey(bs, 64)
+    q = torch.where(fix, q + 1, q)
+    r = torch.where(fix, r - bs, r)
+    q_big = (_ukey(a, 64) >= _ukey(b, 64)).to(torch.int64)
+    return (torch.where(big, q_big, q),
+            torch.where(big, a - q_big * b, r))
+
+
+def _u_floor_divide(a, b, w):
+    zero = b == 0
+    q, _r = _udivmod(a, torch.where(zero, torch.ones_like(b), b), w)
+    return torch.where(zero, _umax(q, w), q)
+
+
+def _u_remainder(a, b, w):
+    zero = b == 0
+    _q, r = _udivmod(a, torch.where(zero, torch.ones_like(b), b), w)
+    return torch.where(zero, torch.zeros_like(r), r)
+
+
+def _u_shift(a, s, w, left):
+    # a shift by the width or more gives 0 (XLA's rule)
+    big = _ukey(s, w) >= _ukey(torch.full_like(s, min(w, 64)), w)
+    s = torch.where(big, torch.zeros_like(s), s)
+    if left:
+        out = a << s
+    elif w < 64:
+        out = a >> s
+    else:  # logical shift of the bit pattern
+        out = (a >> s) & ~(torch.full_like(a, -1) << (64 - s))
+    return torch.where(big, torch.zeros_like(out), out)
+
+
+def _u_gcd(a, b, w):
+    a, b = torch.broadcast_tensors(a, b)
+    if w < 64:
+        return torch.gcd(a, b)
+    while True:  # Euclid with the unsigned remainder
+        nz = b != 0
+        if not bool(nz.any()):
+            return a
+        r = _u_remainder(a, b, w)
+        a, b = torch.where(nz, b, a), torch.where(nz, r, b)
+
+
+def _u_lcm(a, b, w):
+    g = _u_gcd(a, b, w)
+    zero = g == 0
+    q, _r = _udivmod(b, torch.where(zero, torch.ones_like(g), g), w)
+    return torch.where(zero, torch.zeros_like(g), a * q)
+
+
+def _u_pick(cmp):
+    return lambda a, b, w: torch.where(cmp(_ukey(a, w), _ukey(b, w)), a, b)
+
+
+_UNSIGNED: dict[str, Callable] = {
+    "floor_divide": _u_floor_divide, "mod": _u_remainder,
+    "remainder": _u_remainder, "fmod": _u_remainder,
+    "left_shift": lambda a, s, w: _u_shift(a, s, w, True),
+    "right_shift": lambda a, s, w: _u_shift(a, s, w, False),
+    "less": lambda a, b, w: _ukey(a, w) < _ukey(b, w),
+    "less_equal": lambda a, b, w: _ukey(a, w) <= _ukey(b, w),
+    "greater": lambda a, b, w: _ukey(a, w) > _ukey(b, w),
+    "greater_equal": lambda a, b, w: _ukey(a, w) >= _ukey(b, w),
+    "maximum": _u_pick(torch.ge), "fmax": _u_pick(torch.ge),
+    "minimum": _u_pick(torch.le), "fmin": _u_pick(torch.le),
+    "absolute": lambda a, w: a, "abs": lambda a, w: a,
+    "sign": lambda a, w: (a != 0).to(torch.int64),
+    # jnp: integer 1 // x, with 1 // 0 the dtype's maximum
+    "reciprocal": lambda a, w: torch.where(
+        a == 0, _umax(a, w), (a == 1).to(torch.int64)),
+    "gcd": _u_gcd, "lcm": _u_lcm,
+}
+
+
+def _unsigned_map(fname: str, cargs, tdt: torch.dtype) -> torch.Tensor:
+    """One ufunc whose loop dtype ``tdt`` is uint16/32/64, through the
+    carrier."""
+    w = _WIDE_UNSIGNED[tdt]
+    carried = [_to_carrier(a) if a.dtype == tdt else a for a in cargs]
+    if fname in _UNSIGNED:
+        out = _UNSIGNED[fname](*carried, w)
+    else:
+        out = MAPFN[fname](*carried)
+    return _from_carrier(out, tdt) if out.dtype == torch.int64 else out
+
+
 def _device_of(args):
     for a in args:
         if isinstance(a, torch.Tensor):
@@ -512,7 +656,11 @@ def apply_map(fname: str, args: Sequence) -> torch.Tensor:
     cargs = [a if d is None and isinstance(a, torch.Tensor)
              else as_tensor(a, d if d is not None else None, dev)
              for a, d in zip(args, casts)]
-    out = MAPFN[fname](*cargs)
+    loop_tdt = cargs[-1].dtype
+    if _is_wide_unsigned(loop_tdt):
+        out = _unsigned_map(fname, cargs, loop_tdt)
+    else:
+        out = MAPFN[fname](*cargs)
     tdt = to_torch_dtype(out_dt)
     return out if out.dtype == tdt else out.to(tdt)
 
@@ -579,11 +727,26 @@ def _dims(axis, ndim):
     return tuple(axis) if isinstance(axis, tuple) else (axis,)
 
 
+def _reduce_unsigned(fname, x, out_dt, dims, keepdims):
+    """sum/prod/min/max of uint16/32/64 through the int64 carrier: sums and
+    products wrap modulo 2**64 exactly as the uint64 result does."""
+    w = _WIDE_UNSIGNED[x.dtype]
+    c = _to_carrier(x)
+    if fname in ("min", "max"):
+        k = _ukey(c, w)
+        r = _ukey(reduce_tensor(fname, k, tuple(dims), keepdims), w)
+        return _from_carrier(r, x.dtype)
+    r = reduce_tensor(fname, c, tuple(dims), keepdims)
+    return _from_carrier(r, out_dt)
+
+
 def reduce_tensor(fname, x: torch.Tensor, axis=None, keepdims=False):
     out_dt = to_torch_dtype(reduce_dtype(fname, to_np_dtype(x.dtype)))
     dims = _dims(axis, x.ndim)
     if x.ndim == 0:
         dims = ()
+    if _is_wide_unsigned(x.dtype) and fname in ("sum", "prod", "min", "max"):
+        return _reduce_unsigned(fname, x, out_dt, dims, keepdims)
     if fname in ("sum", "prod", "mean"):
         # accumulate in the result dtype, as numpy and jnp do
         y = x if x.dtype == out_dt else x.to(out_dt)
@@ -707,6 +870,28 @@ def _op_setitem(static, x, v):
         v = torch.flip(v, [d - shift for d in flips if d - shift >= 0])
     out[idx] = v
     return out
+
+
+def _aval_take(static, x, indices):
+    axis, _mode = static
+    return Aval(x.shape[:axis] + indices.shape + x.shape[axis + 1:],
+                x.dtype, x.weak)
+
+
+@defop("take", _aval_take)
+def _op_take(static, x, indices):
+    """``jnp.take`` along ``axis``: ``clip`` clamps every index into
+    ``[0, n)`` (so -1 reads element 0), ``wrap`` takes it modulo n."""
+    axis, mode = static
+    n = x.shape[axis]
+    idx = as_tensor(indices, dev=x.device).long()
+    if mode == "clip":
+        idx = idx.clamp(0, n - 1)
+    elif mode == "wrap":
+        idx = torch.remainder(idx, n)
+    else:
+        raise NotImplementedError(f"take mode {mode!r} is not ported yet")
+    return x[(slice(None),) * axis + (idx,)]
 
 
 @defop("permute")

@@ -316,6 +316,14 @@ class ndarray:
         axes[a], axes[b] = axes[b], axes[a]
         return self.transpose(axes)
 
+    def take(self, indices, axis=None, mode="clip"):
+        if mode not in ("clip", "wrap"):
+            raise NotImplementedError(f"take mode {mode!r} is not ported yet")
+        x = self.reshape(-1) if axis is None else self
+        axis = 0 if axis is None else int(axis) % x.ndim
+        return ndarray(Node("take", (axis, mode),
+                            [x.read_expr(), as_exprable(indices)]))
+
     # -- indexing --------------------------------------------------------------
 
     def __getitem__(self, idx):

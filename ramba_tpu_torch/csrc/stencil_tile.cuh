@@ -18,8 +18,10 @@
 // dynamic shared memory with coalesced row-wise loads (cells outside the
 // array read as 0; they feed only border outputs, which are zeroed), then
 // every thread evaluates the body for its outputs from shared memory.
-// Arithmetic runs in float for float32 and bfloat16 (loaded and stored
-// with the bf16 intrinsics) and in double for float64.
+// Arithmetic runs in float for float32 and in double for float64.  bfloat16
+// is loaded and stored with the bf16 intrinsics and computed in float, with
+// every operation's result rounded to bfloat16 by the generated body, as
+// torch and the JAX package compute bf16 (one float op, then one rounding).
 //
 // Bound on the H100: HBM bandwidth.  The least traffic is every slot read
 // once and the output written once, (slots + 1) * H * W * itemsize bytes,
@@ -96,7 +98,7 @@ __device__ __forceinline__ double floor_mod(double a, double b) {
 }
 
 __device__ __forceinline__ long long floor_mod(long long a, long long b) {
-  if (b == 0) return 0;  // numpy: x % 0 == 0 for integers
+  if (b == 0) return 0;  // integer x % 0 == 0, as in ramba_tpu
   long long m = a % b;
   if (m != 0 && ((m < 0) != (b < 0))) m += b;
   return m;
@@ -130,7 +132,7 @@ __device__ __forceinline__ double floor_div(double a, double b) {
 }
 
 __device__ __forceinline__ long long floor_div(long long a, long long b) {
-  if (b == 0) return 0;  // numpy: x // 0 == 0 for integers
+  if (b == 0) return a == 0 ? -1 : -2;  // signed x // 0, as in ramba_tpu
   long long q = a / b;
   if ((a % b != 0) && ((a < 0) != (b < 0))) q -= 1;
   return q;

@@ -58,6 +58,21 @@ BLOCK = 1024
 COMBINE_BLOCK = 1024
 NUM_WARPS = 4
 
+
+def depth(n: int) -> int:
+    """The longest chain of roundings in the kernel's float sum of n
+    elements: a program's ``tl.sum`` over BLOCK (each of its 32 * NUM_WARPS
+    threads folds BLOCK / (32 * NUM_WARPS) elements in turn, then a tree
+    across the threads), the combine kernel's pass over the partials in
+    chunks of COMBINE_BLOCK, and its own ``tl.sum``.  The sum is within
+    ``depth(n) * eps/2 * sum|x|`` of the exact one (first order)."""
+    threads = 32 * NUM_WARPS
+    levels = threads.bit_length() - 1
+    partials = -(-n // BLOCK)
+    return (BLOCK // threads + levels + -(-partials // COMBINE_BLOCK)
+            + COMBINE_BLOCK // threads + levels)
+
+
 _TL = {"float32": "tl.float32", "float64": "tl.float64", "int32": "tl.int32",
        "int64": "tl.int64", "bool": "tl.int1"}
 
@@ -398,7 +413,7 @@ def _floor_mod_f(a, b):
 
 @triton.jit
 def _floor_mod_i(a, b):
-    # numpy: integer x % 0 is 0
+    # integer x % 0 is 0, as in ramba_tpu
     zero = b == 0
     bs = tl.where(zero, 1, b)
     m = a % bs
@@ -408,13 +423,13 @@ def _floor_mod_i(a, b):
 
 @triton.jit
 def _floor_div_i(a, b):
-    # numpy: integer x // 0 is 0
+    # signed integer x // 0, as ramba_tpu gives it: -1 for x == 0, else -2
     zero = b == 0
     bs = tl.where(zero, 1, b)
     q = a // bs
     r = a % bs
     q = tl.where((r != 0) & ((r < 0) != (bs < 0)), q - 1, q)
-    return tl.where(zero, 0, q)
+    return tl.where(zero, tl.where(a == 0, -1, -2).to(q.dtype), q)
 
 
 @triton.jit

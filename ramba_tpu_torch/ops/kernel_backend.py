@@ -7,6 +7,8 @@ hand-written kernels take.  Families:
 * **elemred** — fused elementwise(+cast/round) chains over 1-D operands,
   optionally ending in whole-array ``sum/prod/min/max/mean`` reductions
   (``ops/elemred.py``, a Triton kernel generated per program);
+* **segred** — masked segment reductions (groupby) over 1-D data with
+  integer labels (``ops/segred.py``, CUDA C++);
 * **stencil** — the 2-D stencil kernel (``ops/stencil_kernel.py``, CUDA
   C++), reached from ``skeletons._eval_stencil``.
 
@@ -17,6 +19,10 @@ slot must be float32, float64, int32, int64 or bool.  There is no 128-lane
 rule: the kernel masks its ragged tail.  Integer ``power``, integer
 ``reciprocal``, integer ``round`` to negative decimals and min/max over bool
 stay on the generic lowering (the kernel has no exact form for them yet).
+A segred program is one ``segment_reduce`` of a kind in ``SEG_OK`` over a
+1-D leaf along dim 0, with 1-D int32/int64 labels and 1 <= G <= 64 groups,
+its data in the same GPU dtypes (no min/max over bool); the ragged tail is
+masked in the kernel.
 """
 
 from __future__ import annotations
@@ -60,7 +66,7 @@ def _ensure_builtins() -> None:
     if _builtins_loaded:
         return
     _builtins_loaded = True
-    from ramba_tpu_torch.ops import elemred, stencil_kernel  # noqa: F401
+    from ramba_tpu_torch.ops import elemred, segred, stencil_kernel  # noqa: F401
 
 
 def family(name: str) -> Optional[KernelFamily]:
@@ -90,10 +96,13 @@ ELEM_OK = frozenset({
 })
 
 RED_OK = frozenset({"sum", "prod", "min", "max", "mean"})
+SEG_OK = frozenset({"sum", "prod", "min", "max", "count"})
 
 GPU_DTYPES = frozenset({"float32", "float64", "int32", "int64", "bool"})
 
 MAX_ELEM_INSTRS = 64
+MAX_SEG_GROUPS = 64
+SEG_LABEL_DTYPES = frozenset({"int32", "int64"})
 
 _INT_ONLY_GENERIC = frozenset({"power", "reciprocal"})
 
@@ -152,14 +161,33 @@ def reduce_identity_np(op: str, dtype):
     return np.asarray(info.max if op == "min" else info.min, dt)[()]
 
 
+def _classify_segred(program, leaf_vals) -> Optional[str]:
+    _op, (kind, num_groups, dim), (s_data, s_labels) = program.instrs[0]
+    if (kind not in SEG_OK or dim != 0
+            or not 1 <= int(num_groups) <= MAX_SEG_GROUPS
+            or s_data >= program.n_leaves or s_labels >= program.n_leaves):
+        return None
+    data, labels = leaf_vals[s_data], leaf_vals[s_labels]
+    if len(_leaf_shape(data)) != 1 or len(_leaf_shape(labels)) != 1:
+        return None
+    dt, lt = aval_of(data).dtype, aval_of(labels).dtype
+    if dt.name not in GPU_DTYPES or lt.name not in SEG_LABEL_DTYPES:
+        return None
+    if kind in ("min", "max") and dt.kind == "b":
+        return None
+    return "segred"
+
+
 def classify(program, leaf_vals) -> Optional[str]:
-    """Kernel family this fused program lowers to (``"elemred"``), or None
-    when only the generic lowering applies."""
+    """Kernel family this fused program lowers to (``"elemred"`` or
+    ``"segred"``), or None when only the generic lowering applies."""
     instrs = program.instrs
     if not instrs or len(leaf_vals) != program.n_leaves:
         return None
     if vector_length(leaf_vals) is None:
         return None
+    if len(instrs) == 1 and instrs[0][0] == "segment_reduce":
+        return _classify_segred(program, leaf_vals)
     if len(instrs) > MAX_ELEM_INSTRS:
         return None
     n_leaves = program.n_leaves
@@ -229,9 +257,10 @@ def lower_program(program, leaf_vals) -> Optional[Callable]:
     """Kernel lowering of a fused program, or None when no kernel family
     matches.  The callable has the signature and outputs of
     ``fuser._build_callable(program)``."""
-    if classify(program, leaf_vals) != "elemred":
+    name = classify(program, leaf_vals)
+    if name is None:
         return None
-    fam = family("elemred")
+    fam = family(name)
 
     def run(*vals):
         return fam.run(program, vals)

@@ -282,11 +282,11 @@ def _is_opaque(e: Sym) -> bool:
 
 def eval_taps(expr: Sym, lo, hi, arrs) -> torch.Tensor:
     """Evaluate a tap expression over the interior with torch, the way the
-    kernel computes it (bfloat16 in float32, rounded once at the end), and
-    place it into a zero border.  Checks the tracer against the plain
-    version without a card."""
+    kernel computes it (each bfloat16 operation in float, rounded to
+    bfloat16), and place it into a zero border.  Checks the tracer against
+    the plain version without a card."""
     dt = arrs[0].dtype
-    work = [a.float() if dt == torch.bfloat16 else a for a in arrs]
+    work = arrs
     shape = tuple(arrs[0].shape)
     interior = tuple(s - (h - l) for s, l, h in zip(shape, lo, hi))
     memo: dict = {}
@@ -354,6 +354,10 @@ def _lit_code(v, dt) -> str:
     return _float_lit(float(v), _CTYPE[name])
 
 
+def _round_bf16(code: str) -> str:
+    return f"__bfloat162float(__float2bfloat16_rn({code}))"
+
+
 class _Gen:
     """Types every node with the rule table and emits its C++."""
 
@@ -381,6 +385,10 @@ class _Gen:
                 for p, d in zip(parts, casts)]
         loop_dt = casts[-1] if casts[-1] is not None else out_dt
         code, res_dt = self.op(n.arg, args, np.dtype(loop_dt))
+        if E.is_bf16(res_dt):
+            # a bfloat16 op computes in float and rounds its result, as
+            # torch and the JAX package do
+            code = _round_bf16(code)
         code = self.cast((code, Aval((), res_dt), None), out_dt)
         return code, Aval((), np.dtype(out_dt), False), None
 
@@ -396,7 +404,7 @@ class _Gen:
         if dst == np.dtype(bool):
             return f"(({code}) != 0)"
         if E.is_bf16(dst):
-            return f"__bfloat162float(__float2bfloat16_rn((float)({code})))"
+            return _round_bf16(f"(float)({code})")
         return f"(({_ctype(dst)})({code}))"
 
     @staticmethod

@@ -9,9 +9,14 @@ installed; on the card, from the repo root (``--noconftest`` skips
 
 Tolerances: integers and bools exact; float64 rtol=atol=1e-12 and float32
 rtol=atol=1e-6 (libdevice and torch's CUDA math may differ by ulps);
-bfloat16 rtol=1e-2 with atol=1e-2 times the largest |value| (the kernel
-computes bf16 in float32 and rounds once; the plain version rounds every
-op); float sums within n * eps * sum|x| (another reduction order).
+bfloat16 rtol=1e-2 with atol=1e-2 times the largest |value| (both round
+every op to bf16, but libdevice's and torch's transcendental functions may
+round to neighbouring bf16 values); float sums within n * eps * sum|x|
+(another reduction order); segred's float sums within 2 * depth(n) * eps *
+sum|x_g| per group (``segred.depth``: the kernel's rounding depth) and its
+products within 10 * sqrt(n_g) * eps relative (a probabilistic bound: a
+product's worst case grows with n_g in any order), its min, max, count and
+integer results exactly.
 """
 
 import numpy as np
@@ -24,6 +29,7 @@ from ramba_tpu_torch.core import fuser
 from ramba_tpu_torch.models import jacobi
 from ramba_tpu_torch.ops import elemred
 from ramba_tpu_torch.ops import kernel_backend as kb
+from ramba_tpu_torch.ops import segred
 from ramba_tpu_torch.ops import stencil_kernel as sk
 
 pytestmark = pytest.mark.cuda
@@ -225,3 +231,93 @@ def test_main_path_launches_the_kernels():
     u = jacobi.jacobi2d(np.random.RandomState(0).rand(64, 64), 10)
     rt.sync()
     assert sk.launches == s0 + 10 and u.dtype == np.float64
+
+
+SEG_CASES = [(k, d) for d in (torch.float32, torch.float64, torch.int32,
+                              torch.int64, torch.bool)
+             for k in ("sum", "prod", "min", "max", "count")
+             if not (d == torch.bool and k in ("min", "max"))]
+
+
+@pytest.mark.parametrize("kind,dtype", SEG_CASES,
+                         ids=[f"{k}-{d}" for k, d in SEG_CASES])
+def test_segred_kernel(kind, dtype):
+    G = 24
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    labels = torch.randint(-1, G + 1, (N,), generator=g, device="cuda",
+                           dtype=torch.int32)
+    if dtype == torch.bool:
+        x = torch.rand(N, generator=g, device="cuda") > 0.5
+    elif dtype.is_floating_point:
+        x = torch.rand(N, generator=g, device="cuda", dtype=dtype) + 0.5
+        if kind == "prod":
+            x = 1.0 + (x - 1.0) * 1e-3
+        if kind in ("min", "max"):
+            x[::4099] = float("nan")
+    else:
+        x = torch.randint(-50, 50, (N,), generator=g, device="cuda", dtype=dtype)
+    grp = rt.fromarray(x).groupby(0, labels.cpu().numpy(), G)
+    p, vals = fuser.prepare_program([getattr(grp, kind)().read_expr()])
+    assert kb.classify(p, vals) == "segred"
+    before = segred.launches
+    (got,) = segred.run(p, vals)
+    (again,) = segred.run(p, vals)
+    assert segred.launches == before + 2
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
+    (want,) = segred.segred_reference(p, vals)
+    assert got.dtype == want.dtype
+    if got.is_floating_point() and kind in ("sum", "prod"):
+        err = (got.double() - want.double()).abs()
+        if kind == "sum":
+            # the kernel's rounding depth D bounds its order's error by
+            # D * eps/2 * sum|x_g|; 2 * D * eps leaves the plain order 3D
+            scale = torch.stack([x.double().abs()[labels == k].sum()
+                                 for k in range(G)])
+            bound = 2 * segred.depth(N) * EPS[got.dtype] * scale
+        else:
+            # each order within 10 * sqrt(n_g) * eps/2 relative, but with
+            # probability below 1e-21 (Higham and Mary 2019, Thm. 2.4)
+            n_g = torch.stack([(labels == k).sum() for k in range(G)])
+            bound = 10 * n_g.double().sqrt() * EPS[got.dtype] * want.double().abs()
+        assert (err <= bound).all(), kind
+    else:
+        same = got == want
+        if got.is_floating_point():
+            same |= got.isnan() & want.isnan()  # a NaN wins in min and max
+        assert bool(same.all()), kind
+
+
+def test_groupby_user_path_launches_segred():
+    n = (1 << 20) + 5
+    x = rt.fromarray(torch.rand(n, device="cuda", dtype=torch.float64))
+    g = x.groupby(0, np.arange(n) % 24, 24)
+    before = segred.launches
+    s = g.sum().asarray()
+    assert segred.launches == before + 1
+    m = g.mean().asarray()  # the generic lowering
+    assert segred.launches == before + 1
+    np.testing.assert_allclose(m, s / np.bincount(np.arange(n) % 24), rtol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", ["uint16", "uint32", "uint64"])
+def test_unsigned_chain_on_card(dtype):
+    """The generic lowering's int64 carrier, on CUDA tensors, against
+    NumPy's unsigned arithmetic."""
+    rs = np.random.RandomState(3)
+    mx = np.iinfo(dtype).max
+    a_np = rs.randint(0, mx, 4096, dtype=np.uint64).astype(dtype)
+    b_np = rs.randint(0, 40, 4096).astype(dtype)
+    a, b = rt.fromarray(a_np), rt.fromarray(b_np)
+    outs = [a * 3 + b, a - b, a // b, a % b, a >> (b % 8), rt.maximum(a, b),
+            a < b, rt.sum(a), rt.max(a)]
+    with np.errstate(all="ignore"):
+        q = np.where(b_np == 0, mx, a_np // np.where(b_np == 0, 1, b_np))
+        want = [a_np * np.array(3, dtype) + b_np, a_np - b_np, q.astype(dtype),
+                np.where(b_np == 0, 0, a_np % np.where(b_np == 0, 1, b_np)).astype(dtype),
+                a_np >> (b_np % np.array(8, dtype)), np.maximum(a_np, b_np),
+                a_np < b_np, a_np.sum(dtype=np.uint64), a_np.max()]
+    for k, (o, w) in enumerate(zip(outs, want)):
+        got = np.asarray(o)
+        assert got.dtype == np.asarray(w).dtype, (k, got.dtype)
+        np.testing.assert_array_equal(got, w, err_msg=str(k))

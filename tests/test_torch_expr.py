@@ -21,6 +21,7 @@ import jax
 import ramba_tpu as rtj
 import ramba_tpu_torch as rt
 from ramba_tpu_torch import common, convert
+from ramba_tpu_torch.core import expr as E
 
 DTYPES = ["bool", "int32", "int64", "float32", "float64"]
 WEAK = {"weak_int": 3, "weak_float": 2.5, "weak_bool": True}
@@ -61,14 +62,14 @@ def _pair(**arrays):
     return ref, port
 
 
-def _same(got, want, what=""):
+def _same(got, want, what="", rtol=None):
     g, w = np.asarray(got), np.asarray(want)
     assert g.dtype == w.dtype, f"{what}: port {g.dtype} vs ramba_tpu {w.dtype}"
     assert g.shape == w.shape, what
     if w.dtype.kind in "biu":
         np.testing.assert_array_equal(g, w, err_msg=what)
     else:
-        r = RTOL[w.dtype.name]
+        r = rtol or RTOL[w.dtype.name]
         np.testing.assert_allclose(g, w, rtol=r, atol=r, err_msg=what)
 
 
@@ -202,3 +203,119 @@ def test_getitem_setitem_basic():
     port["a"][1:3, ::2] = -1.0
     ref["a"][1:3, ::2] = -1.0
     _same(port["a"], ref["a"], "setitem")
+
+
+# -- integer division by zero ------------------------------------------------
+# ramba_tpu's x // 0 (XLA's division by zero, then jnp's floor correction)
+# and x % 0; the expected values come from ramba_tpu, never from a table.
+
+DIV0_DTYPES = ["int8", "int32", "int64", "uint8", "uint32"]
+
+
+def _div0_data(dtype):
+    hi = 250 if dtype.startswith("u") else 100
+    a = np.array([7, 0, 3, 0, hi, 5, 0, 9], dtype)
+    if dtype[0] == "i":
+        a[[1, 4]] = [-7, -hi]
+    b = np.array([0, 0, 2, 5, 0, 0, 3, 4], dtype)
+    return a, b
+
+
+@pytest.mark.parametrize("layout", ["1d", "2d"])
+@pytest.mark.parametrize("divisor", ["array", "python_zero"])
+@pytest.mark.parametrize("dtype", DIV0_DTYPES)
+def test_integer_floor_divide_by_zero(dtype, divisor, layout):
+    """1-D int32/int64 programs are the ones the elemred classifier takes
+    (on the CPU its wrapper runs the plain version); 2-D ones and the other
+    dtypes run the generic lowering."""
+    from ramba_tpu_torch.core import fuser
+    from ramba_tpu_torch.ops import kernel_backend as kb
+
+    a, b = _div0_data(dtype)
+    if layout == "2d":
+        a, b = a.reshape(2, 4), b.reshape(2, 4)
+    ref, port = _pair(a=a, b=b)
+    rb, pb = (ref["b"], port["b"]) if divisor == "array" else (0, 0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        want = [ref["a"] // rb, ref["a"] % rb]
+    got = [port["a"] // pb, port["a"] % pb]
+    elem = layout == "1d" and dtype in ("int32", "int64")
+    for g in got:
+        p, vals = fuser.prepare_program([g.read_expr()])
+        assert kb.classify(p, vals) == ("elemred" if elem else None)
+    _same(got[0], want[0], f"{dtype} // 0")
+    _same(got[1], want[1], f"{dtype} % 0")
+
+
+# -- unsigned integers wider than 8 bits ---------------------------------------
+# every ufunc of the port's UNARY/BINARY tables with a NumPy loop for the
+# dtype, and the whole-array reductions, against ramba_tpu.  One ramba_tpu
+# flush per dtype computes every op's reference (``_unsigned_refs``).
+
+UNSIGNED = ["uint16", "uint32", "uint64"]
+REDUCTIONS = ["sum", "prod", "min", "max", "mean", "any", "all"]
+# operands kept small: jnp's integer power reads 6 exponent bits, and
+# ldexp's exponent is a float in jnp
+SMALL_RHS = {"power", "ldexp", "float_power"}
+
+
+def _unsigned_data(dtype):
+    mx = int(np.iinfo(dtype).max)
+    a = np.array([0, 1, 2, 3, 7, 100, mx, mx - 1, mx // 2 + 1, mx // 3, 5, 12],
+                 dtype)
+    b = np.array([0, 3, 1, 2, 0, 7, 2, mx, 3, mx // 2 + 3, 5, 9], dtype)
+    return a, b
+
+
+def _unsigned_ops(dtype):
+    a, b = _unsigned_data(dtype)
+    ops = [f for f in sorted(E.UNARY)
+           if _numpy_has_loop(getattr(np, f, None) or _no_loop, a)]
+    ops += [f for f in sorted(E.BINARY)
+            if _numpy_has_loop(getattr(np, f, None) or _no_loop, a, b)]
+    return ops + ["reduce_" + r for r in REDUCTIONS]
+
+
+def _no_loop(*args):
+    raise TypeError
+
+
+def _apply(m, op, x, y, ys):
+    if op.startswith("reduce_"):
+        return getattr(m, op[len("reduce_"):])(x)
+    fn = getattr(m, op)
+    if op in E.UNARY:
+        return fn(x)
+    return fn(x, ys if op in SMALL_RHS else y)
+
+
+_unsigned_cache: dict = {}
+
+
+def _unsigned_refs(dtype):
+    """ramba_tpu's result of every op on the dtype's data, in one flush."""
+    if dtype not in _unsigned_cache:
+        a, b = _unsigned_data(dtype)
+        x, y, ys = (rtj.fromarray(v) for v in (a, b, b % 13))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            lazy = {op: _apply(rtj, op, x, y, ys) for op in _unsigned_ops(dtype)}
+            _unsigned_cache[dtype] = {k: np.asarray(v) for k, v in lazy.items()}
+    return _unsigned_cache[dtype]
+
+
+UNSIGNED_CASES = [(d, op) for d in UNSIGNED for op in _unsigned_ops(d)]
+
+
+@pytest.mark.parametrize("dtype,op", UNSIGNED_CASES,
+                         ids=[f"{d}-{op}" for d, op in UNSIGNED_CASES])
+def test_unsigned_op(dtype, op):
+    want = _unsigned_refs(dtype)[op]
+    a, b = _unsigned_data(dtype)
+    port = convert.state_from_reference({"a": a, "b": b, "bs": b % 13})
+    got = _apply(rt, op, port["a"], port["b"], port["bs"])
+    # float32 results (uint16's float loops) at arguments up to 65535:
+    # XLA's float32 exp2 is 18 ulp off at 2**100, so rtol 1e-5 there
+    _same(got, want, f"{op}({dtype})",
+          rtol=1e-5 if np.asarray(want).dtype == np.float32 else None)

@@ -52,7 +52,9 @@ def test_importing_the_port_loads_no_jax():
         "import sys; sys.path.insert(0, sys.argv[1]);"
         "import ramba_tpu_torch, ramba_tpu_torch.convert,"
         " ramba_tpu_torch.models.jacobi, ramba_tpu_torch.ops.elemred,"
-        " ramba_tpu_torch.ops.stencil_kernel, ramba_tpu_torch.ops.kernel_backend;"
+        " ramba_tpu_torch.ops.stencil_kernel, ramba_tpu_torch.ops.kernel_backend,"
+        " ramba_tpu_torch.groupby, ramba_tpu_torch.ops.segred,"
+        " ramba_tpu_torch.ops.manipulation;"
         "import runpy; runpy.run_path(sys.argv[1] + '/chip_smoke.py',"
         " run_name='chip_smoke_probe');"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'ramba_tpu')"
@@ -75,6 +77,23 @@ def test_stencil_nodes_never_load_torch_dynamo():
         "from ramba_tpu_torch.models import jacobi;"
         "u = jacobi.jacobi2d(np.ones((16, 16)), 3);"
         "print(float(rt.sum(u)), 'torch._dynamo' in sys.modules)"
+    )
+    env = dict(os.environ, RAMBA_TORCH_DEVICE="cpu")
+    out = subprocess.run([sys.executable, "-I", "-c", code, str(REPO)],
+                         capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "False"
+
+
+def test_groupby_graphs_never_load_torch_dynamo():
+    """Typing ``segment_reduce`` and ``take`` nodes (the aval rules) and
+    running them must not touch meta tensors either."""
+    code = (
+        "import sys; sys.path.insert(0, sys.argv[1]);"
+        "import numpy as np, ramba_tpu_torch as rt;"
+        "g = rt.arange(12.0).groupby(0, np.arange(12) % 3, 3);"
+        "r = [g.sum(), g.mean(), g.var(), g - g.mean()];"
+        "print(float(rt.sum(r[3])), 'torch._dynamo' in sys.modules)"
     )
     env = dict(os.environ, RAMBA_TORCH_DEVICE="cpu")
     out = subprocess.run([sys.executable, "-I", "-c", code, str(REPO)],

@@ -11,10 +11,11 @@ expression (evaluated with torch the way the kernel computes it), the code
 it generates and the eligibility rules.
 
 Tolerances: float64 rtol=atol=1e-12; float32 rtol=atol=1e-6 (both compute
-the same operations in the same order); bfloat16 rtol=1e-2 with atol=1e-2
-times the largest |value| (the kernel computes in float32 and rounds once,
-the others round every op, and a sum of rounded terms that cancels keeps
-the terms' absolute error).
+the same operations in the same order); bfloat16 against ramba_tpu rtol=1e-2
+with atol=1e-2 times the largest |value| (XLA may keep intermediates in
+float32 where torch rounds each op, and a sum of rounded terms that cancels
+keeps the terms' absolute error); the port's bfloat16 tap expression against
+its plain version exactly (both round every op to bfloat16).
 """
 
 import numpy as np
@@ -194,6 +195,36 @@ def test_tap_expression_matches_plain_version(name, body, n_slots, dtype):
            bf16=dtype == "bfloat16")
     spec = sk.spec_for(tr.expr, tr.lo, tr.hi, n_slots, arrs[0].dtype)
     assert spec is not None and "ramba_stencil_launch" in spec.source
+
+
+@pytest.mark.parametrize("name,body,n_slots", TRACE_BODIES,
+                         ids=[b[0] for b in TRACE_BODIES])
+def test_bf16_body_rounds_every_operation(name, body, n_slots):
+    """The kernel rounds each bfloat16 operation to bfloat16, as torch and
+    ramba_tpu do: the tap expression, evaluated the way the kernel computes,
+    equals the plain version exactly, and the generated body rounds every
+    arithmetic result."""
+    slots = tuple(("arr", k) for k in range(n_slots))
+    tr = sk.trace(body, slots)
+    arrs = [torch.from_numpy(_data((24, 33), "float32", k)).to(torch.bfloat16)
+            for k in range(n_slots)]
+    got = sk.eval_taps(tr.expr, tr.lo, tr.hi, arrs)
+    want = sk.stencil_reference(body, tr.lo, tr.hi, slots, arrs)
+    assert torch.equal(got, want), name
+    src = sk.spec_for(tr.expr, tr.lo, tr.hi, n_slots, torch.bfloat16).source
+    n_arith = sum(1 for n in _nodes(tr.expr) if n.kind == "op"
+                  and n.arg in ("add", "subtract", "multiply", "true_divide"))
+    assert src.count("__float2bfloat16_rn(") >= n_arith, name
+
+
+def _nodes(e):
+    stack, seen = [e], set()
+    while stack:
+        n = stack.pop()
+        if id(n) not in seen:
+            seen.add(id(n))
+            yield n
+            stack.extend(n.args)
 
 
 def test_neighborhood_and_generated_source():
