@@ -11,7 +11,12 @@ Phases, each reported on its own line:
 2. each kernel held against its plain PyTorch version on the card, at the
    main path's shapes, with the tolerance stated beside every check, and
    timed beside its bound and (where one PyTorch call computes the same
-   function) that call;
+   function) that call.  Every stencil check names the load path it took
+   (TMA, cp.async, plain loads; each is taken at least once) and whether
+   its bytes equal the plain version's; the stencil kernel is timed at
+   every shape the main path launches it at, with its host time per
+   launch; elemred's bound counts the FP64-pipe instructions per element
+   in its SASS at the SM clock read under load.
    This phase also holds the repairs: integer ``// 0`` on the elemred and
    stencil kernels against the rule itself, a uint32 chain against NumPy
    and the bf16 stencil kernel exactly against its plain version;
@@ -124,6 +129,108 @@ def check_exact(what, got, want, reason):
     return err
 
 
+def bytes_equal(a, b) -> bool:
+    """The same bytes, shape and dtype."""
+    import torch
+
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(torch.uint8),
+                            b.contiguous().view(torch.uint8)))
+
+
+def stencil_paths(sk) -> dict:
+    return {"tma": sk.launches_tma, "cpasync": sk.launches_cpasync,
+            "ldst": sk.launches_ldst}
+
+
+def path_taken(sk, before) -> str:
+    """The one load path whose count moved since ``before``."""
+    moved = [p for p, n in stencil_paths(sk).items() if n != before[p]]
+    if len(moved) != 1:
+        raise Fail(f"stencil path counters moved for {moved}, expected one")
+    return moved[0]
+
+
+def sm_clock_mhz(fn) -> tuple:
+    """(current, max) SM clock in MHz, read by nvidia-smi while ``fn``'s
+    launches (queued without a synchronise) keep the card busy."""
+    import torch
+
+    torch.cuda.synchronize()
+    fn()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    torch.cuda.synchronize()
+    cur, mx = out.stdout.strip().splitlines()[0].split(",")
+    return float(cur), float(mx)
+
+
+FP64_PIPE = {"DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET"}
+
+
+def elemred_sass(er, program, leaf_vals) -> dict:
+    """FP64-pipe and all instructions per element of the elemred kernel the
+    program launches, counted in its SASS (``cuobjdump -sass`` of the cubin
+    Triton built).  Each thread computes BLOCK / (32 * NUM_WARPS) elements
+    with the code inlined once per element; the trig functions' slow path
+    (Payne-Hanek, taken for |x| >= 2^31) is one subroutine the inlined code
+    CALLs, counted apart: this run's |x| <= 1e6 never takes it."""
+    import collections
+    import os
+    import re
+    import shutil
+
+    import triton
+
+    fn = er._module(er.plan_for(program, leaf_vals)).elemred_kernel
+    kernels = []
+    for v in getattr(fn, "device_caches", {}).values():
+        kernels += list((v[0] if isinstance(v, tuple) else v).values())
+    for v in getattr(fn, "cache", {}).values():
+        kernels += list(v.values())
+    if len(kernels) != 1:
+        raise Fail(f"elemred: expected one compiled kernel, found {len(kernels)}")
+    tools = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump",
+             os.path.join(os.path.dirname(triton.__file__),
+                          "backends/nvidia/bin/cuobjdump")]
+    tool = next((t for t in tools if t and os.path.exists(t)), None)
+    if tool is None:
+        raise Fail("cuobjdump not found")
+    from ramba_tpu_torch import _build
+
+    path = os.path.join(_build.BUILD_DIR, "elemred_main_path.cubin")
+    with open(path, "wb") as f:
+        f.write(kernels[0].asm["cubin"])
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    inline, sub = collections.Counter(), collections.Counter()
+    target = None
+    for line in sass.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)(.*)", line)
+        if not m:
+            continue
+        addr, op = int(m.group(1), 16), m.group(2)
+        if op.startswith("CALL") and target is None:
+            target = int(m.group(3).split()[0].rstrip(";"), 16)
+        (sub if target is not None and addr >= target else inline)[op] += 1
+
+    def fp64(c):
+        return sum(k for op, k in c.items()
+                   if op.split(".")[0] in FP64_PIPE
+                   or (op.split(".")[0] in ("F2F", "F2I", "I2F", "FRND")
+                       and "F64" in op))
+
+    per_thread = er.BLOCK // (32 * er.NUM_WARPS)
+    return {"fp64_per_elem": fp64(inline) / per_thread,
+            "all_per_elem": sum(inline.values()) / per_thread,
+            "slow_path_fp64": fp64(sub), "slow_path_all": sum(sub.values()),
+            "calls": sum(k for op, k in inline.items() if op.startswith("CALL")),
+            "per_thread": per_thread}
+
+
 def sum_bound(depth, dtype_name, sum_abs):
     """What a float reduction may differ from its plain version by.  An
     order whose longest chain of roundings is ``depth`` errs by at most
@@ -159,6 +266,19 @@ def check_sums(what, got, want, bound, reason):
     if not ok:
         raise Fail(f"{what} disagrees with its plain version")
     return err.max().item()
+
+
+def _op_nodes(expr):
+    """The operation nodes of a tap expression, each once."""
+    stack, seen = [expr], set()
+    while stack:
+        node = stack.pop()
+        if id(node) in seen:
+            continue
+        seen.add(id(node))
+        if node.kind == "op":
+            yield node
+        stack.extend(node.args)
 
 
 # ---------------------------------------------------------------------------
@@ -517,8 +637,7 @@ def phase_kernels(rt, er, sk, sg, jacobi, torch, np, card):
     repair_checks(rt, er, sk, torch, np)
 
     slots1 = (("arr", 0),)
-    tr = sk.trace(star2_body, slots1)
-    lo, hi = tr.lo, tr.hi
+    slots2 = (("arr", 0), ("arr", 1))
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
 
@@ -526,15 +645,25 @@ def phase_kernels(rt, er, sk, sg, jacobi, torch, np, card):
         return torch.rand(shape, generator=g, device="cuda", dtype=dtype)
 
     def stencil_case(name, func, slots, arrs, rtol, reason, atol=0.0):
+        """The kernel against its plain version within the tolerance; then
+        whether its bytes equal the plain version's (printed)."""
         l, h = sk.trace(func, slots)[:2]
         if not sk.available(func, l, h, slots, arrs):
             raise Fail(f"{name}: the stencil kernel does not take it")
+        before = stencil_paths(sk)
         got = sk.launch(func, l, h, slots, arrs, torch.empty_like(arrs[0]))
+        path = path_taken(sk, before)
         want = sk.stencil_reference(func, l, h, slots, arrs)
         torch.cuda.synchronize()
-        return check_close(name, got, want, rtol, reason, atol)
+        err = check_close(f"{name} ({path})", got, want, rtol, reason, atol)
+        log(f"  {name} ({path}): byte-equal to the plain version: "
+            f"{bytes_equal(got, want)}")
+        return err
 
     f32 = "float32 per-op IEEE in both, same order"
+    f64 = "float64 per-op IEEE in both"
+    bf16 = "bf16: both round every op to bf16"
+    paths0 = stencil_paths(sk)
     x8 = rand(8192, 8192)
     st_err = stencil_case("stencil star2 8192^2 f32", star2_body, slots1, [x8],
                           1e-6, f32)
@@ -544,69 +673,138 @@ def phase_kernels(rt, er, sk, sg, jacobi, torch, np, card):
     torch.cuda.empty_cache()
     xo = rand(4099, 4133)
     stencil_case("stencil star2 4099x4133 f32", star2_body, slots1, [xo], 1e-6, f32)
-    del xo
+    flat = rand(4096 * 4096 + 1)
+    stencil_case("stencil star2 4096^2 f32 view at a 4-byte offset", star2_body,
+                 slots1, [flat[1:].view(4096, 4096)], 1e-6, f32)
+    del flat
+    stencil_case("stencil star2 4099x4133 bf16", star2_body, slots1,
+                 [xo.to(torch.bfloat16)], 0.0, bf16)
     K = jacobi._kernels()
     u = rand(4096, 4096, dtype=torch.float64)
     f = rand(4096, 4096, dtype=torch.float64)
     stencil_case("stencil jacobi sweep 4096^2 f64 (2 slots)", K["sweep"].func,
-                 (("arr", 0), ("arr", 1)), [u, f], 1e-12,
-                 "float64 per-op IEEE in both")
+                 slots2, [u, f], 1e-12, f64)
     stencil_case("stencil jacobi lap 4096^2 f64", K["lap"].func, slots1, [u],
-                 1e-12, "float64 per-op IEEE in both")
-    del u, f
+                 1e-12, f64)
     xb = x8.to(torch.bfloat16)
-    stencil_case("stencil star2 8192^2 bf16", star2_body, slots1, [xb], 0.0,
-                 "bf16: both round every op to bf16")
-    del xb
+    stencil_case("stencil star2 8192^2 bf16", star2_body, slots1, [xb], 0.0, bf16)
+    used = {p: n - paths0[p] for p, n in stencil_paths(sk).items()}
+    log(f"  stencil launches by load path in these checks: {used}")
+    if not all(used.values()):
+        raise Fail("a stencil load path went unexercised")
 
-    # -- timings: the main path's shape, then the odd shape ----------------
-    w = torch.zeros(1, 1, 5, 5, dtype=torch.float32, device="cuda")
-    for (di, dj), c in {(0, 1): .25, (0, -1): .25, (1, 0): .25, (-1, 0): .25,
-                        (0, 2): .125, (0, -2): .125, (2, 0): .125,
-                        (-2, 0): .125}.items():
-        w[0, 0, 2 + di, 2 + dj] = c
+    # -- timings: every shape the main path launches the kernel at, the
+    # bf16 check's shape and the odd shape (_run_padded's on the TPU) -----
+    def conv_weights(dtype, taps):
+        w = torch.zeros(1, 1, 5, 5, dtype=dtype, device="cuda")
+        for (di, dj), c in taps.items():
+            w[0, 0, 2 + di, 2 + dj] = c
+        return w
 
-    def time_star2(x):
-        out = torch.empty_like(x)
-        ms = cuda_ms(lambda: sk.launch(star2_body, lo, hi, slots1, [x], out), 20)
+    star2_w = {(0, 1): .25, (0, -1): .25, (1, 0): .25, (-1, 0): .25,
+               (0, 2): .125, (0, -2): .125, (2, 0): .125, (-2, 0): .125}
+    lap_w = {(-1, 0): 1.0, (1, 0): 1.0, (0, -1): 1.0, (0, 1): 1.0, (0, 0): -4.0}
+
+    def conv(x, taps):
+        w = conv_weights(x.dtype, taps)
+        x4 = x.view(1, 1, *x.shape)
+        return lambda: torch.nn.functional.conv2d(x4, w)
+
+    def time_stencil(what, func, slots, arrs, lib=None, lib_note=""):
+        tr = sk.trace(func, slots)
+        out = torch.empty_like(arrs[0])
+        before = stencil_paths(sk)
+        sk.launch(func, tr.lo, tr.hi, slots, arrs, out)
+        path = path_taken(sk, before)
+        ms = cuda_ms(lambda: sk.launch(func, tr.lo, tr.hi, slots, arrs, out), 20)
         plain_ms = cuda_ms(
-            lambda: sk.stencil_reference(star2_body, lo, hi, slots1, [x]), 5)
-        prev = torch.backends.cudnn.allow_tf32
-        torch.backends.cudnn.allow_tf32 = False  # full float32, like the kernel
-        try:
-            x4 = x.view(1, 1, *x.shape)
-            lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(x4, w), 20)
-        finally:
-            torch.backends.cudnn.allow_tf32 = prev
-        H, W = x.shape
-        t_bytes = 2 * H * W * 4 / HBM_BYTES_PER_S
-        t_ops = 13 * (H - 4) * (W - 4) / PEAK_OPS["float32"]
+            lambda: sk.stencil_reference(func, tr.lo, tr.hi, slots, arrs), 3)
+        lib_ms = None
+        if lib is not None:
+            prev = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False  # full float32, like the kernel
+            try:
+                lib_ms = cuda_ms(lib, 20)
+            finally:
+                torch.backends.cudnn.allow_tf32 = prev
+        # the host's share: 100 launches enqueued without a synchronise
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            sk.launch(func, tr.lo, tr.hi, slots, arrs, out)
+        host_ms = (time.perf_counter() - t0) * 1e3 / 100
+        torch.cuda.synchronize()
+        H, W = arrs[0].shape
+        nbytes = (len(arrs) + 1) * H * W * arrs[0].element_size()
+        n_ops = sum(1 for _ in _op_nodes(tr.expr))
+        inner = (H - (tr.hi[0] - tr.lo[0])) * (W - (tr.hi[1] - tr.lo[1]))
+        dname = str(arrs[0].dtype).split(".")[1]
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = n_ops * max(inner, 0) / PEAK_OPS[dname]
         bound_ms = 1e3 * max(t_bytes, t_ops)
-        log(f"  stencil star2 {H}x{W} f32: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, conv2d {lib_ms:.4f} ms, bound {bound_ms:.4f} ms")
-        return ms, plain_ms, lib_ms, bound_ms, \
-            "bytes" if t_bytes >= t_ops else "operations"
+        occ = sk.ctas_per_sm(func, tr.lo, tr.hi, slots, arrs, path)
+        lib_txt = f"{lib_note} {lib_ms:.4f} ms" if lib_ms is not None else \
+            "no single library call"
+        log(f"  stencil {what}: {path} path, {occ} CTAs/SM, kernel {ms:.4f} ms "
+            f"({bound_ms / ms:.1%} of its bound), plain {plain_ms:.4f} ms, "
+            f"{lib_txt}, bound {bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB at "
+            f"3.35 TB/s), host {host_ms:.4f} ms per launch enqueued [{card}]")
+        return {"shape": what, "path": path, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": lib_ms, "host_ms": host_ms}
 
-    ms, plain_ms, lib_ms, bound_ms, bound_by = time_star2(x8)
+    conv_f32 = "conv2d (TF32 off)"
+    times = [
+        time_stencil("star2 8192x8192 float32", star2_body, slots1, [x8],
+                     conv(x8, star2_w), conv_f32),
+        time_stencil("jacobi sweep 4096x4096 float64, 2 slots", K["sweep"].func,
+                     slots2, [u, f]),
+        time_stencil("jacobi lap 4096x4096 float64", K["lap"].func, slots1, [u],
+                     conv(u, lap_w), "conv2d"),
+        time_stencil("star2 8192x8192 bfloat16", star2_body, slots1, [xb],
+                     conv(xb, star2_w), "conv2d (bf16 in, float accumulation)"),
+        time_stencil("star2 4099x4133 float32", star2_body, slots1, [xo],
+                     conv(xo, star2_w), conv_f32),
+    ]
+    del x8, xb, xo, u, f
+    torch.cuda.empty_cache()
+    t = times[0]
     stencil_row = {
         "name": "stencil", "route": "cuda",
         "source": "ramba_tpu_torch/csrc/stencil_tile.cuh",
         "replaces": "ramba_tpu/ops/stencil_pallas.py:261",
         "also_replaces": "ramba_tpu/ops/stencil_pallas.py:370",
-        "launches": 0, "max_abs_err": st_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
-        "shape": "star2 8192x8192 float32",
+        "launches": 0, "max_abs_err": st_err,
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "path", "shape")},
+        "shapes": times[1:],
     }
-    del x8
-    time_star2(rand(4099, 4133))  # the shapes _run_padded took on the TPU
-    torch.cuda.empty_cache()
 
+    # -- elemred on the program the main path launches (mat_chain: B =
+    # sin(base), C = cos(base), D = B*B + C*C, sum(D)), and the program
+    # that spells each transcendental twice ------------------------------
     n = 10 ** 9
     base = (rt.arange(n) / 1000.0)
     base_t = base._value()
-    p, lv = _program(lambda: (lambda D: [D, rt.sum(D)])(
-        rt.sin(base) * rt.sin(base) + rt.cos(base) * rt.cos(base)))
+
+    def trig_program(twice):
+        def build():
+            if twice:
+                D = rt.sin(base) * rt.sin(base) + rt.cos(base) * rt.cos(base)
+            else:
+                B, C = rt.sin(base), rt.cos(base)
+                D = B * B + C * C
+            return [D, rt.sum(D)]
+        return _program(build)
+
+    p, lv = trig_program(False)
+    p4, lv4 = trig_program(True)
     del base
+    n_trig = sum(1 for op, st, _a in p.instrs
+                 if op == "map" and st[0] in ("sin", "cos"))
+    if n_trig != 2:
+        raise Fail(f"the main path's chain has {n_trig} transcendentals, expected 2")
     got = er.launch(p, lv)
     want = er.elemred_reference(p, lv)
     torch.cuda.synchronize()
@@ -619,24 +817,45 @@ def phase_kernels(rt, er, sk, sg, jacobi, torch, np, card):
     del got, want
     ms = cuda_ms(lambda: er.launch(p, lv), 5)
     plain_ms = cuda_ms(lambda: er.elemred_reference(p, lv), 2)
-    n_vec = sum(1 for op, _s, _a in p.instrs if op == "map")
+    sass = elemred_sass(er, p, lv)
+    def busy():  # about 0.15 s of launches; each result is dropped at once
+        for _ in range(20):
+            er.launch(p, lv)
+
+    clk, clk_max = sm_clock_mhz(busy)
     er_bytes = 2 * n * 8  # read base, write D
-    er_ops = n_vec * n + n
+    fp64_rate = 132 * 64 * clk * 1e6  # FP64-pipe instructions per second
+    t_bytes = er_bytes / HBM_BYTES_PER_S
+    t_ops = n * sass["fp64_per_elem"] / fp64_rate
+    t_issue = n * sass["all_per_elem"] / (132 * 4 * 32 * clk * 1e6)
     elemred_row = {
         "name": "elemred", "route": "triton",
         "source": "ramba_tpu_torch/ops/elemred.py",
         "replaces": "ramba_tpu/ops/pallas_backend.py:447",
         "launches": 0, "max_abs_err": max(er_err, elemred_small_err),
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": 1e3 * max(er_bytes / HBM_BYTES_PER_S,
-                              er_ops / PEAK_OPS["float64"]),
-        "bound_by": ("bytes" if er_bytes / HBM_BYTES_PER_S
-                     >= er_ops / PEAK_OPS["float64"] else "operations"),
-        "library_ms": None, "shape": "sin/cos chain + sum, n=1e9 float64",
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "shape": "sin/cos chain + sum, n=1e9 float64, 2 transcendentals (mat_chain)",
+        "fp64_per_elem": sass["fp64_per_elem"], "sm_clock_mhz": clk,
     }
-    log(f"  elemred sin/cos chain n=1e9 f64: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {elemred_row['bound_ms']:.4f} ms")
-    del p, lv, base_t
+    log(f"  elemred SASS: {sass['fp64_per_elem']:.2f} FP64-pipe and "
+        f"{sass['all_per_elem']:.2f} instructions per element ({sass['per_thread']} "
+        f"elements per thread, inlined); the trig slow path (|x| >= 2^31, not "
+        f"taken here) is one subroutine of {sass['slow_path_all']} instructions "
+        f"({sass['slow_path_fp64']} FP64) behind {sass['calls']} calls; SM clock "
+        f"{clk:.0f} MHz under load (max {clk_max:.0f})")
+    log(f"  elemred sin/cos chain n=1e9 f64, 2 transcendentals: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {elemred_row['bound_ms']:.4f} ms "
+        f"({elemred_row['bound_by']}; bytes {1e3 * t_bytes:.4f} ms, FP64 pipe "
+        f"{1e3 * t_ops:.4f} ms at 132 SMs x 64 x {clk:.0f} MHz, all-instruction "
+        f"issue {1e3 * t_issue:.4f} ms at 4 warps x 32 lanes per SM per clock), "
+        f"{elemred_row['bound_ms'] / ms:.1%} of the bound [{card}]")
+    del p, lv
+    ms4 = cuda_ms(lambda: er.launch(p4, lv4), 5)
+    log(f"  elemred sin/cos chain n=1e9 f64, each transcendental spelled twice "
+        f"(4 per element; not the main path's program): kernel {ms4:.4f} ms [{card}]")
+    del p4, lv4, base_t
     torch.cuda.empty_cache()
 
     x, hour = hourly_series(torch, np, 1 << 28)
@@ -662,11 +881,14 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card):
 
     def window(name, fn, need):
         er.launches = 0
-        sk.launches = 0
+        sk.launches = sk.launches_tma = sk.launches_cpasync = 0
+        sk.launches_ldst = 0
         sg.launches = 0
         res = fn()
         got = {"elemred": er.launches, "stencil": sk.launches,
                "segred": sg.launches}
+        if sk.launches:
+            log(f"  {name}: stencil launches by load path {stencil_paths(sk)}")
         for k in totals:
             totals[k] += got[k]
         for k, want in need.items():

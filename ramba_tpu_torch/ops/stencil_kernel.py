@@ -1,10 +1,10 @@
-"""stencil: 2-D stencils through a hand-written CUDA C++ tile kernel.
+"""stencil: 2-D stencils through a hand-written CUDA C++ kernel.
 
 Replaces ``ramba_tpu/ops/stencil_pallas.py::_run_fast`` (its
 ``pl.pallas_call`` at line 261) and ``::_run_padded`` (line 370) with one
 kernel, ``csrc/stencil_tile.cuh``, that takes every shape both took: the
 TPU's (8, 128) tiling rule that split them does not exist on Hopper, and
-the kernel masks its edge loads instead.
+the kernel zero-fills its edge loads instead.
 
 The Pallas kernel traced the user's Python body inside the kernel.  A CUDA
 kernel cannot call Python, so the body is first traced here with symbolic
@@ -13,19 +13,42 @@ tap expression: taps ``(slot, di, dj)``, literals, ``+ - * / **``, unary
 minus, the NumPy ufuncs a body may call, and the comparisons and ``where``
 that the two-sided branch trace produces.  Each operation is typed by the
 port's NumPy rule table and emitted as C++ with explicit casts into the
-body of the tile template; ``nvcc`` builds it for ``sm_90a`` into a shared
-library with a plain C entry point, loaded with ``ctypes`` and cached by
-the hash of its source.
-
-Eligibility (:func:`available`) is decided before anything launches: a 2-D
-array, one dtype for every slot from {float32, float64, bfloat16}, a halo
-of at most ``MAX_HALO`` cells on each side, a body the tracer expresses
-whose result has the slots' dtype.  Anything else runs on the shifted-slice
-path of ``skeletons.py``; bodies and halos turned away are counted in
-``ineligible``.
+body of the kernel template; ``nvcc`` builds it for ``sm_90a`` into a
+shared library with a plain C entry point, loaded with ``ctypes`` and
+cached by the hash of its source.
 
 Bound on the H100: HBM bandwidth, ``(slots + 1) * H * W * itemsize`` bytes
-at 3.35 TB/s (see the header for what the tile design does about it).
+at 3.35 TB/s.  The kernel is built to stream at that rate: a persistent
+grid (as many CTAs as the card holds at once) walks down column strips of
+``TW`` outputs in row blocks of ``BH``, and each CTA keeps a ring of
+``stages`` shared-memory stages, each holding one tile plus its halo for
+every slot, so the loads of the next tiles are in flight while it computes
+the current one (the TPU kernel's double-buffered slab DMA, deeper).  The
+header says how.  Everything about the launch except the occupancy is
+decided here, in Python, where the CPU tests reach it:
+
+* :func:`geometry` picks ``(TW, BH, stages)`` per (itemsize, slots, halo)
+  within :data:`SMEM_LIMIT`, with two CTAs per SM where that fits;
+* :func:`schedule`, :func:`tile_range` and :func:`tile_rect` mirror the
+  kernel's schedule (each strip cut into the same number of runs of row
+  blocks, CTA ``b`` on run ``b // strips`` of strip ``b % strips``);
+* :func:`load_path` picks the stage's load path before the launch: ``tma``
+  (one ``cp.async.bulk.tensor`` box per slot and stage; row stride a
+  multiple of 16 bytes, 16-byte aligned bases), else ``cpasync``
+  (4- or 8-byte ``cp.async`` copies that zero-fill cells outside the
+  array), else, for bfloat16 rows that are not 4-byte aligned, ``ldst``
+  (plain loads: ``cp.async`` has no 2-byte copy).  Each is counted in
+  ``launches_tma``, ``launches_cpasync``, ``launches_ldst`` beside
+  ``launches``.  A failed encode or launch raises; no path gives way to
+  another or to the plain version.
+
+Eligibility (:func:`available`) is decided before anything launches: a 2-D
+array with sides below 2^31 (the TMA's coordinates are 32-bit), one dtype
+for every slot from {float32, float64, bfloat16}, a halo of at most
+``MAX_HALO`` cells on each side, a body the tracer expresses whose result
+has the slots' dtype.  Anything else runs on the shifted-slice path of
+``skeletons.py``; bodies and halos turned away are counted in
+``ineligible``.
 
 Beside it: :func:`stencil_reference`, the plain PyTorch version (the
 shifted-slice evaluation plus the zeroed border), and ``launches``, counted
@@ -53,13 +76,24 @@ from ramba_tpu_torch.skeletons import (
 )
 
 launches = 0
+launches_tma = 0
+launches_cpasync = 0
+launches_ldst = 0
 ineligible = 0
 
-# must match csrc/stencil_tile.cuh
-TILE_H, TILE_W = 32, 64
 MAX_HALO = 16
+MAX_SIDE = 2 ** 31  # the TMA's coordinates are 32-bit
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
-MAX_GRID_Y = 65535
+SM_SMEM = 233472  # bytes of shared memory on one H100 SM (228 KB)
+CTA_RESERVED = 1024  # of which the runtime keeps this much per CTA
+NT = 256  # threads per CTA (csrc/stencil_tile.cuh)
+MAX_BOX = 256  # the longest side of one TMA box
+# the kernel's PATH_* codes, in order
+PATHS = ("tma", "cpasync", "ldst")
+# the widest strip: 128 output columns (a row of 512 bytes of f32, 1 KB of
+# f64); wider strips were no faster once the CTAs walk the same rows
+# together, and narrower ones are slower (scripts/stencil_sweep.py; PERF.md)
+TW_MAX = 128
 
 _KERNEL_DTYPES = ("float32", "float64", "bfloat16")
 
@@ -312,6 +346,114 @@ def eval_taps(expr: Sym, lo, hi, arrs) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# geometry, schedule and load path (mirrors csrc/stencil_tile.cuh)
+# ---------------------------------------------------------------------------
+
+
+class Geometry(NamedTuple):
+    """One kernel's tiling: output tiles ``bh`` x ``tw``, ``stages`` ring
+    stages of ``sh`` x ``sw`` cells per slot (the TMA box), ``smem`` bytes
+    of shared memory per CTA, built for ``min_ctas`` CTAs per SM."""
+    tw: int
+    bh: int
+    stages: int
+    sw: int
+    sh: int
+    smem: int
+    min_ctas: int
+
+
+def ring(itemsize, n_slots, top, bottom, left, right, tw, bh, stages,
+         min_ctas=1) -> Geometry:
+    """The stage layout ``Ring<>`` computes: a staged row is the tile's
+    width plus the halo, widened so that it starts and ends on 16-byte
+    boundaries (the TMA faults on a box whose rows start elsewhere); each
+    slot's buffer starts on 128 bytes; one 8-byte mbarrier per stage."""
+    align = 16 // itemsize
+    lpad = -(-left // align) * align
+    sw = -(-(tw + lpad + right) // align) * align
+    sh = bh + top + bottom
+    slot = -(-(sh * sw * itemsize) // 128) * 128
+    smem = stages * n_slots * slot + 8 * stages
+    return Geometry(tw, bh, stages, sw, sh, smem, min_ctas)
+
+
+def geometry(itemsize, n_slots, top, bottom, left, right) -> Optional[Geometry]:
+    """``(TW, BH, stages)`` for this (itemsize, slots, halo): the widest
+    strip up to :data:`TW_MAX`, then the tallest block, then the deepest
+    ring (4 to 2 stages) whose shared memory lets two CTAs share an SM;
+    failing that, one CTA per SM within :data:`SMEM_LIMIT`.  None when
+    nothing fits."""
+    for min_ctas in (2, 1):
+        cap = min(SMEM_LIMIT, SM_SMEM // min_ctas - CTA_RESERVED)
+        tw = TW_MAX
+        while tw >= 8:
+            for bh in (32, 16, 8, 4, 2, 1):
+                for stages in (4, 3, 2):
+                    g = ring(itemsize, n_slots, top, bottom, left, right, tw,
+                             bh, stages, min_ctas)
+                    if g.smem <= cap and g.sw <= MAX_BOX and g.sh <= MAX_BOX:
+                        return g
+            tw //= 2
+    return None
+
+
+def n_tiles(H, W, geo: Geometry) -> int:
+    """Output tiles of an H x W array: row blocks times column strips."""
+    return -(-H // geo.bh) * -(-W // geo.tw)
+
+
+def schedule(H, W, geo: Geometry, resident: int) -> tuple:
+    """``(grid, runs)`` for ``resident`` CTAs on the card at once: every
+    strip cut into ``runs`` runs of row blocks, one CTA per run, so that
+    the CTAs on the card together walk the same rows of neighbouring
+    strips; with more strips than CTAs, ``runs`` is 0 and the grid takes
+    equal runs of the strip-major order (:func:`tile_range`)."""
+    n_rb, n_strips = -(-H // geo.bh), -(-W // geo.tw)
+    if n_strips <= resident:
+        runs = min(resident // n_strips, n_rb)
+        return n_strips * runs, runs
+    return min(resident, n_rb * n_strips), 0
+
+
+def tile_range(b: int, grid: int, runs: int, H, W, geo: Geometry) -> tuple:
+    """The tiles CTA ``b`` computes, ``[t0, t1)`` in the strip-major
+    numbering of :func:`tile_rect`: run ``b // strips`` of strip
+    ``b % strips``, or with ``runs`` 0 its equal share of the order."""
+    n_rb, n_strips = -(-H // geo.bh), -(-W // geo.tw)
+    if runs:
+        strip, run = b % n_strips, b // n_strips
+        rb0, rb1 = run * n_rb // runs, (run + 1) * n_rb // runs
+        return strip * n_rb + rb0, strip * n_rb + rb1
+    tiles = n_rb * n_strips
+    return b * tiles // grid, (b + 1) * tiles // grid
+
+
+def tile_rect(t: int, H, W, geo: Geometry) -> tuple:
+    """Output rows ``[r0, r1)`` and columns ``[c0, c1)`` of tile ``t``;
+    tiles are numbered down each column strip, strip after strip."""
+    n_rb = -(-H // geo.bh)
+    r0, c0 = (t % n_rb) * geo.bh, (t // n_rb) * geo.tw
+    return r0, min(r0 + geo.bh, H), c0, min(c0 + geo.tw, W)
+
+
+def load_path(geo: Geometry, H, W, itemsize, ptrs) -> str:
+    """How the stages are filled, decided before the launch.  ``tma``: a
+    box the TMA can describe (sides at most 256, inner extent a multiple
+    of 16 bytes), a row stride that is a multiple of 16 bytes and 16-byte
+    aligned base pointers.  Otherwise ``cpasync``, except for bfloat16
+    rows whose cells are not 4-byte aligned (odd width or base), which
+    take ``ldst``."""
+    box_ok = (geo.sw <= MAX_BOX and geo.sh <= MAX_BOX
+              and (geo.sw * itemsize) % 16 == 0)
+    if box_ok and (W * itemsize) % 16 == 0 and all(p % 16 == 0 for p in ptrs):
+        return "tma"
+    if itemsize == 2 and (W % 2 or any(p % 4 for p in ptrs)):
+        return "ldst"
+    return "cpasync"
+
+
+# ---------------------------------------------------------------------------
 # code generation: tap expression -> CUDA C++ body
 # ---------------------------------------------------------------------------
 
@@ -489,6 +631,7 @@ class Spec(NamedTuple):
     name: str
     source: str
     n_slots: int
+    geometry: Geometry
 
 
 _spec_cache: dict = {}
@@ -519,9 +662,9 @@ def _make_spec(expr, lo, hi, n_slots, dtype) -> Optional[Spec]:
     bottom, right = hi[0], hi[1]
     if max(top, bottom, left, right) > MAX_HALO:
         return None
-    smem = (n_slots * (TILE_H + top + bottom) * (TILE_W + left + right)
-            * (2 if name == "bfloat16" else np.dtype(dtype).itemsize))
-    if smem > SMEM_LIMIT:
+    itemsize = 2 if name == "bfloat16" else np.dtype(dtype).itemsize
+    geo = geometry(itemsize, n_slots, top, bottom, left, right)
+    if geo is None:
         return None
     try:
         code, av, lit = _Gen(dtype).node(expr)
@@ -530,6 +673,8 @@ def _make_spec(expr, lo, hi, n_slots, dtype) -> Optional[Spec]:
     if code is None or _dtype_name(av.dtype) != name:
         return None  # a literal body, or a result in another dtype
     ct, st = _CTYPE[name], _STORAGE[name]
+    args = (f"{st}, {n_slots}, {top}, {bottom}, {left}, {right}, "
+            f"{geo.tw}, {geo.bh}, {geo.stages}, {geo.min_ctas}, Body")
     source = f"""// generated by ramba_tpu_torch/ops/stencil_kernel.py
 #include "stencil_tile.cuh"
 
@@ -540,14 +685,20 @@ struct Body {{
   }}
 }};
 
-extern "C" int ramba_stencil_launch(const void* const* ins, void* out,
-                                    long long H, long long W, void* stream) {{
-  return ramba::launch_stencil<{st}, {n_slots}, {top}, {bottom}, {left}, {right}, Body>(
-      ins, out, H, W, stream);
+// ring: {geo.bh} x {geo.tw} output tiles, {geo.stages} stages of
+// {geo.sh} x {geo.sw} cells per slot, {geo.smem} bytes of shared memory
+extern "C" int ramba_stencil_launch(int path, const void* const* ins,
+                                    void* out, long long H, long long W,
+                                    void* stream) {{
+  return ramba::launch_stencil<{args}>(path, ins, out, H, W, stream);
+}}
+
+extern "C" int ramba_stencil_ctas_per_sm(int path) {{
+  return ramba::stencil_ctas_per_sm<{args}>(path);
 }}
 """
     digest = hashlib.sha256(source.encode()).hexdigest()[:12]
-    return Spec(f"stencil_{digest}", source, n_slots)
+    return Spec(f"stencil_{digest}", source, n_slots, geo)
 
 
 # ---------------------------------------------------------------------------
@@ -556,13 +707,14 @@ extern "C" int ramba_stencil_launch(const void* const* ins, void* out,
 
 
 def available_local(arrs) -> bool:
-    """Array-level eligibility: one 2-D shape, one dtype for every slot
-    from {float32, float64, bfloat16}, a grid the card can launch."""
+    """Array-level eligibility: one 2-D shape with sides below
+    :data:`MAX_SIDE`, one dtype for every slot from {float32, float64,
+    bfloat16}."""
     shapes = {tuple(a.shape) for a in arrs}
     if len(shapes) != 1:
         return False
     (shape,) = shapes
-    if len(shape) != 2 or -(-shape[0] // TILE_H) > MAX_GRID_Y:
+    if len(shape) != 2 or max(shape) >= MAX_SIDE:
         return False
     dtypes = {a.dtype for a in arrs}
     return len(dtypes) == 1 and \
@@ -605,23 +757,46 @@ def build(specs) -> None:
 
 _entries: dict = {}
 
+# error codes of csrc/stencil_tile.cuh besides CUDA's own
+_ERRORS = {900: "cuTensorMapEncodeTiled not found in the driver",
+           901: "the kernel does not fit on an SM (occupancy 0)"}
+
 
 def _entry(spec: Spec):
-    """The built kernel's C entry point (built and bound once)."""
-    fn = _entries.get(spec.name)
-    if fn is None:
-        fn = _build.load(spec.name, spec.source).ramba_stencil_launch
-        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+    """The built kernel's C entry points (built and bound once)."""
+    fns = _entries.get(spec.name)
+    if fns is None:
+        lib = _build.load(spec.name, spec.source)
+        fn = lib.ramba_stencil_launch
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _entries[spec.name] = fn
-    return fn
+        occ = lib.ramba_stencil_ctas_per_sm
+        occ.argtypes = [ctypes.c_int]
+        occ.restype = ctypes.c_int
+        fns = _entries[spec.name] = (fn, occ)
+    return fns
+
+
+def ctas_per_sm(func, lo, hi, slots, arrs, path: str) -> int:
+    """CTAs of this stencil's kernel one SM of the current card holds at
+    once along ``path`` (its occupancy; the grid is that times the SMs)."""
+    spec = _spec(func, lo, hi, slots, arrs)
+    with torch.cuda.device(arrs[0].device):
+        return _entry(spec)[1](PATHS.index(path))
+
+
+def _error(rc: int) -> str:
+    if rc >= 1000:
+        return f"cuTensorMapEncodeTiled failed with CUresult {rc - 1000}"
+    return _ERRORS.get(rc, f"CUDA error {rc}")
 
 
 def launch(func, lo, hi, slots, arrs, out) -> torch.Tensor:
     """Launch the kernel once: ``out`` (a CUDA tensor of the input's shape
     and dtype) receives the stencil of ``arrs``."""
-    global launches
+    global launches, launches_tma, launches_cpasync, launches_ldst
     spec = _spec(func, lo, hi, slots, arrs)
     if spec is None:
         raise RuntimeError("stencil kernel launched on a body or arrays it "
@@ -637,14 +812,23 @@ def launch(func, lo, hi, slots, arrs, out) -> torch.Tensor:
     H, W = arrs[0].shape
     if H == 0 or W == 0:
         return out
-    fn = _entry(spec)
-    ptrs = (ctypes.c_void_p * len(ins))(*[a.data_ptr() for a in ins])
+    fn = _entry(spec)[0]
+    addrs = [a.data_ptr() for a in ins]
+    path = load_path(spec.geometry, H, W, ins[0].element_size(), addrs)
+    ptrs = (ctypes.c_void_p * len(ins))(*addrs)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(ptrs, out.data_ptr(), H, W, stream)
+        rc = fn(PATHS.index(path), ptrs, out.data_ptr(), H, W, stream)
     if rc != 0:
-        raise RuntimeError(f"stencil kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"stencil kernel launch ({path}) failed: "
+                           f"{_error(rc)}")
     launches += 1
+    if path == "tma":
+        launches_tma += 1
+    elif path == "cpasync":
+        launches_cpasync += 1
+    else:
+        launches_ldst += 1
     return out
 
 

@@ -208,12 +208,70 @@ def test_stencil_bodies(name, body, n_slots, dtype):
     _close(got, sk.stencil_reference(body, tr.lo, tr.hi, slots, arrs), name)
 
 
+def _cells(shape, dtype, seed, offset=0):
+    """Random cells of ``shape``; with ``offset`` > 0, a contiguous view
+    that many elements into its storage."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    n = shape[0] * shape[1]
+    flat = torch.rand(n + offset, generator=g, device="cuda").to(dtype)
+    return flat[offset:].view(*shape)
+
+
+_SWEEP = jacobi._kernels()["sweep"].func
+
+# (id, body, slots, shape, dtype, offset in elements, the load path it takes)
+PATH_CASES = [
+    ("aligned-8192x256-f32", star2, 1, (8192, 256), torch.float32, 0, "tma"),
+    ("odd-width-4099x4133-f32", star2, 1, (4099, 4133), torch.float32, 0,
+     "cpasync"),
+    ("view-at-4-bytes-f32", star2, 1, (512, 256), torch.float32, 1, "cpasync"),
+    ("aligned-bf16", star2, 1, (512, 256), torch.bfloat16, 0, "tma"),
+    ("even-width-bf16", star2, 1, (256, 300), torch.bfloat16, 0, "cpasync"),
+    ("odd-width-bf16", star2, 1, (257, 301), torch.bfloat16, 0, "ldst"),
+    ("view-at-2-bytes-bf16", star2, 1, (512, 256), torch.bfloat16, 1, "ldst"),
+    ("f64-2-slots", _SWEEP, 2, (1024, 1024), torch.float64, 0, "tma"),
+    ("f64-2-slots-odd-width", _SWEEP, 2, (513, 517), torch.float64, 0,
+     "cpasync"),
+    ("smaller-than-the-halo-f32", star2, 1, (3, 3), torch.float32, 0,
+     "cpasync"),
+]
+
+
+def _paths():
+    return (sk.launches_tma, sk.launches_cpasync, sk.launches_ldst)
+
+
+@pytest.mark.parametrize("name,body,n_slots,shape,dtype,offset,path",
+                         PATH_CASES, ids=[c[0] for c in PATH_CASES])
+def test_stencil_load_paths(name, body, n_slots, shape, dtype, offset, path):
+    """Each load path against the plain version, byte for byte (the bodies
+    add and multiply in the same order in both), and its counter."""
+    slots = tuple(("arr", k) for k in range(n_slots))
+    tr = sk.trace(body, slots)
+    arrs = [_cells(shape, dtype, k, offset) for k in range(n_slots)]
+    assert all(a.is_contiguous() for a in arrs)
+    assert sk.available(body, tr.lo, tr.hi, slots, arrs), name
+    before = _paths()
+    got = sk.run(body, tr.lo, tr.hi, slots, arrs)
+    moved = [b - a for a, b in zip(before, _paths())]
+    assert moved == [int(p == path) for p in sk.PATHS], (name, moved)
+    if min(shape) > tr.hi[0] - tr.lo[0] and min(shape) > tr.hi[1] - tr.lo[1]:
+        want = sk.stencil_reference(body, tr.lo, tr.hi, slots, arrs)
+    else:
+        want = torch.zeros_like(arrs[0])  # every cell is a border cell
+    assert got.dtype == want.dtype
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8)), name
+    assert sk.ctas_per_sm(body, tr.lo, tr.hi, slots, arrs, path) >= 1
+
+
 def test_sstencil_iterate_matches_chained():
     x = rt.fromarray(torch.rand(300, 257, device="cuda"))
     st = rt.stencil(star2)
-    before = sk.launches
+    before, cpasync = sk.launches, sk.launches_cpasync
     it = rt.sstencil_iterate(st, x, 7)._value()
-    assert sk.launches == before + 7
+    # a row of 257 float32 is not a multiple of 16 bytes: cp.async
+    assert sk.launches == before + 7 and sk.launches_cpasync == cpasync + 7
     y = x
     for _ in range(7):
         y = rt.sstencil(st, y)

@@ -231,7 +231,8 @@ def test_neighborhood_and_generated_source():
     tr = sk.trace(star2, (("arr", 0),))
     assert (tr.lo, tr.hi, tr.taps) == ((-2, -2), (2, 2), 8)
     spec = sk.spec_for(tr.expr, tr.lo, tr.hi, 1, torch.float32)
-    assert "launch_stencil<float, 1, 2, 2, 2, 2, Body>" in spec.source
+    assert "launch_stencil<float, 1, 2, 2, 2, 2, 128, 32, 4, 2, Body>" \
+        in spec.source
     assert "s.template tap<0, -2, 0>()" in spec.source
     bf = sk.spec_for(tr.expr, tr.lo, tr.hi, 1, torch.bfloat16)
     assert "launch_stencil<__nv_bfloat16" in bf.source
