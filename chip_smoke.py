@@ -15,8 +15,13 @@ Phases, each reported on its own line:
    (TMA, cp.async, plain loads; each is taken at least once) and whether
    its bytes equal the plain version's; the stencil kernel is timed at
    every shape the main path launches it at, with its host time per
-   launch; elemred's bound counts the FP64-pipe instructions per element
-   in its SASS at the SM clock read under load.
+   launch.  Every elemred check runs twice (reruns byte-equal) and names
+   its load path (bulk copies, plain loads; each is taken); its sincos is
+   held byte for byte against separate sin and cos; it is timed on the
+   main path's program, on axpy + sum and on the chain in float32, with
+   its registers, spills, CTAs per SM, host time per launch, and a bound
+   that counts the FP64-pipe instructions per element in its SASS at the
+   SM clock read under load.
    This phase also holds the repairs: integer ``// 0`` on the elemred and
    stencil kernels against the rule itself, a uint32 chain against NumPy
    and the bf16 stencil kernel exactly against its plain version;
@@ -134,8 +139,8 @@ def bytes_equal(a, b) -> bool:
     import torch
 
     return (a.dtype == b.dtype and a.shape == b.shape
-            and torch.equal(a.contiguous().view(torch.uint8),
-                            b.contiguous().view(torch.uint8)))
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
 
 
 def stencil_paths(sk) -> dict:
@@ -170,52 +175,87 @@ def sm_clock_mhz(fn) -> tuple:
 FP64_PIPE = {"DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET"}
 
 
-def elemred_sass(er, program, leaf_vals) -> dict:
-    """FP64-pipe and all instructions per element of the elemred kernel the
-    program launches, counted in its SASS (``cuobjdump -sass`` of the cubin
-    Triton built).  Each thread computes BLOCK / (32 * NUM_WARPS) elements
-    with the code inlined once per element; the trig functions' slow path
-    (Payne-Hanek, taken for |x| >= 2^31) is one subroutine the inlined code
-    CALLs, counted apart: this run's |x| <= 1e6 never takes it."""
-    import collections
+def cuobjdump() -> str:
     import os
-    import re
     import shutil
 
-    import triton
+    for tool in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
+        if tool and os.path.exists(tool):
+            return tool
+    raise Fail("cuobjdump not found")
 
-    fn = er._module(er.plan_for(program, leaf_vals)).elemred_kernel
-    kernels = []
-    for v in getattr(fn, "device_caches", {}).values():
-        kernels += list((v[0] if isinstance(v, tuple) else v).values())
-    for v in getattr(fn, "cache", {}).values():
-        kernels += list(v.values())
-    if len(kernels) != 1:
-        raise Fail(f"elemred: expected one compiled kernel, found {len(kernels)}")
-    tools = [shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump",
-             os.path.join(os.path.dirname(triton.__file__),
-                          "backends/nvidia/bin/cuobjdump")]
-    tool = next((t for t in tools if t and os.path.exists(t)), None)
-    if tool is None:
-        raise Fail("cuobjdump not found")
+
+def _kernel_section(text, path_code):
+    """The lines of the elemred kernel of load path ``path_code`` (its
+    template argument: 0 bulk, 1 plain) in ``cuobjdump`` output."""
+    lines, keep = [], False
+    for line in text.splitlines():
+        if line.strip().startswith("Function"):
+            name = line.split("Function", 1)[1]
+            keep = "elemred_kernel" in name and f"Li{path_code}E" in name
+            continue
+        if keep:
+            lines.append(line)
+    if not lines:
+        raise Fail("elemred kernel not found in the library")
+    return lines
+
+
+def elemred_resources(er, plan) -> dict:
+    """Registers, stack and local memory per thread of the plan's bulk
+    kernel (``cuobjdump -res-usage`` of the library nvcc built)."""
+    import re
+
     from ramba_tpu_torch import _build
 
-    path = os.path.join(_build.BUILD_DIR, "elemred_main_path.cubin")
-    with open(path, "wb") as f:
-        f.write(kernels[0].asm["cubin"])
-    sass = subprocess.run([tool, "-sass", path], capture_output=True,
-                          text=True, check=True).stdout
-    inline, sub = collections.Counter(), collections.Counter()
-    target = None
-    for line in sass.splitlines():
+    out = subprocess.run([cuobjdump(), "-res-usage",
+                          _build.build_so(plan.name, plan.source)],
+                         capture_output=True, text=True, check=True).stdout
+    sec = " ".join(_kernel_section(out, 0)[:3])
+    got = {k: int(v) for k, v in re.findall(r"(REG|STACK|LOCAL):(\d+)", sec)}
+    return {"registers": got.get("REG"), "stack": got.get("STACK"),
+            "local": got.get("LOCAL")}
+
+
+def elemred_sass(er, plan) -> dict:
+    """FP64-pipe and all instructions per element of the plan's bulk kernel,
+    counted in its SASS (``cuobjdump -sass`` of the library nvcc built):
+    the tile loop (from the target of the kernel's outermost backward
+    branch to that branch) over the elements a thread computes per tile,
+    the whole kernel over the same, and the CALL, LDL and STL counts.  The
+    trig functions' slow path (Payne-Hanek, taken for |x| >= 2^31) is a
+    subroutine the loop CALLs, counted apart: this run's |x| <= 1e6 never
+    takes it."""
+    import collections
+    import re
+
+    from ramba_tpu_torch import _build
+
+    sass = subprocess.run([cuobjdump(), "-sass",
+                           _build.build_so(plan.name, plan.source)],
+                          capture_output=True, text=True, check=True).stdout
+    ins = []
+    for line in _kernel_section(sass, 0):
         m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                      r"([A-Z][A-Z0-9_.]*)(.*)", line)
-        if not m:
-            continue
-        addr, op = int(m.group(1), 16), m.group(2)
-        if op.startswith("CALL") and target is None:
-            target = int(m.group(3).split()[0].rstrip(";"), 16)
-        (sub if target is not None and addr >= target else inline)[op] += 1
+        if m:
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+
+    def target(rest):
+        m = re.search(r"0x([0-9a-f]+)", rest)
+        return int(m.group(1), 16) if m else None
+
+    calls = [target(r) for _a, op, r in ins if op.startswith("CALL")]
+    sub = min((c for c in calls if c is not None), default=None)
+    main = [i for i in ins if sub is None or i[0] < sub]
+    back = [(a - target(r), target(r), a) for a, op, r in main
+            if op.startswith("BRA") and target(r) is not None and target(r) < a]
+    if not back:
+        raise Fail("elemred: no tile loop found in the SASS")
+    _span, lo, hi = max(back)
+    loop = collections.Counter(op for a, op, _r in main if lo <= a <= hi)
+    whole = collections.Counter(op for _a, op, _r in main)
+    subc = collections.Counter(op for a, op, _r in ins if sub is not None and a >= sub)
 
     def fp64(c):
         return sum(k for op, k in c.items()
@@ -223,12 +263,17 @@ def elemred_sass(er, program, leaf_vals) -> dict:
                    or (op.split(".")[0] in ("F2F", "F2I", "I2F", "FRND")
                        and "F64" in op))
 
-    per_thread = er.BLOCK // (32 * er.NUM_WARPS)
-    return {"fp64_per_elem": fp64(inline) / per_thread,
-            "all_per_elem": sum(inline.values()) / per_thread,
-            "slow_path_fp64": fp64(sub), "slow_path_all": sum(sub.values()),
-            "calls": sum(k for op, k in inline.items() if op.startswith("CALL")),
-            "per_thread": per_thread}
+    def count(c, prefix):
+        return sum(k for op, k in c.items() if op.split(".")[0] == prefix)
+
+    ept = plan.ept
+    return {"fp64_per_elem": fp64(loop) / ept,
+            "all_per_elem": sum(loop.values()) / ept,
+            "kernel_fp64_per_elem": fp64(whole) / ept,
+            "kernel_all_per_elem": sum(whole.values()) / ept,
+            "slow_path_fp64": fp64(subc), "slow_path_all": sum(subc.values()),
+            "calls": count(whole, "CALL"), "ldl": count(whole + subc, "LDL"),
+            "stl": count(whole + subc, "STL"), "per_thread": ept}
 
 
 def sum_bound(depth, dtype_name, sum_abs):
@@ -440,8 +485,10 @@ def repair_checks(rt, er, sk, torch, np):
         raise Fail("uint32 chain disagrees with numpy")
 
 
-def phase_build(rt, sk, sg, gb, jacobi):
-    """Build every CUDA kernel of the main path at once."""
+def phase_build(rt, er, sk, sg, gb, jacobi):
+    """Build every CUDA kernel of the run at once: the stencil bodies, the
+    segred instantiations and every elemred program phases 2 and 3
+    launch (one library per program; the source does not depend on n)."""
     import numpy as np
     from ramba_tpu_torch import _build
     from ramba_tpu_torch.core.expr import BF16
@@ -458,11 +505,79 @@ def phase_build(rt, sk, sg, gb, jacobi):
             raise Fail(f"stencil kernel does not take {func.__name__} in {dt}")
         specs.append(spec)
     seg = segred_specs(sg, gb)
+    plans = {p.name: p for p in elemred_plans(rt, er, np)}
     t0 = time.perf_counter()
-    _build.build_many([(s.name, s.source) for s in specs + seg])
-    log(f"phase 1: built {len(specs)} CUDA stencil and {len(seg)} CUDA segred "
-        f"kernels in {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, one "
-        f"process per source, in parallel)")
+    _build.build_many([(s.name, s.source) for s in specs + seg]
+                      + [(p.name, p.source) for p in plans.values()])
+    log(f"phase 1: built {len(specs)} CUDA stencil, {len(seg)} CUDA segred and "
+        f"{len(plans)} CUDA elemred kernels in {time.perf_counter() - t0:.2f} s "
+        f"(nvcc, sm_90a, one process per source, in parallel)")
+
+
+def trig_program(rt, base, twice=False):
+    """The main path's chain over a materialised ``base`` (B = sin(base),
+    C = cos(base), D = B*B + C*C, sum(D)), or with each transcendental
+    spelled twice (four per element)."""
+    def build():
+        if twice:
+            D = rt.sin(base) * rt.sin(base) + rt.cos(base) * rt.cos(base)
+        else:
+            B, C = rt.sin(base), rt.cos(base)
+            D = B * B + C * C
+        return [D, rt.sum(D)]
+    return _program(build)
+
+
+def sincos_program(rt, x):
+    """sin(x), cos(x) and sin^2 + cos^2 as outputs."""
+    return _program(lambda: (lambda B, C: [B, C, B * B + C * C])(
+        rt.sin(x), rt.cos(x)))
+
+
+def axpy_program(rt, x, y):
+    return _program(lambda: (lambda z: [z, rt.sum(z)])(2.5 * x + y))
+
+
+def float_checks(rt, x, y):
+    """(name, expressions) of the elemred checks over float leaves."""
+    return [
+        ("sin/cos+sum", lambda: (lambda D: [D, rt.sum(D)])(
+            rt.sin(x) * rt.sin(x) + rt.cos(x) * rt.cos(x))),
+        ("axpy+sum", lambda: (lambda z: [z, rt.sum(z)])(2.5 * x + y)),
+        ("mean/min/max", lambda: (lambda v: [rt.mean(v), rt.min(v), rt.max(v)])(
+            x * 3.0 - y)),
+        ("sqrt/divide/floor_divide/mod", lambda: [
+            rt.sqrt(x) / (y - 0.5), (x * 7.0) // y, (x * 7.0) % (y - 0.5)]),
+    ]
+
+
+def int_checks(rt, a, b):
+    """(name, expressions) of the elemred checks over integer leaves."""
+    return [("floor_divide/mod+sum", lambda: (lambda c: [c, rt.sum(c)])(
+        (a // b) + (a % b) * 3)),
+        ("a // b, a % b", lambda: [a // b, a % b])]
+
+
+def elemred_plans(rt, er, np):
+    """The plan of every elemred program the run launches, on tiny leaves
+    of the same dtypes (a plan's source does not depend on n)."""
+    rs = np.random.RandomState(0)
+    plans = []
+    for dt in ("float32", "float64"):
+        x = rt.fromarray(rs.rand(64).astype(dt))
+        y = rt.fromarray(rs.rand(64).astype(dt))
+        for _name, f in float_checks(rt, x, y):
+            plans.append(er.plan_for(*_program(f)))
+        for p, lv in (trig_program(rt, x), trig_program(rt, x, True),
+                      sincos_program(rt, x)):
+            plans.append(er.plan_for(p, lv))
+            plans.append(er.plan_for(p, lv, er.CONFIG._replace(sincos=False)))
+    for dt in ("int32", "int64"):
+        a = rt.fromarray(rs.randint(-5, 6, 64).astype(dt))
+        b = rt.fromarray(rs.randint(1, 6, 64).astype(dt))
+        for _name, f in int_checks(rt, a, b):
+            plans.append(er.plan_for(*_program(f)))
+    return plans
 
 
 def _program(exprs_of):
@@ -476,36 +591,49 @@ def _program(exprs_of):
     return fuser.prepare_program(exprs)
 
 
+def elemred_paths(er) -> dict:
+    return {"bulk": er.launches_bulk, "plain": er.launches_plain}
+
+
 def elemred_checks(rt, er, torch, np):
-    """The four test programs at n = 2**24 + 37 (a ragged tail)."""
+    """The test programs at n = 2**24 + 37 (a ragged tail), each launched
+    twice (the reruns must be byte-equal) on aligned leaves (the bulk
+    path) and the float ones again on ``x[1:]`` views (plain loads); then
+    sincos against separate sin and cos, byte for byte."""
     n = (1 << 24) + 37
     rs = np.random.RandomState(0)
     worst = 0.0
-
-    def leaves(dt):
-        x = rt.fromarray(rs.rand(n).astype(dt))
-        y = rt.fromarray(rs.rand(n).astype(dt))
-        return x, y
+    used = {"bulk": 0, "plain": 0}
 
     def compare(name, program, lv, dt, sum_abs=()):
         """Vector outputs elementwise; reductions: exact for integers and
-        min/max, within :func:`sum_bound` of elemred's depth (``sum_abs``
-        in output order; a mean's is sum|x| / n) for float sums and
-        means."""
+        min/max, within :func:`sum_bound` of elemred's depth on this
+        launch's grid (``sum_abs`` in output order; a mean's is sum|x| /
+        n) for float sums and means."""
         nonlocal worst
+        path, grid, ept = er.geometry(program, lv)
+        before = elemred_paths(er)
         got = er.launch(program, lv)
+        again = er.launch(program, lv)
+        moved = {k: v - before[k] for k, v in elemred_paths(er).items()}
+        if moved != {path: 2, **{k: 0 for k in used if k != path}}:
+            raise Fail(f"{name}: path counters moved by {moved}, expected {path}")
+        used[path] += 2
         want = er.elemred_reference(program, lv)
         torch.cuda.synchronize()
+        if not all(bytes_equal(a, b) for a, b in zip(got, again)):
+            raise Fail(f"{name}: rerun not byte-equal")
         bounds = iter(sum_abs)
+        name = f"{name} ({path}, grid {grid})"
         for k, (g, w) in enumerate(zip(got, want)):
-            if g.ndim == 1 and dt == "int32":
+            if g.ndim == 1 and not g.is_floating_point():
                 worst = max(worst, check_close(f"{name} out{k}", g, w, 0,
                                                "integers"))
             elif g.ndim == 1:
                 rtol = 1e-6 if dt == "float32" else 1e-12
                 worst = max(worst, check_close(
                     f"{name} out{k}", g, w, rtol,
-                    f"{dt} elementwise; libdevice and torch math differ by ulps",
+                    f"{dt} elementwise; CUDA's and torch's math differ by ulps",
                     atol=rtol))
             else:
                 b = next(bounds)
@@ -514,39 +642,69 @@ def elemred_checks(rt, er, torch, np):
                                 "integer sum, or min/max: order-independent")
                 else:
                     check_sums(f"{name} red{k}", g, w,
-                               sum_bound(er.depth(n) + 1, dt, float(b)),
+                               sum_bound(er.depth(n, grid, ept) + 1, dt, float(b)),
                                "2*depth*eps*sum|x|, another order")
         return got
 
     for dt in ("float32", "float64"):
-        x, y = leaves(dt)
-        p, lv = _program(lambda: (lambda D: [D, rt.sum(D)])(
-            rt.sin(x) * rt.sin(x) + rt.cos(x) * rt.cos(x)))
-        g1 = compare(f"elemred sin/cos+sum {dt}", p, lv, dt, [2.0 * n])
-        if dt == "float32":
-            g2 = er.launch(p, lv)
-            same = all(torch.equal(a.view(-1).view(torch.uint8),
-                                   b.view(-1).view(torch.uint8))
-                       for a, b in zip(g1, g2))
-            log(f"  elemred sin/cos+sum float32 rerun byte-equal: {same}")
-            if not same:
-                raise Fail("elemred is not deterministic")
-        xs, ys = x._value().double().abs().sum(), y._value().double().abs().sum()
-        p, lv = _program(lambda: (lambda z: [z, rt.sum(z)])(2.5 * x + y))
-        compare(f"elemred axpy+sum {dt}", p, lv, dt, [2.5 * xs + ys])
-        p, lv = _program(lambda: (lambda v: [rt.mean(v), rt.min(v), rt.max(v)])(
-            x * 3.0 - y))
-        compare(f"elemred mean/min/max {dt}", p, lv, dt,
-                [(3.0 * xs + ys) / n, None, None])
-        p, lv = _program(lambda: [rt.sqrt(x) / (y - 0.5), (x * 7.0) // y,
-                                  (x * 7.0) % (y - 0.5)])
-        compare(f"elemred sqrt/divide/floor_divide/mod {dt}", p, lv, dt)
-        del x, y
+        tdt = getattr(torch, dt)
+        xt = torch.from_numpy(rs.rand(n + 1).astype(dt)).cuda()
+        yt = torch.from_numpy(rs.rand(n + 1).astype(dt)).cuda()
+        xs, ys = xt[:n].double().abs().sum(), yt[:n].double().abs().sum()
+        sums = {"sin/cos+sum": [2.0 * n], "axpy+sum": [2.5 * xs + ys],
+                "mean/min/max": [(3.0 * xs + ys) / n, None, None],
+                "sqrt/divide/floor_divide/mod": []}
+        for view in (False, True):
+            x = rt.fromarray(xt[1:] if view else xt[:n].clone())
+            y = rt.fromarray(yt[1:] if view else yt[:n].clone())
+            if view:  # the view's sums differ from the aligned copy's
+                xv, yv = xt[1:].double().abs().sum(), yt[1:].double().abs().sum()
+                sums["axpy+sum"] = [2.5 * xv + yv]
+                sums["mean/min/max"] = [(3.0 * xv + yv) / n, None, None]
+            for name, f in float_checks(rt, x, y):
+                p, lv = _program(f)
+                compare(f"elemred {name} {dt}{' x[1:]' if view else ''}", p, lv,
+                        dt, sums[name])
+            del x, y
+        # sin and cos themselves (sin^2 + cos^2 hides a wrong input), as
+        # one sincos and as separate calls, over |x| < 1e4 plus signed
+        # zeros, infinities, NaN and |x| >= 2^31 (the slow path): each
+        # against the plain version, and the two byte for byte
+        special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                                float("nan"), 2.0 ** 31, -3 * 2.0 ** 31, 1e30,
+                                -1e30, 12345678.9, 1e6, -1e6], dtype=tdt,
+                               device="cuda")
+        xs = (xt[:n] - 0.5) * 2e4
+        xs[:special.numel()] = special
+        x = rt.fromarray(xs)
+        p, lv = sincos_program(rt, x)
+        fused = er.launch(p, lv)
+        apart = er.launch(p, lv, er.CONFIG._replace(sincos=False))
+        want = er.elemred_reference(p, lv)
+        torch.cuda.synchronize()
+        rtol = 1e-6 if dt == "float32" else 1e-12
+        for k, what in enumerate(("sin", "cos")):
+            for got, how in ((fused, "one sincos"), (apart, "separate calls")):
+                fin = torch.isfinite(want[k])
+                worst = max(worst, check_close(
+                    f"elemred {what} |x| < 1e4 {dt} ({how})", got[k][fin],
+                    want[k][fin], rtol, f"{dt} elementwise", atol=rtol))
+        same = all(bytes_equal(a, b) for a, b in zip(fused, apart))
+        log(f"  elemred sincos vs separate sin and cos, {dt}, n={n}, |x| < 1e4 "
+            f"with +-0, +-inf, NaN, |x| >= 2^31: byte-equal {same}")
+        if not same:
+            raise Fail("sincos differs from separate sin and cos")
+        del xt, yt, xs, x, fused, apart, want
     a = rt.fromarray((rs.randint(-1000, 1000, n)).astype(np.int32))
     # divisors of both signs, and some zeros: integer x // 0 and x % 0 are 0
     b = rt.fromarray((rs.randint(0, 50, n) * rs.choice([-1, 1], n)).astype(np.int32))
-    p, lv = _program(lambda: (lambda c: [c, rt.sum(c)])((a // b) + (a % b) * 3))
-    compare("elemred int32 floor_divide/mod+sum", p, lv, "int32", [None])
+    name, f = int_checks(rt, a, b)[0]
+    p, lv = _program(f)
+    compare(f"elemred int32 {name}", p, lv, "int32", [None])
+    log(f"  elemred launches by load path in these checks: {used}; reruns "
+        "byte-equal (every program above launched twice)")
+    if not all(used.values()):
+        raise Fail("an elemred load path went unexercised")
     return worst
 
 
@@ -781,82 +939,8 @@ def phase_kernels(rt, er, sk, sg, jacobi, torch, np, card):
         "shapes": times[1:],
     }
 
-    # -- elemred on the program the main path launches (mat_chain: B =
-    # sin(base), C = cos(base), D = B*B + C*C, sum(D)), and the program
-    # that spells each transcendental twice ------------------------------
-    n = 10 ** 9
-    base = (rt.arange(n) / 1000.0)
-    base_t = base._value()
-
-    def trig_program(twice):
-        def build():
-            if twice:
-                D = rt.sin(base) * rt.sin(base) + rt.cos(base) * rt.cos(base)
-            else:
-                B, C = rt.sin(base), rt.cos(base)
-                D = B * B + C * C
-            return [D, rt.sum(D)]
-        return _program(build)
-
-    p, lv = trig_program(False)
-    p4, lv4 = trig_program(True)
-    del base
-    n_trig = sum(1 for op, st, _a in p.instrs
-                 if op == "map" and st[0] in ("sin", "cos"))
-    if n_trig != 2:
-        raise Fail(f"the main path's chain has {n_trig} transcendentals, expected 2")
-    got = er.launch(p, lv)
-    want = er.elemred_reference(p, lv)
-    torch.cuda.synchronize()
-    er_err = check_close("elemred sin/cos chain n=1e9 f64 (D)", got[0], want[0],
-                         1e-12, "float64 elementwise", atol=1e-12)
-    check_sums("elemred sin/cos chain n=1e9 f64 (sum)", got[1], want[1],
-               sum_bound(er.depth(n), "float64",
-                         float(got[0].abs().sum(dtype=torch.float64))),
-               "2*depth*eps*sum|x|, another order")
-    del got, want
-    ms = cuda_ms(lambda: er.launch(p, lv), 5)
-    plain_ms = cuda_ms(lambda: er.elemred_reference(p, lv), 2)
-    sass = elemred_sass(er, p, lv)
-    def busy():  # about 0.15 s of launches; each result is dropped at once
-        for _ in range(20):
-            er.launch(p, lv)
-
-    clk, clk_max = sm_clock_mhz(busy)
-    er_bytes = 2 * n * 8  # read base, write D
-    fp64_rate = 132 * 64 * clk * 1e6  # FP64-pipe instructions per second
-    t_bytes = er_bytes / HBM_BYTES_PER_S
-    t_ops = n * sass["fp64_per_elem"] / fp64_rate
-    t_issue = n * sass["all_per_elem"] / (132 * 4 * 32 * clk * 1e6)
-    elemred_row = {
-        "name": "elemred", "route": "triton",
-        "source": "ramba_tpu_torch/ops/elemred.py",
-        "replaces": "ramba_tpu/ops/pallas_backend.py:447",
-        "launches": 0, "max_abs_err": max(er_err, elemred_small_err),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
-        "shape": "sin/cos chain + sum, n=1e9 float64, 2 transcendentals (mat_chain)",
-        "fp64_per_elem": sass["fp64_per_elem"], "sm_clock_mhz": clk,
-    }
-    log(f"  elemred SASS: {sass['fp64_per_elem']:.2f} FP64-pipe and "
-        f"{sass['all_per_elem']:.2f} instructions per element ({sass['per_thread']} "
-        f"elements per thread, inlined); the trig slow path (|x| >= 2^31, not "
-        f"taken here) is one subroutine of {sass['slow_path_all']} instructions "
-        f"({sass['slow_path_fp64']} FP64) behind {sass['calls']} calls; SM clock "
-        f"{clk:.0f} MHz under load (max {clk_max:.0f})")
-    log(f"  elemred sin/cos chain n=1e9 f64, 2 transcendentals: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {elemred_row['bound_ms']:.4f} ms "
-        f"({elemred_row['bound_by']}; bytes {1e3 * t_bytes:.4f} ms, FP64 pipe "
-        f"{1e3 * t_ops:.4f} ms at 132 SMs x 64 x {clk:.0f} MHz, all-instruction "
-        f"issue {1e3 * t_issue:.4f} ms at 4 warps x 32 lanes per SM per clock), "
-        f"{elemred_row['bound_ms'] / ms:.1%} of the bound [{card}]")
-    del p, lv
-    ms4 = cuda_ms(lambda: er.launch(p4, lv4), 5)
-    log(f"  elemred sin/cos chain n=1e9 f64, each transcendental spelled twice "
-        f"(4 per element; not the main path's program): kernel {ms4:.4f} ms [{card}]")
-    del p4, lv4, base_t
-    torch.cuda.empty_cache()
+    elemred_row = time_elemred(rt, er, torch, np, card)
+    elemred_row["max_abs_err"] = max(elemred_row["max_abs_err"], elemred_small_err)
 
     x, hour = hourly_series(torch, np, 1 << 28)
     t, _got = time_segred(sg, torch, rt.fromarray(x).groupby(0, hour, 24), "sum",
@@ -874,13 +958,157 @@ def phase_kernels(rt, er, sk, sg, jacobi, torch, np, card):
     return elemred_row, stencil_row, segred_row
 
 
+def time_elemred_case(er, torch, what, p, lv, nbytes, card):
+    """One elemred program on the card: the kernel against the plain version
+    (elementwise and its sum, within the depth bound of this launch's
+    grid), then kernel and plain times (CUDA events) beside the byte
+    bound.  Returns the row's numbers."""
+    n = er.kb.vector_length(lv)
+    plan = er.plan_for(p, lv)
+    dname = str(lv[plan.vec_leaves[0]].dtype).split(".")[1]
+    path, grid, ept = er.geometry(p, lv)
+    got = er.launch(p, lv)
+    want = er.elemred_reference(p, lv)
+    torch.cuda.synchronize()
+    rtol = 1e-12 if dname == "float64" else 1e-6
+    err = check_close(f"{what} (D)", got[0], want[0], rtol,
+                      f"{dname} elementwise", atol=rtol)
+    check_sums(f"{what} (sum)", got[1], want[1],
+               sum_bound(er.depth(n, grid, ept), dname,
+                         float(got[0].abs().sum(dtype=torch.float64))),
+               "2*depth*eps*sum|x|, another order")
+    del want
+    again = er.launch(p, lv)
+    torch.cuda.synchronize()
+    if not all(bytes_equal(a, b) for a, b in zip(got, again)):
+        raise Fail(f"{what}: rerun not byte-equal")
+    del got, again
+    ms = cuda_ms(lambda: er.launch(p, lv), 5)
+    plain_ms = cuda_ms(lambda: er.elemred_reference(p, lv), 2)
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    log(f"  {what}: {path} path, grid {grid}, kernel {ms:.4f} ms "
+        f"({bound_ms / ms:.1%} of its bound), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s), rerun "
+        f"byte-equal [{card}]")
+    return {"shape": what, "path": path, "grid": grid, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None}
+
+
+def time_elemred(rt, er, torch, np, card):
+    """elemred on the program the main path launches (mat_chain: B =
+    sin(base), C = cos(base), D = B*B + C*C, sum(D) at n = 1e9 float64),
+    with its SASS counts, registers, occupancy and host time per launch;
+    the program that spells each transcendental twice; axpy + sum at
+    n = 2^28 float64; the chain at n = 1e9 float32."""
+    n = 10 ** 9
+    base = rt.arange(n) / 1000.0
+    rt.sync()  # a materialised base: the program's one vector leaf
+    p, lv = trig_program(rt, base)
+    p4, lv4 = trig_program(rt, base, True)
+    del base
+    n_trig = sum(1 for op, st, _a in p.instrs
+                 if op == "map" and st[0] in ("sin", "cos"))
+    if n_trig != 2:
+        raise Fail(f"the main path's chain has {n_trig} transcendentals, expected 2")
+    plan, plan4 = er.plan_for(p, lv), er.plan_for(p4, lv4)
+    row = time_elemred_case(er, torch, "elemred sin/cos chain n=1e9 f64", p, lv,
+                            2 * n * 8, card)
+    sass, sass4 = elemred_sass(er, plan), elemred_sass(er, plan4)
+    res = elemred_resources(er, plan)
+    occ = er.ctas_per_sm(plan, row["path"], lv[0].device)
+
+    def busy():  # about 0.1 s of launches; each result is dropped at once
+        for _ in range(20):
+            er.launch(p, lv)
+
+    clk, clk_max = sm_clock_mhz(busy)
+    fp64_rate = 132 * 64 * clk * 1e6  # FP64-pipe instructions per second
+    t_bytes = 2 * n * 8 / HBM_BYTES_PER_S
+    t_ops = n * sass["fp64_per_elem"] / fp64_rate
+    t_issue = n * sass["all_per_elem"] / (132 * 4 * 32 * clk * 1e6)
+    row.update(bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    ms4 = cuda_ms(lambda: er.launch(p4, lv4), 5)
+    del p4, lv4
+    # the host's share: 100 launches at n = 2^16 enqueued without a synchronise
+    small = rt.arange(1 << 16) / 1000.0
+    rt.sync()
+    ps, lvs = trig_program(rt, small)
+    er.launch(ps, lvs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        er.launch(ps, lvs)
+    host_ms = (time.perf_counter() - t0) * 1e3 / 100
+    torch.cuda.synchronize()
+    log(f"  elemred main path's program: {res['registers']} registers, stack "
+        f"{res['stack']} B, local {res['local']} B per thread, {sass['ldl']} LDL "
+        f"and {sass['stl']} STL (spills), {occ} CTAs/SM on the {row['path']} "
+        f"path ({er.NT} threads, {plan.ept} elements per thread per tile, "
+        f"{plan.config.stages} stages, {plan.smem} B of shared memory)")
+    log(f"  elemred SASS: {sass['fp64_per_elem']:.2f} FP64-pipe and "
+        f"{sass['all_per_elem']:.2f} instructions per element in the tile loop "
+        f"({sass['kernel_fp64_per_elem']:.2f} and {sass['kernel_all_per_elem']:.2f} "
+        f"over the whole kernel), {sass['calls']} CALLs to the trig slow path "
+        f"(|x| >= 2^31, not taken here; {sass['slow_path_all']} instructions, "
+        f"{sass['slow_path_fp64']} FP64); SM clock {clk:.0f} MHz under load "
+        f"(max {clk_max:.0f})")
+    log(f"  elemred sin/cos chain n=1e9 f64, 2 transcendentals: kernel "
+        f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}; bytes {1e3 * t_bytes:.4f} "
+        f"ms, FP64 pipe {1e3 * t_ops:.4f} ms at 132 SMs x 64 x {clk:.0f} MHz, "
+        f"all-instruction issue {1e3 * t_issue:.4f} ms at 4 warps x 32 lanes per "
+        f"SM per clock), {row['bound_ms'] / row['ms']:.1%} of the bound; host "
+        f"{host_ms:.4f} ms per launch enqueued [{card}]")
+    merged = (sass4["all_per_elem"] == sass["all_per_elem"]
+              and sass4["fp64_per_elem"] == sass["fp64_per_elem"])
+    log(f"  elemred sin/cos chain n=1e9 f64, each transcendental spelled twice "
+        f"(4 per element; not the main path's program): kernel {ms4:.4f} ms, "
+        f"{sass4['fp64_per_elem']:.2f} FP64-pipe and {sass4['all_per_elem']:.2f} "
+        f"instructions per element: "
+        + ("the same as the main path's program: the compiler merged the "
+           "repeated calls" if merged else "more than the main path's program: "
+           "the repeated calls are computed") + f" [{card}]")
+    torch.cuda.empty_cache()
+
+    m = 1 << 28
+    x = rt.sin(rt.arange(m) * 1e-3)
+    y = rt.cos(rt.arange(m) * 1e-3)
+    rt.sync()
+    pa, lva = axpy_program(rt, x, y)
+    del x, y
+    axpy = time_elemred_case(er, torch, "elemred axpy+sum n=2^28 f64", pa, lva,
+                             3 * m * 8, card)
+    del pa, lva
+    torch.cuda.empty_cache()
+    b32 = rt.fromarray(torch.arange(n, device="cuda", dtype=torch.float32) / 1000.0)
+    pf, lvf = trig_program(rt, b32)
+    del b32
+    f32 = time_elemred_case(er, torch, "elemred sin/cos chain n=1e9 f32", pf, lvf,
+                            2 * n * 4, card)
+    del pf, lvf
+    torch.cuda.empty_cache()
+    return {"name": "elemred", "route": "cuda",
+            "source": "ramba_tpu_torch/csrc/elemred.cuh",
+            "replaces": "ramba_tpu/ops/pallas_backend.py:447",
+            "launches": 0, **row,
+            "shape": "sin/cos chain + sum, n=1e9 float64, 2 transcendentals (mat_chain)",
+            "fp64_per_elem": sass["fp64_per_elem"],
+            "all_per_elem": sass["all_per_elem"], "sm_clock_mhz": clk,
+            "registers": res["registers"], "local_bytes": res["local"],
+            "spill_ldl_stl": sass["ldl"] + sass["stl"], "ctas_per_sm": occ,
+            "host_ms": host_ms, "four_transcendentals_ms": ms4,
+            "shapes": [axpy, f32]}
+
+
 def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card):
     """The main path through the user API, launch counts around each."""
     log("phase 3: main path through `import ramba_tpu_torch as rt`")
     totals = {"elemred": 0, "stencil": 0, "segred": 0}
 
     def window(name, fn, need):
-        er.launches = 0
+        er.launches = er.launches_bulk = er.launches_plain = 0
         sk.launches = sk.launches_tma = sk.launches_cpasync = 0
         sk.launches_ldst = 0
         sg.launches = 0
@@ -889,6 +1117,8 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card):
                "segred": sg.launches}
         if sk.launches:
             log(f"  {name}: stencil launches by load path {stencil_paths(sk)}")
+        if er.launches:
+            log(f"  {name}: elemred launches by load path {elemred_paths(er)}")
         for k in totals:
             totals[k] += got[k]
         for k, want in need.items():
@@ -1128,7 +1358,7 @@ def main(argv) -> int:
     log(f"phase 1: device {torch.cuda.get_device_name(0)} ({card}), "
         f"torch {torch.__version__}, cuda {torch.version.cuda}")
     t_all = time.perf_counter()
-    phase_build(rt, sk, sg, gb, jacobi)
+    phase_build(rt, er, sk, sg, gb, jacobi)
     rows = phase_kernels(rt, er, sk, sg, jacobi, torch, np, card)
     if "--quick" not in argv:
         totals = phase_main_path(rt, er, sk, sg, jacobi, torch, np, card)

@@ -2,8 +2,8 @@
 
 A NumPy drop-in whose operations are deferred into a lazy expression graph,
 fused at flush time into one program per flush and run on an NVIDIA GPU.
-Fused elementwise(+reduce) chains run through a generated Triton kernel
-(``ops/elemred.py``); 2-D stencils run through a hand-written CUDA C++ tile
+Fused elementwise(+reduce) chains run through a hand-written CUDA C++
+kernel (``ops/elemred.py``, ``csrc/elemred.cuh``); 2-D stencils run through a hand-written CUDA C++ tile
 kernel (``ops/stencil_kernel.py``, ``csrc/stencil_tile.cuh``); groupby's
 segment reductions run through a hand-written CUDA C++ kernel
 (``ops/segred.py``, ``csrc/segred.cuh``).

@@ -1,14 +1,11 @@
 """Build step for the hand-written kernels.
 
 Kernels are built at first use, from the sources in this package only, into
-``ramba_tpu_torch/_build/`` (listed in ``.gitignore``):
-
-* generated Triton sources are written there and imported (Triton needs a
-  real file to read a kernel's source from);
-* CUDA C++ sources go through ``nvcc`` into shared libraries with a plain C
-  entry point, loaded with ``ctypes``.  No PyTorch headers are included, so
-  a build takes seconds.  Each build is cached by the hash of its source,
-  the headers it includes and the flags.
+``ramba_tpu_torch/_build/`` (listed in ``.gitignore``): every generated CUDA
+C++ source (elemred, stencil, segred) goes through ``nvcc`` into a shared
+library with a plain C entry point, loaded with ``ctypes``.  No PyTorch
+headers are included, so a build takes seconds.  Each build is cached by
+the hash of its source, the headers of ``csrc/`` and the flags.
 
 A failed build raises with the compiler's output; nothing falls back.
 """

@@ -441,13 +441,22 @@ def floor_div_by_zero(a: torch.Tensor) -> torch.Tensor:
     return torch.where(a == 0, torch.full_like(a, -1), torch.full_like(a, -2))
 
 
-def _int_zero_safe(fn, by_zero):
+def _float_floor_divide(a, b):
+    """Float ``a // b`` as ``ramba_tpu`` gives it: NumPy's quotient, but a
+    zero quotient takes the divisor's sign (jnp computes ``(a - fmod(a, b))
+    / b``, whose numerator is +0 there), so ``-0.0 // 2.0`` is 0.0 and
+    ``-0.0 // -2.0`` is -0.0; NumPy signs it by ``a / b`` instead."""
+    q = torch.floor_divide(a, b)
+    return torch.where(q == 0, torch.copysign(torch.zeros_like(q), b), q)
+
+
+def _int_zero_safe(fn, by_zero, float_fn=None):
     """Integer division by zero gives ``by_zero(a)`` where torch raises;
-    floats keep IEEE inf/nan."""
+    floats keep IEEE inf/nan (through ``float_fn`` where given)."""
 
     def op(a, b):
         if a.is_floating_point() or a.is_complex():
-            return fn(a, b)
+            return (float_fn or fn)(a, b)
         if a.dtype == torch.bool:
             a, b = a.to(torch.int8), b.to(torch.int8)
         zero = b == 0
@@ -461,8 +470,10 @@ BINARY: dict[str, Callable] = {
     "add": torch.add, "subtract": torch.sub, "multiply": torch.mul,
     "true_divide": torch.true_divide, "divide": torch.true_divide,
     # floored division and modulo with numpy's signs (torch implements
-    # numpy's npy_divmod for floats); integer x % 0 is 0 in both packages
-    "floor_divide": _int_zero_safe(torch.floor_divide, floor_div_by_zero),
+    # numpy's npy_divmod for floats), zero quotients signed as in ramba_tpu;
+    # integer x % 0 is 0 in both packages
+    "floor_divide": _int_zero_safe(torch.floor_divide, floor_div_by_zero,
+                                   _float_floor_divide),
     "mod": _int_zero_safe(torch.remainder, torch.zeros_like),
     "remainder": _int_zero_safe(torch.remainder, torch.zeros_like),
     "fmod": _int_zero_safe(torch.fmod, torch.zeros_like),

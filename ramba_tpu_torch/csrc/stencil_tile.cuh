@@ -91,6 +91,9 @@
 
 #include <mutex>
 
+#include "mbarrier.cuh"
+#include "ufunc.cuh"  // the NumPy helpers the generated bodies call
+
 namespace ramba {
 // Every generated source builds its own library from this header, and two
 // bodies with the same dtype, slots, halo and geometry instantiate the
@@ -136,74 +139,6 @@ template <> struct Elem<__nv_bfloat16> {
   }
 };
 
-// NumPy's semantics for the few ufuncs C spells differently.
-
-template <typename X> __device__ __forceinline__ X nan_max(X a, X b) {
-  return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
-}
-
-template <typename X> __device__ __forceinline__ X nan_min(X a, X b) {
-  return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
-}
-
-template <typename X> __device__ __forceinline__ X sign(X a) {
-  return (a != a) ? a : (a > X(0) ? X(1) : (a < X(0) ? X(-1) : X(0)));
-}
-
-// floored modulo: the result takes the divisor's sign
-__device__ __forceinline__ float floor_mod(float a, float b) {
-  float m = fmodf(a, b);
-  if (m != 0.0f && ((m < 0.0f) != (b < 0.0f))) m += b;
-  return m;
-}
-
-__device__ __forceinline__ double floor_mod(double a, double b) {
-  double m = fmod(a, b);
-  if (m != 0.0 && ((m < 0.0) != (b < 0.0))) m += b;
-  return m;
-}
-
-__device__ __forceinline__ long long floor_mod(long long a, long long b) {
-  if (b == 0) return 0;  // integer x % 0 == 0, as in ramba_tpu
-  long long m = a % b;
-  if (m != 0 && ((m < 0) != (b < 0))) m += b;
-  return m;
-}
-
-// floored division, as numpy's npy_divmod computes it for floats
-__device__ __forceinline__ float floor_div(float a, float b) {
-  if (b == 0.0f) return a / b;
-  float m = fmodf(a, b);
-  float d = (a - m) / b;
-  if (m != 0.0f && ((m < 0.0f) != (b < 0.0f))) d -= 1.0f;
-  if (d != 0.0f) {
-    float f = floorf(d);
-    if (d - f > 0.5f) f += 1.0f;
-    return f;
-  }
-  return copysignf(0.0f, a / b);
-}
-
-__device__ __forceinline__ double floor_div(double a, double b) {
-  if (b == 0.0) return a / b;
-  double m = fmod(a, b);
-  double d = (a - m) / b;
-  if (m != 0.0 && ((m < 0.0) != (b < 0.0))) d -= 1.0;
-  if (d != 0.0) {
-    double f = floor(d);
-    if (d - f > 0.5) f += 1.0;
-    return f;
-  }
-  return copysign(0.0, a / b);
-}
-
-__device__ __forceinline__ long long floor_div(long long a, long long b) {
-  if (b == 0) return a == 0 ? -1 : -2;  // signed x // 0, as in ramba_tpu
-  long long q = a / b;
-  if ((a % b != 0) && ((a < 0) != (b < 0))) q -= 1;
-  return q;
-}
-
 template <typename T, int NSLOT> struct Ptrs {
   const T* p[NSLOT];
 };
@@ -247,34 +182,6 @@ struct Tap {
         smem[SLOT * R::SLOT_ELEMS + (r + TOP + DI) * R::SW + (c + DJ)]);
   }
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-// Wait until the barrier's phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n"
-      :: "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {

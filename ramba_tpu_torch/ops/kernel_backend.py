@@ -6,7 +6,7 @@ hand-written kernels take.  Families:
 
 * **elemred** — fused elementwise(+cast/round) chains over 1-D operands,
   optionally ending in whole-array ``sum/prod/min/max/mean`` reductions
-  (``ops/elemred.py``, a Triton kernel generated per program);
+  (``ops/elemred.py``, a CUDA C++ kernel generated per program);
 * **segred** — masked segment reductions (groupby) over 1-D data with
   integer labels (``ops/segred.py``, CUDA C++);
 * **stencil** — the 2-D stencil kernel (``ops/stencil_kernel.py``, CUDA

@@ -13,7 +13,8 @@ tap expression: taps ``(slot, di, dj)``, literals, ``+ - * / **``, unary
 minus, the NumPy ufuncs a body may call, and the comparisons and ``where``
 that the two-sided branch trace produces.  Each operation is typed by the
 port's NumPy rule table and emitted as C++ with explicit casts into the
-body of the kernel template; ``nvcc`` builds it for ``sm_90a`` into a
+body of the kernel template (``ops/cuda_expr.py``, the emitter elemred
+shares); ``nvcc`` builds it for ``sm_90a`` into a
 shared library with a plain C entry point, loaded with ``ctypes`` and
 cached by the hash of its source.
 
@@ -68,7 +69,7 @@ import torch
 
 from ramba_tpu_torch import _build
 from ramba_tpu_torch.core import expr as E
-from ramba_tpu_torch.core.expr import Aval
+from ramba_tpu_torch.ops import cuda_expr as cx
 from ramba_tpu_torch.ops import kernel_backend as kb
 from ramba_tpu_torch.skeletons import (
     KernelTraceError, _combine_branches, _explore_branches, decide,
@@ -98,28 +99,11 @@ TW_MAX = 128
 _KERNEL_DTYPES = ("float32", "float64", "bfloat16")
 
 
-def _dtype_name(dt) -> str:
-    return "bfloat16" if E.is_bf16(dt) else np.dtype(dt).name
-
-
 # ---------------------------------------------------------------------------
 # tracer: stencil body -> tap expression
 # ---------------------------------------------------------------------------
 
 # ufuncs the code generator emits (everything else makes a body opaque)
-_UNARY_C = {
-    "exp": "exp", "exp2": "exp2", "expm1": "expm1", "log": "log",
-    "log2": "log2", "log10": "log10", "log1p": "log1p", "sin": "sin",
-    "cos": "cos", "tan": "tan", "sinh": "sinh", "cosh": "cosh",
-    "tanh": "tanh", "arcsin": "asin", "arccos": "acos", "arctan": "atan",
-    "arcsinh": "asinh", "arccosh": "acosh", "arctanh": "atanh",
-    "floor": "floor", "ceil": "ceil", "trunc": "trunc", "rint": "rint",
-    "sqrt": "sqrt",
-}
-_BINARY_C = {"arctan2": "atan2", "hypot": "hypot", "power": "pow",
-             "fmax": "fmax", "fmin": "fmin"}
-_CMP = {"equal": "==", "not_equal": "!=", "less": "<", "less_equal": "<=",
-        "greater": ">", "greater_equal": ">="}
 _OTHER = frozenset({
     "add", "subtract", "multiply", "true_divide", "floor_divide", "mod",
     "remainder", "maximum", "minimum", "logical_and", "logical_or",
@@ -127,7 +111,8 @@ _OTHER = frozenset({
     "fabs", "square", "sign", "isnan", "isinf", "isfinite", "where",
     "bitwise_and", "bitwise_or", "bitwise_xor", "invert",
 })
-SUPPORTED = frozenset(_UNARY_C) | frozenset(_BINARY_C) | frozenset(_CMP) | _OTHER
+SUPPORTED = (frozenset(cx.UNARY_C) | frozenset(cx.BINARY_C) | frozenset(cx.CMP)
+             | _OTHER)
 
 
 class Sym:
@@ -457,174 +442,8 @@ def load_path(geo: Geometry, H, W, itemsize, ptrs) -> str:
 # code generation: tap expression -> CUDA C++ body
 # ---------------------------------------------------------------------------
 
-_CTYPE = {"bool": "bool", "int32": "int", "int64": "long long",
-          "float32": "float", "float64": "double", "bfloat16": "float"}
 _STORAGE = {"float32": "float", "float64": "double",
             "bfloat16": "__nv_bfloat16"}
-
-
-class _Unsupported(Exception):
-    pass
-
-
-def _ctype(dt) -> str:
-    name = _dtype_name(dt)
-    if name not in _CTYPE:
-        raise _Unsupported(f"dtype {name}")
-    return _CTYPE[name]
-
-
-def _float_lit(v: float, ct: str) -> str:
-    if np.isnan(v):
-        return f"(({ct})NAN)"
-    if np.isinf(v):
-        return f"(({ct})({'-' if v < 0 else ''}INFINITY))"
-    return f"(({ct}){float(v)!r})"
-
-
-def _lit_code(v, dt) -> str:
-    """A literal in dtype ``dt``, rounded to it exactly as a cast would."""
-    name = _dtype_name(dt)
-    if name == "bool":
-        return "true" if bool(v) else "false"
-    if name in ("int32", "int64"):
-        return f"(({_CTYPE[name]}){int(v)}LL)"
-    if name == "bfloat16":
-        v = float(np.asarray(v, np.float32).astype(E.BF16).astype(np.float32))
-    elif name == "float32":
-        v = float(np.float32(v))
-    return _float_lit(float(v), _CTYPE[name])
-
-
-def _round_bf16(code: str) -> str:
-    return f"__bfloat162float(__float2bfloat16_rn({code}))"
-
-
-class _Gen:
-    """Types every node with the rule table and emits its C++."""
-
-    def __init__(self, slot_dt):
-        self.slot_dt = np.dtype(slot_dt)
-
-    def node(self, n: Sym):
-        """(code | None for a literal, aval, literal value)."""
-        if n.kind == "tap":
-            slot, di, dj = n.arg
-            return f"s.template tap<{slot}, {di}, {dj}>()", \
-                Aval((), self.slot_dt, False), None
-        if n.kind == "lit":
-            return None, E.aval_of(n.arg), n.arg
-        parts = [self.node(a) for a in n.args]
-        avals = [p[1] for p in parts]
-        try:
-            casts, out_dt = E.map_dtypes(n.arg, avals)
-        except TypeError as e:
-            raise _Unsupported(str(e)) from e
-        for d in list(casts) + [out_dt]:
-            if d is not None:
-                _ctype(d)
-        args = [self.cast(p, np.dtype(bool) if d is None else d)
-                for p, d in zip(parts, casts)]
-        loop_dt = casts[-1] if casts[-1] is not None else out_dt
-        code, res_dt = self.op(n.arg, args, np.dtype(loop_dt))
-        if E.is_bf16(res_dt):
-            # a bfloat16 op computes in float and rounds its result, as
-            # torch and the JAX package do
-            code = _round_bf16(code)
-        code = self.cast((code, Aval((), res_dt), None), out_dt)
-        return code, Aval((), np.dtype(out_dt), False), None
-
-    def cast(self, part, dst) -> str:
-        code, av, lit = part
-        dst = np.dtype(dst)
-        if code is None:
-            return _lit_code(lit, dst)
-        src = av.dtype
-        if src == dst or (_ctype(src) == _ctype(dst)
-                          and not (E.is_bf16(dst) and not E.is_bf16(src))):
-            return code
-        if dst == np.dtype(bool):
-            return f"(({code}) != 0)"
-        if E.is_bf16(dst):
-            return _round_bf16(f"(float)({code})")
-        return f"(({_ctype(dst)})({code}))"
-
-    @staticmethod
-    def op(fname, a, dt):
-        ct = _ctype(dt)
-        fl = ct in ("float", "double")
-        sfx = "f" if ct == "float" else ""
-        boolean = ct == "bool"
-        if fname in _CMP:
-            return f"({a[0]} {_CMP[fname]} {a[1]})", np.dtype(bool)
-        if fname in ("logical_and", "logical_or", "logical_xor"):
-            op = {"logical_and": "&&", "logical_or": "||",
-                  "logical_xor": "!="}[fname]
-            return (f"((({a[0]}) != 0) {op} (({a[1]}) != 0))",
-                    np.dtype(bool))
-        if fname == "logical_not":
-            return f"(({a[0]}) == 0)", np.dtype(bool)
-        if fname in ("bitwise_and", "bitwise_or", "bitwise_xor"):
-            if fl:
-                raise _Unsupported(f"{fname} on {ct}")
-            op = {"bitwise_and": "&", "bitwise_or": "|", "bitwise_xor": "^"}
-            bop = {"bitwise_and": "&&", "bitwise_or": "||",
-                   "bitwise_xor": "!="}
-            return (f"({a[0]} {(bop if boolean else op)[fname]} {a[1]})",
-                    dt)
-        if fname == "invert":
-            if fl:
-                raise _Unsupported(f"invert on {ct}")
-            return (f"(!{a[0]})" if boolean else f"(~{a[0]})"), dt
-        if fname in ("isnan", "isinf", "isfinite"):
-            if not fl:
-                return ("false" if fname != "isfinite" else "true"), \
-                    np.dtype(bool)
-            return f"{fname}({a[0]})", np.dtype(bool)
-        if fname == "where":
-            return f"(({a[0]}) ? ({a[1]}) : ({a[2]}))", dt
-        if fname == "add":
-            return (f"({a[0]} || {a[1]})" if boolean
-                    else f"({a[0]} + {a[1]})"), dt
-        if fname == "multiply":
-            return (f"({a[0]} && {a[1]})" if boolean
-                    else f"({a[0]} * {a[1]})"), dt
-        if boolean:
-            raise _Unsupported(f"{fname} on bool")
-        if fname == "subtract":
-            return f"({a[0]} - {a[1]})", dt
-        if fname == "true_divide":
-            if not fl:
-                raise _Unsupported("integer true_divide")
-            return f"({a[0]} / {a[1]})", dt
-        if fname in ("floor_divide", "mod", "remainder"):
-            fn = "floor_div" if fname == "floor_divide" else "floor_mod"
-            if fl:
-                return f"ramba::{fn}({a[0]}, {a[1]})", dt
-            # the header's integer overloads take long long
-            return (f"(({ct})ramba::{fn}((long long)({a[0]}), "
-                    f"(long long)({a[1]})))"), dt
-        if fname == "maximum":
-            return f"ramba::nan_max<{ct}>({a[0]}, {a[1]})", dt
-        if fname == "minimum":
-            return f"ramba::nan_min<{ct}>({a[0]}, {a[1]})", dt
-        if fname == "negative":
-            return f"(-{a[0]})", dt
-        if fname == "positive":
-            return f"({a[0]})", dt
-        if fname in ("absolute", "abs", "fabs"):
-            return (f"fabs{sfx}({a[0]})" if fl else f"llabs({a[0]})"), dt
-        if fname == "square":
-            return f"({a[0]} * {a[0]})", dt
-        if fname == "sign":
-            return f"ramba::sign<{ct}>({a[0]})", dt
-        if not fl:
-            raise _Unsupported(f"{fname} on {ct}")
-        if fname in _UNARY_C:
-            return f"{_UNARY_C[fname]}{sfx}({a[0]})", dt
-        if fname in _BINARY_C:
-            return f"{_BINARY_C[fname]}{sfx}({a[0]}, {a[1]})", dt
-        raise _Unsupported(fname)
 
 
 class Spec(NamedTuple):
@@ -655,7 +474,7 @@ def spec_for(expr: Sym, lo, hi, n_slots: int, dtype) -> Optional[Spec]:
 
 
 def _make_spec(expr, lo, hi, n_slots, dtype) -> Optional[Spec]:
-    name = _dtype_name(dtype)
+    name = cx.dtype_name(dtype)
     if expr is None or name not in _KERNEL_DTYPES or len(lo) != 2:
         return None
     top, left = -lo[0], -lo[1]
@@ -667,12 +486,12 @@ def _make_spec(expr, lo, hi, n_slots, dtype) -> Optional[Spec]:
     if geo is None:
         return None
     try:
-        code, av, lit = _Gen(dtype).node(expr)
-    except _Unsupported:
+        code, av, lit = cx.Gen(dtype).node(expr)
+    except cx.Unsupported:
         return None
-    if code is None or _dtype_name(av.dtype) != name:
+    if code is None or cx.dtype_name(av.dtype) != name:
         return None  # a literal body, or a result in another dtype
-    ct, st = _CTYPE[name], _STORAGE[name]
+    ct, st = cx.CTYPE[name], _STORAGE[name]
     args = (f"{st}, {n_slots}, {top}, {bottom}, {left}, {right}, "
             f"{geo.tw}, {geo.bh}, {geo.stages}, {geo.min_ctas}, Body")
     source = f"""// generated by ramba_tpu_torch/ops/stencil_kernel.py
@@ -718,7 +537,7 @@ def available_local(arrs) -> bool:
         return False
     dtypes = {a.dtype for a in arrs}
     return len(dtypes) == 1 and \
-        _dtype_name(E.to_np_dtype(arrs[0].dtype)) in _KERNEL_DTYPES
+        cx.dtype_name(E.to_np_dtype(arrs[0].dtype)) in _KERNEL_DTYPES
 
 
 def _spec(func, lo, hi, slots, arrs) -> Optional[Spec]:

@@ -8,9 +8,10 @@ installed; on the card, from the repo root (``--noconftest`` skips
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerances: integers and bools exact; float64 rtol=atol=1e-12 and float32
-rtol=atol=1e-6 (libdevice and torch's CUDA math may differ by ulps);
+rtol=atol=1e-6 (CUDA's math library as the kernels call it and torch's
+may differ by ulps);
 bfloat16 rtol=1e-2 with atol=1e-2 times the largest |value| (both round
-every op to bf16, but libdevice's and torch's transcendental functions may
+every op to bf16, but CUDA's and torch's transcendental functions may
 round to neighbouring bf16 values); float sums within n * eps * sum|x|
 (another reduction order); segred's float sums within 2 * depth(n) * eps *
 sum|x_g| per group (``segred.depth``: the kernel's rounding depth) and its
@@ -147,6 +148,156 @@ def test_reductions(red, dtype):
                       else src.to(dtype) - 3))
     v = x * 1 if dtype == torch.bool else x + 1
     _kernel_vs_plain([getattr(rt, red)(v)], f"{red} {dtype}")
+
+
+def _elemred_paths():
+    return (elemred.launches_bulk, elemred.launches_plain)
+
+
+def _bytes_equal(a, b):
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("view", [False, True], ids=["aligned", "view-x[1:]"])
+def test_elemred_load_paths(dtype, view):
+    """Aligned leaves take the bulk-copy ring, an ``x[1:]`` view (its base
+    one element past 16 bytes) plain loads; both against the plain version,
+    and each rerun byte-equal."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    xt = torch.rand(N + 1, generator=g, device="cuda", dtype=dtype)
+    yt = torch.rand(N + 1, generator=g, device="cuda", dtype=dtype)
+    x = rt.fromarray(xt[1:] if view else xt[:N].clone())
+    y = rt.fromarray(yt[1:] if view else yt[:N].clone())
+    D = rt.sin(x) * rt.cos(y) + x / (y + 0.5)
+    p, vals = fuser.prepare_program([D.read_expr(), rt.sum(D).read_expr(),
+                                     rt.max(x - y).read_expr()])
+    path = "plain" if view else "bulk"
+    assert elemred.geometry(p, vals)[0] == path
+    before = _elemred_paths()
+    got = elemred.run(p, vals)
+    again = elemred.run(p, vals)
+    moved = [b - a for a, b in zip(before, _elemred_paths())]
+    assert moved == [2 * (q == path) for q in elemred.PATHS], moved
+    assert all(_bytes_equal(a, b) for a, b in zip(got, again))
+    want = elemred.elemred_reference(p, vals)
+    _close(got[0], want[0], f"{path} D")
+    path_, grid, ept = elemred.geometry(p, vals)
+    bound = 2 * elemred.depth(N, grid, ept) * EPS[dtype] * \
+        want[0].double().abs().sum().item()
+    assert abs(got[1].item() - want[1].item()) <= bound
+    assert torch.equal(got[2], want[2])
+
+
+def test_elemred_bool_int_programs():
+    """bool, int32 and int64 leaves in one program, with integer and
+    float reductions, against the plain version: integers exactly."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    m = rt.fromarray(torch.rand(N, generator=g, device="cuda") > 0.3)
+    i = rt.fromarray(torch.randint(-1000, 1000, (N,), generator=g, device="cuda",
+                                   dtype=torch.int32))
+    k = rt.fromarray(torch.randint(-(1 << 40), 1 << 40, (N,), generator=g,
+                                   device="cuda", dtype=torch.int64))
+    c = rt.where(m, i * 3 - 7, k // 5) + (i % 13)
+    _kernel_vs_plain([c, rt.sum(c), rt.min(c), rt.max(k), rt.prod(i % 3 + 1),
+                      rt.sum(m), rt.mean(i), rt.logical_and(m, i > 0)],
+                     "bool/int32/int64")
+
+
+def test_elemred_device_scalar_leaf():
+    """A reduction's result on the card as a scalar operand of the next
+    program (a 0-d CUDA tensor leaf, read by the kernel through its
+    pointer): x - mean(x)."""
+    x = _leaf(-2.0, 3.0, torch.float64, 15)
+    m = rt.mean(x)
+    m_val = m._value()
+    assert m_val.ndim == 0 and m_val.is_cuda
+    p, vals = fuser.prepare_program([(x - m).read_expr(), rt.max(x * m).read_expr()])
+    plan = elemred.plan_for(p, vals)
+    assert "dev" in plan.kinds
+    _kernel_vs_plain([x - m, rt.max(x * m)], "x - mean(x)")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_elemred_sincos_equals_sin_and_cos(dtype):
+    """One sincos per operand gives the bytes of separate sin and cos,
+    over 2^24 values and +-0, +-inf, NaN and |x| >= 2^31 (the slow path)."""
+    n = 1 << 24
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    xt = (torch.rand(n, generator=g, device="cuda", dtype=torch.float64) - 0.5) \
+        * 2e4
+    special = [0.0, -0.0, float("inf"), -float("inf"), float("nan"), 2.0 ** 31,
+               -2.0 ** 31, 3 * 2.0 ** 40, 1e30, -1e30, 1e6, 0.5]
+    xt[:len(special)] = torch.tensor(special, dtype=torch.float64)
+    x = rt.fromarray(xt.to(dtype))
+    B, C = rt.sin(x), rt.cos(x)
+    p, vals = fuser.prepare_program([B.read_expr(), C.read_expr(),
+                                     (B * B + C * C).read_expr()])
+    fused = elemred.plan_for(p, vals)
+    apart = elemred.plan_for(p, vals, elemred.CONFIG._replace(sincos=False))
+    assert "sincos" in fused.source and "sincos" not in apart.source
+    one = elemred.launch(p, vals)
+    two = elemred.launch(p, vals, elemred.CONFIG._replace(sincos=False))
+    assert all(_bytes_equal(a, b) for a, b in zip(one, two))
+    want = elemred.elemred_reference(p, vals)
+    for a, w in zip(one, want):
+        _close(a, w, "sin/cos vs torch")
+
+
+def test_elemred_64bit_indexing():
+    """A bool sum over n = 2^31 + 17 elements: indices past 2^31."""
+    n = (1 << 31) + 17
+    t = torch.zeros(n, dtype=torch.bool, device="cuda")
+    t[::3] = True
+    t[-5:] = True
+    x = rt.fromarray(t)
+    s = rt.sum(x)
+    p, vals = fuser.prepare_program([s.read_expr()])
+    assert kb.classify(p, vals) == "elemred"
+    before = elemred.launches
+    (got,) = elemred.run(p, vals)
+    assert elemred.launches == before + 1
+    want = int(t.sum().item())
+    assert got.dtype == torch.int64 and int(got.item()) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_floor_divide_signed_zeros_on_the_kernels(dtype):
+    """-0.0 // 2.0 is 0.0 and -0.0 // -2.0 is -0.0 (ramba_tpu's signs) in
+    elemred and in the stencil kernel: sign bits against the plain version
+    and against the rule."""
+    a = torch.tensor([-0.0, 0.0, 1.5, -1.5, 3.0, -3.0, 0.25, -7.0] * 2,
+                     dtype=dtype, device="cuda").repeat(512)
+    b = torch.tensor([2.0] * 8 + [-2.0] * 8, dtype=dtype,
+                     device="cuda").repeat(512)
+    q = rt.fromarray(a) // rt.fromarray(b)
+    p, vals = fuser.prepare_program([q.read_expr()])
+    (got,) = elemred.run(p, vals)
+    (want,) = elemred.elemred_reference(p, vals)
+    assert _bytes_equal(got, want)
+    zero = got == 0
+    assert torch.equal(torch.signbit(got[zero]), torch.signbit(b[zero]))
+    assert not torch.signbit(got[1]) and torch.signbit(got[9])  # 0 // -2 is -0
+
+    def zdiv(s):
+        return (s[0, 0] * 0.0) // s[0, 1]
+
+    slots = (("arr", 0),)
+    tr = sk.trace(zdiv, slots)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(14)
+    arr = torch.randn(64, 96, generator=g, device="cuda").to(dtype)
+    assert sk.available(zdiv, tr.lo, tr.hi, slots, [arr])
+    out = sk.run(zdiv, tr.lo, tr.hi, slots, [arr])
+    ref = sk.stencil_reference(zdiv, tr.lo, tr.hi, slots, [arr])
+    assert _bytes_equal(out, ref)
+    inner = out[:, :-1]
+    assert torch.equal(torch.signbit(inner), torch.signbit(arr[:, 1:]))
 
 
 def star2(a):

@@ -2,7 +2,7 @@
 classifier in ``ops/kernel_backend.py``) against ramba_tpu.
 
 On the CPU the wrapper runs the kernel's plain version (the same
-instructions through the port's op table); the Triton kernel itself runs
+instructions through the port's op table); the CUDA kernel itself runs
 only on the card (``chip_smoke.py`` and ``tests/test_torch_cuda.py``).
 
 * ``classify`` agrees with ``ramba_tpu.ops.pallas_backend.classify``, apart
@@ -295,15 +295,22 @@ def test_wrapper_never_reaches_plain_version_off_cpu(monkeypatch):
 
 
 def test_generated_source_per_program():
-    """One generated kernel per program: scalars are runtime arguments, so
-    a new constant reuses the source; the cast plan is explicit."""
+    """One generated CUDA source per program: scalars are kernel arguments
+    passed by value, so a new constant reuses the source (and the built
+    library); the cast plan is explicit: the weak float and int scalars
+    arrive as double and long long and are cast to the float32 loop."""
     x = rt.fromarray(_n().astype(np.float32))
     plans = []
     for c in (2.5, 7.0):
         p, vals = fuser.prepare_program([(x * c + 1).read_expr()])
         plans.append(elemred.plan_for(p, vals))
     assert plans[0].source == plans[1].source
+    assert plans[0].name == plans[1].name
     src = plans[0].source
-    assert "@triton.jit" in src and "tl.float32" in src
-    compile(src, "elemred_generated", "exec")
+    assert '#include "elemred.cuh"' in src
+    assert "double s1" in src and "long long s2" in src
+    assert "const double x1 = (double)p.s1;" in src
+    assert "((float)(x1))" in src and "((float)(x2))" in src
+    assert "Vec<float, V>" in src and "V = 4" in src  # 16-byte groups
+    assert 'extern "C" int ramba_elemred_launch(' in src
     assert elemred.launches == 0  # nothing launched on the CPU

@@ -248,6 +248,39 @@ def test_integer_floor_divide_by_zero(dtype, divisor, layout):
     _same(got[1], want[1], f"{dtype} % 0")
 
 
+@pytest.mark.parametrize("layout", ["1d", "2d"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_float_floor_divide_signed_zeros(dtype, layout):
+    """``-0.0 // 2.0`` is 0.0 and ``-0.0 // -2.0`` is -0.0 in ramba_tpu
+    (NumPy gives the opposite signs); every quotient's sign bit is compared
+    as well as its value.  Dividends are zeros of both signs and normal
+    values (no subnormals: XLA on the CPU flushes them to zero), divisors
+    of both signs.  1-D programs are the ones the elemred classifier takes
+    (on the CPU its wrapper runs the plain version); 2-D ones run the
+    generic lowering."""
+    from ramba_tpu_torch.core import fuser
+    from ramba_tpu_torch.ops import kernel_backend as kb
+
+    a = np.array([-0.0, 0.0, 1.5, -1.5, 3.0, -3.0, 0.25, -7.0] * 2, dtype)
+    b = np.array([2.0] * 8 + [-2.0] * 8, dtype)
+    if layout == "2d":
+        a, b = a.reshape(4, 4), b.reshape(4, 4)
+    ref, port = _pair(a=a, b=b)
+    pairs = [(port["a"] // port["b"], ref["a"] // ref["b"]),
+             (port["a"] // 2.0, ref["a"] // 2.0),
+             (port["a"] // -2.0, ref["a"] // -2.0)]
+    for g, _w in pairs:  # before any flush materialises them
+        p, vals = fuser.prepare_program([g.read_expr()])
+        assert kb.classify(p, vals) == ("elemred" if layout == "1d" else None)
+    for k, (g, w) in enumerate(pairs):
+        _same(g, w, f"{dtype} floor_divide case {k}")
+        np.testing.assert_array_equal(np.signbit(np.asarray(g)),
+                                      np.signbit(np.asarray(w)),
+                                      err_msg=f"{dtype} sign bits, case {k}")
+    assert np.asarray(pairs[0][0]).ravel()[0] == 0.0
+    assert not np.signbit(np.asarray(pairs[0][0]).ravel()[0])
+
+
 # -- unsigned integers wider than 8 bits ---------------------------------------
 # every ufunc of the port's UNARY/BINARY tables with a NumPy loop for the
 # dtype, and the whole-array reductions, against ramba_tpu.  One ramba_tpu

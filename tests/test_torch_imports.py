@@ -1,6 +1,7 @@
-"""ramba_tpu_torch stands alone: it and chip_smoke.py import neither JAX nor
-the JAX package, and with no card and no request for the CPU it refuses to
-run instead of quietly running on the CPU.
+"""ramba_tpu_torch stands alone: it, chip_smoke.py and the sweep scripts
+import neither JAX nor the JAX package, nor Triton (every hand kernel is
+CUDA C++), and with no card and no request for the CPU it refuses to run
+instead of quietly running on the CPU.
 
 Module names are compared exactly (``ramba_tpu`` or ``ramba_tpu.*``), since
 ``ramba_tpu_torch`` itself starts with the string ``ramba_tpu``.
@@ -18,17 +19,19 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
     str(p.relative_to(REPO)) for p in (REPO / "ramba_tpu_torch").rglob("*.py")
     if "_build" not in p.parts
-) + ["chip_smoke.py"]
+) + ["chip_smoke.py", "scripts/elemred_ab.py", "scripts/elemred_sweep.py",
+     "scripts/stencil_sweep.py"]
 
 
 def _forbidden(name: str) -> bool:
     return any(name == root or name.startswith(root + ".")
-               for root in ("jax", "jaxlib", "ramba_tpu"))
+               for root in ("jax", "jaxlib", "ramba_tpu", "triton"))
 
 
 def test_forbidden_is_exact():
     assert _forbidden("ramba_tpu") and _forbidden("ramba_tpu.core.expr")
     assert _forbidden("jax.numpy")
+    assert _forbidden("triton") and _forbidden("triton.language")
     assert not _forbidden("ramba_tpu_torch") and not _forbidden("jaxtyping_x")
     assert not _forbidden("ramba_tpu_torch.core.expr")
 
@@ -54,11 +57,11 @@ def test_importing_the_port_loads_no_jax():
         " ramba_tpu_torch.models.jacobi, ramba_tpu_torch.ops.elemred,"
         " ramba_tpu_torch.ops.stencil_kernel, ramba_tpu_torch.ops.kernel_backend,"
         " ramba_tpu_torch.groupby, ramba_tpu_torch.ops.segred,"
-        " ramba_tpu_torch.ops.manipulation;"
+        " ramba_tpu_torch.ops.manipulation, ramba_tpu_torch.ops.cuda_expr;"
         "import runpy; runpy.run_path(sys.argv[1] + '/chip_smoke.py',"
         " run_name='chip_smoke_probe');"
-        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'ramba_tpu')"
-        " or m.startswith(('jax.', 'jaxlib.', 'ramba_tpu.'))];"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'ramba_tpu', 'triton')"
+        " or m.startswith(('jax.', 'jaxlib.', 'ramba_tpu.', 'triton.'))];"
         "print(repr(bad))"
     )
     env = dict(os.environ, RAMBA_TORCH_DEVICE="cpu")
