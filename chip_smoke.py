@@ -32,9 +32,20 @@ Phases, each reported on its own line:
    groupby over an hourly sensor series (n = 2^28 float64, 24 hour-of-day
    groups: sum, min, max, count on the segred kernel, then mean and the
    anomaly ``g - g.mean()`` on the generic lowering) and over n = 2^28
-   float32 category codes (64 groups: sum, max).  Every kernel's launch
-   count is set to 0 just before each path and read just after; a path
-   that does not launch its kernel fails the run;
+   float32 category codes (64 groups: sum, max); then the skeleton layer
+   (``skeletons_path``): smap over n = 2^28 float64 (the docs' f1 form, a
+   branching kernel, an np.sin kernel), smap_index over a 16384^2 float32
+   grid, a synced smap result summed (one elemred launch), sreduce (the
+   docs' example, an np.maximum reducer, a SreduceReducer), scumulative
+   (the odd/even cumsum over 2^28 float64 and int64, a sequential EMA
+   down a (4096, 65536) float32 array), spmd (a halo(1) 5-point update of
+   an 8192^2 float32 array) and var, std, argmax, nanargmin, median and
+   cumsum over 2^28 float64, each timed cold and warm and held against
+   plain torch, with ``skeletons.host_fallback`` at 0 after every call
+   and one 1024-element float() kernel showing the warning and the
+   counter.  Every kernel's launch count is set to 0 just before each
+   path and read just after; a path that does not launch its kernel fails
+   the run;
 4. a ``kernels`` JSON line, the card's name and power limit, and the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -572,6 +583,8 @@ def elemred_plans(rt, er, np):
                       sincos_program(rt, x)):
             plans.append(er.plan_for(p, lv))
             plans.append(er.plan_for(p, lv, er.CONFIG._replace(sincos=False)))
+        if dt == "float64":  # the skeletons phase sums a synced smap result
+            plans.append(er.plan_for(*_program(lambda: [rt.sum(x)])))
     for dt in ("int32", "int64"):
         a = rt.fromarray(rs.randint(-5, 6, 64).astype(dt))
         b = rt.fromarray(rs.randint(1, 6, 64).astype(dt))
@@ -1258,6 +1271,7 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card):
     del fd
     torch.cuda.empty_cache()
     groupby_path(rt, sg, torch, np, card, window)
+    skeletons_path(rt, er, torch, np, card, window)
     return totals
 
 
@@ -1335,6 +1349,292 @@ def groupby_path(rt, sg, torch, np, card, window):
     reductions(g, ("sum", "max"), "groupby categories n=2^28 f32 G=64")
     del g, x_t
     torch.cuda.empty_cache()
+
+
+def skeletons_path(rt, er, torch, np, card, window):
+    """The skeleton layer at full size: smap (the docs' f1 form, a
+    branching kernel, an np.sin kernel) over n = 2^28 float64, smap_index
+    over a 16384^2 float32 grid, the smap result synced and summed (one
+    elemred launch), sreduce (the docs' example, an np.maximum reducer, a
+    SreduceReducer), scumulative (the odd/even cumsum over 2^28 float64
+    and int64, a sequential EMA down a (4096, 65536) float32 array), spmd
+    (a halo(1) 5-point update of an 8192^2 float32 array) and the new
+    reductions over 2^28 float64.  Every call is timed cold (its first
+    call in the process) and warm; skeletons.host_fallback must stay 0."""
+    from ramba_tpu_torch import skeletons as skl
+
+    n = 1 << 28
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    warm_walls = {}
+
+    def fallback_zero(what):
+        if skl.counters["skeletons.host_fallback"]:
+            raise Fail(f"{what}: a traceable kernel reached the host fallback")
+
+    def timed(name, call, need, moved_bytes=None):
+        """``call()`` cold and warm (each result read to a tensor and
+        synced), launches around the warm one; returns the warm value.
+        The cold call's graph building (the kernel's dtype probe on the
+        host included) is printed apart."""
+        def run():
+            t0 = time.perf_counter()
+            v = call()
+            t1 = time.perf_counter()
+            v = v._value() if hasattr(v, "_value") else v
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, t1 - t0, v
+
+        cold, cold_build, _v = run()
+        del _v
+        warm, _b, v = window(name, run, need)
+        rate = ""
+        if moved_bytes:
+            gbs = moved_bytes / warm / 1e9
+            rate = (f", {gbs:.1f} GB/s of {moved_bytes / 1e9:.2f} GB moved at "
+                    f"least ({100 * gbs * 1e9 / HBM_BYTES_PER_S:.1f} % of "
+                    f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+        log(f"  {name}: cold {cold:.4f} s ({cold_build:.4f} s building "
+            f"the graph), warm {warm:.4f} s{rate} [{card}]")
+        warm_walls[name] = warm
+        fallback_zero(name)
+        return v
+
+    skl.counters["skeletons.host_fallback"] = 0
+    a_t = torch.randn(n, generator=gen, device="cuda", dtype=torch.float64)
+    b_t = torch.randn(n, generator=gen, device="cuda", dtype=torch.float64)
+    a, b = rt.fromarray(a_t), rt.fromarray(b_t)
+    c = np.arange(20)
+
+    def f1(x, y, cc, d):
+        return x * d + y - cc[5]
+
+    got = timed("smap docs f1 (x * d + y - c[5]) n=2^28 f64",
+                lambda: rt.smap(f1, a, b, c, 7), {}, 3 * n * 8)
+    check_exact("smap f1 vs plain torch", got, a_t * 7 + b_t - 5,
+                "the same three float64 ops in the same order")
+    del got
+    br0 = skl.counters["skeletons.branch_lowered"]
+    got = timed("smap branching kernel x*x if x > 0 else -x n=2^28 f64",
+                lambda: rt.smap(lambda x: x * x if x > 0 else -x, a), {},
+                2 * n * 8)
+    lowered = skl.counters["skeletons.branch_lowered"] - br0
+    if lowered != 2:  # one per call: cold and warm
+        raise Fail(f"branching smap lowered {lowered} times over two calls")
+    check_exact("smap branch vs torch.where", got,
+                torch.where(a_t > 0, a_t * a_t, -a_t), "one where of two sides")
+    log(f"  smap branching kernel: skeletons.branch_lowered +1 per call "
+        f"({lowered} over the cold and warm calls)")
+    del got
+    got = timed("smap np.sin kernel n=2^28 f64",
+                lambda: rt.smap(lambda x: np.sin(x), a), {}, 2 * n * 8)
+    check_exact("smap np.sin vs torch.sin", got, torch.sin(a_t),
+                "np.sin rerouted to torch.sin on the card")
+
+    # the smap result, synced, then summed: one elemred launch
+    res = rt.smap(lambda x: np.sin(x), a)
+    rt.sync()
+    res_t = res._value()
+
+    s = timed("sum of a synced smap result n=2^28 f64 (elemred)",
+              lambda: rt.sum(res), {"elemred": 1}, n * 8)
+    from ramba_tpu_torch.core import fuser
+
+    _path, grid, ept = er.geometry(*fuser.prepare_program(
+        [rt.sum(res).read_expr()]))
+    check_sums("smap -> sum (elemred) vs torch.sum", s, res_t.sum(),
+               sum_bound(er.depth(n, grid, ept), "float64",
+                         float(res_t.abs().sum())),
+               "2*depth*eps*sum|x|, elemred.depth")
+    del res, res_t, got, s, b, b_t
+    torch.cuda.empty_cache()
+
+    g = 16384
+    grid_t = torch.rand(g, g, generator=gen, device="cuda", dtype=torch.float32)
+    grid_a = rt.fromarray(grid_t)
+    got = timed("smap_index a + (i - j) on 16384^2 f32",
+                lambda: rt.smap_index(
+                    lambda idx, x: x + (idx[0] - idx[1]).astype(np.float32),
+                    grid_a), {}, 2 * g * g * 4)
+    ii = torch.arange(g, device="cuda", dtype=torch.int32)
+    check_exact("smap_index vs plain torch", got,
+                grid_t + (ii[:, None] - ii[None, :]).to(torch.float32),
+                "int32 index planes, one float32 add")
+    del got, grid_a, grid_t, ii
+    torch.cuda.empty_cache()
+
+    # sreduce: the docs' example at 2^28, held against the same fold of
+    # halves in plain torch (its order) and printed beside torch.sum
+    base = rt.init_array(n, lambda i: i * 11.0)
+    base -= 7
+    base = abs(base)
+    rt.sync()
+    base_t = base._value()
+
+    def fold(t, comb):
+        size = 1 << max(0, int(t.shape[0] - 1).bit_length())
+        if size != t.shape[0]:
+            raise Fail("fold expects a power of two")
+        while t.shape[0] > 1:
+            h = t.shape[0] // 2
+            t = comb(t[:h], t[h:])
+        return t[0]
+
+    got = timed("sreduce docs (x/100, +) n=2^28 f64",
+                lambda: rt.sreduce(lambda x: x / 100, lambda x, y: x + y, 0,
+                                   base), {}, n * 8)
+    # a divisor on the card: torch multiplies by the reciprocal of a
+    # python-number divisor, the port divides by a 0-d tensor
+    hundred = torch.full((), 100.0, device="cuda", dtype=torch.float64)
+    check_exact("sreduce docs vs plain fold of halves", got,
+                fold(base_t / hundred, torch.add), "the same tree of adds")
+    ref = (base_t / hundred).sum()
+    log(f"  sreduce docs: {float(got)!r}, torch.sum {float(ref)!r}, relative "
+        f"difference {abs(float(got) - float(ref)) / abs(float(ref)):.3e}")
+    got = timed("sreduce np.maximum reducer n=2^28 f64",
+                lambda: rt.sreduce(lambda x: x, lambda x, y: np.maximum(x, y),
+                                   -np.inf, a), {}, n * 8)
+    check_exact("sreduce max vs torch.amax", got, a_t.amax(), "max is exact")
+    got = timed("sreduce SreduceReducer(+, +) n=2^28 f64",
+                lambda: rt.sreduce(lambda x: x, rt.SreduceReducer(
+                    lambda x, y: x + y, lambda x, y: x + y), 0.0, a), {}, n * 8)
+    check_exact("sreduce SreduceReducer vs plain fold of halves", got,
+                fold(a_t, torch.add), "one card: the worker tree alone")
+    del base, base_t, got
+    torch.cuda.empty_cache()
+
+    # scumulative: values k/2^20 keep every prefix sum exact in float64,
+    # so the odd/even order and torch.cumsum must agree exactly
+    k_t = torch.randint(-(1 << 19), 1 << 19, (n,), generator=gen,
+                        device="cuda")
+    q_t = k_t.to(torch.float64) * 2.0 ** -20
+    q = rt.fromarray(q_t)
+    got = timed("scumulative associative cumsum n=2^28 f64 (probe passes)",
+                lambda: rt.scumulative(lambda x, cc: x + cc,
+                                       lambda cc, blk: blk + cc, q),
+                {}, 2 * n * 8)
+    check_exact("scumulative f64 cumsum vs torch.cumsum", got,
+                torch.cumsum(q_t, 0), "k/2^20 values: every prefix exact")
+    del got, q, q_t
+    ki = rt.fromarray(k_t)
+    got = timed("scumulative associative cumsum n=2^28 int64",
+                lambda: rt.scumulative(lambda x, cc: x + cc,
+                                       lambda cc, blk: blk + cc, ki),
+                {}, 2 * n * 8)
+    check_exact("scumulative int64 cumsum vs torch.cumsum", got,
+                torch.cumsum(k_t, 0), "integers")
+    del got, ki, k_t
+    torch.cuda.empty_cache()
+
+    rows, cols, alpha = 4096, 65536, 0.1
+    e_t = torch.rand(rows, cols, generator=gen, device="cuda",
+                     dtype=torch.float32)
+    e = rt.fromarray(e_t)
+
+    def ema():
+        return rt.scumulative(lambda x, cc: alpha * x + (1 - alpha) * cc,
+                              lambda cc, blk: blk, e, 0)
+
+    got = timed("scumulative sequential EMA (4096, 65536) f32 axis 0", ema,
+                {}, 2 * rows * cols * 4)
+    want = torch.empty_like(e_t)
+    want[0] = e_t[0]
+    for i in range(1, rows):
+        want[i] = alpha * e_t[i] + (1 - alpha) * want[i - 1]
+    check_exact("scumulative EMA vs a plain torch loop", got, want,
+                "the same float32 ops in the same order")
+    ema_wall = warm_walls["scumulative sequential EMA (4096, 65536) f32 axis 0"]
+    log(f"  sequential EMA: {ema_wall / (rows - 1) * 1e6:.1f} us per position "
+        f"({rows - 1} positions, host-bound) [{card}]")
+    del got, want, e, e_t
+    torch.cuda.empty_cache()
+
+    sn = 8192
+    s_t = torch.rand(sn, sn, generator=gen, device="cuda", dtype=torch.float32)
+    s_arr = rt.fromarray(s_t)
+
+    def five_point(lv):
+        h = lv.halo(1)
+        lv.set_local(h[:-2, 1:-1] + h[2:, 1:-1] + h[1:-1, :-2] + h[1:-1, 2:]
+                     - 4.0 * h[1:-1, 1:-1])
+
+    def spmd_call():
+        rt.spmd(five_point, s_arr)
+        return s_arr
+
+    got = timed("spmd halo(1) 5-point set_local 8192^2 f32", spmd_call, {},
+                2 * sn * sn * 4)
+    p = torch.nn.functional.pad(s_t, (1, 1, 1, 1))
+    once = (p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:]
+            - 4.0 * p[1:-1, 1:-1])
+    p = torch.nn.functional.pad(once, (1, 1, 1, 1))
+    twice = (p[:-2, 1:-1] + p[2:, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:]
+             - 4.0 * p[1:-1, 1:-1])
+    check_exact("spmd 5-point (cold then warm: two updates) vs plain torch",
+                got, twice, "the same float32 ops, zeros beyond the edge")
+    del got, s_arr, s_t, p, once, twice
+    torch.cuda.empty_cache()
+
+    # reductions over 2^28 float64, each against its plain formula
+    m_t = a_t.mean()
+    var_plain = ((a_t - m_t) ** 2).sum() / torch.full(
+        (), float(n), device="cuda", dtype=torch.float64)
+    got = timed("var n=2^28 f64", lambda: rt.var(a), {}, n * 8)
+    check_exact("var vs plain formula", got, var_plain,
+                "jnp's mean-centred formula, the same torch ops")
+    check_close("var vs torch.var (Welford)", got, a_t.var(correction=0),
+                1e-12, "another algorithm")
+    got = timed("std n=2^28 f64", lambda: rt.std(a), {}, n * 8)
+    check_exact("std vs plain formula", got, var_plain.sqrt(), "sqrt of var")
+    first_nan = n // 5 + 3
+    a_t[first_nan] = float("nan")
+    a_t[n - 7] = float("nan")
+    got = timed("argmax with NaN n=2^28 f64", lambda: rt.argmax(a), {}, n * 8)
+    check_exact("argmax vs the first NaN", got,
+                torch.tensor(first_nan, device="cuda"), "the first NaN wins")
+    got = timed("nanargmin n=2^28 f64", lambda: rt.nanargmin(a), {}, n * 8)
+    check_exact("nanargmin vs torch.argmin of NaN -> inf", got,
+                torch.argmin(torch.nan_to_num(a_t, nan=float("inf"))),
+                "NaN skipped")
+    a_t[first_nan] = 0.5
+    a_t[n - 7] = -0.5
+    got = timed("median n=2^28 f64", lambda: rt.median(a), {}, n * 8)
+    srt = torch.sort(a_t).values
+    check_exact("median vs sort midpoint", got,
+                (srt[n // 2 - 1] + srt[n // 2]) * 0.5, "even n: the midpoint")
+    del srt
+    # torch.cumsum of float64 on the card is not reproducible bit for bit
+    # from run to run (its scan's look-back order varies): exact values
+    exact_t = torch.randint(-(1 << 19), 1 << 19, (n,), generator=gen,
+                            device="cuda").to(torch.float64) * 2.0 ** -20
+    exact = rt.fromarray(exact_t)
+    got = timed("cumsum n=2^28 f64", lambda: rt.cumsum(exact), {}, 2 * n * 8)
+    check_exact("cumsum vs torch.cumsum", got, torch.cumsum(exact_t, 0),
+                "k/2^20 values: every prefix exact")
+    again = torch.cumsum(a_t, 0)
+    log(f"  torch.cumsum of 2^28 randn f64 twice: max_abs_diff "
+        f"{(again - torch.cumsum(a_t, 0)).abs().max().item():.3e} "
+        f"(0 if reproducible) [{card}]")
+    del got, a, a_t, exact, exact_t, again
+    torch.cuda.empty_cache()
+
+    # the loud host fallback: 1024 elements through a float() kernel
+    import warnings
+
+    skl.reset_fallback_warnings()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        small = rt.arange(1024.0)
+        got = rt.smap(lambda x: float(x) * 0.5, small)._value()
+    warned = [w for w in rec if "host evaluation" in str(w.message)]
+    if skl.counters["skeletons.host_fallback"] != 1 or len(warned) != 1:
+        raise Fail("the host fallback did not warn once and count once")
+    check_exact("host fallback float() kernel (1024 elements)", got,
+                torch.arange(1024.0, device="cuda", dtype=torch.float64) * 0.5,
+                "per element on the host, back on the card")
+    log(f"  host fallback: one warning ({str(warned[0].message)[:60]}...), "
+        f"skeletons.host_fallback = 1, result on {got.device}")
+    skl.counters["skeletons.host_fallback"] = 0
 
 
 def main(argv) -> int:

@@ -14,6 +14,7 @@ never by running an op.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
@@ -43,12 +44,17 @@ def is_bf16(dt) -> bool:
     return not isinstance(dt, torch.dtype) and np.dtype(dt) == BF16
 
 
+_TORCH_DTYPES: dict = {}
+
+
 def to_torch_dtype(dt) -> torch.dtype:
     if isinstance(dt, torch.dtype):
         return dt
-    if is_bf16(dt):
-        return torch.bfloat16
-    return getattr(torch, np.dtype(dt).name)
+    t = _TORCH_DTYPES.get(dt)  # every op asks: numpy's name lookup is slow
+    if t is None:
+        t = torch.bfloat16 if is_bf16(dt) else getattr(torch, np.dtype(dt).name)
+        _TORCH_DTYPES[dt] = t
+    return t
 
 
 def to_np_dtype(dt) -> np.dtype:
@@ -195,6 +201,12 @@ def loop_dtypes(fname: str, avals: Sequence[Aval]):
     Raises TypeError when NumPy has no loop for the operands.  bfloat16 is
     resolved as float16 and mapped back, which gives JAX's bf16 lattice for
     bf16 against weak scalars, bf16 and bool."""
+    return _loop_dtypes(fname, tuple(Aval((), a.dtype, a.weak) for a in avals))
+
+
+@functools.lru_cache(maxsize=4096)
+def _loop_dtypes(fname: str, avals: tuple):
+    # shapes never change the answer: one entry per (ufunc, dtypes, weak)
     uf = getattr(np, fname, None)
     if not isinstance(uf, np.ufunc) or uf.nin != len(avals) or uf.nout != 1:
         return None
@@ -235,23 +247,59 @@ def map_dtypes(fname: str, avals: Sequence[Aval]):
     return tuple(dt for _ in avals), dt
 
 
+# Every reduction name ``ramba_tpu`` lowers (its ``REDFN`` table).
+REDFN = (
+    "sum", "prod", "min", "max", "any", "all", "mean", "var", "std",
+    "nansum", "nanprod", "nanmin", "nanmax", "nanmean", "nanvar", "nanstd",
+    "argmin", "argmax", "nanargmin", "nanargmax", "count_nonzero", "median",
+    "nanmedian", "ptp",
+)
+# the NaN-ignoring kinds, and what each is on a dtype without NaN
+NAN_PLAIN = {"nansum": "sum", "nanprod": "prod", "nanmin": "min",
+             "nanmax": "max", "nanmean": "mean", "nanvar": "var",
+             "nanstd": "std", "nanargmin": "argmin", "nanargmax": "argmax",
+             "nanmedian": "median"}
+_INEXACT_RED = frozenset({"mean", "var", "std", "nanmean", "nanvar", "nanstd",
+                          "median", "nanmedian"})
+_ARG_RED = frozenset({"argmin", "argmax", "nanargmin", "nanargmax"})
+_INDEX_RED = _ARG_RED | {"count_nonzero"}
+
+
 def reduce_dtype(fname: str, dt: np.dtype) -> np.dtype:
-    """Result dtype of a whole-array reduction, as ``jnp`` gives it under
-    x64: sum/prod widen sub-64-bit integers and bool, mean goes inexact
-    (float32 for integers of 32 bits or fewer), any/all give bool."""
+    """Result dtype of a reduction, as ``jnp`` gives it under x64:
+    sum/prod (and their nan-kinds) widen sub-64-bit integers and bool; the
+    mean family, var/std and the medians go inexact (float32 for integers
+    of 32 bits or fewer, float64 for 64-bit ones); the arg-reductions and
+    count_nonzero give int64; any/all give bool; min/max/ptp keep the
+    dtype (ptp refuses bool, whose subtraction jnp rejects)."""
     dt = np.dtype(dt)
     if fname in ("any", "all"):
         return np.dtype(bool)
-    if fname in ("sum", "prod"):
+    if fname in ("sum", "prod", "nansum", "nanprod"):
         if dt.kind == "b":
             return np.dtype(np.int64)
         if dt.kind in "iu" and dt.itemsize < 8:
             return np.dtype(np.int64 if dt.kind == "i" else np.uint64)
         return dt
-    if fname == "mean":
+    if fname in _INEXACT_RED:
         if dt.kind in "biu":
             return np.dtype(np.float64 if dt.itemsize == 8 else np.float32)
         return dt
+    if fname in _INDEX_RED:
+        return np.dtype(np.int64)
+    if fname == "ptp" and dt.kind == "b":
+        raise TypeError("ptp: subtract does not accept dtype bool")
+    if fname not in REDFN:
+        raise NotImplementedError(f"reduction {fname!r}")
+    return dt
+
+
+def cumulative_dtype(dt: np.dtype) -> np.dtype:
+    """``cumsum``/``cumprod`` widen sub-64-bit integers and bool to the
+    64-bit integer of their kind, as NumPy and ``ramba_tpu`` under x64."""
+    dt = np.dtype(dt)
+    if dt.kind in "biu" and (dt.kind == "b" or dt.itemsize < 8):
+        return np.dtype(np.uint64 if dt.kind == "u" else np.int64)
     return dt
 
 
@@ -306,8 +354,41 @@ def _reduced_shape(shape, axis, keepdims):
 @_rule("reduce")
 def _aval_reduce(static, x):
     fname, axis, keepdims, _ddof = static
+    if fname in _ARG_RED and isinstance(axis, tuple):
+        raise TypeError(f"{fname}: axis must be an int or None, not a tuple")
     return Aval(_reduced_shape(x.shape, axis, keepdims),
                 reduce_dtype(fname, x.dtype), False)
+
+
+_WHERE_IDENTITY = {"sum": 0, "prod": 1, "any": False, "all": True}
+
+
+@_rule("reduce_where")
+def _aval_reduce_where(static, x, mask):
+    fname, axis, keepdims = static
+    if fname not in _WHERE_IDENTITY and fname not in ("min", "max", "mean"):
+        raise NotImplementedError(f"masked reduction {fname!r}")
+    shape = _reduced_shape(x.shape, axis, keepdims)
+    if fname == "mean":
+        # ramba_tpu divides the masked sum by the mask's int64 count under
+        # jnp's promotion: floats keep their dtype, integers give float64
+        dt = reduce_dtype("sum", x.dtype)
+        return Aval(shape, dt if dt.kind in "fc" else np.dtype(np.float64))
+    return Aval(shape, reduce_dtype(fname, x.dtype), False)
+
+
+@_rule("cumulative")
+def _aval_cumulative(static, x):
+    return Aval(x.shape, cumulative_dtype(x.dtype), False)
+
+
+@_rule("broadcast_to")
+def _aval_broadcast_to(static, x):
+    (shape,) = static
+    np.broadcast_shapes(x.shape, shape)  # raises where numpy would
+    if tuple(np.broadcast_shapes(x.shape, shape)) != tuple(shape):
+        raise ValueError(f"cannot broadcast {x.shape} to {shape}")
+    return Aval(tuple(shape), x.dtype, x.weak)
 
 
 def _index_shape(shape, enc):
@@ -751,11 +832,19 @@ def _reduce_unsigned(fname, x, out_dt, dims, keepdims):
     return _from_carrier(r, out_dt)
 
 
-def reduce_tensor(fname, x: torch.Tensor, axis=None, keepdims=False):
+def reduce_tensor(fname, x: torch.Tensor, axis=None, keepdims=False,
+                  ddof=None):
+    """One reduction of ``REDFN`` over ``axis`` with ``ramba_tpu``'s result
+    dtype (``reduce_dtype``) and its formulas: var/std centre on the mean
+    and divide by ``N - ddof`` (NaN where that is not positive), the
+    nan-kinds replace NaN by the identity, arg-reductions return the first
+    NaN, the medians sort and average the two middle values."""
     out_dt = to_torch_dtype(reduce_dtype(fname, to_np_dtype(x.dtype)))
     dims = _dims(axis, x.ndim)
     if x.ndim == 0:
         dims = ()
+    if not x.is_floating_point() and fname in NAN_PLAIN:
+        fname = NAN_PLAIN[fname]  # nothing to ignore
     if _is_wide_unsigned(x.dtype) and fname in ("sum", "prod", "min", "max"):
         return _reduce_unsigned(fname, x, out_dt, dims, keepdims)
     if fname in ("sum", "prod", "mean"):
@@ -778,13 +867,183 @@ def reduce_tensor(fname, x: torch.Tensor, axis=None, keepdims=False):
         for d in sorted(dims, reverse=True):
             y = fn(y, dim=d, keepdim=keepdims)
         return y
+    if fname in ("nansum", "nanprod"):
+        fill = 0 if fname == "nansum" else 1
+        y = torch.where(torch.isnan(x), torch.full_like(x, fill), x)
+        return reduce_tensor(fname[3:], y, axis, keepdims)
+    if fname in ("nanmin", "nanmax"):
+        # jnp: NaN becomes the identity, an all-NaN slice gives NaN
+        inf = float("inf") if fname == "nanmin" else float("-inf")
+        nan = torch.isnan(x)
+        r = reduce_tensor(fname[3:], torch.where(nan, torch.full_like(x, inf), x),
+                          axis, keepdims)
+        allnan = reduce_tensor("all", nan, axis, keepdims)
+        return torch.where(allnan, torch.full_like(r, float("nan")), r)
+    if fname == "nanmean":
+        nan = torch.isnan(x)
+        s = reduce_tensor("nansum", x, axis, keepdims)
+        cnt = reduce_tensor("sum", ~nan, axis, keepdims)
+        return s / cnt.to(s.dtype)
+    if fname in ("var", "std", "nanvar", "nanstd"):
+        r = _variance(x.to(out_dt), dims, keepdims, int(ddof or 0),
+                      fname.startswith("nan"))
+        return torch.sqrt(r) if fname.endswith("std") else r
+    if fname in _ARG_RED:
+        return _arg_reduce(fname, x, axis, keepdims)
+    if fname == "count_nonzero":
+        y = _to_carrier(x) if _is_wide_unsigned(x.dtype) else x
+        return reduce_tensor("sum", y != 0, axis, keepdims)
+    if fname in ("median", "nanmedian"):
+        return _median(x.to(out_dt), dims, keepdims, fname == "nanmedian")
+    if fname == "ptp":
+        return apply_map("subtract", [reduce_tensor("max", x, axis, keepdims),
+                                      reduce_tensor("min", x, axis, keepdims)])
     raise NotImplementedError(f"reduction {fname!r} is not ported yet")
+
+
+def _count(shape, dims) -> int:
+    return int(np.prod([shape[d] for d in dims], dtype=np.int64))
+
+
+def _variance(y, dims, keepdims, ddof, skip_nan):
+    """``jnp.var``/``jnp.nanvar`` in the computation dtype of ``y``: the
+    mean-centred sum of squares over ``N - ddof`` (NaN where that is not
+    positive); ``nanvar`` counts and sums the non-NaN elements only."""
+    def total(t, keep):
+        return torch.sum(t, dim=dims, keepdim=keep) if dims else t.clone()
+
+    if skip_nan:
+        nan = torch.isnan(y)
+        m = total(torch.where(nan, torch.zeros_like(y), y), True) / \
+            total(~nan, True).to(y.dtype)
+        c = torch.where(nan, torch.zeros_like(y), y - m)
+        n = total((~nan).to(torch.int64), keepdims) - ddof
+    else:
+        m = torch.mean(y, dim=dims, keepdim=True) if dims else y
+        c = y - m
+        n = torch.full((), _count(tuple(y.shape), dims) - ddof,
+                       dtype=torch.int64, device=y.device)
+    s = total(c * c, keepdims)
+    bad = n <= 0
+    s = torch.where(bad, torch.full_like(s, float("nan")), s)
+    return s / torch.where(bad, torch.ones_like(n), n).to(s.dtype)
+
+
+def _arg_reduce(fname, x, axis, keepdims):
+    """``jnp.argmin``/``argmax`` (the first extreme, the first NaN where
+    one is present) and ``jnp.nanargmin``/``nanargmax`` (NaN replaced by
+    the far infinity, -1 for an all-NaN slice)."""
+    want_max = fname.endswith("max")
+    y = x.reshape(-1) if axis is None else x
+    dim = 0 if axis is None else axis
+    if y.ndim == 0:
+        r = torch.zeros((), dtype=torch.int64, device=x.device)
+        return r.reshape((1,) * x.ndim) if keepdims else r
+    if y.dtype == torch.bool:
+        y = y.to(torch.int8)
+    elif _is_wide_unsigned(y.dtype):
+        y = _ukey(_to_carrier(y), _WIDE_UNSIGNED[y.dtype])
+    fn = torch.argmax if want_max else torch.argmin
+    if y.is_floating_point():
+        nan = torch.isnan(y)
+        far = float("-inf") if want_max else float("inf")
+        r = fn(torch.where(nan, torch.full_like(y, far), y), dim=dim)
+        if fname.startswith("nan"):
+            r = torch.where(torch.all(nan, dim=dim), torch.full_like(r, -1), r)
+        else:
+            first_nan = torch.argmax(nan.to(torch.int8), dim=dim)
+            r = torch.where(torch.any(nan, dim=dim), first_nan, r)
+    else:
+        r = fn(y, dim=dim)
+    if keepdims:
+        r = r.reshape((1,) * x.ndim) if axis is None else r.unsqueeze(dim)
+    return r
+
+
+def _median(y, dims, keepdims, skip_nan):
+    """``jnp.median`` (a NaN anywhere in the slice gives NaN) and
+    ``jnp.nanmedian``: sort the reduced dims flattened last, then the
+    midpoint ``(low + high) * 0.5`` of the two middle values (of the
+    non-NaN ones for ``nanmedian``, which sort to the end)."""
+    nd = y.ndim
+    keep = [d for d in range(nd) if d not in dims]
+    out_shape = tuple(1 if d in dims else y.shape[d] for d in range(nd)) \
+        if keepdims else tuple(y.shape[d] for d in keep)
+    z = y.permute(*keep, *dims).reshape(*[y.shape[d] for d in keep], -1)
+    n = z.shape[-1]
+    if n == 0:
+        return torch.full(out_shape, float("nan"), dtype=y.dtype, device=y.device)
+    if not skip_nan:
+        z = torch.where(torch.any(torch.isnan(z), dim=-1, keepdim=True),
+                        torch.full_like(z, float("nan")), z)
+    s = torch.sort(z, dim=-1).values
+    if skip_nan:
+        cnt = torch.sum(~torch.isnan(z), dim=-1, keepdim=True)
+        top = torch.clamp(cnt - 1, min=0)
+        lo = torch.div(cnt - 1, 2, rounding_mode="floor")
+        hi = cnt - 1 - lo
+        lo = torch.minimum(torch.clamp(lo, min=0), top)
+        hi = torch.minimum(torch.clamp(hi, min=0), top)
+        low = torch.gather(s, -1, lo)[..., 0]
+        high = torch.gather(s, -1, hi)[..., 0]
+    else:
+        low, high = s[..., (n - 1) // 2], s[..., n // 2]
+    half = torch.full((), 0.5, dtype=s.dtype, device=s.device)
+    return ((low + high) * half).reshape(out_shape)
 
 
 @defop("reduce")
 def _op_reduce(static, x):
-    fname, axis, keepdims, _ddof = static
-    return reduce_tensor(fname, as_tensor(x), axis, keepdims)
+    fname, axis, keepdims, ddof = static
+    return reduce_tensor(fname, as_tensor(x), axis, keepdims, ddof)
+
+
+def _where_identity(fname, x):
+    """The value a masked-out element takes in ``reduce_where`` (the
+    dtype's extremes for min/max, as ramba_tpu's finfo/iinfo)."""
+    if fname not in ("min", "max"):
+        return _WHERE_IDENTITY[fname]
+    if x.dtype == torch.bool:
+        return fname == "min"
+    info = torch.finfo(x.dtype) if x.is_floating_point() else (
+        np.iinfo(to_np_dtype(x.dtype)))
+    return info.max if fname == "min" else info.min
+
+
+@defop("reduce_where")
+def _op_reduce_where(static, x, mask):
+    """Masked reduction: masked-out elements take the identity."""
+    fname, axis, keepdims = static
+    x, mask = as_tensor(x), as_tensor(mask)
+    mask = mask if mask.dtype == torch.bool else mask != 0
+    if fname == "mean":
+        s = reduce_tensor("sum", torch.where(mask, x, torch.zeros_like(x)),
+                          axis, keepdims)
+        cnt = reduce_tensor("sum", mask.expand(x.shape), axis, keepdims)
+        out_dt = s.dtype if s.is_floating_point() else torch.float64
+        return s.to(out_dt) / cnt.to(out_dt)
+    ident = as_tensor(_where_identity(fname, x), to_np_dtype(x.dtype), x.device)
+    return reduce_tensor(fname, torch.where(mask, x, ident), axis, keepdims)
+
+
+@defop("cumulative")
+def _op_cumulative(static, x):
+    """cumsum/cumprod along one axis in the widened dtype."""
+    fname, axis = static
+    x = as_tensor(x)
+    out_dt = to_torch_dtype(cumulative_dtype(to_np_dtype(x.dtype)))
+    if _is_wide_unsigned(out_dt):  # modulo 2**64 in the carrier
+        c = torch.cumsum(_to_carrier(x), axis) if fname == "cumsum" \
+            else torch.cumprod(_to_carrier(x), axis)
+        return _from_carrier(c, out_dt)
+    y = x if x.dtype == out_dt else x.to(out_dt)
+    return torch.cumsum(y, axis) if fname == "cumsum" else torch.cumprod(y, axis)
+
+
+@defop("broadcast_to")
+def _op_broadcast_to(static, x):
+    (shape,) = static
+    return as_tensor(x).expand(tuple(shape)).contiguous()
 
 
 # -- indexing / views --------------------------------------------------------
@@ -964,3 +1223,25 @@ def _op_full(static, fill):
         fill = fill.item()
     return torch.full(tuple(shape), fill, dtype=to_torch_dtype(dtype),
                       device=common.device())
+
+
+def _aval_fromfunction(static):
+    shape, dtype, fn = static
+    if dtype is None:
+        # the filler's own dtype, from one call on one-element index planes
+        from ramba_tpu_torch.skeletons import fromfunction_values
+
+        dtype = to_np_dtype(fromfunction_values(
+            fn, (1,) * len(shape), None, "cpu", count=False).dtype)
+    return Aval(tuple(shape), np.dtype(dtype), False)
+
+
+@defop("fromfunction", _aval_fromfunction)
+def _op_fromfunction(static):
+    """Index-space filler: ``fn`` over int32 index planes through the
+    skeletons' kernel route (NumPy ufuncs rerouted, data branches lowered
+    to ``where``)."""
+    from ramba_tpu_torch.skeletons import fromfunction_values
+
+    shape, dtype, fn = static
+    return fromfunction_values(fn, shape, dtype, common.device())

@@ -285,6 +285,35 @@ class ndarray:
         return ndarray(Node("reduce", (fname, axis, bool(keepdims), ddof),
                             [self.read_expr()]))
 
+    def var(self, axis=None, keepdims=False, ddof=0):
+        return self._reduce("var", axis, keepdims, ddof)
+
+    def std(self, axis=None, keepdims=False, ddof=0):
+        return self._reduce("std", axis, keepdims, ddof)
+
+    def argmin(self, axis=None):
+        return self._reduce("argmin", axis)
+
+    def argmax(self, axis=None):
+        return self._reduce("argmax", axis)
+
+    def _cumulative(self, fname, axis):
+        # axis=None scans the flattened array, as NumPy does
+        x = self.reshape(-1) if axis is None else self
+        axis = 0 if axis is None else _norm_axis(axis, x.ndim)
+        return ndarray(Node("cumulative", (fname, axis), [x.read_expr()]))
+
+    def cumsum(self, axis=None):
+        return self._cumulative("cumsum", axis)
+
+    def cumprod(self, axis=None):
+        return self._cumulative("cumprod", axis)
+
+    def broadcast_to(self, shape):
+        shape = (int(shape),) if isinstance(shape, (int, np.integer)) \
+            else tuple(int(s) for s in shape)
+        return ndarray(Node("broadcast_to", (shape,), [self.read_expr()]))
+
     # -- shape manipulation (views) -------------------------------------------
 
     def reshape(self, *shape):

@@ -118,6 +118,21 @@ def linspace(start, stop, num=50, endpoint=True, dtype=None,
                         [E.as_expr(start), E.as_expr(stop)]))
 
 
+def fromfunction(function, shape, dtype=float, distribution=None, **kwargs):
+    """An array whose element at ``index`` is ``function(*index)``;
+    ``function`` receives int32 index planes (whole arrays) and runs at
+    flush time, fused with its consumers."""
+    _no_distribution(distribution)
+    shape = _canon_shape(shape)
+    dt = str(_np_dtype(dtype)) if dtype is not None else None
+    return ndarray(Node("fromfunction", (shape, dt, function), []))
+
+
+def init_array(shape, filler, dtype=float, distribution=None):
+    """Reference API: ``init_array`` with a per-element filler."""
+    return fromfunction(filler, shape, dtype=dtype, distribution=distribution)
+
+
 def fromarray(arr, dtype=None, distribution=None):
     """Upload a host array (or adopt a tensor) as a leaf on the process
     device, dtype kept exactly."""

@@ -530,3 +530,120 @@ def test_unsigned_chain_on_card(dtype):
         got = np.asarray(o)
         assert got.dtype == np.asarray(w).dtype, (k, got.dtype)
         np.testing.assert_array_equal(got, w, err_msg=str(k))
+
+
+# --- skeletons and the new reductions: the card against the CPU ---------------
+# The same call on CUDA tensors and on CPU tensors.  Exact where both run
+# the same ops in the same order (the sreduce tree, the scans, the spmd
+# update, integer and arg results); float64 rtol=atol=1e-12 and float32
+# rtol=atol=1e-6 where CUDA's and the CPU's math or reduction order differ
+# (transcendentals, torch.sum inside var/mean).
+
+
+def _f1(a, b, c, d):
+    return a * d + b - c[5]
+
+
+SKELETON_CASES = {
+    "smap_f1": lambda m, x, y: m.smap(_f1, x, y, np.arange(20), 7),
+    "smap_branch": lambda m, x, y: m.smap(
+        lambda v: v * v if v > 0 else -v, x),
+    "smap_np_sin": lambda m, x, y: m.smap(lambda v: np.sin(v), x),
+    "smap_index_2d": lambda m, x, y: m.smap_index(
+        lambda i, v: v + i[0] * 10 + i[1], x.reshape(64, -1)),
+    "fromfunction": lambda m, x, y: m.fromfunction(
+        lambda i, j: i * 3 - j if i > j else j * 0.5, (37, 41)),
+    "sreduce_docs": lambda m, x, y: m.sreduce(
+        lambda v: v / 100, lambda p, q: p + q, 0, abs(x)),
+    "sreduce_max": lambda m, x, y: m.sreduce(
+        lambda v: v, lambda p, q: np.maximum(p, q), -np.inf, x),
+    "sreduce_split": lambda m, x, y: m.sreduce(
+        lambda v: v, m.SreduceReducer(lambda p, q: p + q, lambda p, q: p + q),
+        0.0, x),
+    "scan_assoc": lambda m, x, y: m.scumulative(
+        lambda v, c: v + c, lambda c, b: b + c, x),
+    "scan_int64": lambda m, x, y: m.scumulative(
+        lambda v, c: v + c, lambda c, b: b + c, (x * 8).astype(np.int64)),
+    "scan_ema_2d": lambda m, x, y: m.scumulative(
+        lambda v, c: 0.1 * v + 0.9 * c, lambda c, b: b,
+        y.reshape(64, -1), 0),
+    "var_std": lambda m, x, y: m.std(x.reshape(64, -1), axis=1, ddof=1),
+    "argmax_nanargmin": lambda m, x, y: m.argmax(x) * 1000 + m.nanargmin(y),
+    "median": lambda m, x, y: m.median(x.reshape(64, -1), axis=0),
+    "cumsum": lambda m, x, y: m.cumsum(x),
+}
+
+
+def _on(dev, case, x_np, y_np):
+    common.set_device(dev)
+    try:
+        r = SKELETON_CASES[case](rt, rt.fromarray(x_np), rt.fromarray(y_np))
+        return r._value()
+    finally:
+        common.set_device("cuda:0")
+
+
+@pytest.mark.parametrize("case", sorted(SKELETON_CASES))
+def test_skeleton_card_vs_cpu(case):
+    from ramba_tpu_torch import skeletons as skl
+
+    rs = np.random.RandomState(8)
+    x_np = rs.randn(64 * 48)
+    y_np = rs.rand(64 * 48).astype(np.float32)
+    fb = skl.counters["skeletons.host_fallback"]
+    got = _on("cuda:0", case, x_np, y_np)
+    want = _on("cpu", case, x_np, y_np)
+    assert got.device.type == "cuda" and want.device.type == "cpu"
+    assert skl.counters["skeletons.host_fallback"] == fb
+    _close(got.cpu(), want, case)
+
+
+def test_spmd_halo_card_vs_cpu():
+    x_np = np.random.RandomState(9).rand(96, 80).astype(np.float32)
+
+    def five_point(lv):
+        h = lv.halo(1)
+        lv.set_local(h[:-2, 1:-1] + h[2:, 1:-1] + h[1:-1, :-2] + h[1:-1, 2:]
+                     - 4.0 * h[1:-1, 1:-1])
+
+    outs = []
+    for dev in ("cuda:0", "cpu"):
+        common.set_device(dev)
+        try:
+            a = rt.fromarray(x_np)
+            rt.spmd(five_point, a)
+            rt.barrier()
+            outs.append(a._value())
+        finally:
+            common.set_device("cuda:0")
+    assert torch.equal(outs[0].cpu(), outs[1])
+
+
+def test_smap_sum_takes_one_elemred_launch():
+    x = rt.fromarray(torch.rand(1 << 20, device="cuda", dtype=torch.float64))
+    r = rt.smap(lambda v: np.sin(v) * 2.0, x)
+    before = elemred.launches
+    rt.sync()
+    assert elemred.launches == before  # the smap itself: generic lowering
+    s = rt.sum(r)
+    v = float(s)
+    assert elemred.launches == before + 1
+    t = r._value()
+    assert abs(v - float(t.sum())) <= 2 * (1 << 20) * EPS[torch.float64] * \
+        float(t.abs().sum())
+
+
+def test_host_fallback_on_card():
+    import warnings
+
+    from ramba_tpu_torch import skeletons as skl
+
+    n0 = skl.counters["skeletons.host_fallback"]
+    x = rt.fromarray(torch.arange(1024, device="cuda", dtype=torch.float64))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got = rt.smap(lambda v: float(v) * 0.5, x)._value()
+    assert skl.counters["skeletons.host_fallback"] == n0 + 1
+    assert got.device.type == "cuda"
+    assert torch.equal(got, torch.arange(1024, device="cuda",
+                                         dtype=torch.float64) * 0.5)
