@@ -23,8 +23,13 @@ Phases, each reported on its own line:
    that counts the FP64-pipe instructions per element in its SASS at the
    SM clock read under load.
    This phase also holds the repairs: integer ``// 0`` on the elemred and
-   stencil kernels against the rule itself, a uint32 chain against NumPy
-   and the bf16 stencil kernel exactly against its plain version;
+   stencil kernels against the rule itself, a uint32 chain against NumPy,
+   the bf16 stencil kernel exactly against its plain version, saturating
+   float-to-int casts and ``sign(-0.0)`` through elemred and the generic
+   lowering; and the fixed-order scan (cumsum/cumprod of floats) against
+   its plain version (same order: the same bytes) within its rounding-depth
+   bound, twice (byte-equal), on 2^28 float64 and float32 and along both
+   axes of 16384^2 float32, timed beside ``torch.cumsum``;
 3. the main path through ``import ramba_tpu_torch as rt``: the headline
    chain at n = 1e9, the sin/cos chain over a materialised base at n = 1e9,
    axpy + sum, the PRK star stencil (30 chained ``sstencil`` calls and 100
@@ -43,7 +48,14 @@ Phases, each reported on its own line:
    cumsum over 2^28 float64, each timed cold and warm and held against
    plain torch, with ``skeletons.host_fallback`` at 0 after every call
    and one 1024-element float() kernel showing the warning and the
-   counter.  Every kernel's launch count is set to 0 just before each
+   counter; then indexing and the NumPy protocol (``indexing_path``):
+   masked writes on 2^28 float64, a gather of 2^26 indices (out of range
+   and negative ones among them) and a scatter of 2^26 unique indices,
+   ``X[rows, 1:9]`` on 16384^2 float32, NumPy's concatenate, stack, where
+   and transpose giving port arrays on the card, sort/argsort of 2^28
+   float64 with NaNs and signed zeros, matmul 8192^2 float32 (TF32 off)
+   and 4096^2 float64 against float64 products, an int64 matmul at 2048^2
+   and cumsum of 2^28 float64 on the scan kernel.  Every kernel's launch count is set to 0 just before each
    path and read just after; a path that does not launch its kernel fails
    the run;
 4. a ``kernels`` JSON line, the card's name and power limit, and the last
@@ -63,6 +75,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # peak non-tensor-core rates on the H100 SXM (NVIDIA data sheet)
 PEAK_OPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 67e12}
+# the matmul paths' peaks (the same data sheet): float32 with TF32 off runs
+# on the CUDA cores, float64 on the FP64 tensor cores
+PEAK_MATMUL = {"float32": 67e12, "float64": 67e12}
 EPS = {"float32": 2.0 ** -23, "float64": 2.0 ** -52}
 
 
@@ -494,12 +509,68 @@ def repair_checks(rt, er, sk, torch, np):
         f"against numpy: exact {'ok' if ok else 'MISS'}")
     if not ok:
         raise Fail("uint32 chain disagrees with numpy")
+    cast_sign_checks(rt, er, torch)
 
 
-def phase_build(rt, er, sk, sg, gb, jacobi):
+# float -> int casts saturate (NaN to 0, out of range to the limits) and
+# sign keeps a zero's sign, as in ramba_tpu
+CAST_VALUES = [128.5, -129.5, float("nan"), float("inf"), float("-inf"), 1e30,
+               -1e30, 2.0 ** 63, -2.0 ** 63, 2.0 ** 31, -2.0 ** 31 - 1.5, 1.7,
+               -1.7, -0.5, 0.0, 3e9, -3e9]
+SIGN_VALUES = [-0.0, 0.0, -2.5, 3.0, float("nan"), float("-inf")]
+
+
+def cast_sign_programs(rt, x):
+    """The elemred programs of the cast and sign repairs over ``x``."""
+    return [lambda: [x.astype("int32")], lambda: [x.astype("int64")],
+            lambda: [rt.sign(x)]]
+
+
+def cast_sign_checks(rt, er, torch):
+    """The saturating casts and sign(-0.0) on the card: through elemred
+    (its emitted casts test the range before casting, as a C cast of an
+    out-of-range float is undefined) and through the generic lowering
+    (``expr.convert``), both against the rule on the CPU."""
+    from ramba_tpu_torch.core import expr as E
+
+    for tdt in (torch.float64, torch.float32):
+        vals = torch.tensor(CAST_VALUES, dtype=torch.float64).to(tdt)
+        xc = vals.repeat(1 << 16).cuda()
+        x = rt.fromarray(xc)
+        progs = cast_sign_programs(rt, x)
+        for f, dst in zip(progs[:2], (torch.int32, torch.int64)):
+            p, lv = _program(f)
+            if er.kb.classify(p, lv) != "elemred":
+                raise Fail("elemred does not take a float -> int cast")
+            (got,) = er.launch(p, lv)
+            want = E.convert(xc.cpu(), dst)
+            check_exact(f"elemred cast {tdt} -> {dst} (NaN, inf, out of range)",
+                        got.cpu(), want, "saturating, as ramba_tpu")
+        for dst in (torch.int8, torch.uint8, torch.int16, torch.int32,
+                    torch.int64, torch.uint64):
+            check_exact(f"generic lowering cast {tdt} -> {dst}",
+                        E.convert(xc, dst).cpu(), E.convert(xc.cpu(), dst),
+                        "saturating, as ramba_tpu")
+        sv = torch.tensor(SIGN_VALUES, dtype=torch.float64).to(tdt)
+        sc_ = sv.repeat(1 << 16).cuda()
+        p, lv = _program(lambda: [rt.sign(rt.fromarray(sc_))])
+        (got,) = er.launch(p, lv)
+        (plain,) = er.elemred_reference(p, lv)
+        torch.cuda.synchronize()
+        zero = sc_ == 0
+        ok = (bytes_equal(got, plain) and torch.equal(
+            torch.signbit(got[zero]), torch.signbit(sc_[zero])))
+        log(f"  elemred sign {tdt} of -0.0/0.0/NaN/-inf: byte-equal to the "
+            f"plain version, zeros keep their sign {'ok' if ok else 'MISS'}")
+        if not ok:
+            raise Fail("sign(-0.0) on the card")
+
+
+def phase_build(rt, er, sk, sg, gb, jacobi, sc):
     """Build every CUDA kernel of the run at once: the stencil bodies, the
-    segred instantiations and every elemred program phases 2 and 3
-    launch (one library per program; the source does not depend on n)."""
+    segred instantiations, every elemred program phases 2 and 3 launch
+    (one library per program; the source does not depend on n) and the
+    scan (one library, eight entry points)."""
     import numpy as np
     from ramba_tpu_torch import _build
     from ramba_tpu_torch.core.expr import BF16
@@ -519,10 +590,12 @@ def phase_build(rt, er, sk, sg, gb, jacobi):
     plans = {p.name: p for p in elemred_plans(rt, er, np)}
     t0 = time.perf_counter()
     _build.build_many([(s.name, s.source) for s in specs + seg]
-                      + [(p.name, p.source) for p in plans.values()])
-    log(f"phase 1: built {len(specs)} CUDA stencil, {len(seg)} CUDA segred and "
-        f"{len(plans)} CUDA elemred kernels in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc, sm_90a, one process per source, in parallel)")
+                      + [(p.name, p.source) for p in plans.values()]
+                      + [(sc.NAME, sc.SOURCE)])
+    log(f"phase 1: built {len(specs)} CUDA stencil, {len(seg)} CUDA segred, "
+        f"{len(plans)} CUDA elemred kernels and the CUDA scan in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc, sm_90a, one process per "
+        f"source, in parallel)")
 
 
 def trig_program(rt, base, twice=False):
@@ -585,6 +658,11 @@ def elemred_plans(rt, er, np):
             plans.append(er.plan_for(p, lv, er.CONFIG._replace(sincos=False)))
         if dt == "float64":  # the skeletons phase sums a synced smap result
             plans.append(er.plan_for(*_program(lambda: [rt.sum(x)])))
+        for f in cast_sign_programs(rt, x):
+            plans.append(er.plan_for(*_program(f)))
+        if dt == "float64":  # the indexing phase's np.where
+            plans.append(er.plan_for(*_program(
+                lambda: [np.where(x > 0, x, y)])))
     for dt in ("int32", "int64"):
         a = rt.fromarray(rs.randint(-5, 6, 64).astype(dt))
         b = rt.fromarray(rs.randint(1, 6, 64).astype(dt))
@@ -800,7 +878,85 @@ def time_segred(sg, torch, g, kind, what, card):
             "library_ms": lib_ms}, got
 
 
-def phase_kernels(rt, er, sk, sg, jacobi, torch, np, card):
+def scan_checks(sc, torch, card):
+    """The fixed-order scan against its plain version (the same tiles in
+    the same order: the same bytes), within the rounding-depth bound
+    2 * depth * eps * cumsum|x|, and twice (byte-equal), at 2^28 float64
+    and float32 and along both axes of 16384^2 float32; float16, bfloat16
+    and the products on a ragged (3, 2 * TILE + 37).  Then the kernel
+    timed beside its plain version, torch.cumsum and its byte bound."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(21)
+    worst = 0.0
+
+    def case(what, x, name, axis):
+        nonlocal worst
+        before = sc.launches
+        got = sc.launch(x, name, axis)
+        again = sc.launch(x, name, axis)
+        want = sc.scan_reference(x, name, axis)
+        torch.cuda.synchronize()
+        if sc.launches != before + 2:
+            raise Fail(f"{what}: scan launches not counted")
+        if not bytes_equal(got, again):
+            raise Fail(f"{what}: two launches differ in their bytes")
+        same = bytes_equal(got, want)
+        dname = str(x.dtype).split(".")[1]
+        if name == "cumsum" and dname in EPS:
+            bound = sum_bound(sc.depth(x.shape[axis]), dname,
+                              torch.cumsum(x.double().abs(), axis))
+            worst = max(worst, check_sums(f"{what}", got, want, bound,
+                                          "2*depth*eps*cumsum|x|"))
+        elif not same:
+            raise Fail(f"{what}: not the plain version's bytes")
+        log(f"  {what}: byte-equal to its plain version {same}, two launches "
+            f"byte-equal True [{card}]")
+        if not same:
+            raise Fail(f"{what}: the kernel's order is not the plain version's")
+        del got, again, want
+
+    n = 1 << 28
+    x64 = torch.randn(n, generator=g, device="cuda", dtype=torch.float64)
+    case("scan cumsum 1-D n=2^28 float64", x64, "cumsum", 0)
+    x32 = torch.randn(n, generator=g, device="cuda", dtype=torch.float32)
+    case("scan cumsum 1-D n=2^28 float32", x32, "cumsum", 0)
+    del x32
+    X = torch.randn(16384, 16384, generator=g, device="cuda",
+                    dtype=torch.float32)
+    for axis in (0, 1):
+        case(f"scan cumsum 16384^2 float32 axis {axis}", X, "cumsum", axis)
+    del X
+    for dt in (torch.float16, torch.bfloat16, torch.float32, torch.float64):
+        s = 1 + 0.01 * torch.randn(3, 2 * sc.TILE + 37, generator=g,
+                                   device="cuda", dtype=torch.float64)
+        s = s.to(dt)
+        for name in ("cumsum", "cumprod"):
+            for axis in (0, 1):
+                case(f"scan {name} (3, 2*TILE+37) {dt} axis {axis}", s, name,
+                     axis)
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: sc.launch(x64, "cumsum", 0), 10)
+    plain_ms = cuda_ms(lambda: sc.scan_reference(x64, "cumsum", 0), 2)
+    lib_ms = cuda_ms(lambda: torch.cumsum(x64, 0), 10)
+    bound_ms = 1e3 * 2 * n * 8 / HBM_BYTES_PER_S
+    log(f"  scan cumsum n=2^28 float64: kernel {ms:.4f} ms ({bound_ms / ms:.1%} "
+        f"of its bound), plain {plain_ms:.4f} ms, torch.cumsum {lib_ms:.4f} ms "
+        f"(not reproducible), bound {bound_ms:.4f} ms ({2 * n * 8 / 1e9:.3f} GB "
+        f"at 3.35 TB/s), {(3 * n * 8 + 2 * 8 * sc.tiles(n)) / 1e9:.3f} GB "
+        f"moved by its three launches [{card}]")
+    del x64
+    torch.cuda.empty_cache()
+    return {"name": "scan", "route": "cuda",
+            "source": "ramba_tpu_torch/csrc/scan.cuh",
+            "replaces": "none: a port-only repair kernel (ramba_tpu's cumsum "
+                        "is XLA's deterministic scan, ramba_tpu/core/expr.py:357"
+                        ", no pallas_call)",
+            "launches": 0, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": lib_ms, "shape": "cumsum n=2^28 float64"}
+
+
+def phase_kernels(rt, er, sk, sg, jacobi, torch, np, card, sc):
     """Each kernel against its plain version on the card; timings."""
     log("phase 2: kernels against their plain versions")
     elemred_small_err = elemred_checks(rt, er, torch, np)
@@ -968,7 +1124,8 @@ def phase_kernels(rt, er, sk, sg, jacobi, torch, np, card):
         "max_abs_err": max(t["max_abs_err"], segred_small_err),
         "shape": "hourly sum n=2^28 float64, 24 groups, int32 labels",
     }
-    return elemred_row, stencil_row, segred_row
+    scan_row = scan_checks(sc, torch, card)
+    return elemred_row, stencil_row, segred_row, scan_row
 
 
 def time_elemred_case(er, torch, what, p, lv, nbytes, card):
@@ -1115,19 +1272,20 @@ def time_elemred(rt, er, torch, np, card):
             "shapes": [axpy, f32]}
 
 
-def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card):
+def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
     """The main path through the user API, launch counts around each."""
     log("phase 3: main path through `import ramba_tpu_torch as rt`")
-    totals = {"elemred": 0, "stencil": 0, "segred": 0}
+    totals = {"elemred": 0, "stencil": 0, "segred": 0, "scan": 0}
 
     def window(name, fn, need):
         er.launches = er.launches_bulk = er.launches_plain = 0
         sk.launches = sk.launches_tma = sk.launches_cpasync = 0
         sk.launches_ldst = 0
         sg.launches = 0
+        sc.launches = 0
         res = fn()
         got = {"elemred": er.launches, "stencil": sk.launches,
-               "segred": sg.launches}
+               "segred": sg.launches, "scan": sc.launches}
         if sk.launches:
             log(f"  {name}: stencil launches by load path {stencil_paths(sk)}")
         if er.launches:
@@ -1272,6 +1430,7 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card):
     torch.cuda.empty_cache()
     groupby_path(rt, sg, torch, np, card, window)
     skeletons_path(rt, er, torch, np, card, window)
+    indexing_path(rt, sc, torch, np, card, window)
     return totals
 
 
@@ -1516,6 +1675,19 @@ def skeletons_path(rt, er, torch, np, card, window):
     check_exact("scumulative f64 cumsum vs torch.cumsum", got,
                 torch.cumsum(q_t, 0), "k/2^20 values: every prefix exact")
     del got, q, q_t
+    # its order is fixed: two runs on randn values, are the bytes equal?
+    r = rt.fromarray(torch.randn(n, generator=gen, device="cuda",
+                                 dtype=torch.float64))
+
+    def oddeven():
+        return rt.scumulative(lambda x, cc: x + cc, lambda cc, blk: blk + cc,
+                              r)._value()
+
+    s1, s2 = oddeven(), oddeven()
+    torch.cuda.synchronize()
+    log(f"  scumulative odd/even cumsum of 2^28 randn f64 twice: byte-equal "
+        f"{bytes_equal(s1, s2)} [{card}]")
+    del r, s1, s2
     ki = rt.fromarray(k_t)
     got = timed("scumulative associative cumsum n=2^28 int64",
                 lambda: rt.scumulative(lambda x, cc: x + cc,
@@ -1637,6 +1809,225 @@ def skeletons_path(rt, er, torch, np, card, window):
     skl.counters["skeletons.host_fallback"] = 0
 
 
+def indexing_path(rt, sc, torch, np, card, window):
+    """Indexing, the NumPy protocol, sort, matmul and cumsum at full size
+    through ``rt``, each against plain torch on the card, timed (wall,
+    synchronised) with the GB/s of the bytes it must move."""
+    from ramba_tpu_torch.core.ndarray import ndarray as port_ndarray
+
+    n = 1 << 28
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    dev = torch.device("cuda", 0)
+
+    def timed(name, call, moved_bytes, need=None):
+        def run():
+            t0 = time.perf_counter()
+            v = call()
+            v = v._value() if hasattr(v, "_value") else v
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, v
+
+        wall, v = window(name, run, need or {})
+        rate = (f"{moved_bytes / wall / 1e9:.1f} GB/s of {moved_bytes / 1e9:.3f}"
+                f" GB it must move" if moved_bytes else "a view: no bytes moved")
+        log(f"  {name}: {wall:.4f} s, {rate} [{card}]")
+        return v
+
+    # masked writes: the select runs on the card, nothing is compacted
+    a_t = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    a = rt.fromarray(a_t.clone())
+
+    def masked():
+        a[a > 0] += 1.0
+        a[a < 0] = 0
+        return a
+
+    got = timed("a[a > 0] += 1.0; a[a < 0] = 0 n=2^28 f64", masked, 2 * n * 8)
+    want = torch.where(a_t > 0, a_t + 1.0, a_t)
+    want = torch.where(want < 0, torch.zeros_like(want), want)
+    check_exact("masked writes vs torch.where", got, want, "the same ops")
+    del a, got, want
+
+    # gather: 2^26 indices, a sixteenth past the end and a sixteenth below -n
+    m = 1 << 26
+    x = rt.fromarray(a_t)
+    idx_t = torch.randint(-n, n, (m,), generator=gen, device=dev)
+    idx_t[: m // 16] += n
+    idx_t[m // 16: m // 8] -= n
+    norm = torch.where(idx_t < 0, idx_t + n, idx_t).clamp(0, n - 1)
+    idx = rt.fromarray(idx_t)
+    got = timed("gather x[idx] 2^26 of 2^28 f64 (out of range, negative)",
+                lambda: x[idx], m * 8 * 3)
+    check_exact("gather vs the clamp rule", got, a_t[norm],
+                "negative indices from the end, then clamped")
+    torch.cuda.synchronize()  # a device assert would surface here
+    del got, norm
+
+    # scatter: 2^26 unique indices into 2^28 f64
+    perm = torch.randperm(n, generator=gen, device=dev)[:m]
+    vals_t = torch.randn(m, generator=gen, device=dev, dtype=torch.float64)
+    y = rt.fromarray(a_t.clone())
+    sidx, svals = rt.fromarray(perm), rt.fromarray(vals_t)
+
+    def scatter():
+        y[sidx] = svals
+        return y
+
+    got = timed("scatter y[idx] = v 2^26 unique of 2^28 f64", scatter,
+                2 * n * 8 + 2 * m * 8)
+    want = a_t.clone()
+    want[perm] = vals_t
+    check_exact("scatter vs torch index_put_", got, want, "unique indices")
+    del got, want, y, sidx, svals, perm, vals_t, idx, idx_t, x
+    torch.cuda.empty_cache()
+
+    # a gather of rows and a slice of columns on a 16384^2 grid
+    X_t = torch.randn(16384, 16384, generator=gen, device=dev,
+                      dtype=torch.float32)
+    rows_t = torch.randint(0, 16384, (8192,), generator=gen, device=dev)
+    X = rt.fromarray(X_t)
+    rows = rt.fromarray(rows_t)
+    got = timed("X[rows, 1:9] 8192 rows of 16384^2 f32", lambda: X[rows, 1:9],
+                8192 * (8 * 4 + 8 + 8 * 4))
+    check_exact("X[rows, 1:9] vs torch", got, X_t[rows_t, 1:9], "a gather")
+    del X, X_t, rows, rows_t, got
+
+    # NumPy's functions on port arrays stay on the card
+    h = n // 2
+    p_t = a_t[:h].clone()
+    q_t = a_t[h:].clone()
+    p, q = rt.fromarray(p_t), rt.fromarray(q_t)
+    for name, call, want_of, moved in (
+            ("np.concatenate", lambda: np.concatenate([p, q]),
+             lambda: torch.cat([p_t, q_t]), 2 * n * 8),
+            ("np.stack", lambda: np.stack([p, q]),
+             lambda: torch.stack([p_t, q_t]), 2 * n * 8),
+            ("np.where", lambda: np.where(p > 0, p, q),
+             lambda: torch.where(p_t > 0, p_t, q_t), 3 * h * 8),
+            ("np.transpose", lambda: np.transpose(
+                np.reshape(p, (16384, h // 16384))),
+             lambda: p_t.reshape(16384, h // 16384).T, 0)):
+        res = call()
+        if not isinstance(res, port_ndarray):
+            raise Fail(f"{name} on port arrays gave {type(res)}")
+        got = timed(f"{name} on port arrays (2^27 f64 each)", lambda: res,
+                    moved)
+        if got.device != dev:
+            raise Fail(f"{name}: the result lies on {got.device}")
+        check_exact(f"{name} vs torch (a port ndarray on {got.device})", got,
+                    want_of(), "data movement")
+        del res, got
+    del p, q, p_t, q_t
+    torch.cuda.empty_cache()
+
+    # sort / argsort of 2^28 f64 with NaNs (some negative) and signed zeros
+    s_t = a_t.clone()
+    s_t[:: 1 << 10] = float("nan")
+    s_t[1 :: 1 << 11] = -float("nan")
+    s_t[2 :: 1 << 9] = -0.0
+    s_t[3 :: 1 << 9] = 0.0
+    s = rt.fromarray(s_t)
+    srt = timed("sort n=2^28 f64 (NaNs, signed zeros)", lambda: rt.sort(s),
+                2 * n * 8)
+    order = timed("argsort n=2^28 f64", lambda: rt.argsort(s), n * 8 + n * 8)
+    nan = torch.isnan(s_t)
+    k = int(nan.sum())
+    body = srt[: n - k]
+    ok_nan = bool(torch.isnan(srt[n - k:]).all()) and not bool(
+        torch.isnan(body).any())
+    ok_order = bool((body[1:] >= body[:-1]).all())
+    gathered = bytes_equal(s_t[order], srt)
+    zeros = torch.nonzero(s_t == 0).reshape(-1)  # input order of the zeros
+    zsorted = srt[srt == 0]
+    ok_zero = torch.equal(torch.signbit(zsorted), torch.signbit(s_t[zeros]))
+    ties = order[n - k:]
+    ok_stable = bool((ties[1:] > ties[:-1]).all())  # the NaNs keep their order
+    ok = ok_nan and ok_order and gathered and ok_zero and ok_stable
+    log(f"  sort/argsort: ascending {ok_order}, {k} NaNs last {ok_nan}, "
+        f"signed zeros in input order {ok_zero}, ties stable {ok_stable}, "
+        f"x[argsort] byte-equal to sort {gathered} "
+        f"{'ok' if ok else 'MISS'}")
+    if not ok:
+        raise Fail("sort/argsort on the card")
+    del s, s_t, srt, order, nan, body, zeros, zsorted, ties
+    torch.cuda.empty_cache()
+
+    # matmul: float32 with TF32 off, float64, each against a float64 product
+    for dt, N, sample in ((torch.float32, 8192, None), (torch.float64, 4096, 64)):
+        A_t = torch.randn(N, N, generator=gen, device=dev, dtype=dt)
+        B_t = torch.randn(N, N, generator=gen, device=dev, dtype=dt)
+        A, B = rt.fromarray(A_t), rt.fromarray(B_t)
+        rt.set_matmul_precision(None)
+        (A @ B)._value()  # warm: cuBLAS picks its kernel once
+        torch.cuda.synchronize()
+        C = timed(f"matmul {N}^2 {dt} (TF32 off)", lambda: A @ B, 3 * N * N *
+                  A_t.element_size())
+        t_ms = cuda_ms(lambda: (A @ B)._value(), 3)
+        flops = 2 * N ** 3
+        dname = str(dt).split(".")[1]
+        if sample is None:
+            ref = A_t.double() @ B_t.double()
+            absprod = A_t.double().abs() @ B_t.double().abs()
+            Cs = C
+        else:
+            rsel = torch.randperm(N, generator=gen, device=dev)[:sample]
+            ref = (A_t[rsel].cpu() @ B_t.cpu()).to(dev)
+            absprod = (A_t[rsel].abs().cpu() @ B_t.abs().cpu()).to(dev)
+            Cs = C[rsel]
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise Fail("the matmul left TF32 on")
+        check_sums(f"matmul {N}^2 {dname} vs a float64 product"
+                   f"{'' if sample is None else f' ({sample} sampled rows, CPU)'}",
+                   Cs.double(), ref, N * EPS[dname] * absprod,
+                   "K*eps*(|A||B|)")
+        log(f"  matmul {N}^2 {dname}: {t_ms:.4f} ms, {flops / t_ms / 1e9:.1f} "
+            f"TFLOP/s against the data sheet's {PEAK_MATMUL[dname] / 1e12:.0f} "
+            f"TFLOP/s ({'CUDA cores, TF32 off' if dname == 'float32' else 'FP64 tensor cores'}) "
+            f"[{card}]")
+        del A, B, C, A_t, B_t, ref, absprod, Cs
+        torch.cuda.empty_cache()
+
+    # int64 matmul: cuBLAS has no integer product; the port's chunked path
+    N = 2048
+    Ai = torch.randint(-(1 << 20), 1 << 20, (N, N), generator=gen, device=dev)
+    Bi = torch.randint(-(1 << 20), 1 << 20, (N, N), generator=gen, device=dev)
+    try:
+        torch.matmul(Ai[:2, :2], Bi[:2, :2])
+        lib_int = "torch.matmul takes int64 on the card"
+    except RuntimeError as e:
+        lib_int = f"torch.matmul refuses int64 on the card ({str(e)[:50]})"
+    log(f"  {lib_int}")
+    Ci = timed(f"matmul {N}^2 int64 (chunked broadcast product)",
+               lambda: rt.fromarray(Ai) @ rt.fromarray(Bi), 3 * N * N * 8)
+    rsel = torch.randperm(N, generator=gen, device=dev)[:16]
+    want = (Ai[rsel].cpu() @ Bi.cpu()).to(dev)
+    check_exact(f"int64 matmul {N}^2 on 16 sampled rows vs the CPU's",
+                Ci[rsel], want, "integers, exact")
+    del Ai, Bi, Ci, want
+    torch.cuda.empty_cache()
+
+    # cumsum on the scan kernel: twice, the same bytes
+    c = rt.fromarray(a_t)
+    r1 = timed("rt.cumsum n=2^28 f64 (scan kernel)", lambda: rt.cumsum(c),
+               2 * n * 8, {"scan": 1})
+    r2 = rt.cumsum(c)._value()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lib = torch.cumsum(a_t, 0)
+    torch.cuda.synchronize()
+    lib_wall = time.perf_counter() - t0
+    same = bytes_equal(r1, r2)
+    plain = bytes_equal(r1, sc.scan_reference(a_t, "cumsum", 0))
+    log(f"  rt.cumsum twice byte-equal {same}, byte-equal to the scan's plain "
+        f"version {plain}; torch.cumsum {lib_wall:.4f} s beside it; byte bound "
+        f"{1e3 * 2 * n * 8 / HBM_BYTES_PER_S:.4f} ms [{card}]")
+    if not (same and plain):
+        raise Fail("rt.cumsum is not reproducible bit for bit")
+    del c, r1, r2, lib, a_t
+    torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     import torch
 
@@ -1652,16 +2043,18 @@ def main(argv) -> int:
     from ramba_tpu_torch.ops import segred as sg
     from ramba_tpu_torch.ops import stencil_kernel as sk
 
+    from ramba_tpu_torch.ops import scan as sc
+
     rt.set_device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     log(f"phase 1: device {torch.cuda.get_device_name(0)} ({card}), "
         f"torch {torch.__version__}, cuda {torch.version.cuda}")
     t_all = time.perf_counter()
-    phase_build(rt, er, sk, sg, gb, jacobi)
-    rows = phase_kernels(rt, er, sk, sg, jacobi, torch, np, card)
+    phase_build(rt, er, sk, sg, gb, jacobi, sc)
+    rows = phase_kernels(rt, er, sk, sg, jacobi, torch, np, card, sc)
     if "--quick" not in argv:
-        totals = phase_main_path(rt, er, sk, sg, jacobi, torch, np, card)
+        totals = phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc)
         for row in rows:
             row["launches"] = totals[row["name"]]
     log(f"total {time.perf_counter() - t_all:.1f} s; stencil bodies turned "

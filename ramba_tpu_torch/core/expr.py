@@ -14,6 +14,7 @@ never by running an op.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Any, Callable, NamedTuple, Sequence
 
@@ -463,8 +464,11 @@ def defop(name: str, aval_rule: Callable = None) -> Callable[[Callable], Callabl
 
 def _sign(x):
     s = torch.sign(x)
-    # numpy and jnp: sign(nan) is nan
-    return torch.where(torch.isnan(x), x, s) if x.is_floating_point() else s
+    if not x.is_floating_point():
+        return s
+    # numpy and jnp: sign(nan) is nan; ramba_tpu keeps the zero's sign
+    # (sign(-0.0) is -0.0, where numpy gives 0.0)
+    return torch.where(torch.isnan(x) | (x == 0), x, s)
 
 
 def _reciprocal(x):
@@ -727,18 +731,52 @@ def _device_of(args):
     return common.device()
 
 
+def _is_integer(tdt) -> bool:
+    return not (tdt.is_floating_point or tdt.is_complex or tdt == torch.bool)
+
+
+def convert(t: torch.Tensor, tdt: torch.dtype) -> torch.Tensor:
+    """``t`` in dtype ``tdt``.  A float to an integer type saturates as
+    ``ramba_tpu`` (XLA's convert) does: NaN gives 0, and values at or
+    beyond the type's range give its maximum or minimum (128.5 to int8 is
+    127); in range it truncates toward zero.  torch's own conversion
+    wraps on the CPU, as C casts and NumPy do."""
+    if t.dtype == tdt:
+        return t
+    if not (t.is_floating_point() and _is_integer(tdt)):
+        return t.to(tdt)
+    info = torch.iinfo(tdt)
+    # both limits are powers of two, exact in every float type (bfloat16
+    # and float16 round 2**63 to inf and compare right all the same)
+    big = t >= float(info.max + 1)
+    small = t <= float(info.min - 1) if info.min else t < 0
+    nan = torch.isnan(t)
+    # unsigned targets: -1 < t < 0 truncates to 0 through the zero fill
+    out = _bits(torch.where(big | small | nan, torch.zeros_like(t), t).to(tdt))
+    # the limits as the signed view's bit patterns (torch selects no
+    # uint16/32/64 on the card)
+    width = 8 * out.element_size()
+    hi, lo = (v - (1 << width) if v >= 1 << (width - 1) else v
+              for v in (info.max, info.min))
+    out = torch.where(big, torch.full_like(out, hi), out)
+    out = torch.where(small, torch.full_like(out, lo), out)
+    return _unbits(out, tdt)
+
+
 def as_tensor(v, dtype=None, dev=None) -> torch.Tensor:
     """A runtime value as a tensor of numpy ``dtype`` (default: its own)."""
     if dtype is None:
         dtype = aval_of(v).dtype
     tdt = to_torch_dtype(dtype)
     if isinstance(v, torch.Tensor):
-        return v if v.dtype == tdt else v.to(tdt)
+        return convert(v, tdt)
     if isinstance(v, np.generic):
         v = v.item()
+    dev = common.device() if dev is None else dev
+    if isinstance(v, float) and _is_integer(tdt):
+        return convert(torch.full((), v, dtype=torch.float64, device=dev), tdt)
     # torch.full launches a fill kernel: no host-to-device copy, no sync
-    return torch.full((), v, dtype=tdt,
-                      device=common.device() if dev is None else dev)
+    return torch.full((), v, dtype=tdt, device=dev)
 
 
 def apply_map(fname: str, args: Sequence) -> torch.Tensor:
@@ -822,9 +860,9 @@ def _dims(axis, ndim):
 def _reduce_unsigned(fname, x, out_dt, dims, keepdims):
     """sum/prod/min/max of uint16/32/64 through the int64 carrier: sums and
     products wrap modulo 2**64 exactly as the uint64 result does."""
-    w = _WIDE_UNSIGNED[x.dtype]
     c = _to_carrier(x)
     if fname in ("min", "max"):
+        w = _WIDE_UNSIGNED[x.dtype]
         k = _ukey(c, w)
         r = _ukey(reduce_tensor(fname, k, tuple(dims), keepdims), w)
         return _from_carrier(r, x.dtype)
@@ -845,7 +883,9 @@ def reduce_tensor(fname, x: torch.Tensor, axis=None, keepdims=False,
         dims = ()
     if not x.is_floating_point() and fname in NAN_PLAIN:
         fname = NAN_PLAIN[fname]  # nothing to ignore
-    if _is_wide_unsigned(x.dtype) and fname in ("sum", "prod", "min", "max"):
+    if (_is_wide_unsigned(x.dtype) and fname in ("min", "max")) or (
+            _is_wide_unsigned(out_dt) and fname in ("sum", "prod")):
+        # uint8 sums and products too: torch would promote them to int64
         return _reduce_unsigned(fname, x, out_dt, dims, keepdims)
     if fname in ("sum", "prod", "mean"):
         # accumulate in the result dtype, as numpy and jnp do
@@ -1028,7 +1068,13 @@ def _op_reduce_where(static, x, mask):
 
 @defop("cumulative")
 def _op_cumulative(static, x):
-    """cumsum/cumprod along one axis in the widened dtype."""
+    """cumsum/cumprod along one axis in the widened dtype.  Floats go
+    through the fixed-order scan (``ops/scan.py``: the same bytes on every
+    run; torch's own float scan on the card varies between calls).
+    Integer scans stay on ``torch.cumsum``/``cumprod``: addition and
+    multiplication modulo 2**64 give the same bits in any order."""
+    from ramba_tpu_torch.ops import scan
+
     fname, axis = static
     x = as_tensor(x)
     out_dt = to_torch_dtype(cumulative_dtype(to_np_dtype(x.dtype)))
@@ -1037,6 +1083,8 @@ def _op_cumulative(static, x):
             else torch.cumprod(_to_carrier(x), axis)
         return _from_carrier(c, out_dt)
     y = x if x.dtype == out_dt else x.to(out_dt)
+    if y.dtype in scan.DTYPES:
+        return scan.run(y, fname, axis)
     return torch.cumsum(y, axis) if fname == "cumsum" else torch.cumprod(y, axis)
 
 
@@ -1142,6 +1190,36 @@ def _op_setitem(static, x, v):
     return out
 
 
+# -- data movement -----------------------------------------------------------
+# torch moves uint16/uint32/uint64 through few of its ops (no flip, tril,
+# index_select or index_put on the CPU); data movement runs on a signed
+# view of the same bits.
+
+_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+                torch.uint64: torch.int64}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(_SIGNED_VIEW[t.dtype]) if t.dtype in _SIGNED_VIEW else t
+
+
+def _unbits(t: torch.Tensor, tdt: torch.dtype) -> torch.Tensor:
+    return t.view(tdt) if tdt in _SIGNED_VIEW else t
+
+
+def _fill_value(tdt: torch.dtype):
+    """``jnp.take(mode="fill")``'s default fill: NaN for inexact types, the
+    minimum of signed integers, the maximum of unsigned ones, True; for
+    uint16/32/64 as the bit pattern of their signed view (-1)."""
+    if tdt == torch.bool:
+        return True
+    if tdt.is_floating_point or tdt.is_complex:
+        return float("nan")
+    if tdt in _SIGNED_VIEW:
+        return -1
+    return torch.iinfo(tdt).min if tdt.is_signed else torch.iinfo(tdt).max
+
+
 def _aval_take(static, x, indices):
     axis, _mode = static
     return Aval(x.shape[:axis] + indices.shape + x.shape[axis + 1:],
@@ -1151,17 +1229,31 @@ def _aval_take(static, x, indices):
 @defop("take", _aval_take)
 def _op_take(static, x, indices):
     """``jnp.take`` along ``axis``: ``clip`` clamps every index into
-    ``[0, n)`` (so -1 reads element 0), ``wrap`` takes it modulo n."""
+    ``[0, n)`` (so -1 reads element 0), ``wrap`` takes it modulo n,
+    ``fill`` reads negative indices from the end and gives the fill value
+    (``_fill_value``) for any index still out of range."""
     axis, mode = static
     n = x.shape[axis]
     idx = as_tensor(indices, dev=x.device).long()
     if mode == "clip":
-        idx = idx.clamp(0, n - 1)
+        idx = idx.clamp(0, max(n - 1, 0))
     elif mode == "wrap":
         idx = torch.remainder(idx, n)
+    elif mode == "fill":
+        idx = torch.where(idx < 0, idx + n, idx)
+        bad = (idx < 0) | (idx >= n)
+        idx = torch.where(bad, torch.zeros_like(idx), idx)
     else:
-        raise NotImplementedError(f"take mode {mode!r} is not ported yet")
-    return x[(slice(None),) * axis + (idx,)]
+        raise NotImplementedError(f"take mode {mode!r}")
+    out = _unbits(_bits(x)[(slice(None),) * axis + (idx,)], x.dtype)
+    if mode == "fill":
+        bad = bad.reshape((1,) * axis + tuple(bad.shape)
+                          + (1,) * (x.ndim - axis - 1))
+        ob = _bits(out)
+        fill = torch.full((), _fill_value(x.dtype), dtype=ob.dtype,
+                          device=x.device)
+        out = _unbits(torch.where(bad, fill, ob), x.dtype)
+    return out
 
 
 @defop("permute")
@@ -1174,6 +1266,818 @@ def _op_permute(static, x):
 def _op_reshape(static, x):
     (shape,) = static
     return x.reshape(shape)
+
+
+# -- advanced and boolean indexing -------------------------------------------
+# ``getitem_adv``/``setitem_adv`` take an index whose array positions
+# (``arraypos``) hold placeholders in ``enc``; the index arrays follow the
+# operand as arguments.  NumPy's rules place the result: integers count as
+# arrays once any array is present, the arrays broadcast together, and the
+# broadcast dims go where the arrays stand when those are adjacent in the
+# index, else in front.  Out-of-range indices never reach a torch index
+# call (a CUDA device assert would poison the context): a gather
+# normalises negative indices and clamps, as XLA does; a scatter drops
+# the write, through a scratch slot past the end of the flat operand.
+
+
+class AdvPlan(NamedTuple):
+    comps: tuple   # per index item: ("new",) | ("slice", dim, slice) |
+                   # ("adv", dim, k) with k the array's position in arrays
+    bshape: tuple  # the broadcast shape of the index arrays
+    bpos: int      # where the broadcast dims stand in the result
+    shape: tuple   # the result's shape
+
+
+def adv_plan(shape, enc, arraypos, ishapes) -> AdvPlan:
+    idx = decode_index(enc)
+    comps, arrays, dim, k = [], [], 0, 0
+    for p, it in enumerate(idx):
+        if p in arraypos:
+            comps.append(("adv", dim, k))
+            arrays.append(tuple(ishapes[k]))
+            k += 1
+            dim += 1
+        elif it is None:
+            comps.append(("new",))
+        elif it is Ellipsis:
+            raise IndexError("expand the ellipsis before planning")
+        elif isinstance(it, slice):
+            comps.append(("slice", dim, it))
+            dim += 1
+        else:  # an integer among arrays is a 0-d index array
+            comps.append(("adv", dim, None))
+            arrays.append(())
+            dim += 1
+    if dim > len(shape):
+        raise IndexError(f"too many indices for array: array is "
+                         f"{len(shape)}-dimensional, but {dim} were indexed")
+    comps += [("slice", d, slice(None)) for d in range(dim, len(shape))]
+    try:
+        bshape = tuple(np.broadcast_shapes(*arrays))
+    except ValueError as e:
+        raise IndexError(f"shape mismatch: indexing arrays could not be "
+                         f"broadcast together with shapes {arrays}") from e
+    where = [i for i, c in enumerate(comps) if c[0] == "adv"]
+    adjacent = where == list(range(where[0], where[-1] + 1))
+    rest = []
+    bpos = 0
+    for i, c in enumerate(comps):
+        if c[0] == "new":
+            rest.append(1)
+        elif c[0] == "slice":
+            rest.append(len(range(*c[2].indices(shape[c[1]]))))
+        if adjacent and i < where[0] and c[0] != "adv":
+            bpos = len(rest)
+    out = tuple(rest[:bpos]) + bshape + tuple(rest[bpos:])
+    return AdvPlan(tuple(comps), bshape, bpos, out)
+
+
+def _index_tensors(plan, indexers, dev):
+    """The index arrays in plan order as int64 tensors (the integers of
+    the index among them as 0-d tensors)."""
+    out = []
+    for c in plan.comps:
+        if c[0] != "adv":
+            continue
+        if c[2] is None:
+            out.append(None)
+            continue
+        t = as_tensor(indexers[c[2]], dev=dev)
+        if t.dtype == torch.bool or t.is_floating_point() or t.is_complex():
+            raise IndexError("arrays used as indices must be of integer type")
+        out.append(t.long() if t.dtype != torch.uint64 else t.view(torch.int64))
+    return out
+
+
+def _plan_of(static, x, indexers):
+    enc, arraypos = static
+    return adv_plan(tuple(x.shape), enc, arraypos,
+                    [tuple(aval_of(i).shape) for i in indexers])
+
+
+def _aval_getitem_adv(static, x, *indexers):
+    enc, arraypos = static
+    plan = adv_plan(x.shape, enc, arraypos, [i.shape for i in indexers])
+    return Aval(plan.shape, x.dtype, x.weak)
+
+
+def _int_items(static):
+    """The integers of the index, by plan order of the "adv" items."""
+    enc, arraypos = static
+    return [int(it[1]) for p, it in enumerate(enc)
+            if p not in arraypos and it[0] == "i"]
+
+
+@defop("getitem_adv", _aval_getitem_adv)
+def _op_getitem_adv(static, x, *indexers):
+    """Gather: basic slicing first (each adv dim kept whole), then one
+    torch gather over the adv dims moved to the front."""
+    plan = _plan_of(static, x, indexers)
+    ints = iter(_int_items(static))
+    basic, flips, adv_dims = [], [], []
+    for c in plan.comps:
+        if c[0] == "new":
+            basic.append(None)
+        elif c[0] == "adv":
+            adv_dims.append(len(basic))
+            basic.append(slice(None))
+        else:
+            start, stop, step = c[2].indices(x.shape[c[1]])
+            r = range(start, stop, step)
+            if step < 0 and len(r):
+                basic.append(slice(r[-1], r[0] + 1, -step))
+                flips.append(len(basic) - 1)
+            else:
+                basic.append(slice(start, stop, step) if len(r)
+                             else slice(0, 0, 1))
+    y = _bits(x)[tuple(basic)]
+    if flips:
+        y = torch.flip(y, flips)
+    idx = []
+    for c, t in zip([c for c in plan.comps if c[0] == "adv"],
+                    _index_tensors(plan, indexers, x.device)):
+        n = x.shape[c[1]]
+        if t is None:
+            t = torch.full((), next(ints), dtype=torch.int64, device=x.device)
+        t = torch.where(t < 0, t + n, t).clamp(0, max(n - 1, 0))
+        idx.append(t)
+    rest = [d for d in range(y.ndim) if d not in adv_dims]
+    r = y.permute(*adv_dims, *rest)[tuple(idx)]
+    nb = len(plan.bshape)
+    if plan.bpos:
+        r = r.movedim(tuple(range(nb)), tuple(range(plan.bpos, plan.bpos + nb)))
+    return _unbits(r.reshape(plan.shape), x.dtype)
+
+
+def _aval_setitem_adv(static, x, v, *indexers):
+    return Aval(x.shape, x.dtype, x.weak)
+
+
+@defop("setitem_adv", _aval_setitem_adv)
+def _op_setitem_adv(static, x, v, *indexers):
+    """Scatter: every written element's flat position in ``x``, broadcast
+    over the result's shape; a position whose index is out of range
+    (after negative indices count from the end) goes to a scratch slot
+    past the end, so the write is dropped, as XLA drops it.  Duplicate
+    positions: one of the written values wins (XLA leaves the winner
+    unspecified too)."""
+    plan = _plan_of(static, x, indexers)
+    ints = iter(_int_items(static))
+    dev = x.device
+    nd = len(plan.shape)
+    nb = len(plan.bshape)
+    strides = [int(np.prod(x.shape[d + 1:], dtype=np.int64))
+               for d in range(x.ndim)]
+    numel = x.numel()
+    lin = torch.zeros((), dtype=torch.int64, device=dev)
+    valid = torch.ones((), dtype=torch.bool, device=dev)
+    tensors = iter(_index_tensors(plan, indexers, dev))
+    pos = 0  # non-adv items so far: the broadcast dims stand at bpos
+    for c in plan.comps:
+        if c[0] == "new":
+            pos += 1
+            continue
+        if c[0] == "adv":
+            t = next(tensors)
+            n = x.shape[c[1]]
+            if t is None:
+                t = torch.full((), next(ints), dtype=torch.int64, device=dev)
+            t = torch.where(t < 0, t + n, t)
+            t = t.reshape((1,) * (plan.bpos + nb - t.ndim) + tuple(t.shape)
+                          + (1,) * (nd - plan.bpos - nb))
+            valid = valid & (t >= 0) & (t < n)
+            lin = lin + t * strides[c[1]]
+            continue
+        d = pos if pos < plan.bpos else pos + nb
+        r = torch.arange(*c[2].indices(x.shape[c[1]]), device=dev)
+        lin = lin + (r * strides[c[1]]).reshape(
+            (1,) * d + (len(r),) + (1,) * (nd - d - 1))
+        pos += 1
+    lin = torch.where(valid, lin, torch.full_like(lin, numel))
+    lin = lin.expand(plan.shape) if lin.ndim else lin.reshape((1,) * nd)
+    vals = as_tensor(v, to_np_dtype(x.dtype), dev)
+    while vals.ndim > nd and vals.shape[0] == 1:
+        vals = vals[0]
+    vals = vals.expand(plan.shape)
+    flat = torch.empty(numel + 1, dtype=x.dtype, device=dev)
+    fb = _bits(flat)
+    fb[:numel] = _bits(x).reshape(-1)
+    fb.index_put_((lin.reshape(-1),), _bits(vals.contiguous()).reshape(-1))
+    return flat[:numel].reshape(x.shape)
+
+
+def _aval_masked_fill(static, x, mask, v):
+    shape = tuple(np.broadcast_shapes(x.shape, mask.shape, v.shape))
+    return Aval(shape, x.dtype, x.weak)
+
+
+@defop("masked_fill", _aval_masked_fill)
+def _op_masked_fill(static, x, mask, v):
+    """Boolean-mask write as a select: ``v`` (cast to ``x``'s dtype) where
+    the mask holds, ``x`` elsewhere.  Nothing is compacted, so nothing
+    waits on the mask's count."""
+    x = as_tensor(x)
+    mask = as_tensor(mask, dev=x.device)
+    mask = mask if mask.dtype == torch.bool else mask != 0
+    v = as_tensor(v, to_np_dtype(x.dtype), x.device)
+    return _unbits(torch.where(mask, _bits(v), _bits(x)), x.dtype)
+
+
+# -- structural ----------------------------------------------------------------
+
+
+def _same_aval(static, x):
+    return Aval(x.shape, x.dtype, x.weak)
+
+
+@defop("flip", _same_aval)
+def _op_flip(static, x):
+    (axes,) = static
+    return _unbits(torch.flip(_bits(x), list(axes)), x.dtype) if axes else x
+
+
+def join_dtype(dtypes) -> np.dtype:
+    """NumPy's common dtype of arrays that a join puts together (what
+    ``ramba_tpu`` casts concatenate's and stack's operands to)."""
+    return np.result_type(*[np.dtype(np.float16) if is_bf16(d) else d
+                            for d in dtypes]) \
+        if not all(is_bf16(d) for d in dtypes) else BF16
+
+
+def _aval_concatenate(static, *xs):
+    (axis,) = static
+    nd = len(xs[0].shape)
+    if any(len(a.shape) != nd for a in xs) or nd == 0:
+        raise ValueError("all the input arrays must have same number of "
+                         "dimensions (and at least one)")
+    ax = axis % nd
+    for a in xs:
+        if any(a.shape[d] != xs[0].shape[d] for d in range(nd) if d != ax):
+            raise ValueError("all the input array dimensions except for the "
+                             "concatenation axis must match exactly")
+    shape = list(xs[0].shape)
+    shape[ax] = sum(a.shape[ax] for a in xs)
+    return Aval(tuple(shape), join_dtype([a.dtype for a in xs]), False)
+
+
+def _joined(xs):
+    tdt = to_torch_dtype(join_dtype([to_np_dtype(t.dtype) for t in xs]))
+    return [_bits(convert(as_tensor(t), tdt)) for t in xs], tdt
+
+
+@defop("concatenate", _aval_concatenate)
+def _op_concatenate(static, *xs):
+    (axis,) = static
+    ts, tdt = _joined(xs)
+    return _unbits(torch.cat(ts, dim=axis % ts[0].ndim), tdt)
+
+
+def _aval_stack(static, *xs):
+    (axis,) = static
+    if any(a.shape != xs[0].shape for a in xs):
+        raise ValueError("all input arrays must have the same shape")
+    nd = len(xs[0].shape) + 1
+    if not -nd <= axis < nd:
+        raise np.exceptions.AxisError(axis, nd)
+    shape = list(xs[0].shape)
+    shape.insert(axis % nd, len(xs))
+    return Aval(tuple(shape), join_dtype([a.dtype for a in xs]), False)
+
+
+@defop("stack", _aval_stack)
+def _op_stack(static, *xs):
+    (axis,) = static
+    ts, tdt = _joined(xs)
+    return _unbits(torch.stack(ts, dim=axis % (ts[0].ndim + 1)), tdt)
+
+
+def _aval_pad(static, x, *consts):
+    pad_width, _mode = static
+    return Aval(tuple(s + lo + hi for s, (lo, hi) in zip(x.shape, pad_width)),
+                x.dtype, x.weak)
+
+
+def _pad_index(mode, n, lo, hi, dev):
+    """Source positions of a padded axis for the index-based modes."""
+    i = torch.arange(-lo, n + hi, device=dev)
+    if mode == "edge":
+        return i.clamp(0, n - 1)
+    if mode == "wrap":
+        return torch.remainder(i, n)
+    if mode == "reflect":  # mirrored about the edge elements
+        if n == 1:
+            return torch.zeros_like(i)
+        p = torch.remainder(i, 2 * (n - 1))
+        return torch.where(p >= n, 2 * (n - 1) - p, p)
+    if mode == "symmetric":  # mirrored with the edge elements repeated
+        p = torch.remainder(i, 2 * n)
+        return torch.where(p >= n, 2 * n - 1 - p, p)
+    raise NotImplementedError(f"pad mode {mode!r}")
+
+
+@defop("pad", _aval_pad)
+def _op_pad(static, x, *consts):
+    """``jnp.pad``: constant (the value cast to the dtype, as
+    ``constant_values``), empty (zeros), edge, wrap, reflect and
+    symmetric, one axis at a time."""
+    pad_width, mode = static
+    x = as_tensor(x)
+    tdt = x.dtype
+    y = _bits(x)
+    for ax, (lo, hi) in enumerate(pad_width):
+        if lo == 0 and hi == 0:
+            continue
+        if mode in ("constant", "empty"):
+            c = consts[0] if consts and mode == "constant" else 0
+            fill = _bits(as_tensor(c, to_np_dtype(tdt), x.device))
+            parts = []
+            for w in (lo, hi):
+                shp = list(y.shape)
+                shp[ax] = w
+                parts.append(fill.expand(shp))
+            y = torch.cat([parts[0], y, parts[1]], dim=ax)
+        else:
+            if y.shape[ax] == 0:
+                raise ValueError(f"can't pad an empty axis in mode {mode!r}")
+            y = torch.index_select(
+                y, ax, _pad_index(mode, y.shape[ax], lo, hi, x.device))
+    return _unbits(y, tdt)
+
+
+def _aval_moveaxis(static, x):
+    src, dst = static
+    order = [d for d in range(len(x.shape)) if d != src % len(x.shape)]
+    order.insert(dst % len(x.shape), src % len(x.shape))
+    return Aval(tuple(x.shape[d] for d in order), x.dtype, x.weak)
+
+
+@defop("moveaxis", _aval_moveaxis)
+def _op_moveaxis(static, x):
+    src, dst = static
+    return torch.movedim(x, src, dst)
+
+
+def _aval_repeat(static, x):
+    repeats, axis = static
+    shape = list(x.shape)
+    shape[axis] *= repeats
+    return Aval(tuple(shape), x.dtype, x.weak)
+
+
+@defop("repeat", _aval_repeat)
+def _op_repeat(static, x):
+    repeats, axis = static
+    return _unbits(torch.repeat_interleave(_bits(x), repeats, dim=axis),
+                   x.dtype)
+
+
+def _aval_tile(static, x):
+    (reps,) = static
+    nd = max(len(reps), len(x.shape))
+    r = (1,) * (nd - len(reps)) + tuple(reps)
+    s = (1,) * (nd - len(x.shape)) + tuple(x.shape)
+    return Aval(tuple(a * b for a, b in zip(r, s)), x.dtype, x.weak)
+
+
+@defop("tile", _aval_tile)
+def _op_tile(static, x):
+    (reps,) = static
+    return _unbits(torch.tile(_bits(x), tuple(reps)), x.dtype)
+
+
+def _aval_tri(static, x):
+    if len(x.shape) < 2:
+        raise ValueError("tril/triu: the array must be at least 2-D")
+    return Aval(x.shape, x.dtype, x.weak)
+
+
+@defop("tril", _aval_tri)
+def _op_tril(static, x):
+    (k,) = static
+    return _unbits(torch.tril(_bits(x), k), x.dtype)
+
+
+@defop("triu", _aval_tri)
+def _op_triu(static, x):
+    (k,) = static
+    return _unbits(torch.triu(_bits(x), k), x.dtype)
+
+
+def _aval_diag(static, x):
+    (k,) = static
+    if len(x.shape) == 1:
+        n = x.shape[0] + abs(k)
+        return Aval((n, n), x.dtype, x.weak)
+    if len(x.shape) != 2:
+        raise ValueError("Input must be 1- or 2-d.")
+    r, c = x.shape
+    return Aval((max(0, min(r + min(k, 0), c - max(k, 0))),), x.dtype, x.weak)
+
+
+@defop("diag", _aval_diag)
+def _op_diag(static, x):
+    (k,) = static
+    return _unbits(torch.diag(_bits(x), k), x.dtype)
+
+
+def _aval_sort(static, x):
+    (axis,) = static
+    shape = (int(np.prod(x.shape, dtype=np.int64)),) if axis is None \
+        else x.shape
+    return Aval(shape, x.dtype, x.weak)
+
+
+def _aval_argsort(static, x):
+    return Aval(_aval_sort(static, x).shape, np.dtype(np.int64), False)
+
+
+def sort_key(x: torch.Tensor) -> torch.Tensor:
+    """A key whose stable torch order is ``jnp.sort``'s order of ``x``:
+    every NaN (a negative one too) becomes the one NaN, which sorts last;
+    bools sort as uint8; unsigned types by value through the int64
+    carrier, uint64 with its sign bit flipped."""
+    if x.is_floating_point():
+        return torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
+    if x.dtype == torch.bool:
+        return x.to(torch.uint8)
+    if _is_wide_unsigned(x.dtype):
+        return _ukey(_to_carrier(x), _WIDE_UNSIGNED[x.dtype])
+    return x
+
+
+def _sort_operand(x, axis):
+    x = as_tensor(x)
+    return (x.reshape(-1), 0) if axis is None else (x, axis % max(x.ndim, 1))
+
+
+@defop("sort", _aval_sort)
+def _op_sort(static, x):
+    """Stable ascending sort along ``axis`` (None: the flattened array),
+    NaNs last; the values are gathered back through the order, so every
+    value (-0.0 and 0.0 in their input order) keeps its bits."""
+    (axis,) = static
+    x, ax = _sort_operand(x, axis)
+    if x.ndim == 0:
+        return x.clone()
+    order = torch.sort(sort_key(x), dim=ax, stable=True).indices
+    return _unbits(torch.gather(_bits(x), ax, order), x.dtype)
+
+
+@defop("argsort", _aval_argsort)
+def _op_argsort(static, x):
+    (axis,) = static
+    x, ax = _sort_operand(x, axis)
+    if x.ndim == 0:
+        return torch.zeros((), dtype=torch.int64, device=x.device)
+    return torch.sort(sort_key(x), dim=ax, stable=True).indices
+
+
+# -- linear algebra -------------------------------------------------------------
+# ramba_tpu types these products by jnp's promotion lattice (int32 @ float32
+# is float32, uint8 @ int8 is int16), not by NumPy's rules, and computes them
+# outside any Pallas kernel: they stay on torch here.  Float products go to
+# torch.matmul with TF32 off unless ``set_matmul_precision`` asks for it;
+# integer and bool products run in int64, modulo 2**64 exactly as NumPy
+# wraps, by a chunked broadcast multiply and sum (cuBLAS has no integer
+# product; float64 would be inexact above 2**53).
+
+_LATTICE = {
+    "bool": ["i*"], "i*": ["uint8", "int8", "f*"], "f*": ["bfloat16",
+    "float16", "c*"], "c*": ["complex64"],
+    "uint8": ["uint16", "int16"], "uint16": ["uint32", "int32"],
+    "uint32": ["uint64", "int64"], "uint64": ["f*"],
+    "int8": ["int16"], "int16": ["int32"], "int32": ["int64"],
+    "int64": ["f*"], "bfloat16": ["float32"], "float16": ["float32"],
+    "float32": ["float64", "complex64"], "float64": ["complex128"],
+    "complex64": ["complex128"], "complex128": [],
+}
+_WEAK_NODE = {"i": "i*", "u": "i*", "b": "bool", "f": "f*", "c": "c*"}
+_WEAK_DEFAULT = {"i*": "int64", "f*": "float64", "c*": "complex128"}
+
+
+@functools.lru_cache(maxsize=None)
+def _upper(node: str) -> frozenset:
+    out = {node}
+    for nxt in _LATTICE[node]:
+        out |= _upper(nxt)
+    return frozenset(out)
+
+
+def jnp_promote(avals) -> np.dtype:
+    """``jnp``'s result dtype of operands under x64: the least upper bound
+    in its promotion lattice; python scalars (weak avals) join as i*, f*
+    or c*, and a weak result takes the 64-bit default."""
+    nodes = []
+    for a in avals:
+        if a.weak:
+            nodes.append(_WEAK_NODE[a.dtype.kind])
+        else:
+            nodes.append("bfloat16" if is_bf16(a.dtype) else a.dtype.name)
+    common_ = functools.reduce(lambda u, n: u & _upper(n), nodes[1:],
+                               _upper(nodes[0]))
+    (lub,) = [n for n in common_ if _upper(n) == common_]
+    lub = _WEAK_DEFAULT.get(lub, lub)
+    return BF16 if lub == "bfloat16" else np.dtype(lub)
+
+
+_TF32_NAMES = ("tensorfloat32", "high", "default", "fastest", "bfloat16")
+
+
+def tf32_allowed(precision) -> bool:
+    """Whether a float32 product may run in TF32: only where
+    ``set_matmul_precision`` named a reduced precision."""
+    return str(precision).lower().split(".")[-1] in _TF32_NAMES
+
+
+_INT_CHUNK_BYTES = 1 << 28  # the broadcast product's temporary per chunk
+
+
+def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B, M, K) @ (B, K, N) of int64, exact modulo 2**64 (the sum wraps):
+    the K axis in chunks whose (B, M, k, N) product stays bounded."""
+    B, M, K = a.shape
+    N = b.shape[2]
+    out = torch.zeros((B, M, N), dtype=torch.int64, device=a.device)
+    kc = max(1, min(K, _INT_CHUNK_BYTES // max(1, 8 * B * M * N)))
+    for k0 in range(0, K, kc):
+        k1 = min(K, k0 + kc)
+        out += (a[:, :, k0:k1, None] * b[:, None, k0:k1, :]).sum(2)
+    return out
+
+
+def _carried(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype == torch.uint64:
+        return t.view(torch.int64)
+    return t.to(torch.int64)
+
+
+def _uncarried(c: torch.Tensor, tdt: torch.dtype) -> torch.Tensor:
+    if tdt == torch.bool:
+        return c != 0
+    if tdt == torch.uint64:
+        return c.view(torch.uint64)
+    if tdt in _WIDE_UNSIGNED:
+        return _from_carrier(c, tdt)
+    return c.to(tdt)
+
+
+@contextlib.contextmanager
+def _tf32(precision):
+    """torch's global TF32 flag for one float product, restored after."""
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32_allowed(precision)
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+def _bmm(a: torch.Tensor, b: torch.Tensor, precision) -> torch.Tensor:
+    """Batched (B, M, K) @ (B, K, N) in the operands' common dtype."""
+    if a.is_floating_point() or a.is_complex():
+        with _tf32(precision):
+            return torch.matmul(a, b)
+    return _uncarried(_int_matmul(_carried(a), _carried(b)), a.dtype)
+
+
+def _mul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """An elementwise product in the operands' common dtype (integers
+    wrapping through the carrier, bools as ``and``)."""
+    if x.dtype == torch.bool:
+        return x & y
+    if _is_integer(x.dtype):
+        return _uncarried(_carried(x) * _carried(y), x.dtype)
+    return x * y
+
+
+def _to_common(args, dt):
+    tdt = to_torch_dtype(dt)
+    return [convert(as_tensor(t), tdt) for t in args]
+
+
+def _matmul_shape(sa, sb):
+    if not sa or not sb:
+        raise ValueError("matmul: Input operand does not have enough "
+                         "dimensions")
+    a2 = (1,) + tuple(sa) if len(sa) == 1 else tuple(sa)
+    b2 = tuple(sb) + (1,) if len(sb) == 1 else tuple(sb)
+    if a2[-1] != b2[-2]:
+        raise ValueError(f"matmul: mismatch in core dimension ({a2[-1]} vs "
+                         f"{b2[-2]})")
+    batch = tuple(np.broadcast_shapes(a2[:-2], b2[:-2]))
+    out = batch + (a2[-2], b2[-1])
+    if len(sa) == 1:
+        out = out[:-2] + out[-1:]
+    if len(sb) == 1:
+        out = out[:-1]
+    return out
+
+
+def _aval_matmul(static, a, b):
+    return Aval(_matmul_shape(a.shape, b.shape), jnp_promote([a, b]), False)
+
+
+@defop("matmul", _aval_matmul)
+def _op_matmul(static, a, b):
+    """``numpy.matmul``: 1-D operands gain and lose a unit dim, batch dims
+    broadcast."""
+    (prec,) = static
+    out_shape = _aval_matmul(static, aval_of(a), aval_of(b)).shape
+    dt = jnp_promote([aval_of(a), aval_of(b)])
+    a, b = _to_common([a, b], dt)
+    a2 = a.reshape(1, -1) if a.ndim == 1 else a
+    b2 = b.reshape(-1, 1) if b.ndim == 1 else b
+    batch = tuple(np.broadcast_shapes(tuple(a2.shape[:-2]),
+                                      tuple(b2.shape[:-2])))
+    a3 = a2.expand(batch + tuple(a2.shape[-2:])).reshape(-1, *a2.shape[-2:])
+    b3 = b2.expand(batch + tuple(b2.shape[-2:])).reshape(-1, *b2.shape[-2:])
+    return _bmm(a3, b3, prec).reshape(out_shape)
+
+
+def _tensordot_axes(axes, na, nb):
+    if isinstance(axes, (int, np.integer)):
+        k = int(axes)
+        return tuple(range(na - k, na)), tuple(range(k))
+    xa, xb = axes
+    xa = (xa,) if isinstance(xa, (int, np.integer)) else tuple(xa)
+    xb = (xb,) if isinstance(xb, (int, np.integer)) else tuple(xb)
+    return tuple(int(d) % na for d in xa), tuple(int(d) % nb for d in xb)
+
+
+def _aval_tensordot(static, a, b):
+    axes, _prec = static
+    xa, xb = _tensordot_axes(axes, len(a.shape), len(b.shape))
+    if len(xa) != len(xb) or any(a.shape[i] != b.shape[j]
+                                 for i, j in zip(xa, xb)):
+        raise ValueError("shape-mismatch for sum")
+    shape = tuple(s for d, s in enumerate(a.shape) if d not in xa) + \
+        tuple(s for d, s in enumerate(b.shape) if d not in xb)
+    return Aval(shape, jnp_promote([a, b]), False)
+
+
+def tensordot_tensors(a, b, xa, xb, precision, out_dt):
+    """Contract ``a``'s axes ``xa`` with ``b``'s ``xb`` through one
+    (M, K) @ (K, N) product."""
+    a, b = _to_common([a, b], out_dt)
+    fa = [d for d in range(a.ndim) if d not in xa]
+    fb = [d for d in range(b.ndim) if d not in xb]
+    M = int(np.prod([a.shape[d] for d in fa], dtype=np.int64))
+    N = int(np.prod([b.shape[d] for d in fb], dtype=np.int64))
+    K = int(np.prod([a.shape[d] for d in xa], dtype=np.int64))
+    a2 = a.permute(*fa, *xa).reshape(1, M, K)
+    b2 = b.permute(*xb, *fb).reshape(1, K, N)
+    out = _bmm(a2, b2, precision)
+    return out.reshape([a.shape[d] for d in fa] + [b.shape[d] for d in fb])
+
+
+@defop("tensordot", _aval_tensordot)
+def _op_tensordot(static, a, b):
+    axes, prec = static
+    av = _aval_tensordot(static, aval_of(a), aval_of(b))
+    xa, xb = _tensordot_axes(axes, len(aval_of(a).shape),
+                             len(aval_of(b).shape))
+    return tensordot_tensors(a, b, xa, xb, prec, av.dtype)
+
+
+def _dot_axes(na, nb):
+    if na == 0 or nb == 0:
+        return None
+    return (na - 1,), ((nb - 2,) if nb >= 2 else (0,))
+
+
+def _aval_dot(static, a, b):
+    (prec,) = static
+    axes = _dot_axes(len(a.shape), len(b.shape))
+    if axes is None:
+        return Aval(tuple(np.broadcast_shapes(a.shape, b.shape)),
+                    jnp_promote([a, b]), False)
+    return _aval_tensordot((axes, prec), a, b)
+
+
+@defop("dot", _aval_dot)
+def _op_dot(static, a, b):
+    """``numpy.dot``: a product for 0-d operands, else the contraction of
+    ``a``'s last axis with ``b``'s second to last (its only one, 1-D)."""
+    (prec,) = static
+    av = _aval_dot(static, aval_of(a), aval_of(b))
+    axes = _dot_axes(len(aval_of(a).shape), len(aval_of(b).shape))
+    if axes is None:
+        return _mul(*_to_common([a, b], av.dtype))
+    return tensordot_tensors(a, b, axes[0], axes[1], prec, av.dtype)
+
+
+def einsum_spec(subscripts, shapes):
+    """(operand letter lists, output letters, letter sizes) of an einsum,
+    with each ``...`` spelled out as capital letters."""
+    sub = subscripts.replace(" ", "")
+    lhs, arrow, rhs = sub.partition("->")
+    terms = lhs.split(",")
+    if len(terms) != len(shapes):
+        raise ValueError("einsum: more operands than subscripts, or fewer")
+    ell_nd = 0
+    for t, s in zip(terms, shapes):
+        if "..." in t:
+            ell_nd = max(ell_nd, len(s) - (len(t) - 3))
+    ell = [chr(ord("A") + i) for i in range(ell_nd)]
+    ops, sizes = [], {}
+    for t, s in zip(terms, shapes):
+        if "..." in t:
+            k = len(s) - (len(t) - 3)
+            pre, post = t.split("...")
+            letters = list(pre) + ell[ell_nd - k:] + list(post)
+        else:
+            letters = list(t)
+        if len(letters) != len(s):
+            raise ValueError(f"einsum: operand {t!r} has {len(s)} dims")
+        for c, n in zip(letters, s):
+            if c in sizes and n not in (1, sizes[c]) and sizes[c] != 1:
+                raise ValueError(f"einsum: size of label {c!r} differs")
+            if c not in sizes or sizes[c] == 1:
+                sizes[c] = n
+        ops.append(letters)
+    if arrow:
+        out = []
+        for part in rhs.split("..."):
+            out.append(list(part))
+        out = out[0] + (ell + out[1] if len(out) > 1 else [])
+    else:
+        once = sorted(c for c in sizes if c.islower()
+                      and sum(o.count(c) for o in ops) == 1)
+        out = ell + once
+    return ops, out, sizes
+
+
+def _aval_einsum(static, *xs):
+    subscripts, _prec = static
+    _ops, out, sizes = einsum_spec(subscripts, [x.shape for x in xs])
+    return Aval(tuple(sizes[c] for c in out), jnp_promote(list(xs)), False)
+
+
+@defop("einsum", _aval_einsum)
+def _op_einsum(static, *xs):
+    subscripts, prec = static
+    av = _aval_einsum(static, *[aval_of(x) for x in xs])
+    ts = _to_common(xs, av.dtype)
+    if ts[0].is_floating_point() or ts[0].is_complex():
+        with _tf32(prec):
+            return torch.einsum(subscripts, *ts)
+    # integers: every operand laid out over all the labels, multiplied
+    # and summed over the labels the output drops (int64, wrapping)
+    ops, out, sizes = einsum_spec(subscripts, [tuple(t.shape) for t in ts])
+    labels = out + sorted(c for c in sizes if c not in out)
+    acc = None
+    for letters, t in zip(ops, ts):
+        c, uniq = _carried(t), []
+        for ch in letters:
+            if ch in uniq:  # a repeated label reads the diagonal
+                j = uniq.index(ch)
+                c = torch.diagonal(c, dim1=j, dim2=len(uniq)).movedim(-1, j)
+            else:
+                uniq.append(ch)
+        order = sorted(uniq, key=labels.index)
+        c = c.permute(*[uniq.index(ch) for ch in order])
+        c = c.reshape([c.shape[order.index(ch)] if ch in order else 1
+                       for ch in labels])
+        acc = c if acc is None else acc * c
+    acc = acc.expand([sizes[ch] for ch in labels])
+    if len(labels) > len(out):
+        acc = acc.sum(dim=tuple(range(len(out), len(labels))))
+    return _uncarried(acc, ts[0].dtype)
+
+
+def _aval_outer(static, a, b):
+    n = int(np.prod(a.shape, dtype=np.int64))
+    m = int(np.prod(b.shape, dtype=np.int64))
+    return Aval((n, m), jnp_promote([a, b]), False)
+
+
+@defop("outer", _aval_outer)
+def _op_outer(static, a, b):
+    x, y = _to_common([a, b], jnp_promote([aval_of(a), aval_of(b)]))
+    return _mul(x.reshape(-1, 1), y.reshape(1, -1))
+
+
+def _aval_trace(static, a):
+    offset, axis1, axis2 = static
+    nd = len(a.shape)
+    if nd < 2:
+        raise ValueError("diag requires an array of at least two dimensions")
+    a1, a2 = axis1 % nd, axis2 % nd
+    rest = tuple(s for d, s in enumerate(a.shape) if d not in (a1, a2))
+    return Aval(rest, reduce_dtype("sum", a.dtype), False)
+
+
+@defop("trace", _aval_trace)
+def _op_trace(static, a):
+    """``jnp.trace``: the sum along the ``offset`` diagonal of ``axis1`` and
+    ``axis2``, in the sum's dtype (integers widen to 64 bits)."""
+    offset, axis1, axis2 = static
+    a = as_tensor(a)
+    nd = a.ndim
+    d = torch.diagonal(_bits(a) if a.dtype in _SIGNED_VIEW else a,
+                       offset=offset, dim1=axis1 % nd, dim2=axis2 % nd)
+    d = _unbits(d, a.dtype)
+    return reduce_tensor("sum", d, d.ndim - 1, False)
 
 
 # -- creation ----------------------------------------------------------------

@@ -5,7 +5,11 @@ expression graph whose leaves are torch tensors.  A view holds its parent
 plus a reversible view op; reads re-derive the expression from the
 parent's current state and writes push an updated expression back through
 the chain, which gives NumPy's view aliasing (``t = a.T; t += 1`` changes
-``a``) on top of functional graph nodes.  Sharding is not ported yet.
+``a``) on top of functional graph nodes.  Basic indexing gives such a view;
+an index with an array in it gathers (``getitem_adv``) or scatters
+(``setitem_adv``), and a boolean mask of the array's shape gives a
+:class:`~ramba_tpu_torch.core.masked.MaskedArray`.  Sharding is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -113,8 +117,46 @@ class _AbstractLeaf(Expr):
         self.aval = aval
 
 
+class ndarray_flags:
+    """The ``WRITEABLE`` flag, NumPy's way."""
+
+    __slots__ = ("_arr",)
+
+    def __init__(self, arr):
+        self._arr = arr
+
+    @property
+    def writeable(self):
+        return not self._arr._readonly
+
+    @writeable.setter
+    def writeable(self, value):
+        arr = self._arr
+        if value:
+            # every ancestor must be writable: a write goes through them
+            base = arr._base
+            while base is not None:
+                if base._readonly:
+                    raise ValueError(
+                        "cannot set WRITEABLE flag to True of this array")
+                base = base._base
+        arr._readonly = not value
+
+    def __getitem__(self, name):
+        if name in ("WRITEABLE", "writeable"):
+            return self.writeable
+        raise KeyError(name)
+
+    def __setitem__(self, name, value):
+        if name in ("WRITEABLE", "writeable"):
+            self.writeable = value
+        else:
+            raise KeyError(name)
+
+
 class ndarray:
-    __slots__ = ("_expr", "_base", "_view", "_aval", "_seq", "__weakref__")
+    __slots__ = ("_expr", "_base", "_view", "_aval", "_seq", "_readonly",
+                 "__weakref__")
 
     # win dispatch over numpy arrays in mixed expressions
     __array_priority__ = 100.0
@@ -125,6 +167,8 @@ class ndarray:
         self._base = base
         self._view = view
         self._expr = None
+        # views of read-only arrays are read-only (numpy semantics)
+        self._readonly = base._readonly if base is not None else False
         if base is not None:
             self._aval = view.read(_AbstractLeaf(base._aval)).aval
         else:
@@ -147,11 +191,22 @@ class ndarray:
         return self._view.read(self._base.read_expr())
 
     def write_expr(self, value: Expr):
+        # only the written array's own flag gates the write (a view taken
+        # before its base was frozen stays writeable, as in NumPy)
+        if self._readonly:
+            raise ValueError("assignment destination is read-only")
+        self._write_through(value)
+
+    def _write_through(self, value: Expr):
         if self._base is None:
             self._set_expr(value)
         else:
-            self._base.write_expr(
+            self._base._write_through(
                 self._view.write(self._base.read_expr(), value))
+
+    @property
+    def flags(self):
+        return ndarray_flags(self)
 
     # -- basic properties -----------------------------------------------------
 
@@ -182,6 +237,10 @@ class ndarray:
     @property
     def T(self):
         return self.transpose()
+
+    @property
+    def flat(self):
+        return iter(self.reshape(-1).asarray())
 
     def __len__(self):
         if self.ndim == 0:
@@ -270,6 +329,9 @@ class ndarray:
     def round(self, decimals=0):
         return ndarray(Node("round", (decimals,), [self.read_expr()]))
 
+    def conj(self):
+        return self._map("conj")
+
     def clip(self, a_min=None, a_max=None):
         out = self
         if a_min is not None:
@@ -327,6 +389,23 @@ class ndarray:
     def ravel(self):
         return self.reshape(-1)
 
+    def reshape_copy(self, *shape):
+        """A reshape that is a copy, not a view."""
+        return self.reshape(*shape).copy()
+
+    def squeeze(self, axis=None):
+        if axis is None:
+            newshape = tuple(s for s in self.shape if s != 1)
+        else:
+            axs = axis if isinstance(axis, tuple) else (axis,)
+            axs = {int(a) % self.ndim for a in axs}
+            if any(self.shape[a] != 1 for a in axs):
+                raise ValueError("cannot select an axis to squeeze out which "
+                                 "has size not equal to one")
+            newshape = tuple(s for i, s in enumerate(self.shape)
+                             if i not in axs)
+        return self.reshape(newshape)
+
     def flatten(self):
         return self.reshape(-1).copy()
 
@@ -346,8 +425,16 @@ class ndarray:
         return self.transpose(axes)
 
     def take(self, indices, axis=None, mode="clip"):
-        if mode not in ("clip", "wrap"):
-            raise NotImplementedError(f"take mode {mode!r} is not ported yet")
+        """``clip`` (the default) clamps every index into range, ``wrap``
+        takes it modulo the length, ``fill`` reads negative indices from the
+        end and gives NaN, the signed minimum, the unsigned maximum or True
+        for the rest; ``raise`` is refused, as ``jnp.take`` refuses it."""
+        if mode == "raise":
+            raise NotImplementedError(
+                "The 'raise' mode to take is not supported: bounds are not "
+                "checked on the device")
+        if mode not in ("clip", "wrap", "fill"):
+            raise ValueError(f"take: unknown mode {mode!r}")
         x = self.reshape(-1) if axis is None else self
         axis = 0 if axis is None else int(axis) % x.ndim
         return ndarray(Node("take", (axis, mode),
@@ -356,20 +443,120 @@ class ndarray:
     # -- indexing --------------------------------------------------------------
 
     def __getitem__(self, idx):
-        return ndarray(base=self, view=SliceView(_basic_index(idx, self.shape)))
+        kind, payload = _classify_index(idx, self.shape)
+        if kind == "basic":
+            return ndarray(base=self, view=SliceView(payload))
+        if kind == "mask":
+            from ramba_tpu_torch.core.masked import MaskedArray
+
+            return MaskedArray(self, payload)
+        # an index with arrays gathers: a copy, as in NumPy
+        enc, arraypos, arrays = payload
+        return ndarray(Node("getitem_adv", (enc, arraypos),
+                            [self.read_expr()]
+                            + [as_exprable(a) for a in arrays]))
 
     def __setitem__(self, idx, value):
-        enc = _basic_index(idx, self.shape)
-        self.write_expr(Node("setitem", (enc,),
-                             [self.read_expr(), as_exprable(value)]))
+        kind, payload = _classify_index(idx, self.shape)
+        vexpr = as_exprable(value)
+        if kind == "basic":
+            self.write_expr(Node("setitem", (payload,),
+                                 [self.read_expr(), vexpr]))
+        elif kind == "mask":
+            if np.dtype(vexpr.dtype) != self.dtype:
+                vexpr = Node("cast", (str(self.dtype),), [vexpr])
+            self.write_expr(Node("masked_fill", (),
+                                 [self.read_expr(), payload.read_expr(),
+                                  vexpr]))
+        else:
+            enc, arraypos, arrays = payload
+            self.write_expr(Node("setitem_adv", (enc, arraypos),
+                                 [self.read_expr(), vexpr]
+                                 + [as_exprable(a) for a in arrays]))
+
+    # -- linear algebra ----------------------------------------------------------
+
+    def dot(self, other):
+        from ramba_tpu_torch.ops import linalg
+
+        return linalg.dot(self, other)
+
+    def __matmul__(self, other):
+        from ramba_tpu_torch.ops import linalg
+
+        return linalg.matmul(self, other)
+
+    def __rmatmul__(self, other):
+        from ramba_tpu_torch.ops import linalg
+
+        return linalg.matmul(other, self)
 
     # -- numpy protocol -------------------------------------------------------
 
     def __array_ufunc__(self, ufunc, method, *inputs, **kwargs):
-        name = {"divide": "true_divide"}.get(ufunc.__name__, ufunc.__name__)
-        if method != "__call__" or kwargs or name not in E.MAPFN:
+        """A NumPy ufunc of port arrays builds the port's node: a map for
+        ``__call__`` (``matmul`` too, so ``np_array @ rt_array`` stays on
+        the device), a reduction for ``reduce``.  ``out=`` writes a port
+        array (cast to its dtype) or copies into a NumPy array with
+        NumPy's ``same_kind`` rule; ``where=`` is not taken."""
+        name = ufunc.__name__
+        out = kwargs.pop("out", None)
+        if kwargs.pop("where", True) is not True:
             return NotImplemented
-        return ndarray(E.make_map(name, [as_exprable(x) for x in inputs]))
+        if method == "__call__":
+            if kwargs:
+                return NotImplemented
+            if name == "divide":
+                name = "true_divide"
+            if name == "matmul":
+                from ramba_tpu_torch.ops.linalg import matmul as _mm
+
+                res = _mm(inputs[0], inputs[1])
+            elif name not in E.MAPFN:
+                return NotImplemented
+            else:
+                res = ndarray(E.make_map(name, [as_exprable(x)
+                                                for x in inputs]))
+        elif method == "reduce":
+            ufunc_red = {"add": "sum", "multiply": "prod", "minimum": "min",
+                         "maximum": "max", "logical_and": "all",
+                         "logical_or": "any"}
+            if name not in ufunc_red:
+                return NotImplemented
+            axis = kwargs.pop("axis", 0)
+            keepdims = kwargs.pop("keepdims", False)
+            dtype = kwargs.pop("dtype", None)
+            if kwargs:
+                return NotImplemented
+            (x,) = inputs
+            x = x if isinstance(x, ndarray) else ndarray(as_exprable(x))
+            res = x._reduce(ufunc_red[name], axis, keepdims)
+            if dtype is not None:
+                res = res.astype(dtype)
+        else:
+            return NotImplemented
+        if out is not None:
+            (o,) = out if isinstance(out, tuple) else (out,)
+            if isinstance(o, np.ndarray):
+                np.copyto(o, res.asarray(), casting="same_kind")
+                return o
+            val = res.read_expr()
+            if np.dtype(val.dtype) != o.dtype:
+                val = Node("cast", (str(o.dtype),), [val])
+            o.write_expr(val)
+            return o
+        return res
+
+    def __array_function__(self, func, types, args, kwargs):
+        """``numpy.<fn>`` of port arrays runs the port's function registered
+        for it (``core/interop.py``); anything else gives
+        ``NotImplemented``, so NumPy raises ``TypeError`` rather than
+        running on the host."""
+        from ramba_tpu_torch.core.interop import HANDLED_FUNCTIONS
+
+        if func in HANDLED_FUNCTIONS:
+            return HANDLED_FUNCTIONS[func](*args, **kwargs)
+        return NotImplemented
 
 
 def as_exprable(x) -> Expr:
@@ -399,31 +586,76 @@ def _fix_reshape(size, shape):
     return shape
 
 
-def _basic_index(idx, shape) -> tuple:
-    """Encode a basic index, bounds-checking static integers (NumPy raises
-    IndexError where torch would too, but only at flush time)."""
-    if not isinstance(idx, tuple):
-        idx = (idx,)
+def expand_ellipsis(idx: tuple, ndim: int) -> tuple:
+    """Replace an Ellipsis with the full slices it stands for (identity
+    checks: ``in`` would compare array items elementwise)."""
     n_ellipsis = sum(1 for it in idx if it is Ellipsis)
     if n_ellipsis > 1:
         raise IndexError("an index can only have a single ellipsis ('...')")
     if n_ellipsis:
         pos = next(p for p, it in enumerate(idx) if it is Ellipsis)
         n_real = sum(1 for i in idx if i is not None and i is not Ellipsis)
-        idx = idx[:pos] + (slice(None),) * (len(shape) - n_real) + idx[pos + 1:]
-    dim = 0
-    for it in idx:
-        if it is None:
-            continue
-        if isinstance(it, (int, np.integer)) and not isinstance(it, bool):
-            if dim >= len(shape) or not -shape[dim] <= it < shape[dim]:
+        idx = idx[:pos] + (slice(None),) * (ndim - n_real) + idx[pos + 1:]
+    return idx
+
+
+_INDEX_ARRAYS = (np.ndarray, list, torch.Tensor)
+
+
+def _classify_index(idx, shape):
+    """("basic", encoded index) | ("mask", bool ndarray) |
+    ("adv", (encoded index with placeholders, array positions, arrays)).
+
+    A boolean array of the whole index is a mask; any other array (or
+    list) in the index makes it advanced.  Static integers of a basic
+    index are bounds-checked here, as NumPy does; an advanced index is
+    not (a gather clamps, a scatter drops)."""
+    if isinstance(idx, ndarray) and idx.dtype == np.bool_:
+        return "mask", idx
+    if isinstance(idx, np.ndarray) and idx.dtype == np.bool_:
+        return "mask", ndarray(as_exprable(idx))
+    if not isinstance(idx, tuple):
+        idx = (idx,)
+    idx = expand_ellipsis(idx, len(shape))
+    if not any(isinstance(i, (ndarray,) + _INDEX_ARRAYS) for i in idx):
+        dim = 0
+        for it in idx:
+            if it is None:
+                continue
+            if isinstance(it, (int, np.integer)) and not isinstance(it, bool):
+                if dim >= len(shape) or not -shape[dim] <= it < shape[dim]:
+                    raise IndexError(
+                        f"index {int(it)} is out of bounds for axis {dim} "
+                        f"with size {shape[dim] if dim < len(shape) else 0}")
+            elif not isinstance(it, slice):
                 raise IndexError(
-                    f"index {int(it)} is out of bounds for axis {dim}")
-        elif not isinstance(it, slice):
-            raise NotImplementedError(
-                "advanced and boolean indexing are not ported yet")
-        dim += 1
-    return E.encode_index(idx)
+                    "only integers, slices (`:`), ellipsis (`...`), "
+                    "numpy.newaxis (`None`) and integer or boolean arrays "
+                    "are valid indices")
+            dim += 1
+        return "basic", E.encode_index(idx)
+    enc, arraypos, arrays = [], [], []
+    for p, it in enumerate(idx):
+        if isinstance(it, (ndarray,) + _INDEX_ARRAYS):
+            a = it if isinstance(it, (ndarray, torch.Tensor)) else np.asarray(it)
+            kind = np.dtype(E.to_np_dtype(a.dtype)).kind
+            if kind == "b":
+                raise IndexError("boolean arrays inside an index tuple are "
+                                 "not supported: index with one mask of the "
+                                 "array's shape")
+            if kind not in "iu":
+                raise TypeError(f"arrays used as indices must be of integer "
+                                f"type, not {a.dtype}")
+            arraypos.append(p)
+            arrays.append(a)
+            enc.append(("i", 0))  # a placeholder, filled at evaluation
+        elif it is None:
+            enc.append(("n",))
+        elif isinstance(it, slice):
+            enc.append(("s", it.start, it.stop, it.step))
+        else:
+            enc.append(("i", int(it)))
+    return "adv", (tuple(enc), tuple(arraypos), arrays)
 
 
 # ---------------------------------------------------------------------------
@@ -470,6 +702,11 @@ def _install_operators():
             return self._map(_f)
 
         setattr(ndarray, pyop, un)
+
+    def _divmod(self, other):
+        return self._map("floor_divide", other), self._map("mod", other)
+
+    ndarray.__divmod__ = _divmod
 
     for name in _UNARY_METHODS:
         fname = {"abs": "absolute"}.get(name, name)

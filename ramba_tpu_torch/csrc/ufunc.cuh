@@ -22,8 +22,24 @@ template <typename X> __device__ __forceinline__ X nan_min(X a, X b) {
   return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
 }
 
+// sign: NaN stays NaN and a zero keeps its sign (sign(-0.0) is -0.0, as in
+// ramba_tpu; numpy gives 0.0)
 template <typename X> __device__ __forceinline__ X sign(X a) {
-  return (a != a) ? a : (a > X(0) ? X(1) : (a < X(0) ? X(-1) : X(0)));
+  return (a != a) ? a : (a > X(0) ? X(1) : (a < X(0) ? X(-1) : a));
+}
+
+// A float to an integer type, saturating as ramba_tpu (XLA's convert)
+// does: NaN gives 0, values at or beyond the range give its maximum or
+// minimum, the rest truncate toward zero.  A C++ cast of an out-of-range
+// float is undefined behaviour, so the limits are tested first.  `hi` is
+// the type's maximum plus one and `lo` its minimum, both powers of two and
+// exact in F.
+template <typename I, typename F>
+__device__ __forceinline__ I sat_cast(F x, F lo, F hi, I imin, I imax) {
+  if (x != x) return I(0);
+  if (x >= hi) return imax;
+  if (x <= lo) return imin;
+  return static_cast<I>(x);
 }
 
 // floored modulo: the result takes the divisor's sign

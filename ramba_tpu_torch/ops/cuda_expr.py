@@ -77,6 +77,17 @@ def lit_code(v, dt) -> str:
     return _float_lit(float(v), CTYPE[name])
 
 
+def sat_cast(code: str, src_ct: str, dst) -> str:
+    """A float to an integer, saturating as ``core/expr.convert`` does
+    (``ramba::sat_cast`` of ``csrc/ufunc.cuh``)."""
+    info = np.iinfo(dst)
+    ct = CTYPE[np.dtype(dst).name]
+    lo = _float_lit(float(info.min), src_ct)
+    hi = _float_lit(float(info.max + 1), src_ct)
+    return (f"ramba::sat_cast<{ct}, {src_ct}>(({src_ct})({code}), {lo}, {hi}, "
+            f"{lit_code(info.min, dst)}, {lit_code(info.max, dst)})")
+
+
 def round_bf16(code: str) -> str:
     return f"__bfloat162float(__float2bfloat16_rn({code}))"
 
@@ -135,6 +146,8 @@ class Gen:
             return f"(({code}) != 0)"
         if E.is_bf16(dst):
             return round_bf16(f"(float)({code})")
+        if dst.kind in "iu" and (E.is_bf16(src) or src.kind == "f"):
+            return sat_cast(code, ctype(src), dst)
         return f"(({ctype(dst)})({code}))"
 
     @staticmethod

@@ -647,3 +647,233 @@ def test_host_fallback_on_card():
     assert got.device.type == "cuda"
     assert torch.equal(got, torch.arange(1024, device="cuda",
                                          dtype=torch.float64) * 0.5)
+
+
+# -- indexing, casts, sign, sort, matmul and the scan on the card ------------
+
+
+def test_gather_out_of_range_clamps_without_a_device_assert():
+    x_t = torch.arange(1000, dtype=torch.float64, device="cuda")
+    idx = torch.tensor([1, 1000, -1001, -1, 5000, -3, -10 ** 12],
+                       device="cuda")
+    got = rt.fromarray(x_t)[rt.fromarray(idx)]._value()
+    torch.cuda.synchronize()  # a device assert would surface here
+    want = torch.tensor([1, 999, 0, 999, 999, 997, 0], dtype=torch.float64,
+                        device="cuda")
+    assert torch.equal(got, want)
+    X = rt.fromarray(torch.arange(20.0, device="cuda").reshape(4, 5))
+    got = X[[1, -9, 7], 1:4]._value()
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), torch.arange(20.0).reshape(4, 5)[[1, 0, 3], 1:4])
+
+
+def test_scatter_out_of_range_is_dropped_without_a_device_assert():
+    b = rt.fromarray(torch.zeros(10, dtype=torch.float64, device="cuda"))
+    b[rt.fromarray(torch.tensor([1, 12, -1, -11], device="cuda"))] = \
+        rt.fromarray(torch.tensor([5.0, 6.0, 7.0, 8.0], device="cuda",
+                                  dtype=torch.float64))
+    got = b._value()
+    torch.cuda.synchronize()
+    want = torch.zeros(10, dtype=torch.float64)
+    want[1], want[9] = 5.0, 7.0
+    assert torch.equal(got.cpu(), want)
+
+
+def test_duplicate_scatter_holds_one_written_value():
+    """torch's CUDA index_put_ and XLA's scatter both leave the winner of
+    a duplicated index unspecified: each slot holds one written value."""
+    n = 1 << 16
+    idx = torch.arange(n, device="cuda") % 97
+    vals = torch.arange(n, device="cuda", dtype=torch.float64)
+    x = rt.fromarray(torch.full((128,), -1.0, device="cuda",
+                                dtype=torch.float64))
+    x[rt.fromarray(idx)] = rt.fromarray(vals)
+    got = x._value().cpu()
+    for k in range(97):
+        assert int(got[k]) % 97 == k  # a value written to slot k
+    assert bool((got[97:] == -1.0).all())
+
+
+def test_masked_writes_on_the_card():
+    a_t = torch.randn(N, device="cuda", dtype=torch.float64)
+    a = rt.fromarray(a_t.clone())
+    a[a > 0] += 1.0
+    a[a < 0] = 0
+    want = torch.where(a_t > 0, a_t + 1.0, a_t).clamp_min(0)
+    assert torch.equal(a._value(), want)
+    m = a[a > 1.5]
+    assert float(m.count()) == float((want > 1.5).sum())
+    torch.testing.assert_close(m.sum()._value(), want[want > 1.5].sum(),
+                               rtol=1e-12, atol=1e-12)
+
+
+CAST_VALUES = [128.5, -129.5, float("nan"), float("inf"), float("-inf"), 1e30,
+               -1e30, 2.0 ** 63, -2.0 ** 63, 2.0 ** 31, -1.7, -0.5, 3e9]
+
+
+@pytest.mark.parametrize("src", [torch.float32, torch.float64])
+def test_saturating_casts_elemred_and_generic(src):
+    from ramba_tpu_torch.core import expr as E
+
+    vals = torch.tensor(CAST_VALUES, dtype=torch.float64).to(src)
+    xc = vals.repeat(4096).cuda()
+    x = rt.fromarray(xc)
+    for dst in ("int32", "int64"):
+        p, lv = fuser.prepare_program([x.astype(dst).read_expr()])
+        assert kb.classify(p, lv) == "elemred"
+        (got,) = elemred.run(p, lv)
+        want = E.convert(xc.cpu(), getattr(torch, dst))
+        assert torch.equal(got.cpu(), want), dst
+    for dst in (torch.int8, torch.uint8, torch.int16, torch.int32,
+                torch.int64, torch.uint16, torch.uint32, torch.uint64):
+        assert torch.equal(E.convert(xc, dst).cpu(),
+                           E.convert(xc.cpu(), dst)), dst
+    assert int(E.convert(torch.tensor([128.5], device="cuda"),
+                         torch.int8).item()) == 127
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sign_keeps_signed_zeros_on_elemred(dtype):
+    v = torch.tensor([-0.0, 0.0, -2.5, 3.0, float("nan"), float("-inf")],
+                     dtype=dtype, device="cuda").repeat(2048)
+    p, lv = fuser.prepare_program([rt.sign(rt.fromarray(v)).read_expr()])
+    (got,) = elemred.run(p, lv)
+    (want,) = elemred.elemred_reference(p, lv)
+    assert _bytes_equal(got, want)
+    zero = v == 0
+    assert torch.equal(torch.signbit(got[zero]), torch.signbit(v[zero]))
+
+
+def test_sort_on_the_card_nans_last_zeros_in_order():
+    x = torch.tensor([3.0, float("nan"), -0.0, 0.0, 1.0, -float("nan"), -0.0,
+                      float("-inf"), 0.0, -2.0], dtype=torch.float64)
+    big = x.repeat(5000)
+    got = rt.sort(rt.fromarray(big.cuda()))._value().cpu()
+    order = rt.argsort(rt.fromarray(big.cuda()))._value().cpu()
+    common.set_device("cpu")
+    try:
+        want = rt.sort(rt.fromarray(big))._value()
+    finally:
+        common.set_device("cuda:0")
+    assert torch.equal(got.view(torch.int64)[~torch.isnan(got)],
+                       want.view(torch.int64)[~torch.isnan(want)])
+    k = int(torch.isnan(big).sum())
+    assert bool(torch.isnan(got[-k:]).all())
+    zeros = got[got == 0]
+    assert torch.equal(torch.signbit(zeros), torch.signbit(big[big == 0]))
+    assert torch.equal(order, torch.sort(torch.where(torch.isnan(big),
+                                                     float("nan"), big),
+                                         stable=True).indices)
+    # uint64 values 2**63 + 5, 3, 2**64 - 1, 0 by their bit patterns
+    u = torch.tensor([-2 ** 63 + 5, 3, -1, 0]).view(torch.uint64)
+    got = rt.sort(rt.fromarray(u.cuda()))._value().cpu()
+    assert got.view(torch.int64).tolist() == [0, 3, -2 ** 63 + 5, -1]
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32, torch.int8,
+                                   torch.bool])
+def test_integer_matmul_exact_on_the_card(dtype):
+    g = torch.Generator().manual_seed(8)
+    if dtype == torch.bool:
+        a, b = torch.rand(70, 90, generator=g) > 0.5, torch.rand(90, 30, generator=g) > 0.5
+    else:
+        hi = 100 if dtype == torch.int8 else 1 << 30
+        a = torch.randint(-hi, hi, (70, 90), generator=g).to(dtype)
+        b = torch.randint(-hi, hi, (90, 30), generator=g).to(dtype)
+    got = (rt.fromarray(a.cuda()) @ rt.fromarray(b.cuda()))._value().cpu()
+    common.set_device("cpu")
+    try:
+        want = (rt.fromarray(a) @ rt.fromarray(b))._value()
+    finally:
+        common.set_device("cuda:0")
+    assert torch.equal(got, want)
+
+
+def test_float32_matmul_keeps_tf32_off():
+    g = torch.Generator(device="cuda")
+    g.manual_seed(9)
+    a = torch.randn(512, 1024, generator=g, device="cuda")
+    b = torch.randn(1024, 256, generator=g, device="cuda")
+    got = (rt.fromarray(a) @ rt.fromarray(b))._value()
+    ref = a.double() @ b.double()
+    bound = 1024 * 2.0 ** -23 * (a.double().abs() @ b.double().abs())
+    assert bool(((got.double() - ref).abs() <= bound).all())
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+
+
+SCAN_DTYPES = [torch.float16, torch.bfloat16, torch.float32, torch.float64]
+
+
+@pytest.mark.parametrize("dtype", SCAN_DTYPES)
+@pytest.mark.parametrize("name", ["cumsum", "cumprod"])
+def test_scan_kernel_equals_its_plain_version(name, dtype):
+    """The kernel and its plain version run the same order: the same
+    bytes; and two launches give the same bytes."""
+    from ramba_tpu_torch.ops import scan
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(10)
+    x = (1 + 0.01 * torch.randn(5, 3 * scan.TILE + 37, generator=g,
+                                device="cuda", dtype=torch.float64)).to(dtype)
+    for axis in (0, 1):
+        before = scan.launches
+        got = scan.run(x, name, axis)
+        again = scan.run(x, name, axis)
+        assert scan.launches == before + 2
+        want = scan.scan_reference(x, name, axis)
+        torch.cuda.synchronize()
+        assert _bytes_equal(got, again)
+        assert _bytes_equal(got, want), (name, dtype, axis)
+
+
+def test_rt_cumsum_runs_the_scan_kernel_reproducibly():
+    from ramba_tpu_torch.ops import scan
+
+    n = (1 << 22) + 13
+    x_t = torch.randn(n, device="cuda", dtype=torch.float64)
+    x = rt.fromarray(x_t)
+    before = scan.launches
+    a = rt.cumsum(x)._value()
+    b = x.cumsum()._value()
+    assert scan.launches == before + 2
+    assert _bytes_equal(a, b)
+    assert _bytes_equal(a, scan.scan_reference(x_t, "cumsum", 0))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.uint32,
+                                   torch.uint64, torch.int8, torch.bool,
+                                   torch.float16])
+def test_data_movement_of_small_and_unsigned_dtypes(dtype):
+    """The indexing, masked, join, pad, triangle, sort and take ops on the
+    card against the same program on the CPU, bit for bit (torch has no
+    select, flip or index_put of uint16/32/64 on the card: the ops move
+    their bits through a signed view)."""
+    g = torch.Generator().manual_seed(11)
+    if dtype == torch.bool:
+        x = torch.rand(6, 7, generator=g) > 0.5
+    elif dtype.is_floating_point:
+        x = (torch.randn(6, 7, generator=g) * 10).to(dtype)
+    else:
+        x = torch.randint(0, 120, (6, 7), generator=g).to(dtype)
+    mask = torch.rand(6, 7, generator=g) > 0.5
+
+    def program(dev):
+        a = rt.fromarray(x.to(dev))
+        b = rt.fromarray(x.to(dev))
+        b[[1, -1, 9]] = a[[0, 2, 3]]
+        b[rt.fromarray(mask.to(dev))] = a[0, 0]
+        outs = [a[[2, -1, 40], 1:], a.take(np.array([1, 50, -2]), mode="fill"),
+                rt.concatenate([a, b]), rt.flip(a, 0), rt.pad(a, 1),
+                rt.tril(a), rt.sort(a, axis=None), rt.argsort(a, axis=1),
+                rt.stack([a, b]), b]
+        return [o._value().cpu() for o in outs]
+
+    common.set_device("cpu")
+    try:
+        want = program("cpu")
+    finally:
+        common.set_device("cuda:0")
+    got = program("cuda")
+    for k, (g_, w) in enumerate(zip(got, want)):
+        assert g_.dtype == w.dtype and g_.shape == w.shape, k
+        assert _bytes_equal(g_, w), (dtype, k)

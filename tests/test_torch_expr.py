@@ -352,3 +352,57 @@ def test_unsigned_op(dtype, op):
     # XLA's float32 exp2 is 18 ulp off at 2**100, so rtol 1e-5 there
     _same(got, want, f"{op}({dtype})",
           rtol=1e-5 if np.asarray(want).dtype == np.float32 else None)
+
+
+CAST_SOURCES = np.array([128.5, -129.5, np.nan, np.inf, -np.inf, 1e30, -1e30,
+                         2.0 ** 63, -2.0 ** 63, 2.0 ** 64, 1.7, -1.7, 255.9,
+                         -0.5, 0.0, 65504.0, -65504.0, 3e9, -3e9])
+
+
+@pytest.mark.parametrize("src", ["float16", "float32", "float64"])
+@pytest.mark.parametrize("dst", ["int8", "int16", "int32", "int64", "uint8",
+                                 "uint16", "uint32", "uint64", "bool"])
+def test_float_to_int_casts_saturate(src, dst):
+    """NaN gives 0, values at or past the range its maximum or minimum
+    (``astype(int8)`` of 128.5 is 127), as XLA's convert in ramba_tpu;
+    NumPy and torch wrap instead."""
+    with np.errstate(over="ignore", invalid="ignore"):
+        x = CAST_SOURCES.astype(src)
+    ref, port = _pair(x=x)
+    got = port["x"].astype(dst)
+    want = ref["x"].astype(dst)
+    g, w = np.asarray(got.asarray()), np.asarray(want.asarray())
+    assert g.dtype == w.dtype == np.dtype(dst)
+    np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "uint8", "int32"])
+def test_inplace_float_add_into_ints_saturates(dtype):
+    """``a += 1.5`` on an integer array casts the float result back as
+    ramba_tpu does (NumPy would refuse: same_kind)."""
+    info = np.iinfo(dtype)
+    x = np.array([info.max - 1, info.min + 1, 5, 0], dtype)
+    ref, port = _pair(x=x)
+    for arr in (ref["x"], port["x"]):
+        arr += 10.5
+    g, w = port["x"].asarray(), ref["x"].asarray()
+    assert g.dtype == w.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(g, w)
+    ref, port = _pair(x=x)
+    for arr in (ref["x"], port["x"]):
+        arr[1:3] = -1e10
+    np.testing.assert_array_equal(port["x"].asarray(), ref["x"].asarray())
+
+
+@pytest.mark.parametrize("dtype", ["float16", "float32", "float64"])
+def test_sign_keeps_signed_zeros(dtype):
+    """``sign(-0.0)`` is -0.0 in ramba_tpu (NumPy gives 0.0): compared by
+    sign bit, which ``assert_array_equal`` does not see."""
+    x = np.array([-0.0, 0.0, -2.5, 3.0, np.nan, -np.inf], dtype)
+    ref, port = _pair(x=x)
+    g = np.asarray(rt.sign(port["x"]).asarray())
+    w = np.asarray(rtj.sign(ref["x"]).asarray())
+    assert g.dtype == w.dtype
+    np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(np.signbit(g), np.signbit(w))
+    assert np.signbit(g[0]) and not np.signbit(g[1])

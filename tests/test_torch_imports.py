@@ -20,7 +20,7 @@ PORT_FILES = sorted(
     str(p.relative_to(REPO)) for p in (REPO / "ramba_tpu_torch").rglob("*.py")
     if "_build" not in p.parts
 ) + ["chip_smoke.py", "scripts/elemred_ab.py", "scripts/elemred_sweep.py",
-     "scripts/stencil_sweep.py"]
+     "scripts/scan_ab.py", "scripts/stencil_sweep.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -57,7 +57,9 @@ def test_importing_the_port_loads_no_jax():
         " ramba_tpu_torch.models.jacobi, ramba_tpu_torch.ops.elemred,"
         " ramba_tpu_torch.ops.stencil_kernel, ramba_tpu_torch.ops.kernel_backend,"
         " ramba_tpu_torch.groupby, ramba_tpu_torch.ops.segred,"
-        " ramba_tpu_torch.ops.manipulation, ramba_tpu_torch.ops.cuda_expr;"
+        " ramba_tpu_torch.ops.manipulation, ramba_tpu_torch.ops.cuda_expr,"
+        " ramba_tpu_torch.ops.linalg, ramba_tpu_torch.ops.scan,"
+        " ramba_tpu_torch.core.interop, ramba_tpu_torch.core.masked;"
         "import runpy; runpy.run_path(sys.argv[1] + '/chip_smoke.py',"
         " run_name='chip_smoke_probe');"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'ramba_tpu', 'triton')"
@@ -130,3 +132,22 @@ def test_chip_smoke_refuses_without_a_card():
                          cwd=str(REPO))
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_indexing_and_scan_graphs_never_load_torch_dynamo():
+    """Typing and running the indexing, masked, sort, matmul and scan
+    nodes must not touch meta tensors either."""
+    code = (
+        "import sys; sys.path.insert(0, sys.argv[1]);"
+        "import numpy as np, ramba_tpu_torch as rt;"
+        "a = rt.arange(-6.0, 6.0); a[a > 0] += 1.0; a[[1, 20]] = 3.0;"
+        "r = [a[[2, -1, 40]], rt.sort(a), rt.argsort(a), rt.cumsum(a),"
+        " rt.arange(6.0).reshape(2, 3) @ rt.ones((3, 2)),"
+        " np.concatenate([a, a]), a[a < 0].sum()];"
+        "print(float(rt.sum(r[3])), 'torch._dynamo' in sys.modules)"
+    )
+    env = dict(os.environ, RAMBA_TORCH_DEVICE="cpu")
+    out = subprocess.run([sys.executable, "-I", "-c", code, str(REPO)],
+                         capture_output=True, text=True, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "False"

@@ -3,14 +3,17 @@
 Every reduction of ``ramba_tpu/ops/reductions.py`` runs on the same inputs
 (made with numpy from a seed, carried across by
 ``convert.state_from_reference``) through both packages, crossed with
-bool/int32/int64/float32/float64 data, axis None/0/1/(0, 1), keepdims,
-ddof, ``where=`` and all-NaN slices; then ``cumsum``/``cumprod`` dtype
-widening, ``average`` with 1-D weights and the masked ``reduce_where`` op.
+bool, int8-int64, uint8-uint64 and float16-float64 data, axis None/0/1/
+(0, 1), keepdims, ddof, ``where=`` and all-NaN slices; then
+``cumsum``/``cumprod`` dtype widening, ``average`` with 1-D weights and the
+masked ``reduce_where`` op.
 
 Tolerances: dtypes and shapes always exact; integers, bools, arg-reductions,
-min/max/ptp/median and NaN positions exact; float64 rtol=atol=1e-12 and
-float32 rtol=atol=1e-5 where the summation orders differ (torch's and
-XLA's reductions and scans group their additions differently).
+min/max/ptp/median and NaN positions exact; float64 rtol=atol=1e-12,
+float32 rtol=atol=1e-5 and float16 rtol=atol=2e-3 (two ulps: both packages
+accumulate float16 in float32 and round once) where the summation orders
+differ (torch's and XLA's reductions and scans group their additions
+differently).
 """
 
 import numpy as np
@@ -23,9 +26,10 @@ import ramba_tpu_torch as rt
 from ramba_tpu_torch import common, convert
 from ramba_tpu_torch.core import expr as E
 
-DTYPES = ["bool", "int32", "int64", "float32", "float64"]
+DTYPES = ["bool", "int8", "int16", "int32", "int64", "uint8", "uint16",
+          "uint32", "uint64", "float16", "float32", "float64"]
 AXES = [None, 0, 1, (0, 1)]
-RTOL = {"float32": 1e-5, "float64": 1e-12}
+RTOL = {"float16": 2e-3, "float32": 1e-5, "float64": 1e-12}
 SHAPE = (6, 7)
 
 
@@ -41,8 +45,10 @@ def _data(dtype, seed, nan=False):
     rs = np.random.RandomState(seed)
     if dtype == "bool":
         return rs.rand(*SHAPE) > 0.5
-    if dtype in ("int32", "int64"):
+    if np.dtype(dtype).kind == "i":
         return rs.randint(-9, 10, SHAPE).astype(dtype)
+    if np.dtype(dtype).kind == "u":
+        return rs.randint(0, 10, SHAPE).astype(dtype)
     v = (rs.randn(*SHAPE) * 3).astype(dtype)
     if nan:
         v[rs.rand(*SHAPE) < 0.2] = np.nan
@@ -69,14 +75,34 @@ def _same(got, want, what):
 
 def _both(name, ref, port, **kw):
     """The reduction in both packages, or the exception both raise."""
-    try:
-        want = getattr(rtj, name)(ref, **kw)
-        want.asarray()
-    except (TypeError, ValueError) as e:
-        with pytest.raises(type(e)):
-            getattr(rt, name)(port, **kw).asarray()
-        return None, None
-    return getattr(rt, name)(port, **kw), want
+    return _both_cases(name, ref, port, [kw])[0]
+
+
+def _both_cases(name, ref, port, cases):
+    """``_both`` for each kwargs of ``cases``.  ramba_tpu builds every case
+    before the first read, so one flush (one compiled program) serves
+    them all; an exception at build or read is held against the port's
+    case by case."""
+    built = []
+    for kw in cases:
+        try:
+            built.append(getattr(rtj, name)(ref, **kw))
+        except (TypeError, ValueError) as e:
+            built.append(e)
+    out = []
+    for kw, want in zip(cases, built):
+        if not isinstance(want, Exception):
+            try:
+                want.asarray()
+            except (TypeError, ValueError) as e:
+                want = e
+        if isinstance(want, Exception):
+            with pytest.raises(type(want)):
+                getattr(rt, name)(port, **kw).asarray()
+            out.append((None, None))
+        else:
+            out.append((getattr(rt, name)(port, **kw), want))
+    return out
 
 
 PLAIN = ["sum", "prod", "min", "max", "mean", "any", "all", "ptp",
@@ -95,12 +121,12 @@ def test_reduction_sweep(name, dtype, axis):
         with pytest.raises(TypeError):
             getattr(rt, name)(port["a"], axis=axis)
         return
-    for keepdims in (False, True):
-        got, want = _both(name, ref["a"], port["a"], axis=axis,
-                          keepdims=keepdims)
+    cases = [{"axis": axis, "keepdims": k} for k in (False, True)]
+    for kw, (got, want) in zip(cases, _both_cases(name, ref["a"], port["a"],
+                                                  cases)):
         if got is not None:
             _same(got, want, f"{name}({dtype}, axis={axis}, "
-                             f"keepdims={keepdims})")
+                             f"keepdims={kw['keepdims']})")
 
 
 @pytest.mark.parametrize("axis", AXES)
@@ -108,12 +134,13 @@ def test_reduction_sweep(name, dtype, axis):
 @pytest.mark.parametrize("name", VAR)
 def test_variance_ddof(name, dtype, axis):
     ref, port = _pair(a=_data(dtype, 2))
-    for ddof in (0, 1, 7):  # 7 leaves no degrees of freedom on every axis
-        for keepdims in (False, True):
-            got, want = _both(name, ref["a"], port["a"], axis=axis,
-                              ddof=ddof, keepdims=keepdims)
-            _same(got, want, f"{name}({dtype}, axis={axis}, ddof={ddof}, "
-                             f"keepdims={keepdims})")
+    # ddof 7 leaves no degrees of freedom on every axis
+    cases = [{"axis": axis, "ddof": d, "keepdims": k}
+             for d in (0, 1, 7) for k in (False, True)]
+    for kw, (got, want) in zip(cases, _both_cases(name, ref["a"], port["a"],
+                                                  cases)):
+        _same(got, want, f"{name}({dtype}, axis={axis}, ddof={kw['ddof']}, "
+                         f"keepdims={kw['keepdims']})")
 
 
 @pytest.mark.parametrize("axis", [None, 0, 1])
@@ -236,23 +263,35 @@ def test_reduce_where_op(name, dtype):
     from ramba_tpu_torch.core.expr import Node
 
     a = _data(dtype, 13)
-    ref, port = _pair(a=a, m=np.random.RandomState(14).rand(*SHAPE) > 0.5)
-    for axis in (None, 0, 1):
-        for keepdims in (False, True):
-            want = type(ref["a"])(JNode("reduce_where", (name, axis, keepdims),
-                                        [ref["a"].read_expr(),
-                                         ref["m"].read_expr()]))
-            got = rt.ndarray(Node("reduce_where", (name, axis, keepdims),
-                                  [port["a"].read_expr(),
-                                   port["m"].read_expr()]))
+    mask = np.random.RandomState(14).rand(*SHAPE) > 0.5
+    ref, port = _pair(a=a, m=mask)
+    cases = [(axis, k) for axis in (None, 0, 1) for k in (False, True)]
+    # ramba_tpu's identity for a masked uint64 min, iinfo(uint64).max,
+    # overflows jnp's argument parsing (OverflowError): held against NumPy
+    numpy_only = name == "min" and dtype == "uint64"
+    # every ramba_tpu case is built before the first read: one flush
+    wants = [] if numpy_only else [
+        type(ref["a"])(JNode("reduce_where", (name, axis, keepdims),
+                             [ref["a"].read_expr(), ref["m"].read_expr()]))
+        for axis, keepdims in cases]
+    for k, (axis, keepdims) in enumerate(cases):
+        got = rt.ndarray(Node("reduce_where", (name, axis, keepdims),
+                              [port["a"].read_expr(),
+                               port["m"].read_expr()]))
+        if numpy_only:
+            want = np.min(a, axis=axis, keepdims=keepdims, where=mask,
+                          initial=np.iinfo(np.uint64).max)
             assert got.dtype == want.dtype
-            _same(got, want, f"reduce_where {name}({dtype}, axis={axis})")
+            np.testing.assert_array_equal(got.asarray(), want)
+            continue
+        assert got.dtype == wants[k].dtype
+        _same(got, wants[k], f"reduce_where {name}({dtype}, axis={axis})")
 
 
 def test_reduce_dtype_table():
     """The aval rule gives each reduction's dtype without running it."""
     for name in E.REDFN:
-        for dtype in DTYPES + ["int8", "uint8", "uint32"]:
+        for dtype in DTYPES:
             x = rtj.fromarray(np.ones(3, dtype))
             try:
                 want = getattr(rtj, name)(x).asarray().dtype
@@ -271,3 +310,24 @@ def test_median_midpoint_and_sort_order():
         for axis in (None, 0, 1):
             _same(getattr(rt, name)(port["a"], axis=axis),
                   getattr(rtj, name)(ref["a"], axis=axis), f"{name} {axis}")
+
+
+@pytest.mark.parametrize("name", ["sum", "prod", "nansum", "nanprod"])
+def test_uint8_sums_are_uint64(name):
+    """uint8 sums and products give uint64, as in ramba_tpu and NumPy (torch
+    promotes them to int64): the function, the method and ``where=``."""
+    a = np.arange(1, 43, dtype=np.uint8).reshape(SHAPE) % 5 + 1
+    mask = np.random.RandomState(15).rand(*SHAPE) > 0.3
+    ref, port = _pair(a=a, m=mask)
+    for axis in (None, 0, 1):
+        got = getattr(rt, name)(port["a"], axis=axis)
+        assert got.asarray().dtype == np.uint64
+        _same(got, getattr(rtj, name)(ref["a"], axis=axis), f"{name} {axis}")
+        got = getattr(rt, name)(port["a"], axis=axis, where=port["m"])
+        assert got.asarray().dtype == np.uint64
+        _same(got, getattr(rtj, name)(ref["a"], axis=axis, where=ref["m"]),
+              f"{name} where= {axis}")
+    if name in ("sum", "prod"):
+        got = getattr(port["a"], name)(axis=1)
+        assert got.asarray().dtype == np.uint64
+        _same(got, getattr(ref["a"], name)(axis=1), f"ndarray.{name}")
