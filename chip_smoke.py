@@ -26,10 +26,12 @@ Phases, each reported on its own line:
    stencil kernels against the rule itself, a uint32 chain against NumPy,
    the bf16 stencil kernel exactly against its plain version, saturating
    float-to-int casts and ``sign(-0.0)`` through elemred and the generic
-   lowering; and the fixed-order scan (cumsum/cumprod of floats) against
-   its plain version (same order: the same bytes) within its rounding-depth
-   bound, twice (byte-equal), on 2^28 float64 and float32 and along both
-   axes of 16384^2 float32, timed beside ``torch.cumsum``;
+   lowering; and the one-pass fixed-order scan (cumsum/cumprod of floats)
+   against its plain version (same order: the same bytes) and within its
+   rounding-depth bound of the float64 scan, launched on one CTA, on a
+   small odd grid and twice on the default grid (all byte-equal), on 2^28
+   float64 and float32, along both axes of 16384^2 float32 and on two rows
+   that cross checkpoints, timed beside ``torch.cumsum``;
 3. the main path through ``import ramba_tpu_torch as rt``: the headline
    chain at n = 1e9, the sin/cos chain over a materialised base at n = 1e9,
    axpy + sum, the PRK star stencil (30 chained ``sstencil`` calls and 100
@@ -55,7 +57,9 @@ Phases, each reported on its own line:
    and transpose giving port arrays on the card, sort/argsort of 2^28
    float64 with NaNs and signed zeros, matmul 8192^2 float32 (TF32 off)
    and 4096^2 float64 against float64 products, an int64 matmul at 2048^2
-   and cumsum of 2^28 float64 on the scan kernel.  Every kernel's launch count is set to 0 just before each
+   and cumsum of 2^28 float64 on the scan kernel, its wall split into
+   host time, launch and card time, cold and warm.  Every kernel's launch
+   count is set to 0 just before each
    path and read just after; a path that does not launch its kernel fails
    the run;
 4. a ``kernels`` JSON line, the card's name and power limit, and the last
@@ -881,39 +885,45 @@ def time_segred(sg, torch, g, kind, what, card):
 def scan_checks(sc, torch, card):
     """The fixed-order scan against its plain version (the same tiles in
     the same order: the same bytes), within the rounding-depth bound
-    2 * depth * eps * cumsum|x|, and twice (byte-equal), at 2^28 float64
-    and float32 and along both axes of 16384^2 float32; float16, bfloat16
-    and the products on a ragged (3, 2 * TILE + 37).  Then the kernel
-    timed beside its plain version, torch.cumsum and its byte bound."""
+    2 * depth * eps * cumsum|x| of the float64 scan, launched on one CTA,
+    on a small odd grid and twice on the default grid (all byte-equal: the
+    bytes do not depend on the grid), at 2^28 float64 and float32, along
+    both axes of 16384^2 float32 and on two rows that cross checkpoints;
+    float16, bfloat16 and the products on a ragged (3, 2 * TILE + 37).
+    Then the kernel timed beside its plain version, torch.cumsum and its
+    byte bound."""
     g = torch.Generator(device="cuda")
     g.manual_seed(21)
     worst = 0.0
+    grids = (1, 7, None, None)  # one CTA, a small odd grid, the default twice
 
     def case(what, x, name, axis):
         nonlocal worst
         before = sc.launches
-        got = sc.launch(x, name, axis)
-        again = sc.launch(x, name, axis)
+        outs = [sc.launch(x, name, axis, ctas) for ctas in grids]
         want = sc.scan_reference(x, name, axis)
         torch.cuda.synchronize()
-        if sc.launches != before + 2:
+        if sc.launches != before + len(grids):
             raise Fail(f"{what}: scan launches not counted")
-        if not bytes_equal(got, again):
-            raise Fail(f"{what}: two launches differ in their bytes")
+        got = outs[-1]
+        if not all(bytes_equal(got, o) for o in outs[:-1]):
+            raise Fail(f"{what}: grids 1, 7 and {sc.grid(x.device)} or two "
+                       f"launches differ in their bytes")
         same = bytes_equal(got, want)
         dname = str(x.dtype).split(".")[1]
         if name == "cumsum" and dname in EPS:
             bound = sum_bound(sc.depth(x.shape[axis]), dname,
                               torch.cumsum(x.double().abs(), axis))
-            worst = max(worst, check_sums(f"{what}", got, want, bound,
-                                          "2*depth*eps*cumsum|x|"))
-        elif not same:
-            raise Fail(f"{what}: not the plain version's bytes")
-        log(f"  {what}: byte-equal to its plain version {same}, two launches "
-            f"byte-equal True [{card}]")
+            worst = max(worst, check_sums(
+                f"{what} vs the float64 scan", got.double(),
+                torch.cumsum(x.double(), axis), bound,
+                "2*depth*eps*cumsum|x|"))
+        log(f"  {what}: byte-equal to its plain version {same}; grids 1, 7 "
+            f"and {sc.grid(x.device)} and a second launch byte-equal True "
+            f"[{card}]")
         if not same:
             raise Fail(f"{what}: the kernel's order is not the plain version's")
-        del got, again, want
+        del outs, got, want
 
     n = 1 << 28
     x64 = torch.randn(n, generator=g, device="cuda", dtype=torch.float64)
@@ -926,6 +936,11 @@ def scan_checks(sc, torch, card):
     for axis in (0, 1):
         case(f"scan cumsum 16384^2 float32 axis {axis}", X, "cumsum", axis)
     del X
+    for dt in (torch.float32, torch.float64):
+        s = torch.randn(2, (2 * sc.K + 3) * sc.TILE + 11, generator=g,
+                        device="cuda", dtype=dt)
+        case(f"scan cumsum (2, (2K+3)*TILE+11) {dt} axis 1 (checkpoints "
+             f"crossed)", s, "cumsum", 1)
     for dt in (torch.float16, torch.bfloat16, torch.float32, torch.float64):
         s = 1 + 0.01 * torch.randn(3, 2 * sc.TILE + 37, generator=g,
                                    device="cuda", dtype=torch.float64)
@@ -939,11 +954,13 @@ def scan_checks(sc, torch, card):
     plain_ms = cuda_ms(lambda: sc.scan_reference(x64, "cumsum", 0), 2)
     lib_ms = cuda_ms(lambda: torch.cumsum(x64, 0), 10)
     bound_ms = 1e3 * 2 * n * 8 / HBM_BYTES_PER_S
+    moved = 2 * n * 8 + sc.tiles(n) * 8 + sc.status_bytes(sc.tiles(n))
     log(f"  scan cumsum n=2^28 float64: kernel {ms:.4f} ms ({bound_ms / ms:.1%} "
         f"of its bound), plain {plain_ms:.4f} ms, torch.cumsum {lib_ms:.4f} ms "
         f"(not reproducible), bound {bound_ms:.4f} ms ({2 * n * 8 / 1e9:.3f} GB "
-        f"at 3.35 TB/s), {(3 * n * 8 + 2 * 8 * sc.tiles(n)) / 1e9:.3f} GB "
-        f"moved by its three launches [{card}]")
+        f"at 3.35 TB/s), {moved / 1e9:.6f} GB moved by its one pass (the "
+        f"data read once, the result written once, a value and a flag per "
+        f"tile), K={sc.K} [{card}]")
     del x64
     torch.cuda.empty_cache()
     return {"name": "scan", "route": "cuda",
@@ -953,7 +970,8 @@ def scan_checks(sc, torch, card):
                         ", no pallas_call)",
             "launches": 0, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": lib_ms, "shape": "cumsum n=2^28 float64"}
+            "library_ms": lib_ms, "shape": "cumsum n=2^28 float64",
+            "moved_bytes": moved}
 
 
 def phase_kernels(rt, er, sk, sg, jacobi, torch, np, card, sc):
@@ -2024,8 +2042,55 @@ def indexing_path(rt, sc, torch, np, card, window):
         f"{1e3 * 2 * n * 8 / HBM_BYTES_PER_S:.4f} ms [{card}]")
     if not (same and plain):
         raise Fail("rt.cumsum is not reproducible bit for bit")
-    del c, r1, r2, lib, a_t
+    del r1, r2, lib
     torch.cuda.empty_cache()
+    for label in ("cold (after empty_cache)", "warm"):
+        split_cumsum(rt, sc, torch, c, label, card)
+    del c, a_t
+    torch.cuda.empty_cache()
+
+
+def split_cumsum(rt, sc, torch, c, label, card):
+    """One ``rt.cumsum(c)``, read and synchronised, split into the host
+    time until the scan's entry point is called (graph, flush, the output
+    and status allocations), the host time of that call (memset and
+    launch enqueued), and the host time after it until the synchronised
+    result; beside them the card's time for the memset and the kernel
+    (CUDA events around the call)."""
+    marks = {}
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    entry = sc._entry
+
+    def traced(tdt, fname):
+        fn = entry(tdt, fname)
+
+        def call(*args):
+            marks["enter"] = time.perf_counter()
+            ev0.record()
+            rc = fn(*args)
+            ev1.record()
+            marks["return"] = time.perf_counter()
+            return rc
+        return call
+
+    sc._entry = traced
+    try:
+        t0 = time.perf_counter()
+        v = rt.cumsum(c)._value()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        sc._entry = entry
+    if "enter" not in marks:
+        raise Fail("rt.cumsum did not reach the scan kernel")
+    del v
+    log(f"  rt.cumsum n=2^28 f64 {label}: wall {1e3 * (t1 - t0):.4f} ms = "
+        f"host to the launch {1e3 * (marks['enter'] - t0):.4f} ms + memset "
+        f"and launch enqueued {1e3 * (marks['return'] - marks['enter']):.4f} "
+        f"ms + after the launch until synchronised "
+        f"{1e3 * (t1 - marks['return']):.4f} ms; the card ran the memset and "
+        f"kernel in {ev0.elapsed_time(ev1):.4f} ms [{card}]")
 
 
 def main(argv) -> int:

@@ -11,21 +11,22 @@ What it computes: the inclusive sum or product along ``axis``.  float16 and
 bfloat16 accumulate in float32 and round each output once, as torch does.
 
 Design (``csrc/scan.cuh``): the scanned axis is moved last and the data
-cut into contiguous rows.  A row is cut into tiles of ``TILE`` elements,
-and the order of every operation is fixed by the tiling alone:
-``scan_totals`` folds each tile (a thread's ``ITEMS`` elements left to
-right, then a Kogge-Stone scan over the ``THREADS`` thread sums);
-``scan_carries`` scans each row's tile totals in one CTA (chunks of
-``ceil(tiles / THREADS)``, a Kogge-Stone over the chunk sums, a walk of
-each chunk); ``scan_tiles`` scans each tile again and combines its carry
-in front.  The grid walks tiles grid-stride, so the bytes do not depend on
-how many CTAs the card runs.  One source holds the eight entry points
-(four dtypes, sum and product); ``nvcc`` builds it for ``sm_90a`` into a
-shared library loaded with ``ctypes`` (``_build.py``).
+cut into contiguous rows (a strided axis is copied into rows first).  A row
+is cut into tiles of ``TILE`` elements, and the order of every operation is
+fixed by the tile index alone.  One launch: persistent CTAs take tiles in
+increasing order from a global counter; each tile scans itself once (a
+thread's ``ITEMS`` elements folded left to right, a Kogge-Stone scan over
+the ``THREADS`` thread sums), publishes its total, and takes its carry
+from the totals of the tiles before it back to the last checkpoint (every
+``K``-th tile, which publishes its inclusive prefix instead; see
+:func:`_carries`).  Only the checkpoints form a serial chain.  One source
+holds the eight entry points (four dtypes, sum and product); ``nvcc``
+builds it for ``sm_90a`` into a shared library loaded with ``ctypes``
+(``_build.py``).
 
 Bound on the H100: HBM bandwidth, the data read once and the result
-written once (``2 * numel * itemsize`` bytes at 3.35 TB/s).  The three
-launches read the data twice.
+written once (``2 * numel * itemsize`` bytes at 3.35 TB/s).  The kernel
+moves that, plus one value and one flag per tile.
 
 Beside it: :func:`scan_reference`, the plain PyTorch version, which
 computes the same tiles in the same order with torch ops (so it gives the
@@ -49,6 +50,7 @@ launches = 0
 THREADS = 256
 ITEMS = 16
 TILE = THREADS * ITEMS
+K = 128  # tiles per checkpoint
 LEVELS = THREADS.bit_length() - 1  # Kogge-Stone levels over THREADS values
 
 DTYPES = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
@@ -68,20 +70,30 @@ def tiles(n: int) -> int:
     return -(-n // TILE)
 
 
-def chunk(n: int) -> int:
-    """Tile totals per thread of the carry scan."""
-    return -(-tiles(n) // THREADS)
+def carry_depth(t: int) -> int:
+    """The longest chain of roundings inside the carry of a row of t tiles.
+    Before the first checkpoint a carry is a left fold of up to t - 1
+    totals (t - 2 roundings).  Past it, a total goes through up to K - 1
+    folds into its checkpoint's window and one combine into that
+    checkpoint's prefix (none for the first), then one combine per later
+    checkpoint (one hop each) and one into the carry: K - 1 + (t - 1) // K
+    in all, which also covers a total in the carry's own window (up to
+    K - 2 folds and the combine with the prefix)."""
+    if t <= K:
+        return max(t - 2, 0)
+    return K - 1 + (t - 1) // K
 
 
 def depth(n: int) -> int:
     """The longest chain of roundings behind one output of a row of n:
-    a tile total (ITEMS - 1 folds, LEVELS levels), the carry (a chunk's
-    fold, LEVELS levels, a walk of a chunk), then the output's own fold,
-    its thread's exclusive value and the two combines in front.  A sum is
-    within ``depth(n) * eps/2 * sum|x|`` of the exact prefix (first
-    order)."""
-    c = chunk(n) if tiles(n) > 1 else 0
-    return 2 * (ITEMS - 1 + LEVELS) + 2 * c + LEVELS + 2
+    where the row has more than one tile, a tile total (ITEMS - 1 folds,
+    LEVELS levels) and the carry (:func:`carry_depth`); then the output's
+    own fold, its thread's exclusive value and the two combines in front.
+    A sum is within ``depth(n) * eps/2 * sum|x|`` of the exact prefix
+    (first order)."""
+    t = tiles(n)
+    carry = ITEMS - 1 + LEVELS + carry_depth(t) if t > 1 else 0
+    return carry + ITEMS - 1 + LEVELS + LEVELS + 2
 
 
 def _as_rows(x: torch.Tensor, axis: int):
@@ -112,28 +124,32 @@ def _kogge_stone(v: torch.Tensor, op) -> torch.Tensor:
 
 
 def _carries(tot: torch.Tensor, op, ident) -> torch.Tensor:
-    """Each tile's exclusive carry: the kernel's chunked scan of the
-    (rows, T) tile totals (column 0, which no tile reads, holds garbage)."""
+    """Each tile's exclusive carry from the (rows, T) tile totals A, as the
+    kernel defines it (column 0, which no tile reads, holds the identity).
+
+    Tile j's window starts at s = (j // K) * K, after the last checkpoint
+    c = s - 1 (tiles with j % K == K - 1).  With L_j = A_s op ... op A_{j-1}
+    folded left to right, E_j = P_c op L_j (P_c when j == s, L_j when
+    s == 0), and a checkpoint's prefix is P_j = P_c op (L_j op A_j)
+    ((L_j op A_j) when s == 0).  The window folds run over the K slots for
+    every window at once, the prefixes over the T / K checkpoints."""
     R, T = tot.shape
-    C = -(-T // THREADS)
-    pad = torch.full((R, THREADS * C), ident, dtype=tot.dtype,
-                     device=tot.device)
+    G = -(-T // K)
+    pad = torch.full((R, G * K), ident, dtype=tot.dtype, device=tot.device)
     pad[:, :T] = tot
-    ch = pad.reshape(R, THREADS, C)
-    cs = ch[..., 0]
-    for q in range(1, C):
-        cs = op(cs, ch[..., q])
-    ks = _kogge_stone(cs, op)
-    acc = torch.full_like(ks, ident)
-    acc[:, 1:] = ks[:, :-1]
-    have = torch.ones_like(ks, dtype=torch.bool)
-    have[:, 0] = False
-    carry = torch.empty_like(ch)
-    for q in range(C):
-        carry[..., q] = acc
-        acc = torch.where(have, op(acc, ch[..., q]), ch[..., q])
-        have = torch.ones_like(have)
-    return carry.reshape(R, THREADS * C)[:, :T]
+    a = pad.reshape(R, G, K)
+    m = a.clone()  # m[:, w, q] = A_{wK} op ... op A_{wK+q}
+    for q in range(1, K):
+        m[..., q] = op(m[..., q - 1], a[..., q])
+    p = m[..., K - 1].clone()  # p[:, w] = P at the w-th checkpoint
+    for w in range(1, G):
+        p[:, w] = op(p[:, w - 1], m[:, w, K - 1])
+    carry = torch.full_like(a, ident)
+    carry[:, 0, 1:] = m[:, 0, :-1]
+    if G > 1:
+        carry[:, 1:, 0] = p[:, :-1]
+        carry[:, 1:, 1:] = op(p[:, :-1, None], m[:, 1:, :-1])
+    return carry.reshape(R, G * K)[:, :T]
 
 
 def _reference_rows(x: torch.Tensor, fname: str) -> torch.Tensor:
@@ -181,11 +197,11 @@ def _source() -> str:
     for tdt in DTYPES:
         for fname, (_k, op) in _OPS.items():
             entries.append(f"""
-extern "C" int {entry_name(tdt, fname)}(const void* x, void* out, void* tot,
-                                  void* carry, long long rows, long long n,
+extern "C" int {entry_name(tdt, fname)}(const void* x, void* out, void* val,
+                                  void* status, long long rows, long long n,
                                   int grid, void* stream) {{
   return ramba::scan::launch<{_CTYPE[tdt]}, ramba::scan::{op}>(
-      x, out, tot, carry, rows, n, grid, stream);
+      x, out, val, status, rows, n, grid, stream);
 }}""")
     return "// generated by ramba_tpu_torch/ops/scan.py\n#include \"scan.cuh\"\n" \
         + "".join(entries) + "\n"
@@ -214,15 +230,21 @@ def _entry(tdt: torch.dtype, fname: str):
 
 
 def grid(dev: torch.device) -> int:
-    """CTAs per launch: six per SM (the tile and Kogge-Stone buffers of a
-    float64 CTA take 37 KB of shared memory).  The result does not depend
-    on it."""
+    """CTAs per launch: six per SM, 792 on an H100 (four fit an SM at a
+    time; the rest start as CTAs finish and claim what is left), more than
+    the K tiles between checkpoints.  The result does not depend on it."""
     return torch.cuda.get_device_properties(dev).multi_processor_count * 6
 
 
-def launch(x: torch.Tensor, fname: str, axis: int) -> torch.Tensor:
-    """Launch the kernel on a CUDA tensor; returns the scan along
-    ``axis``."""
+def status_bytes(num_tiles: int) -> int:
+    """The tile counter (8 bytes), then one 4-byte flag per tile."""
+    return 8 + 4 * num_tiles
+
+
+def launch(x: torch.Tensor, fname: str, axis: int, ctas: int | None = None
+           ) -> torch.Tensor:
+    """Launch the kernel on a CUDA tensor, on ``ctas`` CTAs (default
+    :func:`grid`); returns the scan along ``axis``."""
     global launches
     if x.device.type != "cuda":
         raise RuntimeError(f"scan kernel: operand on {x.device}, expected cuda")
@@ -233,15 +255,15 @@ def launch(x: torch.Tensor, fname: str, axis: int) -> torch.Tensor:
     rows, shape = _as_rows(x, axis)
     R, n = rows.shape
     out = torch.empty_like(rows)
-    acc = acc_dtype(x.dtype)
-    T = tiles(n)
-    tot = torch.empty(R * T, dtype=acc, device=x.device)
-    carry = torch.empty(R * T, dtype=acc, device=x.device)
+    num = R * tiles(n)
+    val = torch.empty(num, dtype=acc_dtype(x.dtype), device=x.device)
+    status = torch.empty(status_bytes(num), dtype=torch.uint8, device=x.device)
     fn = _entry(x.dtype, fname)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(rows.data_ptr(), out.data_ptr(), tot.data_ptr(),
-                carry.data_ptr(), R, n, grid(x.device), stream)
+        rc = fn(rows.data_ptr(), out.data_ptr(), val.data_ptr(),
+                status.data_ptr(), R, n, max(1, ctas or grid(x.device)),
+                stream)
     if rc != 0:
         raise RuntimeError(f"scan kernel launch failed: CUDA error {rc}")
     launches += 1

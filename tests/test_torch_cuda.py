@@ -804,11 +804,26 @@ def test_float32_matmul_keeps_tf32_off():
 SCAN_DTYPES = [torch.float16, torch.bfloat16, torch.float32, torch.float64]
 
 
+def _scan_on_every_grid(scan, x, name, axis):
+    """The kernel on one CTA, on 7, and twice on the default grid: each a
+    launch, all the same bytes (the order does not depend on the grid and
+    a tile only waits on tiles taken before it); returns the last."""
+    before = scan.launches
+    outs = [scan.run(x, name, axis)] + [scan.launch(x, name, axis, ctas)
+                                        for ctas in (1, 7, None)]
+    assert scan.launches == before + 4
+    torch.cuda.synchronize()
+    for o in outs[:-1]:
+        assert _bytes_equal(o, outs[-1]), (name, x.dtype, axis)
+    return outs[-1]
+
+
 @pytest.mark.parametrize("dtype", SCAN_DTYPES)
 @pytest.mark.parametrize("name", ["cumsum", "cumprod"])
 def test_scan_kernel_equals_its_plain_version(name, dtype):
     """The kernel and its plain version run the same order: the same
-    bytes; and two launches give the same bytes."""
+    bytes; and launches on grids 1, 7 and the default give the same
+    bytes."""
     from ramba_tpu_torch.ops import scan
 
     g = torch.Generator(device="cuda")
@@ -816,14 +831,28 @@ def test_scan_kernel_equals_its_plain_version(name, dtype):
     x = (1 + 0.01 * torch.randn(5, 3 * scan.TILE + 37, generator=g,
                                 device="cuda", dtype=torch.float64)).to(dtype)
     for axis in (0, 1):
-        before = scan.launches
-        got = scan.run(x, name, axis)
-        again = scan.run(x, name, axis)
-        assert scan.launches == before + 2
+        got = _scan_on_every_grid(scan, x, name, axis)
         want = scan.scan_reference(x, name, axis)
         torch.cuda.synchronize()
-        assert _bytes_equal(got, again)
         assert _bytes_equal(got, want), (name, dtype, axis)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scan_kernel_across_checkpoints(dtype):
+    """Two rows of (2K + 3) tiles and a ragged tail: each row's checkpoint
+    chain, on every grid, gives the plain version's bytes, within
+    2 * depth * eps * cumsum|x| of the float64 scan."""
+    from ramba_tpu_torch.ops import scan
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    n = (2 * scan.K + 3) * scan.TILE + 11
+    x = torch.randn(2, n, generator=g, device="cuda", dtype=dtype)
+    got = _scan_on_every_grid(scan, x, "cumsum", 1)
+    assert _bytes_equal(got, scan.scan_reference(x, "cumsum", 1))
+    bound = 2 * scan.depth(n) * EPS[dtype] * torch.cumsum(x.double().abs(), 1)
+    assert bool(((got.double() - torch.cumsum(x.double(), 1)).abs()
+                 <= bound).all())
 
 
 def test_rt_cumsum_runs_the_scan_kernel_reproducibly():

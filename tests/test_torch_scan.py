@@ -13,6 +13,9 @@ bound, as ``chip_smoke.py`` holds products).  Values k/2^20, whose every
 prefix sum is exact, must agree exactly.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -45,9 +48,11 @@ def _cum_abs(x, axis):
     return np.cumsum(np.abs(x.astype(np.float64)), axis=axis)
 
 
-# lengths around the tile and the carry chunk: one tile, a ragged second
-# tile, several tiles, more tiles than the carry scan's threads
+# lengths around the tile and the checkpoints: one tile, a ragged second
+# tile, several tiles, a checkpoint's window less or more one element,
+# more than two checkpoints
 LENGTHS = [1, 7, scan.TILE, scan.TILE + 1, 5 * scan.TILE - 3,
+           scan.K * scan.TILE - 1, scan.K * scan.TILE + 1,
            scan.THREADS * scan.TILE + 2 * scan.TILE + 11]
 
 
@@ -80,6 +85,24 @@ def test_axes_against_ramba_tpu(name, axis):
     else:
         bound = 10 * np.sqrt(n) * EPS["float64"] * np.abs(want)
     assert (np.abs(got - want) <= bound).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_two_rows_across_checkpoints_against_ramba_tpu(dtype):
+    """Two rows of (2K + 3) tiles and a ragged tail along axis 1: each row
+    its own checkpoint chain."""
+    n = (2 * scan.K + 3) * scan.TILE + 11
+    x = np.random.RandomState(14).randn(2, n).astype(dtype)
+    ref, port = _pair(x=x)
+    got = rt.cumsum(port["x"], 1).asarray()
+    want = rtj.cumsum(ref["x"], 1).asarray()
+    assert got.dtype == want.dtype == np.dtype(dtype)
+    bound = 2 * scan.depth(n) * EPS[dtype] * _cum_abs(x, 1)
+    err = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    assert (err <= bound).all(), np.max(err / bound)
+    rows = scan.scan_reference(torch.from_numpy(x), "cumsum", 1)
+    assert torch.equal(rows[1], scan.scan_reference(torch.from_numpy(x[1]),
+                                                    "cumsum", 0))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -156,12 +179,81 @@ def test_integer_scans_stay_on_torch_cumsum():
 def test_tiling_and_depth():
     assert scan.TILE == scan.THREADS * scan.ITEMS
     assert scan.tiles(1) == 1 and scan.tiles(scan.TILE + 1) == 2
-    assert scan.chunk(scan.THREADS * scan.TILE) == 1
-    assert scan.chunk(scan.THREADS * scan.TILE + 1) == 2
-    # one tile skips the carry scan
+    # no carry in one tile; a left fold before the first checkpoint; then
+    # a window's folds and one combine per checkpoint
+    assert scan.carry_depth(1) == scan.carry_depth(2) == 0
+    assert scan.carry_depth(scan.K) == scan.K - 2
+    assert scan.carry_depth(scan.K + 1) == scan.K
+    # one tile has no tile total or carry in its chain
+    assert scan.depth(scan.TILE) == scan.ITEMS - 1 + 2 * scan.LEVELS + 2
     assert scan.depth(scan.TILE) < scan.depth(scan.TILE + 1)
+    t = (1 << 28) // scan.TILE
     assert scan.depth(1 << 28) == 2 * (scan.ITEMS - 1 + scan.LEVELS) + \
-        2 * ((1 << 28) // scan.TILE // scan.THREADS) + scan.LEVELS + 2
+        scan.K - 1 + (t - 1) // scan.K + scan.LEVELS + 2
+
+
+def test_header_constants_match_the_module():
+    """THREADS, ITEMS and K of ``csrc/scan.cuh`` are the plain version's."""
+    path = os.path.join(os.path.dirname(scan.__file__), "..", "csrc",
+                        "scan.cuh")
+    with open(path) as f:
+        consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", f.read()))
+    assert (int(consts["THREADS"]), int(consts["ITEMS"]), int(consts["K"])) \
+        == (scan.THREADS, scan.ITEMS, scan.K)
+
+
+def _carries_by_definition(tot, op, K):
+    """E_j = P_c op (A_s op ... op A_{j-1}), s = (j // K) * K, c = s - 1;
+    a checkpoint's P_j = P_c op (A_s op ... op A_j); one Python step each."""
+    R, T = tot.shape
+    out = torch.zeros_like(tot)
+    for r in range(R):
+        pre = {}
+        for j in range(T):
+            s = j // K * K
+            fold = None
+            for i in range(s, j):
+                fold = tot[r, i] if fold is None else op(fold, tot[r, i])
+            if s > 0:
+                out[r, j] = pre[s - 1] if fold is None else op(pre[s - 1], fold)
+            elif fold is not None:
+                out[r, j] = fold
+            if j % K == K - 1:
+                m = tot[r, j] if fold is None else op(fold, tot[r, j])
+                pre[j] = m if s == 0 else op(pre[s - 1], m)
+    return out
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_checkpoint_recursion_with_a_small_k(monkeypatch, k):
+    """With K patched to 2 and 3 (many checkpoints in a short row), the
+    carries equal the defining formula bit for bit, and exact inputs
+    (k/2^20) give NumPy's cumsum exactly."""
+    monkeypatch.setattr(scan, "K", k)
+    g = torch.Generator().manual_seed(12)
+    for name, op in (("cumsum", torch.add), ("cumprod", torch.mul)):
+        for dtype in (torch.float32, torch.float64):
+            tot = (1 + 0.1 * torch.randn(2, 23, generator=g,
+                                         dtype=torch.float64)).to(dtype)
+            ident = 0.0 if name == "cumsum" else 1.0
+            got = scan._carries(tot, op, ident)[:, 1:]
+            want = _carries_by_definition(tot, op, k)[:, 1:]
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+    rs = np.random.RandomState(13)
+    x = rs.randint(-(1 << 10), 1 << 10, (2, 11 * scan.TILE + 5)) * 2.0 ** -20
+    got = scan.scan_reference(torch.from_numpy(x), "cumsum", 1).numpy()
+    np.testing.assert_array_equal(got, np.cumsum(x, axis=1))
+    assert scan.depth(11 * scan.TILE + 5) == 2 * (scan.ITEMS - 1 + scan.LEVELS)\
+        + k - 1 + 11 // k + scan.LEVELS + 2
+
+
+def test_last_axis_rows_are_views():
+    """A contiguous operand scanned along its last axis is neither copied
+    into rows nor out of them."""
+    x = torch.arange(24.0).reshape(2, 3, 4)
+    rows, shape = scan._as_rows(x, -1)
+    assert rows.data_ptr() == x.data_ptr() and rows.shape == (6, 4)
+    assert scan._from_rows(rows, shape, -1).data_ptr() == x.data_ptr()
 
 
 def test_source_has_every_entry_point():
