@@ -58,7 +58,22 @@ Phases, each reported on its own line:
    float64 with NaNs and signed zeros, matmul 8192^2 float32 (TF32 off)
    and 4096^2 float64 against float64 products, an int64 matmul at 2048^2
    and cumsum of 2^28 float64 on the scan kernel, its wall split into
-   host time, launch and card time, cold and warm.  Every kernel's launch
+   host time, launch and card time, cold and warm; then the rest of the
+   NumPy surface (``breadth_path``): complex128 imag, angle, sign, var,
+   less, max and sort on 2^26 values (against plain torch and NumPy on a
+   2^20 sample), nancumsum/nancumprod of 2^28 float64 on the scan kernel
+   (the plain version's bytes), diff, nan_to_num, fix, around, trapezoid,
+   searchsorted/digitize, isin, interp, convolve (TF32 off, against a
+   float64 run), quantiles, a weighted bincount run twice byte-equal,
+   ``unique`` (a host boundary) and cov; fft/ifft, rfft/irfft round
+   trips, fft2 of 16384^2 and fftshift; solve, inv, det, slogdet and
+   cholesky at 8192^2 float64, qr, svd, eigh, pinv and matrix_rank at
+   4096^2 by their residuals, norm, eig and lstsq (host); eye, mgrid,
+   meshgrid, logspace and geomspace; the rewrites (the hourly series'
+   stack of group sums and maxima on segred, the anomaly idiom against
+   the un-rewritten program, ``rewrite.stats["errors"] == 0``); and the
+   models (``integrate_pi(1e9)`` in one flush, k-means on 2^24 x 32
+   points against its plain run).  Every kernel's launch
    count is set to 0 just before each
    path and read just after; a path that does not launch its kernel fails
    the run;
@@ -120,6 +135,8 @@ def max_abs(a, b) -> float:
 
     if a.dtype == torch.bool:
         return float((a != b).sum().item())
+    if a.is_complex():
+        a, b = torch.view_as_real(a), torch.view_as_real(b)
     return float((a.double() - b.double()).abs().max().item()) if a.numel() else 0.0
 
 
@@ -1290,10 +1307,11 @@ def time_elemred(rt, er, torch, np, card):
             "shapes": [axpy, f32]}
 
 
-def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
-    """The main path through the user API, launch counts around each."""
-    log("phase 3: main path through `import ramba_tpu_torch as rt`")
-    totals = {"elemred": 0, "stencil": 0, "segred": 0, "scan": 0}
+def launch_window(er, sk, sg, sc, totals, card):
+    """``window(name, fn, need)``: every kernel's launch count set to 0
+    just before ``fn`` runs and read just after, added to ``totals``; a
+    kernel named in ``need`` that was not launched (``need[k]`` times, or
+    at least once for None) fails the run."""
 
     def window(name, fn, need):
         er.launches = er.launches_bulk = er.launches_plain = 0
@@ -1317,6 +1335,15 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
                            f"{'> 0' if want is None else want}")
         log(f"  {name}: launches {got} [{card}]")
         return res
+
+    return window
+
+
+def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
+    """The main path through the user API, launch counts around each."""
+    log("phase 3: main path through `import ramba_tpu_torch as rt`")
+    totals = {"elemred": 0, "stencil": 0, "segred": 0, "scan": 0}
+    window = launch_window(er, sk, sg, sc, totals, card)
 
     # headline chain (bench.py's _bench_chain)
     n = 10 ** 9
@@ -1449,6 +1476,7 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
     groupby_path(rt, sg, torch, np, card, window)
     skeletons_path(rt, er, torch, np, card, window)
     indexing_path(rt, sc, torch, np, card, window)
+    breadth_path(rt, er, sg, sc, torch, np, card, window)
     return totals
 
 
@@ -2047,6 +2075,629 @@ def indexing_path(rt, sc, torch, np, card, window):
     for label in ("cold (after empty_cache)", "warm"):
         split_cumsum(rt, sc, torch, c, label, card)
     del c, a_t
+    torch.cuda.empty_cache()
+
+
+def breadth_path(rt, er, sg, sc, torch, np, card, window):
+    """The rest of the NumPy surface at sizes users run, through ``rt``:
+    complex values, ``ops/extras.py``, ``rt.fft``, ``rt.linalg``, the
+    creation tail, the graph rewrites and the models.  Each check prints
+    its tolerance; each timed item its wall (cold, then warm), the bytes
+    it must move (GB/s) or its TFLOP/s, and the card."""
+    log("  breadth_path: complex, extras, fft, linalg, creation, rewrite, "
+        "models")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(41)
+
+    def timed(name, call, moved_bytes=None, flops=None, need=None, warm=True):
+        """One cold and (``warm``) one warm call in launch windows; the
+        value of the warm call."""
+        def run():
+            t0 = time.perf_counter()
+            v = call()
+            v = v._value() if hasattr(v, "_value") else v
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, v
+
+        cold, v = window(f"{name} (cold)", run, need or {})
+        wall = cold
+        if warm:
+            del v
+            wall, v = window(name, run, need or {})
+        rate = []
+        if moved_bytes:
+            rate.append(f"{moved_bytes / wall / 1e9:.1f} GB/s of "
+                        f"{moved_bytes / 1e9:.3f} GB it must move")
+        if flops:
+            rate.append(f"{flops / wall / 1e12:.3f} TFLOP/s of "
+                        f"{flops / 1e12:.3f} TFLOP")
+        log(f"  {name}: wall {wall:.4f} s (first call {cold:.4f} s), "
+            f"{'; '.join(rate) or 'host boundary'} [{card}]")
+        return v
+
+    def sample_check(what, got, want, rtol, reason, atol=0.0):
+        """A 2^20-element result against NumPy's on the same sample."""
+        g = torch.as_tensor(np.asarray(got))
+        w = torch.as_tensor(np.asarray(want))
+        check_close(what, g, w, rtol, reason, atol=atol)
+
+    # -- complex values: 2^26 complex128 ---------------------------------------
+    nc, ns = 1 << 26, 1 << 20
+    z_t = torch.complex(torch.randn(nc, generator=gen, device=dev,
+                                    dtype=torch.float64),
+                        torch.randn(nc, generator=gen, device=dev,
+                                    dtype=torch.float64))
+    w_t = torch.complex(torch.randn(nc, generator=gen, device=dev,
+                                    dtype=torch.float64),
+                        torch.randn(nc, generator=gen, device=dev,
+                                    dtype=torch.float64))
+    z, w = rt.fromarray(z_t), rt.fromarray(w_t)
+    zs, ws = z_t[:ns].cpu().numpy(), w_t[:ns].cpu().numpy()
+    cb = nc * 16
+    got = timed("imag z 2^26 c128", lambda: rt.imag(z), cb + nc * 8)
+    check_exact("imag vs torch.imag", got, z_t.imag.clone(), "a copy")
+    sample_check("imag vs NumPy (2^20 sample)", got[:ns].cpu(), zs.imag, 0.0,
+                 "a copy")
+    got = timed("angle z 2^26 c128", lambda: rt.angle(z), cb + nc * 8)
+    check_close("angle vs torch.angle", got, torch.angle(z_t), 4 * EPS["float64"],
+                "atan2 of the parts, 4 eps relative")
+    sample_check("angle vs NumPy", got[:ns].cpu(), np.angle(zs),
+                 4 * EPS["float64"], "4 eps relative")
+    del got
+    got = timed("sign z 2^26 c128", lambda: rt.sign(z), 2 * cb)
+    plain = z_t / z_t.abs()
+    check_close("sign vs z/|z|", torch.view_as_real(got),
+                torch.view_as_real(plain), 4 * EPS["float64"],
+                "4 eps relative", atol=4 * EPS["float64"])
+    sample_check("sign vs NumPy", torch.view_as_real(got[:ns].cpu()),
+                 np.stack([np.sign(zs).real, np.sign(zs).imag], -1),
+                 4 * EPS["float64"], "4 eps", atol=4 * EPS["float64"])
+    del got, plain
+    got = timed("var z 2^26 c128", lambda: rt.var(z), cb)
+    m = z_t.mean()
+    plain = ((z_t - m).real ** 2 + (z_t - m).imag ** 2).mean()
+    check_sums("var vs mean |z - mean|^2", got, plain,
+               sum_bound(64, "float64", float(plain) * nc), "a sum's depth")
+    check_close("var vs NumPy (2^20 sample)",
+                torch.as_tensor(float(rt.var(rt.fromarray(zs))._value())),
+                torch.as_tensor(float(np.var(zs))), 1e-12,
+                "sums of 2^20 terms in two orders")
+    del got, plain
+    got = timed("less z < w 2^26 c128", lambda: rt.less(z, w), 2 * cb + nc)
+    plain = torch.where(z_t.real == w_t.real, z_t.imag < w_t.imag,
+                        z_t.real < w_t.real)
+    check_exact("less vs lexicographic compare", got, plain,
+                "real parts, then imaginary")
+    sample_check("less vs NumPy", got[:ns].cpu(), np.less(zs, ws), 0.0,
+                 "NumPy orders complex lexicographically")
+    del got, plain
+    got = timed("max z 2^26 c128", lambda: rt.max(z), cb)
+    top = z_t.real.max()
+    plain = z_t[z_t.real == top][z_t[z_t.real == top].imag.argmax()]
+    check_exact("max vs lexicographic max", got.reshape(1), plain.reshape(1),
+                "one element selected")
+    check_exact("max vs NumPy (2^20 sample)",
+                rt.max(rt.fromarray(zs))._value().cpu().reshape(1),
+                torch.as_tensor(np.max(zs)).reshape(1), "lexicographic")
+    got = timed("sort z 2^26 c128", lambda: rt.sort(z), 4 * cb)
+    first = torch.sort(z_t.imag, stable=True).indices
+    second = torch.sort(z_t.real[first], stable=True).indices
+    check_exact("sort vs two stable passes", torch.view_as_real(got),
+                torch.view_as_real(z_t[first[second]]), "the same order")
+    check_exact("sort vs NumPy (2^20 sample)",
+                torch.view_as_real(rt.sort(rt.fromarray(zs))._value().cpu()),
+                torch.view_as_real(torch.as_tensor(np.sort(zs))),
+                "lexicographic")
+    del got, first, second, z, w, z_t, w_t
+    torch.cuda.empty_cache()
+
+    # -- extras ---------------------------------------------------------------
+    n = 1 << 28
+    x_t = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    x_t[::16] = float("nan")
+    x = rt.fromarray(x_t)
+    for name in ("nancumsum", "nancumprod"):
+        src = x_t if name == "nancumsum" else 1 + x_t * 1e-9
+        arr = rt.fromarray(src)
+        got = timed(f"{name} 2^28 f64 (NaN every 16th)",
+                    lambda: getattr(rt, name)(arr), 2 * n * 8,
+                    need={"scan": 1})
+        fill = 0.0 if name == "nancumsum" else 1.0
+        plain = sc.scan_reference(torch.where(torch.isnan(src),
+                                              torch.full_like(src, fill), src),
+                                  name[3:], 0)
+        if not bytes_equal(got, plain):
+            raise Fail(f"{name}: the scan's bytes differ from its plain "
+                       "version's")
+        log(f"  {name}: bytes equal to the scan's plain version (a NaN-to-"
+            f"{fill:g} select, then the fixed-order scan) ok")
+        del got, plain, arr, src
+    torch.cuda.empty_cache()
+    xf = torch.nan_to_num(x_t, nan=0.5)
+    xfr = rt.fromarray(xf)
+    hundred = torch.full((), 100.0, dtype=torch.float64, device=dev)
+    reached = {}
+    for name, fn, plain_fn, moved in (
+            ("diff", lambda: rt.diff(xfr), lambda: xf[1:] - xf[:-1], 3 * n * 8),
+            ("nan_to_num", lambda: rt.nan_to_num(x),
+             lambda: torch.nan_to_num(x_t), 2 * n * 8),
+            ("fix", lambda: rt.fix(xfr), lambda: torch.trunc(xf), 2 * n * 8),
+            # a divisor on the card: torch divides by a python scalar as a
+            # product with its reciprocal, which is not correctly rounded
+            ("around(2)", lambda: rt.around(xfr, 2),
+             lambda: torch.round(xf * hundred) / hundred, 2 * n * 8)):
+        got = timed(f"{name} 2^28 f64", fn, moved)
+        reached[name] = er.launches > 0  # the warm window's count
+        check_exact(f"{name} vs torch", got, plain_fn(), "the same ops")
+        del got
+    got = timed("trapezoid 2^28 f64", lambda: rt.trapezoid(xfr), n * 8)
+    plain = 0.5 * (xf[1:] + xf[:-1]).sum()
+    check_sums("trapezoid vs 0.5 * sum(y[1:] + y[:-1])", got, plain,
+               sum_bound(64, "float64", 2 * float(xf.abs().sum())),
+               "a sum's depth")
+    log(f"  extras on elemred (one program of maps over a 1-D operand, when "
+        f"the classifier takes it): {reached} [{card}]")
+    del x, x_t, xfr, got, plain
+    torch.cuda.empty_cache()
+
+    edges_t = torch.sort(torch.randn(1 << 24, generator=gen, device=dev,
+                                     dtype=torch.float64)).values
+    q_t = torch.randn(1 << 26, generator=gen, device=dev, dtype=torch.float64)
+    edges, q = rt.fromarray(edges_t), rt.fromarray(q_t)
+    qb = (1 << 26) * 12 + (1 << 24) * 8
+    got = timed("searchsorted 2^26 queries into 2^24 edges f64",
+                lambda: rt.searchsorted(edges, q), qb)
+    check_exact("searchsorted vs torch.searchsorted",
+                got, torch.searchsorted(edges_t, q_t).to(torch.int32),
+                "int32, as ramba_tpu")
+    got = timed("digitize 2^26 into 2^24 bins f64",
+                lambda: rt.digitize(q, edges), qb)
+    check_exact("digitize vs torch.searchsorted(right)", got,
+                torch.searchsorted(edges_t, q_t, right=True).to(torch.int32),
+                "increasing bins")
+    del got, edges, q, edges_t, q_t
+    e_t = torch.randint(0, 1 << 30, (1 << 26,), generator=gen, device=dev)
+    t_t = torch.randint(0, 1 << 30, (1 << 20,), generator=gen, device=dev)
+    t_t[: 1 << 16] = e_t[: 1 << 16]
+    got = timed("isin 2^26 int64 in 2^20", lambda: rt.isin(rt.fromarray(e_t),
+                                                          rt.fromarray(t_t)),
+                (1 << 26) * 9 + (1 << 20) * 8)
+    check_exact("isin vs torch.isin", got, torch.isin(e_t, t_t), "bools")
+    del got, e_t, t_t
+    xp_t = torch.sort(torch.rand(1 << 20, generator=gen, device=dev,
+                                 dtype=torch.float64)).values
+    fp_t = torch.sin(xp_t * 20)
+    xi_t = torch.rand(1 << 26, generator=gen, device=dev, dtype=torch.float64)
+    got = timed("interp 2^26 points on 2^20 knots f64",
+                lambda: rt.interp(rt.fromarray(xi_t), rt.fromarray(xp_t),
+                                  rt.fromarray(fp_t)),
+                (1 << 26) * 16 + (1 << 20) * 16)
+    sample_check("interp vs NumPy (2^20 sample)", got[:ns].cpu(),
+                 np.interp(xi_t[:ns].cpu().numpy(), xp_t.cpu().numpy(),
+                           fp_t.cpu().numpy()),
+                 0.0, "8 eps of max|fp|", atol=8 * EPS["float64"])
+    del got, xp_t, fp_t, xi_t
+    a32 = torch.randn(1 << 26, generator=gen, device=dev)
+    v32 = torch.randn(255, generator=gen, device=dev)
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # the port turns it off itself
+    got = timed("convolve 2^26 f32 with 255 taps",
+                lambda: rt.convolve(rt.fromarray(a32), rt.fromarray(v32)),
+                (1 << 26) * 8, flops=2 * 255 * ((1 << 26) + 254))
+    torch.backends.cudnn.allow_tf32 = flag
+    ref64 = rt.convolve(rt.fromarray(a32.double()),
+                        rt.fromarray(v32.double()))._value()
+    bound = 255 * EPS["float32"] * float(a32.abs().max()) * \
+        float(v32.abs().sum())
+    check_close("convolve f32 vs its float64 run", got.double(), ref64, 0.0,
+                "255 * eps32 * max|a| * sum|v| (TF32 would be 2^13 x that)",
+                atol=bound)
+    lib = cuda_ms(lambda: torch.nn.functional.conv1d(
+        a32[None, None], v32.flip(0)[None, None], padding=254), 3)
+    log(f"  convolve library call conv1d {lib:.4f} ms [{card}]")
+    del got, ref64, a32, v32
+    torch.cuda.empty_cache()
+    qx_t = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    qx = rt.fromarray(qx_t)
+    got = timed("quantile(0.1, 0.5, 0.9) 2^28 f64",
+                lambda: rt.quantile(qx, [0.1, 0.5, 0.9]), 2 * n * 8)
+    s_t = torch.sort(qx_t).values
+    pos = torch.tensor([0.1, 0.5, 0.9], dtype=torch.float64,
+                       device=dev) * (n - 1)
+    lo, hi = torch.floor(pos), torch.ceil(pos)
+    plain = s_t[lo.long()] * (1 - (pos - lo)) + s_t[hi.long()] * (pos - lo)
+    check_close("quantile vs sort and interpolate", got, plain,
+                2 * EPS["float64"], "the same sort; 2 eps")
+    qx_t[::7] = float("nan")
+    qxn = rt.fromarray(qx_t)
+    got = timed("nanquantile(0.5) 2^28 f64 (NaN every 7th)",
+                lambda: rt.nanquantile(qxn, 0.5), 2 * n * 8)
+    valid = qx_t[~torch.isnan(qx_t)]
+    sv = torch.sort(valid).values
+    p = 0.5 * (valid.numel() - 1)
+    plain = sv[int(np.floor(p))] * (1 - (p - np.floor(p))) + \
+        sv[int(np.ceil(p))] * (p - np.floor(p))
+    check_close("nanquantile vs sort of the non-NaN", got.reshape(1),
+                plain.reshape(1), 2 * EPS["float64"], "2 eps")
+    del got, s_t, plain, qx, qxn, qx_t, valid, sv
+    torch.cuda.empty_cache()
+    lab_t = torch.randint(0, 4096, (n,), generator=gen, device=dev)
+    wt_t = torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
+    lab, wt = rt.fromarray(lab_t), rt.fromarray(wt_t)
+    r1 = timed("weighted bincount 2^28 labels into 4096 bins f64",
+               lambda: rt.bincount(lab, weights=wt), n * 16 + 4096 * 8)
+    r2 = rt.bincount(lab, weights=wt)._value()
+    if not bytes_equal(r1, r2):
+        raise Fail("weighted bincount reruns differ")
+    plain = torch.zeros(4096, dtype=torch.float64, device=dev)
+    plain.index_add_(0, lab_t, wt_t)
+    check_sums("weighted bincount vs index_add_", r1, plain,
+               sum_bound(1 << 16, "float64", float(wt_t.sum())),
+               "sequential per-bin sums of up to ~2^16 terms")
+    log(f"  weighted bincount: two runs byte-equal (a stable sort by label, "
+        f"then one sum per label) [{card}]")
+    del r1, r2, plain, lab, wt, lab_t, wt_t
+    torch.cuda.empty_cache()
+    u_t = torch.randint(0, 1 << 20, (n,), generator=gen, device=dev)
+    u = rt.fromarray(u_t)
+    t0 = time.perf_counter()
+    vals, counts = rt.unique(u, return_counts=True)
+    wall = time.perf_counter() - t0
+    plain_v, plain_c = torch.unique(u_t, return_counts=True)
+    if not (np.array_equal(vals, plain_v.cpu().numpy())
+            and np.array_equal(counts, plain_c.cpu().numpy())):
+        raise Fail("unique disagrees with torch.unique")
+    log(f"  unique 2^28 int64 (2^20 distinct), a host boundary: copied "
+        f"{n * 8 / 1e9:.3f} GB to the host, wall {wall:.4f} s, values and "
+        f"counts equal torch.unique's (exact) ok [{card}]")
+    del u, u_t, plain_v, plain_c, vals, counts
+    torch.cuda.empty_cache()
+    cm_t = torch.randn(64, 1 << 22, generator=gen, device=dev,
+                       dtype=torch.float64)
+    got = timed("cov (64, 2^22) f64", lambda: rt.cov(rt.fromarray(cm_t)),
+                64 * (1 << 22) * 8, flops=2 * 64 * 64 * (1 << 22))
+    check_close("cov vs torch.cov", got, torch.cov(cm_t), 0.0,
+                "two 2^22-term dot products over N - 1: 2 * 10 sqrt(K) eps "
+                "max|x|^2 (Higham and Mary's probabilistic bound)",
+                atol=2 * 10 * (1 << 11) * EPS["float64"]
+                * float(cm_t.abs().max()) ** 2)
+    del got, cm_t
+    torch.cuda.empty_cache()
+
+    # -- fft ------------------------------------------------------------------
+    c_fft = 4  # the round trip's error: c * log2(n) * eps * max|x|
+    nf = 1 << 27
+    f_t = torch.complex(torch.randn(nf, generator=gen, device=dev,
+                                    dtype=torch.float64),
+                        torch.randn(nf, generator=gen, device=dev,
+                                    dtype=torch.float64))
+    f = rt.fromarray(f_t)
+    got = timed("fft + ifft 2^27 c128", lambda: rt.fft.ifft(rt.fft.fft(f)),
+                4 * nf * 16, flops=2 * 5 * nf * 27)
+    check_close("ifft(fft(x)) vs x", torch.view_as_real(got),
+                torch.view_as_real(f_t), 0.0,
+                f"c * log2(n) * eps * max|x|, c = {c_fft}",
+                atol=c_fft * 27 * EPS["float64"] * float(f_t.abs().max()))
+    del got, f, f_t
+    r_t = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    r = rt.fromarray(r_t)
+    got = timed("rfft + irfft 2^28 f64",
+                lambda: rt.fft.irfft(rt.fft.rfft(r), n=n),
+                2 * n * 8 + 2 * (n // 2 + 1) * 16, flops=2 * 2.5 * n * 28)
+    check_close("irfft(rfft(x)) vs x", got, r_t, 0.0,
+                f"c * log2(n) * eps * max|x|, c = {c_fft}",
+                atol=c_fft * 28 * EPS["float64"] * float(r_t.abs().max()))
+    del got, r, r_t
+    torch.cuda.empty_cache()
+    m2 = 16384
+    g_t = torch.complex(torch.randn(m2, m2, generator=gen, device=dev),
+                        torch.randn(m2, m2, generator=gen, device=dev))
+    g2 = rt.fromarray(g_t)
+    got = timed("fft2 16384^2 c64", lambda: rt.fft.fft2(g2),
+                2 * m2 * m2 * 8, flops=5 * m2 * m2 * 28)
+    lib = cuda_ms(lambda: torch.fft.fft2(g_t), 2)
+    back = rt.fft.ifft2(rt.fromarray(got))._value()
+    check_close("ifft2(fft2(x)) vs x", torch.view_as_real(back),
+                torch.view_as_real(g_t), 0.0,
+                f"c * log2(n) * eps * max|x|, c = {c_fft}",
+                atol=c_fft * 28 * EPS["float32"] * float(g_t.abs().max()))
+    log(f"  fft2 library call torch.fft.fft2 {lib:.4f} ms [{card}]")
+    got = timed("fftshift 16384^2 c64", lambda: rt.fft.fftshift(g2),
+                2 * m2 * m2 * 8)
+    check_exact("fftshift vs torch.fft.fftshift", torch.view_as_real(got),
+                torch.view_as_real(torch.fft.fftshift(g_t)), "a roll")
+    del got, back, g2, g_t
+    torch.cuda.empty_cache()
+
+    # -- linalg ---------------------------------------------------------------
+    def resid(what, r, bound, reason):
+        ok = bool(r <= bound)
+        log(f"  {what}: residual {r:.3e} (bound {bound:.3e}: {reason}) "
+            f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            raise Fail(f"{what}: residual beyond its bound")
+
+    N8 = 8192
+    eps = EPS["float64"]
+    A_t = torch.eye(N8, device=dev, dtype=torch.float64) + 0.25 / N8 ** 0.5 * \
+        torch.randn(N8, N8, generator=gen, device=dev, dtype=torch.float64)
+    b_t = torch.randn(N8, generator=gen, device=dev, dtype=torch.float64)
+    A, b = rt.fromarray(A_t), rt.fromarray(b_t)
+    anorm = float(torch.linalg.matrix_norm(A_t, ord=2))
+    got = timed("solve 8192^2 f64", lambda: rt.linalg.solve(A, b),
+                N8 * N8 * 8, flops=2 / 3 * N8 ** 3, warm=False)
+    resid("solve |Ax - b| / (|A| |x|)",
+          float(torch.linalg.vector_norm(A_t @ got - b_t)) /
+          (anorm * float(torch.linalg.vector_norm(got))), 8 * N8 * eps,
+          "8 n eps (backward stable)")
+    got = timed("inv 8192^2 f64", lambda: rt.linalg.inv(A), 2 * N8 * N8 * 8,
+                flops=2 * N8 ** 3, warm=False)
+    resid("inv |A inv(A) - I|", float((A_t @ got - torch.eye(
+        N8, device=dev, dtype=torch.float64)).abs().max()), 8 * N8 * eps * 4,
+        "8 n eps cond(A), cond(A) <= 4")
+    del got
+    d = timed("det 8192^2 f64", lambda: rt.linalg.det(A), N8 * N8 * 8,
+              flops=2 / 3 * N8 ** 3, warm=False)
+    sign_, logabs = rt.linalg.slogdet(A)
+    sign_v, logabs_v = float(sign_), float(logabs)
+    lib_s, lib_l = torch.linalg.slogdet(A_t)
+    check_close("slogdet vs torch.linalg.slogdet",
+                torch.tensor([sign_v, logabs_v]),
+                torch.tensor([float(lib_s), float(lib_l)]), 0.0,
+                "8 n eps", atol=8 * N8 * eps)
+    check_close("det vs sign * exp(logabsdet)", d.reshape(1).cpu(),
+                torch.tensor([sign_v * np.exp(logabs_v)], dtype=torch.float64),
+                8 * N8 * eps, "8 n eps relative")
+    B_t = torch.randn(N8, N8, generator=gen, device=dev, dtype=torch.float64)
+    S_t = B_t @ B_t.T / N8 + torch.eye(N8, device=dev, dtype=torch.float64)
+    del B_t
+    S = rt.fromarray(S_t)
+    L = timed("cholesky 8192^2 f64", lambda: rt.linalg.cholesky(S),
+              2 * N8 * N8 * 8, flops=N8 ** 3 / 3, warm=False)
+    resid("cholesky |L L^T - A| / |A|", float((L @ L.T - S_t).abs().max()) /
+          float(S_t.abs().max()), 8 * N8 * eps, "8 n eps")
+    del L, S, S_t, A, A_t, b, b_t, d
+    torch.cuda.empty_cache()
+    N4 = 4096
+    M_t = torch.randn(N4, N4, generator=gen, device=dev, dtype=torch.float64)
+    M = rt.fromarray(M_t)
+    mnorm = float(M_t.abs().max())
+    eye4 = torch.eye(N4, device=dev, dtype=torch.float64)
+
+    def qr():
+        q_, r_ = rt.linalg.qr(M)
+        return torch.stack([q_._value(), r_._value()])
+
+    qr_v = timed("qr 4096^2 f64 (Q and R, one factorization)", qr,
+                 3 * N4 * N4 * 8, flops=4 / 3 * N4 ** 3 * 2, warm=False)
+    q_, r_ = qr_v[0], qr_v[1]
+    resid("qr |A - QR| / |A|", float((q_ @ r_ - M_t).abs().max()) / mnorm,
+          8 * N4 * eps, "8 n eps")
+    resid("qr |Q^T Q - I|", float((q_.T @ q_ - eye4).abs().max()),
+          8 * N4 * eps, "8 n eps")
+    del qr_v, q_, r_
+
+    def svd():
+        u_, s_, vh_ = rt.linalg.svd(M)
+        return u_._value(), s_._value(), vh_._value()
+
+    u_, s_, vh_ = timed("svd 4096^2 f64 (U, S, Vh, one factorization)", svd,
+                        3 * N4 * N4 * 8, flops=22 * N4 ** 3, warm=False)
+    resid("svd |A - U S Vh| / |A|",
+          float(((u_ * s_) @ vh_ - M_t).abs().max()) / mnorm, 8 * N4 * eps,
+          "8 n eps")
+    resid("svd |U^T U - I|", float((u_.T @ u_ - eye4).abs().max()),
+          8 * N4 * eps, "8 n eps")
+    del u_, vh_
+    H_t = (M_t + M_t.T) / 2
+    H = rt.fromarray(H_t)
+
+    def eigh():
+        w_, v_ = rt.linalg.eigh(H)
+        return w_._value(), v_._value()
+
+    w_, v_ = timed("eigh 4096^2 f64", eigh, 2 * N4 * N4 * 8,
+                   flops=9 * N4 ** 3, warm=False)
+    resid("eigh |A - V W V^T| / |A|",
+          float(((v_ * w_) @ v_.T - H_t).abs().max()) /
+          float(H_t.abs().max()), 8 * N4 * eps, "8 n eps")
+    resid("eigh |V^T V - I|", float((v_.T @ v_ - eye4).abs().max()),
+          8 * N4 * eps, "8 n eps")
+    del w_, v_, H, H_t
+    P = timed("pinv 4096^2 f64", lambda: rt.linalg.pinv(M), 2 * N4 * N4 * 8,
+              flops=24 * N4 ** 3, warm=False)
+    cond = float(s_[0] / s_[-1])
+    resid("pinv |A pinv(A) A - A| / |A|",
+          float((M_t @ P @ M_t - M_t).abs().max()) / mnorm,
+          8 * N4 * eps * cond, f"8 n eps cond(A), cond(A) = {cond:.3e}")
+    del P
+    rank = timed("matrix_rank 4096^2 f64", lambda: rt.linalg.matrix_rank(M),
+                 N4 * N4 * 8, flops=4 * N4 ** 3, warm=False)
+    tol = float(s_.max()) * N4 * eps
+    want_rank = int((s_ > tol).sum())
+    if int(rank) != want_rank:
+        raise Fail(f"matrix_rank {int(rank)} vs {want_rank}")
+    log(f"  matrix_rank {int(rank)} = #(S > S.max * n * eps) (exact) ok")
+    del M, M_t, s_, eye4
+    torch.cuda.empty_cache()
+    nv_t = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    got = timed("norm 2^28 f64", lambda: rt.linalg.norm(rt.fromarray(nv_t)),
+                n * 8)
+    check_close("norm vs sqrt(sum x^2)", got.reshape(1),
+                (nv_t * nv_t).sum().sqrt().reshape(1), 64 * EPS["float64"],
+                "a sum's depth, relative")
+    del nv_t, got
+    e_np = np.random.RandomState(7).rand(1024, 1024)
+    e_rt = rt.fromarray(e_np)
+    t0 = time.perf_counter()
+    wv, _vv = rt.linalg.eig(e_rt)
+    x_ls = rt.linalg.lstsq(e_rt, e_rt[:, 0])[0]
+    wall = time.perf_counter() - t0
+    if not (np.allclose(np.sort_complex(wv), np.sort_complex(
+            np.linalg.eigvals(e_np)), rtol=1e-9, atol=1e-9)
+            and np.allclose(x_ls, np.linalg.lstsq(e_np, e_np[:, 0],
+                                                  rcond=None)[0])):
+        raise Fail("eig / lstsq disagree with NumPy")
+    log(f"  eig and lstsq 1024^2 f64, host boundaries: copied "
+        f"{3 * 1024 * 1024 * 8 / 1e6:.1f} MB to the host, wall {wall:.4f} s, "
+        f"equal NumPy's within 1e-9 ok [{card}]")
+
+    # -- creation -------------------------------------------------------------
+    E32 = 32768
+    got = timed("eye 32768^2 f32", lambda: rt.eye(E32, dtype=np.float32),
+                E32 * E32 * 4)
+    check_exact("eye vs torch.eye", got, torch.eye(E32, device=dev),
+                "zeros and ones")
+    del got
+    torch.cuda.empty_cache()
+    got = timed("mgrid[0:16384, 0:16384]", lambda: rt.mgrid[0:16384, 0:16384],
+                2 * 16384 * 16384 * 8)
+    ii, jj = torch.meshgrid(torch.arange(16384, device=dev),
+                            torch.arange(16384, device=dev), indexing="ij")
+    check_exact("mgrid vs torch.meshgrid(ij)", got, torch.stack([ii, jj]),
+                "int64 indices")
+    del got, ii, jj
+    gx = rt.arange(16384.0)
+    got = timed("meshgrid 2 x 16384 f64",
+                lambda: rt.stack(rt.meshgrid(gx, gx)),
+                2 * 16384 * 16384 * 8)
+    xx, yy = torch.meshgrid(torch.arange(16384.0, device=dev,
+                                         dtype=torch.float64),
+                            torch.arange(16384.0, device=dev,
+                                         dtype=torch.float64), indexing="xy")
+    check_exact("meshgrid vs torch.meshgrid(xy)", got, torch.stack([xx, yy]),
+                "copies")
+    del got, xx, yy
+    torch.cuda.empty_cache()
+    got = timed("logspace(0, 3, 2^28)", lambda: rt.logspace(0, 3, n), n * 8)
+    t = torch.arange(n, device=dev, dtype=torch.float64)
+    plain = 10.0 ** (t * (3.0 / (n - 1)))
+    plain[-1] = 1000.0
+    check_close("logspace vs 10 ** (start + step * i)", got, plain,
+                8 * EPS["float64"], "pow of the same exponents, 8 eps")
+    got = timed("geomspace(1, 2^20, 2^28)", lambda: rt.geomspace(1, 1 << 20, n),
+                n * 8)
+    plain = 10.0 ** (t * (np.log10(1 << 20) / (n - 1)))
+    check_close("geomspace vs 10 ** (log10 steps)", got, plain,
+                64 * EPS["float64"], "pow of exponents up to 6, 64 eps")
+    del got, plain, t
+    torch.cuda.empty_cache()
+
+    # -- the rewrites ----------------------------------------------------------
+    from ramba_tpu_torch import common as rt_common
+    from ramba_tpu_torch.core import rewrite
+
+    x_t, hour = hourly_series(torch, np, n)
+    x = rt.fromarray(x_t)
+    idx = [np.where(hour == g)[0] for g in range(24)]
+    gb_sum = x.groupby(0, hour, num_groups=24).sum()._value()
+    gb_max = x.groupby(0, hour, num_groups=24).max()._value()
+    for kind, want in (("sum", gb_sum), ("max", gb_max)):
+        fires = rewrite.stats["rewrite_stack_reduce_advindex"]
+        got = timed(f"stack([x[idx_g].{kind}() for 24 hours]) 2^28 f64",
+                    lambda kind=kind: rt.stack([getattr(x[i], kind)()
+                                                for i in idx]),
+                    n * 8 + n * 4, need={"segred": 1})
+        if rewrite.stats["rewrite_stack_reduce_advindex"] != fires + 2:
+            raise Fail(f"the {kind} stack did not take the rewrite (cold and "
+                       "warm)")
+        if kind == "sum":
+            check_sums("stack of group sums vs x.groupby(...).sum()", got,
+                       want, sum_bound(sg.depth(n), "float64",
+                                       float(x_t.abs().sum())),
+                       "segred's rounding depth")
+        else:
+            check_exact("stack of group maxima vs x.groupby(...).max()", got,
+                        want, "selection")
+    log(f"  rewrite_stack_reduce_advindex fired once per flush, each a "
+        f"segred launch [{card}]")
+    del x, x_t, idx, gb_sum, gb_max, hour
+    torch.cuda.empty_cache()
+    X_t = torch.rand(2048, 65536, generator=gen, device=dev)
+    month = np.random.RandomState(8).randint(0, 12, 65536)
+    cols = [np.where(month == g)[0] for g in range(12)]
+    M_t = torch.stack([X_t[:, torch.from_numpy(c).to(dev)].mean(1)
+                       for c in cols])
+    X, Mm = rt.fromarray(X_t), rt.fromarray(M_t)
+
+    def anomaly():
+        return rt.concatenate([X[:, c] - Mm[g][:, None]
+                               for g, c in enumerate(cols)], axis=1)
+
+    fires = rewrite.stats["rewrite_concat_binop_getitem"]
+    got = timed("anomaly concatenate([X[:, idx_g] - m[g][:, None]]) "
+                "(2048, 65536) f32", anomaly, 3 * 2048 * 65536 * 4)
+    if rewrite.stats["rewrite_concat_binop_getitem"] != fires + 2:
+        raise Fail("the anomaly idiom did not take the rewrite")
+    rt_common.rewrite_enabled = False
+    try:
+        plain = timed("anomaly without the rewrites (RAMBA_TPU_REWRITE off)",
+                      anomaly, 3 * 2048 * 65536 * 4, warm=False)
+    finally:
+        rt_common.rewrite_enabled = True
+    check_exact("anomaly rewritten vs not", got, plain, "gather and subtract")
+    if rewrite.stats["errors"]:
+        raise Fail(f"rewrite rules raised: {rewrite.errors}")
+    log(f"  rewrite.stats {dict(rewrite.stats)} (errors 0) ok [{card}]")
+    del got, plain, X, Mm, X_t, M_t
+    torch.cuda.empty_cache()
+
+    # -- the models -------------------------------------------------------------
+    from ramba_tpu_torch.models.kmeans import kmeans
+    from ramba_tpu_torch.models.pi import integrate_pi
+
+    def pi():
+        f0 = rt.fuser_stats["flushes"]
+        v = integrate_pi(1_000_000_000)
+        if rt.fuser_stats["flushes"] - f0 != 1:
+            raise Fail("integrate_pi did not run as one flush")
+        return torch.tensor(v, dtype=torch.float64)
+
+    # the sum's result is scaled by h in the same flush, so the program is
+    # not one elemred takes (a reduce result feeds a later instruction):
+    # the generic lowering runs it, as the launch counts show
+    v = timed("integrate_pi(1e9)", pi, 0, flops=6e9)
+    err = abs(float(v) - np.pi)
+    log(f"  integrate_pi(1e9) = {float(v)!r}, |pi - value| {err:.3e} (bound "
+        f"1e-12) {'ok' if err <= 1e-12 else 'MISS'}")
+    if err > 1e-12:
+        raise Fail("integrate_pi off pi")
+    kn, kd, kk = 1 << 24, 32, 64
+    cent = torch.randn(kk, kd, generator=gen, device=dev) * 50
+    lab = torch.randint(0, kk, (kn,), generator=gen, device=dev)
+    pts = cent[lab] + torch.randn(kn, kd, generator=gen, device=dev)
+    del lab, cent
+    pts_rt = rt.fromarray(pts)
+
+    def km():
+        c_, l_ = kmeans(pts_rt, k=kk, iters=10)
+        return torch.from_numpy(l_)
+
+    labels = timed("kmeans 2^24 x 32 f32, 64 clusters, 10 iterations", km,
+                   10 * kn * kd * 4 * 2, flops=10 * 2 * kn * kd * kk,
+                   warm=False)
+    # the plain run: the same algorithm in torch, the same first centroids
+    init = np.random.RandomState(0).choice(kn, size=kk, replace=False)
+    # (the same torch calls the port's ops make, so the same bytes: a
+    # batched product, then one masked sum per group)
+    c = pts[torch.from_numpy(init).to(dev)]
+    xsq = (pts * pts).sum(1)
+    for _ in range(10):
+        # float32 in the first step, float64 after (the counts are float64
+        # in the model, as NumPy promotes), the product in the wider dtype
+        cross = torch.matmul(pts.to(c.dtype).reshape(1, kn, kd),
+                             c.T.reshape(1, kd, kk)).reshape(kn, kk)
+        dist = xsq[:, None] - 2.0 * cross + (c * c).sum(1)[None, :]
+        lab_p = dist.argmin(1)
+        sums = torch.stack([torch.where((lab_p == g)[:, None], pts,
+                                        torch.zeros((), device=dev)).sum(0)
+                            for g in range(kk)])
+        cnt = torch.bincount(lab_p, minlength=kk).clamp(min=1)
+        c = sums.double() / cnt[:, None].double()
+    check_exact("kmeans labels vs its plain run", labels.to(dev),
+                lab_p, "separated clusters")
+    del pts, pts_rt, labels, lab_p, dist, xsq, c, sums
     torch.cuda.empty_cache()
 
 

@@ -37,8 +37,11 @@ from ramba_tpu_torch.core.interop import implements, isscalar, result_type  # no
 from ramba_tpu_torch.core.masked import MaskedArray  # noqa: F401
 from ramba_tpu_torch.core.ndarray import ndarray  # noqa: F401
 from ramba_tpu_torch.ops.creation import (  # noqa: F401
-    arange, array, asarray, copy, empty, empty_like, fromarray, fromfunction,
-    full, full_like, init_array, linspace, ones, ones_like, zeros, zeros_like,
+    arange, array, asarray, asarray_chkfinite, ascontiguousarray,
+    asfortranarray, c_, copy, empty, empty_like, eye, frombuffer, fromarray,
+    fromfunction, fromiter, fromstring, full, full_like, geomspace, identity,
+    indices, init_array, linspace, logspace, meshgrid, mgrid, ogrid, ones,
+    ones_like, r_, rollaxis, tri, zeros, zeros_like,
 )
 from ramba_tpu_torch.ops.elementwise import *  # noqa: F401,F403
 from ramba_tpu_torch.ops.elementwise import (  # noqa: F401
@@ -61,13 +64,96 @@ from ramba_tpu_torch.ops.reductions import (  # noqa: F401
     nanmedian, nanmin, nanprod, nanstd, nansum, nanvar, prod, ptp, std, sum,
     var,
 )
+from ramba_tpu_torch.ops.extras import (  # noqa: F401
+    append, apply_along_axis, apply_over_axes, argpartition, argwhere,
+    around, array_equiv, atleast_3d, bartlett, bincount, blackman, block,
+    broadcast_arrays, compress, convolve, copyto, corrcoef, correlate, cov,
+    cross, delete, diag_indices, diagonal, diff, digitize, divmod, dsplit,
+    ediff1d, extract, fill_diagonal, fix, flatnonzero, fliplr, flipud,
+    frexp, gradient, hamming, hanning, histogram, histogram2d, hsplit,
+    in1d, insert, interp, intersect1d, isin, ix_, kaiser, kron, lexsort,
+    modf, nan_to_num, nancumprod, nancumsum, nanpercentile, nanquantile,
+    nonzero, packbits, partition, percentile, piecewise, place, poly,
+    polyfit, polyval, put_along_axis, putmask, quantile, ravel_multi_index,
+    real_if_close, require, resize, roots, rot90, row_stack, searchsorted,
+    setdiff1d, setxor1d, sort_complex, take_along_axis, trapezoid, trapz,
+    tril_indices, tril_indices_from, trim_zeros, triu_indices,
+    triu_indices_from, union1d, unique, unpackbits, unravel_index, unwrap,
+    vander, vsplit,
+)
+from ramba_tpu_torch import fft  # noqa: F401
+from ramba_tpu_torch import linalg  # noqa: F401
 from ramba_tpu_torch.skeletons import (  # noqa: F401
     KernelTraceError, LocalView, SreduceReducer, barrier, scumulative, smap,
     smap_index, spmd, sreduce, sreduce_index, sstencil, sstencil_iterate,
     stencil, worker_id,
 )
 
+# -- NumPy's namespace constants and dtypes --------------------------------------
 newaxis = None
+pi = _np.pi
+e = _np.e
+inf = _np.inf
+nan = _np.nan
+euler_gamma = _np.euler_gamma
+
+bool_ = _np.bool_
+int8 = _np.int8
+int16 = _np.int16
+int32 = _np.int32
+int64 = _np.int64
+uint8 = _np.uint8
+uint16 = _np.uint16
+uint32 = _np.uint32
+uint64 = _np.uint64
+float16 = _np.float16
+float32 = _np.float32
+float64 = _np.float64
+complex64 = _np.complex64
+complex128 = _np.complex128
+dtype = _np.dtype
+try:
+    import ml_dtypes as _ml_dtypes
+
+    bfloat16 = _ml_dtypes.bfloat16
+except ImportError:  # pragma: no cover
+    pass
+
+float_ = _np.float64
+int_ = _np.int64
+
+byte = _np.byte
+ubyte = _np.ubyte
+short = _np.short
+ushort = _np.ushort
+intc = _np.intc
+uintc = _np.uintc
+uint = _np.uint
+longlong = _np.longlong
+ulonglong = _np.ulonglong
+half = _np.half
+single = _np.single
+double = _np.double
+longdouble = _np.longdouble
+csingle = _np.csingle
+cdouble = _np.cdouble
+clongdouble = _np.clongdouble
+iinfo = _np.iinfo
+finfo = _np.finfo
+
+# index, iteration, printing and dtype utilities over host values or
+# metadata: NumPy's own are exactly right
+s_ = _np.s_
+index_exp = _np.index_exp
+ndindex = _np.ndindex
+broadcast_shapes = _np.broadcast_shapes
+errstate = _np.errstate
+printoptions = _np.printoptions
+set_printoptions = _np.set_printoptions
+get_printoptions = _np.get_printoptions
+promote_types = _np.promote_types
+can_cast = _np.can_cast
+issubdtype = _np.issubdtype
 
 
 def shape(a):
@@ -85,8 +171,34 @@ def size(a, axis=None):
     return a.shape[axis] if axis is not None else a.size
 
 
-# The NumPy functions ``ramba_tpu`` dispatches; those the port has are
-# registered, the rest raise TypeError through NumPy.
+def _host(x):
+    return x.asarray() if isinstance(x, ndarray) else _np.asarray(x)
+
+
+def ndenumerate(arr):
+    return _np.ndenumerate(_host(arr))
+
+
+def array2string(a, *args, **kwargs):
+    return _np.array2string(_host(a), *args, **kwargs)
+
+
+def array_repr(arr, *args, **kwargs):
+    return _np.array_repr(_host(arr), *args, **kwargs)
+
+
+def array_str(a, *args, **kwargs):
+    return _np.array_str(_host(a), *args, **kwargs)
+
+
+def init():
+    """Explicit bring-up, for API parity: resolves the device now (the
+    card, or the CPU where asked for)."""
+    common.device()
+
+
+# The NumPy functions ``ramba_tpu`` dispatches (its whole list); those the
+# port has are registered, the rest raise TypeError through NumPy.
 _DISPATCHED = (
     "sum", "prod", "min", "max", "amin", "amax", "mean", "var", "std",
     "any", "all", "median", "argmin", "argmax", "nansum", "nanmean",
@@ -102,10 +214,29 @@ _DISPATCHED = (
     "dot", "matmul", "inner", "outer", "tensordot", "einsum", "trace",
     "vdot", "einsum_path", "zeros_like", "ones_like", "empty_like",
     "full_like", "copy", "asarray", "shape", "ndim", "size",
+    "rot90", "fliplr", "flipud", "atleast_3d", "fix", "around",
+    "nancumsum", "nancumprod", "quantile", "percentile", "nanquantile",
+    "nanpercentile", "take_along_axis", "diagonal", "trapezoid", "vander",
+    "polyval", "frexp", "broadcast_arrays", "vsplit", "hsplit", "dsplit",
+    "partition", "argpartition", "setxor1d", "array_equiv", "trim_zeros",
+    "resize", "poly", "polyfit", "roots", "real_if_close", "piecewise",
+    "apply_along_axis", "apply_over_axes", "fill_diagonal", "putmask",
+    "place", "put_along_axis", "diff", "gradient", "cross", "kron",
+    "searchsorted", "interp", "unwrap", "digitize", "bincount",
+    "histogram", "unique", "nonzero", "flatnonzero", "argwhere", "isin",
+    "in1d", "intersect1d", "union1d", "setdiff1d", "append", "insert",
+    "delete", "compress", "extract", "convolve", "correlate", "cov",
+    "corrcoef", "modf", "divmod", "nan_to_num", "ediff1d", "row_stack",
+    "array2string", "array_repr", "array_str", "logspace", "geomspace",
+    "ascontiguousarray", "asfortranarray", "rollaxis", "histogram2d",
+    "lexsort", "sort_complex", "block", "copyto", "require", "packbits",
+    "unpackbits",
 )
 
 
 def _register_numpy_dispatch():
+    import inspect
+
     from ramba_tpu_torch.core.interop import HANDLED_FUNCTIONS
 
     mod = globals()
@@ -114,6 +245,17 @@ def _register_numpy_dispatch():
         ours = mod.get(n)
         if np_fn is not None and ours is not None:
             HANDLED_FUNCTIONS[np_fn] = ours
+    # np.linalg.<fn> and np.fft.<fn> of port arrays run the submodules'
+    # functions (those each defines itself, no re-exports or classes)
+    for sub, np_sub in ((linalg, _np.linalg), (fft, _np.fft)):
+        for n in dir(sub):
+            ours = getattr(sub, n)
+            if n.startswith("_") or not inspect.isfunction(ours) or \
+                    ours.__module__ != sub.__name__:
+                continue
+            np_fn = getattr(np_sub, n, None)
+            if callable(np_fn):
+                HANDLED_FUNCTIONS[np_fn] = ours
 
 
 _register_numpy_dispatch()

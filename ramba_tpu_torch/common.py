@@ -16,6 +16,13 @@ import os
 import torch
 
 
+def _env_flag(name: str, default: bool = False) -> bool:
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.strip().lower() not in ("0", "", "false", "no", "off")
+
+
 def _env_int(name: str, default: int) -> int:
     try:
         return int(os.environ.get(name, default))
@@ -25,6 +32,10 @@ def _env_int(name: str, default: int) -> int:
 
 # Max pending lazy ops before a forced flush (bounds host-side graph memory).
 max_pending_ops = _env_int("RAMBA_TPU_MAX_PENDING", 10_000)
+
+# Pattern rewrites of the lazy graph at every flush (core/rewrite.py); on
+# by default, as in ramba_tpu (RAMBA_TPU_REWRITE=0 turns them off).
+rewrite_enabled = _env_flag("RAMBA_TPU_REWRITE", True)
 
 _device: "torch.device | None" = None
 

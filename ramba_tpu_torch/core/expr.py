@@ -113,12 +113,15 @@ class Expr:
 
 
 class Const(Expr):
-    """Leaf holding a concrete tensor."""
+    """Leaf holding a concrete tensor.  ``host`` keeps the NumPy array an
+    upload was made from (None otherwise), so graph rewrites can read
+    index constants without copying them back from the card."""
 
-    __slots__ = ("value",)
+    __slots__ = ("value", "host")
 
-    def __init__(self, value):
+    def __init__(self, value, host=None):
         self.value = value
+        self.host = host
         self.aval = aval_of(value)
 
 
@@ -151,21 +154,30 @@ def as_expr(x: Any) -> Expr:
     if isinstance(x, Expr):
         return x
     if isinstance(x, (bool, int, float, complex, np.bool_, np.integer,
-                      np.floating)):
+                      np.floating, np.complexfloating)):
         return Scalar(x)
     if isinstance(x, torch.Tensor):
         return Const(x)
     if isinstance(x, np.ndarray):
-        return Const(tensor_from_numpy(x))
+        if x.dtype.kind not in "iu":
+            return Const(tensor_from_numpy(x))
+        # an integer array may be an index: the rewrites read it, so the
+        # Const keeps the private copy the upload is made from (no op
+        # writes into a Const's value or host array)
+        a = np.array(x, copy=True, order="C")
+        return Const(tensor_from_numpy(a, copy=False), host=a)
     raise TypeError(f"cannot lift {type(x)} into an expression")
 
 
-def tensor_from_numpy(a: np.ndarray, dev=None) -> torch.Tensor:
+def tensor_from_numpy(a: np.ndarray, dev=None, copy=True) -> torch.Tensor:
     """Host array -> tensor on ``dev`` (default: the process device), dtype
-    kept exactly; bfloat16 goes through its uint16 bit pattern."""
+    kept exactly; bfloat16 goes through its uint16 bit pattern.
+    ``copy=False``: ``a`` is already a private C-ordered copy (on the CPU
+    the tensor then shares its memory)."""
     # a copy, as NumPy's array() makes: the array never aliases the
     # caller's buffer (on the CPU ``to`` alone would)
-    a = np.array(a, copy=True, order="C")
+    if copy:
+        a = np.array(a, copy=True, order="C")
     if is_bf16(a.dtype):
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
@@ -214,6 +226,10 @@ def _loop_dtypes(fname: str, avals: tuple):
     try:
         loop = uf.resolve_dtypes(tuple(_rule_arg(a) for a in avals) + (None,))
     except Exception as e:
+        if fname in _JNP_COMPLEX and any(a.dtype.kind == "c" for a in avals):
+            # NumPy has no complex loop; jnp computes in the complex dtype
+            dt = np.result_type(*[_rule_arg(a) for a in avals])
+            return (dt,) * (len(avals) + 1)
         raise TypeError(
             f"no numpy loop for {fname} on {[str(a.dtype) for a in avals]}"
         ) from e
@@ -224,6 +240,11 @@ def _loop_dtypes(fname: str, avals: tuple):
 
 
 _FLOAT_ONLY = frozenset({"sinc", "i0", "angle"})
+# ufuncs NumPy refuses on complex values that jnp computes all the same
+_JNP_COMPLEX = frozenset({"arctan2", "deg2rad", "degrees", "rad2deg",
+                          "radians", "logaddexp", "logaddexp2"})
+# maps whose complex operand keeps its dtype and whose result is real
+_COMPLEX_TO_REAL = frozenset({"real", "imag", "angle"})
 
 
 def map_dtypes(fname: str, avals: Sequence[Aval]):
@@ -238,13 +259,14 @@ def map_dtypes(fname: str, avals: Sequence[Aval]):
         return loop[:-1], loop[-1]
     # the few MAPFN entries that are not numpy ufuncs
     dt = np.result_type(*[_rule_arg(a) for a in avals])
+    if fname in _COMPLEX_TO_REAL and dt.kind == "c":
+        # computed on the complex value, the result in its real width
+        return (dt,), np.dtype(np.float64 if dt.itemsize == 16 else np.float32)
     if fname in _FLOAT_ONLY and dt.kind not in "fc":
         # jnp's inexact promotion: float64 for 64-bit integers and for
         # angle, float32 below that
         wide = fname == "angle" or dt.itemsize == 8
         dt = np.dtype(np.float64 if wide else np.float32)
-    if fname in ("real", "imag") and dt.kind == "c":
-        dt = np.dtype(np.float64 if dt.itemsize == 16 else np.float32)
     return tuple(dt for _ in avals), dt
 
 
@@ -263,6 +285,8 @@ NAN_PLAIN = {"nansum": "sum", "nanprod": "prod", "nanmin": "min",
 _INEXACT_RED = frozenset({"mean", "var", "std", "nanmean", "nanvar", "nanstd",
                           "median", "nanmedian"})
 _ARG_RED = frozenset({"argmin", "argmax", "nanargmin", "nanargmax"})
+# the spreads of a complex value are real: var/std of |x - mean|
+_REAL_RED = frozenset({"var", "std", "nanvar", "nanstd"})
 _INDEX_RED = _ARG_RED | {"count_nonzero"}
 
 
@@ -274,6 +298,9 @@ def reduce_dtype(fname: str, dt: np.dtype) -> np.dtype:
     count_nonzero give int64; any/all give bool; min/max/ptp keep the
     dtype (ptp refuses bool, whose subtraction jnp rejects)."""
     dt = np.dtype(dt)
+    if dt.kind == "c" and fname in ("median", "nanmedian"):
+        raise ValueError("quantile does not support complex input, as the "
+                         "operation is poorly defined.")
     if fname in ("any", "all"):
         return np.dtype(bool)
     if fname in ("sum", "prod", "nansum", "nanprod"):
@@ -285,7 +312,12 @@ def reduce_dtype(fname: str, dt: np.dtype) -> np.dtype:
     if fname in _INEXACT_RED:
         if dt.kind in "biu":
             return np.dtype(np.float64 if dt.itemsize == 8 else np.float32)
+        if dt.kind == "c" and fname in _REAL_RED:
+            return np.dtype(np.float64 if dt.itemsize == 16 else np.float32)
         return dt
+    if dt.kind == "c" and fname in _ARG_RED:
+        raise TypeError(f"{fname}: complex values have no order to take the "
+                        "index of (as jnp's lt/gt)")
     if fname in _INDEX_RED:
         return np.dtype(np.int64)
     if fname == "ptp" and dt.kind == "b":
@@ -337,6 +369,12 @@ def _aval_cast(static, x):
 
 @_rule("round")
 def _aval_round(static, x):
+    # jnp.round refuses bools, and integers to negative decimals
+    if x.dtype.kind == "b":
+        raise ValueError("round: the dtype bool is not accepted")
+    if x.dtype.kind in "iu" and int(static[0]) < 0:
+        raise NotImplementedError("integer np.round not implemented for "
+                                  "decimals < 0")
     return Aval(x.shape, x.dtype, x.weak)
 
 
@@ -463,6 +501,8 @@ def defop(name: str, aval_rule: Callable = None) -> Callable[[Callable], Callabl
 
 
 def _sign(x):
+    if x.is_complex():
+        return _complex_sign(x)
     s = torch.sign(x)
     if not x.is_floating_point():
         return s
@@ -483,6 +523,11 @@ def _cbrt(x):
 
 
 def _absolute(x):
+    if x.is_complex():
+        # XLA: a NaN part makes the modulus NaN (hypot would give inf
+        # beside an infinite part)
+        r = torch.abs(x)
+        return torch.where(torch.isnan(x), torch.full_like(r, float("nan")), r)
     return x if x.dtype == torch.bool else torch.abs(x)
 
 
@@ -492,6 +537,120 @@ def _invert(x):
 
 def _imag(x):
     return torch.imag(x) if x.is_complex() else torch.zeros_like(x)
+
+
+def _real(x):
+    return torch.real(x) if x.is_complex() else x
+
+
+# -- complex values --------------------------------------------------------------
+# ramba_tpu computes complex ops with jnp/XLA, whose rules differ from
+# torch's: ordering is lexicographic (real parts, then imaginary parts where
+# the real parts are equal; a comparison with a NaN part is false), sign is
+# x/|x|, 0**0 is 1, rint rounds each part, and the few ufuncs NumPy has no
+# complex loop for (arctan2, the degree conversions, logaddexp) still
+# compute, by jnp's formulas.
+
+
+def _complex_or(complex_fn, real_fn):
+    """``complex_fn`` where the (first) operand is complex, ``real_fn``
+    elsewhere."""
+    def op(*args):
+        return complex_fn(*args) if args[0].is_complex() else real_fn(*args)
+    return op
+
+
+def lex_compare(cmp, a, b):
+    """``cmp`` (torch.lt, torch.le, torch.gt or torch.ge) of complex values
+    in jnp's lexicographic order."""
+    return torch.where(a.real == b.real, cmp(a.imag, b.imag),
+                       cmp(a.real, b.real))
+
+
+def _lex(cmp):
+    return _complex_or(lambda a, b: lex_compare(cmp, a, b), cmp)
+
+
+def _lex_select(cmp, skip_nan=False):
+    """maximum/minimum of complex values: ``b`` unless ``a`` is strictly
+    beyond it, as XLA selects; fmax/fmin (``skip_nan``) take ``a`` also
+    where ``b`` has a NaN part."""
+    def op(a, b):
+        take_a = lex_compare(cmp, a, b)
+        if skip_nan:
+            take_a = take_a | torch.isnan(b)
+        return torch.where(take_a, a, b)
+    return op
+
+
+def _complex_sign(x):
+    a = torch.abs(x)
+    return torch.where(x == 0, x, torch.complex(x.real / a, x.imag / a))
+
+
+def _complex_rint(x):
+    return torch.complex(torch.round(x.real), torch.round(x.imag))
+
+
+def _complex_pow(x, y):
+    """XLA's complex power, |x|**c * exp(-d arg x) * cis(c arg x +
+    d ln|x|), for x = a+bi, y = c+di, with x**0 = 1."""
+    a, b, c, d = x.real, x.imag, y.real, y.imag
+    aa_bb = a * a + b * b
+    arg = torch.atan2(b, a)
+    coeff = torch.exp(-d * arg) * torch.pow(aa_bb, c * 0.5)
+    q = d * torch.log(aa_bb) * 0.5 + c * arg
+    out = torch.complex(coeff * torch.cos(q), coeff * torch.sin(q))
+    # a real base of positive sign to a real power: the real pow
+    real = (b == 0) & (a >= 0) & (d == 0)
+    out = torch.where(real, torch.complex(torch.pow(a, c), torch.zeros_like(c)),
+                      out)
+    one = torch.ones((), dtype=out.dtype, device=out.device)
+    return torch.where(y == 0, one, out)
+
+
+def _partwise(fn):
+    """add/subtract of complex values part by part, as XLA does (torch
+    scales the second operand by a complex alpha of 1, which turns a NaN
+    or infinite part into NaN in the other part too)."""
+    return lambda a, b: torch.complex(fn(a.real, b.real), fn(a.imag, b.imag))
+
+
+def _times(factor):
+    """The degree conversions of complex values: jnp multiplies by the
+    constant as a complex number."""
+    return lambda x: x * torch.full((), complex(factor, 0.0), dtype=x.dtype,
+                                    device=x.device)
+
+
+def _wrap_between(x, a):
+    rem = torch.fmod(x + a, 2 * a)
+    rem = torch.where(rem < 0, rem + 2 * a, rem)
+    return rem - a
+
+
+def _complex_logaddexp(base2):
+    """jnp's complex logaddexp/logaddexp2: ``amax + log1p(exp(x1 + x2 -
+    2 amax))``, the imaginary part wrapped into [-pi, pi] (over ln 2 for
+    base 2)."""
+    def op(x1, x2):
+        amax = _lex_select(torch.gt)(x1, x2)
+        delta = (x1 + x2) - amax * 2
+        if base2:
+            out = amax + (1 / np.log(2)) * torch.log1p(torch.exp2(delta))
+            period = np.pi / np.log(2)
+        else:
+            out = amax + torch.log1p(torch.exp(delta))
+            period = np.pi
+        return torch.complex(out.real, _wrap_between(out.imag, period))
+    return op
+
+
+def _complex_atan2(y, x):
+    """XLA's complex atan2: -i log((x + iy) / sqrt(x**2 + y**2))."""
+    iy = torch.complex(-y.imag, y.real)
+    r = torch.log((x + iy) / torch.sqrt(x * x + y * y))
+    return torch.complex(r.imag, -r.real)
 
 
 UNARY: dict[str, Callable] = {
@@ -506,13 +665,16 @@ UNARY: dict[str, Callable] = {
     "sinh": torch.sinh, "cosh": torch.cosh, "tanh": torch.tanh,
     "arcsinh": torch.asinh, "arccosh": torch.acosh, "arctanh": torch.atanh,
     "floor": torch.floor, "ceil": torch.ceil, "trunc": torch.trunc,
-    "rint": torch.round,  # round half to even, as rint
+    # round half to even, as rint; complex values part by part
+    "rint": _complex_or(_complex_rint, torch.round),
     "isnan": torch.isnan, "isinf": torch.isinf, "isfinite": torch.isfinite,
     "logical_not": torch.logical_not, "invert": _invert,
     "conj": torch.conj_physical, "conjugate": torch.conj_physical,
-    "real": torch.real, "imag": _imag,
-    "degrees": torch.rad2deg, "radians": torch.deg2rad,
-    "deg2rad": torch.deg2rad, "rad2deg": torch.rad2deg,
+    "real": _real, "imag": _imag,
+    "degrees": _complex_or(_times(180 / np.pi), torch.rad2deg),
+    "radians": _complex_or(_times(np.pi / 180), torch.deg2rad),
+    "deg2rad": _complex_or(_times(np.pi / 180), torch.deg2rad),
+    "rad2deg": _complex_or(_times(180 / np.pi), torch.rad2deg),
     "signbit": torch.signbit, "sinc": torch.sinc, "i0": torch.i0,
     "angle": torch.angle,
 }
@@ -552,7 +714,9 @@ def _int_zero_safe(fn, by_zero, float_fn=None):
 
 
 BINARY: dict[str, Callable] = {
-    "add": torch.add, "subtract": torch.sub, "multiply": torch.mul,
+    "add": _complex_or(_partwise(torch.add), torch.add),
+    "subtract": _complex_or(_partwise(torch.sub), torch.sub),
+    "multiply": torch.mul,
     "true_divide": torch.true_divide, "divide": torch.true_divide,
     # floored division and modulo with numpy's signs (torch implements
     # numpy's npy_divmod for floats), zero quotients signed as in ramba_tpu;
@@ -562,20 +726,25 @@ BINARY: dict[str, Callable] = {
     "mod": _int_zero_safe(torch.remainder, torch.zeros_like),
     "remainder": _int_zero_safe(torch.remainder, torch.zeros_like),
     "fmod": _int_zero_safe(torch.fmod, torch.zeros_like),
-    "power": torch.pow, "float_power": torch.float_power,
-    "arctan2": torch.atan2, "hypot": torch.hypot,
+    "power": _complex_or(_complex_pow, torch.pow),
+    "float_power": _complex_or(_complex_pow, torch.float_power),
+    "arctan2": _complex_or(_complex_atan2, torch.atan2), "hypot": torch.hypot,
     # maximum/minimum propagate NaN, fmax/fmin ignore it: same in torch
-    "maximum": torch.maximum, "minimum": torch.minimum,
-    "fmax": torch.fmax, "fmin": torch.fmin,
-    "logaddexp": torch.logaddexp, "logaddexp2": torch.logaddexp2,
+    "maximum": _complex_or(_lex_select(torch.gt), torch.maximum),
+    "minimum": _complex_or(_lex_select(torch.lt), torch.minimum),
+    "fmax": _complex_or(_lex_select(torch.gt, True), torch.fmax),
+    "fmin": _complex_or(_lex_select(torch.lt, True), torch.fmin),
+    "logaddexp": _complex_or(_complex_logaddexp(False), torch.logaddexp),
+    "logaddexp2": _complex_or(_complex_logaddexp(True), torch.logaddexp2),
     "logical_and": torch.logical_and, "logical_or": torch.logical_or,
     "logical_xor": torch.logical_xor,
     "bitwise_and": torch.bitwise_and, "bitwise_or": torch.bitwise_or,
     "bitwise_xor": torch.bitwise_xor,
     "left_shift": torch.bitwise_left_shift,
     "right_shift": torch.bitwise_right_shift,
-    "equal": torch.eq, "not_equal": torch.ne, "less": torch.lt,
-    "less_equal": torch.le, "greater": torch.gt, "greater_equal": torch.ge,
+    "equal": torch.eq, "not_equal": torch.ne, "less": _lex(torch.lt),
+    "less_equal": _lex(torch.le), "greater": _lex(torch.gt),
+    "greater_equal": _lex(torch.ge),
     "copysign": torch.copysign, "nextafter": torch.nextafter,
     "heaviside": torch.heaviside, "gcd": torch.gcd, "lcm": torch.lcm,
     "ldexp": torch.ldexp,
@@ -830,7 +999,11 @@ def _op_cast(static, x):
 
 def round_half_even(x: torch.Tensor, decimals: int) -> torch.Tensor:
     """``jnp.round``: round half to even, scaled by 10**decimals for
-    floats; integers with decimals >= 0 are unchanged."""
+    floats (each part of a complex value); integers with decimals >= 0
+    are unchanged."""
+    if x.is_complex():
+        return torch.complex(round_half_even(x.real, decimals),
+                             round_half_even(x.imag, decimals))
     if not x.is_floating_point():
         if decimals >= 0:
             return x
@@ -881,7 +1054,7 @@ def reduce_tensor(fname, x: torch.Tensor, axis=None, keepdims=False,
     dims = _dims(axis, x.ndim)
     if x.ndim == 0:
         dims = ()
-    if not x.is_floating_point() and fname in NAN_PLAIN:
+    if not (x.is_floating_point() or x.is_complex()) and fname in NAN_PLAIN:
         fname = NAN_PLAIN[fname]  # nothing to ignore
     if (_is_wide_unsigned(x.dtype) and fname in ("min", "max")) or (
             _is_wide_unsigned(out_dt) and fname in ("sum", "prod")):
@@ -899,6 +1072,8 @@ def reduce_tensor(fname, x: torch.Tensor, axis=None, keepdims=False,
     if fname in ("min", "max"):
         if not dims:
             return x.clone()
+        if x.is_complex():
+            return _complex_extreme(x, dims, keepdims, fname == "max")
         fn = torch.amin if fname == "min" else torch.amax
         return fn(x, dim=dims, keepdim=keepdims)
     if fname in ("any", "all"):
@@ -912,7 +1087,8 @@ def reduce_tensor(fname, x: torch.Tensor, axis=None, keepdims=False,
         y = torch.where(torch.isnan(x), torch.full_like(x, fill), x)
         return reduce_tensor(fname[3:], y, axis, keepdims)
     if fname in ("nanmin", "nanmax"):
-        # jnp: NaN becomes the identity, an all-NaN slice gives NaN
+        # jnp: NaN becomes the identity, an all-NaN slice gives NaN (a
+        # complex value with a NaN part is NaN)
         inf = float("inf") if fname == "nanmin" else float("-inf")
         nan = torch.isnan(x)
         r = reduce_tensor(fname[3:], torch.where(nan, torch.full_like(x, inf), x),
@@ -925,7 +1101,8 @@ def reduce_tensor(fname, x: torch.Tensor, axis=None, keepdims=False,
         cnt = reduce_tensor("sum", ~nan, axis, keepdims)
         return s / cnt.to(s.dtype)
     if fname in ("var", "std", "nanvar", "nanstd"):
-        r = _variance(x.to(out_dt), dims, keepdims, int(ddof or 0),
+        y = x if x.is_complex() else x.to(out_dt)
+        r = _variance(y, dims, keepdims, int(ddof or 0),
                       fname.startswith("nan"))
         return torch.sqrt(r) if fname.endswith("std") else r
     if fname in _ARG_RED:
@@ -963,10 +1140,57 @@ def _variance(y, dims, keepdims, ddof, skip_nan):
         c = y - m
         n = torch.full((), _count(tuple(y.shape), dims) - ddof,
                        dtype=torch.int64, device=y.device)
-    s = total(c * c, keepdims)
+    # |c|**2 of a complex value: real(c * conj(c)), as jnp.var
+    s = total(c.real * c.real + c.imag * c.imag if c.is_complex() else c * c,
+              keepdims)
     bad = n <= 0
     s = torch.where(bad, torch.full_like(s, float("nan")), s)
     return s / torch.where(bad, torch.ones_like(n), n).to(s.dtype)
+
+
+def _last_index(mask, n):
+    """Per row of ``mask`` (reduced positions last): the last position
+    that holds, -1 where none does."""
+    iota = torch.arange(n, device=mask.device)
+    return torch.amax(torch.where(mask, iota, -1), dim=-1, keepdim=True)
+
+
+def _complex_extreme(x, dims, keepdims, want_max):
+    """jnp.max/jnp.min of complex values.  XLA folds the slice in order,
+    ``acc = acc if acc > v else v`` (lexicographic ``>``, ``<`` for min),
+    so a NaN part decides the result by its position.  The fold's result
+    in closed form: after the last element with a NaN real part (which
+    every comparison adopts), the extreme real part wins; among its
+    elements, after the last one with a NaN imaginary part, the extreme
+    imaginary part; ties go to the last occurrence."""
+    nd = x.ndim
+    dims = sorted(dims)  # the fold runs over the reduced dims in C order
+    keep = [d for d in range(nd) if d not in dims]
+    z = x.permute(*keep, *dims).reshape(*[x.shape[d] for d in keep], -1)
+    n = z.shape[-1]
+    pos = torch.arange(n, device=x.device)
+    ext = torch.amax if want_max else torch.amin
+    far = float("-inf") if want_max else float("inf")
+
+    def stage(parts, live):
+        # within ``live``: after the last NaN of ``parts``, the extremes
+        p = _last_index(live & torch.isnan(parts), n)
+        after = live & (pos > p)
+        best = ext(torch.where(after, parts, far), dim=-1, keepdim=True)
+        return p, after & (parts == best)
+
+    live = torch.ones_like(z.real, dtype=torch.bool)
+    p_re, top = stage(z.real, live)
+    p_im, top_im = stage(z.imag, top)
+    pick = _last_index(top_im, n)
+    # a NaN last in its stage is the result itself
+    pick = torch.where(_last_index(top, n) == p_im, p_im, pick)
+    pick = torch.where(pick < 0, p_re, pick)
+    pick = torch.where(p_re == n - 1, p_re, pick)
+    r = torch.gather(z, -1, pick.clamp(0, max(n - 1, 0)))[..., 0]
+    if keepdims:
+        return r.reshape([1 if d in dims else x.shape[d] for d in range(nd)])
+    return r
 
 
 def _arg_reduce(fname, x, axis, keepdims):
@@ -1045,8 +1269,10 @@ def _where_identity(fname, x):
         return _WHERE_IDENTITY[fname]
     if x.dtype == torch.bool:
         return fname == "min"
-    info = torch.finfo(x.dtype) if x.is_floating_point() else (
-        np.iinfo(to_np_dtype(x.dtype)))
+    # complex values: the real extremes, as jnp.finfo gives them
+    info = np.finfo(to_np_dtype(x.dtype)) if x.is_complex() else \
+        torch.finfo(x.dtype) if x.is_floating_point() else \
+        np.iinfo(to_np_dtype(x.dtype))
     return info.max if fname == "min" else info.min
 
 
@@ -1060,7 +1286,8 @@ def _op_reduce_where(static, x, mask):
         s = reduce_tensor("sum", torch.where(mask, x, torch.zeros_like(x)),
                           axis, keepdims)
         cnt = reduce_tensor("sum", mask.expand(x.shape), axis, keepdims)
-        out_dt = s.dtype if s.is_floating_point() else torch.float64
+        out_dt = s.dtype if s.is_floating_point() or s.is_complex() \
+            else torch.float64
         return s.to(out_dt) / cnt.to(out_dt)
     ident = as_tensor(_where_identity(fname, x), to_np_dtype(x.dtype), x.device)
     return reduce_tensor(fname, torch.where(mask, x, ident), axis, keepdims)
@@ -1345,8 +1572,13 @@ def _index_tensors(plan, indexers, dev):
         t = as_tensor(indexers[c[2]], dev=dev)
         if t.dtype == torch.bool or t.is_floating_point() or t.is_complex():
             raise IndexError("arrays used as indices must be of integer type")
-        out.append(t.long() if t.dtype != torch.uint64 else t.view(torch.int64))
+        out.append(_index_long(t))
     return out
+
+
+def _index_long(t: torch.Tensor) -> torch.Tensor:
+    """An index tensor as int64 (uint64 by its bits)."""
+    return t.view(torch.int64) if t.dtype == torch.uint64 else t.long()
 
 
 def _plan_of(static, x, indexers):
@@ -1710,6 +1942,18 @@ def _sort_operand(x, axis):
     return (x.reshape(-1), 0) if axis is None else (x, axis % max(x.ndim, 1))
 
 
+def sort_order(x: torch.Tensor, ax: int) -> torch.Tensor:
+    """The stable ascending order of ``x`` along ``ax`` as ``jnp.sort``
+    gives it.  Complex values sort lexicographically (NaN parts last):
+    a stable pass on the imaginary parts, then one on the real parts."""
+    if not x.is_complex():
+        return torch.sort(sort_key(x), dim=ax, stable=True).indices
+    first = torch.sort(sort_key(x.imag), dim=ax, stable=True).indices
+    re = torch.gather(x.real, ax, first)
+    second = torch.sort(sort_key(re), dim=ax, stable=True).indices
+    return torch.gather(first, ax, second)
+
+
 @defop("sort", _aval_sort)
 def _op_sort(static, x):
     """Stable ascending sort along ``axis`` (None: the flattened array),
@@ -1719,8 +1963,7 @@ def _op_sort(static, x):
     x, ax = _sort_operand(x, axis)
     if x.ndim == 0:
         return x.clone()
-    order = torch.sort(sort_key(x), dim=ax, stable=True).indices
-    return _unbits(torch.gather(_bits(x), ax, order), x.dtype)
+    return _unbits(torch.gather(_bits(x), ax, sort_order(x, ax)), x.dtype)
 
 
 @defop("argsort", _aval_argsort)
@@ -1729,7 +1972,7 @@ def _op_argsort(static, x):
     x, ax = _sort_operand(x, axis)
     if x.ndim == 0:
         return torch.zeros((), dtype=torch.int64, device=x.device)
-    return torch.sort(sort_key(x), dim=ax, stable=True).indices
+    return sort_order(x, ax)
 
 
 # -- linear algebra -------------------------------------------------------------

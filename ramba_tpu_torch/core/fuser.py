@@ -2,8 +2,9 @@
 
 Counterpart of ``ramba_tpu/core/fuser.py`` without its resilience, memo,
 plan-cache, attribution, serving and integrity planes.  A flush collects
-every pending array, linearizes the graph into a buffer-free instruction
-program, picks a lowering for it and runs it once:
+every pending array, applies the graph rewrites (``core/rewrite.py``,
+unless ``RAMBA_TPU_REWRITE=0``), linearizes the graph into a buffer-free
+instruction program, picks a lowering for it and runs it once:
 
 * ``"kernel"`` — the hand-written kernels (``ops/kernel_backend.py``), for
   every program the classifier accepts;
@@ -30,6 +31,10 @@ from ramba_tpu_torch.core.expr import OPS, Const, Expr, Node, Scalar
 
 # Monotone counters (observability; same keys as the JAX package's).
 stats = {"flushes": 0, "compiles": 0, "nodes_flushed": 0}
+
+# Called with no arguments after every flush (results shared between the
+# nodes of one flush are dropped there).
+after_flush: list = []
 _stats_lock = threading.Lock()
 
 _seq = itertools.count()
@@ -300,8 +305,16 @@ def _flush_roots(roots: list, extra: Sequence[Expr]) -> list:
     exprs = [a._expr for a in roots] + list(extra)
     if not exprs:
         return []
+    if common.rewrite_enabled:
+        from ramba_tpu_torch.core.rewrite import rewrite_roots
+
+        exprs = rewrite_roots(exprs)
     program, leaf_vals = prepare_program(exprs)
-    outs = _get_compiled(program, leaf_vals)(*leaf_vals)
+    try:
+        outs = _get_compiled(program, leaf_vals)(*leaf_vals)
+    finally:
+        for hook in after_flush:
+            hook()
     for arr, val in zip(roots, outs):
         arr._set_expr(Const(val))
     with _stats_lock:

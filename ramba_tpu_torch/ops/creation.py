@@ -161,3 +161,229 @@ def array(a, dtype=None, copy=True):
 
 def copy(a):
     return a.copy() if isinstance(a, ndarray) else fromarray(np.copy(a))
+
+
+# -- the creation tail ---------------------------------------------------------
+# eye, tri and indices are ``call`` nodes (``ops/extras.py``) generated on
+# the card; the grids compose arange/linspace/fromfunction with views;
+# r_/c_ and the from* readers build on the host, as in the reference.
+
+
+def _call(name, *arrays, **kw):
+    from ramba_tpu_torch.ops.extras import lazy
+
+    return lazy(name, *arrays, **kw)
+
+
+def eye(N, M=None, k=0, dtype=float, distribution=None):
+    _no_distribution(distribution)
+    M = N if M is None else M
+    return _call("eye", n=int(N), m=int(M), k=int(k),
+                 dtype=str(_np_dtype(dtype)))
+
+
+def identity(n, dtype=float, distribution=None):
+    return eye(n, dtype=dtype, distribution=distribution)
+
+
+def tri(N, M=None, k=0, dtype=float):
+    common.device()
+    M = N if M is None else M
+    return _call("tri", n=int(N), m=int(M), k=int(k),
+                 dtype=str(_np_dtype(dtype)))
+
+
+def indices(dimensions, dtype=int):
+    common.device()
+    return _call("indices", shape=_canon_shape(dimensions),
+                 dtype=str(_np_dtype(dtype)))
+
+
+def meshgrid(*xi, indexing="xy"):
+    """Each input reshaped onto its axis and broadcast (copies, as the
+    reference's)."""
+    arrs = [asarray(x).reshape(-1) for x in xi]
+    nd = len(arrs)
+    lens = [a.size for a in arrs]
+    swap = indexing == "xy" and nd >= 2
+    shape = tuple([lens[1], lens[0]] + lens[2:]) if swap else tuple(lens)
+    outs = []
+    for d in range(nd):
+        vs = [1] * nd
+        vs[(1 if d == 0 else 0 if d == 1 else d) if swap else d] = lens[d]
+        outs.append(arrs[d].reshape(tuple(vs)).broadcast_to(shape).copy())
+    return outs
+
+
+def _grid_axis(s):
+    """One mgrid/ogrid slice as (n, start, step, is_float); a complex step
+    is NumPy's point count (``0:1:5j``: 5 points, both ends)."""
+    start = s.start or 0
+    stop = s.stop
+    step = s.step if s.step is not None else 1
+    if isinstance(step, complex):
+        n = int(abs(step))
+        st = (stop - start) / (n - 1) if n > 1 else 0.0
+        return n, float(start), float(st), True
+    if step == 0:
+        raise ValueError("slice step cannot be zero")
+    n = int(max(0, -(-(stop - start) // step)))
+    is_float = any(isinstance(v, float) for v in (start, stop, step))
+    return n, start, step, is_float
+
+
+class _MGrid:
+    """np.mgrid: ``index * step + start`` per axis (float where a bound or
+    step is), stacked; the complex-step form included."""
+
+    def __getitem__(self, key):
+        from ramba_tpu_torch.ops.manipulation import stack
+
+        if not isinstance(key, tuple):
+            key = (key,)
+        axes = [_grid_axis(s) for s in key]
+        shape = tuple(a[0] for a in axes)
+        dt = _DEFAULT_FLOAT if any(a[3] for a in axes) else _DEFAULT_INT
+        outs = []
+        for d, (n, start, step, _f) in enumerate(axes):
+            vs = [1] * len(shape)
+            vs[d] = n
+            ax = arange(n, dtype=dt) * step + start
+            outs.append(ax.astype(dt).reshape(tuple(vs))
+                        .broadcast_to(shape))
+        return outs[0] if len(outs) == 1 else stack(outs)
+
+
+mgrid = _MGrid()
+
+
+class _OGrid:
+    """np.ogrid: one broadcastable axis array per slice."""
+
+    def __getitem__(self, key):
+        single = not isinstance(key, tuple)
+        if single:
+            key = (key,)
+        outs = []
+        nd = len(key)
+        for d, s in enumerate(key):
+            n, start, step, is_float = _grid_axis(s)
+            if is_float:
+                ax = linspace(start, start + step * max(n - 1, 0), n)
+            else:
+                ax = arange(start, start + n * step, step)
+            shape = [1] * nd
+            shape[d] = n
+            outs.append(ax.reshape(tuple(shape)))
+        return outs[0] if single else outs
+
+
+ogrid = _OGrid()
+
+
+class _RConcat:
+    """np.r_ / np.c_: host-side index-expression concatenators; the result
+    is uploaded."""
+
+    def __init__(self, np_obj):
+        self._np = np_obj
+
+    def __getitem__(self, key):
+        def conv(x):
+            return x.asarray() if isinstance(x, ndarray) else x
+
+        key = tuple(conv(k) for k in key) if isinstance(key, tuple) \
+            else conv(key)
+        return fromarray(self._np[key])
+
+
+r_ = _RConcat(np.r_)
+c_ = _RConcat(np.c_)
+
+
+def logspace(start, stop, num=50, endpoint=True, base=10.0, dtype=None,
+             distribution=None):
+    """``base ** linspace`` (fuses with its consumers)."""
+    out = float(base) ** linspace(float(start), float(stop), num,
+                                  endpoint=endpoint, distribution=distribution)
+    return out.astype(dtype) if dtype is not None else out
+
+
+def geomspace(start, stop, num=50, endpoint=True, dtype=None,
+              distribution=None):
+    """A geometric progression through logspace in log10 space."""
+    import math
+
+    if start == 0 or stop == 0:
+        raise ValueError("Geometric sequence cannot include zero")
+    if isinstance(start, complex) or isinstance(stop, complex):
+        raise NotImplementedError(
+            "complex start/stop is not supported; compute on host with "
+            "numpy.geomspace and wrap with fromarray")
+    sgn = 1.0
+    if start < 0 and stop < 0:
+        sgn, start, stop = -1.0, -start, -stop
+    elif (start < 0) != (stop < 0):
+        raise ValueError(
+            "Geometric sequence cannot calculate the step between "
+            f"start={start} and stop={stop} with different signs")
+    out = sgn * logspace(math.log10(start), math.log10(stop), num,
+                         endpoint=endpoint, distribution=distribution)
+    return out.astype(dtype) if dtype is not None else out
+
+
+def fromiter(iterable, dtype, count=-1):
+    return fromarray(np.fromiter(iterable, dtype=dtype, count=count))
+
+
+def frombuffer(buffer, dtype=float, count=-1, offset=0):
+    return fromarray(np.frombuffer(buffer, dtype=dtype, count=count,
+                                   offset=offset).copy())
+
+
+def fromstring(string, dtype=float, sep=" "):
+    return fromarray(np.fromstring(string, dtype=dtype, sep=sep))
+
+
+def ascontiguousarray(a, dtype=None):
+    # the card's arrays are dense: asarray and the cast
+    out = asarray(a)
+    return out.astype(dtype) if dtype is not None else out
+
+
+asfortranarray = ascontiguousarray  # layout is torch's concern, not the user's
+
+
+def asarray_chkfinite(a, dtype=None):
+    from ramba_tpu_torch.ops import reductions
+    from ramba_tpu_torch.ops.elementwise import isfinite
+
+    out = asarray(a)
+    if np.dtype(out.dtype).kind in "fc" and not bool(
+            reductions.all(isfinite(out))):
+        raise ValueError("array must not contain infs or NaNs")
+    return out.astype(dtype) if dtype is not None else out
+
+
+def rollaxis(a, axis, start=0):
+    """numpy.rollaxis: negative values get +ndim (not a modulo); out of
+    range raises."""
+    from ramba_tpu_torch.ops.manipulation import moveaxis
+
+    a = asarray(a)
+    n = a.ndim
+    if axis < 0:
+        axis += n
+    if not 0 <= axis < n:
+        raise np.exceptions.AxisError(
+            f"axis {axis} is out of bounds for array of dimension {n}")
+    if start < 0:
+        start += n
+    if not 0 <= start <= n:
+        raise np.exceptions.AxisError(
+            f"start {start} is out of bounds for array of dimension {n}")
+    if axis < start:
+        start -= 1
+    if axis == start:
+        return a
+    return moveaxis(a, axis, start)

@@ -906,3 +906,119 @@ def test_data_movement_of_small_and_unsigned_dtypes(dtype):
     for k, (g_, w) in enumerate(zip(got, want)):
         assert g_.dtype == w.dtype and g_.shape == w.shape, k
         assert _bytes_equal(g_, w), (dtype, k)
+
+
+# -- the complex repairs, bincount, convolve and the rewrite into segred ----
+
+
+def _complex_grid(dtype):
+    parts = [0.0, -0.0, 1.5, -2.25, float("inf"), float("-inf"),
+             float("nan")]
+    re = torch.tensor(parts, dtype=torch.float64).repeat_interleave(7)
+    im = torch.tensor(parts, dtype=torch.float64).repeat(7)
+    return torch.complex(re, im).to(dtype)
+
+
+def _on_device(dev, fn):
+    common.set_device(dev)
+    try:
+        return fn(dev)
+    finally:
+        common.set_device("cuda:0")
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_complex_repairs_on_the_card(dtype):
+    """The complex ops the port repaired, on the card against the same
+    program on the CPU (torch's CUDA kernels refuse complex ordering as the
+    CPU ones do): ordering, sort, min/max and nan-reductions bit for bit,
+    the formulas (sign, angle, var) within float tolerance."""
+    z = _complex_grid(dtype)
+    w = z[torch.randperm(z.numel(), generator=torch.Generator()
+                         .manual_seed(3))]
+    c = torch.randn(64, dtype=dtype, generator=torch.Generator().manual_seed(4))
+
+    def program(dev):
+        a, b = rt.fromarray(z.to(dev)), rt.fromarray(w.to(dev))
+        exact = [rt.imag(a), rt.real(a), rt.less(a, b), rt.greater_equal(a, b),
+                 rt.maximum(a, b), rt.fmin(a, b), rt.sort(a), rt.argsort(b),
+                 rt.max(a.reshape(7, 7), axis=1), rt.min(b.reshape(7, 7),
+                                                         axis=0),
+                 rt.rint(a), rt.nansum(b), rt.ptp(b.reshape(7, 7), axis=1)]
+        approx = [rt.sign(a), rt.angle(a), rt.var(rt.fromarray(c.to(dev))),
+                  rt.std(rt.fromarray(c.to(dev)).reshape(8, 8), axis=0),
+                  rt.power(a, b)]
+        return ([o._value().cpu() for o in exact],
+                [o._value().cpu() for o in approx])
+
+    want_e, want_a = _on_device("cpu", program)
+    got_e, got_a = program("cuda")
+    for k, (g, w_) in enumerate(zip(got_e, want_e)):
+        assert g.dtype == w_.dtype and g.shape == w_.shape, k
+        if g.is_complex():
+            g, w_ = torch.view_as_real(g), torch.view_as_real(w_)
+        # the same values, NaN where NaN (payloads may differ), signed zeros
+        torch.testing.assert_close(g, w_, rtol=0, atol=0, equal_nan=True,
+                                   msg=f"exact {k}")
+        if g.is_floating_point():
+            z_ = (g == 0) & (w_ == 0)
+            assert torch.equal(torch.signbit(g[z_]), torch.signbit(w_[z_])), k
+    tol = 1e-12 if dtype == torch.complex128 else 1e-5
+    for k, (g, w_) in enumerate(zip(got_a, want_a)):
+        torch.testing.assert_close(g, w_, rtol=tol, atol=tol, equal_nan=True,
+                                   msg=f"approx {k}")
+
+
+def test_weighted_bincount_reruns_byte_equal():
+    """The weighted bincount sums in a fixed order (a stable sort by label,
+    then one sum per label): two runs give the same bytes, and they lie
+    within n * eps * sum|w| of the float64 sums."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    n = 1 << 20
+    x = torch.randint(0, 4096, (n,), generator=g, device="cuda")
+    w = torch.rand(n, generator=g, device="cuda", dtype=torch.float64)
+    a = rt.bincount(rt.fromarray(x), weights=rt.fromarray(w))._value()
+    b = rt.bincount(rt.fromarray(x), weights=rt.fromarray(w))._value()
+    assert _bytes_equal(a, b)
+    want = torch.zeros(4096, dtype=torch.float64, device="cuda")
+    want.index_add_(0, x, w)
+    assert (a - want).abs().max().item() <= n * EPS[torch.float64] * \
+        w.abs().sum().item()
+
+
+def test_convolve_float32_keeps_tf32_off():
+    """convolve of float32 on conv1d with cuDNN's TF32 off: within float32
+    rounding of the float64 result (TF32's 10-bit mantissa would be
+    ~1e-3 off), and the global flag is restored."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(1 << 16, generator=g, device="cuda")
+    v = torch.randn(255, generator=g, device="cuda")
+    torch.backends.cudnn.allow_tf32 = True
+    got = rt.convolve(rt.fromarray(x), rt.fromarray(v))._value()
+    assert torch.backends.cudnn.allow_tf32 is True
+    want = rt.convolve(rt.fromarray(x.double()), rt.fromarray(v.double()))
+    want = want._value()
+    bound = 255 * EPS[torch.float32] * (x.abs().max() * v.abs().sum()).item()
+    assert got.dtype == torch.float32
+    assert (got.double() - want).abs().max().item() <= bound
+
+
+def test_stack_of_group_sums_reaches_segred():
+    """The xarray idiom stack([x[idx_g].sum() ...]) over 1-D data: the
+    rewrite turns it into one segment_reduce, and segred launches it."""
+    from ramba_tpu_torch.core import rewrite
+
+    n, G = 1 << 20, 24
+    x_t = torch.rand(n, dtype=torch.float64, device="cuda")
+    x = rt.fromarray(x_t)
+    hour = np.arange(n) % G
+    idx = [np.where(hour == k)[0] for k in range(G)]
+    before, fires = segred.launches, \
+        rewrite.stats["rewrite_stack_reduce_advindex"]
+    s = rt.stack([x[i].sum() for i in idx])._value()
+    assert segred.launches == before + 1
+    assert rewrite.stats["rewrite_stack_reduce_advindex"] == fires + 1
+    assert rewrite.stats["errors"] == 0
+    want = torch.stack([x_t[torch.from_numpy(i).cuda()].sum() for i in idx])
+    bound = 2 * segred.depth(n) * EPS[torch.float64] * x_t.abs().sum().item()
+    assert (s - want).abs().max().item() <= bound

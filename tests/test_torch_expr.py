@@ -23,9 +23,11 @@ import ramba_tpu_torch as rt
 from ramba_tpu_torch import common, convert
 from ramba_tpu_torch.core import expr as E
 
-DTYPES = ["bool", "int32", "int64", "float32", "float64"]
+DTYPES = ["bool", "int32", "int64", "float32", "float64", "complex64",
+          "complex128"]
 WEAK = {"weak_int": 3, "weak_float": 2.5, "weak_bool": True}
-RTOL = {"float16": 1e-3, "float32": 1e-6, "float64": 1e-12}
+RTOL = {"float16": 1e-3, "float32": 1e-6, "float64": 1e-12, "complex64": 1e-6,
+        "complex128": 1e-12}
 N = 16
 
 
@@ -52,6 +54,8 @@ def _data(dtype, seed, positive=False):
     v = rs.rand(N) * 4 + 0.25
     if not positive:
         v = v * rs.choice([-1, 1], N)
+    if dtype.startswith("complex"):
+        v = v + 1j * (rs.rand(N) * 4 - 2)
     return v.astype(dtype)
 
 

@@ -26,8 +26,10 @@ from ramba_tpu_torch.ops import kernel_backend as kb
 
 KINDS = ["sum", "prod", "min", "max", "count", "mean", "var", "std",
          "nansum", "nanmean", "nanvar", "nanstd"]
-DTYPES = ["bool", "int32", "int64", "float32", "float64"]
-RTOL = {"float32": 1e-5, "float64": 1e-12}
+DTYPES = ["bool", "int32", "int64", "float32", "float64", "complex64",
+          "complex128"]
+RTOL = {"float32": 1e-5, "float64": 1e-12, "complex64": 1e-5,
+        "complex128": 1e-12}
 G = 3
 
 
@@ -77,6 +79,8 @@ def _data(dtype, layout, seed=0):
     if dtype.startswith("int"):
         return rs.randint(-4, 6, shape).astype(dtype)
     x = (rs.rand(*shape) + 0.5).astype(dtype)
+    if dtype.startswith("complex"):
+        x = x + 1j * (rs.rand(*shape) - 0.5).astype(dtype)
     x.reshape(-1)[5] = np.nan  # nan kinds skip it, the others propagate it
     return x
 
@@ -105,7 +109,8 @@ def test_reduction_matches_ramba_tpu(kind, dtype, layout):
     got = getattr(g, kind)()
     p, vals = fuser.prepare_program([got.read_expr()])
     seg = (layout == "1d" and kind in kb.SEG_OK
-           and not (dtype == "bool" and kind in ("min", "max")))
+           and not (dtype == "bool" and kind in ("min", "max"))
+           and dtype in kb.GPU_DTYPES)  # complex data: the generic lowering
     assert kb.classify(p, vals) == ("segred" if seg else None)
     _same(got, _refs(dtype, layout)[kind], f"{kind} {dtype} {layout}",
           var_of=_data(dtype, layout) if "var" in kind or "std" in kind

@@ -59,7 +59,10 @@ def test_importing_the_port_loads_no_jax():
         " ramba_tpu_torch.groupby, ramba_tpu_torch.ops.segred,"
         " ramba_tpu_torch.ops.manipulation, ramba_tpu_torch.ops.cuda_expr,"
         " ramba_tpu_torch.ops.linalg, ramba_tpu_torch.ops.scan,"
-        " ramba_tpu_torch.core.interop, ramba_tpu_torch.core.masked;"
+        " ramba_tpu_torch.core.interop, ramba_tpu_torch.core.masked,"
+        " ramba_tpu_torch.ops.extras, ramba_tpu_torch.fft,"
+        " ramba_tpu_torch.linalg, ramba_tpu_torch.core.rewrite,"
+        " ramba_tpu_torch.models.pi, ramba_tpu_torch.models.kmeans;"
         "import runpy; runpy.run_path(sys.argv[1] + '/chip_smoke.py',"
         " run_name='chip_smoke_probe');"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'ramba_tpu', 'triton')"

@@ -25,7 +25,8 @@ import ramba_tpu_torch as rt
 from ramba_tpu_torch import common, convert
 
 SWEEP = ["bool", "int8", "int16", "int32", "int64", "uint8", "uint16",
-         "uint32", "uint64", "float16", "float32", "float64"]
+         "uint32", "uint64", "float16", "float32", "float64", "complex64",
+         "complex128"]
 
 
 @pytest.fixture(autouse=True)
@@ -45,6 +46,8 @@ def _values(dtype, shape, seed):
         return rs.randint(0, 200, shape).astype(dtype)
     if kind == "i":
         return rs.randint(-100, 100, shape).astype(dtype)
+    if kind == "c":
+        return (rs.randn(*shape) * 10 + 1j * rs.randn(*shape) * 10).astype(dtype)
     return (rs.randn(*shape) * 10).astype(dtype)
 
 
@@ -265,7 +268,8 @@ def test_index_errors(case):
 
 
 @pytest.mark.parametrize("dtype", ["bool", "int8", "int32", "uint8", "uint32",
-                                   "uint64", "float16", "float64"])
+                                   "uint64", "float16", "float64",
+                                   "complex128"])
 @pytest.mark.parametrize("mode", ["clip", "wrap", "fill"])
 def test_take_modes(mode, dtype):
     idx = np.array([1, 12, -3, -13, 0])

@@ -99,8 +99,10 @@ def test_numpy_functions_return_port_arrays(name):
             np.testing.assert_array_equal(gv, wv)
 
 
-@pytest.mark.parametrize("fn", [np.fft.fft, np.unique, np.gradient,
-                                np.linalg.norm, np.histogram])
+# (np.fft.fft, np.unique, np.gradient, np.linalg.norm and np.histogram
+# stood here until the port registered them, as ramba_tpu does)
+@pytest.mark.parametrize("fn", [np.histogram_bin_edges, np.sinc, np.i0,
+                                np.linalg.matrix_norm, np.meshgrid])
 def test_unregistered_functions_raise(fn):
     """Neither a host copy nor a numpy.ndarray: NumPy raises TypeError."""
     with pytest.raises(TypeError):
@@ -111,7 +113,8 @@ def test_registry_holds_only_port_functions():
     for np_fn, ours in interop.HANDLED_FUNCTIONS.items():
         assert ours.__module__.startswith("ramba_tpu_torch"), np_fn
     assert np.concatenate in interop.HANDLED_FUNCTIONS
-    assert np.unique not in interop.HANDLED_FUNCTIONS
+    assert np.unique in interop.HANDLED_FUNCTIONS  # a host boundary, as there
+    assert np.histogram_bin_edges not in interop.HANDLED_FUNCTIONS
 
 
 def test_metadata_functions_stay_on_the_host():

@@ -20,7 +20,8 @@ import ramba_tpu_torch as rt
 from ramba_tpu_torch import common, convert
 
 SWEEP = ["bool", "int8", "int16", "int32", "int64", "uint8", "uint16",
-         "uint32", "uint64", "float16", "float32", "float64"]
+         "uint32", "uint64", "float16", "float32", "float64", "complex64",
+         "complex128"]
 
 # ramba_tpu/__init__.py:51-56, every name of ops/manipulation.py
 NAMES = [
@@ -49,6 +50,8 @@ def _values(dtype, shape, seed):
         return rs.randint(0, 200, shape).astype(dtype)
     if kind == "i":
         return rs.randint(-100, 100, shape).astype(dtype)
+    if kind == "c":
+        return (rs.randn(*shape) * 10 + 1j * rs.randn(*shape) * 10).astype(dtype)
     return (rs.randn(*shape) * 10).astype(dtype)
 
 

@@ -27,9 +27,15 @@ from ramba_tpu_torch import common, convert
 from ramba_tpu_torch.core import expr as E
 
 DTYPES = ["bool", "int8", "int16", "int32", "int64", "uint8", "uint16",
-          "uint32", "uint64", "float16", "float32", "float64"]
+          "uint32", "uint64", "float16", "float32", "float64", "complex64",
+          "complex128"]
+# ramba_tpu fails on complex values in its masked mean (it lifts no complex
+# scalar) and masked min/max (iinfo of a complex dtype): those two sweeps
+# stay on the real dtypes
+REALS = [d for d in DTYPES if not d.startswith("complex")]
 AXES = [None, 0, 1, (0, 1)]
-RTOL = {"float16": 2e-3, "float32": 1e-5, "float64": 1e-12}
+RTOL = {"float16": 2e-3, "float32": 1e-5, "float64": 1e-12, "complex64": 1e-5,
+        "complex128": 1e-12}
 SHAPE = (6, 7)
 
 
@@ -50,9 +56,13 @@ def _data(dtype, seed, nan=False):
     if np.dtype(dtype).kind == "u":
         return rs.randint(0, 10, SHAPE).astype(dtype)
     v = (rs.randn(*SHAPE) * 3).astype(dtype)
+    if np.dtype(dtype).kind == "c":
+        v = v + 1j * (rs.randn(*SHAPE) * 3).astype(dtype)
     if nan:
         v[rs.rand(*SHAPE) < 0.2] = np.nan
         v[:, 2] = np.nan  # one all-NaN column
+        if np.dtype(dtype).kind == "c":  # a NaN in the imaginary part only
+            v.imag[rs.rand(*SHAPE) < 0.1] = np.nan
     return v
 
 
@@ -144,19 +154,22 @@ def test_variance_ddof(name, dtype, axis):
 
 
 @pytest.mark.parametrize("axis", [None, 0, 1])
-@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "complex64",
+                                   "complex128"])
 @pytest.mark.parametrize(
     "name", NAN + ["nanvar", "nanstd", "nanmedian", "median", "argmin",
                    "argmax", "min", "max", "mean", "ptp"])
 def test_nan_slices(name, dtype, axis):
     """NaN anywhere, and one all-NaN column: the nan-kinds skip NaN (an
     all-NaN slice gives NaN), the others propagate it, arg-reductions
-    return the first NaN."""
+    return the first NaN.  Complex values with a NaN in either part too
+    (XLA's in-order fold decides their min, max and ptp)."""
     ref, port = _pair(a=_data(dtype, 3, nan=True))
     for keepdims in (False, True):
         got, want = _both(name, ref["a"], port["a"], axis=axis,
                           keepdims=keepdims)
-        _same(got, want, f"{name}({dtype}, NaN, axis={axis})")
+        if got is not None:  # both refuse complex medians and arg-reductions
+            _same(got, want, f"{name}({dtype}, NaN, axis={axis})")
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -190,7 +203,7 @@ def test_where_mask(name, dtype):
         rt.min(port["a"], where=port["m"])
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", REALS)
 def test_masked_mean(dtype):
     ref, port = _pair(a=_data(dtype, 7),
                       m=np.random.RandomState(8).rand(*SHAPE) > 0.3)
@@ -202,7 +215,7 @@ def test_masked_mean(dtype):
 
 @pytest.mark.parametrize(
     "dtype", ["bool", "int8", "uint8", "int16", "int32", "uint32", "int64",
-              "float32", "float64"])
+              "float32", "float64", "complex64", "complex128"])
 def test_cumulative_widening(dtype):
     a = (np.arange(1, 13) % 5).reshape(3, 4).astype(dtype)
     ref, port = _pair(a=a)
@@ -253,9 +266,9 @@ def test_ndarray_methods(dtype):
         _same(x.argmax(axis), y.argmax(axis), f"argmax axis={axis}")
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("name", ["sum", "prod", "min", "max", "mean", "any",
-                                  "all"])
+@pytest.mark.parametrize("name,dtype", [
+    (n, d) for n in ["sum", "prod", "min", "max", "mean", "any", "all"]
+    for d in (REALS if n in ("min", "max") else DTYPES)])
 def test_reduce_where_op(name, dtype):
     """The masked ``reduce_where`` node ramba_tpu's masked arrays build."""
     from ramba_tpu.core.expr import Node as JNode
@@ -295,8 +308,8 @@ def test_reduce_dtype_table():
             x = rtj.fromarray(np.ones(3, dtype))
             try:
                 want = getattr(rtj, name)(x).asarray().dtype
-            except TypeError:
-                with pytest.raises(TypeError):
+            except (TypeError, ValueError) as e:
+                with pytest.raises(type(e)):
                     E.reduce_dtype(name, np.dtype(dtype))
                 continue
             assert E.reduce_dtype(name, np.dtype(dtype)) == want, (name, dtype)
