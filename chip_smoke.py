@@ -26,7 +26,8 @@ Phases, each reported on its own line:
    stencil kernels against the rule itself, a uint32 chain against NumPy,
    the bf16 stencil kernel exactly against its plain version, saturating
    float-to-int casts and ``sign(-0.0)`` through elemred and the generic
-   lowering; and the one-pass fixed-order scan (cumsum/cumprod of floats)
+   lowering, ``spacing`` on the generic lowering against its plain
+   version; and the one-pass fixed-order scan (cumsum/cumprod of floats)
    against its plain version (same order: the same bytes) and within its
    rounding-depth bound of the float64 scan, launched on one CTA, on a
    small odd grid and twice on the default grid (all byte-equal), on 2^28
@@ -73,7 +74,18 @@ Phases, each reported on its own line:
    stack of group sums and maxima on segred, the anomaly idiom against
    the un-rewritten program, ``rewrite.stats["errors"] == 0``); and the
    models (``integrate_pi(1e9)`` in one flush, k-means on 2^24 x 32
-   points against its plain run).  Every kernel's launch
+   points against its plain run); then ``rt.random``, file I/O and
+   checkpoints (``io_path``): random, normal, randint and exponential of
+   2^28 and permutation(2^26) from a seed, each checked (moments within
+   6 standard errors, supports) and timed, reseeded byte-equal, one
+   draw's program rerun byte-equal, ten seeds adding no compile;
+   Monte-Carlo pi from two 2^28 float64 draws, its hits counted on elemred
+   and equal to the plain count; 2 GiB saved to .npy and .rtd and loaded
+   back byte-equal within the chunk bound, ``fileio:once`` retried; an
+   8192^2 float32 grid from ``rt.random`` through .npy, 100 star2 sweeps
+   on the TMA path, a checkpoint, a restore and 100 more sweeps byte-equal
+   to 200 straight, ``checkpoint_io:once`` retried and a
+   ``checkpoint:leaf`` flip refused.  Every kernel's launch
    count is set to 0 just before each
    path and read just after; a path that does not launch its kernel fails
    the run;
@@ -98,6 +110,11 @@ PEAK_OPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 67e12}
 # on the CUDA cores, float64 on the FP64 tensor cores
 PEAK_MATMUL = {"float32": 67e12, "float64": 67e12}
 EPS = {"float32": 2.0 ** -23, "float64": 2.0 ** -52}
+# io_path's sizes: the draws, the Monte-Carlo points and the I/O array;
+# the permutation; the solver's grid edge
+IO_N = 1 << 28
+IO_PERM_N = 1 << 26
+IO_GRID = 8192
 
 
 def log(*a):
@@ -188,6 +205,20 @@ def bytes_equal(a, b) -> bool:
     return (a.dtype == b.dtype and a.shape == b.shape
             and torch.equal(a.reshape(-1).view(torch.uint8),
                             b.reshape(-1).view(torch.uint8)))
+
+
+def same_bits_but_nan(a, b) -> bool:
+    """NaN in the same places and the same bits (sign bits included)
+    everywhere else: inf - inf gives the card's NaN pattern on the card and
+    the CPU's on the CPU."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    nan = torch.isnan(a)
+    ibits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a.view(ibits)[~nan], b.view(ibits)[~nan]))
 
 
 def stencil_paths(sk) -> dict:
@@ -585,6 +616,38 @@ def cast_sign_checks(rt, er, torch):
             f"plain version, zeros keep their sign {'ok' if ok else 'MISS'}")
         if not ok:
             raise Fail("sign(-0.0) on the card")
+    spacing_checks(rt, er, torch)
+
+
+SPACING_VALUES = [0.0, -0.0, 1.0, -1.0, 1e-40, -1e-40, 6e-8, -6e-8, 3.0e38,
+                  65504.0, 1e300, float("inf"), float("-inf"), float("nan"),
+                  2.5, -7.25]
+
+
+def spacing_checks(rt, er, torch):
+    """``spacing`` on the card: the elemred classifier turns it away (no
+    C++ for nextafter in the emitter), so it runs on the generic lowering;
+    its bytes there equal the plain version's on the CPU for float16, 32
+    and 64, ramba_tpu's rule (-0.0 gives the negative smallest subnormal,
+    NaN and inf give NaN)."""
+    from ramba_tpu_torch.core import expr as E
+
+    for tdt in (torch.float16, torch.float32, torch.float64):
+        vals = torch.tensor(SPACING_VALUES, dtype=torch.float64).to(tdt)
+        xc = vals.repeat(1 << 16).cuda()
+        p, lv = _program(lambda: [rt.spacing(rt.fromarray(xc))])
+        if er.kb.classify(p, lv) is not None:
+            raise Fail("a kernel took spacing: this check expects the "
+                       "generic lowering")
+        got = rt.spacing(rt.fromarray(xc))._value().cpu()
+        want = E.UNARY["spacing"](xc.cpu())
+        ok = same_bits_but_nan(got, want)
+        log(f"  spacing {tdt} (generic lowering on the card) of "
+            f"+-0/subnormal/inf/NaN/1e300: NaN where the plain version on "
+            f"the CPU has NaN, its bits elsewhere (a NaN's payload is the "
+            f"hardware's) {'ok' if ok else 'MISS'}")
+        if not ok:
+            raise Fail(f"spacing {tdt} on the card")
 
 
 def phase_build(rt, er, sk, sg, gb, jacobi, sc):
@@ -684,12 +747,22 @@ def elemred_plans(rt, er, np):
         if dt == "float64":  # the indexing phase's np.where
             plans.append(er.plan_for(*_program(
                 lambda: [np.where(x > 0, x, y)])))
+        if dt == "float64":  # io_path's Monte-Carlo estimate
+            plans.append(er.plan_for(*_program(
+                lambda: [mc_hits(rt, x, y)])))
     for dt in ("int32", "int64"):
         a = rt.fromarray(rs.randint(-5, 6, 64).astype(dt))
         b = rt.fromarray(rs.randint(1, 6, 64).astype(dt))
         for _name, f in int_checks(rt, a, b):
             plans.append(er.plan_for(*_program(f)))
     return plans
+
+
+def mc_hits(rt, x, y):
+    """The Monte-Carlo estimate's count of draws inside the quarter circle:
+    an int64 sum of a bool compare (exact in any order; ``mean`` of a bool
+    is float32 by jnp's rule, so the estimate divides on the host)."""
+    return rt.sum(x * x + y * y <= 1.0)
 
 
 def _program(exprs_of):
@@ -1477,7 +1550,323 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
     skeletons_path(rt, er, torch, np, card, window)
     indexing_path(rt, sc, torch, np, card, window)
     breadth_path(rt, er, sg, sc, torch, np, card, window)
+    io_path(rt, sk, torch, np, card, window)
     return totals
+
+
+def io_path(rt, sk, torch, np, card, window):
+    """Seeded draws, a Monte-Carlo estimate on elemred, file I/O and a
+    checkpointed stencil solver at full size: ``rt.random``,
+    ``rt.save``/``rt.load`` and ``checkpoint`` with the resilience plane
+    under them.  Files live in a temporary directory removed at the end,
+    each big one deleted after its check."""
+    import shutil
+    import tempfile
+
+    from ramba_tpu_torch.resilience import faults
+
+    log("io_path: seeded draws, Monte-Carlo pi, file I/O, a checkpointed "
+        "star2 solver")
+    root = tempfile.mkdtemp(prefix="ramba_io_")
+    try:
+        io_draws(rt, torch, card, window)
+        io_monte_carlo(rt, torch, card, window)
+        io_files(rt, torch, card, window, root)
+        io_solver(rt, sk, torch, np, card, window, root)
+    finally:
+        faults.configure(None)
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def _synced(make):
+    """(tensor of ``make()``, host seconds until the card finished it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v = make()._value()
+    torch.cuda.synchronize()
+    return v, time.perf_counter() - t0
+
+
+def _moments_ok(what, v, mean, var, mu4):
+    """The sample mean and variance of ``v`` within 6 standard errors of
+    the distribution's (``mu4``: its fourth central moment)."""
+    n = v.numel()
+    d = v.double()
+    m = d.mean().item()
+    s2 = ((d - m) ** 2).mean().item()
+    del d
+    se_m, se_v = (var / n) ** 0.5, ((mu4 - var * var) / n) ** 0.5
+    ok = abs(m - mean) <= 6 * se_m and abs(s2 - var) <= 6 * se_v
+    log(f"  {what}: mean {m!r} (want {mean!r} within 6 SE = {6 * se_m:.3e}), "
+        f"variance {s2!r} (want {var!r} within 6 SE = {6 * se_v:.3e}) "
+        f"{'ok' if ok else 'MISS'}")
+    if not ok:
+        raise Fail(f"{what}: moments off")
+
+
+def io_draws(rt, torch, card, window):
+    """random, normal, randint and exponential of 2^28 (float64 where
+    float) and permutation(2^26), checked and timed; a reseed reproduces
+    every draw byte for byte; re-running one draw's program gives the same
+    bytes; ten seeds of one shape add no compile."""
+    from ramba_tpu_torch.core import fuser
+
+    n, k = IO_N, 1000
+    draws = [
+        ("random", lambda: rt.random.random(n), (0.5, 1 / 12, 1 / 80)),
+        ("normal", lambda: rt.random.normal(size=n), (0.0, 1.0, 3.0)),
+        (f"randint(0, {k})", lambda: rt.random.randint(0, k, size=n),
+         ((k - 1) / 2, (k * k - 1) / 12, (k * k - 1) * (3 * k * k - 7) / 240)),
+        ("exponential", lambda: rt.random.exponential(size=n),
+         (1.0, 1.0, 9.0)),
+        ("permutation(2^26)", lambda: rt.random.permutation(IO_PERM_N), None),
+    ]
+
+    def run():
+        rt.random.seed(1234)
+        first = []
+        for name, make, mom in draws:
+            v, wall = _synced(make)
+            first.append((v, wall))
+            if mom is not None:
+                _moments_ok(f"{name} n=2^28 {v.dtype}", v, *mom)
+            else:
+                ok = v.dtype == torch.int64 and torch.equal(
+                    torch.sort(v).values,
+                    torch.arange(v.numel(), device=v.device))
+                log(f"  {name}: int64, sorted it is arange(2^26) "
+                    f"{'ok' if ok else 'MISS'}")
+                if not ok:
+                    raise Fail("permutation is not a permutation")
+        lo, hi = int(first[2][0].min()), int(first[2][0].max())
+        if (lo, hi) != (0, k - 1):
+            raise Fail(f"randint(0, {k}) support [{lo}, {hi}]")
+        log(f"  randint(0, {k}) support [{lo}, {hi}] ok")
+        rt.random.seed(1234)
+        for (name, make, _m), (v0, cold) in zip(draws, first):
+            v, wall = _synced(make)
+            same = bytes_equal(v, v0)
+            log(f"  {name}: reseeded draw byte-equal {'ok' if same else 'MISS'};"
+                f" {wall * 1e3:.4f} ms ({v.numel() * v.element_size() / wall / 1e9:.1f}"
+                f" GB/s written; first draw {cold * 1e3:.4f} ms) [{card}]")
+            if not same:
+                raise Fail(f"{name}: a reseed did not reproduce the draw")
+        del first, v, v0
+        x = rt.random.normal(size=n)
+        expr = x.read_expr()
+        v1 = fuser.evaluate(expr)
+        v2 = fuser.evaluate(expr)
+        same = bytes_equal(v1, v2)
+        log(f"  normal n=2^28: its program run twice gives the same bytes "
+            f"{'ok' if same else 'MISS'}")
+        if not same:
+            raise Fail("a draw's program gave other bytes on a rerun")
+        del x, expr, v1, v2
+        c0 = rt.fuser_stats["compiles"]
+        for s in range(10):
+            rt.random.seed(100 + s)
+            rt.random.random(n)._value()
+        added = rt.fuser_stats["compiles"] - c0
+        log(f"  ten seeds of random(2^28): {added} compiles added "
+            f"{'ok' if added == 0 else 'MISS'}")
+        if added:
+            raise Fail("a new seed compiled a new program")
+        torch.cuda.empty_cache()
+
+    window("io_path draws", run, {})
+
+
+def io_monte_carlo(rt, torch, card, window):
+    """pi from 2^28 seeded points: hits counted on elemred (an int64 sum of
+    a bool compare), equal to the plain count on the same draws, within 6
+    sigma of pi."""
+    import math
+
+    n = IO_N
+    rt.random.seed(2718)
+    x, y = rt.random.random(n), rt.random.random(n)
+    rt.sync()
+    xt, yt = x._value(), y._value()
+
+    def estimate():
+        t0 = time.perf_counter()
+        hits = int(mc_hits(rt, x, y))
+        return hits, time.perf_counter() - t0
+
+    window("Monte-Carlo pi n=2^28 (cold)", estimate, {"elemred": 1})
+    hits, wall = window("Monte-Carlo pi n=2^28", estimate, {"elemred": 1})
+    plain = int(((xt * xt + yt * yt) <= 1.0).sum())
+    est = 4.0 * hits / n
+    p = math.pi / 4
+    six_sigma = 6 * 4 * math.sqrt(p * (1 - p) / n)
+    ok = hits == plain and abs(est - math.pi) <= six_sigma
+    log(f"  Monte-Carlo pi n=2^28 f64: {est!r}, |pi - est| = "
+        f"{abs(est - math.pi):.3e} (within 6 sigma = {six_sigma:.3e}); hits "
+        f"{hits} equal to the plain count {plain} (exact: an integer sum); "
+        f"{wall * 1e3:.4f} ms, {2 * n * 8 / wall / 1e9:.1f} GB/s read "
+        f"{'ok' if ok else 'MISS'} [{card}]")
+    if not ok:
+        raise Fail("Monte-Carlo pi disagrees")
+    del x, y, xt, yt
+
+
+def io_files(rt, torch, card, window, root):
+    """2^28 float64 (2 GiB) saved to .npy and .rtd and loaded back byte for
+    byte, the host window at or under the chunk bound; an injected
+    ``fileio:once`` is retried.  Cut to what the disk holds, and said."""
+    import os
+    import shutil
+
+    from ramba_tpu_torch import fileio
+    from ramba_tpu_torch.core import staging
+    from ramba_tpu_torch.observe import registry
+    from ramba_tpu_torch.resilience import faults
+
+    n = IO_N
+    free = shutil.disk_usage(root).free
+    while n > 1 << 20 and 2 * n * 8 > free:
+        n //= 2
+    if n < IO_N:
+        log(f"  io_path: the disk has {free} bytes free, the I/O size is cut "
+            f"to {n} float64 values")
+    nbytes = n * 8
+
+    def run():
+        rt.random.seed(99)
+        v = rt.random.random(n)
+        vt = v._value()
+        for ext in ("npy", "rtd"):
+            path = os.path.join(root, f"big.{ext}")
+            fileio.io_stats.update(chunks=0, max_chunk_bytes=0,
+                                   whole_array_reads=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rt.save(path, v)
+            t_save = time.perf_counter() - t0
+            b, t_load = _synced(lambda: rt.load(path))
+            st = dict(fileio.io_stats)
+            ok = (bytes_equal(b, vt) and st["whole_array_reads"] == 0
+                  and 0 < st["max_chunk_bytes"] <= staging.CHUNK_BYTES)
+            log(f"  .{ext} {nbytes} bytes f64: save {t_save:.4f} s "
+                f"({nbytes / t_save / 1e9:.2f} GB/s), load {t_load:.4f} s "
+                f"({nbytes / t_load / 1e9:.2f} GB/s), byte-equal, {st['chunks']} "
+                f"chunks, largest {st['max_chunk_bytes']} <= bound "
+                f"{staging.CHUNK_BYTES} {'ok' if ok else 'MISS'} [{card}]")
+            if not ok:
+                raise Fail(f".{ext} round trip")
+            del b
+            if ext == "npy":
+                r0 = registry.get("resilience.retries.fileio")
+                faults.configure("fileio:once")
+                try:
+                    b = rt.load(path)._value()
+                finally:
+                    faults.configure(None)
+                retried = registry.get("resilience.retries.fileio") - r0
+                ok = retried == 1 and bytes_equal(b, vt)
+                log(f"  .npy load under fileio:once: {retried} retry, "
+                    f"byte-equal {'ok' if ok else 'MISS'}")
+                if not ok:
+                    raise Fail("fileio:once was not retried")
+                del b
+            if os.path.isdir(path):
+                shutil.rmtree(path)
+            else:
+                os.remove(path)
+        torch.cuda.empty_cache()
+
+    window("io_path files", run, {})
+
+
+def io_solver(rt, sk, torch, np, card, window, root):
+    """An 8192^2 float32 grid from ``rt.random``, saved to .npy and loaded
+    back; 100 star2 sweeps (``sstencil_iterate``, the stencil kernel's TMA
+    path), a checkpoint, a restore into fresh state and 100 more sweeps,
+    byte-equal to 200 sweeps straight; the digest sidecar verifies on
+    restore; ``checkpoint_io:once`` is retried; a ``checkpoint:leaf`` flip
+    makes restore raise."""
+    import os
+
+    from ramba_tpu_torch import checkpoint
+    from ramba_tpu_torch.observe import registry
+    from ramba_tpu_torch.resilience import faults, integrity
+
+    sn = IO_GRID
+    star2 = rt.stencil(star2_body)
+    rt.random.seed(31)
+    g = rt.random.random((sn, sn)).astype(np.float32)
+    gpath = os.path.join(root, "grid.npy")
+    rt.save(gpath, g)
+    g2 = rt.load(gpath)
+    os.remove(gpath)
+    if not bytes_equal(g2._value(), g._value()):
+        raise Fail("the grid's .npy round trip")
+    del g
+    ck = os.path.join(root, "ck")
+    nbytes = sn * sn * 4 + 8
+
+    def solve():
+        t0 = time.perf_counter()
+        y100 = rt.sstencil_iterate(star2, g2, 100)
+        y100._value()
+        torch.cuda.synchronize()
+        t_sweeps = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        checkpoint.save(ck, {"grid": y100, "step": 100})
+        t_save = time.perf_counter() - t0
+        del y100
+        v0 = integrity.stats["verified"]
+        t0 = time.perf_counter()
+        state = checkpoint.restore(ck)  # its leaves are on the card
+        t_restore = time.perf_counter() - t0
+        verified = integrity.stats["verified"] - v0
+        resumed = rt.sstencil_iterate(star2, state["grid"],
+                                      200 - int(state["step"]))._value()
+        straight = rt.sstencil_iterate(star2, g2, 200)._value()
+        torch.cuda.synchronize()
+        return (bytes_equal(resumed, straight), sk.launches_tma, t_sweeps,
+                t_save, t_restore, verified)
+
+    same, tma, t_sweeps, t_save, t_restore, verified = window(
+        "checkpointed star2 solver 8192^2 f32", solve, {"stencil": 400})
+    ok = same and tma == 400 and verified == 1 and \
+        os.path.exists(checkpoint.digests_path(ck))
+    log(f"  star2 8192^2 f32: 100 sweeps {t_sweeps:.4f} s, checkpoint save "
+        f"{t_save:.4f} s ({nbytes / t_save / 1e9:.2f} GB/s), restore "
+        f"{t_restore:.4f} s ({nbytes / t_restore / 1e9:.2f} GB/s), the "
+        f"digest sidecar verified; 100 + 100 resumed sweeps byte-equal to "
+        f"200 straight, {tma} of 400 launches on the TMA path "
+        f"{'ok' if ok else 'MISS'} [{card}]")
+    if not ok:
+        raise Fail("the checkpointed solver")
+    r0 = registry.get("resilience.retries.checkpoint_io")
+    faults.configure("checkpoint_io:once")
+    try:
+        checkpoint.save(ck, {"grid": g2, "step": 0}, force=True)
+    finally:
+        faults.configure(None)
+    back = checkpoint.restore(ck)
+    retried = registry.get("resilience.retries.checkpoint_io") - r0
+    ok = retried == 1 and bytes_equal(back["grid"]._value(), g2._value())
+    log(f"  checkpoint save under checkpoint_io:once: {retried} retry, "
+        f"restore byte-equal {'ok' if ok else 'MISS'}")
+    if not ok:
+        raise Fail("checkpoint_io:once was not retried")
+    del back
+    faults.configure("checkpoint:leaf:flip:bytes=1")
+    try:
+        checkpoint.restore(ck)
+    except checkpoint.CheckpointCorruptError as e:
+        log(f"  checkpoint:leaf flip: restore raised CheckpointCorruptError "
+            f"({e}) ok")
+    else:
+        raise Fail("a flipped checkpoint leaf restored without an error")
+    finally:
+        faults.configure(None)
+
 
 
 def groupby_path(rt, sg, torch, np, card, window):

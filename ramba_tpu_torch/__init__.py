@@ -10,6 +10,9 @@ segment reductions run through a hand-written CUDA C++ kernel
 a hand-written fixed-order CUDA C++ scan (``ops/scan.py``,
 ``csrc/scan.cuh``).  The skeletons (smap, sreduce, scumulative, spmd on
 one card) call user kernels on whole tensors through the generic lowering.
+Seeded draws (``random``), file I/O (``load``/``save`` and friends) and
+atomic, digest-verified ``checkpoint``s sit on the resilience plane's
+fault injection and retries (``resilience``).
 
 ``numpy.<fn>`` of port arrays runs the port's function where the port has
 one (``core/interop.py``'s registry, filled below) and raises
@@ -83,6 +86,13 @@ from ramba_tpu_torch.ops.extras import (  # noqa: F401
 )
 from ramba_tpu_torch import fft  # noqa: F401
 from ramba_tpu_torch import linalg  # noqa: F401
+from ramba_tpu_torch import fileio  # noqa: F401
+from ramba_tpu_torch.fileio import (  # noqa: F401
+    Dataset, genfromtxt, load, loadtxt, register_loader, save, savetxt,
+)
+from ramba_tpu_torch import checkpoint  # noqa: F401
+from ramba_tpu_torch import random  # noqa: F401
+from ramba_tpu_torch import resilience  # noqa: F401
 from ramba_tpu_torch.skeletons import (  # noqa: F401
     KernelTraceError, LocalView, SreduceReducer, barrier, scumulative, smap,
     smap_index, spmd, sreduce, sreduce_index, sstencil, sstencil_iterate,

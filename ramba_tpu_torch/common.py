@@ -30,6 +30,31 @@ def _env_int(name: str, default: int) -> int:
         return default
 
 
+_BYTE_SUFFIXES = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30, "t": 1 << 40}
+
+
+def parse_bytes(s) -> int:
+    """Parse a byte count: a plain integer or an integer/float with a
+    ``k``/``m``/``g``/``t`` suffix (binary multiples, case-insensitive,
+    optional trailing ``b``/``ib``): ``"512k"`` → 524288, ``"1.5g"`` →
+    1610612736.  The fault harness's ``bytes=`` payload uses it.  Raises
+    ValueError on junk."""
+    if isinstance(s, (int, float)):
+        return int(s)
+    text = str(s).strip().lower()
+    if not text:
+        raise ValueError("empty byte count")
+    for tail in ("ib", "b"):
+        if text.endswith(tail) and text[:-len(tail)][-1:] in _BYTE_SUFFIXES:
+            text = text[:-len(tail)]
+            break
+    mult = 1
+    if text[-1:] in _BYTE_SUFFIXES:
+        mult = _BYTE_SUFFIXES[text[-1]]
+        text = text[:-1]
+    return int(float(text) * mult)
+
+
 # Max pending lazy ops before a forced flush (bounds host-side graph memory).
 max_pending_ops = _env_int("RAMBA_TPU_MAX_PENDING", 10_000)
 

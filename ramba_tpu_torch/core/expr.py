@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
 from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
@@ -535,6 +536,31 @@ def _invert(x):
     return torch.logical_not(x) if x.dtype == torch.bool else torch.bitwise_not(x)
 
 
+def _next_up_half(x):
+    """``nextafter(x, inf)`` of float16 through its bit pattern (torch's
+    CUDA nextafter has no half loop): +1 on the pattern of a non-negative
+    value, -1 on a negative one, -0.0 to the smallest subnormal; inf and
+    NaN stay."""
+    b = x.view(torch.int16)
+    up = torch.where(b >= 0, b + 1, b - 1)
+    up = torch.where(b == -(1 << 15), torch.ones_like(b), up)
+    return torch.where(torch.isnan(x) | (x == float("inf")), x,
+                       up.view(torch.float16))
+
+
+def _spacing(x):
+    """jnp.spacing, as ``ramba_tpu`` gives it: the step to the next value
+    away from zero, carrying the sign of ``x`` (``-0.0`` gives the negative
+    smallest subnormal, where NumPy gives the positive one); NaN and +-inf
+    give NaN.  float16 takes the step toward +inf (jnp's rule for it)."""
+    if x.dtype == torch.float16:
+        return _next_up_half(x) - x
+    inf = torch.full((), float("inf"), dtype=x.dtype, device=x.device)
+    r = torch.nextafter(x, torch.copysign(inf, x)) - x
+    tiny = float(np.finfo(to_np_dtype(x.dtype)).smallest_subnormal)
+    return torch.where(r == 0, torch.copysign(torch.full_like(x, tiny), x), r)
+
+
 def _imag(x):
     return torch.imag(x) if x.is_complex() else torch.zeros_like(x)
 
@@ -675,8 +701,8 @@ UNARY: dict[str, Callable] = {
     "radians": _complex_or(_times(np.pi / 180), torch.deg2rad),
     "deg2rad": _complex_or(_times(np.pi / 180), torch.deg2rad),
     "rad2deg": _complex_or(_times(180 / np.pi), torch.rad2deg),
-    "signbit": torch.signbit, "sinc": torch.sinc, "i0": torch.i0,
-    "angle": torch.angle,
+    "signbit": torch.signbit, "spacing": _spacing, "sinc": torch.sinc,
+    "i0": torch.i0, "angle": torch.angle,
 }
 
 def floor_div_by_zero(a: torch.Tensor) -> torch.Tensor:
@@ -2392,3 +2418,94 @@ def _op_fromfunction(static):
 
     shape, dtype, fn = static
     return fromfunction_values(fn, shape, dtype, common.device())
+
+
+# -- random draws --------------------------------------------------------------
+
+
+def _aval_random(static, key, *params):
+    kind, shape, dtype, _spec = static
+    shape = tuple(shape)
+    if kind in ("choice", "choice_norepl"):
+        shape += tuple(params[0].shape[1:])  # rows of an n-d population
+    return Aval(shape, np.dtype(dtype), False)
+
+
+def _rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``arr[idx]`` along axis 0 (uint16/32/64 through their signed view:
+    torch gathers none of them on the card)."""
+    return _unbits(_bits(arr)[idx], arr.dtype)
+
+
+@defop("random", _aval_random)
+def _op_random(static, key, *params):
+    """One draw, a pure function of its key: a generator on the process
+    device is seeded from the key on every execution (never the global
+    generator), so re-running the program gives the same bytes.  The key
+    is a 0-d int64 leaf on the host (no device sync to read it) and stays
+    out of ``static``, so a new seed reuses the compiled program.
+    ``static`` is ``ramba_tpu``'s ``(kind, shape, dtype, spec)``; ``spec``
+    places nothing on one card."""
+    kind, shape, dtype, _spec = static
+    shape = tuple(shape)
+    dev = common.device()
+    tdt = to_torch_dtype(dtype)
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(key))
+
+    def full(v, dt=torch.float64):
+        return torch.full(shape, float(v), dtype=dt, device=dev)
+
+    if kind == "uniform":
+        return torch.rand(shape, generator=g, dtype=tdt, device=dev)
+    if kind == "normal":
+        return torch.randn(shape, generator=g, dtype=tdt, device=dev)
+    if kind == "uniform_range":
+        lo, hi = params
+        u = torch.rand(shape, generator=g, dtype=tdt, device=dev)
+        # jax.random.uniform: lo + (hi - lo) * u, held at or above lo
+        return torch.clamp_min(u * (hi - lo) + lo, lo)
+    if kind == "randint":
+        lo, hi = params
+        return torch.randint(int(lo), int(hi), shape, generator=g, dtype=tdt,
+                             device=dev)
+    if kind == "permutation":
+        return torch.randperm(shape[0], generator=g, dtype=torch.int64,
+                              device=dev).to(tdt)
+    if kind == "permutation_array":
+        (arr,) = params
+        return _rows(arr, torch.randperm(arr.shape[0], generator=g,
+                                         device=dev))
+    if kind == "exponential":
+        return torch.empty(shape, dtype=tdt, device=dev).exponential_(
+            generator=g)
+    if kind == "poisson":
+        (lam,) = params
+        return torch.poisson(full(lam), generator=g).to(tdt)
+    if kind == "gamma":
+        (a,) = params
+        return torch._standard_gamma(full(a, tdt), generator=g)
+    if kind == "beta":
+        # a ratio of gammas, as jax.random.beta draws it
+        a, b = params
+        x = torch._standard_gamma(full(a, tdt), generator=g)
+        y = torch._standard_gamma(full(b, tdt), generator=g)
+        return x / (x + y)
+    if kind == "binomial":
+        n, p = params
+        return torch.binomial(full(n), full(p), generator=g).to(tdt)
+    if kind in ("choice", "choice_norepl"):
+        arr, *p = params
+        k = math.prod(shape)
+        m = arr.shape[0]
+        if k == 0:
+            idx = torch.zeros(0, dtype=torch.int64, device=dev)
+        elif p:
+            idx = torch.multinomial(p[0].to(torch.float64), k,
+                                    replacement=kind == "choice", generator=g)
+        elif kind == "choice":
+            idx = torch.randint(0, m, (k,), generator=g, device=dev)
+        else:
+            idx = torch.randperm(m, generator=g, device=dev)[:k]
+        return _rows(arr, idx).reshape(shape + tuple(arr.shape[1:]))
+    raise ValueError(kind)

@@ -1022,3 +1022,87 @@ def test_stack_of_group_sums_reaches_segred():
     want = torch.stack([x_t[torch.from_numpy(i).cuda()].sum() for i in idx])
     bound = 2 * segred.depth(n) * EPS[torch.float64] * x_t.abs().sum().item()
     assert (s - want).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("dtype", [np.float16, np.float32, np.float64])
+def test_spacing_on_the_card_equals_the_cpu(dtype):
+    """``spacing`` stays on the generic lowering: NaN where the plain
+    version on the CPU gives NaN (inf - inf gives each device's own NaN
+    pattern), its bits elsewhere, signed zeros included."""
+    vals = np.array([0.0, -0.0, 1.0, -1.0, 1e-40, -1e-40, 6e-8, 3.0e38,
+                     np.inf, -np.inf, np.nan, 65504.0, 2.5]).astype(dtype)
+    from ramba_tpu_torch.core.expr import UNARY
+
+    got = rt.spacing(rt.fromarray(vals)).asarray()
+    ref = UNARY["spacing"](torch.from_numpy(vals)).numpy()
+    assert got.dtype == ref.dtype
+    nan = np.isnan(ref)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    ibits = {2: np.int16, 4: np.int32, 8: np.int64}[ref.itemsize]
+    np.testing.assert_array_equal(got.view(ibits)[~nan], ref.view(ibits)[~nan])
+
+
+def test_draws_land_on_the_card_and_rerun_byte_equal():
+    from ramba_tpu_torch.core import fuser
+
+    rt.random.seed(3)
+    draws = [rt.random.random(1 << 20), rt.random.normal(size=(512, 256)),
+             rt.random.randint(0, 7, size=4096),
+             rt.random.exponential(size=999), rt.random.poisson(2.0, 500),
+             rt.random.permutation(1 << 16), rt.random.gamma(2.0, size=77),
+             rt.random.beta(2.0, 3.0, size=77),
+             rt.random.binomial(9, 0.4, size=77),
+             rt.random.choice(100, size=50, replace=False),
+             rt.random.choice(4, size=500, p=[0.1, 0.2, 0.3, 0.4])]
+    for x in draws:
+        expr = x.read_expr()
+        v1, v2 = fuser.evaluate(expr), fuser.evaluate(expr)
+        assert v1.device.type == "cuda"
+        assert torch.equal(v1.reshape(-1).view(torch.uint8),
+                           v2.reshape(-1).view(torch.uint8))
+    perm = draws[5]._value()
+    assert torch.equal(torch.sort(perm).values,
+                       torch.arange(1 << 16, device="cuda"))
+    c0 = rt.fuser_stats["compiles"]
+    for s in range(10):
+        rt.random.seed(s)
+        rt.random.random(1 << 20)._value()
+    assert rt.fuser_stats["compiles"] - c0 <= 1
+
+
+@pytest.mark.parametrize("ext", ["npy", "rtd"])
+def test_io_round_trip_from_the_card_keeps_the_chunk_bound(tmp_path, ext,
+                                                           monkeypatch):
+    from ramba_tpu_torch import fileio
+    from ramba_tpu_torch.core import staging
+
+    monkeypatch.setattr(staging, "CHUNK_BYTES", 1 << 20)
+    x = rt.random.random((1000, 700))  # 5.6 MB: six chunks
+    p = str(tmp_path / f"a.{ext}")
+    fileio.io_stats.update(chunks=0, max_chunk_bytes=0, whole_array_reads=0)
+    rt.save(p, x)
+    back = rt.load(p)
+    assert back._value().device.type == "cuda"
+    assert torch.equal(back._value(), x._value())
+    assert 0 < fileio.io_stats["max_chunk_bytes"] <= 1 << 20
+    assert fileio.io_stats["chunks"] == 2 * 6
+    assert fileio.io_stats["whole_array_reads"] == 0
+
+
+def test_checkpoint_round_trip_on_the_card(tmp_path):
+    from ramba_tpu_torch import checkpoint
+    from ramba_tpu_torch.resilience import faults
+
+    g = rt.random.random((300, 200)).astype(np.float32)
+    p = str(tmp_path / "ck")
+    checkpoint.save(p, {"grid": g, "step": 7})
+    back = checkpoint.restore(p)
+    assert back["grid"]._value().device.type == "cuda"
+    assert torch.equal(back["grid"]._value(), g._value())
+    assert int(back["step"]) == 7
+    faults.configure("checkpoint:leaf:flip:bytes=1")
+    try:
+        with pytest.raises(checkpoint.CheckpointCorruptError):
+            checkpoint.restore(p)
+    finally:
+        faults.configure(None)
