@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # the whole run (about a minute or two)
     python3 chip_smoke.py --quick    # phases 1-2 only: build and check kernels
+    python3 chip_smoke.py --mesh     # phase 1 and the mesh path only
 
 Phases, each reported on its own line:
 
@@ -24,6 +25,8 @@ Phases, each reported on its own line:
    SM clock read under load.
    This phase also holds the repairs: integer ``// 0`` on the elemred and
    stencil kernels against the rule itself, a uint32 chain against NumPy,
+   Python ints outside int32 wrapping through elemred and comparing
+   exactly, integer ``reciprocal`` of 0 giving the dtype's maximum,
    the bf16 stencil kernel exactly against its plain version, saturating
    float-to-int casts and ``sign(-0.0)`` through elemred and the generic
    lowering, ``spacing`` on the generic lowering against its plain
@@ -85,8 +88,17 @@ Phases, each reported on its own line:
    8192^2 float32 grid from ``rt.random`` through .npy, 100 star2 sweeps
    on the TMA path, a checkpoint, a restore and 100 more sweeps byte-equal
    to 200 straight, ``checkpoint_io:once`` retried and a
-   ``checkpoint:leaf`` flip refused.  Every kernel's launch
-   count is set to 0 just before each
+   ``checkpoint:leaf`` flip refused; then the mesh of shards
+   (``mesh_path``): a 2x2 mesh whose positions all hold cuda:0, star2
+   through ``sstencil`` (30 chained) and ``sstencil_iterate`` (100) at
+   8192^2 float32 (TMA path) and 10 + 20 sweeps at 4099x4133 (uneven
+   shards, cp.async path), the kernel launched once per shard per sweep
+   and the result byte-equal to the one-shard kernel's; spmd with
+   ``halo(2)`` (star2 by hand, masked with ``valid_mask``) equal to
+   sstencil's interior; sreduce with a SreduceReducer over 2^28 float64
+   and scumulative's cumsum over 2^26 float64 on 4 shards, each within
+   its bound of the one-shard answer and rerun byte-equal.  Every
+   kernel's launch count is set to 0 just before each
    path and read just after; a path that does not launch its kernel fails
    the run;
 4. a ``kernels`` JSON line, the card's name and power limit, and the last
@@ -561,7 +573,43 @@ def repair_checks(rt, er, sk, torch, np):
         f"against numpy: exact {'ok' if ok else 'MISS'}")
     if not ok:
         raise Fail("uint32 chain disagrees with numpy")
+    int_scalar_checks(rt, er, torch, np)
     cast_sign_checks(rt, er, torch)
+
+
+def int_scalar_programs(rt, x):
+    """(name, expression) of the elemred programs with out-of-range ints."""
+    return [("x + 2**40", lambda: x + 2 ** 40),
+            ("x * (2**33 + 3)", lambda: x * (2 ** 33 + 3)),
+            ("maximum(x, 2**32 + 5)", lambda: rt.maximum(x, 2 ** 32 + 5))]
+
+
+def int_scalar_checks(rt, er, torch, np):
+    """A Python int outside an integer array's dtype: arithmetic wraps
+    modulo the dtype through the elemred kernel (its C casts) as on the
+    generic lowering; a comparison with it is exact (one constant); integer
+    reciprocal of 0 is the dtype's maximum on the generic lowering."""
+    n = (1 << 20) + 3
+    x_np = (np.arange(n) % 201 - 100).astype(np.int32)
+    x = rt.fromarray(x_np)
+    wants = (x_np, x_np * 3, np.maximum(x_np, 5))
+    for (what, make), want in zip(int_scalar_programs(rt, x), wants):
+        p, lv = _program(lambda: [make()])
+        (got,) = er.launch(p, lv)
+        check_exact(f"elemred int32 {what}", got.cpu(),
+                    torch.from_numpy(want.astype(np.int32)),
+                    "the int wraps modulo 2**32")
+    check_exact("int32 x < 2**40 (one constant)",
+                torch.from_numpy((x < 2 ** 40).asarray()),
+                torch.ones(n, dtype=torch.bool), "NumPy compares exactly")
+    for dt, top in (("int8", 127), ("int32", 2 ** 31 - 1), ("uint8", 255),
+                    ("int64", 2 ** 63 - 1)):
+        v = np.array([0, 1, 2, 0, 3], dt)
+        got = rt.reciprocal(rt.fromarray(v)).asarray()
+        check_exact(f"reciprocal {dt} of 0 on the generic lowering",
+                    torch.from_numpy(got),
+                    torch.from_numpy(np.array([top, 1, 0, top, 0], dt)),
+                    "1 // 0 is the dtype's maximum")
 
 
 # float -> int casts saturate (NaN to 0, out of range to the limits) and
@@ -755,6 +803,9 @@ def elemred_plans(rt, er, np):
         b = rt.fromarray(rs.randint(1, 6, 64).astype(dt))
         for _name, f in int_checks(rt, a, b):
             plans.append(er.plan_for(*_program(f)))
+        if dt == "int32":  # the repair checks' out-of-range Python ints
+            for _name, f in int_scalar_programs(rt, a):
+                plans.append(er.plan_for(*_program(lambda: [f()])))
     return plans
 
 
@@ -1551,7 +1602,8 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
     indexing_path(rt, sc, torch, np, card, window)
     breadth_path(rt, er, sg, sc, torch, np, card, window)
     io_path(rt, sk, torch, np, card, window)
-    return totals
+    sharded = mesh_path(rt, sk, sc, torch, np, card, window)
+    return totals, sharded
 
 
 def io_path(rt, sk, torch, np, card, window):
@@ -3090,6 +3142,224 @@ def breadth_path(rt, er, sg, sc, torch, np, card, window):
     torch.cuda.empty_cache()
 
 
+MESH_GRID = 8192
+MESH_ODD = (4099, 4133)
+MESH_REDUCE_N = 1 << 28
+MESH_SCAN_N = 1 << 26
+
+
+def star2_by_hand(h):
+    """star2 written out over a block extended by 2 cells: the same
+    operations in the same order as ``star2_body``."""
+    c = slice(2, -2)
+    return (0.25 * (h[c, 3:-1] + h[c, 1:-3] + h[3:-1, c] + h[1:-3, c])
+            + 0.125 * (h[c, 4:] + h[c, :-4] + h[4:, c] + h[:-4, c]))
+
+
+def mesh_path(rt, sk, sc, torch, np, card, window):
+    """The mesh of shards in one process: a 2x2 mesh whose four positions
+    all hold cuda:0 (``set_mesh``).  star2 through ``sstencil`` (30
+    chained) and ``sstencil_iterate`` (100 sweeps) at 8192^2 float32 and
+    at 4099x4133 (uneven shards, the padded path), each byte-equal to the
+    one-shard kernel's result on the same input and held against the plain
+    version, with the kernel launched once per shard per sweep; spmd with
+    ``halo(2)``: star2 by hand on every halo-extended block, masked with
+    ``valid_mask``, against sstencil's interior; sreduce with a
+    SreduceReducer over 2^28 float64 (sum of squares) against the one-shard
+    fold and itself rerun; scumulative's cumsum over 2^26 float64 on 4
+    shards against ``rt.cumsum`` and itself rerun.  Returns the sharded
+    stencil's numbers for the kernels line."""
+    from ramba_tpu_torch import parallel
+    from ramba_tpu_torch.observe import registry
+    from ramba_tpu_torch.parallel import mesh as pm
+
+    log("  mesh_path: a 2x2 mesh of shards, every position on cuda:0")
+    one = pm.get_mesh()
+    grid = pm.Mesh(np.array([torch.device("cuda", 0)] * 4,
+                            dtype=object).reshape(2, 2), ("d0", "d1"))
+    star2 = rt.stencil(star2_body)
+    slots = (("arr", 0),)
+    lo, hi, _t = star2.neighborhood(slots)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    rows = []
+    try:
+        for shape, chained, iters, want_path in (
+                ((MESH_GRID, MESH_GRID), 30, 100, "tma"),
+                (MESH_ODD, 10, 20, "cpasync")):
+            rows.append(mesh_stencil(rt, sk, torch, card, window, pm, one,
+                                     grid, star2, lo, hi, slots, gen, shape,
+                                     chained, iters, want_path, registry,
+                                     parallel))
+        pm.set_mesh(grid)
+        mesh_spmd(rt, torch, card, window, star2, gen)
+        mesh_reduce_scan(rt, sc, torch, card, window, pm, one, grid, gen)
+    finally:
+        pm.set_mesh(one)
+    return rows
+
+
+def mesh_stencil(rt, sk, torch, card, window, pm, one, grid, star2, lo, hi,
+                 slots, gen, shape, chained, iters, want_path, registry,
+                 parallel):
+    what = f"star2 {shape[0]}x{shape[1]} f32 on the 2x2 mesh"
+    x_t = torch.rand(shape, generator=gen, device="cuda")
+    x = rt.fromarray(x_t)
+
+    def sweeps():
+        t0 = time.perf_counter()
+        y = x
+        for _ in range(chained):
+            y = rt.sstencil(star2, y)
+        yc = y._value()
+        torch.cuda.synchronize()
+        t_chain = (time.perf_counter() - t0) / chained
+        t0 = time.perf_counter()
+        yi = rt.sstencil_iterate(star2, x, iters)._value()
+        torch.cuda.synchronize()
+        t_iter = (time.perf_counter() - t0) / iters
+        return yc, yi, t_chain, t_iter
+
+    pm.set_mesh(one)
+    ref_chain, ref_iter, t1_chain, t1_iter = sweeps()
+    one_ms = cuda_ms(lambda: rt.sstencil_iterate(star2, x, 20)._value(),
+                     1) / 20
+    pm.set_mesh(grid)
+    h0 = registry.counters["stencil.halo_bytes_est"]
+    a0 = parallel.comm_stats["shard_assemble_bytes"]
+    yc, yi, t_chain, t_iter = window(
+        f"mesh {what}: {chained} sstencil + {iters} sstencil_iterate",
+        sweeps, {"stencil": 4 * (chained + iters)})
+    paths = stencil_paths(sk)
+    halo = (registry.counters["stencil.halo_bytes_est"] - h0) / (
+        chained + iters)
+    moved = (parallel.comm_stats["shard_assemble_bytes"] - a0) / (
+        chained + iters)
+    if paths[want_path] != 4 * (chained + iters):
+        raise Fail(f"{what}: load paths {paths}, expected every launch on "
+                   f"{want_path}")
+    for name, got, want in (("chained", yc, ref_chain),
+                            ("iterate", yi, ref_iter)):
+        ok = bytes_equal(got, want)
+        log(f"  {what} {name}: byte-equal to the one-shard kernel's result: "
+            f"{ok}")
+        if not ok:
+            raise Fail(f"{what} {name} differs from the one-shard result")
+    plain = x_t
+    for _ in range(chained):
+        plain = sk.stencil_reference(star2_body, lo, hi, slots, [plain])
+    err = check_close(f"{what} {chained} chained sweeps vs the plain version",
+                      yc, plain, 1e-6, "float32 per-op IEEE in both, "
+                      "same order")
+    del plain, ref_chain, ref_iter, yc, yi
+    ms = cuda_ms(lambda: rt.sstencil_iterate(star2, x, 20)._value(), 1) / 20
+    nbytes = 2 * x_t.numel() * 4
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    log(f"  {what}: {ms:.4f} ms/sweep on the card (20 iterate sweeps between "
+        f"CUDA events) against {one_ms:.4f} ms one-shard and a {bound_ms:.4f} "
+        f"ms bound; wall per sweep chained {1e3 * t_chain:.4f} ms (one-shard "
+        f"{1e3 * t1_chain:.4f}), iterate {1e3 * t_iter:.4f} ms (one-shard "
+        f"{1e3 * t1_iter:.4f}); 4 launches per sweep, load paths {paths}; "
+        f"stencil.halo_bytes_est {halo:.0f} B/sweep, assembled "
+        f"{moved:.0f} B/sweep [{card}]")
+    del x, x_t
+    torch.cuda.empty_cache()
+    return {"shape": what, "ms_per_sweep": ms, "one_shard_ms_per_sweep": one_ms,
+            "bound_ms": bound_ms, "launches_per_sweep": 4,
+            "paths": {k: v for k, v in paths.items() if v},
+            "halo_bytes_est_per_sweep": halo,
+            "assembled_bytes_per_sweep": moved, "max_abs_err": err,
+            "wall_ms_per_sweep_chained": 1e3 * t_chain,
+            "wall_ms_per_sweep_iterate": 1e3 * t_iter}
+
+
+def mesh_spmd(rt, torch, card, window, star2, gen):
+    n = MESH_GRID
+    x = rt.fromarray(torch.rand(n, n, generator=gen, device="cuda"))
+    dst = rt.zeros((n, n), dtype="float32")
+
+    def kernel(src, out):
+        out.set_local(rt.where(src.valid_mask, star2_by_hand(src.halo(2)),
+                               0.0))
+
+    def run():
+        t0 = time.perf_counter()
+        rt.spmd(kernel, x, dst)
+        v = dst._value()
+        torch.cuda.synchronize()
+        return v, time.perf_counter() - t0
+
+    got, wall = window("mesh spmd halo(2) star2 by hand 8192^2 f32", run, {})
+    want = rt.sstencil(star2, x)._value()
+    c = (slice(2, -2), slice(2, -2))
+    check_exact("mesh spmd star2 by hand vs sstencil on the interior",
+                got[c], want[c], "float32 per-op IEEE in both, same order")
+    log(f"  mesh spmd halo(2) 8192^2 f32: {wall:.4f} s (4 shard threads, "
+        f"halo exchange and flush) [{card}]")
+    del x, dst, got, want
+    torch.cuda.empty_cache()
+
+
+def mesh_reduce_scan(rt, sc, torch, card, window, pm, one, grid, gen):
+    n = MESH_REDUCE_N
+    x_t = torch.rand(n, generator=gen, device="cuda", dtype=torch.float64)
+    x = rt.fromarray(x_t)
+    red = rt.SreduceReducer(lambda a, b: a + b, lambda a, b: a + b)
+
+    def reduce():
+        t0 = time.perf_counter()
+        v = rt.sreduce(lambda v: v * v, red, 0.0, x)._value()
+        torch.cuda.synchronize()
+        return v, time.perf_counter() - t0
+
+    pm.set_mesh(one)
+    r1, _w = reduce()
+    pm.set_mesh(grid)
+    ra, wall = window("mesh sreduce SreduceReducer sum of squares 2^28 f64",
+                      reduce, {})
+    rb, _w = reduce()
+    # each order is a fold-halves tree of depth 28 (one shard) or 26 + 2
+    bound = 2 * 28 * EPS["float64"] * float(r1)
+    diff = abs(float(ra) - float(r1))
+    ok = bytes_equal(ra, rb) and diff <= bound
+    log(f"  mesh sreduce 2^28 f64 (4 shards, per-shard folds, then theirs): "
+        f"{float(ra)!r} vs one shard {float(r1)!r}, |diff| {diff:.3e} <= "
+        f"{bound:.3e} (2 x depth 28 x eps x sum); rerun byte-equal "
+        f"{bytes_equal(ra, rb)}; {wall:.4f} s [{card}]")
+    if not ok:
+        raise Fail("mesh sreduce disagrees with the one-shard fold or itself")
+    del x, x_t
+    torch.cuda.empty_cache()
+
+    m = MESH_SCAN_N
+    c_t = torch.rand(m, generator=gen, device="cuda", dtype=torch.float64)
+    c = rt.fromarray(c_t)
+
+    def scan():
+        t0 = time.perf_counter()
+        v = rt.scumulative(lambda v, cc: v + cc, lambda cc, b: b + cc,
+                           c)._value()
+        torch.cuda.synchronize()
+        return v, time.perf_counter() - t0
+
+    sa, wall = window("mesh scumulative cumsum 2^26 f64 on 4 shards", scan, {})
+    sb, _w = scan()
+    pm.set_mesh(one)
+    ref = rt.cumsum(c)._value()
+    pm.set_mesh(grid)
+    # the odd/even scan of a 2^24 block (2 x 24 levels), the carry fold
+    # over 4 shards and the scan kernel's own depth
+    depth = 2 * 24 + 4 + sc.depth(m)
+    excess = ((sa - ref).abs() - depth * EPS["float64"] * ref.abs()).max()
+    ok = bytes_equal(sa, sb) and float(excess) <= 0
+    log(f"  mesh scumulative cumsum 2^26 f64 (4 shards): within "
+        f"{depth} x eps x prefix of rt.cumsum: {float(excess) <= 0}, max abs "
+        f"err {max_abs(sa, ref):.3e}; rerun byte-equal {bytes_equal(sa, sb)}; "
+        f"{wall:.4f} s [{card}]")
+    if not ok:
+        raise Fail("mesh scumulative disagrees with rt.cumsum or itself")
+
+
 def split_cumsum(rt, sc, torch, c, label, card):
     """One ``rt.cumsum(c)``, read and synchronised, split into the host
     time until the scan's entry point is called (graph, flush, the output
@@ -3157,11 +3427,22 @@ def main(argv) -> int:
         f"torch {torch.__version__}, cuda {torch.version.cuda}")
     t_all = time.perf_counter()
     phase_build(rt, er, sk, sg, gb, jacobi, sc)
+    if "--mesh" in argv:  # phase 1 and mesh_path alone, a quicker check
+        window = launch_window(er, sk, sg, sc, dict.fromkeys(
+            ("elemred", "stencil", "segred", "scan"), 0), card)
+        log(json.dumps({"sharded": mesh_path(rt, sk, sc, torch, np, card,
+                                             window)}))
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        print(card, flush=True)
+        return 0
     rows = phase_kernels(rt, er, sk, sg, jacobi, torch, np, card, sc)
     if "--quick" not in argv:
-        totals = phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc)
+        totals, sharded = phase_main_path(rt, er, sk, sg, jacobi, torch, np,
+                                          card, sc)
         for row in rows:
             row["launches"] = totals[row["name"]]
+            if row["name"] == "stencil":
+                row["sharded"] = sharded
     log(f"total {time.perf_counter() - t_all:.1f} s; stencil bodies turned "
         f"away: {sk.ineligible}")
     print(json.dumps({"kernels": list(rows), "card": card}), flush=True)

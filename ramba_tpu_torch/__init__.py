@@ -8,8 +8,11 @@ kernel (``ops/stencil_kernel.py``, ``csrc/stencil_tile.cuh``); groupby's
 segment reductions run through a hand-written CUDA C++ kernel
 (``ops/segred.py``, ``csrc/segred.cuh``); float cumsum/cumprod run through
 a hand-written fixed-order CUDA C++ scan (``ops/scan.py``,
-``csrc/scan.cuh``).  The skeletons (smap, sreduce, scumulative, spmd on
-one card) call user kernels on whole tensors through the generic lowering.
+``csrc/scan.cuh``).  The skeletons (smap, sreduce, scumulative, spmd) call
+user kernels on whole tensors through the generic lowering.  A mesh of
+shard positions in one process (``set_mesh``; ``parallel/``) splits
+sstencil, spmd, scumulative and sreduce's reducers over shards: the
+stencil runs the CUDA kernel on every shard's halo-extended block.
 Seeded draws (``random``), file I/O (``load``/``save`` and friends) and
 atomic, digest-verified ``checkpoint``s sit on the resilience plane's
 fault injection and retries (``resilience``).
@@ -97,6 +100,12 @@ from ramba_tpu_torch.skeletons import (  # noqa: F401
     KernelTraceError, LocalView, SreduceReducer, barrier, scumulative, smap,
     smap_index, spmd, sreduce, sreduce_index, sstencil, sstencil_iterate,
     stencil, worker_id,
+)
+from ramba_tpu_torch.parallel.mesh import (  # noqa: F401
+    get_mesh, num_workers, set_mesh,
+)
+from ramba_tpu_torch.parallel.constraints import (  # noqa: F401
+    Constraint, add_constraint, clear_constraints, get_constraints,
 )
 
 # -- NumPy's namespace constants and dtypes --------------------------------------
@@ -202,9 +211,9 @@ def array_str(a, *args, **kwargs):
 
 
 def init():
-    """Explicit bring-up, for API parity: resolves the device now (the
-    card, or the CPU where asked for)."""
-    common.device()
+    """Explicit bring-up, for API parity: resolves the device and the
+    default mesh now (the card, or the CPU where asked for)."""
+    get_mesh()
 
 
 # The NumPy functions ``ramba_tpu`` dispatches (its whole list); those the

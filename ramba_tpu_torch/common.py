@@ -62,6 +62,10 @@ max_pending_ops = _env_int("RAMBA_TPU_MAX_PENDING", 10_000)
 # by default, as in ramba_tpu (RAMBA_TPU_REWRITE=0 turns them off).
 rewrite_enabled = _env_flag("RAMBA_TPU_REWRITE", True)
 
+# Arrays smaller than this stay whole on every shard (replicated), as in
+# ramba_tpu (RAMBA_DIST_THRESHOLD).
+dist_threshold = _env_int("RAMBA_DIST_THRESHOLD", 100)
+
 _device: "torch.device | None" = None
 
 

@@ -116,13 +116,17 @@ class Expr:
 class Const(Expr):
     """Leaf holding a concrete tensor.  ``host`` keeps the NumPy array an
     upload was made from (None otherwise), so graph rewrites can read
-    index constants without copying them back from the card."""
+    index constants without copying them back from the card.
+    ``sharding`` is the layout a realized array carries (a
+    ``parallel.mesh.NamedSharding``; None: the default layout of the
+    current mesh)."""
 
-    __slots__ = ("value", "host")
+    __slots__ = ("value", "host", "sharding")
 
-    def __init__(self, value, host=None):
+    def __init__(self, value, host=None, sharding=None):
         self.value = value
         self.host = host
+        self.sharding = sharding
         self.aval = aval_of(value)
 
 
@@ -515,12 +519,24 @@ def _sign(x):
 def _reciprocal(x):
     if x.is_floating_point() or x.is_complex():
         return torch.reciprocal(x)
-    # integer reciprocal is C integer division 1/x
-    return torch.div(torch.ones_like(x), x, rounding_mode="trunc")
+    # integer reciprocal is C integer division 1/x; 1/0 is the dtype's
+    # maximum, as in ramba_tpu (the integer ``// 0`` rule)
+    zero = x == 0
+    q = torch.div(torch.ones_like(x), torch.where(zero, torch.ones_like(x), x),
+                  rounding_mode="trunc")
+    return torch.where(zero, torch.full_like(x, torch.iinfo(x.dtype).max), q)
 
 
 def _cbrt(x):
-    return torch.sign(x) * torch.abs(x).pow(1.0 / 3.0)
+    # copysign keeps the sign of a zero: cbrt(-0.0) is -0.0
+    return torch.copysign(torch.abs(x).pow(1.0 / 3.0), x)
+
+
+def _heaviside(x, h):
+    """jnp's ``where(x < 0, 0, where(x > 0, 1, h))``: ``heaviside(nan, h)``
+    is ``h`` (NumPy gives NaN there)."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.where(x < 0, zero, torch.where(x > 0, zero + 1, h))
 
 
 def _absolute(x):
@@ -772,7 +788,7 @@ BINARY: dict[str, Callable] = {
     "less_equal": _lex(torch.le), "greater": _lex(torch.gt),
     "greater_equal": _lex(torch.ge),
     "copysign": torch.copysign, "nextafter": torch.nextafter,
-    "heaviside": torch.heaviside, "gcd": torch.gcd, "lcm": torch.lcm,
+    "heaviside": _heaviside, "gcd": torch.gcd, "lcm": torch.lcm,
     "ldexp": torch.ldexp,
 }
 
@@ -958,8 +974,57 @@ def convert(t: torch.Tensor, tdt: torch.dtype) -> torch.Tensor:
     return _unbits(out, tdt)
 
 
+def wrap_int(v, tdt: torch.dtype):
+    """A Python int in integer dtype ``tdt``, wrapped modulo 2**bits when it
+    lies outside the type's range (``u8 + 300`` adds 44), as ``ramba_tpu``
+    converts it.  Anything else passes unchanged."""
+    if not (isinstance(v, int) and not isinstance(v, bool)
+            and _is_integer(tdt)):
+        return v
+    info = torch.iinfo(tdt)
+    if info.min <= v <= info.max:
+        return v
+    v &= (1 << info.bits) - 1
+    return v - (1 << info.bits) if v > info.max else v
+
+
+# comparison -> the same comparison with its operands swapped
+_CMP_SWAP = {"less": "greater", "less_equal": "greater_equal",
+             "greater": "less", "greater_equal": "less_equal",
+             "equal": "equal", "not_equal": "not_equal"}
+
+
+def int_compare_outside(fname: str, avals: Sequence[Aval], values):
+    """NumPy compares an integer array with a Python int outside the
+    array's dtype exactly (``u8 < 300`` is all True), where converting the
+    int would wrap it.  Such a comparison is one constant for every element:
+    returns it (a bool), or None when the comparison is an ordinary one.
+    ``values`` holds each operand's Python value, or None for an array."""
+    if fname not in _CMP_SWAP or len(avals) != 2:
+        return None
+    for k in (0, 1):
+        v = values[k]
+        if not (isinstance(v, int) and not isinstance(v, bool)
+                and avals[k].weak):
+            continue
+        loop = loop_dtypes(fname, avals)
+        if loop is None or loop[k].kind not in "iu":
+            return None
+        info = np.iinfo(loop[k])
+        if info.min <= v <= info.max:
+            return None
+        # every element lies below v (v above the range) or above it
+        op = fname if k == 1 else _CMP_SWAP[fname]  # array OP v
+        above = v > info.max
+        return {"less": above, "less_equal": above, "greater": not above,
+                "greater_equal": not above, "equal": False,
+                "not_equal": True}[op]
+    return None
+
+
 def as_tensor(v, dtype=None, dev=None) -> torch.Tensor:
-    """A runtime value as a tensor of numpy ``dtype`` (default: its own)."""
+    """A runtime value as a tensor of numpy ``dtype`` (default: its own).
+    A Python int outside an integer dtype wraps (:func:`wrap_int`)."""
     if dtype is None:
         dtype = aval_of(v).dtype
     tdt = to_torch_dtype(dtype)
@@ -967,6 +1032,7 @@ def as_tensor(v, dtype=None, dev=None) -> torch.Tensor:
         return convert(v, tdt)
     if isinstance(v, np.generic):
         v = v.item()
+    v = wrap_int(v, tdt)
     dev = common.device() if dev is None else dev
     if isinstance(v, float) and _is_integer(tdt):
         return convert(torch.full((), v, dtype=torch.float64, device=dev), tdt)
@@ -976,8 +1042,16 @@ def as_tensor(v, dtype=None, dev=None) -> torch.Tensor:
 
 def apply_map(fname: str, args: Sequence) -> torch.Tensor:
     """Evaluate one numpy ufunc on runtime values with numpy's dtypes."""
-    casts, out_dt = map_dtypes(fname, [aval_of(a) for a in args])
+    avals = [aval_of(a) for a in args]
     dev = _device_of(args)
+    if fname == "positive" and avals[0].dtype == np.bool_:
+        return as_tensor(args[0], dev=dev)  # ramba_tpu: unchanged
+    const = int_compare_outside(
+        fname, avals, [None if isinstance(a, torch.Tensor) else a for a in args])
+    if const is not None:
+        shape = np.broadcast_shapes(*[a.shape for a in avals])
+        return torch.full(shape, const, dtype=torch.bool, device=dev)
+    casts, out_dt = map_dtypes(fname, avals)
     cargs = [a if d is None and isinstance(a, torch.Tensor)
              else as_tensor(a, d if d is not None else None, dev)
              for a, d in zip(args, casts)]
@@ -999,7 +1073,20 @@ def _op_map(static, *args):
 def make_map(fname: str, operands: Sequence[Expr]) -> Expr:
     """Build an elementwise map node, strength-reducing ``power`` by a small
     static integer exponent into a multiply chain (as the JAX package does,
-    so both lower ``x**2`` to one multiply)."""
+    so both lower ``x**2`` to one multiply).  Two cases never become a map:
+    ``positive`` of bool is its operand, as in ``ramba_tpu`` (NumPy has no
+    such loop), and a comparison of an integer array with a Python int
+    outside its dtype is the constant NumPy gives (:func:`int_compare_outside`;
+    ``ramba_tpu`` wraps the int first), on every path alike."""
+    if fname == "positive" and len(operands) == 1 \
+            and operands[0].dtype == np.bool_:
+        return operands[0]
+    const = int_compare_outside(
+        fname, [o.aval for o in operands],
+        [o.value if isinstance(o, Scalar) else None for o in operands])
+    if const is not None:
+        shape = tuple(np.broadcast_shapes(*[o.shape for o in operands]))
+        return Node("full", (shape, "bool", None), [Scalar(const)])
     if fname == "power" and len(operands) == 2:
         e = operands[1]
         if (
@@ -2394,7 +2481,8 @@ def _op_full(static, fill):
         return fill.to(to_torch_dtype(dtype)).expand(tuple(shape)).clone()
     if isinstance(fill, np.generic):
         fill = fill.item()
-    return torch.full(tuple(shape), fill, dtype=to_torch_dtype(dtype),
+    tdt = to_torch_dtype(dtype)
+    return torch.full(tuple(shape), wrap_int(fill, tdt), dtype=tdt,
                       device=common.device())
 
 

@@ -28,9 +28,11 @@ import torch
 
 from ramba_tpu_torch import common
 from ramba_tpu_torch.core.expr import OPS, Const, Expr, Node, Scalar
+from ramba_tpu_torch.observe import registry as _registry
 
 # Monotone counters (observability; same keys as the JAX package's).
-stats = {"flushes": 0, "compiles": 0, "nodes_flushed": 0}
+# ``quarantined``: roots of failed flushes taken out of the pending registry.
+stats = {"flushes": 0, "compiles": 0, "nodes_flushed": 0, "quarantined": 0}
 
 # Called with no arguments after every flush (results shared between the
 # nodes of one flush are dropped there).
@@ -96,7 +98,7 @@ class FlushStream:
         """Materialize every pending array (and ``extra`` expressions) in
         one program run.  Returns the values of ``extra`` in order."""
         with self._flush_lock:
-            return _flush_roots(self.pending_roots(), extra)
+            return _flush_roots(self, self.pending_roots(), extra)
 
 
 _default_stream = FlushStream()
@@ -301,22 +303,45 @@ def _get_compiled(program: _Program, leaf_vals,
         return fn
 
 
-def _flush_roots(roots: list, extra: Sequence[Expr]) -> list:
-    exprs = [a._expr for a in roots] + list(extra)
+def _quarantine(stream: FlushStream, roots: list) -> None:
+    """The roots of a program that raised leave the pending registry, or
+    the one broken graph would re-enter, and re-fail, every later flush.
+    They keep their lazy graphs: a later read re-runs each one alone
+    (``ndarray._value``), so an array that did not cause the error still
+    gets its value and a broken one raises its own error again."""
+    for arr in roots:
+        stream.unregister(arr)
+    with _stats_lock:
+        stats["quarantined"] += len(roots)
+    _registry.inc("resilience.flush_quarantined", len(roots))
+
+
+def _flush_roots(stream: FlushStream, roots: list,
+                 extra: Sequence[Expr]) -> list:
+    root_exprs = [a._expr for a in roots]
+    exprs = root_exprs + list(extra)
     if not exprs:
         return []
-    if common.rewrite_enabled:
-        from ramba_tpu_torch.core.rewrite import rewrite_roots
-
-        exprs = rewrite_roots(exprs)
-    program, leaf_vals = prepare_program(exprs)
     try:
-        outs = _get_compiled(program, leaf_vals)(*leaf_vals)
-    finally:
-        for hook in after_flush:
-            hook()
-    for arr, val in zip(roots, outs):
-        arr._set_expr(Const(val))
+        if common.rewrite_enabled:
+            from ramba_tpu_torch.core.rewrite import rewrite_roots
+
+            exprs = rewrite_roots(exprs)
+        program, leaf_vals = prepare_program(exprs)
+        try:
+            outs = _get_compiled(program, leaf_vals)(*leaf_vals)
+        finally:
+            for hook in after_flush:
+                hook()
+    except Exception:
+        _quarantine(stream, roots)
+        raise
+    for arr, expr, val in zip(roots, root_exprs, outs):
+        # a sharding hint's root keeps the layout it names; other results
+        # take the default layout of the mesh they are read on
+        hint = expr.static[0] if isinstance(expr, Node) \
+            and expr.op == "shard_hint" else None
+        arr._set_expr(Const(val, sharding=hint))
     with _stats_lock:
         stats["flushes"] += 1
         stats["nodes_flushed"] += len(program.instrs)

@@ -8,13 +8,21 @@ the chain, which gives NumPy's view aliasing (``t = a.T; t += 1`` changes
 ``a``) on top of functional graph nodes.  Basic indexing gives such a view;
 an index with an array in it gathers (``getitem_adv``) or scatters
 (``setitem_adv``), and a boolean mask of the array's shape gives a
-:class:`~ramba_tpu_torch.core.masked.MaskedArray`.  Sharding is not ported
-yet.
+:class:`~ramba_tpu_torch.core.masked.MaskedArray`.
+
+A realized array has a layout (``sharding``: a mesh and spec).  Its leaf
+carries one where it was named (:func:`put_sharded`,
+``fromarray(distribution=)``, a sharding hint); any other array has
+``default_spec`` of the current mesh, as GSPMD lays out a program's
+outputs.  Every position of a
+mesh holds one device, so the storage is one tensor and each shard is a
+view into it (``addressable_shards``): the lowering reads it whole at no
+cost, and assembling it needs no copy.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -22,6 +30,7 @@ import torch
 from ramba_tpu_torch.core import expr as E
 from ramba_tpu_torch.core import fuser
 from ramba_tpu_torch.core.expr import Const, Expr, Node
+from ramba_tpu_torch.parallel import mesh as _mesh
 
 # ---------------------------------------------------------------------------
 # View ops
@@ -254,8 +263,29 @@ class ndarray:
         if self._base is None:
             if not isinstance(self._expr, Const):
                 fuser.flush()
+            if not isinstance(self._expr, Const):
+                # still lazy after a flush: a failed flush quarantined this
+                # array; its graph runs again alone and raises its own error
+                # if it is the broken one
+                self._set_expr(Const(fuser.flush(extra=[self._expr])[0]))
             return self._expr.value
         return fuser.flush(extra=[self.read_expr()])[0]
+
+    @property
+    def sharding(self) -> "_mesh.NamedSharding":
+        """The layout of the realized array (flushes lazy work)."""
+        self._value()
+        if self._base is None and self._expr.sharding is not None:
+            return self._expr.sharding
+        return _mesh.default_sharding(self.shape)
+
+    @property
+    def addressable_shards(self) -> list:
+        """One :class:`Shard` per mesh position, in grid order: its block
+        is a view into the array's one tensor."""
+        v, sh = self._value(), self.sharding
+        return [Shard(pos, sh.mesh.devices[pos], idx, v[idx])
+                for pos, idx in sh.shard_indices(self.shape)]
 
     def asarray(self) -> np.ndarray:
         """Gather to a host NumPy array."""
@@ -557,6 +587,34 @@ class ndarray:
         if func in HANDLED_FUNCTIONS:
             return HANDLED_FUNCTIONS[func](*args, **kwargs)
         return NotImplemented
+
+
+class Shard(NamedTuple):
+    """One shard of an array: its mesh position, device, global index and
+    block (a view)."""
+
+    position: tuple
+    device: torch.device
+    index: tuple
+    data: torch.Tensor
+
+
+def put_sharded(x, sharding) -> ndarray:
+    """Upload a host array (or adopt a tensor) under ``sharding``.  The
+    reference returns a ``jax.Array``; a torch tensor carries no layout, so
+    the port returns the array, whose leaf carries it.  The shards are
+    views into one tensor on the mesh's device."""
+    if not isinstance(sharding, _mesh.NamedSharding):
+        raise TypeError("put_sharded takes a parallel.mesh.NamedSharding, "
+                        f"got {type(sharding).__name__}")
+    if isinstance(x, torch.Tensor):
+        t = x.to(sharding.mesh.device)
+    else:
+        t = E.tensor_from_numpy(np.asarray(x), sharding.mesh.device)
+    if len(sharding.spec) > t.ndim:
+        raise ValueError(f"spec {sharding.spec} has more entries than the "
+                         f"{t.ndim}-d array")
+    return ndarray(Const(t, sharding=sharding))
 
 
 def as_exprable(x) -> Expr:

@@ -3,8 +3,7 @@
 Counterpart of ``ramba_tpu/observe/health.py``: explicit health records
 (:func:`record`) and the retry engine's recoveries
 (:func:`record_recovery`) land in the same event stream as everything
-else.  The reference's ``record_mesh`` records its first device mesh; the
-port has no mesh yet (it comes with multi-GPU).
+else; :func:`record_mesh` records the first default mesh of the process.
 """
 
 from __future__ import annotations
@@ -12,6 +11,8 @@ from __future__ import annotations
 from typing import Optional
 
 from ramba_tpu_torch.observe import events, registry
+
+_mesh_recorded = False
 
 
 def record(
@@ -47,3 +48,19 @@ def record_recovery(source: str, retries: int, **extra) -> dict:
     hard failures still show up in the health stream."""
     return record(outcome="recovered", source=source,
                   retries=int(retries), **extra)
+
+
+def record_mesh(mesh, init_seconds: float) -> None:
+    """Health record for the first default mesh (one per process)."""
+    global _mesh_recorded
+    if _mesh_recorded:
+        return
+    _mesh_recorded = True
+    record(
+        platform=mesh.device.type,
+        device_count=mesh.size,
+        init_seconds=init_seconds,
+        outcome="ok",
+        source="default_mesh",
+        mesh_shape={k: int(v) for k, v in mesh.shape.items()},
+    )

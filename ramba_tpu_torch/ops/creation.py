@@ -14,7 +14,8 @@ import torch
 from ramba_tpu_torch import common
 from ramba_tpu_torch.core import expr as E
 from ramba_tpu_torch.core.expr import Const, Node
-from ramba_tpu_torch.core.ndarray import ndarray, as_exprable
+from ramba_tpu_torch.core.ndarray import ndarray, as_exprable, put_sharded
+from ramba_tpu_torch.parallel import mesh as _mesh
 
 # x64 regime: numpy's default int and float
 _DEFAULT_INT = np.dtype(np.int64)
@@ -27,7 +28,9 @@ def _no_distribution(distribution):
     CPU) fails at the first array instead of at its first flush."""
     if distribution is not None:
         raise NotImplementedError(
-            "explicit distributions are not ported to ramba_tpu_torch yet")
+            "explicit distributions are taken by fromarray only; the other "
+            "creation ops take them with create_array_with_divisions, in the "
+            "multi-process slice of the port (ROADMAP A.6, part two)")
     common.device()
 
 
@@ -133,15 +136,36 @@ def init_array(shape, filler, dtype=float, distribution=None):
     return fromfunction(filler, shape, dtype=dtype, distribution=distribution)
 
 
+def _resolve_distribution(distribution, shape):
+    """A ``NamedSharding``, a ``PartitionSpec`` on the current mesh, or
+    per-dim split counts (``spec_from_splits``); None: the default layout."""
+    mesh = _mesh.get_mesh()
+    if distribution is None:
+        return _mesh.NamedSharding(mesh, _mesh.default_spec(shape, mesh))
+    if isinstance(distribution, _mesh.NamedSharding):
+        return distribution
+    if isinstance(distribution, _mesh.PartitionSpec):
+        return _mesh.NamedSharding(mesh, distribution)
+    splits = tuple(int(s) for s in distribution)
+    if len(splits) != len(shape):
+        raise ValueError(f"distribution has {len(splits)} entries for a "
+                         f"{len(shape)}-d array")
+    return _mesh.NamedSharding(mesh, _mesh.spec_from_splits(splits, mesh))
+
+
 def fromarray(arr, dtype=None, distribution=None):
     """Upload a host array (or adopt a tensor) as a leaf on the process
-    device, dtype kept exactly."""
-    _no_distribution(distribution)
+    device, dtype kept exactly, under ``distribution`` (a
+    ``NamedSharding``, a ``PartitionSpec`` or per-dim split counts;
+    default: ``default_spec`` of the current mesh)."""
+    common.device()
     if isinstance(arr, torch.Tensor):
         t = arr if dtype is None else arr.to(E.to_torch_dtype(_np_dtype(dtype)))
-        return ndarray(Const(t.to(common.device())))
-    a = np.asarray(arr) if dtype is None else np.asarray(arr, dtype=dtype)
-    return ndarray(Const(E.tensor_from_numpy(a)))
+    else:
+        a = np.asarray(arr) if dtype is None else np.asarray(arr, dtype=dtype)
+        t = E.tensor_from_numpy(a)
+    return put_sharded(t, _resolve_distribution(distribution,
+                                                tuple(t.shape)))
 
 
 def asarray(a, dtype=None):

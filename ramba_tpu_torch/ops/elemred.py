@@ -61,7 +61,7 @@ import numpy as np
 import torch
 
 from ramba_tpu_torch import _build
-from ramba_tpu_torch.core.expr import Aval, to_torch_dtype
+from ramba_tpu_torch.core.expr import Aval, to_torch_dtype, wrap_int
 from ramba_tpu_torch.core.fuser import run_instructions
 from ramba_tpu_torch.ops import cuda_expr as cx
 from ramba_tpu_torch.ops import kernel_backend as kb
@@ -673,7 +673,10 @@ def launch(program, leaf_vals, config: Config = CONFIG) -> tuple:
             scalars.append(v.data_ptr())
         else:
             v = v.item() if isinstance(v, (torch.Tensor, np.generic)) else v
-            scalars.append(float(v) if av[s].dtype.kind == "f" else int(v))
+            # an int travels as long long; the kernel's C casts wrap it to
+            # the width it is used at, as the generic lowering does
+            scalars.append(float(v) if av[s].dtype.kind == "f"
+                           else wrap_int(int(v), torch.int64))
     fn = _entry(plan)[0]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -33,6 +33,8 @@ to a Python number cannot be traced:
 
 from __future__ import annotations
 
+import itertools
+import math
 import threading
 import warnings
 from typing import Callable
@@ -40,11 +42,14 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ramba_tpu_torch import common
 from ramba_tpu_torch.core import expr as E
 from ramba_tpu_torch.core.expr import Aval, Node, defop
 from ramba_tpu_torch.core.fuser import sync
 from ramba_tpu_torch.core.ndarray import ndarray
+from ramba_tpu_torch.observe import registry as _registry
 from ramba_tpu_torch.ops.creation import asarray, full, zeros
+from ramba_tpu_torch.parallel import mesh as _mesh
 
 
 class KernelTraceError(RuntimeError):
@@ -551,9 +556,9 @@ def _aval_smap(static, *avals):
 defop("smap", _aval_smap)(_eval_smap)
 
 
-def _check_axis(args, axis):
-    """smap's ``axis=`` names the dim its operands are co-partitioned
-    along.  On one card nothing is partitioned: it is validated only."""
+def _constrain(args, axis):
+    """smap's ``axis=`` co-partitions its array operands along that dim
+    (``parallel.constraints.add_constraint``)."""
     if axis is None:
         return
     if isinstance(axis, bool) or not isinstance(axis, (int, np.integer)):
@@ -563,11 +568,14 @@ def _check_axis(args, axis):
                 not -a.ndim <= int(axis) < a.ndim:
             raise ValueError(
                 f"axis {axis} out of range for {a.ndim}-D operand")
+    from ramba_tpu_torch.parallel.constraints import add_constraint
+
+    add_constraint([a for a in args if isinstance(a, ndarray)], int(axis))
 
 
 def _smap_node(func, arr, args, with_index, axis):
     arr = asarray(arr)
-    _check_axis((arr,) + args, axis)
+    _constrain((arr,) + args, axis)
     slots, operands = _split_operands((arr,) + args)
     return ndarray(Node("smap", (func, tuple(slots), with_index), operands))
 
@@ -603,35 +611,53 @@ def fromfunction_values(fn, shape, dtype, dev, count=True):
 
 
 class SreduceReducer:
-    """Worker-local and cross-worker reducers (reference: SreduceReducer).
-    On one card there is one worker: the worker reducer folds everything
-    and the cross-worker reducer has one partial, so it is never called."""
+    """Worker-local and cross-worker reducers (reference: SreduceReducer):
+    each shard folds its block with ``worker_reducer``, then
+    ``driver_reducer`` folds the shards' partials.  On a one-shard mesh
+    there is one partial, so the driver reducer is never called."""
 
     def __init__(self, worker_reducer, driver_reducer):
         self.worker_reducer = worker_reducer
         self.driver_reducer = driver_reducer
 
 
-def _tree_reduce(flat, identity, comb):
-    """Fold halves after padding to a power of two with ``identity``: the
-    combine is an ordinary elementwise call on two halves, so any kernel
-    works, branch-lowered ones included."""
-    n = flat.shape[0]
+def _tree_reduce(x, identity, comb):
+    """Fold halves of the last dim after padding it to a power of two with
+    ``identity``: the combine is an ordinary elementwise call on two
+    halves, so any kernel works, branch-lowered ones included.  Each row of
+    a 2-D ``x`` folds alone, in the order a 1-D fold of it takes."""
+    n = x.shape[-1]
     size = 1 << max(0, int(n - 1).bit_length())
     if size != n:
-        flat = torch.cat([flat, identity.expand(size - n)])
-    while flat.shape[0] > 1:
-        half = flat.shape[0] // 2
-        flat = as_result(comb(flat[:half], flat[half:]), (half,), flat.device)
-    return flat[0]
+        x = torch.cat([x, identity.expand(*x.shape[:-1], size - n)], dim=-1)
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = as_result(comb(x[..., :half], x[..., half:]),
+                      x.shape[:-1] + (half,), x.device)
+    return x[..., 0]
 
 
 def _sreduce_value(static, mapped, count=True):
-    reducer, identity = static
+    worker, across, identity, split = static
     flat = mapped.reshape(-1)
     ident = E.as_tensor(identity, E.to_np_dtype(flat.dtype), flat.device)
-    return _tree_reduce(
-        flat, ident, lambda a, b: call_kernel(reducer, a, b, count=count))
+
+    def fold(fn):
+        return lambda a, b: call_kernel(fn, a, b, count=count)
+
+    n = _mesh.num_workers()
+    if not split or n == 1:
+        return _tree_reduce(flat, ident, fold(worker))
+    # a SreduceReducer: the flat data, padded with the identity to a
+    # multiple of the shard count, split evenly (row k is shard k's block,
+    # as ramba_tpu's shard_map splits it); every block folds with the
+    # worker reducer (all rows at once, each in its own order), then the
+    # partials fold with the cross-shard one
+    pad = (-flat.shape[0]) % n
+    if pad:
+        flat = torch.cat([flat, ident.expand(pad)])
+    partials = _tree_reduce(flat.reshape(n, -1), ident, fold(worker))
+    return _tree_reduce(partials, ident, fold(across))
 
 
 def _aval_sreduce(static, mapped):
@@ -648,8 +674,11 @@ defop("sreduce", _aval_sreduce)(
 def _sreduce_impl(func, reducer, identity, arr, args, with_index):
     mapped = _smap_node(func, arr, args, with_index, None)
     if isinstance(reducer, SreduceReducer):
-        reducer = reducer.worker_reducer  # one worker: its tree is the total
-    return ndarray(Node("sreduce", (reducer, identity), [mapped.read_expr()]))
+        static = (reducer.worker_reducer, reducer.driver_reducer, identity,
+                  True)
+    else:
+        static = (reducer, reducer, identity, False)
+    return ndarray(Node("sreduce", static, [mapped.read_expr()]))
 
 
 def sreduce(func, reducer, identity, arr, *args):
@@ -724,6 +753,10 @@ def _stencil_kernel_family(arrs):
 
 def _eval_stencil(static, *arrs):
     func, lo, hi, slots, _taps = static
+    from ramba_tpu_torch.ops import stencil_sharded
+
+    if stencil_sharded.eligible(lo, hi, arrs):
+        return stencil_sharded.run(func, lo, hi, slots, arrs)
     fam = _stencil_kernel_family(arrs)
     if fam is not None and fam.available(func, lo, hi, slots, arrs):
         return fam.run(func, lo, hi, slots, arrs)
@@ -777,6 +810,10 @@ def _eval_stencil_iter(static, *arrs):
         _sweep_dtype(func, lo, hi, slots, [E.to_np_dtype(a.dtype) for a in arrs]))
     a0 = arrs[0] if arrs[0].dtype == out_dt else arrs[0].to(out_dt)
     rest = list(arrs[1:])
+    from ramba_tpu_torch.ops import stencil_sharded
+
+    if stencil_sharded.eligible(lo, hi, arrs):
+        return stencil_sharded.run(func, lo, hi, slots, [a0] + rest, iters)
     fam = _stencil_kernel_family(arrs)
     if fam is not None and iters > 0 and \
             fam.available(func, lo, hi, slots, [a0] + rest):
@@ -964,22 +1001,85 @@ def sequential_scan(step, x):
 
 
 def _eval_scumulative(static, x):
-    local_func, associative, axis = static
+    local_func, final_func, associative, axis, distribute = static
     x = x.movedim(axis, 0)  # scan along the leading axis
+    n, rest = x.shape[0], tuple(x.shape[1:])
+
+    def call(fn, a, b):
+        shape = np.broadcast_shapes(tuple(a.shape), tuple(b.shape))
+        return as_result(call_kernel(fn, a, b), shape, x.device)
 
     def kernel(xi, carry):
-        shape = np.broadcast_shapes(tuple(xi.shape), tuple(carry.shape))
-        return as_result(call_kernel(local_func, xi, carry), shape, x.device)
+        return call(local_func, xi, carry)
 
-    if associative:
-        ys = associative_scan(lambda a, c: kernel(c, a), x)
-    else:
-        ys = sequential_scan(kernel, x)
-    return ys.movedim(0, axis).contiguous()
+    def local_scan(b):
+        if associative:
+            return associative_scan(lambda a, c: kernel(c, a), b)
+        return sequential_scan(kernel, b)
+
+    nsh = _mesh.num_workers()
+    if not distribute or nsh == 1 or n < nsh * 2:
+        return local_scan(x).movedim(0, axis).contiguous()
+    # Per-shard scans, then the carry fix-up: x padded to a multiple of
+    # the shard count and split evenly along the scan axis; every shard's
+    # block scans at once (dim 1 holds the shards, each in its own order),
+    # the shard totals fold in shard order with final_func into exclusive
+    # carries, and every shard but the first rebases its block on its
+    # carry.  ramba_tpu all-gathers the totals: counted as it counts them.
+    pad = (-n) % nsh
+    if pad:
+        x = torch.cat([x, torch.zeros((pad,) + rest, dtype=x.dtype,
+                                      device=x.device)])
+    _registry.inc("skeletons.scan_allgather_bytes_est",
+                  nsh * nsh * int(np.prod(rest, dtype=np.int64))
+                  * x.element_size())
+    ys = local_scan(x.reshape((nsh, -1) + rest).movedim(0, 1))
+    ts = ys[-1]
+    carries = [ts[0]]
+    for j in range(1, nsh - 1):
+        carries.append(call(final_func, carries[-1], ts[j]))
+    ys[:, 1:] = call(final_func, torch.stack(carries), ys[:, 1:])
+    out = ys.movedim(1, 0).reshape((n + pad,) + rest)[:n]
+    return out.movedim(0, axis).contiguous()
 
 
 defop("scumulative", lambda static, x: Aval(x.shape, x.dtype, False))(
     _eval_scumulative)
+
+
+def _scan_axis_shards(arr, axis, mesh) -> int:
+    """How many shards split ``axis`` of ``arr`` (its layout on ``mesh``)."""
+    spec = tuple(_mesh.layout_of(arr, mesh))
+    entry = spec[axis] if axis < len(spec) else None
+    k = 1
+    for nm in _mesh.entry_names(entry):
+        k *= int(mesh.shape.get(nm, 1))
+    return k
+
+
+_warned_nonassoc = False
+
+
+def _warn_nonassoc_sharded(k, nsh) -> None:
+    """A kernel that failed the associativity probe on a split scan axis is
+    exact only per block: say so, once."""
+    global _warned_nonassoc
+    if _warned_nonassoc:
+        return
+    _warned_nonassoc = True
+    warnings.warn(
+        "scumulative: the kernel failed the associativity probe and the "
+        f"scan axis is sharded over {k} of the mesh's {nsh} devices.  "
+        "Each shard scans its own "
+        "block and the cross-shard carry is applied via final_func(boundary, "
+        "block) — per-block carry semantics, identical to the reference's "
+        "scumulative_final, which can differ from an exact sequential scan "
+        "for non-rebasable kernels (e.g. clamped accumulators).  Pass "
+        "associative=True if the kernel is in fact associative, or keep the "
+        "scan axis unsharded for exact semantics.",
+        RuntimeWarning,
+        stacklevel=3,
+    )
 
 
 def scumulative(local_func, final_func, arr, axis=0, dtype=None, out=None,
@@ -1000,8 +1100,18 @@ def scumulative(local_func, final_func, arr, axis=0, dtype=None, out=None,
         arr = arr.astype(dtype)
     if associative is None:
         associative = _probe_associative(local_func, final_func)
-    # one card: the scan axis is never split, so final_func is not needed
-    res = ndarray(Node("scumulative", (local_func, bool(associative), axis),
+    mesh = _mesh.get_mesh()
+    nsh = mesh.size
+    n = arr.shape[axis] if arr.ndim else 0
+    k = _scan_axis_shards(arr, axis, mesh) if nsh > 1 else 1
+    # distribute only when the scan axis is split: an operand kept whole
+    # (or split on other axes) scans each block whole, exactly
+    distribute = nsh > 1 and k > 1 and \
+        n >= max(nsh * 2, common.dist_threshold)
+    if not associative and distribute:
+        _warn_nonassoc_sharded(k, nsh)
+    res = ndarray(Node("scumulative", (local_func, final_func,
+                                       bool(associative), axis, distribute),
                        [arr.read_expr()]))
     if out is not None:
         if tuple(out.shape) != tuple(arr.shape):
@@ -1020,19 +1130,84 @@ def _int32(v):
     return full((), int(v), np.int32)
 
 
-class LocalView:
-    """One worker's view of an array inside ``spmd`` (reference:
-    LocalNdarray, docs/index.md).  On one card the block is the whole
-    array: ``global_start`` is zeros, ``local_valid`` the shape,
-    ``valid_mask`` all True, and ``halo`` pads zeros beyond the global
-    domain.  ``set_local`` is the functional write-back: the updated block
-    replaces the source array after the call."""
+class _ShardAborted(RuntimeError):
+    """Raised in an spmd shard whose rendezvous another shard broke."""
 
-    def __init__(self, block, global_start=None, global_shape=None):
+
+class _Rendezvous:
+    """Where the shards of one ``spmd`` run meet: each shard runs the
+    kernel in a thread of its own, and a collective (``halo``'s exchange,
+    the end of the kernel) waits until every shard has posted its value for
+    that round, as ``shard_map``'s collectives do.  Shards that reach
+    different collectives, or a shard that raised, end the run."""
+
+    def __init__(self, n):
+        self.n = n
+        self.cv = threading.Condition()
+        self.rounds: dict = {}
+        self.error = None
+
+    def exchange(self, rank, rnd, tag, value) -> dict:
+        with self.cv:
+            posts = self.rounds.setdefault(rnd, {})
+            posts[rank] = (tag, value)
+            self.cv.notify_all()
+            while len(posts) < self.n and self.error is None:
+                self.cv.wait()
+            if self.error is not None:
+                raise _ShardAborted("spmd: another shard failed")
+            if len({t for t, _ in posts.values()}) != 1:
+                raise RuntimeError(
+                    "spmd: the shards reached different collectives (a "
+                    "kernel must call halo() the same way on every shard)")
+            return {r: v for r, (_t, v) in posts.items()}
+
+    def fail(self, exc) -> None:
+        with self.cv:
+            if self.error is None:
+                self.error = exc
+            self.cv.notify_all()
+
+
+class _Shard(threading.local):
+    """The calling thread's shard inside ``spmd``: its linear rank, mesh
+    position, rendezvous and next round (rank None outside spmd)."""
+
+    rank = None
+    position = None
+    rendezvous = None
+    round = 0
+
+    def collective(self, tag, value) -> dict:
+        self.round += 1
+        return self.rendezvous.exchange(self.rank, self.round, tag, value)
+
+
+_shard = _Shard()
+
+
+class LocalView:
+    """One shard's view of an array inside ``spmd`` (reference:
+    LocalNdarray, docs/index.md).  ``set_local`` is the functional
+    write-back: the updated blocks replace the source array after the
+    call.  ``global_start`` is the block's offset in global index space,
+    ``local_valid`` the count of real (not padding) rows per dim,
+    ``valid_mask`` the same as a mask, and ``halo(depth)`` the block
+    extended by its neighbours' edge cells (zeros beyond the global
+    domain)."""
+
+    def __init__(self, block, global_start=None, global_shape=None,
+                 spec=None, mesh=None, valid=None):
         self._block = asarray(block)
         self._updated = None
         self._global_start = global_start
         self._global_shape = global_shape
+        self._spec = spec
+        self._mesh = mesh
+        self._valid = valid if valid is not None else (
+            None if global_shape is None else tuple(
+                max(0, min(g, b))
+                for g, b in zip(global_shape, self._block.shape)))
 
     def get_local(self):
         return self._block if self._updated is None else self._updated
@@ -1058,19 +1233,26 @@ class LocalView:
 
     @property
     def local_valid(self):
-        """Per-dim count of valid rows in this block (int32): the block's
-        shape, since one card never pads."""
+        """Per-dim count of valid rows in this block (int32).  On uneven
+        shards the trailing block is zero-padded to the uniform block size;
+        rows at index >= local_valid[d] are padding and their writes are
+        discarded."""
         if self._global_start is None or self._global_shape is None:
             raise ValueError("local_valid is only available inside spmd")
-        return tuple(_int32(max(0, min(g, b)))
-                     for g, b in zip(self._global_shape, self._block.shape))
+        return tuple(_int32(v) for v in self._valid)
 
     def halo(self, depth):
-        """The current block extended by ``depth`` cells per dim (an int or
-        one per dim).  Every dim is whole on one card, so the cells beyond
-        it lie beyond the global domain: zeros, at any depth."""
+        """The current block (``get_local()``, so earlier ``set_local``
+        updates show) extended by ``depth`` cells per dim (an int or one
+        per dim): along a split dim, the neighbouring shards' edge cells,
+        exchanged dim by dim so corners arrive too (zeros at the ends of
+        the mesh); along a whole dim, zeros at any depth.  The padding of
+        an uneven trailing block travels as data: mask with
+        ``local_valid``."""
         if self._global_start is None:
             raise ValueError("halo() is only available inside spmd")
+        from ramba_tpu_torch.ops.manipulation import concatenate, pad
+
         x = self.get_local()
         nd = x.ndim
         if isinstance(depth, (int, np.integer)):
@@ -1079,16 +1261,59 @@ class LocalView:
         if len(depth) != nd or any(d < 0 for d in depth):
             raise ValueError(
                 f"halo depth {depth!r} must be {nd} non-negative ints")
-        if not any(depth):
-            return x
-        out = zeros(tuple(s + 2 * d for s, d in zip(x.shape, depth)), x.dtype)
-        out[tuple(slice(d, d + s) for s, d in zip(x.shape, depth))] = x
-        return out
+        spec = tuple(self._spec or ()) + (None,) * nd
+        for d in range(nd):
+            if not depth[d]:
+                continue
+            names = _mesh.entry_names(spec[d])
+            if _shard.rank is None or math.prod(
+                    self._mesh.shape[nm] for nm in names) == 1:
+                # the whole dim is local: beyond it lies the global
+                # boundary, zeros at any depth
+                pads = [(0, 0)] * nd
+                pads[d] = (depth[d], depth[d])
+                x = pad(x, pads)
+                continue
+            if depth[d] > x.shape[d]:
+                raise ValueError(
+                    f"halo depth {depth[d]} exceeds the local block extent "
+                    f"{x.shape[d]} along dim {d}")
+            posts = _shard.collective(("halo", d), x)
+            parts = [self._neighbour(posts, names, -1, x, d, depth[d]), x,
+                     self._neighbour(posts, names, 1, x, d, depth[d])]
+            x = concatenate(parts, axis=d)
+        return x
+
+    def _neighbour(self, posts, names, step, x, d, amt):
+        """The slab the neighbour ``step`` blocks away along ``names``
+        sends (its last ``amt`` cells for the lower neighbour, first for
+        the upper), or zeros past the end of the mesh."""
+        from ramba_tpu_torch import parallel
+
+        pos = dict(zip(self._mesh.axis_names, _shard.position))
+        k = 0
+        for nm in names:
+            k = k * self._mesh.shape[nm] + pos[nm]
+        k += step
+        total = math.prod(self._mesh.shape[nm] for nm in names)
+        shape = list(x.shape)
+        shape[d] = amt
+        if not 0 <= k < total:
+            return zeros(tuple(shape), x.dtype)
+        for nm in reversed(names):
+            k, pos[nm] = divmod(k, self._mesh.shape[nm])
+        src = int(np.ravel_multi_index(
+            tuple(pos[nm] for nm in self._mesh.axis_names),
+            self._mesh.devices.shape))
+        y = posts[src]
+        idx = [slice(None)] * x.ndim
+        idx[d] = slice(y.shape[d] - amt, None) if step < 0 else slice(0, amt)
+        return parallel.transport(y[tuple(idx)], src, _shard.rank)
 
     @property
     def valid_mask(self):
-        """Bool mask over the block, True where the element is real data:
-        everywhere on one card."""
+        """Bool mask over the block, True where the element is real data and
+        False in the zero padding of an uneven trailing block."""
         cur = self.get_local().shape
         if cur != self._block.shape:
             raise ValueError(
@@ -1096,7 +1321,16 @@ class LocalView:
                 f"block but the local slab is now {cur}; read valid_mask "
                 "before a shape-changing set_local(), or mask manually "
                 "with local_valid")
-        return full(cur, True, bool)
+        mask = full(cur, True, bool)
+        for d, nv in enumerate(self._valid or cur):
+            if nv < cur[d]:
+                shape = [1] * len(cur)
+                shape[d] = cur[d]
+                from ramba_tpu_torch.ops.creation import arange
+
+                mask = mask & (arange(cur[d], dtype=np.int32)
+                               .reshape(tuple(shape)) < nv)
+        return mask
 
     @property
     def shape(self):
@@ -1108,17 +1342,41 @@ class LocalView:
 
 
 def worker_id():
-    """Inside ``spmd``: this worker's linear index, int32 (one card: 0)."""
-    return _int32(0)
+    """Inside ``spmd``: this shard's linear index in the mesh grid, int32
+    (0 outside spmd and on a one-shard mesh)."""
+    return _int32(_shard.rank or 0)
 
 
-def spmd(func, *args):
-    """Run ``func`` once per worker with each port array argument as a
-    :class:`LocalView` (docs/index.md, spmd).  One card is one worker: the
-    block is the whole array, and each ``set_local`` replaces its array
-    when ``func`` returns.  Other args pass through."""
-    positions = [i for i, a in enumerate(args) if isinstance(a, ndarray)]
-    arrays = [args[i] for i in positions]
+_uneven_pad_warned = False
+_replicated_write_warned = False
+
+
+def _assemble_aval(static, *blocks):
+    _counts, _local, shape = static
+    return Aval(tuple(shape), blocks[0].dtype, False)
+
+
+def _assemble(static, *blocks):
+    """One tensor from per-shard blocks (``counts`` of them per dim, each
+    of shape ``local``, in grid order), cut to ``shape``: a counted copy."""
+    from ramba_tpu_torch import parallel
+
+    counts, local, shape = static
+    out = torch.empty(tuple(c * l for c, l in zip(counts, local)),
+                      dtype=blocks[0].dtype, device=blocks[0].device)
+    for c, b in zip(itertools.product(*[range(n) for n in counts]), blocks):
+        out[tuple(slice(k * l, (k + 1) * l) for k, l in zip(c, local))] = b
+        parallel.note_transfer("shard_assemble",
+                               b.numel() * b.element_size())
+    return out[tuple(slice(0, s) for s in shape)]
+
+
+defop("shard_assemble", _assemble_aval)(_assemble)
+
+
+def _spmd_one(func, args, positions, arrays):
+    """One shard: the kernel runs once with the whole array as its block,
+    in the calling thread."""
     views = [LocalView(ndarray(a.read_expr()),
                        tuple(_int32(0) for _ in a.shape), a.shape)
              for a in arrays]
@@ -1129,16 +1387,128 @@ def spmd(func, *args):
     for a, v in zip(arrays, views):
         if v._updated is None:
             continue
-        new = v._updated
-        if new.shape != a.shape:
-            if new.ndim == a.ndim and all(n >= s for n, s in
-                                          zip(new.shape, a.shape)):
-                new = new[tuple(slice(0, s) for s in a.shape)]
-            else:
-                raise ValueError(
-                    f"set_local gave a {new.shape} block for a {a.shape} "
-                    "array")
-        a.write_expr(new.read_expr())
+        a.write_expr(_fit(v._updated, a.shape).read_expr())
+
+
+def _fit(new, shape):
+    """A ``set_local`` value cut to its block's ``shape``."""
+    if new.shape == tuple(shape):
+        return new
+    if new.ndim == len(shape) and all(n >= s for n, s in
+                                      zip(new.shape, shape)):
+        return new[tuple(slice(0, s) for s in shape)]
+    raise ValueError(f"set_local gave a {new.shape} block for a "
+                     f"{tuple(shape)} block")
+
+
+def _spmd_layout(a, mesh):
+    """Spec of an spmd operand: its layout on this mesh, unless that keeps
+    it whole, which ``default_spec`` splits (as the reference does)."""
+    spec = _mesh.layout_of(a, mesh)
+    return spec if tuple(spec) != () else _mesh.default_spec(a.shape, mesh)
+
+
+def spmd(func, *args):
+    """Run ``func`` once per shard of the mesh with each port array
+    argument as that shard's :class:`LocalView` (docs/index.md, spmd);
+    other args pass through.  Each shard runs in a thread of its own and
+    meets the others at ``halo`` exchanges.  Uneven dims are zero-padded to
+    the uniform block (a warning, once); arrays kept whole (small ones)
+    arrive whole on every shard; after the call the ``set_local`` blocks
+    are assembled into their arrays, and where an array is whole along
+    some mesh axes the copy at coordinate 0 of those axes wins (a warning,
+    once)."""
+    global _uneven_pad_warned, _replicated_write_warned
+    from ramba_tpu_torch.ops.manipulation import pad
+
+    positions = [i for i, a in enumerate(args) if isinstance(a, ndarray)]
+    arrays = [args[i] for i in positions]
+    mesh = _mesh.get_mesh()
+    if mesh.size == 1:
+        return _spmd_one(func, args, positions, arrays)
+    grid = list(np.ndindex(mesh.devices.shape))
+    layouts = []
+    for a in arrays:
+        sh = _mesh.NamedSharding(mesh, _spmd_layout(a, mesh))
+        counts = sh.split_counts(a.ndim)
+        padded = tuple(-(-s // c) * c for s, c in zip(a.shape, counts))
+        src = a
+        if padded != a.shape:
+            if not _uneven_pad_warned:
+                _uneven_pad_warned = True
+                warnings.warn(
+                    f"spmd: array of shape {tuple(a.shape)} does not divide "
+                    f"evenly over the mesh; trailing blocks are zero-padded "
+                    f"to the uniform SPMD block. Block-coupled computations "
+                    f"(min/mean/matmul over the block) must mask the padding "
+                    f"via LocalView.local_valid or LocalView.valid_mask.")
+            src = pad(a, [(0, p - s) for s, p in zip(a.shape, padded)])
+        local = tuple(p // c for p, c in zip(padded, counts))
+        layouts.append((sh, counts, local, src))
+    views = {}
+    for rank, pos in enumerate(grid):
+        for j, (a, (sh, counts, local, src)) in enumerate(zip(arrays,
+                                                             layouts)):
+            coords = sh.block_coords(pos, a.ndim)
+            start = tuple(k * l for k, l in zip(coords, local))
+            block = src[tuple(slice(s, s + l)
+                              for s, l in zip(start, local))].copy()
+            views[rank, j] = LocalView(
+                block, tuple(_int32(s) for s in start), a.shape,
+                sh.spec, mesh,
+                tuple(max(0, min(g - s, l))
+                      for g, s, l in zip(a.shape, start, local)))
+    rv = _Rendezvous(len(grid))
+    errors: dict = {}
+
+    def shard(rank, pos):
+        _shard.rank, _shard.position = rank, pos
+        _shard.rendezvous, _shard.round = rv, 0
+        call_args = list(args)
+        for j, p in enumerate(positions):
+            call_args[p] = views[rank, j]
+        try:
+            func(*call_args)
+            _shard.collective("end", None)
+        except BaseException as e:  # handed to the caller below
+            errors[rank] = e
+            rv.fail(e)
+        finally:
+            _shard.rank = _shard.rendezvous = None
+
+    threads = [threading.Thread(target=shard, args=(rank, pos),
+                                name=f"spmd-shard-{rank}")
+               for rank, pos in enumerate(grid)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        first = [e for _r, e in sorted(errors.items())
+                 if not isinstance(e, _ShardAborted)]
+        raise (first or list(errors.values()))[0]
+    for j, (a, (sh, counts, local, _src)) in enumerate(zip(arrays, layouts)):
+        if all(views[r, j]._updated is None for r in range(len(grid))):
+            continue
+        used = {nm for e in sh.spec for nm in _mesh.entry_names(e)}
+        unused = tuple(nm for nm in mesh.axis_names if nm not in used)
+        if unused and not _replicated_write_warned:
+            _replicated_write_warned = True
+            warnings.warn(
+                f"spmd kernel wrote to an array replicated along mesh "
+                f"ax{'is' if len(unused) == 1 else 'es'} {unused}; the "
+                f"coordinate-0 copy wins (reference semantics) — "
+                f"device-divergent writes to replicated copies are not "
+                f"merged")
+        blocks = {}
+        for rank, pos in enumerate(grid):  # grid order: coordinate 0 first
+            coords = sh.block_coords(pos, a.ndim)
+            if coords not in blocks:
+                blocks[coords] = _fit(views[rank, j].get_local(), local)
+        exprs = [blocks[c].read_expr()
+                 for c in itertools.product(*[range(n) for n in counts])]
+        a.write_expr(Node("shard_assemble", (tuple(counts), local, a.shape),
+                          exprs))
 
 
 def barrier():

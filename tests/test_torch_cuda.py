@@ -1106,3 +1106,73 @@ def test_checkpoint_round_trip_on_the_card(tmp_path):
             checkpoint.restore(p)
     finally:
         faults.configure(None)
+
+
+# -- the mesh of shards and the queue C repairs on the card -------------------
+
+
+@pytest.fixture
+def mesh_2x2():
+    from ramba_tpu_torch.parallel import mesh as pmesh
+
+    old = pmesh.get_mesh()
+    pmesh.set_mesh(pmesh.Mesh(np.array([torch.device("cuda", 0)] * 4,
+                                       dtype=object).reshape(2, 2),
+                              ("d0", "d1")))
+    try:
+        yield
+    finally:
+        pmesh.set_mesh(old)
+
+
+@pytest.mark.parametrize("shape,path", [((512, 512), "tma"),
+                                        ((259, 333), "cpasync")])
+def test_sharded_stencil_launches_the_kernel_per_shard(mesh_2x2, shape,
+                                                       path):
+    from ramba_tpu_torch.parallel import mesh as pmesh
+
+    x = torch.rand(*shape, device="cuda")
+    st = rt.stencil(star2)
+    old = pmesh.get_mesh()
+    pmesh.set_mesh(pmesh.Mesh(np.array([torch.device("cuda", 0)],
+                                       dtype=object), ("d0",)))
+    one = rt.sstencil_iterate(st, rt.fromarray(x), 3)._value()
+    pmesh.set_mesh(old)
+    n0 = sk.launches
+    paths0 = (sk.launches_tma, sk.launches_cpasync)
+    got = rt.sstencil_iterate(st, rt.fromarray(x), 3)._value()
+    assert sk.launches == n0 + 3 * 4  # one per shard per sweep
+    taken = (sk.launches_tma - paths0[0], sk.launches_cpasync - paths0[1])
+    assert taken == ((12, 0) if path == "tma" else (0, 12))
+    assert torch.equal(got.view(torch.int32), one.view(torch.int32))
+
+
+def test_out_of_range_python_ints_through_elemred():
+    a = torch.arange(N, device="cuda", dtype=torch.int32) % 201 - 100
+    x = rt.fromarray(a)
+    host = a.cpu().numpy()
+    for make, want in [
+            (lambda: x + 2 ** 40, host),  # 2**40 wraps to 0 in int32
+            (lambda: x * (2 ** 33 + 3), host * 3),
+            (lambda: rt.maximum(x, 2 ** 32 + 5), np.maximum(host, 5)),
+    ]:
+        expr = make()  # built here: reading one expression flushes all
+        p, vals = fuser.prepare_program([expr.read_expr()])
+        assert kb.classify(p, vals) == "elemred"
+        before = elemred.launches
+        got = expr.asarray()
+        assert elemred.launches == before + 1
+        np.testing.assert_array_equal(got, want.astype(np.int32))
+    # comparisons are exact: one constant, on every path
+    np.testing.assert_array_equal((x < 2 ** 40).asarray(), np.ones(N, bool))
+    np.testing.assert_array_equal((x == 2 ** 32).asarray(), np.zeros(N, bool))
+
+
+def test_integer_reciprocal_of_zero_on_the_card():
+    for dt, top in [(torch.int8, 127), (torch.int32, 2 ** 31 - 1),
+                    (torch.uint8, 255), (torch.int64, 2 ** 63 - 1)]:
+        x = torch.tensor([0, 1, 2, 1 if dt == torch.uint8 else -1], dtype=dt,
+                         device="cuda")
+        got = rt.reciprocal(rt.fromarray(x)).asarray()
+        want = [top, 1, 0, 1 if dt == torch.uint8 else -1]
+        np.testing.assert_array_equal(got, np.array(want).astype(got.dtype))
