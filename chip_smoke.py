@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # the whole run (about a minute or two)
     python3 chip_smoke.py --quick    # phases 1-2 only: build and check kernels
     python3 chip_smoke.py --mesh     # phase 1 and the mesh path only
+    python3 chip_smoke.py --dist     # phase 1 and the path across processes
 
 Phases, each reported on its own line:
 
@@ -97,10 +98,21 @@ Phases, each reported on its own line:
    ``halo(2)`` (star2 by hand, masked with ``valid_mask``) equal to
    sstencil's interior; sreduce with a SreduceReducer over 2^28 float64
    and scumulative's cumsum over 2^26 float64 on 4 shards, each within
-   its bound of the one-shard answer and rerun byte-equal.  Every
-   kernel's launch count is set to 0 just before each
-   path and read just after; a path that does not launch its kernel fails
-   the run;
+   its bound of the one-shard answer and rerun byte-equal; then the main
+   path across processes (``dist_path``, alone with ``--dist``): four
+   processes of this script (``--rank``) on cuda:0, the default 2x2 mesh
+   of ranks over gloo through pinned host memory (NCCL refuses two ranks
+   on one card), running star2 at 8192^2 (TMA) and 4099x4133 (cp.async),
+   the sin/cos chain at 1e9 f64 and axpy + sum with their cross-rank
+   sums, spmd ``halo(1)``/``halo(2)``, scumulative on the scan kernel, a
+   SreduceReducer, 2 GiB ``.rtd``/``.npy`` files and a checkpointed
+   solve, every result held byte-equal to the one-process result (block
+   digests; the sums within 2 n eps sum, the same on every rank and
+   rerun) with every rank's launches counted and no gathered program;
+   then one rank over NCCL, and four ranks one per card over NCCL where
+   the machine has four cards.  Every kernel's launch count is set to 0
+   just before each path and read just after; a path that does not
+   launch its kernel fails the run;
 4. a ``kernels`` JSON line, the card's name and power limit, and the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -1603,7 +1615,9 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
     breadth_path(rt, er, sg, sc, torch, np, card, window)
     io_path(rt, sk, torch, np, card, window)
     sharded = mesh_path(rt, sk, sc, torch, np, card, window)
-    return totals, sharded
+    log("  dist_path: the main path across processes")
+    dist = dist_path(rt, er, sk, sc, torch, np, card, totals)
+    return totals, sharded, dist
 
 
 def io_path(rt, sk, torch, np, card, window):
@@ -3403,12 +3417,540 @@ def split_cumsum(rt, sc, torch, c, label, card):
         f"kernel in {ev0.elapsed_time(ev1):.4f} ms [{card}]")
 
 
+DIST_RANKS = 4
+DIST_GRID = 8192
+DIST_ODD = (4099, 4133)
+DIST_CHAIN_N = 10 ** 9
+DIST_AXPY_N = 1 << 28
+DIST_HALO1_N = 1 << 26
+DIST_SCAN_N = 1 << 26
+DIST_RED_N = 1 << 28
+DIST_IO_N = 1 << 28
+DIST_LIMIT_S = 420  # per launch of ranks, every rank of it
+
+
+def dist_grid(rt, np, shape):
+    """The grid every rank and the parent build from indices alone:
+    ((7919 i + 104729 j) mod 65536) / 65536 in float32."""
+    return rt.fromfunction(
+        lambda i, j: ((i * 7919 + j * 104729) % 65536) * (1.0 / 65536),
+        shape, dtype=np.float32)
+
+
+def dist_vec(rt, n, k=7919):
+    """((k i) mod 65536) / 65536 in float64, from indices alone."""
+    return ((rt.arange(n) * k) % 65536) * (1.0 / 65536)
+
+
+def digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().reshape(-1)
+                          .view(__import__("torch").uint8).numpy()
+                          .tobytes()).hexdigest()
+
+
+def _rank_window(er, sk, sc, name, fn, rep):
+    """Counts to 0, ``fn``, counts read: recorded under ``name``."""
+    er.launches = er.launches_bulk = er.launches_plain = 0
+    sk.launches = sk.launches_tma = sk.launches_cpasync = 0
+    sk.launches_ldst = 0
+    sc.launches = 0
+    out = fn()
+    rep["launches"][name] = {"elemred": er.launches, "stencil": sk.launches,
+                             "scan": sc.launches,
+                             "tma": sk.launches_tma,
+                             "cpasync": sk.launches_cpasync}
+    return out
+
+
+def dist_rank(argv) -> int:
+    """One rank of ``dist_path`` (``--rank R --world W --store S --out D
+    [--nccl]``): every program on this rank's blocks, a report of
+    digests, counts, times and traffic written to ``D/rank<R>.json``."""
+    import json
+    import os
+
+    import numpy as np
+    import torch
+
+    import ramba_tpu_torch as rt
+    from ramba_tpu_torch import common, parallel
+    from ramba_tpu_torch.core import fuser
+    from ramba_tpu_torch.ops import elemred as er
+    from ramba_tpu_torch.ops import scan as sc
+    from ramba_tpu_torch.ops import stencil_kernel as sk
+    from ramba_tpu_torch.parallel import distributed
+
+    arg = dict(zip(argv[::2], argv[1::2]))
+    rank, world = int(arg["--rank"]), int(arg["--world"])
+    out = arg["--out"]
+    nccl = "--nccl" in argv
+    per_card = "--per-card" in argv  # one rank per card, over NCCL
+    distributed.initialize("file://" + arg["--store"], world, rank,
+                           backend="nccl" if nccl or per_card else None)
+    if world == 1:
+        rt.set_mesh(distributed.global_mesh())
+    rep = {"rank": rank, "backend": distributed.backend(),
+           "reason": distributed.backend_reason(),
+           "device": str(common.device()), "in_driver": rt.in_driver(),
+           "mesh": repr(rt.get_mesh()), "launches": {}, "digests": {},
+           "values": {}, "ms": {}, "wall_s": {}}
+    if nccl:
+        g = distributed.all_gather_small(torch.arange(4.0, device="cuda"))
+        rep["values"]["allgather_ok"] = bool(all(
+            torch.equal(x, torch.arange(4.0, device="cuda")) for x in g))
+        rep["values"]["allreduce"] = distributed.all_reduce_int(rank + 1,
+                                                                "sum")
+        distributed.barrier("nccl")
+        a = dist_vec(rt, DIST_AXPY_N)
+        b = dist_vec(rt, DIST_AXPY_N, 104729)
+        rt.sync()  # materialised: elemred takes vector leaves
+        rep["values"]["axpy_sum"] = _rank_window(
+            er, sk, sc, "axpy", lambda: float(rt.sum(2.5 * a + b)), rep)
+    else:
+        dist_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, out)
+    rep["gathered"] = fuser.stats["gathered"]
+    rep["comm"] = dict(parallel.comm_stats)
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    distributed.shutdown()
+    return 0
+
+
+def _events_ms(torch, fn, reps):
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def dist_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, out):
+    import os
+
+    st = rt.stencil(star2_body)
+    win = lambda name, fn: _rank_window(er, sk, sc, name, fn, rep)  # noqa
+    g0 = fuser.stats["gathered"]
+    for shape, chained, iters, tag in (((DIST_GRID, DIST_GRID), 30, 100,
+                                        "even"), (DIST_ODD, 10, 20, "odd")):
+        x = dist_grid(rt, np, shape)
+        rt.sync()
+
+        def sweeps():
+            t0 = time.perf_counter()
+            y = x
+            for _ in range(chained):
+                y = rt.sstencil(st, y)
+            rt.sync()
+            t1 = time.perf_counter()
+            yi = rt.sstencil_iterate(st, x, iters)
+            rt.sync()
+            torch.cuda.synchronize()
+            return y, yi, t1 - t0, time.perf_counter() - t1
+
+        y, yi, tc, ti = win(f"star2_{tag}", sweeps)
+        rep["digests"][f"star2_{tag}_chained"] = digest(y._block())
+        rep["digests"][f"star2_{tag}_iterate"] = digest(yi._block())
+        rep["wall_s"][f"star2_{tag}"] = [tc / chained, ti / iters]
+        rep["ms"][f"star2_{tag}"] = _events_ms(
+            torch, lambda: rt.sstencil_iterate(st, x, 20)._block(), 20)
+        del x, y, yi
+    base = dist_vec(rt, DIST_CHAIN_N)
+    rt.sync()  # the materialised base
+
+    def chain():
+        t0 = time.perf_counter()
+        v = [float(rt.sum(rt.sin(base) ** 2 + rt.cos(base) ** 2))
+             for _ in range(2)]
+        return v, time.perf_counter() - t0
+
+    rep["values"]["chain_sum"], rep["wall_s"]["chain"] = win("chain", chain)
+    del base
+    a = dist_vec(rt, DIST_AXPY_N)
+    b = dist_vec(rt, DIST_AXPY_N, 104729)
+    rt.sync()
+    rep["values"]["axpy_sum"] = win("axpy", lambda: float(rt.sum(2.5 * a + b)))
+    rep["gathered_main"] = fuser.stats["gathered"] - g0
+    g1 = fuser.stats["gathered"]
+    del a, b
+    torch.cuda.empty_cache()
+
+    src = dist_vec(rt, DIST_HALO1_N)
+    dst = rt.zeros(DIST_HALO1_N)
+    rt.sync()
+
+    def sweep(s_, d_):
+        h = s_.halo(1)
+        d_.set_local(h[:-2] + h[1:-1] + h[2:])
+
+    def halo1():
+        t0 = time.perf_counter()
+        rt.spmd(sweep, src, dst)
+        rt.sync()
+        return time.perf_counter() - t0
+
+    rep["wall_s"]["spmd_halo1"] = win("spmd_halo1", halo1)
+    rep["digests"]["spmd_halo1"] = digest(dst._block())
+    del src, dst
+    x = dist_grid(rt, np, (DIST_GRID, DIST_GRID))
+    d2 = rt.zeros((DIST_GRID, DIST_GRID), dtype="float32")
+    rt.sync()
+
+    def kernel(s_, o_):
+        o_.set_local(rt.where(s_.valid_mask, star2_by_hand(s_.halo(2)), 0.0))
+
+    def halo2():
+        t0 = time.perf_counter()
+        rt.spmd(kernel, x, d2)
+        rt.sync()
+        return time.perf_counter() - t0
+
+    rep["wall_s"]["spmd_halo2"] = win("spmd_halo2", halo2)
+    got = d2._block()
+    want = rt.sstencil(st, x)._block()
+    rep["values"]["spmd_halo2_equal"] = bool(torch.equal(
+        got[2:-2, 2:-2], want[2:-2, 2:-2]))
+    del x, d2, got, want
+    c = dist_vec(rt, DIST_SCAN_N)
+    rt.sync()
+
+    def scum():
+        t0 = time.perf_counter()
+        r = rt.scumulative(lambda v, cc: v + cc, lambda cc, b_: b_ + cc, c)
+        rt.sync()
+        return r, time.perf_counter() - t0
+
+    r, rep["wall_s"]["scumulative"] = win("scumulative", scum)
+    rep["digests"]["scumulative"] = digest(r._block())
+    del c, r
+    xr = dist_vec(rt, DIST_RED_N)
+    rt.sync()
+    red = rt.SreduceReducer(lambda p, q: p + q, lambda p, q: p + q)
+    rep["values"]["sreduce"] = [
+        win("sreduce", lambda: float(rt.sreduce(lambda v: v * v, red, 0.0,
+                                                xr))) for _ in range(2)]
+    rep["gathered_skeletons"] = fuser.stats["gathered"] - g1
+    torch.cuda.empty_cache()
+
+    io = xr
+    for ext in ("rtd", "npy"):
+        path = os.path.join(out, f"io.{ext}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.save(path, io)
+        rt.distributed.barrier("io")
+        t1 = time.perf_counter()
+        back = rt.load(path)
+        blk = back._block()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rep["wall_s"][f"save_{ext}"] = [t1 - t0, t2 - t1]
+        rep["values"][f"load_{ext}_equal"] = bool(torch.equal(
+            blk, io._block()))
+        del back, blk
+    del io, xr
+    torch.cuda.empty_cache()
+    g = rt.sstencil_iterate(st, dist_grid(rt, np, (DIST_GRID, DIST_GRID)), 100)
+    ck = os.path.join(out, "ck")
+    t0 = time.perf_counter()
+    rt.checkpoint.save(ck, {"grid": g, "step": 100}, force=True)
+    back = rt.checkpoint.restore(ck)
+    rep["wall_s"]["checkpoint"] = time.perf_counter() - t0
+    h = win("checkpoint_resume",
+            lambda: rt.sstencil_iterate(st, back["grid"], 100)._block())
+    rep["digests"]["checkpoint_200"] = digest(h)
+    rep["values"]["step"] = int(back["step"])
+
+
+def dist_start(world, tmp, extra=()):
+    """Start ``world`` ranks of this script (``--rank``); returns them."""
+    import os
+
+    store = os.path.join(tmp, f"store{world}{''.join(extra)}")
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--world", str(world), "--store", store, "--out",
+         os.path.join(tmp, f"w{world}"), *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+
+
+def dist_wait(procs, tmp, deadline):
+    """Wait for every rank (all killed past ``deadline``); returns their
+    reports."""
+    import json
+    import os
+
+    world = len(procs)
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1, deadline - time.time()))[0])
+    except subprocess.TimeoutExpired:
+        raise Fail(f"{world} ranks ran past their limit")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise Fail(f"rank {r} of {world} exited {p.returncode}:\n"
+                       + logs[r][-4000:])
+    reps = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"w{world}", f"rank{r}.json")) as f:
+            reps.append(json.load(f))
+    return reps
+
+
+def dist_check(reps, ref, want_sum, want_sreduce, totals, card, backend,
+               label, wall):
+    """Hold the ranks' reports against the one-process results; add their
+    launches to ``totals``; returns the numbers for the kernels line."""
+    for r in reps:
+        log(f"  rank {r['rank']}: backend {r['backend']} "
+            f"({r['reason']}), device {r['device']}, {r['mesh']}, "
+            f"in_driver {r['in_driver']}")
+    if [r["in_driver"] for r in reps] != [True] + [False] * 3:
+        raise Fail("in_driver() is not true on rank 0 alone")
+    if any(r["backend"] != backend for r in reps):
+        raise Fail(f"{label}: expected {backend}")
+    positions = {k: divmod(k, 2) for k in range(4)}  # rank order, 2x2
+    for name, by_pos in ref.items():
+        ok = all(reps[k]["digests"][name] == by_pos[positions[k]]
+                 for k in range(4))
+        log(f"  dist {name}: every rank's block byte-equal to the "
+            f"one-process result's: {ok}")
+        if not ok:
+            raise Fail(f"dist {name} differs from one process")
+    n_terms = {"chain_sum": DIST_CHAIN_N, "axpy_sum": DIST_AXPY_N}
+    for key, want in want_sum.items():
+        got = [r["values"][key] for r in reps]
+        got = [g for gg in got for g in (gg if isinstance(gg, list)
+                                         else [gg])]
+        same = len({repr(g) for g in got}) == 1
+        # any two summation orders of n positive terms differ by at
+        # most 2 (n - 1) eps sum
+        bound = 2 * n_terms[key] * EPS["float64"] * abs(want)
+        diff = abs(got[0] - want)
+        log(f"  dist {key}: {got[0]!r} on every rank and rerun "
+            f"({same}) vs one process {want!r}: |diff| {diff:.3e} <= "
+            f"{bound:.3e} (2 n eps sum)")
+        if not same or diff > bound:
+            raise Fail(f"dist {key}")
+    sr = [x for r in reps for x in r["values"]["sreduce"]]
+    ok = len({repr(x) for x in sr}) == 1 and sr[0] == want_sreduce
+    log(f"  dist sreduce SreduceReducer 2^28 f64: {sr[0]!r} on every "
+        f"rank and rerun, byte-equal to the one-process 2x2 fold "
+        f"{want_sreduce!r}: {ok}")
+    if not ok:
+        raise Fail("dist sreduce")
+    for key in ("spmd_halo2_equal", "load_rtd_equal", "load_npy_equal"):
+        if not all(r["values"][key] for r in reps):
+            raise Fail(f"dist {key} is false on some rank")
+    if any(r["values"]["step"] != 100 for r in reps):
+        raise Fail("dist checkpoint step")
+    log("  dist spmd halo(2) star2 by hand equal to sstencil's interior, "
+        ".rtd and .npy loads equal to the saved blocks, checkpoint "
+        "restored and run on: True on every rank")
+    for r in reps:
+        if r["gathered_main"] or r["gathered_skeletons"]:
+            raise Fail(f"rank {r['rank']}: the main path took the "
+                       f"gathered lowering {r['gathered_main']} + "
+                       f"{r['gathered_skeletons']} times")
+    need = {"star2_even": ("stencil", 130, "tma"),
+            "star2_odd": ("stencil", 30, "cpasync"),
+            "chain": ("elemred", None, None),
+            "axpy": ("elemred", None, None),
+            "scumulative": ("scan", 1, None),
+            "checkpoint_resume": ("stencil", 100, "tma")}
+    for name, (k, n, path) in need.items():
+        for r in reps:
+            got = r["launches"][name]
+            if (got[k] == 0 if n is None else got[k] != n) or (
+                    path and got[path] != got[k]):
+                raise Fail(f"rank {r['rank']} {name}: launches {got}, "
+                           f"expected {k} {n or '> 0'} on {path}")
+    for k in totals:
+        totals[k] += sum(c.get(k, 0) for r in reps
+                         for c in r["launches"].values())
+    slow = {name: max(r["ms"][name] for r in reps)
+            for name in reps[0]["ms"]}
+    walls = {name: max(r["wall_s"][name] if not isinstance(
+        r["wall_s"][name], list) else max(r["wall_s"][name])
+        for r in reps) for name in reps[0]["wall_s"]}
+    gbs = {ext: DIST_IO_N * 8 / 1e9 / max(
+        r["wall_s"][f"save_{ext}"][0] for r in reps)
+        for ext in ("rtd", "npy")}
+    comm = {k: sum(r["comm"].get(k, 0) for r in reps) for k in (
+        "send_bytes", "recv_bytes", "allgather_bytes",
+        "host_staged_bytes")}
+    log(f"  dist launches per rank {reps[0]['launches']}; every stencil "
+        "launch on its predicted load path, elemred and scan on every "
+        "rank, gathered programs 0")
+    log(f"  dist ms/sweep by CUDA events, slowest rank: "
+        f"{json.dumps(slow)} [{card}]")
+    log(f"  dist walls (s, slowest rank; star2: per sweep chained, "
+        f"iterate; save/load: save, load): {json.dumps(walls)}; "
+        f"save GB/s of 2 GiB {json.dumps(gbs)}; {label} in {wall:.1f} s "
+        f"[{card}]")
+    log(f"  dist traffic over all ranks: {json.dumps(comm)}")
+    return {"ms_per_sweep_slowest_rank": slow, "walls_s": walls,
+            "save_gb_per_s": gbs, "traffic": comm, "ranks_wall_s": wall}
+
+
+def dist_path(rt, er, sk, sc, torch, np, card, totals):
+    """The main path across processes: 4 ranks on cuda:0, each a process
+    of this script, the default 2x2 mesh of ranks, gloo through pinned
+    host buffers (NCCL refuses two ranks on one card).  Every result is
+    held against the one-process result computed here first: block by
+    block by digest (stencils, spmd, scumulative, a checkpoint resumed),
+    exactly (sreduce against the one-process 2x2 mesh's fold), within a
+    stated bound (the cross-rank sums against one elemred sum).  Then one
+    rank over NCCL.  Launch counts of every rank go into ``totals``."""
+    import os
+    import tempfile
+
+    from ramba_tpu_torch import common
+    from ramba_tpu_torch.parallel import mesh as pm
+
+    log(f"  dist_path: {DIST_RANKS} ranks on cuda:0, default 2x2 mesh of "
+        "ranks")
+    st = rt.stencil(star2_body)
+    dev = common.device()
+    grid2 = pm.Mesh(np.array([dev] * 4, dtype=object).reshape(2, 2),
+                    ("d0", "d1"))
+    ref, want_sum = {}, {}
+    t0 = time.perf_counter()
+
+    def blocks(name, t):
+        sh = pm.NamedSharding(grid2, pm.default_spec(tuple(t.shape), grid2))
+        ref[name] = {pos: digest(t[idx]) for pos, idx in
+                     sh.shard_indices(tuple(t.shape))}
+
+    for shape, chained, iters, tag in (((DIST_GRID, DIST_GRID), 30, 100,
+                                        "even"), (DIST_ODD, 10, 20, "odd")):
+        x = dist_grid(rt, np, shape)
+        y = x
+        for _ in range(chained):
+            y = rt.sstencil(st, y)
+        blocks(f"star2_{tag}_chained", y._value())
+        blocks(f"star2_{tag}_iterate",
+               rt.sstencil_iterate(st, x, iters)._value())
+        if tag == "even":
+            blocks("checkpoint_200",
+                   rt.sstencil_iterate(st, x, 200)._value())
+        del x, y
+    base = dist_vec(rt, DIST_CHAIN_N)
+    rt.sync()
+    want_sum["chain_sum"] = float(rt.sum(rt.sin(base) ** 2
+                                         + rt.cos(base) ** 2))
+    del base
+    a = dist_vec(rt, DIST_AXPY_N)
+    b = dist_vec(rt, DIST_AXPY_N, 104729)
+    want_sum["axpy_sum"] = float(rt.sum(2.5 * a + b))
+    del a, b
+    v = dist_vec(rt, DIST_HALO1_N)._value()
+    h = torch.zeros_like(v)
+    h[1:-1] = v[:-2] + v[1:-1] + v[2:]
+    h[0] = v[0] + v[1]
+    h[-1] = v[-2] + v[-1]
+    blocks("spmd_halo1", h)
+    # scumulative's one-process result: the same four blocks through the
+    # scan kernel, their totals folded in order and added back
+    c = dist_vec(rt, DIST_SCAN_N)._value()
+    parts = [sc.launch(p.contiguous(), "cumsum", 0) for p in c.chunk(4)]
+    tots = [p[-1].clone() for p in parts]
+    carry = None
+    for k in range(1, 4):
+        carry = tots[k - 1] if carry is None else carry + tots[k - 1]
+        parts[k] = parts[k] + carry
+    blocks("scumulative", torch.cat(parts))
+    del v, h, c, parts
+    pm.set_mesh(grid2)
+    try:
+        red = rt.SreduceReducer(lambda p, q: p + q, lambda p, q: p + q)
+        want_sreduce = float(rt.sreduce(lambda q: q * q, red, 0.0,
+                                        dist_vec(rt, DIST_RED_N)))
+    finally:
+        pm.set_mesh(pm.Mesh([dev], ("d0",)))
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    log(f"  dist_path: one-process references in {t_ref:.1f} s [{card}]")
+
+    with tempfile.TemporaryDirectory(prefix="ramba_dist_") as tmp:
+        for w in (DIST_RANKS, 1):
+            os.makedirs(os.path.join(tmp, f"w{w}"))
+        t0 = time.perf_counter()
+        deadline = time.time() + DIST_LIMIT_S
+        ranks = dist_start(DIST_RANKS, tmp)
+        nccl = []
+        try:
+            reps = dist_wait(ranks, tmp, deadline)
+            wall = time.perf_counter() - t0
+            summary = dist_check(reps, ref, want_sum, want_sreduce,
+                                 totals, card, "gloo",
+                                 f"{DIST_RANKS} ranks on cuda:0", wall)
+
+            # the NCCL rank after the four, so that its start-up does not
+            # share the host with their timed sweeps
+            t0 = time.perf_counter()
+            nccl = dist_start(1, tmp, ("--nccl",))
+            (one,) = dist_wait(nccl, tmp, time.time() + DIST_LIMIT_S)
+            if one["backend"] != "nccl" or not one["values"]["allgather_ok"] \
+                    or one["values"]["allreduce"] != 1 or one["gathered"] \
+                    or one["launches"]["axpy"]["elemred"] < 1:
+                raise Fail(f"one-rank NCCL group: {one}")
+            diff = abs(one["values"]["axpy_sum"] - want_sum["axpy_sum"])
+            if diff > 2 * DIST_AXPY_N * EPS["float64"] * abs(want_sum["axpy_sum"]):
+                raise Fail("one-rank NCCL axpy sum")
+            for k in totals:
+                totals[k] += sum(c.get(k, 0) for c in one["launches"].values())
+            log(f"  dist one rank over NCCL ({one['reason']}): all-gather, "
+                f"all-reduce, barrier and axpy + sum (elemred "
+                f"{one['launches']['axpy']['elemred']} launch), "
+                f"{one['values']['axpy_sum']!r}, in "
+                f"{time.perf_counter() - t0:.1f} s [{card}]")
+        finally:
+            for p in ranks + nccl:  # stop every process started
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+    if torch.cuda.device_count() < DIST_RANKS:
+        log(f"  dist: {torch.cuda.device_count()} card(s) on this machine, "
+            f"so {DIST_RANKS} ranks, one per card over NCCL, did not run")
+        return summary
+    with tempfile.TemporaryDirectory(prefix="ramba_dist_") as tmp:
+        os.makedirs(os.path.join(tmp, f"w{DIST_RANKS}"))
+        t0 = time.perf_counter()
+        ranks = dist_start(DIST_RANKS, tmp, ("--per-card",))
+        try:
+            reps = dist_wait(ranks, tmp, time.time() + DIST_LIMIT_S)
+            summary["one_rank_per_card"] = dist_check(
+                reps, ref, want_sum, want_sreduce, totals, card, "nccl",
+                f"{DIST_RANKS} ranks, one per card", time.perf_counter() - t0)
+        finally:
+            for p in ranks:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return summary
+
+
 def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if "--rank" in argv:  # one rank of dist_path
+        return dist_rank(argv)
     import numpy as np
 
     import ramba_tpu_torch as rt
@@ -3427,6 +3969,13 @@ def main(argv) -> int:
         f"torch {torch.__version__}, cuda {torch.version.cuda}")
     t_all = time.perf_counter()
     phase_build(rt, er, sk, sg, gb, jacobi, sc)
+    if "--dist" in argv:  # phase 1 and dist_path alone
+        totals = dict.fromkeys(("elemred", "stencil", "segred", "scan"), 0)
+        log(json.dumps({"dist": dist_path(rt, er, sk, sc, torch, np, card,
+                                          totals), "launches": totals}))
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        print(card, flush=True)
+        return 0
     if "--mesh" in argv:  # phase 1 and mesh_path alone, a quicker check
         window = launch_window(er, sk, sg, sc, dict.fromkeys(
             ("elemred", "stencil", "segred", "scan"), 0), card)
@@ -3437,12 +3986,13 @@ def main(argv) -> int:
         return 0
     rows = phase_kernels(rt, er, sk, sg, jacobi, torch, np, card, sc)
     if "--quick" not in argv:
-        totals, sharded = phase_main_path(rt, er, sk, sg, jacobi, torch, np,
-                                          card, sc)
+        totals, sharded, dist = phase_main_path(rt, er, sk, sg, jacobi,
+                                                torch, np, card, sc)
         for row in rows:
             row["launches"] = totals[row["name"]]
             if row["name"] == "stencil":
                 row["sharded"] = sharded
+                row["dist"] = dist
     log(f"total {time.perf_counter() - t_all:.1f} s; stencil bodies turned "
         f"away: {sk.ineligible}")
     print(json.dumps({"kernels": list(rows), "card": card}), flush=True)

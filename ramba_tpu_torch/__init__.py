@@ -12,7 +12,10 @@ a hand-written fixed-order CUDA C++ scan (``ops/scan.py``,
 user kernels on whole tensors through the generic lowering.  A mesh of
 shard positions in one process (``set_mesh``; ``parallel/``) splits
 sstencil, spmd, scumulative and sreduce's reducers over shards: the
-stencil runs the CUDA kernel on every shard's halo-extended block.
+stencil runs the CUDA kernel on every shard's halo-extended block.  One
+program started once per rank (``distributed.initialize``) runs over a
+mesh whose positions are ranks, each holding its own block of every
+array (``parallel/distributed.py``, ``core/rankflush.py``).
 Seeded draws (``random``), file I/O (``load``/``save`` and friends) and
 atomic, digest-verified ``checkpoint``s sit on the resilience plane's
 fault injection and retries (``resilience``).
@@ -104,6 +107,8 @@ from ramba_tpu_torch.skeletons import (  # noqa: F401
 from ramba_tpu_torch.parallel.mesh import (  # noqa: F401
     get_mesh, num_workers, set_mesh,
 )
+from ramba_tpu_torch.parallel import distributed  # noqa: F401
+from ramba_tpu_torch.parallel.distributed import in_driver  # noqa: F401
 from ramba_tpu_torch.parallel.constraints import (  # noqa: F401
     Constraint, add_constraint, clear_constraints, get_constraints,
 )

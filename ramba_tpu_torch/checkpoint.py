@@ -36,8 +36,12 @@ Resilience contract (the reference's):
   mismatched checkpoints in :class:`CheckpointCorruptError` with the
   original error chained.
 
-Several processes (a barrier around the rename) come with the multi-GPU
-queue (A.6): ``_barrier`` raises there.
+Several processes (a mesh of ranks, ``parallel/distributed.py``): every
+rank calls ``save`` and ``restore``.  ``save`` gathers each leaf to every
+rank, the driver (rank 0) alone stages, writes, renames and writes the
+digests, and every rank learns whether it succeeded (an all-reduce that
+is also the barrier).  ``restore`` has each rank read only its block of
+every leaf; the leaf digests are taken over the gathered leaves.
 
 API:
 
@@ -57,13 +61,12 @@ import numpy as np
 import torch
 
 from ramba_tpu_torch import fileio
-from ramba_tpu_torch.core.expr import Const
 from ramba_tpu_torch.core.fuser import flush
 from ramba_tpu_torch.core.ndarray import ndarray
-from ramba_tpu_torch.observe import events as _events
 from ramba_tpu_torch.observe import registry as _registry
 from ramba_tpu_torch.resilience import faults as _faults
 from ramba_tpu_torch.resilience import integrity as _integrity
+from ramba_tpu_torch.parallel import distributed as _distributed
 from ramba_tpu_torch.resilience import retry as _retry
 
 
@@ -264,12 +267,30 @@ def _verify_leaves(path: str, items, doc: dict) -> None:
 
 
 def _barrier(tag: str) -> None:
-    """Cross-process sync point: nothing to do with one process; the
-    barrier through ``parallel.distributed`` comes with A.6."""
-    if _events.rank_info()[1] > 1:
-        raise NotImplementedError(
-            f"checkpoint barrier {tag!r}: checkpoints across several "
-            "processes come with the multi-GPU queue (A.6)")
+    """Cross-process sync point (``distributed.barrier``; nothing to do
+    with one process)."""
+    _distributed.barrier(tag)
+
+
+def _on_driver(fn) -> None:
+    """``fn()`` on the driver; with several processes every rank then
+    learns whether it succeeded, so a failed write raises everywhere."""
+    if _distributed.process_count() <= 1:
+        fn()
+        return
+    err = None
+    if _distributed.in_driver():
+        try:
+            fn()
+        except Exception as e:  # re-raised below, after the agreement
+            err = e
+    failed = _distributed.all_reduce_int(0 if err is None else 1, "max")
+    if err is not None:
+        raise err
+    if failed:
+        raise RuntimeError("the driver (process 0) failed to write the "
+                           "checkpoint; see its log for the original "
+                           "exception")
 
 
 def _purge_stale_tmp(apath: str) -> None:
@@ -282,7 +303,6 @@ def _purge_stale_tmp(apath: str) -> None:
             if name == tmp_base or name.startswith(tmp_base + "."):
                 shutil.rmtree(os.path.join(parent, name), ignore_errors=True)
                 _registry.inc("checkpoint.tmp_purged")
-    _barrier("ramba_ckpt_purge")
 
 
 def _write_tree(dirpath: str, treedef, items) -> None:
@@ -315,23 +335,22 @@ def save(path: str, tree, *, force: bool = False) -> None:
     treedef, items = _flatten(tree)
     items = [(k, _leaf_value(v)) for k, v in items]
     tmp = apath + _TMP_SUFFIX
-    _purge_stale_tmp(apath)
 
     def write():
         _faults.check("checkpoint_io", op="save")
         if os.path.exists(tmp):
             shutil.rmtree(tmp)  # debris from a failed earlier attempt
-        _barrier("ramba_ckpt_clear")
         _write_tree(tmp, treedef, items)
 
-    _retry.call("checkpoint_io", write)
-    _barrier("ramba_ckpt_written")
-    if os.path.exists(apath):
-        shutil.rmtree(apath)
-    os.replace(tmp, apath)
-    _barrier("ramba_ckpt_published")
-    _write_digests(apath, items)
-    _barrier("ramba_ckpt_digests")
+    def publish():
+        _purge_stale_tmp(apath)
+        _retry.call("checkpoint_io", write)
+        if os.path.exists(apath):
+            shutil.rmtree(apath)
+        os.replace(tmp, apath)
+        _write_digests(apath, items)
+
+    _on_driver(publish)
     _registry.inc("checkpoint.saves")
 
 
@@ -387,7 +406,7 @@ def restore(path: str, target=None):
 
     def read():
         _faults.check("checkpoint_io", op="restore")
-        return [fileio.read_npy(os.path.join(apath, leaf["file"]),
+        return [fileio.load_npy(os.path.join(apath, leaf["file"]),
                                 np.dtype(leaf["dtype"]))
                 for leaf in man["leaves"]]
 
@@ -404,7 +423,7 @@ def restore(path: str, target=None):
         _verify_leaves(path, [(leaf["key"], v) for leaf, v in
                               zip(man["leaves"], vals)], digests)
     _registry.inc("checkpoint.restores")
-    return _unflatten(man["tree"], [ndarray(Const(v)) for v in vals])
+    return _unflatten(man["tree"], vals)
 
 
 def _validate_target(path: str, man: dict, tgt) -> None:

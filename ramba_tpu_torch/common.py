@@ -3,10 +3,11 @@
 The counterpart of ``ramba_tpu/common.py``: environment flags read once at
 import, plus the one device every array of the process lives on.
 
-Entry points run on ``cuda:0``.  The CPU is used only when the caller asks
-for it, through :func:`set_device` or ``RAMBA_TORCH_DEVICE=cpu``; with no
-card and no such request the first array creation raises, so a missing GPU
-never turns silently into a CPU run.
+Entry points run on ``cuda:<local rank mod card count>`` (``cuda:0`` for
+one process).  The CPU is used only when the caller asks for it, through
+:func:`set_device` or ``RAMBA_TORCH_DEVICE=cpu``; with no card and no
+such request the first array creation raises, so a missing GPU never
+turns silently into a CPU run.
 """
 
 from __future__ import annotations
@@ -66,13 +67,33 @@ rewrite_enabled = _env_flag("RAMBA_TPU_REWRITE", True)
 # ramba_tpu (RAMBA_DIST_THRESHOLD).
 dist_threshold = _env_int("RAMBA_DIST_THRESHOLD", 100)
 
+# Caps the default mesh of a multi-process run at this many ranks, as
+# ramba_tpu caps its device count (RAMBA_WORKERS; unset: every rank).
+num_workers_env = os.environ.get("RAMBA_WORKERS")
+
+# Dimensions of the default mesh (RAMBA_TPU_MESH_NDIM, 1 to 3), as in
+# ramba_tpu: 4 ranks give a 2x2 mesh.
+mesh_ndim = _env_int("RAMBA_TPU_MESH_NDIM", 2)
+
 _device: "torch.device | None" = None
+_device_asked = False  # set_device or RAMBA_TORCH_DEVICE chose it
+_local_rank = 0
+
+
+def set_local_rank(rank: int) -> None:
+    """This process's rank on its host (``distributed.initialize``): the
+    card it computes on unless a device was asked for."""
+    global _local_rank, _device
+    _local_rank = int(rank)
+    if not _device_asked:
+        _device = None
 
 
 def set_device(dev) -> torch.device:
     """Pin the device every new array is created on (``"cpu"`` or a CUDA
     device).  Arrays that already exist stay where they are."""
-    global _device
+    global _device, _device_asked
+    _device_asked = True
     _device = torch.device(dev)
     if _device.type == "cuda" and _device.index is None:
         _device = torch.device("cuda", 0)
@@ -82,13 +103,16 @@ def set_device(dev) -> torch.device:
 def device() -> torch.device:
     """The device new arrays are created on.  Raises when no card is present
     and the CPU was not asked for."""
+    global _device
     if _device is not None:
         return _device
     env = os.environ.get("RAMBA_TORCH_DEVICE", "").strip()
     if env:
         return set_device(env)
     if torch.cuda.is_available():
-        return set_device("cuda:0")
+        _device = torch.device("cuda",
+                               _local_rank % torch.cuda.device_count())
+        return _device
     raise RuntimeError(
         "ramba_tpu_torch: no CUDA device is available. Run on a GPU, or ask "
         "for the CPU explicitly with ramba_tpu_torch.common.set_device('cpu') "

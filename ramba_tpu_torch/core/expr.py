@@ -119,15 +119,24 @@ class Const(Expr):
     index constants without copying them back from the card.
     ``sharding`` is the layout a realized array carries (a
     ``parallel.mesh.NamedSharding``; None: the default layout of the
-    current mesh)."""
+    current mesh).  On a mesh of ranks ``value`` is this rank's block and
+    ``shape`` the array's global shape (:attr:`is_block`)."""
 
     __slots__ = ("value", "host", "sharding")
 
-    def __init__(self, value, host=None, sharding=None):
+    def __init__(self, value, host=None, sharding=None, shape=None):
         self.value = value
         self.host = host
         self.sharding = sharding
         self.aval = aval_of(value)
+        if shape is not None:
+            self.aval = Aval(tuple(shape), self.aval.dtype, False)
+
+    @property
+    def is_block(self) -> bool:
+        """True when ``value`` is one rank's block of a larger array."""
+        sh = self.sharding
+        return sh is not None and sh.mesh.ranks is not None
 
 
 class Scalar(Expr):
@@ -2442,36 +2451,88 @@ def _op_trace(static, a):
 @defop("arange")
 def _op_arange(static, start, step):
     n, dtype, _spec = static
+    return _arange_values(start, step, 0, n, dtype)
+
+
+def _arange_values(start, step, lo, m, dtype):
+    """Elements ``[lo, lo + m)`` of ``start + step * iota(dtype)``: the
+    same bytes whether built whole or one block at a time."""
     tdt = to_torch_dtype(dtype)
     ints = all(isinstance(v, (int, np.integer)) and not isinstance(v, bool)
                for v in (start, step))
     if ints and np.dtype(dtype).kind in "iu":
         # exact in integers: one pass instead of iota, multiply and add
-        start, step = int(start), int(step)
-        return torch.arange(start, start + step * n, step, dtype=tdt,
-                            device=common.device())[:n]
-    iota = torch.arange(n, dtype=tdt, device=common.device())
+        start, step = int(start) + int(step) * lo, int(step)
+        return torch.arange(start, start + step * m, step, dtype=tdt,
+                            device=common.device())[:m]
+    iota = torch.arange(lo, lo + m, dtype=tdt, device=common.device())
     return apply_map("add", [start, apply_map("multiply", [step, iota])])
+
+
+def _arange_block_aval(static, start, step):
+    _lo, m, dtype = static
+    _c, out = map_dtypes("add", [start, Aval((m,), np.dtype(dtype))])
+    _c, out = map_dtypes("add", [step, Aval((m,), out)])
+    return Aval((m,), out, False)
+
+
+@defop("arange_block", _arange_block_aval)
+def _op_arange_block(static, start, step):
+    """One rank's block of an ``arange`` (``core/rankflush.py``)."""
+    lo, m, dtype = static
+    return _arange_values(start, step, lo, m, dtype)
 
 
 @defop("linspace")
 def _op_linspace(static, start, stop):
     num, endpoint, dtype, _spec = static
+    return _linspace_values(start, stop, num, endpoint, dtype, 0, num)
+
+
+def _linspace_values(start, stop, num, endpoint, dtype, lo, m):
+    """Elements ``[lo, lo + m)`` of ``jnp.linspace`` (jax 0.9's
+    ``_linspace``), not NumPy's formula: in the computation dtype
+    (``dtype`` if inexact, else float32, or float64 for 64-bit integers)
+    ``start * (1 - t) + stop * t`` with ``t = iota / div`` in its real
+    dtype (XLA's CPU compiler turns ``iota / div`` into ``iota * (1 /
+    div)``, and the port computes that), ``stop`` itself at the endpoint,
+    then ``floor`` for integer dtypes.  So ``linspace(0, 1, 7, dtype=float32)[5]`` is 0.8333333730697632,
+    as in ramba_tpu, where NumPy gives 0.8333333134651184."""
     dt = np.dtype(dtype)
-    div = (num - 1) if endpoint else num
-    # jnp.linspace: start + step * iota in float64, endpoint pinned exactly
-    iota = torch.arange(num, dtype=torch.float64, device=common.device())
-    if div > 0:
-        step = (float(stop) - float(start)) / div
-        out = float(start) + iota * step
-        if endpoint and num > 1:
-            out[-1] = float(stop)
+    if dt.kind in "fc" or is_bf16(dt):
+        comp = dt
     else:
-        out = torch.full((num,), float(start), dtype=torch.float64,
-                         device=common.device())
+        comp = np.dtype(np.float64 if dt.itemsize == 8 and dt.kind in "iu"
+                        else np.float32)
+    ctd = to_torch_dtype(comp)
+    rtd = torch.empty((), dtype=ctd).real.dtype if comp.kind == "c" else ctd
+    dev = common.device()
+    s = torch.tensor(start, dtype=ctd, device=dev)
+    e = torch.tensor(stop, dtype=ctd, device=dev)
+    div = (num - 1) if endpoint else num
+    if num > 1:
+        i = torch.arange(lo, lo + m, dtype=torch.int64, device=dev)
+        # XLA folds the division by the constant ``div`` into a product
+        # with its reciprocal, rounded in the real dtype: so does the port
+        inv = torch.tensor(1.0, dtype=rtd) / torch.tensor(div, dtype=rtd)
+        t = (i.to(rtd) * inv.to(dev)).to(ctd)
+        one = torch.ones((), dtype=ctd, device=dev)
+        out = s * (one - t) + e * t
+        if endpoint:
+            out = torch.where(i == num - 1, e, out)
+    else:
+        out = s.expand(m).clone()
     if dt.kind in "iu":
         out = torch.floor(out)
     return out.to(to_torch_dtype(dt))
+
+
+@defop("linspace_block", lambda static, start, stop: Aval(
+    (static[4],), np.dtype(static[2]), False))
+def _op_linspace_block(static, start, stop):
+    """One rank's block of a ``linspace`` (``core/rankflush.py``)."""
+    num, endpoint, dtype, lo, m = static
+    return _linspace_values(start, stop, num, endpoint, dtype, lo, m)
 
 
 @defop("full")
@@ -2495,6 +2556,18 @@ def _aval_fromfunction(static):
         dtype = to_np_dtype(fromfunction_values(
             fn, (1,) * len(shape), None, "cpu", count=False).dtype)
     return Aval(tuple(shape), np.dtype(dtype), False)
+
+
+@defop("fromfunction_block", lambda static: Aval(
+    tuple(static[0]), np.dtype(static[1]), False))
+def _op_fromfunction_block(static):
+    """One rank's block of a ``fromfunction``: the filler over the global
+    index planes of the block (``core/rankflush.py``)."""
+    from ramba_tpu_torch.skeletons import fromfunction_values
+
+    shape, dtype, fn, starts = static
+    return fromfunction_values(fn, shape, dtype, common.device(),
+                               starts=starts)
 
 
 @defop("fromfunction", _aval_fromfunction)

@@ -14,7 +14,9 @@ instruction program, picks a lowering for it and runs it once:
   long chain holds only the values still needed.
 
 There is no fallback between the two: the choice is made before anything
-runs, and a kernel that fails to build or launch raises.
+runs, and a kernel that fails to build or launch raises.  On a mesh of
+ranks (several processes) a flush runs through ``core/rankflush.py``:
+on each rank's blocks, or on gathered operands, decided before it runs.
 """
 
 from __future__ import annotations
@@ -29,10 +31,14 @@ import torch
 from ramba_tpu_torch import common
 from ramba_tpu_torch.core.expr import OPS, Const, Expr, Node, Scalar
 from ramba_tpu_torch.observe import registry as _registry
+from ramba_tpu_torch.parallel import mesh as _mesh
 
 # Monotone counters (observability; same keys as the JAX package's).
 # ``quarantined``: roots of failed flushes taken out of the pending registry.
-stats = {"flushes": 0, "compiles": 0, "nodes_flushed": 0, "quarantined": 0}
+# ``gathered``: flushes on a mesh of ranks that all-gathered their block
+# leaves to run whole (``core/rankflush.py``).
+stats = {"flushes": 0, "compiles": 0, "nodes_flushed": 0, "quarantined": 0,
+         "gathered": 0}
 
 # Called with no arguments after every flush (results shared between the
 # nodes of one flush are dropped there).
@@ -318,6 +324,11 @@ def _quarantine(stream: FlushStream, roots: list) -> None:
 
 def _flush_roots(stream: FlushStream, roots: list,
                  extra: Sequence[Expr]) -> list:
+    mesh = _mesh.get_mesh()
+    if _mesh.is_rank_mesh(mesh):
+        from ramba_tpu_torch.core import rankflush
+
+        return rankflush.flush_roots(stream, roots, extra, mesh)
     root_exprs = [a._expr for a in roots]
     exprs = root_exprs + list(extra)
     if not exprs:
@@ -365,6 +376,40 @@ def sync() -> None:
     dev = common.device()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def realize(expr: Expr) -> Const:
+    """One expression run alone into a leaf (on a mesh of ranks, this
+    rank's block of it)."""
+    mesh = _mesh.get_mesh()
+    if _mesh.is_rank_mesh(mesh):
+        from ramba_tpu_torch.core import rankflush
+
+        holder = _Holder(expr)
+        with _default_stream._flush_lock:
+            rankflush.flush_roots(_default_stream, [holder], (), mesh)
+        return holder._expr
+    return Const(flush(extra=[expr])[0])
+
+
+class _Holder:
+    """A stand-in root for :func:`realize`: takes the leaf it is given."""
+
+    def __init__(self, expr):
+        self._expr = expr
+
+    def _set_expr(self, c):
+        self._expr = c
+
+
+def gather_const(c: Const):
+    """The whole array of a leaf (a block leaf gathered from every
+    rank)."""
+    if not c.is_block:
+        return c.value
+    from ramba_tpu_torch.core import rankflush
+
+    return rankflush.gather_const(c)
 
 
 def evaluate(expr: Expr):

@@ -258,37 +258,64 @@ class ndarray:
 
     # -- materialization ------------------------------------------------------
 
+    def _const(self) -> Const:
+        """The realized leaf of a base array (flushes lazy work)."""
+        if not isinstance(self._expr, Const):
+            fuser.flush()
+        if not isinstance(self._expr, Const):
+            # still lazy after a flush: a failed flush quarantined this
+            # array; its graph runs again alone and raises its own error
+            # if it is the broken one
+            self._set_expr(fuser.realize(self._expr))
+        return self._expr
+
     def _value(self) -> torch.Tensor:
-        """Concrete tensor for this array (flushes lazy work)."""
+        """Concrete tensor for this array (flushes lazy work).  On a mesh
+        of ranks this is the whole array, gathered from every rank on
+        every rank (counted as ``allgather``): :meth:`_block` reads the
+        rank's own block without moving anything."""
         if self._base is None:
-            if not isinstance(self._expr, Const):
-                fuser.flush()
-            if not isinstance(self._expr, Const):
-                # still lazy after a flush: a failed flush quarantined this
-                # array; its graph runs again alone and raises its own error
-                # if it is the broken one
-                self._set_expr(Const(fuser.flush(extra=[self._expr])[0]))
-            return self._expr.value
+            c = self._const()
+            return fuser.gather_const(c) if c.is_block else c.value
         return fuser.flush(extra=[self.read_expr()])[0]
+
+    def _block(self) -> torch.Tensor:
+        """This rank's block of the array (the whole array in one
+        process), as its layout cuts it."""
+        if self._base is None:
+            c = self._const()
+            if c.is_block:
+                return c.value
+        v = self._value()
+        if not isinstance(v, torch.Tensor) or v.ndim == 0:
+            return v
+        return v[self.sharding.local_index(self.shape)]
 
     @property
     def sharding(self) -> "_mesh.NamedSharding":
         """The layout of the realized array (flushes lazy work)."""
-        self._value()
-        if self._base is None and self._expr.sharding is not None:
+        if self._base is None and self._const().sharding is not None:
             return self._expr.sharding
         return _mesh.default_sharding(self.shape)
 
     @property
     def addressable_shards(self) -> list:
-        """One :class:`Shard` per mesh position, in grid order: its block
-        is a view into the array's one tensor."""
-        v, sh = self._value(), self.sharding
+        """One :class:`Shard` per mesh position this process holds, in
+        grid order: in one process every position, each block a view into
+        the array's one tensor; on a mesh of ranks the rank's own block."""
+        sh = self.sharding
+        if sh.mesh.ranks is not None:
+            b = self._block()
+            return [Shard(pos, sh.mesh.devices[pos],
+                          sh.block_index(pos, self.shape), b)
+                    for pos in sh.mesh.local_positions()]
+        v = self._value()
         return [Shard(pos, sh.mesh.devices[pos], idx, v[idx])
                 for pos, idx in sh.shard_indices(self.shape)]
 
     def asarray(self) -> np.ndarray:
-        """Gather to a host NumPy array."""
+        """Gather to a host NumPy array (on a mesh of ranks every rank
+        gathers the whole array)."""
         v = self._value()
         if not isinstance(v, torch.Tensor):
             return np.asarray(v, dtype=self.dtype)
@@ -602,18 +629,27 @@ class Shard(NamedTuple):
 def put_sharded(x, sharding) -> ndarray:
     """Upload a host array (or adopt a tensor) under ``sharding``.  The
     reference returns a ``jax.Array``; a torch tensor carries no layout, so
-    the port returns the array, whose leaf carries it.  The shards are
-    views into one tensor on the mesh's device."""
+    the port returns the array, whose leaf carries it.  In one process the
+    shards are views into one tensor on the mesh's device; on a mesh of
+    ranks ``x`` is the same on every rank and each rank uploads only its
+    own block (``make_array_from_callback``)."""
     if not isinstance(sharding, _mesh.NamedSharding):
         raise TypeError("put_sharded takes a parallel.mesh.NamedSharding, "
                         f"got {type(sharding).__name__}")
-    if isinstance(x, torch.Tensor):
-        t = x.to(sharding.mesh.device)
-    else:
-        t = E.tensor_from_numpy(np.asarray(x), sharding.mesh.device)
-    if len(sharding.spec) > t.ndim:
+    dev = sharding.mesh.device
+    if not isinstance(x, torch.Tensor):
+        x = np.asarray(x)
+    if len(sharding.spec) > x.ndim:
         raise ValueError(f"spec {sharding.spec} has more entries than the "
-                         f"{t.ndim}-d array")
+                         f"{x.ndim}-d array")
+    if sharding.mesh.ranks is not None:
+        shape = tuple(x.shape)
+        block = x[sharding.local_index(shape)]
+        t = block.to(dev).contiguous() if isinstance(block, torch.Tensor) \
+            else E.tensor_from_numpy(block, dev)
+        return ndarray(Const(t, sharding=sharding, shape=shape))
+    t = x.to(dev) if isinstance(x, torch.Tensor) \
+        else E.tensor_from_numpy(x, dev)
     return ndarray(Const(t, sharding=sharding))
 
 

@@ -16,6 +16,13 @@ the bound).  Every chunk read and every file write runs under the
 (``RAMBA_FAULTS=fileio:...``).
 
 Loaded arrays land on the port's device (``common.device()``).
+
+On a mesh of ranks (``parallel/distributed.py``) every rank runs the same
+call: a load reads only the rank's block of the file; an ``.rtd`` save has
+every rank write the blocks it owns and its own manifest part (``nproc``
+is the world size), then a barrier; a single-file save gathers the array,
+rank 0 (the driver) writes it, and every rank learns whether the write
+succeeded.  The retries at the ``fileio`` site run per rank.
 """
 
 from __future__ import annotations
@@ -33,8 +40,9 @@ from ramba_tpu_torch import common
 from ramba_tpu_torch.core import staging
 from ramba_tpu_torch.core.expr import Const, to_np_dtype
 from ramba_tpu_torch.core.ndarray import ndarray
-from ramba_tpu_torch.observe import events as _events
 from ramba_tpu_torch.ops.creation import fromarray
+from ramba_tpu_torch.parallel import distributed as _distributed
+from ramba_tpu_torch.parallel import mesh as _mesh
 from ramba_tpu_torch.resilience import faults as _faults
 from ramba_tpu_torch.resilience import retry as _retry
 
@@ -68,15 +76,6 @@ def _note_chunk(nbytes: int, whole: bool) -> None:
                                       int(nbytes))
 
 
-def _single_process(what: str) -> None:
-    """The port's files are written by one process; several processes
-    writing one file, or the shards of one array, come with A.6."""
-    if _events.rank_info()[1] > 1:
-        raise NotImplementedError(
-            f"fileio: {what} from several processes comes with the "
-            "multi-GPU queue (A.6)")
-
-
 def _fits_one_chunk(shape, dtype) -> bool:
     n = int(np.prod(shape, dtype=np.int64)) * np.dtype(dtype).itemsize
     return n <= staging.CHUNK_BYTES
@@ -100,8 +99,23 @@ def read_tensor(shape, dtype, read_slice):
 
 
 def _sharded_from_reader(shape, dtype, read_slice) -> ndarray:
-    """Reference name: one card holds the one shard, read chunk by chunk."""
-    return ndarray(Const(read_tensor(shape, dtype, read_slice)))
+    """Reference name: the array, read chunk by chunk.  In one process the
+    card holds the one shard; on a mesh of ranks each rank reads only its
+    block of the default layout."""
+    shape = tuple(int(s) for s in shape)
+    mesh = _mesh.get_mesh()
+    if not _mesh.is_rank_mesh(mesh):
+        return ndarray(Const(read_tensor(shape, dtype, read_slice)))
+    sh = _mesh.NamedSharding(mesh, _mesh.default_spec(shape, mesh))
+    idx = sh.local_index(shape)
+    starts = [sl.indices(n)[0] for sl, n in zip(idx, shape)]
+
+    def read_block(box):
+        return read_slice(tuple(slice(b.start + s, b.stop + s)
+                                for b, s in zip(box, starts)))
+
+    block = read_tensor(_mesh.index_shape(idx, shape), dtype, read_block)
+    return ndarray(Const(block, sharding=sh, shape=shape))
 
 
 def register_loader(extensions, fn: Callable) -> None:
@@ -220,7 +234,18 @@ def read_npy(path: str, dtype=None):
 
 
 def _load_npy(path, key):
-    return ndarray(Const(read_npy(path)))
+    return load_npy(path)
+
+
+def load_npy(path: str, dtype=None) -> ndarray:
+    """A ``.npy`` file as a port array (each rank reads its block on a
+    mesh of ranks); ``dtype`` as for :func:`read_npy`."""
+    m = _map_npy(path, dtype)
+    try:
+        return _sharded_from_reader(
+            m.shape, m.dtype, lambda index: m[index] if index else m[()])
+    finally:
+        _close_memmap(m)
 
 
 def _close_memmap(m) -> None:
@@ -296,30 +321,64 @@ def write_npy(path: str, arr) -> None:
 
 
 def _save_rtd(path: str, arr) -> None:
-    _single_process("an .rtd save")
     if not isinstance(arr, (ndarray, torch.Tensor)):
         arr = np.asarray(arr)
     os.makedirs(path, exist_ok=True)
-    # _write_rtd_part clears this process's stale files first, so a retried
-    # attempt restarts from a clean slate
-    _resilient_io("write", lambda: _write_rtd_part(path, arr, 0))
+    pid = _distributed.process_index()
+    try:
+        # _write_rtd_part clears this process's stale files first, so a
+        # retried attempt restarts from a clean slate
+        _resilient_io("write", lambda: _write_rtd_part(path, arr, pid))
+    finally:
+        # every process must see every part before anyone may load; a
+        # rank whose write failed still joins, or the others block
+        _distributed.barrier("ramba_rtd_save")
+
+
+def _owned_block(arr):
+    """``(tensor, start)`` of the block this process writes, or None: on a
+    mesh of ranks a block held by several ranks (whole along some mesh
+    axes) is written by the one at coordinate 0 of those axes, as the
+    reference's first device in ``devices_indices_map`` order."""
+    if not isinstance(arr, ndarray):
+        return arr, None
+    sh = arr.sharding
+    mesh = sh.mesh
+    if not _mesh.is_rank_mesh(mesh):
+        return arr, None
+    pos = mesh.position_of(_distributed.process_index())
+    used = {nm for e in sh.spec for nm in _mesh.entry_names(e)}
+    if pos is None or any(p for nm, p in zip(mesh.axis_names, pos)
+                          if nm not in used):
+        return None
+    idx = sh.local_index(arr.shape)
+    if 0 in _mesh.index_shape(idx, arr.shape):
+        return None
+    return arr._block(), [sl.indices(n)[0] for sl, n in zip(idx, arr.shape)]
 
 
 def _write_rtd_part(path: str, arr, pid: int) -> None:
     for stale in glob.glob(os.path.join(path, f"shard_p{pid}_*.npy")) + \
             glob.glob(os.path.join(path, f"manifest.p{pid}.json")):
         os.remove(stale)
-    fname = f"shard_p{pid}_0.npy"
     shape, dtype = _arr_meta(arr)
-    _write_npy_file(os.path.join(path, fname), arr)
-    entries = [{"file": fname, "start": [0] * len(shape),
-                "stop": list(shape)}]
+    owned = _owned_block(arr)
+    entries = []
+    if owned is not None:
+        data, start = owned
+        start = start or [0] * len(shape)
+        fname = f"shard_p{pid}_0.npy"
+        _write_npy_file(os.path.join(path, fname), data)
+        bshape, _dt = _arr_meta(data)
+        entries.append({"file": fname, "start": list(start),
+                        "stop": [a + n for a, n in zip(start, bshape)]})
     # atomic manifest publish (tmp + rename): a reader never sees a
     # half-written part
     mpath = os.path.join(path, f"manifest.p{pid}.json")
     with open(mpath + ".tmp", "w") as f:
         json.dump({"shape": list(shape), "dtype": dtype.name,
-                   "nproc": _events.rank_info()[1], "shards": entries}, f)
+                   "nproc": _distributed.process_count(),
+                   "shards": entries}, f)
     os.replace(mpath + ".tmp", mpath)
 
 
@@ -442,17 +501,33 @@ register_loader(["rtd"], _load_rtd)
 
 
 def _single_writer(write_fn) -> None:
-    """Single-writer file write: with one process it is one resilient
-    write; several processes (rank 0 writes, the rest wait) come with
-    A.6."""
-    _single_process("a single-file write")
-    _resilient_io("write", write_fn)
+    """Single-writer file write: rank 0 (the driver) writes under the
+    ``fileio`` retry policy, then every process learns whether the write
+    succeeded (an all-reduce that is also the completion barrier), so a
+    failed driver write raises on every rank.  Every process calls it."""
+    if _distributed.process_count() <= 1:
+        _resilient_io("write", write_fn)
+        return
+    err = None
+    if _distributed.in_driver():
+        try:
+            _resilient_io("write", write_fn)
+        except Exception as e:  # re-raised below, after the agreement
+            err = e
+    failed = _distributed.all_reduce_int(0 if err is None else 1, "max")
+    _distributed.note_transfer("broadcast", 8)
+    if err is not None:
+        raise err
+    if failed:
+        raise RuntimeError("the driver (process 0) failed to write the "
+                           "file; see its log for the original exception")
 
 
 def save(path: str, arr) -> None:
     """Chunked save, dispatched by extension like ``load``: a port array
     is written chunk by chunk from the device, so host memory is bounded
-    by one chunk."""
+    by one chunk.  On a mesh of ranks a single file is written by the
+    driver from the gathered array."""
     ext = os.path.splitext(path)[1].lower().lstrip(".")
     if ext == "rtd":
         return _save_rtd(path, arr)
@@ -460,9 +535,10 @@ def save(path: str, arr) -> None:
         raise ValueError(
             f"no saver for extension {ext!r} (supported: npy, h5/hdf5, rtd)"
         )
-    _single_process("a single-file save")
+    if isinstance(arr, ndarray) and _distributed.process_count() > 1:
+        arr = arr._value()  # every rank takes part in the gather
     if ext == "npy":
-        write_npy(path, arr)
+        _single_writer(lambda: _write_npy_file(path, arr))
         return
     try:
         import h5py  # type: ignore
@@ -479,7 +555,7 @@ def save(path: str, arr) -> None:
                 else:
                     dset[idx] = chunk
 
-    _resilient_io("write", write_h5)
+    _single_writer(write_h5)
 
 
 def loadtxt(fname, dtype=float, comments="#", delimiter=None, skiprows=0,

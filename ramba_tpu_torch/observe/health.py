@@ -51,11 +51,17 @@ def record_recovery(source: str, retries: int, **extra) -> dict:
 
 
 def record_mesh(mesh, init_seconds: float) -> None:
-    """Health record for the first default mesh (one per process)."""
+    """Health record for the first default mesh of each kind (one
+    process's, then a mesh of ranks once a group formed)."""
     global _mesh_recorded
-    if _mesh_recorded:
+    ranks = getattr(mesh, "ranks", None)
+    kind = "ranks" if ranks is not None else "one"
+    if _mesh_recorded is True or kind in (_mesh_recorded or ()):
         return
-    _mesh_recorded = True
+    _mesh_recorded = tuple(_mesh_recorded or ()) + (kind,)
+    extra = {}
+    if ranks is not None:
+        extra["ranks"] = ranks.tolist()
     record(
         platform=mesh.device.type,
         device_count=mesh.size,
@@ -63,4 +69,5 @@ def record_mesh(mesh, init_seconds: float) -> None:
         outcome="ok",
         source="default_mesh",
         mesh_shape={k: int(v) for k, v in mesh.shape.items()},
+        **extra,
     )

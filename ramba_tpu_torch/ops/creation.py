@@ -30,7 +30,7 @@ def _no_distribution(distribution):
         raise NotImplementedError(
             "explicit distributions are taken by fromarray only; the other "
             "creation ops take them with create_array_with_divisions, in the "
-            "multi-process slice of the port (ROADMAP A.6, part two)")
+            "multi-process slice of the port (ROADMAP A.6, part three)")
     common.device()
 
 
@@ -162,8 +162,9 @@ def fromarray(arr, dtype=None, distribution=None):
     if isinstance(arr, torch.Tensor):
         t = arr if dtype is None else arr.to(E.to_torch_dtype(_np_dtype(dtype)))
     else:
-        a = np.asarray(arr) if dtype is None else np.asarray(arr, dtype=dtype)
-        t = E.tensor_from_numpy(a)
+        # a host array goes up as it is: on a mesh of ranks put_sharded
+        # uploads only this rank's block
+        t = np.asarray(arr) if dtype is None else np.asarray(arr, dtype=dtype)
     return put_sharded(t, _resolve_distribution(distribution,
                                                 tuple(t.shape)))
 

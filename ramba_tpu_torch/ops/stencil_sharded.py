@@ -280,3 +280,144 @@ def _local_stencil(func, lo, hi, slots, exts, local, kernel):
         full = stencil_kernel.run(func, lo, hi, slots, exts)
         return full[tuple(slice(-l, -l + n) for l, n in zip(lo, local))]
     return stencil_interior(func, lo, hi, slots, exts)
+
+
+# --- across ranks -------------------------------------------------------------
+
+
+def fits(lo, hi, shape, sharding) -> bool:
+    """True when every halo fits inside one neighbouring block of the
+    layout (``run_block`` takes it)."""
+    counts = sharding.split_counts(len(shape))
+    return all(max(-l, h) <= -(-n // c)
+               for l, h, n, c in zip(lo, hi, shape, counts) if c > 1)
+
+
+def _rank_exchange(exts, d, los, his, local, neighbours, counts):
+    """Fill this rank's halo slabs along dim ``d`` over send/recv: the
+    lower neighbour sends its last cells, the upper its first (every
+    buffer's slab in one batch); zeros at the ends of the mesh."""
+    from ramba_tpu_torch.parallel import distributed
+
+    nd = len(local)
+    down, up = neighbours
+    top = los[d] + local[d]
+    low_halo = _region(nd, d, los, his, local, slice(0, los[d]))
+    high_halo = _region(nd, d, los, his, local, slice(top, top + his[d]))
+    first = _region(nd, d, los, his, local, slice(los[d], los[d] + his[d]))
+    last = _region(nd, d, los, his, local, slice(local[d], top))
+    for e in exts:
+        for width, idx in ((los[d], low_halo), (his[d], high_halo)):
+            if width and counts[d] > 1:
+                _registry.inc("stencil.halo_bytes_est", (counts[d] - 1)
+                              * e[idx].numel() * e.element_size())
+    sends, recvs, into = [], [], []
+    for e in exts:
+        if down is not None and his[d]:
+            sends.append((e[first], down))
+        if up is not None and los[d]:
+            sends.append((e[last], up))
+    for e in exts:
+        for width, idx, src in ((los[d], low_halo, down),
+                                (his[d], high_halo, up)):
+            if not width:
+                continue
+            if src is None:
+                e[idx] = 0
+            else:
+                recvs.append((tuple(e[idx].shape), e.dtype, src))
+                into.append((e, idx))
+    got = distributed.exchange(sends, recvs)
+    for (e, idx), v in zip(into, got):
+        e[idx] = v
+
+
+def _mask_block(out, shape, los, his, origin):
+    """Zero the cells of a block at ``origin`` whose global neighbourhood
+    leaves the array (and the padding beyond ``shape``)."""
+    for d in range(out.ndim):
+        idx = [slice(None)] * out.ndim
+        if los[d] > origin[d]:
+            idx[d] = slice(0, los[d] - origin[d])
+            out[tuple(idx)] = 0
+        start = max(shape[d] - his[d] - origin[d], 0)
+        if start < out.shape[d]:
+            idx[d] = slice(start, out.shape[d])
+            out[tuple(idx)] = 0
+
+
+def run_block(func, lo, hi, slots, blocks, shape, sharding, iters=1):
+    """The stencil over a mesh of ranks, on this rank's blocks: ``iters``
+    sweeps with slot 0 as the carry (already in the sweep's dtype when
+    ``iters > 1``) and the other slots loop-invariant.  Each block is
+    zero-padded to the layout's uniform block (ceil(n / parts)), extended
+    by halo slabs received from the neighbouring ranks (last dim first, so
+    corners arrive in two hops), swept by the CUDA stencil kernel (one
+    launch per sweep; its plain version on the CPU), masked in global
+    coordinates and cut back to the block: the bytes of the one-process
+    sharded stencil (:func:`run`)."""
+    from ramba_tpu_torch.ops import stencil_kernel
+    from ramba_tpu_torch.parallel import distributed
+
+    real = tuple(blocks[0].shape)
+    if iters == 0:
+        return blocks[0]
+    mesh = sharding.mesh
+    nd = len(shape)
+    los = tuple(-l for l in lo)
+    his = tuple(hi)
+    counts = sharding.split_counts(nd)
+    local = tuple(-(-s // c) for s, c in zip(shape, counts))
+    pos = mesh.position_of(distributed.process_index())
+    coords = sharding.block_coords(pos, nd)
+    origin = tuple(k * l for k, l in zip(coords, local))
+    neighbours = [tuple(sharding.neighbour_rank(pos, nd, d, s)
+                        for s in (-1, 1)) for d in range(nd)]
+    ext_shape = tuple(l + a + b for l, a, b in zip(local, los, his))
+    own = tuple(slice(a, a + l) for a, l in zip(los, local))
+
+    def extend(bs, exts=None):
+        if exts is None:
+            exts = [torch.empty(ext_shape, dtype=b.dtype, device=b.device)
+                    for b in bs]
+        for e, b in zip(exts, bs):
+            e[own] = _pad(b, local)
+        for d in range(nd - 1, -1, -1):
+            if los[d] or his[d]:
+                _rank_exchange(exts, d, los, his, local, neighbours[d],
+                               counts)
+        return exts
+
+    rest = list(blocks[1:])
+    rest_exts = extend(rest)
+    carry = blocks[0]
+    exts = extend([carry])
+    dev = carry.device
+    avail = nd == 2 and stencil_kernel.available(func, lo, hi, slots,
+                                                 exts + rest_exts)
+    kernel = avail and dev.type == "cuda"
+    inner = tuple(l - (a + b) for l, a, b in zip(local, los, his))
+    overlap = (not kernel and nd == 2
+               and all(i > 0 for i in inner) and (any(los) or any(his)))
+    scratch = torch.empty_like(exts[0]) if kernel else None
+    outs = [None, None]
+    for sweep in range(iters):
+        if sweep:
+            exts = extend([carry], exts)
+        ext = exts + rest_exts
+        if kernel:
+            val = stencil_kernel.launch(func, lo, hi, slots, ext,
+                                        scratch)[own]
+        elif overlap:
+            bl = [e[own] for e in ext]
+            val = _overlapped_val(func, lo, hi, slots, bl, ext, local)
+        else:
+            val = _local_stencil(func, lo, hi, slots, ext, local, avail)
+        out = outs[sweep % 2]
+        if out is None:
+            out = outs[sweep % 2] = torch.empty(local, dtype=val.dtype,
+                                                device=dev)
+        out.copy_(val)
+        _mask_block(out, shape, los, his, origin)
+        carry = out
+    return carry[tuple(slice(0, r) for r in real)].clone()

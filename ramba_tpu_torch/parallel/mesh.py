@@ -1,29 +1,43 @@
 """Mesh of shards + partition planning.
 
 Counterpart of ``ramba_tpu/parallel/mesh.py``.  A :class:`Mesh` is an n-d
-grid of shard positions, each holding a ``torch.device``, with one name
-per grid axis; a :class:`PartitionSpec` names, per array dim, the mesh
-axes that dim is split over; a :class:`NamedSharding` pairs the two.  The
-partition solver (``compute_regular_schedule``: the split of the shard
-count that cuts the least surface) and the spec choice (``default_spec``)
-are the reference's, over the shard count.
+grid of shard positions with one name per grid axis; a
+:class:`PartitionSpec` names, per array dim, the mesh axes that dim is
+split over; a :class:`NamedSharding` pairs the two.  The partition solver
+(``compute_regular_schedule``: the split of the shard count that cuts the
+least surface) and the spec choice (``default_spec``) are the
+reference's, over the shard count.
 
-One process drives the whole mesh.  Every position of a mesh holds the
-same device: a grid may repeat one device (``Mesh(np.array([dev] * 4,
-dtype=object).reshape(2, 2), ("d0", "d1"))``), and each array's shards are
-then views into one tensor on it.  A grid of distinct devices raises
-``NotImplementedError``: PyTorch drives several GPUs with one process per
-GPU over ``torch.distributed``, which is the multi-process slice of the
-port (ROADMAP A.6, part two), not a silent run on the first device.
+A mesh takes one of two forms:
 
-The default mesh is one shard on ``common.device()``, so every path runs
-as it does without a mesh.
+* **one process**: every position holds the same device (``Mesh(np.array(
+  [dev] * 4, dtype=object).reshape(2, 2), ("d0", "d1"))``), and each
+  array's shards are views into one tensor on it;
+* **ranks** (``rank_mesh``, ``distributed.global_mesh``, and the default
+  mesh once ``distributed.initialize`` formed a group of several
+  processes): every position is one rank with the device it computes on,
+  and each rank holds only the block of its own position
+  (:meth:`NamedSharding.local_index`).  A rank outside a capped mesh holds
+  empty blocks and still takes part in every collective.
+
+A grid of distinct devices in one process raises ``NotImplementedError``:
+PyTorch drives several cards with one process per card
+(``distributed.initialize``), not with a silent run on the first device.
+A rank holding more than one position raises too (ROADMAP A.6, part
+three).
+
+The default mesh of one process is one shard on ``common.device()``; with
+several ranks it is ``balanced_factors(min(world, RAMBA_WORKERS),
+RAMBA_TPU_MESH_NDIM)`` over the ranks in rank order, as the reference's is
+over its devices.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
+import threading
 import time
 from collections import OrderedDict
 from functools import lru_cache
@@ -34,11 +48,14 @@ import torch
 
 from ramba_tpu_torch import common
 
-MULTI_PROCESS = ("a mesh of distinct devices needs one process per device "
-                 "over torch.distributed: the multi-process slice of the "
-                 "port (ROADMAP A.6, part two). Build the mesh from one "
-                 "device repeated, e.g. np.array([dev] * 4, dtype=object)"
+MULTI_PROCESS = ("a mesh of distinct devices in one process: the "
+                 "multi-process slice of the port runs one process per "
+                 "device (distributed.initialize) over a mesh of its ranks "
+                 "(distributed.global_mesh); in one process repeat one "
+                 "device, e.g. np.array([dev] * 4, dtype=object)"
                  ".reshape(2, 2)")
+SEVERAL_POSITIONS = ("a rank holding more than one mesh position comes with "
+                     "ROADMAP A.6, part three")
 
 
 class PartitionSpec(tuple):
@@ -63,9 +80,11 @@ def entry_names(entry) -> tuple:
 
 
 class Mesh:
-    """An n-d grid of ``torch.device`` positions with axis names."""
+    """An n-d grid of positions with axis names.  ``ranks`` (same shape,
+    or None) names the rank of each position; ``devices`` the device each
+    position computes on."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str], ranks=None):
         grid = np.empty(np.shape(devices), dtype=object)
         for pos in np.ndindex(grid.shape):
             grid[pos] = torch.device(np.asarray(devices, dtype=object)[pos])
@@ -75,10 +94,16 @@ class Mesh:
                              f"{grid.ndim} axis names, got {axis_names}")
         if len(set(axis_names)) != len(axis_names):
             raise ValueError(f"repeated mesh axis name in {axis_names}")
-        if len({str(d) for d in grid.flat}) > 1:
-            raise NotImplementedError(MULTI_PROCESS)
+        if ranks is None:
+            if len({str(d) for d in grid.flat}) > 1:
+                raise NotImplementedError(MULTI_PROCESS)
+        else:
+            ranks = np.asarray(ranks, dtype=np.int64).reshape(grid.shape)
+            if len(set(ranks.flat)) != ranks.size:
+                raise NotImplementedError(SEVERAL_POSITIONS)
         self.devices = grid
         self.axis_names = axis_names
+        self.ranks = ranks
 
     @property
     def shape(self) -> OrderedDict:
@@ -90,32 +115,108 @@ class Mesh:
 
     @property
     def device(self) -> torch.device:
-        """The one device every position holds."""
-        return self.devices.flat[0]
+        """The device this process computes on: the one every position
+        holds, or on a mesh of ranks this rank's."""
+        if self.ranks is None:
+            return self.devices.flat[0]
+        return common.device()
+
+    def position_of(self, rank: int) -> Optional[tuple]:
+        """The grid position of ``rank`` (None: it holds none)."""
+        if self.ranks is None:
+            return None
+        hit = np.argwhere(self.ranks == int(rank))
+        return tuple(int(i) for i in hit[0]) if len(hit) else None
+
+    def local_positions(self) -> list:
+        """The positions this process holds: every one in one process,
+        at most one on a mesh of ranks."""
+        if self.ranks is None:
+            return list(np.ndindex(self.devices.shape))
+        from ramba_tpu_torch.parallel import distributed
+
+        pos = self.position_of(distributed.process_index())
+        return [] if pos is None else [pos]
+
+    def rank_at(self, pos) -> int:
+        return int(self.ranks[tuple(pos)])
 
     def __eq__(self, other):
-        return (isinstance(other, Mesh)
+        if not (isinstance(other, Mesh)
                 and self.axis_names == other.axis_names
                 and self.devices.shape == other.devices.shape
-                and self.device == other.device)
+                and (self.ranks is None) == (other.ranks is None)):
+            return False
+        if self.ranks is None:
+            return self.device == other.device
+        return (bool((self.ranks == other.ranks).all())
+                and [str(d) for d in self.devices.flat]
+                == [str(d) for d in other.devices.flat])
 
     def __hash__(self):
-        return hash((self.axis_names, self.devices.shape, str(self.device)))
+        if self.ranks is None:
+            return hash((self.axis_names, self.devices.shape,
+                         str(self.device)))
+        return hash((self.axis_names, self.devices.shape,
+                     tuple(self.ranks.flat)))
 
     def __repr__(self):
         axes = ", ".join(f"'{k}': {v}" for k, v in self.shape.items())
-        return f"Mesh({axes}, device={self.device})"
+        if self.ranks is None:
+            return f"Mesh({axes}, device={self.device})"
+        return f"Mesh({axes}, ranks={self.ranks.tolist()})"
+
+
+def is_rank_mesh(mesh: Mesh) -> bool:
+    """True for a mesh whose positions are ranks of a group of several
+    processes: its arrays are held as per-rank blocks."""
+    return mesh.ranks is not None
+
+
+def rank_mesh(shape: tuple, axis_names=None, ranks=None) -> Mesh:
+    """A mesh of ``shape`` over ``ranks`` (default: 0, 1, ...) in grid
+    order, each position on the device its rank published at bring-up."""
+    from ramba_tpu_torch.parallel import distributed
+
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    ranks = list(range(n) if ranks is None else ranks)[:n]
+    if len(ranks) != n:
+        raise ValueError(f"a {shape} mesh needs {n} ranks, got {len(ranks)}")
+    world = distributed.process_count()
+    if max(ranks) >= world:
+        raise ValueError(f"ranks {ranks} outside a world of {world}")
+    devs = distributed.rank_devices() or [("", str(common.device()))]
+    grid = np.empty(shape, dtype=object)
+    for pos, r in zip(np.ndindex(shape), ranks):
+        grid[pos] = torch.device(devs[r][1])
+    if axis_names is None:
+        axis_names = tuple(f"d{i}" for i in range(len(shape)))
+    return Mesh(grid, axis_names, ranks=np.array(ranks).reshape(shape))
 
 
 _mesh: Optional[Mesh] = None
 _mesh_is_default = False
 # Bumped every time the mesh changes.
 mesh_epoch: int = 0
+# A thread inside ``local_scope`` sees a one-shard mesh.
+_scope = threading.local()
 
 
 def _make_default_mesh() -> Mesh:
+    from ramba_tpu_torch.parallel import distributed
+
     t0 = time.perf_counter()
-    mesh = Mesh([common.device()], ("d0",))
+    world = distributed.process_count()
+    if world > 1:
+        n = world
+        if common.num_workers_env is not None:
+            n = max(1, min(n, int(common.num_workers_env)))
+        ndim = max(1, min(common.mesh_ndim, 3))
+        factors = tuple(f for f in balanced_factors(n, ndim) if f > 1) or (1,)
+        mesh = rank_mesh(factors)
+    else:
+        mesh = Mesh([common.device()], ("d0",))
     init_s = time.perf_counter() - t0
     from ramba_tpu_torch.observe import health as _health
 
@@ -123,10 +224,35 @@ def _make_default_mesh() -> Mesh:
     return mesh
 
 
+def reset_default() -> None:
+    """Forget the default mesh (the process group formed or went away):
+    the next ``get_mesh`` builds it anew."""
+    global _mesh, _mesh_is_default, mesh_epoch
+    if _mesh is None or _mesh_is_default:
+        _mesh, _mesh_is_default = None, False
+        mesh_epoch += 1
+
+
+@contextlib.contextmanager
+def local_scope():
+    """Inside, this thread sees a one-shard mesh on its own device: what
+    runs there is rank-local (an spmd kernel's body, a program every rank
+    runs whole on gathered operands)."""
+    prev = getattr(_scope, "mesh", None)
+    _scope.mesh = Mesh([common.device()], ("d0",))
+    try:
+        yield _scope.mesh
+    finally:
+        _scope.mesh = prev
+
+
 def get_mesh() -> Mesh:
     """The process mesh.  The default one follows ``common.device()``; a
     mesh a caller set must hold it."""
     global _mesh_is_default
+    scoped = getattr(_scope, "mesh", None)
+    if scoped is not None:
+        return scoped
     if _mesh is None or (_mesh_is_default
                          and _mesh.device != common.device()):
         set_mesh(_make_default_mesh())
@@ -139,13 +265,22 @@ def get_mesh() -> Mesh:
 
 def set_mesh(mesh: Mesh) -> None:
     """Install the process mesh.  Its device must be the one arrays are
-    created on (``common.device()``)."""
+    created on (``common.device()``); a mesh of ranks must cover this
+    process's group."""
     global _mesh, _mesh_is_default, mesh_epoch
     if not isinstance(mesh, Mesh):
         raise TypeError(f"set_mesh takes a Mesh, got {type(mesh).__name__}")
-    if mesh.device != common.device():
+    if mesh.ranks is None and mesh.device != common.device():
         raise ValueError(f"the mesh holds {mesh.device} but arrays are "
                          f"created on {common.device()}")
+    if mesh.ranks is not None:
+        from ramba_tpu_torch.parallel import distributed
+
+        me = mesh.position_of(distributed.process_index())
+        if me is not None and mesh.devices[me] != common.device():
+            raise ValueError(f"this rank's position holds "
+                             f"{mesh.devices[me]} but arrays are created "
+                             f"on {common.device()}")
     _mesh, _mesh_is_default = mesh, False
     mesh_epoch += 1
 
@@ -369,6 +504,66 @@ class NamedSharding:
                         for n, c, k in zip(shape, counts, coords))
             out.append((pos, idx))
         return out
+
+    def block_index(self, pos, shape) -> tuple:
+        """The index of the block mesh position ``pos`` holds."""
+        shape = tuple(int(s) for s in shape)
+        counts = self.split_counts(len(shape))
+        coords = self.block_coords(tuple(pos), len(shape))
+        return tuple(slice(None) if c == 1 else _block_range(n, c, k)
+                     for n, c, k in zip(shape, counts, coords))
+
+    def neighbour_rank(self, pos, ndim: int, d: int, step: int):
+        """The rank holding the block ``step`` blocks away from position
+        ``pos``'s along array dim ``d`` (the same coordinates along every
+        other mesh axis), or None past the end of the mesh."""
+        spec = tuple(self.spec) + (None,) * (ndim - len(self.spec))
+        names = entry_names(spec[d])
+        if not names:
+            return None
+        where = dict(zip(self.mesh.axis_names, pos))
+        k = 0
+        for nm in names:
+            k = k * self.mesh.shape[nm] + where[nm]
+        k += step
+        if not 0 <= k < math.prod(self.mesh.shape[nm] for nm in names):
+            return None
+        for nm in reversed(names):
+            k, where[nm] = divmod(k, self.mesh.shape[nm])
+        return self.mesh.rank_at(tuple(where[nm]
+                                       for nm in self.mesh.axis_names))
+
+    def rank_index(self, rank: int, shape) -> tuple:
+        """The index of the block ``rank`` holds on a mesh of ranks: its
+        position's, or empty along every split dim for a rank outside
+        the mesh (whole along the others)."""
+        pos = self.mesh.position_of(rank)
+        if pos is not None:
+            return self.block_index(pos, shape)
+        counts = self.split_counts(len(shape))
+        return tuple(slice(None) if c == 1 else slice(0, 0) for c in counts)
+
+    def local_index(self, shape) -> tuple:
+        """The index of this process's block (the whole array in one
+        process)."""
+        if self.mesh.ranks is None:
+            return tuple(slice(None) for _ in shape)
+        from ramba_tpu_torch.parallel import distributed
+
+        return self.rank_index(distributed.process_index(), shape)
+
+    def rank_shapes(self, shape) -> list:
+        """Per rank of the group, the shape of the block it holds."""
+        from ramba_tpu_torch.parallel import distributed
+
+        shape = tuple(int(s) for s in shape)
+        return [index_shape(self.rank_index(r, shape), shape)
+                for r in range(distributed.process_count())]
+
+
+def index_shape(idx, shape) -> tuple:
+    """The shape ``x[idx]`` has for an ``x`` of ``shape`` (slices only)."""
+    return tuple(len(range(*sl.indices(n))) for sl, n in zip(idx, shape))
 
 
 def layout_of(arr, mesh: Mesh) -> P:

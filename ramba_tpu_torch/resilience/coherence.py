@@ -175,14 +175,21 @@ def epochs() -> Dict[str, int]:
 
 
 def _transport(value: int, reduce: str) -> "tuple[int, int]":
-    """One round: ``(decision, nbytes)``.  Loopback (``force`` mode, one
-    process) reduces over the local proposal alone."""
-    if _process_count() <= 1:
+    """One round: ``(decision, nbytes)``.  Loopback (``force`` mode, or
+    no process group formed) reduces over the local proposal alone;
+    across processes the proposal is all-reduced (max or min; ``bcast``:
+    rank 0's value) over ``parallel.distributed``, bounded by the
+    group's timeout (the elastic deadline comes with ROADMAP A.8)."""
+    from ramba_tpu_torch.parallel import distributed
+
+    n = distributed.process_count()
+    if n <= 1:
         return int(value), 4  # loopback: own proposal wins (one int32)
-    raise NotImplementedError(
-        "coherence: the cross-process agreement round comes with the "
-        "multi-GPU queue (A.6); this process group has "
-        f"{_process_count()} processes")
+    if reduce == "bcast":
+        mine = int(value) if distributed.in_driver() else 0
+        # rank 0's value: the others contribute nothing to a sum
+        return distributed.all_reduce_int(mine, "sum"), 8 * n
+    return distributed.all_reduce_int(int(value), reduce), 8 * n
 
 
 def agree(site: str, proposal: int, *, reduce: str = "max") -> int:

@@ -447,7 +447,7 @@ def _host_dtype(func, slots, with_index, ndim, dtypes) -> np.dtype:
     return np.result_type(*found) if found else np.result_type(*dtypes)
 
 
-def _host_smap(func, slots, with_index, arrs):
+def _host_smap(func, slots, with_index, arrs, starts=None):
     """Per-element host evaluation of a kernel that cannot be traced (a
     float()/int() conversion, a data-dependent loop): correct for any
     kernel, but it copies every operand to the host and back, so it warns
@@ -467,8 +467,9 @@ def _host_smap(func, slots, with_index, arrs):
     call_one = _host_call(func, slots, with_index, ndim)
     # index planes as the device path builds them: over the main operand's
     # shape, broadcast with the operands
-    ins = ([np.broadcast_to(ix, shape) for ix in np.indices(arrays[0].shape)]
-           if with_index else [])
+    ins = ([np.broadcast_to(ix + st, shape) for ix, st in zip(
+        np.indices(arrays[0].shape), starts or (0,) * ndim)]
+        if with_index else [])
     ins += [np.broadcast_to(a, shape) for a in arrays]
     if not shape:
         res = np.asarray(call_one(*[a[()] for a in ins]))
@@ -491,14 +492,16 @@ def _host_smap(func, slots, with_index, arrs):
 # --- smap --------------------------------------------------------------------
 
 
-def index_planes(shape, dev):
+def index_planes(shape, dev, starts=None):
     """int32 index planes over ``shape``, as ``ramba_tpu``'s iotas: plane
-    ``d`` varies along dim ``d`` and broadcasts along the others."""
+    ``d`` varies along dim ``d`` and broadcasts along the others; a block
+    at ``starts`` gets its global indices."""
     nd = len(shape)
+    starts = starts or (0,) * nd
     return tuple(
-        torch.arange(n, dtype=torch.int32, device=dev).view(
+        torch.arange(s, s + n, dtype=torch.int32, device=dev).view(
             [n if k == d else 1 for k in range(nd)])
-        for d, n in enumerate(shape))
+        for d, (n, s) in enumerate(zip(shape, starts)))
 
 
 def as_result(val, shape, dev) -> torch.Tensor:
@@ -510,27 +513,30 @@ def as_result(val, shape, dev) -> torch.Tensor:
     return val.contiguous()
 
 
-def _smap_values(func, slots, with_index, arrs, count=True):
+def _smap_values(func, slots, with_index, arrs, count=True, starts=None):
     """The kernel over whole tensors through :func:`call_kernel`, each
-    operand one :class:`_EVal`."""
+    operand one :class:`_EVal` (a rank's block at ``starts`` sees its
+    global indices)."""
     dev = arrs[0].device
     shape = tuple(np.broadcast_shapes(*[tuple(a.shape) for a in arrs]))
     call_args = [arrs[payload] if kind == "arr" else payload.v
                  for kind, payload in slots]
     if with_index:
-        call_args = [index_planes(tuple(arrs[0].shape), dev)] + call_args
+        call_args = [index_planes(tuple(arrs[0].shape), dev, starts)] + \
+            call_args
     return as_result(call_kernel(func, *call_args, cls=_EVal, count=count),
                      shape, dev)
 
 
 def _eval_smap(static, *arrs):
-    func, slots, with_index = static
+    func, slots, with_index = static[:3]
+    starts = static[3] if len(static) > 3 else None
     arrs = [a if isinstance(a, torch.Tensor) else E.as_tensor(a) for a in arrs]
     try:
-        return _smap_values(func, slots, with_index, arrs)
+        return _smap_values(func, slots, with_index, arrs, starts=starts)
     except KernelTraceError:
         counters["skeletons.host_fallback"] += 1
-        return _host_smap(func, slots, with_index, arrs)
+        return _host_smap(func, slots, with_index, arrs, starts)
 
 
 def _probe_tensors(avals):
@@ -554,6 +560,9 @@ def _aval_smap(static, *avals):
 
 
 defop("smap", _aval_smap)(_eval_smap)
+# one rank's block of an smap_index: ``static`` + the block's global start
+# (``core/rankflush.py``)
+defop("smap_block")(_eval_smap)
 
 
 def _constrain(args, axis):
@@ -596,10 +605,12 @@ def smap_index(func: Callable, arr, *args, axis=None):
 # --- fromfunction ------------------------------------------------------------
 
 
-def fromfunction_values(fn, shape, dtype, dev, count=True):
+def fromfunction_values(fn, shape, dtype, dev, count=True, starts=None):
     """``fn`` over int32 index planes of ``shape`` (whole arrays, as in
-    ``ramba_tpu``), cast to ``dtype`` when one is given."""
-    val = call_kernel(fn, *index_planes(tuple(shape), dev), count=count)
+    ``ramba_tpu``; a block at ``starts``), cast to ``dtype`` when one is
+    given."""
+    val = call_kernel(fn, *index_planes(tuple(shape), dev, starts),
+                      count=count)
     if not isinstance(val, torch.Tensor):
         val = E.as_tensor(val, dev=dev)
     if dtype is not None:
@@ -829,6 +840,25 @@ def _eval_stencil_iter(static, *arrs):
 defop("stencil_iter", _aval_stencil)(_eval_stencil_iter)
 
 
+@defop("stencil_block")
+def _eval_stencil_block(static, *blocks):
+    """One rank's block of a stencil (``sstencil``) or of ``iters`` sweeps
+    (``sstencil_iterate``) over a mesh of ranks (``core/rankflush.py``):
+    halos over send/recv, the kernel on the extended block."""
+    from ramba_tpu_torch.ops import stencil_sharded
+
+    (func, lo, hi, slots, _taps), iters, shape, sharding = static
+    if iters is None:
+        return stencil_sharded.run_block(func, lo, hi, slots, blocks, shape,
+                                         sharding)
+    out_dt = E.to_torch_dtype(_sweep_dtype(
+        func, lo, hi, slots, [E.to_np_dtype(b.dtype) for b in blocks]))
+    a0 = blocks[0] if blocks[0].dtype == out_dt else blocks[0].to(out_dt)
+    return stencil_sharded.run_block(func, lo, hi, slots,
+                                     [a0] + list(blocks[1:]), shape,
+                                     sharding, iters)
+
+
 # --- user surface ------------------------------------------------------------
 
 
@@ -1000,6 +1030,59 @@ def sequential_scan(step, x):
     return out
 
 
+class _OpRec:
+    """Stands in for a kernel argument to see whether the kernel is one
+    ``+`` or one ``*`` of its two arguments (:func:`_scan_kind`)."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def _op(self, op, other, right=False):
+        o = getattr(other, "name", other)
+        return (op, o, self.name) if right else (op, self.name, o)
+
+    def __add__(self, o):
+        return self._op("add", o)
+
+    def __radd__(self, o):
+        return self._op("add", o, True)
+
+    def __mul__(self, o):
+        return self._op("mul", o)
+
+    def __rmul__(self, o):
+        return self._op("mul", o, True)
+
+
+def _scan_kind(local_func, final_func):
+    """"cumsum"/"cumprod" when ``local_func(x, carry)`` is ``x + carry``
+    (``x * carry``) and ``final_func(carry, block)`` the same operation:
+    a scan the scan kernel computes.  None otherwise."""
+    try:
+        loc = local_func(_OpRec("v"), _OpRec("c"))
+        fin = final_func(_OpRec("c"), _OpRec("b"))
+    except Exception:  # the kernel does more than one + or *
+        return None
+    for op, kind in (("add", "cumsum"), ("mul", "cumprod")):
+        if loc in ((op, "v", "c"), (op, "c", "v")) and \
+                fin in ((op, "b", "c"), (op, "c", "b")):
+            return kind
+    return None
+
+
+def _block_scans(blocks, local_func, final_func, local_scan):
+    """Each rank's block scanned along dim 0: on the scan kernel
+    (``ops/scan.py``: its plain version on CPU tensors) when the kernel is
+    a sum or product of floats, else by ``local_scan``."""
+    from ramba_tpu_torch.ops import scan
+
+    kind = _scan_kind(local_func, final_func)
+    if kind is not None and blocks and blocks[0].dtype in scan.DTYPES:
+        return [scan.run(b.contiguous(), kind, 0) if b.shape[0] else b
+                for b in blocks]
+    return [local_scan(b) if b.shape[0] else b for b in blocks]
+
+
 def _eval_scumulative(static, x):
     local_func, final_func, associative, axis, distribute = static
     x = x.movedim(axis, 0)  # scan along the leading axis
@@ -1045,6 +1128,62 @@ def _eval_scumulative(static, x):
 
 defop("scumulative", lambda static, x: Aval(x.shape, x.dtype, False))(
     _eval_scumulative)
+
+
+@defop("scumulative_block")
+def _eval_scumulative_block(static, x):
+    """One rank's block of an ``scumulative`` over a mesh of ranks
+    (``core/rankflush.py``): where the scan axis is split, the block scans
+    along it (on the scan kernel when the kernel is a float sum or
+    product: one launch per rank; in one process the shards scan in
+    ``jax.lax.associative_scan``'s order, as ramba_tpu's do), the blocks'
+    totals are all-gathered, and each block rebases on the fold of the
+    totals of the blocks before it along the axis, in order."""
+    from ramba_tpu_torch.parallel import distributed
+
+    (local_func, final_func, associative, axis, _d), shape, sharding = static
+    dev = x.device
+    xm = x.movedim(axis, 0)
+    rest = tuple(xm.shape[1:])
+
+    def call(fn, a, b):
+        out = np.broadcast_shapes(tuple(a.shape), tuple(b.shape))
+        return as_result(call_kernel(fn, a, b), out, dev)
+
+    def local_scan(b):
+        kernel = lambda xi, carry: call(local_func, xi, carry)  # noqa: E731
+        if associative:
+            return associative_scan(lambda a, c: kernel(c, a), b)
+        return sequential_scan(kernel, b)
+
+    counts = sharding.split_counts(len(shape))
+    if counts[axis] == 1:
+        return local_scan(xm).movedim(0, axis).contiguous() \
+            if xm.shape[0] else x
+    (ys,) = _block_scans([xm], local_func, final_func, local_scan)
+    tot = ys[-1] if xm.shape[0] else torch.zeros(rest, dtype=x.dtype,
+                                                 device=dev)
+    shapes = [tuple(t[:axis] + t[axis + 1:])
+              for t in sharding.rank_shapes(shape)]
+    totals = distributed.all_gather(tot.contiguous(), shapes)
+    mesh = sharding.mesh
+    me = mesh.position_of(distributed.process_index())
+    if me is None:  # outside the mesh: an empty block
+        return x
+    mine = sharding.block_coords(me, len(shape))
+    carry = None
+    for k in range(mine[axis]):
+        want = mine[:axis] + (k,) + mine[axis + 1:]
+        for pos in np.ndindex(mesh.devices.shape):
+            if sharding.block_coords(pos, len(shape)) == want:
+                t = totals[mesh.rank_at(pos)]
+                if t.numel() or not rest:
+                    carry = t if carry is None else call(final_func,
+                                                         carry, t)
+                break
+    if carry is not None and xm.shape[0]:
+        ys = call(final_func, carry, ys)
+    return ys.movedim(0, axis).contiguous()
 
 
 def _scan_axis_shards(arr, axis, mesh) -> int:
@@ -1278,11 +1417,41 @@ class LocalView:
                 raise ValueError(
                     f"halo depth {depth[d]} exceeds the local block extent "
                     f"{x.shape[d]} along dim {d}")
-            posts = _shard.collective(("halo", d), x)
-            parts = [self._neighbour(posts, names, -1, x, d, depth[d]), x,
-                     self._neighbour(posts, names, 1, x, d, depth[d])]
+            if _shard.rendezvous is None:  # a mesh of ranks
+                parts = self._rank_halo(x, d, depth[d])
+            else:
+                posts = _shard.collective(("halo", d), x)
+                parts = [self._neighbour(posts, names, -1, x, d, depth[d]),
+                         x,
+                         self._neighbour(posts, names, 1, x, d, depth[d])]
             x = concatenate(parts, axis=d)
         return x
+
+    def _rank_halo(self, x, d, amt):
+        """``[lower slab, x, upper slab]`` along dim ``d`` from the
+        neighbouring ranks over send/recv: the lower one's last ``amt``
+        cells, the upper one's first (zeros past the end of the mesh)."""
+        from ramba_tpu_torch.parallel import distributed
+
+        sh = _mesh.NamedSharding(self._mesh, self._spec)
+        down = sh.neighbour_rank(_shard.position, x.ndim, d, -1)
+        up = sh.neighbour_rank(_shard.position, x.ndim, d, 1)
+        t = x._value()
+        n = t.shape[d]
+        first = t.narrow(d, 0, amt)
+        last = t.narrow(d, n - amt, amt)
+        sends = [(first, down)] if down is not None else []
+        if up is not None:
+            sends.append((last, up))
+        slab = tuple(first.shape)
+        recvs = [(slab, t.dtype, r) for r in (down, up) if r is not None]
+        got = iter(distributed.exchange(sends, recvs))
+        parts = []
+        for r in (down, up):
+            v = next(got) if r is not None else torch.zeros(
+                slab, dtype=t.dtype, device=t.device)
+            parts.append(ndarray(E.Const(v)))
+        return [parts[0], x, parts[1]]
 
     def _neighbour(self, posts, names, step, x, d, amt):
         """The slab the neighbour ``step`` blocks away along ``names``
@@ -1424,6 +1593,8 @@ def spmd(func, *args):
     positions = [i for i, a in enumerate(args) if isinstance(a, ndarray)]
     arrays = [args[i] for i in positions]
     mesh = _mesh.get_mesh()
+    if _mesh.is_rank_mesh(mesh):
+        return _spmd_ranks(func, args, positions, arrays, mesh)
     if mesh.size == 1:
         return _spmd_one(func, args, positions, arrays)
     grid = list(np.ndindex(mesh.devices.shape))
@@ -1511,6 +1682,98 @@ def spmd(func, *args):
                           exprs))
 
 
+def _spmd_ranks(func, args, positions, arrays, mesh):
+    """``spmd`` over a mesh of ranks: this rank runs the kernel once, on
+    its own position, in the calling thread and inside
+    ``mesh.local_scope`` (what the kernel computes is rank-local);
+    ``halo`` exchanges slabs with the neighbouring ranks over send/recv.
+    The ranks agree on the outcome (a kernel that raised anywhere raises
+    everywhere), then each rank's ``set_local`` block becomes its block of
+    the array.  A rank outside the mesh runs no kernel but takes part in
+    the agreement and the write-back."""
+    from ramba_tpu_torch.core import fuser
+    from ramba_tpu_torch.core.rankflush import gather_const
+    from ramba_tpu_torch.parallel import distributed
+
+    fuser.flush()
+    me = mesh.position_of(distributed.process_index())
+    layouts = []
+    for a in arrays:
+        sh = _mesh.NamedSharding(mesh, _spmd_layout(a, mesh))
+        counts = sh.split_counts(a.ndim)
+        local = tuple(-(-n // c) for n, c in zip(a.shape, counts))
+        c = a._expr if a._base is None else None
+        if isinstance(c, E.Const) and c.is_block and c.sharding == sh:
+            block = c.value
+        else:  # another layout: every rank cuts its block from the whole
+            block = a._value()[sh.local_index(a.shape)]
+        layouts.append((sh, counts, local, block))
+    err = None
+    updates = [None] * len(arrays)
+    if me is not None:
+        try:
+            with _mesh.local_scope():
+                views = []
+                for a, (sh, counts, local, block) in zip(arrays, layouts):
+                    start = tuple(k * l for k, l in
+                                  zip(sh.block_coords(me, a.ndim), local))
+                    padded = block if tuple(block.shape) == local else \
+                        _pad_to(block, local)
+                    views.append(LocalView(
+                        ndarray(E.Const(padded)),
+                        tuple(_int32(v) for v in start), a.shape, sh.spec,
+                        mesh, tuple(max(0, min(g - v, l)) for g, v, l in
+                                    zip(a.shape, start, local))))
+                call_args = list(args)
+                for p, v in zip(positions, views):
+                    call_args[p] = v
+                _shard.rank = int(np.ravel_multi_index(
+                    me, mesh.devices.shape))
+                _shard.position, _shard.rendezvous = me, None
+                try:
+                    func(*call_args)
+                finally:
+                    _shard.rank = _shard.position = None
+                for j, v in enumerate(views):
+                    if v._updated is not None:
+                        updates[j] = _fit(v._updated,
+                                          layouts[j][2])._value()
+        except Exception as e:  # every rank must learn of it
+            err = e
+    failed = distributed.all_reduce_int(0 if err is None else 1, "max")
+    if err is not None:
+        raise err
+    if failed:
+        raise RuntimeError("spmd: the kernel raised on another rank")
+    written = distributed.all_reduce_int(
+        sum(1 << j for j, u in enumerate(updates) if u is not None), "max")
+    for j, (a, (sh, counts, local, block)) in enumerate(zip(arrays,
+                                                            layouts)):
+        if not written >> j & 1:
+            continue
+        real = _mesh.index_shape(sh.local_index(a.shape), a.shape)
+        new = block if updates[j] is None else updates[j]
+        new = new[tuple(slice(0, r) for r in real)].contiguous()
+        leaf = E.Const(new, sharding=sh, shape=tuple(a.shape))
+        used = {nm for e in sh.spec for nm in _mesh.entry_names(e)}
+        if any(nm not in used for nm in mesh.axis_names):
+            # whole along some mesh axes: the coordinate-0 copy wins
+            whole = gather_const(leaf)
+            leaf = E.Const(whole[sh.local_index(a.shape)].clone(),
+                           sharding=sh, shape=tuple(a.shape))
+        a.write_expr(leaf)
+
+
+def _pad_to(t, shape):
+    out = torch.zeros(shape, dtype=t.dtype, device=t.device)
+    out[tuple(slice(0, s) for s in t.shape)] = t
+    return out
+
+
 def barrier():
-    """Wait for every worker (reference: ramba.barrier): a device sync."""
+    """Wait for every worker (reference: ramba.barrier): a device sync,
+    and on a group of several processes a barrier across the ranks."""
+    from ramba_tpu_torch.parallel import distributed
+
     sync()
+    distributed.barrier("spmd")

@@ -207,3 +207,40 @@ def test_creation_is_exported_and_registered():
     missing = [f.__name__ for f in rtj.core.interop.HANDLED_FUNCTIONS
                if f not in HANDLED_FUNCTIONS]
     assert missing == [], missing
+
+
+# -- linspace: jax 0.9's formula --------------------------------------------
+# The port computes jnp.linspace's ``start * (1 - t) + stop * t`` with
+# ``t = iota * (1 / div)`` (XLA's CPU compiler folds the division by the
+# constant ``div`` into that product), not NumPy's ``start + step * iota``.
+# One divergence stays: XLA contracts the product and the sum into an
+# FMA, the port rounds both, so an element may differ by one ulp of
+# max(|start|, |stop|) in the requested dtype (float16 too: XLA computes
+# it in float32).  Integer dtypes floor the same values: exact.
+
+
+@pytest.mark.parametrize("dtype", ["float16", "float32", "float64", "int32"])
+@pytest.mark.parametrize("endpoint", [True, False])
+@pytest.mark.parametrize("start, stop, num", [
+    (0.0, 1.0, 7), (-3.3, 7.1, 33), (-5.0, 5.0, 11), (2.5, -1000.0, 100),
+    (-1.0, 1.0, 2), (3.0, 3.0, 1), (0.0, 1.0, 0), (-7.0, 9.0, 1000)])
+def test_linspace_follows_jnp(dtype, endpoint, start, stop, num):
+    got = rt.linspace(start, stop, num, endpoint=endpoint,
+                      dtype=dtype).asarray()
+    want = np.asarray(rtj.linspace(start, stop, num, endpoint=endpoint,
+                                   dtype=dtype))
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if dtype == "int32":
+        np.testing.assert_array_equal(got, want)
+        return
+    ulp = np.spacing(np.asarray(max(abs(start), abs(stop)), dtype=dtype))
+    diff = np.abs(got.astype(np.float64) - want.astype(np.float64))
+    assert (diff <= float(ulp)).all(), (diff.max(), float(ulp))
+
+
+def test_linspace_is_not_numpys_formula():
+    # the value the old comment's formula (NumPy's) gets wrong
+    got = rt.linspace(0, 1, 7, dtype=np.float32).asarray()[5]
+    assert float(got) == 0.8333333730697632
+    assert float(np.linspace(0, 1, 7, dtype=np.float32)[5]) == \
+        0.8333333134651184

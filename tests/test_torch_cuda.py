@@ -1176,3 +1176,82 @@ def test_integer_reciprocal_of_zero_on_the_card():
         got = rt.reciprocal(rt.fromarray(x)).asarray()
         want = [top, 1, 0, 1 if dt == torch.uint8 else -1]
         np.testing.assert_array_equal(got, np.array(want).astype(got.dtype))
+
+
+# -- several ranks on the card -------------------------------------------------
+
+
+def _launch_card(world, tmp_path, mode):
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent
+    out = tmp_path / "out"
+    out.mkdir()
+    env = dict(os.environ, RAMBA_INIT_TIMEOUT_S="120")
+    env.pop("RAMBA_TORCH_DEVICE", None)
+    procs = [subprocess.Popen(
+        [sys.executable, str(here / "torch_dist_worker.py"), str(r),
+         str(world), str(tmp_path / "store"), str(out), mode], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    assert [p.returncode for p in procs] == [0] * world, "\n".join(logs)
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(world)], out
+
+
+def test_two_ranks_on_one_card_run_the_stencil_kernel(tmp_path):
+    # two ranks on cuda:0: gloo through pinned host buffers, each rank's
+    # block through the CUDA stencil kernel, the result byte-equal to
+    # one process's
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_dist_worker as worker
+
+    infos, out = _launch_card(2, tmp_path, "card")
+    st = rt.stencil(worker.star2_body)
+    x = rt.fromarray(worker.card_grid())
+    y = x
+    for _ in range(3):
+        y = rt.sstencil(st, y)
+    want = {"chained": y.asarray(),
+            "iterate": rt.sstencil_iterate(st, x, 5).asarray()}
+    a = rt.arange(1 << 20) * 0.001
+    rt.sync()
+    one_sum = float(rt.sum((a + 1.0) * (a + 0.5)))
+    for r, info in enumerate(infos):
+        assert info["backend"] == "gloo"
+        assert info["stencil_launches"] == 3 + 5  # one per sweep per rank
+        assert info["elemred_launches"] >= 1
+        assert info["comm"]["host_staged_bytes"] > 0
+        assert info["gathered"] == 0
+        got = np.load(out / f"rank{r}.npz")
+        for k in want:
+            assert got[k].tobytes() == want[k].tobytes(), k
+        # two partials folded in rank order: within 2 roundings of the
+        # one-process elemred sum's n * eps * sum bound
+        assert abs(info["sum"] - one_sum) <= (1 << 20) * 2.0 ** -52 * one_sum
+    assert infos[0]["sum"] == infos[1]["sum"]
+
+
+def test_one_rank_nccl_group(tmp_path):
+    (info,), _out = _launch_card(1, tmp_path, "nccl")
+    assert info["backend"] == "nccl"
+    assert info["gathered_ok"] and info["reduced"] == 7
+    assert info["gathered"] == 0 and "ranks=[0]" in info["mesh"]
+    a = rt.arange(1 << 20) * 0.001
+    rt.sync()  # materialised, as on the rank: both sums on elemred
+    assert info["sum"] == float(rt.sum((a + 1.0) * (a + 0.5)))

@@ -20,7 +20,8 @@ PORT_FILES = sorted(
     str(p.relative_to(REPO)) for p in (REPO / "ramba_tpu_torch").rglob("*.py")
     if "_build" not in p.parts
 ) + ["chip_smoke.py", "scripts/elemred_ab.py", "scripts/elemred_sweep.py",
-     "scripts/scan_ab.py", "scripts/stencil_sweep.py"]
+     "scripts/scan_ab.py", "scripts/stencil_sweep.py",
+     "tests/torch_dist_worker.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -62,7 +63,8 @@ def test_importing_the_port_loads_no_jax():
         " ramba_tpu_torch.core.interop, ramba_tpu_torch.core.masked,"
         " ramba_tpu_torch.ops.extras, ramba_tpu_torch.fft,"
         " ramba_tpu_torch.linalg, ramba_tpu_torch.core.rewrite,"
-        " ramba_tpu_torch.models.pi, ramba_tpu_torch.models.kmeans;"
+        " ramba_tpu_torch.models.pi, ramba_tpu_torch.models.kmeans,"
+        " ramba_tpu_torch.parallel.distributed, ramba_tpu_torch.core.rankflush;"
         "import runpy; runpy.run_path(sys.argv[1] + '/chip_smoke.py',"
         " run_name='chip_smoke_probe');"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'ramba_tpu', 'triton')"

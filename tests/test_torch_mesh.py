@@ -277,7 +277,7 @@ def test_uneven_layout_rule():
 
 
 def test_other_creation_ops_refuse_distributions():
-    with pytest.raises(NotImplementedError, match="part two"):
+    with pytest.raises(NotImplementedError, match="part three"):
         rt.zeros((8, 8), distribution=(2, 1))
 
 

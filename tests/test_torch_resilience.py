@@ -357,10 +357,14 @@ def test_coherence_force_matches_reference(monkeypatch):
 
 
 def test_coherence_across_processes_waits_for_multi_gpu(monkeypatch):
+    # the round is an all-reduce over the process group
+    # (tests/test_torch_distributed.py runs it across ranks); with no
+    # group formed it reduces over this process's proposal alone
     monkeypatch.setattr(coherence, "_nprocs_cache", 2)
     assert coherence.engaged()
-    with pytest.raises(NotImplementedError, match="A.6"):
-        coherence.agree("retry:x", 1)
+    e0 = coherence.last_epoch("retry:x")
+    assert coherence.agree("retry:x", 1) == 1
+    assert coherence.last_epoch("retry:x") == e0 + 1
 
 
 def test_coherent_abort_classifies_as_agreed():

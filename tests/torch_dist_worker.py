@@ -1,0 +1,335 @@
+"""One rank of a ``ramba_tpu_torch`` process group on the CPU.
+
+``tests/test_torch_distributed.py`` starts ``world`` copies of this file,
+each with its rank, over a gloo group formed through a ``file://`` store:
+
+    python tests/torch_dist_worker.py RANK WORLD STORE OUTDIR [MODE]
+
+``MODE`` ``main`` (the default) runs every program of :func:`programs`
+and writes each rank's results (``OUTDIR/rank<r>.npz``) and counters
+(``OUTDIR/rank<r>.json``); ``fail`` makes rank 1 raise, once inside a
+flush and once outside any collective, and records how rank 0 learned of
+it.  On the card (``tests/test_torch_cuda.py``), ``card`` runs star2
+through the CUDA stencil kernel on each rank's block and ``nccl`` one
+rank's collectives over NCCL.  :func:`programs` takes the package as an argument, so the test runs
+the same programs through ``ramba_tpu`` for the reference.
+
+Imports only ``torch``, ``numpy`` and the port.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+
+def star2_body(a):
+    return (0.25 * (a[0, 1] + a[0, -1] + a[1, 0] + a[-1, 0])
+            + 0.125 * (a[0, 2] + a[0, -2] + a[2, 0] + a[-2, 0]))
+
+
+def star2_by_hand(h):
+    c = slice(2, -2)
+    return (0.25 * (h[c, 3:-1] + h[c, 1:-3] + h[3:-1, c] + h[1:-3, c])
+            + 0.125 * (h[c, 4:] + h[c, :-4] + h[4:, c] + h[:-4, c]))
+
+
+# results that are whole-array float sums (held within a bound, not
+# exactly, against the reference), with their number of terms
+SUMS = {"chain_sum": 1001, "chain_mean": 1001, "rerun": 1001,
+        "base_sum": 1003,
+        "axpy_sum": 1003, "sred": 1003, "ckpt_sum": 24 * 20}
+# scans whose rank blocks run on the scan kernel: held within their
+# rounding depth of ramba_tpu's odd/even scan (every prefix positive)
+SCANS = {"scum": 1003}
+# linspace keeps a divergence from ramba_tpu (XLA contracts its
+# ``start * (1 - t) + stop * t`` into an FMA): held within one ulp of
+# max(|start|, |stop|), and exactly against the port in one process
+LINSPACE = (-2.0, 3.0, 1001)
+# programs of the main path: no gathered flush allowed
+MAIN_PATH = ("chain", "base", "star2_even", "star2_odd", "ints",
+             "creation")
+
+
+def programs(rt, tmp):
+    """``name -> fn``; ``fn()`` returns ``{key: numpy value}``.  The same
+    calls run through ``ramba_tpu`` and the port."""
+    rng = np.random.default_rng(12)
+    base = rng.random(1003)
+    grid_even = rng.random((24, 20))
+    grid_odd = rng.random((23, 17))
+    idx = rng.integers(0, 1003, 300)
+    st = rt.stencil(star2_body)
+
+    # (no product feeds a sum and no division by a constant: XLA's CPU
+    # compiler contracts the one into an FMA and turns the other into a
+    # product with the reciprocal, which the port, like NumPy, does not)
+    def chain():
+        a = rt.arange(1001) * 0.001
+        d = (a + 1.0) * (a + 0.5)
+        return {"d": np.asarray(d), "chain_sum": float(rt.sum(d)),
+                "chain_mean": float(rt.mean(d)), "chain_min":
+                float(rt.min(d)), "chain_max": float(rt.max(d)),
+                "rerun": float(rt.sum(d))}
+
+    def base_():
+        x = rt.fromarray(base)
+        y = rt.fromarray(base[::-1].copy())
+        z = (x + y) * 2.5
+        return {"z": np.asarray(z), "base_sum": float(rt.sum((x + 1.0) * x)),
+                "axpy_sum": float(rt.sum(z))}
+
+    def ints():
+        a = rt.arange(1000, dtype=np.int32) * 3 - 7
+        return {"a": np.asarray(a), "sum": int(rt.sum(a)),
+                "min": int(rt.min(a)), "max": int(rt.max(a)),
+                "prod": int(rt.prod(rt.arange(1, 15, dtype=np.int64)))}
+
+    def creation():
+        return {"lin": np.asarray(rt.linspace(*LINSPACE) * 1.0),
+                "fill": np.asarray(rt.full((37, 29), 7.0) + 1.0),
+                "ff": np.asarray(rt.fromfunction(
+                    lambda i, j: i * 100 + j, (37, 29), dtype=np.int64) + 0),
+                "ar": np.asarray(rt.arange(-5.0, 995.0) * 2.0)}
+
+    def star2(grid, chained, iters):
+        x = rt.fromarray(grid)
+        y = x
+        for _ in range(chained):
+            y = rt.sstencil(st, y)
+        return {"chained": np.asarray(y),
+                "iterate": np.asarray(rt.sstencil_iterate(st, x, iters))}
+
+    def spmd_halo1():
+        n = 1001
+        src = rt.arange(n, dtype=float)
+        out = rt.zeros(n)
+
+        def sweep(s_, d_):
+            h = s_.halo(1)
+            d_.set_local(h[:-2] + h[1:-1] + h[2:])
+
+        rt.spmd(sweep, src, out)
+        return {"out": np.asarray(out)}
+
+    def spmd_halo2():
+        x = rt.fromarray(grid_even)
+        dst = rt.zeros(grid_even.shape)
+
+        def kernel(src, out):
+            out.set_local(star2_by_hand(src.halo(2)))
+
+        rt.spmd(kernel, x, dst)
+        return {"out": np.asarray(dst)[2:-2, 2:-2]}
+
+    def scum():
+        x = rt.fromarray(base)
+        return {"scum": np.asarray(rt.scumulative(
+            lambda v, c: v + c, lambda c, b: b + c, x))}
+
+    def sred():
+        red = rt.SreduceReducer(lambda a, b: a + b, lambda a, b: a + b)
+        x = rt.fromarray(base)
+        return {"sred": float(rt.sreduce(lambda v: v * v, red, 0.0, x))}
+
+    def smaps():
+        x = rt.fromarray(grid_odd)
+        return {"smap": np.asarray(rt.smap(lambda v: v * 2.0 + 1.0, x)),
+                "smap_index": np.asarray(rt.smap_index(
+                    lambda i, v: v * 0.0 + i[0] * 100 + i[1], x))}
+
+    def gathered():
+        x = rt.fromarray(base)
+        return {"sort": np.asarray(rt.sort(x)),
+                "take": np.asarray(x[rt.fromarray(idx)])}
+
+    def files():
+        x = rt.fromarray(grid_odd)
+        rt.save(os.path.join(tmp, "g.rtd"), x)
+        rt.save(os.path.join(tmp, "g.npy"), x)
+        return {"rtd": np.asarray(rt.load(os.path.join(tmp, "g.rtd"))),
+                "npy": np.asarray(rt.load(os.path.join(tmp, "g.npy")))}
+
+    def ckpt():
+        g = rt.sstencil_iterate(st, rt.fromarray(grid_even), 2)
+        back = {"grid": g, "step": 2}
+        out = {}
+        if rt.__name__ == "ramba_tpu_torch":
+            # (ramba_tpu's Orbax restore of this tree does not run on its
+            # virtual CPU mesh: its reference sweeps on without it)
+            path = os.path.join(tmp, "ck")
+            rt.checkpoint.save(path, back, force=True)
+            side = rt.checkpoint._load_digests(os.path.abspath(path))
+            out["sidecar"] = side["leaves"]["['grid']"]["sha256"]
+            back = rt.checkpoint.restore(path)
+        h = rt.sstencil_iterate(st, back["grid"], 2)
+        return dict(out, grid=np.asarray(h), step=int(back["step"]),
+                    ckpt_sum=float(rt.sum(h)))
+
+    return {"chain": chain, "base": base_, "ints": ints,
+            "creation": creation,
+            "star2_even": lambda: star2(grid_even, 3, 4),
+            "star2_odd": lambda: star2(grid_odd, 2, 3),
+            "spmd_halo1": spmd_halo1, "spmd_halo2": spmd_halo2,
+            "scum": scum, "sred": sred, "smaps": smaps,
+            "gathered": gathered,
+            "files": files, "ckpt": ckpt}
+
+
+def _main(rt, rank, outdir):
+    from ramba_tpu_torch import parallel
+    from ramba_tpu_torch.core import fuser
+    from ramba_tpu_torch.parallel import distributed
+
+    results, gathered = {}, {}
+    for name, fn in programs(rt, outdir).items():
+        g0 = fuser.stats["gathered"]
+        for k, v in fn().items():
+            results[f"{name}/{k}"] = np.asarray(v)
+        gathered[name] = fuser.stats["gathered"] - g0
+    # a block and where it sits, for the layout check
+    x = rt.fromarray(np.arange(23 * 17.0).reshape(23, 17))
+    blocks = [{"position": list(s.position),
+               "index": [[sl.start, sl.stop] for sl in s.index]}
+              for s in x.addressable_shards]
+    for i, s in enumerate(x.addressable_shards):
+        results[f"block/{i}"] = s.data.numpy()
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **results)
+    from ramba_tpu_torch.observe import registry
+
+    info = {"gathered": gathered, "blocks": blocks,
+            "in_driver": distributed.in_driver(),
+            "backend": distributed.backend(),
+            "reason": distributed.backend_reason(),
+            "mesh": repr(rt.get_mesh()),
+            "comm": {k: v for k, v in parallel.comm_stats.items()},
+            "retries": registry.counters.get(
+                "resilience.retries.init_connect", 0)}
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+
+
+def _fail(rt, rank, outdir):
+    """Rank 1 raises inside a flush (its smap kernel), then outside any
+    collective; rank 0 records how each reached it."""
+    seen = {}
+    x = rt.fromarray(np.arange(400.0))
+    armed = []
+
+    def kernel(v):
+        if armed:
+            raise ValueError("rank 1's kernel fails")
+        return v + 1.0
+
+    y = rt.smap(kernel, x)
+    if rank == 1:
+        armed.append(True)  # after the node's dtype probe
+    try:
+        y.asarray()
+        seen["flush"] = "no error"
+    except Exception as e:  # recorded for the test
+        seen["flush"] = f"{type(e).__name__}: {e}"
+    if rank == 1:
+        with open(os.path.join(outdir, "rank1.json"), "w") as f:
+            json.dump(seen, f)
+        # leaves the group without a word: no shutdown, no destructors
+        # (a live gloo group torn down at exit may abort the process)
+        os._exit(3)
+    t0 = time.perf_counter()
+    try:
+        float(rt.sum(x))
+        seen["collective"] = "no error"
+    except Exception as e:  # recorded for the test
+        seen["collective"] = f"{type(e).__name__}"
+    seen["waited_s"] = time.perf_counter() - t0
+    with open(os.path.join(outdir, "rank0.json"), "w") as f:
+        json.dump(seen, f)
+
+
+CARD_GRID = (1024, 1024)
+
+
+def card_grid():
+    return np.random.default_rng(5).random(CARD_GRID).astype(np.float32)
+
+
+def _card(rt, rank, outdir):
+    """On the card: star2 on this rank's block through the CUDA stencil
+    kernel (30 chained sweeps and 20 iterated), the chain's sum on
+    elemred, and the counters that show it."""
+    from ramba_tpu_torch import parallel
+    from ramba_tpu_torch.core import fuser
+    from ramba_tpu_torch.ops import elemred, stencil_kernel
+    from ramba_tpu_torch.parallel import distributed
+
+    st = rt.stencil(star2_body)
+    x = rt.fromarray(card_grid())
+    s0, e0 = stencil_kernel.launches, elemred.launches
+    y = x
+    for _ in range(3):
+        y = rt.sstencil(st, y)
+    yi = rt.sstencil_iterate(st, x, 5)
+    rt.sync()
+    launches = stencil_kernel.launches - s0
+    a = rt.arange(1 << 20) * 0.001
+    rt.sync()  # materialised: elemred takes vector leaves
+    total = float(rt.sum((a + 1.0) * (a + 0.5)))
+    info = {"stencil_launches": launches, "backend": distributed.backend(),
+            "elemred_launches": elemred.launches - e0, "sum": total,
+            "gathered": fuser.stats["gathered"],
+            "comm": dict(parallel.comm_stats)}
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"),
+             chained=np.asarray(y), iterate=np.asarray(yi))
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+
+
+def _nccl(rt, rank, outdir):
+    """One rank over NCCL on the card: all-gather, all-reduce, barrier
+    and the chain's sum through the mesh of that one rank."""
+    from ramba_tpu_torch.core import fuser
+    from ramba_tpu_torch.parallel import distributed
+
+    import torch
+
+    g = distributed.all_gather_small(torch.arange(4.0, device="cuda"))
+    r = distributed.all_reduce_int(7, "max")
+    distributed.barrier("nccl")
+    a = rt.arange(1 << 20) * 0.001
+    rt.sync()
+    total = float(rt.sum((a + 1.0) * (a + 0.5)))
+    info = {"backend": distributed.backend(), "gathered_ok":
+            bool(torch.equal(g[0], torch.arange(4.0, device="cuda"))),
+            "reduced": r, "sum": total, "gathered": fuser.stats["gathered"],
+            "mesh": repr(rt.get_mesh())}
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+
+
+def main(argv) -> int:
+    rank, world, store, outdir = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    mode = argv[4] if len(argv) > 4 else "main"
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import torch
+
+    torch.set_num_threads(1)
+    import ramba_tpu_torch as rt
+    from ramba_tpu_torch.parallel import distributed
+
+    distributed.initialize("file://" + store, world, rank,
+                           backend="nccl" if mode == "nccl" else None)
+    if world == 1:  # one rank: a mesh of ranks all the same
+        rt.set_mesh(distributed.global_mesh())
+    {"main": _main, "fail": _fail, "card": _card,
+     "nccl": _nccl}[mode](rt, rank, outdir)
+    distributed.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
