@@ -5,6 +5,7 @@
     python3 chip_smoke.py --quick    # phases 1-2 only: build and check kernels
     python3 chip_smoke.py --mesh     # phase 1 and the mesh path only
     python3 chip_smoke.py --dist     # phase 1 and the path across processes
+    python3 chip_smoke.py --layout   # phase 1 and layouts across processes
 
 Phases, each reported on its own line:
 
@@ -110,9 +111,25 @@ Phases, each reported on its own line:
    digests; the sums within 2 n eps sum, the same on every rank and
    rerun) with every rank's launches counted and no gathered program;
    then one rank over NCCL, and four ranks one per card over NCCL where
-   the machine has four cards.  Every kernel's launch count is set to 0
-   just before each path and read just after; a path that does not
-   launch its kernel fails the run;
+   the machine has four cards; then layouts chosen and changed across
+   ranks (``layout_path``, alone with ``--layout``): four ranks on cuda:0
+   run star2 at 8192^2 on arrays made by ``fromfunction(...,
+   distribution=(4, 1))`` and ``(1, 4)`` and by
+   ``create_array_with_divisions`` (2x2 ranges), reshard the 8192^2 grid
+   rows -> columns -> 2x2 -> rows in one stage and in 16 MiB stages (each
+   round trip byte-identical, peak transient bytes within dst + slab),
+   sum ``2.5 * x + y`` over 16384^2 float64 with x row-split and y
+   column-split (one aligning reshard, elemred on every rank), groupby
+   sum/min/max/count/mean/var of the hourly series (2^28 float64, G=24;
+   segred once a rank for each of sum/min/max/count, twice for mean,
+   three times for var) and sum(axis=0)/sum(axis=1) of 8192^2 float64,
+   with no gathered program, every block byte-equal to the one-process
+   result (the sums within stated bounds); then, in this process, a
+   budget that holds one 2 GiB float64 array and not two: placing the
+   second spills the first to pinned host memory, reading it restores it
+   byte-equal, ``memory.*`` counters before and after.  Every kernel's
+   launch count is set to 0 just before each path and read just after; a
+   path that does not launch its kernel fails the run;
 4. a ``kernels`` JSON line, the card's name and power limit, and the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -810,6 +827,14 @@ def elemred_plans(rt, er, np):
         if dt == "float64":  # io_path's Monte-Carlo estimate
             plans.append(er.plan_for(*_program(
                 lambda: [mc_hits(rt, x, y)])))
+        if dt == "float64":  # breadth_path's fix and around
+            plans.append(er.plan_for(*_program(lambda: [rt.fix(x)])))
+            plans.append(er.plan_for(*_program(lambda: [rt.around(x, 2)])))
+        if dt == "float64":  # layout_path: the two-layout sum, a var's
+            # sum of squares
+            plans.append(er.plan_for(*_program(
+                lambda: [rt.sum(2.5 * x + y)])))
+            plans.append(er.plan_for(*_program(lambda: [x * x])))
     for dt in ("int32", "int64"):
         a = rt.fromarray(rs.randint(-5, 6, 64).astype(dt))
         b = rt.fromarray(rs.randint(1, 6, 64).astype(dt))
@@ -818,6 +843,9 @@ def elemred_plans(rt, er, np):
         if dt == "int32":  # the repair checks' out-of-range Python ints
             for _name, f in int_scalar_programs(rt, a):
                 plans.append(er.plan_for(*_program(lambda: [f()])))
+        if dt == "int64":  # bincount's min and max of its labels
+            plans.append(er.plan_for(*_program(lambda: [a.min()])))
+            plans.append(er.plan_for(*_program(lambda: [a.max()])))
     return plans
 
 
@@ -1478,6 +1506,7 @@ def launch_window(er, sk, sg, sc, totals, card):
 def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
     """The main path through the user API, launch counts around each."""
     log("phase 3: main path through `import ramba_tpu_torch as rt`")
+    t_main = time.perf_counter()
     totals = {"elemred": 0, "stencil": 0, "segred": 0, "scan": 0}
     window = launch_window(er, sk, sg, sc, totals, card)
 
@@ -1609,14 +1638,29 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
         f"f already on the card), residual {r0!r} -> {r!r} [{card}]")
     del fd
     torch.cuda.empty_cache()
-    groupby_path(rt, sg, torch, np, card, window)
-    skeletons_path(rt, er, torch, np, card, window)
-    indexing_path(rt, sc, torch, np, card, window)
-    breadth_path(rt, er, sg, sc, torch, np, card, window)
-    io_path(rt, sk, torch, np, card, window)
-    sharded = mesh_path(rt, sk, sc, torch, np, card, window)
+    walls = {"main": time.perf_counter() - t_main}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    timed("groupby_path", groupby_path, rt, sg, torch, np, card, window)
+    timed("skeletons_path", skeletons_path, rt, er, torch, np, card, window)
+    timed("indexing_path", indexing_path, rt, sc, torch, np, card, window)
+    timed("breadth_path", breadth_path, rt, er, sg, sc, torch, np, card,
+          window)
+    timed("io_path", io_path, rt, sk, torch, np, card, window)
+    sharded = timed("mesh_path", mesh_path, rt, sk, sc, torch, np, card,
+                    window)
     log("  dist_path: the main path across processes")
-    dist = dist_path(rt, er, sk, sc, torch, np, card, totals)
+    dist = timed("dist_path", dist_path, rt, er, sk, sc, torch, np, card,
+                 totals)
+    log("  layout_path: layouts chosen and changed across ranks")
+    dist["layout"] = timed("layout_path", layout_path, rt, torch, np, card,
+                           totals)
+    log(f"  phase 3 walls by path (s): {json.dumps(walls)} [{card}]")
     return totals, sharded, dist
 
 
@@ -3050,13 +3094,14 @@ def breadth_path(rt, er, sg, sc, torch, np, card, window):
     gb_max = x.groupby(0, hour, num_groups=24).max()._value()
     for kind, want in (("sum", gb_sum), ("max", gb_max)):
         fires = rewrite.stats["rewrite_stack_reduce_advindex"]
+        # one call, not cold and warm: its wall is host-bound and read
+        # the same twice (2.7-4.2 s on an H100); the whole run has a limit
         got = timed(f"stack([x[idx_g].{kind}() for 24 hours]) 2^28 f64",
                     lambda kind=kind: rt.stack([getattr(x[i], kind)()
                                                 for i in idx]),
-                    n * 8 + n * 4, need={"segred": 1})
-        if rewrite.stats["rewrite_stack_reduce_advindex"] != fires + 2:
-            raise Fail(f"the {kind} stack did not take the rewrite (cold and "
-                       "warm)")
+                    n * 8 + n * 4, need={"segred": 1}, warm=False)
+        if rewrite.stats["rewrite_stack_reduce_advindex"] != fires + 1:
+            raise Fail(f"the {kind} stack did not take the rewrite")
         if kind == "sum":
             check_sums("stack of group sums vs x.groupby(...).sum()", got,
                        want, sum_bound(sg.depth(n), "float64",
@@ -3126,19 +3171,19 @@ def breadth_path(rt, er, sg, sc, torch, np, card, window):
     pts_rt = rt.fromarray(pts)
 
     def km():
-        c_, l_ = kmeans(pts_rt, k=kk, iters=10)
+        c_, l_ = kmeans(pts_rt, k=kk, iters=KMEANS_ITERS)
         return torch.from_numpy(l_)
 
-    labels = timed("kmeans 2^24 x 32 f32, 64 clusters, 10 iterations", km,
-                   10 * kn * kd * 4 * 2, flops=10 * 2 * kn * kd * kk,
-                   warm=False)
+    labels = timed(f"kmeans 2^24 x 32 f32, 64 clusters, {KMEANS_ITERS} "
+                   "iterations", km, KMEANS_ITERS * kn * kd * 4 * 2,
+                   flops=KMEANS_ITERS * 2 * kn * kd * kk, warm=False)
     # the plain run: the same algorithm in torch, the same first centroids
     init = np.random.RandomState(0).choice(kn, size=kk, replace=False)
     # (the same torch calls the port's ops make, so the same bytes: a
     # batched product, then one masked sum per group)
     c = pts[torch.from_numpy(init).to(dev)]
     xsq = (pts * pts).sum(1)
-    for _ in range(10):
+    for _ in range(KMEANS_ITERS):
         # float32 in the first step, float64 after (the counts are float64
         # in the model, as NumPy promotes), the product in the wider dtype
         cross = torch.matmul(pts.to(c.dtype).reshape(1, kn, kd),
@@ -3155,6 +3200,9 @@ def breadth_path(rt, er, sg, sc, torch, np, card, window):
     del pts, pts_rt, labels, lab_p, dist, xsq, c, sums
     torch.cuda.empty_cache()
 
+
+# k-means iterations: 4 keep the whole run within its time limit
+KMEANS_ITERS = 4
 
 MESH_GRID = 8192
 MESH_ODD = (4099, 4133)
@@ -3429,12 +3477,13 @@ DIST_IO_N = 1 << 28
 DIST_LIMIT_S = 420  # per launch of ranks, every rank of it
 
 
-def dist_grid(rt, np, shape):
+def dist_grid(rt, np, shape, distribution=None, dtype=None, k=(7919, 104729)):
     """The grid every rank and the parent build from indices alone:
-    ((7919 i + 104729 j) mod 65536) / 65536 in float32."""
+    ((k0 i + k1 j) mod 65536) / 65536, float32 unless asked, under
+    ``distribution`` (default: the default layout)."""
     return rt.fromfunction(
-        lambda i, j: ((i * 7919 + j * 104729) % 65536) * (1.0 / 65536),
-        shape, dtype=np.float32)
+        lambda i, j: ((i * k[0] + j * k[1]) % 65536) * (1.0 / 65536),
+        shape, dtype=dtype or np.float32, distribution=distribution)
 
 
 def dist_vec(rt, n, k=7919):
@@ -3450,24 +3499,28 @@ def digest(t) -> str:
                           .tobytes()).hexdigest()
 
 
-def _rank_window(er, sk, sc, name, fn, rep):
+def _rank_window(er, sk, sc, name, fn, rep, sg=None):
     """Counts to 0, ``fn``, counts read: recorded under ``name``."""
     er.launches = er.launches_bulk = er.launches_plain = 0
     sk.launches = sk.launches_tma = sk.launches_cpasync = 0
     sk.launches_ldst = 0
     sc.launches = 0
+    if sg is not None:
+        sg.launches = 0
     out = fn()
     rep["launches"][name] = {"elemred": er.launches, "stencil": sk.launches,
                              "scan": sc.launches,
                              "tma": sk.launches_tma,
-                             "cpasync": sk.launches_cpasync}
+                             "cpasync": sk.launches_cpasync,
+                             "segred": sg.launches if sg is not None else 0}
     return out
 
 
 def dist_rank(argv) -> int:
-    """One rank of ``dist_path`` (``--rank R --world W --store S --out D
-    [--nccl]``): every program on this rank's blocks, a report of
-    digests, counts, times and traffic written to ``D/rank<R>.json``."""
+    """One rank of ``dist_path`` or ``layout_path`` (``--rank R --world W
+    --store S --out D [--nccl | --per-card | --layout]``):
+    every program on this rank's blocks, a report of digests, counts,
+    times and traffic written to ``D/rank<R>.json``."""
     import json
     import os
 
@@ -3508,6 +3561,8 @@ def dist_rank(argv) -> int:
         rt.sync()  # materialised: elemred takes vector leaves
         rep["values"]["axpy_sum"] = _rank_window(
             er, sk, sc, "axpy", lambda: float(rt.sum(2.5 * a + b)), rep)
+    elif "--layout" in argv:
+        layout_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, out)
     else:
         dist_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, out)
     rep["gathered"] = fuser.stats["gathered"]
@@ -3665,7 +3720,7 @@ def dist_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, out):
     rep["values"]["step"] = int(back["step"])
 
 
-def dist_start(world, tmp, extra=()):
+def dist_start(world, tmp, extra=(), env=None):
     """Start ``world`` ranks of this script (``--rank``); returns them."""
     import os
 
@@ -3674,8 +3729,8 @@ def dist_start(world, tmp, extra=()):
         [sys.executable, os.path.abspath(__file__), "--rank", str(r),
          "--world", str(world), "--store", store, "--out",
          os.path.join(tmp, f"w{world}"), *extra],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env) for r in range(world)]
 
 
 def dist_wait(procs, tmp, deadline):
@@ -3943,6 +3998,539 @@ def dist_path(rt, er, sk, sc, torch, np, card, totals):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# layout_path: layouts chosen and changed across ranks, and the governor
+# ---------------------------------------------------------------------------
+
+LAYOUT_GRID = 8192                 # star2 and reshard, float32
+LAYOUT_MIXED = 16384               # sum(a * x + y), float64
+LAYOUT_SERIES_N = 1 << 28          # the hourly series, float64, G = 24
+LAYOUT_AXIS = 8192                 # axis sums, float64
+LAYOUT_STAGE = "16m"               # the staged reshard's stage bytes
+LAYOUT_SPLITS = {"rows": (4, 1), "cols": (1, 4)}
+GB_KINDS = ("sum", "min", "max", "count", "mean", "var")
+GOVERNOR_N = 1 << 28               # two 2 GiB float64 arrays
+
+
+def division_table(n):
+    """The reference's per-worker (starts, ends) table of a 2x2 split of
+    an n x n grid."""
+    import numpy as np
+
+    h = n // 2
+    return np.array([[[r * h, c * h], [(r + 1) * h, (c + 1) * h]]
+                     for r in range(2) for c in range(2)])
+
+
+def layout_spec(a):
+    """The array's layout as text (each entry one axis or a tuple)."""
+    from ramba_tpu_torch.parallel import mesh as pm
+
+    return repr(pm.canonical(a.sharding.spec))
+
+
+def layout_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, out):
+    """One rank of ``layout_path``: star2 on arrays made under chosen
+    layouts, reshard round trips, a program over two layouts, groupby and
+    axis sums on the blocks; digests, counts, times and traffic into
+    ``rep``."""
+    import os
+
+    from ramba_tpu_torch import parallel
+    from ramba_tpu_torch.core import rewrite
+    from ramba_tpu_torch.observe import registry
+    from ramba_tpu_torch.ops import segred as sg
+    from ramba_tpu_torch.resilience import memory
+
+    st = rt.stencil(star2_body)
+    win = lambda name, fn: _rank_window(er, sk, sc, name, fn, rep, sg)  # noqa
+    g0 = fuser.stats["gathered"]
+    shape = (LAYOUT_GRID, LAYOUT_GRID)
+    ax = ("d0", "d1")
+    made = {
+        "rows": lambda: dist_grid(rt, np, shape, LAYOUT_SPLITS["rows"]),
+        "cols": lambda: dist_grid(rt, np, shape, LAYOUT_SPLITS["cols"]),
+        "divisions": lambda: rt.create_array_with_divisions(
+            shape, division_table(LAYOUT_GRID), dtype=np.float32)
+        + dist_grid(rt, np, shape)}
+    for tag, make in made.items():
+        x = make()
+        rt.sync()
+        rep["values"][f"layout_{tag}"] = layout_spec(x)
+
+        def sweeps():
+            t0 = time.perf_counter()
+            y = x
+            for _ in range(30):
+                y = rt.sstencil(st, y)
+            rt.sync()
+            t1 = time.perf_counter()
+            yi = rt.sstencil_iterate(st, x, 100)
+            rt.sync()
+            torch.cuda.synchronize()
+            return y, yi, t1 - t0, time.perf_counter() - t1
+
+        y, yi, tc, ti = win(f"star2_{tag}", sweeps)
+        rep["digests"][f"star2_{tag}_chained"] = digest(y._block())
+        rep["digests"][f"star2_{tag}_iterate"] = digest(yi._block())
+        rep["wall_s"][f"star2_{tag}"] = [tc / 30, ti / 100]
+        rep["ms"][f"star2_{tag}"] = _events_ms(
+            torch, lambda: rt.sstencil_iterate(st, x, 20)._block(), 20)
+        del x, y, yi
+
+    # reshard: row -> column -> 2x2 -> row, in one stage, then staged
+    x = dist_grid(rt, np, shape, LAYOUT_SPLITS["rows"])
+    rt.sync()
+    src = digest(x._block())
+    led = memory.ledger
+    rep["reshard"] = {}
+    for tag, stage in (("one_stage", None), ("staged", LAYOUT_STAGE)):
+        if stage is None:
+            os.environ.pop("RAMBA_RESHARD_STAGE_BYTES", None)
+        else:
+            os.environ["RAMBA_RESHARD_STAGE_BYTES"] = stage
+        steps = []
+        for name, spec in (("cols", (None, ax)), ("divisions", ax),
+                           ("rows", (ax,))):
+            sent0 = parallel.comm_stats["send_bytes"]
+            st0 = registry.get("reshard.stages")
+            src_bytes = x._block().numel() * 4
+            base = led.live_bytes + led.transient_bytes
+            led.peak_live_bytes = base
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rt.reshard(x, spec)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            blk = x._block()
+            steps.append({
+                "to": name, "wall_s": wall,
+                "sent_bytes": parallel.comm_stats["send_bytes"] - sent0,
+                "stages": registry.get("reshard.stages") - st0,
+                "src_bytes": src_bytes, "dst_bytes": blk.numel() * 4,
+                "peak_above_live": led.peak_live_bytes - base,
+                "transient_after": led.transient_bytes,
+                "layout": layout_spec(x)})
+            rep["digests"][f"reshard_{tag}_{name}"] = digest(blk)
+        rep["reshard"][tag] = steps
+        rep["values"][f"reshard_{tag}_round_trip"] = \
+            digest(x._block()) == src
+    os.environ.pop("RAMBA_RESHARD_STAGE_BYTES", None)
+    del x, blk
+
+    # sum(a * x + y) over x row-split and y column-split
+    m = (LAYOUT_MIXED, LAYOUT_MIXED)
+    x = dist_grid(rt, np, m, LAYOUT_SPLITS["rows"], np.float64)
+    y = dist_grid(rt, np, m, LAYOUT_SPLITS["cols"], np.float64,
+                  (104729, 7919))
+    rt.sync()
+    n0 = rewrite.stats["rewrite_align_operand_layouts"]
+    r0 = registry.get("reshard.completed")
+    sent0 = parallel.comm_stats["send_bytes"]
+
+    def mixed():
+        t0 = time.perf_counter()
+        v = float(rt.sum(2.5 * x + y))
+        torch.cuda.synchronize()
+        return v, time.perf_counter() - t0
+
+    rep["values"]["mixed_sum"], rep["wall_s"]["mixed"] = win("mixed", mixed)
+    rep["values"]["mixed_aligned"] = \
+        rewrite.stats["rewrite_align_operand_layouts"] - n0
+    rep["values"]["mixed_reshards"] = registry.get("reshard.completed") - r0
+    rep["values"]["mixed_sent_bytes"] = \
+        parallel.comm_stats["send_bytes"] - sent0
+    del x, y
+    torch.cuda.empty_cache()
+
+    # the hourly series: groupby on each rank's block
+    xs = dist_vec(rt, LAYOUT_SERIES_N)
+    rt.sync()
+    hour = np.arange(LAYOUT_SERIES_N, dtype=np.int32) % 24
+    g = xs.groupby(0, hour, 24)
+    ag0 = parallel.comm_stats["allgather_bytes"]
+    for kind in GB_KINDS:
+        def call(kind=kind):
+            t0 = time.perf_counter()
+            v = getattr(g, kind)()._value()
+            torch.cuda.synchronize()
+            return v, time.perf_counter() - t0
+
+        v, rep["wall_s"][f"groupby_{kind}"] = win(f"groupby_{kind}", call)
+        rep["digests"][f"groupby_{kind}"] = digest(v)
+        if kind == "sum":  # a rerun gives the same bytes
+            rep["values"]["groupby_sum_rerun"] = \
+                digest(g.sum()._value()) == rep["digests"]["groupby_sum"]
+        if rep["rank"] == 0:
+            np.save(os.path.join(out, f"groupby_{kind}.npy"), v.cpu().numpy())
+    rep["values"]["groupby_allgather_bytes"] = \
+        parallel.comm_stats["allgather_bytes"] - ag0
+    del xs, g, hour
+
+    # sum(axis=0) and sum(axis=1) on the default 2x2 mesh of ranks
+    xa = dist_grid(rt, np, (LAYOUT_AXIS, LAYOUT_AXIS), None, np.float64)
+    rt.sync()
+    for a in (0, 1):
+        def axsum(a=a):
+            t0 = time.perf_counter()
+            r = rt.sum(xa, axis=a)
+            rt.sync()
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t0
+
+        r, rep["wall_s"][f"axis{a}"] = win(f"axis{a}", axsum)
+        rep["values"][f"axis{a}_layout"] = layout_spec(r)
+        v = r._value()
+        rep["digests"][f"axis{a}"] = digest(v)
+        if rep["rank"] == 0:
+            np.save(os.path.join(out, f"axis{a}.npy"), v.cpu().numpy())
+    del xa
+    rep["gathered_layout"] = fuser.stats["gathered"] - g0
+    rep["transient_bytes"] = led.transient_bytes
+
+
+def layout_check(reps, ref, totals, card, wall, tmp):
+    """Hold the layout ranks' reports against the one-process results;
+    add their launches to ``totals``; returns the summary."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from ramba_tpu_torch.common import parse_bytes
+
+    positions = {k: divmod(k, 2) for k in range(4)}  # rank order, 2x2
+    for r in reps:
+        if r["gathered_layout"] or r["transient_bytes"]:
+            raise Fail(f"rank {r['rank']}: {r['gathered_layout']} gathered "
+                       f"programs, {r['transient_bytes']} transient bytes")
+    want_layout = {"rows": "(('d0', 'd1'),)", "cols": "(None, ('d0', 'd1'))",
+                   "divisions": "('d0', 'd1')"}
+    for tag, spec in want_layout.items():
+        if any(r["values"][f"layout_{tag}"] != spec for r in reps):
+            raise Fail(f"layout {tag}: {reps[0]['values'][f'layout_{tag}']}"
+                       f" instead of {spec}")
+    for name, by_pos in ref["blocks"].items():
+        ok = all(reps[k]["digests"][name] == by_pos[positions[k]]
+                 for k in range(4))
+        if not ok:
+            raise Fail(f"layout {name} differs from one process")
+    log("  layout: star2 under rows, columns and a 2x2 create_array_with_"
+        "divisions, and every reshard step: every rank's block byte-equal "
+        "to the one-process result's: True")
+    paths = {}
+    for tag in ("rows", "cols", "divisions"):
+        for r in reps:
+            got = r["launches"][f"star2_{tag}"]
+            if got["stencil"] != 130:
+                raise Fail(f"rank {r['rank']} star2 {tag}: {got}")
+        paths[tag] = {k: reps[0]["launches"][f"star2_{tag}"][k]
+                      for k in ("tma", "cpasync")}
+    slow = {tag: max(r["ms"][f"star2_{tag}"] for r in reps)
+            for tag in ("rows", "cols", "divisions")}
+    walls = {tag: [max(r["wall_s"][f"star2_{tag}"][i] for r in reps)
+                   for i in (0, 1)] for tag in ("rows", "cols", "divisions")}
+    log(f"  layout star2 8192^2 f32, ms/sweep by CUDA events, slowest rank: "
+        f"{json.dumps(slow)}; walls per sweep (chained, iterate) "
+        f"{json.dumps(walls)}; launches per rank by load path "
+        f"{json.dumps(paths)} [{card}]")
+    # reshard
+    summary = {"star2_ms_per_sweep_slowest_rank": slow, "star2_walls_s": walls,
+               "star2_paths": paths, "reshard": {}}
+    for tag in ("one_stage", "staged"):
+        if not all(r["values"][f"reshard_{tag}_round_trip"] for r in reps):
+            raise Fail(f"reshard {tag}: the round trip is not byte-identical")
+        rows = []
+        for i, step in enumerate(reps[0]["reshard"][tag]):
+            w = max(r["reshard"][tag][i]["wall_s"] for r in reps)
+            sent = sum(r["reshard"][tag][i]["sent_bytes"] for r in reps)
+            peak = max(r["reshard"][tag][i]["peak_above_live"] for r in reps)
+            slab = LAYOUT_GRID * LAYOUT_GRID * 4 if tag == "one_stage" else \
+                parse_bytes(LAYOUT_STAGE)
+            bound = step["dst_bytes"] + slab
+            if peak > bound or any(r["reshard"][tag][i]["transient_after"]
+                                   for r in reps):
+                raise Fail(f"reshard {tag} to {step['to']}: peak {peak} "
+                           f"above live, bound dst + slab {bound}")
+            rows.append({"to": step["to"], "wall_s": w,
+                         "crossed_bytes": sent,
+                         "gb_per_s": sent / w / 1e9 if w else None,
+                         "stages": step["stages"],
+                         "peak_transient_bytes": peak,
+                         "src_dst_slab_bytes": step["src_bytes"] + bound})
+        summary["reshard"][tag] = rows
+        log(f"  layout reshard 8192^2 f32 rows -> cols -> 2x2 -> rows "
+            f"({tag}): round trip byte-identical on every rank, transient "
+            f"bytes back to 0; per step {json.dumps(rows)} [{card}]")
+    # the program over two layouts
+    want = ref["mixed_sum"]
+    got = [r["values"]["mixed_sum"] for r in reps]
+    bound = 2 * LAYOUT_MIXED ** 2 * EPS["float64"] * abs(want)
+    same = len({repr(g) for g in got}) == 1
+    diff = abs(got[0] - want)
+    for r in reps:
+        lr = r["launches"]["mixed"]
+        if lr["elemred"] < 1 or r["values"]["mixed_aligned"] != 1 or \
+                r["values"]["mixed_reshards"] != 1:
+            raise Fail(f"rank {r['rank']} mixed: launches {lr}, aligned "
+                       f"{r['values']['mixed_aligned']}, reshards "
+                       f"{r['values']['mixed_reshards']}")
+    if not same or diff > bound:
+        raise Fail(f"mixed sum {got} vs one process {want!r}")
+    mixed_wall = max(r["wall_s"]["mixed"] for r in reps)
+    mixed_sent = sum(r["values"]["mixed_sent_bytes"] for r in reps)
+    n_er = reps[0]["launches"]["mixed"]["elemred"]
+    log(f"  layout sum(2.5 * x + y) 16384^2 f64, x rows, y columns: one "
+        f"aligning reshard and elemred ({n_er} launch) on every rank, no "
+        f"gathered program: "
+        f"{got[0]!r} on every rank vs one process {want!r}, |diff| "
+        f"{diff:.3e} <= {bound:.3e} (2 n eps sum|.|); wall {mixed_wall:.4f} "
+        f"s, {mixed_sent / 1e9:.3f} GB crossed ranks [{card}]")
+    summary["mixed"] = {"wall_s": mixed_wall, "crossed_bytes": mixed_sent,
+                        "max_abs_err": diff}
+    # groupby
+    parts = {"sum": 1, "min": 1, "max": 1, "count": 1, "mean": 2, "var": 3}
+    gb = {}
+    for kind in GB_KINDS:
+        for r in reps:
+            lr = r["launches"][f"groupby_{kind}"]
+            if lr["segred"] != parts[kind]:
+                raise Fail(f"rank {r['rank']} groupby {kind}: {lr}")
+        if len({r["digests"][f"groupby_{kind}"] for r in reps}) != 1 or \
+                not all(r["values"]["groupby_sum_rerun"] for r in reps):
+            raise Fail(f"groupby {kind}: the ranks' bytes differ, or a rerun's")
+        got = torch.from_numpy(np.load(os.path.join(tmp, "w4",
+                                                    f"groupby_{kind}.npy")))
+        want, bnd = ref["groupby"][kind]
+        if bnd is None:
+            ok = got.numpy().tobytes() == want.numpy().tobytes()
+            log(f"  layout groupby {kind} 2^28 f64 G=24: byte-equal to one "
+                f"process: {ok}")
+            if not ok:
+                raise Fail(f"groupby {kind} differs from one process")
+        else:
+            check_sums(f"layout groupby {kind} 2^28 f64 G=24 across ranks vs "
+                       "one process", got, want, bnd, bnd_reason(kind))
+        gb[kind] = max(r["wall_s"][f"groupby_{kind}"] for r in reps)
+    ag = sum(r["values"]["groupby_allgather_bytes"] for r in reps)
+    log(f"  layout groupby walls (s, slowest rank) {json.dumps(gb)}; segred "
+        f"launches a rank {json.dumps(parts)}; {ag} bytes all-gathered over "
+        f"all ranks for the six; the same bytes on every rank and on a "
+        f"rerun; no gathered program [{card}]")
+    summary["groupby"] = {"walls_s": gb, "allgather_bytes": ag}
+    # axis sums
+    ax = {}
+    for a in (0, 1):
+        if any(r["values"][f"axis{a}_layout"] != ("('d1',)" if a == 0
+                                                  else "('d0',)")
+               for r in reps):
+            raise Fail(f"axis {a}: layout {reps[0]['values']}")
+        got = torch.from_numpy(np.load(os.path.join(tmp, "w4",
+                                                    f"axis{a}.npy")))
+        want = ref["axis"][a]
+        check_sums(f"layout sum(axis={a}) 8192^2 f64 on the 2x2 mesh of "
+                   "ranks vs one process", got, want,
+                   2 * LAYOUT_AXIS * EPS["float64"] * want.abs(),
+                   "2 n eps sum|x|, n = 8192")
+        ax[a] = max(r["wall_s"][f"axis{a}"] for r in reps)
+    log(f"  layout axis sums walls (s, slowest rank) {json.dumps(ax)}, "
+        f"results laid out P('d1') and P('d0') as GSPMD lays them out, no "
+        f"gathered program [{card}]")
+    summary["axis_walls_s"] = ax
+    for k in totals:
+        totals[k] += sum(c.get(k, 0) for r in reps
+                         for c in r["launches"].values())
+    summary["ranks_wall_s"] = wall
+    return summary
+
+
+def bnd_reason(kind):
+    return {"sum": "segred's depth at n and at n/4, and 4 partials",
+            "mean": "n_g eps sum|x_g| / count (the one-process mean is a "
+                    "torch masked sum)",
+            "var": "3 (n_g + depth) eps (E[x^2] + mean^2)"}[kind]
+
+
+def layout_refs(rt, torch, np):
+    """The one-process results ``layout_path`` holds the ranks against."""
+    from ramba_tpu_torch.ops import segred as sg
+    from ramba_tpu_torch.parallel import mesh as pm
+
+    st = rt.stencil(star2_body)
+    dev = rt.common.device()
+    grid2 = pm.Mesh(np.array([dev] * 4, dtype=object).reshape(2, 2),
+                    ("d0", "d1"))
+    shape = (LAYOUT_GRID, LAYOUT_GRID)
+    ref = {"blocks": {}}
+
+    def blocks(name, t, spec):
+        sh = pm.NamedSharding(grid2, pm.P(*spec))
+        ref["blocks"][name] = {pos: digest(t[idx]) for pos, idx in
+                               sh.shard_indices(tuple(t.shape))}
+
+    specs = {"rows": ((("d0", "d1"),)), "cols": (None, ("d0", "d1")),
+             "divisions": ("d0", "d1")}
+    x = dist_grid(rt, np, shape)
+    y = x
+    for _ in range(30):
+        y = rt.sstencil(st, y)
+    yv, xv = y._value(), x._value()
+    yi = rt.sstencil_iterate(st, x, 100)._value()
+    for tag, spec in specs.items():
+        blocks(f"star2_{tag}_chained", yv, spec)
+        blocks(f"star2_{tag}_iterate", yi, spec)
+        blocks(f"reshard_one_stage_{tag}", xv, spec)
+        ref["blocks"][f"reshard_staged_{tag}"] = \
+            ref["blocks"][f"reshard_one_stage_{tag}"]
+    del x, y, yv, xv, yi
+    m = (LAYOUT_MIXED, LAYOUT_MIXED)
+    x = dist_grid(rt, np, m, None, np.float64)
+    y = dist_grid(rt, np, m, None, np.float64, (104729, 7919))
+    ref["mixed_sum"] = float(rt.sum(2.5 * x + y))
+    del x, y
+    torch.cuda.empty_cache()
+    n = LAYOUT_SERIES_N
+    xs = dist_vec(rt, n)
+    hour = np.arange(n, dtype=np.int32) % 24
+    g = xs.groupby(0, hour, 24)
+    eps = EPS["float64"]
+    res = {k: getattr(g, k)()._value() for k in GB_KINDS}
+    s1 = res["sum"]  # every value >= 0: sum|x_g| is the sum
+    s2 = (xs * xs).groupby(0, hour, 24).sum()._value()
+    cnt = res["count"].double()
+    n_g = float(cnt.max())
+    d = sg.depth(n) + sg.depth(n // 4) + 4
+    mean = s1 / cnt
+    ref["groupby"] = {
+        "sum": (s1, sum_bound(d, "float64", s1)),
+        "min": (res["min"], None), "max": (res["max"], None),
+        "count": (res["count"], None),
+        "mean": (res["mean"], (n_g + d) * eps * s1 / cnt),
+        "var": (res["var"], 3 * (n_g + d) * eps * (s2 / cnt + mean * mean))}
+    ref["groupby"] = {k: (v.cpu(), None if b is None else b.cpu())
+                      for k, (v, b) in ref["groupby"].items()}
+    del xs, g, res, s2
+    xa = dist_grid(rt, np, (LAYOUT_AXIS, LAYOUT_AXIS), None, np.float64)
+    ref["axis"] = {a: rt.sum(xa, axis=a)._value().cpu() for a in (0, 1)}
+    del xa
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def governor_phase(rt, torch, np, card):
+    """One process, a budget that holds one 2 GiB float64 array and not
+    two: placing the second spills the cold first one to pinned host
+    memory; reading it restores it, byte-equal; ``del`` returns the
+    ledger's live bytes to where they started."""
+    import os
+
+    from ramba_tpu_torch.core import fuser
+    from ramba_tpu_torch.observe import registry
+    from ramba_tpu_torch.resilience import memory, spill
+
+    fuser.flush()
+    torch.cuda.synchronize()
+    led = memory.ledger
+    live0 = led.live_bytes
+    nbytes = GOVERNOR_N * 8
+
+    def counters():
+        return {k: registry.get(k) for k in (
+            "memory.evictions", "memory.restores", "memory.live_bytes",
+            "memory.spilled_bytes", "memory.governed_puts")}
+
+    host_b = np.ones(GOVERNOR_N)  # the second array comes from the host
+    a = rt.arange(GOVERNOR_N) * (1.0 / 3.0)
+    rt.sync()
+    want = digest(a._value())
+    old = os.environ.get("RAMBA_HBM_BUDGET")
+    # room under the watermark (0.9 of the budget) for what was live and
+    # one and a half arrays: 3 GiB above it for two 2 GiB arrays
+    os.environ["RAMBA_HBM_BUDGET"] = str(
+        int((live0 + nbytes * 3 // 2) / 0.9) + 1)
+    try:
+        memory.ledger.snapshot()  # the gauges, now
+        before = counters()
+        t0 = time.perf_counter()
+        freed = memory.reserve_headroom(nbytes, site="governor_phase")
+        torch.cuda.synchronize()
+        t_spill = time.perf_counter() - t0
+        if not isinstance(a._expr.value, spill.SpilledArray) or \
+                freed < nbytes:
+            raise Fail(f"governor: placing an array beside another under a "
+                       f"watermark 1.5 arrays above the live bytes freed "
+                       f"{freed} bytes, the first array "
+                       f"{type(a._expr.value).__name__}")
+        b = rt.fromarray(host_b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = a._value()
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        memory.ledger.snapshot()
+        after = counters()
+    finally:
+        if old is None:
+            os.environ.pop("RAMBA_HBM_BUDGET", None)
+        else:
+            os.environ["RAMBA_HBM_BUDGET"] = old
+    ok = digest(back) == want
+    del a, b, back
+    back_to = led.live_bytes == live0
+    log(f"  governor: spill of {nbytes / 2 ** 30:g} GiB to pinned host "
+        f"memory {t_spill:.4f} s "
+        f"({nbytes / t_spill / 1e9:.2f} GB/s), restore {t_restore:.4f} s "
+        f"({nbytes / t_restore / 1e9:.2f} GB/s), restored array byte-equal "
+        f"{ok}, live bytes back to {live0} after del {back_to}; memory.* "
+        f"before {json.dumps(before)} after {json.dumps(after)} [{card}]")
+    if not ok or not back_to or after["memory.evictions"] - \
+            before["memory.evictions"] < 1 or after["memory.restores"] - \
+            before["memory.restores"] != 1:
+        raise Fail("governor phase")
+    return {"spill_s": t_spill, "spill_gb_per_s": nbytes / t_spill / 1e9,
+            "restore_s": t_restore,
+            "restore_gb_per_s": nbytes / t_restore / 1e9,
+            "counters_before": before, "counters_after": after}
+
+
+def layout_path(rt, torch, np, card, totals):
+    """Layouts chosen and changed across ranks: 4 ranks of this script
+    (``--rank ... --layout``) on cuda:0, the default 2x2 mesh of ranks,
+    gloo through pinned host buffers; every result held against the
+    one-process result computed here first.  Then the governor phase in
+    this process."""
+    import os
+    import tempfile
+
+    log(f"  layout_path: {DIST_RANKS} ranks on cuda:0, layouts by "
+        "distribution= and create_array_with_divisions, reshard, a program "
+        "over two layouts, groupby and axis sums on the blocks")
+    t0 = time.perf_counter()
+    ref = layout_refs(rt, torch, np)
+    log(f"  layout_path: one-process references in "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    with tempfile.TemporaryDirectory(prefix="ramba_layout_") as tmp:
+        os.makedirs(os.path.join(tmp, f"w{DIST_RANKS}"))
+        t0 = time.perf_counter()
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RAMBA_HBM_BUDGET", "RAMBA_RESHARD_STAGE_BYTES")}
+        ranks = dist_start(DIST_RANKS, tmp, ("--layout",), env)
+        try:
+            reps = dist_wait(ranks, tmp, time.time() + DIST_LIMIT_S)
+            summary = layout_check(reps, ref, totals, card,
+                                   time.perf_counter() - t0, tmp)
+        finally:
+            for p in ranks:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    log(f"  layout_path: {DIST_RANKS} ranks started, run and checked in "
+        f"{summary['ranks_wall_s']:.1f} s [{card}]")
+    summary["governor"] = governor_phase(rt, torch, np, card)
+    return summary
+
+
 def main(argv) -> int:
     import torch
 
@@ -3973,6 +4561,13 @@ def main(argv) -> int:
         totals = dict.fromkeys(("elemred", "stencil", "segred", "scan"), 0)
         log(json.dumps({"dist": dist_path(rt, er, sk, sc, torch, np, card,
                                           totals), "launches": totals}))
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        print(card, flush=True)
+        return 0
+    if "--layout" in argv:  # phase 1 and layout_path alone
+        totals = dict.fromkeys(("elemred", "stencil", "segred", "scan"), 0)
+        log(json.dumps({"layout": layout_path(rt, torch, np, card, totals),
+                        "launches": totals}))
         log(f"total {time.perf_counter() - t_all:.1f} s")
         print(card, flush=True)
         return 0

@@ -15,7 +15,9 @@ sstencil, spmd, scumulative and sreduce's reducers over shards: the
 stencil runs the CUDA kernel on every shard's halo-extended block.  One
 program started once per rank (``distributed.initialize``) runs over a
 mesh whose positions are ranks, each holding its own block of every
-array (``parallel/distributed.py``, ``core/rankflush.py``).
+array (``parallel/distributed.py``, ``core/rankflush.py``); every
+creation op takes ``distribution=``, ``reshard`` changes a layout in
+stages, and a flush over operands of different layouts aligns them.
 Seeded draws (``random``), file I/O (``load``/``save`` and friends) and
 atomic, digest-verified ``checkpoint``s sit on the resilience plane's
 fault injection and retries (``resilience``).
@@ -47,7 +49,7 @@ from ramba_tpu_torch.core.masked import MaskedArray  # noqa: F401
 from ramba_tpu_torch.core.ndarray import ndarray  # noqa: F401
 from ramba_tpu_torch.ops.creation import (  # noqa: F401
     arange, array, asarray, asarray_chkfinite, ascontiguousarray,
-    asfortranarray, c_, copy, empty, empty_like, eye, frombuffer, fromarray,
+    asfortranarray, c_, copy, create_array_with_divisions, empty, empty_like, eye, frombuffer, fromarray,
     fromfunction, fromiter, fromstring, full, full_like, geomspace, identity,
     indices, init_array, linspace, logspace, meshgrid, mgrid, ogrid, ones,
     ones_like, r_, rollaxis, tri, zeros, zeros_like,
@@ -109,6 +111,7 @@ from ramba_tpu_torch.parallel.mesh import (  # noqa: F401
 )
 from ramba_tpu_torch.parallel import distributed  # noqa: F401
 from ramba_tpu_torch.parallel.distributed import in_driver  # noqa: F401
+from ramba_tpu_torch.parallel.reshard import reshard  # noqa: F401
 from ramba_tpu_torch.parallel.constraints import (  # noqa: F401
     Constraint, add_constraint, clear_constraints, get_constraints,
 )

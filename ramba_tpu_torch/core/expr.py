@@ -2581,6 +2581,18 @@ def _op_fromfunction(static):
     return fromfunction_values(fn, shape, dtype, common.device())
 
 
+# -- layouts -------------------------------------------------------------------
+
+
+@defop("shard_hint", lambda static, x: x)
+def _op_shard_hint(static, x):
+    """``static`` is ``(NamedSharding,)``: the layout a flush gives the
+    value.  It computes nothing: the flush stamps the layout on a root,
+    and across ranks an operand leaf of another layout is resharded
+    before the program runs (``core/rankflush.py``)."""
+    return x
+
+
 # -- random draws --------------------------------------------------------------
 
 

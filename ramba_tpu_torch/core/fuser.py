@@ -32,6 +32,8 @@ from ramba_tpu_torch import common
 from ramba_tpu_torch.core.expr import OPS, Const, Expr, Node, Scalar
 from ramba_tpu_torch.observe import registry as _registry
 from ramba_tpu_torch.parallel import mesh as _mesh
+from ramba_tpu_torch.resilience import memory as _memory
+from ramba_tpu_torch.resilience.spill import SpilledArray
 
 # Monotone counters (observability; same keys as the JAX package's).
 # ``quarantined``: roots of failed flushes taken out of the pending registry.
@@ -127,6 +129,32 @@ def next_seq() -> int:
 
 
 # ---------------------------------------------------------------------------
+# ownership of realized leaves (the memory governor's ledger)
+# ---------------------------------------------------------------------------
+
+
+def owner_incref(const: Const) -> None:
+    """One more array owns ``const`` (``ndarray._set_expr``): its bytes
+    enter the memory governor's ledger."""
+    _memory.on_incref(const)
+
+
+def owner_decref(value) -> None:
+    """An array let go of a leaf holding ``value``; the last owner takes
+    its bytes out of the ledger."""
+    _memory.on_decref(value)
+
+
+def leaf_value(leaf):
+    """The value of a leaf, put back on its device first when the memory
+    governor spilled it to the host."""
+    v = leaf.value
+    if isinstance(v, SpilledArray):
+        return _memory.restore(leaf)
+    return v
+
+
+# ---------------------------------------------------------------------------
 # programs
 # ---------------------------------------------------------------------------
 
@@ -151,7 +179,9 @@ class _Program:
 def _linearize(roots: Sequence[Expr]):
     """Iterative postorder DFS over the DAG with node dedup (shared
     subexpressions evaluate once); leaves holding the same tensor share a
-    slot."""
+    slot, and a ``shard_hint`` shares its operand's (a layout a flush
+    stamps on its root, or across ranks a reshard before the program,
+    ``core/rankflush.py``)."""
     slot: dict[int, int] = {}
     leaves: list = []
     instrs: list = []
@@ -194,6 +224,10 @@ def _linearize(roots: Sequence[Expr]):
         nid = id(node)
         if nid in slot or not isinstance(node, Node):
             continue
+        if node.op == "shard_hint":
+            # a layout, not a computation: the value is its operand's
+            slot[nid] = slot[id(node.args[0])]
+            continue
         args = tuple(slot[id(a)] for a in node.args)
         slot[nid] = n_leaves + len(instrs)
         instrs.append((node.op, node.static, args))
@@ -203,9 +237,10 @@ def _linearize(roots: Sequence[Expr]):
 
 
 def prepare_program(exprs: Sequence[Expr]):
-    """Linearize ``exprs`` without running them: ``(program, leaf_vals)``."""
+    """Linearize ``exprs`` without running them: ``(program, leaf_vals)``
+    (a spilled leaf is put back on its device first)."""
     program, leaves = _linearize(list(exprs))
-    return program, [leaf.value for leaf in leaves]
+    return program, [leaf_value(leaf) for leaf in leaves]
 
 
 def _last_use_map(program: _Program) -> dict:
@@ -322,6 +357,41 @@ def _quarantine(stream: FlushStream, roots: list) -> None:
     _registry.inc("resilience.flush_quarantined", len(roots))
 
 
+_KEEPS_LAYOUT = frozenset({"map", "cast", "round"})
+
+
+def _result_layout(expr, mesh):
+    """The layout a flush gives a root (None: the default layout of the
+    mesh it is read on): a sharding hint's, else the one layout other
+    than the default that every full-shape leaf under an elementwise root
+    has, as GSPMD carries an operand's layout to an elementwise result."""
+    if isinstance(expr, Node) and expr.op == "shard_hint":
+        return expr.static[0]
+    if mesh.size <= 1 or not isinstance(expr, Node) \
+            or expr.op not in _KEEPS_LAYOUT:
+        return None
+    shape = expr.shape
+    found = set()
+    stack, seen = [expr], set()
+    while stack:
+        e = stack.pop()
+        if id(e) in seen or e.shape != shape:
+            continue
+        seen.add(id(e))
+        if isinstance(e, Const):
+            sh = e.sharding
+            found.add(sh if sh is not None and sh.mesh == mesh else None)
+        elif isinstance(e, Node) and e.op == "shard_hint":
+            found.add(e.static[0])
+        elif isinstance(e, Node) and e.op in _KEEPS_LAYOUT:
+            stack.extend(e.args)
+    sh = found.pop() if len(found) == 1 else None
+    if sh is None or _mesh.canonical(sh.spec) == _mesh.canonical(
+            _mesh.default_spec(shape, mesh)):
+        return None  # the default layout: carried by no leaf
+    return sh
+
+
 def _flush_roots(stream: FlushStream, roots: list,
                  extra: Sequence[Expr]) -> list:
     mesh = _mesh.get_mesh()
@@ -339,20 +409,19 @@ def _flush_roots(stream: FlushStream, roots: list,
 
             exprs = rewrite_roots(exprs)
         program, leaf_vals = prepare_program(exprs)
+        # a flush's leaves are never spill candidates while it runs
+        pins = _memory.ledger.pin_values(leaf_vals)
         try:
             outs = _get_compiled(program, leaf_vals)(*leaf_vals)
         finally:
+            _memory.ledger.unpin(pins)
             for hook in after_flush:
                 hook()
     except Exception:
         _quarantine(stream, roots)
         raise
     for arr, expr, val in zip(roots, root_exprs, outs):
-        # a sharding hint's root keeps the layout it names; other results
-        # take the default layout of the mesh they are read on
-        hint = expr.static[0] if isinstance(expr, Node) \
-            and expr.op == "shard_hint" else None
-        arr._set_expr(Const(val, sharding=hint))
+        arr._set_expr(Const(val, sharding=_result_layout(expr, mesh)))
     with _stats_lock:
         stats["flushes"] += 1
         stats["nodes_flushed"] += len(program.instrs)
@@ -406,7 +475,7 @@ def gather_const(c: Const):
     """The whole array of a leaf (a block leaf gathered from every
     rank)."""
     if not c.is_block:
-        return c.value
+        return leaf_value(c)
     from ramba_tpu_torch.core import rankflush
 
     return rankflush.gather_const(c)
@@ -415,5 +484,5 @@ def gather_const(c: Const):
 def evaluate(expr: Expr):
     """Evaluate one expression (flushing pending work alongside it)."""
     if isinstance(expr, Const):
-        return expr.value
+        return leaf_value(expr)
     return flush(extra=[expr])[0]

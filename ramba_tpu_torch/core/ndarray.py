@@ -187,12 +187,24 @@ class ndarray:
     # -- expression plumbing --------------------------------------------------
 
     def _set_expr(self, new: Expr):
+        old = self._expr
+        if isinstance(old, Const):
+            fuser.owner_decref(old.value)
         self._expr = new
         if isinstance(new, Const):
+            fuser.owner_incref(new)
             fuser.unregister_pending(self)
         else:
             fuser.register_pending(self)
             fuser.note_node_created()
+
+    def __del__(self):
+        # the memory governor's ledger forgets a leaf with its last owner
+        try:
+            if self._base is None and isinstance(self._expr, Const):
+                fuser.owner_decref(self._expr.value)
+        except Exception:  # interpreter shutdown: modules already gone
+            pass
 
     def read_expr(self) -> Expr:
         if self._base is None:
@@ -276,7 +288,8 @@ class ndarray:
         rank's own block without moving anything."""
         if self._base is None:
             c = self._const()
-            return fuser.gather_const(c) if c.is_block else c.value
+            return fuser.gather_const(c) if c.is_block else \
+                fuser.leaf_value(c)
         return fuser.flush(extra=[self.read_expr()])[0]
 
     def _block(self) -> torch.Tensor:
@@ -285,7 +298,7 @@ class ndarray:
         if self._base is None:
             c = self._const()
             if c.is_block:
-                return c.value
+                return fuser.leaf_value(c)
         v = self._value()
         if not isinstance(v, torch.Tensor) or v.ndim == 0:
             return v
@@ -632,7 +645,8 @@ def put_sharded(x, sharding) -> ndarray:
     the port returns the array, whose leaf carries it.  In one process the
     shards are views into one tensor on the mesh's device; on a mesh of
     ranks ``x`` is the same on every rank and each rank uploads only its
-    own block (``make_array_from_callback``)."""
+    own block (``make_array_from_callback``).  The memory governor makes
+    room for the upload first (``memory.reserve_headroom``)."""
     if not isinstance(sharding, _mesh.NamedSharding):
         raise TypeError("put_sharded takes a parallel.mesh.NamedSharding, "
                         f"got {type(sharding).__name__}")
@@ -642,12 +656,17 @@ def put_sharded(x, sharding) -> ndarray:
     if len(sharding.spec) > x.ndim:
         raise ValueError(f"spec {sharding.spec} has more entries than the "
                          f"{x.ndim}-d array")
+    from ramba_tpu_torch.resilience import memory
+
     if sharding.mesh.ranks is not None:
         shape = tuple(x.shape)
         block = x[sharding.local_index(shape)]
+        # room for the upload: the governor spills cold leaves first
+        memory.reserve_headroom(block.nbytes, site="put_sharded")
         t = block.to(dev).contiguous() if isinstance(block, torch.Tensor) \
             else E.tensor_from_numpy(block, dev)
         return ndarray(Const(t, sharding=sharding, shape=shape))
+    memory.reserve_headroom(x.nbytes, site="put_sharded")
     t = x.to(dev) if isinstance(x, torch.Tensor) \
         else E.tensor_from_numpy(x, dev)
     return ndarray(Const(t, sharding=sharding))

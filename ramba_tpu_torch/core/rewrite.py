@@ -12,7 +12,10 @@ forms, once per flush, bottom-up:
   groups that is exactly the program the segred kernel takes
   (``ops/kernel_backend.py``);
 * ``rewrite_concat_binop_getitem``: ``concatenate([x[..., idx_g] op m[g]
-  for g])`` (the anomaly idiom) becomes two gathers and one map.
+  for g])`` (the anomaly idiom) becomes two gathers and one map;
+* ``rewrite_align_operand_layouts``: an elementwise program over leaves
+  of different layouts names one layout for its minority leaves
+  (``shard_hint``).
 
 The matchers read the index constants on the host: a ``Const`` built from
 a NumPy integer array keeps that array (``Const.host``), and a gather whose
@@ -171,10 +174,12 @@ def _group_labels(groups, n):
         shifted.append(neg)
     if np.count_nonzero(seen) != n:
         return None
-    dev = groups[0][1].value.device
+    from ramba_tpu_torch.core.fuser import leaf_value
+
+    dev = leaf_value(groups[0][1]).device
     labels = torch.empty(n, dtype=torch.int32, device=dev)
     for g, ((_h, c), neg) in enumerate(zip(groups, shifted)):
-        t = _index_long(c.value).reshape(-1)
+        t = _index_long(leaf_value(c)).reshape(-1)
         labels[torch.where(t < 0, t + n, t) if neg else t] = g
     return labels
 
@@ -292,10 +297,98 @@ def rewrite_concat_binop_getitem(node: Node):
     return out
 
 
+_ELEMENTWISE = frozenset({"map", "cast", "round"})
+
+
+def _leaf_spec(c: Const, mesh):
+    """The canonical layout of a full-shape leaf on ``mesh``, or None for
+    a leaf that takes no part: one of another mesh, or across ranks a
+    value every rank holds whole (it is cut to any layout for free)."""
+    from ramba_tpu_torch.parallel import mesh as _mesh
+
+    sh = c.sharding
+    if sh is None:
+        if _mesh.is_rank_mesh(mesh):
+            return None
+        return _mesh.canonical(_mesh.default_spec(c.shape, mesh))
+    if sh.mesh != mesh:
+        return None
+    return _mesh.canonical(sh.spec)
+
+
+def rewrite_align_operand_layouts(node: Node):
+    """An elementwise ``map`` whose full-shape leaves disagree on their
+    layout: the minority leaves are wrapped in ``shard_hint`` nodes
+    naming the most-sharded leaf's layout (ties: the earliest leaf), as
+    the reference's rule does, so the program runs on one layout instead
+    of falling back to gathering (across ranks: a reshard of each wrapped
+    leaf before the program, ``core/rankflush.py``).  Only full-shape
+    concrete leaves take part; the reference looks at the map's own
+    operands, and this rule also at the leaves under elementwise
+    operands of the same shape (``sum(a * x + y)``), wrapping leaves
+    wherever they sit; a leaf already under a hint votes with the hint's
+    layout.  Lazy subtrees of other shapes and broadcast operands are
+    left alone."""
+    if node.op != "map" or len(node.args) < 2:
+        return None
+    from ramba_tpu_torch.parallel import mesh as _mesh
+
+    mesh = _mesh.get_mesh()
+    if mesh.size <= 1:
+        return None
+    out_shape = tuple(node.shape)
+    leaves: list = []  # (leaf, spec) in operand order
+    seen: set = set()
+    stack = list(reversed(node.args))
+    while stack:
+        e = stack.pop()
+        if id(e) in seen or tuple(e.shape) != out_shape:
+            continue
+        seen.add(id(e))
+        if isinstance(e, Const):
+            spec = _leaf_spec(e, mesh)
+            if spec is not None:
+                leaves.append((e, spec))
+        elif isinstance(e, Node) and e.op == "shard_hint" \
+                and isinstance(e.args[0], Const) \
+                and e.static[0].mesh == mesh:
+            leaves.append((e, _mesh.canonical(e.static[0].spec)))
+        elif isinstance(e, Node) and e.op in _ELEMENTWISE:
+            stack.extend(reversed(e.args))
+    if len({s for _c, s in leaves}) < 2:
+        return None
+    dom = None
+    for _c, sp in leaves:
+        if sp and (dom is None or sum(1 for x in sp if x)
+                   > sum(1 for x in dom if x)):
+            dom = sp
+    if not dom:
+        return None
+    sharding = _mesh.NamedSharding(mesh, _mesh.P(*dom))
+    # a leaf under a hint of another layout is hinted anew
+    wrap = {id(c): Node("shard_hint", (sharding,),
+                        [c.args[0] if isinstance(c, Node) else c])
+            for c, sp in leaves if sp != dom}
+
+    def rebuild(e):
+        if id(e) in wrap:
+            return wrap[id(e)]
+        if not (isinstance(e, Node) and e.op in _ELEMENTWISE
+                and tuple(e.shape) == out_shape):
+            return e
+        args = [rebuild(a) for a in e.args]
+        if all(a is b for a, b in zip(args, e.args)):
+            return e
+        return Node(e.op, e.static, args, aval=e.aval)
+
+    return rebuild(node)
+
+
 RULES = [
     rewrite_arange_reshape,
     rewrite_stack_reduce_advindex,
     rewrite_concat_binop_getitem,
+    rewrite_align_operand_layouts,
 ]
 
 # Per-rule fire counts, and the rules that raised (each a bug: the node

@@ -2,8 +2,18 @@
 
 Counterpart of ``ramba_tpu/ops/creation.py``.  Every creation op is a lazy
 node that generates its data on the device at flush time and fuses with
-its consumers; ``fromarray`` uploads a host array as a leaf.  Explicit
-distributions are not ported yet: a non-``None`` ``distribution`` raises.
+its consumers; ``fromarray`` uploads a host array as a leaf.
+
+Every op takes ``distribution=`` as the reference does
+(``_spec_tuple_for``): a ``NamedSharding`` of the current mesh, a
+``PartitionSpec`` on it, or per-dim split counts realized on its axes
+(``mesh.spec_from_splits``).  The node is wrapped in a ``shard_hint``
+holding that layout, which the flush gives the array; on a mesh of ranks
+the creation node still builds only the rank's block, now of that layout
+(``core/rankflush.py``).  :func:`create_array_with_divisions` takes the
+reference's division forms.  ``local_border`` is accepted and does
+nothing, as in the reference: halos are exchanged by the stencil, never
+stored in the array.
 """
 
 from __future__ import annotations
@@ -22,16 +32,20 @@ _DEFAULT_INT = np.dtype(np.int64)
 _DEFAULT_FLOAT = np.dtype(np.float64)
 
 
-def _no_distribution(distribution):
-    """Every creation op starts here: it refuses explicit distributions and
-    resolves the device now, so a run with no card (and no request for the
-    CPU) fails at the first array instead of at its first flush."""
-    if distribution is not None:
-        raise NotImplementedError(
-            "explicit distributions are taken by fromarray only; the other "
-            "creation ops take them with create_array_with_divisions, in the "
-            "multi-process slice of the port (ROADMAP A.6, part three)")
+def _placed(node, distribution) -> ndarray:
+    """The array of a creation node under ``distribution`` (None: the
+    default layout).  Resolves the device now, so a run with no card (and
+    no request for the CPU) fails at its first array, not at its first
+    flush."""
     common.device()
+    if distribution is None:
+        return ndarray(node)
+    sh = _resolve_distribution(distribution, tuple(node.shape))
+    if sh.mesh != _mesh.get_mesh():
+        raise ValueError(
+            "distribution's NamedSharding is over a different mesh than the "
+            "installed global mesh; call ramba_tpu_torch.set_mesh(...) first")
+    return ndarray(Node("shard_hint", (sh,), [node]))
 
 
 def _canon_shape(shape):
@@ -61,13 +75,12 @@ def ones(shape, dtype=float, local_border=0, distribution=None):
 
 
 def full(shape, fill_value, dtype=None, local_border=0, distribution=None):
-    _no_distribution(distribution)
     shape = _canon_shape(shape)
     if dtype is None:
         dtype = np.result_type(fill_value)
     dtype = _np_dtype(dtype)
-    return ndarray(Node("full", (shape, str(dtype), None),
-                        [as_exprable(fill_value)]))
+    return _placed(Node("full", (shape, str(dtype), None),
+                        [as_exprable(fill_value)]), distribution)
 
 
 def _like_shape_dtype(a, dtype):
@@ -98,7 +111,6 @@ def full_like(a, fill_value, dtype=None, distribution=None):
 
 def arange(start, stop=None, step=None, dtype=None, local_border=0,
            distribution=None):
-    _no_distribution(distribution)
     if stop is None:
         start, stop = 0, start
     if step is None:
@@ -108,27 +120,26 @@ def arange(start, stop=None, step=None, dtype=None, local_border=0,
         ints = all(isinstance(x, (int, np.integer)) for x in (start, stop, step))
         dtype = _DEFAULT_INT if ints else _DEFAULT_FLOAT
     dtype = _np_dtype(dtype)
-    return ndarray(Node("arange", (n, str(dtype), None),
-                        [E.as_expr(start), E.as_expr(step)]))
+    return _placed(Node("arange", (n, str(dtype), None),
+                        [E.as_expr(start), E.as_expr(step)]), distribution)
 
 
 def linspace(start, stop, num=50, endpoint=True, dtype=None,
              distribution=None):
-    _no_distribution(distribution)
     dtype = _DEFAULT_FLOAT if dtype is None else _np_dtype(dtype)
-    return ndarray(Node("linspace", (int(num), bool(endpoint), str(dtype),
+    return _placed(Node("linspace", (int(num), bool(endpoint), str(dtype),
                                      None),
-                        [E.as_expr(start), E.as_expr(stop)]))
+                        [E.as_expr(start), E.as_expr(stop)]), distribution)
 
 
 def fromfunction(function, shape, dtype=float, distribution=None, **kwargs):
     """An array whose element at ``index`` is ``function(*index)``;
     ``function`` receives int32 index planes (whole arrays) and runs at
     flush time, fused with its consumers."""
-    _no_distribution(distribution)
     shape = _canon_shape(shape)
     dt = str(_np_dtype(dtype)) if dtype is not None else None
-    return ndarray(Node("fromfunction", (shape, dt, function), []))
+    return _placed(Node("fromfunction", (shape, dt, function), []),
+                   distribution)
 
 
 def init_array(shape, filler, dtype=float, distribution=None):
@@ -169,6 +180,24 @@ def fromarray(arr, dtype=None, distribution=None):
                                                 tuple(t.shape)))
 
 
+def create_array_with_divisions(shape, divisions, local_border=0, dtype=None):
+    """An array of zeros under an explicit distribution (reference:
+    ``create_array_with_divisions``).  ``divisions`` is per-dim split
+    counts, or the reference's per-worker ``(starts, ends)`` table of
+    shape ``(workers, 2, ndim)``, reduced to the number of distinct
+    ranges along each dim; ``local_border`` does nothing."""
+    shape = _canon_shape(shape)
+    div = np.asarray(divisions)
+    if div.ndim == 3 and div.shape[1] == 2 and div.shape[2] == len(shape):
+        splits = tuple(
+            len({(int(w[0, d]), int(w[1, d])) for w in div})
+            for d in range(len(shape)))
+    else:
+        splits = tuple(int(s) for s in divisions)
+    return full(shape, 0, float if dtype is None else dtype,
+                distribution=splits)
+
+
 def asarray(a, dtype=None):
     if isinstance(a, ndarray):
         if dtype is not None and _np_dtype(dtype) != a.dtype:
@@ -201,10 +230,12 @@ def _call(name, *arrays, **kw):
 
 
 def eye(N, M=None, k=0, dtype=float, distribution=None):
-    _no_distribution(distribution)
+    common.device()
     M = N if M is None else M
-    return _call("eye", n=int(N), m=int(M), k=int(k),
-                 dtype=str(_np_dtype(dtype)))
+    out = _call("eye", n=int(N), m=int(M), k=int(k),
+                dtype=str(_np_dtype(dtype)))
+    return out if distribution is None else \
+        _placed(out.read_expr(), distribution)
 
 
 def identity(n, dtype=float, distribution=None):

@@ -2,9 +2,9 @@
 between them.
 
 ``mesh`` (grids, specs, the partition solver), ``shardview`` (index math
-over layouts), ``constraints`` (co-partitioning) and ``distributed``
-(bring-up, collectives, send/recv) are the counterparts of
-``ramba_tpu/parallel``.  In one process every position of a mesh holds
+over layouts), ``constraints`` (co-partitioning), ``distributed``
+(bring-up, collectives, send/recv) and ``reshard`` (layout changes in
+stages) are the counterparts of ``ramba_tpu/parallel``.  In one process every position of a mesh holds
 the same device, so a sharded array is one tensor whose shards are views
 into it; on a mesh of ranks each rank holds its own block.  Every move
 that copies is counted here (bytes and count in :data:`comm_stats`, like
@@ -46,3 +46,6 @@ def transport(block, src: int, dst: int):
     ranks of a mesh of ranks, slabs move by send/recv in one batch per
     exchange round (``distributed.exchange``)."""
     return block
+
+
+from ramba_tpu_torch.parallel import reshard, shardview  # noqa: E402,F401

@@ -3,9 +3,9 @@
 Counterpart of ``ramba_tpu/parallel/constraints.py``: ``smap(axis=...)``
 records that its operands are partitioned identically along one axis;
 :func:`add_constraint` pins each array to the same single-axis spec by
-pushing a ``shard_hint`` node onto its expression.  The node computes
-nothing and holds the layout; the flush gives it to the array, as
-``with_sharding_constraint`` lays out an XLA output.  On a one-shard mesh there is nothing to pin: the constraint is
+pushing a ``shard_hint`` node (``core/expr.py``) onto its expression.
+The node computes nothing and holds the layout; the flush gives it to
+the array, as ``with_sharding_constraint`` lays out an XLA output.  On a one-shard mesh there is nothing to pin: the constraint is
 recorded and no node is pushed.
 """
 
@@ -15,7 +15,7 @@ import weakref
 from collections import deque
 from typing import Sequence
 
-from ramba_tpu_torch.core.expr import Node, defop
+from ramba_tpu_torch.core.expr import Node
 from ramba_tpu_torch.core.ndarray import ndarray
 from ramba_tpu_torch.parallel import mesh as _mesh
 
@@ -52,10 +52,6 @@ def axis_spec(ndim: int, axis: int) -> _mesh.PartitionSpec:
     while entries and entries[-1] is None:
         entries.pop()
     return _mesh.P(*entries)
-
-
-defop("shard_hint", lambda static, x: x)(
-    lambda static, x: x)
 
 
 def add_constraint(arrays: Sequence[ndarray], axis: int) -> Constraint:

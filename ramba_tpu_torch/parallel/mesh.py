@@ -79,6 +79,20 @@ def entry_names(entry) -> tuple:
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
+def canonical(spec) -> tuple:
+    """A spec as a comparable tuple: each entry None, one axis name or a
+    tuple of several, trailing Nones dropped (``P(("d0",), None)`` and
+    ``P("d0")`` are one layout)."""
+    out = []
+    for e in spec or ():
+        names = entry_names(e)
+        out.append(None if not names else names[0] if len(names) == 1
+                   else tuple(names))
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
 class Mesh:
     """An n-d grid of positions with axis names.  ``ranks`` (same shape,
     or None) names the rank of each position; ``devices`` the device each
@@ -559,6 +573,15 @@ class NamedSharding:
         shape = tuple(int(s) for s in shape)
         return [index_shape(self.rank_index(r, shape), shape)
                 for r in range(distributed.process_count())]
+
+
+def index_box(idx, shape) -> tuple:
+    """An index of slices as ``(start, stop)`` per dim."""
+    out = []
+    for sl, n in zip(idx, shape):
+        a, b, _s = sl.indices(n)
+        out.append((a, max(a, b)))
+    return tuple(out)
 
 
 def index_shape(idx, shape) -> tuple:

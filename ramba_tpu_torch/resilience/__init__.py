@@ -9,17 +9,25 @@ Counterpart of ``ramba_tpu/resilience/``.  Ported so far:
   classification of retryable vs. degrade-worthy vs. fatal errors,
   torch's among them.  Wrapped around fileio reads/writes and checkpoint
   I/O.
-* ``coherence`` — rank-coherent recovery decisions, single-process (the
-  cross-process round comes with multi-GPU).
+* ``coherence`` — rank-coherent recovery decisions: one all-reduce round
+  per decision across ranks.
 * ``integrity`` — content digests (the envelope, file and array digests)
   and the suspect quarantine.
+* ``memory``    — the memory governor's core: the per-process device
+  budget (``RAMBA_HBM_BUDGET``, else the card's share), the live-bytes
+  ledger over every realized leaf, LRU host spill with restore on the
+  next touch, governed placements.
+* ``spill``     — the host-spill primitives the governor uses
+  (``SpilledArray``, the copies to pinned host memory and back).
 
-The degradation ladder, the memory governor, host spill and the elastic
-job lifecycle (``degrade``, ``memory``, ``spill``, ``elastic``) come with
-the resilience queue.
+The degradation ladder, the governor's pre-flush admission and the
+elastic job lifecycle (``degrade``, ``memory.admit``, ``elastic``) come
+with the resilience queue.
 """
 
-from ramba_tpu_torch.resilience import coherence, faults, integrity, retry  # noqa: F401
+from ramba_tpu_torch.resilience import (  # noqa: F401
+    coherence, faults, integrity, memory, retry, spill,
+)
 from ramba_tpu_torch.resilience.faults import (  # noqa: F401
     InjectedFault, InjectedResourceExhausted,
 )

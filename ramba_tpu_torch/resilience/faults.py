@@ -43,8 +43,9 @@ Single-process, ``rank=0`` fires and any other rank disarms the spec.
 
 The sites the port checks are ``fileio`` (every read and write of
 ``fileio.py``), ``checkpoint_io`` (every checkpoint save and restore
-attempt) and ``checkpoint:leaf`` (the flip seam of the checkpoint digest
-verification).  Site names may themselves contain colons: the site/mode
+attempt), ``checkpoint:leaf`` (the flip seam of the checkpoint digest
+verification), and ``reshard:plan`` and ``reshard:stage`` (before a
+reshard's first stage and before every stage, ``parallel/reshard.py``).  Site names may themselves contain colons: the site/mode
 boundary in a spec is the FIRST ``:``-separated field that parses as a
 mode token.  The ``oom`` site (or a trailing ``:oom`` kind) raises
 :class:`InjectedResourceExhausted`, whose message carries the

@@ -1704,7 +1704,7 @@ def _spmd_ranks(func, args, positions, arrays, mesh):
         local = tuple(-(-n // c) for n, c in zip(a.shape, counts))
         c = a._expr if a._base is None else None
         if isinstance(c, E.Const) and c.is_block and c.sharding == sh:
-            block = c.value
+            block = fuser.leaf_value(c)
         else:  # another layout: every rank cuts its block from the whole
             block = a._value()[sh.local_index(a.shape)]
         layouts.append((sh, counts, local, block))

@@ -244,3 +244,151 @@ def test_linspace_is_not_numpys_formula():
     assert float(got) == 0.8333333730697632
     assert float(np.linspace(0, 1, 7, dtype=np.float32)[5]) == \
         0.8333333134651184
+
+
+# -- distribution= on every creation op ------------------------------------------
+# Both packages on a mesh of k shards (ramba_tpu: its first k virtual CPU
+# devices; the port: k positions on the CPU), restored afterwards.  Every
+# shard's index must be the one ramba_tpu's sharding gives the device at
+# that position, and the values equal.  Even shapes only: jax 0.9 keeps an
+# uneven layout on one device (the port cuts blocks of ceil(n / parts)).
+
+DIST_MESHES = [(2,), (4,), (8,), (2, 2)]
+
+
+@pytest.fixture
+def dist_mesh(request):
+    from jax.sharding import Mesh as JMesh
+
+    from ramba_tpu.parallel import mesh as rmesh
+    from ramba_tpu_torch.parallel import mesh as pmesh
+
+    shape = request.param
+    k = int(np.prod(shape))
+    if len(jax.devices()) < k:
+        pytest.skip(f"needs {k} devices")
+    names = tuple(f"d{i}" for i in range(len(shape)))
+    old_r, old_p = rmesh.get_mesh(), pmesh.get_mesh()
+    rmesh.set_mesh(JMesh(np.array(jax.devices()[:k]).reshape(shape), names))
+    pmesh.set_mesh(pmesh.Mesh(
+        np.array([torch.device("cpu")] * k, dtype=object).reshape(shape),
+        names))
+    try:
+        yield shape
+    finally:
+        rmesh.set_mesh(old_r)
+        pmesh.set_mesh(old_p)
+
+
+def _same_layout(got, want, what):
+    """The port's shards sit where ramba_tpu's sharding puts each device
+    of the same mesh position, with the same values."""
+    jv = want._value()
+    jidx = jv.sharding.devices_indices_map(want.shape)
+    jmesh = jv.sharding.mesh
+    shape = tuple(got.shape)
+    shards = got.addressable_shards
+    assert len(shards) == jmesh.devices.size, what
+    for s in shards:
+        jw = jidx[jmesh.devices[s.position]]
+        assert [sl.indices(n) for sl, n in zip(s.index, shape)] == \
+            [sl.indices(n) for sl, n in zip(jw, shape)], (what, s.position)
+    _same(got, want, what)
+
+
+def _dist_cases(k):
+    """``(name, make(package, distribution), distributions)``: every
+    creation op that takes ``distribution=``."""
+    two = [(k, 1), (1, k)]
+    return [
+        ("zeros", lambda m, d: m.zeros((32, 16), distribution=d), two),
+        ("ones", lambda m, d: m.ones((32, 16), dtype="int32",
+                                     distribution=d), two),
+        ("empty", lambda m, d: m.empty((32, 16), distribution=d) * 0, two),
+        ("full", lambda m, d: m.full((32, 16), 2.5, distribution=d), two),
+        ("zeros_like", lambda m, d: m.zeros_like(
+            np.ones((32, 16)), distribution=d), two),
+        ("ones_like", lambda m, d: m.ones_like(
+            np.ones((32, 16), np.float32), distribution=d), two),
+        ("empty_like", lambda m, d: m.empty_like(
+            np.ones((32, 16)), distribution=d) * 0, two),
+        ("full_like", lambda m, d: m.full_like(
+            np.ones((32, 16)), 7, distribution=d), two),
+        ("fromfunction", lambda m, d: m.fromfunction(
+            lambda i, j: i * 100 + j, (32, 16), dtype="int64",
+            distribution=d), two),
+        ("init_array", lambda m, d: m.init_array(
+            (32, 16), lambda i, j: i - j, dtype="int32", distribution=d),
+         two),
+        ("eye", lambda m, d: m.eye(32, 16, k=1, distribution=d), two),
+        ("identity", lambda m, d: m.identity(32, distribution=d), two),
+        ("arange", lambda m, d: m.arange(1024, distribution=d), [(k,)]),
+        ("arange_float", lambda m, d: m.arange(
+            -3.0, 1021.0, dtype="float32", distribution=d), [(k,)]),
+        ("linspace", lambda m, d: m.linspace(
+            0.0, 1.0, 1024, distribution=d), [(k,)]),
+        ("fromarray", lambda m, d: m.fromarray(
+            np.arange(512.0).reshape(32, 16), distribution=d), two),
+    ]
+
+
+@pytest.mark.parametrize("dist_mesh", DIST_MESHES, indirect=True)
+@pytest.mark.parametrize("case", range(16))
+def test_creation_takes_distribution(dist_mesh, case):
+    k = int(np.prod(dist_mesh))
+    name, make, dists = _dist_cases(k)[case]
+    for d in dists:
+        _same_layout(make(rt, d), make(rtj, d), f"{name} {d}")
+
+
+@pytest.mark.parametrize("dist_mesh", [(4,), (2, 2)], indirect=True)
+def test_creation_takes_a_partition_spec(dist_mesh):
+    from jax.sharding import PartitionSpec as JP
+
+    from ramba_tpu_torch.parallel import mesh as pmesh
+
+    names = tuple(f"d{i}" for i in range(len(dist_mesh)))
+    for entries in [(names[0],), (None, names[-1]), (names,)]:
+        _same_layout(rt.zeros((32, 16), distribution=pmesh.P(*entries)),
+                     rtj.zeros((32, 16), distribution=JP(*entries)),
+                     f"zeros {entries}")
+
+
+@pytest.mark.parametrize("dist_mesh", DIST_MESHES, indirect=True)
+def test_create_array_with_divisions_both_forms(dist_mesh):
+    k = int(np.prod(dist_mesh))
+    # per-dim split counts
+    for splits in [(k, 1), (1, k)]:
+        for dt in (None, "float32", "int64"):
+            _same_layout(
+                rt.create_array_with_divisions((32, 16), splits, dtype=dt),
+                rtj.create_array_with_divisions((32, 16), splits, dtype=dt),
+                f"counts {splits} {dt}")
+    # the reference's per-worker (starts, ends) table: k row blocks
+    rows = np.array([[[i * 32 // k, 0], [(i + 1) * 32 // k, 16]]
+                     for i in range(k)])
+    a = rt.create_array_with_divisions((32, 16), rows, local_border=2)
+    b = rtj.create_array_with_divisions((32, 16), rows, local_border=2)
+    _same_layout(a, b, "ranges")
+    a[:] = 1.0
+    b[:] = 1.0
+    assert float(a.sum()) == float(b.sum()) == 512.0
+
+
+@pytest.mark.parametrize("dist_mesh", [(2, 2)], indirect=True)
+def test_elementwise_keeps_the_chosen_layout(dist_mesh):
+    # an elementwise result of one array with a chosen layout keeps it
+    for d in [(4, 1), (1, 4)]:
+        got = rt.zeros((32, 16), distribution=d)
+        assert tuple(got.sharding.spec) == tuple(
+            rtj.zeros((32, 16), distribution=d)._value().sharding.spec)
+
+
+def test_distribution_on_another_mesh_is_refused():
+    from ramba_tpu_torch.parallel import mesh as pmesh
+
+    other = pmesh.Mesh(np.array([torch.device("cpu")] * 2, dtype=object),
+                       ("x",))
+    with pytest.raises(ValueError, match="different mesh"):
+        rt.zeros((8, 8), distribution=pmesh.NamedSharding(other,
+                                                          pmesh.P("x")))

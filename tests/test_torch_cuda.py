@@ -1245,6 +1245,60 @@ def test_two_ranks_on_one_card_run_the_stencil_kernel(tmp_path):
         # one-process elemred sum's n * eps * sum bound
         assert abs(info["sum"] - one_sum) <= (1 << 20) * 2.0 ** -52 * one_sum
     assert infos[0]["sum"] == infos[1]["sum"]
+    # groupby on each rank's block: segred once a rank per kind, the G
+    # partials folded in rank order; min, max and count equal the plain
+    # version on the whole series, the sum within the two launches'
+    # rounding depths and the fold of two partials
+    data, labels = worker.card_series()
+    eps = 2.0 ** -52
+    for kind in worker.SEG_KINDS:
+        g = rt.fromarray(data).groupby(0, labels, 24)
+        program, leaf_vals = fuser.prepare_program(
+            [g._reduce(kind).read_expr()])
+        (plain,) = segred.segred_reference(program, leaf_vals)
+        for r, info in enumerate(infos):
+            assert info["segred_launches"][kind] == 1, (kind, info)
+            got = np.load(out / f"rank{r}.npz")[f"gb_{kind}"]
+            if kind == "sum":
+                sum_abs = np.array([np.abs(data[labels == gi]).sum()
+                                    for gi in range(24)])
+                n = len(data)
+                bound = (segred.depth(n) + segred.depth(n // 2 + 1) + 2) \
+                    * eps * sum_abs
+                assert (np.abs(got - plain.cpu().numpy()) <= bound).all()
+            else:
+                assert got.tobytes() == plain.cpu().numpy().tobytes(), kind
+
+
+def test_governor_spills_and_restores_byte_equal(monkeypatch):
+    # a budget that cannot hold two 64 MiB arrays: placing the second
+    # spills the colder first one to pinned host memory; touching it
+    # restores it on the card, byte for byte, and every move is counted
+    from ramba_tpu_torch.observe import registry
+    from ramba_tpu_torch.resilience import memory, spill
+
+    fuser.flush()
+    torch.cuda.synchronize()
+    live0 = memory.ledger.live_bytes
+    n = 1 << 23
+    a = rt.fromarray(np.random.default_rng(7).random(n))
+    before = a._value().clone()
+    monkeypatch.setenv("RAMBA_HBM_BUDGET", str(int((live0 + (96 << 20))
+                                                   / 0.9)))
+    ev0, rs0 = registry.get("memory.evictions"), registry.get(
+        "memory.restores")
+    d2h0 = registry.comm["device_to_host_bytes"]
+    b = rt.fromarray(np.ones(n))
+    assert registry.get("memory.evictions") == ev0 + 1
+    assert isinstance(a._expr.value, spill.SpilledArray)
+    assert a._expr.value.host.is_pinned()
+    assert registry.comm["device_to_host_bytes"] - d2h0 == n * 8
+    assert memory.ledger.spilled_bytes >= n * 8
+    after = a._value()
+    assert after.is_cuda and torch.equal(after, before)
+    assert registry.get("memory.restores") == rs0 + 1
+    del a, b, after
+    assert memory.ledger.live_bytes == live0
 
 
 def test_one_rank_nccl_group(tmp_path):

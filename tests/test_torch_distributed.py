@@ -182,7 +182,28 @@ def _held(key, got, want):
         depth = 2 * int(np.ceil(np.log2(n))) + scan.depth(n) + 4
         np.testing.assert_array_less(np.abs(got - want),
                                      depth * EPS * np.abs(want) + 1e-300)
-    elif key == "creation/lin":
+    elif prog.startswith("groupby"):
+        # per group of n_g terms: min, max and count exactly; sums, means
+        # and products within (n_g + 1) eps of their magnitude (every
+        # value is positive; any order of roundings); var = E[x^2] -
+        # mean^2 within (n_g + 2) eps of the terms it subtracts (values
+        # below 1.5: each term below 2.25)
+        n_g = -(-worker.SERIES_N // int(prog[len("groupby"):]))
+        if item in ("min", "max", "count"):
+            np.testing.assert_array_equal(got, want, err_msg=key)
+        elif item == "var":
+            np.testing.assert_array_less(np.abs(got - want),
+                                         4 * (n_g + 2) * EPS * 2.25)
+        else:
+            np.testing.assert_array_less(np.abs(got - want),
+                                         2 * (n_g + 1) * EPS * np.abs(want))
+    elif prog == "axis_sums" and item in ("ax0", "ax1", "kd0", "mean0",
+                                          "col_ax0", "col_ax1"):
+        # 24 or 20 positive terms a sum, folded across ranks in another
+        # order: within n eps of the sum
+        np.testing.assert_array_less(np.abs(got - want),
+                                     25 * EPS * np.abs(want))
+    elif item == "lin":
         start, stop, num = worker.LINSPACE
         ulp = np.spacing(max(abs(start), abs(stop)))
         np.testing.assert_array_less(np.abs(got - want), ulp * 1.0001)
@@ -212,17 +233,20 @@ def test_every_rank_gets_the_same_bytes(request, wname):
     for r in res[1:]:
         for k in keys:
             assert r[k].tobytes() == res[0][k].tobytes(), k
-    # a rerun of the cross-rank sum gives the same bytes
+    # a rerun of the cross-rank sum gives the same bytes, and of a groupby
     assert res[0]["chain/rerun"].tobytes() == \
         res[0]["chain/chain_sum"].tobytes()
+    for G in (24, 64):
+        assert res[0][f"groupby{G}/sum_rerun"].tobytes() == \
+            res[0][f"groupby{G}/sum"].tobytes()
 
 
 @pytest.mark.parametrize("wname", WORLDS + ["world4_capped"])
 def test_main_path_gathers_nothing(request, wname):
     _res, info = _world(request, wname)
     for rank_info in info:
-        for prog in worker.MAIN_PATH + ("spmd_halo1", "spmd_halo2", "scum",
-                                        "sred", "smaps"):
+        for prog in worker.MAIN_PATH + worker.LAYOUT_PATH + (
+                "spmd_halo1", "spmd_halo2", "scum", "sred", "smaps"):
             assert rank_info["gathered"][prog] == 0, (prog, rank_info)
         # a sort and a gather do take the gathered lowering, counted
         assert rank_info["gathered"]["gathered"] >= 1
@@ -308,6 +332,15 @@ def test_backend_is_reported(request, wname):
     for i in info:
         assert i["backend"] == "gloo" and "on the CPU" in i["reason"]
         assert i["comm"]["host_staged_bytes"] == 0  # CPU tensors: no staging
+
+
+@pytest.mark.parametrize("wname", ["world2", "world4", "world4_capped"])
+def test_a_reshard_fault_on_one_rank_rolls_back_every_rank(request, wname):
+    # reshard:stage on the last rank alone: every rank raises ReshardError,
+    # keeps its source, and the rerun completes
+    res, _info = _world(request, wname)
+    assert [bool(r["reshard_fault/raised"]) for r in res] == \
+        [True] * len(res)
 
 
 def test_init_connect_once_is_retried(world2):

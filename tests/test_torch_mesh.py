@@ -277,8 +277,13 @@ def test_uneven_layout_rule():
 
 
 def test_other_creation_ops_refuse_distributions():
-    with pytest.raises(NotImplementedError, match="part three"):
-        rt.zeros((8, 8), distribution=(2, 1))
+    # they refused before A.6 part three; now every creation op takes one
+    # (tests/test_torch_creation.py holds each against ramba_tpu): on the
+    # one-shard default mesh a split it cannot realize leaves it whole,
+    # as the reference's spec_from_splits does
+    a = rt.zeros((8, 8), distribution=(2, 1))
+    assert tuple(a.sharding.spec) == ()
+    np.testing.assert_array_equal(a.asarray(), np.zeros((8, 8)))
 
 
 def test_one_shard_mesh_keeps_the_bytes():

@@ -53,6 +53,28 @@ LINSPACE = (-2.0, 3.0, 1001)
 # programs of the main path: no gathered flush allowed
 MAIN_PATH = ("chain", "base", "star2_even", "star2_odd", "ints",
              "creation")
+# layouts chosen and changed across ranks: no gathered flush allowed
+LAYOUT_PATH = ("creation_dist", "reshard", "reshard_fault", "mixed",
+               "groupby24", "groupby64", "axis_sums")
+SUMS.update({"mixed_sum": 480})
+# groupby results over the series of length SERIES_N: held exactly
+# (min, max, count) or within a bound stated in the test
+SERIES_N = 1003
+
+
+def layout(rt, a) -> np.ndarray:
+    """The layout of a realized array, as comparable text: per dim None,
+    one mesh axis or a tuple of several, trailing Nones dropped."""
+    sh = a.sharding if rt.__name__ == "ramba_tpu_torch" else \
+        a._value().sharding
+    out = []
+    for e in tuple(getattr(sh, "spec", ())):
+        names = () if e is None else (e,) if isinstance(e, str) else tuple(e)
+        out.append(None if not names else names[0] if len(names) == 1
+                   else names)
+    while out and out[-1] is None:
+        out.pop()
+    return np.asarray(repr(tuple(out)))
 
 
 def programs(rt, tmp):
@@ -170,6 +192,98 @@ def programs(rt, tmp):
         return dict(out, grid=np.asarray(h), step=int(back["step"]),
                     ckpt_sum=float(rt.sum(h)))
 
+    def split_axes():
+        names = tuple(rt.get_mesh().axis_names)
+        return names if len(names) > 1 else names[0]
+
+    def creation_dist():
+        k = rt.num_workers()
+        rows = [[[i * 24 // k, 0], [(i + 1) * 24 // k, 20]] for i in range(k)]
+        out = {"div_counts": np.asarray(rt.create_array_with_divisions(
+                   (24, 20), (1, k)) + 2.0),
+               "div_ranges": np.asarray(rt.create_array_with_divisions(
+                   (24, 20), np.array(rows)) - 1.0),
+               "ar": np.asarray(rt.arange(1000, distribution=(k,)) * 3),
+               "lin": np.asarray(rt.linspace(*LINSPACE, distribution=(k,))
+                                 * 1.0)}
+        for i, d in enumerate(((k, 1), (1, k))):
+            z = rt.zeros((24, 20), distribution=d) + 1.0
+            out[f"zeros{i}"] = np.asarray(z)
+            out[f"layout_zeros{i}"] = layout(rt, z)
+            out[f"ones{i}"] = np.asarray(
+                rt.ones((24, 20), dtype=np.int32, distribution=d) * 5)
+            out[f"full{i}"] = np.asarray(
+                rt.full((24, 20), 3.0, distribution=d) * 2.0)
+            out[f"ff{i}"] = np.asarray(rt.fromfunction(
+                lambda a, b: a * 100 + b, (24, 20), dtype=np.int64,
+                distribution=d) + 0)
+        return out
+
+    def reshard():
+        ax = split_axes()
+        x = rt.fromarray(grid_even)
+        rt.reshard(x, (ax,))
+        out = {"row": np.asarray(x)}
+        rt.reshard(x, (None, ax), max_stage_bytes=1 << 10)
+        out["col"] = np.asarray(x)
+        rt.reshard(x, (ax,), max_stage_bytes=1 << 10)
+        out["back"] = np.asarray(x)
+        out["stencil"] = np.asarray(rt.sstencil(st, x))
+        return out
+
+    def reshard_fault():
+        ax = split_axes()
+        x = rt.fromarray(grid_even * 3.0)  # even: ramba_tpu reshards no other
+        out = {}
+        if rt.__name__ == "ramba_tpu_torch":
+            # every rank raises for a fault on the last rank alone
+            from ramba_tpu_torch.parallel.reshard import ReshardError
+
+            world = rt.distributed.process_count()
+            rt.resilience.faults.configure(
+                f"reshard:stage:after=1:rank={world - 1}")
+            try:
+                rt.reshard(x, (None, ax), max_stage_bytes=1 << 10)
+                out["raised"] = np.asarray(False)
+            except ReshardError:
+                out["raised"] = np.asarray(True)
+            finally:
+                rt.resilience.faults.configure(None)
+        out["intact"] = np.asarray(x)
+        rt.reshard(x, (None, ax), max_stage_bytes=1 << 10)
+        out["after"] = np.asarray(x)
+        return out
+
+    def mixed():
+        k = rt.num_workers()
+        x = rt.fromarray(grid_even, distribution=(k, 1))
+        y = rt.fromarray(grid_even[::-1].copy(), distribution=(1, k))
+        return {"z": np.asarray((x + y) * 2.5),
+                "mixed_sum": float(rt.sum(x + y))}
+
+    def groupby(G):
+        x = rt.fromarray(base[:SERIES_N] + 0.5)
+        g = x.groupby(0, np.arange(SERIES_N) % G, G)
+        out = {kind: np.asarray(getattr(g, kind)()) for kind in (
+            "sum", "prod", "min", "max", "count", "mean", "var")}
+        if rt.__name__ == "ramba_tpu_torch":
+            out["sum_rerun"] = np.asarray(g.sum())
+        return out
+
+    def axis_sums():
+        k = rt.num_workers()
+        x = rt.fromarray(grid_even)
+        xc = rt.fromarray(grid_even, distribution=(1, k))
+        xi = rt.fromarray((grid_even * 1000).astype(np.int32))
+        res = {"ax0": rt.sum(x, axis=0), "ax1": rt.sum(x, axis=1),
+               "kd0": rt.sum(x, axis=0, keepdims=True),
+               "mean0": rt.mean(x, axis=0), "max1": rt.max(x, axis=1),
+               "col_ax0": rt.sum(xc, axis=0), "col_ax1": rt.sum(xc, axis=1),
+               "int_ax0": rt.sum(xi, axis=0)}
+        out = {k: np.asarray(v) for k, v in res.items()}
+        out.update({f"layout_{k}": layout(rt, v) for k, v in res.items()})
+        return out
+
     return {"chain": chain, "base": base_, "ints": ints,
             "creation": creation,
             "star2_even": lambda: star2(grid_even, 3, 4),
@@ -177,7 +291,11 @@ def programs(rt, tmp):
             "spmd_halo1": spmd_halo1, "spmd_halo2": spmd_halo2,
             "scum": scum, "sred": sred, "smaps": smaps,
             "gathered": gathered,
-            "files": files, "ckpt": ckpt}
+            "files": files, "ckpt": ckpt,
+            "creation_dist": creation_dist, "reshard": reshard,
+            "reshard_fault": reshard_fault, "mixed": mixed,
+            "groupby24": lambda: groupby(24), "groupby64": lambda: groupby(64),
+            "axis_sums": axis_sums}
 
 
 def _main(rt, rank, outdir):
@@ -251,16 +369,25 @@ def _fail(rt, rank, outdir):
 
 
 CARD_GRID = (1024, 1024)
+CARD_SERIES = (1 << 20) + 37
+SEG_KINDS = ("sum", "min", "max", "count")
 
 
 def card_grid():
     return np.random.default_rng(5).random(CARD_GRID).astype(np.float32)
 
 
+def card_series():
+    """A series and its hour-of-day labels (24 groups)."""
+    return (np.random.default_rng(6).random(CARD_SERIES),
+            np.arange(CARD_SERIES) % 24)
+
+
 def _card(rt, rank, outdir):
     """On the card: star2 on this rank's block through the CUDA stencil
-    kernel (30 chained sweeps and 20 iterated), the chain's sum on
-    elemred, and the counters that show it."""
+    kernel (3 chained sweeps and 5 iterated), the chain's sum on
+    elemred, groupby sum/min/max/count on segred over the rank's block of
+    a series, and the counters that show it."""
     from ramba_tpu_torch import parallel
     from ramba_tpu_torch.core import fuser
     from ramba_tpu_torch.ops import elemred, stencil_kernel
@@ -278,12 +405,23 @@ def _card(rt, rank, outdir):
     a = rt.arange(1 << 20) * 0.001
     rt.sync()  # materialised: elemred takes vector leaves
     total = float(rt.sum((a + 1.0) * (a + 0.5)))
+    # groupby on each rank's block: one segred launch a rank per kind
+    from ramba_tpu_torch.ops import segred
+
+    data, labels = card_series()
+    g = rt.fromarray(data).groupby(0, labels, 24)
+    groups, seg = {}, {}
+    for kind in SEG_KINDS:
+        g0 = segred.launches
+        groups[kind] = np.asarray(getattr(g, kind)())
+        seg[kind] = segred.launches - g0
     info = {"stencil_launches": launches, "backend": distributed.backend(),
             "elemred_launches": elemred.launches - e0, "sum": total,
-            "gathered": fuser.stats["gathered"],
+            "segred_launches": seg, "gathered": fuser.stats["gathered"],
             "comm": dict(parallel.comm_stats)}
     np.savez(os.path.join(outdir, f"rank{rank}.npz"),
-             chained=np.asarray(y), iterate=np.asarray(yi))
+             chained=np.asarray(y), iterate=np.asarray(yi),
+             **{f"gb_{k}": v for k, v in groups.items()})
     with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
         json.dump(info, f)
 
