@@ -6,6 +6,7 @@
     python3 chip_smoke.py --mesh     # phase 1 and the mesh path only
     python3 chip_smoke.py --dist     # phase 1 and the path across processes
     python3 chip_smoke.py --layout   # phase 1 and layouts across processes
+    python3 chip_smoke.py --compile  # phase 1 and the compile pipeline
 
 Phases, each reported on its own line:
 
@@ -127,7 +128,28 @@ Phases, each reported on its own line:
    result (the sums within stated bounds); then, in this process, a
    budget that holds one 2 GiB float64 array and not two: placing the
    second spills the first to pinned host memory, reading it restores it
-   byte-equal, ``memory.*`` counters before and after.  Every kernel's
+   byte-equal, ``memory.*`` counters before and after; then compile and
+   caching (``compile_path``, alone with ``--compile``): two processes of
+   this script (``--compile-child cold|warm``) on one fresh
+   ``RAMBA_CACHE`` under ``RAMBA_COMPILE_CLASSES=pow2`` run the sin/cos
+   chain over a materialised 2^28 float64 base (elemred), the hourly
+   groupby sum (segred) and ``x * 2 + 1`` over 3e7 float32 (elemred at
+   its own length: the kernels' programs are not bucketed): the warm one
+   builds nothing, loads at least 3 libraries from the cache (persist
+   hits) and gives the cold one's bytes; the shape soaks (ramba_tpu's 32
+   row counts in 1..300 x 256 float32 on the generic lowering, then 32
+   lengths in 2^20..2^26 float32 on elemred; the same 240 flushes each
+   with classes off and under pow2 in turns, each from fresh plans, on
+   elemred with its programs made to bucket and then as the port runs
+   them, exact; every result byte-equal to the exact shape's; hit rate,
+   pad waste, p50 and p95, launches, plans); a chain of 1000 instructions over 2^27 float64 at segment
+   sizes 0, 384 and 64 (0, 3 and 16 segments, one elemred launch a
+   segment at 64, the same bytes at all three); and the backend race
+   (``RAMBA_AUTOTUNE=race``, K=3) on the sin/cos chain and axpy + sum at
+   2^28 float64 and the hourly groupby sum, every sample held against
+   the plain version, both p50s (CUDA events) and the latched winner,
+   then a third process (``--compile-child race2``) on the written table
+   that races nothing and launches the latched backends.  Every kernel's
    launch count is set to 0 just before each path and read just after; a
    path that does not launch its kernel fails the run;
 4. a ``kernels`` JSON line, the card's name and power limit, and the last
@@ -143,6 +165,8 @@ import json
 import subprocess
 import sys
 import time
+
+T_START = time.perf_counter()  # a compile child's first result counts from here
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 # peak non-tensor-core rates on the H100 SXM (NVIDIA data sheet)
@@ -835,6 +859,10 @@ def elemred_plans(rt, er, np):
             plans.append(er.plan_for(*_program(
                 lambda: [rt.sum(2.5 * x + y)])))
             plans.append(er.plan_for(*_program(lambda: [x * x])))
+        if dt == "float32":  # compile_path: the bucketed program and soak
+            plans.append(er.plan_for(*_program(lambda: [x * 2.0 + 1.0])))
+        if dt == "float64":  # compile_path: the chain's segments at 64
+            plans += segment_plans(er, x)
     for dt in ("int32", "int64"):
         a = rt.fromarray(rs.randint(-5, 6, 64).astype(dt))
         b = rt.fromarray(rs.randint(1, 6, 64).astype(dt))
@@ -993,7 +1021,8 @@ def hourly_series(torch, np, n, seed=0):
     x = 20.0 + 5.0 * torch.sin(t * (2 * np.pi / 24)) \
         + torch.randn(n, generator=g, device="cuda", dtype=torch.float64)
     del t
-    return x, (np.arange(n, dtype=np.int64) % 24).astype(np.int32)
+    # hour of day 0..23 repeating, int32 (tiled: no int64 pass over n)
+    return x, np.tile(np.arange(24, dtype=np.int32), -(-n // 24))[:n]
 
 
 def category_series(torch, np, n, G, seed=1):
@@ -1660,6 +1689,13 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
     log("  layout_path: layouts chosen and changed across ranks")
     dist["layout"] = timed("layout_path", layout_path, rt, torch, np, card,
                            totals)
+    log("  compile_path: segments, compile classes, the kernel cache and the "
+        "backend race")
+    e0, g0 = totals["elemred"], totals["segred"]
+    timed("compile_path", compile_path, rt, er, sg, torch, np, card, window,
+          totals)
+    if totals["elemred"] == e0 or totals["segred"] == g0:
+        raise Fail("compile_path launched no elemred or no segred")
     log(f"  phase 3 walls by path (s): {json.dumps(walls)} [{card}]")
     return totals, sharded, dist
 
@@ -3499,6 +3535,24 @@ def digest(t) -> str:
                           .tobytes()).hexdigest()
 
 
+def card_digest(t) -> str:
+    """A checksum of a tensor's bytes taken on the card: the wrapping
+    int64 sums of its 8-byte words, plain, weighted by position and
+    xor-ed with the weights, with its dtype and shape (sha256 of 2 GiB on
+    the host would take seconds)."""
+    import torch
+
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    if b.numel() % 8:
+        b = torch.cat([b, b.new_zeros(8 - b.numel() % 8)])
+    w = b.view(torch.int64)
+    k = torch.arange(1, w.numel() + 1, device=w.device,
+                     dtype=torch.int64) * 0x2545F4914F6CDD1D
+    sums = [int(w.sum()), int((w * k).sum()), int((w ^ k).sum())]
+    return f"{t.dtype}{tuple(t.shape)}:" + ":".join(
+        f"{v & (2 ** 64 - 1):016x}" for v in sums)
+
+
 def _rank_window(er, sk, sc, name, fn, rep, sg=None):
     """Counts to 0, ``fn``, counts read: recorded under ``name``."""
     er.launches = er.launches_bulk = er.launches_plain = 0
@@ -4531,6 +4585,530 @@ def layout_path(rt, torch, np, card, totals):
     return summary
 
 
+# compile_path's sizes: the pair's and the race's programs (2^28 float64,
+# the hourly series G=24), the bucketed program (float32, pow2 bucket
+# 2^25), the soaks, the segmented chain (500 pairs y * a + b over 2^27
+# float64), the race's samples per backend, a child's time limit
+COMPILE_N = 1 << 28
+COMPILE_BUCKET_N = 3 * 10 ** 7
+SOAK_FLUSHES = 240
+SOAK_LENGTHS = (1 << 20, 1 << 26)
+SEG_N = 1 << 27
+SEG_PAIRS = 500
+RACE_K = 3
+COMPILE_CHILD_LIMIT_S = 300
+
+
+def seg_chain(base):
+    """500 pairs ``y = y * a + b`` with non-dyadic float64 constants: 1000
+    instructions of arithmetic only, so every segmentation and either
+    lowering gives the same bytes (the kernels build with --fmad=false)."""
+    y = base
+    for i in range(SEG_PAIRS):
+        y = y * (1.0 + (i % 13 + 1) / 3e7) + (i % 11 + 1) / 7e9
+    return y
+
+
+def segment_plans(er, x):
+    """The elemred plans of the chain's segments at 64 instructions (the
+    first, the middle ones and the last differ), over tiny leaves."""
+    import torch
+    from ramba_tpu_torch.core import fuser
+
+    p, vals = fuser.prepare_program([seg_chain(x)._expr])
+    carried = torch.zeros_like(x._value())
+    return [er.plan_for(seg, [vals[s] if s < p.n_leaves else carried
+                              for s in ins])
+            for seg, ins, _o, _t in fuser._iter_segments(
+                p, fuser._last_use_map(p), 64)]
+
+
+def race_programs(rt, torch, np):
+    """The race's three programs, their data made from indices and a seed
+    (a second process makes the same programs: the same fingerprints)."""
+    n = COMPILE_N
+    base = rt.arange(n) / 1000.0
+    x = rt.sin(rt.arange(n) * 1e-3)
+    y = rt.cos(rt.arange(n) * 1e-3)
+    rt.sync()
+    x_t, hour = hourly_series(torch, np, n)
+    g = rt.fromarray(x_t).groupby(0, hour, num_groups=24)
+
+    def chain():
+        B, C = rt.sin(base), rt.cos(base)
+        D = B * B + C * C
+        del B, C
+        s = rt.sum(D)
+        return D._value(), s._value()
+
+    def axpy():
+        z = 2.5 * x + y
+        s = rt.sum(z)
+        return z._value(), s._value()
+
+    def gsum():
+        return (g.sum()._value(),)
+
+    return {"sin/cos chain n=2^28 f64": chain,
+            "axpy + sum n=2^28 f64": axpy,
+            "groupby hourly sum n=2^28 f64 G=24": gsum}, \
+        {"base": base, "x": x, "y": y, "x_t": x_t, "hour": hour}
+
+
+def compile_child(argv) -> int:
+    """One process of ``compile_path``: ``cold`` or ``warm`` runs the
+    pair's three programs on the RAMBA_CACHE it was given; ``race2`` runs the race's programs once
+    each on the RAMBA_AUTOTUNE_CACHE it was given.  Prints one JSON line."""
+    import numpy as np
+    import torch
+
+    import ramba_tpu_torch as rt
+    from ramba_tpu_torch import _build
+    from ramba_tpu_torch.compile import classes, persist
+    from ramba_tpu_torch.core import autotune
+    from ramba_tpu_torch.observe import events, ledger, registry
+    from ramba_tpu_torch.ops import elemred as er
+    from ramba_tpu_torch.ops import segred as sg
+
+    phase = argv[argv.index("--compile-child") + 1]
+    rt.set_device("cuda:0")
+    er.launches = sg.launches = 0
+    out = {"phase": phase}
+    if phase == "race2":
+        if autotune.mode() != "race":
+            raise Fail("the race child runs without RAMBA_AUTOTUNE=race")
+        progs, _data = race_programs(rt, torch, np)
+        out["programs"] = {}
+        for name, fn in progs.items():
+            e0, s0 = er.launches, sg.launches
+            fn()
+            span = events.last(1, type="flush")[-1]
+            out["programs"][name] = {
+                "fingerprint": span["fingerprint"],
+                "backend": span["calls"][-1]["backend"],
+                "elemred": er.launches - e0, "segred": sg.launches - s0}
+        out["race_started"] = registry.get("autotune.race_started")
+        out["race_skipped"] = registry.get("autotune.race_skipped")
+        out["decisions"] = autotune.report()["decisions"]
+    else:
+        if not (persist.armed() and classes.enabled()):
+            raise Fail(f"compile child {phase}: cache or classes not armed")
+        n = COMPILE_N
+        src0 = ledger.totals()["by_source"]
+        per = out["programs"] = {}
+
+        def ready(name):
+            """Seconds by source each program's first call paid."""
+            nonlocal src0
+            src = ledger.totals()["by_source"]
+            per[name] = {k: src[k] - src0[k] for k in src}
+            src0 = src
+
+        base = rt.arange(n) / 1000.0
+        rt.sync()  # materialised: elemred takes the chain over it
+        ready("arange / 1000 (generic lowering)")
+        B, C = rt.sin(base), rt.cos(base)
+        D = B * B + C * C
+        del B, C
+        s = rt.sum(D)
+        sv = float(s)
+        out["first_result_s"] = time.perf_counter() - T_START
+        ready("elemred: sin/cos chain f64")
+        dig = {"chain_D": card_digest(D._value()), "chain_sum": sv.hex()}
+        del base, D, s
+        x_t, hour = hourly_series(torch, np, n)
+        g = rt.fromarray(x_t).groupby(0, hour, num_groups=24)
+        dig["groupby_sum"] = card_digest(g.sum()._value())
+        ready("segred: hourly sum f64")
+        del g, x_t
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(14)
+        xb = rt.fromarray(torch.rand(COMPILE_BUCKET_N, generator=gen,
+                                     device="cuda", dtype=torch.float32))
+        p0 = classes.snapshot()["padded"]
+        dig["x2p1"] = card_digest((xb * 2.0 + 1.0)._value())
+        ready("elemred: x * 2 + 1 f32, 3e7 (exact under pow2)")
+        out["padded"] = classes.snapshot()["padded"] - p0
+        out["classes"] = sorted({str(t) for t in classes.decisions().values()
+                                 if t is not None})
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - T_START
+        t = ledger.totals()
+        snap = persist.snapshot()
+        out.update(digests=dig, nvcc_builds=_build.nvcc_builds,
+                   disk_loads=_build.disk_loads, compiles=t["compiles"],
+                   compile_s=t["compile_s"], by_source=t["by_source"],
+                   persist_hits=snap["hits"],
+                   persist_corrupt=snap["corrupt"])
+    out["launches"] = {"elemred": er.launches, "segred": sg.launches}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def run_compile_child(phase, env):
+    """One child of this script (``--compile-child phase``), waited for
+    within its limit (killed past it); its JSON report."""
+    try:
+        p = subprocess.run([sys.executable, __file__, "--compile-child",
+                            phase], env=env, capture_output=True, text=True,
+                           timeout=COMPILE_CHILD_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        raise Fail(f"compile child {phase} ran past "
+                   f"{COMPILE_CHILD_LIMIT_S} s") from None
+    if p.returncode != 0:
+        raise Fail(f"compile child {phase} exited {p.returncode}:\n"
+                   f"{p.stderr[-3000:]}")
+    return json.loads(p.stdout.strip().splitlines()[-1])
+
+
+def _child_env(**extra):
+    import os
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("RAMBA_AUTOTUNE", "RAMBA_CACHE",
+                                "RAMBA_COMPILE_CLASSES", "RAMBA_FAULTS",
+                                "RAMBA_PERF"))}
+    env.update(extra)
+    return env
+
+
+def compile_pair(tmp, card, totals):
+    """(a) A cold and a warm process on one fresh RAMBA_CACHE, pow2."""
+    import os
+
+    env = _child_env(RAMBA_CACHE=os.path.join(tmp, "cache"),
+                     RAMBA_COMPILE_CLASSES="pow2")
+    reps = {}
+    for phase in ("cold", "warm"):
+        r = reps[phase] = run_compile_child(phase, env)
+        for k in ("elemred", "segred"):
+            totals[k] += r["launches"][k]
+        src = {k: round(v, 4) for k, v in r["by_source"].items()}
+        log(f"  compile_path {phase} process: first result "
+            f"{r['first_result_s']:.2f} s after start, all three "
+            f"{r['wall_s']:.2f} s; nvcc builds {r['nvcc_builds']}, libraries "
+            f"loaded from disk {r['disk_loads']}; ledger compiles "
+            f"{r['compiles']} ({r['compile_s']:.4f} s), seconds by source "
+            f"{src}; persist hits {r['persist_hits']}; classes "
+            f"{r['classes']}; launches {r['launches']} [{card}]")
+        for name, src in r["programs"].items():
+            log(f"  compile_path {phase} process, {name}: first call's "
+                f"seconds by source {({k: round(v, 4) for k, v in src.items()})}"
+                f" [{card}]")
+        if not all(r["launches"].values()):
+            raise Fail(f"compile_path {phase}: elemred or segred not launched")
+        if r["padded"] != 0 or r["classes"]:
+            raise Fail(f"compile_path {phase}: a program the kernels take "
+                       f"was bucketed ({r['classes']})")
+    cold, warm = reps["cold"], reps["warm"]
+    if cold["nvcc_builds"] < 3:
+        raise Fail(f"the cold process built {cold['nvcc_builds']} sources, "
+                   "expected the three kernels'")
+    if warm["nvcc_builds"] != 0 or warm["persist_hits"] < 3:
+        raise Fail(f"the warm process built {warm['nvcc_builds']} sources "
+                   f"and loaded {warm['persist_hits']} libraries from the "
+                   "cache (want 0, >= 3)")
+    if warm["by_source"]["nvcc"] != 0 or warm["persist_corrupt"] != 0:
+        raise Fail("the warm process paid nvcc seconds or found a corrupt "
+                   "library")
+    if warm["digests"] != cold["digests"]:
+        raise Fail(f"warm results differ from cold: {warm['digests']} vs "
+                   f"{cold['digests']}")
+    log(f"  compile_path warm vs cold: results byte-equal (checksums on "
+        f"the card of the chain and the hourly sums and x * 2 + 1, the "
+        f"chain's sum's bits); first "
+        f"result {warm['first_result_s']:.2f} s against "
+        f"{cold['first_result_s']:.2f} s [{card}]")
+    return {k: {key: r[key] for key in (
+        "first_result_s", "wall_s", "nvcc_builds", "disk_loads", "compiles",
+        "compile_s", "by_source", "persist_hits", "programs")}
+        for k, r in reps.items()}
+
+
+def _soak(rt, torch, np, classes, registry, er, name, bases, exact, draws):
+    """``draws`` flushes of ``x * 2 + 1`` over ``bases`` under the current
+    compile-class policy, each byte-equal to the exact-shape result; the
+    soak's numbers."""
+    h0, m0 = registry.get("fuser.cache_hit"), registry.get("fuser.cache_miss")
+    pad0 = dict(classes.stats)
+    e0, p0 = er.launches, len(er._plans)
+    walls = []
+    for k in draws:
+        t0 = time.perf_counter()
+        v = (rt.fromarray(bases[k]) * 2.0 + 1.0)._value()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if not bytes_equal(v, exact[k]):
+            raise Fail(f"{name}: a result differs from the exact shape's")
+    hits = registry.get("fuser.cache_hit") - h0
+    misses = registry.get("fuser.cache_miss") - m0
+    pad = classes.stats["pad_bytes"] - pad0["pad_bytes"]
+    leaf = classes.stats["leaf_bytes"] - pad0["leaf_bytes"]
+    return {"flushes": len(walls), "compile_hit_rate": hits / (hits + misses),
+            "pad_waste_frac": pad / leaf if leaf else 0.0,
+            "p95_flush_ms": float(np.percentile(walls, 95)) * 1e3,
+            "p50_flush_ms": float(np.percentile(walls, 50)) * 1e3,
+            "total_ms": float(sum(walls)) * 1e3,
+            "elemred_launches": er.launches - e0,
+            "plans_built": len(er._plans) - p0}
+
+
+def _fresh_plans(er):
+    """Drop the compile cache and elemred's plans, so a soak starts from
+    the plans a fresh process has (the libraries stay loaded)."""
+    from ramba_tpu_torch.core import fuser
+
+    with fuser._cache_lock:
+        fuser._compile_cache.clear()
+    with er._lock:
+        er._plans.clear()
+
+
+def compile_soak(rt, er, torch, np, card, window):
+    """(b) The shape soaks: ramba_tpu's traffic (32 row counts in 1..300
+    of 256 float32 columns, the generic lowering), then the same at the
+    card's width (32 lengths in 2^20..2^26, float32, on elemred); the
+    same 240 flushes from each working set with compile classes off and
+    under pow2, in turns (off, pow2, pow2, off), each run from fresh
+    plans.  On elemred the pow2 turns bucket the kernel's programs, which
+    the port does not (``fuser._kernel_takes``: the comparison is why);
+    a last pow2 run shows the port's policy, exact shapes."""
+    import os
+
+    from ramba_tpu_torch.compile import classes
+    from ramba_tpu_torch.core import fuser
+    from ramba_tpu_torch.observe import registry
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1400)
+    rows = np.random.default_rng(14).integers(1, 301, size=32)
+    lens = np.random.default_rng(14).integers(*SOAK_LENGTHS, size=32)
+    sets = {
+        "soak rows 1..300 x 256 f32 (generic lowering)":
+            [torch.rand((int(r), 256), generator=gen, device="cuda")
+             for r in rows],
+        "soak lengths 2^20..2^26 f32 (elemred)":
+            [torch.rand(int(m), generator=gen, device="cuda") for m in lens],
+    }
+    draws = np.random.default_rng(1400).integers(0, 32, size=SOAK_FLUSHES)
+    saved = os.environ.get("RAMBA_COMPILE_CLASSES")
+    kernel_takes = fuser._kernel_takes
+    out = {}
+    try:
+        for name, bases in sets.items():
+            on_kernel = "elemred" in name
+            os.environ["RAMBA_COMPILE_CLASSES"] = "off"
+            classes.reset()
+            exact = [(rt.fromarray(b) * 2.0 + 1.0)._value() for b in bases]
+            need = {"elemred": SOAK_FLUSHES} if on_kernel else {"elemred": 0}
+            turns = ["off", "pow2", "pow2", "off"]
+            if on_kernel:
+                turns = ["off", "pow2 bucketed", "pow2 bucketed", "off",
+                         "pow2"]
+            runs = out[name] = {t: [] for t in turns}
+            for turn in turns:
+                os.environ["RAMBA_COMPILE_CLASSES"] = turn.split()[0]
+                classes.reset()
+                _fresh_plans(er)
+                if turn == "pow2 bucketed":
+                    fuser._kernel_takes = lambda *a: False
+                try:
+                    r = window(f"{name}, classes {turn}", lambda: _soak(
+                        rt, torch, np, classes, registry, er, name, bases,
+                        exact, draws), need)
+                finally:
+                    fuser._kernel_takes = kernel_takes
+                runs[turn].append(r)
+                log(f"  compile_path {name}, classes {turn}: "
+                    f"{r['flushes']} flushes, compile hit rate "
+                    f"{r['compile_hit_rate']:.4f}, pad waste "
+                    f"{r['pad_waste_frac']:.4f}, flush p50 "
+                    f"{r['p50_flush_ms']:.4f} ms p95 {r['p95_flush_ms']:.4f} "
+                    f"ms, all {r['total_ms']:.2f} ms, elemred launches "
+                    f"{r['elemred_launches']}, plans built "
+                    f"{r['plans_built']}; every result byte-equal to the "
+                    f"exact shape's [{card}]")
+            if on_kernel and runs["pow2"][0]["pad_waste_frac"] != 0.0:
+                raise Fail("pow2 bucketed a program the kernels take")
+            del exact
+    finally:
+        fuser._kernel_takes = kernel_takes
+        if saved is None:
+            os.environ.pop("RAMBA_COMPILE_CLASSES", None)
+        else:
+            os.environ["RAMBA_COMPILE_CLASSES"] = saved
+        classes.reset()
+    del sets
+    torch.cuda.empty_cache()
+    return out
+
+
+def compile_segments(rt, er, torch, np, card, window):
+    """(c) The 1000-instruction chain over 2^27 float64 at segment sizes
+    0, 384 and 64: the iterator's counts, one elemred launch a segment at
+    64, the same bytes at every size."""
+    from ramba_tpu_torch import common
+    from ramba_tpu_torch.core import fuser
+
+    base = rt.arange(SEG_N) / 3.0
+    rt.sync()
+    old = common.max_program_instrs
+    res, out = {}, {}
+    try:
+        for size, segs in ((0, 0), (384, 3), (64, 16)):
+            common.max_program_instrs = size
+
+            def run():
+                s0 = fuser.stats["segments"]
+                t0 = time.perf_counter()
+                v = seg_chain(base)._value()
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0, fuser.stats["segments"] - s0, v
+
+            wall, got, v = window(f"segmented chain at {size}", run,
+                                  {"elemred": 16 if size == 64 else 0})
+            if got != segs:
+                raise Fail(f"the chain at {size} ran {got} segments, the "
+                           f"iterator gives {segs}")
+            res[size] = v
+            out[size] = {"segments": got, "wall_s": wall}
+            log(f"  compile_path chain of 1000 instructions over 2^27 f64, "
+                f"max_program_instrs={size}: {got} segments, {wall:.4f} s "
+                f"[{card}]")
+    finally:
+        common.max_program_instrs = old
+    if not (bytes_equal(res[0], res[384]) and bytes_equal(res[0], res[64])):
+        raise Fail("the segmented chain's bytes depend on the segment size")
+    log("  compile_path chain: the runs at 0, 384 and 64 byte-equal")
+    del base, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def compile_race(rt, er, sg, torch, np, card, window, totals, tmp):
+    """(d) RAMBA_AUTOTUNE=race, K=3: the sin/cos chain and axpy + sum at
+    2^28 float64 and the hourly groupby sum; every sample held against the
+    plain version, both backends' p50 (CUDA events), the latched winner;
+    then a second process given the written table."""
+    import os
+
+    from ramba_tpu_torch.core import autotune
+    from ramba_tpu_torch.observe import events, ledger
+
+    table = os.path.join(tmp, "autotune.json")
+    progs, data = race_programs(rt, torch, np)
+    n = COMPILE_N
+    # the plain versions: vectors, sums, and the sums' bounds
+    b_t = data["base"]._value()
+    D = torch.sin(b_t) * torch.sin(b_t) + torch.cos(b_t) * torch.cos(b_t)
+    z = 2.5 * data["x"]._value() + data["y"]._value()
+    hour_t = torch.from_numpy(data["hour"]).cuda()
+    xg = data["x_t"]
+    groups = [xg[hour_t == k] for k in range(24)]
+    want = {
+        "sin/cos chain n=2^28 f64": (D, D.sum(), sum_bound(
+            er.depth(n) + 1, "float64", float(D.abs().sum()))),
+        "axpy + sum n=2^28 f64": (z, z.sum(), sum_bound(
+            er.depth(n) + 1, "float64", float(z.abs().sum()))),
+        "groupby hourly sum n=2^28 f64 G=24": (None, torch.stack(
+            [v.sum() for v in groups]), sum_bound(sg.depth(n), "float64",
+                                                  torch.stack([v.abs().sum()
+                                                               for v in groups]))),
+    }
+    del D, z, groups, b_t, hour_t, xg
+    autotune.reconfigure(mode="race", k=RACE_K, cache_path=table)
+    out = {}
+    try:
+        for name, fn in progs.items():
+            vec, sums, bound = want[name]
+            bound = torch.as_tensor(bound, dtype=torch.float64,
+                                    device=sums.device)
+            fam = "segred" if "groupby" in name else "elemred"
+
+            def race():
+                worst, runs = 0.0, 0
+                while runs < 4 * RACE_K:
+                    got = fn()
+                    span = events.last(1, type="flush")[-1]
+                    runs += 1
+                    for g in got:
+                        if g.ndim == 1 and vec is not None:
+                            excess = (g - vec).abs() - 1e-12 * (1 + vec.abs())
+                            if float(excess.max()) > 0:
+                                raise Fail(f"race {name}: a vector output "
+                                           "left rtol 1e-12 of the plain "
+                                           "version")
+                            continue
+                        e = (g.double() - sums.double()).abs()
+                        worst = max(worst, float((e / bound).max()))
+                        if bool((e > bound).any()):
+                            raise Fail(f"race {name}: a sample left the sum "
+                                       "bound of the plain version")
+                    fp = span["fingerprint"]
+                    if autotune.decision(fp) is not None:
+                        return fp, runs, worst
+                raise Fail(f"race {name}: nothing latched in {runs} runs")
+
+            fp, runs, worst = window(f"race {name}", race, {fam: None})
+            st = ledger.backend_stats(fp)
+            d = autotune.decision(fp)
+            out[name] = {"fingerprint": fp, "runs": runs, "winner":
+                         d["backend"], "kernel_p50_ms": st["kernel"]["p50_s"]
+                         * 1e3, "torch_p50_ms": st["torch"]["p50_s"] * 1e3,
+                         "samples": {b: st[b]["count"] for b in st}}
+            log(f"  compile_path race {name}: kernel p50 "
+                f"{out[name]['kernel_p50_ms']:.4f} ms, torch p50 "
+                f"{out[name]['torch_p50_ms']:.4f} ms (CUDA events, "
+                f"{out[name]['samples']} samples), latched "
+                f"{d['backend']} after {runs} runs; every sample within "
+                f"rtol 1e-12 (vectors) and the sum bound (2*depth*eps*sum|x|) "
+                f"of the plain version (largest err/bound {worst:.4f}) "
+                f"[{card}]")
+    finally:
+        autotune.reconfigure(mode="off", cache_path="")
+    del progs, data, want
+    torch.cuda.empty_cache()
+    r = run_compile_child("race2", _child_env(
+        RAMBA_AUTOTUNE="race", RAMBA_AUTOTUNE_K=str(RACE_K),
+        RAMBA_AUTOTUNE_CACHE=table))
+    for k in ("elemred", "segred"):
+        totals[k] += r["launches"][k]
+    log(f"  compile_path second process on the table: race_started "
+        f"{r['race_started']}, race_skipped {r['race_skipped']}; "
+        f"{json.dumps(r['programs'])} [{card}]")
+    if r["race_started"] != 0 or r["race_skipped"] < 3:
+        raise Fail("the second process raced again")
+    for name, p in r["programs"].items():
+        win = out[name]["winner"]
+        fam = "segred" if "groupby" in name else "elemred"
+        if p["fingerprint"] != out[name]["fingerprint"] \
+                or p["backend"] != win or (p[fam] > 0) != (win == "kernel"):
+            raise Fail(f"the second process ran {name} on {p['backend']} "
+                       f"({fam} {p[fam]}), the latched backend is {win}")
+    out["second_process"] = {k: r[k] for k in ("race_started",
+                                               "race_skipped")}
+    return out
+
+
+def compile_path(rt, er, sg, torch, np, card, window, totals):
+    """Compile and caching: (a) a cold and a warm process on one
+    RAMBA_CACHE, (b) the shape soaks under pow2, (c) segmentation, (d) the
+    backend race and a second process on its table."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="ramba_compile_") as tmp:
+        out["pair"] = compile_pair(tmp, card, totals)
+        out["soak"] = compile_soak(rt, er, torch, np, card, window)
+        out["segments"] = compile_segments(rt, er, torch, np, card, window)
+        out["race"] = compile_race(rt, er, sg, torch, np, card, window,
+                                   totals, tmp)
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  compile_path: {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -4539,6 +5117,8 @@ def main(argv) -> int:
         return 2
     if "--rank" in argv:  # one rank of dist_path
         return dist_rank(argv)
+    if "--compile-child" in argv:  # one process of compile_path
+        return compile_child(argv)
     import numpy as np
 
     import ramba_tpu_torch as rt
@@ -4568,6 +5148,17 @@ def main(argv) -> int:
         totals = dict.fromkeys(("elemred", "stencil", "segred", "scan"), 0)
         log(json.dumps({"layout": layout_path(rt, torch, np, card, totals),
                         "launches": totals}))
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        print(card, flush=True)
+        return 0
+    if "--compile" in argv:  # phase 1 and compile_path alone
+        totals = dict.fromkeys(("elemred", "stencil", "segred", "scan"), 0)
+        window = launch_window(er, sk, sg, sc, totals, card)
+        log(json.dumps({"compile": compile_path(rt, er, sg, torch, np, card,
+                                                window, totals),
+                        "launches": totals}))
+        if not (totals["elemred"] and totals["segred"]):
+            raise Fail("compile_path launched no elemred or no segred")
         log(f"total {time.perf_counter() - t_all:.1f} s")
         print(card, flush=True)
         return 0

@@ -20,7 +20,12 @@ creation op takes ``distribution=``, ``reshard`` changes a layout in
 stages, and a flush over operands of different layouts aligns them.
 Seeded draws (``random``), file I/O (``load``/``save`` and friends) and
 atomic, digest-verified ``checkpoint``s sit on the resilience plane's
-fault injection and retries (``resilience``).
+fault injection and retries (``resilience``).  A long program runs in
+segments; ``RAMBA_COMPILE_CLASSES`` buckets elementwise shapes,
+``RAMBA_CACHE`` keeps built kernel libraries for the next process
+(``compile``), ``RAMBA_AUTOTUNE=race`` picks each program's
+lowering by measurement, and the cost ledger (``observe.ledger``) files
+what every program cost.
 
 ``numpy.<fn>`` of port arrays runs the port's function where the port has
 one (``core/interop.py``'s registry, filled below) and raises
@@ -115,6 +120,9 @@ from ramba_tpu_torch.parallel.reshard import reshard  # noqa: F401
 from ramba_tpu_torch.parallel.constraints import (  # noqa: F401
     Constraint, add_constraint, clear_constraints, get_constraints,
 )
+
+# RAMBA_CACHE: arm the persistent kernel cache and record whether it armed
+common.setup_persistent_cache()
 
 # -- NumPy's namespace constants and dtypes --------------------------------------
 newaxis = None

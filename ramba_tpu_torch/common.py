@@ -13,8 +13,12 @@ turns silently into a CPU run.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
+
+_FALSY = ("0", "", "false", "False", "FALSE", "no", "NO", "off", "OFF")
+_TRUTHY = ("1", "true", "True", "TRUE", "yes", "YES", "on", "ON")
 
 
 def _env_flag(name: str, default: bool = False) -> bool:
@@ -58,6 +62,12 @@ def parse_bytes(s) -> int:
 
 # Max pending lazy ops before a forced flush (bounds host-side graph memory).
 max_pending_ops = _env_int("RAMBA_TPU_MAX_PENDING", 10_000)
+
+# Max instructions per fused program.  A flush whose program is longer runs
+# segment by segment inside the flush (``fuser._run_segmented``), each
+# segment at most this many instructions, as in ramba_tpu; 0 turns
+# segmentation off (RAMBA_TPU_MAX_PROGRAM_INSTRS).
+max_program_instrs = _env_int("RAMBA_TPU_MAX_PROGRAM_INSTRS", 384)
 
 # Pattern rewrites of the lazy graph at every flush (core/rewrite.py); on
 # by default, as in ramba_tpu (RAMBA_TPU_REWRITE=0 turns them off).
@@ -118,3 +128,69 @@ def device() -> torch.device:
         "for the CPU explicitly with ramba_tpu_torch.common.set_device('cpu') "
         "or RAMBA_TORCH_DEVICE=cpu."
     )
+
+
+# ---------------------------------------------------------------------------
+# the persistent kernel cache (RAMBA_CACHE)
+# ---------------------------------------------------------------------------
+
+# RAMBA_CACHE=1 for the default directory or RAMBA_CACHE=/some/dir: built
+# kernel libraries survive into the next process
+# (``compile/persist.py``), as ramba_tpu keeps its executables there.
+cache_env = os.environ.get("RAMBA_CACHE")
+
+
+class CacheStatus(NamedTuple):
+    """Result of :func:`setup_persistent_cache`: a failed init is a state
+    the caller can report, not a silent no-op."""
+
+    path: "str | None"   # resolved cache directory (None: disabled)
+    ok: bool             # every init step succeeded (True when disabled)
+    error: "str | None"  # the first failure, when ok is False
+
+    @property
+    def enabled(self) -> bool:
+        return self.path is not None
+
+
+def persistent_cache_path() -> "str | None":
+    """The RAMBA_CACHE directory (None when disabled), read from the live
+    environment so a runtime toggle takes effect.  ``RAMBA_CACHE=1``
+    means ``~/.ramba_tpu_torch_cache``, a directory of the port's own."""
+    env = os.environ.get("RAMBA_CACHE", cache_env)
+    if not env or env in _FALSY:
+        return None
+    if env in _TRUTHY:
+        return os.path.expanduser("~/.ramba_tpu_torch_cache")
+    return os.path.expanduser(env)
+
+
+def setup_persistent_cache() -> CacheStatus:
+    """Arm the persistent kernel cache if RAMBA_CACHE is set: kernel
+    libraries build into ``<dir>/kernels/``
+    (``compile.persist.reconfigure``).  Emits a ``compile.persist_init``
+    event when the cache is enabled."""
+    path = persistent_cache_path()
+    if path is None:
+        from ramba_tpu_torch.compile import persist
+
+        persist.reconfigure()
+        return CacheStatus(None, True, None)
+    error = None
+    try:
+        os.makedirs(path, exist_ok=True)
+        from ramba_tpu_torch.compile import persist
+
+        persist.reconfigure()
+        error = persist.snapshot()["init_error"]
+    except Exception as e:  # noqa: BLE001 — a bad dir must not kill import
+        error = f"{type(e).__name__}: {e}"
+    status = CacheStatus(path, error is None, error)
+    try:
+        from ramba_tpu_torch.observe import events
+
+        events.emit({"type": "compile.persist_init", "path": status.path,
+                     "ok": status.ok, "error": status.error})
+    except Exception:  # noqa: BLE001 — observability must not break init
+        pass
+    return status

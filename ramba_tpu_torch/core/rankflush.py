@@ -584,7 +584,7 @@ def _execute(program, leaf_vals):
 
     pins = memory.ledger.pin_values(leaf_vals)
     try:
-        return fuser._get_compiled(program, leaf_vals)(*leaf_vals)
+        return fuser.run_program(program, leaf_vals)
     finally:
         memory.ledger.unpin(pins)
         for hook in fuser.after_flush:

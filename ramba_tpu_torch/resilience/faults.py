@@ -44,8 +44,13 @@ Single-process, ``rank=0`` fires and any other rank disarms the spec.
 The sites the port checks are ``fileio`` (every read and write of
 ``fileio.py``), ``checkpoint_io`` (every checkpoint save and restore
 attempt), ``checkpoint:leaf`` (the flip seam of the checkpoint digest
-verification), and ``reshard:plan`` and ``reshard:stage`` (before a
-reshard's first stage and before every stage, ``parallel/reshard.py``).  Site names may themselves contain colons: the site/mode
+verification), ``reshard:plan`` and ``reshard:stage`` (before a
+reshard's first stage and before every stage, ``parallel/reshard.py``),
+and the compile pipeline's: ``compile`` (before a fresh compile in the
+fuser), ``execute`` (before every program call; ``delay:ms=`` here makes
+a slow flush), ``compile:bucket`` (forges a compile-class plan that skips
+its op-safety proof) and ``aot:blob`` (the flip seam of a kernel
+library's digest check).  Site names may themselves contain colons: the site/mode
 boundary in a spec is the FIRST ``:``-separated field that parses as a
 mode token.  The ``oom`` site (or a trailing ``:oom`` kind) raises
 :class:`InjectedResourceExhausted`, whose message carries the

@@ -1309,3 +1309,79 @@ def test_one_rank_nccl_group(tmp_path):
     a = rt.arange(1 << 20) * 0.001
     rt.sync()  # materialised, as on the rank: both sums on elemred
     assert info["sum"] == float(rt.sum((a + 1.0) * (a + 0.5)))
+
+
+def test_a_bucketed_elemred_launch_equals_the_exact_one(monkeypatch):
+    """Under pow2 a 1-D elementwise program runs elemred at its own
+    length (the kernels' programs are not bucketed); made to bucket
+    (``fuser._kernel_takes`` patched), it launches once at the bucket
+    length, its leaf zero-padded, and the stripped result is the exact
+    launch's bytes."""
+    from ramba_tpu_torch.compile import classes
+    from ramba_tpu_torch.core import fuser
+
+    xn = np.random.default_rng(21).standard_normal(N).astype(np.float32)
+    outs = {}
+    for policy, bucket in (("off", False), ("pow2", False), ("pow2", True)):
+        monkeypatch.setenv("RAMBA_COMPILE_CLASSES", policy)
+        classes.reset()
+        if bucket:
+            monkeypatch.setattr(fuser, "_kernel_takes", lambda *a: False)
+        x = rt.fromarray(xn)
+        p0, e0 = classes.snapshot()["padded"], elemred.launches
+        y = (x * 2.0 + 1.0)._value()
+        assert elemred.launches == e0 + 1
+        assert classes.snapshot()["padded"] == p0 + bucket
+        outs[policy, bucket] = y
+    monkeypatch.delenv("RAMBA_COMPILE_CLASSES")
+    classes.reset()
+    for key in (("pow2", False), ("pow2", True)):
+        assert outs[key].shape == (N,) and outs[key].is_cuda
+        assert torch.equal(outs[key].view(torch.int32),
+                           outs["off", False].view(torch.int32))
+
+
+def test_a_library_loaded_from_the_cache_needs_no_nvcc(tmp_path):
+    """A library built into ``<RAMBA_CACHE>/kernels/`` by one process
+    loads in the next without a build (digest checked first); a library
+    with a flipped byte is evicted and built again, never loaded."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, json, numpy as np, ramba_tpu_torch as rt;"
+        "from ramba_tpu_torch import _build;"
+        "from ramba_tpu_torch.compile import persist;"
+        "rt.set_device('cuda:0');"
+        "x = rt.fromarray(np.arange(70000.0) / 3.0);"
+        "v = float(rt.sum(x * 1.25 - 0.5));"
+        "print(json.dumps({'builds': _build.nvcc_builds,"
+        " 'loads': _build.disk_loads, 'v': v,"
+        " 'corrupt': persist.snapshot()['corrupt'],"
+        " 'hits': persist.snapshot()['hits'],"
+        " 'dir': _build.build_dir()}))")
+    env = dict(os.environ, RAMBA_CACHE=str(tmp_path / "c"))
+    runs = []
+    for _ in range(2):
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, timeout=600, env=env)
+        assert r.returncode == 0, r.stderr[-2000:]
+        runs.append(json.loads(r.stdout.strip().splitlines()[-1]))
+    assert runs[0]["dir"] == str(tmp_path / "c" / "kernels")
+    assert runs[0]["builds"] >= 1
+    assert runs[1]["builds"] == 0 and runs[1]["loads"] >= 1
+    assert runs[1]["hits"] == runs[1]["loads"] and runs[0]["hits"] == 0
+    assert runs[1]["v"] == runs[0]["v"]
+    so = [f for f in (tmp_path / "c" / "kernels").iterdir()
+          if f.name.endswith(".so")]
+    raw = bytearray(so[0].read_bytes())
+    raw[len(raw) // 2] ^= 0xFF
+    so[0].write_bytes(bytes(raw))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=600, env=env)
+    assert r.returncode == 0, r.stderr[-2000:]
+    third = json.loads(r.stdout.strip().splitlines()[-1])
+    assert third["corrupt"] >= 1 and third["builds"] >= 1
+    assert third["v"] == runs[0]["v"]

@@ -9,7 +9,9 @@ each with its rank, over a gloo group formed through a ``file://`` store:
 and writes each rank's results (``OUTDIR/rank<r>.npz``) and counters
 (``OUTDIR/rank<r>.json``); ``fail`` makes rank 1 raise, once inside a
 flush and once outside any collective, and records how rank 0 learned of
-it.  On the card (``tests/test_torch_cuda.py``), ``card`` runs star2
+it; ``compile`` races the backends of one program on every rank (rank 1's
+evidence skewed the other way) and buckets another, and records each
+rank's latched decisions and class decisions.  On the card (``tests/test_torch_cuda.py``), ``card`` runs star2
 through the CUDA stencil kernel on each rank's block and ``nccl`` one
 rank's collectives over NCCL.  :func:`programs` takes the package as an argument, so the test runs
 the same programs through ``ramba_tpu`` for the reference.
@@ -368,6 +370,44 @@ def _fail(rt, rank, outdir):
         json.dump(seen, f)
 
 
+def _compile(rt, rank, outdir):
+    """The race and the compile classes across ranks: every rank must
+    latch rank 0's winner, even where its own samples say otherwise, and
+    make the same class decisions."""
+    from ramba_tpu_torch.compile import classes
+    from ramba_tpu_torch.core import autotune
+    from ramba_tpu_torch.observe import ledger
+    from ramba_tpu_torch.resilience import coherence
+
+    autotune.reconfigure(mode="race", k=2)
+    classes.reset()
+    # rank 0's evidence: the kernel wins; rank 1's: it loses by far
+    real = ledger.backend_stats
+
+    def skewed(fp):
+        st = real(fp)
+        if "kernel" in st:
+            st["kernel"]["p50_s"] = 1e-9 if rank == 0 else 1e9
+        return st
+
+    ledger.backend_stats = skewed
+    x = rt.fromarray(np.arange(1000.0))
+    sums = [float(rt.sum(x * 2.0 + 1.0)) for _ in range(8)]
+    # int16: the generic lowering's program, which buckets (a float one
+    # is the kernels' and runs exact shapes)
+    y = rt.fromarray(np.arange(200, dtype=np.int16))
+    z = np.asarray(y * 3 - 1)
+    info = {"decisions": {fp: d["backend"] for fp, d in
+                          autotune.report()["decisions"].items()},
+            "classes": {fp: None if t is None else list(t)
+                        for fp, t in classes.decisions().items()},
+            "rounds": coherence.last_epoch("autotune:winner"),
+            "sums": sums}
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), z=z)
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+
+
 CARD_GRID = (1024, 1024)
 CARD_SERIES = (1 << 20) + 37
 SEG_KINDS = ("sum", "min", "max", "count")
@@ -463,8 +503,8 @@ def main(argv) -> int:
                            backend="nccl" if mode == "nccl" else None)
     if world == 1:  # one rank: a mesh of ranks all the same
         rt.set_mesh(distributed.global_mesh())
-    {"main": _main, "fail": _fail, "card": _card,
-     "nccl": _nccl}[mode](rt, rank, outdir)
+    {"main": _main, "fail": _fail, "card": _card, "nccl": _nccl,
+     "compile": _compile}[mode](rt, rank, outdir)
     distributed.shutdown()
     return 0
 
