@@ -7,6 +7,7 @@
     python3 chip_smoke.py --dist     # phase 1 and the path across processes
     python3 chip_smoke.py --layout   # phase 1 and layouts across processes
     python3 chip_smoke.py --compile  # phase 1 and the compile pipeline
+    python3 chip_smoke.py --analyze  # phase 1 and the analyzer, memo, certs
 
 Phases, each reported on its own line:
 
@@ -149,7 +150,18 @@ Phases, each reported on its own line:
    2^28 float64 and the hourly groupby sum, every sample held against
    the plain version, both p50s (CUDA events) and the latched winner,
    then a third process (``--compile-child race2``) on the written table
-   that races nothing and launches the latched backends.  Every kernel's
+   that races nothing and launches the latched backends; then the static
+   analyzer, the result memo and plan certificates (``analyze_path``,
+   alone with ``--analyze``): the main path's elemred, stencil (both load
+   paths, and on the 2x2 mesh of shards) and segred programs under
+   ``RAMBA_VERIFY=strict`` byte-equal to verify unset with the same
+   launches, ``RAMBA_MEMO=1`` (9 hits and 1 launch over the same buffers,
+   misses over fresh ones, after in-place writes and for a new seed, a
+   2 GiB result not retained, a spilled entry restored), 200 repeat
+   flushes under verify off, strict and strict with ``RAMBA_PLANCERT=1``
+   (199 certificate hits, prepare-plus-verify host time per flush), the
+   offline linter over the path's trace, and the forged faults
+   (``compile:bucket``, ``memo:insert``, ``plan:stale``).  Every kernel's
    launch count is set to 0 just before each path and read just after; a
    path that does not launch its kernel fails the run;
 4. a ``kernels`` JSON line, the card's name and power limit, and the last
@@ -1696,6 +1708,13 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
           totals)
     if totals["elemred"] == e0 or totals["segred"] == g0:
         raise Fail("compile_path launched no elemred or no segred")
+    log("  analyze_path: the verifier, the result memo and plan certificates")
+    before = dict(totals)
+    timed("analyze_path", analyze_path, rt, er, sk, sg, sc, torch, np, card,
+          window)
+    for k in ("elemred", "stencil", "segred"):
+        if totals[k] == before[k]:
+            raise Fail(f"analyze_path launched no {k}")
     log(f"  phase 3 walls by path (s): {json.dumps(walls)} [{card}]")
     return totals, sharded, dist
 
@@ -5109,6 +5128,578 @@ def compile_path(rt, er, sg, torch, np, card, window, totals):
     return out
 
 
+ANALYZE_N = 1 << 28               # the elementwise programs and the series
+ANALYZE_SEG_N = 1 << 27           # the 1000-instruction chain
+ANALYZE_GRID = 8192               # star2, float32 (TMA)
+ANALYZE_ODD = (4099, 4133)        # star2, float32 (cp.async)
+ANALYZE_SWEEPS = ((30, 100), (10, 20))  # (chained, iterate) per grid
+ANALYZE_MESH_SWEEPS = (10, 20)    # on the 2x2 mesh of shards
+ANALYZE_REPEATS = 200             # repeat flushes under each setting
+ANALYZE_SMALL_N = 1 << 20         # the host-bound elementwise program
+ANALYZE_DRAW_N = 1 << 24          # the seeded draws, float64
+ANALYZE_SPILL_N = 1 << 24         # the cached entry the governor spills
+ANALYZE_SWITCHES = ("RAMBA_VERIFY", "RAMBA_VERIFY_RULES", "RAMBA_VERIFY_SKIP",
+                    "RAMBA_MEMO", "RAMBA_MEMO_BUDGET", "RAMBA_PLANCERT",
+                    "RAMBA_COMPILE_CLASSES")
+
+
+class _Env:
+    """Set the analysis switches for a block (None: unset), and restore
+    them after it."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        import os
+
+        self.saved = {k: os.environ.get(k) for k in ANALYZE_SWITCHES}
+        for k in ANALYZE_SWITCHES:
+            v = self.values.get(k)
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _launch_counts(er, sk, sg, sc):
+    return {"elemred": er.launches, "stencil": sk.launches,
+            "segred": sg.launches, "scan": sc.launches}
+
+
+def _p(vals, q):
+    import statistics
+
+    if not vals:
+        return None
+    if q == 50:
+        return statistics.median(vals)
+    s = sorted(vals)
+    return s[min(len(s) - 1, int(round(q / 100 * (len(s) - 1))))]
+
+
+def analyze_programs(rt, torch, np, star2, seg_chain_fn):
+    """The verified main path: (name, run) pairs; ``run()`` returns the
+    program's results as card tensors."""
+    from ramba_tpu_torch import common
+    from ramba_tpu_torch.parallel import mesh as pm
+
+    n = ANALYZE_N
+    base = rt.arange(n) / 1000.0
+    x = rt.sin(rt.arange(n) * 1e-3)
+    y = rt.cos(rt.arange(n) * 1e-3)
+    rt.sync()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    grids = {shape: rt.fromarray(torch.rand(shape, generator=gen,
+                                            device="cuda"))
+             for shape in ((ANALYZE_GRID, ANALYZE_GRID), ANALYZE_ODD)}
+    x_t, hour = hourly_series(torch, np, n, seed=3)
+    g = rt.fromarray(x_t).groupby(0, hour, num_groups=24)
+    del x_t
+    seg_base = rt.arange(ANALYZE_SEG_N) / 3.0
+    rt.sync()
+
+    def chain():
+        B = rt.sin(base)
+        C = rt.cos(base)
+        D = B * B + C * C
+        del B, C
+        s = rt.sum(D)
+        return [D._value(), s._value()]
+
+    def axpy():
+        z = 2.5 * x + y
+        s = rt.sum(z)
+        return [z._value(), s._value()]
+
+    def stencil(shape, chained, iters):
+        def run():
+            a = grids[shape]
+            for _ in range(chained):
+                a = rt.sstencil(star2, a)
+            return [a._value(),
+                    rt.sstencil_iterate(star2, grids[shape], iters)._value()]
+        return run
+
+    def groupby():
+        out = []
+        for kind in ("sum", "min", "max", "count"):
+            out.append(getattr(g, kind)()._value())  # one flush each
+        return out
+
+    def segments():
+        old = common.max_program_instrs
+        common.max_program_instrs = 64
+        try:
+            return [seg_chain_fn(seg_base)._value()]
+        finally:
+            common.max_program_instrs = old
+
+    def on_mesh():
+        one = pm.get_mesh()
+        grid = pm.Mesh(np.array([common.device()] * 4,
+                                dtype=object).reshape(2, 2), ("d0", "d1"))
+        chained, iters = ANALYZE_MESH_SWEEPS
+        pm.set_mesh(grid)
+        try:
+            a = grids[(ANALYZE_GRID, ANALYZE_GRID)]
+            for _ in range(chained):
+                a = rt.sstencil(star2, a)
+            return [a._value(), rt.sstencil_iterate(
+                star2, grids[(ANALYZE_GRID, ANALYZE_GRID)], iters)._value()]
+        finally:
+            pm.set_mesh(one)
+
+    (c1, i1), (c2, i2) = ANALYZE_SWEEPS
+    progs = [
+        ("sin/cos chain over base n=2^28 f64", chain),
+        ("axpy + sum n=2^28 f64", axpy),
+        (f"star2 {ANALYZE_GRID}^2 f32 {c1} sstencil + {i1} iterate",
+         stencil((ANALYZE_GRID, ANALYZE_GRID), c1, i1)),
+        (f"star2 {ANALYZE_ODD[0]}x{ANALYZE_ODD[1]} f32 {c2} sstencil + {i2} "
+         "iterate", stencil(ANALYZE_ODD, c2, i2)),
+        ("groupby hourly sum/min/max/count n=2^28 f64 G=24", groupby),
+        ("500 x (y * a + b) n=2^27 f64 at segment size 64", segments),
+        (f"star2 {ANALYZE_GRID}^2 on the 2x2 mesh of shards "
+         f"{ANALYZE_MESH_SWEEPS[0]} sstencil + {ANALYZE_MESH_SWEEPS[1]} "
+         "iterate", on_mesh),
+    ]
+    return progs, (base, x, y, grids, g, seg_base)
+
+
+def analyze_verified(rt, er, sk, sg, sc, torch, np, card, window, star2):
+    """(1) The main path with RAMBA_VERIFY unset and strict: no error
+    finding, the same bytes, the same launches; the verify stage's host
+    time per flush."""
+    from ramba_tpu_torch.observe import events, registry
+
+    progs, keep = analyze_programs(rt, torch, np, star2, seg_chain)
+    stages = []
+
+    def tap(ev):
+        if ev.get("type") == "flush" and "verify" in ev.get("stages", {}):
+            stages.append(ev["stages"]["verify"])
+
+    out = {}
+    events.add_tap(tap)
+    try:
+        for name, run in progs:
+            with _Env():
+                plain = window(f"{name} (verify unset)", run, {})
+                want = _launch_counts(er, sk, sg, sc)
+            e0 = registry.get("analyze.findings.error")
+            del stages[:]
+            with _Env(RAMBA_VERIFY="strict"):
+                got = window(f"{name} (RAMBA_VERIFY=strict)", run, want)
+            if registry.get("analyze.findings.error") != e0:
+                raise Fail(f"{name}: error findings under strict")
+            if len(got) != len(plain) or not all(
+                    bytes_equal(a, b) for a, b in zip(got, plain)):
+                raise Fail(f"{name}: strict's bytes differ from verify "
+                           "unset's")
+            p50 = 1e6 * _p(stages, 50)
+            log(f"  analyze_path verified {name}: byte-equal to verify "
+                f"unset, launches {want} under both, {len(stages)} verified "
+                f"flushes, verify stage p50 {p50:.1f} us/flush [{card}]")
+            out[name] = {"launches": want, "flushes": len(stages),
+                         "verify_p50_us": p50}
+            del plain, got
+    finally:
+        events.remove_tap(tap)
+    del keep
+    torch.cuda.empty_cache()
+    return out
+
+
+def analyze_memo(rt, torch, card, window):
+    """(2) RAMBA_MEMO=1: hits over the same buffers, misses over fresh
+    ones, after an in-place write (directly and through a view), for a new
+    seed; a result over the budget is not retained; a spilled entry
+    restores byte-equal."""
+    from ramba_tpu_torch.core import memo
+    from ramba_tpu_torch.resilience import memory
+
+    n = ANALYZE_N
+    out = {}
+    x_t = torch.sin(torch.arange(n, device="cuda", dtype=torch.float64)
+                    * 1e-3)
+    y_t = torch.cos(torch.arange(n, device="cuda", dtype=torch.float64)
+                    * 1e-3)
+    x, y = rt.fromarray(x_t), rt.fromarray(y_t)
+    with _Env(RAMBA_MEMO="1"):
+        walls = []
+
+        def ten_same():
+            vals = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                vals.append(rt.sum(2.5 * x + y)._value())
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            return vals
+
+        h0, m0 = memo.cache.hits, memo.cache.misses
+        vals = window("memo: ten axpy + sum over the same buffers", ten_same,
+                      {"elemred": 1})
+        hits = memo.cache.hits - h0
+        if hits != 9 or not all(bytes_equal(v, vals[0]) for v in vals):
+            raise Fail(f"memo: {hits} hits of 9 over the same buffers")
+        out["same"] = {"hits": hits, "misses": memo.cache.misses - m0,
+                       "launch_wall_s": walls[0],
+                       "hit_wall_s": _p(walls[1:], 50)}
+
+        def ten_fresh():
+            res = []
+            for _ in range(10):
+                xf = rt.fromarray(x_t.clone())
+                res.append(rt.sum(2.5 * xf + y)._value())
+                del xf
+            return res
+
+        h0 = memo.cache.hits
+        fresh = window("memo: ten axpy + sum over fresh buffers", ten_fresh,
+                       {"elemred": 10})
+        if memo.cache.hits != h0 or not all(bytes_equal(v, vals[0])
+                                            for v in fresh):
+            raise Fail("memo: a fresh buffer hit, or its value differs")
+        log(f"  analyze_path memo: same buffers {hits} hits, "
+            f"{out['same']['misses']} miss, 1 launch "
+            f"(launch {1e3 * walls[0]:.3f} ms, hit p50 "
+            f"{1e6 * out['same']['hit_wall_s']:.1f} us wall), fresh buffers "
+            f"10 launches, 0 hits [{card}]")
+
+        # an adopted tensor written in place, directly and through a view
+        t = torch.arange(n, device="cuda", dtype=torch.float64)
+        a = rt.fromarray(t)
+        if a._expr.value is not t:
+            raise Fail("fromarray copied a tensor it should adopt")
+
+        def mutations():
+            res = []
+            for step in ("first", "again", "add_", "view mul_"):
+                if step == "add_":
+                    t.add_(1)
+                elif step == "view mul_":
+                    t[:1024].mul_(2)
+                h = memo.cache.hits
+                got = rt.sum(2.5 * a + y)._value()
+                want = (2.5 * t + y_t).sum()
+                res.append((step, memo.cache.hits - h, got, want))
+            return res
+
+        res = window("memo: an adopted tensor written in place", mutations,
+                     {"elemred": 3})
+        for step, hit, got, want in res:
+            if hit != (1 if step == "again" else 0):
+                raise Fail(f"memo: {step}: {hit} hits")
+            check_close(f"memo: sum(2.5 * t + y) after {step}", got, want,
+                        ANALYZE_N * EPS["float64"], "two sums of 2^28 "
+                        "float64 in different orders")
+        log(f"  analyze_path memo: in-place add_ and a view's mul_ each "
+            f"missed and gave the new value [{card}]")
+        del a, t
+
+        # the same seeded draw hits, a new seed misses
+        def draw(seed):
+            rt.random.seed(seed)
+            return (rt.random.normal(size=(ANALYZE_DRAW_N,)) * 1.0)._value()
+
+        h0 = memo.cache.hits
+        d1, d2, d3 = draw(5), draw(5), draw(6)
+        if memo.cache.hits - h0 != 1 or not bytes_equal(d1, d2) \
+                or bytes_equal(d1, d3):
+            raise Fail("memo: the seeded draw's hits are wrong")
+        del d1, d2, d3
+
+        # a 2 GiB result under the default 256m budget
+        o0 = memo.cache.oversize
+        big = (x * x)._value()
+        if memo.cache.oversize != o0 + 1:
+            raise Fail("memo: a 2 GiB result was retained under 256m")
+        del big
+
+        # a cached entry the governor spilled restores byte-equal
+        s_t = torch.rand(ANALYZE_SPILL_N, device="cuda", dtype=torch.float64)
+        s = rt.fromarray(s_t)
+        first = (s * s)._value().clone()
+        entry = list(memo.cache._entries.values())[-1]
+        val = entry.consts[0].value
+        with memory.ledger._lock:
+            led = memory.ledger.entries[memory._key(val)]
+            freed = memory.ledger._spill_entry(led)
+        del val
+        if not freed:
+            raise Fail("memo: the governor did not spill the cached entry")
+        r0, h0 = memory.ledger.restores, memo.cache.hits
+        again = (s * s)._value()
+        if memo.cache.hits != h0 + 1 or memory.ledger.restores != r0 + 1 \
+                or not bytes_equal(first, again):
+            raise Fail("memo: the spilled entry did not restore byte-equal "
+                       "on a hit")
+        out["spill_restored"] = True
+        out["oversize"] = memo.cache.oversize
+        log(f"  analyze_path memo: seeded draw hit, new seed missed; a 2 GiB "
+            f"result not retained (oversize {memo.cache.oversize}); a "
+            f"spilled entry ({freed} B) restored byte-equal on its hit; "
+            f"totals {json.dumps(memo.cache.snapshot())} [{card}]")
+        del s, s_t, first, again
+    memo.cache.clear()  # the counters stay: the linter's check reads them
+    del x, y, x_t, y_t
+    torch.cuda.empty_cache()
+    return out
+
+
+def analyze_certs(rt, torch, card, window, star2, traced):
+    """(3) 200 repeat flushes of a star2 sstencil on 8192^2 and of a small
+    elementwise program on 2^20 f32 under three settings: verify off,
+    strict, strict with certificates; the prepare-plus-verify host time
+    per flush (``traced``: under RAMBA_TRACE, whose program events every
+    setting pays)."""
+    from ramba_tpu_torch.core import fuser, plancache
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    grid = rt.fromarray(torch.rand((ANALYZE_GRID, ANALYZE_GRID),
+                                   generator=gen, device="cuda"))
+    small = rt.fromarray(torch.rand(ANALYZE_SMALL_N, generator=gen,
+                                    device="cuda"))
+    progs = (("star2 8192^2 f32 sstencil",
+              lambda: rt.sstencil(star2, grid), "stencil"),
+             ("x * 2 + 1 n=2^20 f32", lambda: small * 2.0 + 1.0, "elemred"))
+    settings = (("off", {}), ("strict", {"RAMBA_VERIFY": "strict"}),
+                ("strict+certs", {"RAMBA_VERIFY": "strict",
+                                  "RAMBA_PLANCERT": "1"}))
+    times = []
+    real = fuser._prepare
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        r = real(*a, **k)
+        times.append(time.perf_counter() - t0)
+        return r
+
+    out = {"cert_hits": 0}
+    fuser._prepare = timed
+    try:
+        for name, build, kernel in progs:
+            res = {}
+            for setting, env in settings:
+                plancache.reset()
+                with _Env(**env):
+                    build()._value()  # the first flush: misses, certifies
+                    del times[:]
+
+                    def repeats():
+                        v = None
+                        for _ in range(ANALYZE_REPEATS - 1):
+                            v = build()._value()
+                        torch.cuda.synchronize()
+                        return v
+
+                    v = window(f"{name}: {ANALYZE_REPEATS - 1} repeat "
+                               f"flushes ({setting})", repeats,
+                               {kernel: ANALYZE_REPEATS - 1})
+                hits = plancache.snapshot().get("hits", 0)
+                out["cert_hits"] += hits
+                if setting == "strict+certs" and \
+                        hits != ANALYZE_REPEATS - 1:
+                    raise Fail(f"{name}: {hits} certificate hits of "
+                               f"{ANALYZE_REPEATS - 1}")
+                res[setting] = {"p50_us": 1e6 * _p(times, 50),
+                                "p95_us": 1e6 * _p(times, 95),
+                                "cert_hits": hits, "value": v}
+            for setting in ("strict", "strict+certs"):
+                if not bytes_equal(res[setting]["value"], res["off"]["value"]):
+                    raise Fail(f"{name}: {setting}'s bytes differ from off")
+            for r in res.values():
+                del r["value"]
+            log(f"  analyze_path certificates {name} ("
+                f"{'traced' if traced else 'untraced'}): prepare+verify "
+                f"host us per flush (p50/p95) " + ", ".join(
+                    f"{k} {r['p50_us']:.1f}/{r['p95_us']:.1f}"
+                    for k, r in res.items())
+                + f"; {res['strict+certs']['cert_hits']} certificate hits; "
+                "byte-equal across the three [" + card + "]")
+            out[name] = res
+    finally:
+        fuser._prepare = real
+    plancache.reset()
+    del grid, small
+    torch.cuda.empty_cache()
+    return out
+
+
+def analyze_forged(rt, torch, card, window):
+    """(4) The forged faults: compile:bucket under strict raises from
+    compile-class before any launch; memo:insert from memo-safety;
+    plan:stale raises under strict and re-analyzes under warn."""
+    from ramba_tpu_torch.analyze.findings import ProgramVerificationError
+    from ramba_tpu_torch.compile import classes
+    from ramba_tpu_torch.core import fuser, plancache
+    from ramba_tpu_torch.core.expr import Node
+    from ramba_tpu_torch.parallel import mesh as pm
+    from ramba_tpu_torch.resilience import faults
+
+    out = {}
+    zero = dict.fromkeys(("elemred", "stencil", "segred", "scan"), 0)
+    v = rt.fromarray(torch.rand(1 << 20, device="cuda"))
+
+    def expect(what, rule, fn):
+        try:
+            fn()
+        except ProgramVerificationError as e:
+            rules = sorted({f.rule for f in e.findings})
+            if rule not in rules:
+                raise Fail(f"{what}: raised from {rules}, not {rule}")
+            return rules
+        raise Fail(f"{what}: no ProgramVerificationError")
+
+    with _Env(RAMBA_VERIFY="strict", RAMBA_COMPILE_CLASSES="pow2"):
+        classes.reset()
+        c0 = fuser.stats["compiles"]
+
+        def forged_bucket():
+            y = rt.sort(v) * 2.0  # the generic lowering's program
+            with faults.active("compile:bucket:always"):
+                return expect("compile:bucket", "compile-class",
+                              lambda: y._value())
+
+        try:
+            out["compile:bucket"] = window(
+                "forged compile:bucket under strict", forged_bucket, zero)
+        finally:
+            classes.reset()
+    classes.reset()
+    if fuser.stats["compiles"] != c0:
+        raise Fail("compile:bucket: a program was lowered before the raise")
+    with _Env(RAMBA_VERIFY="strict", RAMBA_MEMO="1"):
+        sh = pm.NamedSharding(pm.get_mesh(), pm.P())
+
+        def forged_memo():
+            with faults.active("memo:insert:always"):
+                return expect("memo:insert", "memo-safety", lambda: fuser.flush(
+                    extra=[Node("shard_hint", (sh,), [v._expr])]))
+
+        out["memo:insert"] = window("forged memo:insert under strict",
+                                    forged_memo, zero)
+    for mode in ("strict", "warn"):
+        plancache.reset()
+        with _Env(RAMBA_VERIFY=mode, RAMBA_PLANCERT="1"):
+            want = (v * 2.0 + 1.0)._value()
+            with faults.active("plan:stale:always"):
+                if mode == "strict":
+                    out["plan:stale"] = expect(
+                        "plan:stale", "plan-stale",
+                        lambda: (v * 2.0 + 1.0)._value())
+                else:
+                    got = (v * 2.0 + 1.0)._value()
+                    if not bytes_equal(got, want):
+                        raise Fail("plan:stale under warn: the re-analysis "
+                                   "gave other bytes")
+            snap = plancache.snapshot()
+            if snap.get("forged_stale", 0) != 1:
+                raise Fail(f"plan:stale under {mode}: {snap}")
+    plancache.reset()
+    fuser.flush()
+    log(f"  analyze_path forged faults: {json.dumps(out)}; plan:stale under "
+        f"warn re-analyzed to the same bytes [{card}]")
+    del v
+    return out
+
+
+def analyze_lint(trace, live):
+    """(5) ``python -m ramba_tpu_torch.analyze`` over the path's trace:
+    ``--strict`` exits 0, the audits' hit counts equal the live
+    counters."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "ramba_tpu_torch.analyze", trace]
+    res = {}
+    for flag in ("--strict", "--memo-audit", "--plan-audit"):
+        args = cmd + [flag] + (["--json"] if flag != "--strict" else [])
+        p = subprocess.run(args, capture_output=True, text=True, cwd=here,
+                           timeout=300)
+        if p.returncode != 0:
+            raise Fail(f"ramba-lint {flag} exited {p.returncode}: "
+                       f"{p.stderr[-2000:]}")
+        res[flag] = p.stdout
+    memo_rec = json.loads(res["--memo-audit"].strip().splitlines()[-1])
+    plan_rec = json.loads(res["--plan-audit"].strip().splitlines()[-1])
+    if memo_rec["live_hits"] != live["memo_hits"]:
+        raise Fail(f"--memo-audit counts {memo_rec['live_hits']} hits, the "
+                   f"live memo {live['memo_hits']}")
+    if plan_rec["live_hits"] != live["cert_hits"]:
+        raise Fail(f"--plan-audit counts {plan_rec['live_hits']} hits, the "
+                   f"live plan cache {live['cert_hits']}")
+    if plan_rec["proof_broken"]:
+        raise Fail(f"--plan-audit: proofs broken {plan_rec['proof_broken']}")
+    log(f"  analyze_path lint: --strict exit 0 over "
+        f"{memo_rec['programs']} programs; --memo-audit live hits "
+        f"{memo_rec['live_hits']} (would-be {memo_rec['would_hits']}), "
+        f"--plan-audit live hits {plan_rec['live_hits']}, "
+        f"{plan_rec['certificates']} certificates, every proof re-derives")
+    return {"programs": memo_rec["programs"],
+            "memo_live_hits": memo_rec["live_hits"],
+            "plan_live_hits": plan_rec["live_hits"],
+            "certificates": plan_rec["certificates"]}
+
+
+def analyze_path(rt, er, sk, sg, sc, torch, np, card, window):
+    """The static analyzer, the result memo and the plan certificates on
+    the card (ROADMAP A.7 part two), at the main path's sizes: (1) the
+    main path under RAMBA_VERIFY=strict against verify unset, (2) the
+    memo, (3) 200 repeat flushes under three settings, (5) the offline
+    linter over the trace of (1)-(3), then (3) again untraced, and (4)
+    the forged faults, left out of the trace (their error findings are
+    the point)."""
+    import os
+    import tempfile
+
+    from ramba_tpu_torch.core import memo, plancache
+    from ramba_tpu_torch.observe import events
+
+    t0 = time.perf_counter()
+    star2 = rt.stencil(star2_body)
+    out = {}
+    memo.reset()
+    plancache.reset()
+    with tempfile.TemporaryDirectory(prefix="ramba_analyze_") as tmp:
+        trace = os.path.join(tmp, "trace.jsonl")
+        events.configure(trace)
+        try:
+            h0 = memo.cache.hits
+            out["verified"] = analyze_verified(rt, er, sk, sg, sc, torch, np,
+                                               card, window, star2)
+            out["memo"] = analyze_memo(rt, torch, card, window)
+            out["certs"] = analyze_certs(rt, torch, card, window, star2,
+                                         traced=True)
+            live = {"memo_hits": memo.cache.hits - h0,
+                    "cert_hits": out["certs"]["cert_hits"]}
+        finally:
+            events.configure(None)
+        out["lint"] = analyze_lint(trace, live)
+    out["certs_untraced"] = analyze_certs(rt, torch, card, window, star2,
+                                          traced=False)
+    out["forged"] = analyze_forged(rt, torch, card, window)
+    memo.reset()
+    plancache.reset()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  analyze_path: {out['wall_s']:.1f} s [{card}]")
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -5159,6 +5750,19 @@ def main(argv) -> int:
                         "launches": totals}))
         if not (totals["elemred"] and totals["segred"]):
             raise Fail("compile_path launched no elemred or no segred")
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        print(card, flush=True)
+        return 0
+    if "--analyze" in argv:  # phase 1 and analyze_path alone
+        totals = dict.fromkeys(("elemred", "stencil", "segred", "scan"), 0)
+        window = launch_window(er, sk, sg, sc, totals, card)
+        out = analyze_path(rt, er, sk, sg, sc, torch, np, card, window)
+        log(json.dumps({"analyze": {k: v for k, v in out.items()
+                                    if k != "verified"},
+                        "launches": totals}, default=str))
+        for k in ("elemred", "stencil", "segred"):
+            if not totals[k]:
+                raise Fail(f"analyze_path launched no {k}")
         log(f"total {time.perf_counter() - t_all:.1f} s")
         print(card, flush=True)
         return 0

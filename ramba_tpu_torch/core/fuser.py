@@ -1,7 +1,7 @@
 """Flush machinery: lazy expression graphs -> one program per flush.
 
-Counterpart of ``ramba_tpu/core/fuser.py`` without its resilience ladder,
-memo, plan-cache, attribution, serving and integrity planes.  A flush
+Counterpart of ``ramba_tpu/core/fuser.py`` without its resilience ladder
+below the split rung, attribution, serving and integrity planes.  A flush
 collects every pending array, applies the graph rewrites
 (``core/rewrite.py``, unless ``RAMBA_TPU_REWRITE=0``), linearizes the graph
 into a buffer-free instruction program, picks a lowering for it and runs it
@@ -36,6 +36,24 @@ The compile pipeline around a program (ROADMAP A.7):
   and every flush builds a span (emitted as a ``flush`` event) that the
   slow-flush sentinel reads.
 
+Between linearization and the run, :func:`_prepare` follows the
+reference's ``_flush_prepare`` (ROADMAP A.7 part two), each step behind
+a switch that is off by default and costs one environment read when
+unset:
+
+* ``RAMBA_PLANCERT`` — a repeat flush whose plan certificate still
+  validates (``core/plancache.py``) skips the class proof, the
+  fingerprint derivation, the memo certification and the verifier;
+* ``RAMBA_MEMO`` — an effect-certified program over the same input
+  versions is served from the result cache (``core/memo.py``): no
+  lowering, no launch;
+* ``RAMBA_VERIFY`` — the static verifier (``analyze/``) checks the
+  program before it is lowered: strict mode raises
+  ``ProgramVerificationError`` (the roots are quarantined), warn mode
+  routes a program with error findings to the split rung
+  (:func:`_run_segmented` at half the cap), the one rung below the fused
+  program the port has.
+
 On a mesh of ranks (several processes) a flush runs through
 ``core/rankflush.py``: on each rank's blocks, or on gathered operands,
 decided before it runs; its programs run through :func:`run_program`.
@@ -45,6 +63,7 @@ from __future__ import annotations
 
 import hashlib
 import itertools
+import os
 import threading
 import time
 import weakref
@@ -67,9 +86,10 @@ from ramba_tpu_torch.resilience.spill import SpilledArray
 # ``segments``: segment runs of programs longer than max_program_instrs.
 # ``quarantined``: roots of failed flushes taken out of the pending registry.
 # ``gathered``: flushes on a mesh of ranks that all-gathered their block
-# leaves to run whole (``core/rankflush.py``).
+# leaves to run whole (``core/rankflush.py``).  ``verify_routed``: flushes
+# RAMBA_VERIFY=warn sent to the split rung.
 stats = {"flushes": 0, "compiles": 0, "nodes_flushed": 0, "segments": 0,
-         "quarantined": 0, "gathered": 0}
+         "quarantined": 0, "gathered": 0, "verify_routed": 0}
 
 # Called with no arguments after every flush (results shared between the
 # nodes of one flush are dropped there).
@@ -195,7 +215,8 @@ class _Program:
     leaf arguments and later slots index prior instruction results.
     """
 
-    __slots__ = ("instrs", "n_leaves", "leaf_kinds", "out_slots", "key")
+    __slots__ = ("instrs", "n_leaves", "leaf_kinds", "out_slots", "key",
+                 "_kh")
 
     def __init__(self, instrs, n_leaves, leaf_kinds, out_slots):
         self.instrs = instrs
@@ -203,6 +224,18 @@ class _Program:
         self.leaf_kinds = leaf_kinds
         self.out_slots = tuple(out_slots)
         self.key = (tuple(instrs), n_leaves, leaf_kinds, self.out_slots)
+        self._kh = None
+
+    @property
+    def key_hash(self) -> int:
+        """``hash(key)``, computed once (-1: the key is unhashable); the
+        plan cache keys on it."""
+        if self._kh is None:
+            try:
+                self._kh = hash(self.key)
+            except TypeError:
+                self._kh = -1
+        return self._kh
 
 
 def _linearize(roots: Sequence[Expr]):
@@ -272,6 +305,19 @@ def prepare_program(exprs: Sequence[Expr]):
     return program, [leaf_value(leaf) for leaf in leaves]
 
 
+def _prepare_program(exprs: Sequence[Expr]):
+    """Rewrite + linearize, as a flush does: ``(program, leaves,
+    exprs)``, where ``exprs`` are the rewritten roots, so the verifier
+    re-checks the very graph that was linearized."""
+    exprs = list(exprs)
+    if common.rewrite_enabled:
+        from ramba_tpu_torch.core.rewrite import rewrite_roots
+
+        exprs = rewrite_roots(exprs)
+    program, leaves = _linearize(exprs)
+    return program, leaves, exprs
+
+
 def _last_use_map(program: _Program) -> dict:
     """slot -> the highest slot that reads it (an instruction's result
     takes slot ``n_leaves + its index``, so this is the slot of the last
@@ -314,6 +360,14 @@ def _build_callable(program: _Program):
         return run_instructions(program, leaf_vals)
 
     return run
+
+
+def _semantic_fingerprint() -> tuple:
+    """Trace-time configuration the ops read beyond the program and its
+    leaves: the reference's x64 regime, which the port fixes (its eval
+    rules always run the x64 promotions).  It keys the result memo and
+    the cache-key collision check, as in the reference."""
+    return (True,)
 
 
 def _program_label(program: _Program) -> str:
@@ -411,19 +465,21 @@ def _iter_segments(program: _Program, last_use: dict,
 
 
 def _run_segmented(program: _Program, leaf_vals, span: Optional[dict] = None,
-                   seg_size: Optional[int] = None) -> tuple:
+                   seg_size: Optional[int] = None,
+                   rung: str = "fused") -> tuple:
     """Run a program longer than ``common.max_program_instrs`` as a chain
-    of segments inside one flush.  Each segment goes through the compile
-    cache with its own leaf values (a chain of one repeated structure
-    compiles one segment), so a segment the classifier accepts launches
-    elemred; a value crossing a boundary is a segment output carried to
-    the next, and every value is dropped after its last use."""
+    of segments inside one flush (or, as the split rung, any program at
+    ``seg_size``).  Each segment goes through the compile cache with its
+    own leaf values (a chain of one repeated structure compiles one
+    segment), so a segment the classifier accepts launches elemred; a
+    value crossing a boundary is a segment output carried to the next,
+    and every value is dropped after its last use."""
     last_use = _last_use_map(program)
     vals: dict[int, object] = dict(enumerate(leaf_vals))
     for seg_prog, in_slots, out_here, top in _iter_segments(
             program, last_use, seg_size):
         seg_vals = [vals[s] for s in in_slots]
-        outs = _execute(seg_prog, seg_vals, span)
+        outs = _execute(seg_prog, seg_vals, span, rung=rung)
         del seg_vals
         for s in in_slots:
             if last_use.get(s, 0) < top:
@@ -604,20 +660,12 @@ def _execute_compiled(fn, program: _Program, leaf_vals, is_new: bool,
 def _execute(program: _Program, leaf_vals, span: Optional[dict] = None,
              compile_class=None, key: Optional[tuple] = None,
              fp: Optional[str] = None, label: Optional[str] = None,
-             bytes_in: Optional[int] = None) -> tuple:
+             bytes_in: Optional[int] = None, rung: str = "fused") -> tuple:
     fn, is_new, fp, backend, via = _get_compiled(
         program, leaf_vals, compile_class=compile_class, key=key, fp=fp)
     return _execute_compiled(fn, program, leaf_vals, is_new, span, fp,
-                             backend, via, label=label, bytes_in=bytes_in)
-
-
-def _program_event(program: _Program, label: str, fp: str,
-                   compile_class) -> None:
-    _events.emit({"type": "program", "label": label, "fingerprint": fp,
-                  "instrs": len(program.instrs),
-                  "n_leaves": program.n_leaves,
-                  "compile_class": (list(compile_class)
-                                    if compile_class is not None else None)})
+                             backend, via, rung=rung, label=label,
+                             bytes_in=bytes_in)
 
 
 def _kernel_takes(program: _Program, leaf_vals) -> bool:
@@ -631,48 +679,357 @@ def _kernel_takes(program: _Program, leaf_vals) -> bool:
     return kernel_backend.supports(program, leaf_vals)
 
 
-def _run_program(program: _Program, leaf_vals, span: dict) -> tuple:
-    """One fused program: segmented when it is too long, else bucketed
-    when ``RAMBA_COMPILE_CLASSES`` plans a class for it and the kernels do
-    not take it, and run."""
-    if (common.max_program_instrs
-            and len(program.instrs) > common.max_program_instrs):
-        if _events.trace_enabled():
-            _program_event(program, span["label"], _ledger.fingerprint(
-                _cache_key(program, leaf_vals)), None)
-        return _run_segmented(program, leaf_vals, span)
-    plan = None
-    if _classes.enabled() and not _kernel_takes(program, leaf_vals):
-        try:
-            plan = _classes.plan_for(program, leaf_vals)
-        except Exception:
-            plan = None
-    try:
-        _faults.check("compile:bucket", label=span["label"])
-    except _faults.InjectedFault:
-        forged = _classes.forced_plan(program, leaf_vals)
-        if forged is not None:
-            plan = forged
-    token = plan.token if plan is not None else None
-    run_vals = _classes.apply(plan, leaf_vals) if plan is not None \
-        else leaf_vals
-    key = _cache_key(program, run_vals, token)
-    fp = _ledger.fingerprint(key)
+# ---------------------------------------------------------------------------
+# the prepare stage: certificates, compile classes, memo, the verifier
+# ---------------------------------------------------------------------------
+
+_OFF = ("", "0", "off", "false", "no")
+
+
+def _switch(name: str) -> bool:
+    """One of the three analysis switches (``RAMBA_VERIFY``,
+    ``RAMBA_MEMO``, ``RAMBA_PLANCERT``): set and not an off spelling."""
+    v = os.environ.get(name)
+    return bool(v) and v.strip().lower() not in _OFF
+
+
+def _leaf_owner_counts(leaves) -> list:
+    """Live-alias census per leaf slot: how many realized arrays own each
+    leaf's storage, from the memory governor's ledger (``leaves``: the
+    flush's Const/Scalar leaves or their values; a scalar owns
+    nothing)."""
+    return [_memory.ledger.owner_count(
+        leaf.value if isinstance(leaf, Expr) else leaf) for leaf in leaves]
+
+
+def _program_event(program: _Program, leaf_vals, donate_key: tuple,
+                   label: str, fingerprint: Optional[str] = None,
+                   compile_class=None) -> dict:
+    """Offline-lintable record of the program a flush is about to run,
+    in the reference's schema: ``python -m ramba_tpu_torch.analyze`` (or
+    the reference's linter) re-checks graph hygiene and donation hazards
+    from these events without the live process.  Statics are
+    repr-truncated: the offline rules need structure (op names, slot
+    refs, donate mask, owner counts), not closure identities.  ``x64``
+    is always true: the port's regime is fixed."""
+    ev = {
+        "type": "program", "label": label,
+        "instrs": [[op, repr(st)[:160], list(args)]
+                   for op, st, args in program.instrs],
+        "n_leaves": program.n_leaves,
+        "leaf_kinds": "".join(program.leaf_kinds),
+        "out_slots": list(program.out_slots),
+        "donate": list(donate_key),
+        "owners": _leaf_owner_counts(leaf_vals),
+        "x64": True,
+    }
+    if fingerprint is not None:
+        ev["fingerprint"] = fingerprint
+    if compile_class is not None:
+        ev["compile_class"] = list(compile_class)
+    return ev
+
+
+def _verify_if_enabled(program: _Program, leaves, exprs, donate_key: tuple,
+                       span: dict, label: str, memo_plan=None,
+                       class_plan=None, cache_key=None) -> bool:
+    """RAMBA_VERIFY hook: statically verify the program about to run
+    (``ramba_tpu_torch.analyze``).  Strict mode raises
+    ProgramVerificationError on error findings — before anything is
+    lowered, built or launched.  Warn mode returns True instead: the
+    flush goes to the split rung.  One environment read when
+    RAMBA_VERIFY is unset."""
+    if not os.environ.get("RAMBA_VERIFY"):
+        return False
+    from ramba_tpu_torch.analyze import verifier as _verifier
+
+    vmode = _verifier.mode()
+    if vmode == "off":
+        return False
+    findings = _verifier.verify_flush(program, leaves, exprs, donate_key,
+                                      label=label, memo_plan=memo_plan,
+                                      class_plan=class_plan,
+                                      cache_key=cache_key)
+    if findings:
+        counts: dict = {}
+        for f in findings:
+            counts[f.severity] = counts.get(f.severity, 0) + 1
+        span["findings"] = counts
+    errors = [f for f in findings if f.severity == "error"]
+    if not errors:
+        return False
+    if vmode == "strict":
+        from ramba_tpu_torch.analyze.findings import ProgramVerificationError
+
+        raise ProgramVerificationError(errors)
+    span["verify_routed"] = True
+    with _stats_lock:
+        stats["verify_routed"] += 1
+    _registry.inc("analyze.verify_routed")
+    return True
+
+
+class _FlushWork:
+    """What one flush carries from :func:`_prepare` to :func:`_dispatch`
+    (the reference's ``_FlushWork``, without its async pipeline)."""
+
+    __slots__ = ("program", "leaves", "exprs", "leaf_vals", "donate_key",
+                 "span", "label", "segmented", "class_plan", "key",
+                 "fingerprint", "memo_plan", "memo_hit", "plan_cert",
+                 "plan_cache", "routed")
+
+    def __init__(self, program, leaves, exprs, leaf_vals, span):
+        self.program = program
+        self.leaves = leaves
+        self.exprs = exprs
+        self.leaf_vals = leaf_vals
+        self.donate_key = ()  # torch has no buffer donation
+        self.span = span
+        self.label = span["label"]
+        cap = common.max_program_instrs
+        self.segmented = bool(cap and len(program.instrs) > cap)
+        self.class_plan = None
+        self.key = None
+        self.fingerprint = None
+        self.memo_plan = None
+        self.memo_hit = None
+        self.plan_cert = None
+        self.plan_cache = None
+        self.routed = False
+
+
+def _run_signature_key(program: _Program, leaf_vals, plan) -> tuple:
+    """:func:`_cache_key` of the values the program runs on: the padded
+    leaves' shapes under a bucket plan, without padding anything."""
+    if plan is None:
+        return _cache_key(program, leaf_vals)
+    if plan.bucket <= plan.n:
+        return _cache_key(program, leaf_vals, plan.token)
+    sig = list(_leaf_signature(leaf_vals))
+    for s in plan.pad_slots:
+        shape, dt, dev = sig[s]
+        sig[s] = ((plan.bucket,) + tuple(shape[1:]), dt, dev)
+    return (program.key, tuple(sig), ("class",) + tuple(plan.token))
+
+
+def _note_class(work: _FlushWork) -> None:
+    plan = work.class_plan
     if _classes.enabled():
-        _classes.note_decision(fp, plan)
+        _classes.note_decision(work.fingerprint, plan)
     if plan is not None:
-        span["compile_class"] = list(token)
-        span["pad_waste_bytes"] = plan.pad_waste_bytes
-        _ledger.record_class(fp, token, plan.pad_waste_bytes,
-                             label=span["label"])
-    span["fingerprint"] = fp
-    if _events.trace_enabled():
-        _program_event(program, span["label"], fp, token)
-    outs = _execute(program, run_vals, span, compile_class=token, key=key,
-                    fp=fp, label=span["label"],
-                    bytes_in=span["leaf_bytes"] if plan is None else None)
-    del run_vals
-    return _classes.strip(plan, outs) if plan is not None else outs
+        work.span["compile_class"] = list(plan.token)
+        work.span["pad_waste_bytes"] = plan.pad_waste_bytes
+        _ledger.record_class(work.fingerprint, plan.token,
+                             plan.pad_waste_bytes, label=work.label)
+
+
+def _prepare(program: _Program, leaves, exprs, leaf_vals, span: dict,
+             whole: bool = True) -> _FlushWork:
+    """Everything between leaf gathering and the run, in the reference's
+    ``_flush_prepare`` order: plan-certificate redemption, else the class
+    plan (with its ``compile:bucket`` forge), the cache key and
+    fingerprint, the ``program`` event, the memo plan, the verifier and
+    certification; then the memo lookup.  ``whole`` is False for a rank's
+    local program (``core/rankflush.py`` verified and certified the
+    whole program before planning it): the memo alone runs there."""
+    work = _FlushWork(program, leaves, exprs, leaf_vals, span)
+    label = work.label
+    t0 = time.perf_counter()
+    certs = whole and _switch("RAMBA_PLANCERT")
+    memo_on = _switch("RAMBA_MEMO")
+    plan_hit = stale_hit = None
+    if certs:
+        from ramba_tpu_torch.core import plancache as _plancache
+
+        try:
+            hit = _plancache.lookup(program, leaf_vals, (), label, leaves)
+        except NotImplementedError:
+            raise
+        except Exception:
+            hit = None
+        if hit is not None and hit.forged:
+            if _plancache.strict():
+                stale_hit = hit
+        elif hit is not None:
+            plan_hit = hit
+    if plan_hit is not None:
+        # redeem: every verdict below is adopted from the certificate
+        cert = plan_hit.cert
+        work.class_plan = None if work.segmented else \
+            _plancache.class_plan_from(cert)
+        work.key = _run_signature_key(program, leaf_vals, work.class_plan)
+        work.fingerprint = cert.fingerprint or _ledger.fingerprint(work.key)
+        _note_class(work)
+        if _events.trace_enabled():
+            pev = _program_event(
+                program, leaf_vals, (), label, fingerprint=work.fingerprint,
+                compile_class=(work.class_plan.token
+                               if work.class_plan is not None else None))
+            pev["plan_cache"] = plan_hit.tier
+            if cert.chash is not None:
+                pev["chash"] = cert.chash
+            _events.emit(pev)
+        if cert.memo_ok and memo_on:
+            from ramba_tpu_torch.core import memo as _memo
+
+            work.memo_plan = _memo.plan_from_cert(
+                cert.chash, cert.canon_form, cert.leaf_order, cert.effects,
+                leaves, leaf_vals)
+        work.plan_cert = cert
+        work.plan_cache = plan_hit.tier
+        span["plan_cache"] = plan_hit.tier
+        if cert.chash is not None:
+            span["chash"] = cert.chash
+        if cert.finding_counts:
+            # the certified verdict's findings, re-stamped so the span
+            # reads as a fresh analysis would
+            span["findings"] = dict(cert.finding_counts)
+    elif stale_hit is None:
+        plan = None
+        if not work.segmented:
+            if _classes.enabled() and not _kernel_takes(program, leaf_vals):
+                try:
+                    plan = _classes.plan_for(program, leaf_vals)
+                except Exception:
+                    plan = None
+            # the compile:bucket fault site forges a plan that skips the
+            # op-safety proof: the violation the compile-class rule
+            # exists to catch
+            try:
+                _faults.check("compile:bucket", label=label)
+            except _faults.InjectedFault:
+                forged = _classes.forced_plan(program, leaf_vals)
+                if forged is not None:
+                    plan = forged
+        work.class_plan = plan
+        work.key = _run_signature_key(program, leaf_vals, plan)
+        work.fingerprint = _ledger.fingerprint(work.key)
+        _note_class(work)
+        if _events.trace_enabled():
+            _events.emit(_program_event(
+                program, leaf_vals, (), label, fingerprint=work.fingerprint,
+                compile_class=plan.token if plan is not None else None))
+        if memo_on:
+            from ramba_tpu_torch.core import memo as _memo
+
+            try:
+                work.memo_plan = _memo.plan_for(program, (), leaves,
+                                                leaf_vals)
+            except NotImplementedError:
+                raise
+            except Exception:
+                work.memo_plan = None
+    if stale_hit is not None:
+        # strict mode rejects a certificate that fails signature
+        # validation exactly like a verifier error, before anything runs
+        from ramba_tpu_torch.analyze.findings import ProgramVerificationError
+
+        raise ProgramVerificationError(
+            _plancache.stale_findings(stale_hit, label))
+    if plan_hit is None and whole:
+        if os.environ.get("RAMBA_VERIFY"):
+            t_verify = time.perf_counter()
+            work.routed = _verify_if_enabled(
+                program, leaves, exprs, (), span, label,
+                memo_plan=work.memo_plan, class_plan=work.class_plan,
+                cache_key=work.key)
+            span.setdefault("stages", {})["verify"] = \
+                time.perf_counter() - t_verify
+        if work.routed:
+            # a distrusted flush neither consults nor fills the result
+            # cache, runs exact shapes and certifies nothing
+            work.memo_plan = None
+            work.class_plan = None
+            span.pop("compile_class", None)
+            span.pop("pad_waste_bytes", None)
+        elif certs:
+            try:
+                work.plan_cert = _plancache.certify(work)
+            except NotImplementedError:
+                raise
+            except Exception:
+                work.plan_cert = None
+    if work.memo_plan is not None:
+        work.memo_hit = _memo.lookup(work.memo_plan)
+    span["fingerprint"] = work.fingerprint
+    if certs or memo_on or "stages" in span:
+        stages = span.setdefault("stages", {})
+        stages["prepare"] = (time.perf_counter() - t0) - \
+            stages.get("verify", 0.0)
+    return work
+
+
+LADDER = ("the degradation ladder below the split rung (chunked and eager "
+          "rungs, admission, retries): ROADMAP A.8")
+
+
+def _run_chunked(*_args, **_kwargs):
+    """The chunked rung: ROADMAP A.8."""
+    raise NotImplementedError(LADDER)
+
+
+def _run_eager(*_args, **_kwargs):
+    """The eager rung: ROADMAP A.8."""
+    raise NotImplementedError(LADDER)
+
+
+def _dispatch(work: _FlushWork) -> tuple:
+    """Run a prepared flush: a memo hit is served as it is (no lowering,
+    no launch); a routed flush runs on the split rung; a long program by
+    segments; anything else as one program, bucketed when it has a class
+    plan.  A certified result enters the result cache."""
+    program, span = work.program, work.span
+    if work.memo_hit is not None:
+        outs = tuple(work.memo_hit)
+        work.memo_hit = None
+        _finish_memo_span(work, outs)
+        return outs
+    leaf_vals = work.leaf_vals
+    if work.routed:
+        cap = common.max_program_instrs or len(program.instrs)
+        half = max(1, min(len(program.instrs), cap) // 2)
+        span["degraded"] = "split"
+        outs = _run_segmented(program, leaf_vals, span, seg_size=half,
+                              rung="split")
+    elif work.segmented:
+        outs = _run_segmented(program, leaf_vals, span)
+    else:
+        plan = work.class_plan
+        token = plan.token if plan is not None else None
+        run_vals = _classes.apply(plan, leaf_vals) if plan is not None \
+            else leaf_vals
+        outs = _execute(program, run_vals, span, compile_class=token,
+                        key=work.key, fp=work.fingerprint, label=work.label,
+                        bytes_in=span["leaf_bytes"] if plan is None else None)
+        del run_vals
+        if plan is not None:
+            outs = _classes.strip(plan, outs)
+    if work.memo_plan is not None:
+        from ramba_tpu_torch.core import memo as _memo
+
+        try:
+            _memo.insert(work.memo_plan, list(outs))
+        except Exception:
+            _registry.inc("memo.insert_failed")
+    _finish_span(span, outs)
+    return outs
+
+
+def _finish_memo_span(work: _FlushWork, outs) -> None:
+    """The span of a flush the result cache served: ``cache: "memo"``,
+    no compile or execute seconds; the ledger counts a memo hit, and the
+    slow-flush sentinel is not fed (a near-zero wall would poison the
+    program's latency history)."""
+    span = work.span
+    span["segments"] = 0
+    span["compile_s"] = 0.0
+    span["execute_s"] = 0.0
+    span["cache"] = "memo"
+    span["memo_hit"] = True
+    span["out_bytes"] = sum(_nbytes(v) for v in outs)
+    span["wall_s"] = round(time.perf_counter() - span.pop("t0"), 6)
+    _ledger.record_memo_hit(work.fingerprint, work.label)
+    _events.emit(span)
 
 
 def _new_span(program: _Program, leaf_vals) -> dict:
@@ -699,14 +1056,58 @@ def _finish_span(span: dict, outs) -> None:
     _ledger.observe_flush(span)
 
 
-def run_program(program: _Program, leaf_vals) -> tuple:
+def run_program(program: _Program, leaf_vals, split: bool = False) -> tuple:
     """Run one linearized program as a flush runs it (segments, compile
-    classes, the ledger, a span); ``core/rankflush.py`` runs every rank's
-    programs through here."""
+    classes, the result memo, the ledger, a span);
+    ``core/rankflush.py`` runs every rank's programs through here, having
+    verified the whole program first (``split``: its verdict routed the
+    flush to the split rung)."""
     span = _new_span(program, leaf_vals)
-    outs = _run_program(program, leaf_vals, span)
-    _finish_span(span, outs)
-    return outs
+    work = _prepare(program, None, None, leaf_vals, span, whole=False)
+    if split:
+        work.routed = True
+        work.memo_plan = work.memo_hit = work.class_plan = None
+    return _dispatch(work)
+
+
+def verify_whole(exprs) -> bool:
+    """The verifier and the plan cache across ranks
+    (``core/rankflush.py``): the whole program, before it is planned
+    into rank-local programs, is verified on every rank — the rules read
+    the graph and the leaves' global avals and layouts, so every rank
+    reaches the same verdict.  A strict error (or a forged stale
+    certificate) raises here, and the flush's one outcome agreement
+    carries it to every rank.  Returns True when warn mode routes the
+    flush to the split rung.  A redeemed certificate (keyed on global
+    shapes, the same on every rank) skips the verifier; hits agree in
+    batches over coherence.  One environment read each when the switches
+    are unset."""
+    verify = bool(os.environ.get("RAMBA_VERIFY"))
+    certs = _switch("RAMBA_PLANCERT")
+    if not (verify or certs):
+        return False
+    program, leaves = _linearize(list(exprs))
+    span = {"label": _program_label(program)}
+    work = _FlushWork(program, leaves, exprs, leaves, span)
+    work.segmented = False
+    if certs:
+        from ramba_tpu_torch.core import plancache as _plancache
+
+        hit = _plancache.lookup(program, leaves, (), work.label, leaves)
+        if hit is not None and hit.forged:
+            if _plancache.strict():
+                from ramba_tpu_torch.analyze.findings import (
+                    ProgramVerificationError)
+
+                raise ProgramVerificationError(
+                    _plancache.stale_findings(hit, work.label))
+        elif hit is not None:
+            return False
+    routed = _verify_if_enabled(program, leaves, exprs, (), span,
+                                work.label)
+    if certs and not routed:
+        _plancache.certify(work)
+    return routed
 
 
 def _quarantine(stream: FlushStream, roots: list) -> None:
@@ -769,17 +1170,15 @@ def _flush_roots(stream: FlushStream, roots: list,
     if not exprs:
         return []
     try:
-        if common.rewrite_enabled:
-            from ramba_tpu_torch.core.rewrite import rewrite_roots
-
-            exprs = rewrite_roots(exprs)
-        program, leaf_vals = prepare_program(exprs)
+        program, leaves, exprs = _prepare_program(exprs)
+        leaf_vals = [leaf_value(leaf) for leaf in leaves]
         # a flush's leaves are never spill candidates while it runs
         pins = _memory.ledger.pin_values(leaf_vals)
         try:
             span = _new_span(program, leaf_vals)
-            outs = _run_program(program, leaf_vals, span)
-            _finish_span(span, outs)
+            work = _prepare(program, leaves, exprs, leaf_vals, span)
+            outs = _dispatch(work)
+            del work
         finally:
             _memory.ledger.unpin(pins)
             for hook in after_flush:

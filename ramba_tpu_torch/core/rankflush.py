@@ -576,15 +576,23 @@ def _agree(ok: bool) -> bool:
     return distributed.all_reduce_int(1 if ok else 0, "min") == 1
 
 
+# True while a flush the verifier routed (RAMBA_VERIFY=warn) runs: each
+# of its local programs runs on the split rung.  Flushes are serialized
+# under the stream's flush lock.
+_split = False
+
+
 def _execute(program, leaf_vals):
     """The program through its lowering (its leaves pinned against
-    spilling), then the after-flush hooks."""
+    spilling), then the after-flush hooks.  The result memo keys this
+    rank-local program: it holds no collective (the folds run after it),
+    so a hit on one rank and a miss on another cannot hang."""
     from ramba_tpu_torch.core import fuser
     from ramba_tpu_torch.resilience import memory
 
     pins = memory.ledger.pin_values(leaf_vals)
     try:
-        return fuser.run_program(program, leaf_vals)
+        return fuser.run_program(program, leaf_vals, split=_split)
     finally:
         memory.ledger.unpin(pins)
         for hook in fuser.after_flush:
@@ -644,6 +652,7 @@ def flush_roots(stream, roots, extra, mesh):
     exprs = root_exprs + list(extra)
     if not exprs:
         return []
+    global _split
     err = None
     results = None
     try:
@@ -652,6 +661,7 @@ def flush_roots(stream, roots, extra, mesh):
 
             exprs = rewrite_roots(exprs)
         exprs = lower_hints(exprs, mesh)
+        _split = fuser.verify_whole(exprs)
         results = []
         for idx, plan in _plans(exprs, mesh):
             if plan is not None:
@@ -661,6 +671,8 @@ def flush_roots(stream, roots, extra, mesh):
                     [exprs[i] for i in idx])))
     except Exception as e:  # every rank must learn of it: see _agree
         err = e
+    finally:
+        _split = False
     ok = _agree(err is None)
     consts = [None] * len(exprs)
     n_instrs = 0

@@ -248,7 +248,7 @@ class KernelEntry:
         "label", "instrs", "compiles", "compile_s", "by_origin",
         "compile_class", "pad_waste",
         "exec", "sync", "bytes_in", "bytes_out",
-        "hits", "misses", "evicts", "rungs",
+        "hits", "misses", "evicts", "memo_hits", "rungs",
         "flops", "bytes_accessed", "_cost_tried", "backends",
     )
 
@@ -268,6 +268,7 @@ class KernelEntry:
         self.hits = 0
         self.misses = 0
         self.evicts = 0
+        self.memo_hits = 0
         self.rungs: dict = {}
         self.flops: Optional[float] = None
         self.bytes_accessed: Optional[float] = None
@@ -293,6 +294,8 @@ class KernelEntry:
                       "evicts": self.evicts},
             "rungs": dict(self.rungs),
         }
+        if self.memo_hits:
+            out["memo_hits"] = self.memo_hits
         if self.by_origin:
             out["compile_s_by_source"] = {
                 k: round(v, 6) for k, v in self.by_origin.items()}
@@ -373,6 +376,15 @@ def record_cache(fp: str, kind: str, label: Optional[str] = None) -> None:
             e.misses += 1
         elif kind == "evict":
             e.evicts += 1
+
+
+def record_memo_hit(fp: Optional[str], label: Optional[str] = None) -> None:
+    """A flush the result cache served (``core/memo.py``): counted as a
+    memo hit, never as an execution or a compile-cache interaction."""
+    if fp is None:
+        return
+    with _lock:
+        _entry(fp, label).memo_hits += 1
 
 
 def record_execute(fp: str, label: str, instrs: int, rung: str,

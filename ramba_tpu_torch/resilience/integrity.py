@@ -322,6 +322,16 @@ def suspect(now: Optional[float] = None) -> bool:
 # ---------------------------------------------------------------------------
 
 
+AUDIT = ("the shadow recompute audit and its eviction of suspect result-memo "
+         "entries: ROADMAP A.8")
+
+
+def evict_plan_blobs(plan) -> None:
+    """Evict a suspect flush's memo entry after a shadow audit disagreed
+    (the reference's ``_evict_plan_blobs``): ROADMAP A.8."""
+    raise NotImplementedError(AUDIT)
+
+
 def snapshot() -> dict:
     with _lock:
         d = dict(stats)

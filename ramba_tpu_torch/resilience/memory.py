@@ -58,8 +58,8 @@ from ramba_tpu_torch.observe import registry as _registry
 from ramba_tpu_torch.resilience import coherence as _coherence
 from ramba_tpu_torch.resilience import spill as _spill
 
-ADMISSION = ("pre-flush admission and its peak estimate route a flush to "
-             "the chunked rung of the degradation ladder: ROADMAP A.8")
+ADMISSION = ("pre-flush admission routes a flush to the chunked rung of "
+             "the degradation ladder: ROADMAP A.8")
 TENANTS = "serving-tenant quotas come with serving: ROADMAP A.10"
 
 
@@ -267,6 +267,26 @@ class Ledger:
         with self._lock:
             if self.entries.pop(e.key, None) is not None:
                 self._account(e, -1)
+
+    def owner_count(self, value) -> int:
+        """Arrays owning the storage of ``value`` (0 when untracked): the
+        verifier's live-alias census."""
+        k = _key(value)
+        if k is None:
+            return 0
+        with self._lock:
+            e = self.entries.get(k)
+            return e.owners if e is not None else 0
+
+    def touch(self, value) -> None:
+        """Mark ``value``'s entry most recently used (a result-memo hit)."""
+        k = _key(value)
+        if k is None:
+            return
+        with self._lock:
+            e = self.entries.get(k)
+            if e is not None:
+                e.seq = next(self._clock)
 
     # -- pinning: a flush's leaves are never spill candidates ----------------
 
@@ -477,8 +497,31 @@ def reset() -> None:
 # ---------------------------------------------------------------------------
 
 
+_est_memo: dict = {}
+_EST_MEMO_MAX = 4096
+
+
 def estimate_program_bytes(program, leaf_vals, donate=()) -> int:
-    raise NotImplementedError(ADMISSION)
+    """Peak device footprint estimate for one linearized program: the
+    analytic live-set walk of ``analyze.rules.estimate_peak_bytes``,
+    memoized per structure and leaf avals.  The reference prefers XLA's
+    ``memory_analysis`` and falls back to this walk (always under
+    ``RAMBA_HBM_ESTIMATE=analytic``); the port has no compiler to ask,
+    so the walk is its one estimate."""
+    from ramba_tpu_torch.analyze import rules as _rules
+    from ramba_tpu_torch.core.expr import aval_of
+
+    avals = [aval_of(v) for v in leaf_vals]
+    fp = (program.key, tuple(donate),
+          tuple((tuple(a.shape), str(a.dtype)) for a in avals))
+    cached = _est_memo.get(fp)
+    if cached is not None:
+        return cached
+    est = _rules.estimate_peak_bytes(program, avals, donate)
+    if len(_est_memo) >= _EST_MEMO_MAX:
+        _est_memo.clear()
+    _est_memo[fp] = est
+    return est
 
 
 def admit(program, leaf_vals, donate_key, span=None, *, tenant=None,

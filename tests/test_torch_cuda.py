@@ -1385,3 +1385,61 @@ def test_a_library_loaded_from_the_cache_needs_no_nvcc(tmp_path):
     third = json.loads(r.stdout.strip().splitlines()[-1])
     assert third["corrupt"] >= 1 and third["builds"] >= 1
     assert third["v"] == runs[0]["v"]
+
+
+# ---------------------------------------------------------------------------
+# the analyzer, the result memo (ROADMAP A.7 part two)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def analysis_env(monkeypatch):
+    from ramba_tpu_torch.core import memo
+
+    for k in ("RAMBA_VERIFY", "RAMBA_MEMO", "RAMBA_PLANCERT",
+              "RAMBA_MEMO_BUDGET"):
+        monkeypatch.delenv(k, raising=False)
+    memo.reset()
+    yield monkeypatch
+    memo.reset()
+
+
+def test_strict_flush_of_an_elemred_program_launches_as_unset(analysis_env):
+    x = rt.fromarray(torch.rand(N, device="cuda", dtype=torch.float64))
+    y = rt.fromarray(torch.rand(N, device="cuda", dtype=torch.float64))
+
+    def run():
+        elemred.launches = 0
+        v = rt.sum(2.5 * x + y)._value()
+        return v, elemred.launches
+
+    plain, n0 = run()
+    analysis_env.setenv("RAMBA_VERIFY", "strict")
+    got, n1 = run()
+    assert n0 == n1 == 1
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("how", ["tensor", "view"])
+def test_memo_misses_after_an_in_place_write_on_the_card(analysis_env, how):
+    from ramba_tpu_torch.core import memo
+
+    analysis_env.setenv("RAMBA_MEMO", "1")
+    t = torch.arange(N, device="cuda", dtype=torch.float64)
+    x = rt.fromarray(t)
+    assert x._expr.value is t
+    elemred.launches = 0
+    h0 = memo.cache.hits
+    first = rt.sum(x * x)._value()
+    again = rt.sum(x * x)._value()
+    assert elemred.launches == 1 and memo.cache.hits == h0 + 1  # no launch
+    assert torch.equal(first, again)
+    if how == "tensor":
+        t.add_(1)
+    else:
+        t[:1024].mul_(2)
+    got = rt.sum(x * x)._value()
+    assert elemred.launches == 2 and memo.cache.hits == h0 + 1
+    want = (t * t).sum()
+    assert abs(got.item() - want.item()) <= N * EPS[torch.float64] * \
+        want.item()

@@ -388,3 +388,25 @@ def test_a_raising_rank_raises_everywhere(tmp_path):
     assert r0["collective"] != "no error"
     assert r0["waited_s"] < 60
     assert rcs[1] == 3
+
+
+def test_the_analyzer_across_ranks(tmp_path):
+    """A strict verifier error raises on both ranks; a repeated program
+    hits the result memo on each rank and the whole program's plan
+    certificate on both alike, agreed every two hits."""
+    _x64()
+    rcs, logs, outdir = launch(
+        2, tmp_path, mode="analyze", limit=120,
+        env={"RAMBA_VERIFY": "strict", "RAMBA_MEMO": "1",
+             "RAMBA_PLANCERT": "1", "RAMBA_PLANCERT_AGREE": "2"})
+    assert rcs == [0, 0], logs
+    info = [json.loads((outdir / f"rank{r}.json").read_text())
+            for r in range(2)]
+    want = float(np.sum(np.arange(1000.0) * 2.0 + 1.0))
+    for r in info:
+        assert r["strict"].startswith("ProgramVerificationError"), r
+        assert "bogus_axis" in r["strict"]
+        assert r["sums"] == [want] * 5
+        assert r["memo_hits"] == 4
+        assert r["cert_hits"] == 4 and r["agree_rounds"] == 2
+        assert r["rounds"] == 2

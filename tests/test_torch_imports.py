@@ -66,7 +66,10 @@ def test_importing_the_port_loads_no_jax():
         " ramba_tpu_torch.models.pi, ramba_tpu_torch.models.kmeans,"
         " ramba_tpu_torch.parallel.distributed, ramba_tpu_torch.core.rankflush,"
         " ramba_tpu_torch.compile.classes, ramba_tpu_torch.compile.persist,"
-        " ramba_tpu_torch.observe.ledger, ramba_tpu_torch.core.autotune;"
+        " ramba_tpu_torch.observe.ledger, ramba_tpu_torch.core.autotune,"
+        " ramba_tpu_torch.analyze, ramba_tpu_torch.analyze.lint,"
+        " ramba_tpu_torch.analyze.plancert, ramba_tpu_torch.core.memo,"
+        " ramba_tpu_torch.core.plancache;"
         "import runpy; runpy.run_path(sys.argv[1] + '/chip_smoke.py',"
         " run_name='chip_smoke_probe');"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'ramba_tpu', 'triton')"

@@ -299,7 +299,10 @@ def test_fault_bytes_payload():
 def test_admission_and_quotas_name_their_items():
     with pytest.raises(NotImplementedError, match="A.8"):
         memory.admit(None, [], ())
-    with pytest.raises(NotImplementedError, match="A.8"):
-        memory.estimate_program_bytes(None, [])
+    # the estimate is the analytic live-set walk (analyze.rules)
+    x = rt.fromarray(np.ones(1024))
+    prog, vals = fuser.prepare_program([((x + 1.0) * 2.0)._expr])
+    # x, two float scalars, then both instruction results live at once
+    assert memory.estimate_program_bytes(prog, vals) == 3 * 8192 + 16
     with pytest.raises(NotImplementedError, match="A.10"):
         memory.ledger.evict_until(1, tenant="t")

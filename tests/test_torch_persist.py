@@ -172,6 +172,17 @@ def test_a_library_on_disk_loads_without_a_build(armed, fake_nvcc,
     assert len(fake_nvcc) == 1
 
 
+def _replace_with(so, data):
+    """Damage a library as another writer would: the damaged bytes go to
+    a new file beside it, put in place with ``os.replace`` (a new inode).
+    Writing over the file in place would change the pages this process
+    mapped when it loaded the library, and the loader faults at exit."""
+    tmp = so + ".damaged"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, so)
+
+
 @pytest.mark.parametrize("damage", ["flip_on_disk", "truncate",
                                     "lost_digest", "flip_seam"])
 def test_a_corrupt_library_is_evicted_and_built_again(armed, fake_nvcc,
@@ -182,10 +193,10 @@ def test_a_corrupt_library_is_evicted_and_built_again(armed, fake_nvcc,
     if damage == "flip_on_disk":
         raw = bytearray(open(so, "rb").read())
         raw[100] ^= 0xFF
-        open(so, "wb").write(bytes(raw))
+        _replace_with(so, bytes(raw))
     elif damage == "truncate":
         raw = open(so, "rb").read()
-        open(so, "wb").write(raw[: len(raw) // 3])
+        _replace_with(so, raw[: len(raw) // 3])
     elif damage == "lost_digest":
         os.unlink(so + ".sha")
     monkeypatch.setattr(_build, "_libs", {})
@@ -242,7 +253,7 @@ def test_ctypes_opens_only_a_verified_library(armed, fake_nvcc, monkeypatch,
         raw[200] ^= 0xFF
     else:
         raw = raw[: len(raw) // 2]
-    open(so, "wb").write(bytes(raw))
+    _replace_with(so, bytes(raw))
     opened = []
     real = ctypes.CDLL
 

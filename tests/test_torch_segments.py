@@ -294,9 +294,9 @@ def test_a_segmented_chain_drops_values_at_their_last_use(monkeypatch):
     seen = []
     real = fuser._execute
 
-    def spy(program, leaf_vals, span=None, compile_class=None):
+    def spy(program, leaf_vals, span=None, **kw):
         seen.append(sum(isinstance(v, torch.Tensor) for v in leaf_vals))
-        return real(program, leaf_vals, span, compile_class)
+        return real(program, leaf_vals, span, **kw)
 
     monkeypatch.setattr(fuser, "_execute", spy)
     x = rt.arange(64.0)

@@ -11,7 +11,10 @@ and writes each rank's results (``OUTDIR/rank<r>.npz``) and counters
 flush and once outside any collective, and records how rank 0 learned of
 it; ``compile`` races the backends of one program on every rank (rank 1's
 evidence skewed the other way) and buckets another, and records each
-rank's latched decisions and class decisions.  On the card (``tests/test_torch_cuda.py``), ``card`` runs star2
+rank's latched decisions and class decisions; ``analyze`` runs the
+static analyzer, the result memo and the plan cache across ranks (a
+strict verifier error on every rank, memo hits per rank, certificate
+hits agreed in batches).  On the card (``tests/test_torch_cuda.py``), ``card`` runs star2
 through the CUDA stencil kernel on each rank's block and ``nccl`` one
 rank's collectives over NCCL.  :func:`programs` takes the package as an argument, so the test runs
 the same programs through ``ramba_tpu`` for the reference.
@@ -408,6 +411,39 @@ def _compile(rt, rank, outdir):
         json.dump(info, f)
 
 
+def _analyze(rt, rank, outdir):
+    """RAMBA_VERIFY=strict, RAMBA_MEMO and RAMBA_PLANCERT across ranks:
+    a hint naming a mesh axis no mesh has raises on every rank; a repeat
+    of a program hits the memo on each rank (its local program) and the
+    certificate of the whole program on every rank alike."""
+    import torch
+
+    from ramba_tpu_torch.core import memo, plancache
+    from ramba_tpu_torch.core.expr import Node
+    from ramba_tpu_torch.parallel import mesh as pmesh
+    from ramba_tpu_torch.resilience import coherence
+
+    info = {}
+    x = rt.fromarray(np.arange(1000.0))
+    other = pmesh.Mesh([torch.device("cpu")], ("bogus_axis",))
+    bad = rt.ndarray(Node("shard_hint", (pmesh.NamedSharding(
+        other, pmesh.P("bogus_axis")),), [x.read_expr()]))
+    try:
+        bad.asarray()
+        info["strict"] = "no error"
+    except Exception as e:  # recorded for the test
+        info["strict"] = f"{type(e).__name__}: {e}"
+    del bad
+    info["sums"] = [float(rt.sum(x * 2.0 + 1.0)) for _ in range(5)]
+    info["memo_hits"] = memo.cache.hits
+    snap = plancache.snapshot()
+    info["cert_hits"] = snap.get("hits", 0)
+    info["agree_rounds"] = snap.get("agree_rounds", 0)
+    info["rounds"] = coherence.last_epoch("plan:hits")
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+
+
 CARD_GRID = (1024, 1024)
 CARD_SERIES = (1 << 20) + 37
 SEG_KINDS = ("sum", "min", "max", "count")
@@ -504,7 +540,7 @@ def main(argv) -> int:
     if world == 1:  # one rank: a mesh of ranks all the same
         rt.set_mesh(distributed.global_mesh())
     {"main": _main, "fail": _fail, "card": _card, "nccl": _nccl,
-     "compile": _compile}[mode](rt, rank, outdir)
+     "compile": _compile, "analyze": _analyze}[mode](rt, rank, outdir)
     distributed.shutdown()
     return 0
 
