@@ -157,9 +157,9 @@ Phases, each reported on its own line:
    ``RAMBA_VERIFY=strict`` byte-equal to verify unset with the same
    launches, ``RAMBA_MEMO=1`` (9 hits and 1 launch over the same buffers,
    misses over fresh ones, after in-place writes and for a new seed, a
-   2 GiB result not retained, a spilled entry restored), 200 repeat
+   2 GiB result not retained, a spilled entry restored), 100 repeat
    flushes under verify off, strict and strict with ``RAMBA_PLANCERT=1``
-   (199 certificate hits, prepare-plus-verify host time per flush), the
+   (99 certificate hits, prepare-plus-verify host time per flush), the
    offline linter over the path's trace, and the forged faults
    (``compile:bucket``, ``memo:insert``, ``plan:stale``).  Every kernel's
    launch count is set to 0 just before each path and read just after; a
@@ -5134,7 +5134,7 @@ ANALYZE_GRID = 8192               # star2, float32 (TMA)
 ANALYZE_ODD = (4099, 4133)        # star2, float32 (cp.async)
 ANALYZE_SWEEPS = ((30, 100), (10, 20))  # (chained, iterate) per grid
 ANALYZE_MESH_SWEEPS = (10, 20)    # on the 2x2 mesh of shards
-ANALYZE_REPEATS = 200             # repeat flushes under each setting
+ANALYZE_REPEATS = 100             # repeat flushes under each setting
 ANALYZE_SMALL_N = 1 << 20         # the host-bound elementwise program
 ANALYZE_DRAW_N = 1 << 24          # the seeded draws, float64
 ANALYZE_SPILL_N = 1 << 24         # the cached entry the governor spills
@@ -5461,7 +5461,7 @@ def analyze_memo(rt, torch, card, window):
 
 
 def analyze_certs(rt, torch, card, window, star2, traced):
-    """(3) 200 repeat flushes of a star2 sstencil on 8192^2 and of a small
+    """(3) 100 repeat flushes of a star2 sstencil on 8192^2 and of a small
     elementwise program on 2^20 f32 under three settings: verify off,
     strict, strict with certificates; the prepare-plus-verify host time
     per flush (``traced``: under RAMBA_TRACE, whose program events every
@@ -5626,15 +5626,26 @@ def analyze_lint(trace, live):
 
     here = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "ramba_tpu_torch.analyze", trace]
-    res = {}
-    for flag in ("--strict", "--memo-audit", "--plan-audit"):
-        args = cmd + [flag] + (["--json"] if flag != "--strict" else [])
-        p = subprocess.run(args, capture_output=True, text=True, cwd=here,
-                           timeout=300)
-        if p.returncode != 0:
-            raise Fail(f"ramba-lint {flag} exited {p.returncode}: "
-                       f"{p.stderr[-2000:]}")
-        res[flag] = p.stdout
+    procs = {}
+    try:
+        # the three linters at once: each is a process of its own
+        for flag in ("--strict", "--memo-audit", "--plan-audit"):
+            args = cmd + [flag] + (["--json"] if flag != "--strict" else [])
+            procs[flag] = subprocess.Popen(args, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True,
+                                           cwd=here)
+        res = {}
+        for flag, p in procs.items():
+            stdout, stderr = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise Fail(f"ramba-lint {flag} exited {p.returncode}: "
+                           f"{stderr[-2000:]}")
+            res[flag] = stdout
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     memo_rec = json.loads(res["--memo-audit"].strip().splitlines()[-1])
     plan_rec = json.loads(res["--plan-audit"].strip().splitlines()[-1])
     if memo_rec["live_hits"] != live["memo_hits"]:
@@ -5660,7 +5671,7 @@ def analyze_path(rt, er, sk, sg, sc, torch, np, card, window):
     """The static analyzer, the result memo and the plan certificates on
     the card (ROADMAP A.7 part two), at the main path's sizes: (1) the
     main path under RAMBA_VERIFY=strict against verify unset, (2) the
-    memo, (3) 200 repeat flushes under three settings, (5) the offline
+    memo, (3) 100 repeat flushes under three settings, (5) the offline
     linter over the trace of (1)-(3), then (3) again untraced, and (4)
     the forged faults, left out of the trace (their error findings are
     the point)."""
@@ -5673,6 +5684,13 @@ def analyze_path(rt, er, sk, sg, sc, torch, np, card, window):
     t0 = time.perf_counter()
     star2 = rt.stencil(star2_body)
     out = {}
+    walls = {}
+
+    def part(name, fn, *a, **k):
+        t = time.perf_counter()
+        out[name] = fn(*a, **k)
+        walls[name] = time.perf_counter() - t
+
     memo.reset()
     plancache.reset()
     with tempfile.TemporaryDirectory(prefix="ramba_analyze_") as tmp:
@@ -5680,23 +5698,25 @@ def analyze_path(rt, er, sk, sg, sc, torch, np, card, window):
         events.configure(trace)
         try:
             h0 = memo.cache.hits
-            out["verified"] = analyze_verified(rt, er, sk, sg, sc, torch, np,
-                                               card, window, star2)
-            out["memo"] = analyze_memo(rt, torch, card, window)
-            out["certs"] = analyze_certs(rt, torch, card, window, star2,
-                                         traced=True)
+            part("verified", analyze_verified, rt, er, sk, sg, sc, torch, np,
+                 card, window, star2)
+            part("memo", analyze_memo, rt, torch, card, window)
+            part("certs", analyze_certs, rt, torch, card, window, star2,
+                 traced=True)
             live = {"memo_hits": memo.cache.hits - h0,
                     "cert_hits": out["certs"]["cert_hits"]}
         finally:
             events.configure(None)
-        out["lint"] = analyze_lint(trace, live)
-    out["certs_untraced"] = analyze_certs(rt, torch, card, window, star2,
-                                          traced=False)
-    out["forged"] = analyze_forged(rt, torch, card, window)
+        part("lint", analyze_lint, trace, live)
+    part("certs_untraced", analyze_certs, rt, torch, card, window, star2,
+         traced=False)
+    part("forged", analyze_forged, rt, torch, card, window)
     memo.reset()
     plancache.reset()
     out["wall_s"] = time.perf_counter() - t0
-    log(f"  analyze_path: {out['wall_s']:.1f} s [{card}]")
+    out["part_walls_s"] = walls
+    log(f"  analyze_path: {out['wall_s']:.1f} s, by part (s) "
+        f"{json.dumps(walls)} [{card}]")
     return out
 
 

@@ -73,6 +73,8 @@ import torch
 
 from ramba_tpu_torch import _build, common
 from ramba_tpu_torch.compile import classes as _classes
+from ramba_tpu_torch.core import memo as _memo
+from ramba_tpu_torch.core import plancache as _plancache
 from ramba_tpu_torch.core.expr import OPS, Const, Expr, Node, Scalar
 from ramba_tpu_torch.observe import events as _events
 from ramba_tpu_torch.observe import ledger as _ledger
@@ -683,16 +685,6 @@ def _kernel_takes(program: _Program, leaf_vals) -> bool:
 # the prepare stage: certificates, compile classes, memo, the verifier
 # ---------------------------------------------------------------------------
 
-_OFF = ("", "0", "off", "false", "no")
-
-
-def _switch(name: str) -> bool:
-    """One of the three analysis switches (``RAMBA_VERIFY``,
-    ``RAMBA_MEMO``, ``RAMBA_PLANCERT``): set and not an off spelling."""
-    v = os.environ.get(name)
-    return bool(v) and v.strip().lower() not in _OFF
-
-
 def _leaf_owner_counts(leaves) -> list:
     """Live-alias census per leaf slot: how many realized arrays own each
     leaf's storage, from the memory governor's ledger (``leaves``: the
@@ -823,6 +815,27 @@ def _note_class(work: _FlushWork) -> None:
                              plan.pad_waste_bytes, label=work.label)
 
 
+def _redeem(program: _Program, leaf_vals, label: str, leaves):
+    """The plan cache's lookup for one flush: the hit to redeem, or None
+    (no certificate, a stale one, or a lookup that failed: the flush is
+    analyzed afresh).  A certificate forged stale (``plan:stale``) is
+    rejected under strict mode like a verifier error, before anything
+    runs; warn mode re-analyzes."""
+    try:
+        hit = _plancache.lookup(program, leaf_vals, (), label, leaves)
+    except NotImplementedError:
+        raise
+    except Exception:
+        return None
+    if hit is None or not hit.forged:
+        return hit
+    if _plancache.strict():
+        from ramba_tpu_torch.analyze.findings import ProgramVerificationError
+
+        raise ProgramVerificationError(_plancache.stale_findings(hit, label))
+    return None
+
+
 def _prepare(program: _Program, leaves, exprs, leaf_vals, span: dict,
              whole: bool = True) -> _FlushWork:
     """Everything between leaf gathering and the run, in the reference's
@@ -831,27 +844,17 @@ def _prepare(program: _Program, leaves, exprs, leaf_vals, span: dict,
     fingerprint, the ``program`` event, the memo plan, the verifier and
     certification; then the memo lookup.  ``whole`` is False for a rank's
     local program (``core/rankflush.py`` verified and certified the
-    whole program before planning it): the memo alone runs there."""
+    whole program before planning it): the memo alone runs there.  A
+    segmented program runs its segments under their own keys, so its
+    whole key and fingerprint are derived only for a switch or a trace
+    that reads them."""
     work = _FlushWork(program, leaves, exprs, leaf_vals, span)
     label = work.label
     t0 = time.perf_counter()
-    certs = whole and _switch("RAMBA_PLANCERT")
-    memo_on = _switch("RAMBA_MEMO")
-    plan_hit = stale_hit = None
-    if certs:
-        from ramba_tpu_torch.core import plancache as _plancache
-
-        try:
-            hit = _plancache.lookup(program, leaf_vals, (), label, leaves)
-        except NotImplementedError:
-            raise
-        except Exception:
-            hit = None
-        if hit is not None and hit.forged:
-            if _plancache.strict():
-                stale_hit = hit
-        elif hit is not None:
-            plan_hit = hit
+    certs = whole and _plancache.enabled()
+    memo_on = _memo.enabled()
+    verify = whole and bool(os.environ.get("RAMBA_VERIFY"))
+    plan_hit = _redeem(program, leaf_vals, label, leaves) if certs else None
     if plan_hit is not None:
         # redeem: every verdict below is adopted from the certificate
         cert = plan_hit.cert
@@ -859,7 +862,8 @@ def _prepare(program: _Program, leaves, exprs, leaf_vals, span: dict,
             _plancache.class_plan_from(cert)
         work.key = _run_signature_key(program, leaf_vals, work.class_plan)
         work.fingerprint = cert.fingerprint or _ledger.fingerprint(work.key)
-        _note_class(work)
+        if not work.segmented:
+            _note_class(work)
         if _events.trace_enabled():
             pev = _program_event(
                 program, leaf_vals, (), label, fingerprint=work.fingerprint,
@@ -870,8 +874,6 @@ def _prepare(program: _Program, leaves, exprs, leaf_vals, span: dict,
                 pev["chash"] = cert.chash
             _events.emit(pev)
         if cert.memo_ok and memo_on:
-            from ramba_tpu_torch.core import memo as _memo
-
             work.memo_plan = _memo.plan_from_cert(
                 cert.chash, cert.canon_form, cert.leaf_order, cert.effects,
                 leaves, leaf_vals)
@@ -884,34 +886,36 @@ def _prepare(program: _Program, leaves, exprs, leaf_vals, span: dict,
             # the certified verdict's findings, re-stamped so the span
             # reads as a fresh analysis would
             span["findings"] = dict(cert.finding_counts)
-    elif stale_hit is None:
+    elif not work.segmented:
         plan = None
-        if not work.segmented:
-            if _classes.enabled() and not _kernel_takes(program, leaf_vals):
-                try:
-                    plan = _classes.plan_for(program, leaf_vals)
-                except Exception:
-                    plan = None
-            # the compile:bucket fault site forges a plan that skips the
-            # op-safety proof: the violation the compile-class rule
-            # exists to catch
+        if _classes.enabled() and not _kernel_takes(program, leaf_vals):
             try:
-                _faults.check("compile:bucket", label=label)
-            except _faults.InjectedFault:
-                forged = _classes.forced_plan(program, leaf_vals)
-                if forged is not None:
-                    plan = forged
+                plan = _classes.plan_for(program, leaf_vals)
+            except Exception:
+                plan = None
+        # the compile:bucket fault site forges a plan that skips the
+        # op-safety proof: the violation the compile-class rule exists to
+        # catch
+        try:
+            _faults.check("compile:bucket", label=label)
+        except _faults.InjectedFault:
+            forged = _classes.forced_plan(program, leaf_vals)
+            if forged is not None:
+                plan = forged
         work.class_plan = plan
         work.key = _run_signature_key(program, leaf_vals, plan)
         work.fingerprint = _ledger.fingerprint(work.key)
         _note_class(work)
+    elif certs or memo_on or verify or _events.trace_enabled():
+        work.key = _cache_key(program, leaf_vals)
+        work.fingerprint = _ledger.fingerprint(work.key)
+    if plan_hit is None:
         if _events.trace_enabled():
+            plan = work.class_plan
             _events.emit(_program_event(
                 program, leaf_vals, (), label, fingerprint=work.fingerprint,
                 compile_class=plan.token if plan is not None else None))
         if memo_on:
-            from ramba_tpu_torch.core import memo as _memo
-
             try:
                 work.memo_plan = _memo.plan_for(program, (), leaves,
                                                 leaf_vals)
@@ -919,15 +923,7 @@ def _prepare(program: _Program, leaves, exprs, leaf_vals, span: dict,
                 raise
             except Exception:
                 work.memo_plan = None
-    if stale_hit is not None:
-        # strict mode rejects a certificate that fails signature
-        # validation exactly like a verifier error, before anything runs
-        from ramba_tpu_torch.analyze.findings import ProgramVerificationError
-
-        raise ProgramVerificationError(
-            _plancache.stale_findings(stale_hit, label))
-    if plan_hit is None and whole:
-        if os.environ.get("RAMBA_VERIFY"):
+        if verify:
             t_verify = time.perf_counter()
             work.routed = _verify_if_enabled(
                 program, leaves, exprs, (), span, label,
@@ -951,8 +947,9 @@ def _prepare(program: _Program, leaves, exprs, leaf_vals, span: dict,
                 work.plan_cert = None
     if work.memo_plan is not None:
         work.memo_hit = _memo.lookup(work.memo_plan)
-    span["fingerprint"] = work.fingerprint
-    if certs or memo_on or "stages" in span:
+    if work.fingerprint is not None:
+        span["fingerprint"] = work.fingerprint
+    if certs or memo_on or verify:
         stages = span.setdefault("stages", {})
         stages["prepare"] = (time.perf_counter() - t0) - \
             stages.get("verify", 0.0)
@@ -1005,8 +1002,6 @@ def _dispatch(work: _FlushWork) -> tuple:
         if plan is not None:
             outs = _classes.strip(plan, outs)
     if work.memo_plan is not None:
-        from ramba_tpu_torch.core import memo as _memo
-
         try:
             _memo.insert(work.memo_plan, list(outs))
         except Exception:
@@ -1083,26 +1078,15 @@ def verify_whole(exprs) -> bool:
     batches over coherence.  One environment read each when the switches
     are unset."""
     verify = bool(os.environ.get("RAMBA_VERIFY"))
-    certs = _switch("RAMBA_PLANCERT")
+    certs = _plancache.enabled()
     if not (verify or certs):
         return False
     program, leaves = _linearize(list(exprs))
     span = {"label": _program_label(program)}
     work = _FlushWork(program, leaves, exprs, leaves, span)
     work.segmented = False
-    if certs:
-        from ramba_tpu_torch.core import plancache as _plancache
-
-        hit = _plancache.lookup(program, leaves, (), work.label, leaves)
-        if hit is not None and hit.forged:
-            if _plancache.strict():
-                from ramba_tpu_torch.analyze.findings import (
-                    ProgramVerificationError)
-
-                raise ProgramVerificationError(
-                    _plancache.stale_findings(hit, work.label))
-        elif hit is not None:
-            return False
+    if certs and _redeem(program, leaves, work.label, leaves) is not None:
+        return False
     routed = _verify_if_enabled(program, leaves, exprs, (), span,
                                 work.label)
     if certs and not routed:

@@ -332,11 +332,19 @@ class ndarray:
         v = self._value()
         if not isinstance(v, torch.Tensor):
             return np.asarray(v, dtype=self.dtype)
-        return E.tensor_to_numpy(v)
+        a = E.tensor_to_numpy(v)
+        if v.device.type == "cpu":
+            # the array shares the tensor's memory, and a NumPy write bumps
+            # no version counter (the result memo keys on them): read-only,
+            # as the reference's host arrays are
+            a.flags.writeable = False
+        return a
 
     def __array__(self, dtype=None, copy=None):
         a = self.asarray()
-        return a.astype(dtype) if dtype is not None else a
+        if dtype is not None:
+            return a.astype(dtype)
+        return a.copy() if copy else a
 
     def item(self):
         return self.asarray().item()

@@ -51,13 +51,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ramba_tpu_torch.analyze import plancert as _plancert
 from ramba_tpu_torch.analyze.findings import Finding
-from ramba_tpu_torch.core.memo import SHARED
+from ramba_tpu_torch.core.memo import _OFF, SHARED
 from ramba_tpu_torch.observe import events as _events
 from ramba_tpu_torch.observe import registry as _registry
 from ramba_tpu_torch.resilience import coherence as _coherence
 from ramba_tpu_torch.resilience import faults as _faults
-
-_OFF = ("", "0", "off", "false", "no")
 
 #: Fault sites that deliberately corrupt an analysis the certificate
 #: snapshots — the cache stands down while any is armed.

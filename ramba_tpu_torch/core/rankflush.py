@@ -576,23 +576,19 @@ def _agree(ok: bool) -> bool:
     return distributed.all_reduce_int(1 if ok else 0, "min") == 1
 
 
-# True while a flush the verifier routed (RAMBA_VERIFY=warn) runs: each
-# of its local programs runs on the split rung.  Flushes are serialized
-# under the stream's flush lock.
-_split = False
-
-
-def _execute(program, leaf_vals):
+def _execute(program, leaf_vals, split=False):
     """The program through its lowering (its leaves pinned against
-    spilling), then the after-flush hooks.  The result memo keys this
-    rank-local program: it holds no collective (the folds run after it),
-    so a hit on one rank and a miss on another cannot hang."""
+    spilling), then the after-flush hooks.  ``split``: the verifier
+    routed the flush (RAMBA_VERIFY=warn), so the program runs on the
+    split rung.  The result memo keys this rank-local program: it holds
+    no collective (the folds run after it), so a hit on one rank and a
+    miss on another cannot hang."""
     from ramba_tpu_torch.core import fuser
     from ramba_tpu_torch.resilience import memory
 
     pins = memory.ledger.pin_values(leaf_vals)
     try:
-        return fuser.run_program(program, leaf_vals, split=_split)
+        return fuser.run_program(program, leaf_vals, split=split)
     finally:
         memory.ledger.unpin(pins)
         for hook in fuser.after_flush:
@@ -652,7 +648,6 @@ def flush_roots(stream, roots, extra, mesh):
     exprs = root_exprs + list(extra)
     if not exprs:
         return []
-    global _split
     err = None
     results = None
     try:
@@ -661,18 +656,16 @@ def flush_roots(stream, roots, extra, mesh):
 
             exprs = rewrite_roots(exprs)
         exprs = lower_hints(exprs, mesh)
-        _split = fuser.verify_whole(exprs)
+        split = fuser.verify_whole(exprs)
         results = []
         for idx, plan in _plans(exprs, mesh):
             if plan is not None:
-                results.append((idx, plan, _run_local(plan)))
+                results.append((idx, plan, _run_local(plan, split)))
             else:
                 results.append((idx, None, _run_whole(
-                    [exprs[i] for i in idx])))
+                    [exprs[i] for i in idx], split)))
     except Exception as e:  # every rank must learn of it: see _agree
         err = e
-    finally:
-        _split = False
     ok = _agree(err is None)
     consts = [None] * len(exprs)
     n_instrs = 0
@@ -774,7 +767,7 @@ def _flattened(exprs, local_shape):
     return [flat.get(id(e), e) for e in _rebuild(exprs, lower)]
 
 
-def _run_segment(r):
+def _run_segment(r, split=False):
     """A segment root's partials on this rank: one one-instruction
     program per partial (the segred kernel's on the card)."""
     from ramba_tpu_torch.core import fuser
@@ -783,7 +776,7 @@ def _run_segment(r):
         if isinstance(e, Const):
             return fuser.leaf_value(e)
         program, leaf_vals = fuser.prepare_program([e])
-        return _execute(program, leaf_vals)[0]
+        return _execute(program, leaf_vals, split)[0]
 
     data = value(r.expr)
     labels = value(r.labels)
@@ -800,11 +793,11 @@ def _run_segment(r):
         node = Node("segment_reduce", (kind, G, 0),
                     [Const(x), Const(labels)])
         program, leaf_vals = fuser.prepare_program([node])
-        parts.append(_execute(program, leaf_vals)[0])
+        parts.append(_execute(program, leaf_vals, split)[0])
     return parts
 
 
-def _run_local(plan):
+def _run_local(plan, split=False):
     """Run the plan's program on this rank's blocks: ``(values, number
     of instructions)``, a value per root (None where nothing ran; a list
     of partials for a groupby)."""
@@ -819,7 +812,7 @@ def _run_local(plan):
         local_shape = _mesh.index_shape(plan.index, plan.shape)
         flat = _flattened(exprs, local_shape)
         program, leaf_vals = fuser.prepare_program(flat or exprs)
-        vals = _execute(program, leaf_vals)
+        vals = _execute(program, leaf_vals, split)
         n_instrs += len(program.instrs)
         for i, v in zip(live, vals):
             if flat is not None and plan.roots[i].kind == "block":
@@ -827,7 +820,7 @@ def _run_local(plan):
             outs[i] = v
     for i, r in enumerate(plan.roots):
         if r.kind == "segment" and r.expr is not None:
-            outs[i] = _run_segment(r)
+            outs[i] = _run_segment(r, split)
             n_instrs += len(outs[i])
     return outs, n_instrs
 
@@ -873,7 +866,7 @@ def _finish_local(plan, outs):
     return consts
 
 
-def _run_whole(exprs):
+def _run_whole(exprs, split=False):
     """Every rank runs the program whole: block leaves all-gathered (the
     gathered lowering, counted) or none (replicated)."""
     from ramba_tpu_torch.core import fuser
@@ -887,5 +880,5 @@ def _run_whole(exprs):
         with fuser._stats_lock:
             fuser.stats["gathered"] += 1
     with _mesh.local_scope():
-        outs = _execute(program, leaf_vals)
+        outs = _execute(program, leaf_vals, split)
     return list(outs), len(program.instrs)

@@ -170,6 +170,23 @@ class TestDonationHazard:
         assert fuser.stats["segments"] > s0
         assert "findings" not in events.last(1, type="flush")[-1]
 
+    def test_segmented_flush_unset_keys_only_its_segments(self, monkeypatch):
+        # with the switches unset and no trace, a segmented program is
+        # keyed segment by segment, as before the analysis layer: its
+        # whole key and fingerprint are never derived
+        monkeypatch.setattr(common, "max_program_instrs", 3)
+        keyed = []
+        real = fuser._ledger.fingerprint
+        monkeypatch.setattr(fuser._ledger, "fingerprint",
+                            lambda key: keyed.append(key) or real(key))
+        b = rt.fromarray(np.ones((64, 64)))
+        for _ in range(8):
+            b = b + 1.0
+        np.testing.assert_array_equal(np.asarray(b), 9.0)
+        span = events.last(1, type="flush")[-1]
+        assert span["segments"] > 0 and "fingerprint" not in span
+        assert keyed and all(len(k[0][0]) <= 3 for k in keyed)
+
     def test_the_port_donates_nothing_and_counts_owners(self, tmp_path):
         # the census the rule reads comes from the governor's ledger
         path = str(tmp_path / "t.jsonl")

@@ -155,6 +155,25 @@ def test_a_cached_result_written_in_place_is_not_served():
     assert memo.cache.snapshot()["stale_outputs"] == 1
 
 
+def test_an_exported_host_array_cannot_write_into_a_cached_result():
+    # on the CPU the host array would share the cached tensor's memory,
+    # and a NumPy write bumps no version counter: it is read-only, as the
+    # reference's is, and a copy asked for is the caller's own
+    x = rt.fromarray(np.arange(8.0))
+    y = x * 2.0 + 1.0
+    for a in (np.asarray(y), y.asarray()):
+        assert a.flags.writeable == np.asarray(rtj.fromarray(
+            np.arange(8.0)) * 2.0 + 1.0).flags.writeable
+        with pytest.raises(ValueError):
+            a[0] = 99.0
+    mine = np.array(y)
+    mine[0] = 99.0
+    hits = memo.cache.hits
+    again = np.asarray(x * 2.0 + 1.0)
+    assert memo.cache.hits == hits + 1
+    np.testing.assert_array_equal(again, np.arange(8.0) * 2 + 1)
+
+
 def test_byte_identity_fuzz_memo_on_vs_off(monkeypatch):
     rng = np.random.RandomState(7)
     bases = [rng.rand(8, 8) for _ in range(3)]
