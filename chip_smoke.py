@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of ramba_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the whole run (about a minute or two)
+    python3 chip_smoke.py            # the whole run (6-7 min on one H100)
     python3 chip_smoke.py --quick    # phases 1-2 only: build and check kernels
     python3 chip_smoke.py --mesh     # phase 1 and the mesh path only
     python3 chip_smoke.py --dist     # phase 1 and the path across processes
     python3 chip_smoke.py --layout   # phase 1 and layouts across processes
     python3 chip_smoke.py --compile  # phase 1 and the compile pipeline
     python3 chip_smoke.py --analyze  # phase 1 and the analyzer, memo, certs
+    python3 chip_smoke.py --ladder   # phase 1 and the degradation ladder
 
 Phases, each reported on its own line:
 
@@ -161,9 +162,27 @@ Phases, each reported on its own line:
    flushes under verify off, strict and strict with ``RAMBA_PLANCERT=1``
    (99 certificate hits, prepare-plus-verify host time per flush), the
    offline linter over the path's trace, and the forged faults
-   (``compile:bucket``, ``memo:insert``, ``plan:stale``).  Every kernel's
-   launch count is set to 0 just before each path and read just after; a
-   path that does not launch its kernel fails the run;
+   (``compile:bucket``, ``memo:insert``, ``plan:stale``); then the
+   degradation ladder (``ladder_path``, alone with ``--ladder``): (a) the
+   sin/cos chain over a 2^28 float64 base, axpy + sum 2^28, star2 at
+   8192^2 and 4099x4133 (10 chained and 20 iterated sweeps), the hourly
+   groupby sum, ``rt.cumsum`` 2^28 and the 1e9 headline chain, each on
+   the fused rung with no degrade step; (b) every rung the ladder offers
+   each of them forced through ``RAMBA_FAULTS`` (the host rung at 2^24 and
+   2048^2) and held against the fused result, byte-equal or within its
+   stated bound, each rung's wall beside the fused one; (c) the headline
+   chain under a ``RAMBA_HBM_BUDGET`` below its estimated peak, admitted
+   to the chunked rung; (d) a real out-of-memory error on a card filled
+   with governed arrays, evicted and recovered with no buffer of the
+   failed attempt left; (e) a transient fault retried in place, an
+   injected fatal fault and a forged kernel build error raising with no
+   degrade step; (f) the shadow audit (``RAMBA_MEMO=1 RAMBA_AUDIT=1``) of
+   the elemred and segred programs, ``ok`` or ``numeric``, and a flipped
+   shadow a mismatch that evicts; (g) four ranks on cuda:0 dropping
+   together on one rank's fault and aborting together on a fatal one.
+   Every kernel's launch count is set to 0 just before each path and
+   read just after; a path that does not launch its kernel fails the
+   run;
 4. a ``kernels`` JSON line, the card's name and power limit, and the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -1715,6 +1734,15 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
     for k in ("elemred", "stencil", "segred"):
         if totals[k] == before[k]:
             raise Fail(f"analyze_path launched no {k}")
+    log("  ladder_path: the degradation ladder, admission, retries and the "
+        "shadow audit")
+    before = dict(totals)
+    timed("ladder_path", ladder_path, rt, er, sk, sg, sc, torch, np, card,
+          window, totals,
+          dist.get("ms_per_sweep_slowest_rank", {}).get("star2_even"))
+    for k in totals:
+        if totals[k] == before[k]:
+            raise Fail(f"ladder_path launched no {k}")
     log(f"  phase 3 walls by path (s): {json.dumps(walls)} [{card}]")
     return totals, sharded, dist
 
@@ -3636,6 +3664,8 @@ def dist_rank(argv) -> int:
             er, sk, sc, "axpy", lambda: float(rt.sum(2.5 * a + b)), rep)
     elif "--layout" in argv:
         layout_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, out)
+    elif "--ladder" in argv:
+        ladder_rank_programs(rt, np, torch, er, sk, sc, rep)
     else:
         dist_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, out)
     rep["gathered"] = fuser.stats["gathered"]
@@ -5720,6 +5750,821 @@ def analyze_path(rt, er, sk, sg, sc, torch, np, card, window):
     return out
 
 
+# ---------------------------------------------------------------------------
+# ladder_path: the degradation ladder, admission, retries and the audit
+# ---------------------------------------------------------------------------
+
+LADDER_N = 1 << 28                 # the 1-D programs, float64
+LADDER_HOST_N = 1 << 24            # the same on the host rung
+LADDER_GRID = 8192                 # star2, float32 (TMA)
+LADDER_ODD = (4099, 4133)          # star2, float32 (cp.async)
+LADDER_HOST_GRID = 2048            # star2 on the host rung
+LADDER_SWEEPS = (10, 20)           # (chained, iterate)
+LADDER_CHAIN_N = 10 ** 9           # the headline chain
+LADDER_FILL = 1 << 30              # bytes of one fill array in (d)
+LADDER_RANKS = 4
+LADDER_DIST_N = 1 << 28            # axpy + sum across ranks, float64
+LADDER_DIST_GRID = 8192            # star2 across ranks, float32
+LADDER_DIST_SWEEPS = 10
+LADDER_LIMIT_S = 300               # per launch of ranks, every rank of it
+# RAMBA_FAULTS for each rung below fused: an injected out-of-memory error
+# at the fused rung's call gives split, at split's first segment too
+# chunked, at chunked's too eager; an eager fault then gives host.  A
+# one-instruction program is offered no split or chunked rung: its first
+# fault gives eager.  bytes=1: each eviction spills one cold array, not all
+RUNG_FAULTS = {"split": "oom:1:bytes=1", "chunked": "oom:2:bytes=1",
+               "eager": "oom:3:bytes=1",
+               "host": "oom:3:bytes=1,eager:once:oom:bytes=1"}
+
+
+def _ew_bound(torch, f, ulps=8):
+    """An elementwise result computed by another rung: within ``ulps``
+    of the largest magnitude (a kernel's own sin/cos or an FMA against
+    torch's ops)."""
+    eps = EPS.get(str(f.dtype).replace("torch.", ""), 2.0 ** -52)
+    ff = f.double()
+    top = ff[torch.isfinite(ff)].abs().max().item() if ff.numel() else 0.0
+    return ulps * eps * (ff.abs() + top)
+
+
+def _ladder_cases(rt, np, torch, sc, star2):
+    """name -> make(cut): each builds its inputs on the card (the host
+    rung's cut sizes when ``cut``) and returns ``(run, need, bounds)``:
+    ``run()`` builds, flushes and returns the output tensors; ``need`` the
+    kernel launches of its fused rung; ``bounds(outs)`` each output's
+    bound against another rung's (None: the elementwise rule) and why."""
+    from ramba_tpu_torch.ops import elemred, segred
+
+    def red_bound(n, s_abs, dtype="float64"):
+        depth = max(elemred.depth(n), segred.depth(n))
+        return sum_bound(depth, dtype, s_abs), \
+            f"2 depth(n) eps sum|x|, depth {depth}"
+
+    def sincos(cut):
+        n = LADDER_HOST_N if cut else LADDER_N
+        base = rt.arange(n) / 1000.0
+        rt.sync()
+
+        def run():
+            B, C = rt.sin(base), rt.cos(base)
+            D = B * B + C * C
+            s = rt.sum(D)
+            del B, C
+            return [D._value(), s._value()]
+
+        return run, {"elemred": 1}, lambda o: [
+            (None, "8 ulp of the largest"),
+            red_bound(n, abs(float(o[1])))]
+
+    def axpy(cut):
+        n = LADDER_HOST_N if cut else LADDER_N
+        x = rt.sin(rt.arange(n) * 1e-3)
+        y = rt.cos(rt.arange(n) * 1e-3)
+        rt.sync()
+        s_abs = float((2.5 * x._value() + y._value()).abs().sum())
+
+        def run():
+            return [rt.sum(2.5 * x + y)._value()]
+
+        return run, {"elemred": 1}, lambda o: [red_bound(n, s_abs)]
+
+    def star2_grid(shape, chained):
+        def make(cut):
+            sh = (LADDER_HOST_GRID, LADDER_HOST_GRID) if cut else shape
+            x = rt.fromarray(torch.rand(sh, dtype=torch.float32,
+                                        generator=_gen(torch, 3),
+                                        device="cuda"))
+            rt.sync()
+            k = LADDER_SWEEPS[0] if chained else LADDER_SWEEPS[1]
+
+            def run():
+                if chained:
+                    y = x
+                    for _ in range(k):
+                        y = rt.sstencil(star2, y)
+                else:
+                    y = rt.sstencil_iterate(star2, x, k)
+                return [y._value()]
+
+            return run, {"stencil": k}, lambda o: [
+                (None, "8 ulp of the largest")]
+
+        return make
+
+    def groupby(cut):
+        n = LADDER_HOST_N if cut else LADDER_N
+        x_t, hour = hourly_series(torch, np, n)
+        g = rt.fromarray(x_t).groupby(0, hour, num_groups=24)
+        lab = torch.from_numpy(hour).to(x_t.device).long()
+        g_abs = torch.zeros(24, dtype=torch.float64,
+                            device=x_t.device).index_add_(0, lab, x_t.abs())
+        del lab
+
+        def run():
+            return [g.sum()._value()]
+
+        return run, {"segred": 1}, lambda o: [red_bound(n, g_abs)]
+
+    def cumsum(cut):
+        n = LADDER_HOST_N if cut else LADDER_N
+        x = rt.sin(rt.arange(n) * 1e-3)
+        rt.sync()
+
+        def run():
+            return [rt.cumsum(x)._value()]
+
+        def bounds(o):
+            prefix = torch.cumsum(x._value().abs(), 0)
+            return [(sum_bound(sc.depth(n), "float64", prefix),
+                     f"2 depth(n) eps prefix sum|x|, depth {sc.depth(n)}")]
+
+        return run, {"scan": 1}, bounds
+
+    def headline(cut):
+        n = LADDER_HOST_N if cut else LADDER_CHAIN_N
+
+        def run():
+            A = rt.arange(n) / 1000.0
+            D = rt.sin(A) ** 2 + rt.cos(A) ** 2
+            del A
+            return [rt.sum(D)._value()]
+
+        return run, {}, lambda o: [red_bound(n, abs(float(o[0])))]
+
+    return {"sincos": sincos, "axpy": axpy,
+            "star2_chained": star2_grid((LADDER_GRID, LADDER_GRID), True),
+            "star2_iterate": star2_grid((LADDER_GRID, LADDER_GRID), False),
+            "star2_odd_chained": star2_grid(LADDER_ODD, True),
+            "star2_odd_iterate": star2_grid(LADDER_ODD, False),
+            "groupby": groupby, "cumsum": cumsum, "headline": headline}
+
+
+def _gen(torch, seed):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return g
+
+
+def _ladder_hold(torch, what, got, fused, bounds):
+    """Each output of a rung against the fused rung's: byte-equal, else
+    within its bound.  Returns whether every output was byte-equal."""
+    same = True
+    for i, (g, f, (b, why)) in enumerate(zip(got, fused, bounds)):
+        if g.dtype != f.dtype or g.shape != f.shape:
+            raise Fail(f"{what}[{i}]: {g.dtype}{tuple(g.shape)} against "
+                       f"{f.dtype}{tuple(f.shape)}")
+        if bytes_equal(g, f):
+            continue
+        same = False
+        if b is None:
+            b = _ew_bound(torch, f)
+        gd, fd = g.double(), f.double()
+        if not torch.equal(torch.isnan(gd), torch.isnan(fd)):
+            raise Fail(f"{what}[{i}]: NaNs in other places")
+        err = torch.where(torch.isnan(fd), torch.zeros_like(fd),
+                          (gd - fd).abs())
+        b = torch.as_tensor(b, dtype=torch.float64, device=err.device)
+        ok = bool(((err <= b) | (gd == fd)).all())
+        ratio = torch.where(b > 0, err / b, err).max().item()
+        log(f"  {what}[{i}]: not byte-equal, max |diff| "
+            f"{err.max().item():.3e}, largest diff/bound {ratio:.4f} ({why}) "
+            f"{'ok' if ok else 'MISS'}")
+        if not ok:
+            raise Fail(f"{what}[{i}] disagrees with the fused rung")
+    return same
+
+
+def _ladder_run(torch, run, spec=None, evicted=None):
+    """One flush of ``run`` (under the RAMBA_FAULTS ``spec``): its
+    outputs, wall, span and the degrade steps it took; the bytes its
+    drops' evictions spilled are appended to ``evicted`` when given."""
+    from ramba_tpu_torch.observe import events, registry
+    from ramba_tpu_torch.resilience import faults
+
+    d0 = registry.get("resilience.degrade_steps")
+    seen = []
+    torch.cuda.synchronize()
+    # every run starts from an empty allocator cache: another rung's
+    # blocks otherwise leave it to free and map memory inside the wall
+    torch.cuda.empty_cache()
+    events.add_tap(seen.append)
+    t0 = time.perf_counter()
+    try:
+        if spec:
+            with faults.active(spec):
+                outs = run()
+        else:
+            outs = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        events.remove_tap(seen.append)
+    if evicted is not None:
+        evicted.append(sum(e.get("freed_bytes", 0) for e in seen
+                           if e.get("action") == "oom_evict"))
+    spans = events.last(40, type="flush")
+    return outs, wall, spans[-1], \
+        registry.get("resilience.degrade_steps") - d0
+
+
+def ladder_rungs(rt, np, torch, sc, card, window, star2):
+    """(a) each main-path program with nothing forced: every flush on
+    fused, no degrade step, the kernel launches its path gives; (b) each
+    rung the ladder offers it, forced, held against the fused result
+    (full size; the host rung at its cut size, against a fused run at
+    that size)."""
+    from ramba_tpu_torch.core import fuser
+
+    cases = _ladder_cases(rt, np, torch, sc, star2)
+    healthy, forced, same_bytes = {}, {}, {}
+    for name, make in cases.items():
+        run, need, bounds = make(False)
+        # the first call builds and plans: not the fused wall
+        _ladder_run(torch, run)
+        fused, wall, span, steps = window(
+            f"ladder (a) {name} fused", lambda: _ladder_run(torch, run),
+            need)
+        if span.get("degraded") or steps:
+            raise Fail(f"ladder (a) {name}: rung {span.get('degraded')}, "
+                       f"{steps} degrade steps with nothing forced")
+        healthy[name] = wall
+        bnds = bounds(fused)
+        offered = fuser.rungs_for(span["instrs"], host=True)
+        forced[name], same_bytes[name] = {"fused": wall}, ["fused"]
+        evicted = []
+        for rung in offered[1:-1]:
+            # the first run builds its segments' kernels: the second's
+            # wall is the rung's
+            cold = _ladder_run(torch, run, RUNG_FAULTS[rung])[1]
+            got, w, sp, steps = window(
+                f"ladder (b) {name} {rung}",
+                lambda: _ladder_run(torch, run, RUNG_FAULTS[rung],
+                                    evicted), {})
+            if sp.get("degraded") != rung:
+                raise Fail(f"ladder (b) {name}: {RUNG_FAULTS[rung]} gave "
+                           f"rung {sp.get('degraded')}, not {rung}")
+            if _ladder_hold(torch, f"ladder (b) {name} {rung}", got, fused,
+                            bnds):
+                same_bytes[name].append(rung)
+            forced[name][rung] = w
+            forced[name][f"{rung}_first"] = cold
+            del got
+        del fused, run
+        torch.cuda.empty_cache()
+        # the host rung at its cut size
+        run, need, bounds = make(True)
+        _ladder_run(torch, run)
+        fused, wall_c, _sp, _s = _ladder_run(torch, run)
+        _ladder_run(torch, run, RUNG_FAULTS["host"])
+        got, w, sp, steps = _ladder_run(torch, run, RUNG_FAULTS["host"])
+        if sp.get("degraded") != "host":
+            raise Fail(f"ladder (b) {name}: host fault gave rung "
+                       f"{sp.get('degraded')}")
+        if _ladder_hold(torch, f"ladder (b) {name} host (cut)", got, fused,
+                        bounds(fused)):
+            same_bytes[name].append("host")
+        forced[name]["host_cut"] = [wall_c, w]
+        del got, fused, run
+        torch.cuda.empty_cache()
+        walls = ", ".join(f"{k} {v if isinstance(v, float) else v[1]:.4f} s"
+                          for k, v in forced[name].items()
+                          if not k.endswith("_first"))
+        firsts = ", ".join(f"{k[:-6]} {v:.4f} s" for k, v in
+                           forced[name].items() if k.endswith("_first"))
+        forced[name]["evicted_bytes"] = evicted
+        log(f"  ladder {name}: rungs offered {offered}; walls {walls}, "
+            f"second runs (first runs, building their segments' kernels: "
+            f"{firsts or 'none'}; GiB the drops of each second run "
+            f"spilled {[round(b / 2 ** 30, 3) for b in evicted]}) "
+            f"(host at its cut size beside fused there "
+            f"{forced[name]['host_cut'][0]:.4f} s); the fused bytes on "
+            f"{same_bytes[name]} [{card}]")
+    return {"fused_s": healthy, "rung_s": forced, "fused_bytes": same_bytes}
+
+
+def ladder_admission(rt, np, torch, card, window):
+    """(c) The 1e9 headline chain under a RAMBA_HBM_BUDGET below its
+    estimated peak: admission rejects the fused rung and the flush runs
+    chunked, its result within the depth bound of the fused one."""
+    import os
+
+    from ramba_tpu_torch.observe import registry
+    from ramba_tpu_torch.ops import elemred, segred
+
+    n = LADDER_CHAIN_N
+
+    def run():
+        A = rt.arange(n) / 1000.0
+        D = rt.sin(A) ** 2 + rt.cos(A) ** 2
+        del A
+        return [rt.sum(D)._value()]
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fused, w_f, span_f, _s = window("ladder (c) headline fused",
+                                    lambda: _ladder_run(torch, run), {})
+    peak_f = torch.cuda.max_memory_allocated() - base
+    est = span_f["mem_peak_est"]
+    budget = int(est * 0.9)
+    old = os.environ.get("RAMBA_HBM_BUDGET")
+    os.environ["RAMBA_HBM_BUDGET"] = str(budget)
+    r0 = registry.get("memory.admission_rejects")
+    try:
+        _ladder_run(torch, run)  # builds the segments' kernels
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got, w_c, span, steps = window("ladder (c) headline admitted",
+                                       lambda: _ladder_run(torch, run), {})
+        peak_c = torch.cuda.max_memory_allocated() - base
+    finally:
+        if old is None:
+            os.environ.pop("RAMBA_HBM_BUDGET", None)
+        else:
+            os.environ["RAMBA_HBM_BUDGET"] = old
+    rejects = registry.get("memory.admission_rejects") - r0
+    depth = max(elemred.depth(n), segred.depth(n))
+    same = _ladder_hold(torch, "ladder (c) headline chunked", got, fused, [(
+        sum_bound(depth, "float64", abs(float(fused[0]))),
+        f"2 depth(n) eps sum|x|, depth {depth}")])
+    log(f"  ladder (c) admission: estimate {est / 2 ** 30:.3f} GiB, budget "
+        f"{budget / 2 ** 30:.3f} GiB (watermark 0.9 of it), "
+        f"memory.admission_rejects +{rejects} (two runs), rung "
+        f"{span.get('degraded')} ({span.get('segments')} segments, "
+        f"chunk {span.get('chunk_bytes', 0) / 2 ** 30:.3f} GiB); "
+        f"max_memory_allocated chunked {peak_c / 2 ** 30:.3f} GiB vs fused "
+        f"{peak_f / 2 ** 30:.3f} GiB (budget >= chunked peak: "
+        f"{budget >= peak_c}); walls chunked {w_c:.4f} s, fused "
+        f"{w_f:.4f} s; result byte-equal {same} [{card}]")
+    if rejects != 2 or span.get("degraded") != "chunked" or \
+            span.get("admission") != "chunked":
+        raise Fail(f"ladder (c): rejects {rejects}, span {span}")
+    return {"est_bytes": est, "budget_bytes": budget, "rejects": rejects,
+            "peak_chunked_bytes": peak_c, "peak_fused_bytes": peak_f,
+            "chunked_s": w_c, "fused_s": w_f, "byte_equal": same}
+
+
+def ladder_real_oom(rt, np, torch, card, window):
+    """(d) The card filled with governed, spillable arrays until a flush's
+    fused attempt gets a real ``torch.cuda.OutOfMemoryError``: the
+    eviction spills fill, the ladder drops, the result is right, and
+    nothing of the failed attempt stays allocated."""
+    import gc
+    import os
+
+    from ramba_tpu_torch.core import fuser
+    from ramba_tpu_torch.observe import events, registry
+    from ramba_tpu_torch.resilience import memory, spill
+
+    n = LADDER_N
+    old = os.environ.get("RAMBA_HBM_BUDGET")
+    # a budget past the card: admission and placement never spill, so
+    # the card itself runs out
+    os.environ["RAMBA_HBM_BUDGET"] = "1000g"
+    fill = []
+    try:
+        fuser.flush()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        x = rt.sin(rt.arange(n) * 1e-3)
+        y = rt.cos(rt.arange(n) * 1e-3)
+        rt.sync()
+        want = 2.5 * x._value() + y._value()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        out_b = n * 8
+        while True:
+            torch.cuda.empty_cache()
+            free = torch.cuda.mem_get_info()[0]
+            if free < out_b * 3 // 4:
+                break
+            k = min(LADDER_FILL, free - out_b // 2) // 8
+            fill.append(rt.zeros(k))
+            rt.sync()
+        fill_b = sum(int(f.size) * 8 for f in fill)
+        ev0 = registry.get("memory.evictions")
+        seen = []
+        events.add_tap(seen.append)
+        z = 2.5 * x + y
+        try:
+            got, wall, span, steps = window(
+                "ladder (d) axpy on a full card",
+                lambda: _ladder_run(torch, lambda: [z._value()]), {})
+        finally:
+            events.remove_tap(seen.append)
+        freed = sum(e.get("freed_bytes", 0) for e in seen
+                    if e.get("action") == "oom_evict")
+        errs = [e.get("error") or "" for e in seen
+                if e.get("type") == "degrade" and e.get("action") == "rung"]
+        spilled = sum(int(f.size) * 8 for f in fill
+                      if isinstance(f._expr.value, spill.SpilledArray))
+        gc.collect()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        expect = base + out_b + (fill_b - spilled)
+        extra = held - expect
+        equal = bytes_equal(got[0], want)
+        del got
+        log(f"  ladder (d) real OOM: {len(fill)} fill arrays "
+            f"({fill_b / 2 ** 30:.2f} GiB) left "
+            f"{free / 2 ** 30:.2f} GiB free; the fused attempt raised "
+            f"{errs[0][:60] if errs else 'nothing'!r}; evictions "
+            f"{registry.get('memory.evictions') - ev0}, "
+            f"{freed / 2 ** 30:.2f} GiB freed, {steps} rung(s) down to "
+            f"{span.get('degraded')}, result byte-equal to a plain axpy "
+            f"{equal}; allocated after the flush {held / 2 ** 30:.3f} GiB "
+            f"against leaves + result + unspilled fill "
+            f"{expect / 2 ** 30:.3f} GiB ({extra / 2 ** 20:+.1f} MiB); "
+            f"wall {wall:.4f} s [{card}]")
+        if not errs or "OutOfMemoryError" not in errs[0] or \
+                span.get("degraded") in (None, "fused") or not equal or \
+                freed <= 0 or abs(extra) > 64 << 20:
+            raise Fail("ladder (d): a real out-of-memory error did not "
+                       "evict, drop a rung and finish clean")
+        return {"fill_bytes": fill_b, "freed_bytes": freed,
+                "rung": span.get("degraded"), "extra_bytes": extra,
+                "wall_s": wall}
+    finally:
+        del fill
+        gc.collect()
+        if old is None:
+            os.environ.pop("RAMBA_HBM_BUDGET", None)
+        else:
+            os.environ["RAMBA_HBM_BUDGET"] = old
+        torch.cuda.empty_cache()
+
+
+def ladder_faults(rt, np, torch, er, card, window):
+    """(e) A transient execute fault retried in place on fused; an
+    injected fatal fault and a forged kernel build error raising with no
+    degrade step, their roots quarantined, and a fresh array still
+    flushing and launching its kernel."""
+    import subprocess as sp
+
+    from ramba_tpu_torch import _build
+    from ramba_tpu_torch.core import fuser
+    from ramba_tpu_torch.observe import registry
+    from ramba_tpu_torch.resilience import faults
+
+    x = rt.sin(rt.arange(LADDER_N) * 1e-3)
+    y = rt.cos(rt.arange(LADDER_N) * 1e-3)
+    rt.sync()
+    out = {}
+    r0 = registry.get("resilience.retries.flush")
+    got, wall, span, steps = window(
+        "ladder (e) transient execute fault",
+        lambda: _ladder_run(torch, lambda: [rt.sum(2.5 * x + y)._value()],
+                            "execute:once"), {"elemred": 1})
+    retries = registry.get("resilience.retries.flush") - r0
+    if retries != 1 or steps or span.get("degraded"):
+        raise Fail(f"ladder (e): transient fault retried {retries}, "
+                   f"{steps} steps, rung {span.get('degraded')}")
+    out["transient"] = {"retries": retries, "wall_s": wall}
+
+    def fatal(what, run):
+        q0, d0 = fuser.stats["quarantined"], \
+            registry.get("resilience.degrade_steps")
+        try:
+            run()
+        except Exception as e:  # the expected failure
+            err = f"{type(e).__name__}: {e}"[:120]
+        else:
+            raise Fail(f"ladder (e) {what}: no error")
+        q = fuser.stats["quarantined"] - q0
+        d = registry.get("resilience.degrade_steps") - d0
+        fresh = window(f"ladder (e) after {what}", lambda: float(
+            rt.sum(rt.fromarray(x._value()[:1 << 20]) * 3.0 + 1.0)),
+            {"elemred": 1})
+        log(f"  ladder (e) {what}: raised {err!r}, degrade steps {d}, "
+            f"roots quarantined {q}; a fresh array flushed ({fresh!r}) "
+            f"and launched elemred [{card}]")
+        if d or q < 1:
+            raise Fail(f"ladder (e) {what}: {d} degrade steps, {q} "
+                       "quarantined")
+        return {"error": err, "degrade_steps": d, "quarantined": q}
+
+    z = 2.5 * x - y
+
+    def injected():
+        with faults.active("execute:once:fatal"):
+            z._value()
+
+    out["fatal"] = fatal("InjectedFatalFault", injected)
+    forged = {"n": 0}
+    real = _build._run_nvcc
+
+    def no_nvcc(cmd):
+        forged["n"] += 1
+        return sp.CompletedProcess(cmd, 1, "", "forged: nvcc refused")
+
+    w = x * 1.25 - rt.sqrt(rt.abs(y)) * 0.75  # a program not built yet
+
+    def build():
+        _build._run_nvcc = no_nvcc
+        try:
+            w._value()
+        finally:
+            _build._run_nvcc = real
+
+    out["build"] = fatal("forged kernel build error", build)
+    if forged["n"] < 1 or "KernelBuildError" not in out["build"]["error"]:
+        raise Fail(f"ladder (e): the forged build did not raise "
+                   f"KernelBuildError: {out['build']}")
+    window("ladder (e) the unbuilt program, built", lambda: w._value(),
+           {"elemred": 1})
+    log(f"  ladder (e) transient execute fault: retried "
+        f"{out['transient']['retries']} time in place, rung fused, "
+        f"{wall:.4f} s [{card}]")
+    return out
+
+
+def ladder_audit(rt, np, torch, sc, card, window, star2):
+    """(f) RAMBA_MEMO=1 RAMBA_AUDIT=1 on the elemred, segred and stencil
+    programs: each clean audit ok or numeric, its wall beside the
+    flush's; a flipped shadow a mismatch that serves the unaudited bytes
+    and evicts, so the repeat launches again."""
+    import os
+
+    from ramba_tpu_torch.core import fuser, memo
+    from ramba_tpu_torch.observe import events
+    from ramba_tpu_torch.resilience import faults, integrity
+
+    base = rt.arange(LADDER_N) / 1000.0
+    x = rt.sin(rt.arange(LADDER_N) * 1e-3)
+    y = rt.cos(rt.arange(LADDER_N) * 1e-3)
+    x_t, hour = hourly_series(torch, np, LADDER_N)
+    g = rt.fromarray(x_t).groupby(0, hour, num_groups=24)
+    grid = rt.fromarray(torch.rand((LADDER_GRID, LADDER_GRID),
+                                   dtype=torch.float32,
+                                   generator=_gen(torch, 3), device="cuda"))
+    rt.sync()
+    progs = {"sincos": (lambda: rt.sin(base) * rt.sin(base)
+                        + rt.cos(base) * rt.cos(base), {"elemred": 1}),
+             "sincos_sum": (lambda: rt.sum(rt.sin(base) * rt.sin(base)
+                                           + rt.cos(base) * rt.cos(base)),
+                            {"elemred": 1}),
+             "axpy_sum": (lambda: rt.sum(2.5 * x + y), {"elemred": 1}),
+             "groupby_sum": (lambda: g.sum(), {"segred": 1})}
+    old = {k: os.environ.get(k) for k in ("RAMBA_MEMO", "RAMBA_AUDIT")}
+    for make, _need in progs.values():  # builds and plans outside the walls
+        make()._value()
+    os.environ["RAMBA_MEMO"] = "1"
+    os.environ["RAMBA_AUDIT"] = "1"
+    out = {}
+    try:
+        memo.reset()
+        integrity.reset()
+        for name, (make, need) in progs.items():
+            v = window(f"ladder (f) {name} audited",
+                       lambda: make()._value(), need)
+            torch.cuda.synchronize()
+            span = events.last(1, type="flush")[-1]
+            ev = events.last(1, type="integrity_audit")[-1]
+            out[name] = {"outcome": ev["outcome"], "flush_s": span["wall_s"],
+                         "audit_s": span.get("audit_s")}
+            log(f"  ladder (f) {name}: audit {ev['outcome']}, audit "
+                f"{span.get('audit_s', 0):.4f} s beside the flush "
+                f"{span['wall_s']:.4f} s [{card}]")
+            if ev["outcome"] not in ("ok", "numeric") or \
+                    not span.get("audited"):
+                raise Fail(f"ladder (f) {name}: audit {ev}")
+            del v
+        # the stencil's body is a Python function: the memo cannot token
+        # it, so its flushes are not eligible; the slack the audit would
+        # apply, held here against the kernel's fused bytes
+        a0 = integrity.snapshot()["audits"]
+        for tag, make in (("chained", lambda: _chain10(rt, star2, grid)),
+                          ("iterate", lambda: rt.sstencil_iterate(
+                              star2, grid, LADDER_SWEEPS[1]))):
+            arr = make()
+            program, vals = fuser.prepare_program([arr._expr])
+            fused = window(f"ladder (f) star2 {tag}", lambda: arr._value(),
+                           {"stencil": None})
+            t0 = time.perf_counter()
+            shadow, slack = fuser._audit_rerun(program, vals)
+            verdict = integrity._classify_divergence([fused], shadow, slack)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            outcome = "mismatch" if verdict[0] else \
+                "numeric" if verdict[1] else "ok"
+            out[f"star2_{tag}"] = {"outcome": outcome, "audit_s": dt,
+                                   "eligible": False}
+            log(f"  ladder (f) star2 {tag} 8192^2: not sampled (its body "
+                f"has no memo token); the audit's classifier on its eager "
+                f"rerun: {outcome}, {dt:.4f} s [{card}]")
+            if verdict[0]:
+                raise Fail(f"ladder (f) star2 {tag}: eager rerun "
+                           "classified a mismatch")
+            del arr, fused, shadow, vals
+        if integrity.snapshot()["audits"] != a0:
+            raise Fail("ladder (f): an uncertified stencil flush was audited")
+        # a flipped shadow: fresh inputs, so the memo misses
+        os.environ.pop("RAMBA_AUDIT")
+        memo.reset()
+        plain = (2.5 * y + x)._value().clone()
+        memo.reset()
+        os.environ["RAMBA_AUDIT"] = "1"
+        faults.configure("audit:shadow:flip:bytes=4")
+        try:
+            served = window("ladder (f) flipped audit",
+                            lambda: (2.5 * y + x)._value(), {"elemred": 1})
+        finally:
+            faults.configure(None)
+        ev = events.last(1, type="integrity_audit")[-1]
+        again = window("ladder (f) repeat after the mismatch",
+                       lambda: (2.5 * y + x)._value(), {"elemred": 1})
+        ok = ev["outcome"] == "mismatch" and bytes_equal(served, plain) \
+            and bytes_equal(again, plain)
+        log(f"  ladder (f) flipped shadow: audit {ev['outcome']}, served "
+            f"bytes equal to the unaudited run {bytes_equal(served, plain)}, "
+            f"memo entry evicted (the repeat launched elemred again) "
+            f"[{card}]")
+        if not ok:
+            raise Fail(f"ladder (f) flipped audit: {ev}")
+        out["flipped"] = ev["outcome"]
+        out["snapshot"] = integrity.snapshot()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        memo.reset()
+        integrity.reset()
+    return out
+
+
+def _chain10(rt, star2, grid):
+    y = grid
+    for _ in range(LADDER_SWEEPS[0]):
+        y = rt.sstencil(star2, y)
+    return y
+
+
+def ladder_rank_programs(rt, np, torch, er, sk, sc, rep):
+    """One rank of ``ladder_path`` (g): axpy + sum and star2 with nothing
+    forced, with an ``oom`` on rank 1 alone, and a fatal fault on rank
+    1; the healthy iterate timed by CUDA events."""
+    from ramba_tpu_torch.observe import events, registry
+    from ramba_tpu_torch.resilience import coherence, faults, retry
+
+    rank = rep["rank"]
+    st = rt.stencil(star2_body)
+    a = dist_vec(rt, LADDER_DIST_N)
+    b = dist_vec(rt, LADDER_DIST_N, 104729)
+    x = dist_grid(rt, np, (LADDER_DIST_GRID, LADDER_DIST_GRID))
+    rt.sync()
+    rep["rungs"] = {}
+
+    def rung_of(name, fn):
+        r0 = registry.get("resilience.degrade_recovered")
+        v = _rank_window(er, sk, sc, name, fn, rep)
+        rung = "fused"
+        if registry.get("resilience.degrade_recovered") != r0:
+            rung = [e for e in events.last(80, type="degrade")
+                    if e.get("action") == "recovered"][-1]["rung"]
+        rep["rungs"][name] = rung
+        return v
+
+    for tag, spec in (("healthy", None), ("oom", "oom:1:bytes=1:rank=1")):
+        with faults.active(spec or ""):
+            rep["values"][f"axpy_{tag}"] = rung_of(
+                f"axpy_{tag}", lambda: float(rt.sum(2.5 * a + b)))
+        with faults.active(spec or ""):
+            y = rung_of(f"star2_{tag}", lambda: rt.sstencil_iterate(
+                st, x, LADDER_DIST_SWEEPS)._block())
+        rep["digests"][f"star2_{tag}"] = digest(y)
+        del y
+    rep["ms"]["star2_iterate"] = _events_ms(
+        torch, lambda: rt.sstencil_iterate(st, x, 20)._block(), 20)
+    with faults.active("execute:once:fatal:rank=1"):
+        try:
+            rt.sstencil_iterate(st, x, 2)._block()
+            rep["values"]["fatal"] = "no error"
+        except Exception as e:  # recorded for the parent
+            rep["values"]["fatal"] = f"{type(e).__name__}: {e}"[:200]
+            rep["values"]["fatal_class"] = retry.classify(e)
+    rep["values"]["after_fatal"] = float(rt.sum(a * 0.5))
+    rep["epochs"] = coherence.epochs()
+    rep["degrade_steps"] = registry.get("resilience.degrade_steps")
+
+
+def ladder_ranks(rt, np, torch, card, totals, dist_ms):
+    """(g) Four ranks on cuda:0 over gloo: an oom on rank 1 alone drops
+    every rank to the same rung in the same rounds, with the one-process
+    bytes; a fatal fault on rank 1 aborts every rank with one class; the
+    healthy star2 iterate's ms per sweep beside dist_path's."""
+    import os
+    import tempfile
+
+    from ramba_tpu_torch import common
+    from ramba_tpu_torch.parallel import mesh as pm
+
+    st = rt.stencil(star2_body)
+    dev = common.device()
+    grid2 = pm.Mesh(np.array([dev] * 4, dtype=object).reshape(2, 2),
+                    ("d0", "d1"))
+    t = rt.sstencil_iterate(st, dist_grid(rt, np, (LADDER_DIST_GRID,
+                                                    LADDER_DIST_GRID)),
+                            LADDER_DIST_SWEEPS)._value()
+    sh = pm.NamedSharding(grid2, pm.default_spec(tuple(t.shape), grid2))
+    ref = {pos: digest(t[idx]) for pos, idx in
+           sh.shard_indices(tuple(t.shape))}
+    want = float(rt.sum(2.5 * dist_vec(rt, LADDER_DIST_N)
+                        + dist_vec(rt, LADDER_DIST_N, 104729)))
+    del t
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="ramba_ladder_") as tmp:
+        os.makedirs(os.path.join(tmp, f"w{LADDER_RANKS}"))
+        t0 = time.perf_counter()
+        ranks = dist_start(LADDER_RANKS, tmp, ("--ladder",),
+                           env=dict(os.environ, RAMBA_RETRY_BASE_S="0",
+                                    RAMBA_INIT_TIMEOUT_S="120"))
+        try:
+            reps = dist_wait(ranks, tmp, time.time() + LADDER_LIMIT_S)
+        finally:
+            for p in ranks:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+    positions = {k: divmod(k, 2) for k in range(4)}
+    rungs = [r["rungs"] for r in reps]
+    epochs = [r["epochs"] for r in reps]
+    blocks = all(r["digests"][f"star2_{tag}"] == ref[positions[k]]
+                 for k, r in enumerate(reps) for tag in ("healthy", "oom"))
+    sums = {tag: {r["values"][f"axpy_{tag}"] for r in reps}
+            for tag in ("healthy", "oom")}
+    bound = 2 * LADDER_DIST_N * EPS["float64"] * abs(want)
+    within = all(len(v) == 1 and abs(next(iter(v)) - want) <= bound
+                 for v in sums.values())
+    classes = {r["values"].get("fatal_class") for r in reps}
+    fatal = [r["values"]["fatal"] for r in reps]
+    slow = max(r["ms"]["star2_iterate"] for r in reps)
+    for r in reps:
+        for k in totals:
+            totals[k] += sum(c.get(k, 0) for c in r["launches"].values())
+    log(f"  ladder (g) {LADDER_RANKS} ranks on cuda:0: rungs {rungs[0]} on "
+        f"every rank {all(x == rungs[0] for x in rungs)}; the same round "
+        f"epochs {all(e == epochs[0] for e in epochs)} ({epochs[0]}); "
+        f"star2 blocks byte-equal to one process {blocks}; axpy sums "
+        f"{ {k: sorted(v) for k, v in sums.items()} } (one value a run on "
+        f"every rank, within 2 n eps sum of one process's {want!r}: "
+        f"{within}; the dropped rung's bytes the fused rung's: "
+        f"{sums['healthy'] == sums['oom']}); fatal on rank 1: classes "
+        f"{classes}, "
+        f"{[f[:40] for f in fatal]}; {wall:.1f} s [{card}]")
+    log(f"  ladder (g) healthy star2 iterate 8192^2, slowest rank: "
+        f"{slow:.4f} ms/sweep (CUDA events) beside dist_path's "
+        f"{dist_ms if dist_ms is not None else 'not run'} ms/sweep "
+        f"[{card}]")
+    if not (all(x == {"axpy_healthy": "fused", "star2_healthy": "fused",
+                      "axpy_oom": "split", "star2_oom": "split"}
+                for x in rungs) and all(e == epochs[0] for e in epochs)
+            and blocks and within and classes == {"fatal"}
+            and fatal[1].startswith("InjectedFatalFault")
+            and all("another rank" in f for i, f in enumerate(fatal)
+                    if i != 1)
+            and len({r["values"]["after_fatal"] for r in reps}) == 1):
+        raise Fail("ladder (g): the ranks' ladders disagree")
+    return {"rungs": rungs[0], "epochs": epochs[0],
+            "star2_ms_per_sweep_slowest": slow,
+            "dist_star2_ms_per_sweep": dist_ms, "wall_s": wall}
+
+
+def ladder_path(rt, er, sk, sg, sc, torch, np, card, window, totals,
+                dist_ms=None):
+    """The degradation ladder on the card (ROADMAP A.8 parts one and
+    two), (a)-(g) as their functions say; ``dist_ms``: ``dist_path``'s
+    star2 iterate ms per sweep on the slowest rank, when it ran."""
+    from ramba_tpu_torch.observe import registry
+
+    t0 = time.perf_counter()
+    star2 = rt.stencil(star2_body)
+    out, walls = {}, {}
+
+    def part(name, fn, *a):
+        t = time.perf_counter()
+        out[name] = fn(*a)
+        walls[name] = time.perf_counter() - t
+
+    d0 = registry.get("resilience.degrade_steps")
+    part("rungs", ladder_rungs, rt, np, torch, sc, card, window, star2)
+    part("admission", ladder_admission, rt, np, torch, card, window)
+    part("real_oom", ladder_real_oom, rt, np, torch, card, window)
+    part("faults", ladder_faults, rt, np, torch, er, card, window)
+    part("audit", ladder_audit, rt, np, torch, sc, card, window, star2)
+    part("ranks", ladder_ranks, rt, np, torch, card, totals, dist_ms)
+    out["degrade_steps"] = registry.get("resilience.degrade_steps") - d0
+    out["wall_s"] = time.perf_counter() - t0
+    out["part_walls_s"] = walls
+    log(f"  ladder_path: {out['wall_s']:.1f} s, by part (s) "
+        f"{json.dumps(walls)} [{card}]")
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -5783,6 +6628,18 @@ def main(argv) -> int:
         for k in ("elemred", "stencil", "segred"):
             if not totals[k]:
                 raise Fail(f"analyze_path launched no {k}")
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        print(card, flush=True)
+        return 0
+    if "--ladder" in argv:  # phase 1 and ladder_path alone
+        totals = dict.fromkeys(("elemred", "stencil", "segred", "scan"), 0)
+        window = launch_window(er, sk, sg, sc, totals, card)
+        out = ladder_path(rt, er, sk, sg, sc, torch, np, card, window,
+                          totals)
+        log(json.dumps({"ladder": out, "launches": totals}, default=str))
+        for k in totals:
+            if not totals[k]:
+                raise Fail(f"ladder_path launched no {k}")
         log(f"total {time.perf_counter() - t_all:.1f} s")
         print(card, flush=True)
         return 0

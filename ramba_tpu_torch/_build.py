@@ -128,6 +128,12 @@ def so_path(name: str, source: str) -> str:
     return os.path.join(_ensure_dir(), f"{name}_{key}.so")
 
 
+class KernelBuildError(RuntimeError):
+    """A kernel source failed to build: fatal to the retry engine and the
+    degradation ladder (a rebuild of the same source fails the same
+    way)."""
+
+
 def _run_nvcc(cmd: list) -> subprocess.CompletedProcess:
     """One compiler run (the seam the CPU tests replace)."""
     return subprocess.run(cmd, capture_output=True, text=True)
@@ -203,7 +209,7 @@ def _build_locked(out: str, name: str, source: str) -> bool:
     cmd = [nvcc_path(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, cu]
     proc = _run_nvcc(cmd)
     if proc.returncode != 0:
-        raise RuntimeError(
+        raise KernelBuildError(
             f"nvcc failed for {name} ({proc.returncode}):\n{proc.stderr[-4000:]}")
     from ramba_tpu_torch.observe import registry
     from ramba_tpu_torch.resilience import integrity

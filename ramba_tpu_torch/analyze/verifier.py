@@ -11,9 +11,9 @@ Modes (read from the environment on every flush, so tests can toggle):
   :class:`~ramba_tpu_torch.analyze.findings.ProgramVerificationError`
   before the program is lowered: nothing builds, nothing launches.
 * any other value (``warn``)   — findings are emitted but nothing raises;
-  error findings route the flush to the split rung instead
-  (``fuser._run_segmented`` at half the instruction cap, exact shapes, no
-  result memo and no certificate), counted in
+  error findings start the flush's degradation ladder at the split rung
+  instead (``fuser._run_segmented`` at half the instruction cap, exact
+  shapes, no result memo and no certificate), counted in
   ``fuser.stats["verify_routed"]``.
 
 Rule selection: ``RAMBA_VERIFY_RULES`` (comma whitelist) and

@@ -12,6 +12,7 @@ turns silently into a CPU run.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import NamedTuple
 
@@ -110,10 +111,27 @@ def set_device(dev) -> torch.device:
     return _device
 
 
+_scoped: "torch.device | None" = None  # device_scope's, while it runs
+
+
+@contextlib.contextmanager
+def device_scope(dev):
+    """Every new value created inside the block goes to ``dev`` (the
+    degradation ladder's host rung runs a whole program on the CPU)."""
+    global _scoped
+    prev, _scoped = _scoped, torch.device(dev)
+    try:
+        yield _scoped
+    finally:
+        _scoped = prev
+
+
 def device() -> torch.device:
     """The device new arrays are created on.  Raises when no card is present
     and the CPU was not asked for."""
     global _device
+    if _scoped is not None:
+        return _scoped
     if _device is not None:
         return _device
     env = os.environ.get("RAMBA_TORCH_DEVICE", "").strip()

@@ -1,7 +1,7 @@
 """Flush machinery: lazy expression graphs -> one program per flush.
 
-Counterpart of ``ramba_tpu/core/fuser.py`` without its resilience ladder
-below the split rung, attribution, serving and integrity planes.  A flush
+Counterpart of ``ramba_tpu/core/fuser.py`` without its attribution and
+serving planes.  A flush
 collects every pending array, applies the graph rewrites
 (``core/rewrite.py``, unless ``RAMBA_TPU_REWRITE=0``), linearizes the graph
 into a buffer-free instruction program, picks a lowering for it and runs it
@@ -50,9 +50,19 @@ unset:
 * ``RAMBA_VERIFY`` — the static verifier (``analyze/``) checks the
   program before it is lowered: strict mode raises
   ``ProgramVerificationError`` (the roots are quarantined), warn mode
-  routes a program with error findings to the split rung
-  (:func:`_run_segmented` at half the cap), the one rung below the fused
-  program the port has.
+  starts a program with error findings at the split rung
+  (:func:`_run_segmented` at half the cap).
+
+Then :func:`_dispatch` admits the flush (``memory.admit``: one that does
+not fit starts at the chunked rung) and runs it down the degradation
+ladder (``resilience/degrade.py``): fused → split → chunked
+(:func:`_run_chunked`) → eager (:func:`_run_eager`) → host
+(:func:`_run_host`), every rung under the retry engine, a drop counted,
+evented and stamped on the span (``degraded``).  The healthy flush stays
+on the fused rung; a fatal error (a CUDA error, a failed kernel build, a
+programming error) raises from the rung that hit it.  Under
+``RAMBA_AUDIT`` a certified flush of the fused rung is re-run on the
+eager rung and compared (``resilience/integrity.shadow_audit``).
 
 On a mesh of ranks (several processes) a flush runs through
 ``core/rankflush.py``: on each rank's blocks, or on gathered operands,
@@ -79,7 +89,10 @@ from ramba_tpu_torch.core.expr import OPS, Const, Expr, Node, Scalar
 from ramba_tpu_torch.observe import events as _events
 from ramba_tpu_torch.observe import ledger as _ledger
 from ramba_tpu_torch.observe import registry as _registry
+from ramba_tpu_torch.parallel import distributed as _distributed
 from ramba_tpu_torch.parallel import mesh as _mesh
+from ramba_tpu_torch.resilience import coherence as _coherence
+from ramba_tpu_torch.resilience import degrade as _degrade
 from ramba_tpu_torch.resilience import faults as _faults
 from ramba_tpu_torch.resilience import memory as _memory
 from ramba_tpu_torch.resilience.spill import SpilledArray
@@ -89,7 +102,7 @@ from ramba_tpu_torch.resilience.spill import SpilledArray
 # ``quarantined``: roots of failed flushes taken out of the pending registry.
 # ``gathered``: flushes on a mesh of ranks that all-gathered their block
 # leaves to run whole (``core/rankflush.py``).  ``verify_routed``: flushes
-# RAMBA_VERIFY=warn sent to the split rung.
+# RAMBA_VERIFY=warn started at the split rung.
 stats = {"flushes": 0, "compiles": 0, "nodes_flushed": 0, "segments": 0,
          "quarantined": 0, "gathered": 0, "verify_routed": 0}
 
@@ -396,8 +409,8 @@ def _byte_segment_end(instrs, n_leaves, start: int, slot_bytes: dict,
     ``start``: add up the bytes each instruction brings into the
     segment's live set (its output slot plus any outside input it pulls
     in) and stop before the total crosses ``max_seg_bytes``.  Always
-    admits at least one instruction.  (ROADMAP A.8's ``chunked`` rung
-    reads it; nothing in this port calls it yet.)"""
+    admits at least one instruction.  The ``chunked`` rung
+    (:func:`_run_chunked`) cuts its segments here."""
     base = n_leaves + start
     ninstr = len(instrs)
     seen_in: set = set()
@@ -468,18 +481,22 @@ def _iter_segments(program: _Program, last_use: dict,
 
 def _run_segmented(program: _Program, leaf_vals, span: Optional[dict] = None,
                    seg_size: Optional[int] = None,
-                   rung: str = "fused") -> tuple:
+                   rung: str = "fused", *,
+                   slot_bytes: Optional[dict] = None,
+                   max_seg_bytes: Optional[int] = None) -> tuple:
     """Run a program longer than ``common.max_program_instrs`` as a chain
     of segments inside one flush (or, as the split rung, any program at
-    ``seg_size``).  Each segment goes through the compile cache with its
-    own leaf values (a chain of one repeated structure compiles one
-    segment), so a segment the classifier accepts launches elemred; a
+    ``seg_size``; as the chunked rung, at ``max_seg_bytes`` of estimated
+    live bytes a segment).  Each segment goes through the compile cache
+    with its own leaf values (a chain of one repeated structure compiles
+    one segment), so a segment the classifier accepts launches elemred; a
     value crossing a boundary is a segment output carried to the next,
     and every value is dropped after its last use."""
     last_use = _last_use_map(program)
     vals: dict[int, object] = dict(enumerate(leaf_vals))
     for seg_prog, in_slots, out_here, top in _iter_segments(
-            program, last_use, seg_size):
+            program, last_use, seg_size, slot_bytes=slot_bytes,
+            max_seg_bytes=max_seg_bytes):
         seg_vals = [vals[s] for s in in_slots]
         outs = _execute(seg_prog, seg_vals, span, rung=rung)
         del seg_vals
@@ -500,6 +517,12 @@ def _run_segmented(program: _Program, leaf_vals, span: Optional[dict] = None,
 
 _compile_cache: dict = {}
 _COMPILE_CACHE_MAX = 512
+
+# Called (when set) just before a program is launched, after its fault
+# sites: ``core/rankflush.py`` sets it while a rung runs a program that
+# exchanges with other ranks inside it (a stencil's halos), so no rank
+# enters the exchange while a peer has already failed.
+launch_gate = None
 _cache_lock = threading.RLock()
 
 
@@ -615,6 +638,9 @@ def _execute_compiled(fn, program: _Program, leaf_vals, is_new: bool,
     CPU.  ``label`` and ``bytes_in`` are the flush's when the caller has
     them."""
     _faults.check("execute", instrs=len(program.instrs))
+    _faults.check("oom", instrs=len(program.instrs))
+    if launch_gate is not None:
+        launch_gate()
     before = _build.counts() if is_new else None
     racing = via == "racing"
     timed = racing or _ledger.sync_timing()
@@ -956,25 +982,268 @@ def _prepare(program: _Program, leaves, exprs, leaf_vals, span: dict,
     return work
 
 
-LADDER = ("the degradation ladder below the split rung (chunked and eager "
-          "rungs, admission, retries): ROADMAP A.8")
+# ---------------------------------------------------------------------------
+# the degradation ladder's rungs (resilience/degrade.py)
+# ---------------------------------------------------------------------------
 
 
-def _run_chunked(*_args, **_kwargs):
-    """The chunked rung: ROADMAP A.8."""
-    raise NotImplementedError(LADDER)
+def _attempt_fused(work: _FlushWork) -> tuple:
+    """The fused rung: the program through the compile cache (by
+    segments when it is longer than ``common.max_program_instrs``),
+    bucketed when it has a class plan: leaves padded to the bucket,
+    outputs sliced back.  Only this rung buckets; the lower rungs run
+    exact shapes."""
+    program, span, leaf_vals = work.program, work.span, work.leaf_vals
+    if work.segmented:
+        return _run_segmented(program, leaf_vals, span)
+    plan = work.class_plan
+    if plan is None:
+        return _execute(program, leaf_vals, span, key=work.key,
+                        fp=work.fingerprint, label=work.label,
+                        bytes_in=span["leaf_bytes"])
+    run_vals = _classes.apply(plan, leaf_vals)
+    outs = _execute(program, run_vals, span, compile_class=plan.token,
+                    key=work.key, fp=work.fingerprint, label=work.label)
+    del run_vals
+    return _classes.strip(plan, outs)
 
 
-def _run_eager(*_args, **_kwargs):
-    """The eager rung: ROADMAP A.8."""
-    raise NotImplementedError(LADDER)
+def _run_chunked(program: _Program, leaf_vals, span: Optional[dict] = None,
+                 max_seg_bytes: Optional[int] = None) -> tuple:
+    """The chunked rung: the segmented executor bounded by the estimated
+    live bytes of each segment (``memory.chunk_target_bytes()`` unless
+    the caller gives the bound) instead of an instruction count; every
+    value still dies after its last use, which is what bounds the
+    peak."""
+    from ramba_tpu_torch.analyze import rules as _rules
+    from ramba_tpu_torch.core.expr import aval_of
+
+    slot_bytes = _rules.slot_nbytes(program, [aval_of(v) for v in leaf_vals])
+    cap = max_seg_bytes or _memory.chunk_target_bytes(_whole_job())
+    if span is not None:
+        span["chunk_bytes"] = cap
+    _registry.inc("fuser.chunked_runs")
+    return _run_segmented(program, leaf_vals, span, rung="chunked",
+                          slot_bytes=slot_bytes, max_seg_bytes=cap)
 
 
-def _dispatch(work: _FlushWork) -> tuple:
+def _sync_device() -> None:
+    """Wait for the card, so an asynchronous CUDA failure of what was
+    just launched lands here."""
+    dev = common.device()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _record_rung(program: _Program, leaf_vals, outs, rung: str, dt: float,
+                 span: Optional[dict]) -> None:
+    label = _program_label(program)
+    _ledger.record_execute(
+        _ledger.fingerprint(_cache_key(program, leaf_vals)), label,
+        len(program.instrs), rung, dt, False,
+        bytes_in=sum(_nbytes(v) for v in leaf_vals),
+        bytes_out=sum(_nbytes(o) for o in outs))
+    if span is not None:
+        span["calls"].append({"label": label, "cache": rung,
+                              "seconds": round(dt, 6)})
+
+
+def _run_eager(program: _Program, leaf_vals, span: Optional[dict]) -> tuple:
+    """The eager rung: one torch op per instruction
+    (:func:`run_instructions`), no compile cache and no kernel family,
+    then a wait for the card, so an asynchronous CUDA failure lands
+    inside this rung."""
+    _faults.check("eager")
+    if launch_gate is not None:
+        launch_gate()
+    t0 = time.perf_counter()
+    outs = run_instructions(program, leaf_vals)
+    _sync_device()
+    _record_rung(program, leaf_vals, outs, "eager", time.perf_counter() - t0,
+                 span)
+    return outs
+
+
+def _whole_job() -> bool:
+    """True when this flush is the job's, so its recovery rounds may run:
+    one process (the coherence layer engages there only in its loopback
+    ``force`` mode).  In a job of several processes a flush outside
+    ``core/rankflush.py`` is one rank's own (a spmd kernel's, a program
+    under ``mesh.local_scope``): its ladder, admission and evictions run
+    no round the other ranks would have to join."""
+    return _distributed.process_count() == 1
+
+
+def _run_host(program: _Program, leaf_vals, span: Optional[dict]) -> tuple:
+    """The host rung (last): the whole program on CPU tensors, where
+    every kernel wrapper takes its plain version, on a one-shard mesh (a
+    mesh of shards on one card holds views of one tensor, so one shard
+    gives the same values), then every output placed back on the process
+    device through the governor (``memory.governed_device_put``).  A
+    placement that still fails raises: a CPU tensor would break the next
+    program on the card (the reference keeps a host-committed array)."""
+    _faults.check("host")
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    dev = common.device()
+    host_vals = [v.to(cpu) if isinstance(v, torch.Tensor) else v
+                 for v in leaf_vals]
+    with common.device_scope(cpu), _mesh.local_scope():
+        outs = run_instructions(program, host_vals)
+    del host_vals
+    if dev.type != "cpu":
+        outs = tuple(_memory.governed_device_put(o, dev, site="host_rung")
+                     if isinstance(o, torch.Tensor) else o for o in outs)
+    _record_rung(program, leaf_vals, outs, "host", time.perf_counter() - t0,
+                 span)
+    return outs
+
+
+def _rung(work: _FlushWork, name: str, chunk_bytes: Optional[int] = None):
+    """The thunk that runs ``work``'s program on rung ``name``, behind the
+    ``dispatch`` fault site."""
+    program, leaf_vals, span = work.program, work.leaf_vals, work.span
+    if name == "fused":
+        fn = lambda: _attempt_fused(work)  # noqa: E731
+    elif name == "split":
+        cap = common.max_program_instrs or len(program.instrs)
+        half = max(1, min(len(program.instrs), cap) // 2)
+        fn = lambda: _run_segmented(  # noqa: E731
+            program, leaf_vals, span, seg_size=half, rung="split")
+    elif name == "chunked":
+        fn = lambda: _run_chunked(program, leaf_vals, span,  # noqa: E731
+                                  chunk_bytes)
+    elif name == "eager":
+        fn = lambda: _run_eager(program, leaf_vals, span)  # noqa: E731
+    else:
+        fn = lambda: _run_host(program, leaf_vals, span)  # noqa: E731
+
+    def attempt():
+        _faults.check("dispatch", rung=name)
+        return fn()
+
+    return attempt
+
+
+def rungs_for(n_instrs: Optional[int], skip_fused: bool = False,
+              route_chunked: bool = False, host: bool = False) -> list:
+    """The rung names of a flush's ladder, as the reference builds it:
+    ``skip_fused`` (the verifier's warn verdict) starts at split,
+    ``route_chunked`` (admission) at chunked; split and chunked need
+    more than one instruction (``n_instrs=None``: offer them, the
+    rank flush's fixed list); host only where asked (one process)."""
+    many = n_instrs is None or n_instrs > 1
+    names = []
+    if not skip_fused and not route_chunked:
+        names.append("fused")
+    if (many or skip_fused) and not route_chunked:
+        names.append("split")
+    if many or route_chunked:
+        names.append("chunked")
+    names.append("eager")
+    if host:
+        names.append("host")
+    return names
+
+
+def _execute_resilient(work: _FlushWork, route_chunked: bool = False,
+                       whole: bool = True):
+    """Run the flush down the degradation ladder
+    (``resilience/degrade.py``): fused → split → chunked → eager → host
+    (``whole``: :func:`_whole_job`; else no host rung and no round).
+    Returns ``(outs, rung)``.  The reference's deadline pruning and
+    hedging come with serving (ROADMAP A.10), its watchdog with the
+    elastic plane (A.8 part three)."""
+    names = rungs_for(len(work.program.instrs), work.routed, route_chunked,
+                      whole)
+    return _degrade.run_ladder(
+        "flush", [(n, _rung(work, n)) for n in names],
+        coherent=whole and _coherence.engaged())
+
+
+def _with_magnitudes(program: _Program, leaf_vals):
+    """``program`` with one more output for each float ``sum``/``mean``
+    output (a reduction or a groupby): the same reduction of ``|x|``.
+    Returns ``(program, extra)``, ``extra`` a list of (output index,
+    terms a result sums, kind) in the order of the added outputs."""
+    from ramba_tpu_torch.compile.classes import slot_avals
+    from ramba_tpu_torch.core.expr import aval_of
+
+    n0 = program.n_leaves
+    try:
+        avals = slot_avals(program, [aval_of(v) for v in leaf_vals])
+    except Exception:
+        avals = None
+    if avals is None:
+        return program, []
+    instrs, outs, extra = list(program.instrs), [], []
+    for k, s in enumerate(program.out_slots):
+        if s < n0:
+            continue
+        op, st, args = program.instrs[s - n0]
+        if op not in ("reduce", "segment_reduce") or st[0] not in (
+                "sum", "mean", "prod"):
+            continue
+        src, out = avals[args[0]], avals[s]
+        if src is None or out is None or src.dtype.kind not in "fc":
+            continue
+        size = 1
+        for d in src.shape:
+            size *= int(d)
+        osize = 1
+        for d in out.shape:
+            osize *= int(d)
+        terms = size if op == "segment_reduce" else size // max(1, osize)
+        extra.append((k, terms, st[0]))
+        if st[0] == "prod":
+            continue  # its bound reads the shadow value itself
+        instrs.append(("map", ("absolute",), (args[0],)))
+        instrs.append((op, st, (n0 + len(instrs) - 1,) + tuple(args[1:])))
+        outs.append(n0 + len(instrs) - 1)
+    if not extra:
+        return program, []
+    aug = _Program(tuple(instrs), n0, program.leaf_kinds,
+                   tuple(program.out_slots) + tuple(outs))
+    return aug, extra
+
+
+def _audit_rerun(program: _Program, leaf_vals):
+    """The shadow run of an audit: the eager rung, and the slack of each
+    float reduction output from the kernels' rounding depth (the deeper
+    of elemred's and segred's for its number of terms): 2 * depth * eps *
+    (the reduction of |x|) for a sum or mean, as ``chip_smoke.py``'s
+    ``sum_bound``; 10 * sqrt(n) * eps * |value| for a product (its
+    ``prod_bound``).  Returns ``(outputs, slack)``."""
+    from ramba_tpu_torch.ops import elemred, segred
+
+    aug, extra = _with_magnitudes(program, leaf_vals)
+    outs = _run_eager(aug, leaf_vals, None)
+    n_out = len(program.out_slots)
+    shadow, mags = outs[:n_out], list(outs[n_out:])
+    slack = [None] * n_out
+    for k, terms, kind in extra:
+        o = shadow[k]
+        eps = float(torch.finfo(o.real.dtype if o.is_complex()
+                                else o.dtype).eps)
+        if kind == "prod":
+            slack[k] = 10 * terms ** 0.5 * eps * o.abs().double()
+            continue
+        depth = max(elemred.depth(terms), segred.depth(terms))
+        slack[k] = 2 * depth * eps * mags.pop(0).double()
+    return shadow, slack
+
+
+def _dispatch(work: _FlushWork, rung: Optional[str] = None,
+              chunk_bytes: Optional[int] = None) -> tuple:
     """Run a prepared flush: a memo hit is served as it is (no lowering,
-    no launch); a routed flush runs on the split rung; a long program by
-    segments; anything else as one program, bucketed when it has a class
-    plan.  A certified result enters the result cache."""
+    no launch); anything else passes admission (``memory.admit``: a
+    flush that does not fit starts at the chunked rung) and runs down
+    the degradation ladder, from the split rung when the verifier routed
+    it.  A rank's local program (``rung`` given) runs on that rung alone:
+    ``core/rankflush.py`` runs the ladder and admission around all of a
+    rank's programs.  A certified result of the fused rung is
+    shadow-audited under ``RAMBA_AUDIT``, and enters the result cache
+    unless the audit disagreed."""
     program, span = work.program, work.span
     if work.memo_hit is not None:
         outs = tuple(work.memo_hit)
@@ -982,26 +1251,30 @@ def _dispatch(work: _FlushWork) -> tuple:
         _finish_memo_span(work, outs)
         return outs
     leaf_vals = work.leaf_vals
-    if work.routed:
-        cap = common.max_program_instrs or len(program.instrs)
-        half = max(1, min(len(program.instrs), cap) // 2)
-        span["degraded"] = "split"
-        outs = _run_segmented(program, leaf_vals, span, seg_size=half,
-                              rung="split")
-    elif work.segmented:
-        outs = _run_segmented(program, leaf_vals, span)
+    if rung is None:
+        whole = _whole_job()
+        t_admit = time.perf_counter()
+        route = _memory.admit(program, leaf_vals, (), span, coherent=whole,
+                              fingerprint=work.fingerprint)
+        if "mem_peak_est" in span:
+            span.setdefault("stages", {})["admit"] = \
+                time.perf_counter() - t_admit
+        outs, rung = _execute_resilient(work, route, whole)
+        audit = rung == "fused"
     else:
-        plan = work.class_plan
-        token = plan.token if plan is not None else None
-        run_vals = _classes.apply(plan, leaf_vals) if plan is not None \
-            else leaf_vals
-        outs = _execute(program, run_vals, span, compile_class=token,
-                        key=work.key, fp=work.fingerprint, label=work.label,
-                        bytes_in=span["leaf_bytes"] if plan is None else None)
-        del run_vals
-        if plan is not None:
-            outs = _classes.strip(plan, outs)
-    if work.memo_plan is not None:
+        outs = _rung(work, rung, chunk_bytes)()
+        audit = False
+    if rung != "fused":
+        span["degraded"] = rung
+    mismatch = False
+    if audit and work.memo_plan is not None and work.memo_plan.certified \
+            and os.environ.get("RAMBA_AUDIT"):
+        from ramba_tpu_torch.resilience import integrity as _integrity
+
+        mismatch = _integrity.shadow_audit(
+            work.label, outs, lambda: _audit_rerun(program, leaf_vals),
+            plan=work.memo_plan, span=span)
+    if work.memo_plan is not None and not mismatch:
         try:
             _memo.insert(work.memo_plan, list(outs))
         except Exception:
@@ -1051,18 +1324,20 @@ def _finish_span(span: dict, outs) -> None:
     _ledger.observe_flush(span)
 
 
-def run_program(program: _Program, leaf_vals, split: bool = False) -> tuple:
+def run_program(program: _Program, leaf_vals, split: bool = False,
+                rung: Optional[str] = None,
+                chunk_bytes: Optional[int] = None) -> tuple:
     """Run one linearized program as a flush runs it (segments, compile
     classes, the result memo, the ledger, a span);
     ``core/rankflush.py`` runs every rank's programs through here, having
     verified the whole program first (``split``: its verdict routed the
-    flush to the split rung)."""
+    flush to the split rung), on the ``rung`` its ladder is on."""
     span = _new_span(program, leaf_vals)
     work = _prepare(program, None, None, leaf_vals, span, whole=False)
     if split:
         work.routed = True
         work.memo_plan = work.memo_hit = work.class_plan = None
-    return _dispatch(work)
+    return _dispatch(work, rung, chunk_bytes)
 
 
 def verify_whole(exprs) -> bool:

@@ -362,9 +362,9 @@ def batch_cse(*_args, **_kwargs):
 
 
 def evict(plan: Optional["MemoPlan"]) -> bool:
-    """Drop one plan's cached entry (and its ledger refs).  The
-    reference's integrity plane calls this when a shadow audit disagreed
-    with the primary result (the port's audit is ROADMAP A.8's)."""
+    """Drop one plan's cached entry (and its ledger refs).  The integrity
+    plane calls this when a shadow audit disagreed with the primary
+    result (``integrity.evict_plan_blobs``)."""
     if plan is None or plan.key is None:
         return False
     with cache._lock:

@@ -61,6 +61,22 @@ its own program; what none takes runs on the gathered lowering.
 A program that raises on one rank raises on every rank: the ranks agree
 on the outcome (one all-reduce) before any collective that would
 otherwise leave the others waiting.
+
+All of a plan's rank-local programs run together down the degradation
+ladder (:func:`_laddered`, ``resilience/degrade.py``): fused, split,
+chunked, eager (no host rung across ranks).  With the coherence layer
+engaged (several processes), every rung attempt runs through the
+``flush:gate`` (before its first launch: :func:`_gated`),
+``retry:flush`` and ``flush:rung`` rounds, so a failure on one rank
+drops every rank to the same rung, and a fatal one aborts every rank
+with one class.  A rank with nothing to run (its block is empty) or
+whose memo served its programs joins the same rounds: the rounds belong
+to the plan, not to a program, and the rung list is the same on every
+rank.  With a device budget, admission (``memory.admit``) runs before
+the ladder behind one ``memory:admit`` round.  No other round runs
+inside a rung: a retried attempt must not meet a collective the other
+ranks skip.  A rank that fails before its first ladder joins the rounds
+the others enter next (:func:`_join_and_raise`).
 """
 
 from __future__ import annotations
@@ -74,6 +90,7 @@ from ramba_tpu_torch.core import expr as E
 from ramba_tpu_torch.core.expr import Const, Node, Scalar
 from ramba_tpu_torch.parallel import distributed
 from ramba_tpu_torch.parallel import mesh as _mesh
+from ramba_tpu_torch.resilience import coherence
 
 ELEMENTWISE = frozenset({"map", "cast", "round", "masked_fill"})
 CREATION = frozenset({"arange", "full", "linspace", "fromfunction"})
@@ -576,23 +593,117 @@ def _agree(ok: bool) -> bool:
     return distributed.all_reduce_int(1 if ok else 0, "min") == 1
 
 
-def _execute(program, leaf_vals, split=False):
-    """The program through its lowering (its leaves pinned against
-    spilling), then the after-flush hooks.  ``split``: the verifier
-    routed the flush (RAMBA_VERIFY=warn), so the program runs on the
-    split rung.  The result memo keys this rank-local program: it holds
-    no collective (the folds run after it), so a hit on one rank and a
-    miss on another cannot hang."""
+def _execute(program, leaf_vals, split=False, rung="fused", cap=None):
+    """The program through its lowering on ``rung`` (its leaves pinned
+    against spilling), then the after-flush hooks.  ``split``: the
+    verifier routed the flush (RAMBA_VERIFY=warn).  ``cap``: the chunked
+    rung's bytes a segment.  The result memo keys this rank-local
+    program: it holds no collective (the folds run after it), so a hit
+    on one rank and a miss on another cannot hang."""
     from ramba_tpu_torch.core import fuser
     from ramba_tpu_torch.resilience import memory
 
     pins = memory.ledger.pin_values(leaf_vals)
     try:
-        return fuser.run_program(program, leaf_vals, split=split)
+        return fuser.run_program(program, leaf_vals, split=split,
+                                 rung=rung, chunk_bytes=cap)
     finally:
         memory.ledger.unpin(pins)
         for hook in fuser.after_flush:
             hook()
+
+
+def _admission(prepare):
+    """True when the plan's main program starts at the chunked rung.
+    Only with a device budget (the same verdict on every rank): the main
+    program is prepared (``prepare()``: ``(program, leaf_vals)``, or None
+    on a rank with nothing to run) and admitted here, then every rank
+    takes the worst verdict of one ``memory:admit`` round, in which a
+    rank that could not prepare its program proposes an abort."""
+    from ramba_tpu_torch.resilience import memory
+
+    if memory.budget_bytes() is None:
+        return False
+    err, code = None, 0
+    try:
+        p = prepare()
+        if p is not None and memory.admit(p[0], p[1], (), coherent=False):
+            code = 1
+    except Exception as e:  # every rank must learn of it
+        err, code = e, 2
+    if coherence.engaged():
+        code = coherence.agree("memory:admit", code, reduce="max")
+    if code == 2:
+        if err is not None:
+            raise err
+        raise coherence.CoherentAbort("memory:admit", coherence.P_FATAL)
+    return code == 1
+
+
+def _gated(run):
+    """``run`` behind a launch gate: one ``flush:gate`` round an attempt,
+    just before its first launch (``fuser.launch_gate``), or after the
+    attempt where it launched nothing or failed first.  A rank-local
+    program may exchange with other ranks inside it (a stencil's halos,
+    scumulative's carries): a rank whose peer failed before launching
+    raises a retryable ``CoherentAbort`` at the gate instead of waiting
+    in an exchange the peer never joins, and the ladder's round then
+    takes the peer's class.  A failure after the gate, inside such an
+    exchange, is bounded by the group's timeout only."""
+    from ramba_tpu_torch.core import fuser
+
+    def attempt(name, cap):
+        opened = []
+
+        def gate(ok=True):
+            if opened:
+                return
+            opened.append(True)
+            if coherence.agree("flush:gate", 0 if ok else 1) and ok:
+                raise coherence.CoherentAbort("flush:gate",
+                                              coherence.P_RETRY)
+
+        fuser.launch_gate = gate
+        try:
+            out = run(name, cap)
+            gate()
+            return out
+        except Exception:
+            gate(ok=False)
+            raise
+        finally:
+            fuser.launch_gate = None
+
+    return attempt
+
+
+def _laddered(run, split=False, route=False):
+    """``run(rung, cap)`` down the degradation ladder: the same rung list
+    on every rank (split and chunked offered whatever the program's
+    length, no host rung), a fresh attempt at each rung, behind
+    :func:`_gated` when the coherence layer is engaged.  The chunked
+    rung's bytes a segment are this rank's own
+    (``memory.chunk_target_bytes(agree=False)``).  Returns ``run``'s
+    value."""
+    from ramba_tpu_torch.core import fuser
+    from ramba_tpu_torch.resilience import degrade, faults, memory
+
+    def checked(name, cap):  # the dispatch site fails inside the gate
+        faults.check("dispatch", rung=name)
+        return run(name, cap)
+
+    go = _gated(checked) if coherence.engaged() else checked
+
+    def rung(name):
+        def attempt():
+            cap = memory.chunk_target_bytes(agree=False) \
+                if name == "chunked" else None
+            return go(name, cap)
+
+        return attempt
+
+    names = fuser.rungs_for(None, split, route)
+    return degrade.run_ladder("flush", [(n, rung(n)) for n in names])[0]
 
 
 def _rebuild(exprs, fn):
@@ -651,14 +762,18 @@ def flush_roots(stream, roots, extra, mesh):
     err = None
     results = None
     try:
-        if common.rewrite_enabled:
-            from ramba_tpu_torch.core.rewrite import rewrite_roots
+        try:
+            if common.rewrite_enabled:
+                from ramba_tpu_torch.core.rewrite import rewrite_roots
 
-            exprs = rewrite_roots(exprs)
-        exprs = lower_hints(exprs, mesh)
-        split = fuser.verify_whole(exprs)
+                exprs = rewrite_roots(exprs)
+            exprs = lower_hints(exprs, mesh)
+            split = fuser.verify_whole(exprs)
+            plans = _plans(exprs, mesh)
+        except Exception as e:
+            _join_and_raise(e)
         results = []
-        for idx, plan in _plans(exprs, mesh):
+        for idx, plan in plans:
             if plan is not None:
                 results.append((idx, plan, _run_local(plan, split)))
             else:
@@ -670,6 +785,14 @@ def flush_roots(stream, roots, extra, mesh):
     consts = [None] * len(exprs)
     n_instrs = 0
     try:
+        if isinstance(err, coherence.CoherentAbort):
+            # a peer's failure, agreed inside the ladder: this rank's
+            # flush is abandoned with the agreed class
+            abort = RuntimeError(
+                "a flush raised on another rank of the group; this rank's "
+                f"flush is abandoned ({err})")
+            abort.coherent_classification = err.coherent_classification
+            raise abort from err
         if err is not None:
             raise err
         if not ok:
@@ -694,6 +817,21 @@ def flush_roots(stream, roots, extra, mesh):
     for c in consts[len(roots):]:
         tail.append(gather_const(c) if c.is_block else c.value)
     return tail
+
+
+def _join_and_raise(err):
+    """This rank failed before its first ladder: join the rounds the
+    other ranks enter next (the first plan's admission round, then its
+    ladder's first rung), proposing ``err``, so every rank raises
+    together instead of one waiting in a round the other skipped."""
+    if not coherence.engaged():
+        raise err
+
+    def fail(*_a):
+        raise err
+
+    _admission(fail)
+    _laddered(fail)
 
 
 _GROUPED_MAX = 64
@@ -767,7 +905,7 @@ def _flattened(exprs, local_shape):
     return [flat.get(id(e), e) for e in _rebuild(exprs, lower)]
 
 
-def _run_segment(r, split=False):
+def _run_segment(r, split=False, rung="fused", cap=None):
     """A segment root's partials on this rank: one one-instruction
     program per partial (the segred kernel's on the card)."""
     from ramba_tpu_torch.core import fuser
@@ -776,7 +914,7 @@ def _run_segment(r, split=False):
         if isinstance(e, Const):
             return fuser.leaf_value(e)
         program, leaf_vals = fuser.prepare_program([e])
-        return _execute(program, leaf_vals, split)[0]
+        return _execute(program, leaf_vals, split, rung, cap)[0]
 
     data = value(r.expr)
     labels = value(r.labels)
@@ -793,36 +931,49 @@ def _run_segment(r, split=False):
         node = Node("segment_reduce", (kind, G, 0),
                     [Const(x), Const(labels)])
         program, leaf_vals = fuser.prepare_program([node])
-        parts.append(_execute(program, leaf_vals, split)[0])
+        parts.append(_execute(program, leaf_vals, split, rung, cap)[0])
     return parts
 
 
 def _run_local(plan, split=False):
-    """Run the plan's program on this rank's blocks: ``(values, number
-    of instructions)``, a value per root (None where nothing ran; a list
-    of partials for a groupby)."""
+    """Run the plan's programs on this rank's blocks, down the ladder:
+    ``(values, number of instructions)``, a value per root (None where
+    nothing ran; a list of partials for a groupby)."""
     from ramba_tpu_torch.core import fuser
 
-    outs = [None] * len(plan.roots)
-    n_instrs = 0
     live = [i for i, r in enumerate(plan.roots)
             if r.expr is not None and r.kind != "segment"]
-    if live:
-        exprs = [plan.roots[i].expr for i in live]
-        local_shape = _mesh.index_shape(plan.index, plan.shape)
-        flat = _flattened(exprs, local_shape)
-        program, leaf_vals = fuser.prepare_program(flat or exprs)
-        vals = _execute(program, leaf_vals, split)
-        n_instrs += len(program.instrs)
-        for i, v in zip(live, vals):
-            if flat is not None and plan.roots[i].kind == "block":
-                v = v.reshape(local_shape)
-            outs[i] = v
-    for i, r in enumerate(plan.roots):
-        if r.kind == "segment" and r.expr is not None:
-            outs[i] = _run_segment(r, split)
-            n_instrs += len(outs[i])
-    return outs, n_instrs
+    local_shape = _mesh.index_shape(plan.index, plan.shape)
+    prepared = []
+
+    def prepare():
+        if not live:
+            return None
+        if not prepared:
+            exprs = [plan.roots[i].expr for i in live]
+            flat = _flattened(exprs, local_shape)
+            prepared.append((fuser.prepare_program(flat or exprs),
+                             flat is not None))
+        return prepared[0][0]
+
+    def run(rung, cap):
+        outs = [None] * len(plan.roots)
+        n_instrs = 0
+        if live:
+            program, leaf_vals = prepare()
+            vals = _execute(program, leaf_vals, split, rung, cap)
+            n_instrs += len(program.instrs)
+            for i, v in zip(live, vals):
+                if prepared[0][1] and plan.roots[i].kind == "block":
+                    v = v.reshape(local_shape)
+                outs[i] = v
+        for i, r in enumerate(plan.roots):
+            if r.kind == "segment" and r.expr is not None:
+                outs[i] = _run_segment(r, split, rung, cap)
+                n_instrs += len(outs[i])
+        return outs, n_instrs
+
+    return _laddered(run, split, _admission(prepare))
 
 
 def _finish_local(plan, outs):
@@ -879,6 +1030,10 @@ def _run_whole(exprs, split=False):
     if gathered:
         with fuser._stats_lock:
             fuser.stats["gathered"] += 1
-    with _mesh.local_scope():
-        outs = _execute(program, leaf_vals, split)
+
+    def run(rung, cap):
+        with _mesh.local_scope():
+            return _execute(program, leaf_vals, split, rung, cap)
+
+    outs = _laddered(run, split, _admission(lambda: (program, leaf_vals)))
     return list(outs), len(program.instrs)

@@ -33,6 +33,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from ramba_tpu_torch.core.expr import MAPFN, aval_of, infer_aval, map_dtypes
+from ramba_tpu_torch.resilience import faults as _faults
 
 # ---------------------------------------------------------------------------
 # kernel-family registry
@@ -260,6 +261,10 @@ def lower_program(program, leaf_vals) -> Optional[Callable]:
     name = classify(program, leaf_vals)
     if name is None:
         return None
+    # the fused rung's kernel fault site (the reference's ``pallas``): an
+    # injected fault fails the rung like any other; nothing swaps to the
+    # generic lowering
+    _faults.check("kernel", family=name, instrs=len(program.instrs))
     fam = family(name)
 
     def run(*vals):

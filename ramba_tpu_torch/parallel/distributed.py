@@ -23,7 +23,7 @@ Every tensor crosses as raw bytes (a ``uint8`` view), so any dtype
 (bfloat16, complex, bool) moves bit for bit.  The group's timeout is
 ``RAMBA_INIT_TIMEOUT_S`` (seconds), so a rank that never arrives makes
 the others raise instead of waiting forever; the elastic deadlines of the
-reference (``resilience/elastic.py``) come with ROADMAP A.8.
+reference (``resilience/elastic.py``) come with ROADMAP A.8 part three.
 """
 
 from __future__ import annotations

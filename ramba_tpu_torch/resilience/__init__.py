@@ -11,22 +11,26 @@ Counterpart of ``ramba_tpu/resilience/``.  Ported so far:
   I/O.
 * ``coherence`` — rank-coherent recovery decisions: one all-reduce round
   per decision across ranks.
-* ``integrity`` — content digests (the envelope, file and array digests)
-  and the suspect quarantine.
+* ``integrity`` — content digests (the envelope, file and array digests),
+  the shadow recompute audit and the suspect quarantine.
 * ``memory``    — the memory governor's core: the per-process device
   budget (``RAMBA_HBM_BUDGET``, else the card's share), the live-bytes
   ledger over every realized leaf, LRU host spill with restore on the
   next touch, governed placements.
 * ``spill``     — the host-spill primitives the governor uses
   (``SpilledArray``, the copies to pinned host memory and back).
+* ``degrade``   — the flush's degradation ladder (fused → split →
+  chunked → eager → host), each rung under the retry engine, an
+  out-of-memory failure evicting before the ladder drops a rung.
 
-The degradation ladder, the governor's pre-flush admission and the
-elastic job lifecycle (``degrade``, ``memory.admit``, ``elastic``) come
-with the resilience queue.
+The governor also admits each flush (``memory.admit``), and the
+integrity plane shadow-audits flushes (``RAMBA_AUDIT``).  The elastic
+job lifecycle (``elastic``, ``RankStallError``) comes with the third part
+of the resilience queue.
 """
 
 from ramba_tpu_torch.resilience import (  # noqa: F401
-    coherence, faults, integrity, memory, retry, spill,
+    coherence, degrade, faults, integrity, memory, retry, spill,
 )
 from ramba_tpu_torch.resilience.faults import (  # noqa: F401
     InjectedFault, InjectedResourceExhausted,

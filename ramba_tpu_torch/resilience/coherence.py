@@ -179,7 +179,8 @@ def _transport(value: int, reduce: str) -> "tuple[int, int]":
     no process group formed) reduces over the local proposal alone;
     across processes the proposal is all-reduced (max or min; ``bcast``:
     rank 0's value) over ``parallel.distributed``, bounded by the
-    group's timeout (the elastic deadline comes with ROADMAP A.8)."""
+    group's timeout (the elastic deadline comes with ROADMAP A.8 part
+    three)."""
     from ramba_tpu_torch.parallel import distributed
 
     n = distributed.process_count()

@@ -28,10 +28,18 @@ sliding ``RAMBA_INTEGRITY_WINDOW_S`` window (default 300 s) flips a
 (envelopes are still *stripped* on read so wrapped and raw blobs both
 load).
 
-The reference's shadow recompute audits (``RAMBA_AUDIT``,
-``shadow_audit``) need the fuser's audit hook and the result memo; they
-come with the compile and resilience queues.  The wired flip seam is
-``checkpoint:leaf`` (``checkpoint.py``).
+**Shadow recompute audits.**  ``RAMBA_AUDIT=<N>`` samples one in every
+N eligible flushes (a certified memo plan, the fused rung, no memo hit:
+the fuser's check) and re-runs the program on the eager rung
+(:func:`shadow_audit`).  Byte-identical outputs are clean; float outputs
+within the rung-to-rung slack are ``numeric``; anything else is a
+``mismatch``: the primary outputs are still served, the memo insert is
+skipped and the plan's entry evicted (:func:`evict_plan_blobs`).  A
+float reduction's slack comes from the kernels' rounding depth and the
+reduction of ``|x|`` (the fuser computes both beside the shadow run),
+where the reference allows 64 ulp of the result.  The flip seams are
+``checkpoint:leaf`` (``checkpoint.py``) and ``audit:shadow`` (the shadow
+outputs).
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +59,7 @@ from ramba_tpu_torch.core.expr import to_np_dtype
 from ramba_tpu_torch.core.ndarray import ndarray
 from ramba_tpu_torch.observe import events as _events
 from ramba_tpu_torch.observe import registry as _registry
+from ramba_tpu_torch.resilience import faults as _faults
 
 _OFF = ("0", "off", "false", "no")
 
@@ -82,12 +91,19 @@ stats = {
     "verified": 0,
     "failures": 0,
     "unstamped_evictions": 0,
+    "audits": 0,
+    "audit_mismatches": 0,
+    "audit_numeric": 0,
+    "audit_errors": 0,
     "digest_bytes": 0,
     "digest_wall_s": 0.0,
+    "audit_wall_s": 0.0,
 }
 
 # sliding failure window backing the suspect verdict
 _strikes: deque = deque()
+# eligible-flush counter for the deterministic 1-in-N audit sampling
+_audit_counter = [0]
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +116,18 @@ def enabled() -> bool:
     default on)."""
     return (os.environ.get("RAMBA_INTEGRITY") or "").strip().lower() \
         not in _OFF
+
+
+def audit_every() -> int:
+    """``RAMBA_AUDIT=<N>`` — shadow-audit one in every N eligible
+    flushes; 0 (or unset, or integrity disabled) disarms."""
+    raw = (os.environ.get("RAMBA_AUDIT") or "").strip()
+    if not raw or raw.lower() in _OFF or not enabled():
+        return 0
+    try:
+        return max(0, int(raw))
+    except ValueError:
+        return 0
 
 
 def suspect_threshold() -> int:
@@ -318,25 +346,205 @@ def suspect(now: Optional[float] = None) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# diagnostics
+# shadow recompute audits
 # ---------------------------------------------------------------------------
 
 
-AUDIT = ("the shadow recompute audit and its eviction of suspect result-memo "
-         "entries: ROADMAP A.8")
+def _flat_bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bytes, as a flat uint8 tensor on its device."""
+    return t.contiguous().reshape(-1).view(torch.uint8)
 
 
-def evict_plan_blobs(plan) -> None:
-    """Evict a suspect flush's memo entry after a shadow audit disagreed
-    (the reference's ``_evict_plan_blobs``): ROADMAP A.8."""
-    raise NotImplementedError(AUDIT)
+def _out_bytes(outs: Sequence[Any]) -> List[bytes]:
+    """Byte-identity view of one flush's outputs, on the host (the
+    reference's; the audit itself compares on the device and goes
+    through host bytes only at the ``audit:shadow`` flip seam)."""
+    res: List[bytes] = []
+    for o in outs:
+        if isinstance(o, torch.Tensor):
+            res.append(_flat_bits(o).cpu().numpy().tobytes())
+        else:
+            res.append(np.ascontiguousarray(np.asarray(o)).tobytes())
+    return res
+
+
+def _flip_seam(o, label: str):
+    """A shadow output through the ``audit:shadow`` flip seam (identity
+    unless a flip spec targets it)."""
+    if not isinstance(o, torch.Tensor) or not _faults.configured(
+            "audit:shadow"):
+        return o
+    data = _out_bytes([o])[0]
+    got = _faults.corrupt("audit:shadow", data, label=label) or data
+    if got == data:
+        return o
+    host = torch.frombuffer(bytearray(got), dtype=torch.uint8)
+    return host.view(o.dtype).reshape(o.shape).to(o.device)
+
+
+#: rung-to-rung numerical slack, in units of dtype eps, for a float
+#: output with no slack of its own.  The fused program and the eager
+#: rung may round differently (a kernel's own math functions, a
+#: contraction into an FMA); a flipped byte moves a float by up to 255
+#: ulp at its position, far past this slack, so a flip still classifies
+#: as a mismatch; only a flip confined to the lowest mantissa bits is
+#: indistinguishable from rounding, an inherent limit of a cross-rung
+#: comparison.
+_AUDIT_ULP_SLACK = 64.0
+
+
+def _eps(dt: torch.dtype) -> float:
+    if dt.is_complex:
+        dt = torch.float64 if dt == torch.complex128 else torch.float32
+    return float(torch.finfo(dt).eps)
+
+
+def _classify_divergence(primary: Sequence[Any], shadow: Sequence[Any],
+                         slack: Optional[Sequence[Any]] = None
+                         ) -> Tuple[int, int]:
+    """(mismatch, numeric): byte-identical pairs are clean; float or
+    complex outputs with NaNs in the same places and every difference
+    within the output's slack are ``numeric`` (``slack[i]``: an absolute
+    bound, a number or a tensor of the output's shape; None: the
+    reference's ``_AUDIT_ULP_SLACK`` ulp); anything else — shape or
+    dtype skew, integer or bool differences, a float difference past
+    its slack — is a mismatch."""
+    if len(primary) != len(shadow):
+        return 1, 0
+    numeric = 0
+    for i, (p, s) in enumerate(zip(primary, shadow)):
+        if not isinstance(p, torch.Tensor) or not isinstance(s, torch.Tensor):
+            if np.asarray(p).tobytes() != np.asarray(s).tobytes():
+                return 1, numeric
+            continue
+        if p.dtype != s.dtype or p.shape != s.shape:
+            return 1, numeric
+        s = s.to(p.device)
+        if torch.equal(_flat_bits(p), _flat_bits(s)):
+            continue
+        if not (p.is_floating_point() or p.is_complex()):
+            return 1, numeric
+        pd = torch.view_as_real(p) if p.is_complex() else p
+        sd = torch.view_as_real(s) if s.is_complex() else s
+        pd, sd = pd.double(), sd.double()
+        if not torch.equal(torch.isnan(pd), torch.isnan(sd)):
+            return 1, numeric
+        bound = slack[i] if slack is not None and i < len(slack) else None
+        diff = torch.where(torch.isnan(pd), torch.zeros_like(pd),
+                           (pd - sd).abs())
+        if bound is None:
+            tol = _AUDIT_ULP_SLACK * _eps(p.dtype)
+            ok = diff <= tol + tol * torch.where(
+                torch.isnan(sd), torch.zeros_like(sd), sd.abs())
+        else:
+            bound = torch.as_tensor(bound, dtype=torch.float64,
+                                    device=diff.device)
+            if p.is_complex() and bound.dim():
+                bound = bound.unsqueeze(-1)
+            ok = diff <= bound
+        # equal infinities give NaN differences: equal bits are fine
+        ok = ok | (pd == sd)
+        if not bool(ok.all()):
+            return 1, numeric
+        numeric += 1
+    return 0, numeric
+
+
+def shadow_audit(label: str, outs: Sequence[Any],
+                 rerun: Callable[[], Tuple[Sequence[Any], Any]], *,
+                 plan: Any = None, span: Optional[dict] = None) -> bool:
+    """Maybe shadow-audit one flush; returns True iff the audit found a
+    mismatch (the caller then skips the memo insert — the primary
+    ``outs`` are still the ones served).
+
+    Sampling is deterministic 1-in-N over eligible flushes
+    (``RAMBA_AUDIT=<N>``; eligibility is the caller's check).
+    ``rerun()`` re-executes the program on the eager rung and returns
+    ``(outputs, slack)`` (``slack``: per output, as
+    :func:`_classify_divergence` reads it, or None); its outputs pass
+    through the ``audit:shadow`` flip seam.  An audit that raises never
+    fails the flush: it counts ``audit_errors``."""
+    n = audit_every()
+    if n <= 0:
+        return False
+    with _lock:
+        _audit_counter[0] += 1
+        due = _audit_counter[0] % n == 0
+    if not due:
+        return False
+    from ramba_tpu_torch.resilience import coherence as _coherence
+
+    t0 = time.perf_counter()
+    try:
+        shadow, slack = rerun()
+        shadow = [_flip_seam(o, label) for o in shadow]
+        mismatch, numeric = _classify_divergence(list(outs), shadow, slack)
+        del shadow, slack
+    except Exception as e:  # noqa: BLE001 — the audit never fails a flush
+        with _lock:
+            stats["audit_errors"] += 1
+        _registry.inc("integrity.audit_errors")
+        _events.emit({"type": "integrity_audit", "label": label,
+                      "outcome": "error", "error": repr(e)[:200]})
+        return False
+    decision = _coherence.agree("integrity:audit", mismatch, reduce="max")
+    dt = time.perf_counter() - t0
+    with _lock:
+        stats["audits"] += 1
+        stats["audit_wall_s"] += dt
+        stats["audit_numeric"] += numeric
+        if decision:
+            stats["audit_mismatches"] += 1
+    _registry.inc("integrity.audits")
+    if span is not None:
+        span["audited"] = True
+        span["audit_s"] = round(dt, 6)
+    if not decision:
+        ev = {"type": "integrity_audit", "label": label,
+              "outcome": "ok", "wall_ms": round(dt * 1e3, 3)}
+        if numeric:
+            ev["outcome"] = "numeric"
+            ev["numeric_outs"] = numeric
+        _events.emit(ev)
+        return False
+    _registry.inc("integrity.audit_mismatches")
+    _events.emit({"type": "integrity_audit", "label": label,
+                  "outcome": "mismatch", "wall_ms": round(dt * 1e3, 3)})
+    failure("audit:shadow", "audit", detail=label,
+            local_mismatch=bool(mismatch))
+    if span is not None:
+        span["audit_mismatch"] = True
+    evict_plan_blobs(plan)
+    return True
+
+
+def evict_plan_blobs(plan: Any) -> bool:
+    """A mismatched audit means the flush's bytes are suspect: evict the
+    plan's memo entry so it cannot be served (the reference's
+    ``_evict_plan_blobs``; the shared tier is ROADMAP A.10's).  Returns
+    whether an entry was dropped."""
+    if plan is None:
+        return False
+    try:
+        from ramba_tpu_torch.core import memo as _memo
+
+        return _memo.evict(plan)
+    except Exception:  # noqa: BLE001 — eviction is best-effort
+        return False
+
+
+# ---------------------------------------------------------------------------
+# diagnostics
+# ---------------------------------------------------------------------------
 
 
 def snapshot() -> dict:
     with _lock:
         d = dict(stats)
         d["digest_wall_s"] = round(d["digest_wall_s"], 6)
+        d["audit_wall_s"] = round(d["audit_wall_s"], 6)
     d["enabled"] = enabled()
+    d["audit_every"] = audit_every()
     d["suspect"] = suspect()
     d["failures_in_window"] = failure_count()
     d["suspect_threshold"] = suspect_threshold()
@@ -345,8 +553,9 @@ def snapshot() -> dict:
 
 
 def reset() -> None:
-    """Tests: zero counters and the suspect window."""
+    """Tests: zero counters, the suspect window and the audit sampler."""
     with _lock:
         for k in stats:
             stats[k] = 0.0 if isinstance(stats[k], float) else 0
         _strikes.clear()
+        _audit_counter[0] = 0

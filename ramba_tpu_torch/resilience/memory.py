@@ -1,7 +1,7 @@
 """The memory governor's core: device budget, live-bytes ledger, host spill.
 
 Counterpart of ``ramba_tpu/resilience/memory.py`` (its budget, ledger,
-spill, oom-eviction and governed-placement parts):
+spill, admission, oom-eviction and governed-placement parts):
 
 * **Budget** — per-process device memory: ``RAMBA_HBM_BUDGET`` when set
   (``common.parse_bytes`` grammar, e.g. ``4g``), else the card's capacity
@@ -24,17 +24,20 @@ spill, oom-eviction and governed-placement parts):
   0.9 of the budget); ``governed_device_put`` places a tensor after that
   check and counts its bytes as transient until it dies.  Uploads
   (``ndarray.put_sharded``) and reshard stages go through them.
+* **Admission** — before a flush runs, :func:`admit` holds its peak
+  estimate (:func:`estimate_program_bytes`) plus the other live bytes
+  against the watermark; when eviction cannot make it fit, the flush
+  starts the degradation ladder (``resilience/degrade.py``) at the
+  ``chunked`` rung.  An out-of-memory failure spills cold arrays
+  (:func:`evict_for_oom`) before the ladder drops a rung.  Serving-tenant
+  quotas come with serving (ROADMAP A.10).
 
 The governor moves nothing between the card and the host unless a
-placement asks for room or the caller asks for an eviction, and every
+placement or a flush's admission asks for room, an out-of-memory failure
+asks for an eviction or the caller does, and every
 spill and restore is counted (``memory.evictions``, ``memory.restores``,
 the gauges ``memory.live_bytes`` and ``memory.spilled_bytes``, ``memory``
 events, the host-boundary bytes in ``observe.registry.comm``).
-
-Pre-flush admission (:func:`admit`, :func:`estimate_program_bytes`),
-which routes a flush that would not fit to the ``chunked`` rung of the
-degradation ladder, comes with that ladder (ROADMAP A.8); serving-tenant
-quotas come with serving (ROADMAP A.10).
 
 The one sanctioned mutation of an expression node is the governor's: a
 ``Const.value`` swapped between a tensor and its :class:`SpilledArray`
@@ -58,8 +61,6 @@ from ramba_tpu_torch.observe import registry as _registry
 from ramba_tpu_torch.resilience import coherence as _coherence
 from ramba_tpu_torch.resilience import spill as _spill
 
-ADMISSION = ("pre-flush admission routes a flush to the chunked rung of "
-             "the degradation ladder: ROADMAP A.8")
 TENANTS = "serving-tenant quotas come with serving: ROADMAP A.10"
 
 
@@ -116,15 +117,21 @@ def device_budget_bytes() -> Optional[int]:
     return _probe[k]
 
 
+_parsed: dict = {}  # RAMBA_HBM_BUDGET's text -> bytes (None: unparsable)
+
+
 def budget_bytes() -> Optional[int]:
     """The effective budget; None disables the governor (the CPU
     default)."""
     raw = os.environ.get("RAMBA_HBM_BUDGET")
     if raw:
-        try:
-            return max(1, _common.parse_bytes(raw))
-        except ValueError:
-            pass
+        if raw not in _parsed:
+            try:
+                _parsed[raw] = max(1, _common.parse_bytes(raw))
+            except ValueError:
+                _parsed[raw] = None
+        if _parsed[raw] is not None:
+            return _parsed[raw]
     return device_budget_bytes()
 
 
@@ -150,12 +157,14 @@ def watermark_bytes(budget: Optional[int] = None) -> Optional[int]:
     return int(budget * 0.9)
 
 
-def chunk_target_bytes() -> int:
-    """Per-segment byte target (a reshard's stage size by default):
-    ``RAMBA_CHUNK_BYTES``, else a quarter of the watermark when a budget
-    is known, else 256 MiB.  Across ranks every rank takes the smallest
-    rank's value (``coherence.agree``, in 64 KiB units), so the ranks cut
-    the same stages."""
+def chunk_target_bytes(agree: bool = True) -> int:
+    """Per-segment byte target (a reshard's stage size by default, the
+    chunked rung's bytes a segment): ``RAMBA_CHUNK_BYTES``, else a
+    quarter of the watermark when a budget is known, else 256 MiB.
+    Across ranks every rank takes the smallest rank's value
+    (``coherence.agree``, in 64 KiB units), so the ranks cut the same
+    stages; ``agree=False`` keeps this rank's own (a rank-local program
+    holds no collective)."""
     raw = os.environ.get("RAMBA_CHUNK_BYTES")
     target = None
     if raw:
@@ -169,7 +178,7 @@ def chunk_target_bytes() -> int:
             target = max(1 << 16, (watermark_bytes(b) or b) // 4)
         else:
             target = 256 << 20
-    if _coherence.engaged():
+    if agree and _coherence.engaged():
         target = max(1 << 16, _coherence.agree(
             "memory:chunk_bytes", target >> 16, reduce="min") << 16)
     return target
@@ -493,7 +502,7 @@ def reset() -> None:
 
 
 # ---------------------------------------------------------------------------
-# admission (ROADMAP A.8)
+# admission
 # ---------------------------------------------------------------------------
 
 
@@ -501,32 +510,134 @@ _est_memo: dict = {}
 _EST_MEMO_MAX = 4096
 
 
-def estimate_program_bytes(program, leaf_vals, donate=()) -> int:
+def estimate_program_bytes(program, leaf_vals, donate=(),
+                           fingerprint=None) -> int:
     """Peak device footprint estimate for one linearized program: the
     analytic live-set walk of ``analyze.rules.estimate_peak_bytes``,
-    memoized per structure and leaf avals.  The reference prefers XLA's
-    ``memory_analysis`` and falls back to this walk (always under
-    ``RAMBA_HBM_ESTIMATE=analytic``); the port has no compiler to ask,
-    so the walk is its one estimate."""
+    memoized per structure and leaf avals (``fingerprint``: the flush's
+    ledger fingerprint of both, when the caller has it: no key to build).
+    The reference prefers XLA's ``memory_analysis`` and falls back to
+    this walk (always under ``RAMBA_HBM_ESTIMATE=analytic``); the port
+    has no compiler to ask, so the walk is its one estimate."""
     from ramba_tpu_torch.analyze import rules as _rules
     from ramba_tpu_torch.core.expr import aval_of
 
+    fp = None
+    if fingerprint is not None:
+        fp = (fingerprint, tuple(donate))
+        cached = _est_memo.get(fp)
+        if cached is not None:
+            return cached
     avals = [aval_of(v) for v in leaf_vals]
-    fp = (program.key, tuple(donate),
-          tuple((tuple(a.shape), str(a.dtype)) for a in avals))
-    cached = _est_memo.get(fp)
-    if cached is not None:
-        return cached
+    if fp is None and program.key_hash != -1:  # else: an identity static
+        fp = (program.key, tuple(donate),
+              tuple((tuple(a.shape), str(a.dtype)) for a in avals))
+        cached = _est_memo.get(fp)
+        if cached is not None:
+            return cached
     est = _rules.estimate_peak_bytes(program, avals, donate)
-    if len(_est_memo) >= _EST_MEMO_MAX:
-        _est_memo.clear()
-    _est_memo[fp] = est
+    if fp is not None:
+        if len(_est_memo) >= _EST_MEMO_MAX:
+            _est_memo.clear()
+        _est_memo[fp] = est
     return est
 
 
-def admit(program, leaf_vals, donate_key, span=None, *, tenant=None,
-          quota=None) -> bool:
-    raise NotImplementedError(ADMISSION)
+def _resident_overlap(leaf_vals) -> int:
+    """Resident bytes among ``leaf_vals`` the ledger already counts: the
+    program estimate counts its arguments too, so they must not be
+    billed twice."""
+    resident = 0
+    seen: set = set()
+    with ledger._lock:
+        if not ledger.entries:
+            return 0
+        for v in leaf_vals:
+            k = _key(v)
+            if k is None or k in seen:
+                continue
+            seen.add(k)
+            e = ledger.entries.get(k)
+            if e is not None and not e.spilled:
+                resident += e.nbytes
+    return resident
+
+
+def _admit_budget(program, leaf_vals, donate_key,
+                  span: Optional[dict] = None, fingerprint=None) -> bool:
+    """The global-budget leg of :func:`admit`: True routes the flush to
+    the chunked rung.  No-op (False) when no budget is known.  The
+    ``admit`` event is built only when a trace is on (admission runs on
+    every flush on the card)."""
+    budget = budget_bytes()
+    if budget is None:
+        return False
+    wm = watermark_bytes(budget) or budget
+    try:
+        est = estimate_program_bytes(program, leaf_vals, donate_key,
+                                     fingerprint)
+    except Exception:  # an estimate that cannot be made admits
+        return False
+    live = ledger.live_bytes
+    # this flush's resident leaves count once: in the estimate
+    projected = live + est if live + est <= wm else \
+        max(0, live - _resident_overlap(leaf_vals)) + est
+    if span is not None:
+        span["mem_live_bytes"] = live
+        span["mem_peak_est"] = est
+    if _events.trace_enabled():
+        _update_gauges(ledger)
+        _events.emit({
+            "type": "memory", "action": "admit", "est_bytes": est,
+            "live_bytes": live, "projected_bytes": projected,
+            "watermark_bytes": wm, "budget_bytes": budget,
+            "ok": projected <= wm,
+        })
+    if projected <= wm:
+        return False
+    _events.emit({
+        "type": "memory", "action": "watermark",
+        "over_bytes": projected - wm, "watermark_bytes": wm,
+    })
+    freed = ledger.evict_until(projected - wm)
+    if projected - freed <= wm:
+        if span is not None:
+            span["admission"] = "evicted"
+        return False
+    _registry.inc("memory.admission_rejects")
+    _registry.gauge("memory.admission_rejects.last_over_bytes",
+                    projected - freed - wm)
+    _events.emit({
+        "type": "memory", "action": "reject", "route": "chunked",
+        "est_bytes": est, "freed_bytes": freed,
+        "over_bytes": projected - freed - wm,
+    })
+    if span is not None:
+        span["admission"] = "chunked"
+    return True
+
+
+def admit(program, leaf_vals, donate_key, span: Optional[dict] = None, *,
+          tenant: Optional[str] = None, quota: Optional[int] = None,
+          coherent: bool = True, fingerprint=None) -> bool:
+    """Pre-flush admission check: True when the flush should start the
+    ladder at the ``chunked`` rung (it does not fit under the watermark
+    even after eviction), False admits the fused rung.  A no-op (False)
+    when no budget is known.  Across ranks with a budget, every rank
+    takes the verdict of a ``memory:admit`` round (chunked anywhere is
+    chunked everywhere); ``coherent=False`` leaves the round to the
+    caller.  ``fingerprint``: the flush's, keying the estimate's memo.
+    A tenant's ``quota`` is ROADMAP A.10's."""
+    if tenant is not None and quota:
+        raise NotImplementedError(TENANTS)
+    route = _admit_budget(program, leaf_vals, donate_key, span, fingerprint)
+    if coherent and budget_bytes() is not None and _coherence.engaged():
+        agreed = bool(_coherence.agree("memory:admit", 1 if route else 0,
+                                       reduce="max"))
+        if agreed and not route and span is not None:
+            span["admission"] = "coherent"
+        route = agreed
+    return route
 
 
 # ---------------------------------------------------------------------------
@@ -550,13 +661,14 @@ def _oom_need(exc: BaseException) -> Optional[int]:
     return int(m.group(1) or m.group(2))
 
 
-def evict_for_oom(exc: BaseException) -> int:
+def evict_for_oom(exc: BaseException, coherent: bool = True) -> int:
     """Free at least what an out-of-memory error asked for (an injected
     fault's ``.bytes``, or the size torch's message names), or everything
     unpinned when the size is unknown; returns the bytes freed.  Across
-    ranks every rank frees what the worst-off rank asked for."""
+    ranks every rank frees what the worst-off rank asked for
+    (``coherent=False``: this rank's own need, no round)."""
     need = _oom_need(exc) or ledger.live_bytes or 1
-    if _coherence.engaged():
+    if coherent and _coherence.engaged():
         need = max(1, _coherence.agree(
             "memory:oom_evict", (int(need) + 0xFFFF) >> 16,
             reduce="max") << 16)

@@ -1,7 +1,8 @@
 """Retry policy engine: backoff + jitter, per-site budgets, classification.
 
 Counterpart of ``ramba_tpu/resilience/retry.py``.  Every wrapped call site
-(the port's ``fileio`` reads and writes, checkpoint I/O) funnels through
+(the port's ``fileio`` reads and writes, checkpoint I/O, every rung of a
+flush's degradation ladder) funnels through
 :func:`call`, which:
 
 1. classifies each failure as ``retryable`` / ``degrade`` / ``oom`` /
@@ -34,6 +35,9 @@ torch's errors, beside the reference's rules (:func:`classify`):
   poisons the CUDA context, so no later attempt in this process can
   succeed.  This rule comes before the message markers, so a launch
   failure whose text happens to say ``UNAVAILABLE`` is not retried.
+* a failed kernel build (``_build.KernelBuildError``) → ``fatal``: the
+  same source fails the same way, and the degradation ladder must not
+  hide it behind a lower rung.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ramba_tpu_torch import _build
 from ramba_tpu_torch.observe import events as _events
 from ramba_tpu_torch.observe import health as _health
 from ramba_tpu_torch.observe import registry as _registry
@@ -115,7 +120,7 @@ def classify(exc: BaseException) -> str:
         return "fatal"
     if isinstance(exc, torch.cuda.OutOfMemoryError):
         return "oom"
-    if _is_cuda_error(exc):
+    if _is_cuda_error(exc) or isinstance(exc, _build.KernelBuildError):
         return "fatal"
     if isinstance(exc, _faults.InjectedResourceExhausted):
         return "oom"
@@ -221,7 +226,7 @@ def call(site: str, fn: Callable, *, on_retry: Optional[Callable] = None,
     """
     if coherent and _coherence.engaged():
         return _call_coherent(site, fn, on_retry=on_retry, policy=policy)
-    pol = policy or policy_for(site)
+    pol = policy  # read from the environment at the first failure only
     attempt = 0
     while True:
         attempt += 1
@@ -230,6 +235,8 @@ def call(site: str, fn: Callable, *, on_retry: Optional[Callable] = None,
         except Exception as e:
             if classify(e) != "retryable":
                 raise
+            if pol is None:
+                pol = policy_for(site)
             if attempt >= pol.attempts:
                 _registry.inc("resilience.retry_exhausted")
                 _registry.inc(f"resilience.retry_exhausted.{site}")

@@ -9,7 +9,9 @@ the ledger owning cached results.  The port's own cases: a torch
 tensor is mutable, so an adopted tensor changed in place — directly or
 through a view — must miss and give the new value, and a cached result
 written in place is never served.  The serving plane's batch CSE and the
-shared tier are ROADMAP A.10's: they raise ``NotImplementedError``.
+shared tier are ROADMAP A.10's: they raise ``NotImplementedError``; the
+shadow audit's eviction of a suspect entry is A.8's
+(``tests/test_torch_audit.py``).
 """
 
 import numpy as np
@@ -288,12 +290,20 @@ def test_later_items_raise_naming_their_roadmap_items(monkeypatch):
         memo.batch_cse()
     with pytest.raises(NotImplementedError, match="A.9"):
         diagnostics.memo_report()
-    with pytest.raises(NotImplementedError, match="A.8"):
-        integrity.evict_plan_blobs(None)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        fuser._run_chunked()
-    with pytest.raises(NotImplementedError, match="A.8"):
-        fuser._run_eager()
+    # A.8's items landed: the chunked and eager rungs run a program, and
+    # a suspect plan's memo entry is evicted
+    x = rt.fromarray(np.arange(8.0))
+    np.asarray(x * 2.0)  # the certified result enters the cache
+    program, leaves = fuser._linearize([(x * 2.0)._expr])
+    vals = [fuser.leaf_value(leaf) for leaf in leaves]
+    plan = memo.plan_for(program, (), leaves, vals)
+    assert integrity.evict_plan_blobs(None) is False
+    n0 = memo.cache.snapshot()["entries"]
+    assert integrity.evict_plan_blobs(plan) is True
+    assert memo.cache.snapshot()["entries"] == n0 - 1
+    for run in (fuser._run_chunked(program, vals),
+                fuser._run_eager(program, vals, None)):
+        np.testing.assert_array_equal(run[0].numpy(), np.arange(8.0) * 2)
     monkeypatch.setenv("RAMBA_MEMO_SHARED", "1")
     a = rt.fromarray(np.arange(4.0))
     b = a * 2.0

@@ -296,9 +296,17 @@ def test_fault_bytes_payload():
     assert ei.value.bytes == 1 << 30
 
 
-def test_admission_and_quotas_name_their_items():
-    with pytest.raises(NotImplementedError, match="A.8"):
-        memory.admit(None, [], ())
+def test_admission_and_quotas_name_their_items(monkeypatch):
+    # admission landed with A.8: no budget admits the fused rung, a
+    # budget the program cannot fit under routes it chunked
+    x0 = rt.fromarray(np.ones(1024))
+    prog0, vals0 = fuser.prepare_program([((x0 + 1.0) * 2.0)._expr])
+    assert memory.admit(prog0, vals0, ()) is False
+    monkeypatch.setenv("RAMBA_HBM_BUDGET", "16k")
+    assert memory.admit(prog0, vals0, ()) is True
+    monkeypatch.delenv("RAMBA_HBM_BUDGET")
+    with pytest.raises(NotImplementedError, match="A.10"):
+        memory.admit(prog0, vals0, (), tenant="t", quota=1)
     # the estimate is the analytic live-set walk (analyze.rules)
     x = rt.fromarray(np.ones(1024))
     prog, vals = fuser.prepare_program([((x + 1.0) * 2.0)._expr])
@@ -306,3 +314,180 @@ def test_admission_and_quotas_name_their_items():
     assert memory.estimate_program_bytes(prog, vals) == 3 * 8192 + 16
     with pytest.raises(NotImplementedError, match="A.10"):
         memory.ledger.evict_until(1, tenant="t")
+
+
+# -- admission, oom eviction and the chunked rung (ROADMAP A.8) ----------------
+# The counterparts of tests/test_memory.py:166-360: both packages run the
+# same program under the same budget (ramba_tpu with its analytic
+# estimate), take the same rung and give the same values.
+
+
+@pytest.fixture
+def fast_retries(monkeypatch):
+    monkeypatch.setenv("RAMBA_RETRY_BASE_S", "0")
+    fuser.flush()
+    rtj.sync()
+    fuser._compile_cache.clear()
+    rfuser._compile_cache.clear()
+
+
+def _last_span():
+    from ramba_tpu_torch.observe import events
+
+    return events.last(1, type="flush")[-1]
+
+
+def _memory_events(n=200):
+    from ramba_tpu_torch.observe import events
+
+    return [e for e in events.last(n) if e.get("type") == "memory"]
+
+
+def test_tight_budget_evicts_and_routes_chunked(monkeypatch, fast_retries):
+    from ramba_tpu import diagnostics as rdiag
+
+    cold_np = np.random.RandomState(2).rand(256, 256).astype(np.float32)
+    x_np = np.random.RandomState(3).rand(128, 128).astype(np.float32)
+    cold, x = rt.fromarray(cold_np), rt.fromarray(x_np)
+    rcold, rx = rtj.fromarray(cold_np), rtj.fromarray(x_np)
+    fuser.flush()
+    rtj.sync()
+    monkeypatch.setenv("RAMBA_HBM_BUDGET", "150k")
+    monkeypatch.setenv("RAMBA_HBM_ESTIMATE", "analytic")
+    ev0 = registry.get("memory.evictions")
+    rej0 = registry.get("memory.admission_rejects")
+
+    def prog(m, a):
+        y = a * 2.0 + 1.0
+        return m.sum(m.sqrt(y) + y * 0.5)
+
+    got, want = float(prog(rt, x)), float(prog(rtj, rx))
+    exp = float(np.sum(np.sqrt(x_np * 2.0 + 1.0) + (x_np * 2.0 + 1.0) * 0.5))
+    assert got == pytest.approx(exp, rel=1e-3)
+    assert got == pytest.approx(want, rel=1e-5)  # float32 sums, two orders
+    span, rspan = _last_span(), rdiag.last_flushes(1)[0]
+    for s in (span, rspan):
+        assert s.get("degraded") == "chunked", s
+        assert s.get("admission") == "chunked"
+        assert s.get("mem_peak_est", 0) > 0
+        assert s.get("segments", 0) >= 2, s
+    assert registry.get("memory.evictions") > ev0
+    assert registry.get("memory.admission_rejects") == rej0 + 1
+    assert isinstance(cold._expr.value, spill.SpilledArray)
+    actions = {e.get("action") for e in _memory_events()}
+    assert {"watermark", "spill", "reject"} <= actions, actions
+    # the evicted array survives, restored on touch
+    np.testing.assert_array_equal(np.asarray(cold), cold_np)
+    del x, cold, rx, rcold
+
+
+def test_admit_event_only_when_traced(monkeypatch, fast_retries, tmp_path):
+    from ramba_tpu_torch.observe import events
+
+    monkeypatch.setenv("RAMBA_HBM_BUDGET", "64m")
+    float(rt.sum(rt.arange(1024) * 2.0))
+    assert not any(e.get("action") == "admit" for e in _memory_events())
+    events.configure(str(tmp_path / "t.jsonl"))
+    try:
+        float(rt.sum(rt.arange(1024) * 3.0))
+    finally:
+        events.configure(None)
+    assert any(e.get("action") == "admit" and e["ok"]
+               for e in _memory_events())
+
+
+def test_roomy_budget_admits_fused(monkeypatch, fast_retries):
+    monkeypatch.setenv("RAMBA_HBM_BUDGET", "64m")
+    rej0 = registry.get("memory.admission_rejects")
+    got = float(rt.sum(rt.arange(1024) * 2.0 + 1.0))
+    assert got == float(rtj.sum(rtj.arange(1024) * 2.0 + 1.0))
+    span = _last_span()
+    assert "degraded" not in span and "admission" not in span
+    assert span["stages"]["admit"] >= 0 and span["mem_peak_est"] > 0
+    assert registry.get("memory.admission_rejects") == rej0
+
+
+def test_budget_unset_is_transparent(fast_retries):
+    from ramba_tpu_torch.observe.registry import comm
+
+    ev0, rs0 = registry.get("memory.evictions"), registry.get("memory.restores")
+    rej0 = registry.get("memory.admission_rejects")
+    h2d0 = comm.get("host_to_device_bytes", 0)
+    got = float(rt.sum(rt.arange(2048) * 3.0 + 1.0))
+    assert got == float(np.sum(np.arange(2048) * 3.0 + 1.0))
+    span = _last_span()
+    for k in ("degraded", "admission", "mem_peak_est", "stages"):
+        assert k not in span, span
+    assert registry.get("memory.evictions") == ev0
+    assert registry.get("memory.restores") == rs0
+    assert registry.get("memory.admission_rejects") == rej0
+    assert comm.get("host_to_device_bytes", 0) == h2d0
+
+
+def test_injected_oom_evicts_then_drops_one_rung(fast_retries):
+    from ramba_tpu import diagnostics as rdiag
+
+    cold_np = np.random.RandomState(4).rand(128, 128).astype(np.float32)
+    cold = rt.fromarray(cold_np)
+    fuser.flush()
+    ev0 = registry.get("memory.evictions")
+    with faults.active("oom:1"), rfaults.active("oom:1"):
+        got = float(rt.sum(rt.arange(1024) * 5.0 + 7.0))
+        want = float(rtj.sum(rtj.arange(1024) * 5.0 + 7.0))
+    assert got == want == float(np.sum(np.arange(1024) * 5.0 + 7.0))
+    assert _last_span().get("degraded") == "split"
+    assert rdiag.last_flushes(1)[0].get("degraded") == "split"
+    assert registry.get("memory.evictions") > ev0
+    assert any(e.get("action") == "oom_evict" for e in _memory_events())
+    np.testing.assert_array_equal(np.asarray(cold), cold_np)
+    del cold
+
+
+def test_chunk_bytes_env_drives_segment_count(monkeypatch, fast_retries):
+    from ramba_tpu import diagnostics as rdiag
+
+    monkeypatch.setenv("RAMBA_CHUNK_BYTES", "64k")
+    n = 8192
+
+    def prog(m):
+        c = m.sqrt(m.arange(n) * 2.0 + 1.0) * 0.5
+        return float(m.sum(c))
+
+    with faults.active("execute:2:oom", seed=0), \
+            rfaults.active("execute:2:oom", seed=0):
+        got, want = prog(rt), prog(rtj)
+    exp = float(np.sum(np.sqrt(np.arange(n) * 2.0 + 1.0) * 0.5))
+    assert got == pytest.approx(exp, rel=1e-12)
+    assert got == pytest.approx(want, rel=1e-12)
+    span, rspan = _last_span(), rdiag.last_flushes(1)[0]
+    # fused failed, split failed, chunked ran byte-bounded segments
+    for s in (span, rspan):
+        assert s.get("degraded") == "chunked", s
+        assert s.get("chunk_bytes") == 64 << 10
+    assert span["segments"] == rspan["segments"] >= 2
+
+
+@pytest.mark.parametrize("budget", ["8k", "40k", "150k"])
+def test_chunked_segments_follow_the_budget(monkeypatch, fast_retries,
+                                            budget):
+    """Admission routes the same flushes chunked in both packages, each
+    cut into byte-bounded segments of at most the chunk target (the
+    reference's estimate counts its own rewrites' program, so the
+    segment counts are not compared)."""
+    from ramba_tpu import diagnostics as rdiag
+
+    monkeypatch.setenv("RAMBA_HBM_BUDGET", budget)
+    monkeypatch.setenv("RAMBA_HBM_ESTIMATE", "analytic")
+
+    def prog(m):
+        a = m.arange(2048) * 0.5
+        b = m.sin(a) * m.cos(a) + a
+        return np.asarray(m.sqrt(m.abs(b)) + b * 2.0)
+
+    got, want = prog(rt), prog(rtj)
+    np.testing.assert_allclose(got, want, rtol=1e-13)
+    span, rspan = _last_span(), rdiag.last_flushes(1)[0]
+    assert span.get("degraded") == rspan.get("degraded")
+    if span.get("degraded") == "chunked":
+        assert span["chunk_bytes"] == memory.chunk_target_bytes()
+        assert span["segments"] >= 1

@@ -444,6 +444,103 @@ def _analyze(rt, rank, outdir):
         json.dump(info, f)
 
 
+LADDER_N = 3001        # axpy's vectors, float64
+LADDER_GRID = (64, 48)  # star2's grid, float32
+
+
+def ladder_inputs():
+    x = np.sin(np.arange(LADDER_N) * 1e-3)
+    y = np.cos(np.arange(LADDER_N) * 1e-3)
+    g = np.random.default_rng(9).random(LADDER_GRID).astype(np.float32)
+    return x, y, g
+
+
+def ladder_reference():
+    """The ladder mode's whole results in one process: the port on the
+    CPU, every flush on its fused rung."""
+    import ramba_tpu_torch as rt
+
+    x, y, g = ladder_inputs()
+    ax, ay = rt.fromarray(x), rt.fromarray(y)
+    st = rt.stencil(star2_body)
+    it = np.asarray(rt.sstencil_iterate(st, rt.fromarray(g), 3))
+    return {"axpy": np.asarray(2.5 * ax + ay),
+            "star2": np.asarray(rt.sstencil(st, rt.fromarray(g))),
+            "iterate": it, "retried": it,
+            "memo": np.asarray(3.0 * ax + ay),
+            "after_fatal": float(np.sum(4.0 * x + y))}
+
+
+def _ladder(rt, rank, outdir):
+    """The coherent ladder across ranks: a healthy flush on fused; an
+    ``oom`` on rank 1 alone (axpy, star2, its iterate), on a rank that
+    holds data where another's block is empty, and on rank 0 where the
+    other ranks' memo serves the flush: every rank drops to split in
+    the same rounds; a fatal fault on rank 1 aborts every rank with one
+    class, and the next flush runs."""
+    from ramba_tpu_torch.core import memo
+    from ramba_tpu_torch.observe import events, registry
+    from ramba_tpu_torch.resilience import coherence, faults, retry
+
+    def rung_of(fn):
+        r0 = registry.get("resilience.degrade_recovered")
+        v = fn()
+        if registry.get("resilience.degrade_recovered") == r0:
+            return v, "fused"
+        ev = [e for e in events.last(80, type="degrade")
+              if e.get("action") == "recovered"]
+        return v, ev[-1]["rung"]
+
+    x, y, g = ladder_inputs()
+    ax, ay, ag = rt.fromarray(x), rt.fromarray(y), rt.fromarray(g)
+    st = rt.stencil(star2_body)
+    info, res, rungs = {}, {}, {}
+    res["axpy"], rungs["healthy"] = rung_of(lambda: np.asarray(2.5 * ax + ay))
+    with faults.active("oom:1:rank=1"):
+        res["star2"], rungs["oom"] = rung_of(
+            lambda: np.asarray(rt.sstencil(st, ag)))
+    with faults.active("oom:1:rank=1"):
+        res["iterate"], rungs["oom_iterate"] = rung_of(
+            lambda: np.asarray(rt.sstencil_iterate(st, ag, 3)))
+    # a transient fault on rank 1 before its halo exchange: every rank
+    # retries the attempt in place, none waits in the exchange
+    r0 = registry.get("resilience.retries.flush")
+    with faults.active("dispatch:once:rank=1"):
+        res["retried"], rungs["transient"] = rung_of(
+            lambda: np.asarray(rt.sstencil_iterate(st, ag, 3)))
+    info["retries"] = registry.get("resilience.retries.flush") - r0
+    # a 1x1 array: one rank holds it, the others' blocks are empty
+    with faults.active("oom:1:rank=0"):
+        res["tiny"], rungs["tiny"] = rung_of(
+            lambda: np.asarray(rt.ones((1, 1)) * 2.0 + 1.0))
+    os.environ["RAMBA_MEMO"] = "1"
+    try:
+        np.asarray(3.0 * ax + ay)  # every rank caches its block's result
+        if rank == 0:
+            memo.reset()
+        with faults.active("oom:1:rank=0"):
+            res["memo"], rungs["memo"] = rung_of(
+                lambda: np.asarray(3.0 * ax + ay))
+        info["memo_hits"] = memo.cache.hits
+    finally:
+        del os.environ["RAMBA_MEMO"]
+        memo.reset()
+    with faults.active("execute:once:fatal:rank=1"):
+        try:
+            np.asarray(4.0 * ax + ay)
+            info["fatal_error"] = "no error"
+        except Exception as e:  # recorded for the test
+            info["fatal_error"] = f"{type(e).__name__}: {e}"
+            info["fatal_class"] = retry.classify(e)
+    info["after_fatal"] = float(rt.sum(4.0 * ax + ay))
+    info["rungs"] = rungs
+    info["epochs"] = coherence.epochs()
+    info["degrade_steps"] = registry.get("resilience.degrade_steps")
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **res)
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+
+
 CARD_GRID = (1024, 1024)
 CARD_SERIES = (1 << 20) + 37
 SEG_KINDS = ("sum", "min", "max", "count")
@@ -540,7 +637,8 @@ def main(argv) -> int:
     if world == 1:  # one rank: a mesh of ranks all the same
         rt.set_mesh(distributed.global_mesh())
     {"main": _main, "fail": _fail, "card": _card, "nccl": _nccl,
-     "compile": _compile, "analyze": _analyze}[mode](rt, rank, outdir)
+     "compile": _compile, "analyze": _analyze,
+     "ladder": _ladder}[mode](rt, rank, outdir)
     distributed.shutdown()
     return 0
 
