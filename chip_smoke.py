@@ -171,8 +171,10 @@ Phases, each reported on its own line:
    each of them forced through ``RAMBA_FAULTS`` (the host rung at 2^24 and
    2048^2) and held against the fused result, byte-equal or within its
    stated bound, each rung's wall beside the fused one; (c) the headline
-   chain under a ``RAMBA_HBM_BUDGET`` below its estimated peak, admitted
-   to the chunked rung; (d) a real out-of-memory error on a card filled
+   chain under a ``RAMBA_HBM_BUDGET`` below its estimated peak: kept on
+   the fused rung where one result is larger than the chunked rung's
+   bytes a segment, admitted to the chunked rung where it is not, and
+   admission's own host time over healthy flushes; (d) a real out-of-memory error on a card filled
    with governed arrays, evicted and recovered with no buffer of the
    failed attempt left; (e) a transient fault retried in place, an
    injected fatal fault and a forged kernel build error raising with no
@@ -5761,6 +5763,7 @@ LADDER_ODD = (4099, 4133)          # star2, float32 (cp.async)
 LADDER_HOST_GRID = 2048            # star2 on the host rung
 LADDER_SWEEPS = (10, 20)           # (chained, iterate)
 LADDER_CHAIN_N = 10 ** 9           # the headline chain
+ADMIT_FLUSHES = 200                # healthy flushes timing admission
 LADDER_FILL = 1 << 30              # bytes of one fill array in (d)
 LADDER_RANKS = 4
 LADDER_DIST_N = 1 << 28            # axpy + sum across ranks, float64
@@ -6044,11 +6047,16 @@ def ladder_rungs(rt, np, torch, sc, card, window, star2):
 
 def ladder_admission(rt, np, torch, card, window):
     """(c) The 1e9 headline chain under a RAMBA_HBM_BUDGET below its
-    estimated peak: admission rejects the fused rung and the flush runs
-    chunked, its result within the depth bound of the fused one."""
+    estimated peak.  With the default bytes a segment, one result (8 GB)
+    is larger than a segment: the chunked rung would keep the fused
+    rung's live set, so admission keeps the fused rung ("over").  With
+    bytes a segment past three results, admission rejects the fused rung
+    and the flush runs chunked.  Both results equal the fused one within
+    the depth bound; the peaks and walls are printed, and admission's
+    own host time over healthy flushes (the span's ``admit`` stage)."""
     import os
 
-    from ramba_tpu_torch.observe import registry
+    from ramba_tpu_torch.observe import events, registry
     from ramba_tpu_torch.ops import elemred, segred
 
     n = LADDER_CHAIN_N
@@ -6059,50 +6067,86 @@ def ladder_admission(rt, np, torch, card, window):
         del A
         return [rt.sum(D)._value()]
 
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    fused, w_f, span_f, _s = window("ladder (c) headline fused",
-                                    lambda: _ladder_run(torch, run), {})
-    peak_f = torch.cuda.max_memory_allocated() - base
-    est = span_f["mem_peak_est"]
-    budget = int(est * 0.9)
-    old = os.environ.get("RAMBA_HBM_BUDGET")
-    os.environ["RAMBA_HBM_BUDGET"] = str(budget)
-    r0 = registry.get("memory.admission_rejects")
-    try:
-        _ladder_run(torch, run)  # builds the segments' kernels
+    def peak_run(label):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        got, w_c, span, steps = window("ladder (c) headline admitted",
-                                       lambda: _ladder_run(torch, run), {})
-        peak_c = torch.cuda.max_memory_allocated() - base
-    finally:
-        if old is None:
-            os.environ.pop("RAMBA_HBM_BUDGET", None)
-        else:
-            os.environ["RAMBA_HBM_BUDGET"] = old
-    rejects = registry.get("memory.admission_rejects") - r0
+        got, w, span, _s = window(label, lambda: _ladder_run(torch, run), {})
+        return got, w, span, torch.cuda.max_memory_allocated() - base
+
+    fused, w_f, span_f, peak_f = peak_run("ladder (c) headline fused")
+    est = span_f["mem_peak_est"]
+    budget = int(est * 0.9)
     depth = max(elemred.depth(n), segred.depth(n))
-    same = _ladder_hold(torch, "ladder (c) headline chunked", got, fused, [(
-        sum_bound(depth, "float64", abs(float(fused[0]))),
-        f"2 depth(n) eps sum|x|, depth {depth}")])
-    log(f"  ladder (c) admission: estimate {est / 2 ** 30:.3f} GiB, budget "
-        f"{budget / 2 ** 30:.3f} GiB (watermark 0.9 of it), "
-        f"memory.admission_rejects +{rejects} (two runs), rung "
-        f"{span.get('degraded')} ({span.get('segments')} segments, "
-        f"chunk {span.get('chunk_bytes', 0) / 2 ** 30:.3f} GiB); "
-        f"max_memory_allocated chunked {peak_c / 2 ** 30:.3f} GiB vs fused "
-        f"{peak_f / 2 ** 30:.3f} GiB (budget >= chunked peak: "
-        f"{budget >= peak_c}); walls chunked {w_c:.4f} s, fused "
-        f"{w_f:.4f} s; result byte-equal {same} [{card}]")
-    if rejects != 2 or span.get("degraded") != "chunked" or \
-            span.get("admission") != "chunked":
-        raise Fail(f"ladder (c): rejects {rejects}, span {span}")
-    return {"est_bytes": est, "budget_bytes": budget, "rejects": rejects,
-            "peak_chunked_bytes": peak_c, "peak_fused_bytes": peak_f,
-            "chunked_s": w_c, "fused_s": w_f, "byte_equal": same}
+    bound = [(sum_bound(depth, "float64", abs(float(fused[0]))),
+              f"2 depth(n) eps sum|x|, depth {depth}")]
+    saved = {k: os.environ.get(k)
+             for k in ("RAMBA_HBM_BUDGET", "RAMBA_CHUNK_BYTES")}
+    out = {"est_bytes": est, "budget_bytes": budget,
+           "peak_fused_bytes": peak_f, "fused_s": w_f}
+    try:
+        os.environ["RAMBA_HBM_BUDGET"] = str(budget)
+        for mode, chunk in (("over", None), ("chunked", 3 * est // 2)):
+            if chunk is None:
+                os.environ.pop("RAMBA_CHUNK_BYTES", None)
+            else:
+                os.environ["RAMBA_CHUNK_BYTES"] = str(chunk)
+            c0 = {k: registry.get(f"memory.admission_{k}")
+                  for k in ("rejects", "over")}
+            _ladder_run(torch, run)  # builds the segments' kernels
+            got, w, span, peak = peak_run(f"ladder (c) headline {mode}")
+            moved = {k: registry.get(f"memory.admission_{k}") - v
+                     for k, v in c0.items()}
+            same = _ladder_hold(torch, f"ladder (c) headline {mode}", got,
+                                fused, bound)
+            rung = span.get("degraded", "fused")
+            log(f"  ladder (c) admission {mode}: estimate "
+                f"{est / 2 ** 30:.3f} GiB, budget {budget / 2 ** 30:.3f} "
+                f"GiB (watermark 0.9 of it), bytes a segment "
+                f"{(chunk or 0) / 2 ** 30:.3f} GiB (0: the default), "
+                f"memory.admission_rejects +{moved['rejects']}, "
+                f"memory.admission_over +{moved['over']} (two runs), rung "
+                f"{rung} ({span.get('segments')} segments); "
+                f"max_memory_allocated {peak / 2 ** 30:.3f} GiB vs fused "
+                f"{peak_f / 2 ** 30:.3f} GiB; walls {w:.4f} s, fused "
+                f"{w_f:.4f} s; result byte-equal {same} [{card}]")
+            want = {"rejects": 0, "over": 2} if mode == "over" else \
+                {"rejects": 2, "over": 0}
+            if moved != want or rung != ("fused" if mode == "over"
+                                         else "chunked") \
+                    or span.get("admission") != mode:
+                raise Fail(f"ladder (c) {mode}: {moved}, span {span}")
+            out[mode] = {"rung": rung, "peak_bytes": peak, "wall_s": w,
+                         "byte_equal": same, **moved}
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    # admission's host time on a healthy flush (the card's capacity is
+    # the budget): the span's admit stage over small flushes
+    x = rt.fromarray(np.arange(1 << 16, dtype=np.float64))
+    float(rt.sum(x * 2.0 + 1.0))
+    seen = []
+    events.add_tap(seen.append)
+    try:
+        for k in range(ADMIT_FLUSHES):
+            float(rt.sum(x * 2.0 + float(k)))
+    finally:
+        events.remove_tap(seen.append)
+    admit_us = sorted(e["stages"]["admit"] * 1e6 for e in seen
+                      if e.get("type") == "flush" and "admit" in
+                      e.get("stages", {}))
+    if len(admit_us) != ADMIT_FLUSHES:
+        raise Fail(f"ladder (c): {len(admit_us)} admit stages of "
+                   f"{ADMIT_FLUSHES} flushes")
+    p50, p90 = admit_us[len(admit_us) // 2], admit_us[len(admit_us) * 9 // 10]
+    log(f"  ladder (c) admission's host time, {ADMIT_FLUSHES} healthy "
+        f"flushes of sum(x * 2 + k) over 2^16 f64: span stage admit p50 "
+        f"{p50:.1f} us, p90 {p90:.1f} us [{card}]")
+    out.update(admit_p50_us=p50, admit_p90_us=p90)
+    return out
 
 
 def ladder_real_oom(rt, np, torch, card, window):

@@ -22,7 +22,11 @@ about to load.  ``nvcc_builds`` counts the builds this process ran
 did not build (``compile.kernel_loads``; a persist hit when the cache is
 armed).
 
-A failed build raises with the compiler's output; nothing falls back.
+A failed build raises with the compiler's output; nothing falls back.  Any
+other failure to build or load a library (the compiler missing or not
+started, a full disk, ``ctypes`` unable to open the library) raises as
+:class:`KernelBuildError` too, which the retry engine and the degradation
+ladder take as fatal.
 """
 
 from __future__ import annotations
@@ -134,6 +138,21 @@ class KernelBuildError(RuntimeError):
     way)."""
 
 
+@contextlib.contextmanager
+def _as_build_error(name: str):
+    """Re-raise whatever fails while ``name`` is built or loaded as a
+    :class:`KernelBuildError`, chaining the original: an ``OSError`` here
+    would otherwise read as retryable, and a rung below would hide the
+    missing kernel."""
+    try:
+        yield
+    except KernelBuildError:
+        raise
+    except Exception as e:
+        raise KernelBuildError(
+            f"could not build or load {name}: {type(e).__name__}: {e}") from e
+
+
 def _run_nvcc(cmd: list) -> subprocess.CompletedProcess:
     """One compiler run (the seam the CPU tests replace)."""
     return subprocess.run(cmd, capture_output=True, text=True)
@@ -228,11 +247,12 @@ def _build_locked(out: str, name: str, source: str) -> bool:
 def build_so(name: str, source: str) -> str:
     """Compile one CUDA source to a shared library (cached); returns its
     path.  A library already on disk is checked against its digest first
-    and rebuilt when it fails.  Raises with nvcc's output when the build
-    fails."""
-    out = so_path(name, source)
-    with _locked(out):
-        _build_locked(out, name, source)
+    and rebuilt when it fails.  Raises :class:`KernelBuildError`, with
+    nvcc's output, when the build fails."""
+    with _as_build_error(name):
+        out = so_path(name, source)
+        with _locked(out):
+            _build_locked(out, name, source)
     return out
 
 
@@ -254,16 +274,17 @@ def load(name: str, source: str) -> ctypes.CDLL:
         lib = _libs.get(source)
     if lib is not None:
         return lib
-    out = so_path(name, source)
-    with _locked(out):
-        built = _build_locked(out, name, source)
-        with _lock:
-            lib = _libs.get(source)
-            if lib is not None:
-                return lib
-            lib = _libs[source] = ctypes.CDLL(out)
-            if not built:
-                disk_loads += 1
+    with _as_build_error(name):
+        out = so_path(name, source)
+        with _locked(out):
+            built = _build_locked(out, name, source)
+            with _lock:
+                lib = _libs.get(source)
+                if lib is not None:
+                    return lib
+                lib = _libs[source] = ctypes.CDLL(out)
+                if not built:
+                    disk_loads += 1
     if not built:
         from ramba_tpu_torch.compile import persist
         from ramba_tpu_torch.observe import registry

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 from typing import NamedTuple
 
 import torch
@@ -111,27 +112,29 @@ def set_device(dev) -> torch.device:
     return _device
 
 
-_scoped: "torch.device | None" = None  # device_scope's, while it runs
+_scope = threading.local()  # device_scope's device, per thread
 
 
 @contextlib.contextmanager
 def device_scope(dev):
-    """Every new value created inside the block goes to ``dev`` (the
-    degradation ladder's host rung runs a whole program on the CPU)."""
-    global _scoped
-    prev, _scoped = _scoped, torch.device(dev)
+    """Every new value this thread creates inside the block goes to
+    ``dev`` (the degradation ladder's host rung runs a whole program on
+    the CPU); other threads keep the process device."""
+    prev = getattr(_scope, "device", None)
+    _scope.device = torch.device(dev)
     try:
-        yield _scoped
+        yield _scope.device
     finally:
-        _scoped = prev
+        _scope.device = prev
 
 
 def device() -> torch.device:
     """The device new arrays are created on.  Raises when no card is present
     and the CPU was not asked for."""
     global _device
-    if _scoped is not None:
-        return _scoped
+    scoped = getattr(_scope, "device", None)
+    if scoped is not None:
+        return scoped
     if _device is not None:
         return _device
     env = os.environ.get("RAMBA_TORCH_DEVICE", "").strip()

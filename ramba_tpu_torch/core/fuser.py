@@ -1008,18 +1008,18 @@ def _attempt_fused(work: _FlushWork) -> tuple:
     return _classes.strip(plan, outs)
 
 
-def _run_chunked(program: _Program, leaf_vals, span: Optional[dict] = None,
-                 max_seg_bytes: Optional[int] = None) -> tuple:
+def _run_chunked(program: _Program, leaf_vals,
+                 span: Optional[dict] = None) -> tuple:
     """The chunked rung: the segmented executor bounded by the estimated
-    live bytes of each segment (``memory.chunk_target_bytes()`` unless
-    the caller gives the bound) instead of an instruction count; every
-    value still dies after its last use, which is what bounds the
+    live bytes of each segment (``memory.chunk_target_bytes()``, this
+    rank's own in a rank-local program) instead of an instruction count;
+    every value still dies after its last use, which is what bounds the
     peak."""
     from ramba_tpu_torch.analyze import rules as _rules
     from ramba_tpu_torch.core.expr import aval_of
 
     slot_bytes = _rules.slot_nbytes(program, [aval_of(v) for v in leaf_vals])
-    cap = max_seg_bytes or _memory.chunk_target_bytes(_whole_job())
+    cap = _memory.chunk_target_bytes(_whole_job())
     if span is not None:
         span["chunk_bytes"] = cap
     _registry.inc("fuser.chunked_runs")
@@ -1099,9 +1099,8 @@ def _run_host(program: _Program, leaf_vals, span: Optional[dict]) -> tuple:
     return outs
 
 
-def _rung(work: _FlushWork, name: str, chunk_bytes: Optional[int] = None):
-    """The thunk that runs ``work``'s program on rung ``name``, behind the
-    ``dispatch`` fault site."""
+def _rung(work: _FlushWork, name: str):
+    """The thunk that runs ``work``'s program on rung ``name``."""
     program, leaf_vals, span = work.program, work.leaf_vals, work.span
     if name == "fused":
         fn = lambda: _attempt_fused(work)  # noqa: E731
@@ -1111,13 +1110,18 @@ def _rung(work: _FlushWork, name: str, chunk_bytes: Optional[int] = None):
         fn = lambda: _run_segmented(  # noqa: E731
             program, leaf_vals, span, seg_size=half, rung="split")
     elif name == "chunked":
-        fn = lambda: _run_chunked(program, leaf_vals, span,  # noqa: E731
-                                  chunk_bytes)
+        fn = lambda: _run_chunked(program, leaf_vals, span)  # noqa: E731
     elif name == "eager":
         fn = lambda: _run_eager(program, leaf_vals, span)  # noqa: E731
     else:
         fn = lambda: _run_host(program, leaf_vals, span)  # noqa: E731
+    return fn
 
+
+def _checked(name: str, fn):
+    """``fn`` behind the ``dispatch`` fault site: one check a rung
+    attempt of a flush (``core/rankflush.py`` checks once a rung attempt
+    of all of a rank's programs)."""
     def attempt():
         _faults.check("dispatch", rung=name)
         return fn()
@@ -1157,7 +1161,7 @@ def _execute_resilient(work: _FlushWork, route_chunked: bool = False,
     names = rungs_for(len(work.program.instrs), work.routed, route_chunked,
                       whole)
     return _degrade.run_ladder(
-        "flush", [(n, _rung(work, n)) for n in names],
+        "flush", [(n, _checked(n, _rung(work, n))) for n in names],
         coherent=whole and _coherence.engaged())
 
 
@@ -1233,8 +1237,7 @@ def _audit_rerun(program: _Program, leaf_vals):
     return shadow, slack
 
 
-def _dispatch(work: _FlushWork, rung: Optional[str] = None,
-              chunk_bytes: Optional[int] = None) -> tuple:
+def _dispatch(work: _FlushWork, rung: Optional[str] = None) -> tuple:
     """Run a prepared flush: a memo hit is served as it is (no lowering,
     no launch); anything else passes admission (``memory.admit``: a
     flush that does not fit starts at the chunked rung) and runs down
@@ -1262,8 +1265,8 @@ def _dispatch(work: _FlushWork, rung: Optional[str] = None,
         outs, rung = _execute_resilient(work, route, whole)
         audit = rung == "fused"
     else:
-        outs = _rung(work, rung, chunk_bytes)()
-        audit = False
+        outs = _rung(work, rung)()
+        audit = whole = False
     if rung != "fused":
         span["degraded"] = rung
     mismatch = False
@@ -1273,7 +1276,7 @@ def _dispatch(work: _FlushWork, rung: Optional[str] = None,
 
         mismatch = _integrity.shadow_audit(
             work.label, outs, lambda: _audit_rerun(program, leaf_vals),
-            plan=work.memo_plan, span=span)
+            plan=work.memo_plan, span=span, coherent=whole)
     if work.memo_plan is not None and not mismatch:
         try:
             _memo.insert(work.memo_plan, list(outs))
@@ -1325,8 +1328,7 @@ def _finish_span(span: dict, outs) -> None:
 
 
 def run_program(program: _Program, leaf_vals, split: bool = False,
-                rung: Optional[str] = None,
-                chunk_bytes: Optional[int] = None) -> tuple:
+                rung: Optional[str] = None) -> tuple:
     """Run one linearized program as a flush runs it (segments, compile
     classes, the result memo, the ledger, a span);
     ``core/rankflush.py`` runs every rank's programs through here, having
@@ -1337,7 +1339,7 @@ def run_program(program: _Program, leaf_vals, split: bool = False,
     if split:
         work.routed = True
         work.memo_plan = work.memo_hit = work.class_plan = None
-    return _dispatch(work, rung, chunk_bytes)
+    return _dispatch(work, rung)
 
 
 def verify_whole(exprs) -> bool:

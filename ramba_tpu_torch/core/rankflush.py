@@ -593,20 +593,18 @@ def _agree(ok: bool) -> bool:
     return distributed.all_reduce_int(1 if ok else 0, "min") == 1
 
 
-def _execute(program, leaf_vals, split=False, rung="fused", cap=None):
+def _execute(program, leaf_vals, split=False, rung="fused"):
     """The program through its lowering on ``rung`` (its leaves pinned
     against spilling), then the after-flush hooks.  ``split``: the
-    verifier routed the flush (RAMBA_VERIFY=warn).  ``cap``: the chunked
-    rung's bytes a segment.  The result memo keys this rank-local
-    program: it holds no collective (the folds run after it), so a hit
-    on one rank and a miss on another cannot hang."""
+    verifier routed the flush (RAMBA_VERIFY=warn).  The result memo keys
+    this rank-local program: it holds no collective (the folds run after
+    it), so a hit on one rank and a miss on another cannot hang."""
     from ramba_tpu_torch.core import fuser
     from ramba_tpu_torch.resilience import memory
 
     pins = memory.ledger.pin_values(leaf_vals)
     try:
-        return fuser.run_program(program, leaf_vals, split=split,
-                                 rung=rung, chunk_bytes=cap)
+        return fuser.run_program(program, leaf_vals, split=split, rung=rung)
     finally:
         memory.ledger.unpin(pins)
         for hook in fuser.after_flush:
@@ -652,7 +650,7 @@ def _gated(run):
     exchange, is bounded by the group's timeout only."""
     from ramba_tpu_torch.core import fuser
 
-    def attempt(name, cap):
+    def attempt(name):
         opened = []
 
         def gate(ok=True):
@@ -665,7 +663,7 @@ def _gated(run):
 
         fuser.launch_gate = gate
         try:
-            out = run(name, cap)
+            out = run(name)
             gate()
             return out
         except Exception:
@@ -678,29 +676,23 @@ def _gated(run):
 
 
 def _laddered(run, split=False, route=False):
-    """``run(rung, cap)`` down the degradation ladder: the same rung list
-    on every rank (split and chunked offered whatever the program's
-    length, no host rung), a fresh attempt at each rung, behind
-    :func:`_gated` when the coherence layer is engaged.  The chunked
-    rung's bytes a segment are this rank's own
-    (``memory.chunk_target_bytes(agree=False)``).  Returns ``run``'s
-    value."""
+    """``run(rung)`` down the degradation ladder: the same rung list on
+    every rank (split and chunked offered whatever the program's length,
+    no host rung), a fresh attempt at each rung behind one ``dispatch``
+    fault check (on every rank, whether or not a program of its runs),
+    behind :func:`_gated` when the coherence layer is engaged.  Returns
+    ``run``'s value."""
     from ramba_tpu_torch.core import fuser
-    from ramba_tpu_torch.resilience import degrade, faults, memory
+    from ramba_tpu_torch.resilience import degrade, faults
 
-    def checked(name, cap):  # the dispatch site fails inside the gate
+    def checked(name):  # the dispatch site fails inside the gate
         faults.check("dispatch", rung=name)
-        return run(name, cap)
+        return run(name)
 
     go = _gated(checked) if coherence.engaged() else checked
 
     def rung(name):
-        def attempt():
-            cap = memory.chunk_target_bytes(agree=False) \
-                if name == "chunked" else None
-            return go(name, cap)
-
-        return attempt
+        return lambda: go(name)
 
     names = fuser.rungs_for(None, split, route)
     return degrade.run_ladder("flush", [(n, rung(n)) for n in names])[0]
@@ -905,7 +897,7 @@ def _flattened(exprs, local_shape):
     return [flat.get(id(e), e) for e in _rebuild(exprs, lower)]
 
 
-def _run_segment(r, split=False, rung="fused", cap=None):
+def _run_segment(r, split=False, rung="fused"):
     """A segment root's partials on this rank: one one-instruction
     program per partial (the segred kernel's on the card)."""
     from ramba_tpu_torch.core import fuser
@@ -914,7 +906,7 @@ def _run_segment(r, split=False, rung="fused", cap=None):
         if isinstance(e, Const):
             return fuser.leaf_value(e)
         program, leaf_vals = fuser.prepare_program([e])
-        return _execute(program, leaf_vals, split, rung, cap)[0]
+        return _execute(program, leaf_vals, split, rung)[0]
 
     data = value(r.expr)
     labels = value(r.labels)
@@ -931,7 +923,7 @@ def _run_segment(r, split=False, rung="fused", cap=None):
         node = Node("segment_reduce", (kind, G, 0),
                     [Const(x), Const(labels)])
         program, leaf_vals = fuser.prepare_program([node])
-        parts.append(_execute(program, leaf_vals, split, rung, cap)[0])
+        parts.append(_execute(program, leaf_vals, split, rung)[0])
     return parts
 
 
@@ -956,12 +948,12 @@ def _run_local(plan, split=False):
                              flat is not None))
         return prepared[0][0]
 
-    def run(rung, cap):
+    def run(rung):
         outs = [None] * len(plan.roots)
         n_instrs = 0
         if live:
             program, leaf_vals = prepare()
-            vals = _execute(program, leaf_vals, split, rung, cap)
+            vals = _execute(program, leaf_vals, split, rung)
             n_instrs += len(program.instrs)
             for i, v in zip(live, vals):
                 if prepared[0][1] and plan.roots[i].kind == "block":
@@ -969,7 +961,7 @@ def _run_local(plan, split=False):
                 outs[i] = v
         for i, r in enumerate(plan.roots):
             if r.kind == "segment" and r.expr is not None:
-                outs[i] = _run_segment(r, split, rung, cap)
+                outs[i] = _run_segment(r, split, rung)
                 n_instrs += len(outs[i])
         return outs, n_instrs
 
@@ -1031,9 +1023,9 @@ def _run_whole(exprs, split=False):
         with fuser._stats_lock:
             fuser.stats["gathered"] += 1
 
-    def run(rung, cap):
+    def run(rung):
         with _mesh.local_scope():
-            return _execute(program, leaf_vals, split, rung, cap)
+            return _execute(program, leaf_vals, split, rung)
 
     outs = _laddered(run, split, _admission(lambda: (program, leaf_vals)))
     return list(outs), len(program.instrs)

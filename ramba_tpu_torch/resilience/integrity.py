@@ -452,7 +452,8 @@ def _classify_divergence(primary: Sequence[Any], shadow: Sequence[Any],
 
 def shadow_audit(label: str, outs: Sequence[Any],
                  rerun: Callable[[], Tuple[Sequence[Any], Any]], *,
-                 plan: Any = None, span: Optional[dict] = None) -> bool:
+                 plan: Any = None, span: Optional[dict] = None,
+                 coherent: bool = True) -> bool:
     """Maybe shadow-audit one flush; returns True iff the audit found a
     mismatch (the caller then skips the memo insert — the primary
     ``outs`` are still the ones served).
@@ -463,7 +464,12 @@ def shadow_audit(label: str, outs: Sequence[Any],
     ``(outputs, slack)`` (``slack``: per output, as
     :func:`_classify_divergence` reads it, or None); its outputs pass
     through the ``audit:shadow`` flip seam.  An audit that raises never
-    fails the flush: it counts ``audit_errors``."""
+    fails the flush: it counts ``audit_errors``.  ``coherent``: the flush
+    is the whole job's, so its verdict goes through the
+    ``integrity:audit`` round when the coherence layer is engaged; a
+    rank's own flush (``coherent=False``: a spmd kernel's, one under
+    ``mesh.local_scope``) keeps its own verdict and joins no round, which
+    the other ranks would never enter."""
     n = audit_every()
     if n <= 0:
         return False
@@ -487,7 +493,8 @@ def shadow_audit(label: str, outs: Sequence[Any],
         _events.emit({"type": "integrity_audit", "label": label,
                       "outcome": "error", "error": repr(e)[:200]})
         return False
-    decision = _coherence.agree("integrity:audit", mismatch, reduce="max")
+    decision = _coherence.agree("integrity:audit", mismatch, reduce="max") \
+        if coherent else mismatch
     dt = time.perf_counter() - t0
     with _lock:
         stats["audits"] += 1

@@ -519,15 +519,15 @@ def estimate_program_bytes(program, leaf_vals, donate=(),
     The reference prefers XLA's ``memory_analysis`` and falls back to
     this walk (always under ``RAMBA_HBM_ESTIMATE=analytic``); the port
     has no compiler to ask, so the walk is its one estimate."""
-    from ramba_tpu_torch.analyze import rules as _rules
-    from ramba_tpu_torch.core.expr import aval_of
-
     fp = None
     if fingerprint is not None:
         fp = (fingerprint, tuple(donate))
         cached = _est_memo.get(fp)
         if cached is not None:
             return cached
+    from ramba_tpu_torch.analyze import rules as _rules
+    from ramba_tpu_torch.core.expr import aval_of
+
     avals = [aval_of(v) for v in leaf_vals]
     if fp is None and program.key_hash != -1:  # else: an identity static
         fp = (program.key, tuple(donate),
@@ -563,12 +563,32 @@ def _resident_overlap(leaf_vals) -> int:
     return resident
 
 
+def _largest_result(program, leaf_vals) -> int:
+    """Bytes of the program's largest instruction result (0 where none
+    can be sized)."""
+    from ramba_tpu_torch.analyze import rules as _rules
+    from ramba_tpu_torch.core.expr import aval_of
+
+    sizes = _rules.slot_nbytes(program, [aval_of(v) for v in leaf_vals])
+    return max((b for s, b in sizes.items() if s >= program.n_leaves),
+               default=0)
+
+
 def _admit_budget(program, leaf_vals, donate_key,
                   span: Optional[dict] = None, fingerprint=None) -> bool:
     """The global-budget leg of :func:`admit`: True routes the flush to
     the chunked rung.  No-op (False) when no budget is known.  The
     ``admit`` event is built only when a trace is on (admission runs on
-    every flush on the card)."""
+    every flush on the card).
+
+    Unlike the reference, a flush over the watermark is not routed when
+    one result alone is larger than the chunked rung's bytes a segment
+    (``chunk_target_bytes``): that rung would then run one instruction a
+    segment, keeping the live set the fused rung's generic lowering
+    keeps, so it could not avert the out-of-memory error predicted and
+    would only add latency.  Such a flush starts at the fused rung
+    (``span["admission"] = "over"``, counted ``memory.admission_over``),
+    where a real out-of-memory error still evicts and drops a rung."""
     budget = budget_bytes()
     if budget is None:
         return False
@@ -604,17 +624,24 @@ def _admit_budget(program, leaf_vals, donate_key,
         if span is not None:
             span["admission"] = "evicted"
         return False
-    _registry.inc("memory.admission_rejects")
+    try:
+        largest = _largest_result(program, leaf_vals)
+    except Exception:
+        largest = 0
+    route = largest <= chunk_target_bytes(agree=False)
+    _registry.inc("memory.admission_rejects" if route
+                  else "memory.admission_over")
     _registry.gauge("memory.admission_rejects.last_over_bytes",
                     projected - freed - wm)
     _events.emit({
-        "type": "memory", "action": "reject", "route": "chunked",
+        "type": "memory", "action": "reject",
+        "route": "chunked" if route else "fused",
         "est_bytes": est, "freed_bytes": freed,
-        "over_bytes": projected - freed - wm,
+        "over_bytes": projected - freed - wm, "largest_bytes": largest,
     })
     if span is not None:
-        span["admission"] = "chunked"
-    return True
+        span["admission"] = "chunked" if route else "over"
+    return route
 
 
 def admit(program, leaf_vals, donate_key, span: Optional[dict] = None, *,
@@ -622,7 +649,8 @@ def admit(program, leaf_vals, donate_key, span: Optional[dict] = None, *,
           coherent: bool = True, fingerprint=None) -> bool:
     """Pre-flush admission check: True when the flush should start the
     ladder at the ``chunked`` rung (it does not fit under the watermark
-    even after eviction), False admits the fused rung.  A no-op (False)
+    even after eviction, and the chunked rung can cut it: see
+    :func:`_admit_budget`), False admits the fused rung.  A no-op (False)
     when no budget is known.  Across ranks with a budget, every rank
     takes the verdict of a ``memory:admit`` round (chunked anywhere is
     chunked everywhere); ``coherent=False`` leaves the round to the
@@ -631,7 +659,7 @@ def admit(program, leaf_vals, donate_key, span: Optional[dict] = None, *,
     if tenant is not None and quota:
         raise NotImplementedError(TENANTS)
     route = _admit_budget(program, leaf_vals, donate_key, span, fingerprint)
-    if coherent and budget_bytes() is not None and _coherence.engaged():
+    if coherent and _coherence.engaged() and budget_bytes() is not None:
         agreed = bool(_coherence.agree("memory:admit", 1 if route else 0,
                                        reduce="max"))
         if agreed and not route and span is not None:

@@ -19,8 +19,11 @@ mode) a failure on one rank drops every rank to the same rung, a fatal
 one aborts every rank with one class, and nothing hangs.
 """
 
+import errno
 import json
+import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -140,6 +143,31 @@ def test_ladder_reaches_host(monkeypatch):
     assert rungs[-4:] == ["split", "chunked", "eager", "host"]
 
 
+def test_the_host_rungs_device_scope_is_its_threads_own():
+    """While one thread runs under the host rung's device scope, another
+    thread's arrays are created and flushed on the process device."""
+    inside, leave = threading.Event(), threading.Event()
+    seen = {}
+
+    def rung():
+        with common.device_scope("meta"):
+            seen["own"] = common.device()
+            inside.set()
+            leave.wait(30)
+
+    t = threading.Thread(target=rung)
+    t.start()
+    try:
+        assert inside.wait(30)
+        assert common.device() == torch.device("cpu")
+        got = np.asarray(rt.arange(4.0) * 2.0 + 1.0)
+    finally:
+        leave.set()
+        t.join(30)
+    assert seen["own"] == torch.device("meta")
+    np.testing.assert_array_equal(got, np.arange(4.0) * 2.0 + 1.0)
+
+
 def test_fatal_flush_errors_skip_the_ladder():
     before = registry.prefixed("resilience.")
     with faults.inject("compile", "once", kind="fatal"):
@@ -191,28 +219,69 @@ def test_sites_that_feed_the_ladder(site):
     assert backends == {"kernel"}, _span()
 
 
-@pytest.mark.parametrize("make", [
-    lambda: RuntimeError("CUDA error: an illegal memory access was "
-                         "encountered"),
-    lambda: _build.KernelBuildError("nvcc failed for elemred_x (1):\n"
-                                    "error: identifier undefined"),
-], ids=["cuda_error", "build_error"])
-def test_kernel_failures_are_fatal_and_skip_the_ladder(monkeypatch, make):
-    """A failed launch or build raises from the fused rung: no retry, no
-    rung below, the roots quarantined; an unrelated array still flushes
-    and takes the kernels."""
-    assert retry.classify(make()) == "fatal"
+def _cuda_error(monkeypatch, tmp_path):
+    raise RuntimeError("CUDA error: an illegal memory access was "
+                       "encountered")
+
+
+def _build_error(monkeypatch, tmp_path):
+    raise _build.KernelBuildError("nvcc failed for elemred_x (1):\n"
+                                  "error: identifier undefined")
+
+
+def _nvcc_oserror(monkeypatch, tmp_path):
+    """The compiler cannot be started (out of memory for the fork)."""
+    def run(cmd):
+        raise OSError(errno.ENOMEM, "Cannot allocate memory")
+
+    monkeypatch.setattr(_build, "_run_nvcc", run)
+    _build.build_so("elemred_x", "// source")
+
+
+def _cdll_oserror(monkeypatch, tmp_path):
+    """The library builds, but ctypes cannot open it (a missing
+    libcudart)."""
+    def run(cmd):
+        with open(cmd[cmd.index("-o") + 1], "wb") as f:
+            f.write(b"library")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    def cdll(path, *a, **k):
+        raise OSError("libcudart.so.12: cannot open shared object file")
+
+    monkeypatch.setattr(_build, "_run_nvcc", run)
+    monkeypatch.setattr(_build.ctypes, "CDLL", cdll)
+    _build.load("elemred_x", "// source")
+
+
+@pytest.mark.parametrize("fail", [
+    _cuda_error, _build_error, _nvcc_oserror, _cdll_oserror,
+], ids=["cuda_error", "build_error", "nvcc_oserror", "cdll_oserror"])
+def test_kernel_failures_are_fatal_and_skip_the_ladder(monkeypatch, tmp_path,
+                                                       fail):
+    """A failed launch, a failed build, or an OSError while a kernel is
+    built or loaded raises from the fused rung: no retry, no rung below,
+    the roots quarantined; an unrelated array still flushes and takes the
+    kernels."""
+    monkeypatch.setattr(_build, "_build_dir", str(tmp_path))
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    with pytest.raises(RuntimeError) as info:
+        fail(monkeypatch, tmp_path)
+    assert retry.classify(info.value) == "fatal"
+    if fail is not _cuda_error:
+        assert isinstance(info.value, _build.KernelBuildError)
     fuser._compile_cache.clear()
 
     def broken(program, leaf_vals):
-        raise make()
+        fail(monkeypatch, tmp_path)
 
     x = rt.fromarray(np.arange(256.0))
     y = x * 2.0 + 1.0
     before = registry.prefixed("resilience.")
     q0 = fuser.stats["quarantined"]
     monkeypatch.setattr(kernel_backend, "lower_program", broken)
-    with pytest.raises(RuntimeError):
+    with pytest.raises(type(info.value)):
         np.asarray(y)
     monkeypatch.undo()
     moved = {k for k, v in registry.prefixed("resilience.").items()
@@ -544,6 +613,9 @@ def test_a_coherent_ladder_across_ranks(tmp_path, world):
                               "oom_iterate": "split", "transient": "fused",
                               "tiny": "split", "memo": "split"}, (r, i)
         assert i["retries"] == 1, (r, i)  # a retry on one is on every rank
+        assert i["dispatch_checks"] == 1, (r, i)  # one a rung attempt
+        # rank 0's own flush audited alone, with no round
+        assert i["audits"] == (1 if r == 0 else 0), (r, i)
         assert i["epochs"] == info[0]["epochs"], (r, i)
         assert i["degrade_steps"] == 4 + 0, (r, i)
         # a fatal fault on rank 1 aborts every rank with one class
@@ -560,5 +632,8 @@ def test_a_coherent_ladder_across_ranks(tmp_path, world):
         for k in ("axpy", "star2", "iterate", "memo", "retried"):
             assert got[k].tobytes() == want[k].tobytes(), (r, k)
         np.testing.assert_array_equal(got["tiny"], [[3.0]])
+    x = worker.ladder_inputs()[0]
+    assert float(res[0]["local_audit"]) == pytest.approx(
+        float(np.sum(x * 5.0 + 1.0)), rel=1e-12)
     assert info[1]["memo_hits"] >= 1  # a rank the memo served
     assert info[0]["epochs"]["flush:rung"] > 0

@@ -381,6 +381,33 @@ def test_tight_budget_evicts_and_routes_chunked(monkeypatch, fast_retries):
     del x, cold, rx, rcold
 
 
+def test_a_result_past_the_chunk_target_stays_fused(monkeypatch,
+                                                   fast_retries):
+    """Over the watermark, but one result alone is larger than the
+    chunked rung's bytes a segment: that rung would run one instruction
+    a segment and keep the fused rung's live set, so admission keeps the
+    fused rung, counted apart (ramba_tpu routes such a flush chunked: a
+    kept divergence, ROADMAP C)."""
+    x_np = np.random.RandomState(5).rand(16384)  # 128 KiB a result
+    x = rt.fromarray(x_np)
+    fuser.flush()
+    monkeypatch.setenv("RAMBA_HBM_BUDGET", "150k")
+    assert memory.chunk_target_bytes() == 64 << 10
+    rej0 = registry.get("memory.admission_rejects")
+    over0 = registry.get("memory.admission_over")
+    got = np.asarray(rt.sqrt(x * 2.0 + 1.0) * 0.5)
+    np.testing.assert_allclose(got, np.sqrt(x_np * 2.0 + 1.0) * 0.5,
+                               rtol=1e-15)
+    span = _last_span()
+    assert span.get("admission") == "over" and "degraded" not in span, span
+    assert span["mem_peak_est"] > 150 << 10
+    assert registry.get("memory.admission_over") == over0 + 1
+    assert registry.get("memory.admission_rejects") == rej0
+    ev = [e for e in _memory_events() if e.get("action") == "reject"][-1]
+    assert ev["route"] == "fused" and ev["largest_bytes"] == 16384 * 8
+    del x
+
+
 def test_admit_event_only_when_traced(monkeypatch, fast_retries, tmp_path):
     from ramba_tpu_torch.observe import events
 

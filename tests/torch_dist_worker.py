@@ -477,10 +477,13 @@ def _ladder(rt, rank, outdir):
     holds data where another's block is empty, and on rank 0 where the
     other ranks' memo serves the flush: every rank drops to split in
     the same rounds; a fatal fault on rank 1 aborts every rank with one
-    class, and the next flush runs."""
+    class, and the next flush runs.  A healthy flush checks the
+    ``dispatch`` site once on every rank; a rank's own flush (under
+    ``mesh.local_scope``) audited on rank 0 alone joins no round."""
     from ramba_tpu_torch.core import memo
     from ramba_tpu_torch.observe import events, registry
-    from ramba_tpu_torch.resilience import coherence, faults, retry
+    from ramba_tpu_torch.parallel import mesh
+    from ramba_tpu_torch.resilience import coherence, faults, integrity, retry
 
     def rung_of(fn):
         r0 = registry.get("resilience.degrade_recovered")
@@ -495,7 +498,10 @@ def _ladder(rt, rank, outdir):
     ax, ay, ag = rt.fromarray(x), rt.fromarray(y), rt.fromarray(g)
     st = rt.stencil(star2_body)
     info, res, rungs = {}, {}, {}
-    res["axpy"], rungs["healthy"] = rung_of(lambda: np.asarray(2.5 * ax + ay))
+    with faults.active("dispatch:delay:ms=0"):
+        res["axpy"], rungs["healthy"] = rung_of(
+            lambda: np.asarray(2.5 * ax + ay))
+        info["dispatch_checks"] = faults.stats()["dispatch"]["calls"]
     with faults.active("oom:1:rank=1"):
         res["star2"], rungs["oom"] = rung_of(
             lambda: np.asarray(rt.sstencil(st, ag)))
@@ -522,8 +528,18 @@ def _ladder(rt, rank, outdir):
             res["memo"], rungs["memo"] = rung_of(
                 lambda: np.asarray(3.0 * ax + ay))
         info["memo_hits"] = memo.cache.hits
+        # rank 0's own flush, audited: its verdict is its own (the other
+        # ranks run no flush here and would never enter a round)
+        os.environ["RAMBA_AUDIT"] = "1"
+        a0 = integrity.snapshot()["audits"]
+        if rank == 0:
+            with mesh.local_scope():
+                res["local_audit"] = np.asarray(
+                    rt.sum(rt.fromarray(x) * 5.0 + 1.0))
+        info["audits"] = integrity.snapshot()["audits"] - a0
     finally:
         del os.environ["RAMBA_MEMO"]
+        os.environ.pop("RAMBA_AUDIT", None)
         memo.reset()
     with faults.active("execute:once:fatal:rank=1"):
         try:
