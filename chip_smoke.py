@@ -9,6 +9,8 @@
     python3 chip_smoke.py --compile  # phase 1 and the compile pipeline
     python3 chip_smoke.py --analyze  # phase 1 and the analyzer, memo, certs
     python3 chip_smoke.py --ladder   # phase 1 and the degradation ladder
+    python3 chip_smoke.py --elastic  # phase 1 and the elastic plane
+                                     # (--parts stall,inflight: some parts)
 
 Phases, each reported on its own line:
 
@@ -181,7 +183,25 @@ Phases, each reported on its own line:
    degrade step; (f) the shadow audit (``RAMBA_MEMO=1 RAMBA_AUDIT=1``) of
    the elemred and segred programs, ``ok`` or ``numeric``, and a flipped
    shadow a mismatch that evicts; (g) four ranks on cuda:0 dropping
-   together on one rank's fault and aborting together on a fatal one.
+   together on one rank's fault and aborting together on a fatal one;
+   then the elastic plane (``elastic_path``, alone with ``--elastic``):
+   (a) the main path's programs with ``RAMBA_WATCHDOG_S`` armed and
+   nothing seeded, on fused with the bytes and launches of unarmed, and
+   the host microseconds of a flush armed against unarmed; (b) a seeded
+   ``dispatch`` hang giving a degrade-class stall within two deadlines,
+   the split rung's bytes, and a zombie that launches and commits
+   nothing; (c) an attempt abandoned while it waits on a busy card
+   (``RAMBA_PERF=sync``), the card's allocation unchanged after; (d) the
+   heartbeat during 100 star2 sweeps and a seeded miss; (e) the
+   ``CheckpointManager`` solver (8192^2, saves every 25, keep 2) and a
+   child killed after step 50 resumed by a fresh process to the same
+   bytes; (f) a checkpoint of the 8192^2 grid and a 2^28 float64 series
+   resumed 4 -> 2 ranks -> this process (under a budget that spills) ->
+   4 ranks, byte-equal; (g) ``live_reshape`` between meshes of shards
+   (2x2 -> 4x1 -> one shard), of ranks ((2, 2) -> (4, 1)), and its
+   checkpoint fallback; (h) rank 3 of 4 wedged and crashed at a
+   checkpoint's barrier: a fatal stall on the others within two
+   deadlines, the broken group refusing the next collective at once.
    Every kernel's launch count is set to 0 just before each path and
    read just after; a path that does not launch its kernel fails the
    run;
@@ -1745,6 +1765,14 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
     for k in totals:
         if totals[k] == before[k]:
             raise Fail(f"ladder_path launched no {k}")
+    log("  elastic_path: the watchdog, the heartbeat, the checkpoint "
+        "manager, resume into other worlds and live reshape")
+    before = dict(totals)
+    timed("elastic_path", elastic_path, rt, er, sk, sg, sc, torch, np, card,
+          window, totals)
+    for k in totals:
+        if totals[k] == before[k]:
+            raise Fail(f"elastic_path launched no {k}")
     log(f"  phase 3 walls by path (s): {json.dumps(walls)} [{card}]")
     return totals, sharded, dist
 
@@ -3668,6 +3696,10 @@ def dist_rank(argv) -> int:
         layout_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, out)
     elif "--ladder" in argv:
         ladder_rank_programs(rt, np, torch, er, sk, sc, rep)
+    elif "--elastic" in argv:
+        rep["case"] = arg["--elastic"]
+        rep["root"] = os.environ["RAMBA_ELASTIC_ROOT"]
+        elastic_rank_programs(rt, np, torch, er, sk, sc, rep, out)
     else:
         dist_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, out)
     rep["gathered"] = fuser.stats["gathered"]
@@ -6609,6 +6641,895 @@ def ladder_path(rt, er, sk, sg, sc, torch, np, card, window, totals,
     return out
 
 
+ELASTIC_N = 1 << 28                # the series and the 1-D programs, float64
+ELASTIC_GRID = 8192                # star2 and the solver, float32 (TMA)
+ELASTIC_SWEEPS = 20                # the iterated sweeps of (c)
+ELASTIC_FLUSHES = 200              # flushes timing the armed watchdog
+ELASTIC_SMALL_N = 1 << 16          # their operand, float64
+ELASTIC_ARMED_S = 60.0             # the deadline armed with nothing seeded
+ELASTIC_STALL_S = 1.0              # the deadline of the seeded stall
+ELASTIC_INFLIGHT_S = 0.5           # the deadline below (c)'s wall
+ELASTIC_BUILD_S = 0.3              # the deadline below a first nvcc build
+ELASTIC_LOST_S = 3.0               # the barrier's deadline in (h)
+ELASTIC_STEPS = 100                # the solver's sweeps
+ELASTIC_EVERY = 25                 # its checkpoint cadence
+ELASTIC_KEEP = 2                   # its retention
+ELASTIC_HEARTBEAT_S = 0.01         # the beacon's interval in (d)
+ELASTIC_RANKS = 4
+ELASTIC_LIMIT_S = 300              # per launch of ranks or a child
+
+
+def _elastic_env(**kw):
+    """Set (a value) or clear (None) environment switches."""
+    import os
+
+    for k, v in kw.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+
+
+def _zombies_done(timeout=30.0):
+    """Wait for every call a deadline abandoned to end."""
+    from ramba_tpu_torch.resilience import elastic
+
+    if not elastic.wait_abandoned(timeout):
+        raise Fail(f"an abandoned call still runs after {timeout} s")
+
+
+def _pct(vals, q):
+    s = sorted(vals)
+    return s[min(len(s) - 1, int(q * len(s)))]
+
+
+def elastic_armed(rt, np, torch, sc, card, window, star2):
+    """(a) The main path's programs with the watchdog armed and nothing
+    seeded: on the fused rung with the bytes and launches of unarmed;
+    then the host microseconds of a flush armed against unarmed."""
+    from ramba_tpu_torch.observe import registry
+
+    cases = _ladder_cases(rt, np, torch, sc, star2)
+    names = ("sincos", "axpy", "star2_chained", "star2_iterate",
+             "star2_odd_chained", "star2_odd_iterate", "groupby", "cumsum")
+    s0 = registry.get("elastic.stalls")
+    for name in names:
+        run, need, _bounds = cases[name](False)
+        got = {}
+        for arm in (None, ELASTIC_ARMED_S):
+            _elastic_env(RAMBA_WATCHDOG_S=arm)
+            tag = "armed" if arm else "unarmed"
+            outs, wall, span, steps = window(
+                f"elastic (a) {name} {tag}",
+                lambda: _ladder_run(torch, run), need)
+            if steps or span.get("degraded"):
+                raise Fail(f"elastic (a) {name} {tag}: left the fused rung")
+            got[tag] = (outs, wall)
+        _elastic_env(RAMBA_WATCHDOG_S=None)
+        same = all(bytes_equal(a, b) for a, b in zip(got["armed"][0],
+                                                     got["unarmed"][0]))
+        log(f"  elastic (a) {name}: fused armed and unarmed, bytes equal "
+            f"{same}, wall {got['unarmed'][1]:.4f} s unarmed, "
+            f"{got['armed'][1]:.4f} s armed [{card}]")
+        if not same:
+            raise Fail(f"elastic (a) {name}: armed bytes differ")
+        del run, got
+        torch.cuda.empty_cache()
+    if registry.get("elastic.stalls") != s0:
+        raise Fail("elastic (a): a stall with nothing seeded")
+    x = rt.arange(ELASTIC_SMALL_N) * 1.0
+    rt.sync()
+    times = {"unarmed": [], "armed": []}
+
+    def flushes():
+        for tag in ("unarmed", "armed", "armed", "unarmed"):
+            _elastic_env(RAMBA_WATCHDOG_S=ELASTIC_ARMED_S
+                         if tag == "armed" else None)
+            for i in range(ELASTIC_FLUSHES):
+                t0 = time.perf_counter()
+                float(rt.sum(x * 2.0 + float(i)))
+                times[tag].append(time.perf_counter() - t0)
+        _elastic_env(RAMBA_WATCHDOG_S=None)
+
+    window("elastic (a) 4 x 200 flushes of sum(x * 2 + k), 2^16 f64",
+           flushes, {"elemred": 4 * ELASTIC_FLUSHES})
+    us = {k: (_pct(v, 0.5) * 1e6, _pct(v, 0.9) * 1e6)
+          for k, v in times.items()}
+    log(f"  elastic (a) host us a flush (wall to the result, order A B B A, "
+        f"{2 * ELASTIC_FLUSHES} each): unarmed p50 {us['unarmed'][0]:.1f} "
+        f"p90 {us['unarmed'][1]:.1f}; armed p50 {us['armed'][0]:.1f} p90 "
+        f"{us['armed'][1]:.1f}; armed - unarmed p50 "
+        f"{us['armed'][0] - us['unarmed'][0]:.1f} [{card}]")
+    return {"flush_us": us}
+
+
+def _launch_spy(mod):
+    """Wrap ``mod._entry``, a kernel wrapper's build-and-bind: records,
+    for each entry it returns and each call of the kernel's launch
+    function, whether the calling thread's deadline had expired
+    (``elastic.cancelled``).  Returns ``(record, undo)``."""
+    from ramba_tpu_torch.resilience import elastic
+
+    rec = {"entries": [], "launches": []}
+    orig = mod._entry
+
+    def entry(*a):
+        t0 = time.perf_counter()
+        fns = orig(*a)
+        rec["entries"].append((elastic.cancelled(),
+                               time.perf_counter() - t0))
+        fn = fns[0]
+
+        def launch(*b):
+            rec["launches"].append(elastic.cancelled())
+            return fn(*b)
+
+        return (launch,) + tuple(fns[1:])
+
+    mod._entry = entry
+    return rec, lambda: setattr(mod, "_entry", orig)
+
+
+def elastic_stall(rt, np, torch, sc, card, window, star2):
+    """(b) A seeded ``dispatch`` hang on axpy + sum 2^28, the lower rungs
+    not planned before: degrade-class stalls within two deadlines each
+    (a lower rung whose first plan builds past the deadline stalls too),
+    the result of the rung it recovers on within the ladder's bound.
+    Then a first plan abandoned during its nvcc build: ``arctan`` over
+    2^28 f64, a kernel no path built before, under a deadline below the
+    build's time; the eager rung gives ``torch.atan``'s bytes, and the
+    same program unarmed launches the built kernel.  Every zombie, when
+    it wakes, launches and commits nothing, and the card's allocation
+    returns to its level."""
+    from ramba_tpu_torch.observe import events, registry
+
+    import gc
+
+    from ramba_tpu_torch.ops import elemred
+
+    run, need, bounds = _ladder_cases(rt, np, torch, sc, star2)["axpy"](False)
+    fused = window("elastic (b) axpy + sum fused", lambda: run(), need)
+    x = rt.sin(rt.arange(ELASTIC_N) * 1e-3)
+    rt.sync()
+    want_atan = torch.atan(x._value())
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    ab0 = registry.get("elastic.abandoned_commits")
+    hang = int(2.5 * ELASTIC_STALL_S * 1000)
+    seen = []
+    spy, undo = _launch_spy(elemred)
+    events.add_tap(seen.append)
+    try:
+        _elastic_env(RAMBA_WATCHDOG_S=ELASTIC_STALL_S)
+        try:
+            outs, wall, span, steps = window(
+                "elastic (b) axpy + sum under dispatch:hang",
+                lambda: _ladder_run(torch, run,
+                                    f"dispatch:hang:ms={hang}:after=0"), {})
+        finally:
+            _elastic_env(RAMBA_WATCHDOG_S=None)
+        st = [e for e in seen if e.get("type") == "stall"]
+        log(f"  elastic (b) events: {[(e.get('type'), e.get('site'), e.get('action') or e.get('phase'), e.get('to') or e.get('rung') or e.get('classification')) for e in seen if e.get('type') in ('stall', 'degrade', 'fault')]}; "
+            f"span {span.get('degraded')}, steps {steps}")
+        rung = span.get("degraded")
+        ok = bool(st) and len(st) == steps \
+            and rung in ("split", "chunked", "eager") \
+            and all(e["classification"] == "degrade"
+                    and e["waited_s"] < 2 * ELASTIC_STALL_S for e in st)
+        same = _ladder_hold(torch, f"elastic (b) {rung}", outs, fused,
+                            bounds(fused))
+        del outs
+        window("elastic (b) the zombies wake", lambda: _zombies_done(), {})
+        hang_entries = list(spy["entries"])
+        # a first plan abandoned during its build
+        n_seen = len(seen)
+        _elastic_env(RAMBA_WATCHDOG_S=ELASTIC_BUILD_S)
+        try:
+            got, bwall, bspan, bsteps = window(
+                "elastic (b) arctan 2^28 f64, built under a deadline",
+                lambda: _ladder_run(torch, lambda: [rt.arctan(x)._value()]),
+                {})
+        finally:
+            _elastic_env(RAMBA_WATCHDOG_S=None)
+        bst = [e for e in seen[n_seen:] if e.get("type") == "stall"]
+        n_entries = len(spy["entries"])
+        window("elastic (b) the building zombie wakes",
+               lambda: _zombies_done(60.0), {})
+        built = [t for c, t in spy["entries"][n_entries:] if c]
+        b_same = bytes_equal(got[0], want_atan)
+        log(f"  elastic (b) arctan: stalls "
+            f"{[(e['site'], e['waited_s'], e['classification']) for e in bst]}"
+            f" (deadline {ELASTIC_BUILD_S} s), recovered on "
+            f"{bspan.get('degraded')} in {bwall:.3f} s, bytes equal to "
+            f"torch.atan {b_same}; builds that ended on an abandoned thread "
+            f"after {[round(t, 3) for t in built]} s [{card}]")
+        ok = ok and len(bst) == 1 and bst[0]["classification"] == "degrade" \
+            and bspan.get("degraded") == "eager" and b_same and built
+        del got
+    finally:
+        events.remove_tap(seen.append)
+        undo()
+    zombie_launches = sum(spy["launches"])
+    zombie_builds = sum(c for c, _t in spy["entries"])
+    if zombie_launches:
+        log(f"  elastic (b) kernel launches on abandoned threads: "
+            f"{zombie_launches}")
+        ok = False
+    live, _w, lspan, _s = window(
+        "elastic (b) arctan unarmed, the built kernel",
+        lambda: _ladder_run(torch, lambda: [rt.arctan(x)._value()]),
+        {"elemred": 1})
+    if lspan.get("degraded"):
+        raise Fail("elastic (b): arctan unarmed left the fused rung")
+    _ladder_hold(torch, "elastic (b) arctan fused", [want_atan], live,
+                 [(None, "8 ulp of the largest")])
+    del live
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()  # x and want_atan live, as at mem0
+    del x, want_atan
+    ab = registry.get("elastic.abandoned_commits") - ab0
+    st = st[0] if st else {"site": None, "waited_s": None,
+                           "classification": None}
+    log(f"  elastic (b) first stall at {st['site']} after {st['waited_s']} "
+        f"s (deadline {ELASTIC_STALL_S} s) classified "
+        f"{st['classification']}; recovered on {rung} in {wall:.3f} s after "
+        f"{steps} stall(s), bytes equal to fused {same}; entries built or "
+        f"bound on abandoned threads {zombie_builds} (the hang's "
+        f"{sum(c for c, _t in hang_entries)}), kernel launches on them "
+        f"{zombie_launches}; {ab} abandoned commits stopped; card "
+        f"allocation {mem0} -> {mem1} [{card}]")
+    # nothing of a zombie's stays allocated (an unrelated block freed
+    # meanwhile may leave the level below where it was)
+    if not (ok and ab == steps + len(bst) and mem1 <= mem0):
+        raise Fail("elastic (b): the seeded stall")
+    return {"waited_s": st["waited_s"], "wall_s": wall,
+            "build_stall_s": bst[0]["waited_s"] if bst else None}
+
+
+def elastic_inflight(rt, np, torch, card, window, star2):
+    """(c) An attempt that blocks on the card past its deadline: under
+    ``RAMBA_PERF=sync`` the fused rung waits for its launches (CUDA
+    events); a spin kernel queued before the flush keeps the card busy
+    longer than the deadline, so the fused attempt is abandoned with its
+    launches in flight, the eager rung gives the result, and the card's
+    allocation afterwards is what it was."""
+    import gc
+
+    from ramba_tpu_torch.observe import events, ledger, registry
+
+    g = dist_grid(rt, np, (ELASTIC_GRID, ELASTIC_GRID))
+    rt.sync()
+    want = rt.sstencil_iterate(star2, g, ELASTIC_SWEEPS)._value()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    torch.cuda._sleep(100_000_000)
+    e1.record()
+    e1.synchronize()
+    per_s = 100_000_000 / (e0.elapsed_time(e1) / 1e3)
+    busy_s = 1.6 * ELASTIC_INFLIGHT_S
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    ab0 = registry.get("elastic.abandoned_commits")
+    _elastic_env(RAMBA_WATCHDOG_S=ELASTIC_INFLIGHT_S, RAMBA_PERF="sync")
+    ledger.reconfigure()
+
+    def flush():
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(busy_s * per_s))
+        y = rt.sstencil_iterate(star2, g, ELASTIC_SWEEPS)._value()
+        torch.cuda.synchronize()
+        return y, time.perf_counter() - t0
+
+    try:
+        y, wall = window("elastic (c) star2 iterate behind a busy card",
+                         flush, {"stencil": None})
+    finally:
+        _elastic_env(RAMBA_WATCHDOG_S=None, RAMBA_PERF=None)
+        ledger.reconfigure()
+    span = events.last(1, type="flush")[-1]
+    st = events.last(5, type="stall")[-1]
+    same = bytes_equal(y, want)
+    del y
+    _zombies_done()
+    gc.collect()
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()  # want live, as at mem0
+    del want
+    ab = registry.get("elastic.abandoned_commits") - ab0
+    log(f"  elastic (c) card busy {busy_s:.2f} s (spin kernel, "
+        f"{per_s / 1e9:.2f} G cycles/s) ahead of a 20-sweep star2 8192^2 "
+        f"flush under RAMBA_PERF=sync: the fused attempt blocked on the "
+        f"card past its {ELASTIC_INFLIGHT_S} s deadline (stall after "
+        f"{st['waited_s']} s), recovered on {span.get('degraded')} in "
+        f"{wall:.3f} s, bytes equal to the unarmed run {same}; {ab} "
+        f"abandoned commit; card allocation {mem0} -> {mem1} [{card}]")
+    if not (same and span.get("degraded") == "eager" and ab == 1
+            and mem1 <= mem0):
+        raise Fail("elastic (c): the in-flight abandonment")
+    del g
+    return {"wall_s": wall, "busy_s": busy_s}
+
+
+def elastic_heartbeat(rt, np, torch, card, window, star2):
+    """(d) Beats keep coming during 100 star2 sweeps; a seeded
+    ``heartbeat`` hang is flagged as ``heartbeat_missed``."""
+    from ramba_tpu_torch.observe import events
+    from ramba_tpu_torch.resilience import elastic, faults
+
+    g = dist_grid(rt, np, (ELASTIC_GRID, ELASTIC_GRID))
+    rt.sync()
+    elastic.start_heartbeat(ELASTIC_HEARTBEAT_S)
+    fresh = []
+
+    def sweeps():
+        y = g
+        t0 = time.monotonic()
+        for i in range(ELASTIC_STEPS):
+            y = rt.sstencil(star2, y)
+            y._value()
+            torch.cuda.synchronize()
+            if i % 10 == 9:
+                fresh.append(elastic.check_heartbeat())
+        return time.monotonic() - t0
+
+    try:
+        wall = window("elastic (d) 100 star2 sweeps under the heartbeat",
+                      sweeps, {"stencil": ELASTIC_STEPS})
+    finally:
+        elastic.stop_heartbeat()
+    beats = [e["mono"] for e in events.last(4000, type="heartbeat")]
+    gaps = [b - a for a, b in zip(beats, beats[1:])]
+    ok = all(fresh) and len(beats) >= 3 and \
+        max(gaps) <= 2 * ELASTIC_HEARTBEAT_S
+    faults.configure("heartbeat:hang:ms=400:after=1")
+    try:
+        elastic.start_heartbeat(ELASTIC_HEARTBEAT_S)
+        time.sleep(0.25)
+        missed = elastic.check_heartbeat() is False
+    finally:
+        faults.configure(None)
+        elastic.stop_heartbeat()
+    flagged = any(e["phase"] == "heartbeat_missed"
+                  for e in events.last(20, type="lifecycle"))
+    log(f"  elastic (d) heartbeat every {ELASTIC_HEARTBEAT_S} s during 100 "
+        f"star2 8192^2 sweeps ({wall:.3f} s): {len(beats)} beats, largest "
+        f"gap {max(gaps) * 1e3:.1f} ms, fresh at every check {all(fresh)}; "
+        f"a seeded heartbeat hang flagged heartbeat_missed "
+        f"{missed and flagged} [{card}]")
+    if not (ok and missed and flagged):
+        raise Fail("elastic (d): the heartbeat")
+    return {"beats": len(beats), "max_gap_s": max(gaps)}
+
+
+def elastic_solve(rt, np, torch, root, steps_from=0, state=None,
+                  kill_after=None, times=None):
+    """The checkpointed star2 solver: one sweep a step up to
+    ``ELASTIC_STEPS``, saved every ``ELASTIC_EVERY`` steps with
+    ``ELASTIC_KEEP`` kept; ``kill_after`` kills the process (SIGKILL)
+    after that step's save.  Returns the final grid."""
+    import os
+    import signal
+
+    from ramba_tpu_torch.resilience import elastic
+
+    star2 = rt.stencil(star2_body)
+    mgr = elastic.CheckpointManager(root, keep=ELASTIC_KEEP,
+                                    every_steps=ELASTIC_EVERY)
+    g = state if state is not None else \
+        dist_grid(rt, np, (ELASTIC_GRID, ELASTIC_GRID))
+    for step in range(steps_from + 1, ELASTIC_STEPS + 1):
+        g = rt.sstencil(star2, g)
+        if step % ELASTIC_EVERY == 0:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.maybe_save(step, {"grid": g, "step": step})
+            if times is not None:
+                times.append((step, time.perf_counter() - t0))
+            if kill_after == step:
+                os.kill(os.getpid(), signal.SIGKILL)
+    return g
+
+
+def elastic_child(argv) -> int:
+    """One child process of ``elastic_path`` (e): ``--elastic-child solve
+    ROOT`` runs the solver and is killed after step 50; ``--elastic-child
+    resume ROOT OUT`` resumes the newest step and finishes, writing the
+    grid's checksum to OUT."""
+    import json
+
+    import numpy as np
+    import torch
+
+    import ramba_tpu_torch as rt
+    from ramba_tpu_torch.ops import stencil_kernel as sk
+    from ramba_tpu_torch.resilience import elastic
+
+    rt.set_device("cuda:0")
+    i = argv.index("--elastic-child")
+    what, root = argv[i + 1], argv[i + 2]
+    if what == "solve":
+        elastic_solve(rt, np, torch, root, kill_after=2 * ELASTIC_EVERY)
+        return 1  # never reached: killed after step 50
+    res = elastic.resume(root)
+    g = elastic_solve(rt, np, torch, root, steps_from=res.step,
+                      state=res.state["grid"])
+    out = {"from_step": res.step, "digest": card_digest(g._value()),
+           "stencil": sk.launches}
+    with open(argv[i + 3], "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def elastic_manager(rt, np, torch, card, window, tmp):
+    """(e) The 8192^2 float32 star2 solver, 100 sweeps, saved every 25
+    with keep 2 (each save's wall and GB/s, the steps GC deleted); a
+    child killed after step 50 and a fresh process resuming from
+    ``latest()`` end with the uninterrupted run's bytes."""
+    import json
+    import os
+
+    from ramba_tpu_torch.observe import events
+
+    from ramba_tpu_torch.resilience import elastic
+
+    root = os.path.join(tmp, "solver")
+    times, seen = [], []
+    events.add_tap(seen.append)
+    try:
+        g = window("elastic (e) checkpointed star2 solver 8192^2 x 100",
+                   lambda: elastic_solve(rt, np, torch, root, times=times),
+                   {"stencil": ELASTIC_STEPS})
+    finally:
+        events.remove_tap(seen.append)
+    gv = g._value()
+    want = card_digest(gv)
+    final = {"root": root, "step": ELASTIC_STEPS, "blocks": {
+        "grid": _expected_blocks(torch, np, gv, (2, 2)),
+        "star2": _expected_blocks(
+            torch, np, rt.sstencil(rt.stencil(star2_body), g)._value(),
+            (2, 2))}}
+    del g, gv
+    nbytes = ELASTIC_GRID * ELASTIC_GRID * 4 + 8
+    deleted = [s for e in seen if e.get("phase") == "checkpoint_gc"
+               for s in e["deleted_steps"]]
+
+    mgr = elastic.CheckpointManager(root)
+    log(f"  elastic (e) saves: " + ", ".join(
+        f"step {s} {t:.4f} s ({nbytes / t / 1e9:.2f} GB/s)"
+        for s, t in times) + f"; GC deleted steps {deleted}, kept "
+        f"{mgr.valid_steps()} [{card}]")
+    if [s for s, _ in times] != [25, 50, 75, 100] or \
+            mgr.valid_steps() != [75, 100] or deleted != [25, 50]:
+        raise Fail("elastic (e): the manager's cadence or retention")
+    root2 = os.path.join(tmp, "solver_killed")
+    t0 = time.perf_counter()
+    me = os.path.abspath(__file__)
+    p = subprocess.run([sys.executable, me, "--elastic-child", "solve",
+                        root2], capture_output=True, text=True,
+                       timeout=ELASTIC_LIMIT_S)
+    latest = elastic.CheckpointManager(root2).latest()
+    out = os.path.join(tmp, "resumed.json")
+    q = subprocess.run([sys.executable, me, "--elastic-child", "resume",
+                        root2, out], capture_output=True, text=True,
+                       timeout=ELASTIC_LIMIT_S)
+    if q.returncode != 0:
+        raise Fail("elastic (e): the resuming child failed:\n"
+                   + (q.stdout + q.stderr)[-4000:])
+    with open(out) as f:
+        got = json.load(f)
+    wall = time.perf_counter() - t0
+    ok = p.returncode == -9 and latest == 50 and got["from_step"] == 50 \
+        and got["digest"] == want and got["stencil"] == 50
+    log(f"  elastic (e) a child killed after step 50 (exit {p.returncode}, "
+        f"latest() {latest}); a fresh process resumed step "
+        f"{got['from_step']}, ran {got['stencil']} sweeps, and ended with "
+        f"the uninterrupted run's bytes {got['digest'] == want}; "
+        f"{wall:.1f} s for both children [{card}]")
+    if not ok:
+        raise Fail("elastic (e): the killed and resumed solver:\n"
+                   + (p.stdout + p.stderr)[-2000:])
+    return {"saves_s": times, "deleted": deleted, "children_s": wall,
+            "final": final}
+
+
+def _expected_blocks(torch, np, t, world_shape):
+    """card_digest of each rank's block of ``t`` in the default layout
+    of a mesh of ranks of ``world_shape`` (rank r at position
+    ``unravel_index(r)``)."""
+    from ramba_tpu_torch import common
+    from ramba_tpu_torch.parallel import mesh as pm
+
+    m = pm.Mesh(np.array([common.device()] * int(np.prod(world_shape)),
+                         dtype=object).reshape(world_shape),
+                tuple(f"d{i}" for i in range(len(world_shape))))
+    sh = pm.NamedSharding(m, pm.default_spec(tuple(t.shape), m))
+    idx = dict(sh.shard_indices(tuple(t.shape)))
+    return [card_digest(t[idx[tuple(int(c) for c in
+                                    np.unravel_index(r, world_shape))]])
+            for r in range(int(np.prod(world_shape)))]
+
+
+def elastic_rank_programs(rt, np, torch, er, sk, sc, rep, out):
+    """One rank of ``elastic_path`` (``--elastic CASE``, the checkpoint
+    root in ``RAMBA_ELASTIC_ROOT``):
+
+    * ``lost-wedged`` / ``lost-crashed``: the grid and the series on the
+      default 2x2 mesh of ranks; (wedged only) a live reshape to (4, 1),
+      a sweep and a sum there, and step 1 saved; then rank 3 stops
+      arriving at step 2's barrier (it sleeps, or it exits) and the
+      others record what they raised and what a later collective raised;
+    * ``resume``: the newest step resumed into this world, each block's
+      checksum and a sweep; for the grid and the series also a sum, and
+      the state saved again as the next step."""
+    import json
+    import os
+
+    from ramba_tpu_torch.parallel import distributed
+    from ramba_tpu_torch.parallel import mesh as pm
+    from ramba_tpu_torch.resilience import elastic, retry
+
+    rank, world = rep["rank"], distributed.process_count()
+    case, root = rep["case"], rep["root"]
+    star2 = rt.stencil(star2_body)
+    win = lambda name, fn: _rank_window(er, sk, sc, name, fn, rep)  # noqa
+    if case == "resume":
+        res = win("resume", lambda: elastic.resume(root))
+        g, x = res.state["grid"], res.state.get("series")
+        rep["values"].update(step=res.step,
+                             from_processes=res.manifest["process_count"])
+        rep["digests"]["grid"] = card_digest(g._block())
+        rep["digests"]["star2"] = card_digest(
+            win("star2", lambda: rt.sstencil(star2, g)._block()))
+        if x is None:
+            return  # the solver's checkpoint: a grid and a step
+        rep["digests"]["series"] = card_digest(x._block())
+        rep["values"]["sum"] = win("sum", lambda: float(rt.sum(x)))
+        mgr = elastic.CheckpointManager(root, keep=3)
+        nxt = max(mgr.all_steps()) + 1  # past any torn step
+        t0 = time.perf_counter()
+        mgr.save(nxt, {"grid": g, "series": x, "step": nxt})
+        rep["wall_s"]["save"] = time.perf_counter() - t0
+        rep["values"]["saved"] = nxt
+        return
+    g = dist_grid(rt, np, (ELASTIC_GRID, ELASTIC_GRID))
+    x = dist_vec(rt, ELASTIC_N)
+    rt.sync()
+    mgr = elastic.CheckpointManager(root, keep=3)
+    if case == "lost-wedged":
+        out_ = elastic.live_reshape(pm.rank_mesh((4, 1)))
+        rep["values"]["reshape"] = out_
+        rep["values"]["mesh"] = dict(rt.get_mesh().shape)
+        rep["digests"]["grid"] = card_digest(g._block())
+        rep["digests"]["series"] = card_digest(x._block())
+        rep["digests"]["star2"] = card_digest(
+            win("star2", lambda: rt.sstencil(star2, g)._block()))
+        rep["values"]["sum"] = win("sum", lambda: float(rt.sum(x)))
+        t0 = time.perf_counter()
+        mgr.save(1, {"grid": g, "series": x, "step": 1})
+        rep["wall_s"]["save"] = time.perf_counter() - t0
+    _elastic_env(RAMBA_WATCHDOG_S=ELASTIC_LOST_S)
+    if rank == world - 1:
+        if case == "lost-wedged":
+            time.sleep(2.5 * ELASTIC_LOST_S)
+        os._exit(3)  # gone without a word: no shutdown, no destructors
+    t0 = time.monotonic()
+    try:
+        mgr.save(2, {"grid": g, "series": x, "step": 2})
+        rep["values"]["stall"] = "no error"
+    except Exception as e:  # recorded for the parent
+        rep["values"]["stall"] = f"{type(e).__name__}: {e}"[:300]
+        rep["values"]["stall_class"] = retry.classify(e)
+    rep["values"]["stall_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    try:
+        distributed.all_reduce_int(1)
+        rep["values"]["after"] = "no error"
+    except Exception as e:  # recorded for the parent
+        rep["values"]["after"] = f"{type(e).__name__}: {e}"[:300]
+        rep["values"]["after_class"] = retry.classify(e)
+    rep["values"]["after_s"] = time.monotonic() - t0
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    # a collective may still run on the barrier's helper thread: leave
+    # without tearing the group down
+    os._exit(0)
+
+
+def elastic_ranks(world, tmp, case, root, totals, expect_rc=None):
+    """``world`` ranks of this script on cuda:0 running ``case``; returns
+    their reports (every rank must exit 0, or as ``expect_rc`` says)."""
+    import json
+    import os
+
+    run = os.path.join(tmp, f"{case}_{world}")
+    os.makedirs(os.path.join(run, f"w{world}"))
+    ranks = dist_start(world, run, ("--elastic", case),
+                       env=dict(os.environ, RAMBA_INIT_TIMEOUT_S="120",
+                                RAMBA_ELASTIC_ROOT=root))
+    logs = []
+    try:
+        for p in ranks:
+            logs.append(p.communicate(timeout=ELASTIC_LIMIT_S)[0])
+    except subprocess.TimeoutExpired:
+        raise Fail(f"elastic: {world} ranks of {case} ran past their limit")
+    finally:
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in ranks]
+    want = expect_rc or [0] * world
+    if rcs != want:
+        raise Fail(f"elastic: {case} on {world} ranks exited {rcs}:\n"
+                   + "\n".join(l[-3000:] for l in logs))
+    reps = []
+    for r in range(world):
+        path = os.path.join(run, f"w{world}", f"rank{r}.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                reps.append(json.load(f))
+    for r in reps:
+        for c in r["launches"].values():
+            for k in totals:
+                totals[k] += c.get(k, 0)
+    return reps
+
+
+def elastic_worlds(rt, np, torch, card, window, totals, tmp, solver):
+    """(f), the rank half of (g), and (h), on cuda:0 over gloo: four
+    ranks reshape their mesh (2, 2) -> (4, 1) live and save step 1, then
+    rank 3 stops arriving at step 2's barrier (wedged); again with rank 3
+    exiting (crashed); the job restarts on 2 ranks and resumes step 1
+    (4 -> 2) and saves step 3; this process resumes step 3 (2 -> 1) under
+    a budget that makes the restore spill; four ranks resume the newest
+    step of (e)'s solver, which one process saved (1 -> 4).  Every block
+    against this process's bytes."""
+    import os
+
+    from ramba_tpu_torch.observe import events
+    from ramba_tpu_torch.resilience import elastic, memory
+
+    root = os.path.join(tmp, "worlds")
+    star2 = rt.stencil(star2_body)
+    g_ref = dist_grid(rt, np, (ELASTIC_GRID, ELASTIC_GRID))
+    x_ref = dist_vec(rt, ELASTIC_N)
+    rt.sync()
+    gv, xv = g_ref._value(), x_ref._value()
+    sv = rt.sstencil(star2, g_ref)._value()
+    want = {"grid": card_digest(gv), "series": card_digest(xv)}
+    blocks = {w: {"grid": _expected_blocks(torch, np, gv, w),
+                  "series": _expected_blocks(torch, np, xv, w),
+                  "star2": _expected_blocks(torch, np, sv, w)}
+              for w in ((4, 1), (2,), (2, 2))}
+    del gv, xv, sv
+    torch.cuda.empty_cache()
+
+    def held(reps, w, what):
+        return all(r["digests"][k] == blocks[w][k][i]
+                   for i, r in enumerate(reps) for k in what)
+
+    t0 = time.perf_counter()
+    lost = {}
+    for case in ("lost-wedged", "lost-crashed"):
+        reps = elastic_ranks(ELASTIC_RANKS, tmp, case, root, totals,
+                             expect_rc=[0, 0, 0, 3])
+        v = [r["values"] for r in reps]
+        ok = len(reps) == 3 and all(
+            x["stall"].startswith("RankStallError")
+            and x["stall_class"] == "fatal"
+            and x["stall_s"] < 2 * ELASTIC_LOST_S
+            and x["after"].startswith("GroupBrokenError")
+            and x["after_s"] < 0.5 for x in v)
+        lost[case] = (max(x["stall_s"] for x in v),
+                      max(x["after_s"] for x in v))
+        log(f"  elastic (h) {case.split('-')[1]} rank 3 at step 2's "
+            f"barrier: ranks 0-2 raised {sorted({x['stall'][:60] for x in v})}"
+            f" class {sorted({x.get('stall_class') for x in v})} within "
+            f"{lost[case][0]:.3f} s (deadline {ELASTIC_LOST_S} s); a later "
+            f"collective raised {sorted({x['after'][:40] for x in v})} in "
+            f"{lost[case][1] * 1e3:.3f} ms {'ok' if ok else 'MISS'} [{card}]")
+        if not ok:
+            raise Fail(f"elastic (h): {case}")
+        if case == "lost-wedged":
+            rs = [x["reshape"] for x in v]
+            ok = all(r["mode"] == "live" for r in rs) and \
+                all(x["mesh"] == {"d0": 4, "d1": 1} for x in v) and \
+                held(reps, (4, 1), ("grid", "series", "star2"))
+            log(f"  elastic (g) 4 ranks (2, 2) -> (4, 1) live: "
+                f"{[r['bytes'] for r in rs]} bytes a rank in "
+                f"{max(r['wall_s'] for r in rs):.3f} s "
+                f"({sum(r['bytes'] for r in rs) / max(r['wall_s'] for r in rs) / 1e9:.2f} GB/s "
+                f"over the ranks), blocks and a sweep byte-equal to one "
+                f"process {ok}; sums {sorted({x['sum'] for x in v})}; step 1 "
+                f"saved in {max(r['wall_s']['save'] for r in reps):.2f} s "
+                f"[{card}]")
+            if not ok or len({x["sum"] for x in v}) != 1:
+                raise Fail("elastic (g): the live reshape of a rank mesh")
+    if elastic.CheckpointManager(root).latest() != 1:
+        raise Fail("elastic (h): the newest valid step is not step 1")
+    reps = elastic_ranks(2, tmp, "resume", root, totals)
+    ok = all(r["values"]["step"] == 1 and r["values"]["from_processes"] == 4
+             for r in reps) and held(reps, (2,), ("grid", "series", "star2"))
+    log(f"  elastic (f)/(h) restarted on 2 ranks: resumed step 1 saved by 4, "
+        f"blocks and a sweep byte-equal {ok}; saved step "
+        f"{reps[0]['values']['saved']} in "
+        f"{max(r['wall_s']['save'] for r in reps):.2f} s [{card}]")
+    if not ok:
+        raise Fail("elastic (f): 4 -> 2")
+    # 2 -> 1 in this process, under a budget that makes the restore spill
+    live = memory.ledger.live_bytes
+    incoming = ELASTIC_GRID * ELASTIC_GRID * 4 + ELASTIC_N * 8 + 8
+    _elastic_env(RAMBA_HBM_BUDGET=live + incoming // 2)
+    try:
+        res = window("elastic (f) resume 2 -> 1 under a tight budget",
+                     lambda: elastic.resume(root), {})
+    finally:
+        _elastic_env(RAMBA_HBM_BUDGET=None)
+    adm = [e for e in events.last(20, type="lifecycle")
+           if e["phase"] == "restore_admit"]
+    freed = adm[-1]["freed_bytes"] if adm else 0
+    g1, x1 = res.state["grid"], res.state["series"]
+    ok = res.step == 3 and res.manifest["process_count"] == 2 and \
+        card_digest(g1._value()) == want["grid"] and \
+        card_digest(x1._value()) == want["series"] and freed > 0
+    log(f"  elastic (f) resumed step 3 saved by 2 ranks in this process "
+        f"under RAMBA_HBM_BUDGET = live + incoming / 2: admission freed "
+        f"{freed} bytes, arrays byte-equal {ok} [{card}]")
+    if not ok:
+        raise Fail("elastic (f): 2 -> 1")
+    del res, g1, x1
+    torch.cuda.empty_cache()
+    reps = elastic_ranks(ELASTIC_RANKS, tmp, "resume", solver["root"],
+                         totals)
+    ok = all(r["values"]["step"] == solver["step"]
+             and r["values"]["from_processes"] == 1 for r in reps) and all(
+        r["digests"][k] == solver["blocks"][k][i]
+        for i, r in enumerate(reps) for k in ("grid", "star2"))
+    wall = time.perf_counter() - t0
+    log(f"  elastic (f) 1 -> 4 ranks: resumed step {solver['step']} of "
+        f"(e)'s solver, saved by one process; blocks and a sweep "
+        f"byte-equal {ok}; the worlds took {wall:.1f} s [{card}]")
+    if not ok:
+        raise Fail("elastic (f): 1 -> 4")
+    # the spilled references come back byte-equal on their next read
+    if card_digest(g_ref._value()) != want["grid"]:
+        raise Fail("elastic (f): a spilled array came back changed")
+    return {"lost": lost, "worlds_s": wall, "freed_bytes": freed}
+
+
+def elastic_reshape(rt, np, torch, card, window, tmp):
+    """(g) In one process: the grid and the series live on a 2x2 mesh of
+    shards, reshaped to 4x1 and to one shard (bytes moved, wall to the
+    card's end, GB/s), byte-equal, a stencil sweep and a sum on each new
+    mesh equal to one shard's; then, the grid alone live, a
+    ``reshard:stage`` fault back to 2x2 falls back to the checkpoint,
+    byte-equal."""
+    import gc
+    import os
+
+    from ramba_tpu_torch import common
+    from ramba_tpu_torch.parallel import mesh as pm
+    from ramba_tpu_torch.resilience import elastic, faults, memory
+
+    dev = common.device()
+    old = pm.get_mesh()
+    star2 = rt.stencil(star2_body)
+
+    def grid_mesh(*shape):
+        return pm.Mesh(np.array([dev] * int(np.prod(shape)),
+                                dtype=object).reshape(shape),
+                       tuple(f"d{i}" for i in range(len(shape))))
+
+    g0 = dist_grid(rt, np, (ELASTIC_GRID, ELASTIC_GRID))
+    x0 = dist_vec(rt, ELASTIC_N)
+    want = {"grid": card_digest(g0._value()), "series": card_digest(
+        x0._value()), "star2": card_digest(rt.sstencil(star2, g0)._value()),
+        "sum": float(rt.sum(x0))}
+    del g0, x0
+    torch.cuda.empty_cache()
+    out = {}
+    try:
+        pm.set_mesh(grid_mesh(2, 2))
+        g = dist_grid(rt, np, (ELASTIC_GRID, ELASTIC_GRID))
+        x = dist_vec(rt, ELASTIC_N)
+        rt.sync()
+        gc.collect()
+        live = [tuple(e.consts[0]().shape) for e in
+                memory.ledger.entries.values() if e.consts[0]() is not None]
+
+        def reshape(m):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = elastic.live_reshape(m)
+            torch.cuda.synchronize()
+            r["wall_s"] = time.perf_counter() - t
+            return r
+
+        for tag, m in (("4x1", grid_mesh(4, 1)), ("1", grid_mesh(1))):
+            r = window(f"elastic (g) live reshape -> {tag}",
+                       lambda: reshape(m), {})
+            got = {"grid": card_digest(g._value()),
+                   "series": card_digest(x._value())}
+            got["star2"] = window(
+                f"elastic (g) a sweep on {tag}",
+                lambda: card_digest(rt.sstencil(star2, g)._value()),
+                {"stencil": None})
+            got["sum"] = window(f"elastic (g) a sum on {tag}",
+                                lambda: float(rt.sum(x)), {"elemred": 1})
+            ok = r["mode"] == "live" and got == want
+            log(f"  elastic (g) one process 2x2 shards -> {tag}: "
+                f"{r['arrays']} arrays (live: {live}), {r['bytes']} bytes "
+                f"moved in "
+                f"{r['wall_s']:.4f} s to the card's end "
+                f"({r['bytes'] / r['wall_s'] / 1e9:.2f} GB/s), byte-equal, a "
+                f"sweep and a sum equal to one shard's {ok} [{card}]")
+            if not ok:
+                raise Fail(f"elastic (g): the live reshape -> {tag}")
+            out[tag] = r
+        del x
+        gc.collect()
+        faults.configure("reshard:stage:always")
+        try:
+            r = elastic.live_reshape(grid_mesh(2, 2),
+                                     manager=os.path.join(tmp, "fallback"))
+        finally:
+            faults.configure(None)
+        ok = r["mode"] == "checkpoint" and \
+            card_digest(g._value()) == want["grid"]
+        log(f"  elastic (g) a reshard:stage fault on the way back to 2x2 "
+            f"(the grid live, {r['arrays']} arrays, {r['bytes']} bytes): mode "
+            f"{r['mode']} in {r['wall_s']:.2f} s, byte-equal {ok} [{card}]")
+        if not ok:
+            raise Fail("elastic (g): the checkpoint fallback")
+        out["fallback"] = r
+    finally:
+        pm.set_mesh(old)
+    return out
+
+
+def elastic_path(rt, er, sk, sg, sc, torch, np, card, window, totals,
+                 only=None):
+    """The elastic plane on the card (ROADMAP A.8 part three), (a)-(h)
+    as their functions say; ``only``: the parts to run (all: None)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    star2 = rt.stencil(star2_body)
+    out, walls = {}, {}
+
+    def part(name, fn, *a):
+        if only is not None and name not in only:
+            return
+        t = time.perf_counter()
+        out[name] = fn(*a)
+        walls[name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="ramba_elastic_") as tmp:
+        part("armed", elastic_armed, rt, np, torch, sc, card, window, star2)
+        part("stall", elastic_stall, rt, np, torch, sc, card, window, star2)
+        part("inflight", elastic_inflight, rt, np, torch, card, window,
+             star2)
+        part("heartbeat", elastic_heartbeat, rt, np, torch, card, window,
+             star2)
+        part("manager", elastic_manager, rt, np, torch, card, window, tmp)
+        if only is None or "worlds" in only:
+            if "manager" not in out:
+                raise Fail("elastic (f) resumes (e)'s solver: run both")
+            part("worlds", elastic_worlds, rt, np, torch, card, window,
+                 totals, tmp, out["manager"]["final"])
+        part("reshape", elastic_reshape, rt, np, torch, card, window, tmp)
+    out["wall_s"] = time.perf_counter() - t0
+    out["part_walls_s"] = walls
+    log(f"  elastic_path: {out['wall_s']:.1f} s, by part (s) "
+        f"{json.dumps(walls)} [{card}]")
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -6619,6 +7540,8 @@ def main(argv) -> int:
         return dist_rank(argv)
     if "--compile-child" in argv:  # one process of compile_path
         return compile_child(argv)
+    if "--elastic-child" in argv:  # one process of elastic_path (e)
+        return elastic_child(argv)
     import numpy as np
 
     import ramba_tpu_torch as rt
@@ -6684,6 +7607,20 @@ def main(argv) -> int:
         for k in totals:
             if not totals[k]:
                 raise Fail(f"ladder_path launched no {k}")
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        print(card, flush=True)
+        return 0
+    if "--elastic" in argv:  # phase 1 and elastic_path alone
+        totals = dict.fromkeys(("elemred", "stencil", "segred", "scan"), 0)
+        window = launch_window(er, sk, sg, sc, totals, card)
+        only = argv[argv.index("--parts") + 1].split(",") \
+            if "--parts" in argv else None
+        out = elastic_path(rt, er, sk, sg, sc, torch, np, card, window,
+                           totals, only)
+        log(json.dumps({"elastic": out, "launches": totals}, default=str))
+        for k in totals:
+            if not totals[k] and only is None:
+                raise Fail(f"elastic_path launched no {k}")
         log(f"total {time.perf_counter() - t_all:.1f} s")
         print(card, flush=True)
         return 0

@@ -71,6 +71,7 @@ decided before it runs; its programs run through :func:`run_program`.
 
 from __future__ import annotations
 
+import contextvars
 import hashlib
 import itertools
 import os
@@ -93,6 +94,7 @@ from ramba_tpu_torch.parallel import distributed as _distributed
 from ramba_tpu_torch.parallel import mesh as _mesh
 from ramba_tpu_torch.resilience import coherence as _coherence
 from ramba_tpu_torch.resilience import degrade as _degrade
+from ramba_tpu_torch.resilience import elastic as _elastic
 from ramba_tpu_torch.resilience import faults as _faults
 from ramba_tpu_torch.resilience import memory as _memory
 from ramba_tpu_torch.resilience.spill import SpilledArray
@@ -517,12 +519,16 @@ def _run_segmented(program: _Program, leaf_vals, span: Optional[dict] = None,
 
 _compile_cache: dict = {}
 _COMPILE_CACHE_MAX = 512
+_cache_epoch = 0  # the mesh epoch the cached programs were made under
 
 # Called (when set) just before a program is launched, after its fault
 # sites: ``core/rankflush.py`` sets it while a rung runs a program that
 # exchanges with other ranks inside it (a stencil's halos), so no rank
-# enters the exchange while a peer has already failed.
-launch_gate = None
+# enters the exchange while a peer has already failed.  A context
+# variable: an attempt the watchdog runs on a helper thread carries its
+# own gate, and a zombie attempt never opens the next attempt's.
+launch_gate: contextvars.ContextVar = contextvars.ContextVar(
+    "ramba_launch_gate", default=None)
 _cache_lock = threading.RLock()
 
 
@@ -568,7 +574,10 @@ def _get_compiled(program: _Program, leaf_vals, compile_class=None,
     backend, via)``: ``fp`` is the fingerprint the ledger files the
     program under, ``backend`` the lowering ``core/autotune.py`` picks
     and ``via`` why.  A caller that already holds the program's
-    :func:`_cache_key` and fingerprint passes them in."""
+    :func:`_cache_key` and fingerprint passes them in.  A new mesh epoch
+    (``set_mesh``, ``elastic.live_reshape``) empties the cache, as in
+    the reference."""
+    global _cache_epoch
     from ramba_tpu_torch.core import autotune as _autotune
 
     if key is None:
@@ -583,6 +592,9 @@ def _get_compiled(program: _Program, leaf_vals, compile_class=None,
     backend, via = _autotune.select(fp, program, leaf_vals)
     cache_key = key + (backend,)
     with _cache_lock:
+        if _cache_epoch != _mesh.mesh_epoch:
+            _compile_cache.clear()
+            _cache_epoch = _mesh.mesh_epoch
         if cacheable:
             fn = _compile_cache.pop(cache_key, None)
             if fn is not None:
@@ -600,6 +612,7 @@ def _get_compiled(program: _Program, leaf_vals, compile_class=None,
                               "capacity": _COMPILE_CACHE_MAX})
         _faults.check("compile", instrs=len(program.instrs))
         fn = _lower(program, leaf_vals, backend)
+        _elastic.abandon_if_cancelled("the compile cache")
         if cacheable:
             _compile_cache[cache_key] = fn
         with _stats_lock:
@@ -639,8 +652,10 @@ def _execute_compiled(fn, program: _Program, leaf_vals, is_new: bool,
     them."""
     _faults.check("execute", instrs=len(program.instrs))
     _faults.check("oom", instrs=len(program.instrs))
-    if launch_gate is not None:
-        launch_gate()
+    gate = launch_gate.get()
+    if gate is not None:
+        gate()
+    _elastic.abandon_if_cancelled("a launch")
     before = _build.counts() if is_new else None
     racing = via == "racing"
     timed = racing or _ledger.sync_timing()
@@ -667,6 +682,7 @@ def _execute_compiled(fn, program: _Program, leaf_vals, is_new: bool,
     if bytes_in is None:
         bytes_in = sum(_nbytes(v) for v in leaf_vals)
     bytes_out = sum(_nbytes(o) for o in outs)
+    _elastic.abandon_if_cancelled("the ledger's execute record")
     # a backend's slice takes compiles and racing samples only: the race's
     # evidence is device times, never a dispatch wall
     _ledger.record_execute(
@@ -965,6 +981,7 @@ def _prepare(program: _Program, leaves, exprs, leaf_vals, span: dict,
             span.pop("compile_class", None)
             span.pop("pad_waste_bytes", None)
         elif certs:
+            _elastic.abandon_if_cancelled("a plan certificate")
             try:
                 work.plan_cert = _plancache.certify(work)
             except NotImplementedError:
@@ -1037,6 +1054,7 @@ def _sync_device() -> None:
 
 def _record_rung(program: _Program, leaf_vals, outs, rung: str, dt: float,
                  span: Optional[dict]) -> None:
+    _elastic.abandon_if_cancelled("the ledger's execute record")
     label = _program_label(program)
     _ledger.record_execute(
         _ledger.fingerprint(_cache_key(program, leaf_vals)), label,
@@ -1054,8 +1072,10 @@ def _run_eager(program: _Program, leaf_vals, span: Optional[dict]) -> tuple:
     then a wait for the card, so an asynchronous CUDA failure lands
     inside this rung."""
     _faults.check("eager")
-    if launch_gate is not None:
-        launch_gate()
+    gate = launch_gate.get()
+    if gate is not None:
+        gate()
+    _elastic.abandon_if_cancelled("a launch")
     t0 = time.perf_counter()
     outs = run_instructions(program, leaf_vals)
     _sync_device()
@@ -1091,6 +1111,7 @@ def _run_host(program: _Program, leaf_vals, span: Optional[dict]) -> tuple:
     with common.device_scope(cpu), _mesh.local_scope():
         outs = run_instructions(program, host_vals)
     del host_vals
+    _elastic.abandon_if_cancelled("placing the host rung's outputs")
     if dev.type != "cpu":
         outs = tuple(_memory.governed_device_put(o, dev, site="host_rung")
                      if isinstance(o, torch.Tensor) else o for o in outs)
@@ -1118,15 +1139,22 @@ def _rung(work: _FlushWork, name: str):
     return fn
 
 
-def _checked(name: str, fn):
+def _checked(name: str, fn, wd: Optional[float] = None):
     """``fn`` behind the ``dispatch`` fault site: one check a rung
     attempt of a flush (``core/rankflush.py`` checks once a rung attempt
-    of all of a rank's programs)."""
+    of all of a rank's programs).  With the watchdog armed (``wd``
+    seconds) the attempt runs under ``elastic.with_deadline``: a hang
+    becomes a degrade-class ``RankStallError`` and the ladder moves on;
+    an attempt that wakes after its deadline stops before the rung
+    body (and before every launch and commit inside it)."""
     def attempt():
         _faults.check("dispatch", rung=name)
+        _elastic.abandon_if_cancelled(f"the {name} rung")
         return fn()
 
-    return attempt
+    if wd is None:
+        return attempt
+    return lambda: _elastic.with_deadline("dispatch", attempt, timeout_s=wd)
 
 
 def rungs_for(n_instrs: Optional[int], skip_fused: bool = False,
@@ -1151,17 +1179,19 @@ def rungs_for(n_instrs: Optional[int], skip_fused: bool = False,
 
 
 def _execute_resilient(work: _FlushWork, route_chunked: bool = False,
-                       whole: bool = True):
+                       whole: bool = True, wd: Optional[float] = None):
     """Run the flush down the degradation ladder
     (``resilience/degrade.py``): fused → split → chunked → eager → host
     (``whole``: :func:`_whole_job`; else no host rung and no round).
-    Returns ``(outs, rung)``.  The reference's deadline pruning and
-    hedging come with serving (ROADMAP A.10), its watchdog with the
-    elastic plane (A.8 part three)."""
+    Returns ``(outs, rung)``.  Each rung attempt runs under the elastic
+    watchdog when ``wd`` (``RAMBA_WATCHDOG_S``, which :func:`_dispatch`
+    reads once a flush) is set.  The reference's deadline pruning and
+    hedging, and its clamp of the watchdog to a request's deadline, come
+    with serving (ROADMAP A.10)."""
     names = rungs_for(len(work.program.instrs), work.routed, route_chunked,
                       whole)
     return _degrade.run_ladder(
-        "flush", [(n, _checked(n, _rung(work, n))) for n in names],
+        "flush", [(n, _checked(n, _rung(work, n), wd)) for n in names],
         coherent=whole and _coherence.engaged())
 
 
@@ -1256,13 +1286,16 @@ def _dispatch(work: _FlushWork, rung: Optional[str] = None) -> tuple:
     leaf_vals = work.leaf_vals
     if rung is None:
         whole = _whole_job()
-        t_admit = time.perf_counter()
-        route = _memory.admit(program, leaf_vals, (), span, coherent=whole,
-                              fingerprint=work.fingerprint)
-        if "mem_peak_est" in span:
-            span.setdefault("stages", {})["admit"] = \
-                time.perf_counter() - t_admit
-        outs, rung = _execute_resilient(work, route, whole)
+        wd = _elastic.watchdog_seconds()  # the flush's one read
+        with _coherence.flush_scope(wd):
+            t_admit = time.perf_counter()
+            route = _memory.admit(program, leaf_vals, (), span,
+                                  coherent=whole,
+                                  fingerprint=work.fingerprint)
+            if "mem_peak_est" in span:
+                span.setdefault("stages", {})["admit"] = \
+                    time.perf_counter() - t_admit
+            outs, rung = _execute_resilient(work, route, whole, wd)
         audit = rung == "fused"
     else:
         outs = _rung(work, rung)()
@@ -1277,6 +1310,7 @@ def _dispatch(work: _FlushWork, rung: Optional[str] = None) -> tuple:
         mismatch = _integrity.shadow_audit(
             work.label, outs, lambda: _audit_rerun(program, leaf_vals),
             plan=work.memo_plan, span=span, coherent=whole)
+    _elastic.abandon_if_cancelled("the result memo")
     if work.memo_plan is not None and not mismatch:
         try:
             _memo.insert(work.memo_plan, list(outs))
@@ -1299,8 +1333,10 @@ def _finish_memo_span(work: _FlushWork, outs) -> None:
     span["memo_hit"] = True
     span["out_bytes"] = sum(_nbytes(v) for v in outs)
     span["wall_s"] = round(time.perf_counter() - span.pop("t0"), 6)
+    _elastic.abandon_if_cancelled("the flush span")
     _ledger.record_memo_hit(work.fingerprint, work.label)
     _events.emit(span)
+    _elastic.note_progress("flush")
 
 
 def _new_span(program: _Program, leaf_vals) -> dict:
@@ -1325,6 +1361,7 @@ def _finish_span(span: dict, outs) -> None:
     span["wall_s"] = round(time.perf_counter() - span.pop("t0"), 6)
     _events.emit(span)
     _ledger.observe_flush(span)
+    _elastic.note_progress("flush")
 
 
 def run_program(program: _Program, leaf_vals, split: bool = False,

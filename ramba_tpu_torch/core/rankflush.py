@@ -77,11 +77,20 @@ the ladder behind one ``memory:admit`` round.  No other round runs
 inside a rung: a retried attempt must not meet a collective the other
 ranks skip.  A rank that fails before its first ladder joins the rounds
 the others enter next (:func:`_join_and_raise`).
+
+With the elastic watchdog armed (``RAMBA_WATCHDOG_S``, read once a
+flush) each rank's attempt runs under ``elastic.with_deadline``: a rank
+whose attempt hangs raises a degrade-class ``RankStallError``, joins the
+gate round it skipped (proposing a failure), and its stall is proposed
+to the next ``flush:rung`` round, so every rank drops together.  The
+attempt it abandoned never enters a collective (the gate, a halo
+exchange, a fold: ``distributed`` refuses it) and commits nothing.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 
 import numpy as np
 import torch
@@ -647,21 +656,29 @@ def _gated(run):
     raises a retryable ``CoherentAbort`` at the gate instead of waiting
     in an exchange the peer never joins, and the ladder's round then
     takes the peer's class.  A failure after the gate, inside such an
-    exchange, is bounded by the group's timeout only."""
+    exchange, is bounded by the watchdog's deadline when it is armed (the
+    abandoned exchange then breaks the group), else by the group's
+    timeout.  The gate is the attempt's own (a context variable the
+    watchdog's helper thread carries) and opens once: when the watchdog
+    abandons an attempt before its gate, the caller joins the round with
+    a failure and the zombie, waking, finds it open and stops before its
+    launch."""
     from ramba_tpu_torch.core import fuser
 
     def attempt(name):
         opened = []
+        lock = threading.Lock()
 
         def gate(ok=True):
-            if opened:
-                return
-            opened.append(True)
+            with lock:
+                if opened:
+                    return
+                opened.append(True)
             if coherence.agree("flush:gate", 0 if ok else 1) and ok:
                 raise coherence.CoherentAbort("flush:gate",
                                               coherence.P_RETRY)
 
-        fuser.launch_gate = gate
+        token = fuser.launch_gate.set(gate)
         try:
             out = run(name)
             gate()
@@ -670,26 +687,34 @@ def _gated(run):
             gate(ok=False)
             raise
         finally:
-            fuser.launch_gate = None
+            fuser.launch_gate.reset(token)
 
     return attempt
 
 
-def _laddered(run, split=False, route=False):
+def _laddered(run, split=False, route=False, wd=None):
     """``run(rung)`` down the degradation ladder: the same rung list on
     every rank (split and chunked offered whatever the program's length,
     no host rung), a fresh attempt at each rung behind one ``dispatch``
     fault check (on every rank, whether or not a program of its runs),
-    behind :func:`_gated` when the coherence layer is engaged.  Returns
+    under the watchdog's deadline when ``wd`` (seconds) is given, behind
+    :func:`_gated` when the coherence layer is engaged.  Returns
     ``run``'s value."""
     from ramba_tpu_torch.core import fuser
-    from ramba_tpu_torch.resilience import degrade, faults
+    from ramba_tpu_torch.resilience import degrade, elastic, faults
 
     def checked(name):  # the dispatch site fails inside the gate
         faults.check("dispatch", rung=name)
+        elastic.abandon_if_cancelled(f"the {name} rung")
         return run(name)
 
-    go = _gated(checked) if coherence.engaged() else checked
+    body = checked
+    if wd is not None:
+        def body(name):
+            return elastic.with_deadline("dispatch", lambda: checked(name),
+                                         timeout_s=wd)
+
+    go = _gated(body) if coherence.engaged() else body
 
     def rung(name):
         return lambda: go(name)
@@ -743,14 +768,22 @@ def lower_hints(exprs, mesh):
 def flush_roots(stream, roots, extra, mesh):
     """``fuser._flush_roots`` on a mesh of ranks: materialize ``roots``
     (port arrays) and ``extra`` expressions; returns the whole values of
-    ``extra``."""
+    ``extra``.  The watchdog's switch is read once for the flush, and
+    its coherence rounds share one reading of theirs."""
+    from ramba_tpu_torch.resilience import elastic
+
+    exprs = [a._expr for a in roots] + list(extra)
+    if not exprs:
+        return []
+    wd = elastic.watchdog_seconds()  # the flush's one read
+    with coherence.flush_scope(wd):
+        return _flush_roots(stream, roots, exprs, mesh, wd)
+
+
+def _flush_roots(stream, roots, exprs, mesh, wd):
     from ramba_tpu_torch import common
     from ramba_tpu_torch.core import fuser
 
-    root_exprs = [a._expr for a in roots]
-    exprs = root_exprs + list(extra)
-    if not exprs:
-        return []
     err = None
     results = None
     try:
@@ -767,10 +800,10 @@ def flush_roots(stream, roots, extra, mesh):
         results = []
         for idx, plan in plans:
             if plan is not None:
-                results.append((idx, plan, _run_local(plan, split)))
+                results.append((idx, plan, _run_local(plan, split, wd)))
             else:
                 results.append((idx, None, _run_whole(
-                    [exprs[i] for i in idx], split)))
+                    [exprs[i] for i in idx], split, wd)))
     except Exception as e:  # every rank must learn of it: see _agree
         err = e
     ok = _agree(err is None)
@@ -927,7 +960,7 @@ def _run_segment(r, split=False, rung="fused"):
     return parts
 
 
-def _run_local(plan, split=False):
+def _run_local(plan, split=False, wd=None):
     """Run the plan's programs on this rank's blocks, down the ladder:
     ``(values, number of instructions)``, a value per root (None where
     nothing ran; a list of partials for a groupby)."""
@@ -965,7 +998,7 @@ def _run_local(plan, split=False):
                 n_instrs += len(outs[i])
         return outs, n_instrs
 
-    return _laddered(run, split, _admission(prepare))
+    return _laddered(run, split, _admission(prepare), wd)
 
 
 def _finish_local(plan, outs):
@@ -1009,7 +1042,7 @@ def _finish_local(plan, outs):
     return consts
 
 
-def _run_whole(exprs, split=False):
+def _run_whole(exprs, split=False, wd=None):
     """Every rank runs the program whole: block leaves all-gathered (the
     gathered lowering, counted) or none (replicated)."""
     from ramba_tpu_torch.core import fuser
@@ -1027,5 +1060,6 @@ def _run_whole(exprs, split=False):
         with _mesh.local_scope():
             return _execute(program, leaf_vals, split, rung)
 
-    outs = _laddered(run, split, _admission(lambda: (program, leaf_vals)))
+    outs = _laddered(run, split, _admission(lambda: (program, leaf_vals)),
+                     wd)
     return list(outs), len(program.instrs)

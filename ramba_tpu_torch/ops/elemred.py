@@ -65,6 +65,7 @@ from ramba_tpu_torch.core.expr import Aval, to_torch_dtype, wrap_int
 from ramba_tpu_torch.core.fuser import run_instructions
 from ramba_tpu_torch.ops import cuda_expr as cx
 from ramba_tpu_torch.ops import kernel_backend as kb
+from ramba_tpu_torch.resilience import elastic as _elastic
 
 launches = 0
 launches_bulk = 0
@@ -677,7 +678,8 @@ def launch(program, leaf_vals, config: Config = CONFIG) -> tuple:
             # the width it is used at, as the generic lowering does
             scalars.append(float(v) if av[s].dtype.kind == "f"
                            else wrap_int(int(v), torch.int64))
-    fn = _entry(plan)[0]
+    fn = _entry(plan)[0]  # a first plan builds it: seconds of nvcc
+    _elastic.abandon_if_cancelled("a launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(PATHS.index(path), grid, _ptrs(ptrs),

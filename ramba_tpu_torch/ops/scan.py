@@ -43,6 +43,7 @@ import threading
 import torch
 
 from ramba_tpu_torch import _build
+from ramba_tpu_torch.resilience import elastic as _elastic
 
 launches = 0
 
@@ -258,7 +259,8 @@ def launch(x: torch.Tensor, fname: str, axis: int, ctas: int | None = None
     num = R * tiles(n)
     val = torch.empty(num, dtype=acc_dtype(x.dtype), device=x.device)
     status = torch.empty(status_bytes(num), dtype=torch.uint8, device=x.device)
-    fn = _entry(x.dtype, fname)
+    fn = _entry(x.dtype, fname)  # a first call builds it
+    _elastic.abandon_if_cancelled("a launch")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(rows.data_ptr(), out.data_ptr(), val.data_ptr(),

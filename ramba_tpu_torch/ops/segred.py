@@ -40,6 +40,7 @@ import torch
 from ramba_tpu_torch import _build
 from ramba_tpu_torch.core.expr import to_np_dtype, to_torch_dtype
 from ramba_tpu_torch.ops import kernel_backend as kb
+from ramba_tpu_torch.resilience import elastic as _elastic
 
 launches = 0
 
@@ -190,8 +191,9 @@ def launch(program, leaf_vals) -> tuple:
     nb = num_blocks(n)
     out = torch.empty(G, dtype=acc, device=dev)
     partials = torch.empty(nb * G, dtype=acc, device=dev)
-    fn = _entry(_spec(kind, data, labels, acc))
+    fn = _entry(_spec(kind, data, labels, acc))  # a first spec builds it
     src = labels if kind == "count" else data
+    _elastic.abandon_if_cancelled("a launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(src.data_ptr(), labels.data_ptr(), partials.data_ptr(),

@@ -71,6 +71,7 @@ from ramba_tpu_torch import _build
 from ramba_tpu_torch.core import expr as E
 from ramba_tpu_torch.ops import cuda_expr as cx
 from ramba_tpu_torch.ops import kernel_backend as kb
+from ramba_tpu_torch.resilience import elastic as _elastic
 from ramba_tpu_torch.skeletons import (
     KernelTraceError, _combine_branches, _explore_branches, decide,
     shifted_slice_stencil,
@@ -635,6 +636,7 @@ def launch(func, lo, hi, slots, arrs, out) -> torch.Tensor:
     addrs = [a.data_ptr() for a in ins]
     path = load_path(spec.geometry, H, W, ins[0].element_size(), addrs)
     ptrs = (ctypes.c_void_p * len(ins))(*addrs)
+    _elastic.abandon_if_cancelled("a launch")  # after a first spec's build
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(PATHS.index(path), ptrs, out.data_ptr(), H, W, stream)

@@ -22,15 +22,26 @@ ranks compute on (:func:`choose_backend`):
 Every tensor crosses as raw bytes (a ``uint8`` view), so any dtype
 (bfloat16, complex, bool) moves bit for bit.  The group's timeout is
 ``RAMBA_INIT_TIMEOUT_S`` (seconds), so a rank that never arrives makes
-the others raise instead of waiting forever; the elastic deadlines of the
-reference (``resilience/elastic.py``) come with ROADMAP A.8 part three.
+the others raise instead of waiting forever.  With the elastic watchdog
+armed (``RAMBA_WATCHDOG_S``, ``resilience/elastic.py``) a :func:`barrier`
+runs under its deadline: a rank that never arrives (wedged, or exited)
+becomes a fatal ``RankStallError`` on the ranks still alive within the
+deadline.  A stalled or failed barrier or coherence round leaves a
+collective running on a helper thread, which would pair with the next
+one, so it marks the group broken (:func:`mark_broken`): every later
+collective raises ``GroupBrokenError`` at once, until the job restarts;
+so does a deadline that abandons a thread while it is inside a
+collective (a halo exchange of a rank's flush).  An attempt the watchdog
+abandoned never enters a collective.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import socket
+import threading
 import time
 from typing import Optional, Sequence
 
@@ -44,6 +55,8 @@ _backend: Optional[str] = None
 _staged = False          # cross-rank tensors go through host memory
 _reason = ""
 _rank_devices: list = []  # per rank: (host, device string)
+_broken: Optional[str] = None  # why the group is refused (None: healthy)
+_inside: dict = {}  # thread ident -> the collective it is inside
 
 
 def _timeout_s() -> Optional[float]:
@@ -207,11 +220,12 @@ def rank_devices() -> list:
 
 
 def shutdown() -> None:
-    global _group, _backend, _staged, _reason, _rank_devices
+    global _group, _backend, _staged, _reason, _rank_devices, _broken
     if _group is not None:
         torch.distributed.destroy_process_group()
         _group, _backend, _staged, _reason, _rank_devices = \
             None, None, False, "", []
+        _broken = None
         from ramba_tpu_torch.observe import events as _events
         from ramba_tpu_torch.parallel import mesh as _mesh
         from ramba_tpu_torch.resilience import coherence as _coherence
@@ -269,6 +283,57 @@ def note_transfer(kind: str, nbytes: int) -> None:
 # ---------------------------------------------------------------------------
 
 
+def mark_broken(why: str) -> None:
+    """Refuse every later collective on this group: a barrier or a
+    coherence round stalled or failed, and its collective may still be
+    running on a helper thread.  The first reason is kept."""
+    global _broken
+    if _broken is None:
+        _broken = why
+        from ramba_tpu_torch.observe import events as _events
+        from ramba_tpu_torch.observe import registry as _registry
+
+        _registry.inc("distributed.group_broken")
+        _events.emit({"type": "lifecycle", "phase": "group_broken",
+                      "error": why[:200]})
+
+
+def broken() -> Optional[str]:
+    """Why the group is refused, or None while it is healthy."""
+    return _broken
+
+
+def _enter(site: str) -> None:
+    """Before a collective: a broken group raises at once, and an
+    attempt the watchdog abandoned stops (it would pair with a live
+    round of its peers)."""
+    from ramba_tpu_torch.resilience import elastic as _elastic
+
+    if _broken is not None:
+        raise _elastic.GroupBrokenError(site, _broken,
+                                        rank=process_index())
+    _elastic.abandon_if_cancelled(f"the collective {site!r}")
+
+
+@contextlib.contextmanager
+def _collective(site: str):
+    """A collective's extent: entered through :func:`_enter`, and
+    recorded per thread, so a deadline that abandons a thread inside one
+    knows to break the group (:func:`inside_collective`)."""
+    _enter(site)
+    me = threading.get_ident()
+    _inside[me] = site
+    try:
+        yield
+    finally:
+        _inside.pop(me, None)
+
+
+def inside_collective(ident: int) -> Optional[str]:
+    """The collective the thread ``ident`` is inside, or None."""
+    return _inside.get(ident)
+
+
 def _wire_device() -> torch.device:
     """Where tensors cross ranks: the card under NCCL, the host under
     gloo."""
@@ -321,7 +386,8 @@ def all_gather(t: torch.Tensor, shapes: Sequence[tuple]) -> list:
         pad[:mine.numel()] = mine
         mine = pad
     outs = [_empty_wire(width) for _ in shapes]
-    torch.distributed.all_gather(outs, mine)
+    with _collective("all_gather"):
+        torch.distributed.all_gather(outs, mine)
     note_transfer("allgather", width * len(shapes))
     dev = t.device
     return [_from_wire(o[:n], s, t.dtype, dev)
@@ -339,15 +405,41 @@ def all_reduce_int(value: int, op: str = "max") -> int:
            "min": torch.distributed.ReduceOp.MIN,
            "sum": torch.distributed.ReduceOp.SUM}
     t = torch.tensor([int(value)], dtype=torch.int64, device=_wire_device())
-    torch.distributed.all_reduce(t, op=ops[op])
+    with _collective("all_reduce"):
+        torch.distributed.all_reduce(t, op=ops[op])
     return int(t.item())
 
 
 def barrier(tag: str = "") -> None:
-    """Cross-rank sync point (no-op for one process), bounded by the
-    group's timeout."""
-    if process_count() > 1:
-        all_reduce_int(0)
+    """Cross-rank sync point (no-op for one process).  Runs under the
+    elastic watchdog's deadline (``RAMBA_WATCHDOG_S``; unarmed, the
+    group's timeout bounds it): a rank that never arrives turns the
+    block into a fatal ``RankStallError`` on the ranks still alive, and
+    a barrier that stalls or fails (a peer exited) marks the group
+    broken."""
+    if process_count() <= 1:
+        return
+    from ramba_tpu_torch.resilience import elastic as _elastic
+
+    _enter("barrier")
+    t0 = time.monotonic()
+    try:
+        _elastic.with_deadline("barrier", lambda: all_reduce_int(0))
+    except _elastic.GroupBrokenError:
+        raise
+    except _elastic.RankStallError as e:
+        mark_broken(f"barrier {tag!r} stalled: {e}")
+        raise
+    except _elastic.AbandonedAttempt:
+        raise
+    except Exception as e:
+        mark_broken(f"barrier {tag!r} failed: {type(e).__name__}: {e}")
+        raise _elastic.RankStallError(
+            "barrier", time.monotonic() - t0,
+            _elastic.stall_class_for("barrier"), rank=process_index(),
+            message=(f"barrier {tag!r} failed on rank {process_index()} "
+                     f"after {time.monotonic() - t0:.3f}s: a peer left the "
+                     f"group ({type(e).__name__}: {e})"[:400])) from e
 
 
 def exchange(sends: Sequence[tuple], recvs: Sequence[tuple]) -> list:
@@ -361,24 +453,25 @@ def exchange(sends: Sequence[tuple], recvs: Sequence[tuple]) -> list:
     reqs = []
     keep = []
     pair_tag: dict = {}
-    for t, dst in sends:
-        w = _to_wire(t)
-        keep.append(w)
-        tag = pair_tag.setdefault(("s", dst), 0)
-        pair_tag[("s", dst)] = tag + 1
-        reqs.append(torch.distributed.isend(w, int(dst), tag=tag))
-        parallel.note_transfer("send", w.numel())
     bufs = []
-    for shape, dtype, src in recvs:
-        n = int(np.prod(shape, dtype=np.int64)) * \
-            torch.empty((), dtype=dtype).element_size()
-        b = _empty_wire(n)
-        tag = pair_tag.setdefault(("r", src), 0)
-        pair_tag[("r", src)] = tag + 1
-        reqs.append(torch.distributed.irecv(b, int(src), tag=tag))
-        bufs.append((b, shape, dtype))
-        parallel.note_transfer("recv", n)
-    for r in reqs:
-        r.wait()
+    with _collective("exchange"):
+        for t, dst in sends:
+            w = _to_wire(t)
+            keep.append(w)
+            tag = pair_tag.setdefault(("s", dst), 0)
+            pair_tag[("s", dst)] = tag + 1
+            reqs.append(torch.distributed.isend(w, int(dst), tag=tag))
+            parallel.note_transfer("send", w.numel())
+        for shape, dtype, src in recvs:
+            n = int(np.prod(shape, dtype=np.int64)) * \
+                torch.empty((), dtype=dtype).element_size()
+            b = _empty_wire(n)
+            tag = pair_tag.setdefault(("r", src), 0)
+            pair_tag[("r", src)] = tag + 1
+            reqs.append(torch.distributed.irecv(b, int(src), tag=tag))
+            bufs.append((b, shape, dtype))
+            parallel.note_transfer("recv", n)
+        for r in reqs:
+            r.wait()
     dev = common.device()
     return [_from_wire(b, s, d, dev) for b, s, d in bufs]

@@ -23,15 +23,20 @@ Counterpart of ``ramba_tpu/resilience/``.  Ported so far:
   chunked → eager → host), each rung under the retry engine, an
   out-of-memory failure evicting before the ladder drops a rung.
 
+* ``elastic``   — the elastic job lifecycle: the watchdog deadline
+  (``RankStallError``) around each flush attempt, the barrier and each
+  coherence round, the heartbeat, ``CheckpointManager``,
+  drain-to-checkpoint, ``resume`` into another world size and
+  ``live_reshape``.
+
 The governor also admits each flush (``memory.admit``), and the
-integrity plane shadow-audits flushes (``RAMBA_AUDIT``).  The elastic
-job lifecycle (``elastic``, ``RankStallError``) comes with the third part
-of the resilience queue.
+integrity plane shadow-audits flushes (``RAMBA_AUDIT``).
 """
 
 from ramba_tpu_torch.resilience import (  # noqa: F401
-    coherence, degrade, faults, integrity, memory, retry, spill,
+    coherence, degrade, elastic, faults, integrity, memory, retry, spill,
 )
+from ramba_tpu_torch.resilience.elastic import RankStallError  # noqa: F401
 from ramba_tpu_torch.resilience.faults import (  # noqa: F401
     InjectedFault, InjectedResourceExhausted,
 )

@@ -15,21 +15,35 @@ proposal wins": ``P_OK < P_RETRY < P_DROP < P_OOM < P_FATAL``), ``min``
 propose/decide split (:func:`propose`, :func:`decide`) parks a rank-local
 signal that the next round folds in.
 
-The port runs one process on one card.  There the layer is the
-reference's single-process behaviour: with ``RAMBA_COHERENCE`` ``on``
-(default) nothing is engaged and every call returns the local proposal
-untouched; ``force`` engages the bookkeeping (epochs, events, counters)
-with a loopback transport.  The cross-process transport and the elastic
-watchdog deadline around a round come with the multi-GPU queue (A.6):
-reaching a round with more than one process raises
-``NotImplementedError``.
+In one process the layer is the reference's single-process behaviour:
+with ``RAMBA_COHERENCE`` ``on`` (default) nothing is engaged and every
+call returns the local proposal untouched; ``force`` engages the
+bookkeeping (epochs, events, counters) with a loopback transport.
+Across processes a round is one all-reduce over
+``parallel/distributed.py``.
+
+Each round runs under a deadline (``elastic.with_deadline("coherence",
+...)``): ``RAMBA_COHERENCE_TIMEOUT_S``, else the elastic watchdog's
+``RAMBA_WATCHDOG_S``, else none.  A round that expires or whose
+transport fails falls back to the local proposal (its event says
+``outcome="local"``, counted ``coherence.round_failures``), as in the
+reference; the port then marks the group broken
+(``distributed.mark_broken``), so every later collective raises at once
+instead of pairing with the collective the failed round left running
+(a kept divergence).  A round on a group already broken raises.  Give
+the coherence deadline more room than the watchdog's: a rank that
+stalls one watchdog deadline in its attempt then still reaches the
+round its peers wait in.
 
 Configuration (read per call): ``RAMBA_COHERENCE`` ``on`` (default) |
-``off`` | ``force``.
+``off`` | ``force``; ``RAMBA_COHERENCE_TIMEOUT_S`` (inside a flush, read
+once for all its rounds: :func:`flush_scope`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
 import threading
 import time
@@ -158,6 +172,57 @@ def engaged() -> bool:
     return _process_count() > 1
 
 
+_READ = object()  # the watchdog's deadline not read yet
+
+
+def _timeout_s(watchdog=_READ) -> float:
+    """A round's deadline in seconds, 0 for none:
+    ``RAMBA_COHERENCE_TIMEOUT_S``, else the watchdog's (``watchdog``,
+    when the caller read it already)."""
+    raw = os.environ.get("RAMBA_COHERENCE_TIMEOUT_S")
+    if raw:
+        try:
+            t = float(raw)
+            if t > 0:
+                return t
+        except ValueError:
+            pass
+    if watchdog is _READ:
+        from ramba_tpu_torch.resilience import elastic as _elastic
+
+        watchdog = _elastic.watchdog_seconds()
+    return watchdog or 0.0
+
+
+# The rounds of one flush share one reading of the switches: the
+# watchdog's deadline the flush read, and the round deadline resolved
+# from it at the flush's first round (a list, so the helper threads the
+# flush's attempts run on fill the same one).
+_flush_deadline: contextvars.ContextVar = contextvars.ContextVar(
+    "ramba_coherence_flush_deadline", default=None)
+
+
+@contextlib.contextmanager
+def flush_scope(watchdog_s: Optional[float]):
+    """The extent of a flush that read the watchdog's deadline
+    (``watchdog_s``) once: its rounds read the environment at most once
+    more, for ``RAMBA_COHERENCE_TIMEOUT_S``, and only when one runs."""
+    token = _flush_deadline.set([watchdog_s, None])
+    try:
+        yield
+    finally:
+        _flush_deadline.reset(token)
+
+
+def _round_deadline() -> float:
+    held = _flush_deadline.get()
+    if held is None:
+        return _timeout_s()
+    if held[1] is None:
+        held[1] = _timeout_s(held[0])
+    return held[1]
+
+
 def last_epoch(site: str) -> int:
     """The epoch of the most recent round at ``site`` (0 = never)."""
     with _round_lock:
@@ -178,9 +243,8 @@ def _transport(value: int, reduce: str) -> "tuple[int, int]":
     """One round: ``(decision, nbytes)``.  Loopback (``force`` mode, or
     no process group formed) reduces over the local proposal alone;
     across processes the proposal is all-reduced (max or min; ``bcast``:
-    rank 0's value) over ``parallel.distributed``, bounded by the
-    group's timeout (the elastic deadline comes with ROADMAP A.8 part
-    three)."""
+    rank 0's value) over ``parallel.distributed``, under the round's
+    deadline (:func:`agree`)."""
     from ramba_tpu_torch.parallel import distributed
 
     n = distributed.process_count()
@@ -199,31 +263,59 @@ def agree(site: str, proposal: int, *, reduce: str = "max") -> int:
     mode): returns ``proposal`` untouched — no epoch, no event, no
     traffic.
 
-    Engaged: allocates the site's next epoch, runs the round, accounts
-    its bytes (``distributed.coherence_bytes``) and emits a ``coherence``
-    event with site/epoch/proposal/decision."""
+    Engaged: allocates the site's next epoch, runs the round under the
+    coherence deadline, accounts its bytes
+    (``distributed.coherence_bytes``) and emits a ``coherence`` event
+    with site/epoch/proposal/decision.  A round that times out or whose
+    transport fails returns the local proposal (``outcome="local"``) and
+    breaks the group; a round on a broken group raises."""
     if reduce not in ("max", "min", "bcast"):
         raise ValueError(f"bad coherence reduce {reduce!r}")
     proposal = int(proposal)
     if not engaged():
         return proposal
     global _overhead_s
+    from ramba_tpu_torch.parallel import distributed as _distributed
+    from ramba_tpu_torch.resilience import elastic as _elastic
+
     with _round_lock:
         ep = _epochs.get(site, 0) + 1
         _epochs[site] = ep
         t0 = time.perf_counter()
-        decision, nbytes = _transport(proposal, reduce)
+        outcome = "agreed"
+        try:
+            decision, nbytes = _elastic.with_deadline(
+                "coherence", lambda: _transport(proposal, reduce),
+                timeout_s=_round_deadline())
+        except (_elastic.GroupBrokenError, _elastic.AbandonedAttempt):
+            raise
+        except Exception as e:
+            # the peer never joined the round (a dead rank, a wedged
+            # transport): the local proposal, and the group is refused
+            # from here on
+            decision, nbytes = proposal, 0
+            outcome = "local"
+            err = f"{type(e).__name__}: {e}"[:200]
+            _registry.inc("coherence.round_failures")
+            _events.emit({"type": "coherence", "site": site, "epoch": ep,
+                          "proposal": proposal, "decision": decision,
+                          "reduce": reduce, "outcome": outcome,
+                          "error": err})
+            if _distributed.process_count() > 1:
+                _distributed.mark_broken(f"coherence round {site!r} epoch "
+                                         f"{ep} failed: {err}")
         dt = time.perf_counter() - t0
         _overhead_s += dt
     _registry.inc("coherence.rounds")
     _registry.inc(f"coherence.rounds.{site.split(':', 1)[0]}")
-    _registry.inc("distributed.coherence_count")
-    _registry.inc("distributed.coherence_bytes", int(nbytes))
-    if decision != proposal:
-        _registry.inc("coherence.overrides")
-    _events.emit({"type": "coherence", "site": site, "epoch": ep,
-                  "proposal": proposal, "decision": decision,
-                  "reduce": reduce, "ms": round(dt * 1e3, 3)})
+    if outcome == "agreed":
+        _registry.inc("distributed.coherence_count")
+        _registry.inc("distributed.coherence_bytes", int(nbytes))
+        if decision != proposal:
+            _registry.inc("coherence.overrides")
+        _events.emit({"type": "coherence", "site": site, "epoch": ep,
+                      "proposal": proposal, "decision": decision,
+                      "reduce": reduce, "ms": round(dt * 1e3, 3)})
     return decision
 
 

@@ -50,7 +50,9 @@ and the compile pipeline's: ``compile`` (before a fresh compile in the
 fuser), ``execute`` (before every program call; ``delay:ms=`` here makes
 a slow flush), ``compile:bucket`` (forges a compile-class plan that skips
 its op-safety proof) and ``aot:blob`` (the flip seam of a kernel
-library's digest check).  Site names may themselves contain colons: the site/mode
+library's digest check), and ``heartbeat`` (before each beat of the
+elastic beacon, ``resilience/elastic.py``: ``heartbeat:hang:ms=...``
+stalls one beat).  Site names may themselves contain colons: the site/mode
 boundary in a spec is the FIRST ``:``-separated field that parses as a
 mode token.  The ``oom`` site (or a trailing ``:oom`` kind) raises
 :class:`InjectedResourceExhausted`, whose message carries the

@@ -399,7 +399,11 @@ class Ledger:
     def swap_value(self, old, new) -> bool:
         """Replace a tracked value with ``new`` in place: every live Const
         owning ``old`` is repointed and the entry follows the buffer (its
-        byte count included).  False when ``old`` is not tracked (nothing
+        byte count included).  When ``new`` is tracked already (arrays
+        that still hold it, as a restored checkpoint's may), the two
+        entries become one, with the owners of both: the buffer is
+        counted once, and those arrays letting go later leaves the
+        entry to the others.  False when ``old`` is not tracked (nothing
         swapped)."""
         if old is new:
             return True
@@ -407,6 +411,7 @@ class Ledger:
             e = self.entries.get(_key(old))
             if e is None or _key(new) is None:
                 return False
+            other = self.entries.get(_key(new))
             consts = self._live_consts(e)
             for c in consts:
                 c.value = new
@@ -414,6 +419,11 @@ class Ledger:
             e.spilled = isinstance(new, _spill.SpilledArray)
             e.nbytes = _nbytes(new)
             e.seq = next(self._clock)
+            if other is not None and other is not e:
+                self._account(other, -1)
+                e.owners += other.owners
+                consts += [c for c in self._live_consts(other)
+                           if not any(c is d for d in consts)]
             self._rekey(e, consts, new)
             self._account(e, +1)
         _update_gauges(self)

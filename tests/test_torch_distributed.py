@@ -410,3 +410,215 @@ def test_the_analyzer_across_ranks(tmp_path):
         assert r["memo_hits"] == 4
         assert r["cert_hits"] == 4 and r["agree_rounds"] == 2
         assert r["rounds"] == 2
+
+
+# -- the elastic plane across ranks (resilience/elastic.py) --------------------
+
+ELASTIC_WD = 1.5  # the watchdog's deadline in the stall cases, seconds
+ELASTIC_LIMIT_S = 120  # per launch of ranks, every rank of it
+
+
+def elastic_launch(world, tmp, case, root, env=None):
+    tmp.mkdir(parents=True, exist_ok=True)
+    return launch(world, tmp, mode="elastic", limit=ELASTIC_LIMIT_S,
+                  env={"RAMBA_ELASTIC_CASE": case,
+                       "RAMBA_ELASTIC_ROOT": str(root), **(env or {})})
+
+
+def _same_bytes(a, b) -> bool:
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        a.tobytes() == b.tobytes()
+
+
+@pytest.fixture(scope="module")
+def elastic_chain(tmp_path_factory):
+    """A checkpoint saved on 4 ranks, resumed on 2 (and saved again),
+    resumed in one process (and saved again), resumed on 2."""
+    _x64()
+    root = tmp_path_factory.mktemp("elastic_ck")
+    links = []
+    for i, (world, case) in enumerate(((4, "save"), (2, "resume"),
+                                       (1, "resume"), (2, "resume"))):
+        rcs, logs, outdir = elastic_launch(
+            world, tmp_path_factory.mktemp(f"elastic_chain{i}"), case, root)
+        assert rcs == [0] * world, "\n".join(logs)
+        links.append((world, _load(outdir, world)))
+    return links
+
+
+@pytest.mark.parametrize("link", [1, 2, 3], ids=["4to2", "2to1", "1to2"])
+def test_resume_into_another_world_size(elastic_chain, link):
+    """Each rank reads its block of the newest step in the new world's
+    default layout: byte-equal to NumPy, the manifest naming the world
+    that wrote it."""
+    grid, series = worker.elastic_state()
+    prev = elastic_chain[link - 1][0]
+    world, (res, info) = elastic_chain[link]
+    want_layout = {1: "PartitionSpec()", 2: "PartitionSpec('d0',)"}[world]
+    for r in range(world):
+        assert info[r]["step"] == 6 + link
+        assert info[r]["from_processes"] == prev
+        assert info[r]["layout"] == want_layout
+        assert _same_bytes(res[r]["grid"], grid)
+        assert _same_bytes(res[r]["series"], series)
+        assert int(res[r]["step"]) == 6 + link
+
+
+def test_the_manifest_records_the_world(elastic_chain):
+    _world, (_res, info) = elastic_chain[0]
+    man = info[0]["manifest"]
+    assert (man["process_count"], man["mesh_devices"], man["mesh_shape"],
+            man["x64"]) == (4, 4, {"d0": 2, "d1": 2}, True)
+    assert [(lf["path"], lf["shape"], lf["dtype"]) for lf in
+            man["leaves"]] == [("['grid']", [24, 20], "float32"),
+                               ("['series']", [1003], "float64"),
+                               ("['step']", [], "int64")]
+    assert all(r["manifest"] == man for r in info)
+
+
+@pytest.mark.parametrize("case,world", [("wedged", 4), ("crashed", 4),
+                                        ("wedged", 2), ("crashed", 2)])
+def test_a_lost_rank_at_a_barrier(tmp_path, case, world):
+    """The last rank stops arriving at a checkpoint's barrier (asleep, or
+    exited): the live ranks raise a fatal error within two deadlines, a
+    later collective on the broken group raises at once, and a job
+    restarted on 2 ranks resumes the newest valid step byte-equal."""
+    _x64()
+    root = tmp_path / "ck"
+    rcs, logs, outdir = elastic_launch(
+        world, tmp_path / "run", case, root,
+        env={"RAMBA_WATCHDOG_S": str(ELASTIC_WD)})
+    assert rcs == [0] * (world - 1) + [3], "\n".join(logs)
+    for r in range(world - 1):
+        info = json.loads((outdir / f"rank{r}.json").read_text())
+        assert info["stall"].startswith("RankStallError"), info
+        assert info["stall_class"] == "fatal"
+        assert info["stall_s"] < 2 * ELASTIC_WD
+        assert info["after"].startswith("GroupBrokenError"), info
+        assert info["after_class"] == "fatal"
+        assert info["after_s"] < 0.5
+        assert info["broken"] and "barrier" in info["broken"]
+        assert info["valid_steps"] == [1]
+    rcs, logs, outdir = elastic_launch(2, tmp_path / "restart", "resume",
+                                       root)
+    assert rcs == [0, 0], "\n".join(logs)
+    res, info = _load(outdir, 2)
+    grid, series = worker.elastic_state()
+    for r in range(2):
+        assert info[r]["step"] == 1 and info[r]["from_processes"] == world
+        assert _same_bytes(res[r]["grid"], grid)
+        assert _same_bytes(res[r]["series"], series)
+
+
+@pytest.fixture(scope="module")
+def elastic_reshape(tmp_path_factory):
+    _x64()
+    rcs, logs, outdir = elastic_launch(
+        4, tmp_path_factory.mktemp("elastic_reshape"), "reshape",
+        tmp_path_factory.mktemp("elastic_reshape_ck"))
+    assert rcs == [0] * 4, "\n".join(logs)
+    return _load(outdir, 4)
+
+
+def _one_process_star2(grid):
+    import ramba_tpu_torch as rt
+
+    return np.asarray(rt.sstencil(rt.stencil(worker.star2_body),
+                                  rt.fromarray(grid)))
+
+
+def test_live_reshape_of_a_rank_mesh(elastic_reshape):
+    """(2, 2) -> (4, 1) live: every array byte-equal, a stencil sweep on
+    the new mesh byte-equal to one process, one sum on every rank."""
+    res, info = elastic_reshape
+    grid, series = worker.elastic_state()
+    want = _one_process_star2(grid)
+    sums = {r["sum_live"] for r in info}
+    for r in range(4):
+        assert info[r]["live"]["mode"] == "live"
+        assert info[r]["live"]["arrays"] >= 2
+        assert info[r]["mesh"] == {"d0": 4, "d1": 1}
+        assert _same_bytes(res[r]["grid_live"], grid)
+        assert _same_bytes(res[r]["series_live"], series)
+        assert _same_bytes(res[r]["star2_live"], want)
+    assert len(sums) == 1
+    assert abs(sums.pop() - float(np.sum(series))) <= \
+        1003 * EPS * float(np.sum(series))
+
+
+def test_live_reshape_of_a_rank_mesh_falls_back(elastic_reshape):
+    """A ``reshard:stage`` fault on the way back to (2, 2): every rank
+    takes the checkpoint rung together, byte-equal."""
+    res, info = elastic_reshape
+    grid, series = worker.elastic_state()
+    for r in range(4):
+        assert info[r]["fallback"]["mode"] == "checkpoint"
+        assert info[r]["mesh_fallback"] == {"d0": 2, "d1": 2}
+        assert _same_bytes(res[r]["grid_fallback"], grid)
+        assert _same_bytes(res[r]["series_fallback"], series)
+        assert info[r]["sum_fallback"] == info[r]["sum_live"]
+
+
+def test_live_reshape_of_a_rank_mesh_falls_back_without_a_manager(
+        elastic_reshape):
+    """The fallback with no manager: every rank writes and reads one
+    temporary root (rank 0's, named to the others), which is gone after
+    the resume; byte-equal on the new mesh."""
+    res, info = elastic_reshape
+    grid, series = worker.elastic_state()
+    roots = {tuple(r["tmp_roots"]) for r in info}
+    assert len(roots) == 1 and len(roots.pop()) == 1
+    for r in range(4):
+        assert info[r]["fallback_tmp"]["mode"] == "checkpoint"
+        assert info[r]["mesh_tmp"] == {"d0": 4, "d1": 1}
+        assert info[r]["tmp_left"] == [False]
+        assert _same_bytes(res[r]["grid_tmp"], grid)
+        assert _same_bytes(res[r]["series_tmp"], series)
+
+
+def test_an_unarmed_rank_flush_reads_its_switches_once(tmp_path):
+    """With the watchdog unset, a flush across 2 ranks starts no thread,
+    reads the watchdog's switch once and the rounds' deadline once,
+    however many coherence rounds it runs."""
+    _x64()
+    rcs, logs, outdir = elastic_launch(2, tmp_path, "one_read",
+                                       tmp_path / "ck")
+    assert rcs == [0, 0], "\n".join(logs)
+    _grid, series = worker.elastic_state()
+    info = [json.loads((outdir / f"rank{r}.json").read_text())
+            for r in range(2)]
+    for r in info:
+        assert r["rounds"] >= 2, r
+        assert r["reads"] == {"watchdog": 1, "coherence": 1}, r
+        assert r["threads"] == [], r
+        assert r["sum"] == info[0]["sum"]
+    want = float(np.sum(series * 2.0 + 1.0))
+    assert abs(info[0]["sum"] - want) <= 2 * 1003 * EPS * abs(want)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_a_stalled_rank_drops_every_rank_together(tmp_path, world):
+    """Rank 1's dispatch hangs past the watchdog's deadline: its stall is
+    proposed to the ``flush:rung`` round, every rank drops to split in
+    the same rounds, the sum is one value on every rank, and the
+    abandoned attempt stops when it wakes (the group stays whole)."""
+    _x64()
+    rcs, logs, outdir = elastic_launch(
+        world, tmp_path, "rung_stall", tmp_path / "ck",
+        env={"RAMBA_WATCHDOG_S": "1", "RAMBA_COHERENCE_TIMEOUT_S": "20",
+             "RAMBA_RETRY_BASE_S": "0"})
+    assert rcs == [0] * world, "\n".join(logs)
+    info = [json.loads((outdir / f"rank{r}.json").read_text())
+            for r in range(world)]
+    _grid, series = worker.elastic_state()
+    want = float(np.sum(2.5 * series + series[::-1]))
+    for r in info:
+        assert r["rung"] == "split" and r["degrade_steps"] == 1
+        assert r["epochs"] == info[0]["epochs"]
+        assert r["sum"] == info[0]["sum"]
+        assert r["broken"] is None
+        assert r["after"] == info[0]["after"]
+    assert abs(info[0]["sum"] - want) <= 2 * 1003 * EPS * abs(want)
+    assert "dispatch" in info[1]["stalls"]
+    assert info[1]["abandoned"] >= 1

@@ -14,7 +14,10 @@ evidence skewed the other way) and buckets another, and records each
 rank's latched decisions and class decisions; ``analyze`` runs the
 static analyzer, the result memo and the plan cache across ranks (a
 strict verifier error on every rank, memo hits per rank, certificate
-hits agreed in batches).  On the card (``tests/test_torch_cuda.py``), ``card`` runs star2
+hits agreed in batches); ``elastic`` the elastic plane (``_elastic``:
+checkpoints saved and resumed in worlds of other sizes, a barrier that a
+wedged or crashed rank never reaches, a live reshape of the rank mesh
+and its fallback, a dispatch stall on one rank).  On the card (``tests/test_torch_cuda.py``), ``card`` runs star2
 through the CUDA stencil kernel on each rank's block and ``nccl`` one
 rank's collectives over NCCL.  :func:`programs` takes the package as an argument, so the test runs
 the same programs through ``ramba_tpu`` for the reference.
@@ -27,6 +30,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import threading
 import time
 
 import numpy as np
@@ -557,6 +561,194 @@ def _ladder(rt, rank, outdir):
         json.dump(info, f)
 
 
+ELASTIC_GRID = (24, 20)
+ELASTIC_SERIES = 1003
+
+
+def elastic_state():
+    """The elastic mode's arrays as NumPy: a float32 grid and a float64
+    series, from a seed."""
+    rng = np.random.default_rng(17)
+    return (rng.random(ELASTIC_GRID).astype(np.float32),
+            rng.random(ELASTIC_SERIES))
+
+
+def _elastic(rt, rank, outdir):
+    """The elastic plane across ranks; ``RAMBA_ELASTIC_CASE`` picks:
+
+    * ``save``: checkpoint the grid, the series and a step (7) under
+      ``RAMBA_ELASTIC_ROOT``;
+    * ``resume``: resume the newest step into this world, write what came
+      back, and save it again as step 8 (the next link of a chain);
+    * ``wedged`` / ``crashed``: save step 1 on every rank, then the last
+      rank stops arriving at step 2's barrier (it sleeps, or it exits);
+      the others record what they raised, how long it took, and what a
+      later collective on the group raised;
+    * ``reshape``: a live reshape of the rank mesh (2, 2) -> (4, 1), a
+      stencil sweep and a sum on the new mesh, then a ``reshard:stage``
+      fault on the way back, which falls back to the checkpoint, and
+      again with no manager given (a temporary root);
+    * ``rung_stall``: rank 1's first ``dispatch`` check hangs past the
+      watchdog's deadline during ``sum(2.5 * x + y)``;
+    * ``one_read``: an unarmed flush, counting the threads it starts, its
+      coherence rounds and its reads of the watchdog's and the rounds'
+      deadline switches.
+    """
+    from ramba_tpu_torch.observe import events, registry
+    from ramba_tpu_torch.parallel import distributed
+    from ramba_tpu_torch.parallel import mesh as pm
+    from ramba_tpu_torch.resilience import coherence, elastic, faults, retry
+
+    case = os.environ["RAMBA_ELASTIC_CASE"]
+    root = os.environ.get("RAMBA_ELASTIC_ROOT", os.path.join(outdir, "ck"))
+    world = distributed.process_count()
+    grid, series = elastic_state()
+    res, info = {}, {"case": case, "world": world}
+
+    def record():
+        np.savez(os.path.join(outdir, f"rank{rank}.npz"), **res)
+        with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+            json.dump(info, f)
+
+    if case == "save":
+        mgr = elastic.CheckpointManager(root, keep=2)
+        g, x = rt.fromarray(grid), rt.fromarray(series)
+        mgr.save(7, {"grid": g, "series": x, "step": 7})
+        info["manifest"] = mgr.manifest(7)
+    elif case == "resume":
+        back = elastic.resume(root)
+        st = back.state
+        info["step"] = back.step
+        info["from_processes"] = back.manifest["process_count"]
+        info["layout"] = str(st["grid"].sharding.spec)
+        res["grid"] = np.asarray(st["grid"])
+        res["series"] = np.asarray(st["series"])
+        res["step"] = np.asarray(st["step"])
+        elastic.CheckpointManager(root, keep=2).save(
+            back.step + 1, {"grid": st["grid"], "series": st["series"],
+                            "step": back.step + 1})
+    elif case in ("wedged", "crashed"):
+        mgr = elastic.CheckpointManager(root, keep=2)
+        g, x = rt.fromarray(grid), rt.fromarray(series)
+        mgr.save(1, {"grid": g, "series": x, "step": 1})
+        if rank == world - 1:
+            if case == "wedged":
+                time.sleep(float(os.environ["RAMBA_WATCHDOG_S"]) * 2.5)
+            os._exit(3)  # gone without a word: no shutdown, no destructors
+        t0 = time.monotonic()
+        try:
+            mgr.save(2, {"grid": g * 2.0, "series": x, "step": 2})
+            info["stall"] = "no error"
+        except Exception as e:  # recorded for the test
+            info["stall"] = f"{type(e).__name__}: {e}"[:300]
+            info["stall_class"] = retry.classify(e)
+        info["stall_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        try:
+            distributed.all_reduce_int(1)
+            info["after"] = "no error"
+        except Exception as e:  # recorded for the test
+            info["after"] = f"{type(e).__name__}: {e}"[:300]
+            info["after_class"] = retry.classify(e)
+        info["after_s"] = time.monotonic() - t0
+        info["broken"] = distributed.broken()
+        info["valid_steps"] = mgr.valid_steps()
+        record()
+        # a collective may still be running on the barrier's helper
+        # thread: leave without tearing the group down
+        os._exit(0)
+    elif case == "reshape":
+        g, x = rt.fromarray(grid), rt.fromarray(series)
+        st = rt.stencil(star2_body)
+        np.asarray(g)
+        info["before"] = str(g.sharding.spec)
+        out = elastic.live_reshape(pm.rank_mesh((4, 1)))
+        info["live"] = out
+        info["after"] = str(g.sharding.spec)
+        info["mesh"] = dict(rt.get_mesh().shape)
+        res["grid_live"] = np.asarray(g)
+        res["series_live"] = np.asarray(x)
+        res["star2_live"] = np.asarray(rt.sstencil(st, g))
+        info["sum_live"] = float(rt.sum(x))
+        with faults.active("reshard:stage:always"):
+            out = elastic.live_reshape(pm.rank_mesh((2, 2)),
+                                       manager=os.path.join(outdir, "fb"))
+        info["fallback"] = out
+        info["after_fallback"] = str(g.sharding.spec)
+        info["mesh_fallback"] = dict(rt.get_mesh().shape)
+        res["grid_fallback"] = np.asarray(g)
+        res["series_fallback"] = np.asarray(x)
+        info["sum_fallback"] = float(rt.sum(x))
+        # no manager: the checkpoint goes to a temporary root that every
+        # rank names alike, deleted after the resume
+        seen = []
+        events.add_tap(seen.append)
+        try:
+            with faults.active("reshard:stage:always"):
+                out = elastic.live_reshape(pm.rank_mesh((4, 1)))
+        finally:
+            events.remove_tap(seen.append)
+        info["fallback_tmp"] = out
+        saved = [e["path"] for e in seen
+                 if e.get("phase") == "checkpoint_saved"]
+        info["tmp_roots"] = [os.path.dirname(p) for p in saved]
+        distributed.barrier("worker_tmp_gone")
+        info["tmp_left"] = [os.path.exists(p) for p in info["tmp_roots"]]
+        info["mesh_tmp"] = dict(rt.get_mesh().shape)
+        res["grid_tmp"] = np.asarray(g)
+        res["series_tmp"] = np.asarray(x)
+    elif case == "one_read":
+        # an unarmed rank flush: no thread, one read of the watchdog's
+        # switch, its coherence rounds sharing one read of their deadline
+        reads = {"watchdog": 0, "coherence": 0}
+        wd, ct = elastic.watchdog_seconds, coherence._timeout_s
+
+        def wd_counted():
+            reads["watchdog"] += 1
+            return wd()
+
+        def ct_counted(*a):
+            reads["coherence"] += 1
+            return ct(*a)
+
+        started = []
+        start = threading.Thread.start
+
+        def counted_start(self):
+            started.append(self.name)
+            return start(self)
+
+        x = rt.fromarray(series)
+        np.asarray(x)
+        r0 = registry.get("coherence.rounds")
+        elastic.watchdog_seconds, coherence._timeout_s = wd_counted, ct_counted
+        threading.Thread.start = counted_start
+        try:
+            info["sum"] = float(rt.sum(x * 2.0 + 1.0))
+        finally:
+            elastic.watchdog_seconds, coherence._timeout_s = wd, ct
+            threading.Thread.start = start
+        info["rounds"] = registry.get("coherence.rounds") - r0
+        info["reads"] = reads
+        info["threads"] = started
+    elif case == "rung_stall":
+        x, y = rt.fromarray(series), rt.fromarray(series[::-1].copy())
+        d0 = registry.get("resilience.degrade_steps")
+        with faults.active("dispatch:hang:ms=2500:after=0:rank=1"):
+            info["sum"] = float(rt.sum(2.5 * x + y))
+        info["degrade_steps"] = registry.get("resilience.degrade_steps") - d0
+        rec = [e for e in events.last(80, type="degrade")
+               if e.get("action") == "recovered"]
+        info["rung"] = rec[-1]["rung"] if rec else "fused"
+        info["stalls"] = [e["site"] for e in events.last(20, type="stall")]
+        info["epochs"] = coherence.epochs()
+        time.sleep(2.0)  # the zombie wakes, and stops
+        info["abandoned"] = registry.get("elastic.abandoned_commits")
+        info["after"] = float(rt.sum(x))
+        info["broken"] = distributed.broken()
+    record()
+
+
 CARD_GRID = (1024, 1024)
 CARD_SERIES = (1 << 20) + 37
 SEG_KINDS = ("sum", "min", "max", "count")
@@ -654,7 +846,7 @@ def main(argv) -> int:
         rt.set_mesh(distributed.global_mesh())
     {"main": _main, "fail": _fail, "card": _card, "nccl": _nccl,
      "compile": _compile, "analyze": _analyze,
-     "ladder": _ladder}[mode](rt, rank, outdir)
+     "ladder": _ladder, "elastic": _elastic}[mode](rt, rank, outdir)
     distributed.shutdown()
     return 0
 
