@@ -11,6 +11,7 @@
     python3 chip_smoke.py --ladder   # phase 1 and the degradation ladder
     python3 chip_smoke.py --elastic  # phase 1 and the elastic plane
                                      # (--parts stall,inflight: some parts)
+    python3 chip_smoke.py --observe  # phase 1 and the observability plane
 
 Phases, each reported on its own line:
 
@@ -201,7 +202,27 @@ Phases, each reported on its own line:
    (2x2 -> 4x1 -> one shard), of ranks ((2, 2) -> (4, 1)), and its
    checkpoint fallback; (h) rank 3 of 4 wedged and crashed at a
    checkpoint's barrier: a fatal stall on the others within two
-   deadlines, the broken group refusing the next collective at once.
+   deadlines, the broken group refusing the next collective at once;
+   then the observability plane (``observe_path``, alone with
+   ``--observe``): (a) the main path's programs at full width (the sin/cos
+   chain over a 1e9 f64 base, axpy + sum 2^28, star2 8192^2 chained 30
+   and iterated 100, 4099x4133 iterated 100, the hourly groupby sum,
+   cumsum 2^28) with attribution on: every span's stages plus its residual equal
+   its wall, the median residual at most 5 %, each kernel fingerprint's
+   fenced device p50 within 10 % of the same compiled call under this
+   script's own CUDA events, its roofline ``bandwidth`` with a fraction
+   of peak within 10 % of bound / p50, the bytes of ``RAMBA_ATTRIB=off``;
+   (b) the fence's cost (unset, off, sample:16; ms a sweep, host us a
+   flush, the same bytes, sample:16's fenced sequences); (c) the drift
+   sentinel across two child processes (``--observe-child``) on an edited
+   baseline; (d) one ``slo_breach`` with ``why``; (e) the Prometheus
+   exporter scraped on 127.0.0.1, the atomic text file, the flight
+   recorder's dumps; (f) ``RAMBA_PROFILE_DIR`` with ``deep``: a CUDA
+   kernel event for every launch inside its ``ramba_flush`` range; (g)
+   ``diagnostics.report()``, ``identity()``, ``dump()``, the timing
+   names, ``jit``, ``remote``, ``get``; (h) four ranks under sample:4
+   with the same stage signatures and fence logs, blocks byte-equal to
+   one process.
    Every kernel's launch count is set to 0 just before each path and
    read just after; a path that does not launch its kernel fails the
    run;
@@ -1773,6 +1794,14 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
     for k in totals:
         if totals[k] == before[k]:
             raise Fail(f"elastic_path launched no {k}")
+    log("  observe_path: attribution with CUDA-event fences, rooflines, the "
+        "drift sentinel, SLOs, telemetry, the profiler and diagnostics")
+    before = dict(totals)
+    timed("observe_path", observe_path, rt, er, sk, sg, sc, torch, np, card,
+          window, totals)
+    for k in totals:
+        if totals[k] == before[k]:
+            raise Fail(f"observe_path launched no {k}")
     log(f"  phase 3 walls by path (s): {json.dumps(walls)} [{card}]")
     return totals, sharded, dist
 
@@ -3696,6 +3725,8 @@ def dist_rank(argv) -> int:
         layout_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, out)
     elif "--ladder" in argv:
         ladder_rank_programs(rt, np, torch, er, sk, sc, rep)
+    elif "--observe" in argv:
+        observe_rank_programs(rt, np, torch, er, sk, sc, rep)
     elif "--elastic" in argv:
         rep["case"] = arg["--elastic"]
         rep["root"] = os.environ["RAMBA_ELASTIC_ROOT"]
@@ -7530,6 +7561,918 @@ def elastic_path(rt, er, sk, sg, sc, torch, np, card, window, totals,
     return out
 
 
+OBSERVE_N = 10 ** 9                 # the sin/cos chain's base, float64
+OBSERVE_VEC_N = 1 << 28             # axpy + sum, the series, cumsum
+OBSERVE_GRID = 8192                 # star2, float32 (TMA)
+OBSERVE_ODD = (4099, 4133)          # star2, float32 (cp.async)
+OBSERVE_SWEEPS = (30, 100)          # (chained, iterated) per flush
+OBSERVE_REPS = 7                    # flushes a program in (a)
+OBSERVE_FLUSHES = 200               # small flushes a setting in (b)
+OBSERVE_SMALL_N = 1 << 16           # their operand, float64
+OBSERVE_CHAIN_REPS = 6              # chained-sweep flushes a setting in (b)
+OBSERVE_SLO_FLUSHES = 25            # chained-sweep flushes in (d)
+OBSERVE_SLO_SWEEPS = 24             # their sweeps: mid-bucket (6.1-6.7 ms
+                                    # a flush, NVIDIA H100 80GB HBM3, 700 W)
+OBSERVE_PROFILE_SWEEPS = 10         # one-sweep flushes in (f)
+OBSERVE_RANKS = 4
+OBSERVE_RANK_SWEEPS = 10
+OBSERVE_SAMPLE = {"b": 16, "h": 4}  # RAMBA_ATTRIB=sample:<N> of (b), (h)
+OBSERVE_LIMIT_S = 300               # per child or launch of ranks
+OBSERVE_TOL = 0.10                  # device p50, rooflines, SLO quantiles
+
+
+def _observe_cases(rt, np, torch, star2):
+    """name -> make(): ``(run, need)``; ``run()`` builds, flushes and
+    returns the output tensors of one main-path program at full width;
+    ``need`` its launches a flush."""
+
+    def sincos():
+        base = rt.arange(OBSERVE_N) / 1000.0
+        rt.sync()
+
+        def run():
+            B, C = rt.sin(base), rt.cos(base)
+            D = B * B + C * C
+            s = rt.sum(D)
+            del B, C
+            return [D._value(), s._value()]
+
+        return run, {"elemred": 1}
+
+    def axpy():
+        x = rt.sin(rt.arange(OBSERVE_VEC_N) * 1e-3)
+        y = rt.cos(rt.arange(OBSERVE_VEC_N) * 1e-3)
+        rt.sync()
+        return (lambda: [rt.sum(2.5 * x + y)._value()]), {"elemred": 1}
+
+    def star2_grid(shape, chained):
+        def make():
+            x = rt.fromarray(torch.rand(shape, dtype=torch.float32,
+                                        generator=_gen(torch, 3),
+                                        device="cuda"))
+            rt.sync()
+            k = OBSERVE_SWEEPS[0] if chained else OBSERVE_SWEEPS[1]
+
+            def run():
+                if chained:
+                    y = x
+                    for _ in range(k):
+                        y = rt.sstencil(star2, y)
+                else:
+                    y = rt.sstencil_iterate(star2, x, k)
+                return [y._value()]
+
+            return run, {"stencil": k}
+
+        return make
+
+    def groupby():
+        x_t, hour = hourly_series(torch, np, OBSERVE_VEC_N)
+        g = rt.fromarray(x_t).groupby(0, hour, num_groups=24)
+        return (lambda: [g.sum()._value()]), {"segred": 1}
+
+    def cumsum():
+        x = rt.sin(rt.arange(OBSERVE_VEC_N) * 1e-3)
+        rt.sync()
+        return (lambda: [rt.cumsum(x)._value()]), {"scan": 1}
+
+    # 4099x4133 iterated only: its chained flush is host-bound (on an
+    # NVIDIA H100 80GB HBM3 at 700 W, 2.7-3.1 ms of host work a flush
+    # against 30 kernels of 0.077 ms), so its fenced window carries the
+    # host's jitter (+14 and +35 % against the same call alone in two of
+    # four runs)
+    g2 = (OBSERVE_GRID, OBSERVE_GRID)
+    return {"sincos_1e9": sincos, "axpy": axpy,
+            "star2_chained": star2_grid(g2, True),
+            "star2_iterate": star2_grid(g2, False),
+            "star2_odd_iterate": star2_grid(OBSERVE_ODD, False),
+            "groupby": groupby, "cumsum": cumsum}
+
+
+def _capture_calls(fuser):
+    """Wrap ``fuser._execute_compiled``: the last ``(fn, leaf_vals)`` each
+    fingerprint ran with.  Returns ``(calls, undo)``."""
+    calls = {}
+    orig = fuser._execute_compiled
+
+    def spy(fn, program, leaf_vals, is_new, span, fp, *a, **kw):
+        calls[fp] = (fn, list(leaf_vals))
+        return orig(fn, program, leaf_vals, is_new, span, fp, *a, **kw)
+
+    fuser._execute_compiled = spy
+    return calls, lambda: setattr(fuser, "_execute_compiled", orig)
+
+
+def _events_p50_ms(torch, fn, args, reps=5):
+    """The p50 over ``reps`` of one call bracketed by its own CUDA events
+    (a first call before them), and of the host's time to issue it."""
+    fn(*args)
+    ms, host = [], []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        fn(*args)
+        e1.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    return sorted(ms)[len(ms) // 2], sorted(host)[len(host) // 2]
+
+
+def _reconciles(span):
+    st = span.get("stages", {})
+    return abs(sum(st.values()) + span["unattributed_s"] - span["wall_s"]) \
+        <= 2e-5 * (len(st) + 2)
+
+
+def observe_main(rt, np, torch, card, window, star2):
+    """(a) Every main-path program at full width with attribution on:
+    each span reconciles (stages + unattributed = wall); the median
+    unattributed share of a program's steady spans is at most 5 %; each
+    kernel fingerprint's fenced device p50 agrees within 10 % with the
+    same compiled call timed by this path's own CUDA events; its
+    roofline reads ``bandwidth`` with a fraction of peak within 10 % of
+    bound / device p50 from the ledger's counts; the results are
+    byte-equal to ``RAMBA_ATTRIB=off``."""
+    import statistics
+
+    from ramba_tpu_torch.core import fuser
+    from ramba_tpu_torch.observe import attrib, events, ledger
+
+    attrib.reset()
+    attrib.reconfigure()
+    cases = _observe_cases(rt, np, torch, star2)
+    out = {}
+    for name, make in cases.items():
+        run, need = make()
+        seen = []
+        events.add_tap(seen.append)
+        calls, undo = _capture_calls(fuser)
+        try:
+            for r in range(OBSERVE_REPS):
+                outs = window(f"observe (a) {name} #{r}", run, need)
+        finally:
+            undo()
+            events.remove_tap(seen.append)
+        spans = [e for e in seen if e.get("type") == "flush"]
+        steady = [s for s in spans if s.get("cache") == "hit"]
+        if not steady or not all(_reconciles(s) for s in spans):
+            raise Fail(f"observe (a) {name}: spans do not reconcile: "
+                       f"{spans[-1]}")
+        fp = steady[-1]["fingerprint"]
+        un = statistics.median(s["unattributed_s"] / s["wall_s"]
+                               for s in steady)
+        row = attrib.roofline_report().get(fp)
+        if row is None or row["device_time_source"] != "fence":
+            raise Fail(f"observe (a) {name}: no fenced roofline row {row}")
+        dev_ms = row["device_p50_s"] * 1e3
+        fn, lv = calls[fp]
+        own_ms, own_host = _events_p50_ms(torch, fn, lv)
+        issue = sorted(s["stages"]["dispatch"] for s in steady)[
+            len(steady) // 2] * 1e3
+        del calls, lv, fn
+        k = ledger.snapshot()["kernels"][fp]
+        flops, nbytes = float(k.get("flops") or 0.0), float(
+            k.get("bytes_accessed") or 0.0)
+        peaks = attrib.peak_table()
+        bound_s = max(nbytes / (peaks["peak_gbps"] * 1e9),
+                      flops / (peaks["peak_tflops"] * 1e12))
+        want_frac = bound_s / row["device_p50_s"]
+        _elastic_env(RAMBA_ATTRIB="off")
+        attrib.reconfigure()
+        try:
+            off = run()
+        finally:
+            _elastic_env(RAMBA_ATTRIB=None)
+            attrib.reconfigure()
+        same = all(bytes_equal(a, b) for a, b in zip(outs, off))
+        log(f"  observe (a) {name}: fp {fp}, {len(spans)} spans reconcile, "
+            f"median unattributed {un:.2%} of wall, fenced device p50 "
+            f"{dev_ms:.4f} ms against this path's CUDA events "
+            f"{own_ms:.4f} ms ({dev_ms / own_ms - 1:+.2%}; host issue "
+            f"{issue:.4f} ms in the flush, {own_host:.4f} ms alone), "
+            f"roofline "
+            f"{row['bound']} frac_of_peak {row['frac_of_peak']:.4f} "
+            f"(bound/p50 {want_frac:.4f}, {flops:.4g} flops, {nbytes:.4g} "
+            f"bytes, peaks {peaks['peak_gbps']:g} GB/s "
+            f"{peaks['peak_tflops']:g} TFLOP/s from {peaks['source']}), "
+            f"bytes equal to RAMBA_ATTRIB=off {same} [{card}]")
+        out[name] = {"fp": fp, "spans": len(spans), "unattributed_median": un,
+                     "device_p50_ms": dev_ms, "events_p50_ms": own_ms,
+                     "issue_ms": issue, "issue_alone_ms": own_host,
+                     "frac_of_peak": row["frac_of_peak"],
+                     "bound_over_p50": want_frac, "flops": flops,
+                     "bytes": nbytes, "byte_equal_off": same,
+                     "stages": list(steady[-1]["stages"])}
+        if un > 0.05:
+            raise Fail(f"observe (a) {name}: median unattributed {un:.2%}")
+        if abs(dev_ms - own_ms) > OBSERVE_TOL * own_ms:
+            raise Fail(f"observe (a) {name}: device p50 {dev_ms} ms against "
+                       f"{own_ms} ms")
+        if row["bound"] != "bandwidth" or abs(
+                row["frac_of_peak"] - want_frac) > OBSERVE_TOL * want_frac:
+            raise Fail(f"observe (a) {name}: roofline {row}")
+        if not same:
+            raise Fail(f"observe (a) {name}: bytes differ under "
+                       "RAMBA_ATTRIB=off")
+        del run, outs, off, seen, spans, steady
+        torch.cuda.empty_cache()
+    return out
+
+
+def observe_fence_cost(rt, np, torch, card, window, star2):
+    """(b) What the fence costs: 30 chained star2 sweeps (8192^2) and 200
+    flushes of ``sum(x * 2 + k)`` over 2^16 f64 with ``RAMBA_ATTRIB``
+    unset, ``off`` and ``sample:16`` (order A B C C B A): ms a sweep and
+    host us a flush at p50 and p90, the same bytes under all three, and
+    ``sample:16`` fencing exactly sequences 0, 16, 32, ... of every
+    fingerprint."""
+    from ramba_tpu_torch.observe import attrib, events, observer
+
+    n16 = OBSERVE_SAMPLE["b"]
+    xs = rt.fromarray(torch.rand((OBSERVE_GRID, OBSERVE_GRID),
+                                 dtype=torch.float32, generator=_gen(torch, 5),
+                                 device="cuda"))
+    x = rt.arange(OBSERVE_SMALL_N) * 1.0
+    rt.sync()
+    settings = (None, "off", f"sample:{n16}")
+    sweep_ms = {s: [] for s in settings}
+    flush_us = {s: [] for s in settings}
+    stages = {s: [] for s in settings}
+    fence_s = {s: [0.0, 0] for s in settings}
+    ys, sums, fences = {}, {s: [] for s in settings}, None
+    current = [None]
+
+    def small_span(e):
+        if e.get("type") == "flush" and e.get("out_bytes") == 8:
+            stages[current[0]].append(e["stages"])
+
+    def block(setting):
+        nonlocal fences
+        current[0] = setting
+        _elastic_env(RAMBA_ATTRIB=setting)
+        attrib.reconfigure()
+        f0 = observer.snapshot()["components"].get(
+            "fence", {"seconds": 0.0, "count": 0})
+        if setting == f"sample:{n16}" and not sweep_ms[setting]:
+            attrib.reset()  # the fence log counts from here
+        for _ in range(OBSERVE_CHAIN_REPS // 2):
+            t0 = time.perf_counter()
+            y = xs
+            for _ in range(OBSERVE_SWEEPS[0]):
+                y = rt.sstencil(star2, y)
+            float(rt.sum(y))
+            sweep_ms[setting].append(
+                (time.perf_counter() - t0) / OBSERVE_SWEEPS[0] * 1e3)
+            ys[setting] = y._value()
+        got = []
+        events.add_tap(small_span)
+        try:
+            for i in range(OBSERVE_FLUSHES // 2):
+                t0 = time.perf_counter()
+                got.append(float(rt.sum(x * 2.0 + float(i))))
+                flush_us[setting].append((time.perf_counter() - t0) * 1e6)
+        finally:
+            events.remove_tap(small_span)
+        sums[setting].append(got)
+        f1 = observer.snapshot()["components"].get(
+            "fence", {"seconds": 0.0, "count": 0})
+        fence_s[setting][0] += f1["seconds"] - f0["seconds"]
+        fence_s[setting][1] += f1["count"] - f0["count"]
+        if setting == f"sample:{n16}":
+            fences = attrib.sampling_report()["fingerprints"]
+
+    def all_blocks():
+        _chained_flush(rt, star2, xs, OBSERVE_SWEEPS[0])  # warm: planned
+        float(rt.sum(x * 2.0 + 0.5))
+        for s in settings + settings[::-1]:
+            block(s)
+        _elastic_env(RAMBA_ATTRIB=None)
+        attrib.reconfigure()
+
+    window("observe (b) the fence's cost, A B C C B A", all_blocks,
+           {"stencil": (6 * OBSERVE_CHAIN_REPS // 2 + 1) * OBSERVE_SWEEPS[0],
+            "elemred": 6 * OBSERVE_FLUSHES // 2 + 1})
+    same = all(bytes_equal(ys[s], ys[None]) for s in settings) and all(
+        sums[s] == sums[None] for s in settings)
+    lockstep = bool(fences) and all(
+        d["fenced_seqs"] == list(range(0, d["calls"], n16))[:64]
+        for d in fences.values())
+    res = {}
+    for s in settings:
+        tag = s or "unset"
+
+        def mean_us(k, s=s):
+            v = [st.get(k, 0.0) for st in stages[s]]
+            return sum(v) / max(1, len(v)) * 1e6
+
+        res[tag] = {"sweep_ms_p50": _pct(sweep_ms[s], 0.5),
+                    "sweep_ms_p90": _pct(sweep_ms[s], 0.9),
+                    "flush_us_p50": _pct(flush_us[s], 0.5),
+                    "flush_us_p90": _pct(flush_us[s], 0.9),
+                    "stage_us_mean": {k: mean_us(k) for k in attrib.STAGES
+                                      if any(k in st for st in stages[s])},
+                    "fence_us_a_call": fence_s[s][0] / max(1, fence_s[s][1])
+                    * 1e6, "fenced_calls": fence_s[s][1]}
+        log(f"  observe (b) RAMBA_ATTRIB={tag}: chained star2 8192^2 "
+            f"{res[tag]['sweep_ms_p50']:.4f} ms/sweep p50, "
+            f"{res[tag]['sweep_ms_p90']:.4f} p90 ({len(sweep_ms[s])} flushes "
+            f"of 30 sweeps, graph building included); sum(x * 2 + k) 2^16 "
+            f"f64 host {res[tag]['flush_us_p50']:.1f} us/flush p50, "
+            f"{res[tag]['flush_us_p90']:.1f} p90 ({len(flush_us[s])} "
+            f"flushes; mean stages us "
+            f"{ {k: round(v, 1) for k, v in res[tag]['stage_us_mean'].items()} }"
+            f", the fence's wait {res[tag]['fence_us_a_call']:.1f} us a call "
+            f"over {res[tag]['fenced_calls']} fenced calls of both "
+            f"programs) [{card}]")
+    log(f"  observe (b) the same bytes under all three {same}; "
+        f"sample:{n16} fenced sequences 0, {n16}, {2 * n16}, ... of every "
+        f"fingerprint {lockstep} "
+        f"({ {fp: (d['calls'], d['fenced_seqs'][:4]) for fp, d in fences.items()} }) "
+        f"[{card}]")
+    if not same:
+        raise Fail("observe (b): the fence settings give different bytes")
+    if not lockstep:
+        raise Fail(f"observe (b): sample:{n16} fence log {fences}")
+    res["byte_equal"] = same
+    return res
+
+
+def observe_child(argv) -> int:
+    """One process of ``observe_path`` (c): axpy + sum at 2^28 f64, nine
+    flushes, under the environment's ``RAMBA_BASELINE_DIR``; prints its
+    regressions, events and device p50 as one JSON line."""
+    import torch
+
+    import ramba_tpu_torch as rt
+    from ramba_tpu_torch.observe import attrib, events
+
+    rt.set_device("cuda:0")
+    x = rt.sin(rt.arange(OBSERVE_VEC_N) * 1e-3)
+    y = rt.cos(rt.arange(OBSERVE_VEC_N) * 1e-3)
+    rt.sync()
+    vals = [float(rt.sum(2.5 * x + y)) for _ in range(9)]
+    torch.cuda.synchronize()
+    regs = events.last(0, type="perf_regression")
+    fps = {e.get("fingerprint") for e in events.last(0, type="flush")}
+    p50 = {fp: r["device_p50_s"] for fp, r in
+           attrib.roofline_report().items() if fp in fps}
+    print(json.dumps({"regressions": len(regs), "events": regs,
+                      "device_p50_s": p50, "sums": vals,
+                      "baselines_loaded": attrib.load_baselines()}),
+          flush=True)
+    return 0
+
+
+def _observe_child_run(env):
+    import os
+
+    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--observe-child"], env=env, capture_output=True,
+                       text=True, timeout=OBSERVE_LIMIT_S)
+    if p.returncode != 0:
+        raise Fail(f"observe (c) child exited {p.returncode}:\n"
+                   + (p.stdout + p.stderr)[-4000:])
+    return json.loads(p.stdout.strip().splitlines()[-1])
+
+
+def observe_drift(rt, np, torch, card, flight):
+    """(c) The drift sentinel across processes: a child runs axpy + sum
+    with ``RAMBA_BASELINE_DIR`` set and saves its baselines at exit; the
+    file is edited to a third of each p50; a second child emits exactly
+    one ``perf_regression`` and writes one flight dump, and the baseline
+    it saves does not rise."""
+    import glob
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="ramba_observe_base_") as base:
+        env = dict(os.environ, RAMBA_BASELINE_DIR=base)
+        for k in ("RAMBA_FLIGHT_DIR", "RAMBA_ATTRIB", "RAMBA_FAULTS"):
+            env.pop(k, None)
+        t0 = time.perf_counter()
+        first = _observe_child_run(env)
+        path = os.path.join(base, "perf_baseline.json")
+        with open(path) as f:
+            doc = json.load(f)
+        saved = {fp: b["p50_s"] for fp, b in doc["kernels"].items()}
+        for b in doc["kernels"].values():
+            b["p50_s"] = b["p50_s"] / 3.0
+        edited = {fp: b["p50_s"] for fp, b in doc["kernels"].items()}
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        second = _observe_child_run(dict(env, RAMBA_FLIGHT_DIR=flight))
+        with open(path) as f:
+            after = {fp: b["p50_s"] for fp, b in
+                     json.load(f)["kernels"].items()}
+        wall = time.perf_counter() - t0
+    dumps = [json.load(open(p))["incident"]["type"]
+             for p in glob.glob(os.path.join(flight, "flight_*.json"))]
+    ev = second["events"][0] if second["events"] else {}
+    not_raised = all(after[fp] <= edited[fp] for fp in edited)
+    log(f"  observe (c) first child: device p50 {first['device_p50_s']}, "
+        f"saved baselines {saved}, {first['regressions']} regressions; "
+        f"edited to a third {edited}; second child: "
+        f"{second['regressions']} perf_regression (drift "
+        f"{ev.get('drift')}, why {ev.get('why')!r}), flight dumps "
+        f"{dumps}, baseline after {after} (not raised {not_raised}); the "
+        f"same sums {first['sums'] == second['sums']}; {wall:.1f} s "
+        f"[{card}]")
+    if first["regressions"] or second["regressions"] != 1 or \
+            dumps != ["perf_regression"] or not not_raised or \
+            first["sums"] != second["sums"]:
+        raise Fail("observe (c): the drift sentinel across processes")
+    return {"saved": saved, "edited": edited, "after": after,
+            "drift": ev.get("drift"), "wall_s": wall}
+
+
+def _chained_flush(rt, star2, xs, k):
+    """One flush of ``k`` chained sweeps and their sum: (the sum, the wall
+    of the flush as this script times it, graph building left out)."""
+    y = xs
+    for _ in range(k):
+        y = rt.sstencil(star2, y)
+    s = rt.sum(y)
+    t0 = time.perf_counter()
+    rt.sync()
+    return float(s), time.perf_counter() - t0
+
+
+def observe_slo(rt, np, torch, card, window, star2, flight):
+    """(d) An objective below the chained sweep's p95 (half its p50):
+    exactly one ``slo_breach``, carrying ``why``; the e2e histogram's
+    p50 and p95 within 10 % of the same estimator over this path's own
+    wall of each flush (the histogram's fixed buckets are the
+    reference's; the exact quantiles are printed beside)."""
+    import os
+
+    from ramba_tpu_torch.observe import events, slo
+
+    xs = rt.fromarray(torch.rand((OBSERVE_GRID, OBSERVE_GRID),
+                                 dtype=torch.float32, generator=_gen(torch, 7),
+                                 device="cuda"))
+    rt.sync()
+    k = OBSERVE_SLO_SWEEPS
+    probe = [_chained_flush(rt, star2, xs, k)[1] for _ in range(10)]
+    objective_ms = 0.5 * _pct(probe, 0.5) * 1e3
+    os.environ["RAMBA_FLIGHT_DIR"] = flight
+    slo.reset()
+    slo.reconfigure(objective_ms=objective_ms, min_samples=20)
+    b0 = len(events.last(0, type="slo_breach"))
+    own = []
+
+    def flushes():
+        for _ in range(OBSERVE_SLO_FLUSHES):
+            own.append(_chained_flush(rt, star2, xs, k)[1])
+
+    try:
+        window("observe (d) chained star2 flushes under an objective",
+               flushes, {"stencil": OBSERVE_SLO_FLUSHES * k})
+    finally:
+        os.environ.pop("RAMBA_FLIGHT_DIR", None)
+    breaches = events.last(0, type="slo_breach")[b0:]
+    hist = slo.snapshot()["histograms"]["e2e"][""]
+    ref = slo.Histogram()
+    for w in own:
+        ref.observe(w)
+    mine = ref.summary()
+    exact = (_pct(own, 0.5) * 1e3, _pct(own, 0.95) * 1e3)
+    ok_q = all(abs(hist[q] - mine[q]) <= OBSERVE_TOL * mine[q]
+               for q in ("p50_ms", "p95_ms"))
+    why = breaches[0].get("why") if breaches else None
+    log(f"  observe (d) objective {objective_ms:.3f} ms (half the probe's "
+        f"p50): {len(breaches)} slo_breach, why {why!r}; e2e histogram "
+        f"p50 {hist['p50_ms']} ms p95 {hist['p95_ms']} ms ({hist['count']} "
+        f"flushes) against the same buckets over this path's own walls "
+        f"p50 {mine['p50_ms']} p95 {mine['p95_ms']} (within 10 %: {ok_q}); "
+        f"exact p50 {exact[0]:.4f} ms p95 {exact[1]:.4f} ms [{card}]")
+    slo.reset()
+    slo.reconfigure()
+    if len(breaches) != 1 or not why or not ok_q or \
+            hist["count"] != OBSERVE_SLO_FLUSHES:
+        raise Fail("observe (d): the SLO breach or its histogram")
+    return {"objective_ms": objective_ms, "why": why,
+            "hist_p50_ms": hist["p50_ms"], "hist_p95_ms": hist["p95_ms"],
+            "own_p50_ms": mine["p50_ms"], "own_p95_ms": mine["p95_ms"],
+            "exact_p50_ms": exact[0], "exact_p95_ms": exact[1]}
+
+
+def _scrape(port, path="/metrics"):
+    import urllib.request
+
+    return urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                  timeout=10).read().decode()
+
+
+def _series(body, name):
+    """``{labels: value}`` of one family in an exposition."""
+    out = {}
+    for ln in body.splitlines():
+        if ln.startswith(name + "{"):
+            lab, val = ln[len(name):].rsplit(" ", 1)
+            out[lab] = float(val)
+    return out
+
+
+def observe_telemetry(rt, np, torch, card, window, star2, flight):
+    """(e) The exporter on 127.0.0.1 (port 0) scraped during chained
+    sweeps (every scrape's histogram buckets monotone); the flush and
+    stage-seconds series of a scrape against the registry's and the
+    attribution plane's snapshots taken after it; the text file read
+    while it is rewritten every 20 ms (every read whole, no temporary
+    left); the flight directory holding one dump per incident kind
+    seeded in (c) and (d), and no more."""
+    import glob
+    import os
+    import tempfile
+    import threading
+
+    from ramba_tpu_torch.observe import attrib, registry, telemetry
+
+    xs = rt.fromarray(torch.rand((OBSERVE_GRID, OBSERVE_GRID),
+                                 dtype=torch.float32, generator=_gen(torch, 9),
+                                 device="cuda"))
+    rt.sync()
+    os.environ["RAMBA_METRICS_HOST"] = "127.0.0.1"
+    tdir = tempfile.mkdtemp(prefix="ramba_observe_prom_")
+    prom = os.path.join(tdir, "ramba.prom")
+    port = telemetry.start(port=0)
+    telemetry.start(path=prom, interval_s=0.02)
+    errs, scrapes, reads = [], 0, 0
+    done = threading.Event()
+
+    def sweeps():
+        try:
+            for _ in range(10):
+                _chained_flush(rt, star2, xs, OBSERVE_SWEEPS[0])
+        except Exception as e:  # the scraping thread reports it
+            errs.append(repr(e))
+        finally:
+            done.set()
+
+    def run():
+        nonlocal scrapes, reads
+        t = threading.Thread(target=sweeps)
+        t.start()
+        while not done.is_set():
+            per = {}
+            for ln in _scrape(port).splitlines():
+                if "_bucket{" in ln:
+                    key = (ln.split("{")[0], ln.split('tenant="')[1]
+                           .split('"')[0])
+                    per.setdefault(key, []).append(float(ln.rsplit(" ", 1)[1]))
+            if any(v != sorted(v) for v in per.values()):
+                errs.append(f"buckets not monotone: {per}")
+            scrapes += 1
+            if os.path.exists(prom):
+                text = open(prom).read()
+                reads += 1
+                if not (text.endswith("\n") and
+                        "ramba_scrape_timestamp_seconds{" in text):
+                    errs.append("a torn text file")
+            time.sleep(0.005)
+        t.join()
+
+    try:
+        window("observe (e) chained sweeps under the exporter", run,
+               {"stencil": 10 * OBSERVE_SWEEPS[0]})
+        body = _scrape(port)
+        health = json.loads(_scrape(port, "/healthz"))
+        rep, reg = attrib.attribution_report(), registry.snapshot()
+    finally:
+        telemetry.stop()
+        os.environ.pop("RAMBA_METRICS_HOST", None)
+    stages = {lab.split('stage="')[1].split('"')[0]: v
+              for lab, v in _series(body, "ramba_stage_seconds_total").items()}
+    flushes = list(_series(body, "ramba_flushes_attributed_total").values())
+    hits = list(_series(body, "ramba_fuser_cache_hit_total").values())
+    match = (stages == {k: float(v) for k, v in rep["stage_seconds"].items()}
+             and flushes == [float(rep["flushes"])]
+             and hits == [float(reg["counters"].get("fuser.cache_hit", 0))])
+    tmp_left = [p for p in os.listdir(tdir) if p.endswith(".tmp")]
+    kinds = sorted(json.load(open(p))["incident"]["type"]
+                   for p in glob.glob(os.path.join(flight, "flight_*.json")))
+    log(f"  observe (e) {scrapes} scrapes of 127.0.0.1:{port} during 10 "
+        f"chained flushes, {reads} reads of the text file, errors {errs}; "
+        f"series against the snapshots taken after the scrape: flushes "
+        f"{flushes} vs {rep['flushes']}, stages match {match}; /healthz "
+        f"ok {health['ok']} device {health['device_kind']!r}; temporaries "
+        f"left {tmp_left}; flight dumps {kinds} [{card}]")
+    import shutil
+
+    shutil.rmtree(tdir, ignore_errors=True)
+    if errs or not scrapes or not reads or not match or tmp_left or \
+            kinds != ["perf_regression", "slo_breach"]:
+        raise Fail("observe (e): the exporter, the text file or the flight "
+                   "recorder")
+    return {"scrapes": scrapes, "reads": reads, "flight": kinds,
+            "healthz_ok": health["ok"]}
+
+
+def _trace_events(path):
+    with open(path) as f:
+        doc = json.load(f)
+    return doc["traceEvents"] if isinstance(doc, dict) else doc
+
+
+def observe_profile(rt, np, torch, card, window, star2, er, sk):
+    """(f) ``RAMBA_PROFILE_DIR`` with ``RAMBA_PROFILE=deep`` over 10 star2
+    sweeps (a flush each) and one elemred chain: the exported trace holds
+    a CUDA kernel event for each of the port's launches, inside its
+    ``ramba_flush:<label>`` range; the ms a sweep the profiler adds."""
+    import os
+    import tempfile
+
+    from ramba_tpu_torch.observe import profile
+
+    xs = rt.fromarray(torch.rand((OBSERVE_GRID, OBSERVE_GRID),
+                                 dtype=torch.float32,
+                                 generator=_gen(torch, 11), device="cuda"))
+    v = rt.sin(rt.arange(OBSERVE_VEC_N) * 1e-3)
+    rt.sync()
+
+    def sweeps():
+        y = xs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OBSERVE_PROFILE_SWEEPS):
+            y = rt.sstencil(star2, y)
+            y._value()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / OBSERVE_PROFILE_SWEEPS * 1e3
+        float(rt.sum(v * 2.0 + 1.0))
+        return ms
+
+    need = {"stencil": OBSERVE_PROFILE_SWEEPS, "elemred": 1}
+    off = window("observe (f) profiler off", sweeps, need)
+    tdir = tempfile.mkdtemp(prefix="ramba_observe_prof_")
+    _elastic_env(RAMBA_PROFILE_DIR=tdir, RAMBA_PROFILE="deep")
+    profile.reconfigure()
+    try:
+        # the profiler starts at the first flush: its start (CUPTI's
+        # set-up) stays out of the timed sweeps
+        float(rt.sum(v * 3.0))
+        if not profile.started():
+            raise Fail("observe (f): RAMBA_PROFILE_DIR started no profiler")
+        on = window("observe (f) profiler on", sweeps, need)
+        launches = (sk.launches, er.launches)  # the window's own counts
+        path = profile.stop()
+    finally:
+        _elastic_env(RAMBA_PROFILE_DIR=None, RAMBA_PROFILE=None)
+        profile.reconfigure()
+    evs = _trace_events(path)
+    ranges = [e for e in evs if e.get("ph") == "X"
+              and str(e.get("name", "")).startswith("ramba_flush:")]
+    kernels = [e for e in evs if e.get("ph") == "X"
+               and e.get("cat") == "kernel"]
+
+    def inside(k):  # the kernel starts inside a flush's range
+        return any(r["ts"] <= k["ts"] <= r["ts"] + r["dur"] for r in ranges)
+
+    under = [k for k in kernels if inside(k)]
+    st = sum("stencil_ring_kernel" in k["name"] for k in under)
+    el = sum("elemred_kernel" in k["name"] for k in under)
+    mb = os.path.getsize(path) / 2 ** 20
+    import shutil
+
+    shutil.rmtree(tdir, ignore_errors=True)
+    whole = sum(any(r["ts"] <= k["ts"] and k["ts"] + k.get("dur", 0)
+                    <= r["ts"] + r["dur"] for r in ranges) for k in under)
+    log(f"  observe (f) trace {mb:.1f} MiB: {len(ranges)} ramba_flush "
+        f"ranges, {len(kernels)} CUDA kernel events, {len(under)} starting "
+        f"inside the ranges, {whole} of them ending inside too "
+        f"({st} stencil_ring_kernel, {el} elemred_kernel) for "
+        f"{launches[0]} stencil and {launches[1]} elemred launches; star2 "
+        f"8192^2 a flush a sweep {off:.4f} ms off, {on:.4f} ms on "
+        f"({on - off:+.4f} ms a sweep) [{card}]")
+    if st < launches[0] or el < launches[1] or not ranges:
+        raise Fail("observe (f): the trace lacks the port's launches")
+    return {"ms_off": off, "ms_on": on, "ranges": len(ranges),
+            "kernels_in_ranges": len(under), "trace_mib": mb}
+
+
+def observe_diagnostics(rt, np, torch, card, window):
+    """(g) ``diagnostics.report()`` prints every ported section,
+    ``identity()`` names the card, ``dump()`` round-trips as JSON, and
+    ``rt.profiler_trace``, ``rt.get_timing()``, ``rt.jit``, ``rt.remote``
+    and ``rt.get`` work on the card."""
+    import glob
+    import io
+    import os
+    import tempfile
+
+    from ramba_tpu_torch.core import memo, plancache
+    from ramba_tpu_torch.observe import events
+    from ramba_tpu_torch.resilience import elastic
+
+    x = rt.sin(rt.arange(1 << 20) * 1e-3)
+    y = rt.cos(rt.arange(1 << 20) * 1e-3)
+    rt.sync()
+    # every plane with state, so every section prints: the memo and the
+    # certificates on a repeat flush, the heartbeat running, a verdict
+    # in the ring (the slow_flush sentinel's, with why)
+    _elastic_env(RAMBA_MEMO="1", RAMBA_PLANCERT="1")
+    try:
+        for _ in range(3):
+            float(rt.sum(x * 3.0))
+    finally:
+        _elastic_env(RAMBA_MEMO=None, RAMBA_PLANCERT=None)
+    elastic.start_heartbeat(0.05)
+    if not any(e.get("why") for e in events.snapshot_ring()):
+        raise Fail("observe (g): no incident verdict in the event ring")
+    buf = io.StringIO()
+    try:
+        rt.diagnostics.report(file=buf)
+    finally:
+        elastic.stop_heartbeat()
+        memo.reset()
+        plancache.reset()
+    text = buf.getvalue()
+    # (the health section prints the health records still in the event
+    # ring: a long process has rotated its bring-up record out)
+    sections = ("-- counters --", "-- memory --",
+                "-- kernels (top", "-- attribution --", "-- observer tax --",
+                "-- incident explainer --", "-- result memo --",
+                "-- plan cache --", "-- elastic lifecycle --", "-- last ",
+                "timing summary", "comm stats (host boundary)")
+    missing = [s for s in sections if s not in text]
+    ident = rt.diagnostics.identity()
+    tdir = tempfile.mkdtemp(prefix="ramba_observe_diag_")
+    snap = json.load(open(rt.diagnostics.dump(os.path.join(tdir, "d.json"))))
+
+    def traced():
+        with rt.profiler_trace(tdir):
+            return float(rt.sum(2.5 * x + y))
+
+    window("observe (g) a flush under rt.profiler_trace", traced,
+           {"elemred": 1})
+    files = glob.glob(os.path.join(tdir, "trace_*.json"))
+    kern = sum(e.get("cat") == "kernel" for e in _trace_events(files[0])) \
+        if files else 0
+    timers = rt.get_timing()["timers"]
+    z = rt.jit(lambda a, b: 2.5 * a + b)(x, y)
+    jit_ok = isinstance(z, rt.ndarray) and bytes_equal(
+        z._value(), 2.5 * x._value() + y._value())
+    fut = rt.remote(lambda a: float(rt.sum(a))).remote(x)
+    remote_ok = rt.get(fut) == float(rt.sum(x))
+    import shutil
+
+    shutil.rmtree(tdir, ignore_errors=True)
+    kind = torch.cuda.get_device_name(0)
+    log(f"  observe (g) report: {len(sections) - len(missing)} of "
+        f"{len(sections)} sections (missing {missing}), {len(text)} chars; "
+        f"identity device_kind {ident['device_kind']!r}; dump round-trips "
+        f"{snap['identity']['device_kind'] == kind}; profiler_trace "
+        f"{len(files)} file, {kern} kernel events; get_timing "
+        f"flush_execute {timers.get('flush_execute')}; jit bytes equal "
+        f"{jit_ok}; remote/get {remote_ok} [{card}]")
+    if missing or ident["device_kind"] != kind or \
+            snap["identity"]["device_kind"] != kind or not kern or \
+            "flush_execute" not in timers or not jit_ok or not remote_ok:
+        raise Fail("observe (g): diagnostics or the remaining names")
+    return {"sections": len(sections), "trace_kernels": kern}
+
+
+def observe_rank_programs(rt, np, torch, er, sk, sc, rep):
+    """One rank of ``observe_path`` (h): star2 8192^2, a flush a sweep,
+    ``OBSERVE_RANK_SWEEPS`` sweeps under the environment's
+    ``RAMBA_ATTRIB=sample:4``; the stage names of every flush span, the
+    fence log, the block's digest."""
+    from ramba_tpu_torch.observe import attrib, events
+
+    st = rt.stencil(star2_body)
+    y = dist_grid(rt, np, (OBSERVE_GRID, OBSERVE_GRID))
+    rt.sync()
+    seen = []
+    events.add_tap(seen.append)
+
+    def sweeps():
+        nonlocal y
+        for _ in range(OBSERVE_RANK_SWEEPS):
+            y = rt.sstencil(st, y)
+            rt.sync()
+
+    _rank_window(er, sk, sc, "star2", sweeps, rep)
+    events.remove_tap(seen.append)
+    samp = attrib.sampling_report()["fingerprints"]
+    rep["sigs"] = [[k for k in attrib.STAGES if k in e.get("stages", {})]
+                   for e in seen if e.get("type") == "flush"]
+    rep["reconciled"] = all(_reconciles(e) for e in seen
+                            if e.get("type") == "flush")
+    rep["fences"] = {fp: d["fenced_seqs"] for fp, d in samp.items()}
+    rep["calls"] = {fp: d["calls"] for fp, d in samp.items()}
+    rep["digests"]["star2"] = digest(y._block())
+
+
+def observe_ranks(rt, np, torch, card, totals):
+    """(h) Four ranks on cuda:0 (gloo) under ``RAMBA_ATTRIB=sample:4``:
+    star2 8192^2 for 10 sweeps; every rank the same stage signature and
+    the same fenced sequence numbers; every block byte-equal to one
+    process."""
+    import os
+    import tempfile
+
+    from ramba_tpu_torch import common
+    from ramba_tpu_torch.parallel import mesh as pm
+
+    st = rt.stencil(star2_body)
+    y = dist_grid(rt, np, (OBSERVE_GRID, OBSERVE_GRID))
+    for _ in range(OBSERVE_RANK_SWEEPS):
+        y = rt.sstencil(st, y)
+        rt.sync()
+    t = y._value()
+    dev = common.device()
+    grid2 = pm.Mesh(np.array([dev] * 4, dtype=object).reshape(2, 2),
+                    ("d0", "d1"))
+    sh = pm.NamedSharding(grid2, pm.default_spec(tuple(t.shape), grid2))
+    ref = {pos: digest(t[idx]) for pos, idx in
+           sh.shard_indices(tuple(t.shape))}
+    del t, y
+    n4 = OBSERVE_SAMPLE["h"]
+    with tempfile.TemporaryDirectory(prefix="ramba_observe_ranks_") as tmp:
+        os.makedirs(os.path.join(tmp, f"w{OBSERVE_RANKS}"))
+        t0 = time.perf_counter()
+        ranks = dist_start(OBSERVE_RANKS, tmp, ("--observe",),
+                           env=dict(os.environ, RAMBA_ATTRIB=f"sample:{n4}",
+                                    RAMBA_INIT_TIMEOUT_S="120"))
+        try:
+            reps = dist_wait(ranks, tmp, time.time() + OBSERVE_LIMIT_S)
+        finally:
+            for p in ranks:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+    sigs = [r["sigs"] for r in reps]
+    # a rank's own program (its block's offsets among the statics) has a
+    # fingerprint of its own: the logs compare as (calls, fenced seqs)
+    fences = [sorted((r["calls"][fp], seqs) for fp, seqs in
+                     r["fences"].items()) for r in reps]
+    same_sigs = all(s == sigs[0] for s in sigs) and len(sigs[0]) >= \
+        OBSERVE_RANK_SWEEPS
+    same_fences = all(f == fences[0] for f in fences) and bool(fences[0]) \
+        and all(seqs == list(range(0, calls, n4))
+                for calls, seqs in fences[0])
+    blocks = all(r["digests"]["star2"] == ref[divmod(k, 2)]
+                 for k, r in enumerate(reps))
+    for r in reps:
+        for k in totals:
+            totals[k] += sum(c.get(k, 0) for c in r["launches"].values())
+    log(f"  observe (h) {OBSERVE_RANKS} ranks on cuda:0, sample:{n4}: stage "
+        f"signatures alike {same_sigs} ({len(sigs[0])} spans a rank, first "
+        f"{sigs[0][:1]}); fence logs alike {same_fences} ({fences[0]}); "
+        f"blocks byte-equal to one process {blocks}; launches a rank "
+        f"{[r['launches']['star2']['stencil'] for r in reps]}; {wall:.1f} s "
+        f"[{card}]")
+    if not (same_sigs and same_fences and blocks and all(
+            r["reconciled"] for r in reps)):
+        raise Fail("observe (h): the ranks' attribution disagrees")
+    return {"spans_a_rank": len(sigs[0]), "fences": fences[0],
+            "wall_s": wall}
+
+
+def observe_path(rt, er, sk, sg, sc, torch, np, card, window, totals,
+                 only=None):
+    """The observability plane on the card (ROADMAP A.9), (a)-(h) as
+    their functions say; ``only``: the parts to run (all: None)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    star2 = rt.stencil(star2_body)
+    out, walls = {}, {}
+    flight = tempfile.mkdtemp(prefix="ramba_observe_flight_")
+
+    def part(name, fn, *a):
+        if only is not None and name not in only:
+            return
+        t = time.perf_counter()
+        out[name] = fn(*a)
+        walls[name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+
+    try:
+        part("main", observe_main, rt, np, torch, card, window, star2)
+        part("fence", observe_fence_cost, rt, np, torch, card, window, star2)
+        part("drift", observe_drift, rt, np, torch, card, flight)
+        part("slo", observe_slo, rt, np, torch, card, window, star2, flight)
+        part("telemetry", observe_telemetry, rt, np, torch, card, window,
+             star2, flight)
+        part("profile", observe_profile, rt, np, torch, card, window, star2,
+             er, sk)
+        part("diagnostics", observe_diagnostics, rt, np, torch, card, window)
+        part("ranks", observe_ranks, rt, np, torch, card, totals)
+    finally:
+        shutil.rmtree(flight, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t0
+    out["part_walls_s"] = walls
+    log(f"  observe_path: {out['wall_s']:.1f} s, by part (s) "
+        f"{json.dumps(walls)} [{card}]")
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -7542,6 +8485,8 @@ def main(argv) -> int:
         return compile_child(argv)
     if "--elastic-child" in argv:  # one process of elastic_path (e)
         return elastic_child(argv)
+    if "--observe-child" in argv:  # one process of observe_path (c)
+        return observe_child(argv)
     import numpy as np
 
     import ramba_tpu_torch as rt
@@ -7621,6 +8566,20 @@ def main(argv) -> int:
         for k in totals:
             if not totals[k] and only is None:
                 raise Fail(f"elastic_path launched no {k}")
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        print(card, flush=True)
+        return 0
+    if "--observe" in argv:  # phase 1 and observe_path alone
+        totals = dict.fromkeys(("elemred", "stencil", "segred", "scan"), 0)
+        window = launch_window(er, sk, sg, sc, totals, card)
+        only = argv[argv.index("--parts") + 1].split(",") \
+            if "--parts" in argv else None
+        out = observe_path(rt, er, sk, sg, sc, torch, np, card, window,
+                           totals, only)
+        log(json.dumps({"observe": out, "launches": totals}, default=str))
+        for k in totals:
+            if not totals[k] and only is None:
+                raise Fail(f"observe_path launched no {k}")
         log(f"total {time.perf_counter() - t_all:.1f} s")
         print(card, flush=True)
         return 0

@@ -25,7 +25,12 @@ segments; ``RAMBA_COMPILE_CLASSES`` buckets elementwise shapes,
 ``RAMBA_CACHE`` keeps built kernel libraries for the next process
 (``compile``), ``RAMBA_AUTOTUNE=race`` picks each program's
 lowering by measurement, and the cost ledger (``observe.ledger``) files
-what every program cost.
+what every program cost.  Every flush's wall is attributed to stages
+along its critical path (``observe.attrib``: the fence is a CUDA event
+pair), with rooflines against the card, a drift sentinel, SLOs
+(``observe.slo``), a Prometheus exporter and a flight recorder
+(``observe.telemetry``), ``torch.profiler`` hooks (``observe.profile``,
+``profiler_trace``) and the whole ``diagnostics`` report.
 
 ``numpy.<fn>`` of port arrays runs the port's function where the port has
 one (``core/interop.py``'s registry, filled below) and raises
@@ -120,6 +125,18 @@ from ramba_tpu_torch.parallel.reshard import reshard  # noqa: F401
 from ramba_tpu_torch.parallel.constraints import (  # noqa: F401
     Constraint, add_constraint, clear_constraints, get_constraints,
 )
+
+from ramba_tpu_torch.utils.remote import get, jit, remote  # noqa: F401
+from ramba_tpu_torch.utils import debug  # noqa: F401
+from ramba_tpu_torch import diagnostics  # noqa: F401
+from ramba_tpu_torch import observe  # noqa: F401
+from ramba_tpu_torch import utils  # noqa: F401
+from ramba_tpu_torch.utils import timing  # noqa: F401
+from ramba_tpu_torch.utils.timing import (  # noqa: F401
+    add_sub_time, add_time, annotate, get_timing, get_timing_str,
+    print_comm_stats, profiler_trace, time_dict, timing_summary,
+)
+from ramba_tpu_torch.utils.timing import reset as reset_timing  # noqa: F401
 
 # RAMBA_CACHE: arm the persistent kernel cache and record whether it armed
 common.setup_persistent_cache()

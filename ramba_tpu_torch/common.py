@@ -62,6 +62,12 @@ def parse_bytes(s) -> int:
     return int(float(text) * mult)
 
 
+# Debug and timing levels, as in ramba_tpu (RAMBA_DEBUG, RAMBA_TIMING):
+# RAMBA_TIMING > 0 prints ``utils.timing.timing_summary`` at exit and
+# files per-program times; > 1 also names every launch in profiler traces.
+debug_level = _env_int("RAMBA_DEBUG", 0)
+timing_level = _env_int("RAMBA_TIMING", 0)
+
 # Max pending lazy ops before a forced flush (bounds host-side graph memory).
 max_pending_ops = _env_int("RAMBA_TPU_MAX_PENDING", 10_000)
 

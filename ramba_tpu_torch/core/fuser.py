@@ -1,7 +1,7 @@
 """Flush machinery: lazy expression graphs -> one program per flush.
 
-Counterpart of ``ramba_tpu/core/fuser.py`` without its attribution and
-serving planes.  A flush
+Counterpart of ``ramba_tpu/core/fuser.py`` without its serving plane.
+A flush
 collects every pending array, applies the graph rewrites
 (``core/rewrite.py``, unless ``RAMBA_TPU_REWRITE=0``), linearizes the graph
 into a buffer-free instruction program, picks a lowering for it and runs it
@@ -64,6 +64,16 @@ programming error) raises from the rung that hit it.  Under
 ``RAMBA_AUDIT`` a certified flush of the fused rung is re-run on the
 eager rung and compared (``resilience/integrity.shadow_audit``).
 
+Every flush span carries the attribution plane's stage waterfall
+(``observe/attrib.py``): ``trace`` and ``prepare`` (and ``verify``) in
+:func:`_prepare`, ``compile``/``dispatch``/``device_execute`` per call in
+:func:`_execute_compiled` and per rung in :func:`_record_rung`,
+``admit`` and the ladder's host residual in :func:`_dispatch`,
+``write_back`` in :func:`_finish_span`, which finalizes the span (stages
+plus ``unattributed_s`` equal ``wall_s``) and feeds the SLO histograms
+(``observe/slo.py``).  The fence is the CUDA event pair around a call,
+one pair per call (``RAMBA_ATTRIB``: on, ``off``, ``sample:<N>``).
+
 On a mesh of ranks (several processes) a flush runs through
 ``core/rankflush.py``: on each rank's blocks, or on gathered operands,
 decided before it runs; its programs run through :func:`run_program`.
@@ -87,9 +97,14 @@ from ramba_tpu_torch.compile import classes as _classes
 from ramba_tpu_torch.core import memo as _memo
 from ramba_tpu_torch.core import plancache as _plancache
 from ramba_tpu_torch.core.expr import OPS, Const, Expr, Node, Scalar
+from ramba_tpu_torch.observe import attrib as _attrib
 from ramba_tpu_torch.observe import events as _events
 from ramba_tpu_torch.observe import ledger as _ledger
+from ramba_tpu_torch.observe import observer as _observer
+from ramba_tpu_torch.observe import profile as _profile
 from ramba_tpu_torch.observe import registry as _registry
+from ramba_tpu_torch.observe import slo as _slo
+from ramba_tpu_torch.observe import telemetry as _telemetry
 from ramba_tpu_torch.parallel import distributed as _distributed
 from ramba_tpu_torch.parallel import mesh as _mesh
 from ramba_tpu_torch.resilience import coherence as _coherence
@@ -98,6 +113,7 @@ from ramba_tpu_torch.resilience import elastic as _elastic
 from ramba_tpu_torch.resilience import faults as _faults
 from ramba_tpu_torch.resilience import memory as _memory
 from ramba_tpu_torch.resilience.spill import SpilledArray
+from ramba_tpu_torch.utils import timing as _timing
 
 # Monotone counters (observability; same keys as the JAX package's).
 # ``segments``: segment runs of programs longer than max_program_instrs.
@@ -640,49 +656,79 @@ def _origin(before: tuple) -> str:
     return "memory"
 
 
+_fence_tls = threading.local()
+
+
+def _fence_events(dev) -> tuple:
+    """A pair of timing events on ``dev`` for one fenced call, taken from
+    this thread's spare pair (the call puts it back once both have
+    completed): making and destroying two CUDA events a call costs host
+    time.  A call nested in another takes a pair of its own."""
+    pairs = getattr(_fence_tls, "pairs", None)
+    if pairs is None:
+        pairs = _fence_tls.pairs = {}
+    return pairs.pop(dev, None) or (torch.cuda.Event(enable_timing=True),
+                                    torch.cuda.Event(enable_timing=True))
+
+
 def _execute_compiled(fn, program: _Program, leaf_vals, is_new: bool,
                       span: Optional[dict], fp: str, backend: str, via: str,
                       rung: str = "fused", label: Optional[str] = None,
                       bytes_in: Optional[int] = None) -> tuple:
-    """Run one compiled program with the ledger's bookkeeping.  A first
-    call counts as a compile by origin, never as a sample.  A racing
-    call, and every call under ``RAMBA_PERF=sync``, is also timed on the
-    device: CUDA events around the call on the card, the wall on the
-    CPU.  ``label`` and ``bytes_in`` are the flush's when the caller has
-    them."""
+    """Run one compiled program with the ledger's and the attribution
+    plane's bookkeeping.  A first call counts as a compile by origin,
+    never as a sample.  A fenced call (``attrib.fence_decision``), a
+    racing call and every call under ``RAMBA_PERF=sync`` is bracketed by
+    one pair of CUDA events on the card: the host's wait in
+    ``end.synchronize()`` is the span's ``device_execute`` stage and
+    ``start.elapsed_time(end)`` the device window (on the CPU: the host
+    wall from call entry through the call).  A CUDA error at the fence
+    raises.  ``label`` and ``bytes_in`` are the flush's when the caller
+    has them."""
+    t_call = time.perf_counter()  # before the fault sites, as the reference
     _faults.check("execute", instrs=len(program.instrs))
     _faults.check("oom", instrs=len(program.instrs))
     gate = launch_gate.get()
     if gate is not None:
         gate()
     _elastic.abandon_if_cancelled("a launch")
-    before = _build.counts() if is_new else None
-    racing = via == "racing"
-    timed = racing or _ledger.sync_timing()
-    device_s = None
-    t0 = time.perf_counter()
-    dev = _device_of(leaf_vals) if timed else None
-    if dev is not None and dev.type == "cuda":
-        with torch.cuda.device(dev):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            outs = fn(*leaf_vals)
-            e1.record()
-            e1.synchronize()
-        dt = time.perf_counter() - t0
-        device_s = e0.elapsed_time(e1) / 1e3
-    else:
-        outs = fn(*leaf_vals)
-        dt = time.perf_counter() - t0
-        if timed:
-            device_s = dt
     if label is None:
         label = _program_label(program)
+    before = _build.counts() if is_new else None
+    racing = via == "racing"
+    fenced = _attrib.fence_decision(fp, span)
+    timed = fenced or racing or _ledger.sync_timing()
+    device_s = fence_dt = None
+    dev = (_device_of(leaf_vals) or common.device()) if timed else None
+    t0 = time.perf_counter()
+    with _profile.annotation(label):
+        if dev is not None and dev.type == "cuda":
+            with torch.cuda.device(dev):
+                e0, e1 = _fence_events(dev)
+                e0.record()
+                outs = fn(*leaf_vals)
+                e1.record()
+                dt = time.perf_counter() - t0
+                e1.synchronize()
+            fence_dt = time.perf_counter() - t0 - dt
+            device_s = e0.elapsed_time(e1) / 1e3
+            _fence_tls.pairs[dev] = (e0, e1)
+        else:
+            outs = fn(*leaf_vals)
+            dt = time.perf_counter() - t0
+            if timed:
+                fence_dt = 0.0  # a CPU call returns with its work done
+                device_s = time.perf_counter() - t_call
     if bytes_in is None:
         bytes_in = sum(_nbytes(v) for v in leaf_vals)
     bytes_out = sum(_nbytes(o) for o in outs)
     _elastic.abandon_if_cancelled("the ledger's execute record")
+    if is_new:
+        _timing.add_time("trace_compile_first_call", dt)
+    else:
+        _timing.add_time("flush_execute", dt)
+        if common.timing_level > 0:
+            _timing.add_func_time(label, dt)
     # a backend's slice takes compiles and racing samples only: the race's
     # evidence is device times, never a dispatch wall
     _ledger.record_execute(
@@ -693,8 +739,30 @@ def _execute_compiled(fn, program: _Program, leaf_vals, is_new: bool,
         backend_seconds=device_s if racing else None,
         origin=_origin(before) if is_new else None)
     if is_new:
-        _ledger.capture_cost(fp, bytes_in + bytes_out, backend=backend)
+        from ramba_tpu_torch.ops import kernel_backend
+
+        cost = kernel_backend.program_cost(program, leaf_vals)
+        if cost is None:  # the generic lowering: bytes only
+            _ledger.capture_cost(fp, bytes_in + bytes_out, backend=backend)
+        else:
+            _ledger.capture_cost(fp, cost[1], backend=backend,
+                                 flops=cost[0])
+    if fenced:
+        _observer.add("fence", fence_dt)
+        if not is_new:
+            _attrib.record_device(fp, label, device_s, backend=backend)
+    elif not is_new and _attrib.sampling() and span is not None:
+        # an unfenced sampled call carries the fenced p50 as an estimate
+        # (never a stage: the card's tail overlaps the host here)
+        est = _attrib.estimated_device_s(fp)
+        if est is not None:
+            span["device_est_s"] = round(span.get("device_est_s", 0.0) + est,
+                                         6)
     if span is not None:
+        _attrib.add_stage(span, "compile" if is_new else "dispatch",
+                          (t0 - t_call) + dt)
+        if fenced:
+            _attrib.add_stage(span, "device_execute", fence_dt)
         span["calls"].append({"label": label,
                               "cache": "miss" if is_new else "hit",
                               "seconds": round(dt, 6), "backend": backend})
@@ -893,6 +961,10 @@ def _prepare(program: _Program, leaves, exprs, leaf_vals, span: dict,
     work = _FlushWork(program, leaves, exprs, leaf_vals, span)
     label = work.label
     t0 = time.perf_counter()
+    # everything before this point (rewrites, linearize, leaf gather) is
+    # graph capture; everything after it the analysis pipeline, which a
+    # plan certificate skips
+    _attrib.add_stage(span, "trace", t0 - span["t0"])
     certs = whole and _plancache.enabled()
     memo_on = _memo.enabled()
     verify = whole and bool(os.environ.get("RAMBA_VERIFY"))
@@ -971,8 +1043,7 @@ def _prepare(program: _Program, leaves, exprs, leaf_vals, span: dict,
                 program, leaves, exprs, (), span, label,
                 memo_plan=work.memo_plan, class_plan=work.class_plan,
                 cache_key=work.key)
-            span.setdefault("stages", {})["verify"] = \
-                time.perf_counter() - t_verify
+            _attrib.add_stage(span, "verify", time.perf_counter() - t_verify)
         if work.routed:
             # a distrusted flush neither consults nor fills the result
             # cache, runs exact shapes and certifies nothing
@@ -992,10 +1063,8 @@ def _prepare(program: _Program, leaves, exprs, leaf_vals, span: dict,
         work.memo_hit = _memo.lookup(work.memo_plan)
     if work.fingerprint is not None:
         span["fingerprint"] = work.fingerprint
-    if certs or memo_on or verify:
-        stages = span.setdefault("stages", {})
-        stages["prepare"] = (time.perf_counter() - t0) - \
-            stages.get("verify", 0.0)
+    _attrib.add_stage(span, "prepare", (time.perf_counter() - t0)
+                      - span["stages"].get("verify", 0.0))
     return work
 
 
@@ -1053,8 +1122,13 @@ def _sync_device() -> None:
 
 
 def _record_rung(program: _Program, leaf_vals, outs, rung: str, dt: float,
-                 span: Optional[dict]) -> None:
+                 span: Optional[dict], wait: float = 0.0) -> None:
+    """A lower rung's run in the ledger and on the span: ``dt`` seconds,
+    of them ``wait`` the host's wait on the card (the span's
+    ``device_execute``; the rest its ``dispatch``)."""
     _elastic.abandon_if_cancelled("the ledger's execute record")
+    _attrib.add_stage(span, "dispatch", dt - wait)
+    _attrib.add_stage(span, "device_execute", wait)
     label = _program_label(program)
     _ledger.record_execute(
         _ledger.fingerprint(_cache_key(program, leaf_vals)), label,
@@ -1078,9 +1152,11 @@ def _run_eager(program: _Program, leaf_vals, span: Optional[dict]) -> tuple:
     _elastic.abandon_if_cancelled("a launch")
     t0 = time.perf_counter()
     outs = run_instructions(program, leaf_vals)
+    t1 = time.perf_counter()
     _sync_device()
-    _record_rung(program, leaf_vals, outs, "eager", time.perf_counter() - t0,
-                 span)
+    t2 = time.perf_counter()
+    _record_rung(program, leaf_vals, outs, "eager", t2 - t0, span,
+                 wait=t2 - t1)
     return outs
 
 
@@ -1277,29 +1353,51 @@ def _dispatch(work: _FlushWork, rung: Optional[str] = None) -> tuple:
     rank's programs.  A certified result of the fused rung is
     shadow-audited under ``RAMBA_AUDIT``, and enters the result cache
     unless the audit disagreed."""
-    program, span = work.program, work.span
-    if work.memo_hit is not None:
-        outs = tuple(work.memo_hit)
-        work.memo_hit = None
-        _finish_memo_span(work, outs)
-        return outs
-    leaf_vals = work.leaf_vals
-    if rung is None:
-        whole = _whole_job()
-        wd = _elastic.watchdog_seconds()  # the flush's one read
-        with _coherence.flush_scope(wd):
-            t_admit = time.perf_counter()
-            route = _memory.admit(program, leaf_vals, (), span,
-                                  coherent=whole,
-                                  fingerprint=work.fingerprint)
-            if "mem_peak_est" in span:
-                span.setdefault("stages", {})["admit"] = \
-                    time.perf_counter() - t_admit
-            outs, rung = _execute_resilient(work, route, whole, wd)
-        audit = rung == "fused"
-    else:
-        outs = _rung(work, rung)()
-        audit = whole = False
+    span = work.span
+    # an incident of this flush is dumped after its span is final
+    with _telemetry.deferred_flight():
+        if work.memo_hit is not None:
+            outs = tuple(work.memo_hit)
+            work.memo_hit = None
+            _finish_memo_span(work, outs)
+            return outs
+        with _telemetry.span_scope(span.get("trace_id"), span.get("span_id")):
+            return _dispatch_traced(work, rung)
+
+
+_CALL_STAGES = ("compile", "dispatch", "device_execute")
+
+
+def _dispatch_traced(work: _FlushWork, rung: Optional[str]) -> tuple:
+    program, span, leaf_vals = work.program, work.span, work.leaf_vals
+    stages = span["stages"]
+    with _profile.flush_annotation("ramba_flush:" + work.label,
+                                   trace_id=span.get("trace_id")):
+        if rung is None:
+            whole = _whole_job()
+            wd = _elastic.watchdog_seconds()  # the flush's one read
+            with _coherence.flush_scope(wd):
+                t_admit = time.perf_counter()
+                route = _memory.admit(program, leaf_vals, (), span,
+                                      coherent=whole,
+                                      fingerprint=work.fingerprint)
+                _attrib.add_stage(span, "admit",
+                                  time.perf_counter() - t_admit)
+                pre = sum(stages.get(k, 0.0) for k in _CALL_STAGES)
+                t_ladder = time.perf_counter()
+                outs, rung = _execute_resilient(work, route, whole, wd)
+            audit = rung == "fused"
+        else:
+            pre = sum(stages.get(k, 0.0) for k in _CALL_STAGES)
+            t_ladder = time.perf_counter()
+            outs = _rung(work, rung)()
+            audit = whole = False
+    t_writeback = time.perf_counter()
+    # the ladder's host residual (cache lookups, retries, the attempt's
+    # thread under the watchdog) is dispatch overhead: the slice of the
+    # ladder's window the per-call stamps did not cover
+    _attrib.add_stage(span, "dispatch", (t_writeback - t_ladder) - (
+        sum(stages.get(k, 0.0) for k in _CALL_STAGES) - pre))
     if rung != "fused":
         span["degraded"] = rung
     mismatch = False
@@ -1316,7 +1414,7 @@ def _dispatch(work: _FlushWork, rung: Optional[str] = None) -> tuple:
             _memo.insert(work.memo_plan, list(outs))
         except Exception:
             _registry.inc("memo.insert_failed")
-    _finish_span(span, outs)
+    _finish_span(span, outs, t_writeback, work.fingerprint)
     return outs
 
 
@@ -1334,21 +1432,34 @@ def _finish_memo_span(work: _FlushWork, outs) -> None:
     span["out_bytes"] = sum(_nbytes(v) for v in outs)
     span["wall_s"] = round(time.perf_counter() - span.pop("t0"), 6)
     _elastic.abandon_if_cancelled("the flush span")
+    _attrib.finalize_span(span, fp=work.fingerprint)
     _ledger.record_memo_hit(work.fingerprint, work.label)
     _events.emit(span)
+    _slo.observe_span(span)
+    _slo.observe_e2e(span["wall_s"], span=span)
     _elastic.note_progress("flush")
 
 
-def _new_span(program: _Program, leaf_vals) -> dict:
+def _new_span(program: _Program, leaf_vals,
+              t0: Optional[float] = None) -> dict:
+    """A flush's span; ``t0`` is when the flush began (before its
+    rewrites and linearization), else now.  Starts the profiler and the
+    telemetry exporter where the environment asks for them."""
+    _profile.ensure_started()
+    _telemetry.ensure_started()
     return {"type": "flush", "label": _program_label(program),
             "instrs": len(program.instrs),
             "leaf_bytes": sum(_nbytes(v) for v in leaf_vals),
-            "t0": time.perf_counter(), "calls": []}
+            "t0": time.perf_counter() if t0 is None else t0, "calls": [],
+            "stages": {}}
 
 
-def _finish_span(span: dict, outs) -> None:
-    """The span's totals from its calls, emitted as a ``flush`` event and
-    fed to the slow-flush sentinel."""
+def _finish_span(span: dict, outs, t_writeback: float,
+                 fp: Optional[str]) -> None:
+    """The span's totals from its calls; its ``write_back`` stage (from
+    ``t_writeback``, the ladder's return), its finalized waterfall; then
+    the ``flush`` event, the slow-flush sentinel and the SLO
+    histograms."""
     calls = span["calls"]
     span["segments"] = len(calls) - 1 if len(calls) > 1 else 0
     span["compile_s"] = round(
@@ -1358,9 +1469,14 @@ def _finish_span(span: dict, outs) -> None:
     span["cache"] = "miss" if any(c["cache"] == "miss" for c in calls) \
         else "hit"
     span["out_bytes"] = sum(_nbytes(v) for v in outs)
-    span["wall_s"] = round(time.perf_counter() - span.pop("t0"), 6)
+    t_end = time.perf_counter()
+    span["wall_s"] = round(t_end - span.pop("t0"), 6)
+    _attrib.add_stage(span, "write_back", t_end - t_writeback)
+    _attrib.finalize_span(span, fp=fp)
     _events.emit(span)
     _ledger.observe_flush(span)
+    _slo.observe_span(span)
+    _slo.observe_e2e(span["wall_s"], span=span)
     _elastic.note_progress("flush")
 
 
@@ -1408,17 +1524,29 @@ def verify_whole(exprs) -> bool:
     return routed
 
 
-def _quarantine(stream: FlushStream, roots: list) -> None:
+def _quarantine(stream: FlushStream, roots: list,
+                error: Optional[BaseException] = None,
+                label: Optional[str] = None) -> None:
     """The roots of a program that raised leave the pending registry, or
     the one broken graph would re-enter, and re-fail, every later flush.
     They keep their lazy graphs: a later read re-runs each one alone
     (``ndarray._value``), so an array that did not cause the error still
-    gets its value and a broken one raises its own error again."""
+    gets its value and a broken one raises its own error again.  Emits
+    the reference's ``flush_error`` event (an incident: the trace's tail
+    latch and the flight recorder key on it), with the agreed epoch of
+    the ladder's last round where there was one."""
     for arr in roots:
         stream.unregister(arr)
+    n = len(roots)
     with _stats_lock:
-        stats["quarantined"] += len(roots)
-    _registry.inc("resilience.flush_quarantined", len(roots))
+        stats["quarantined"] += n
+    _registry.inc("resilience.flush_quarantined", n)
+    ev = {"type": "flush_error", "label": label, "quarantined": n,
+          "error": f"{type(error).__name__}: {error}"[:300]}
+    epoch = _coherence.last_epoch("flush:rung")
+    if epoch:
+        ev["coherence_epoch"] = epoch
+    _events.emit(ev)
 
 
 _KEEPS_LAYOUT = frozenset({"map", "cast", "round"})
@@ -1467,13 +1595,15 @@ def _flush_roots(stream: FlushStream, roots: list,
     exprs = root_exprs + list(extra)
     if not exprs:
         return []
+    t_flush = time.perf_counter()
+    program = None
     try:
         program, leaves, exprs = _prepare_program(exprs)
         leaf_vals = [leaf_value(leaf) for leaf in leaves]
         # a flush's leaves are never spill candidates while it runs
         pins = _memory.ledger.pin_values(leaf_vals)
         try:
-            span = _new_span(program, leaf_vals)
+            span = _new_span(program, leaf_vals, t_flush)
             work = _prepare(program, leaves, exprs, leaf_vals, span)
             outs = _dispatch(work)
             del work
@@ -1481,8 +1611,9 @@ def _flush_roots(stream: FlushStream, roots: list,
             _memory.ledger.unpin(pins)
             for hook in after_flush:
                 hook()
-    except Exception:
-        _quarantine(stream, roots)
+    except Exception as e:
+        _quarantine(stream, roots, e, _program_label(program)
+                    if program is not None else None)
         raise
     for arr, expr, val in zip(roots, root_exprs, outs):
         arr._set_expr(Const(val, sharding=_result_layout(expr, mesh)))

@@ -830,8 +830,8 @@ def _flush_roots(stream, roots, exprs, mesh, wd):
                 for v, i in zip(outs, idx)]
             for i, c in zip(idx, got):
                 consts[i] = c
-    except Exception:
-        fuser._quarantine(stream, roots)
+    except Exception as e:
+        fuser._quarantine(stream, roots, e)
         raise
     for arr, c in zip(roots, consts):
         arr._set_expr(c)

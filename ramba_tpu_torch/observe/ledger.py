@@ -20,18 +20,23 @@ guards each program's flush walls against its own history:
   launch returns before the card finishes).  ``RAMBA_PERF=sync`` adds a
   second window of device times, taken with CUDA events around the call
   on the card (a wall on the CPU).
-* **Cost.**  With ``RAMBA_PERF`` on, :func:`capture_cost` records the
-  bytes a program's operands and results occupy, once per program.
-  There is no analytic cost model here: flops are recorded only where a
-  kernel family counts them, and none does yet.
+* **Cost.**  :func:`capture_cost` records, once per program, its bytes
+  and flops as each kernel family counts them from its own plan
+  (``ops/kernel_backend.program_cost``: elemred's chain ops per element,
+  the stencil kernel's body ops per cell, segred's and the scan's adds;
+  each input read once, each output written once); a program on the
+  generic lowering records the bytes its operands and results occupy,
+  and no flops.  It is recorded under ``RAMBA_PERF`` and whenever the
+  attribution plane's fence is on (the rooflines read it,
+  ``observe/attrib.py``).
 * **Slow-flush sentinel.**  Each flush's wall feeds a rolling window per
   program label; once a label has ``RAMBA_SLOW_FLUSH_MIN_SAMPLES``
   samples, a flush slower than ``RAMBA_SLOW_FLUSH_FACTOR`` x the rolling
   p50 emits one ``slow_flush`` event.  ``delay:ms=<n>`` on the fuser's
   ``execute`` fault site triggers it deterministically.
 
-Environment: ``RAMBA_PERF`` (unset/0: ledger on, cost off; ``1``/``on``:
-+ cost; ``sync``: + device-time samples), ``RAMBA_SLOW_FLUSH_FACTOR``
+Environment: ``RAMBA_PERF`` (unset/0: ledger on, cost with the fence;
+``1``/``on``: + cost; ``sync``: + device-time samples), ``RAMBA_SLOW_FLUSH_FACTOR``
 (default 4.0; <= 0 disables the sentinel),
 ``RAMBA_SLOW_FLUSH_MIN_SAMPLES`` (default 5), ``RAMBA_PERF_WINDOW``
 (default 64).
@@ -446,11 +451,13 @@ def backend_stats(fp: str) -> dict:
 
 def capture_cost(fp: str, nbytes: int, backend: Optional[str] = None,
                  flops: Optional[float] = None) -> None:
-    """Record, once per program (and once per backend), ``nbytes``: the
-    bytes its operands and results occupy, when ``RAMBA_PERF`` is on.
-    ``flops`` only where a kernel family counted them; never estimated
-    here."""
-    if not cost_enabled():
+    """Record, once per program (and once per backend), ``nbytes`` and
+    ``flops`` (only where a kernel family counted them; never estimated
+    here), when ``RAMBA_PERF`` is on or the attribution plane's fence
+    is."""
+    from ramba_tpu_torch.observe import attrib as _attrib
+
+    if not (cost_enabled() or _attrib.fence_enabled()):
         return
     with _lock:
         e = _entry(fp)
@@ -516,6 +523,15 @@ def observe_flush(span: dict) -> Optional[dict]:
     }
     if span.get("trace_id") is not None:
         ev["trace_id"] = span["trace_id"]
+    # the incident explainer: this flush's waterfall against its
+    # fingerprint's per-stage baselines names the divergent stage
+    from ramba_tpu_torch.observe import attrib as _attrib
+
+    why = _attrib.explain(span)
+    if why is not None:
+        ev["why"] = why["text"]
+        ev["why_stage"] = why["stage"]
+        ev["why_verdict"] = why["verdict"]
     return _events.emit(ev)
 
 

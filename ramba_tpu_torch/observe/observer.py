@@ -2,9 +2,18 @@
 
 Counterpart of ``ramba_tpu/observe/observer.py``.  Every measurement path
 in ``observe/`` costs wall time that the work it measures must pay; each
-one bills its wall seconds to a per-component ledger here.  The port's
-only component so far is ``events`` (one ``events.emit``: stamp, ring
-append, JSONL serialize and enqueue, the writer drain attempt).
+one bills its wall seconds to a per-component ledger here:
+
+* ``events``    — one ``events.emit``: stamp, ring append, JSONL
+                  serialize and enqueue, the writer drain attempt;
+* ``fence``     — the host's wait in the fence's ``end.synchronize()``
+                  (the card's tail the host would have overlapped);
+* ``ledger``    — kernel-ledger bookkeeping;
+* ``telemetry`` — one Prometheus ``render()``;
+* ``flight``    — one flight-recorder dump.
+
+:func:`tax_frac` is the total over attributed flush wall
+(``attrib.flush_wall_total``).
 
 Windows may nest, so the total is a slight over-count.
 
@@ -54,19 +63,27 @@ def total_s() -> float:
 
 
 def tax_frac() -> Optional[float]:
-    """Observer seconds over attributed flush wall.  The port has no flush
-    attribution yet (``observe/attrib.py`` waits for the observability
-    queue), so there is no denominator: None."""
-    return None
+    """Observer seconds over attributed flush wall (stages + residual),
+    or None before any flush has been attributed."""
+    from ramba_tpu_torch.observe import attrib as _attrib
+
+    denom = _attrib.flush_wall_total()
+    if denom <= 0:
+        return None
+    return round(total_s() / denom, 6)
 
 
 def snapshot() -> dict:
-    """JSON-serializable ledger dump."""
+    """JSON-serializable ledger dump (diagnostics' ``observer`` section)."""
     with _lock:
         comps = {k: {"seconds": round(v[0], 6), "count": v[1]}
                  for k, v in sorted(_tax.items())}
         total = sum(ent[0] for ent in _tax.values())
-    return {"components": comps, "total_s": round(total, 6)}
+    out = {"components": comps, "total_s": round(total, 6)}
+    frac = tax_frac()
+    if frac is not None:
+        out["tax_frac"] = frac
+    return out
 
 
 def reset() -> None:

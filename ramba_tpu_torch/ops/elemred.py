@@ -706,6 +706,28 @@ def launch(program, leaf_vals, config: Config = CONFIG) -> tuple:
                  for s in program.out_slots)
 
 
+def cost(program, leaf_vals) -> tuple:
+    """``(flops, bytes)`` of one run as the plan counts them, the counts
+    behind the bound of ``PERF.md``'s kernel table: one operation per
+    element for every ``map``, ``round`` and reduction of the chain
+    (casts count none; ``sin`` counts one, whatever its instructions);
+    each vector leaf read once and each output written once (a vector
+    output n elements, a reduction one value)."""
+    n = kb.vector_length(leaf_vals)
+    avals = kb.all_slot_avals(program, leaf_vals)
+    n_leaves = program.n_leaves
+    is_vec = [_leaf_kind(v) == "vec" for v in leaf_vals]
+    ops = 0
+    for op, _static, argslots in program.instrs:
+        is_vec.append(op != "reduce" and any(is_vec[s] for s in argslots))
+        ops += op in ("map", "round", "reduce")
+    nbytes = sum(n * avals[s].dtype.itemsize
+                 for s in range(n_leaves) if is_vec[s])
+    nbytes += sum((n if is_vec[s] else 1) * avals[s].dtype.itemsize
+                  for s in program.out_slots)
+    return float(ops * n), float(nbytes)
+
+
 def run(program, leaf_vals) -> tuple:
     """The wrapper.  CPU operands take the plain version; CUDA operands
     launch the kernel (or raise)."""

@@ -249,6 +249,67 @@ def supports(program, leaf_vals) -> bool:
     return classify(program, leaf_vals) is not None
 
 
+_KERNEL_OPS = frozenset({"stencil", "stencil_iter", "cumulative"})
+
+
+def program_cost(program, leaf_vals) -> Optional[tuple]:
+    """``(flops, bytes)`` of one run of a program as the kernel families
+    count them from their own plans (each family's ``cost``), or None
+    when no hand-written kernel runs any of its instructions: the
+    generic lowering records bytes only.  A program elemred or segred
+    takes is that family's count.  Otherwise each instruction the
+    stencil kernel or the scan takes adds its family's count, and every
+    other instruction of such a program adds the bytes of its operands
+    and its result (no flops)."""
+    name = classify(program, leaf_vals)
+    if name == "elemred":
+        from ramba_tpu_torch.ops import elemred
+
+        return elemred.cost(program, leaf_vals)
+    if name == "segred":
+        from ramba_tpu_torch.ops import segred
+
+        return segred.cost(program, leaf_vals)
+    if not any(op in _KERNEL_OPS for op, _s, _a in program.instrs):
+        return None
+    from ramba_tpu_torch.compile.classes import slot_avals
+    from ramba_tpu_torch.ops import scan, stencil_kernel
+
+    avals = slot_avals(program, [aval_of(v) for v in leaf_vals])
+    if avals is None:
+        return None
+    flops = nbytes = 0.0
+    counted = False
+    for i, (op, static, args) in enumerate(program.instrs):
+        out = avals[program.n_leaves + i]
+        ins = [avals[s] for s in args]
+        got = None
+        if op in ("stencil", "stencil_iter"):
+            func, lo, hi, slots = static[:4]
+            sweeps = static[5] if op == "stencil_iter" else 1
+            if op == "stencil_iter":  # the carry runs in the result dtype
+                ins = [out] + ins[1:]
+            if sweeps > 0:
+                got = stencil_kernel.cost(func, lo, hi, slots, ins, sweeps)
+        elif op == "cumulative" and out.dtype.kind == "f" \
+                and out.dtype.itemsize >= 2:
+            got = scan.cost(out.shape, out.dtype.itemsize)
+        if got is not None:
+            counted = True
+            flops += got[0]
+            nbytes += got[1]
+        else:
+            nbytes += sum(_nbytes(a) for a in ins) + _nbytes(out)
+    return (flops, nbytes) if counted else None
+
+
+def _nbytes(aval) -> int:
+    n = 1
+    for d in aval.shape:
+        n *= int(d)
+    return n * np.dtype(aval.dtype).itemsize
+
+
 # ---------------------------------------------------------------------------
 # entry point: program -> kernel-backed callable
 # ---------------------------------------------------------------------------

@@ -272,6 +272,17 @@ def launch(x: torch.Tensor, fname: str, axis: int, ctas: int | None = None
     return _from_rows(out, shape, axis)
 
 
+def cost(shape, itemsize: int) -> tuple:
+    """``(flops, bytes)`` of one scan as the kernel counts them: one add
+    (or multiply) per element; the input read once and the result
+    written once (the tile flags and carries, a few bytes a tile, are not
+    counted)."""
+    n = 1
+    for d in shape:
+        n *= int(d)
+    return float(n), float(2 * n * itemsize)
+
+
 def run(x: torch.Tensor, fname: str, axis: int) -> torch.Tensor:
     """The wrapper.  A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel (or raises)."""

@@ -94,6 +94,19 @@ def segred_reference(program, leaf_vals) -> tuple:
 # ---------------------------------------------------------------------------
 
 
+def cost(program, leaf_vals) -> tuple:
+    """``(flops, bytes)`` of one run as the kernel counts them: one add
+    (or multiply, or comparison) per element; the data and the labels
+    read once, the G results written once."""
+    _op, (_kind, num_groups, _dim), (s_data, s_labels) = program.instrs[0]
+    avals = kb.all_slot_avals(program, leaf_vals)
+    n = int(avals[s_data].shape[0])
+    out = avals[program.n_leaves].dtype.itemsize
+    return float(n), float(n * (avals[s_data].dtype.itemsize
+                                + avals[s_labels].dtype.itemsize)
+                           + int(num_groups) * out)
+
+
 def num_blocks(n: int) -> int:
     """CTAs of the partials kernel: enough to cover n once (each thread at
     least one element), at most ``MAX_BLOCKS``.  It depends on n only."""

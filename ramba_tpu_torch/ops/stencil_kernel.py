@@ -564,6 +564,44 @@ def available(func, lo, hi, slots, arrs) -> bool:
 # ---------------------------------------------------------------------------
 
 
+def body_ops(expr: Sym) -> int:
+    """Operations of a traced body per cell: each operation node of its
+    tap expression once (star2: 8 taps, 9 operations)."""
+    stack, seen, ops = [expr], set(), 0
+    while stack:
+        n = stack.pop()
+        if id(n) in seen:
+            continue
+        seen.add(id(n))
+        ops += n.kind == "op"
+        stack.extend(n.args)
+    return ops
+
+
+def cost(func, lo, hi, slots, avals, sweeps: int = 1) -> Optional[tuple]:
+    """``(flops, bytes)`` of ``sweeps`` launches over operands of these
+    avals as the kernel counts them (None when it does not take them):
+    :func:`body_ops` per interior cell; each slot read once and the
+    output written once a sweep.  Decided like :func:`available`, but
+    counts nothing in ``ineligible``."""
+    shapes = {tuple(a.shape) for a in avals}
+    dtypes = {np.dtype(a.dtype) for a in avals}
+    if len(shapes) != 1 or len(dtypes) != 1:
+        return None
+    (shape,), (dtype,) = shapes, dtypes
+    if len(shape) != 2 or max(shape) >= MAX_SIDE \
+            or cx.dtype_name(dtype) not in _KERNEL_DTYPES:
+        return None
+    tr = trace(func, slots)
+    if spec_for(tr.expr, lo, hi, len(avals), dtype) is None:
+        return None
+    H, W = int(shape[0]), int(shape[1])
+    cells = max(0, H - (hi[0] - lo[0])) * max(0, W - (hi[1] - lo[1]))
+    itemsize = 2 if cx.dtype_name(dtype) == "bfloat16" else dtype.itemsize
+    return (float(sweeps * body_ops(tr.expr) * cells),
+            float(sweeps * (len(avals) + 1) * H * W * itemsize))
+
+
 def stencil_reference(func, lo, hi, slots, arrs) -> torch.Tensor:
     """Plain PyTorch version: the body over shifted static slices of the
     interior, the border zeroed."""

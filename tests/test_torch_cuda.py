@@ -1443,3 +1443,53 @@ def test_memo_misses_after_an_in_place_write_on_the_card(analysis_env, how):
     want = (t * t).sum()
     assert abs(got.item() - want.item()) <= N * EPS[torch.float64] * \
         want.item()
+
+
+# ---------------------------------------------------------------------------
+# the observability plane on the card (ROADMAP A.9)
+# ---------------------------------------------------------------------------
+
+
+def test_the_fence_times_the_card():
+    """A steady flush is fenced by its CUDA event pair: the span carries a
+    ``device_execute`` stage and reconciles with its wall; the roofline
+    row's device time is the fence's, under the card's peak row."""
+    from ramba_tpu_torch.observe import attrib
+    from ramba_tpu_torch.observe import events
+
+    attrib.reset()
+    attrib.reconfigure()
+    x = rt.fromarray(torch.rand(1 << 22, dtype=torch.float64,
+                                device="cuda"))
+    for _ in range(4):
+        float(rt.sum(2.0 * x + 1.0))
+    span = events.last(1, type="flush")[-1]
+    st = span["stages"]
+    assert "device_execute" in st and "dispatch" in st
+    assert abs(sum(st.values()) + span["unattributed_s"] - span["wall_s"]) \
+        <= 2e-5 * (len(st) + 2)
+    row = attrib.roofline_report()[span["fingerprint"]]
+    assert row["device_time_source"] == "fence" and row["bound"] == "bandwidth"
+    kind = torch.cuda.get_device_name(0)
+    assert attrib.device_kind() == kind
+    if "H100" in kind:
+        assert attrib.peak_table()["peak_gbps"] == 3350.0
+    attrib.reset()
+
+
+def test_profiler_trace_holds_the_kernels(tmp_path):
+    import json
+
+    x = rt.fromarray(torch.rand(1 << 20, dtype=torch.float64, device="cuda"))
+    float(rt.sum(x * 2.0))  # built and planned before the trace
+    with rt.profiler_trace(str(tmp_path)):
+        float(rt.sum(x * 2.0))
+    (path,) = tmp_path.glob("trace_*.json")
+    doc = json.loads(path.read_text())
+    evs = doc["traceEvents"] if isinstance(doc, dict) else doc
+    names = [e.get("name", "") for e in evs if e.get("cat") == "kernel"]
+    assert any("elemred_kernel" in n for n in names), names[:20]
+
+
+def test_drain_effect_errors_on_a_healthy_card():
+    assert rt.debug.drain_effect_errors() is None

@@ -264,8 +264,8 @@ def test_plan_audit_over_live_trace(tmp_path, capsys):
 def test_the_shared_tier_and_the_report_name_their_items(monkeypatch):
     with pytest.raises(NotImplementedError, match="A.10"):
         plancache.publish(None)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        diagnostics.plancache_report()
+    # A.9's item landed: the diagnostics block is the cache's snapshot
+    assert diagnostics.plancache_report() == plancache.snapshot()
     monkeypatch.setenv("RAMBA_ARTIFACTS", "/nonexistent")
     a = rt.fromarray(np.arange(4.0))
     b = a * 2.0

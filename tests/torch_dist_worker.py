@@ -17,7 +17,9 @@ strict verifier error on every rank, memo hits per rank, certificate
 hits agreed in batches); ``elastic`` the elastic plane (``_elastic``:
 checkpoints saved and resumed in worlds of other sizes, a barrier that a
 wedged or crashed rank never reaches, a live reshape of the rank mesh
-and its fallback, a dispatch stall on one rank).  On the card (``tests/test_torch_cuda.py``), ``card`` runs star2
+and its fallback, a dispatch stall on one rank); ``observe`` the
+attribution plane (each rank's stage signatures and sampled fence
+logs).  On the card (``tests/test_torch_cuda.py``), ``card`` runs star2
 through the CUDA stencil kernel on each rank's block and ``nccl`` one
 rank's collectives over NCCL.  :func:`programs` takes the package as an argument, so the test runs
 the same programs through ``ramba_tpu`` for the reference.
@@ -754,6 +756,55 @@ CARD_SERIES = (1 << 20) + 37
 SEG_KINDS = ("sum", "min", "max", "count")
 
 
+OBSERVE_GRID = (64, 48)  # star2's grid, float32: even blocks on 2 and 4
+OBSERVE_N = 4000         # the 1-D chain, float64
+OBSERVE_FLUSHES = 10
+
+
+def _observe(rt, rank, outdir):
+    """The attribution plane across ranks (run under
+    ``RAMBA_ATTRIB=sample:<N>``): star2 sweeps with a sum and a 1-D chain
+    with a sum, ``OBSERVE_FLUSHES`` flushes each; every rank records the
+    stage names of each of its flush spans, its fence log per kernel
+    fingerprint, the sums, and the observer tax."""
+    from ramba_tpu_torch.observe import attrib, events, observer
+
+    spans = []
+
+    def tap(e):
+        if e.get("type") == "flush":
+            spans.append(e)
+
+    events.add_tap(tap)
+    g = rt.fromarray(np.random.RandomState(3).rand(
+        *OBSERVE_GRID).astype(np.float32))
+    x = rt.fromarray(np.sin(np.arange(OBSERVE_N, dtype=np.float64)))
+    st = rt.stencil(star2_body)
+    sums = []
+    for k in range(OBSERVE_FLUSHES):
+        sums.append(float(rt.sum(rt.sstencil(st, g))))
+        sums.append(float(rt.sum(x * 2.0 + float(k))))
+    events.remove_tap(tap)
+    samp = attrib.sampling_report()
+    info = {
+        "sigs": [[k for k in attrib.STAGES if k in e.get("stages", {})]
+                 for e in spans],
+        "reconciled": all(
+            abs(sum(e["stages"].values()) + e["unattributed_s"]
+                - e["wall_s"]) <= 2e-5 * (len(e["stages"]) + 2)
+            for e in spans),
+        "fences": {fp: d["fenced_seqs"]
+                   for fp, d in samp["fingerprints"].items()},
+        "calls": {fp: d["calls"] for fp, d in samp["fingerprints"].items()},
+        "sample_every": samp["sample_every"],
+        "sources": [e.get("device_source") for e in spans],
+        "sums": sums,
+        "tax_frac": observer.tax_frac(),
+    }
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+
+
 def card_grid():
     return np.random.default_rng(5).random(CARD_GRID).astype(np.float32)
 
@@ -846,7 +897,8 @@ def main(argv) -> int:
         rt.set_mesh(distributed.global_mesh())
     {"main": _main, "fail": _fail, "card": _card, "nccl": _nccl,
      "compile": _compile, "analyze": _analyze,
-     "ladder": _ladder, "elastic": _elastic}[mode](rt, rank, outdir)
+     "ladder": _ladder, "elastic": _elastic,
+     "observe": _observe}[mode](rt, rank, outdir)
     distributed.shutdown()
     return 0
 
