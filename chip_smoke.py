@@ -12,6 +12,9 @@
     python3 chip_smoke.py --elastic  # phase 1 and the elastic plane
                                      # (--parts stall,inflight: some parts)
     python3 chip_smoke.py --observe  # phase 1 and the observability plane
+    python3 chip_smoke.py --serve    # phase 1 and serving (--parts as above:
+                                     # tenants,cse,quota,deadlines,overload,
+                                     # hedge,ranks,drain)
 
 Phases, each reported on its own line:
 
@@ -210,7 +213,7 @@ Phases, each reported on its own line:
    cumsum 2^28) with attribution on: every span's stages plus its residual equal
    its wall, the median residual at most 5 %, each kernel fingerprint's
    fenced device p50 within 10 % of the same compiled call under this
-   script's own CUDA events, its roofline ``bandwidth`` with a fraction
+   script's own CUDA events right after each flush, its roofline ``bandwidth`` with a fraction
    of peak within 10 % of bound / p50, the bytes of ``RAMBA_ATTRIB=off``;
    (b) the fence's cost (unset, off, sample:16; ms a sweep, host us a
    flush, the same bytes, sample:16's fenced sequences); (c) the drift
@@ -222,7 +225,24 @@ Phases, each reported on its own line:
    ``diagnostics.report()``, ``identity()``, ``dump()``, the timing
    names, ``jit``, ``remote``, ``get``; (h) four ranks under sample:4
    with the same stage signatures and fence logs, blocks byte-equal to
-   one process.
+   one process; then serving (``serve_path``, alone with ``--serve``),
+   every session flush through the one dispatch worker: (a) four tenants
+   on four threads, five tickets each, at the main path's sizes (the
+   chain, 30 chained star2 sweeps and their sum, the hourly groupby sum,
+   axpy + sum and cumsum), byte-equal to the default stream, every
+   kernel family launched on the worker, with SLO p50/p95 beside this
+   script's walls, the dispatch order and ``queue_wait``; (b) eight
+   sessions of two tenants coalesced into one batch under
+   ``RAMBA_MEMO=1``: one execution, seven CSE merges; (c) a 3 GiB tenant
+   quota spilling the tenant's own arrays and routing chunked, a
+   neighbour's bytes untouched; (d) a ticket expired in the queue, a
+   rung skipped by its rolling p50, the watchdog clamped to a 300 ms
+   budget behind a spin kernel; (e) a priority burst past the queue
+   depth, brownout, CoDel sheds, a breaker tripped and closed; (f) a
+   hedge on a CUDA stream of its own winning byte-equal; (g) four ranks
+   shedding the same three flushes under ``serve:admit:3:rank=1``; (h)
+   ``drain_to_checkpoint`` over three sessions, the reports and the
+   tenant series scraped.
    Every kernel's launch count is set to 0 just before each path and
    read just after; a path that does not launch its kernel fails the
    run;
@@ -1802,6 +1822,14 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
     for k in totals:
         if totals[k] == before[k]:
             raise Fail(f"observe_path launched no {k}")
+    log("  serve_path: sessions, the dispatch pipeline, coalescing and batch "
+        "CSE, quotas, deadlines, the overload plane, hedging and ranks")
+    before = dict(totals)
+    timed("serve_path", serve_path, rt, er, sk, sg, sc, torch, np, card,
+          window, totals)
+    for k in totals:
+        if totals[k] == before[k]:
+            raise Fail(f"serve_path launched no {k}")
     log(f"  phase 3 walls by path (s): {json.dumps(walls)} [{card}]")
     return totals, sharded, dist
 
@@ -3727,6 +3755,8 @@ def dist_rank(argv) -> int:
         ladder_rank_programs(rt, np, torch, er, sk, sc, rep)
     elif "--observe" in argv:
         observe_rank_programs(rt, np, torch, er, sk, sc, rep)
+    elif "--serve" in argv:
+        serve_rank_programs(rt, np, torch, er, sk, sc, rep)
     elif "--elastic" in argv:
         rep["case"] = arg["--elastic"]
         rep["root"] = os.environ["RAMBA_ELASTIC_ROOT"]
@@ -7663,22 +7693,18 @@ def _capture_calls(fuser):
     return calls, lambda: setattr(fuser, "_execute_compiled", orig)
 
 
-def _events_p50_ms(torch, fn, args, reps=5):
-    """The p50 over ``reps`` of one call bracketed by its own CUDA events
-    (a first call before them), and of the host's time to issue it."""
+def _call_events_ms(torch, fn, args):
+    """One call bracketed by its own CUDA events: its device window in ms,
+    and the host's time to issue it in ms."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
     fn(*args)
-    ms, host = [], []
-    for _ in range(reps):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        e0.record()
-        fn(*args)
-        e1.record()
-        host.append((time.perf_counter() - t0) * 1e3)
-        e1.synchronize()
-        ms.append(e0.elapsed_time(e1))
-    return sorted(ms)[len(ms) // 2], sorted(host)[len(host) // 2]
+    e1.record()
+    host = (time.perf_counter() - t0) * 1e3
+    e1.synchronize()
+    return e0.elapsed_time(e1), host
 
 
 def _reconciles(span):
@@ -7692,7 +7718,10 @@ def observe_main(rt, np, torch, card, window, star2):
     each span reconciles (stages + unattributed = wall); the median
     unattributed share of a program's steady spans is at most 5 %; each
     kernel fingerprint's fenced device p50 agrees within 10 % with the
-    same compiled call timed by this path's own CUDA events; its
+    same compiled call timed by this path's own CUDA events, once right
+    after each steady flush (interleaved: a call's window carries the
+    card's and the host's state of its moment, so the two are read in
+    the same moments, not one block after the other); its
     roofline reads ``bandwidth`` with a fraction of peak within 10 % of
     bound / device p50 from the ledger's counts; the results are
     byte-equal to ``RAMBA_ATTRIB=off``."""
@@ -7710,9 +7739,15 @@ def observe_main(rt, np, torch, card, window, star2):
         seen = []
         events.add_tap(seen.append)
         calls, undo = _capture_calls(fuser)
+        own = []
         try:
             for r in range(OBSERVE_REPS):
                 outs = window(f"observe (a) {name} #{r}", run, need)
+                last = [e for e in seen if e.get("type") == "flush"][-1:]
+                if last and last[0].get("cache") == "hit":
+                    fn, lv = calls[last[0]["fingerprint"]]
+                    own.append(_call_events_ms(torch, fn, lv))
+                    del fn, lv
         finally:
             undo()
             events.remove_tap(seen.append)
@@ -7728,11 +7763,11 @@ def observe_main(rt, np, torch, card, window, star2):
         if row is None or row["device_time_source"] != "fence":
             raise Fail(f"observe (a) {name}: no fenced roofline row {row}")
         dev_ms = row["device_p50_s"] * 1e3
-        fn, lv = calls[fp]
-        own_ms, own_host = _events_p50_ms(torch, fn, lv)
+        own_ms = statistics.median_low([o[0] for o in own])
+        own_host = statistics.median_low([o[1] for o in own])
         issue = sorted(s["stages"]["dispatch"] for s in steady)[
             len(steady) // 2] * 1e3
-        del calls, lv, fn
+        del calls
         k = ledger.snapshot()["kernels"][fp]
         flops, nbytes = float(k.get("flops") or 0.0), float(
             k.get("bytes_accessed") or 0.0)
@@ -8473,6 +8508,959 @@ def observe_path(rt, er, sk, sg, sc, torch, np, card, window, totals,
     return out
 
 
+SERVE_N = 10 ** 9                   # the sin/cos chain's base, float64
+SERVE_VEC_N = 1 << 28               # axpy + sum, the series, cumsum, float64
+SERVE_GRID = 8192                   # star2, float32 (TMA)
+SERVE_SWEEPS = 30                   # chained sweeps a "grid" flush
+SERVE_TICKETS = 5                   # flush() tickets a tenant in (a)
+SERVE_CSE = 8                       # sessions of (b)
+SERVE_QUOTA = 3 << 30               # the tight tenant's quota in (c)
+SERVE_HELD_N = 1 << 27              # its two held arrays: 1 GiB float64 each
+SERVE_BIG_N = 1 << 28               # the 2 GiB float64 operand of (c), (d)
+SERVE_SMALL_N = 1 << 16             # the small flush of (e), float64
+SERVE_BURST = 200                   # flushes of the burst in (e)
+SERVE_DEPTH = 16                    # RAMBA_SERVE_QUEUE_DEPTH in (e)
+SERVE_SPIN_S = 0.8                  # the spin kernel ahead of (d)'s flush
+SERVE_RANKS = 4
+SERVE_RANK_SWEEPS = 10              # chained star2 sweeps a rank flush (g)
+SERVE_RANK_FLUSHES = 5              # tickets a rank in (g)
+SERVE_LIMIT_S = 300                 # per launch of ranks
+
+
+def _spy_launches(mods):
+    """Wrap each kernel family's ``launch``: every launch appends
+    ``(family, thread name, current CUDA stream)``.  Returns ``(seen,
+    undo)``; the launch counts are the modules' own."""
+    import threading
+
+    import torch
+
+    seen = []
+    undo = []
+    for fam, mod in mods.items():
+        real = mod.launch
+
+        def spy(*a, _real=real, _fam=fam, **kw):
+            seen.append((_fam, threading.current_thread().name,
+                         torch.cuda.current_stream()))
+            return _real(*a, **kw)
+
+        mod.launch = spy
+        undo.append((mod, real))
+
+    def restore():
+        for mod, real in undo:
+            mod.launch = real
+
+    return seen, restore
+
+
+class _Held:
+    """The serve pipeline's worker held busy by a warm ticket until
+    :meth:`release` (what a long dispatch ahead of the queue does), so
+    what is submitted meanwhile queues."""
+
+    def __init__(self, pipe):
+        import threading
+
+        self.gate = threading.Event()
+        self.started = threading.Event()
+
+        def hold():
+            self.started.set()
+            self.gate.wait(60)
+
+        self.ticket = pipe.submit_warm(hold, label="hold")
+        if not self.started.wait(30):
+            raise Fail("serve: the held warm ticket never ran")
+
+    def release(self):
+        self.gate.set()
+        self.ticket.wait(60)
+
+
+def serve_tenants(rt, np, torch, card, window, star2, mods):
+    """(a) Four tenants on four threads, each in its own ``Session``, 5
+    ``flush()`` tickets each through the pipeline: the sin/cos chain
+    over a 1e9 f64 base (elemred), 30 chained star2 sweeps on 8192^2 f32
+    and their sum (stencil), the hourly groupby sum over 2^28 f64
+    (segred), axpy + sum and ``cumsum`` over 2^28 f64 (elemred, scan).
+    Every result byte-equal to the same program flushed alone on the
+    default stream; every family launched from the dispatch worker;
+    per tenant the SLO histograms' e2e p50/p95 beside this script's own
+    ticket walls, the dispatch order and ``queue_wait``.  The chain
+    tenant waits for each ticket before its next (its 8 GB result), the
+    others submit their five first."""
+    import threading
+
+    from ramba_tpu_torch import serve
+    from ramba_tpu_torch.observe import events, slo
+
+    base = rt.arange(SERVE_N) / 1000.0
+    g = rt.fromarray(torch.rand((SERVE_GRID, SERVE_GRID),
+                                dtype=torch.float32, generator=_gen(torch, 3),
+                                device="cuda"))
+    x_t, hour = hourly_series(torch, np, SERVE_VEC_N)
+    gb = rt.fromarray(x_t).groupby(0, hour, num_groups=24)
+    vx = rt.sin(rt.arange(SERVE_VEC_N) * 1e-3)
+    vy = rt.cos(rt.arange(SERVE_VEC_N) * 1e-3)
+    rt.sync()
+
+    def chain(k):
+        B, C = rt.sin(base), rt.cos(base)
+        D = B * B + C * C
+        return [D, rt.sum(D)]
+
+    def grid(k):
+        y = g
+        for _ in range(SERVE_SWEEPS):
+            y = rt.sstencil(star2, y)
+        return [y, rt.sum(y)]
+
+    def series(k):
+        return [gb.sum()]
+
+    def vec(k):
+        return [rt.sum(2.5 * vx + vy)] if k % 2 == 0 else [rt.cumsum(vx)]
+
+    build = {"chain": chain, "grid": grid, "series": series, "vec": vec}
+    refs = {}
+    for name, fn in build.items():
+        refs[name] = {}
+        for k in ((0,) if name != "vec" else (0, 1)):
+            outs = fn(k)
+            refs[name][k] = [o._value() for o in outs]
+            del outs
+    torch.cuda.synchronize()
+    order, spans = [], {}
+    lock = threading.Lock()
+
+    def tap(e):
+        if e.get("type") == "flush" and e.get("async"):
+            with lock:
+                order.append(e.get("tenant"))
+                spans.setdefault(e.get("tenant"), []).append(e)
+
+    walls = {n: [] for n in build}
+    same = {n: [] for n in build}
+    errs = []
+    # a dispatch worker of its own with coalescing off, held busy until
+    # every tenant has queued (the three others all five tickets, the
+    # chain its first): the dispatch order is then the rotation's
+    pipe = serve.CompilePipeline(coalesce=1)
+    start = threading.Barrier(len(build))
+    queued = threading.Barrier(len(build) + 1)
+
+    def tenant(name):
+        try:
+            ref = refs[name]
+            with serve.Session(tenant=name, pipeline=pipe) as s:
+                start.wait(60)
+                pending = []
+                for k in range(SERVE_TICKETS):
+                    t0 = time.perf_counter()
+                    outs = build[name](k)
+                    pending.append((k, outs, s.flush(), t0))
+                    if (name == "chain" and k == 0) or \
+                            k == SERVE_TICKETS - 1 and name != "chain":
+                        queued.wait(120)
+                    if name == "chain" or k == SERVE_TICKETS - 1:
+                        for kk, o, t, t0 in pending:
+                            t.wait(300)
+                            vals = [a._value() for a in o]
+                            torch.cuda.synchronize()
+                            walls[name].append(time.perf_counter() - t0)
+                            want = ref[kk % 2 if name == "vec" else 0]
+                            same[name].append(all(
+                                bytes_equal(v, w) for v, w in zip(vals,
+                                                                  want)))
+                            del vals, o
+                        pending = []
+        except BaseException as e:  # noqa: BLE001 — raised below
+            errs.append(e)
+
+    seen, undo = _spy_launches(mods)
+    events.add_tap(tap)
+    slo.reset()
+
+    def run_all():
+        held = _Held(pipe)
+        threads = [threading.Thread(target=tenant, args=(n,),
+                                    name=f"tenant-{n}") for n in build]
+        for t in threads:
+            t.start()
+        try:
+            queued.wait(300)
+        finally:
+            held.release()
+        for t in threads:
+            t.join(600)
+        pipe.stop()
+        torch.cuda.synchronize()
+
+    try:
+        window("serve (a) four tenants on four threads", run_all,
+               {"elemred": None, "stencil": SERVE_TICKETS * SERVE_SWEEPS,
+                "segred": SERVE_TICKETS, "scan": SERVE_TICKETS // 2})
+    finally:
+        events.remove_tap(tap)
+        undo()
+    if errs:
+        raise errs[0]
+    worker = {fam for fam, th, _st in seen if th == "ramba-serve-dispatch"}
+    res = {"order": order, "tenants": {}}
+    for name in build:
+        lat = slo.tenant_latency(name)
+        w = sorted(walls[name])
+        qw = [sp["stages"].get("queue_wait", 0.0) for sp in spans[name]]
+        res["tenants"][name] = {
+            "slo_e2e_p50_ms": lat.get("e2e_p50_ms"),
+            "slo_e2e_p95_ms": lat.get("e2e_p95_ms"),
+            "wall_p50_ms": w[len(w) // 2] * 1e3,
+            "wall_max_ms": w[-1] * 1e3,
+            "queue_wait_ms_mean": sum(qw) / max(1, len(qw)) * 1e3,
+            "byte_equal": all(same[name]) and len(same[name]) ==
+            SERVE_TICKETS}
+        r = res["tenants"][name]
+        log(f"  serve (a) tenant {name}: {len(same[name])} tickets byte-equal "
+            f"to the default stream {r['byte_equal']}; SLO e2e p50 "
+            f"{r['slo_e2e_p50_ms']} ms p95 {r['slo_e2e_p95_ms']} ms (bucket "
+            f"interpolation), this script's ticket walls p50 "
+            f"{r['wall_p50_ms']:.3f} ms max {r['wall_max_ms']:.3f} ms; mean "
+            f"queue_wait {r['queue_wait_ms_mean']:.3f} ms [{card}]")
+    log(f"  serve (a) dispatch order {order}; families launched on the "
+        f"worker thread {sorted(worker)} [{card}]")
+    res["worker_families"] = sorted(worker)
+    if not all(r["byte_equal"] for r in res["tenants"].values()):
+        raise Fail("serve (a): a session result differs from the default "
+                   "stream's")
+    if worker != {"elemred", "stencil", "segred", "scan"}:
+        raise Fail(f"serve (a): families on the worker {worker}")
+    # round-robin: the queue held the chain's first ticket and the
+    # others' five; the first four dispatches are four tenants, and the
+    # three others then alternate while all three have tickets queued
+    others = [t for t in order if t != "chain"]
+    if len(set(order[:4])) != 4 or any(
+            len(set(others[i:i + 3])) != 3 for i in range(0, 12, 3)):
+        raise Fail(f"serve (a): not round-robin {order}")
+    del base, g, gb, vx, vy, refs, x_t
+    return res
+
+
+def serve_cse(rt, np, torch, card, window):
+    """(b) Eight sessions of two tenants submit axpy + sum over the same
+    two 2^28 f64 buffers under ``RAMBA_MEMO=1`` while the worker is busy:
+    one coalesced batch, one execution, seven followers served by the
+    memo at dispatch (``serve.cse_merged``), no duplicate execution."""
+    from ramba_tpu_torch import serve
+    from ramba_tpu_torch.core import fuser, memo
+    from ramba_tpu_torch.observe import events, registry
+
+    x = rt.sin(rt.arange(SERVE_VEC_N) * 1e-3)
+    y = rt.cos(rt.arange(SERVE_VEC_N) * 1e-3)
+    rt.sync()
+    want = float(rt.sum(2.5 * x + y))
+    _elastic_env(RAMBA_MEMO="1")
+    memo.reset()
+    pipe = serve.get_pipeline()
+    c0, d0 = registry.get("serve.cse_merged"), registry.get(
+        "serve.dup_execs")
+    seen = []
+    events.add_tap(seen.append)
+
+    def batch():
+        held = _Held(pipe)
+        sessions, sums, tickets = [], [], []
+        for i in range(SERVE_CSE):
+            s = serve.Session(tenant=f"cse{i % 2}")
+            tok = fuser.activate_stream(s.stream)
+            try:
+                sums.append(rt.sum(2.5 * x + y))
+                tickets.append(s.flush())
+            finally:
+                fuser.deactivate_stream(tok)
+            sessions.append(s)
+        held.release()
+        for t in tickets:
+            t.wait(120)
+        for s in sessions:
+            s.close()
+        return [float(v) for v in sums]
+
+    try:
+        got = window("serve (b) eight sessions, one batch", batch,
+                     {"elemred": 1})
+    finally:
+        events.remove_tap(seen.append)
+        _elastic_env(RAMBA_MEMO=None)
+        memo.reset()
+    co = [e for e in seen if e.get("type") == "serve_coalesce"]
+    merged = registry.get("serve.cse_merged") - c0
+    dups = registry.get("serve.dup_execs") - d0
+    ok = got == [want] * SERVE_CSE
+    log(f"  serve (b) {SERVE_CSE} sessions of 2 tenants, axpy + sum 2^28 "
+        f"f64: coalesced batches {[(e['n'], e['tenants']) for e in co]}, "
+        f"serve.cse_merged {merged}, serve.dup_execs {dups}, sums equal to "
+        f"the default stream's {ok} [{card}]")
+    if not (ok and co and co[0]["n"] == SERVE_CSE and merged >= 6
+            and dups == 0):
+        raise Fail("serve (b): coalescing and batch CSE")
+    del x, y
+    return {"batches": [e["n"] for e in co], "cse_merged": merged,
+            "dup_execs": dups}
+
+
+def serve_quota(rt, np, torch, card, window):
+    """(c) A tenant with a 3 GiB quota holds two 1 GiB f64 arrays, then
+    flushes ``z * 2 + 1`` over a 2 GiB operand (its estimate about 6
+    GiB): its own arrays spill to the host, the flush routes chunked,
+    another tenant's resident bytes do not change, and the result is
+    byte-equal to the fused one; the spilled arrays come back byte-equal."""
+    from ramba_tpu_torch import serve
+    from ramba_tpu_torch.observe import events
+    from ramba_tpu_torch.resilience import memory
+
+    z = rt.fromarray(torch.rand(SERVE_BIG_N, dtype=torch.float64,
+                                generator=_gen(torch, 7), device="cuda"))
+    rt.sync()
+    fused = (z * 2.0 + 1.0)._value()
+    with serve.Session(tenant="neighbour") as nb:
+        keep = rt.fromarray(torch.rand(SERVE_HELD_N, dtype=torch.float64,
+                                       generator=_gen(torch, 8),
+                                       device="cuda")) * 1.0
+        nb.flush(wait=True)
+    tight = serve.Session(tenant="tight", quota=SERVE_QUOTA)
+    tight.acquire()
+    try:
+        held = [rt.fromarray(torch.rand(SERVE_HELD_N, dtype=torch.float64,
+                                        generator=_gen(torch, 9 + k),
+                                        device="cuda")) * 1.0
+                for k in range(2)]
+        tight.flush(wait=True)
+    finally:
+        tight.release()
+    copies = [h._value().clone() for h in held]
+    snap0 = memory.ledger.tenant_snapshot()
+    ev0 = memory.ledger.evictions
+
+    def run():
+        tight.acquire()
+        try:
+            y = z * 2.0 + 1.0
+            tight.flush(wait=True)
+        finally:
+            tight.release()
+        return y._value()
+
+    y = window("serve (c) the tight tenant's 2 GiB program", run,
+               {"elemred": 1})
+    span = [e for e in events.last(10, type="flush")
+            if e.get("tenant") == "tight"][-1]
+    snap1 = memory.ledger.tenant_snapshot()
+    spilled = memory.ledger.evictions - ev0
+    same = bytes_equal(y, fused)
+    back = all(bytes_equal(h._value(), c) for h, c in zip(held, copies))
+    log(f"  serve (c) quota {SERVE_QUOTA >> 30} GiB: tenant admission "
+        f"{span.get('tenant_admission')}, rung {span.get('degraded')}, "
+        f"{spilled} of its arrays spilled; resident bytes tight "
+        f"{snap0.get('tight')} -> {snap1.get('tight')}, neighbour "
+        f"{snap0.get('neighbour')} -> {snap1.get('neighbour')}; result "
+        f"byte-equal to the fused one {same}; spilled arrays back "
+        f"byte-equal {back} [{card}]")
+    if not (same and back and span.get("tenant_admission") == "chunked"
+            and span.get("degraded") == "chunked" and spilled == 2
+            and snap1.get("neighbour") == snap0.get("neighbour")):
+        raise Fail("serve (c): the tenant quota")
+    tight.close()
+    del z, fused, keep, held, copies, y
+    return {"admission": span.get("tenant_admission"), "spilled": spilled,
+            "neighbour_bytes": snap1.get("neighbour")}
+
+
+def serve_deadlines(rt, np, torch, card, window, star2):
+    """(d) Deadlines: a ticket that expires in the queue raises
+    ``DeadlineExceededError`` at dispatch and its array heals on the next
+    read; a budget below the fused rung's rolling p50 (walls of 100 ms
+    under ``execute:delay:ms=100``) skips it and the split rung gives
+    the fused bytes; ``RAMBA_WATCHDOG_S=5`` behind a 0.8 s spin kernel
+    with ``deadline_ms=300`` stops the attempt at the clamped budget."""
+    from ramba_tpu_torch import serve
+    from ramba_tpu_torch.observe import events, ledger, registry
+    from ramba_tpu_torch.resilience import faults
+    from ramba_tpu_torch.serve import overload
+
+    out = {}
+    z = rt.fromarray(torch.rand(SERVE_BIG_N, dtype=torch.float64,
+                                generator=_gen(torch, 11), device="cuda"))
+    rt.sync()
+    fused = (z * 2.0 + 1.0)._value()
+    pipe = serve.get_pipeline()
+    # 1: expired in the queue
+    with serve.Session(tenant="late", deadline_ms=20) as s:
+        held = _Held(pipe)
+        a = z * 2.0 + 1.0
+        t = s.flush()
+        time.sleep(0.05)
+        held.release()
+        try:
+            t.wait(60)
+            raise Fail("serve (d): an expired ticket dispatched")
+        except overload.DeadlineExceededError as e:
+            stage = e.stage
+    healed = bytes_equal(a._value(), fused)
+    out["expired_stage"] = stage
+    log(f"  serve (d) a ticket of 20 ms queued 50 ms behind a busy worker: "
+        f"DeadlineExceededError at {stage}; healed on the next read, "
+        f"byte-equal {healed} [{card}]")
+    if stage != "dispatch" or not healed:
+        raise Fail("serve (d): the expired ticket")
+    del a
+    # 2: a rung whose rolling p50 does not fit is skipped.  The split
+    # rung runs once first (oom:1), so its segments' kernels are built
+    # (a first build takes seconds, past any budget here)
+    faults.configure("oom:1:bytes=1")
+    try:
+        split_same = bytes_equal((z * 2.0 + 1.0)._value(), fused)
+    finally:
+        faults.configure(None)
+    # the rung windows are keyed by the program's label (its op sequence),
+    # which earlier paths' programs of other sizes share: this part
+    # measures against its own history
+    ledger.reset()
+    faults.configure("execute:delay:ms=100")
+    try:
+        with serve.Session(tenant="budget") as s:
+            for _ in range(5):
+                b = z * 2.0 + 1.0
+                s.flush(wait=True)
+                del b
+    finally:
+        faults.configure(None)
+    label = [e for e in events.last(5, type="flush")
+             if e.get("tenant") == "budget"][-1]["label"]
+    p50 = ledger.rung_quantile(label, "fused", 0.5)
+    skips = registry.get("serve.deadline_rung_skips")
+    with serve.Session(tenant="budget", deadline_ms=60) as s:
+        def run():
+            c = z * 2.0 + 1.0
+            s.flush(wait=True)
+            return c._value()
+
+        c = window("serve (d) a 60 ms budget against the fused rung's p50",
+                   run, {"elemred": 2})
+    span = [e for e in events.last(5, type="flush")
+            if e.get("tenant") == "budget"][-1]
+    skipped = registry.get("serve.deadline_rung_skips") - skips
+    same = bytes_equal(c, fused)
+    out["pruned"] = {"fused_p50_s": p50, "rung": span.get("degraded"),
+                     "wall_s": span["wall_s"]}
+    log(f"  serve (d) fused rung's rolling p50 {p50:.4f} s against a 60 ms "
+        f"budget: {skipped} rung skipped, ran on {span.get('degraded')} in "
+        f"{span['wall_s'] * 1e3:.3f} ms, byte-equal to the fused rung "
+        f"{same} [{card}]")
+    if not (same and split_same and skipped == 1
+            and span.get("degraded") == "split"):
+        raise Fail("serve (d): deadline rung pruning")
+    del c
+    # 3: the watchdog clamped to the remaining budget
+    g = dist_grid(rt, np, (SERVE_GRID, SERVE_GRID))
+    rt.sync()
+    want = rt.sstencil_iterate(star2, g, 20)._value()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    torch.cuda._sleep(100_000_000)
+    e1.record()
+    e1.synchronize()
+    per_s = 100_000_000 / (e0.elapsed_time(e1) / 1e3)
+    _elastic_env(RAMBA_WATCHDOG_S=5, RAMBA_PERF="sync")
+    ledger.reconfigure()
+    try:
+        with serve.Session(tenant="clamp", deadline_ms=300) as s:
+            torch.cuda._sleep(int(SERVE_SPIN_S * per_s))
+            y = rt.sstencil_iterate(star2, g, 20)
+            t0 = time.perf_counter()
+            t = s.flush()
+            try:
+                t.wait(60)
+                raise Fail("serve (d): the clamped attempt finished")
+            except overload.DeadlineExceededError as e:
+                stopped = time.perf_counter() - t0
+                stage = e.stage
+    finally:
+        _elastic_env(RAMBA_WATCHDOG_S=None, RAMBA_PERF=None)
+        ledger.reconfigure()
+    stall = events.last(5, type="stall")[-1]
+    healed = bytes_equal(y._value(), want)
+    _zombies_done()
+    out["clamped"] = {"stopped_s": stopped, "stall_waited_s":
+                      stall.get("waited_s"), "stage": stage}
+    log(f"  serve (d) RAMBA_WATCHDOG_S=5 behind a {SERVE_SPIN_S} s spin "
+        f"kernel, deadline 300 ms: the fused attempt stopped after "
+        f"{stall.get('waited_s')} s (clamped), the ticket raised "
+        f"DeadlineExceededError at {stage} {stopped:.3f} s after submit; "
+        f"healed byte-equal {healed} [{card}]")
+    if not (healed and stage == "ladder" and stopped < 1.0
+            and float(stall.get("waited_s", 9)) < 0.5):
+        raise Fail("serve (d): the clamped watchdog")
+    del z, fused, g, want, y
+    return out
+
+
+def serve_overload(rt, np, torch, card, window):
+    """(e) The overload plane on the small flush ``sum(x * 2 + k)`` over
+    2^16 f64: a priority burst of 200 past ``RAMBA_SERVE_QUEUE_DEPTH=16``
+    behind a busy worker (``QueueFullError``), the brownout levels its
+    own backlog drives; a priority tenant with nothing queued admitted;
+    a plain tenant admitted up to its own depth cap, then shed by the
+    brownout at submit, its queued tickets shed at dispatch under red
+    while the priority tenants' run; CoDel sheds under
+    ``RAMBA_SERVE_SOJOURN_MS``; a breaker tripped by an ``execute``
+    fault, failing fast, then closed by its probe after the cooldown.
+    Every admitted result equals the default stream's; every shed array
+    heals on its next read."""
+    from ramba_tpu_torch import serve
+    from ramba_tpu_torch.observe import events, registry
+    from ramba_tpu_torch.resilience import faults
+    from ramba_tpu_torch.serve import overload
+
+    x = rt.arange(SERVE_SMALL_N) * 1.0
+    rt.sync()
+    want = [float(rt.sum(x * 2.0 + float(k))) for k in range(SERVE_BURST)]
+    pipe = serve.get_pipeline()
+    out = {}
+    seen = []
+    events.add_tap(seen.append)
+    _elastic_env(RAMBA_SERVE_QUEUE_DEPTH=SERVE_DEPTH)
+    try:
+        held = _Held(pipe)
+        full, admitted, sums = 0, [], []
+        with serve.Session(tenant="burst", priority=True) as s:
+            for k in range(SERVE_BURST):
+                sums.append(rt.sum(x * 2.0 + float(k)))
+                try:
+                    admitted.append((k, s.flush()))
+                except overload.QueueFullError:
+                    full += 1
+            state = overload.brownout_state()
+            # sessions acquired, not entered: closing one would wait for
+            # its ticket behind the held worker
+            v = serve.Session(tenant="vip", priority=True)
+            v.acquire()
+            try:
+                rv = rt.sum(x * 2.0 + 2.0)
+                tv = v.flush()
+                vip_state = overload.brownout_state()
+            finally:
+                v.release()
+            p = serve.Session(tenant="plain")
+            p.acquire()
+            plain, queued, plain_sums = "admitted", [], []
+            try:
+                for k in range(SERVE_DEPTH + 1):
+                    plain_sums.append(rt.sum(x * 2.0 + float(k)))
+                    try:
+                        queued.append(p.flush())
+                    except overload.ShedError as e:
+                        plain = e.reason
+                        break
+            finally:
+                p.release()
+            red = overload.brownout_state()
+            held.release()
+            for k, t in admitted:
+                t.wait(60)
+            tv.wait(60)
+            shed_late = 0
+            for t in queued:
+                try:
+                    t.wait(60)
+                except overload.ShedError as e:
+                    shed_late += e.reason == "brownout"
+            p.close()
+            v.close()
+            got = [float(v) for v in sums]
+            plain_got = [float(v) for v in plain_sums]
+            vip_v = float(rv)
+        levels = [(e["from"], e["to"]) for e in seen
+                  if e.get("type") == "brownout"]
+        ok = got == want and plain_got == want[:len(plain_got)] \
+            and vip_v == want[2]
+        out["burst"] = {"queue_full": full, "admitted": len(admitted),
+                        "state": state, "vip": vip_state,
+                        "plain_queued": len(queued), "plain": plain,
+                        "red": red, "plain_shed_at_dispatch": shed_late,
+                        "levels": levels}
+        log(f"  serve (e) priority burst of {SERVE_BURST} behind a busy "
+            f"worker, depth {SERVE_DEPTH}: {len(admitted)} admitted, {full} "
+            f"QueueFullError, brownout {state} by its own backlog; a "
+            f"priority tenant with nothing queued admitted ({vip_state}); "
+            f"a plain tenant queued {len(queued)}, then {plain} at submit "
+            f"by its own backlog ({red}); under {red} at dispatch "
+            f"{shed_late} of its tickets shed, the priority tenants' run; "
+            f"levels {levels}; every sum equal to the default stream's "
+            f"(the refused ones healed on read) {ok} [{card}]")
+        if not (ok and full == SERVE_BURST - SERVE_DEPTH and state == "red"
+                and vip_state == "green" and len(queued) == SERVE_DEPTH
+                and plain == "brownout" and red == "red"
+                and shed_late == SERVE_DEPTH
+                and ("yellow", "red") in levels):
+            raise Fail("serve (e): the bounded queue and the brownout")
+    finally:
+        _elastic_env(RAMBA_SERVE_QUEUE_DEPTH=None)
+    # brownout recovers once the queue is empty
+    with serve.Session(tenant="plain") as p:
+        r = rt.sum(x * 2.0 + 3.0)
+        p.flush(wait=True)
+    green = overload.brownout_state()
+    out["recovered"] = green
+    # CoDel: a standing queue sheds from the front
+    _elastic_env(RAMBA_SERVE_SOJOURN_MS=2, RAMBA_SERVE_SOJOURN_INTERVAL_MS=2)
+    try:
+        held = _Held(pipe)
+        tickets, sums = [], []
+        with serve.Session(tenant="codel") as s:
+            for k in range(20):
+                sums.append(rt.sum(x * 2.0 + float(k)))
+                tickets.append(s.flush())
+            time.sleep(0.02)
+            held.release()
+            shed = 0
+            for t in tickets:
+                try:
+                    t.wait(60)
+                except overload.ShedError as e:
+                    shed += e.reason == "sojourn"
+            got = [float(v) for v in sums]
+    finally:
+        _elastic_env(RAMBA_SERVE_SOJOURN_MS=None,
+                     RAMBA_SERVE_SOJOURN_INTERVAL_MS=None)
+    codel_ok = got == want[:20]
+    out["codel_sheds"] = shed
+    log(f"  serve (e) RAMBA_SERVE_SOJOURN_MS=2 behind a 20 ms standing "
+        f"queue: {shed} of 20 tickets shed by CoDel (codel_drops "
+        f"{overload.report()['codel_drops']}), all sums right after healing "
+        f"{codel_ok}; brownout after the queue drained {green} [{card}]")
+    if not (codel_ok and shed >= 1 and green == "green"):
+        raise Fail("serve (e): CoDel")
+    # the breaker
+    _elastic_env(RAMBA_BREAKER_THRESHOLD=2, RAMBA_BREAKER_COOLDOWN_S=0.5)
+    try:
+        with serve.Session(tenant="flaky") as s:
+            faults.configure("execute:2:fatal")
+            bad = []
+            for k in range(2):
+                bad.append(rt.sum(x * 2.0 + float(k)))
+                try:
+                    s.flush(wait=True)
+                except faults.InjectedFault:
+                    pass
+            faults.configure(None)
+            st_open = overload.breaker_for("flaky").state
+            t0 = time.perf_counter()
+            r = rt.sum(x * 2.0 + 5.0)
+            try:
+                s.flush()
+                fast = None
+            except overload.CircuitOpenError:
+                fast = time.perf_counter() - t0
+            time.sleep(0.55)
+            s.flush(wait=True)  # the probe
+            st_closed = overload.breaker_for("flaky").state
+            vals = [float(v) for v in bad] + [float(r)]
+    finally:
+        faults.configure(None)
+        _elastic_env(RAMBA_BREAKER_THRESHOLD=None,
+                     RAMBA_BREAKER_COOLDOWN_S=None)
+        events.remove_tap(seen.append)
+    br_ok = vals == [want[0], want[1], want[5]]
+    out["breaker"] = {"open": st_open, "fail_fast_ms": fast and fast * 1e3,
+                      "after_probe": st_closed}
+    log(f"  serve (e) breaker: two execute faults -> {st_open}, the next "
+        f"submit failed fast in {fast and fast * 1e3:.3f} ms, after the "
+        f"0.5 s cooldown the probe closed it ({st_closed}); values right "
+        f"{br_ok} [{card}]")
+    if not (br_ok and st_open == "open" and fast is not None
+            and st_closed == "closed"):
+        raise Fail("serve (e): the circuit breaker")
+    del x
+    return out
+
+
+def serve_hedge(rt, np, torch, card, window, mods):
+    """(f) Axpy + sum over 2^28 f64 under ``RAMBA_HEDGE_FACTOR=2`` and
+    ``serve:hedge:delay:ms=200``: the hedge fires on a CUDA stream of its
+    own and wins, its sum equals the unhedged one, and the loser's cancel
+    flag stops it when it wakes."""
+    import threading
+
+    from ramba_tpu_torch import serve
+    from ramba_tpu_torch.observe import events, ledger, registry
+    from ramba_tpu_torch.resilience import faults
+
+    x = rt.sin(rt.arange(SERVE_VEC_N) * 1e-3)
+    y = rt.cos(rt.arange(SERVE_VEC_N) * 1e-3)
+    rt.sync()
+    # the hedge's threshold reads the label's p95, which earlier paths'
+    # programs of the same op sequence share: this part builds its own
+    ledger.reset()
+    plain = []
+    with serve.Session(tenant="hedge") as s:
+        for _ in range(6):
+            r = rt.sum(2.5 * x + y)
+            s.flush(wait=True)
+            plain.append(float(r))
+    ab0 = registry.get("elastic.abandoned_commits")
+    f0, w0 = registry.get("serve.hedge.fired"), registry.get(
+        "serve.hedge.won_hedge")
+    _elastic_env(RAMBA_HEDGE_FACTOR=2)
+    faults.configure("serve:hedge:delay:ms=200")
+    seen, undo = _spy_launches(mods)
+    try:
+        with serve.Session(tenant="hedge") as s:
+            def run():
+                r = rt.sum(2.5 * x + y)
+                s.flush(wait=True)
+                return float(r)
+
+            got = window("serve (f) a hedged flush", run, {"elemred": 1})
+        for th in threading.enumerate():
+            if th.name.startswith("ramba-hedge-"):
+                th.join(30)
+    finally:
+        undo()
+        faults.configure(None)
+        _elastic_env(RAMBA_HEDGE_FACTOR=None)
+    res = [e for e in events.last(20, type="hedge")
+           if e.get("action") == "resolved"][-1]
+    fired = registry.get("serve.hedge.fired") - f0
+    won = registry.get("serve.hedge.won_hedge") - w0
+    cancelled = registry.get("elastic.abandoned_commits") - ab0
+    side = [st for fam, th, st in seen if th == "ramba-hedge-hedge"]
+    on_side = bool(side) and all(st != torch.cuda.default_stream()
+                                 for st in side)
+    ok = got == plain[0] and len(set(plain)) == 1
+    log(f"  serve (f) RAMBA_HEDGE_FACTOR=2, serve:hedge delay 200 ms: hedge "
+        f"fired {fired}, won {won} in {res['wall_ms']} ms; its launch on a "
+        f"side CUDA stream {on_side}; loser stopped by its cancel flag "
+        f"({cancelled} abandoned commits); sum equal to the unhedged ones "
+        f"{ok} [{card}]")
+    if not (ok and fired == 1 and won == 1 and on_side and cancelled >= 1):
+        raise Fail("serve (f): hedged dispatch")
+    del x, y
+    return {"win_ms": res["wall_ms"], "cancelled": cancelled}
+
+
+def serve_rank_programs(rt, np, torch, er, sk, sc, rep):
+    """One rank of ``serve_path`` (g), under ``RAMBA_FAULTS=serve:admit:
+    3:rank=1``: a session's five flushes of 10 chained star2 sweeps on
+    8192^2 through the pipeline; which tickets were shed and on which
+    ``serve:shed`` epoch; every block (a shed one healed) against the
+    same program flushed on the default stream."""
+    from ramba_tpu_torch.resilience import faults
+    from ramba_tpu_torch.serve import overload
+
+    st = rt.stencil(star2_body)
+    g = dist_grid(rt, np, (SERVE_GRID, SERVE_GRID))
+    rt.sync()
+
+    def sweeps():
+        y = g
+        for _ in range(SERVE_RANK_SWEEPS):
+            y = rt.sstencil(st, y)
+        return y
+
+    shed, ys = [], []
+
+    def session():
+        with rt.serve.Session(tenant="ranked") as s:
+            tickets = []
+            for k in range(SERVE_RANK_FLUSHES):
+                ys.append(sweeps())
+                tickets.append(s.flush())
+            for k, t in enumerate(tickets):
+                try:
+                    t.wait(120)
+                except overload.ShedError as e:
+                    shed.append([k, e.reason, e.epoch])
+            return [digest(y._block()) for y in ys]
+
+    rep["digests"]["sessions"] = _rank_window(er, sk, sc, "star2", session,
+                                              rep)
+    faults.configure(None)
+    rep["digests"]["star2"] = digest(sweeps()._block())
+    rep["shed"] = shed
+
+
+def serve_ranks(rt, np, torch, card, totals):
+    """(g) Four ranks on cuda:0 over gloo with ``serve:admit:3:rank=1``:
+    every rank sheds the same three flushes on the same epochs, and
+    every block (the shed ones healed) is byte-equal to one process's."""
+    import os
+    import tempfile
+
+    from ramba_tpu_torch import common
+    from ramba_tpu_torch.parallel import mesh as pm
+
+    st = rt.stencil(star2_body)
+    y = dist_grid(rt, np, (SERVE_GRID, SERVE_GRID))
+    for _ in range(SERVE_RANK_SWEEPS):
+        y = rt.sstencil(st, y)
+    t = y._value()
+    dev = common.device()
+    grid2 = pm.Mesh(np.array([dev] * 4, dtype=object).reshape(2, 2),
+                    ("d0", "d1"))
+    sh = pm.NamedSharding(grid2, pm.default_spec(tuple(t.shape), grid2))
+    ref = {pos: digest(t[idx]) for pos, idx in
+           sh.shard_indices(tuple(t.shape))}
+    del t, y
+    with tempfile.TemporaryDirectory(prefix="ramba_serve_ranks_") as tmp:
+        os.makedirs(os.path.join(tmp, f"w{SERVE_RANKS}"))
+        t0 = time.perf_counter()
+        ranks = dist_start(SERVE_RANKS, tmp, ("--serve",),
+                           env=dict(os.environ,
+                                    RAMBA_FAULTS="serve:admit:3:rank=1",
+                                    RAMBA_INIT_TIMEOUT_S="120"))
+        try:
+            reps = dist_wait(ranks, tmp, time.time() + SERVE_LIMIT_S)
+        finally:
+            for p in ranks:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+    sheds = [r["shed"] for r in reps]
+    same_shed = all(s == sheds[0] for s in sheds) and \
+        [k for k, _r, _e in sheds[0]] == [0, 1, 2]
+    blocks = all(all(d == ref[divmod(k, 2)] for d in r["digests"]["sessions"])
+                 and r["digests"]["star2"] == ref[divmod(k, 2)]
+                 for k, r in enumerate(reps))
+    for r in reps:
+        for k in totals:
+            totals[k] += sum(c.get(k, 0) for c in r["launches"].values())
+    log(f"  serve (g) {SERVE_RANKS} ranks on cuda:0, serve:admit:3:rank=1: "
+        f"sheds alike on every rank {same_shed} ({sheds[0]}); every block "
+        f"byte-equal to one process {blocks}; stencil launches a rank "
+        f"{[r['launches']['star2']['stencil'] for r in reps]}; {wall:.1f} s "
+        f"[{card}]")
+    if not (same_shed and blocks):
+        raise Fail("serve (g): the ranks' sheds disagree")
+    return {"shed": sheds[0], "wall_s": wall}
+
+
+def serve_drain(rt, np, torch, card, window, star2):
+    """(h) ``drain_to_checkpoint`` with three sessions whose tickets queue
+    behind a busy worker and whose streams hold pending work: every
+    ticket resolves, the restored state is byte-equal; then
+    ``serving_report()``, ``overload_report()`` and the exporter's
+    ``tenant``-labelled series, scraped on 127.0.0.1."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+
+    from ramba_tpu_torch import diagnostics, serve
+    from ramba_tpu_torch.observe import telemetry
+    from ramba_tpu_torch.resilience import elastic
+
+    pipe = serve.get_pipeline()
+    root = tempfile.mkdtemp(prefix="ramba_serve_drain_")
+    try:
+        held = _Held(pipe)
+        sessions, tickets, tree = [], [], {}
+        for i in range(3):
+            s = serve.Session(tenant=f"drain{i}")
+            s.acquire()
+            try:
+                x = rt.arange(SERVE_SMALL_N * 16) * float(i + 1)
+                tickets.append(s.flush())
+                tree[f"s{i}"] = x + 1.0  # still pending on the stream
+            finally:
+                s.release()
+            sessions.append(s)
+        want = {k: (rt.arange(SERVE_SMALL_N * 16) * float(i + 1) + 1.0)
+                for i, k in enumerate(sorted(tree))}
+        want = {k: v._value().clone() for k, v in want.items()}
+        threading.Timer(0.2, held.release).start()
+        d = elastic.drain_to_checkpoint(root, 7, tree)
+        resolved = all(t.done and t.exception is None for t in tickets)
+        res = elastic.resume(elastic.CheckpointManager(root))
+        same = all(bytes_equal(res.state[k]._value(), want[k])
+                   for k in want)
+        for s in sessions:
+            s.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rep = diagnostics.serving_report()
+    ov = diagnostics.overload_report()
+    port = telemetry.start(port=0)
+    try:
+        body = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                      timeout=10).read().decode()
+    finally:
+        telemetry.stop()
+    series = [ln for ln in body.splitlines()
+              if 'tenant="' in ln and not ln.startswith("#")]
+    fams = sorted({ln.split("{")[0] for ln in series})
+    log(f"  serve (h) drain_to_checkpoint over 3 sessions with queued "
+        f"tickets: every ticket resolved {resolved}, restored state "
+        f"byte-equal {same} ({os.path.basename(d)}) [{card}]")
+    log(f"  serve (h) serving_report: "
+        f"{ {t: (r['flushes'], r['executes'], r['live_bytes'], r.get('e2e_p50_ms')) for t, r in sorted(rep.items())} } "
+        f"(flushes, executes, live bytes, e2e p50 ms); overload_report: "
+        f"brownout {ov['brownout']['state']} transitions "
+        f"{ov['brownout']['transitions']}, sheds {ov['shed']}, breakers "
+        f"{ {t: b['trips'] for t, b in ov['breakers'].items()} } trips, "
+        f"hedge {ov['hedge']} [{card}]")
+    log(f"  serve (h) scraped {len(series)} tenant-labelled samples in "
+        f"families {fams} [{card}]")
+    if not (resolved and same and "ramba_memory_tenant_live_bytes" in fams
+            and "ramba_serve_tenant_flushes_total" in fams):
+        raise Fail("serve (h): drain, reports or the tenant series")
+    return {"families": fams, "tenants": sorted(rep)}
+
+
+def serve_path(rt, er, sk, sg, sc, torch, np, card, window, totals,
+               only=None):
+    """Serving on the card (ROADMAP A.10 part one), (a)-(h) as their
+    functions say; ``only``: the parts to run (all: None).  Every session
+    flush goes through the process's one dispatch worker."""
+    from ramba_tpu_torch import serve
+
+    t0 = time.perf_counter()
+    star2 = rt.stencil(star2_body)
+    mods = {"elemred": er, "stencil": sk, "segred": sg, "scan": sc}
+    out, walls = {}, {}
+
+    def part(name, fn, *a):
+        if only is not None and name not in only:
+            return
+        t = time.perf_counter()
+        out[name] = fn(*a)
+        walls[name] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+
+    try:
+        part("tenants", serve_tenants, rt, np, torch, card, window, star2,
+             mods)
+        part("cse", serve_cse, rt, np, torch, card, window)
+        part("quota", serve_quota, rt, np, torch, card, window)
+        part("deadlines", serve_deadlines, rt, np, torch, card, window,
+             star2)
+        part("overload", serve_overload, rt, np, torch, card, window)
+        part("hedge", serve_hedge, rt, np, torch, card, window, mods)
+        part("ranks", serve_ranks, rt, np, torch, card, totals)
+        part("drain", serve_drain, rt, np, torch, card, window, star2)
+    finally:
+        serve.shutdown()
+    out["wall_s"] = time.perf_counter() - t0
+    out["part_walls_s"] = walls
+    log(f"  serve_path: {out['wall_s']:.1f} s, by part (s) "
+        f"{json.dumps(walls)} [{card}]")
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -8580,6 +9568,20 @@ def main(argv) -> int:
         for k in totals:
             if not totals[k] and only is None:
                 raise Fail(f"observe_path launched no {k}")
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        print(card, flush=True)
+        return 0
+    if "--serve" in argv:  # phase 1 and serve_path alone
+        totals = dict.fromkeys(("elemred", "stencil", "segred", "scan"), 0)
+        window = launch_window(er, sk, sg, sc, totals, card)
+        only = argv[argv.index("--parts") + 1].split(",") \
+            if "--parts" in argv else None
+        out = serve_path(rt, er, sk, sg, sc, torch, np, card, window,
+                         totals, only)
+        log(json.dumps({"serve": out, "launches": totals}, default=str))
+        for k in totals:
+            if not totals[k] and only is None:
+                raise Fail(f"serve_path launched no {k}")
         log(f"total {time.perf_counter() - t_all:.1f} s")
         print(card, flush=True)
         return 0

@@ -30,7 +30,10 @@ along its critical path (``observe.attrib``: the fence is a CUDA event
 pair), with rooflines against the card, a drift sentinel, SLOs
 (``observe.slo``), a Prometheus exporter and a flight recorder
 (``observe.telemetry``), ``torch.profiler`` hooks (``observe.profile``,
-``profiler_trace``) and the whole ``diagnostics`` report.
+``profiler_trace``) and the whole ``diagnostics`` report.  ``serve``
+gives each serving session a flush stream of its own (``serve.Session``),
+an async dispatch pipeline with coalescing, batch CSE and round-robin
+fairness between tenants, tenant quotas and the overload plane.
 
 ``numpy.<fn>`` of port arrays runs the port's function where the port has
 one (``core/interop.py``'s registry, filled below) and raises
@@ -128,6 +131,7 @@ from ramba_tpu_torch.parallel.constraints import (  # noqa: F401
 
 from ramba_tpu_torch.utils.remote import get, jit, remote  # noqa: F401
 from ramba_tpu_torch.utils import debug  # noqa: F401
+from ramba_tpu_torch import serve  # noqa: F401
 from ramba_tpu_torch import diagnostics  # noqa: F401
 from ramba_tpu_torch import observe  # noqa: F401
 from ramba_tpu_torch import utils  # noqa: F401

@@ -1,8 +1,8 @@
 """Flush machinery: lazy expression graphs -> one program per flush.
 
-Counterpart of ``ramba_tpu/core/fuser.py`` without its serving plane.
-A flush
-collects every pending array, applies the graph rewrites
+Counterpart of ``ramba_tpu/core/fuser.py``.  A flush collects the
+pending arrays of one flush stream (the process's default stream, or a
+serving session's: :class:`FlushStream`), applies the graph rewrites
 (``core/rewrite.py``, unless ``RAMBA_TPU_REWRITE=0``), linearizes the graph
 into a buffer-free instruction program, picks a lowering for it and runs it
 once:
@@ -74,6 +74,17 @@ plus ``unattributed_s`` equal ``wall_s``) and feeds the SLO histograms
 (``observe/slo.py``).  The fence is the CUDA event pair around a call,
 one pair per call (``RAMBA_ATTRIB``: on, ``off``, ``sample:<N>``).
 
+A stream's flush is two stages, :func:`_flush_prepare` and
+:func:`_flush_dispatch`: the serve pipeline (``serve/pipeline.py``) runs
+the first on the submitting thread and the second on its dispatch
+worker, with the overload plane's verdict, a memo re-lookup (batch CSE)
+and an abandoned ticket's dropped write-back between them.  Under a
+request deadline (``serve/overload.py``) the ladder drops the rungs whose
+rolling p50 cannot fit the budget, checks expiry before every attempt
+and clamps the watchdog to the remaining budget; under
+``RAMBA_HEDGE_FACTOR`` a certified-pure, reproducible dispatch past its
+threshold races a second attempt.
+
 On a mesh of ranks (several processes) a flush runs through
 ``core/rankflush.py``: on each rank's blocks, or on gathered operands,
 decided before it runs; its programs run through :func:`run_program`.
@@ -133,28 +144,87 @@ _seq = itertools.count()
 
 
 # ---------------------------------------------------------------------------
-# pending registry
+# flush streams
 # ---------------------------------------------------------------------------
+
+_stream_ids = itertools.count(1)
+
+# id(arr) -> the session stream that owns its pending work.  Arrays of the
+# default stream are not entered: with no session open, registering costs
+# the default stream what it did before streams existed.
+_arr_streams: dict = {}
+_reg_lock = threading.RLock()
 
 
 class FlushStream:
-    """Pending registry + flush scope.  The port has one, the process-wide
-    default stream; serving sessions with streams of their own come later."""
+    """Pending registry + flush scope: the process-wide default stream,
+    plus one per serving session (``serve.Session``), as in the
+    reference.  Each stream owns its pending registry, its
+    ``nodes_since_flush`` counter and ``max_pending_ops`` threshold (one
+    tenant's build burst never flushes another tenant's half-built
+    program), its quarantine scope (a failed flush takes only this
+    stream's roots out), and its flush order: ``_flush_lock`` serializes
+    flushes of one stream while different streams flush concurrently.
+    The serving fields (tenant, quota, trace ids, deadline, priority,
+    in-flight tickets) are read only for a session's stream."""
 
-    def __init__(self, name: str = "default"):
-        self.name = name
+    __slots__ = ("stream_id", "name", "tenant", "max_pending_ops",
+                 "quota_bytes", "on_threshold", "inflight", "stats",
+                 "nodes_since_flush", "trace_id", "root_span",
+                 "deadline_ms", "priority",
+                 "_pending", "_lock", "_flush_lock", "__weakref__")
+
+    def __init__(self, name: Optional[str] = None,
+                 tenant: Optional[str] = None,
+                 max_pending_ops: Optional[int] = None,
+                 quota_bytes: Optional[int] = None):
+        self.stream_id = next(_stream_ids)
+        self.name = name or f"stream{self.stream_id}"
+        self.tenant = tenant
+        # None: the process-wide common.max_pending_ops
+        self.max_pending_ops = max_pending_ops
+        # the tenant's device-byte quota, held by memory.admit
+        self.quota_bytes = quota_bytes
+        # set by a serving session: a threshold flush goes through the
+        # async pipeline instead of blocking the building thread
+        self.on_threshold = None
+        # the causal trace a serving session mints
+        self.trace_id: Optional[str] = None
+        self.root_span: Optional[str] = None
+        # the overload plane's per-flush budget and brownout exemption
+        self.deadline_ms: Optional[float] = None
+        self.priority = False
+        # queued tickets (serve/pipeline.py), so drain() and a read can
+        # wait for them
+        self.inflight: list = []
+        self.stats = {"flushes": 0, "nodes_flushed": 0, "quarantined": 0,
+                      "enqueued": 0}
         self.nodes_since_flush = 0
         self._pending: dict[int, "weakref.ref"] = {}
         self._lock = threading.RLock()
         self._flush_lock = threading.RLock()
+        _streams.add(self)
+
+    def __repr__(self):
+        return (f"<FlushStream {self.name!r} tenant={self.tenant!r} "
+                f"pending={len(self._pending)}>")
 
     def register(self, arr) -> None:
         k = id(arr)
 
-        def _cleanup(ref, _k=k, _s=self):
+        # the owner map and its lock are bound here: at interpreter exit
+        # this module's globals may be gone before the last callback
+        def _cleanup(ref, _k=k, _s=self, _owners=_arr_streams,
+                     _olock=_reg_lock):
             with _s._lock:
                 if _s._pending.get(_k) is ref:
                     del _s._pending[_k]
+                else:
+                    return
+            if _owners.get(_k) is _s:
+                with _olock:
+                    if _owners.get(_k) is _s:
+                        del _owners[_k]
 
         with self._lock:
             self._pending[k] = weakref.ref(arr, _cleanup)
@@ -163,8 +233,24 @@ class FlushStream:
         with self._lock:
             self._pending.pop(id(arr), None)
 
+    def pending_arrays(self) -> list:
+        with self._lock:
+            refs = list(self._pending.values())
+        return [a for a in (r() for r in refs) if a is not None]
+
     def pending_roots(self) -> list:
-        """Pending arrays in creation order: the roots of the next flush."""
+        """Pending arrays in creation order: the roots of the next flush
+        (the registry and the node counter are left as they are)."""
+        roots = [a for a in self.pending_arrays()
+                 if not isinstance(a._expr, Const)]
+        roots.sort(key=lambda a: a._seq)
+        return roots
+
+    def _collect(self, *, detach: bool = False) -> list:
+        """The roots of the next flush, with the node counter reset.
+        ``detach`` (the pipeline's enqueue) also takes them out of the
+        registry, so a later flush cannot collect, and run again, the same
+        work; the returned references keep them alive until write-back."""
         with self._lock:
             self.nodes_since_flush = 0
             roots = []
@@ -172,38 +258,154 @@ class FlushStream:
                 a = r()
                 if a is not None and not isinstance(a._expr, Const):
                     roots.append(a)
-        roots.sort(key=lambda a: a._seq)
+            roots.sort(key=lambda a: a._seq)
+            if detach:
+                for a in roots:
+                    self._pending.pop(id(a), None)
+        if detach and roots and _arr_streams:
+            with _reg_lock:
+                for a in roots:
+                    if _arr_streams.get(id(a)) is self:
+                        del _arr_streams[id(a)]
         return roots
 
     def note_node_created(self) -> None:
-        """Forced-flush safety valve for unbounded build loops."""
+        """Forced-flush safety valve for unbounded build loops, per
+        stream."""
         with self._lock:
             self.nodes_since_flush += 1
-            fire = (common.max_pending_ops
-                    and self.nodes_since_flush >= common.max_pending_ops)
+            cap = self.max_pending_ops
+            if cap is None:
+                cap = common.max_pending_ops
+            fire = cap and self.nodes_since_flush >= cap
         if fire:
-            self.flush()
+            hook = self.on_threshold
+            if hook is not None:
+                hook(self)
+            else:
+                self.flush()
 
     def flush(self, extra: Sequence[Expr] = ()) -> list:
-        """Materialize every pending array (and ``extra`` expressions) in
-        one program run.  Returns the values of ``extra`` in order."""
+        """Materialize this stream's pending arrays (and ``extra``
+        expressions) in one program run.  Returns the values of ``extra``
+        in order."""
         with self._flush_lock:
-            return _flush_roots(self, self.pending_roots(), extra)
+            if self is _default_stream and _current_stream.get() is None:
+                # the default stream is the current one already
+                return _flush_roots(self, self._collect(), extra)
+            with stream_scope(self):
+                return _flush_roots(self, self._collect(), extra)
+
+    def drain(self) -> None:
+        """Wait for every queued flush of this stream (serve/pipeline.py)
+        to finish; their failures surface through the tickets and later
+        reads, not here."""
+        if not self.inflight:
+            return
+        for t in list(self.inflight):
+            try:
+                t.wait()
+            except Exception:
+                pass
 
 
-_default_stream = FlushStream()
+# every live stream, weakly: a dropped session's stream is collectable
+_streams: "weakref.WeakSet[FlushStream]" = weakref.WeakSet()
+_default_stream = FlushStream(name="default")
+
+_current_stream: "contextvars.ContextVar[Optional[FlushStream]]" = \
+    contextvars.ContextVar("ramba_flush_stream", default=None)
 
 
-def register_pending(arr) -> None:
-    _default_stream.register(arr)
+def current_stream() -> FlushStream:
+    s = _current_stream.get()
+    return s if s is not None else _default_stream
+
+
+def default_stream() -> FlushStream:
+    return _default_stream
+
+
+def current_tenant() -> Optional[str]:
+    s = _current_stream.get()
+    return s.tenant if s is not None else None
+
+
+# the memory governor files each realized leaf under this tenant
+_memory.tenant_of = current_tenant
+
+
+class stream_scope:
+    """Make ``stream`` the current stream of the calling context: new lazy
+    arrays register on it, and attribution follows it."""
+
+    __slots__ = ("stream", "_token")
+
+    def __init__(self, stream: FlushStream):
+        self.stream = stream
+
+    def __enter__(self):
+        self._token = _current_stream.set(self.stream)
+        return self.stream
+
+    def __exit__(self, *exc):
+        _current_stream.reset(self._token)
+
+
+def activate_stream(stream: FlushStream):
+    """Activation without a ``with`` (``serve.Session.__enter__``); returns
+    the token :func:`deactivate_stream` takes."""
+    return _current_stream.set(stream)
+
+
+def deactivate_stream(token) -> None:
+    _current_stream.reset(token)
+
+
+def all_streams() -> list:
+    """Live streams: the default first, then by creation order."""
+    out = [s for s in list(_streams) if s is not _default_stream]
+    out.sort(key=lambda s: s.stream_id)
+    return [_default_stream] + out
+
+
+def stream_of(arr) -> FlushStream:
+    """The stream that owns ``arr``'s pending work (the current stream
+    when it is pending nowhere: realized or quarantined)."""
+    k = id(arr)
+    s = _arr_streams.get(k) if _arr_streams else None
+    if s is not None:
+        return s
+    if k in _default_stream._pending:
+        return _default_stream
+    return current_stream()
+
+
+def register_pending(arr) -> FlushStream:
+    """Enter ``arr`` in the pending registry of the stream that owns it
+    (the current stream, unless it is pending on another already);
+    returns that stream, whose threshold the caller advances
+    (``note_node_created``)."""
+    k = id(arr)
+    s = _arr_streams.get(k) if _arr_streams else None
+    if s is None:
+        cur = _current_stream.get()
+        if cur is None or cur is _default_stream \
+                or k in _default_stream._pending:
+            _default_stream.register(arr)
+            return _default_stream
+        with _reg_lock:
+            s = _arr_streams.setdefault(k, cur)
+    s.register(arr)
+    return s
 
 
 def unregister_pending(arr) -> None:
-    _default_stream.unregister(arr)
-
-
-def note_node_created() -> None:
-    _default_stream.note_node_created()
+    s = None
+    if _arr_streams:
+        with _reg_lock:
+            s = _arr_streams.pop(id(arr), None)
+    (s if s is not None else _default_stream).unregister(arr)
 
 
 def next_seq() -> int:
@@ -737,7 +939,8 @@ def _execute_compiled(fn, program: _Program, leaf_vals, is_new: bool,
         sync_seconds=device_s if _ledger.sync_timing() else None,
         backend=backend if racing or is_new else None,
         backend_seconds=device_s if racing else None,
-        origin=_origin(before) if is_new else None)
+        origin=_origin(before) if is_new else None,
+        tenant=current_tenant())
     if is_new:
         from ramba_tpu_torch.ops import kernel_backend
 
@@ -873,12 +1076,16 @@ def _verify_if_enabled(program: _Program, leaves, exprs, donate_key: tuple,
 
 class _FlushWork:
     """What one flush carries from :func:`_prepare` to :func:`_dispatch`
-    (the reference's ``_FlushWork``, without its async pipeline)."""
+    (the reference's ``_FlushWork``).  A stream's flush adds its roots,
+    their pins and, when the serve pipeline queued it, when it was
+    enqueued, its deadline and its abandonment probe."""
 
     __slots__ = ("program", "leaves", "exprs", "leaf_vals", "donate_key",
                  "span", "label", "segmented", "class_plan", "key",
                  "fingerprint", "memo_plan", "memo_hit", "plan_cert",
-                 "plan_cache", "routed")
+                 "plan_cache", "routed", "stream", "roots", "root_exprs",
+                 "pins", "detached", "enqueued_at", "deadline",
+                 "is_abandoned", "mesh")
 
     def __init__(self, program, leaves, exprs, leaf_vals, span):
         self.program = program
@@ -889,7 +1096,8 @@ class _FlushWork:
         self.span = span
         self.label = span["label"]
         cap = common.max_program_instrs
-        self.segmented = bool(cap and len(program.instrs) > cap)
+        self.segmented = bool(cap and program is not None
+                              and len(program.instrs) > cap)
         self.class_plan = None
         self.key = None
         self.fingerprint = None
@@ -898,6 +1106,15 @@ class _FlushWork:
         self.plan_cert = None
         self.plan_cache = None
         self.routed = False
+        self.stream = None
+        self.roots = ()
+        self.root_exprs = ()
+        self.pins = ()
+        self.detached = False
+        self.enqueued_at = None
+        self.deadline = None
+        self.is_abandoned = None
+        self.mesh = None
 
 
 def _run_signature_key(program: _Program, leaf_vals, plan) -> tuple:
@@ -1073,13 +1290,13 @@ def _prepare(program: _Program, leaves, exprs, leaf_vals, span: dict,
 # ---------------------------------------------------------------------------
 
 
-def _attempt_fused(work: _FlushWork) -> tuple:
+def _attempt_fused(work: _FlushWork, span: Optional[dict]) -> tuple:
     """The fused rung: the program through the compile cache (by
     segments when it is longer than ``common.max_program_instrs``),
     bucketed when it has a class plan: leaves padded to the bucket,
     outputs sliced back.  Only this rung buckets; the lower rungs run
     exact shapes."""
-    program, span, leaf_vals = work.program, work.span, work.leaf_vals
+    program, leaf_vals = work.program, work.leaf_vals
     if work.segmented:
         return _run_segmented(program, leaf_vals, span)
     plan = work.class_plan
@@ -1134,7 +1351,7 @@ def _record_rung(program: _Program, leaf_vals, outs, rung: str, dt: float,
         _ledger.fingerprint(_cache_key(program, leaf_vals)), label,
         len(program.instrs), rung, dt, False,
         bytes_in=sum(_nbytes(v) for v in leaf_vals),
-        bytes_out=sum(_nbytes(o) for o in outs))
+        bytes_out=sum(_nbytes(o) for o in outs), tenant=current_tenant())
     if span is not None:
         span["calls"].append({"label": label, "cache": rung,
                               "seconds": round(dt, 6)})
@@ -1196,11 +1413,14 @@ def _run_host(program: _Program, leaf_vals, span: Optional[dict]) -> tuple:
     return outs
 
 
-def _rung(work: _FlushWork, name: str):
-    """The thunk that runs ``work``'s program on rung ``name``."""
-    program, leaf_vals, span = work.program, work.leaf_vals, work.span
+def _rung(work: _FlushWork, name: str, span: Optional[dict] = None):
+    """The thunk that runs ``work``'s program on rung ``name``, stamping
+    ``span`` (default: the flush's; a hedged attempt's private copy)."""
+    program, leaf_vals = work.program, work.leaf_vals
+    if span is None:
+        span = work.span
     if name == "fused":
-        fn = lambda: _attempt_fused(work)  # noqa: E731
+        fn = lambda: _attempt_fused(work, span)  # noqa: E731
     elif name == "split":
         cap = common.max_program_instrs or len(program.instrs)
         half = max(1, min(len(program.instrs), cap) // 2)
@@ -1254,21 +1474,51 @@ def rungs_for(n_instrs: Optional[int], skip_fused: bool = False,
     return names
 
 
+def _deadline_checked(name: str, fn, wd: Optional[float], deadline,
+                      label: str, tenant: Optional[str]):
+    """:func:`_checked` under a request deadline: expiry is checked at the
+    top of the attempt, and the watchdog is clamped to ``min(wd,
+    remaining)`` when the attempt starts (the earlier rungs have spent
+    part of the budget)."""
+    from ramba_tpu_torch.serve import overload as _overload
+
+    def guarded():
+        _overload.check_expired(deadline, label, tenant=tenant)
+        return _checked(name, fn, _overload.clamp_watchdog(wd, deadline))()
+
+    return guarded
+
+
 def _execute_resilient(work: _FlushWork, route_chunked: bool = False,
-                       whole: bool = True, wd: Optional[float] = None):
+                       whole: bool = True, wd: Optional[float] = None,
+                       span: Optional[dict] = None):
     """Run the flush down the degradation ladder
     (``resilience/degrade.py``): fused → split → chunked → eager → host
     (``whole``: :func:`_whole_job`; else no host rung and no round).
     Returns ``(outs, rung)``.  Each rung attempt runs under the elastic
     watchdog when ``wd`` (``RAMBA_WATCHDOG_S``, which :func:`_dispatch`
-    reads once a flush) is set.  The reference's deadline pruning and
-    hedging, and its clamp of the watchdog to a request's deadline, come
-    with serving (ROADMAP A.10)."""
+    reads once a flush) is set.  Under a request deadline
+    (``serve/overload.py``) the rungs whose rolling p50 cannot fit the
+    remaining budget are dropped, every attempt checks expiry first, and
+    the watchdog is clamped to the remaining budget.  ``span``: the one
+    the rungs stamp (a hedged attempt's private copy)."""
     names = rungs_for(len(work.program.instrs), work.routed, route_chunked,
                       whole)
-    return _degrade.run_ladder(
-        "flush", [(n, _checked(n, _rung(work, n), wd)) for n in names],
-        coherent=whole and _coherence.engaged())
+    tenant = work.stream.tenant if work.stream is not None else None
+    tags = {"tenant": tenant} if tenant is not None else None
+    deadline = work.deadline
+    if deadline is None:
+        rungs = [(n, _checked(n, _rung(work, n, span), wd)) for n in names]
+    else:
+        from ramba_tpu_torch.serve import overload as _overload
+
+        rungs = _overload.prune_rungs([(n, _rung(work, n, span))
+                                       for n in names], deadline,
+                                      work.label, tenant=tenant)
+        rungs = [(n, _deadline_checked(n, fn, wd, deadline, work.label,
+                                       tenant)) for n, fn in rungs]
+    return _degrade.run_ladder("flush", rungs, tags=tags,
+                               coherent=whole and _coherence.engaged())
 
 
 def _with_magnitudes(program: _Program, leaf_vals):
@@ -1376,16 +1626,34 @@ def _dispatch_traced(work: _FlushWork, rung: Optional[str]) -> tuple:
         if rung is None:
             whole = _whole_job()
             wd = _elastic.watchdog_seconds()  # the flush's one read
+            stream = work.stream
+            tenant = quota = None
+            if stream is not None and stream is not _default_stream:
+                tenant, quota = stream.tenant, stream.quota_bytes
             with _coherence.flush_scope(wd):
                 t_admit = time.perf_counter()
                 route = _memory.admit(program, leaf_vals, (), span,
+                                      tenant=tenant, quota=quota,
                                       coherent=whole,
                                       fingerprint=work.fingerprint)
                 _attrib.add_stage(span, "admit",
                                   time.perf_counter() - t_admit)
+                hedge_s = None
+                if os.environ.get("RAMBA_HEDGE_FACTOR") and not work.routed:
+                    from ramba_tpu_torch.serve import overload as _overload
+
+                    hedge_s = _overload.hedge_threshold(
+                        work.label, program, (), leaf_vals)
                 pre = sum(stages.get(k, 0.0) for k in _CALL_STAGES)
                 t_ladder = time.perf_counter()
-                outs, rung = _execute_resilient(work, route, whole, wd)
+                if hedge_s is None:
+                    outs, rung = _execute_resilient(work, route, whole, wd)
+                else:
+                    outs, rung = _overload.run_hedged(
+                        lambda hspan: _execute_resilient(
+                            work, route, whole, wd, span=hspan),
+                        hedge_s, span=span, label=work.label,
+                        tenant=tenant, leaf_vals=leaf_vals)
             audit = rung == "fused"
         else:
             pre = sum(stages.get(k, 0.0) for k in _CALL_STAGES)
@@ -1414,7 +1682,8 @@ def _dispatch_traced(work: _FlushWork, rung: Optional[str]) -> tuple:
             _memo.insert(work.memo_plan, list(outs))
         except Exception:
             _registry.inc("memo.insert_failed")
-    _finish_span(span, outs, t_writeback, work.fingerprint)
+    _finish_span(span, outs, t_writeback, work.fingerprint,
+                 e2e=work.enqueued_at is None)
     return outs
 
 
@@ -1436,7 +1705,9 @@ def _finish_memo_span(work: _FlushWork, outs) -> None:
     _ledger.record_memo_hit(work.fingerprint, work.label)
     _events.emit(span)
     _slo.observe_span(span)
-    _slo.observe_e2e(span["wall_s"], span=span)
+    if work.enqueued_at is None:  # a queued ticket's e2e is the pipeline's
+        _slo.observe_e2e(span["wall_s"], tenant=span.get("tenant"),
+                         span=span)
     _elastic.note_progress("flush")
 
 
@@ -1455,11 +1726,12 @@ def _new_span(program: _Program, leaf_vals,
 
 
 def _finish_span(span: dict, outs, t_writeback: float,
-                 fp: Optional[str]) -> None:
+                 fp: Optional[str], e2e: bool = True) -> None:
     """The span's totals from its calls; its ``write_back`` stage (from
     ``t_writeback``, the ladder's return), its finalized waterfall; then
-    the ``flush`` event, the slow-flush sentinel and the SLO
-    histograms."""
+    the ``flush`` event, the slow-flush sentinel and the SLO histograms
+    (the end-to-end one unless the serve pipeline observes it: ``e2e``
+    False for a queued ticket)."""
     calls = span["calls"]
     span["segments"] = len(calls) - 1 if len(calls) > 1 else 0
     span["compile_s"] = round(
@@ -1476,7 +1748,9 @@ def _finish_span(span: dict, outs, t_writeback: float,
     _events.emit(span)
     _ledger.observe_flush(span)
     _slo.observe_span(span)
-    _slo.observe_e2e(span["wall_s"], span=span)
+    if e2e:
+        _slo.observe_e2e(span["wall_s"], tenant=span.get("tenant"),
+                         span=span)
     _elastic.note_progress("flush")
 
 
@@ -1524,29 +1798,54 @@ def verify_whole(exprs) -> bool:
     return routed
 
 
-def _quarantine(stream: FlushStream, roots: list,
+def _quarantine(stream: Optional[FlushStream], roots,
                 error: Optional[BaseException] = None,
                 label: Optional[str] = None) -> None:
     """The roots of a program that raised leave the pending registry, or
-    the one broken graph would re-enter, and re-fail, every later flush.
-    They keep their lazy graphs: a later read re-runs each one alone
-    (``ndarray._value``), so an array that did not cause the error still
-    gets its value and a broken one raises its own error again.  Emits
-    the reference's ``flush_error`` event (an incident: the trace's tail
-    latch and the flight recorder key on it), with the agreed epoch of
-    the ladder's last round where there was one."""
+    the one broken graph would re-enter, and re-fail, every later flush
+    of their stream.  They keep their lazy graphs: a later read re-runs
+    each one alone (``ndarray._value``), so an array that did not cause
+    the error still gets its value and a broken one raises its own error
+    again.  Per stream: another stream's pending work is untouched.
+    Emits the reference's ``flush_error`` event (an incident: the trace's
+    tail latch and the flight recorder key on it), with the tenant and
+    the agreed epoch of the ladder's last round where there are any."""
     for arr in roots:
-        stream.unregister(arr)
+        unregister_pending(arr)
     n = len(roots)
     with _stats_lock:
         stats["quarantined"] += n
+    if stream is not None:
+        stream.stats["quarantined"] += n
     _registry.inc("resilience.flush_quarantined", n)
     ev = {"type": "flush_error", "label": label, "quarantined": n,
           "error": f"{type(error).__name__}: {error}"[:300]}
+    if stream is not None and stream.tenant is not None:
+        ev["tenant"] = stream.tenant
     epoch = _coherence.last_epoch("flush:rung")
     if epoch:
         ev["coherence_epoch"] = epoch
     _events.emit(ev)
+
+
+def _release(work: _FlushWork) -> None:
+    """Unpin the flush's leaves and run the end-of-flush hooks."""
+    if work.pins:
+        _memory.ledger.unpin(work.pins)
+    work.pins = ()
+    for hook in after_flush:
+        hook()
+
+
+def _flush_discard(work: _FlushWork) -> None:
+    """Let go of prepared work that is not run (the overload plane shed
+    it, a full queue refused it, its ticket was abandoned): no failure,
+    so no quarantine and no ``flush_error``; the roots leave the pending
+    set with their lazy graphs, and each array heals on its next read."""
+    for arr in work.roots:
+        unregister_pending(arr)  # nothing to do for detached work
+    _release(work)
+    work.leaf_vals = None
 
 
 _KEEPS_LAYOUT = frozenset({"map", "cast", "round"})
@@ -1584,43 +1883,166 @@ def _result_layout(expr, mesh):
     return sh
 
 
-def _flush_roots(stream: FlushStream, roots: list,
-                 extra: Sequence[Expr]) -> list:
-    mesh = _mesh.get_mesh()
-    if _mesh.is_rank_mesh(mesh):
-        from ramba_tpu_torch.core import rankflush
+def _serving_fields(stream: FlushStream, span: dict) -> None:
+    """A session stream's span: its stream, tenant and trace (the flush
+    gets a span id of its own, chained to the session's root)."""
+    span["stream"] = stream.name
+    if stream.tenant is not None:
+        span["tenant"] = stream.tenant
+    if stream.trace_id is not None:
+        span["trace_id"] = stream.trace_id
+        span["span_id"] = _telemetry.mint_id()
+        span["parent_span"] = stream.root_span
 
-        return rankflush.flush_roots(stream, roots, extra, mesh)
+
+def _flush_prepare(stream: FlushStream, roots: list,
+                   extra: Sequence[Expr] = (), *,
+                   detached: bool = False) -> Optional[_FlushWork]:
+    """Stage 1 of a stream's flush: rewrite + linearize, the leaves
+    gathered and pinned, the span opened, :func:`_prepare`, the request
+    deadline minted.  The serve pipeline runs this on the submitting
+    thread.  None when there is nothing to run.  A failure here
+    quarantines the roots and raises."""
     root_exprs = [a._expr for a in roots]
     exprs = root_exprs + list(extra)
     if not exprs:
-        return []
+        return None
+    mesh = _mesh.get_mesh()
+    if _mesh.is_rank_mesh(mesh):
+        # on a mesh of ranks the whole flush runs in core/rankflush.py at
+        # dispatch: the work carries its roots and its extra expressions
+        # (``exprs``)
+        span = {"type": "flush", "label": "rank_flush", "calls": [],
+                "stages": {}}
+        if stream is not _default_stream:
+            _serving_fields(stream, span)
+        work = _FlushWork(None, None, list(extra), None, span)
+    else:
+        work = _prepare_local(stream, roots, exprs)
+    work.stream, work.roots, work.root_exprs = stream, roots, root_exprs
+    work.mesh = mesh
+    work.detached = detached
+    if stream.deadline_ms is not None or os.environ.get("RAMBA_DEADLINE_MS"):
+        from ramba_tpu_torch.serve import overload as _overload
+
+        work.deadline = _overload.mint_deadline(stream.deadline_ms)
+        if work.deadline is not None:
+            work.span["deadline_ms"] = work.deadline.budget_ms
+    return work
+
+
+def _prepare_local(stream: FlushStream, roots: list, exprs: list):
+    """:func:`_flush_prepare` in one process: the program, its pinned
+    leaves, its span and :func:`_prepare`."""
     t_flush = time.perf_counter()
     program = None
+    pins = ()
     try:
         program, leaves, exprs = _prepare_program(exprs)
         leaf_vals = [leaf_value(leaf) for leaf in leaves]
         # a flush's leaves are never spill candidates while it runs
         pins = _memory.ledger.pin_values(leaf_vals)
-        try:
-            span = _new_span(program, leaf_vals, t_flush)
-            work = _prepare(program, leaves, exprs, leaf_vals, span)
-            outs = _dispatch(work)
-            del work
-        finally:
-            _memory.ledger.unpin(pins)
-            for hook in after_flush:
-                hook()
+        span = _new_span(program, leaf_vals, t_flush)
+        if stream is not _default_stream:
+            _serving_fields(stream, span)
+        work = _prepare(program, leaves, exprs, leaf_vals, span)
     except Exception as e:
+        if pins:
+            _memory.ledger.unpin(pins)
+        for hook in after_flush:
+            hook()
         _quarantine(stream, roots, e, _program_label(program)
                     if program is not None else None)
         raise
-    for arr, expr, val in zip(roots, root_exprs, outs):
-        arr._set_expr(Const(val, sharding=_result_layout(expr, mesh)))
+    work.pins = pins
+    return work
+
+
+def _flush_dispatch(work: _FlushWork, *, coalesced: int = 0) -> list:
+    """Stage 2 of a stream's flush: the overload plane's verdict (queued
+    or deadlined work), the memo looked up again for queued work (an
+    earlier ticket of the same key may have filled it: batch CSE), the
+    run (:func:`_dispatch`), then write-back into the roots (not when
+    the ticket was abandoned meanwhile, nor into a root whose expression
+    changed).  Returns the values of the extra expressions.  Runs on the
+    calling thread or on the serve pipeline's worker."""
+    span, stream = work.span, work.stream
+    try:
+        if work.enqueued_at is not None:
+            queue_s = time.perf_counter() - work.enqueued_at
+            span["queue_s"] = round(queue_s, 6)
+            # the pipeline billed group pop -> this ticket as coalesce
+            _attrib.add_stage(span, "queue_wait", queue_s - span[
+                "stages"].get("coalesce", 0.0))
+        if coalesced > 1:
+            span["coalesced"] = coalesced
+        if work.deadline is not None or work.enqueued_at is not None:
+            from ramba_tpu_torch.serve import overload as _overload
+
+            try:
+                _overload.dispatch_verdict(
+                    deadline=work.deadline, enqueued_at=work.enqueued_at,
+                    tenant=stream.tenant, priority=stream.priority,
+                    label=work.label)
+            except _overload.OverloadError:
+                _flush_discard(work)
+                raise
+            if work.memo_hit is None and work.memo_plan is not None \
+                    and work.enqueued_at is not None:
+                try:
+                    work.memo_hit = _memo.lookup(work.memo_plan)
+                except Exception:
+                    work.memo_hit = None
+        if work.program is None:  # a mesh of ranks: rankflush writes back
+            from ramba_tpu_torch.core import rankflush
+
+            n0 = stats["nodes_flushed"]
+            got = rankflush.flush_roots(stream, work.roots, work.exprs,
+                                        work.mesh)
+            if stream is not _default_stream:
+                stream.stats["flushes"] += 1
+                stream.stats["nodes_flushed"] += stats["nodes_flushed"] - n0
+            return got
+        try:
+            outs = _dispatch(work)
+        except Exception as e:
+            _quarantine(stream, work.roots, e, work.label)
+            raise
+    finally:
+        if work.pins or work.leaf_vals is not None:
+            _release(work)
+        work.leaf_vals = None
+    n = len(work.program.instrs)
     with _stats_lock:
         stats["flushes"] += 1
-        stats["nodes_flushed"] += len(program.instrs)
+        stats["nodes_flushed"] += n
+    if stream is not _default_stream:  # a session's bookkeeping only
+        stream.stats["flushes"] += 1
+        stream.stats["nodes_flushed"] += n
+        if stream.tenant is not None:
+            _registry.inc(f"serve.tenant.{stream.tenant}.flushes")
+            _registry.inc(f"serve.tenant.{stream.tenant}.nodes", n)
+    roots = work.roots
+    if work.is_abandoned is not None and work.is_abandoned() \
+            and not _coherence.engaged():
+        # no one reads this ticket: its arrays keep their graphs and
+        # heal on their next read
+        _registry.inc("serve.abandoned_late")
+    else:
+        mesh = work.mesh
+        for arr, expr, val in zip(roots, work.root_exprs, outs):
+            if arr._expr is expr:  # a newer graph written meanwhile wins
+                arr._set_expr(Const(val, sharding=_result_layout(expr,
+                                                                 mesh)))
     return list(outs[len(roots):])
+
+
+def _flush_roots(stream: FlushStream, roots: list,
+                 extra: Sequence[Expr]) -> list:
+    work = _flush_prepare(stream, roots, extra)
+    if work is None:
+        return []
+    return _flush_dispatch(work)
 
 
 # ---------------------------------------------------------------------------
@@ -1629,31 +2051,48 @@ def _flush_roots(stream: FlushStream, roots: list,
 
 
 def flush(extra: Sequence[Expr] = ()) -> list:
-    """Materialize every pending array (and ``extra`` expressions) in one
-    program run.  Returns the values of ``extra`` in order."""
-    return _default_stream.flush(extra)
+    """Materialize every pending array of the current stream (and
+    ``extra`` expressions) in one program run.  Returns the values of
+    ``extra`` in order."""
+    return current_stream().flush(extra)
+
+
+def flush_for(arr, extra: Sequence[Expr] = ()) -> list:
+    """Flush the stream that owns ``arr``'s pending work, whichever stream
+    is current and from any thread, after its queued tickets have run: a
+    read chases the work to where it was built."""
+    s = stream_of(arr)
+    s.drain()
+    return s.flush(extra)
 
 
 def sync() -> None:
-    """Flush pending work and wait for the device to finish it."""
-    _default_stream.flush()
+    """Flush every stream, wait for their queued tickets, and wait for
+    the device to finish."""
+    streams = all_streams()
+    for s in streams:
+        s.flush()
+    for s in streams:
+        s.drain()
     dev = common.device()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
 
-def realize(expr: Expr) -> Const:
+def realize(expr: Expr, stream: Optional[FlushStream] = None) -> Const:
     """One expression run alone into a leaf (on a mesh of ranks, this
-    rank's block of it)."""
+    rank's block of it), flushed with ``stream``'s pending work (default:
+    the current stream's)."""
+    stream = stream if stream is not None else current_stream()
     mesh = _mesh.get_mesh()
     if _mesh.is_rank_mesh(mesh):
         from ramba_tpu_torch.core import rankflush
 
         holder = _Holder(expr)
-        with _default_stream._flush_lock:
-            rankflush.flush_roots(_default_stream, [holder], (), mesh)
+        with stream._flush_lock:
+            rankflush.flush_roots(stream, [holder], (), mesh)
         return holder._expr
-    return Const(flush(extra=[expr])[0])
+    return Const(stream.flush(extra=[expr])[0])
 
 
 class _Holder:
@@ -1687,7 +2126,7 @@ def analyze_pending() -> Optional[dict]:
     from ramba_tpu_torch.compile.classes import _itemsize, slot_avals
     from ramba_tpu_torch.core.expr import aval_of
 
-    exprs = [a._expr for a in _default_stream.pending_roots()]
+    exprs = [a._expr for a in current_stream().pending_roots()]
     if not exprs:
         return None
     if common.rewrite_enabled:

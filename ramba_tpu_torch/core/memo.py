@@ -43,8 +43,10 @@ The ``memo:insert`` / ``memo:hit`` fault sites corrupt the certifier
 into approving an impure program — the seeded violation the rule exists
 to catch.
 
-Left for later: the shared (fleet artifact) tier, ``RAMBA_MEMO_SHARED``
-(:data:`SHARED`).
+Batch CSE lives in the serve pipeline (``serve/pipeline.py``): a queued
+flush looks the memo up again at dispatch, so tickets of one batch with
+the same key share one execution.  Left for later: the shared (fleet
+artifact) tier, ``RAMBA_MEMO_SHARED`` (:data:`SHARED`).
 """
 
 from __future__ import annotations
@@ -71,9 +73,8 @@ from ramba_tpu_torch.resilience.spill import SpilledArray as _SpilledArray
 _OFF = ("", "0", "off", "false", "no")
 
 SHARED = ("the shared (fleet artifact) tier of the result memo and the plan "
-          "cache, RAMBA_MEMO_SHARED, publish and adoption: ROADMAP A.10")
-CSE = ("the serving plane's batch CSE (queued flushes re-looking up the "
-       "result cache at dispatch): ROADMAP A.10")
+          "cache, RAMBA_MEMO_SHARED, publish and adoption: ROADMAP A.10 "
+          "part two")
 
 
 def enabled() -> bool:
@@ -350,15 +351,10 @@ cache = ResultCache()
 
 
 def _check_shared() -> None:
-    """The shared tier is ROADMAP A.10's: asking for it raises."""
+    """The shared tier is ROADMAP A.10 part two's: asking for it raises."""
     if (os.environ.get("RAMBA_MEMO_SHARED") or "").strip().lower() \
             not in _OFF:
         raise NotImplementedError(SHARED)
-
-
-def batch_cse(*_args, **_kwargs):
-    """The serving plane's batch CSE: ROADMAP A.10."""
-    raise NotImplementedError(CSE)
 
 
 def evict(plan: Optional["MemoPlan"]) -> bool:

@@ -195,8 +195,7 @@ class ndarray:
             fuser.owner_incref(new)
             fuser.unregister_pending(self)
         else:
-            fuser.register_pending(self)
-            fuser.note_node_created()
+            fuser.register_pending(self).note_node_created()
 
     def __del__(self):
         # the memory governor's ledger forgets a leaf with its last owner
@@ -273,12 +272,13 @@ class ndarray:
     def _const(self) -> Const:
         """The realized leaf of a base array (flushes lazy work)."""
         if not isinstance(self._expr, Const):
-            fuser.flush()
+            # the stream that owns the work, from any thread or session
+            fuser.flush_for(self)
         if not isinstance(self._expr, Const):
             # still lazy after a flush: a failed flush quarantined this
-            # array; its graph runs again alone and raises its own error
-            # if it is the broken one
-            self._set_expr(fuser.realize(self._expr))
+            # array (or a shed discarded it); its graph runs again alone
+            # and raises its own error if it is the broken one
+            self._set_expr(fuser.realize(self._expr, fuser.stream_of(self)))
         return self._expr
 
     def _value(self) -> torch.Tensor:
@@ -290,7 +290,10 @@ class ndarray:
             c = self._const()
             return fuser.gather_const(c) if c.is_block else \
                 fuser.leaf_value(c)
-        return fuser.flush(extra=[self.read_expr()])[0]
+        base = self._base
+        while base._base is not None:
+            base = base._base
+        return fuser.flush_for(base, extra=[self.read_expr()])[0]
 
     def _block(self) -> torch.Tensor:
         """This rank's block of the array (the whole array in one

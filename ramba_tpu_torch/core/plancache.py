@@ -504,13 +504,18 @@ def class_plan_from(cert: _plancert.PlanCertificate) -> Optional[Any]:
 
 def _check_shared() -> None:
     """Adoption from the shared tier (``RAMBA_ARTIFACTS``) is ROADMAP
-    A.10's: asking for it raises."""
+    A.10 part two's: asking for it raises."""
     if os.environ.get("RAMBA_ARTIFACTS"):
         raise NotImplementedError(SHARED)
 
 
 def publish(cert: Optional[_plancert.PlanCertificate]) -> bool:
-    """Write a certificate to the shared artifact tier: ROADMAP A.10."""
+    """Write a certificate to the shared artifact tier, as the serve
+    pipeline does for every freshly certified plan.  False while the tier
+    is off (``RAMBA_ARTIFACTS`` unset), as in the reference; the tier
+    itself is ROADMAP A.10 part two's, so asking for it raises."""
+    if cert is None or not os.environ.get("RAMBA_ARTIFACTS"):
+        return False
     raise NotImplementedError(SHARED)
 
 

@@ -10,10 +10,9 @@ Counterpart of ``ramba_tpu/diagnostics.py``: the counter registry, the
 timers and the event ring (flush spans, health records) in one place,
 with the memory governor, the cost ledger with its attribution section
 (stage waterfalls, rooflines, the drift sentinel), the SLO histograms,
-the elastic plane, the result memo, the plan cache, the integrity plane
-and the observer tax.  ``serving_report`` and ``overload_report`` come
-with serve sessions (ROADMAP A.10): they raise, and :func:`snapshot` and
-:func:`report` leave their sections out.  ``python -m
+the elastic plane, the serving plane (per-tenant rollup and overload
+control), the result memo, the plan cache, the integrity plane and the
+observer tax.  ``python -m
 ramba_tpu_torch.diagnostics [--json] [-o PATH]`` dumps the snapshot.
 """
 
@@ -173,19 +172,22 @@ def _compile_section(perf_snap: dict) -> dict:
     }}
 
 
-SERVING = "serve sessions and their overload control: ROADMAP A.10"
-
-
 def serving_report() -> dict:
-    """Per-tenant serving rollup: comes with serve sessions (ROADMAP
-    A.10)."""
-    raise NotImplementedError(SERVING)
+    """Per-tenant serving rollup (flushes, nodes, quota rejects, kernel
+    executions, resident bytes, e2e latency): empty outside
+    ``serve.Session`` use."""
+    from ramba_tpu_torch import serve as _serve
+
+    return _serve.tenant_report()
 
 
 def overload_report() -> dict:
-    """Overload-control rollup: comes with serve sessions (ROADMAP
-    A.10)."""
-    raise NotImplementedError(SERVING)
+    """Overload-control rollup (serve/overload.py): brownout state and
+    transition history, per-tenant circuit-breaker states/trips,
+    shed/hedge counters, CoDel drops, deadline rung skips."""
+    from ramba_tpu_torch.serve import overload as _overload
+
+    return _overload.report()
 
 
 def elastic_report() -> dict:
@@ -263,10 +265,17 @@ def snapshot() -> dict:
     snap["events"] = _events.snapshot_ring()
     snap["memory"] = memory_report()
     snap["perf"] = perf_report()
+    serving = serving_report()
+    if serving:
+        snap["serving"] = serving
     slo = slo_report()
     if any(slo.get("histograms", {}).values()):
         snap["slo"] = slo
     snap["elastic"] = elastic_report()
+    ov = overload_report()
+    if (ov["shed_total"] or ov["breakers"] or ov["hedge"]
+            or ov["brownout"]["transitions"]):
+        snap["overload"] = ov
     memo = memo_report()
     if memo["enabled"] or memo["inserts"] or memo["hits"]:
         snap["memo"] = memo
@@ -459,6 +468,46 @@ def report(file=None) -> None:
             causes = " ".join(f"{c}={n}" for c, n in
                               sorted(plan["stale_causes"].items()))
             print(f"  stale causes: {causes}", file=file)
+    serving = serving_report()
+    if serving:
+        print("-- serving (per tenant) --", file=file)
+        for tenant in sorted(serving):
+            row = serving[tenant]
+            print(
+                f"  {tenant:<20s} flushes={row['flushes']:<6d}"
+                f" nodes={row['nodes']:<8d} execs={row['executes']:<6d}"
+                f" live={row['live_bytes']:,d}B"
+                f" quota_rejects={row['quota_rejects']}",
+                file=file,
+            )
+    ov = overload_report()
+    if (ov["shed_total"] or ov["breakers"] or ov["hedge"]
+            or ov["brownout"]["transitions"]):
+        print("-- overload control --", file=file)
+        b = ov["brownout"]
+        print(
+            f"  brownout={b['state']} (for {b['since_s']:.1f}s)"
+            f" sheds={ov['shed_total']}"
+            f" codel_drops={ov['codel_drops']}"
+            f" rung_skips={ov['deadline_rung_skips']}",
+            file=file,
+        )
+        if ov["shed"]:
+            reasons = " ".join(f"{k}={v}"
+                               for k, v in sorted(ov["shed"].items()))
+            print(f"  shed by reason: {reasons}", file=file)
+        for tenant in sorted(ov["breakers"]):
+            br = ov["breakers"][tenant]
+            print(
+                f"  breaker {tenant:<20s} state={br['state']:<9s}"
+                f" trips={br['trips']}"
+                f" recent_failures={br['recent_failures']}",
+                file=file,
+            )
+        if ov["hedge"]:
+            bits = " ".join(f"{k}={v}"
+                            for k, v in sorted(ov["hedge"].items()))
+            print(f"  hedge: {bits}", file=file)
     el = elastic_report()
     lc = lifecycle_events()
     if (el["heartbeat_running"] or el["stalls"] or el["checkpoints"]

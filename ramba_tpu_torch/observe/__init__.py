@@ -8,7 +8,7 @@ in-memory ring, optional JSONL file), the counter registry
 drift sentinel (``attrib``), SLO histograms (``slo``), trace context, the
 Prometheus exporter and the flight recorder (``telemetry``) and
 ``torch.profiler`` hooks (``profile``).  Fleet snapshots
-(``observe/fleet.py``) come with serving (ROADMAP A.10).
+(``observe/fleet.py``) come with the fleet (ROADMAP A.10 part two).
 
 Environment variables:
 

@@ -7,8 +7,8 @@ module answers the questions the ledger cannot:
 * **Where does a flush's wall-clock go?**  Every flush span carries a
   ``stages`` dict stamped along the critical path of ``core/fuser.py``
   (``trace / prepare / verify / compile / admit / dispatch /
-  device_execute / write_back``; ``queue_wait`` and ``coalesce`` belong
-  to the serve pipeline, ROADMAP A.10, and are not stamped yet), and
+  device_execute / write_back``; a ticket of the serve pipeline adds
+  ``queue_wait`` and ``coalesce``, stamped at its dispatch), and
   :func:`finalize_span` folds the residual into ``unattributed_s``, so
   the stages plus the residual equal ``wall_s``.
 
@@ -78,8 +78,7 @@ STAGES = (
                        # proof, fingerprint, memo certification, plan
                        # cache (skippable via a plan certificate)
     "verify",          # RAMBA_VERIFY eager shadow evaluation
-    "queue_wait",      # serve pipeline: submit -> group pop (not stamped
-                       # until serving is ported, ROADMAP A.10)
+    "queue_wait",      # serve pipeline: submit -> group pop
     "coalesce",        # serve pipeline: group pop -> this ticket's dispatch
     "compile",         # cache-miss call: kernel build or plan, or the
                        # generic lowering's first run

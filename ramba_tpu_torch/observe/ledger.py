@@ -44,6 +44,7 @@ Environment: ``RAMBA_PERF`` (unset/0: ledger on, cost with the fence;
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import threading
@@ -254,7 +255,8 @@ class KernelEntry:
         "compile_class", "pad_waste",
         "exec", "sync", "bytes_in", "bytes_out",
         "hits", "misses", "evicts", "memo_hits", "rungs",
-        "flops", "bytes_accessed", "_cost_tried", "backends",
+        "flops", "bytes_accessed", "_cost_tried", "backends", "tenants",
+        "warm_compiles", "warm_compile_s",
     )
 
     def __init__(self, label: str = "?", instrs: int = 0):
@@ -279,6 +281,12 @@ class KernelEntry:
         self.bytes_accessed: Optional[float] = None
         self._cost_tried = False
         self.backends: dict = {}
+        # tenant -> executions (serving attribution; empty outside it)
+        self.tenants: dict = {}
+        # compiles paid inside compile_source("warm") (serve pipeline's
+        # warm tickets)
+        self.warm_compiles = 0
+        self.warm_compile_s = 0.0
 
     def backend(self, name: str) -> BackendStats:
         b = self.backends.get(name)
@@ -316,13 +324,42 @@ class KernelEntry:
         if self.backends:
             out["backends"] = {name: b.summary()
                                for name, b in self.backends.items()}
+        if self.tenants:
+            out["tenants"] = dict(self.tenants)
+        if self.warm_compiles:
+            out["warm_compiles"] = self.warm_compiles
+            out["warm_compile_s"] = round(self.warm_compile_s, 6)
         return out
 
 
 _kernels: "dict[str, KernelEntry]" = {}
 # flush-program label -> rolling wall window (sentinel state)
 _flush_walls: "dict[str, _Rolling]" = {}
+# (label, rung) -> rolling wall window: the deadline-aware ladder
+# (serve/overload.prune_rungs) reads each rung's own p50
+_rung_walls: "dict[tuple, _Rolling]" = {}
 _slow_flushes = 0
+
+# Where compiles come from (thread-local): the serve pipeline runs a warm
+# ticket's thunk in compile_source("warm"), so every compile it triggers
+# is filed on the warm side.
+_compile_source = threading.local()
+
+
+@contextlib.contextmanager
+def compile_source(source: str):
+    """Scope within which compiles are attributed to ``source``
+    (``"warm"`` for warm tickets; the default is ``"demand"``)."""
+    prev = getattr(_compile_source, "value", None)
+    _compile_source.value = source
+    try:
+        yield
+    finally:
+        _compile_source.value = prev
+
+
+def current_compile_source() -> str:
+    return getattr(_compile_source, "value", None) or "demand"
 
 
 def _entry(fp: str, label: Optional[str] = None,
@@ -398,13 +435,16 @@ def record_execute(fp: str, label: str, instrs: int, rung: str,
                    sync_seconds: Optional[float] = None,
                    backend: Optional[str] = None,
                    origin: Optional[str] = None,
-                   backend_seconds: Optional[float] = None) -> None:
+                   backend_seconds: Optional[float] = None,
+                   tenant: Optional[str] = None) -> None:
     """One execution of a program.  A first call (``is_new``) builds or
-    plans its kernel and counts as a compile (by ``origin``), not as an
-    execution sample, so it never poisons the steady-state percentiles.
+    plans its kernel and counts as a compile (by ``origin``; a warm one
+    inside :func:`compile_source` ``("warm")``), not as an execution
+    sample, so it never poisons the steady-state percentiles.
     ``backend`` also files the sample in that lowering's slice: the
     evidence ``core/autotune.py`` races on (``backend_seconds``, a device
-    time, in place of ``seconds`` when given)."""
+    time, in place of ``seconds`` when given).  ``tenant`` (a serving
+    session's) counts the execution on the entry's per-tenant split."""
     t_obs = _time.perf_counter()
     with _lock:
         e = _entry(fp, label, instrs)
@@ -412,10 +452,15 @@ def record_execute(fp: str, label: str, instrs: int, rung: str,
         e.bytes_in += int(bytes_in)
         e.bytes_out += int(bytes_out)
         e.rungs[rung] = e.rungs.get(rung, 0) + 1
+        if tenant is not None:
+            e.tenants[tenant] = e.tenants.get(tenant, 0) + 1
         if is_new:
             e.compiles += 1
             e.compile_s += seconds
             _add_origin(e, origin, seconds)
+            if getattr(_compile_source, "value", None) == "warm":
+                e.warm_compiles += 1
+                e.warm_compile_s += seconds
         else:
             e.exec.add(seconds)
             if sync_seconds is not None:
@@ -500,6 +545,11 @@ def observe_flush(span: dict) -> Optional[dict]:
                 _slow_flushes += 1
                 fire_p50 = (p50, win.count)
         win.add(wall)
+        rkey = (label, span.get("degraded") or "fused")
+        rwin = _rung_walls.get(rkey)
+        if rwin is None:
+            rwin = _rung_walls[rkey] = _Rolling()
+        rwin.add(wall)
     _observer.add("ledger", _time.perf_counter() - t_obs)
     if fire_p50 is None:
         return None
@@ -533,6 +583,28 @@ def observe_flush(span: dict) -> Optional[dict]:
         ev["why_stage"] = why["stage"]
         ev["why_verdict"] = why["verdict"]
     return _events.emit(ev)
+
+
+def flush_quantile(label: str, q: float) -> Optional[float]:
+    """Rolling flush-wall quantile of ``label``, or None below the
+    sentinel's sample floor (hedged dispatch reads its p95 here, so a
+    hedge waits for real history)."""
+    with _lock:
+        win = _flush_walls.get(label)
+        if win is None or win.count < _min_samples:
+            return None
+        return win.quantile(q)
+
+
+def rung_quantile(label: str, rung: str, q: float) -> Optional[float]:
+    """Rolling flush-wall quantile of one (label, rung) pair, or None
+    below the sample floor: the deadline-aware ladder drops a rung whose
+    p50 cannot fit the remaining budget."""
+    with _lock:
+        win = _rung_walls.get((label, rung))
+        if win is None or win.count < _min_samples:
+            return None
+        return win.quantile(q)
 
 
 def snapshot() -> dict:
@@ -576,6 +648,7 @@ def reset() -> None:
     with _lock:
         _kernels.clear()
         _flush_walls.clear()
+        _rung_walls.clear()
         _fp_memo.clear()
         _slow_flushes = 0
 

@@ -10,16 +10,20 @@ context, as ``resilience/elastic.py``'s watchdog does) is stamped with
 ``trace_id``/``parent_span`` by the provider this module installs in
 ``observe/events.py``.  The fuser re-scopes each flush dispatch to the
 flush's own span id, so rungs, stalls and admissions chain back to it.
-Ids are minted by :func:`mint_id`; serve sessions, which mint them per
-request in the reference, come with ROADMAP A.10.
+Ids are minted by :func:`mint_id`, once at ``serve.Session`` entry (the
+session's trace and root span) and once a flush of a session (its span
+id, chained to the root); the serve pipeline's worker dispatches inside
+the same scope, so a queued flush's events chain to it too.
 
 **Metrics exporter.**  :func:`render` serializes the counter registry,
 the kernel cost ledger, the memory governor, the SLO histograms
 (``observe/slo.py``), autotune, the compile pipeline, the attribution
 plane (stage seconds, rooflines, regressions), the observer tax and the
 elastic plane's liveness into Prometheus text format, every sample
-labelled with ``rank``.  The serve series of the reference (tenants'
-sessions, overload) come with serving (ROADMAP A.10).
+labelled with ``rank``; the ``serve.tenant.<t>.*`` counters become one
+family each with a ``tenant`` label, beside
+``ramba_memory_tenant_live_bytes`` and the overload plane's brownout and
+breaker gauges.
 ``RAMBA_METRICS_PORT`` starts an HTTP listener on a daemon thread
 (``/metrics``, and ``/healthz`` with :func:`health`'s JSON; port ``0``
 binds an ephemeral port, see :func:`port`; ``RAMBA_METRICS_HOST`` the
@@ -132,6 +136,10 @@ def _flight_max() -> int:
 def is_incident(event: dict) -> bool:
     t = event.get("type")
     if t in FLIGHT_TRIGGERS:
+        return True
+    if t == "breaker" and event.get("action") == "open":
+        # a circuit-breaker trip is the overload plane declaring a
+        # tenant unhealthy: exactly when the recent-event window matters
         return True
     return t == "memory" and event.get("action") == "oom_evict"
 

@@ -779,13 +779,21 @@ def _drain_deadline() -> Optional[float]:
 
 
 def quiesce() -> int:
-    """Flush every stream and wait for the card; returns the number of
-    streams quiesced.  The port has one, the default stream (serving
-    sessions with streams of their own come with ROADMAP A.10)."""
+    """Flush every stream (serve sessions included), drain the serve
+    pipeline's queue under the drain deadline, then wait for every
+    stream's queued tickets and the card; returns the number of live
+    streams quiesced."""
     from ramba_tpu_torch.core import fuser as _fuser
+    from ramba_tpu_torch.serve import pipeline as _pipeline
 
+    streams = _fuser.all_streams()
+    for s in streams:
+        s.flush()
+    p = _pipeline.current_pipeline()
+    if p is not None:
+        p.quiesce(timeout=_drain_deadline())
     _fuser.sync()
-    return 1
+    return len(streams)
 
 
 def drain_to_checkpoint(manager, step: int, tree=None) -> str:

@@ -52,7 +52,12 @@ a slow flush), ``compile:bucket`` (forges a compile-class plan that skips
 its op-safety proof) and ``aot:blob`` (the flip seam of a kernel
 library's digest check), and ``heartbeat`` (before each beat of the
 elastic beacon, ``resilience/elastic.py``: ``heartbeat:hang:ms=...``
-stalls one beat).  Site names may themselves contain colons: the site/mode
+stalls one beat), and the serving plane's (``serve/overload.py``):
+``serve:admit`` (every dispatch verdict; an injected fault becomes a
+shed proposal, so ``serve:admit:3:rank=1`` makes every rank shed the
+same three flushes through the ``serve:shed`` round) and ``serve:hedge``
+(the primary attempt of a hedged dispatch:
+``serve:hedge:delay:ms=200`` seeds a hedge race).  Site names may themselves contain colons: the site/mode
 boundary in a spec is the FIRST ``:``-separated field that parses as a
 mode token.  The ``oom`` site (or a trailing ``:oom`` kind) raises
 :class:`InjectedResourceExhausted`, whose message carries the

@@ -29,8 +29,14 @@ spill, admission, oom-eviction and governed-placement parts):
   against the watermark; when eviction cannot make it fit, the flush
   starts the degradation ladder (``resilience/degrade.py``) at the
   ``chunked`` rung.  An out-of-memory failure spills cold arrays
-  (:func:`evict_for_oom`) before the ladder drops a rung.  Serving-tenant
-  quotas come with serving (ROADMAP A.10).
+  (:func:`evict_for_oom`) before the ladder drops a rung.
+* **Tenants** — every entry records the serving tenant whose flush
+  realized it (``fuser.current_tenant``), and the ledger keeps each
+  tenant's resident bytes (``tenant_live``).  A session's quota
+  (``serve.Session(quota=)``) is held at admission: an over-quota flush
+  first spills the tenant's own cold arrays (``evict_until(need,
+  tenant=)``), then starts at the chunked rung; another tenant's
+  entries are never touched.
 
 The governor moves nothing between the card and the host unless a
 placement or a flush's admission asks for room, an out-of-memory failure
@@ -61,7 +67,15 @@ from ramba_tpu_torch.observe import registry as _registry
 from ramba_tpu_torch.resilience import coherence as _coherence
 from ramba_tpu_torch.resilience import spill as _spill
 
-TENANTS = "serving-tenant quotas come with serving: ROADMAP A.10"
+
+
+def _no_tenant() -> Optional[str]:
+    return None
+
+
+#: The serving tenant of the calling context; ``core/fuser.py`` installs
+#: ``fuser.current_tenant`` here at its import (it imports this module).
+tenant_of = _no_tenant
 
 
 def _key(v):
@@ -191,9 +205,10 @@ def chunk_target_bytes(agree: bool = True) -> int:
 
 class _Entry:
     __slots__ = ("key", "nbytes", "consts", "owners", "seq", "pins",
-                 "spilled")
+                 "spilled", "tenant")
 
-    def __init__(self, key, nbytes: int, seq: int, spilled: bool):
+    def __init__(self, key, nbytes: int, seq: int, spilled: bool,
+                 tenant: Optional[str] = None):
         self.key = key
         self.nbytes = nbytes    # device bytes when resident
         self.consts: list = []  # weakrefs to the owning Consts
@@ -201,6 +216,7 @@ class _Entry:
         self.seq = seq          # LRU clock: higher = touched later
         self.pins = 0           # > 0 while a flush reads it
         self.spilled = spilled
+        self.tenant = tenant    # the serving tenant that realized it
 
 
 class Ledger:
@@ -221,6 +237,9 @@ class Ledger:
         # (governed_device_put, reshard stage buffers), counted into
         # peak_live_bytes
         self.transient_bytes = 0
+        # tenant -> resident bytes (serving quotas); a tenant appears at
+        # its first realized array
+        self.tenant_live: dict = {}
         self._clock = itertools.count(1)
         self._lock = threading.RLock()
 
@@ -235,6 +254,9 @@ class Ledger:
         else:
             self.live_bytes += sign * e.nbytes
             self._peak()
+            if e.tenant is not None:
+                self.tenant_live[e.tenant] = max(
+                    0, self.tenant_live.get(e.tenant, 0) + sign * e.nbytes)
 
     # -- ownership (ndarray._set_expr and ndarray.__del__) -------------------
 
@@ -246,7 +268,8 @@ class Ledger:
             e = self.entries.get(k)
             if e is None:
                 e = _Entry(k, _nbytes(const.value), next(self._clock),
-                           isinstance(const.value, _spill.SpilledArray))
+                           isinstance(const.value, _spill.SpilledArray),
+                           tenant_of())
                 self.entries[k] = e
                 self._account(e, +1)
             else:
@@ -442,13 +465,14 @@ class Ledger:
 
     def evict_until(self, need: int, tenant: Optional[str] = None) -> int:
         """Spill the least recently used candidates until ``need`` bytes
-        are freed (or none is left); returns the bytes freed."""
-        if tenant is not None:
-            raise NotImplementedError(TENANTS)
+        are freed (or none is left); returns the bytes freed.  ``tenant``
+        takes candidates among that tenant's entries only: a quota
+        reclaims from the tenant over it, never from a neighbour."""
         with self._lock:
             freed = 0
             cands = sorted((e for e in self.entries.values()
-                            if not e.spilled and not e.pins),
+                            if not e.spilled and not e.pins
+                            and (tenant is None or e.tenant == tenant)),
                            key=lambda e: e.seq)
             for e in cands:
                 if freed >= need:
@@ -457,6 +481,11 @@ class Ledger:
             return freed
 
     # -- reporting ----------------------------------------------------------
+
+    def tenant_snapshot(self) -> dict:
+        """The tenants' nonzero resident bytes, read under the lock."""
+        with self._lock:
+            return {t: b for t, b in self.tenant_live.items() if b}
 
     def snapshot(self, top: int = 5) -> dict:
         with self._lock:
@@ -477,10 +506,11 @@ class Ledger:
                     "spilled": e.spilled,
                     "pinned": e.pins,
                     "owners": e.owners,
+                    **({"tenant": e.tenant} if e.tenant else {}),
                 })
             rows.sort(key=lambda r: r["nbytes"], reverse=True)
             _update_gauges(self)
-            return {
+            out = {
                 "budget_bytes": budget_bytes(),
                 "watermark_bytes": watermark_bytes(),
                 "live_bytes": self.live_bytes,
@@ -493,6 +523,10 @@ class Ledger:
                 "arrays": len(rows),
                 "top": rows[:top],
             }
+            if any(self.tenant_live.values()):
+                out["tenant_live_bytes"] = {
+                    t: b for t, b in sorted(self.tenant_live.items()) if b}
+            return out
 
 
 def _update_gauges(led: Ledger) -> None:
@@ -553,10 +587,10 @@ def estimate_program_bytes(program, leaf_vals, donate=(),
     return est
 
 
-def _resident_overlap(leaf_vals) -> int:
-    """Resident bytes among ``leaf_vals`` the ledger already counts: the
-    program estimate counts its arguments too, so they must not be
-    billed twice."""
+def _resident_overlap(leaf_vals, tenant: Optional[str] = None) -> int:
+    """Resident bytes among ``leaf_vals`` the ledger already counts (only
+    ``tenant``'s entries, when given): the program estimate counts its
+    arguments too, so they must not be billed twice."""
     resident = 0
     seen: set = set()
     with ledger._lock:
@@ -568,7 +602,8 @@ def _resident_overlap(leaf_vals) -> int:
                 continue
             seen.add(k)
             e = ledger.entries.get(k)
-            if e is not None and not e.spilled:
+            if e is not None and not e.spilled and (
+                    tenant is None or e.tenant == tenant):
                 resident += e.nbytes
     return resident
 
@@ -654,22 +689,57 @@ def _admit_budget(program, leaf_vals, donate_key,
     return route
 
 
+def _admit_tenant(program, leaf_vals, donate_key, span: Optional[dict],
+                  tenant: str, quota: int, fingerprint=None) -> bool:
+    """The quota leg of :func:`admit` (serving sessions): True routes the
+    flush to the chunked rung.  It holds with no budget too (the CPU), and
+    reclaims only from the over-quota tenant's own entries first, so a
+    tenant over its quota degrades itself, never a neighbour."""
+    est = estimate_program_bytes(program, leaf_vals, donate_key,
+                                 fingerprint)
+    with ledger._lock:
+        resident = ledger.tenant_live.get(tenant, 0)
+    projected = max(0, resident - _resident_overlap(leaf_vals, tenant)) + est
+    if projected <= quota:
+        return False
+    freed = ledger.evict_until(projected - quota, tenant=tenant)
+    if projected - freed <= quota:
+        if span is not None:
+            span["tenant_admission"] = "evicted"
+        return False
+    _registry.inc("serve.quota_rejects")
+    _registry.inc(f"serve.tenant.{tenant}.quota_rejects")
+    _events.emit({
+        "type": "memory", "action": "reject", "route": "chunked",
+        "tenant": tenant, "quota_bytes": quota, "est_bytes": est,
+        "freed_bytes": freed, "over_bytes": projected - freed - quota,
+    })
+    if span is not None:
+        span["tenant_admission"] = "chunked"
+    return True
+
+
 def admit(program, leaf_vals, donate_key, span: Optional[dict] = None, *,
           tenant: Optional[str] = None, quota: Optional[int] = None,
           coherent: bool = True, fingerprint=None) -> bool:
     """Pre-flush admission check: True when the flush should start the
     ladder at the ``chunked`` rung (it does not fit under the watermark
     even after eviction, and the chunked rung can cut it: see
-    :func:`_admit_budget`), False admits the fused rung.  A no-op (False)
-    when no budget is known.  Across ranks with a budget, every rank
-    takes the verdict of a ``memory:admit`` round (chunked anywhere is
-    chunked everywhere); ``coherent=False`` leaves the round to the
-    caller.  ``fingerprint``: the flush's, keying the estimate's memo.
-    A tenant's ``quota`` is ROADMAP A.10's."""
-    if tenant is not None and quota:
-        raise NotImplementedError(TENANTS)
+    :func:`_admit_budget`; or it would take ``tenant`` past its
+    ``quota`` even after the tenant's own cold arrays spilled), False
+    admits the fused rung.  The budget leg is a no-op (False) when no
+    budget is known; the quota leg runs whenever a quota is given.
+    Across ranks with a budget or a quota, every rank takes the verdict
+    of a ``memory:admit`` round (chunked anywhere is chunked
+    everywhere); ``coherent=False`` leaves the round to the caller.
+    ``fingerprint``: the flush's, keying the estimate's memo."""
     route = _admit_budget(program, leaf_vals, donate_key, span, fingerprint)
-    if coherent and _coherence.engaged() and budget_bytes() is not None:
+    quota_on = tenant is not None and bool(quota)
+    if quota_on and _admit_tenant(program, leaf_vals, donate_key, span,
+                                  tenant, int(quota), fingerprint):
+        route = True
+    if coherent and _coherence.engaged() and (
+            budget_bytes() is not None or quota_on):
         agreed = bool(_coherence.agree("memory:admit", 1 if route else 0,
                                        reduce="max"))
         if agreed and not route and span is not None:

@@ -77,6 +77,23 @@ def _clean(monkeypatch):
     jtelemetry.flight_reset()
 
 
+@pytest.fixture(autouse=True)
+def _keep_reference_counters():
+    """ramba_tpu's counters as they were before the test: its own tests,
+    run later in this worker process, read absolute counts (``serve.*``,
+    ``serve.tenant.<t>.*``, ``telemetry.flight_dumps``)."""
+    from ramba_tpu.observe import registry as _jreg
+
+    with _jreg.lock:
+        saved = (dict(_jreg.counters), set(_jreg._gauge_names))
+    yield
+    with _jreg.lock:
+        _jreg.counters.clear()
+        _jreg.counters.update(saved[0])
+        _jreg._gauge_names.clear()
+        _jreg._gauge_names.update(saved[1])
+
+
 def _chain(pkg, n=2711):
     a = pkg.arange(n) * 2.0 + 1.0
     return float(pkg.sum(a))
@@ -626,3 +643,47 @@ def test_quarantine_emits_flush_error(tmp_path):
     recs = [json.load(open(p)) for p in glob.glob(str(tmp_path / "flight_*"))]
     assert [r["incident"]["type"] for r in recs] == ["flush_error"]
     np.testing.assert_array_equal(np.asarray(y), np.arange(16.0) * 3.0)
+
+
+# -- the serve pipeline's stages ----------------------------------------------
+
+
+def test_a_queued_ticket_stamps_queue_wait_and_coalesce():
+    """A ticket of the serve pipeline adds ``queue_wait`` (submit to its
+    dispatch, net of its batch) and, in a coalesced batch, ``coalesce``
+    (group pop to its own dispatch); its span still reconciles, and the
+    stages come in the canonical order of ramba_tpu's."""
+    from ramba_tpu_torch import serve
+
+    assert attrib.STAGES == jattrib.STAGES
+    pipe = serve.CompilePipeline(coalesce=8)
+    pipe._ensure_worker = lambda: None
+    x = rt.fromarray(np.arange(512.0))
+    try:
+        with serve.Session(tenant="stages", pipeline=pipe) as s:
+            arrs = [x * 2.0 + 1.0]
+            t1 = s.flush()
+            arrs.append(x * 2.0 + 1.0)
+            t2 = s.flush()
+            group = pipe.queue.pop_group(
+                8, fingerprint_of=lambda t: t.work.fingerprint, timeout=0)
+            assert len(group) == 2
+            pipe._dispatch_group(group)
+            t1.wait(10)
+            t2.wait(10)
+        for t in (t1, t2):
+            span = t.work.span
+            st = span["stages"]
+            assert "queue_wait" in st and "coalesce" in st
+            assert st["queue_wait"] >= 0.0
+            assert abs(sum(st.values()) + span["unattributed_s"]
+                       - span["wall_s"]) <= 2e-5 * (len(st) + 2)
+            order = [k for k in attrib.STAGES if k in st]
+            assert list(st) == order or set(st) == set(order)
+        for a in arrs:
+            np.testing.assert_array_equal(a.asarray(),
+                                          np.arange(512.0) * 2.0 + 1.0)
+    finally:
+        pipe.stop()
+        serve.shutdown()
+

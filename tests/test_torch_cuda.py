@@ -1493,3 +1493,96 @@ def test_profiler_trace_holds_the_kernels(tmp_path):
 
 def test_drain_effect_errors_on_a_healthy_card():
     assert rt.debug.drain_effect_errors() is None
+
+
+# -- serving on the card: the worker thread and the hedge streams --------------
+
+
+def test_the_pipeline_worker_launches_on_the_submitters_stream():
+    """A session flush submitted from a side CUDA stream launches elemred
+    on the worker thread on that stream; a read on the default stream is
+    ordered after the worker's write-back by the ticket's event, and the
+    bytes are the default stream's flush's."""
+    from ramba_tpu_torch import serve
+
+    x = rt.fromarray(torch.rand(1 << 20, dtype=torch.float64,
+                                generator=torch.Generator("cuda").manual_seed(1),
+                                device="cuda"))
+    y = rt.fromarray(torch.rand(1 << 20, dtype=torch.float64,
+                                generator=torch.Generator("cuda").manual_seed(2),
+                                device="cuda"))
+    rt.sync()
+    want = (2.5 * x + y)._value().clone()
+    side = torch.cuda.Stream()
+    seen = []
+    real = elemred.launch
+
+    def spy(*a, **kw):
+        seen.append((__import__("threading").current_thread().name,
+                     torch.cuda.current_stream()))
+        return real(*a, **kw)
+
+    elemred.launch = spy
+    try:
+        with torch.cuda.stream(side):
+            with serve.Session(tenant="card") as s:
+                z = 2.5 * x + y
+                t = s.flush()
+        got = t.wait(60)
+        assert got == []
+        assert t.event is not None
+        assert torch.equal(z._value(), want)
+    finally:
+        elemred.launch = real
+        serve.shutdown()
+    assert seen and seen[0][0] == "ramba-serve-dispatch"
+    assert seen[0][1] == side
+
+
+def test_a_hedge_runs_on_its_own_stream_and_wins_byte_equal(monkeypatch):
+    """Under ``serve:hedge:delay:ms=200`` the hedge attempt launches on a
+    CUDA stream of its own, wins, and its bytes equal the unhedged
+    flush's; the loser's cancel flag stops it."""
+    from ramba_tpu_torch import serve
+    from ramba_tpu_torch.observe import ledger, registry
+    from ramba_tpu_torch.resilience import elastic, faults
+
+    x = rt.fromarray(torch.rand(1 << 22, dtype=torch.float64,
+                                generator=torch.Generator("cuda").manual_seed(3),
+                                device="cuda"))
+    rt.sync()
+    ledger.reset()
+    ledger.reconfigure(min_samples=3)
+    outs = []
+    for _ in range(5):
+        with serve.Session(tenant="hedge") as s:
+            a = rt.sum(x * 2.0 + 1.0)
+            s.flush(wait=True)
+        outs.append(float(a))
+    streams = []
+    real = elemred.launch
+
+    def spy(*a, **kw):
+        streams.append(torch.cuda.current_stream())
+        return real(*a, **kw)
+
+    monkeypatch.setenv("RAMBA_HEDGE_FACTOR", "0.5")
+    faults.configure("serve:hedge:delay:ms=200")
+    elemred.launch = spy
+    fired = registry.get("serve.hedge.fired")
+    try:
+        with serve.Session(tenant="hedge") as s:
+            b = rt.sum(x * 2.0 + 1.0)
+            s.flush(wait=True)
+        got = float(b)
+    finally:
+        elemred.launch = real
+        faults.configure(None)
+        serve.shutdown()
+        ledger.reconfigure()
+    assert registry.get("serve.hedge.fired") == fired + 1
+    assert registry.get("serve.hedge.won_hedge") >= 1
+    assert got == outs[0] and len(set(outs)) == 1
+    assert streams and streams[0] != torch.cuda.default_stream()
+    assert elastic.wait_abandoned(10)
+

@@ -6,9 +6,10 @@ cold and a warm flush (miss then hit, the same keys as ramba_tpu's span
 of the same program where the port keeps them), the report printing
 every section the port has, ``dump`` round-tripping as JSON,
 ``snapshot``'s keys and schema version (ramba_tpu's), ``python -m
-ramba_tpu_torch.diagnostics``, the memo and plan-cache blocks (stubs
-before this slice), ``serving_report``/``overload_report`` naming ROADMAP
-A.10, ``identity`` naming the device, ``reset``; then ``debug``: the dot
+ramba_tpu_torch.diagnostics``, the memo and plan-cache blocks,
+``serving_report``/``overload_report`` (the serving and overload
+sections appear once a session or the overload plane has run),
+``identity`` naming the device, ``reset``; then ``debug``: the dot
 dump and the pending report of the same pending graph as ramba_tpu's,
 ``drain_effect_errors`` (None on the CPU) and ``RAMBA_TPU_HISTORY``.
 """
@@ -48,6 +49,18 @@ def _cpu():
         pytest.skip("the port follows NumPy's dtypes: the x64 leg only")
     common.set_device("cpu")
     rt.sync()
+
+
+def _no_serving():
+    """Forget what earlier tests of this process left in the serving
+    plane (tenant counters, histograms and resident bytes, breakers), so
+    the serving and overload sections are absent."""
+    from ramba_tpu_torch import serve
+    from ramba_tpu_torch.resilience import memory
+
+    serve.shutdown()
+    diagnostics.reset()
+    memory.ledger.tenant_live.clear()
 
 
 def _run_chain(pkg=rt):
@@ -93,6 +106,7 @@ def test_report_prints_every_ported_section(section):
 
 
 def test_report_prints_the_optional_sections_when_in_use(monkeypatch):
+    _no_serving()
     monkeypatch.setenv("RAMBA_MEMO", "1")
     monkeypatch.setenv("RAMBA_PLANCERT", "1")
     try:
@@ -112,6 +126,7 @@ def test_report_prints_the_optional_sections_when_in_use(monkeypatch):
 
 
 def test_dump_round_trips_as_json(tmp_path):
+    _no_serving()
     _run_chain()
     p = diagnostics.dump(str(tmp_path / "diag.json"))
     snap = json.loads(Path(p).read_text())
@@ -130,9 +145,33 @@ def test_identity_names_the_device():
 
 
 def test_serving_reports_name_their_item():
-    for fn in (diagnostics.serving_report, diagnostics.overload_report):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            fn()
+    """The serving and overload reports landed (ROADMAP A.10 part one):
+    they are ``serve.tenant_report()`` and ``overload.report()``, with
+    the keys of ramba_tpu's, and their sections print once in use."""
+    from ramba_tpu import serve as jserve
+    from ramba_tpu_torch import serve
+
+    _no_serving()
+    assert diagnostics.serving_report() == {}
+    with serve.Session(tenant="diag") as s:
+        a = rt.arange(64) * 2.0
+        s.flush(wait=True)
+    np.testing.assert_array_equal(a.asarray(), np.arange(64) * 2.0)
+    rep = diagnostics.serving_report()
+    assert rep == serve.tenant_report() and rep["diag"]["flushes"] == 1
+    serve.overload.breaker_for("diag").record(False)
+    ov = diagnostics.overload_report()
+    assert set(ov) == set(jserve.overload.report())
+    assert ov["breakers"]["diag"]["recent_failures"] == 1
+    buf = io.StringIO()
+    diagnostics.report(file=buf)
+    text = buf.getvalue()
+    assert "-- serving (per tenant) --" in text and "diag" in text
+    assert "-- overload control --" in text
+    snap = diagnostics.snapshot()
+    assert snap["serving"]["diag"]["flushes"] == 1
+    assert "overload" in snap
+    serve.shutdown()
 
 
 def test_memo_and_plancache_reports_are_their_snapshots():

@@ -622,3 +622,31 @@ def test_a_stalled_rank_drops_every_rank_together(tmp_path, world):
     assert abs(info[0]["sum"] - want) <= 2 * 1003 * EPS * abs(want)
     assert "dispatch" in info[1]["stalls"]
     assert info[1]["abandoned"] >= 1
+
+
+# -- the serving plane across ranks (serve/overload.py) -----------------------
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_every_rank_sheds_the_same_flushes(tmp_path, world):
+    """``serve:admit:3:rank=1`` makes rank 1 alone propose a shed for its
+    first three dispatches; the ``serve:shed`` round (severity max)
+    makes every rank shed those three on the same epochs, the shed
+    arrays heal on their next read, and every block is the one the same
+    program gives on the default stream."""
+    _x64()
+    rcs, logs, outdir = launch(
+        world, tmp_path, mode="serve", limit=120,
+        env={"RAMBA_FAULTS": "serve:admit:3:rank=1",
+             "RAMBA_RETRY_BASE_S": "0"})
+    assert rcs == [0] * world, "\n".join(logs)
+    info = [json.loads((outdir / f"rank{r}.json").read_text())
+            for r in range(world)]
+    for r in info:
+        assert [k for k, _reason, _ep in r["shed"]] == [0, 1, 2], r
+        assert all(reason == "fault" for _k, reason, _ep in r["shed"])
+        assert r["shed"] == info[0]["shed"]
+        assert r["same_blocks"] and r["quarantined"] == 0
+    epochs = [ep for _k, _r, ep in info[0]["shed"]]
+    assert all(isinstance(e, int) and e > 0 for e in epochs)
+    assert len(set(epochs)) == 3

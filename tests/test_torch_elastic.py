@@ -573,8 +573,8 @@ def test_resume_under_hbm_admission_spills(tmp_path, monkeypatch):
 
 
 def test_drain_to_checkpoint_quiesces_pending_work(tmp_path):
-    """Pending lazy work flushes before the save (the port has no serve
-    sessions yet: ROADMAP A.10)."""
+    """Pending lazy work of the default stream flushes before the save
+    (serve sessions: ``test_drain_to_checkpoint_quiesces_sessions``)."""
     root = _ck(tmp_path, "mgrd")
     x = rt.arange(256) * 3.0
     y = x + 1.0
@@ -1062,3 +1062,31 @@ def test_trace_report_reads_a_port_trace(tmp_path, monkeypatch):
     assert "resume_complete" in text
     assert "checkpoints=1 resumes=1" in text
     assert "heartbeat" in text.split("lifecycle totals")[1]
+
+
+def test_drain_to_checkpoint_quiesces_sessions(tmp_path):
+    """A session's queued ticket and its still-pending work are drained
+    before the save (``quiesce`` counts every live stream), and the
+    restored state is the one NumPy gives."""
+    from ramba_tpu_torch import serve
+
+    root = _ck(tmp_path, "mgrs")
+    try:
+        with serve.Session(tenant="t0") as s:
+            x = rt.arange(256) * 3.0
+            s.flush()  # in flight through the pipeline
+            y = x + 1.0
+            d = elastic.drain_to_checkpoint(root, 5, {"y": y})
+            assert not s.stream.inflight and not s.stream.pending_roots()
+        mgr = elastic.CheckpointManager(root)
+        assert mgr.latest() == 5 and os.path.isdir(d)
+        res = elastic.resume(mgr)
+        assert np.array_equal(np.asarray(res.state["y"]),
+                              np.arange(256) * 3.0 + 1.0)
+        done = [e for e in events.last(50, type="lifecycle")
+                if e.get("step") == 5]
+        assert [e["phase"] for e in done][:3] == [
+            "drain_begin", "drain_complete", "checkpoint_saved"]
+        assert done[1]["streams"] >= 2
+    finally:
+        serve.shutdown()

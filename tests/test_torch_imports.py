@@ -21,7 +21,7 @@ PORT_FILES = sorted(
     if "_build" not in p.parts
 ) + ["chip_smoke.py", "scripts/elemred_ab.py", "scripts/elemred_sweep.py",
      "scripts/scan_ab.py", "scripts/stencil_sweep.py",
-     "tests/torch_dist_worker.py"]
+     "scripts/fence_probe.py", "tests/torch_dist_worker.py"]
 
 
 def _forbidden(name: str) -> bool:

@@ -286,8 +286,9 @@ def test_main_path_programs_are_memoizable():
 
 
 def test_later_items_raise_naming_their_roadmap_items(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A.10"):
-        memo.batch_cse()
+    # A.10 part one's batch CSE landed in the serve pipeline (a queued
+    # flush looks the memo up again at dispatch): the stub is gone
+    assert not hasattr(memo, "batch_cse")
     # A.9's item landed: the diagnostics block is the cache's snapshot
     assert diagnostics.memo_report() == memo.cache.snapshot()
     # A.8's items landed: the chunked and eager rungs run a program, and
@@ -312,3 +313,88 @@ def test_later_items_raise_naming_their_roadmap_items(monkeypatch):
     monkeypatch.delenv("RAMBA_MEMO_SHARED")
     np.testing.assert_array_equal(np.asarray(b), np.arange(4.0) * 2)
     assert registry.get("memo.insert") >= 1
+
+
+def test_serving_batch_cse():
+    """Concurrent tenants submitting the same canonical program over
+    shared buffers: one execution, the followers memo-served and counted
+    as CSE merges (the dispatch-time re-lookup), and no duplicate
+    execution inside a batch."""
+    import threading
+
+    from ramba_tpu_torch import serve
+
+    base = rt.fromarray(np.arange(128.0))
+    other = rt.fromarray(np.ones(128))
+    rt.sync()
+    cse0 = registry.get("serve.cse_merged")
+    errs = []
+
+    def worker(i):
+        try:
+            with serve.Session(tenant=f"cse{i}") as s:
+                for _ in range(4):
+                    r = base + other
+                    s.flush(wait=True)
+                    del r
+        except Exception as e:  # noqa: BLE001
+            errs.append(repr(e)[:200])
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    serve.shutdown()
+    assert not errs, errs
+    assert memo.cache.hits >= 8, memo.cache.snapshot()
+    assert registry.get("serve.cse_merged") >= cse0
+    np.testing.assert_array_equal(np.asarray(base + other),
+                                  np.arange(128.0) + 1.0)
+
+
+def test_a_coalesced_batch_executes_once():
+    """Eight tickets of two tenants over the same buffers in one batch:
+    the leader executes, the seven followers are served by the memo at
+    dispatch (``cse_merge`` events), none re-executes."""
+    from ramba_tpu_torch import serve
+
+    x = rt.fromarray(np.arange(256.0))
+    y = rt.fromarray(np.ones(256))
+    rt.sync()
+    pipe = serve.CompilePipeline(coalesce=8)
+    pipe._ensure_worker = lambda: None
+    cse0, dup0 = registry.get("serve.cse_merged"), registry.get(
+        "serve.dup_execs")
+    ex0 = sum(k["exec"]["count"] + k["compiles"]
+              for k in ledger.snapshot()["kernels"].values())
+    sessions, arrs, tickets = [], [], []
+    try:
+        for i in range(8):
+            s = serve.Session(tenant=f"b{i % 2}", pipeline=pipe)
+            tok = fuser.activate_stream(s.stream)
+            try:
+                arrs.append(rt.sum(2.5 * x + y))
+                tickets.append(s.flush())
+            finally:
+                fuser.deactivate_stream(tok)
+            sessions.append(s)
+        group = pipe.queue.pop_group(
+            8, fingerprint_of=lambda t: t.work.fingerprint, timeout=0)
+        assert len(group) == 8
+        pipe._dispatch_group(group)
+        for t in tickets:
+            t.wait(10)
+        ex1 = sum(k["exec"]["count"] + k["compiles"]
+                  for k in ledger.snapshot()["kernels"].values())
+        assert ex1 - ex0 == 1
+        assert registry.get("serve.cse_merged") - cse0 == 7
+        assert registry.get("serve.dup_execs") == dup0
+        assert len([e for e in events.last(20, type="cse_merge")]) >= 7
+        want = float(np.sum(2.5 * np.arange(256.0) + 1.0))
+        assert {float(a) for a in arrs} == {want}
+    finally:
+        for s in sessions:
+            s.close(drain=False)
+        pipe.stop()
+        serve.shutdown()

@@ -262,8 +262,15 @@ def test_plan_audit_over_live_trace(tmp_path, capsys):
 
 
 def test_the_shared_tier_and_the_report_name_their_items(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A.10"):
-        plancache.publish(None)
+    # publish is the reference's with the tier off (A.10 part one's serve
+    # pipeline calls it on every fresh certificate): False; asking for
+    # the tier itself raises, naming A.10 part two
+    assert plancache.publish(None) is False
+    assert plancache.publish(object()) is False
+    monkeypatch.setenv("RAMBA_ARTIFACTS", "/nonexistent")
+    with pytest.raises(NotImplementedError, match="A.10 part two"):
+        plancache.publish(object())
+    monkeypatch.delenv("RAMBA_ARTIFACTS")
     # A.9's item landed: the diagnostics block is the cache's snapshot
     assert diagnostics.plancache_report() == plancache.snapshot()
     monkeypatch.setenv("RAMBA_ARTIFACTS", "/nonexistent")

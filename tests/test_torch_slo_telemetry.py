@@ -58,6 +58,23 @@ def _clean(monkeypatch):
     ledger.reconfigure()
 
 
+@pytest.fixture(autouse=True)
+def _keep_reference_counters():
+    """ramba_tpu's counters as they were before the test: its own tests,
+    run later in this worker process, read absolute counts (``serve.*``,
+    ``serve.tenant.<t>.*``, ``telemetry.flight_dumps``)."""
+    from ramba_tpu.observe import registry as _jreg
+
+    with _jreg.lock:
+        saved = (dict(_jreg.counters), set(_jreg._gauge_names))
+    yield
+    with _jreg.lock:
+        _jreg.counters.clear()
+        _jreg.counters.update(saved[0])
+        _jreg._gauge_names.clear()
+        _jreg._gauge_names.update(saved[1])
+
+
 SAMPLES = [
     [0.0005, 0.003, 0.003, 0.07, 0.2, 42.0],
     [0.004] * 100,
@@ -461,7 +478,7 @@ def test_flight_recorder_off_without_dir():
     ({"type": "memory", "action": "oom_evict"}, True),
     ({"type": "memory", "action": "admit"}, False),
     ({"type": "flush"}, False),
-    ({"type": "breaker", "action": "open"}, False),  # serving: A.10
+    ({"type": "breaker", "action": "open"}, True),
 ])
 def test_incident_classes(event, incident):
     assert telemetry.is_incident(event) is incident
@@ -519,3 +536,195 @@ def test_an_incident_is_dumped_after_its_flush(tmp_path, monkeypatch):
     finally:
         attrib.reset()
         attrib.reconfigure()
+
+
+# ---------------------------------------------------------------------------
+# serve sessions: trace propagation and tenant SLOs (tests/test_telemetry.py)
+# ---------------------------------------------------------------------------
+
+
+def _serve_shutdown():
+    from ramba_tpu import serve as jserve
+    from ramba_tpu_torch import serve
+
+    serve.shutdown()
+    jserve.shutdown()
+
+
+def test_session_mints_trace_and_span_chains_to_root():
+    from ramba_tpu_torch import serve
+
+    try:
+        with serve.Session(tenant="acme") as s:
+            assert s.trace_id and s.root_span
+            assert s.stream.trace_id == s.trace_id
+            a = rt.fromarray(np.ones(32)) * 2.0
+            t = s.flush(wait=True)
+            a.asarray()
+        assert t.trace_id == s.trace_id
+        spans = [e for e in events.ring if e.get("type") == "flush"
+                 and e.get("trace_id") == s.trace_id]
+        assert spans, "flush span carries the session's trace_id"
+        span = spans[-1]
+        assert span["parent_span"] == s.root_span
+        assert span["span_id"] != s.root_span
+        sess = [e for e in events.ring if e.get("type") == "serve_session"
+                and e.get("trace_id") == s.trace_id]
+        assert sess and sess[0]["span_id"] == s.root_span
+    finally:
+        _serve_shutdown()
+
+
+def test_explicit_trace_id_joins_existing_trace():
+    from ramba_tpu_torch import serve
+
+    try:
+        with serve.Session(tenant="acme", trace_id="cafe000000000001") as s:
+            assert s.trace_id == "cafe000000000001"
+            a = rt.fromarray(np.ones(16)) + 1.0
+            s.flush(wait=True)
+        assert a.asarray().tolist() == [2.0] * 16
+        assert [e for e in events.ring if e.get("type") == "flush"
+                and e.get("trace_id") == "cafe000000000001"]
+    finally:
+        _serve_shutdown()
+
+
+def test_session_child_events_inherit_trace_via_dispatch_scope(monkeypatch):
+    """A slow flush's verdict, emitted in a session flush's dispatch on
+    the pipeline worker, carries that flush's trace and parent span."""
+    from ramba_tpu_torch import serve
+
+    monkeypatch.setenv("RAMBA_SLOW_FLUSH_FACTOR", "2")
+    monkeypatch.setenv("RAMBA_SLOW_FLUSH_MIN_SAMPLES", "2")
+    ledger.reset()
+    ledger.reconfigure()
+    try:
+        faults.configure("dispatch:delay:ms=150:after=3")
+        with serve.Session(tenant="acme") as s:
+            for i in range(5):
+                a = rt.fromarray(np.ones(32)) + float(i)
+                s.flush(wait=True)
+                a.asarray()
+        slow = [e for e in events.ring if e.get("type") == "slow_flush"]
+        assert slow, "the seeded delay must trip the sentinel"
+        assert slow[-1].get("trace_id") == s.trace_id
+        spans = {e.get("span_id") for e in events.ring
+                 if e.get("type") == "flush"}
+        assert slow[-1].get("parent_span") in spans
+    finally:
+        faults.configure(None)
+        _serve_shutdown()
+
+
+def test_coalesced_tickets_keep_distinct_traces():
+    from ramba_tpu_torch import serve
+    from ramba_tpu_torch.core import fuser
+
+    fuser.flush()
+    pipe = serve.CompilePipeline(coalesce=8)
+    pipe._ensure_worker = lambda: None
+    sessions, tickets, arrs = [], [], []
+    x = rt.fromarray(np.arange(64.0))
+    try:
+        for i in range(3):
+            s = serve.Session(tenant=f"t{i}", pipeline=pipe)
+            tok = fuser.activate_stream(s.stream)
+            try:
+                arrs.append(x * 2.0)
+                tickets.append(s.flush())
+            finally:
+                fuser.deactivate_stream(tok)
+            sessions.append(s)
+        group = pipe.queue.pop_group(
+            8, fingerprint_of=lambda t: t.work.fingerprint, timeout=0)
+        assert len(group) >= 2, "same-fingerprint tickets must coalesce"
+        pipe._dispatch_group(group)
+        ids = {t.trace_id for t in group}
+        assert len(ids) == len(group)
+        ce = [e for e in events.ring if e.get("type") == "serve_coalesce"]
+        assert ce and set(ce[-1]["trace_ids"]) == ids
+        for t in group:
+            assert t.work.span.get("trace_id") == t.trace_id
+    finally:
+        for s in sessions:
+            s.close(drain=False)
+        pipe.stop()
+        _serve_shutdown()
+
+
+def test_e2e_slo_observed_per_ticket():
+    from ramba_tpu import serve as jserve
+    from ramba_tpu_torch import serve
+
+    try:
+        reps = []
+        for pkg, mod in ((serve, rt), (jserve, __import__("ramba_tpu"))):
+            with pkg.Session(tenant="lat") as s:
+                arrs = []
+                for i in range(3):
+                    arrs.append(mod.ones((16,)) + float(i))
+                    s.flush(wait=True)
+            reps.append(pkg.tenant_report()["lat"])
+        for rep in reps:
+            assert rep["e2e_samples"] >= 3
+            assert rep["e2e_p95_ms"] is not None
+            assert rep["e2e_p50_ms"] <= rep["e2e_p99_ms"]
+        assert set(reps[0]) == set(reps[1])
+        assert slo.tenant_latency("lat")["e2e_samples"] >= 3
+    finally:
+        _serve_shutdown()
+
+
+def test_session_scrape_carries_tenant_series(monkeypatch):
+    """A session's flushes export as ``tenant``-labelled series: the
+    tenant counters' families, the tenant's resident bytes and its SLO
+    histograms; a scrape taken while a session flushes parses clean."""
+    from ramba_tpu_torch import serve
+
+    port = telemetry.start(port=0)
+    stop = threading.Event()
+    errs = []
+    keep = []
+
+    def hammer():
+        try:
+            with serve.Session(tenant="soak") as s:
+                i = 0
+                while not stop.is_set() and i < 30:
+                    a = rt.fromarray(np.ones(64)) + float(i)
+                    s.flush(wait=True)
+                    a.asarray()
+                    keep[:] = [a]
+                    i += 1
+        except Exception as e:  # noqa: BLE001
+            errs.append(repr(e))
+
+    t = threading.Thread(target=hammer)
+    t.start()
+    try:
+        for _ in range(3):
+            body = urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/metrics", timeout=5
+            ).read().decode()
+            per_series: dict = {}
+            for line in body.splitlines():
+                if "_bucket{" in line:
+                    fam = line.split("{")[0]
+                    key = (fam, line.split('tenant="')[1].split('"')[0]
+                           if 'tenant="' in line else "")
+                    per_series.setdefault(key, []).append(
+                        float(line.rsplit(" ", 1)[1]))
+            for key, counts in per_series.items():
+                assert counts == sorted(counts), (key, counts)
+    finally:
+        stop.set()
+        t.join()
+    assert not errs, errs
+    body = telemetry.render()
+    assert 'ramba_serve_tenant_flushes_total{rank="0",tenant="soak"}' in body
+    assert 'ramba_memory_tenant_live_bytes{rank="0",tenant="soak"}' in body
+    assert any(ln.startswith("ramba_flush_e2e_seconds_bucket")
+               and 'tenant="soak"' in ln for ln in body.splitlines())
+    telemetry.stop()
+    _serve_shutdown()

@@ -19,7 +19,11 @@ checkpoints saved and resumed in worlds of other sizes, a barrier that a
 wedged or crashed rank never reaches, a live reshape of the rank mesh
 and its fallback, a dispatch stall on one rank); ``observe`` the
 attribution plane (each rank's stage signatures and sampled fence
-logs).  On the card (``tests/test_torch_cuda.py``), ``card`` runs star2
+logs); ``serve`` star2 flushes of a serve session on every rank through
+the pipeline under a rank-skewed ``serve:admit`` fault (the shed set
+each rank records, with its agreed epochs, and its blocks against the
+same programs on the default stream).  On the card
+(``tests/test_torch_cuda.py``), ``card`` runs star2
 through the CUDA stencil kernel on each rank's block and ``nccl`` one
 rank's collectives over NCCL.  :func:`programs` takes the package as an argument, so the test runs
 the same programs through ``ramba_tpu`` for the reference.
@@ -805,6 +809,46 @@ def _observe(rt, rank, outdir):
         json.dump(info, f)
 
 
+SERVE_GRID = (24, 20)
+SERVE_FLUSHES = 6
+
+
+def _serve(rt, rank, outdir):
+    """Star2 flushes of one serve session through the pipeline (run
+    under ``RAMBA_FAULTS=serve:admit:3:rank=1``): each rank records which
+    tickets were shed, why and on which ``serve:shed`` epoch, then reads
+    every result (a shed one heals) and compares its block with the same
+    program flushed on the default stream."""
+    import hashlib
+
+    from ramba_tpu_torch.resilience import faults
+    from ramba_tpu_torch.serve import overload
+
+    st = rt.stencil(star2_body)
+    g = rt.fromarray(np.random.RandomState(3).rand(
+        *SERVE_GRID).astype(np.float32))
+    ys, tickets, shed = [], [], []
+    with rt.serve.Session(tenant="ranked") as s:
+        for k in range(SERVE_FLUSHES):
+            ys.append(rt.sstencil(st, g) * float(k + 1))
+            tickets.append(s.flush())
+        for k, t in enumerate(tickets):
+            try:
+                t.wait(60)
+            except overload.ShedError as e:
+                shed.append([k, e.reason, e.epoch])
+        blocks = [hashlib.sha256(y._block().numpy().tobytes()).hexdigest()
+                  for y in ys]
+    faults.configure(None)
+    want = [hashlib.sha256((rt.sstencil(st, g) * float(k + 1))._block()
+                           .numpy().tobytes()).hexdigest()
+            for k in range(SERVE_FLUSHES)]
+    info = {"shed": shed, "same_blocks": blocks == want,
+            "blocks": blocks, "quarantined": s.stats["quarantined"]}
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+
+
 def card_grid():
     return np.random.default_rng(5).random(CARD_GRID).astype(np.float32)
 
@@ -898,7 +942,7 @@ def main(argv) -> int:
     {"main": _main, "fail": _fail, "card": _card, "nccl": _nccl,
      "compile": _compile, "analyze": _analyze,
      "ladder": _ladder, "elastic": _elastic,
-     "observe": _observe}[mode](rt, rank, outdir)
+     "observe": _observe, "serve": _serve}[mode](rt, rank, outdir)
     distributed.shutdown()
     return 0
 
