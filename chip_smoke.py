@@ -15,6 +15,7 @@
     python3 chip_smoke.py --serve    # phase 1 and serving (--parts as above:
                                      # tenants,cse,quota,deadlines,overload,
                                      # hedge,ranks,drain)
+    python3 chip_smoke.py --fleet    # phase 1 and the fleet
 
 Phases, each reported on its own line:
 
@@ -242,7 +243,32 @@ Phases, each reported on its own line:
    hedge on a CUDA stream of its own winning byte-equal; (g) four ranks
    shedding the same three flushes under ``serve:admit:3:rank=1``; (h)
    ``drain_to_checkpoint`` over three sessions, the reports and the
-   tenant series scraped.
+   tenant series scraped; then the fleet (``fleet_path``, alone with
+   ``--fleet``): eight replica processes (``scripts/fleet_router_torch.py
+   --replica``) on this card share one temporary RAMBA_ARTIFACTS,
+   RAMBA_CACHE and RAMBA_FLEET_DIR (0.5 s interval), and every session
+   runs the step log ``init``, ``affine(1.01, 1.0)``, ``affine(1.01,
+   2.0)``, ``sum``, ``digest`` over 2^28 float64; (a) three replicas
+   healthy with the same kernel fingerprints, the collector CLI's goodput
+   against the raw documents, a torn document stale, a publish (on this
+   process, on its thread too) leaving a spin kernel running and adding
+   no launch and no flush span, a SIGKILLed replica dead within 2x the
+   interval; (b) a cold replica's digests NumPy's and its top-K entries
+   saved, a replica with the shared memo lane off building nothing and
+   counting cross-writer hits, one at 2^20 served from the lane with no
+   elemred launch, then two replicas and four tenants with acme's
+   replica SIGKILLed after step 2: redirects, heals, a fleet-breaker
+   trip, four reference digests, the survivor's elemred launches with
+   the replays; (c) the warm pool: a cold child (``--fleet-child
+   trace``) runs the sin/cos chain over a 2^28 float64 base, axpy + sum
+   and the hourly groupby sum under RAMBA_TRACE, a fresh one warms that
+   trace's programs, then builds, loads and plans nothing in its first
+   flushes and gives the same bytes, and a red brownout sheds the warm
+   work; (d) under ``RAMBA_AUTOTUNE=race`` with a live pipeline the
+   first axpy + sum flush runs the generic lowering, named in its span,
+   while the pipeline builds elemred, and the second launches it; (e) a
+   2^28 float64 session drained on one replica and adopted on another,
+   the same digest.
    Every kernel's launch count is set to 0 just before each path and
    read just after; a path that does not launch its kernel fails the
    run;
@@ -1830,6 +1856,14 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
     for k in totals:
         if totals[k] == before[k]:
             raise Fail(f"serve_path launched no {k}")
+    log("  fleet_path: the snapshot spool, replicas, the router, the shared "
+        "tier, the warm pool, the race pre-warm and migration")
+    before = dict(totals)
+    timed("fleet_path", fleet_path, rt, er, sk, sg, sc, torch, np, card,
+          totals)
+    for k in ("elemred", "segred"):
+        if totals[k] == before[k]:
+            raise Fail(f"fleet_path launched no {k}")
     log(f"  phase 3 walls by path (s): {json.dumps(walls)} [{card}]")
     return totals, sharded, dist
 
@@ -9461,6 +9495,797 @@ def serve_path(rt, er, sk, sg, sc, torch, np, card, window, totals,
     return out
 
 
+# ---------------------------------------------------------------------------
+# fleet_path: the fleet on the card (ROADMAP A.10 part two)
+# ---------------------------------------------------------------------------
+
+FLEET_N = 1 << 28                  # the sessions' state, float64 (2 GiB)
+FLEET_SMALL_N = 1 << 20            # the shared memo lane's leg (8 MiB: its cap)
+FLEET_INTERVAL_S = 0.5             # every replica's RAMBA_FLEET_INTERVAL_S
+FLEET_TENANTS = ("acme", "globex", "initech", "umbrella")
+FLEET_TOP_K = 8                    # the warm pool's programs
+FLEET_LIMIT_S = 180                # per replica start, child or reply
+# the replicas of the path, started together: three for the spool (a), a
+# cold one, one with the shared memo lane off and one at FLEET_SMALL_N
+# for (b) 1-3, two for the heal (b) 4; (e) migrates between a survivor of
+# (b) 4 and the small one
+FLEET_REPLICAS = ("spool1", "spool2", "spool3", "cold", "nomemo", "lane",
+                  "heal1", "heal2")
+
+
+def fleet_log(n):
+    """The step log of every session (``scripts/two_process_suite.py``'s
+    router leg): ``init``, ``affine(1.01, 1.0)``, ``affine(1.01, 2.0)``,
+    ``sum``; ``digest`` reads the state back."""
+    return [("init", {"name": "x", "shape": [n], "fill": 2.0,
+                      "dtype": "float64"}),
+            ("affine", {"name": "x", "a": 1.01, "b": 1.0}),
+            ("affine", {"name": "x", "a": 1.01, "b": 2.0}),
+            ("sum", {"name": "x"})]
+
+
+def fleet_numpy(np, n, affines=2):
+    """NumPy's run of the step log's first ``1 + affines`` steps: the
+    replica's digest of the state (sha256 over name, dtype, shape and
+    bytes) and the exact sum (every element is the same value)."""
+    import hashlib
+
+    v = np.float64(2.0)
+    for a, b in ((1.01, 1.0), (1.01, 2.0))[:affines]:
+        v = v * np.float64(a) + np.float64(b)
+    x = np.full(n, v)
+    h = hashlib.sha256()
+    for part in (b"x", b"float64", repr((n,)).encode()):
+        h.update(part)
+    h.update(memoryview(x).cast("B"))
+    return h.hexdigest(), float(v) * n
+
+
+def _fleet_cli():
+    import os
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+    import fleet_router_torch
+
+    return fleet_router_torch
+
+
+def _fleet_env(tmp, **extra):
+    """A replica's or child's environment: no switch of this process, the
+    fleet's shared directories, ``RAMBA_MEMO=1``."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RAMBA_")}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = repo + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    env.update(RAMBA_FLEET_DIR=os.path.join(tmp, "spool"),
+               RAMBA_FLEET_INTERVAL_S=str(FLEET_INTERVAL_S),
+               RAMBA_ARTIFACTS=os.path.join(tmp, "artifacts"),
+               RAMBA_CACHE=os.path.join(tmp, "cache"), RAMBA_MEMO="1")
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def _fleet_session(router, tenant, n, trace_id=None):
+    """One routed session of the step log: ``(digest, sum)``."""
+    sid = router.open_session(tenant=tenant, trace_id=trace_id)
+    s = None
+    for w, p in fleet_log(n):
+        s = router.step(sid, w, p)["result"]
+    digest = router.step(sid, "digest")["result"]
+    router.close_session(sid)
+    return digest, s
+
+
+def _fleet_sum_ok(np, got, want, n):
+    """A replica's float64 sum of n equal values against the exact one:
+    within n eps |sum| (any fold order)."""
+    return abs(got - want) <= n * EPS["float64"] * abs(want)
+
+
+class _Fleet:
+    """The path's replica processes and what they launched: each
+    replica's kernel launch counts are read from its ``stats`` reply just
+    before it is stopped or killed (a fresh process counts from 0)."""
+
+    def __init__(self, tmp, card):
+        import os
+
+        self.cli = _fleet_cli()
+        self.tmp, self.card = tmp, card
+        self.spool = os.path.join(tmp, "spool")
+        self.procs, self.eps = {}, {}
+        self.launches = {"elemred": 0, "stencil": 0, "segred": 0, "scan": 0}
+        self.by_replica, self.ids = {}, {}
+
+    def start(self, names, extra):
+        for name in names:
+            self.procs[name] = self.cli.start_replica(
+                _fleet_env(self.tmp, **extra.get(name, {})))
+
+    def ready(self):
+        for name, proc in self.procs.items():
+            self.eps[name] = self.cli.wait_ready(proc, FLEET_LIMIT_S)
+
+    def router(self, *names, spool=False):
+        """A router over the named replicas; with ``spool`` the snapshot
+        spool is its health feed and it discovers every replica
+        publishing there, so only (b) 4 takes it, once the other replicas
+        have left the spool."""
+        from ramba_tpu_torch.fleet.router import Router
+
+        return Router(fleet_dir=self.spool if spool else None,
+                      endpoints=[self.eps[n] for n in names])
+
+    def stats(self, router, name):
+        return router.call_replica(self.eps[name], "stats")
+
+    def _count(self, name, st):
+        self.ids[name] = st["replica"]
+        self.by_replica[name] = st["launches"]
+        for k, v in st["launches"].items():
+            self.launches[k] += v
+
+    def stop(self, router, name, unpublish=False):
+        """Read the replica's launches, shut it down and wait for it;
+        ``unpublish``: take its document out of the spool too."""
+        import os
+
+        st = self.stats(router, name)
+        self._count(name, st)
+        router.call_replica(self.eps[name], "shutdown")
+        self.procs[name].wait(timeout=60)
+        if unpublish:
+            try:
+                os.unlink(os.path.join(self.spool, st["replica"] + ".json"))
+            except OSError:
+                pass
+
+    def kill(self, router, name):
+        """Read the replica's launches, then SIGKILL it and reap it."""
+        import signal
+
+        self._count(name, self.stats(router, name))
+        self.procs[name].send_signal(signal.SIGKILL)
+        self.procs[name].wait(timeout=60)
+        return time.time()
+
+    def unpublish(self, name):
+        """Take a dead replica's last document out of the spool."""
+        import os
+
+        try:
+            os.unlink(os.path.join(self.spool, self.ids[name] + ".json"))
+        except OSError:
+            pass
+
+    def close(self):
+        """Kill whatever is still running (a failed part leaves no
+        replica behind)."""
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                try:
+                    proc.wait(timeout=30)
+                except Exception:  # noqa: BLE001
+                    pass
+
+
+def fleet_child(argv) -> int:
+    """One process of ``fleet_path``: ``trace`` runs the warm pool's three
+    programs under RAMBA_TRACE (cold: its kernels build); ``warm`` runs
+    ``warmpool.warm`` on that trace before any traffic, then the same
+    programs, then the warm pool again under a red brownout; ``race``
+    runs axpy + sum twice under ``RAMBA_AUTOTUNE=race`` with a live
+    pipeline.  Prints one JSON line."""
+    import os
+
+    import numpy as np
+    import torch
+
+    import ramba_tpu_torch as rt
+    from ramba_tpu_torch import _build, serve
+    from ramba_tpu_torch.compile import persist, warmpool
+    from ramba_tpu_torch.core import autotune
+    from ramba_tpu_torch.observe import events, registry
+    from ramba_tpu_torch.ops import elemred as er
+    from ramba_tpu_torch.ops import segred as sg
+    from ramba_tpu_torch.serve import overload
+    from ramba_tpu_torch.serve import pipeline as spipeline
+
+    phase = argv[argv.index("--fleet-child") + 1]
+    rt.set_device("cuda:0")
+    er.launches = sg.launches = 0
+    out = {"phase": phase}
+    n = FLEET_N
+
+    def plans():
+        return len(er._plans) + len(er._occupancy) + len(sg._entries)
+
+    if phase == "race":
+        if autotune.mode() != "race":
+            raise Fail("the race child runs without RAMBA_AUTOTUNE=race")
+        spipeline.get_pipeline()  # a live pipeline
+        x = rt.sin(rt.arange(n) * 1e-3)
+        y = rt.cos(rt.arange(n) * 1e-3)
+        rt.sync()
+        runs = []
+        for i in range(2):
+            e0 = er.launches
+            z = 2.5 * x + y
+            s = rt.sum(z)
+            rt.sync()
+            span = events.last(1, type="flush")[-1]
+            runs.append({"prewarm": span.get("prewarm"),
+                         "fingerprint": span["fingerprint"],
+                         "backends": [c["backend"] for c in span["calls"]],
+                         "elemred": er.launches - e0,
+                         "z": card_digest(z._value()), "sum": float(s)})
+            del z, s
+            if i == 0:
+                t0 = time.perf_counter()
+                tickets = list(autotune._prewarm.values())
+                for t in tickets:
+                    t.wait(FLEET_LIMIT_S)
+                out["tickets"] = len(tickets)
+                out["warm_wait_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out["runs"] = runs
+        out["prewarm"] = {k: registry.get(f"autotune.prewarm_{k}")
+                          for k in ("submitted", "served", "done")}
+        out["nvcc_builds"] = _build.nvcc_builds
+        xs = x._value()
+        out["sum_abs"] = float((2.5 * xs + y._value()).abs().sum())
+        serve.shutdown()
+    else:
+        trace = os.environ.get("CHIP_SMOKE_FLEET_TRACE")
+        if phase == "warm":
+            t0 = time.perf_counter()
+            out["warm"] = warmpool.warm(trace, top_k=FLEET_TOP_K,
+                                        timeout=FLEET_LIMIT_S)
+            t_warmed = time.perf_counter()
+            out["warm_s"] = t_warmed - t0
+            out["warm_launches"] = {"elemred": er.launches,
+                                    "segred": sg.launches}
+            out["ranked"] = len(warmpool.rank_trace(trace))
+        b0, p0 = _build.counts(), plans()
+        seq0 = events.last(1)[-1]["seq"] if events.last(1) else -1
+        t_first = []
+        base = rt.arange(n) / 1000.0
+        rt.sync()
+        B, C = rt.sin(base), rt.cos(base)
+        D = B * B + C * C
+        del B, C
+        dig = {"chain_sum": float(rt.sum(D)).hex()}
+        t_first.append(time.perf_counter())
+        dig["chain_D"] = card_digest(D._value())
+        del D, base
+        x = rt.sin(rt.arange(n) * 1e-3)
+        y = rt.cos(rt.arange(n) * 1e-3)
+        rt.sync()
+        z = 2.5 * x + y
+        s = rt.sum(z)
+        dig["axpy_sum"] = float(s).hex()
+        dig["axpy_z"] = card_digest(z._value())
+        del x, y, z, s
+        x_t, hour = hourly_series(torch, np, n)
+        g = rt.fromarray(x_t).groupby(0, hour, num_groups=24)
+        dig["hourly"] = card_digest(g.sum()._value())
+        del g, x_t
+        torch.cuda.synchronize()
+        spans = [e for e in events.last(0, type="flush") if e["seq"] > seq0]
+        b1 = _build.counts()
+        out.update(digests=dig,
+                   first_result_s=t_first[0] - T_START,
+                   builds=b1[0] - b0[0], disk_loads=b1[1] - b0[1],
+                   new_plans=plans() - p0,
+                   calls=[c["cache"] for e in spans for c in e["calls"]],
+                   persist=persist.snapshot())
+        if phase == "warm":
+            out["first_result_after_warm_s"] = t_first[0] - t_warmed
+            overload._brownout.update(queue_ratio=1.0, memory_frac=0.0,
+                                      breached=False)
+            out["brownout"] = overload.brownout_state()
+            out["shed"] = warmpool.warm(trace, top_k=FLEET_TOP_K,
+                                        timeout=FLEET_LIMIT_S)
+            overload.reset()
+        serve.shutdown()
+    out["launches"] = {"elemred": er.launches, "segred": sg.launches}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _fleet_child_start(phase, env):
+    return subprocess.Popen([sys.executable, __file__, "--fleet-child",
+                             phase], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _fleet_child_wait(phase, proc):
+    """Wait for a ``--fleet-child`` within its limit (killed past it); its
+    JSON report."""
+    try:
+        stdout, stderr = proc.communicate(timeout=FLEET_LIMIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise Fail(f"fleet child {phase} ran past {FLEET_LIMIT_S} s") \
+            from None
+    if proc.returncode != 0:
+        raise Fail(f"fleet child {phase} exited {proc.returncode}:\n"
+                   f"{stderr[-3000:]}")
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def fleet_spool(fl, np, torch, er, sk, sg, sc, card):
+    """(a) Three replicas drive the step log at FLEET_N and publish into
+    one spool: all classify healthy with the same kernel fingerprints;
+    the collector CLI's goodput reconciles with the raw documents within
+    1 %; a torn document reads stale and the CLI does not crash;
+    ``fleet.publish`` on this process, on its thread and on the
+    publisher thread, ends while a spin kernel still runs (no device
+    wait), launching nothing and stamping no flush span; a SIGKILLed
+    replica reads dead within 2x the interval."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ramba_tpu_torch.core import fuser
+    from ramba_tpu_torch.observe import events, fleet, registry
+
+    names = ("spool1", "spool2", "spool3")
+    router = fl.router(*names)
+    want_digest, want_sum = fleet_numpy(np, FLEET_N)
+
+    def drive(i):
+        ep = fl.eps[names[i]]
+        sid = f"spool-{i}"
+        router.call_replica(ep, "open", sid=sid, tenant=f"spool{i}")
+        s = None
+        for w, p in fleet_log(FLEET_N):
+            s = router.call_replica(ep, "step", sid=sid, workload=w,
+                                    params=p)["result"]
+        router.call_replica(ep, "close", sid=sid)
+        return s
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as ex:
+        sums = list(ex.map(drive, range(len(names))))
+    drive_s = time.perf_counter() - t0
+    for s in sums:
+        if not _fleet_sum_ok(np, s, want_sum, FLEET_N):
+            raise Fail(f"fleet (a): a replica's sum {s!r}, NumPy's "
+                       f"{want_sum!r}")
+    stats = {n: fl.stats(router, n) for n in names}
+    fps = {n: sorted(st["fingerprints"]) for n, st in stats.items()}
+    if len({tuple(v) for v in fps.values()}) != 1:
+        raise Fail(f"fleet (a): kernel fingerprints not lockstep: {fps}")
+    for n, st in stats.items():
+        if st["launches"]["elemred"] < 2:
+            raise Fail(f"fleet (a): {n} launched elemred "
+                       f"{st['launches']['elemred']} times, expected 2")
+    time.sleep(2 * FLEET_INTERVAL_S)  # a document after the work
+    h = fleet.health(fl.spool)
+    rows = {n: next((r for r in h["replicas"].values()
+                     if (r.get("signals") or {}).get("endpoint")
+                     == fl.eps[n]), None) for n in names}
+    if any(r is None or r["state"] != fleet.HEALTHY for r in rows.values()):
+        raise Fail(f"fleet (a): want 3 healthy, got "
+                   f"{ {n: r and r['state'] for n, r in rows.items()} }")
+    cli = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "scripts", "fleet_collector_torch.py")
+
+    def collect():
+        p = subprocess.run([sys.executable, cli, fl.spool, "--json"],
+                           capture_output=True, text=True, timeout=60,
+                           env=_fleet_env(fl.tmp))
+        if p.returncode not in (0, 1, 2, 3):
+            raise Fail(f"fleet (a): the collector exited {p.returncode}:\n"
+                       f"{p.stderr[-2000:]}")
+        return p.returncode, json.loads(p.stdout)
+
+    rc, doc = collect()
+    gp = doc["rollup"]["goodput"]
+    raw = 0
+    for name in sorted(os.listdir(fl.spool)):
+        rep = name[:-5]
+        if name.endswith(".json") and rep in gp["replicas"]:
+            with open(os.path.join(fl.spool, name)) as f:
+                raw += int(json.load(f)["diagnostics"]["counters"]
+                           .get("fuser.flushes", 0))
+    if abs(gp["flushes"] - raw) > 0.01 * max(raw, 1):
+        raise Fail(f"fleet (a): rollup {gp['flushes']} flushes, raw "
+                   f"documents {raw}")
+    torn = os.path.join(fl.spool, "torn-deadbeef-0.json")
+    with open(torn, "w") as f:
+        f.write('{"schema_version": 1, "identity": {"pid": 1, "ho')
+    rc_torn, doc_torn = collect()
+    os.unlink(torn)
+    torn_row = doc_torn["health"]["replicas"].get("torn-deadbeef-0") or {}
+    if torn_row.get("state") != fleet.STALE or rc_torn < 2:
+        raise Fail(f"fleet (a): the torn document read {torn_row} "
+                   f"(collector rc {rc_torn})")
+    # the publisher on this process: host state only
+    probe = os.path.join(fl.tmp, "probe")
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    torch.cuda._sleep(100_000_000)
+    e1.record()
+    e1.synchronize()
+    per_s = 100_000_000 / (e0.elapsed_time(e1) / 1e3)
+    before = ({"elemred": er.launches, "stencil": sk.launches,
+               "segred": sg.launches, "scan": sc.launches},
+              fuser.stats["flushes"], len(events.last(0, type="flush")),
+              registry.get("fleet.publishes"))
+    spin = torch.cuda.Event()
+    torch.cuda._sleep(int(1.0 * per_s))
+    spin.record()
+    t0 = time.perf_counter()
+    fleet.publish(probe)
+    pub_ms = (time.perf_counter() - t0) * 1e3
+    busy1 = not spin.query()
+    fleet.start(probe, 0.02)
+    time.sleep(0.3)
+    fleet.stop()
+    busy2 = not spin.query()
+    spin.synchronize()
+    after = ({"elemred": er.launches, "stencil": sk.launches,
+              "segred": sg.launches, "scan": sc.launches},
+             fuser.stats["flushes"], len(events.last(0, type="flush")),
+             registry.get("fleet.publishes"))
+    n_pub = after[3] - before[3]
+    if not (busy1 and busy2) or after[:3] != before[:3] or n_pub < 5:
+        raise Fail(f"fleet (a): the publisher waited on the card (busy "
+                   f"after {busy1}, {busy2}) or launched/flushed "
+                   f"({before[:3]} -> {after[:3]}), {n_pub} publishes")
+    # a SIGKILLed replica reads dead
+    t_kill = fl.kill(router, "spool3")
+    dead_s = None
+    while time.time() - t_kill < 10:
+        r = next((r for r in fleet.health(fl.spool)["replicas"].values()
+                  if (r.get("signals") or {}).get("endpoint")
+                  == fl.eps["spool3"]), None)
+        if r is not None and r["state"] == fleet.DEAD:
+            dead_s = time.time() - t_kill
+            break
+        time.sleep(0.02)
+    if dead_s is None or dead_s > 2 * FLEET_INTERVAL_S + 0.1:
+        raise Fail(f"fleet (a): the killed replica read dead after "
+                   f"{dead_s} s (interval {FLEET_INTERVAL_S} s)")
+    log(f"  fleet (a) 3 replicas, step log at 2^28 f64 in {drive_s:.2f} s: "
+        f"healthy, lockstep fingerprints ({len(fps['spool1'])}), goodput "
+        f"{gp['flushes']} flushes = raw {raw}; torn document stale "
+        f"(collector rc {rc_torn}); publish on this process {pub_ms:.2f} "
+        f"ms and {n_pub} publishes on its thread during a 1 s spin kernel, "
+        f"the card still busy after each, no launch, no flush span; "
+        f"SIGKILLed replica dead after {dead_s:.3f} s (interval "
+        f"{FLEET_INTERVAL_S} s) [{card}]")
+    return {"drive_s": drive_s, "goodput_flushes": gp["flushes"],
+            "raw_flushes": raw, "publish_ms": pub_ms,
+            "thread_publishes": n_pub, "dead_s": dead_s}
+
+
+def fleet_router_leg(fl, np, torch, card):
+    """(b) The router leg of ``scripts/two_process_suite.py`` at FLEET_N
+    (and (e) between its parts 3 and 4, while two idle replicas live):
+    1. a cold replica pins the digest (NumPy's) and saves its top-K
+       entries, then runs the log at FLEET_SMALL_N (filling the shared
+       memo lane);
+    2. a replica with the lane off builds nothing, counts cross-writer
+       persist hits and gives the same digests;
+    3. a replica at FLEET_SMALL_N with the lane on is served from the
+       lane (shared hits, no elemred launch);
+    4. two replicas, four tenants, the spool their router's health feed
+       (every other replica gone from it); acme's replica SIGKILLed
+       after step 2: redirects, heals and fleet-breaker trips, every
+       digest the reference, the survivor's elemred launches including
+       the replays.  Parts 1-3 and (e) route to named replicas without
+       the spool (a router discovers every replica publishing there)."""
+    import os
+
+    out = {}
+    ref, want_sum = fleet_numpy(np, FLEET_N)
+    small_ref, _ = fleet_numpy(np, FLEET_SMALL_N)
+    # 1
+    r = fl.router("cold")
+    t0 = time.perf_counter()
+    digs = [_fleet_session(r, t, FLEET_N) for t in ("acme", "globex")]
+    cold_s = time.perf_counter() - t0
+    if any(d != ref for d, _s in digs):
+        raise Fail(f"fleet (b) 1: digests {[d for d, _ in digs]} != "
+                   f"NumPy's {ref}")
+    saved = r.call_replica(fl.eps["cold"], "save_artifacts", k=16)["saved"]
+    if saved.get("stored", 0) < 1:
+        raise Fail(f"fleet (b) 1: save_artifacts stored nothing: {saved}, "
+                   f"persist {fl.stats(r, 'cold')['persist']}")
+    small = _fleet_session(r, "acme", FLEET_SMALL_N)[0]
+    if small != small_ref:
+        raise Fail("fleet (b) 1: the 2^20 digest is not NumPy's")
+    st = fl.stats(r, "cold")
+    fl.stop(r, "cold", unpublish=True)
+    out["cold"] = {"wall_s": cold_s, "saved": saved,
+                   "nvcc_builds": st["nvcc_builds"],
+                   "memo_stores": st["artifacts"]["memo_stores"]}
+    # 2
+    r = fl.router("nomemo")
+    t0 = time.perf_counter()
+    digs = [_fleet_session(r, t, FLEET_N) for t in ("acme", "globex")]
+    warm_s = time.perf_counter() - t0
+    st = fl.stats(r, "nomemo")
+    fl.stop(r, "nomemo", unpublish=True)
+    cross = st["counters"]["compile.persist_cross_hit"]
+    if any(d != ref for d, _s in digs) or st["nvcc_builds"] != 0 \
+            or cross < 1:
+        raise Fail(f"fleet (b) 2: digests equal {all(d == ref for d, _ in digs)}, "
+                   f"nvcc builds {st['nvcc_builds']}, cross-writer hits "
+                   f"{cross}")
+    out["nomemo"] = {"wall_s": warm_s, "cross_hits": cross,
+                     "entry_hits": st["persist"]["entry_hits"],
+                     "memo_shared": st["artifacts"]["memo_shared"]}
+    # 3
+    r = fl.router("lane")
+    dig = _fleet_session(r, "acme", FLEET_SMALL_N)[0]
+    st = fl.stats(r, "lane")
+    shared = st["counters"]["memo.shared_hit"]
+    if dig != small_ref or shared < 3 or st["launches"]["elemred"] != 0:
+        raise Fail(f"fleet (b) 3: digest NumPy's {dig == small_ref}, "
+                   f"shared hits {shared}, elemred launches "
+                   f"{st['launches']['elemred']}")
+    out["lane"] = {"shared_hits": shared,
+                   "elemred": st["launches"]["elemred"]}
+    out["migrate"] = fleet_migrate(fl, np, fl.card)
+    # 4: the heal pair alone in the spool
+    for name in ("spool1", "spool2", "lane"):
+        fl.stop(fl.router(name), name, unpublish=True)
+    fl.unpublish("spool3")
+    saved_env = {k: os.environ.get(k) for k in (
+        "RAMBA_BREAKER_THRESHOLD", "RAMBA_FLEET_STALE_X",
+        "RAMBA_FLEET_DEAD_X")}
+    # the first transport failure trips a replica's fleet breaker; the
+    # health feed tolerates a replica busy with a 2 GiB read-back
+    os.environ.update(RAMBA_BREAKER_THRESHOLD="1", RAMBA_FLEET_STALE_X="4",
+                      RAMBA_FLEET_DEAD_X="8")
+    try:
+        r = fl.router("heal1", "heal2", spool=True)
+        if sorted(r.stats()["replicas"]) != sorted(
+                fl.eps[n] for n in ("heal1", "heal2")):
+            raise Fail(f"fleet (b) 4: the spool shows replicas "
+                       f"{sorted(r.stats()['replicas'])}")
+        by_ep = {fl.eps[n]: n for n in ("heal1", "heal2")}
+        sids = {t: r.open_session(tenant=t) for t in FLEET_TENANTS}
+        victim = None
+        t0 = time.perf_counter()
+        for i, (w, p) in enumerate(fleet_log(FLEET_N)):
+            for t in FLEET_TENANTS:
+                r.step(sids[t], w, p)
+            if i == 1:
+                victim = by_ep[r.stats()["sessions"][sids["acme"]]
+                               ["endpoint"]]
+                placed = {t: by_ep[r.stats()["sessions"][s]["endpoint"]]
+                          for t, s in sids.items()}
+                fl.kill(r, victim)
+        digs = {t: r.step(sids[t], "digest")["result"]
+                for t in FLEET_TENANTS}
+        heal_s = time.perf_counter() - t0
+        rs = r.stats()
+        survivor = "heal2" if victim == "heal1" else "heal1"
+        st = fl.stats(r, survivor)
+        trips = rs["replicas"][fl.eps[victim]]["breaker"]["trips"]
+        for s in sids.values():
+            r.close_session(s)
+        fl.stop(r, survivor, unpublish=True)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    healed = sum(1 for t in FLEET_TENANTS if placed[t] == victim)
+    want_elemred = 3 * len(FLEET_TENANTS)  # two affines and a sum each
+    if any(d != ref for d in digs.values()) or rs["redirects"] < 1 \
+            or rs["heals"] < 1 or trips < 1 \
+            or st["launches"]["elemred"] != want_elemred:
+        raise Fail(f"fleet (b) 4: digests equal "
+                   f"{ {t: d == ref for t, d in digs.items()} }, redirects "
+                   f"{rs['redirects']}, heals {rs['heals']}, trips {trips}, "
+                   f"survivor elemred {st['launches']['elemred']} (want "
+                   f"{want_elemred})")
+    out["heal"] = {"wall_s": heal_s, "placed": placed, "victim": victim,
+                   "healed_sessions": healed, "redirects": rs["redirects"],
+                   "heals": rs["heals"], "trips": trips,
+                   "survivor_elemred": st["launches"]["elemred"],
+                   "survivor_nvcc_builds": st["nvcc_builds"]}
+    log(f"  fleet (b) router leg at 2^28 f64: cold replica {cold_s:.2f} s "
+        f"for two sessions (digests NumPy's), saved {saved}; lane-off "
+        f"replica {warm_s:.2f} s, nvcc builds 0, cross-writer persist hits "
+        f"{cross}, entry hits {out['nomemo']['entry_hits']}; 2^20 replica "
+        f"served {shared} flushes from the shared memo lane, elemred "
+        f"launches 0; heal: tenants on {placed}, {victim} SIGKILLed after "
+        f"step 2, redirects {rs['redirects']}, heals {rs['heals']}, "
+        f"fleet-breaker trips {trips}, four digests the reference, "
+        f"survivor elemred launches {st['launches']['elemred']} (replays "
+        f"of {healed} session(s) included), {heal_s:.2f} s [{fl.card}]")
+    return out
+
+
+def fleet_migrate(fl, np, card):
+    """(e) A session with a FLEET_N f64 state drained on one replica and
+    adopted on another through the port's checkpoint format: the same
+    digest (NumPy's), the payload's bytes and the wall."""
+    a, b = "spool1", "lane"
+    r = fl.router(a, b)
+    sid = r.open_session(tenant="migrant")
+    for w, p in fleet_log(FLEET_N)[:2]:
+        r.step(sid, w, p)
+    before = r.step(sid, "digest")["result"]
+    src = r.stats()["sessions"][sid]["endpoint"]
+    dst = fl.eps[b] if src == fl.eps[a] else fl.eps[a]
+    t0 = time.perf_counter()
+    reply = r.migrate_session(sid, dst)
+    wall = time.perf_counter() - t0
+    after = r.step(sid, "digest")["result"]
+    want = fleet_numpy(np, FLEET_N, affines=1)[0]
+    r.close_session(sid)
+    if not (before == after == want) or reply.get("names") != ["x"]:
+        raise Fail(f"fleet (e): digests before {before == want}, after "
+                   f"{after == want}, adopt reply {reply}")
+    nbytes = reply.get("payload_bytes")
+    log(f"  fleet (e) migration of a 2^28 f64 session: {nbytes} bytes "
+        f"drained and adopted in {wall:.3f} s, digest unchanged (NumPy's) "
+        f"[{card}]")
+    return {"bytes": nbytes, "wall_s": wall}
+
+
+def fleet_warm(tmp, np, card, kids):
+    """(c) The warm pool: a cold child runs the sin/cos chain over a 2^28
+    f64 base, axpy + sum 2^28 and the hourly groupby sum (2^28 f64,
+    G=24) under RAMBA_TRACE, saving skeletons; a fresh child warms that
+    trace's top-K programs before any traffic: every one warmed, none
+    unresolved, and its first real flush of each builds nothing and
+    makes no new plan, the same bytes; a red brownout sheds the warm
+    work.  (d) The race child's report (started with the others):
+    the first axpy + sum flush served on the generic lowering with its
+    ``prewarm``, the second on elemred, z byte-equal, the sums within the
+    depth bound.  Both cold children started with the replicas."""
+    import os
+
+    trace = os.path.join(tmp, "trace.jsonl")
+    env = _fleet_env(tmp, CHIP_SMOKE_FLEET_TRACE=trace)
+    env.pop("RAMBA_FLEET_DIR")
+    env.pop("RAMBA_MEMO")
+    cold = _fleet_child_wait("trace", kids["trace"])
+    warm = _fleet_child_wait("warm", _fleet_child_start("warm", env))
+    rep, shed = warm["warm"], warm["shed"]
+    if rep["warmed"] != rep["submitted"] or rep["unresolved"] or \
+            rep["failed"] or rep["submitted"] != min(FLEET_TOP_K,
+                                                      warm["ranked"]):
+        raise Fail(f"fleet (c): warm report {rep} ({warm['ranked']} "
+                   "programs in the trace)")
+    if warm["builds"] or warm["disk_loads"] or warm["new_plans"] or \
+            any(c != "hit" for c in warm["calls"]):
+        raise Fail(f"fleet (c): the warmed process's first flushes built "
+                   f"{warm['builds']}, loaded {warm['disk_loads']}, planned "
+                   f"{warm['new_plans']}, calls {warm['calls']}")
+    if warm["digests"] != cold["digests"]:
+        raise Fail(f"fleet (c): warmed results differ: {warm['digests']} vs "
+                   f"{cold['digests']}")
+    if warm["brownout"] != "red" or shed["shed"] != shed["submitted"] or \
+            not shed["submitted"]:
+        raise Fail(f"fleet (c): brownout {warm['brownout']}, report {shed}")
+    race = _fleet_child_wait("race", kids["race"])
+    r1, r2 = race["runs"]
+    bound = FLEET_N * EPS["float64"] * race["sum_abs"]
+    # elemred launches twice in the child: the warm ticket's launch on
+    # zeros (on the pipeline's thread) and the second flush's
+    if not (r1["prewarm"] == r1["fingerprint"]
+            and r1["backends"] == ["torch"]
+            and r2["prewarm"] is None and r2["backends"] == ["kernel"]
+            and race["launches"]["elemred"] == 2 and r1["z"] == r2["z"]
+            and abs(r1["sum"] - r2["sum"]) <= bound
+            and race["prewarm"]["served"] == 1
+            and race["prewarm"]["done"] == 1):
+        raise Fail(f"fleet (d): the race pre-warm: {race}")
+    log(f"  fleet (c) warm pool: cold process first result "
+        f"{cold['first_result_s']:.2f} s after start ({cold['builds']} nvcc "
+        f"builds); warmed process {rep['warmed']} of {warm['ranked']} "
+        f"programs warmed in {warm['warm_s']:.2f} s, first result "
+        f"{warm['first_result_s']:.2f} s after start "
+        f"({warm['first_result_after_warm_s']:.2f} s after the warm), its "
+        f"first flushes 0 builds, 0 loads, 0 new plans, all compile-cache "
+        f"hits, byte-equal to the cold ones; red brownout shed "
+        f"{shed['shed']} of {shed['submitted']} [{card}]")
+    log(f"  fleet (d) race pre-warm: first axpy + sum 2^28 f64 on "
+        f"{r1['backends']} with prewarm {r1['prewarm']}, its kernel built "
+        f"({race['nvcc_builds']} nvcc) and launched on the pipeline, "
+        f"{race['warm_wait_s']:.2f} s more; second on {r2['backends']} "
+        f"(elemred launches in the child {race['launches']['elemred']}: the "
+        f"warm ticket's and the second flush's); z byte-equal, sums "
+        f"{r1['sum']!r} {r2['sum']!r} within {bound:.3g} [{card}]")
+    launches = {k: cold["launches"][k] + warm["launches"][k]
+                + race["launches"][k] for k in ("elemred", "segred")}
+    return {"cold": {k: cold[k] for k in ("first_result_s", "builds")},
+            "warm": {k: warm[k] for k in (
+                "warm", "warm_s", "first_result_s",
+                "first_result_after_warm_s", "warm_launches")},
+            "shed": shed, "race": {k: race[k] for k in (
+                "runs", "prewarm", "warm_wait_s", "nvcc_builds")},
+            "launches": launches}
+
+
+def fleet_path(rt, er, sk, sg, sc, torch, np, card, totals):
+    """The fleet on the card (ROADMAP A.10 part two), (a)-(e) as their
+    functions say.  Replicas are child processes of this script
+    (``scripts/fleet_router_torch.py --replica``) on this card, sharing
+    one RAMBA_ARTIFACTS, RAMBA_CACHE and RAMBA_FLEET_DIR in a temporary
+    directory; the warm pool and the race run in ``--fleet-child``
+    processes.  Every replica's and child's launches are read from its
+    report and added to ``totals``."""
+    import os
+    import tempfile
+
+    from ramba_tpu_torch.observe import fleet
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="ramba_fleet_")
+    saved = {k: os.environ.get(k) for k in ("RAMBA_ROUTER_TIMEOUT_S",
+                                             "RAMBA_HANDOFF_DIR")}
+    # the router's replies wait out a first build; it discards handoffs
+    # where the replicas write them
+    os.environ.update(RAMBA_ROUTER_TIMEOUT_S=str(FLEET_LIMIT_S),
+                      RAMBA_HANDOFF_DIR=os.path.join(tmp, "artifacts",
+                                                     "handoff"))
+    fl = _Fleet(tmp, card)
+    kids = {}
+    out = {}
+    try:
+        fl.start(FLEET_REPLICAS, {"nomemo": {"RAMBA_MEMO_SHARED": "0"}})
+        trace_env = _fleet_env(tmp, RAMBA_TRACE=os.path.join(
+            tmp, "trace.jsonl"))
+        trace_env.pop("RAMBA_FLEET_DIR")
+        trace_env.pop("RAMBA_MEMO")
+        kids["trace"] = _fleet_child_start("trace", trace_env)
+        race_env = _fleet_env(tmp, RAMBA_AUTOTUNE="race",
+                              RAMBA_CACHE=os.path.join(tmp, "race_cache"),
+                              RAMBA_AUTOTUNE_CACHE=os.path.join(
+                                  tmp, "race_table.json"))
+        race_env.pop("RAMBA_FLEET_DIR")
+        race_env.pop("RAMBA_MEMO")
+        kids["race"] = _fleet_child_start("race", race_env)
+        out["warm"] = fleet_warm(tmp, np, card, kids)
+        fl.ready()
+        out["spool"] = fleet_spool(fl, np, torch, er, sk, sg, sc, card)
+        out["router"] = fleet_router_leg(fl, np, torch, card)
+    finally:
+        fl.close()
+        for p in kids.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        fleet.reset()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k in ("elemred", "segred"):
+        totals[k] += fl.launches[k] + out["warm"]["launches"][k]
+    totals["stencil"] += fl.launches["stencil"]
+    totals["scan"] += fl.launches["scan"]
+    out["launches"] = {"replicas": fl.by_replica,
+                       "children": out["warm"]["launches"]}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  fleet_path: {out['wall_s']:.1f} s; launches by replica "
+        f"{json.dumps(fl.by_replica)}, by the warm pool's and race's "
+        f"children {json.dumps(out['warm']['launches'])} [{card}]")
+    return out
+
+
 def main(argv) -> int:
     import torch
 
@@ -9475,6 +10300,8 @@ def main(argv) -> int:
         return elastic_child(argv)
     if "--observe-child" in argv:  # one process of observe_path (c)
         return observe_child(argv)
+    if "--fleet-child" in argv:  # one process of fleet_path (c), (d)
+        return fleet_child(argv)
     import numpy as np
 
     import ramba_tpu_torch as rt
@@ -9582,6 +10409,15 @@ def main(argv) -> int:
         for k in totals:
             if not totals[k] and only is None:
                 raise Fail(f"serve_path launched no {k}")
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        print(card, flush=True)
+        return 0
+    if "--fleet" in argv:  # phase 1 and fleet_path alone
+        totals = dict.fromkeys(("elemred", "stencil", "segred", "scan"), 0)
+        out = fleet_path(rt, er, sk, sg, sc, torch, np, card, totals)
+        log(json.dumps({"fleet": out, "launches": totals}, default=str))
+        if not (totals["elemred"] and totals["segred"]):
+            raise Fail("fleet_path launched no elemred or no segred")
         log(f"total {time.perf_counter() - t_all:.1f} s")
         print(card, flush=True)
         return 0

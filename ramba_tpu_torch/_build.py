@@ -10,7 +10,8 @@ the flags, in ``ramba_tpu_torch/_build/`` (listed in ``.gitignore``), or in
 (``compile/persist.py``), where the next process finds it.
 
 Every library gets a digest beside it (``<lib>.so.sha``, an integrity
-envelope), checked before ``ctypes`` loads the library: a corrupt or
+envelope over the digest and the identity of the process that built it,
+host and pid), checked before ``ctypes`` loads the library: a corrupt or
 truncated library is evicted and rebuilt (counted
 ``compile.persist_corrupt``), never loaded.  The fault site ``aot:blob``
 flips bytes of the library as read for that check.  Check, build, digest,
@@ -20,7 +21,8 @@ build's library with another's digest, nor evict a library another is
 about to load.  ``nvcc_builds`` counts the builds this process ran
 (``compile.nvcc_builds``), ``disk_loads`` the libraries it loaded that it
 did not build (``compile.kernel_loads``; a persist hit when the cache is
-armed).
+armed, and a cross-writer hit, ``compile.persist_cross_hit``, when another
+process built it).
 
 A failed build raises with the compiler's output; nothing falls back.  Any
 other failure to build or load a library (the compiler missing or not
@@ -35,12 +37,15 @@ import contextlib
 import ctypes
 import fcntl
 import hashlib
+import json
 import os
 import shutil
+import socket
 import subprocess
 import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -181,6 +186,34 @@ def _evict(so: str, name: str, reason: str) -> None:
     integrity.failure("aot:blob", reason, lib=name)
 
 
+def writer_identity() -> dict:
+    """The identity a build records beside its library."""
+    return {"host": socket.gethostname(), "pid": os.getpid()}
+
+
+def _parse_digest(payload: bytes) -> tuple:
+    """``(digest, writer)`` of a digest envelope's payload: JSON with both,
+    or a bare digest (writer None)."""
+    text = payload.decode()
+    if text.startswith("{"):
+        doc = json.loads(text)
+        return str(doc["digest"]), doc.get("writer")
+    return text, None
+
+
+def writer_of(so: str) -> Optional[dict]:
+    """The identity of the process that built the library at ``so`` (None
+    when its digest records none or cannot be read)."""
+    from ramba_tpu_torch.resilience import integrity
+
+    try:
+        with open(_digest_path(so), "rb") as f:
+            return _parse_digest(integrity.unwrap(
+                f.read(), DIGEST_SCHEMA, site="aot:blob"))[1]
+    except (OSError, ValueError, KeyError, integrity.IntegrityError):
+        return None
+
+
 def verified(so: str, name: str) -> bool:
     """True when the library at ``so`` matches its digest.  Reads the
     library through the ``aot:blob`` flip seam; a mismatch, a missing
@@ -193,9 +226,9 @@ def verified(so: str, name: str) -> bool:
         with open(so, "rb") as f:
             raw = f.read()
         with open(_digest_path(so), "rb") as f:
-            want = integrity.unwrap(f.read(), DIGEST_SCHEMA,
-                                    site="aot:blob").decode()
-    except (OSError, integrity.IntegrityError, UnicodeDecodeError):
+            want = _parse_digest(integrity.unwrap(f.read(), DIGEST_SCHEMA,
+                                                  site="aot:blob"))[0]
+    except (OSError, integrity.IntegrityError, ValueError, KeyError):
         _evict(so, name, "digest")
         return False
     raw = faults.corrupt("aot:blob", raw, lib=name)
@@ -235,8 +268,9 @@ def _build_locked(out: str, name: str, source: str) -> bool:
 
     with open(tmp, "rb") as f:
         digest = _sha256(f.read())
+    doc = json.dumps({"digest": digest, "writer": writer_identity()})
     _atomic_write(_digest_path(out),
-                  integrity.wrap(digest.encode(), DIGEST_SCHEMA))
+                  integrity.wrap(doc.encode(), DIGEST_SCHEMA))
     os.replace(tmp, out)
     with _lock:
         nvcc_builds += 1
@@ -290,8 +324,16 @@ def load(name: str, source: str) -> ctypes.CDLL:
         from ramba_tpu_torch.observe import registry
 
         registry.inc("compile.kernel_loads")
-        persist.note_hit()
+        writer = writer_of(out)
+        persist.note_hit(cross=writer is not None
+                         and writer != writer_identity())
     return lib
+
+
+def loaded(source: str) -> bool:
+    """Whether this process has loaded the library of ``source``."""
+    with _lock:
+        return source in _libs
 
 
 def counts() -> tuple:

@@ -9,14 +9,18 @@ Counterpart of ``ramba_tpu/compile/``:
   compiled programs;
 * ``persist`` — the ``RAMBA_CACHE`` directory: built kernel libraries,
   checked against their digests before they load, so a second process
-  pays no ``nvcc`` build for what the first one built.
+  pays no ``nvcc`` build for what the first one built, and the program
+  skeletons another process rebuilds programs from;
+* ``warmpool`` — replays ``RAMBA_TRACE`` program events through
+  ``CompilePipeline.submit_warm``: each of the top-K programs is rebuilt
+  from its skeleton and launched once before traffic arrives.
 
-The warm pool (``warmpool``) comes with the serving queue.  Submodules
-load lazily: ``core/fuser.py`` imports ``classes`` directly, and an
-eager package import here would be a cycle.
+Submodules load lazily: ``core/fuser.py`` imports ``classes`` and
+``persist`` directly, and ``warmpool`` imports the fuser, so an eager
+package import here would be a cycle.
 """
 
-__all__ = ["classes", "persist"]
+__all__ = ["classes", "persist", "warmpool"]
 
 
 def __getattr__(name):

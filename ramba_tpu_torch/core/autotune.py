@@ -26,6 +26,17 @@ come from the table (``autotune.race_skipped``, once per fingerprint),
 where a fresh race counts ``autotune.race_started``.  Across ranks every
 rank latches rank 0's winner (:func:`_agree_winner`).
 
+The race pre-warm (:func:`maybe_prewarm`, the reference's): under
+``race`` with a live serve pipeline, in one process, a flush whose
+kernel libraries this process has not loaded yet is served on the
+generic lowering while one warm ticket (``submit_warm``) builds or loads
+the libraries and launches the kernel once on zero-filled examples.  The
+route is named in the flush's span (``prewarm``: the fingerprint, beside
+the call's ``torch`` backend) and counted (``autotune.prewarm_served``).
+The first flush after the ticket ends launches the kernel; a ticket that
+failed (a :class:`_build.KernelBuildError`) raises from that flush.  It
+is the only route off a hand kernel the port has.
+
 Two deliberate differences from ramba_tpu:
 
 * race samples are device times: on the card the fuser times a racing
@@ -59,6 +70,8 @@ _decisions: "dict[str, dict]" = {}
 _started: "set[str]" = set()
 # fingerprints served from the persisted table in this process
 _skipped: "set[str]" = set()
+# fingerprint -> the warm ticket building its kernel libraries
+_prewarm: dict = {}
 
 _mode = "off"        # off | race | force
 _forced: Optional[str] = None
@@ -86,6 +99,7 @@ def _clear_locked() -> None:
     _decisions.clear()
     _started.clear()
     _skipped.clear()
+    _prewarm.clear()
     _table_loaded = False
     _bump_generation_locked()
 
@@ -256,6 +270,72 @@ def select(fp: str, program, leaf_vals) -> tuple:
     # toward the backend with fewer samples, the kernel first
     return (KERNEL, "racing") if counts[KERNEL] <= counts[TORCH] \
         else (TORCH, "racing")
+
+
+def maybe_prewarm(fp: str, program, leaf_vals) -> bool:
+    """True when this flush of a racing kernel program is to be served on
+    the generic lowering because its kernel libraries are still being
+    built through the serve pipeline (submitted here on the first such
+    flush).  False when the race is off, no pipeline is live, the job has
+    several processes, the libraries are loaded, or the warm ticket has
+    ended; a ticket that failed raises its error here, once."""
+    if _mode != "race":
+        return False
+    try:
+        from ramba_tpu_torch.serve import pipeline as _pipeline
+
+        pipe = _pipeline.current_pipeline()
+    except Exception:  # noqa: BLE001
+        return False
+    if pipe is None:
+        return False
+    from ramba_tpu_torch.observe import events as _events
+
+    if _events.rank_info()[1] != 1:
+        return False
+    with _lock:
+        ticket = _prewarm.get(fp)
+    if ticket is not None:
+        if not ticket.done:
+            return True
+        with _lock:
+            _prewarm.pop(fp, None)
+        if ticket.exception is not None:
+            raise ticket.exception
+        return False
+    from ramba_tpu_torch import _build
+    from ramba_tpu_torch.ops import kernel_backend
+
+    libs = kernel_backend.libraries(program, leaf_vals)
+    if all(_build.loaded(src) for _name, src in libs):
+        return False
+    from ramba_tpu_torch.compile import persist as _persist
+
+    sig = _persist.aval_sig(leaf_vals)
+    if sig is None:
+        return False
+    scalars = _persist.scalars_of(leaf_vals)
+
+    def warm():
+        import torch
+
+        from ramba_tpu_torch.core import fuser as _fuser
+
+        vals = _persist._example_vals(sig, scalars)
+        fn, is_new, _fp, backend, via = _fuser._get_compiled(
+            program, vals, backend=KERNEL)
+        outs = _fuser._execute_compiled(fn, program, vals, is_new, None,
+                                        _fp, backend, via)
+        dev = _fuser._device_of(list(vals) + list(outs))
+        if dev is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        _registry.inc("autotune.prewarm_done")
+
+    ticket = pipe.submit_warm(warm, label=f"autotune:{fp}")
+    with _lock:
+        _prewarm[fp] = ticket
+    _registry.inc("autotune.prewarm_submitted")
+    return True
 
 
 def decision(fp: str) -> Optional[dict]:

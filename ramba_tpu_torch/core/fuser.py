@@ -17,7 +17,10 @@ once:
 default the kernels take every program the classifier accepts; under
 ``RAMBA_AUTOTUNE=race`` a measured race decides).  There is no fallback
 between the two: the choice is made before anything runs, and a kernel
-that fails to build or launch raises.
+that fails to build or launch raises.  The one route off a kernel is the
+race's pre-warm (``autotune.maybe_prewarm``): under ``race`` with a live
+serve pipeline, a racing flush whose kernel libraries are still building
+on the pipeline runs the generic lowering, with ``prewarm`` in its span.
 
 The compile pipeline around a program (ROADMAP A.7):
 
@@ -30,7 +33,10 @@ The compile pipeline around a program (ROADMAP A.7):
   zero-padded, outputs sliced;
 * the compile cache is a true LRU of ``_COMPILE_CACHE_MAX`` entries;
   kernel libraries a miss loads may come from the persistent cache
-  (``compile/persist.py``), which saves their builds, not the compile;
+  (``compile/persist.py``), which saves their builds and each new
+  program's skeleton (a miss looks its entry up first, a fresh compile
+  registers it), so a warm pool in another process can rebuild and
+  launch the program before traffic arrives;
 * every cache interaction and every execution lands in the cost ledger
   (``observe/ledger.py``) under the fingerprint of :func:`_cache_key`,
   and every flush builds a span (emitted as a ``flush`` event) that the
@@ -105,11 +111,13 @@ import torch
 
 from ramba_tpu_torch import _build, common
 from ramba_tpu_torch.compile import classes as _classes
+from ramba_tpu_torch.compile import persist as _persist
 from ramba_tpu_torch.core import memo as _memo
 from ramba_tpu_torch.core import plancache as _plancache
 from ramba_tpu_torch.core.expr import OPS, Const, Expr, Node, Scalar
 from ramba_tpu_torch.observe import attrib as _attrib
 from ramba_tpu_torch.observe import events as _events
+from ramba_tpu_torch.observe import fleet as _fleet
 from ramba_tpu_torch.observe import ledger as _ledger
 from ramba_tpu_torch.observe import observer as _observer
 from ramba_tpu_torch.observe import profile as _profile
@@ -787,14 +795,16 @@ def _lower(program: _Program, leaf_vals, backend: str):
 
 
 def _get_compiled(program: _Program, leaf_vals, compile_class=None,
-                  key: Optional[tuple] = None, fp: Optional[str] = None):
+                  key: Optional[tuple] = None, fp: Optional[str] = None,
+                  backend: Optional[str] = None):
     """Compile-cache lookup (true LRU).  Returns ``(fn, is_new, fp,
     backend, via)``: ``fp`` is the fingerprint the ledger files the
     program under, ``backend`` the lowering ``core/autotune.py`` picks
-    and ``via`` why.  A caller that already holds the program's
-    :func:`_cache_key` and fingerprint passes them in.  A new mesh epoch
-    (``set_mesh``, ``elastic.live_reshape``) empties the cache, as in
-    the reference."""
+    (or the caller's ``backend``, ``via`` ``"prewarm"``: autotune's race
+    pre-warm) and ``via`` why.  A caller that already holds the
+    program's :func:`_cache_key` and fingerprint passes them in.  A new
+    mesh epoch (``set_mesh``, ``elastic.live_reshape``) empties the
+    cache, as in the reference."""
     global _cache_epoch
     from ramba_tpu_torch.core import autotune as _autotune
 
@@ -807,7 +817,10 @@ def _get_compiled(program: _Program, leaf_vals, compile_class=None,
         cacheable = True
     except TypeError:
         cacheable = False  # a static that hashes by identity only
-    backend, via = _autotune.select(fp, program, leaf_vals)
+    if backend is None:
+        backend, via = _autotune.select(fp, program, leaf_vals)
+    else:
+        via = "prewarm"
     cache_key = key + (backend,)
     with _cache_lock:
         if _cache_epoch != _mesh.mesh_epoch:
@@ -828,6 +841,10 @@ def _get_compiled(program: _Program, leaf_vals, compile_class=None,
                 _ledger.record_cache(old_fp, "evict")
                 _events.emit({"type": "cache_evict", "key": old_fp,
                               "capacity": _COMPILE_CACHE_MAX})
+        # the persistent cache's entry for this program loads its kernel
+        # libraries (no nvcc) before the first launch would build them
+        if _persist.aot_armed():
+            _persist.lookup(fp, leaf_vals)
         _faults.check("compile", instrs=len(program.instrs))
         fn = _lower(program, leaf_vals, backend)
         _elastic.abandon_if_cancelled("the compile cache")
@@ -837,6 +854,11 @@ def _get_compiled(program: _Program, leaf_vals, compile_class=None,
             stats["compiles"] += 1
         _registry.inc("fuser.cache_miss")
         _ledger.record_cache(fp, "miss")
+        if _persist.aot_armed():
+            # a candidate for save_topk, and its skeleton saved for the
+            # warm pool of another process
+            _persist.note_compiled(fp, program, leaf_vals,
+                                   compile_class=compile_class)
         return fn, True, fp, backend, via
 
 
@@ -978,6 +1000,18 @@ def _execute(program: _Program, leaf_vals, span: Optional[dict] = None,
              bytes_in: Optional[int] = None, rung: str = "fused") -> tuple:
     fn, is_new, fp, backend, via = _get_compiled(
         program, leaf_vals, compile_class=compile_class, key=key, fp=fp)
+    if via == "racing" and backend == "kernel" and span is not None:
+        from ramba_tpu_torch.core import autotune as _autotune
+
+        if _autotune.maybe_prewarm(fp, program, leaf_vals):
+            # the race pre-warm: the kernel's libraries are building on
+            # the serve pipeline; this flush runs the generic lowering,
+            # named in its span and counted
+            fn, is_new, fp, backend, via = _get_compiled(
+                program, leaf_vals, compile_class=compile_class, key=key,
+                fp=fp, backend="torch")
+            span["prewarm"] = fp
+            _registry.inc("autotune.prewarm_served")
     return _execute_compiled(fn, program, leaf_vals, is_new, span, fp,
                              backend, via, rung=rung, label=label,
                              bytes_in=bytes_in)
@@ -1714,10 +1748,12 @@ def _finish_memo_span(work: _FlushWork, outs) -> None:
 def _new_span(program: _Program, leaf_vals,
               t0: Optional[float] = None) -> dict:
     """A flush's span; ``t0`` is when the flush began (before its
-    rewrites and linearization), else now.  Starts the profiler and the
-    telemetry exporter where the environment asks for them."""
+    rewrites and linearization), else now.  Starts the profiler, the
+    telemetry exporter and the fleet's snapshot spool where the
+    environment asks for them."""
     _profile.ensure_started()
     _telemetry.ensure_started()
+    _fleet.ensure_started()
     return {"type": "flush", "label": _program_label(program),
             "instrs": len(program.instrs),
             "leaf_bytes": sum(_nbytes(v) for v in leaf_vals),
@@ -2016,6 +2052,8 @@ def _flush_dispatch(work: _FlushWork, *, coalesced: int = 0) -> list:
     with _stats_lock:
         stats["flushes"] += 1
         stats["nodes_flushed"] += n
+    _registry.inc("fuser.flushes")
+    _registry.inc("fuser.nodes_flushed", n)
     if stream is not _default_stream:  # a session's bookkeeping only
         stream.stats["flushes"] += 1
         stream.stats["nodes_flushed"] += n

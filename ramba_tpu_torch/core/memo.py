@@ -45,8 +45,18 @@ to catch.
 
 Batch CSE lives in the serve pipeline (``serve/pipeline.py``): a queued
 flush looks the memo up again at dispatch, so tickets of one batch with
-the same key share one execution.  Left for later: the shared (fleet
-artifact) tier, ``RAMBA_MEMO_SHARED`` (:data:`SHARED`).
+the same key share one execution.
+
+The shared (fleet artifact) lane, as in the reference: with
+``RAMBA_ARTIFACTS`` set (``fleet/artifacts.py``; ``RAMBA_MEMO_SHARED=0``
+turns the lane off) and one process in the job, a certified plan also
+carries a content-addressed key (``MemoPlan.shared_key``: the canonical
+hash, each input's dtype, shape and bytes, the semantic fingerprint).  A
+local miss probes the lane; a hit is uploaded to the process device and
+promoted into the local cache (``memo.shared_hit``), and every certified
+insert publishes its outputs there.  Inputs and outputs past the lane's
+byte cap (``RAMBA_MEMO_SHARED_MAX``, 8m) are skipped before any copy off
+the card.
 """
 
 from __future__ import annotations
@@ -71,11 +81,6 @@ from ramba_tpu_torch.resilience import memory as _memory
 from ramba_tpu_torch.resilience.spill import SpilledArray as _SpilledArray
 
 _OFF = ("", "0", "off", "false", "no")
-
-SHARED = ("the shared (fleet artifact) tier of the result memo and the plan "
-          "cache, RAMBA_MEMO_SHARED, publish and adoption: ROADMAP A.10 "
-          "part two")
-
 
 def enabled() -> bool:
     """Result memoization armed?  Off by default — ``RAMBA_MEMO=1``."""
@@ -122,6 +127,10 @@ class MemoPlan:
     leaf_order: Tuple[int, ...]
     key: Optional[Tuple[Any, ...]]
     effects: Optional[_effects.EffectReport]
+    #: content-addressed key for the fleet's shared memo lane; None when
+    #: the lane is off, the job has several processes, or the inputs
+    #: exceed the lane's byte cap
+    shared_key: Optional[str] = None
 
 
 # ---------------------------------------------------------------------------
@@ -350,11 +359,35 @@ def _release_entry(e: _Entry) -> None:
 cache = ResultCache()
 
 
-def _check_shared() -> None:
-    """The shared tier is ROADMAP A.10 part two's: asking for it raises."""
-    if (os.environ.get("RAMBA_MEMO_SHARED") or "").strip().lower() \
-            not in _OFF:
-        raise NotImplementedError(SHARED)
+def _shared_tier():
+    """``fleet.artifacts`` when the cross-process shared memo lane is
+    armed for this process, else None.  One environment read when the
+    tier is off; one process only (under several ranks a rank served
+    from the lane while its peers execute would leave the collective
+    schedule)."""
+    if not os.environ.get("RAMBA_ARTIFACTS"):
+        return None
+    if _events.rank_info()[1] != 1:
+        return None
+    try:
+        from ramba_tpu_torch.fleet import artifacts as _artifacts
+    except Exception:  # noqa: BLE001 — the tier must never break memo
+        return None
+    if not _artifacts.memo_shared_enabled():
+        return None
+    return _artifacts
+
+
+def _shared_key(chash: str, leaf_order, leaf_vals: List[Any],
+                tokens: Tuple[Any, ...], fingerprint) -> Optional[str]:
+    """The lane's content key: tensors by their bytes, scalar leaves by
+    their value tokens, in canonical leaf order."""
+    tier = _shared_tier()
+    if tier is None:
+        return None
+    parts = [tok if isinstance(tok, tuple) and tok and tok[0] == "s"
+             else leaf_vals[slot] for slot, tok in zip(leaf_order, tokens)]
+    return tier.content_key(chash, parts, fingerprint)
 
 
 def evict(plan: Optional["MemoPlan"]) -> bool:
@@ -423,7 +456,6 @@ def plan_for(program: Any, donate_key: Tuple[int, ...], leaves: List[Any],
     rule has a real violation to catch."""
     if not enabled():
         return None
-    _check_shared()
     rep = _effects.classify_program(program, tuple(donate_key))
     memoizable = rep.memoizable
     for site in ("memo:insert", "memo:hit"):
@@ -447,6 +479,11 @@ def plan_for(program: Any, donate_key: Tuple[int, ...], leaves: List[Any],
         return None
     from ramba_tpu_torch.core import fuser as _fuser
 
+    fingerprint = _fuser._semantic_fingerprint()
+    shared_key = None
+    if rep.memoizable:
+        shared_key = _shared_key(form.chash, form.leaf_order, leaf_vals,
+                                 tokens, fingerprint)
     return MemoPlan(
         memoizable=True,
         certified=rep.memoizable,
@@ -454,8 +491,9 @@ def plan_for(program: Any, donate_key: Tuple[int, ...], leaves: List[Any],
         chash=form.chash,
         form=form.form,
         leaf_order=form.leaf_order,
-        key=(form.chash, tokens, _fuser._semantic_fingerprint()),
+        key=(form.chash, tokens, fingerprint),
         effects=rep,
+        shared_key=shared_key,
     )
 
 
@@ -468,7 +506,8 @@ def plan_from_cert(chash: Optional[str], form: Optional[str],
     (``analyze/plancert.py``) without re-running effect classification
     or canonicalization — the certificate already vouches for both, and
     its invalidation signature proves the verdicts still hold.  Only the
-    live state binds per flush: the per-input version tokens.  Returns
+    live state binds per flush: the per-input version tokens and the
+    shared lane's content key.  Returns
     None when memoization is disarmed, the certificate carried no
     canonical hash, or an input cannot be version-tracked (same
     bail-outs as :func:`plan_for`)."""
@@ -479,6 +518,7 @@ def plan_from_cert(chash: Optional[str], form: Optional[str],
         return None
     from ramba_tpu_torch.core import fuser as _fuser
 
+    fingerprint = _fuser._semantic_fingerprint()
     return MemoPlan(
         memoizable=True,
         certified=True,
@@ -486,8 +526,10 @@ def plan_from_cert(chash: Optional[str], form: Optional[str],
         chash=chash,
         form=form,
         leaf_order=tuple(leaf_order),
-        key=(chash, tokens, _fuser._semantic_fingerprint()),
+        key=(chash, tokens, fingerprint),
         effects=effects,
+        shared_key=_shared_key(chash, leaf_order, leaf_vals, tokens,
+                               fingerprint),
     )
 
 
@@ -498,11 +540,38 @@ def lookup(plan: Optional[MemoPlan]) -> Optional[List[Any]]:
         return None
     vals = cache.lookup(plan.key)
     if vals is None:
-        _registry.inc("memo.miss")
-        return None
+        vals = _shared_lookup(plan)
+        if vals is None:
+            _registry.inc("memo.miss")
+        return vals
     _registry.inc("memo.hit")
     _events.emit({
         "type": "memo_hit", "chash": plan.chash, "n_outs": len(vals),
+    })
+    return vals
+
+
+def _shared_lookup(plan: MemoPlan) -> Optional[List[Any]]:
+    """Probe the fleet's shared memo lane on a local miss.  A hit is
+    uploaded to the process device and promoted into the local cache, so
+    the next lookup never touches disk."""
+    if plan.shared_key is None:
+        return None
+    tier = _shared_tier()
+    if tier is None:
+        return None
+    arrays = tier.memo_load(plan.shared_key)
+    if arrays is None:
+        return None
+    dev = _common.device()
+    vals: List[Any] = [torch.from_numpy(np.require(a, requirements="C"))
+                       .to(dev) for a in arrays]
+    cache.insert(plan.key, vals)
+    _registry.inc("memo.hit")
+    _registry.inc("memo.shared_hit")
+    _events.emit({
+        "type": "memo_hit", "chash": plan.chash, "n_outs": len(vals),
+        "tier": "shared",
     })
     return vals
 
@@ -525,7 +594,13 @@ def insert(plan: Optional[MemoPlan], outs: List[Any]) -> bool:
                 "reason": plan.reason,
             })
             return False
-    if not cache.insert(plan.key, list(outs)):
-        return False
-    _registry.inc("memo.insert")
-    return True
+    retained = cache.insert(plan.key, list(outs))
+    if retained:
+        _registry.inc("memo.insert")
+    if plan.shared_key is not None and plan.certified:
+        tier = _shared_tier()
+        if tier is not None:
+            # best-effort fleet publish: one replica's result becomes
+            # every replica's shared-lane hit
+            tier.memo_store(plan.shared_key, outs)
+    return retained

@@ -36,14 +36,19 @@ Design points:
   program's verdict is certified (``core/rankflush.py``): its key reads
   global shapes, the same on every rank, so every rank hits together.
 
-Left for later: the shared (fleet artifact) tier — :func:`publish` and
-adoption by ``RAMBA_ARTIFACTS`` (``memo.SHARED``, ROADMAP A.10).
+* **Shared tier.**  With ``RAMBA_ARTIFACTS`` set (``fleet/artifacts.py``)
+  and one process in the job, the serve pipeline publishes every freshly
+  certified plan by its canonical hash (:func:`publish`), and a local
+  miss adopts a peer's certificate whose per-flush inputs match
+  (``Hit.tier == "shared"``, ``plancache.shared_hit``);
+  ``RAMBA_PLANCERT_SHARED=0`` keeps the tier off for certificates.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
 import os
 import threading
 from collections import OrderedDict
@@ -51,11 +56,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ramba_tpu_torch.analyze import plancert as _plancert
 from ramba_tpu_torch.analyze.findings import Finding
-from ramba_tpu_torch.core.memo import _OFF, SHARED
+from ramba_tpu_torch.core.memo import _OFF
 from ramba_tpu_torch.observe import events as _events
 from ramba_tpu_torch.observe import registry as _registry
 from ramba_tpu_torch.resilience import coherence as _coherence
 from ramba_tpu_torch.resilience import faults as _faults
+from ramba_tpu_torch.resilience import integrity as _integrity
 
 #: Fault sites that deliberately corrupt an analysis the certificate
 #: snapshots — the cache stands down while any is armed.
@@ -161,8 +167,8 @@ def _forgery_armed() -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class Hit:
-    """One redeemed certificate.  ``tier`` is ``"hit"`` (the reference's
-    ``"shared"``, adopted from the fleet artifact tier, is A.10's).  ``forged``
+    """One redeemed certificate.  ``tier`` is ``"hit"`` (the local store)
+    or ``"shared"`` (adopted from the fleet artifact tier).  ``forged``
     marks a ``plan:stale`` fault-forged staleness verdict — the fuser
     rejects it under strict and silently re-analyzes under warn."""
 
@@ -198,7 +204,6 @@ def _key(program: Any, leaf_vals: Sequence[Any],
     certificate's signature).  None when the program has no key or the
     key is unhashable (``key_hash == -1`` — CPython ``hash()`` never
     returns -1) — such programs simply never certify."""
-    _check_shared()
     try:
         kh = getattr(program, "key_hash", None)
         if kh is None:
@@ -236,6 +241,9 @@ def lookup(program: Any, leaf_vals: Sequence[Any],
                 _store.move_to_end(key)
     except TypeError:       # unhashable program key — never certifiable
         return None
+    if entry is None:
+        entry = _adopt_shared(program, leaf_vals, donate_key, key)
+        tier = "shared"
     if entry is None:
         with _lock:
             _bump("misses")
@@ -296,11 +304,12 @@ def lookup(program: Any, leaf_vals: Sequence[Any],
         _emit_stale(label, cert, causes, forged=False)
         return None
     with _lock:
-        _bump("hits")
-    _registry.inc("plancache.hit")
+        _bump("hits" if tier == "hit" else "shared_hits")
+    _registry.inc("plancache.hit" if tier == "hit"
+                  else "plancache.shared_hit")
     _note_hit()
     hit = entry.hit
-    if hit is None:
+    if hit is None or hit.tier != tier:
         hit = Hit(cert=cert, tier=tier, forged=False, causes=())
         entry.hit = hit
     return hit
@@ -498,25 +507,122 @@ def class_plan_from(cert: _plancert.PlanCertificate) -> Optional[Any]:
 
 
 # ---------------------------------------------------------------------------
-# shared artifact tier (ROADMAP A.10)
+# shared artifact tier (fleet/artifacts.py)
 # ---------------------------------------------------------------------------
 
 
-def _check_shared() -> None:
-    """Adoption from the shared tier (``RAMBA_ARTIFACTS``) is ROADMAP
-    A.10 part two's: asking for it raises."""
-    if os.environ.get("RAMBA_ARTIFACTS"):
-        raise NotImplementedError(SHARED)
+def _shared_tier() -> Optional[Any]:
+    """``fleet.artifacts`` when the cross-process certificate lane is
+    armed for this process, else None (one environment read when the
+    tier is off).  One process only, as the shared memo lane: a
+    half-warmed artifact directory must not split the ranks' hit and
+    miss decisions."""
+    if not os.environ.get("RAMBA_ARTIFACTS"):
+        return None
+    if (os.environ.get("RAMBA_PLANCERT_SHARED") or "1").strip().lower() \
+            in _OFF:
+        return None
+    if _events.rank_info()[1] != 1:
+        return None
+    try:
+        from ramba_tpu_torch.fleet import artifacts as _artifacts
+    except Exception:  # noqa: BLE001 — the tier must never break flushes
+        return None
+    if not _artifacts.armed():
+        return None
+    return _artifacts
+
+
+#: integrity-envelope schema tag for shared certificate blobs
+CERT_SCHEMA = "plancert.json"
+
+
+def _cert_path(tier: Any, chash: str) -> str:
+    return os.path.join(tier.artifacts_dir(), "plancert", f"{chash}.json")
 
 
 def publish(cert: Optional[_plancert.PlanCertificate]) -> bool:
-    """Write a certificate to the shared artifact tier, as the serve
-    pipeline does for every freshly certified plan.  False while the tier
-    is off (``RAMBA_ARTIFACTS`` unset), as in the reference; the tier
-    itself is ROADMAP A.10 part two's, so asking for it raises."""
-    if cert is None or not os.environ.get("RAMBA_ARTIFACTS"):
+    """Write a certificate to the shared artifact tier (keyed by chash)
+    so peer replicas can adopt it.  The serve pipeline calls this for
+    every freshly certified plan; best-effort, never raises, False while
+    the tier is off."""
+    if getattr(cert, "chash", None) is None or not enabled():
         return False
-    raise NotImplementedError(SHARED)
+    tier = _shared_tier()
+    if tier is None:
+        return False
+    try:
+        data = json.dumps(_plancert.to_payload(cert),
+                          sort_keys=True).encode()
+    except (TypeError, ValueError):
+        return False
+    if not tier.store_blob(_cert_path(tier, cert.chash),
+                           _integrity.wrap(data, CERT_SCHEMA)):
+        return False
+    with _lock:
+        _bump("publishes")
+    _registry.inc("plancache.publish")
+    return True
+
+
+def _adopt_shared(program: Any, leaf_vals: Sequence[Any],
+                  donate_key: Tuple[int, ...],
+                  key: Tuple[Any, ...]) -> Optional["_Entry"]:
+    """On a local miss, probe the shared tier by chash and adopt a peer's
+    certificate when its per-flush inputs match these exactly.  Pays one
+    canonicalization and installs the adopted certificate locally, so
+    repeats are plain hits.  A corrupt blob is evicted, never raised."""
+    tier = _shared_tier()
+    if tier is None:
+        return None
+    from ramba_tpu_torch.analyze import canon as _canon
+
+    try:
+        cf = _canon.try_canonicalize(program)
+    except Exception:  # noqa: BLE001
+        return None
+    if cf is None:
+        return None
+    raw = tier.load_blob(_cert_path(tier, cf.chash))
+    if raw is None:
+        return None
+    try:
+        payload = _integrity.unwrap(raw, CERT_SCHEMA, site="plancert:blob")
+    except _integrity.IntegrityError:
+        tier.evict(_cert_path(tier, cf.chash))
+        return None
+    try:
+        obj = json.loads(payload.decode())
+    except (ValueError, UnicodeDecodeError) as e:
+        _integrity.failure("plancert:blob", "deserialize",
+                           detail=repr(e)[:200], chash=cf.chash)
+        tier.evict(_cert_path(tier, cf.chash))
+        return None
+    cert = _plancert.from_payload(obj)
+    if cert is None:
+        tier.evict(_cert_path(tier, cf.chash))
+        return None
+    # per-flush inputs must match exactly; ambient state is checked by
+    # the caller's signature comparison like any local hit
+    if cert.aval_sig != key[1] or cert.donate_key != tuple(donate_key):
+        return None
+    if cert.versions != _plancert.component_versions():
+        return None
+    # probe None: the home process's ambient raw values are unknown, so
+    # the first redemption validates through the full signature compare
+    entry = _Entry(cert, None)
+    try:
+        with _lock:
+            _store[key] = entry
+            _store.move_to_end(key)
+            cap = _max_entries()
+            while len(_store) > cap:
+                _store.popitem(last=False)
+            _bump("adopted")
+    except TypeError:       # unhashable program key — never certifiable
+        return None
+    _registry.inc("plancache.adopted")
+    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -572,14 +678,14 @@ def flush_agree() -> None:
 
 def snapshot() -> Dict[str, Any]:
     """Point-in-time view for diagnostics/bench: counters, stale causes,
-    and the derived hit rate (hits over lookups)."""
+    and the derived hit rate (hits + shared hits over lookups)."""
     with _lock:
         s = dict(_stats)
         causes = dict(_stale_causes)
         size = len(_store)
         pending = _pending_hits
     lookups = s.get("lookups", 0)
-    hits = s.get("hits", 0)
+    hits = s.get("hits", 0) + s.get("shared_hits", 0)
     return {
         "enabled": enabled(),
         "entries": size,

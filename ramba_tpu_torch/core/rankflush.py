@@ -838,6 +838,8 @@ def _flush_roots(stream, roots, exprs, mesh, wd):
     with fuser._stats_lock:
         fuser.stats["flushes"] += 1
         fuser.stats["nodes_flushed"] += n_instrs
+    fuser._registry.inc("fuser.flushes")
+    fuser._registry.inc("fuser.nodes_flushed", n_instrs)
     tail = []
     for c in consts[len(roots):]:
         tail.append(gather_const(c) if c.is_block else c.value)

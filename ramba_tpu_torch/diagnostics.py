@@ -145,8 +145,11 @@ def _compile_section(perf_snap: dict) -> dict:
     from ramba_tpu_torch.compile import classes as _classes
     from ramba_tpu_torch.compile import persist as _persist
 
+    from ramba_tpu_torch.fleet import artifacts as _artifacts
+
     csnap = _classes.snapshot()
     psnap = _persist.snapshot()
+    asnap = _artifacts.snapshot()
     total_c, total_s, warm_c, warm_s = 0, 0.0, 0, 0.0
     for k in perf_snap.get("kernels", {}).values():
         total_c += k.get("compiles", 0)
@@ -155,12 +158,14 @@ def _compile_section(perf_snap: dict) -> dict:
         warm_s += k.get("warm_compile_s", 0.0)
     active = (csnap.get("mode") != "off" or csnap.get("planned")
               or csnap.get("bailouts") or psnap.get("armed")
-              or psnap.get("hits") or psnap.get("misses") or warm_c)
+              or psnap.get("hits") or psnap.get("misses") or warm_c
+              or asnap.get("armed"))
     if not active:
         return {}
     return {"compile": {
         "classes": csnap,
         "persist": psnap,
+        "artifacts": asnap,
         "compiles": {
             "total": total_c,
             "total_s": round(total_s, 6),

@@ -7,8 +7,8 @@ in-memory ring, optional JSONL file), the counter registry
 (``ledger``), flush attribution with CUDA-event fences, rooflines and the
 drift sentinel (``attrib``), SLO histograms (``slo``), trace context, the
 Prometheus exporter and the flight recorder (``telemetry``) and
-``torch.profiler`` hooks (``profile``).  Fleet snapshots
-(``observe/fleet.py``) come with the fleet (ROADMAP A.10 part two).
+``torch.profiler`` hooks (``profile``), and the fleet's snapshot spool
+and collector (``fleet``).
 
 Environment variables:
 
@@ -43,9 +43,15 @@ Environment variables:
 * ``RAMBA_PROFILE_DIR`` — a ``torch.profiler`` trace of the process from
   its first flush, exported at exit; ``RAMBA_PROFILE=deep`` puts the
   span's trace id in each flush range's name (``profile``).
+* ``RAMBA_FLEET_DIR`` — the fleet snapshot spool: an atomic versioned
+  ``diagnostics.snapshot()`` document at ``<dir>/<host>-<pid>-<rank>.json``
+  every ``RAMBA_FLEET_INTERVAL_S`` seconds (default 5); the collector
+  (``fleet``, ``scripts/fleet_collector_torch.py``) classifies each replica
+  healthy/degraded/stale/dead (``RAMBA_FLEET_STALE_X`` /
+  ``RAMBA_FLEET_DEAD_X`` x interval, defaults 1.5 / 2.0).
 """
 
 from ramba_tpu_torch.observe import (  # noqa: F401
-    attrib, events, health, ledger, observer, profile, registry, slo,
-    telemetry,
+    attrib, events, fleet, health, ledger, observer, profile, registry,
+    slo, telemetry,
 )

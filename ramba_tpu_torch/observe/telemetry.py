@@ -504,6 +504,14 @@ def _compile_series(fams: _Families) -> None:
              psnap.get("bytes_read", 0))
     fams.add("ramba_compile_persist_bytes_written_total", "counter",
              psnap.get("bytes_written", 0))
+    fams.add("ramba_compile_persist_cross_hits_total", "counter",
+             psnap.get("cross_hits", 0))
+    fams.add("ramba_compile_persist_entry_hits_total", "counter",
+             psnap.get("entry_hits", 0))
+    fams.add("ramba_compile_persist_programs_saved_total", "counter",
+             psnap.get("programs_saved", 0))
+    fams.add("ramba_compile_persist_store_errors_total", "counter",
+             psnap.get("store_errors", 0))
 
 
 def _attrib_series(fams: _Families) -> None:

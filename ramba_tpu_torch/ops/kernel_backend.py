@@ -31,6 +31,7 @@ import threading
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from ramba_tpu_torch.core.expr import MAPFN, aval_of, infer_aval, map_dtypes
 from ramba_tpu_torch.resilience import faults as _faults
@@ -247,6 +248,27 @@ def classify(program, leaf_vals) -> Optional[str]:
 
 def supports(program, leaf_vals) -> bool:
     return classify(program, leaf_vals) is not None
+
+
+def libraries(program, leaf_vals) -> list:
+    """``[(name, source)]`` of the kernel libraries a launch of this
+    program on these leaves loads (the persistent cache's entries,
+    ``compile/persist.py``).  Empty for a program only the generic
+    lowering takes, and on the CPU, where the plain versions run."""
+    name = classify(program, leaf_vals)
+    if name is None or not any(isinstance(v, torch.Tensor)
+                               and v.device.type == "cuda"
+                               for v in leaf_vals):
+        return []
+    if name == "elemred":
+        from ramba_tpu_torch.ops import elemred
+
+        plan = elemred.plan_for(program, leaf_vals)
+        return [(plan.name, plan.source)]
+    from ramba_tpu_torch.ops import segred
+
+    spec = segred.program_spec(program, leaf_vals)
+    return [(spec.name, spec.source)]
 
 
 _KERNEL_OPS = frozenset({"stencil", "stencil_iter", "cumulative"})

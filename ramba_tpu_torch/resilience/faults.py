@@ -57,7 +57,13 @@ stalls one beat), and the serving plane's (``serve/overload.py``):
 shed proposal, so ``serve:admit:3:rank=1`` makes every rank shed the
 same three flushes through the ``serve:shed`` round) and ``serve:hedge``
 (the primary attempt of a hedged dispatch:
-``serve:hedge:delay:ms=200`` seeds a hedge race).  Site names may themselves contain colons: the site/mode
+``serve:hedge:delay:ms=200`` seeds a hedge race), and the fleet's
+(``fleet/``, ``compile/persist.py``): ``fleet:admit`` (a replica's
+admission of a step: a fault is a refusal the router redirects),
+``compile:persist`` (clobbers a persistent-cache entry before its
+lookup), and the flip seams ``memo:blob`` (a shared memo blob as read),
+``migrate:payload`` (a migration's payload before its checks) and
+``aot:blob`` (an entry as read, beside the libraries).  Site names may themselves contain colons: the site/mode
 boundary in a spec is the FIRST ``:``-separated field that parses as a
 mode token.  The ``oom`` site (or a trailing ``:oom`` kind) raises
 :class:`InjectedResourceExhausted`, whose message carries the

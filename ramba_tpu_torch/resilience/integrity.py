@@ -527,17 +527,28 @@ def shadow_audit(label: str, outs: Sequence[Any],
 
 def evict_plan_blobs(plan: Any) -> bool:
     """A mismatched audit means the flush's bytes are suspect: evict the
-    plan's memo entry so it cannot be served (the reference's
-    ``_evict_plan_blobs``; the shared tier is ROADMAP A.10's).  Returns
-    whether an entry was dropped."""
+    plan's memo entry and its shared-lane blob (``fleet/artifacts.py``)
+    so neither is served again, here or to a peer (the reference's
+    ``_evict_plan_blobs``).  Returns whether a local entry was dropped."""
     if plan is None:
         return False
+    dropped = False
     try:
         from ramba_tpu_torch.core import memo as _memo
 
-        return _memo.evict(plan)
+        dropped = _memo.evict(plan)
     except Exception:  # noqa: BLE001 — eviction is best-effort
-        return False
+        pass
+    key = getattr(plan, "shared_key", None)
+    if key:
+        try:
+            from ramba_tpu_torch.fleet import artifacts as _artifacts
+
+            if _artifacts.armed():
+                _artifacts.evict(_artifacts._memo_path(key))
+        except Exception:  # noqa: BLE001
+            pass
+    return dropped
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Multi-tenant serving facade over the per-stream fuser.
 
-Counterpart of ``ramba_tpu/serve/__init__.py`` (ROADMAP A.10 part one;
-the fleet, the shared artifact tier and the warm pool are part two).
+Counterpart of ``ramba_tpu/serve/__init__.py``.  The fleet above it
+(replicas, the router, the shared artifact tier) is ``ramba_tpu_torch.fleet``,
+and the warm pool ``ramba_tpu_torch.compile.warmpool``.
 
 The fuser gives every serving session its own :class:`~ramba_tpu_torch.core.
 fuser.FlushStream` — pending registry, auto-flush threshold, quarantine

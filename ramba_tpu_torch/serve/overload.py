@@ -916,7 +916,7 @@ def run_hedged(execute: Callable[[dict], tuple], threshold_s: float, *,
 def health_signals() -> dict:
     """Compact liveness-relevant slice of the overload plane — what the
     fleet's snapshot spool publishes every interval and its collector's
-    replica health model classifies on (ROADMAP A.10 part two).  Deliberately
+    replica health model classifies on (``observe/fleet.py``).  Deliberately
     tiny and always present (unlike the quiet-when-idle ``overload``
     section of ``diagnostics.snapshot()``): a router polling fleet
     health must see ``brownout == "green"`` as a positive signal, not
@@ -936,7 +936,7 @@ def health_signals() -> dict:
 
 def admission_verdict(tenant: Optional[str] = None) -> dict:
     """Would a submit for ``tenant`` be admitted right now?  The
-    fleet's replica server (ROADMAP A.10 part two) answers router pings
+    fleet's replica server (``fleet/replica.py``) answers router pings
     with this so the router can redirect *before* sending work, not just
     after a refusal.  Read-only: unlike :func:`admit_submit` it never
     transitions a breaker to half-open or burns its probe slot —

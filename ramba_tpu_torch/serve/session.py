@@ -202,7 +202,7 @@ class Session:
 
     def handoff(self) -> dict:
         """Drain and close this session for migration to another
-        process (the fleet's migration, ROADMAP A.10 part two, adopts
+        process (the fleet's migration, ``fleet/migrate.py``, adopts
         it there): a final :meth:`sync` lands every
         pending flush so the arrays the caller is about to checkpoint
         are complete, then the session closes.  Returns the identity

@@ -21,7 +21,9 @@ PORT_FILES = sorted(
     if "_build" not in p.parts
 ) + ["chip_smoke.py", "scripts/elemred_ab.py", "scripts/elemred_sweep.py",
      "scripts/scan_ab.py", "scripts/stencil_sweep.py",
-     "scripts/fence_probe.py", "tests/torch_dist_worker.py"]
+     "scripts/fence_probe.py", "tests/torch_dist_worker.py",
+     "scripts/fleet_router_torch.py", "scripts/fleet_collector_torch.py",
+     "scripts/warm_pool_torch.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -69,7 +71,10 @@ def test_importing_the_port_loads_no_jax():
         " ramba_tpu_torch.observe.ledger, ramba_tpu_torch.core.autotune,"
         " ramba_tpu_torch.analyze, ramba_tpu_torch.analyze.lint,"
         " ramba_tpu_torch.analyze.plancert, ramba_tpu_torch.core.memo,"
-        " ramba_tpu_torch.core.plancache;"
+        " ramba_tpu_torch.core.plancache, ramba_tpu_torch.observe.fleet,"
+        " ramba_tpu_torch.fleet, ramba_tpu_torch.fleet.artifacts,"
+        " ramba_tpu_torch.fleet.replica, ramba_tpu_torch.fleet.router,"
+        " ramba_tpu_torch.fleet.migrate, ramba_tpu_torch.compile.warmpool;"
         "import runpy; runpy.run_path(sys.argv[1] + '/chip_smoke.py',"
         " run_name='chip_smoke_probe');"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'ramba_tpu', 'triton')"

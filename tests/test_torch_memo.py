@@ -8,10 +8,11 @@ new seed miss), the budget's LRU, a spilled entry restoring on a hit,
 the ledger owning cached results.  The port's own cases: a torch
 tensor is mutable, so an adopted tensor changed in place — directly or
 through a view — must miss and give the new value, and a cached result
-written in place is never served.  The serving plane's batch CSE and the
-shared tier are ROADMAP A.10's: they raise ``NotImplementedError``; the
-shadow audit's eviction of a suspect entry is A.8's
-(``tests/test_torch_audit.py``).
+written in place is never served.  The serving plane's batch CSE runs in
+the serve pipeline; the shared (fleet artifact) lane serves a result
+another process published (``tests/test_torch_fleet_serve.py`` covers
+the tier itself); the shadow audit's eviction of a suspect entry is
+``tests/test_torch_audit.py``'s.
 """
 
 import numpy as np
@@ -285,7 +286,8 @@ def test_main_path_programs_are_memoizable():
         assert memo.cache.hits == h0 + 1
 
 
-def test_later_items_raise_naming_their_roadmap_items(monkeypatch):
+def test_later_items_raise_naming_their_roadmap_items(monkeypatch,
+                                                     tmp_path):
     # A.10 part one's batch CSE landed in the serve pipeline (a queued
     # flush looks the memo up again at dispatch): the stub is gone
     assert not hasattr(memo, "batch_cse")
@@ -305,14 +307,34 @@ def test_later_items_raise_naming_their_roadmap_items(monkeypatch):
     for run in (fuser._run_chunked(program, vals),
                 fuser._run_eager(program, vals, None)):
         np.testing.assert_array_equal(run[0].numpy(), np.arange(8.0) * 2)
+    # the shared lane: RAMBA_MEMO_SHARED=1 alone arms nothing (the tier
+    # needs RAMBA_ARTIFACTS); with the tier on, a certified insert
+    # publishes its outputs, and a process whose local cache misses is
+    # served from the lane
+    from ramba_tpu_torch.fleet import artifacts
+
     monkeypatch.setenv("RAMBA_MEMO_SHARED", "1")
     a = rt.fromarray(np.arange(4.0))
     b = a * 2.0
-    with pytest.raises(NotImplementedError, match="A.10"):
-        fuser.flush()
-    monkeypatch.delenv("RAMBA_MEMO_SHARED")
+    fuser.flush()
     np.testing.assert_array_equal(np.asarray(b), np.arange(4.0) * 2)
     assert registry.get("memo.insert") >= 1
+    assert memo.plan_for(program, (), leaves, vals).shared_key is None
+    monkeypatch.setenv("RAMBA_ARTIFACTS", str(tmp_path))
+    artifacts.reset()
+    try:
+        h0 = registry.get("memo.shared_hit")
+        np.asarray(rt.fromarray(np.arange(6.0)) * 3.0)
+        assert artifacts.snapshot()["memo_stores"] == 1
+        memo.reset()  # a fresh process: the local cache is empty
+        got = np.asarray(rt.fromarray(np.arange(6.0)) * 3.0)
+        np.testing.assert_array_equal(got, np.arange(6.0) * 3.0)
+        assert registry.get("memo.shared_hit") == h0 + 1
+        assert artifacts.snapshot()["memo_hits"] == 1
+    finally:
+        monkeypatch.delenv("RAMBA_ARTIFACTS")
+        monkeypatch.delenv("RAMBA_MEMO_SHARED")
+        artifacts.reset()
 
 
 def test_serving_batch_cse():

@@ -7,7 +7,8 @@ the contract ramba_tpu's docstrings and tests state
 ``TestPersistInit`` and ``TestWarmStart``): the init status and its event,
 a corrupt entry evicted and built again, never loaded, and a second
 process with the same ``RAMBA_CACHE`` paying no build.  The port keeps
-built kernel libraries, not executables or program skeletons: a library
+built kernel libraries, not executables (its program skeletons and
+entries are ``tests/test_torch_warmpool.py``'s): a library
 is checked against its digest before it loads, and a flipped byte (on
 disk, or through the ``aot:blob`` flip seam) or a missing digest evicts it
 and builds it again.  Builders of one source, threads or processes, take
@@ -142,7 +143,9 @@ def test_reconfigure_moves_the_build_dir_and_back(tmp_path):
     assert persist.armed()
     assert _build.build_dir() == str(tmp_path / "c" / "kernels")
     assert os.path.isdir(_build.build_dir())
-    assert not os.path.exists(tmp_path / "c" / "programs")
+    # the skeleton lane's directories sit beside the libraries
+    assert os.path.isdir(tmp_path / "c" / "programs")
+    assert os.path.isdir(tmp_path / "c" / "aot")
     persist.reconfigure()
     assert not persist.armed()
     assert _build.build_dir() == _build.BUILD_DIR

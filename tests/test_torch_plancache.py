@@ -10,13 +10,15 @@ warn, forging fault sites make the cache stand down, certificates
 round-trip through their payload, the batched agreement clears the
 store on a divergent round, the store's cap evicts, and the offline
 ``--plan-audit`` re-derives every stored proof (and flags a broken one).
-The shared tier is ROADMAP A.10's: it raises ``NotImplementedError``.
+The shared tier (``RAMBA_ARTIFACTS``): a published certificate is
+adopted by a process whose local store misses (``tier == "shared"``).
 The admission estimate a certificate snapshots is held against
 ramba_tpu's analytic one.
 """
 
 import io
 import json
+import os
 
 import numpy as np
 import pytest
@@ -32,7 +34,7 @@ from ramba_tpu_torch.analyze import lint as alint
 from ramba_tpu_torch.analyze import plancert
 from ramba_tpu_torch.analyze.findings import ProgramVerificationError
 from ramba_tpu_torch.core import fuser, memo, plancache
-from ramba_tpu_torch.observe import events
+from ramba_tpu_torch.observe import events, registry
 from ramba_tpu_torch.resilience import faults, memory
 
 
@@ -50,7 +52,7 @@ def _isolate(monkeypatch):
     monkeypatch.setenv("RAMBA_VERIFY", "strict")
     for k in ("RAMBA_VERIFY_RULES", "RAMBA_VERIFY_SKIP", "RAMBA_HBM_BUDGET",
               "RAMBA_ARTIFACTS", "RAMBA_MEMO", "RAMBA_PLANCERT_AGREE",
-              "RAMBA_PLANCERT_MAX"):
+              "RAMBA_PLANCERT_MAX", "RAMBA_PLANCERT_SHARED"):
         monkeypatch.delenv(k, raising=False)
     plancache.reset()
     plancert.reset_caches()
@@ -261,25 +263,44 @@ def test_plan_audit_over_live_trace(tmp_path, capsys):
     assert alint.plan_audit(evs, file=io.StringIO())["proof_broken"]
 
 
-def test_the_shared_tier_and_the_report_name_their_items(monkeypatch):
-    # publish is the reference's with the tier off (A.10 part one's serve
-    # pipeline calls it on every fresh certificate): False; asking for
-    # the tier itself raises, naming A.10 part two
+def test_the_shared_tier_and_the_report_name_their_items(monkeypatch,
+                                                       tmp_path):
+    from ramba_tpu_torch.fleet import artifacts
+
+    # publish is the reference's with the tier off (the serve pipeline
+    # calls it on every fresh certificate): False
     assert plancache.publish(None) is False
     assert plancache.publish(object()) is False
-    monkeypatch.setenv("RAMBA_ARTIFACTS", "/nonexistent")
-    with pytest.raises(NotImplementedError, match="A.10 part two"):
-        plancache.publish(object())
-    monkeypatch.delenv("RAMBA_ARTIFACTS")
     # A.9's item landed: the diagnostics block is the cache's snapshot
     assert diagnostics.plancache_report() == plancache.snapshot()
-    monkeypatch.setenv("RAMBA_ARTIFACTS", "/nonexistent")
-    a = rt.fromarray(np.arange(4.0))
-    b = a * 2.0
-    with pytest.raises(NotImplementedError, match="A.10"):
-        fuser.flush()
-    monkeypatch.delenv("RAMBA_ARTIFACTS")
-    np.testing.assert_array_equal(np.asarray(b), np.arange(4.0) * 2)
+    # the tier on: one process certifies and publishes ...
+    monkeypatch.setenv("RAMBA_ARTIFACTS", str(tmp_path))
+    artifacts.reset()
+    try:
+        want = _workload()
+        certs = [e.cert for e in plancache._store.values()]
+        assert certs and all(plancache.publish(c) for c in certs)
+        assert plancache.snapshot()["publishes"] == len(certs)
+        # ... and a store that misses adopts it: a shared hit, same bytes
+        plancache.reset()
+        np.testing.assert_array_equal(_workload(), want)
+        snap = plancache.snapshot()
+        assert snap["adopted"] >= 1 and snap["shared_hits"] >= 1
+        assert registry.get("plancache.shared_hit") >= 1
+        # a corrupt blob is evicted, never raised: the flush re-derives
+        for name in os.listdir(tmp_path / "plancert"):
+            (tmp_path / "plancert" / name).write_bytes(b"torn")
+        plancache.reset()
+        np.testing.assert_array_equal(_workload(), want)
+        assert os.listdir(tmp_path / "plancert") == []
+        assert plancache.snapshot().get("shared_hits", 0) == 0
+        # RAMBA_PLANCERT_SHARED=0 keeps certificates off the tier
+        monkeypatch.setenv("RAMBA_PLANCERT_SHARED", "0")
+        assert not any(plancache.publish(c) for c in certs)
+    finally:
+        monkeypatch.delenv("RAMBA_ARTIFACTS")
+        monkeypatch.delenv("RAMBA_PLANCERT_SHARED", raising=False)
+        artifacts.reset()
 
 
 @pytest.mark.parametrize("case", ["chain", "reduce", "matmul"])
