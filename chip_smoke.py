@@ -16,6 +16,8 @@
                                      # tenants,cse,quota,deadlines,overload,
                                      # hedge,ranks,drain)
     python3 chip_smoke.py --fleet    # phase 1 and the fleet
+    python3 chip_smoke.py --positions  # phase 1 and ranks holding several
+                                       # positions of a mesh
 
 Phases, each reported on its own line:
 
@@ -268,7 +270,21 @@ Phases, each reported on its own line:
    first axpy + sum flush runs the generic lowering, named in its span,
    while the pipeline builds elemred, and the second launches it; (e) a
    2^28 float64 session drained on one replica and adopted on another,
-   the same digest.
+   the same digest; then ``scripts/ramba_fsck_torch.py`` over the
+   fleet's artifact tier and kernel cache, and over ``elastic_path``'s
+   checkpoints: a clean scan exits 0, one flipped byte 1, ``--repair``
+   quarantines it and a rescan exits 0; then ranks holding several
+   positions (``positions_path``, alone with ``--positions``): a (2, 2)
+   mesh of ranks on cuda:0 held as ``[[0, 0], [1, 1]]``, as the
+   checkerboard ``[[0, 1], [1, 0]]`` (two ranks each) and by one rank,
+   each world running star2 8192^2 (30 chained, 100 iterated) and
+   4099x4133 (10, 20) f32, the hourly series' groupby sum, var and
+   nanmean (2^28 f64, G=24), the nan-reductions, var/std and argmax
+   whole and along each axis of a 16384^2 f64 grid, a complex128 sum of
+   2^26, a groupby of an 8192^2 f32 grid along dim 0: every result the
+   same bytes in all three worlds and within its bound of one process,
+   no gathered program, each fold's flush all-gathering exactly its
+   partials, the kernels launched once per held block.
    Every kernel's launch count is set to 0 just before each path and
    read just after; a path that does not launch its kernel fails the
    run;
@@ -1809,6 +1825,10 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
     log("  layout_path: layouts chosen and changed across ranks")
     dist["layout"] = timed("layout_path", layout_path, rt, torch, np, card,
                            totals)
+    log("  positions_path: ranks holding several positions of a mesh")
+    dist["positions"] = timed(
+        "positions_path", positions_path, rt, torch, np, card, totals,
+        dist["layout"].get("star2_ms_per_sweep_slowest_rank"))
     log("  compile_path: segments, compile classes, the kernel cache and the "
         "backend race")
     e0, g0 = totals["elemred"], totals["segred"]
@@ -3785,6 +3805,10 @@ def dist_rank(argv) -> int:
             er, sk, sc, "axpy", lambda: float(rt.sum(2.5 * a + b)), rep)
     elif "--layout" in argv:
         layout_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, out)
+    elif "--positions" in argv:
+        positions_rank_programs(
+            rt, np, torch, er, sk, sc, fuser, rep, out,
+            [int(r) for r in arg["--positions"].split(",")])
     elif "--ladder" in argv:
         ladder_rank_programs(rt, np, torch, er, sk, sc, rep)
     elif "--observe" in argv:
@@ -4521,7 +4545,9 @@ def layout_check(reps, ref, totals, card, wall, tmp):
     summary["mixed"] = {"wall_s": mixed_wall, "crossed_bytes": mixed_sent,
                         "max_abs_err": diff}
     # groupby
-    parts = {"sum": 1, "min": 1, "max": 1, "count": 1, "mean": 2, "var": 3}
+    # var: count, sum, then the sums of the deviations from the rounded
+    # mean and of their squares (the centred pass)
+    parts = {"sum": 1, "min": 1, "max": 1, "count": 1, "mean": 2, "var": 4}
     gb = {}
     for kind in GB_KINDS:
         for r in reps:
@@ -4761,6 +4787,438 @@ def layout_path(rt, torch, np, card, totals):
         f"{summary['ranks_wall_s']:.1f} s [{card}]")
     summary["governor"] = governor_phase(rt, torch, np, card)
     return summary
+
+
+# positions_path's sizes: star2 grids and their (chained, iterated) sweeps,
+# the hourly series (float64, G = 24), the fold grid (float64), the
+# complex series, the 2-D groupby's grid (float32) and its groups
+POS_GRID = 8192
+POS_ODD = (4099, 4133)
+POS_SWEEPS = ((30, 100), (10, 20))
+POS_SERIES_N = 1 << 28
+POS_FOLD = 16384
+POS_COMPLEX_N = 1 << 26
+POS_GB_GRID = 8192
+POS_GB_G = 8
+# the worlds: name, ranks, the (2, 2) mesh's ranks in grid order
+POS_WORLDS = (("rows", 2, (0, 0, 1, 1)), ("checker", 2, (0, 1, 1, 0)),
+              ("one", 1, (0, 0, 0, 0)))
+POS_FOLDS = ("nansum", "nanprod", "nanmin", "nanmax", "nanmean", "var",
+             "std", "argmax")
+POS_LIMIT_S = 420
+
+
+def pos_fold_grid(rt, np):
+    """The fold grid from indices alone (float64 in [0, 1)), with a NaN
+    where (i + 3 j) % 97 == 5."""
+    x = dist_grid(rt, np, (POS_FOLD, POS_FOLD), None, np.float64)
+    nan = rt.fromfunction(lambda i, j: (i + 3 * j) % 97 == 5,
+                          (POS_FOLD, POS_FOLD), dtype=bool)
+    return x, rt.where(nan, float("nan"), x)
+
+
+def pos_series(rt, torch, np):
+    """The hourly series on the card from a seed, and a copy with a NaN in
+    every 101st reading."""
+    x, hour = hourly_series(torch, np, POS_SERIES_N)
+    xn = x.clone()
+    xn[7::101] = float("nan")
+    return rt.fromarray(x), rt.fromarray(xn), hour
+
+
+def positions_programs(rt, np, torch, win, rep, save=None):
+    """Every program of ``positions_path`` through the user API, on this
+    process's mesh (a (2, 2) mesh of ranks holding several positions, or
+    one process): digests of the whole results, whole folds' values, the
+    all-gathered bytes of each fold's flush (its partials), the ms per
+    star2 sweep.  ``win(name, fn)`` counts the launches around ``fn``;
+    ``save(name, tensor)`` keeps an axis result for the comparison."""
+    from ramba_tpu_torch import parallel
+
+    st = rt.stencil(star2_body)
+    vals, dig, ag, ms = rep["values"], rep["digests"], rep["allgather"], \
+        rep["ms"]
+    for name, shape, (nc, ni) in (("even", (POS_GRID, POS_GRID),
+                                   POS_SWEEPS[0]),
+                                  ("odd", POS_ODD, POS_SWEEPS[1])):
+        x = dist_grid(rt, np, shape)
+        rt.sync()
+
+        def sweeps(x=x, nc=nc, ni=ni):
+            y = x
+            for _ in range(nc):
+                y = rt.sstencil(st, y)
+            yi = rt.sstencil_iterate(st, x, ni)
+            rt.sync()
+            torch.cuda.synchronize()
+            return y, yi
+
+        y, yi = win(f"star2_{name}", sweeps)
+        dig[f"star2_{name}_chained"] = card_digest(y._value())
+        dig[f"star2_{name}_iterate"] = card_digest(yi._value())
+        ms[f"star2_{name}"] = _events_ms(
+            torch, lambda x=x: rt.sstencil_iterate(st, x, 20)._blocks(), 20)
+        del x, y, yi
+    torch.cuda.empty_cache()
+
+    def flushed(name, make):
+        """``make()``'s result flushed in a window, the bytes its flush
+        all-gathered recorded."""
+        a0 = parallel.comm_stats["allgather_bytes"]
+
+        def go():
+            r = make()
+            rt.sync()
+            torch.cuda.synchronize()
+            return r
+
+        r = win(name, go)
+        ag[name] = parallel.comm_stats["allgather_bytes"] - a0
+        return r
+
+    xs, xn, hour = pos_series(rt, torch, np)
+    rt.sync()
+    for kind, src in (("sum", xs), ("var", xs), ("nanmean", xn)):
+        r = flushed(f"groupby_{kind}", lambda k=kind, s=src: getattr(
+            s.groupby(0, hour, 24), k)())
+        v = r._value()
+        dig[f"groupby_{kind}"] = card_digest(v)
+        if save:
+            save(f"groupby_{kind}", v)
+    del xs, xn, hour
+    torch.cuda.empty_cache()
+
+    x, xn = pos_fold_grid(rt, np)
+    y = 1.0 + x * (1.0 / (1 << 20))  # a product that stays in range
+    rt.sync()
+    for fn in POS_FOLDS:
+        src = {"nanprod": y, "var": x, "std": x, "argmax": x}.get(fn, xn)
+        for axis in (None, 0, 1):
+            name = f"{fn}_{'whole' if axis is None else f'ax{axis}'}"
+            r = flushed(name, lambda f=fn, s=src, a=axis:
+                        getattr(rt, f)(s, axis=a))
+            v = r._value()
+            dig[name] = card_digest(v)
+            if axis is None:
+                vals[name] = v.item()
+            elif save:
+                save(name, v)
+    del x, xn, y
+    torch.cuda.empty_cache()
+
+    dev = rt.common.device()
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    c = rt.fromarray(torch.randn(POS_COMPLEX_N, generator=g, device=dev,
+                                 dtype=torch.complex128))
+    rt.sync()
+    r = flushed("csum", lambda: rt.sum(c))
+    vals["csum"] = [r._value().real.item(), r._value().imag.item()]
+    dig["csum"] = card_digest(torch.view_as_real(r._value()))
+    del c
+    gg = dist_grid(rt, np, (POS_GB_GRID, POS_GB_GRID))
+    rows = (np.arange(POS_GB_GRID) * 7919) % POS_GB_G
+    rt.sync()
+    for kind in ("sum", "mean"):
+        r = flushed(f"groupby2d_{kind}", lambda k=kind: getattr(
+            gg.groupby(0, rows, POS_GB_G), k)())
+        v = r._value()
+        dig[f"groupby2d_{kind}"] = card_digest(v)
+        if save:
+            save(f"groupby2d_{kind}", v)
+    del gg
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def positions_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, out,
+                            ranks):
+    """One rank of ``positions_path``: the (2, 2) mesh of ranks ``ranks``
+    (grid order), :func:`positions_programs` on this rank's blocks."""
+    import os
+
+    from ramba_tpu_torch.ops import segred as sg
+    from ramba_tpu_torch.parallel import mesh as pm
+
+    rt.set_mesh(pm.rank_mesh((2, 2), ranks=list(ranks)))
+    rep.update(allgather={}, held=[list(p) for p in
+                                   rt.get_mesh().local_positions()])
+    g0 = fuser.stats["gathered"]
+
+    def save(name, v):
+        if rep["rank"] == 0:
+            np.save(os.path.join(out, f"{name}.npy"), v.cpu().numpy())
+
+    positions_programs(
+        rt, np, torch,
+        lambda name, fn: _rank_window(er, sk, sc, name, fn, rep, sg),
+        rep, save)
+    rep["gathered_positions"] = fuser.stats["gathered"] - g0
+
+
+def pos_partials(name, shape):
+    """The bytes one position's partials of a fold take (the path's own
+    reckoning: ``core/rankflush.py``'s partials), ``shape`` the fold
+    grid's block."""
+    fn, where = name.rsplit("_", 1)
+    n = 1 if where == "whole" else shape[1 - int(where[-1])]
+    per = {"nanmean": 8 + 8, "var": 8 * 4, "std": 8 * 4,
+           "argmax": 8 + 8}.get(fn, 8)
+    return n * per
+
+
+def positions_refs(rt, torch, np, card):
+    """The one-process results ``positions_path`` holds the worlds
+    against (the default mesh of one shard)."""
+    ref = {"values": {}, "digests": {}, "allgather": {}, "ms": {},
+           "launches": {}}
+    kept = {}
+
+    def win(name, fn):
+        return fn()
+
+    positions_programs(rt, np, torch, win, ref,
+                       lambda name, v: kept.__setitem__(name, v.cpu()))
+    ref["kept"] = kept
+    return ref
+
+
+def positions_check(worlds, ref, totals, card, layout_ms, tmp):
+    """Hold the worlds' reports against each other (the same bytes) and
+    against the one-process results (within the bounds stated)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    eps = EPS["float64"]
+    # every world: the same bytes on every rank and across worlds
+    names = sorted(worlds["rows"][0]["digests"])
+    for w, reps in worlds.items():
+        for r in reps:
+            if r["gathered_positions"]:
+                raise Fail(f"positions {w} rank {r['rank']}: "
+                           f"{r['gathered_positions']} gathered programs")
+            if r["digests"] != reps[0]["digests"]:
+                raise Fail(f"positions {w}: ranks disagree")
+    for w in ("checker", "one"):
+        bad = [k for k in names
+               if worlds[w][0]["digests"][k] != worlds["rows"][0]["digests"][k]]
+        if bad:
+            raise Fail(f"positions {w} differs from rows in {bad}")
+    log(f"  positions: {len(names)} results byte-equal on every rank of "
+        f"the worlds [[0, 0], [1, 1]], [[0, 1], [1, 0]] and one rank "
+        f"holding all four positions: True; no gathered program")
+    # the one process: stencils byte-equal
+    for k in names:
+        if k.startswith("star2_") and \
+                worlds["rows"][0]["digests"][k] != ref["digests"][k]:
+            raise Fail(f"positions {k} differs from one process")
+    log("  positions star2 8192^2 (30 chained, 100 iterated) and 4099x4133 "
+        "(10, 20) f32: byte-equal to one process: True")
+    # whole folds: within bounds; axis folds through the saved arrays
+    n = POS_FOLD * POS_FOLD
+    rv = worlds["rows"][0]["values"]
+    out = {"max_abs_err": {}}
+    for fn in POS_FOLDS:
+        for where in ("whole", "ax0", "ax1"):
+            name = f"{fn}_{where}"
+            want = ref["values"][name] if where == "whole" else \
+                ref["kept"][name]
+            got = rv[name] if where == "whole" else torch.from_numpy(
+                np.load(os.path.join(tmp, "rows", "w2", f"{name}.npy")))
+            terms = n if where == "whole" else POS_FOLD
+            if fn in ("nanmin", "nanmax", "argmax"):
+                ok = (np.asarray(got) == np.asarray(want)).all() if \
+                    where != "whole" else got == want
+                if not ok:
+                    raise Fail(f"positions {name}: {got} vs {want}")
+                out["max_abs_err"][name] = 0.0
+                continue
+            got = torch.as_tensor(got, dtype=torch.float64)
+            want = torch.as_tensor(want, dtype=torch.float64)
+            if fn == "nanprod":
+                bound = 10 * terms ** 0.5 * eps * want.abs() * 2
+                why = "10 sqrt(n) eps |prod|, twice"
+            elif fn in ("var", "std"):
+                # E[x^2] <= 1/3 over [0, 1); std by its square
+                bound = 2 * terms * eps * (1.0 / 3) * (1 if fn == "var"
+                                                       else 1 / want)
+                why = "2 n eps E[x^2]"
+            else:
+                bound = 2 * terms * eps * (want.abs() + 1.0)
+                why = "2 n eps (|value| + 1): every |x| < 1"
+            out["max_abs_err"][name] = check_sums(
+                f"positions {name} 16384^2 f64 vs one process", got, want,
+                bound, why)
+    for kind in ("sum", "var", "nanmean"):
+        got = torch.from_numpy(np.load(os.path.join(
+            tmp, "rows", "w2", f"groupby_{kind}.npy")))
+        want = ref["kept"][f"groupby_{kind}"]
+        ng = POS_SERIES_N / 24
+        bound = 2 * ng * eps * (want.abs() + 30.0) if kind != "var" \
+            else 2 * ng * eps * 30.0 ** 2 / want.abs() * want.abs()
+        out["max_abs_err"][f"groupby_{kind}"] = check_sums(
+            f"positions groupby {kind} 2^28 f64 G=24 vs one process", got,
+            want, bound, "2 n_g eps (|value| + max|x|), var: 2 n_g eps "
+            "max|x|^2")
+    for kind in ("sum", "mean"):
+        got = torch.from_numpy(np.load(os.path.join(
+            tmp, "rows", "w2", f"groupby2d_{kind}.npy")))
+        want = ref["kept"][f"groupby2d_{kind}"]
+        ng = POS_GB_GRID / POS_GB_G
+        out["max_abs_err"][f"groupby2d_{kind}"] = check_sums(
+            f"positions groupby {kind} 8192^2 f32 G={POS_GB_G} along dim 0 "
+            "vs one process", got, want,
+            2 * ng * EPS["float32"] * (want.abs() + 1.0),
+            "2 n_g eps (|value| + 1)")
+    c = rv["csum"]
+    cw = ref["values"]["csum"]
+    cb = 2 * POS_COMPLEX_N * eps * 5 * POS_COMPLEX_N ** 0.5
+    if abs(c[0] - cw[0]) > cb or abs(c[1] - cw[1]) > cb:
+        raise Fail(f"positions complex sum {c} vs {cw}")
+    log(f"  positions complex128 sum 2^26: {c} vs one process {cw}, "
+        f"within {cb:.3e} (2 n eps 5 sqrt(n): |x| < 5 sqrt(n) summed)")
+    # the partials' bytes: four owner positions in every world, each
+    # world's ranks holding as many as each other
+    blk = (POS_FOLD // 2, POS_FOLD // 2)
+    for w, reps in worlds.items():
+        for fn in POS_FOLDS:
+            for where in ("whole", "ax0", "ax1"):
+                name = f"{fn}_{where}"
+                want = 4 * pos_partials(name, blk)
+                got = reps[0]["allgather"][name]
+                if got != want:
+                    raise Fail(f"positions {w} {name}: {got} bytes "
+                               f"all-gathered, the partials take {want}")
+    log("  positions: every fold's flush all-gathered exactly its "
+        "partials' bytes (4 positions x (count, mean hi, mean lo, M2) for "
+        "var/std, (extreme, index) for argmax, (sum, count) for nanmean, "
+        "one value otherwise; per result element along an axis)")
+    # launches: per rank, one per held block
+    for w, reps in worlds.items():
+        for r in reps:
+            k = len(r["held"])
+            lr = r["launches"]
+            want = {"star2_even": ("stencil", 130 * k),
+                    "star2_odd": ("stencil", 30 * k),
+                    "groupby_sum": ("segred", k),
+                    "groupby_var": ("segred", 4 * k),
+                    "var_whole": ("elemred", 3 * k),
+                    "std_whole": ("elemred", 3 * k)}
+            for name, (kern, nl) in want.items():
+                if lr[name][kern] != nl:
+                    raise Fail(f"positions {w} rank {r['rank']} {name}: "
+                               f"{lr[name]}, want {kern} {nl}")
+            for kk in totals:
+                totals[kk] += sum(c.get(kk, 0) for c in lr.values())
+    slow = {w: {g: max(r["ms"][f"star2_{g}"] for r in reps)
+                for g in ("even", "odd")} for w, reps in worlds.items()}
+    log(f"  positions star2 ms/sweep by CUDA events, slowest rank: "
+        f"{json.dumps(slow)}; one process {json.dumps(ref['ms'])}; "
+        f"layout_path's 4 ranks (8192^2) "
+        f"{json.dumps(layout_ms) if layout_ms else 'not run'} [{card}]")
+    out["ms_per_sweep_slowest_rank"] = slow
+    out["one_process_ms"] = ref["ms"]
+    out["launches"] = {w: reps[0]["launches"] for w, reps in worlds.items()}
+    return out
+
+
+def positions_path(rt, torch, np, card, totals, layout_ms=None):
+    """Ranks holding several positions of a (2, 2) mesh of ranks, on
+    cuda:0 over gloo: two ranks a row each, two ranks on the
+    checkerboard, one rank holding all four; every result the same bytes
+    in each world and held against one process."""
+    import os
+    import tempfile
+
+    log("  positions_path: worlds [[0, 0], [1, 1]], [[0, 1], [1, 0]] and "
+        "one rank, star2, the hourly series' groupby, nan-reductions, "
+        "var/std and argmax on 16384^2 f64, a complex sum, a 2-D groupby")
+    t0 = time.perf_counter()
+    ref = positions_refs(rt, torch, np, card)
+    log(f"  positions_path: one-process references in "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    worlds = {}
+    walls = {}
+    with tempfile.TemporaryDirectory(prefix="ramba_positions_") as tmp:
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RAMBA_HBM_BUDGET", "RAMBA_RESHARD_STAGE_BYTES")}
+        for name, world, ranks in POS_WORLDS:
+            d = os.path.join(tmp, name)
+            os.makedirs(os.path.join(d, f"w{world}"))
+            t1 = time.perf_counter()
+            procs = dist_start(world, d, ("--positions", ",".join(
+                str(r) for r in ranks)), env)
+            try:
+                worlds[name] = dist_wait(procs, d, time.time() + POS_LIMIT_S)
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            walls[name] = time.perf_counter() - t1
+        out = positions_check(worlds, ref, totals, card, layout_ms, tmp)
+    out["world_walls_s"] = walls
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  positions_path: {out['wall_s']:.1f} s, worlds (s) "
+        f"{json.dumps(walls)} [{card}]")
+    return out
+
+
+def fsck_leg(label, card, artifacts=None, cache=None, checkpoints=(),
+             flip=None):
+    """``scripts/ramba_fsck_torch.py`` over what a path persisted: a clean
+    scan exits 0; with one byte of ``flip`` flipped, ``--repair`` exits 1
+    and moves it (or the checkpoint it belongs to) into ``quarantine/``;
+    a rescan exits 0."""
+    import os
+
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "scripts", "ramba_fsck_torch.py")
+    args = []
+    if artifacts:
+        args += ["--artifacts", artifacts]
+    if cache:
+        args += ["--cache", cache]
+    for c in checkpoints:
+        args += ["--checkpoint", c]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("RAMBA_")}
+
+    def run(*extra):
+        p = subprocess.run([sys.executable, script, *args, "--json", *extra],
+                           capture_output=True, text=True, env=env,
+                           timeout=600)
+        doc = json.loads(p.stdout) if p.stdout.strip().startswith("{") \
+            else {}
+        return p.returncode, doc, p.stderr
+
+    t0 = time.perf_counter()
+    rc0, doc0, err = run()
+    if rc0 != 0:
+        raise Fail(f"fsck {label}: clean scan exited {rc0}: "
+                   f"{json.dumps(doc0)[:2000]} {err[-2000:]}")
+    with open(flip, "r+b") as f:
+        f.seek(os.path.getsize(flip) // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0xFF]))
+    rc1, doc1, _ = run("--repair")
+    rc3, _doc, _err = run()
+    moved = [q["path"] for leg in doc1.get("legs", ())
+             for q in leg["quarantined"]]
+    ok = rc1 == 1 and doc1.get("corrupt", 0) >= 1 and any(
+        flip == m or flip.startswith(m + os.sep) for m in moved) and \
+        not os.path.exists(flip) and rc3 == 0
+    wall = time.perf_counter() - t0
+    log(f"  fsck {label}: {doc0['scanned']} entries clean (exit 0); one "
+        f"flipped byte in {os.path.basename(flip)}: --repair exit {rc1}, "
+        f"{doc1.get('corrupt')} corrupt, quarantined {moved}; rescan exit "
+        f"{rc3}; {wall:.1f} s [{card}]")
+    if not ok:
+        raise Fail(f"fsck {label}: exits {rc1}, {rc3}; moved {moved}")
+    return {"scanned": doc0["scanned"], "exits": [rc0, rc1, rc3],
+            "wall_s": wall}
 
 
 # compile_path's sizes: the pair's and the race's programs (2^28 float64,
@@ -7590,6 +8048,7 @@ def elastic_path(rt, er, sk, sg, sc, torch, np, card, window, totals,
                  only=None):
     """The elastic plane on the card (ROADMAP A.8 part three), (a)-(h)
     as their functions say; ``only``: the parts to run (all: None)."""
+    import os
     import tempfile
 
     t0 = time.perf_counter()
@@ -7618,6 +8077,14 @@ def elastic_path(rt, er, sk, sg, sc, torch, np, card, window, totals,
             part("worlds", elastic_worlds, rt, np, torch, card, window,
                  totals, tmp, out["manager"]["final"])
         part("reshape", elastic_reshape, rt, np, torch, card, window, tmp)
+        if "manager" in out:
+            # the offline integrity CLI over the solver's checkpoints
+            root = out["manager"]["final"]["root"]
+            leaf = max((os.path.join(d, f) for d, _s, fs in os.walk(root)
+                        for f in fs if f.endswith(".npy")),
+                       key=os.path.getsize)
+            out["fsck"] = fsck_leg("elastic_path's checkpoints", card,
+                                   checkpoints=[root], flip=leaf)
     out["wall_s"] = time.perf_counter() - t0
     out["part_walls_s"] = walls
     log(f"  elastic_path: {out['wall_s']:.1f} s, by part (s) "
@@ -10258,6 +10725,15 @@ def fleet_path(rt, er, sk, sg, sc, torch, np, card, totals):
         fl.ready()
         out["spool"] = fleet_spool(fl, np, torch, er, sk, sg, sc, card)
         out["router"] = fleet_router_leg(fl, np, torch, card)
+        fl.close()
+        # the offline integrity CLI over the sessions' artifact tier and
+        # kernel cache, the replicas stopped
+        memo = os.path.join(tmp, "artifacts", "memo")
+        out["fsck"] = fsck_leg(
+            "fleet_path's artifacts and cache", card,
+            artifacts=os.path.join(tmp, "artifacts"),
+            cache=os.path.join(tmp, "cache"),
+            flip=os.path.join(memo, sorted(os.listdir(memo))[0]))
     finally:
         fl.close()
         for p in kids.values():
@@ -10331,6 +10807,17 @@ def main(argv) -> int:
         totals = dict.fromkeys(("elemred", "stencil", "segred", "scan"), 0)
         log(json.dumps({"layout": layout_path(rt, torch, np, card, totals),
                         "launches": totals}))
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        print(card, flush=True)
+        return 0
+    if "--positions" in argv:  # phase 1 and positions_path alone
+        totals = dict.fromkeys(("elemred", "stencil", "segred", "scan"), 0)
+        log(json.dumps({"positions": positions_path(rt, torch, np, card,
+                                                    totals),
+                        "launches": totals}, default=str))
+        for k in ("elemred", "stencil", "segred"):
+            if not totals[k]:
+                raise Fail(f"positions_path launched no {k}")
         log(f"total {time.perf_counter() - t_all:.1f} s")
         print(card, flush=True)
         return 0

@@ -302,6 +302,27 @@ _ARG_RED = frozenset({"argmin", "argmax", "nanargmin", "nanargmax"})
 # the spreads of a complex value are real: var/std of |x - mean|
 _REAL_RED = frozenset({"var", "std", "nanvar", "nanstd"})
 _INDEX_RED = _ARG_RED | {"count_nonzero"}
+# the reductions with no identity, by the ufunc NumPy names in its error
+NO_IDENTITY = {"min": "minimum", "max": "maximum", "nanmin": "fmin",
+               "nanmax": "fmax", "ptp": "maximum", "argmin": None,
+               "argmax": None, "nanargmin": None, "nanargmax": None}
+
+
+def empty_reduction_error(fname: str) -> ValueError:
+    """NumPy's error for a reduction in ``NO_IDENTITY`` over an empty
+    extent."""
+    if fname in _ARG_RED:
+        return ValueError(f"attempt to get {fname.replace('nan', '')} of "
+                          "an empty sequence")
+    return ValueError("zero-size array to reduction operation "
+                      f"{NO_IDENTITY.get(fname, fname)} which has no "
+                      "identity")
+
+
+def reduces_nothing(shape, axis) -> bool:
+    """True when reducing ``shape`` over ``axis`` (None, an int or a
+    tuple) folds an empty extent."""
+    return any(shape[d] == 0 for d in _dims(axis, len(shape)))
 
 
 def reduce_dtype(fname: str, dt: np.dtype) -> np.dtype:

@@ -297,15 +297,34 @@ class ndarray:
 
     def _block(self) -> torch.Tensor:
         """This rank's block of the array (the whole array in one
-        process), as its layout cuts it."""
+        process), as its layout cuts it; a rank holding several blocks
+        raises (:meth:`_blocks`)."""
         if self._base is None:
             c = self._const()
             if c.is_block:
+                if len(c.sharding.local_blocks(self.shape)) > 1:
+                    raise ValueError("this rank holds several blocks of "
+                                     "the array: read them with _blocks")
                 return fuser.leaf_value(c)
         v = self._value()
         if not isinstance(v, torch.Tensor) or v.ndim == 0:
             return v
         return v[self.sharding.local_index(self.shape)]
+
+    def _blocks(self) -> list:
+        """This rank's blocks of the array, one per distinct block of the
+        positions it holds, in grid order (``NamedSharding.
+        local_blocks``)."""
+        if self._base is None:
+            c = self._const()
+            if c.is_block:
+                return c.sharding.split_local(fuser.leaf_value(c),
+                                              self.shape)
+        v = self._value()
+        if not isinstance(v, torch.Tensor) or v.ndim == 0:
+            return [v]
+        return [v[idx] for _p, idx in
+                self.sharding.local_blocks(self.shape)]
 
     @property
     def sharding(self) -> "_mesh.NamedSharding":
@@ -321,9 +340,12 @@ class ndarray:
         the array's one tensor; on a mesh of ranks the rank's own block."""
         sh = self.sharding
         if sh.mesh.ranks is not None:
-            b = self._block()
+            nd = len(self.shape)
+            bs = {sh.block_coords(p, nd): b for (p, _i), b in zip(
+                sh.local_blocks(self.shape), self._blocks())}
             return [Shard(pos, sh.mesh.devices[pos],
-                          sh.block_index(pos, self.shape), b)
+                          sh.block_index(pos, self.shape),
+                          bs[sh.block_coords(pos, nd)])
                     for pos in sh.mesh.local_positions()]
         v = self._value()
         return [Shard(pos, sh.mesh.devices[pos], idx, v[idx])
@@ -425,6 +447,9 @@ class ndarray:
 
     def _reduce(self, fname, axis=None, keepdims=False, ddof=None):
         axis = _norm_axis(axis, self.ndim)
+        # a reduction with no identity over nothing raises here, as NumPy
+        if fname in E.NO_IDENTITY and E.reduces_nothing(self.shape, axis):
+            raise E.empty_reduction_error(fname)
         return ndarray(Node("reduce", (fname, axis, bool(keepdims), ddof),
                             [self.read_expr()]))
 
@@ -671,11 +696,15 @@ def put_sharded(x, sharding) -> ndarray:
 
     if sharding.mesh.ranks is not None:
         shape = tuple(x.shape)
-        block = x[sharding.local_index(shape)]
+        held = sharding.local_blocks(shape)
+        blocks = [x[idx] for _p, idx in held] or [
+            x[sharding.local_index(shape)]]
         # room for the upload: the governor spills cold leaves first
-        memory.reserve_headroom(block.nbytes, site="put_sharded")
-        t = block.to(dev).contiguous() if isinstance(block, torch.Tensor) \
-            else E.tensor_from_numpy(block, dev)
+        memory.reserve_headroom(sum(b.nbytes for b in blocks),
+                                site="put_sharded")
+        t = _mesh.pack([b.to(dev).contiguous() if isinstance(
+            b, torch.Tensor) else E.tensor_from_numpy(b, dev)
+            for b in blocks])
         return ndarray(Const(t, sharding=sharding, shape=shape))
     memory.reserve_headroom(x.nbytes, site="put_sharded")
     t = x.to(dev) if isinstance(x, torch.Tensor) \

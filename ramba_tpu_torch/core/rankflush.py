@@ -1,7 +1,10 @@
 """A flush on a mesh of ranks: every rank runs the program on its blocks.
 
 Every rank runs the same program (SPMD), and each realized array holds
-only the rank's block (``Const.is_block``).  Before anything runs, a
+only the rank's blocks (``Const.is_block``): one per distinct block of
+the mesh positions it holds, packed into one tensor where it holds
+several (``parallel/mesh.py``: ``rank_mesh((2, 2), ranks=[0, 0, 1, 1])``,
+the checkerboard ``[[0, 1], [1, 0]]``).  Before anything runs, a
 ``shard_hint`` over a leaf of another layout (the layout-aligning rewrite,
 ``core/rewrite.py``; a co-partitioning constraint) is lowered to a
 reshard of that leaf (``parallel/reshard.py``), and the flush sorts the
@@ -18,41 +21,55 @@ only the graph and the leaves' layouts:
   ``smap_index``, whose kernel sees global indices) or a stencil (under
   any layout) or ``scumulative``, and a root may end in
 
-  - a whole-array ``sum``/``prod``/``min``/``max``/``mean``/``any``/
-    ``all`` or an ``sreduce``: the rank folds its block, the partials are
-    all-gathered and folded in rank order, so every rank gets the same
-    bytes and a rerun gives the same bytes;
-  - the same reductions along some axes: each rank reduces its block;
-    where a reduced axis is split, the partials of the ranks that hold
-    the same block of the other axes are all-gathered and folded in rank
-    order; the result keeps the source's layout on the axes left
-    (``P('d1')`` for ``sum(axis=0)`` of a ``P('d0', 'd1')`` array, as
-    GSPMD lays it out);
+  - a whole-array fold: ``sum``/``prod``/``min``/``max``/``mean``/
+    ``any``/``all``, the nan-reductions (``nansum``, ``nanprod``,
+    ``nanmin``, ``nanmax``, ``nanmean``), ``var``/``std`` of any
+    ``ddof`` (per block ``(count, mean, M2)``, the mean carried as
+    ``hi + lo``: the block's sum, then a centred pass, the sums of
+    ``x - hi`` and of their squares), ``argmin``/``argmax`` (per block
+    the extreme and its global index), complex ``sum``/``prod``/
+    ``mean``, or an ``sreduce``;
+  - the same folds along some axes (an arg-reduction along one): each
+    block is reduced; where a reduced axis is split, the partials of the
+    positions that hold the same block of the other axes are folded; the
+    result keeps the source's layout on the axes left (``P('d1')`` for
+    ``sum(axis=0)`` of a ``P('d0', 'd1')`` array, as GSPMD lays it out);
   - a ``segment_reduce`` (groupby) of kind sum/prod/min/max/count/mean/
-    var/std over 1-D data: each rank runs one one-instruction program per
-    partial on its block (the segred kernel on the card: sum, min, max,
-    prod or count once; a mean its sum and count; var/std its sum, sum of
-    squares and count), the ``G`` partials are all-gathered and folded in
-    rank order, then finished as the generic lowering finishes them
-    (``mean = sum / count``, ``var = sum_sq / count - mean**2``).
+    var/std and the nan kinds, over 1-D data or along one dim of N-d
+    data: one one-instruction program per partial on each block (on the
+    card 1-D data takes the segred kernel: sum, min, max, prod or count
+    once; a mean its sum and count; var/std its count and sum, then the
+    segment sums of the deviations from the rounded mean and of their
+    squares; the nan kinds with the NaNs' labels moved out of range),
+    then the folds and the finish of the generic lowering.
 
-  A block that several ranks hold counts once in every fold (the rank at
-  coordinate 0 of the mesh axes its layout leaves whole).  An
-  elementwise program ending in whole-array folds over blocks of more
-  than one dim runs on the blocks flattened (contiguous: a view), so
-  elemred takes it on the card.
+  Every fold runs over the mesh positions in grid order, whichever rank
+  holds them: one all-gather of every owner position's partials, then
+  ``_combine`` (var/std: Chan, Golub and LeVeque's pairwise update,
+  :func:`chan`; argmin/argmax: the extreme, NaN first, the first index
+  among equals, :func:`_pick`), so a world of any size on one mesh gives
+  the same bytes, and a rerun the same bytes.  A block that several
+  positions hold counts once (the position at coordinate 0 of the mesh
+  axes its layout leaves whole).  An elementwise program ending in
+  whole-array folds over blocks of more than one dim runs on the blocks
+  flattened (contiguous: a view), so elemred takes it on the card.
+  Each held block runs its own program; where the blocks exchange (a
+  stencil's halos, a scan's carries) one program takes all of a rank's
+  blocks (``Plan.joint``): a halo between two blocks of one rank is a
+  device copy.
 * **replicated**: no leaf is a block (scalars, values held whole): every
   rank runs the program whole, nothing moves.
 * **gathered**: any other program.  Its block leaves are all-gathered,
   it runs as in one process (``mesh.local_scope``), and each rank keeps
-  its block of every array result.  This is the lowering those programs
+  its blocks of every array result.  This is the lowering those programs
   have across processes, chosen before the run; it is counted
   (``fuser.stats["gathered"]``, ``parallel.comm_stats["allgather_bytes"]``).
   It takes: any other op (indexing, sort, matmul, reshapes), leaves of
   different shapes or layouts that no hint aligns (a lazy subtree of
-  another layout), the nan-reductions, var/std/arg-reductions/medians
-  along axes or whole, complex reductions, groupby of N-d data or of the
-  nan-kinds, a ``shard_hint`` over a computed value of another layout.
+  another layout), the medians and quantiles (a selection across ranks,
+  not a fold), the reductions this module does not fold (nanvar/nanstd,
+  count_nonzero, ptp, complex min/max/var), a ``shard_hint`` over a
+  computed value of another layout.
 
 Roots that no one plan takes together (arrays of other shapes or
 layouts pending in one flush) are grouped into plans of their own, each
@@ -62,8 +79,8 @@ A program that raises on one rank raises on every rank: the ranks agree
 on the outcome (one all-reduce) before any collective that would
 otherwise leave the others waiting.
 
-All of a plan's rank-local programs run together down the degradation
-ladder (:func:`_laddered`, ``resilience/degrade.py``): fused, split,
+All of a plan's rank-local programs (every held block's) run together
+down the degradation ladder (:func:`_laddered`, ``resilience/degrade.py``): fused, split,
 chunked, eager (no host rung across ranks).  With the coherence layer
 engaged (several processes), every rung attempt runs through the
 ``flush:gate`` (before its first launch: :func:`_gated`),
@@ -104,42 +121,69 @@ from ramba_tpu_torch.resilience import coherence
 ELEMENTWISE = frozenset({"map", "cast", "round", "masked_fill"})
 CREATION = frozenset({"arange", "full", "linspace", "fromfunction"})
 STENCILS = frozenset({"stencil", "stencil_iter"})
-FOLDS = frozenset({"sum", "prod", "min", "max", "mean", "any", "all"})
+# ops whose block reads other blocks (halos, carries): on a rank holding
+# several blocks they take all of them at once
+_EXCHANGING = STENCILS | {"scumulative"}
+FOLDS = frozenset({"sum", "prod", "min", "max", "mean", "any", "all",
+                   "nansum", "nanprod", "nanmin", "nanmax", "nanmean",
+                   "var", "std", "argmin", "argmax"})
+# the folds of complex values (the others compare or square them)
+COMPLEX_FOLDS = frozenset({"sum", "prod", "mean"})
+_ARGS = frozenset({"argmin", "argmax"})
 SEGMENTS = frozenset({"sum", "prod", "min", "max", "count", "mean", "var",
-                      "std"})
-# the partials a segment root reduces on each rank: (kind, of squares)
-_SEGMENT_PARTS = {"mean": (("sum", False), ("count", False)),
-                  "var": (("sum", False), ("sum", True), ("count", False)),
-                  "std": (("sum", False), ("sum", True), ("count", False))}
+                      "std", "nansum", "nanmean", "nanvar", "nanstd"})
+_SPREADS = frozenset({"var", "std", "nanvar", "nanstd"})
 
 
 class _Root:
     """One root of a shard-local plan.  ``kind``: "block", "reduce"
     (whole array), "axis" (along ``axes``), "segment" (groupby) or
-    "sreduce"; ``expr`` the local expression (None: the block is empty
-    and nothing runs); ``labels`` a segment root's local labels;
-    ``out`` an axis root's result layout and global shape."""
+    "sreduce"; ``exprs[j]`` the local expressions of held block ``j``
+    (None: the block is empty and nothing runs; a fold's main-program
+    partials otherwise); ``labels[j]`` a segment root's local labels;
+    ``out`` an axis or N-d segment root's result layout and global
+    shape; ``xdt`` the dtype of what it reduces."""
 
-    __slots__ = ("kind", "expr", "fname", "static", "dtype", "axes",
-                 "keepdims", "labels", "out", "groups")
+    __slots__ = ("kind", "exprs", "fname", "static", "dtype", "axes",
+                 "keepdims", "labels", "out", "xdt", "ddof", "dim")
 
-    def __init__(self, kind, expr, fname=None, static=None, dtype=None):
-        self.kind, self.expr, self.fname = kind, expr, fname
+    def __init__(self, kind, fname=None, static=None, dtype=None):
+        self.kind, self.fname = kind, fname
         self.static, self.dtype = static, dtype
-        self.axes = self.keepdims = self.labels = self.out = None
-        self.groups = None
+        self.exprs = self.labels = None
+        self.axes = self.keepdims = self.out = self.xdt = None
+        self.ddof = self.dim = None
 
 
 class Plan:
-    """``owners[q]``: rank ``q``'s partials count in the folds (it holds
-    a nonempty block, and is the first of the ranks holding it);
-    ``boxes[q]``: rank ``q``'s block as ``(start, stop)`` per dim."""
+    """``blocks``: this rank's blocks ``[(position, index)]`` in grid
+    order (a rank outside the mesh: one empty block at position None);
+    ``boxes[p]``: mesh position ``p``'s block as ``(start, stop)`` per
+    dim; ``owners``: the positions whose partials count in the folds (a
+    nonempty block, at coordinate 0 of the mesh axes the layout leaves
+    whole), in grid order; ``joint``: the blocks' programs exchange, so
+    they run as one program."""
 
-    __slots__ = ("shape", "sharding", "index", "roots", "owners", "boxes")
+    __slots__ = ("shape", "sharding", "blocks", "roots", "owners", "boxes",
+                 "joint")
 
-    def __init__(self, shape, sharding, index, roots, owners, boxes):
-        self.shape, self.sharding, self.index = shape, sharding, index
+    def __init__(self, shape, sharding, blocks, roots, owners, boxes,
+                 joint):
+        self.shape, self.sharding, self.blocks = shape, sharding, blocks
         self.roots, self.owners, self.boxes = roots, owners, boxes
+        self.joint = joint
+
+    def block_shape(self, j) -> tuple:
+        return _mesh.index_shape(self.blocks[j][1], self.shape)
+
+    def local_block(self, pos) -> int:
+        """Which of this rank's blocks is mesh position ``pos``'s."""
+        want = self.sharding.block_coords(pos, len(self.shape))
+        for j, (p, _i) in enumerate(self.blocks):
+            if p is not None and self.sharding.block_coords(
+                    p, len(self.shape)) == want:
+                return j
+        raise KeyError(pos)
 
 
 def _axes(axis, nd) -> tuple:
@@ -155,18 +199,27 @@ def _fold_root(e):
     can fold (whole or along axes), a groupby, an sreduce, or a plain
     block."""
     if isinstance(e, Node) and e.op == "reduce":
-        fname, axis, keepdims, _ddof = e.static
-        nd = len(e.args[0].shape)
-        if fname in FOLDS and nd and e.args[0].dtype.kind != "c":
+        fname, axis, keepdims, ddof = e.static
+        x = e.args[0]
+        nd = len(x.shape)
+        if x.dtype.kind not in "fc":
+            fname = E.NAN_PLAIN.get(fname, fname)  # nothing to ignore
+        if fname in FOLDS and nd and (x.dtype.kind != "c"
+                                      or fname in COMPLEX_FOLDS):
             axes = _axes(axis, nd)
-            if len(axes) == nd and not keepdims:
-                return "reduce", e.args[0], fname, None
-            return "axis", e.args[0], fname, (axes, bool(keepdims))
+            whole = len(axes) == nd and not keepdims
+            if fname in _ARGS and not (whole or len(axes) == 1):
+                return "block", e, None, None
+            if whole:
+                return "reduce", x, fname, (axes, False, ddof)
+            return "axis", x, fname, (axes, bool(keepdims), ddof)
     if isinstance(e, Node) and e.op == "segment_reduce":
         kind, _g, dim = e.static
         x, labels = e.args
-        if (kind in SEGMENTS and len(x.shape) == 1 and dim == 0
-                and x.dtype.kind != "c" and labels.shape == x.shape):
+        if kind in SEGMENTS and x.dtype.kind != "c" and (
+                labels.shape == x.shape if len(x.shape) == 1 else
+                isinstance(labels, Const) and not labels.is_block
+                and labels.shape == (x.shape[dim],)):
             return "segment", x, kind, labels
     if isinstance(e, Node) and e.op == "sreduce" and e.args[0].shape:
         return "sreduce", e.args[0], None, None
@@ -196,11 +249,12 @@ def local_plan(exprs, mesh):
     if not shape:
         return None
     spec = None
-    stencil = scan = False
+    stencil = exchanging = scan = False
     stencils = []
     seen = set()
     stack = [inner for _k, inner, _f, _x in roots]
-    stack += [x for k, _i, _f, x in roots if k == "segment"]
+    stack += [x for k, inner, _f, x in roots
+              if k == "segment" and len(inner.shape) == 1]
     while stack:
         e = stack.pop()
         if id(e) in seen:
@@ -232,6 +286,7 @@ def local_plan(exprs, mesh):
         if e.op in STENCILS:
             stencil = True
             stencils.append(e)
+        exchanging = exchanging or e.op in _EXCHANGING
         scan = scan or e.op == "scumulative"
         if e.op not in CREATION:
             stack.extend(e.args)
@@ -243,85 +298,121 @@ def local_plan(exprs, mesh):
         for e in stencils:
             if not fits(e.static[1], e.static[2], shape, sharding):
                 return None
-    index = sharding.local_index(shape)
-    local_shape = _mesh.index_shape(index, shape)
-    # a rank with an empty block runs nothing, unless it is a member of
-    # the mesh and a stencil needs it for the halo exchange
-    pos = mesh.position_of(distributed.process_index())
-    # (a scan's totals are all-gathered: every rank takes part)
-    runs = (math.prod(local_shape) > 0 or scan
-            or (stencil and pos is not None))
-    world = distributed.process_count()
-    boxes = [_mesh.index_box(sharding.rank_index(q, shape), shape)
-             for q in range(world)]
-    # a block held by several ranks (whole along some mesh axes) counts
-    # once in a fold: at coordinate 0 of those axes
+    me = distributed.process_index()
+    blocks = sharding.rank_blocks(me, shape) or [
+        (None, sharding.rank_index(me, shape))]
+    positions = list(np.ndindex(mesh.devices.shape))
+    boxes = {p: _mesh.index_box(sharding.block_index(p, shape), shape)
+             for p in positions}
+    # a block held by several positions (whole along some mesh axes)
+    # counts once in a fold: at coordinate 0 of those axes
     used = {nm for en in sharding.spec for nm in _mesh.entry_names(en)}
-    owners = []
-    for q in range(world):
-        qpos = mesh.position_of(q)
-        owners.append(qpos is not None and all(
-            lo < hi for lo, hi in boxes[q]) and all(
-            p == 0 for nm, p in zip(mesh.axis_names, qpos)
-            if nm not in used))
+    owners = [p for p in positions if all(lo < hi for lo, hi in boxes[p])
+              and all(c == 0 for nm, c in zip(mesh.axis_names, p)
+                      if nm not in used)]
+    joint = exchanging and len(blocks) > 1
+    plan = Plan(shape, sharding, blocks, [], owners, boxes, joint)
     memo: dict = {}
-    out = []
-    nonempty = math.prod(local_shape) > 0
     for (kind, inner, fname, extra), e in zip(roots, exprs):
-        # an empty block folds nothing (a min of nothing would raise)
-        loc = _localize(inner, shape, index, sharding, memo) if runs and (
-            kind == "block" or nonempty) else None
-        if kind == "reduce":
-            dt = e.dtype
-            if loc is not None:
-                loc = Node("reduce", ("sum" if fname == "mean" else fname,
-                                      None, False, None),
-                           [_cast(loc, dt) if fname == "mean" else loc])
-            out.append(_Root("reduce", loc, fname, dtype=dt))
-        elif kind == "axis":
-            axes, keepdims = extra
-            if loc is not None:
-                loc = Node("reduce", ("sum" if fname == "mean" else fname,
-                                      axes, keepdims, None),
-                           [_cast(loc, e.dtype) if fname == "mean"
-                            else loc])
-            r = _Root("axis", loc, fname, dtype=e.dtype)
-            r.axes, r.keepdims = axes, keepdims
-            r.out = _axis_layout(sharding, shape, axes, keepdims)
-            r.groups = _axis_groups(plan_boxes=boxes, owners=owners,
-                                    axes=axes, sharding=sharding,
-                                    out=r.out)
-            out.append(r)
+        plan.roots.append(_plan_root(plan, kind, inner, fname, extra, e,
+                                     memo, stencil, scan))
+    return plan
+
+
+def _plan_root(plan, kind, inner, fname, extra, e, memo, stencil, scan):
+    """One root of ``plan``: its local expressions for every held
+    block."""
+    r = _Root(kind, fname, dtype=e.dtype)
+    r.xdt = inner.dtype
+    shape = plan.shape
+    r.exprs = []
+    if kind == "segment":
+        r.static = e.static
+        r.dim = e.static[2]
+        r.labels = []
+        if len(shape) > 1:
+            r.out = _axis_layout(plan.sharding, shape, (r.dim,), True,
+                                 groups=int(e.static[1]))
+    if kind in ("reduce", "axis"):
+        r.axes, r.keepdims, r.ddof = extra
+        if kind == "axis":
+            r.out = _axis_layout(plan.sharding, shape, r.axes, r.keepdims)
+    if kind == "sreduce":
+        r.static = e.static
+    for j, (pos, index) in enumerate(plan.blocks):
+        nonempty = math.prod(_mesh.index_shape(index, shape)) > 0
+        # an empty block folds nothing (a min of nothing would raise); a
+        # block of a position runs a stencil for the halo exchange, and
+        # every rank joins a scan's all-gather of totals
+        runs = nonempty or scan or (stencil and pos is not None)
+        if not runs or (kind != "block" and not nonempty):
+            r.exprs.append(None)
+            if kind == "segment":
+                r.labels.append(None)
+            continue
+        loc = _localize(inner, plan, j, memo)
+        if kind in ("reduce", "axis"):
+            r.exprs.append(_fold_parts(r, loc))
         elif kind == "segment":
-            r = _Root("segment", loc, fname, static=(e.static, inner.dtype),
-                      dtype=e.dtype)
-            if loc is not None:
-                r.labels = _localize(extra, shape, index, sharding, memo)
-            out.append(r)
+            r.exprs.append(loc)
+            lab = extra
+            if len(shape) > 1:
+                from ramba_tpu_torch.core.fuser import leaf_value
+
+                lab = Const(leaf_value(lab)[index[r.dim]].contiguous())
+            else:
+                lab = _localize(lab, plan, j, memo)
+            r.labels.append(lab)
         elif kind == "sreduce":
-            worker, across, identity, _split = e.static
-            if loc is not None:
-                loc = Node("sreduce", (worker, worker, identity, False),
-                           [loc], aval=E.Aval((), e.dtype, False))
-            out.append(_Root("sreduce", loc, static=e.static,
-                             dtype=e.dtype))
+            worker, _across, identity, _split = e.static
+            r.exprs.append(Node("sreduce", (worker, worker, identity, False),
+                                [loc], aval=E.Aval((), e.dtype, False)))
         else:
-            out.append(_Root("block", loc, dtype=e.dtype))
-    return Plan(shape, sharding, index, out, owners, boxes)
+            r.exprs.append(loc)
+    return r
 
 
 def _cast(e, dt):
     return Node("cast", (str(dt),), [e]) if e.dtype != dt else e
 
 
-def _axis_layout(sharding, shape, axes, keepdims):
+def _fold_parts(r, loc):
+    """The main program's partials of a reduce/axis root over one block:
+    the block's own reduction (a mean's sum in the result dtype), a
+    nanmean's sum and count, a var's sum (its count is the block's size;
+    its centred pass runs after, :func:`_partials`), an arg-reduction's
+    extreme and its index in the block."""
+    fname, axes = r.fname, r.axes
+    keep = r.keepdims and r.kind == "axis"
+
+    def red(name, x, keepdims=keep):
+        axis = None if r.kind == "reduce" else \
+            axes[0] if name in _ARGS else axes
+        return Node("reduce", (name, axis, keepdims, None), [x])
+
+    if fname == "mean":
+        return [red("sum", _cast(loc, r.dtype))]
+    if fname == "nanmean":
+        valid = Node("map", ("logical_not",), [Node("map", ("isnan",),
+                                                    [loc])])
+        return [red("nansum", _cast(loc, r.dtype)), red("sum", valid)]
+    if fname in _SPREADS:
+        return [red("sum", _cast(loc, r.dtype))]
+    if fname in _ARGS:
+        ext = "max" if fname == "argmax" else "min"
+        return [red(ext, loc), red(fname, loc)]
+    return [red(fname, loc)]
+
+
+def _axis_layout(sharding, shape, axes, keepdims, groups=None):
     """``(NamedSharding, shape)`` of a reduction along ``axes``: the
     source's entries on the axes left (None where ``keepdims`` keeps a
-    reduced one)."""
+    reduced one; a groupby's grouped dim becomes ``groups`` long)."""
     spec = tuple(sharding.spec) + (None,) * (len(shape) - len(sharding.spec))
     if keepdims:
         ents = [None if d in axes else spec[d] for d in range(len(shape))]
-        oshape = tuple(1 if d in axes else n for d, n in enumerate(shape))
+        oshape = tuple((1 if groups is None else groups) if d in axes else n
+                       for d, n in enumerate(shape))
     else:
         ents = [spec[d] for d in range(len(shape)) if d not in axes]
         oshape = tuple(n for d, n in enumerate(shape) if d not in axes)
@@ -329,61 +420,108 @@ def _axis_layout(sharding, shape, axes, keepdims):
                                 _mesh.P(*_mesh.canonical(ents))), oshape)
 
 
-def _axis_groups(plan_boxes, owners, axes, sharding, out):
-    """Per rank ``r``: the ranks whose partials make ``r``'s result block,
-    in rank order (None: no reduced axis is split, so a rank's own
-    partial is its result)."""
-    counts = sharding.split_counts(len(plan_boxes[0]))
-    if all(counts[d] == 1 for d in axes):
-        return None
-    keep = [d for d in range(len(plan_boxes[0])) if d not in axes]
-    osh, oshape = out
-    groups = []
-    for r in range(len(plan_boxes)):
-        obox = _mesh.index_box(osh.rank_index(r, oshape), oshape)
-        want = tuple(obox[d] for d in keep) if len(obox) == len(
-            plan_boxes[0]) else obox
-        groups.append([q for q, box in enumerate(plan_boxes) if owners[q]
-                       and tuple(box[d] for d in keep) == want])
-    return groups
+def _group(plan, r, out_index) -> list:
+    """The owner positions whose partials make the result block at
+    ``out_index`` of an axis or N-d segment root, in grid order."""
+    axes = r.axes if r.kind == "axis" else (r.dim,)
+    nd = len(plan.shape)
+    keep = [d for d in range(nd) if d not in axes]
+    _osh, oshape = r.out
+    obox = _mesh.index_box(out_index, oshape)
+    want = tuple(obox[d] for d in keep) if len(obox) == nd else obox
+    return [p for p in plan.owners
+            if tuple(plan.boxes[p][d] for d in keep) == want]
 
 
-def _localize(e, shape, index, sharding, memo):
-    """The expression of this rank's block of ``e``."""
-    got = memo.get(id(e))
+def _split_axes(plan, r) -> bool:
+    """True when a reduced (or grouped) axis is split: the result blocks
+    fold partials across positions."""
+    axes = r.axes if r.kind == "axis" else (r.dim,)
+    counts = plan.sharding.split_counts(len(plan.shape))
+    return any(counts[d] > 1 for d in axes)
+
+
+def _localize(e, plan, j, memo):
+    """The expression of held block ``j`` of ``e``."""
+    got = memo.get((id(e), j))
     if got is not None:
         return got
     from ramba_tpu_torch.core.fuser import leaf_value
 
+    shape, sharding = plan.shape, plan.sharding
+    index = plan.blocks[j][1]
     if isinstance(e, Scalar) or (isinstance(e, Const) and e.shape == ()):
         out = e
     elif isinstance(e, Const):
         v = leaf_value(e)
-        out = Const(v) if e.is_block else Const(v[index].contiguous())
+        if e.is_block:
+            held = sharding.split_local(v, shape)
+            out = Const(held[j] if held else v)
+        else:
+            out = Const(v[index].contiguous())
     elif e.op == "shard_hint":  # the layout is the plan's
-        out = _localize(e.args[0], shape, index, sharding, memo)
+        out = _localize(e.args[0], plan, j, memo)
     elif e.op in CREATION:
         out = _creation_block(e, shape, index)
     elif e.op == "smap" and e.static[2]:  # smap_index: global indices
-        args = [_localize(a, shape, index, sharding, memo) for a in e.args]
+        args = [_localize(a, plan, j, memo) for a in e.args]
         starts = tuple(sl.indices(n)[0] for sl, n in zip(index, shape))
         out = Node("smap_block", tuple(e.static) + (starts,), args,
                    aval=E.Aval(args[0].shape, e.dtype, False))
-    elif e.op == "scumulative":
-        (arg,) = [_localize(a, shape, index, sharding, memo) for a in e.args]
-        out = Node("scumulative_block", (e.static, shape, sharding), [arg],
-                   aval=E.Aval(arg.shape, e.dtype, False))
-    elif e.op in STENCILS:
-        args = [_localize(a, shape, index, sharding, memo) for a in e.args]
-        iters = e.static[5] if e.op == "stencil_iter" else None
-        local_shape = _mesh.index_shape(index, shape)
-        out = Node("stencil_block", (e.static[:5], iters, shape, sharding),
-                   args, aval=E.Aval(local_shape, e.dtype, False))
+    elif e.op in _EXCHANGING:
+        out = _exchanging_block(e, plan, j, memo)
     else:
-        args = [_localize(a, shape, index, sharding, memo) for a in e.args]
+        args = [_localize(a, plan, j, memo) for a in e.args]
         out = Node(e.op, e.static, args)
-    memo[id(e)] = out
+    memo[(id(e), j)] = out
     return out
+
+
+def _exchanging_block(e, plan, j, memo):
+    """Held block ``j`` of a stencil or scumulative: one node takes every
+    held block of its operands (slot-major) and gives them packed; each
+    block is a view of it (one held block: the node is the block)."""
+    key = (id(e), "blocks")
+    node = memo.get(key)
+    k = len(plan.blocks) if plan.joint else 1
+    shapes = [plan.block_shape(i) for i in range(len(plan.blocks))]
+    if node is None:
+        which = range(k) if plan.joint else [j]
+        args = [_localize(a, plan, i, memo) for a in e.args for i in which]
+        out_shape = shapes[j] if k == 1 else (
+            sum(math.prod(s) for s in shapes),)
+        # the held blocks are the op's to read (``held_positions``), not
+        # the static's: every rank's program keeps one fingerprint
+        if e.op == "scumulative":
+            node = Node("scumulative_block",
+                        (e.static, plan.shape, plan.sharding), args,
+                        aval=E.Aval(out_shape, e.dtype, False))
+        else:
+            iters = e.static[5] if e.op == "stencil_iter" else None
+            node = Node("stencil_block", (e.static[:5], iters, plan.shape,
+                                          plan.sharding),
+                        args, aval=E.Aval(out_shape, e.dtype, False))
+        if plan.joint:
+            memo[key] = node
+    if k == 1:
+        return node
+    off = sum(math.prod(s) for s in shapes[:j])
+    return Node("block_view", (off, shapes[j]), [node],
+                aval=E.Aval(shapes[j], e.dtype, False))
+
+
+def held_positions(sharding, shape) -> list:
+    """The positions of this rank's blocks of ``shape`` under
+    ``sharding``, in grid order (``[None]`` outside the mesh: one empty
+    block)."""
+    return [p for p, _i in sharding.local_blocks(shape)] or [None]
+
+
+@E.defop("block_view")
+def _op_block_view(static, packed):
+    """One block of a packed tensor of several."""
+    off, shape = static
+    return packed[off:off + math.prod(shape)].view(shape)
 
 
 def _creation_block(e, shape, index):
@@ -408,52 +546,115 @@ def _creation_block(e, shape, index):
 
 
 # ---------------------------------------------------------------------------
-# folds across ranks
+# folds across positions
 # ---------------------------------------------------------------------------
 
 
 def _combine(fname, a, b):
-    if fname in ("sum", "mean", "count"):
+    if fname in ("sum", "mean", "count", "nansum"):
         return a + b
-    if fname == "prod":
+    if fname in ("prod", "nanprod"):
         return a * b
     if fname == "any":
         return a | b
     if fname == "all":
         return a & b
+    if fname == "nanmin":
+        return torch.fmin(a, b)
+    if fname == "nanmax":
+        return torch.fmax(a, b)
     return torch.minimum(a, b) if fname == "min" else torch.maximum(a, b)
 
 
+def chan(a, b):
+    """Two ``(count, mean, mean's low part, M2)`` partials of a variance
+    as one (Chan, Golub and LeVeque's pairwise update).  The mean is
+    carried as an unevaluated sum ``hi + lo``, so the difference of two
+    means keeps its digits where the mean is large against the spread
+    (``hi - hi`` is exact for close means); a side counting nothing
+    leaves the other as it is."""
+    na, ha, la, qa = a
+    nb, hb, lb, qb = b
+    n = na + nb
+    nf = n.to(ha.dtype)
+    safe = torch.where(n > 0, nf, torch.ones_like(nf))
+    wb = nb.to(ha.dtype) / safe
+    delta = (hb - ha) + (lb - la)
+    step = delta * wb
+    hi = ha + step
+    lo = la + ((ha - hi) + step)
+    m2 = qa + qb + delta * delta * (na.to(ha.dtype) * wb)
+    out = []
+    for x, y, z in ((ha, hb, hi), (la, lb, lo), (qa, qb, m2)):
+        out.append(torch.where(nb == 0, x, torch.where(na == 0, y, z)))
+    return (n, *out)
+
+
+def _pick(want_max, a, b):
+    """Two ``(value, index)`` partials of an arg-reduction as one: the
+    extreme, a NaN before any number, the first index among equals."""
+    va, ia = a
+    vb, ib = b
+    na, nb = _isnan(va), _isnan(vb)
+    better = (vb > va) if want_max else (vb < va)
+    tie = (va == vb) | (na & nb)
+    take_b = (nb & ~na) | (~na & ~nb & better) | (tie & (ib < ia))
+    return torch.where(take_b, vb, va), torch.where(take_b, ib, ia)
+
+
+def _isnan(v):
+    return torch.isnan(v) if v.is_floating_point() else \
+        torch.zeros_like(v, dtype=torch.bool)
+
+
 def _segment_parts(r):
-    """``[(kind, of squares, torch dtype)]``: the partials of a segment
-    root, in the dtypes the generic lowering reduces them in."""
+    """``[(kind, torch dtype)]``: the partials of a segment root, each a
+    segment reduction of one block (a var's ``(count, mean, M2)``)."""
     from ramba_tpu_torch.groupby import segment_dtype
 
-    _static, xdt = r.static
-    sq_dt = E.map_dtypes("multiply", [E.Aval((), xdt), E.Aval((), xdt)])[1]
-    out = []
-    for kind, sq in _SEGMENT_PARTS.get(r.fname, ((r.fname, False),)):
-        dt = segment_dtype(kind, sq_dt if sq else xdt)
-        out.append((kind, sq, E.to_torch_dtype(dt)))
-    return out
+    xdt = r.xdt
+    kind = r.fname
+    i64 = torch.int64
+    if kind in ("mean", "nanmean"):
+        s = E.to_torch_dtype(segment_dtype("nansum" if kind == "nanmean"
+                                           else "sum", xdt))
+        return [("sum", s), ("count", i64)]
+    if kind in _SPREADS:
+        f = E.to_torch_dtype(segment_dtype(kind, xdt))
+        return [("count", i64), ("mean", f), ("lo", f), ("m2", f)]
+    return [(kind, E.to_torch_dtype(segment_dtype(kind, xdt)))]
 
 
-def _part_specs(plan, r, q) -> list:
-    """``[(shape, torch dtype)]`` of rank ``q``'s partials of root ``r``
-    (empty where ``q`` contributes none)."""
-    if r.kind == "block" or (r.kind == "axis" and r.groups is None) \
-            or not plan.owners[q]:
+def _part_specs(plan, r, p) -> list:
+    """``[(shape, torch dtype)]`` of position ``p``'s partials of root
+    ``r`` (empty where the root folds none)."""
+    if r.kind == "block" or (r.kind in ("axis", "segment")
+                             and r.out is not None
+                             and not _split_axes(plan, r)):
         return []
     tdt = E.to_torch_dtype(r.dtype)
-    if r.kind in ("reduce", "sreduce"):
-        return [((), tdt)]
+    box = plan.boxes[p]
     if r.kind == "segment":
-        G = int(r.static[0][1])
-        return [((G,), dt) for _k, _s, dt in _segment_parts(r)]
-    box = plan.boxes[q]
-    shp = tuple(1 if d in r.axes else hi - lo
-                for d, (lo, hi) in enumerate(box)
-                if r.keepdims or d not in r.axes)
+        G = int(r.static[1])
+        shp = tuple(G if d == r.dim else hi - lo
+                    for d, (lo, hi) in enumerate(box))
+        return [(shp, dt) for _k, dt in _segment_parts(r)]
+    if r.kind == "sreduce":
+        return [((), tdt)]
+    if r.kind == "reduce":
+        shp = ()
+    else:
+        shp = tuple(1 if d in r.axes else hi - lo
+                    for d, (lo, hi) in enumerate(box)
+                    if r.keepdims or d not in r.axes)
+    i64 = torch.int64
+    if r.fname == "nanmean":
+        return [(shp, tdt), (shp, i64)]
+    if r.fname in _SPREADS:
+        f = E.to_torch_dtype(r.dtype)
+        return [(shp, i64), (shp, f), (shp, f), (shp, f)]
+    if r.fname in _ARGS:
+        return [(shp, E.to_torch_dtype(r.xdt)), (shp, i64)]
     return [(shp, tdt)]
 
 
@@ -462,104 +663,179 @@ def _nbytes(shape, dt) -> int:
 
 
 def _identity(fname, shape, dt, dev):
-    if fname in ("min", "max"):
-        raise ValueError(f"zero-size array to reduction operation {fname} "
-                         "which has no identity")
-    fill = {"prod": 1, "all": True}.get(fname, 0)
+    if fname in E.NO_IDENTITY:
+        raise E.empty_reduction_error(fname)
+    fill = {"prod": 1, "nanprod": 1, "all": True}.get(fname, 0)
     return torch.full(shape, fill, dtype=dt, device=dev)
 
 
+def _folded(plan):
+    return [i for i, r in enumerate(plan.roots)
+            if r.kind in ("reduce", "sreduce")
+            or (r.kind == "segment" and (r.out is None
+                                         or _split_axes(plan, r)))
+            or (r.kind == "axis" and _split_axes(plan, r))]
+
+
+def _owned(plan, q, owner_set) -> list:
+    """``[(position, block of rank q)]``: the owner positions rank ``q``
+    holds, in grid order."""
+    mesh = plan.sharding.mesh
+    held = plan.sharding.rank_blocks(q, plan.shape)
+    coords = [plan.sharding.block_coords(p, len(plan.shape))
+              for p, _i in held]
+    out = []
+    for p in mesh.positions_of(q):
+        if p in owner_set:
+            out.append((p, coords.index(plan.sharding.block_coords(
+                p, len(plan.shape)))))
+    return out
+
+
 def fold(plan, partials):
-    """Every folded root's value on this rank: one all-gather of all the
-    owners' partials (sizes known on every rank from the layout), then
-    folds in rank order (``sreduce``: the driver reducer's halving fold
-    over the partials in rank order, as one process folds its shards).
-    Returns ``{root index: [folded partials]}``."""
+    """Every folded root's value on this rank: one all-gather of every
+    owner position's partials (sizes known on every rank from the
+    layout), then folds over the positions in grid order, whichever rank
+    holds them, so a world of any size gives the same bytes (``sreduce``:
+    the driver reducer's halving fold over the partials in grid order,
+    as one process folds its shards).  ``partials[i][j]``: root ``i``'s
+    partials of held block ``j``.  Returns ``{root index: [per result
+    block: folded partials]}`` (one result block for a whole fold)."""
     from ramba_tpu_torch.skeletons import _tree_reduce, call_kernel
 
     roots = plan.roots
     world = distributed.process_count()
     me = distributed.process_index()
-    folded = [i for i, r in enumerate(roots) if r.kind in (
-        "reduce", "sreduce", "segment") or (r.kind == "axis"
-                                            and r.groups is not None)]
+    folded = _folded(plan)
     if not folded:
         return {}
     dev = E.common.device()
-    specs = [[_part_specs(plan, roots[i], q) for i in folded]
+    owner_set = set(plan.owners)
+    owned = [_owned(plan, q, owner_set) for q in range(world)]
+    sizes = [sum(_nbytes(s, dt) for p, _j in owned[q] for i in folded
+                 for s, dt in _part_specs(plan, roots[i], p))
              for q in range(world)]
-    sizes = [sum(_nbytes(s, dt) for per in specs[q] for s, dt in per)
-             for q in range(world)]
-    mine = [p.to(dt).reshape(-1).view(torch.uint8)
-            for i, per in zip(folded, specs[me])
-            for p, (_s, dt) in zip(partials[i] or (), per)]
+    mine = [t.to(dt).reshape(-1).view(torch.uint8)
+            for p, j in owned[me] for i in folded
+            for t, (_s, dt) in zip(partials[i][j],
+                                   _part_specs(plan, roots[i], p))]
     buf = torch.cat([m.to(dev) for m in mine]) if mine else \
         torch.empty(0, dtype=torch.uint8, device=dev)
     everyone = distributed.all_gather(buf, [(n,) for n in sizes])
-    got = {}  # (root index, rank) -> [partials]
+    got = {}  # (root index, position) -> [partials]
     for q in range(world):
         off = 0
-        for i, per in zip(folded, specs[q]):
-            vals = []
-            for shp, dt in per:
-                n = _nbytes(shp, dt)
-                vals.append(everyone[q][off:off + n].clone().view(dt)
-                            .reshape(shp))
-                off += n
-            got[(i, q)] = vals
+        for p, _j in owned[q]:
+            for i in folded:
+                vals = []
+                for shp, dt in _part_specs(plan, roots[i], p):
+                    n = _nbytes(shp, dt)
+                    vals.append(everyone[q][off:off + n].clone().view(dt)
+                                .reshape(shp))
+                    off += n
+                got[(i, p)] = vals
     out = {}
     for i in folded:
         r = roots[i]
-        if r.kind == "axis":
-            ranks = r.groups[me]
+        if r.kind in ("axis", "segment") and r.out is not None:
+            osh, oshape = r.out
+            blocks = [(_group(plan, r, idx), _mesh.index_shape(idx, oshape))
+                      for _p, idx in _out_blocks(osh, oshape)]
         else:
-            ranks = [q for q in range(world) if plan.owners[q]]
-        vals = [got[(i, q)] for q in ranks]
-        if r.kind == "sreduce":
-            _w, across, identity, _s = r.static
-            tdt = E.to_torch_dtype(r.dtype)
-            ident = E.as_tensor(identity, r.dtype, dev)
-            stacked = torch.stack([v[0] for v in vals]) if vals \
-                else ident.reshape(1)
-            out[i] = [_tree_reduce(
-                stacked, ident,
-                lambda a, b: call_kernel(across, a, b)).to(tdt)]
-            continue
-        if r.kind == "segment":
-            G = int(r.static[0][1])
-            kinds = [(k, (G,), d) for k, _q, d in _segment_parts(r)]
-        else:
-            shp = _out_block_shape(r) if r.kind == "axis" else ()
-            kinds = [(r.fname, shp, E.to_torch_dtype(r.dtype))]
-        if not vals:  # nothing held anywhere: the identity
-            vals = [[_identity(k, shp, dt, dev) for k, shp, dt in kinds]]
-        acc = list(vals[0])
-        for v in vals[1:]:
-            acc = [_combine(k, a, b) for (k, _s, _d), a, b
-                   in zip(kinds, acc, v)]
-        out[i] = acc
+            blocks = [(plan.owners, (int(r.static[1]),)
+                       if r.kind == "segment" else ())]
+        out[i] = [_fold_group(r, [got[(i, p)] for p in g], shp, dev,
+                              _tree_reduce, call_kernel)
+                  for g, shp in blocks]
     return out
 
 
-def _out_block_shape(r) -> tuple:
-    osh, oshape = r.out
-    return _mesh.index_shape(osh.local_index(oshape), oshape)
+def _out_blocks(osh, oshape) -> list:
+    """This rank's result blocks of a layout (an empty one outside the
+    mesh)."""
+    me = distributed.process_index()
+    return osh.rank_blocks(me, oshape) or [(None, osh.rank_index(me,
+                                                                 oshape))]
+
+
+def _fold_group(r, vals, shape, dev, _tree_reduce, call_kernel):
+    """The partials ``vals`` of one result block (of ``shape``), in grid
+    order, folded."""
+    if r.kind == "sreduce":
+        _w, across, identity, _s = r.static
+        tdt = E.to_torch_dtype(r.dtype)
+        ident = E.as_tensor(identity, r.dtype, dev)
+        stacked = torch.stack([v[0] for v in vals]) if vals \
+            else ident.reshape(1)
+        return [_tree_reduce(stacked, ident,
+                             lambda a, b: call_kernel(across, a, b)).to(tdt)]
+    if not vals:  # nothing held anywhere: the identity
+        if r.kind == "segment":
+            return [torch.zeros(shape, dtype=dt, device=dev)
+                    for _k, dt in _segment_parts(r)]
+        if r.fname in _SPREADS:
+            f = E.to_torch_dtype(r.dtype)
+            return [torch.zeros(shape, dtype=torch.int64 if n == 0 else f,
+                                device=dev) for n in range(4)]
+        if r.fname == "nanmean":
+            return [torch.zeros(shape, dtype=E.to_torch_dtype(r.dtype),
+                                device=dev),
+                    torch.zeros(shape, dtype=torch.int64, device=dev)]
+        return [_identity(r.fname, shape, E.to_torch_dtype(r.dtype), dev)]
+    acc = list(vals[0])
+    for v in vals[1:]:
+        acc = _combine_parts(r, acc, v)
+    return acc
+
+
+def _combine_parts(r, a, b):
+    kind = r.fname
+    if kind in _SPREADS:
+        return list(chan(a, b))
+    if kind in _ARGS:
+        return list(_pick(kind == "argmax", a, b))
+    if kind in ("mean", "nanmean") and len(a) == 2:
+        return [a[0] + b[0], a[1] + b[1]]
+    return [_combine(kind, a[0], b[0])]
 
 
 def _segment_finish(r, parts):
     """A segment root's result from its folded partials, as the generic
     lowering finishes it (``groupby._op_segment_reduce``)."""
-    if r.fname not in _SEGMENT_PARTS:
-        return parts[0]
-    _static, xdt = r.static
-    cnt = parts[-1].to(E.to_torch_dtype(E.reduce_dtype("sum", xdt)))
-    mean = E.apply_map("true_divide", [parts[0], cnt])
+    from ramba_tpu_torch.groupby import segment_dtype
+
+    kind, xdt = r.fname, r.xdt
+    if kind in ("mean", "nanmean"):
+        cnt = parts[1].to(E.to_torch_dtype(E.reduce_dtype("sum", xdt)))
+        return E.apply_map("true_divide", [parts[0], cnt])
+    if kind in _SPREADS:
+        cnt, _hi, _lo, m2 = parts
+        out = E.apply_map("true_divide", [m2, cnt.to(m2.dtype)])
+        if kind in ("std", "nanstd"):
+            out = E.apply_map("sqrt", [out])
+        return out.to(E.to_torch_dtype(segment_dtype(kind, xdt)))
+    return parts[0]
+
+
+def _fold_finish(plan, r, parts):
+    """A reduce/axis root's result from its folded partials."""
     if r.fname == "mean":
-        return mean
-    out = E.apply_map("subtract", [
-        E.apply_map("true_divide", [parts[1], cnt]),
-        E.apply_map("multiply", [mean, mean])])
-    return E.apply_map("sqrt", [out]) if r.fname == "std" else out
+        n = math.prod(plan.shape[d] for d in r.axes)
+        v = parts[0]
+        return v / torch.tensor(n, dtype=v.dtype, device=v.device)
+    if r.fname == "nanmean":
+        s, cnt = parts
+        return s / cnt.to(s.dtype)
+    if r.fname in _SPREADS:
+        cnt, _hi, _lo, m2 = parts
+        n = cnt - int(r.ddof or 0)
+        bad = n <= 0
+        s = torch.where(bad, torch.full_like(m2, float("nan")), m2)
+        v = s / torch.where(bad, torch.ones_like(n), n).to(s.dtype)
+        return E.apply_map("sqrt", [v]) if r.fname == "std" else v
+    if r.fname in _ARGS:
+        return parts[1]
+    return parts[0]
 
 
 # ---------------------------------------------------------------------------
@@ -578,13 +854,15 @@ def gather_const(c: Const) -> torch.Tensor:
     if mine.device != E.common.device():
         parts = [p.to(E.common.device()) for p in parts]
     out = torch.empty(shape, dtype=mine.dtype, device=parts[0].device)
-    for pos in np.ndindex(sh.mesh.devices.shape):
-        out[sh.block_index(pos, shape)] = parts[sh.mesh.rank_at(pos)]
+    for q in range(len(parts)):
+        for (_pos, idx), b in zip(sh.rank_blocks(q, shape),
+                                  sh.split_held(parts[q], q, shape)):
+            out[idx] = b
     return out
 
 
 def _block_const(val, mesh, hint=None) -> Const:
-    """A result every rank computed whole, cut to this rank's block of
+    """A result every rank computed whole, cut to this rank's blocks of
     its layout (the sharding hint's, else the default)."""
     if not isinstance(val, torch.Tensor):
         return Const(val)
@@ -592,8 +870,13 @@ def _block_const(val, mesh, hint=None) -> Const:
         _mesh.NamedSharding(mesh, _mesh.default_spec(val.shape, mesh))
     if not any(_mesh.entry_names(e) for e in sh.spec):
         return Const(val, sharding=sh)
-    idx = sh.local_index(tuple(val.shape))
-    return Const(val[idx].clone(), sharding=sh, shape=tuple(val.shape))
+    shape = tuple(val.shape)
+    held = sh.local_blocks(shape)
+    if not held:
+        v = val[sh.local_index(shape)].clone()
+    else:
+        v = _mesh.pack([val[idx] for _p, idx in held]).clone()
+    return Const(v, sharding=sh, shape=shape)
 
 
 def _agree(ok: bool) -> bool:
@@ -932,115 +1215,235 @@ def _flattened(exprs, local_shape):
     return [flat.get(id(e), e) for e in _rebuild(exprs, lower)]
 
 
-def _run_segment(r, split=False, rung="fused"):
-    """A segment root's partials on this rank: one one-instruction
-    program per partial (the segred kernel's on the card)."""
+def _value(e, split=False, rung="fused"):
+    """A local expression's value: a leaf's, or its one-root program's."""
     from ramba_tpu_torch.core import fuser
 
-    def value(e):
-        if isinstance(e, Const):
-            return fuser.leaf_value(e)
-        program, leaf_vals = fuser.prepare_program([e])
-        return _execute(program, leaf_vals, split, rung)[0]
+    if isinstance(e, Const):
+        return fuser.leaf_value(e)
+    program, leaf_vals = fuser.prepare_program([e])
+    return _execute(program, leaf_vals, split, rung)[0]
 
-    data = value(r.expr)
-    labels = value(r.labels)
-    G = int(r.static[0][1])
-    squares = None
-    parts = []
-    for kind, sq, _dt in _segment_parts(r):
-        x = data
-        if sq:
-            if squares is None:
-                squares = value(Node("map", ("multiply",),
-                                     [Const(data), Const(data)]))
-            x = squares
-        node = Node("segment_reduce", (kind, G, 0),
-                    [Const(x), Const(labels)])
-        program, leaf_vals = fuser.prepare_program([node])
-        parts.append(_execute(program, leaf_vals, split, rung)[0])
-    return parts
+
+def _run_segment(r, j, split=False, rung="fused"):
+    """A segment root's partials of held block ``j``: one one-instruction
+    program per partial (on the card, 1-D data takes the segred kernel:
+    the nan kinds with the NaNs' labels moved out of range; a var's
+    count, sum, then the segment sum of its centred squares)."""
+    from ramba_tpu_torch.groupby import centred, segment_dtype
+
+    data = _value(r.exprs[j], split, rung)
+    labels = _value(r.labels[j], split, rung)
+    G, dim = int(r.static[1]), r.dim
+    kind = r.fname
+    nan = kind.startswith("nan") and data.is_floating_point()
+    base = kind[3:] if kind.startswith("nan") else kind
+    valid = ~torch.isnan(data) if nan else None
+
+    def seg(k, x, lab=labels):
+        node = Node("segment_reduce", (k, G, dim), [Const(x), Const(lab)])
+        return _value(node, split, rung)
+
+    def clean(x):
+        return x if valid is None else torch.where(
+            valid, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def count():
+        if valid is None:
+            return seg("count", data)
+        if data.ndim == 1:  # the NaNs' labels read no group
+            return seg("count", data, torch.where(
+                valid, labels, torch.full_like(labels, -1)))
+        return seg("sum", valid.to(torch.int64))
+
+    if base in ("sum", "prod", "min", "max", "count"):
+        return [seg(base, clean(data))]
+    if base == "mean":
+        return [seg("sum", clean(data)), count()]
+    fdt = E.to_torch_dtype(segment_dtype(kind, r.xdt))
+    xf = clean(data.to(fdt))
+    cnt = count()
+    mean = E.apply_map("true_divide", [seg("sum", xf), cnt.to(fdt)])
+    d = centred(xf.movedim(dim, 0), mean.movedim(dim, 0), labels,
+                None if valid is None else valid.movedim(dim, 0))
+    return [cnt, mean] + _centred_parts(
+        seg("sum", d.movedim(0, dim).contiguous()),
+        seg("sum", (d * d).movedim(0, dim).contiguous()), cnt)
+
+
+def _partials(plan, r, j, raw, split=False, rung="fused"):
+    """A reduce/axis root's partials of held block ``j`` from its main
+    program's values ``raw``: a var's ``(count, mean, M2)`` (M2 from a
+    centred pass over the block, a program of its own that elemred takes
+    for a whole fold), an arg-reduction's ``(extreme, global index)``."""
+    from ramba_tpu_torch.core import fuser
+
+    bshape = plan.block_shape(j)
+    starts = [sl.indices(n)[0] for sl, n in zip(plan.blocks[j][1],
+                                                plan.shape)]
+    if r.fname in _SPREADS:
+        s = raw[0]
+        n = math.prod(bshape[d] for d in r.axes)
+        cnt = torch.full(s.shape, n, dtype=torch.int64, device=s.device)
+        mean = s / torch.tensor(n, dtype=s.dtype, device=s.device)
+        kshape = tuple(1 if d in r.axes else bshape[d]
+                       for d in range(len(bshape)))
+        m = mean if r.kind == "reduce" else mean.reshape(kshape)
+        xf = r.exprs[j][0].args[0]
+        d = Node("map", ("subtract",), [xf, Const(m)])
+        axis = None if r.kind == "reduce" else r.axes
+        sums = []
+        for term in (d, Node("map", ("multiply",), [d, d])):
+            # one program each: elemred takes each whole fold
+            e = Node("reduce", ("sum", axis, bool(r.keepdims), None), [term])
+            flat = _flattened([e], bshape) if r.kind == "reduce" else None
+            program, leaf_vals = fuser.prepare_program(flat or [e])
+            sums.append(_execute(program, leaf_vals, split, rung)[0])
+        return [cnt, mean] + _centred_parts(sums[0], sums[1], cnt)
+    if r.fname in _ARGS:
+        val, idx = raw
+        if r.kind == "axis":
+            return [val, idx + starts[r.axes[0]]]
+        out = torch.zeros_like(idx)
+        rem = idx
+        stride = 1
+        for dd in range(len(bshape) - 1, -1, -1):
+            out = out + (rem % bshape[dd] + starts[dd]) * stride
+            rem = rem // bshape[dd]
+            stride *= plan.shape[dd]
+        return [val, out]
+    return list(raw)
+
+
+def _centred_parts(s1, s2, cnt):
+    """``[mean's low part, M2]`` of a block from the sums of its
+    deviations ``d = x - hi`` from the rounded mean ``hi`` and of their
+    squares: ``lo = sum(d) / n`` and ``M2 = sum(d**2) - n lo**2``."""
+    n = torch.where(cnt > 0, cnt, torch.ones_like(cnt)).to(s1.dtype)
+    lo = s1 / n
+    return [lo, s2 - s1 * lo]
 
 
 def _run_local(plan, split=False, wd=None):
     """Run the plan's programs on this rank's blocks, down the ladder:
-    ``(values, number of instructions)``, a value per root (None where
-    nothing ran; a list of partials for a groupby)."""
-    from ramba_tpu_torch.core import fuser
+    ``(values, number of instructions)``, per root a value per held block
+    (None where nothing ran; a list of partials for a fold).  Each held
+    block runs its own program (an elementwise program with whole folds
+    on its block flattened, so elemred takes it), and where the blocks
+    exchange (a stencil's halos, a scan's carries) one program runs them
+    all; the ladder's rounds are the plan's, once a rank."""
+    k = len(plan.blocks)
+    groups = [list(range(k))] if plan.joint else [[j] for j in range(k)]
 
-    live = [i for i, r in enumerate(plan.roots)
-            if r.expr is not None and r.kind != "segment"]
-    local_shape = _mesh.index_shape(plan.index, plan.shape)
-    prepared = []
+    def items(g):
+        out = []
+        for i, r in enumerate(plan.roots):
+            if r.kind == "segment":
+                continue
+            for j in g:
+                e = r.exprs[j]
+                if e is None:
+                    continue
+                parts = e if r.kind in ("reduce", "axis") else [e]
+                out.extend((i, j, q, x) for q, x in enumerate(parts))
+        return out
 
-    def prepare():
-        if not live:
-            return None
-        if not prepared:
-            exprs = [plan.roots[i].expr for i in live]
-            flat = _flattened(exprs, local_shape)
-            prepared.append((fuser.prepare_program(flat or exprs),
-                             flat is not None))
-        return prepared[0][0]
+    work = [items(g) for g in groups]
+    prepared = {}
+
+    def prep(gi):
+        from ramba_tpu_torch.core import fuser
+
+        if gi not in prepared:
+            exprs = [x for *_k, x in work[gi]]
+            flat = None if plan.joint else _flattened(
+                exprs, plan.block_shape(groups[gi][0]))
+            prepared[gi] = fuser.prepare_program(flat or exprs)
+        return prepared[gi]
+
+    def prepare():  # admission reads the first program
+        return next((prep(gi) for gi, its in enumerate(work) if its), None)
 
     def run(rung):
-        outs = [None] * len(plan.roots)
+        raw = {}
         n_instrs = 0
-        if live:
-            program, leaf_vals = prepare()
+        for gi, its in enumerate(work):
+            if not its:
+                continue
+            program, leaf_vals = prep(gi)
             vals = _execute(program, leaf_vals, split, rung)
             n_instrs += len(program.instrs)
-            for i, v in zip(live, vals):
-                if prepared[0][1] and plan.roots[i].kind == "block":
-                    v = v.reshape(local_shape)
-                outs[i] = v
+            for (i, j, q, _x), v in zip(its, vals):
+                raw[(i, j, q)] = v
+        outs = [[None] * k for _ in plan.roots]
         for i, r in enumerate(plan.roots):
-            if r.kind == "segment" and r.expr is not None:
-                outs[i] = _run_segment(r, split, rung)
-                n_instrs += len(outs[i])
+            for j in range(k):
+                if r.exprs[j] is None:
+                    continue
+                if r.kind == "block":
+                    outs[i][j] = raw[(i, j, 0)].reshape(plan.block_shape(j))
+                elif r.kind == "segment":
+                    outs[i][j] = _run_segment(r, j, split, rung)
+                    n_instrs += len(outs[i][j])
+                elif r.kind == "sreduce":
+                    outs[i][j] = [raw[(i, j, 0)]]
+                else:
+                    outs[i][j] = _partials(
+                        plan, r, j, [raw[(i, j, q)]
+                                     for q in range(len(r.exprs[j]))],
+                        split, rung)
         return outs, n_instrs
 
     return _laddered(run, split, _admission(prepare), wd)
 
 
 def _finish_local(plan, outs):
-    """Block results become block leaves; reductions fold across ranks."""
-    local_shape = _mesh.index_shape(plan.index, plan.shape)
-    me = distributed.process_index()
-    partials = [None if v is None else (v if r.kind == "segment" else [v])
-                for r, v in zip(plan.roots, outs)]
-    folded = fold(plan, [p if plan.owners[me] else None for p in partials])
+    """Block results become block leaves (several held blocks packed);
+    reductions fold across positions."""
+    folded = fold(plan, outs)
     dev = E.common.device()
     consts = []
-    for i, (r, v) in enumerate(zip(plan.roots, outs)):
+
+    def local(r, i, osh, oshape, finish):
+        """A root whose result blocks are its held blocks' own."""
+        vals = []
+        for p, idx in _out_blocks(osh, oshape):
+            got = None if p is None else outs[i][plan.local_block(p)]
+            vals.append(torch.empty(_mesh.index_shape(idx, oshape),
+                                    dtype=E.to_torch_dtype(r.dtype),
+                                    device=dev)
+                        if got is None else finish(got))
+        return vals
+
+    for i, r in enumerate(plan.roots):
         if r.kind == "block":
-            if v is None:
-                v = torch.empty(local_shape, dtype=E.to_torch_dtype(r.dtype),
-                                device=dev)
-            consts.append(Const(v, sharding=plan.sharding,
+            vs = [torch.empty(plan.block_shape(j),
+                              dtype=E.to_torch_dtype(r.dtype), device=dev)
+                  if v is None else v for j, v in enumerate(outs[i])]
+            consts.append(Const(_mesh.pack(vs), sharding=plan.sharding,
                                 shape=plan.shape))
             continue
-        if r.kind == "segment":
-            consts.append(Const(_segment_finish(r, folded[i])))
+        if r.kind == "segment" and r.out is None:
+            consts.append(Const(_segment_finish(r, folded[i][0])))
             continue
-        if r.kind == "axis":
+        if r.kind in ("axis", "segment"):
             osh, oshape = r.out
-            if r.groups is not None:
-                v = folded[i][0]
-            elif v is None:
-                v = torch.empty(_out_block_shape(r),
-                                dtype=E.to_torch_dtype(r.dtype), device=dev)
-            if r.fname == "mean":
-                n = math.prod(plan.shape[d] for d in r.axes)
-                v = v / torch.tensor(n, dtype=v.dtype, device=v.device)
-            consts.append(Const(v, sharding=osh, shape=oshape))
+
+            def finish(parts, r=r):
+                return _segment_finish(r, parts) if r.kind == "segment" \
+                    else _fold_finish(plan, r, parts)
+
+            if i in folded:
+                vals = [finish(f) for f in folded[i]]
+            else:
+                vals = local(r, i, osh, oshape, finish)
+            consts.append(Const(_mesh.pack(vals), sharding=osh,
+                                shape=oshape))
             continue
-        total = folded[i][0]
-        if r.fname == "mean":
-            total = total / torch.tensor(math.prod(plan.shape),
-                                         dtype=total.dtype,
-                                         device=total.device)
-        consts.append(Const(total))
+        if r.kind == "sreduce":
+            consts.append(Const(folded[i][0][0]))
+            continue
+        consts.append(Const(_fold_finish(plan, r, folded[i][0])))
     return consts
 
 

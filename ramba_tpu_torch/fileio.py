@@ -101,21 +101,26 @@ def read_tensor(shape, dtype, read_slice):
 def _sharded_from_reader(shape, dtype, read_slice) -> ndarray:
     """Reference name: the array, read chunk by chunk.  In one process the
     card holds the one shard; on a mesh of ranks each rank reads only its
-    block of the default layout."""
+    blocks of the default layout."""
     shape = tuple(int(s) for s in shape)
     mesh = _mesh.get_mesh()
     if not _mesh.is_rank_mesh(mesh):
         return ndarray(Const(read_tensor(shape, dtype, read_slice)))
     sh = _mesh.NamedSharding(mesh, _mesh.default_spec(shape, mesh))
-    idx = sh.local_index(shape)
-    starts = [sl.indices(n)[0] for sl, n in zip(idx, shape)]
+    idxs = [i for _p, i in sh.local_blocks(shape)] or [
+        sh.local_index(shape)]
 
-    def read_block(box):
-        return read_slice(tuple(slice(b.start + s, b.stop + s)
-                                for b, s in zip(box, starts)))
+    def read(idx):
+        starts = [sl.indices(n)[0] for sl, n in zip(idx, shape)]
 
-    block = read_tensor(_mesh.index_shape(idx, shape), dtype, read_block)
-    return ndarray(Const(block, sharding=sh, shape=shape))
+        def read_block(box):
+            return read_slice(tuple(slice(b.start + s, b.stop + s)
+                                    for b, s in zip(box, starts)))
+
+        return read_tensor(_mesh.index_shape(idx, shape), dtype, read_block)
+
+    return ndarray(Const(_mesh.pack([read(i) for i in idxs]), sharding=sh,
+                         shape=shape))
 
 
 def register_loader(extensions, fn: Callable) -> None:
@@ -335,26 +340,31 @@ def _save_rtd(path: str, arr) -> None:
         _distributed.barrier("ramba_rtd_save")
 
 
-def _owned_block(arr):
-    """``(tensor, start)`` of the block this process writes, or None: on a
-    mesh of ranks a block held by several ranks (whole along some mesh
-    axes) is written by the one at coordinate 0 of those axes, as the
-    reference's first device in ``devices_indices_map`` order."""
+def _owned_blocks(arr):
+    """``[(tensor, start)]``: the blocks this process writes.  On a mesh
+    of ranks a block held by several positions (whole along some mesh
+    axes) is written by the rank holding the one at coordinate 0 of those
+    axes, as the reference's first device in ``devices_indices_map``
+    order; in one process the whole array (start None)."""
     if not isinstance(arr, ndarray):
-        return arr, None
+        return [(arr, None)]
     sh = arr.sharding
     mesh = sh.mesh
     if not _mesh.is_rank_mesh(mesh):
-        return arr, None
-    pos = mesh.position_of(_distributed.process_index())
+        return [(arr, None)]
     used = {nm for e in sh.spec for nm in _mesh.entry_names(e)}
-    if pos is None or any(p for nm, p in zip(mesh.axis_names, pos)
-                          if nm not in used):
-        return None
-    idx = sh.local_index(arr.shape)
-    if 0 in _mesh.index_shape(idx, arr.shape):
-        return None
-    return arr._block(), [sl.indices(n)[0] for sl, n in zip(idx, arr.shape)]
+    nd = len(arr.shape)
+    blocks = {sh.block_coords(p, nd): (i, b) for (p, i), b in zip(
+        sh.local_blocks(arr.shape), arr._blocks())}
+    out = []
+    for pos in mesh.local_positions():
+        if any(c for nm, c in zip(mesh.axis_names, pos) if nm not in used):
+            continue
+        idx, b = blocks[sh.block_coords(pos, nd)]
+        if 0 in _mesh.index_shape(idx, arr.shape):
+            continue
+        out.append((b, [sl.indices(n)[0] for sl, n in zip(idx, arr.shape)]))
+    return out
 
 
 def _write_rtd_part(path: str, arr, pid: int) -> None:
@@ -362,12 +372,10 @@ def _write_rtd_part(path: str, arr, pid: int) -> None:
             glob.glob(os.path.join(path, f"manifest.p{pid}.json")):
         os.remove(stale)
     shape, dtype = _arr_meta(arr)
-    owned = _owned_block(arr)
     entries = []
-    if owned is not None:
-        data, start = owned
+    for k, (data, start) in enumerate(_owned_blocks(arr)):
         start = start or [0] * len(shape)
-        fname = f"shard_p{pid}_0.npy"
+        fname = f"shard_p{pid}_{k}.npy"
         _write_npy_file(os.path.join(path, fname), data)
         bshape, _dt = _arr_meta(data)
         entries.append({"file": fname, "start": list(start),

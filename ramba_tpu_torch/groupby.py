@@ -24,7 +24,7 @@ import torch
 
 from ramba_tpu_torch.core.expr import (
     Aval, Node, apply_map, as_tensor, defop, map_dtypes, reduce_dtype,
-    reduce_tensor, to_np_dtype,
+    reduce_tensor, to_np_dtype, to_torch_dtype,
 )
 from ramba_tpu_torch.core.ndarray import ndarray, as_exprable
 from ramba_tpu_torch.ops.creation import asarray
@@ -96,6 +96,19 @@ def segment_multi(pairs, labels, num_groups):
     return [torch.stack(o) for o in outs]
 
 
+def centred(data, mean, labels, valid=None):
+    """``data - mean[label]`` with the grouped axis first (zero where
+    ``valid`` is False; a label outside ``[0, G)`` reads group 0, and no
+    group sums it)."""
+    idx = labels.to(torch.int64).clamp(0, max(mean.shape[0] - 1, 0))
+    d = apply_map("subtract", [data, mean.index_select(0, idx)])
+    if valid is not None:
+        d = torch.where(valid.reshape(valid.shape + (1,) * (d.ndim
+                                                          - valid.ndim)),
+                        d, torch.zeros((), dtype=d.dtype, device=d.device))
+    return d
+
+
 @defop("segment_reduce", _aval_segment_reduce)
 def _op_segment_reduce(static, x, labels):
     kind, num_groups, dim = static
@@ -127,12 +140,19 @@ def _op_segment_reduce(static, x, labels):
         s, cnt = seg([("sum", data), ("sum", cnt_src())])
         out = apply_map("true_divide", [s, cnt])
     elif kind in ("var", "std", "nanvar", "nanstd"):
-        # one pass: count, sum and sum of squares share each group's mask
-        cnt, s1, s2 = seg([("sum", cnt_src()), ("sum", data),
-                           ("sum", apply_map("multiply", [data, data]))])
+        # in the result's dtype (no square in an integer dtype), centred on
+        # each group's mean: count and sum, then the segment sums of
+        # (x - mean[label])**2 (a one-pass E[x^2] - mean^2 loses every
+        # digit where the mean is large against the spread)
+        fdt = to_torch_dtype(segment_dtype(kind, to_np_dtype(x.dtype)))
+        data = data.to(fdt)
+        ones = torch.ones((), dtype=fdt, device=x.device).expand(x.shape)
+        cnt, s1 = seg([("sum", ones if valid is None
+                        else torch.where(valid, ones, 0)), ("sum", data)])
         mean = apply_map("true_divide", [s1, cnt])
-        out = apply_map("subtract", [apply_map("true_divide", [s2, cnt]),
-                                     apply_map("multiply", [mean, mean])])
+        d = centred(data, mean, labels, valid)
+        out = apply_map("true_divide", [
+            seg([("sum", apply_map("multiply", [d, d]))])[0], cnt])
         if kind in ("std", "nanstd"):
             out = apply_map("sqrt", [out])
     else:

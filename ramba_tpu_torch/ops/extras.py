@@ -1042,6 +1042,13 @@ def _quantile(a, q, axis=None, keepdims=False, method="linear", nan=False,
         ax = axis % x.ndim
     x = torch.movedim(x, ax, -1)
     qd = q.dtype
+    if x.shape[-1] == 0:  # nanquantile of nothing: NaN, as NumPy
+        r = torch.full(tuple(q.shape) + tuple(x.shape[:-1]), float("nan"),
+                       dtype=out_dt, device=x.device)
+        if keepdims:
+            r = r.unsqueeze(len(q.shape) + ax) if axis is not None \
+                else r.reshape(q.shape + (1,) * a.ndim)
+        return r
     qb = q.reshape(q.shape + (1,) * x.ndim)
     n = float(x.shape[-1])
     static_count = not nan or not a.is_floating_point()
@@ -1094,6 +1101,11 @@ def _q_arg(q):
 def _quantile_call(a, q, axis, keepdims, method, nan, percent=False):
     kw = {"keepdims": bool(keepdims), "method": str(method), "nan": nan,
           "percent": percent}
+    a = asarray(a)
+    if not nan and a.ndim and E.reduces_nothing(
+            a.shape, None if axis is None else int(axis) % a.ndim):
+        # NumPy's error at the call: the last of nothing
+        raise IndexError("index -1 is out of bounds for axis 0 with size 0")
     if axis is not None:
         kw["axis"] = int(axis)
     return lazy("quantile", a, q, **kw)

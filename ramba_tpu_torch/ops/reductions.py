@@ -12,6 +12,7 @@ import math
 
 import numpy as np
 
+from ramba_tpu_torch.core.expr import reduces_nothing
 from ramba_tpu_torch.ops.creation import asarray
 
 _NO_VALUE = getattr(np, "_NoValue", None)
@@ -74,6 +75,16 @@ def _fold_initial(name, r, initial):
     raise TypeError(f"reduction '{name}' does not support initial=")
 
 
+_EXTREMES = frozenset({"min", "max", "amin", "amax", "nanmin", "nanmax"})
+
+
+def _axis_tuple(axis, ndim) -> tuple:
+    if axis is None:
+        return tuple(range(ndim))
+    axes = axis if isinstance(axis, (tuple, list)) else (axis,)
+    return tuple(int(d) % ndim for d in axes)
+
+
 def _finish(r, dtype, out, asarray_form):
     """The common tail: ``dtype`` cast, deferred-(1,) form, ``out=``."""
     if dtype is not None:
@@ -102,6 +113,16 @@ def _red(name, a, axis=None, keepdims=False, dtype=None, out=None, ddof=None,
                 f"reduction operation '{name}' does not have an identity, "
                 "so to use a where mask one has to specify 'initial'")
         a = _apply_where(name, a, where)
+    if initial is not None and name in _EXTREMES and a.ndim and \
+            reduces_nothing(a.shape, _axis_tuple(axis, a.ndim)):
+        # NumPy: ``initial`` is the answer over nothing
+        from ramba_tpu_torch.ops.creation import full
+
+        shape = tuple(1 if d in _axis_tuple(axis, a.ndim) else n
+                      for d, n in enumerate(a.shape)
+                      if keepdims or d not in _axis_tuple(axis, a.ndim))
+        return _finish(full(shape, initial, dtype=a.dtype), dtype, out,
+                       asarray_form)
     r = a._reduce(name, axis=axis, keepdims=keepdims, ddof=ddof)
     if initial is not None:
         r = _fold_initial(name, r, initial)
@@ -194,6 +215,8 @@ def _check_all_nan_slice(a, axis):
     from ramba_tpu_torch.ops import elementwise as ew
 
     a = asarray(a)
+    if a.ndim and reduces_nothing(a.shape, _axis_tuple(axis, a.ndim)):
+        return  # the reduction raises NumPy's empty-sequence error
     if np.dtype(a.dtype).kind not in "fc":
         return
     allnan = _red("all", ew.isnan(a), axis)

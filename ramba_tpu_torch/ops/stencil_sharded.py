@@ -293,43 +293,62 @@ def fits(lo, hi, shape, sharding) -> bool:
                for l, h, n, c in zip(lo, hi, shape, counts) if c > 1)
 
 
-def _rank_exchange(exts, d, los, his, local, neighbours, counts):
-    """Fill this rank's halo slabs along dim ``d`` over send/recv: the
-    lower neighbour sends its last cells, the upper its first (every
-    buffer's slab in one batch); zeros at the ends of the mesh."""
+def _rank_exchange(exts, held, d, los, his, local, sharding, shape,
+                   counts):
+    """Fill the halo slabs along dim ``d`` of this rank's extended blocks
+    (``exts[j]``: the buffers of held position ``held[j]``).  Every rank
+    walks one list of moves in the same order: for each rank, each of its
+    held blocks, the low then the high halo, each buffer; a move from a
+    block of the same rank is a device copy, the others go over
+    send/recv (the lower neighbour sends its last cells, the upper its
+    first), and a halo past the end of the mesh is zeros."""
     from ramba_tpu_torch.parallel import distributed
 
     nd = len(local)
-    down, up = neighbours
+    me = distributed.process_index()
+    mesh = sharding.mesh
     top = los[d] + local[d]
     low_halo = _region(nd, d, los, his, local, slice(0, los[d]))
     high_halo = _region(nd, d, los, his, local, slice(top, top + his[d]))
     first = _region(nd, d, los, his, local, slice(los[d], los[d] + his[d]))
     last = _region(nd, d, los, his, local, slice(local[d], top))
-    for e in exts:
-        for width, idx in ((los[d], low_halo), (his[d], high_halo)):
-            if width and counts[d] > 1:
-                _registry.inc("stencil.halo_bytes_est", (counts[d] - 1)
-                              * e[idx].numel() * e.element_size())
+    if exts and counts[d] > 1:
+        for e in exts[0]:
+            for width, idx in ((los[d], low_halo), (his[d], high_halo)):
+                if width:
+                    _registry.inc("stencil.halo_bytes_est", (counts[d] - 1)
+                                  * e[idx].numel() * e.element_size())
+    mine = {sharding.block_coords(p, nd): j for j, p in enumerate(held)}
+    nbuf = len(exts[0]) if exts else 0
     sends, recvs, into = [], [], []
-    for e in exts:
-        if down is not None and his[d]:
-            sends.append((e[first], down))
-        if up is not None and los[d]:
-            sends.append((e[last], up))
-    for e in exts:
-        for width, idx, src in ((los[d], low_halo, down),
-                                (his[d], high_halo, up)):
-            if not width:
-                continue
-            if src is None:
-                e[idx] = 0
-            else:
-                recvs.append((tuple(e[idx].shape), e.dtype, src))
-                into.append((e, idx))
-    got = distributed.exchange(sends, recvs)
-    for (e, idx), v in zip(into, got):
-        e[idx] = v
+    for r in range(distributed.process_count()):
+        for p, _idx in sharding.rank_blocks(r, shape):
+            for width, halo, slab, step in ((los[d], low_halo, last, -1),
+                                            (his[d], high_halo, first, 1)):
+                if not width:
+                    continue
+                nb = sharding.neighbour_pos(p, nd, d, step)
+                src = None if nb is None else mesh.rank_at(nb)
+                if r != me and src != me:
+                    continue
+                for b in range(nbuf):
+                    if nb is None:
+                        exts[mine[sharding.block_coords(p, nd)]][b][halo] = 0
+                        continue
+                    frm = mine.get(sharding.block_coords(nb, nd))
+                    if r == me and src == me:  # both blocks are this rank's
+                        to = mine[sharding.block_coords(p, nd)]
+                        exts[to][b][halo] = exts[frm][b][slab]
+                    elif src == me:
+                        sends.append((exts[frm][b][slab], r))
+                    else:
+                        e = exts[mine[sharding.block_coords(p, nd)]][b]
+                        recvs.append((tuple(e[halo].shape), e.dtype, src))
+                        into.append((e, halo))
+    if sends or recvs:
+        got = distributed.exchange(sends, recvs)
+        for (e, idx), v in zip(into, got):
+            e[idx] = v
 
 
 def _mask_block(out, shape, los, his, origin):
@@ -346,78 +365,81 @@ def _mask_block(out, shape, los, his, origin):
             out[tuple(idx)] = 0
 
 
-def run_block(func, lo, hi, slots, blocks, shape, sharding, iters=1):
-    """The stencil over a mesh of ranks, on this rank's blocks: ``iters``
-    sweeps with slot 0 as the carry (already in the sweep's dtype when
-    ``iters > 1``) and the other slots loop-invariant.  Each block is
-    zero-padded to the layout's uniform block (ceil(n / parts)), extended
-    by halo slabs received from the neighbouring ranks (last dim first, so
-    corners arrive in two hops), swept by the CUDA stencil kernel (one
-    launch per sweep; its plain version on the CPU), masked in global
-    coordinates and cut back to the block: the bytes of the one-process
-    sharded stencil (:func:`run`)."""
+def run_block(func, lo, hi, slots, blocks, shape, sharding, iters=1,
+              held=None):
+    """The stencil over a mesh of ranks, on this rank's blocks:
+    ``blocks[s]`` holds slot ``s``'s block of every held position
+    ``held`` (grid order); ``iters`` sweeps with slot 0 as the carry
+    (already in the sweep's dtype when ``iters > 1``) and the other slots
+    loop-invariant.  Each block is zero-padded to the layout's uniform
+    block (ceil(n / parts)), extended by halo slabs from the neighbouring
+    blocks (last dim first, so corners arrive in two hops; a rank's own
+    neighbour by a device copy, another's over send/recv), swept by the
+    CUDA stencil kernel (one launch per block per sweep; its plain
+    version on the CPU), masked in global coordinates and cut back to the
+    block: the bytes of the one-process sharded stencil (:func:`run`).
+    Returns the result blocks, in ``held`` order."""
     from ramba_tpu_torch.ops import stencil_kernel
-    from ramba_tpu_torch.parallel import distributed
 
-    real = tuple(blocks[0].shape)
-    if iters == 0:
-        return blocks[0]
-    mesh = sharding.mesh
     nd = len(shape)
+    k = len(held)
+    reals = [tuple(b.shape) for b in blocks[0]]
+    if iters == 0:
+        return list(blocks[0])
     los = tuple(-l for l in lo)
     his = tuple(hi)
     counts = sharding.split_counts(nd)
     local = tuple(-(-s // c) for s, c in zip(shape, counts))
-    pos = mesh.position_of(distributed.process_index())
-    coords = sharding.block_coords(pos, nd)
-    origin = tuple(k * l for k, l in zip(coords, local))
-    neighbours = [tuple(sharding.neighbour_rank(pos, nd, d, s)
-                        for s in (-1, 1)) for d in range(nd)]
+    origins = [tuple(c * l for c, l in zip(sharding.block_coords(p, nd),
+                                             local)) for p in held]
     ext_shape = tuple(l + a + b for l, a, b in zip(local, los, his))
     own = tuple(slice(a, a + l) for a, l in zip(los, local))
 
-    def extend(bs, exts=None):
+    def extend(per_block, exts=None):
         if exts is None:
-            exts = [torch.empty(ext_shape, dtype=b.dtype, device=b.device)
-                    for b in bs]
-        for e, b in zip(exts, bs):
-            e[own] = _pad(b, local)
+            exts = [[torch.empty(ext_shape, dtype=b.dtype, device=b.device)
+                     for b in bs] for bs in per_block]
+        for ej, bs in zip(exts, per_block):
+            for e, b in zip(ej, bs):
+                e[own] = _pad(b, local)
         for d in range(nd - 1, -1, -1):
             if los[d] or his[d]:
-                _rank_exchange(exts, d, los, his, local, neighbours[d],
-                               counts)
+                _rank_exchange(exts, held, d, los, his, local, sharding,
+                               shape, counts)
         return exts
 
-    rest = list(blocks[1:])
-    rest_exts = extend(rest)
-    carry = blocks[0]
-    exts = extend([carry])
-    dev = carry.device
+    rest_exts = extend([[blocks[s][j] for s in range(1, len(blocks))]
+                        for j in range(k)])
+    carries = list(blocks[0])
+    exts = extend([[c] for c in carries])
+    dev = carries[0].device
     avail = nd == 2 and stencil_kernel.available(func, lo, hi, slots,
-                                                 exts + rest_exts)
+                                                 exts[0] + rest_exts[0])
     kernel = avail and dev.type == "cuda"
     inner = tuple(l - (a + b) for l, a, b in zip(local, los, his))
     overlap = (not kernel and nd == 2
                and all(i > 0 for i in inner) and (any(los) or any(his)))
-    scratch = torch.empty_like(exts[0]) if kernel else None
-    outs = [None, None]
+    scratch = torch.empty_like(exts[0][0]) if kernel else None
+    outs = [[None, None] for _ in range(k)]
     for sweep in range(iters):
         if sweep:
-            exts = extend([carry], exts)
-        ext = exts + rest_exts
-        if kernel:
-            val = stencil_kernel.launch(func, lo, hi, slots, ext,
-                                        scratch)[own]
-        elif overlap:
-            bl = [e[own] for e in ext]
-            val = _overlapped_val(func, lo, hi, slots, bl, ext, local)
-        else:
-            val = _local_stencil(func, lo, hi, slots, ext, local, avail)
-        out = outs[sweep % 2]
-        if out is None:
-            out = outs[sweep % 2] = torch.empty(local, dtype=val.dtype,
-                                                device=dev)
-        out.copy_(val)
-        _mask_block(out, shape, los, his, origin)
-        carry = out
-    return carry[tuple(slice(0, r) for r in real)].clone()
+            exts = extend([[c] for c in carries], exts)
+        for j in range(k):
+            ext = exts[j] + rest_exts[j]
+            if kernel:
+                val = stencil_kernel.launch(func, lo, hi, slots, ext,
+                                            scratch)[own]
+            elif overlap:
+                bl = [e[own] for e in ext]
+                val = _overlapped_val(func, lo, hi, slots, bl, ext, local)
+            else:
+                val = _local_stencil(func, lo, hi, slots, ext, local, avail)
+            out = outs[j][sweep % 2]
+            if out is None:
+                out = outs[j][sweep % 2] = torch.empty(
+                    local, dtype=val.dtype, device=dev)
+            out.copy_(val)
+            _mask_block(out, shape, los, his, origins[j])
+            carries[j] = out
+    return [c[tuple(slice(0, r) for r in real)].clone()
+            for c, real in zip(carries, reals)]

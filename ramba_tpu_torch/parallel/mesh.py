@@ -15,16 +15,18 @@ A mesh takes one of two forms:
   array's shards are views into one tensor on it;
 * **ranks** (``rank_mesh``, ``distributed.global_mesh``, and the default
   mesh once ``distributed.initialize`` formed a group of several
-  processes): every position is one rank with the device it computes on,
-  and each rank holds only the block of its own position
-  (:meth:`NamedSharding.local_index`).  A rank outside a capped mesh holds
-  empty blocks and still takes part in every collective.
+  processes): every position is held by one rank with the device it
+  computes on, and each rank holds only the blocks of its own positions
+  (:meth:`NamedSharding.local_blocks`).  A rank may hold several
+  positions (``rank_mesh((2, 2), ranks=[0, 0, 1, 1])``, or the
+  checkerboard ``[[0, 1], [1, 0]]``): it then holds one block per distinct
+  block of its positions, packed into one tensor (:meth:`NamedSharding.
+  split_local`, :func:`pack`).  A rank outside a capped mesh holds empty
+  blocks and still takes part in every collective.
 
 A grid of distinct devices in one process raises ``NotImplementedError``:
 PyTorch drives several cards with one process per card
 (``distributed.initialize``), not with a silent run on the first device.
-A rank holding more than one position raises too (ROADMAP A.6, part
-three).
 
 The default mesh of one process is one shard on ``common.device()``; with
 several ranks it is ``balanced_factors(min(world, RAMBA_WORKERS),
@@ -54,8 +56,6 @@ MULTI_PROCESS = ("a mesh of distinct devices in one process: the "
                  "(distributed.global_mesh); in one process repeat one "
                  "device, e.g. np.array([dev] * 4, dtype=object)"
                  ".reshape(2, 2)")
-SEVERAL_POSITIONS = ("a rank holding more than one mesh position comes with "
-                     "ROADMAP A.6, part three")
 
 
 class PartitionSpec(tuple):
@@ -113,8 +113,6 @@ class Mesh:
                 raise NotImplementedError(MULTI_PROCESS)
         else:
             ranks = np.asarray(ranks, dtype=np.int64).reshape(grid.shape)
-            if len(set(ranks.flat)) != ranks.size:
-                raise NotImplementedError(SEVERAL_POSITIONS)
         self.devices = grid
         self.axis_names = axis_names
         self.ranks = ranks
@@ -135,22 +133,27 @@ class Mesh:
             return self.devices.flat[0]
         return common.device()
 
-    def position_of(self, rank: int) -> Optional[tuple]:
-        """The grid position of ``rank`` (None: it holds none)."""
+    def positions_of(self, rank: int) -> list:
+        """Every grid position ``rank`` holds, in grid order."""
         if self.ranks is None:
-            return None
-        hit = np.argwhere(self.ranks == int(rank))
-        return tuple(int(i) for i in hit[0]) if len(hit) else None
+            return []
+        return [tuple(int(i) for i in hit)
+                for hit in np.argwhere(self.ranks == int(rank))]
+
+    def position_of(self, rank: int) -> Optional[tuple]:
+        """The first grid position of ``rank`` (None: it holds none)."""
+        held = self.positions_of(rank)
+        return held[0] if held else None
 
     def local_positions(self) -> list:
-        """The positions this process holds: every one in one process,
-        at most one on a mesh of ranks."""
+        """The positions this process holds, in grid order: every one in
+        one process, its own on a mesh of ranks (several where the rank
+        holds several)."""
         if self.ranks is None:
             return list(np.ndindex(self.devices.shape))
         from ramba_tpu_torch.parallel import distributed
 
-        pos = self.position_of(distributed.process_index())
-        return [] if pos is None else [pos]
+        return self.positions_of(distributed.process_index())
 
     def rank_at(self, pos) -> int:
         return int(self.ranks[tuple(pos)])
@@ -290,11 +293,11 @@ def set_mesh(mesh: Mesh) -> None:
     if mesh.ranks is not None:
         from ramba_tpu_torch.parallel import distributed
 
-        me = mesh.position_of(distributed.process_index())
-        if me is not None and mesh.devices[me] != common.device():
-            raise ValueError(f"this rank's position holds "
-                             f"{mesh.devices[me]} but arrays are created "
-                             f"on {common.device()}")
+        for me in mesh.positions_of(distributed.process_index()):
+            if mesh.devices[me] != common.device():
+                raise ValueError(f"this rank's position holds "
+                                 f"{mesh.devices[me]} but arrays are "
+                                 f"created on {common.device()}")
     _mesh, _mesh_is_default = mesh, False
     mesh_epoch += 1
 
@@ -527,10 +530,10 @@ class NamedSharding:
         return tuple(slice(None) if c == 1 else _block_range(n, c, k)
                      for n, c, k in zip(shape, counts, coords))
 
-    def neighbour_rank(self, pos, ndim: int, d: int, step: int):
-        """The rank holding the block ``step`` blocks away from position
-        ``pos``'s along array dim ``d`` (the same coordinates along every
-        other mesh axis), or None past the end of the mesh."""
+    def neighbour_pos(self, pos, ndim: int, d: int, step: int):
+        """The position ``step`` blocks away from position ``pos``'s block
+        along array dim ``d`` (the same coordinates along every other mesh
+        axis), or None past the end of the mesh."""
         spec = tuple(self.spec) + (None,) * (ndim - len(self.spec))
         names = entry_names(spec[d])
         if not names:
@@ -544,35 +547,110 @@ class NamedSharding:
             return None
         for nm in reversed(names):
             k, where[nm] = divmod(k, self.mesh.shape[nm])
-        return self.mesh.rank_at(tuple(where[nm]
-                                       for nm in self.mesh.axis_names))
+        return tuple(where[nm] for nm in self.mesh.axis_names)
+
+    def neighbour_rank(self, pos, ndim: int, d: int, step: int):
+        """The rank holding :meth:`neighbour_pos` (None past the end)."""
+        nb = self.neighbour_pos(pos, ndim, d, step)
+        return None if nb is None else self.mesh.rank_at(nb)
+
+    def rank_blocks(self, rank: int, shape) -> list:
+        """``[(position, index)]``: the distinct blocks ``rank`` holds, in
+        grid order, each under the first of its positions holding it (a
+        layout whole along a mesh axis gives several positions one
+        block)."""
+        shape = tuple(int(s) for s in shape)
+        out, seen = [], set()
+        for pos in self.mesh.positions_of(rank):
+            key = self.block_coords(pos, len(shape))
+            if key not in seen:
+                seen.add(key)
+                out.append((pos, self.block_index(pos, shape)))
+        return out
+
+    def local_blocks(self, shape) -> list:
+        """:meth:`rank_blocks` of this process (in one process: the whole
+        array under position 0)."""
+        if self.mesh.ranks is None:
+            return [((0,) * self.mesh.devices.ndim,
+                     tuple(slice(None) for _ in shape))]
+        from ramba_tpu_torch.parallel import distributed
+
+        return self.rank_blocks(distributed.process_index(), shape)
 
     def rank_index(self, rank: int, shape) -> tuple:
-        """The index of the block ``rank`` holds on a mesh of ranks: its
-        position's, or empty along every split dim for a rank outside
-        the mesh (whole along the others)."""
-        pos = self.mesh.position_of(rank)
-        if pos is not None:
-            return self.block_index(pos, shape)
+        """The index of the one block ``rank`` holds on a mesh of ranks,
+        or empty along every split dim for a rank outside the mesh (whole
+        along the others).  A rank holding several blocks raises: read
+        them with :meth:`rank_blocks`."""
+        held = self.rank_blocks(rank, shape)
+        if len(held) == 1:
+            return held[0][1]
+        if held:
+            raise ValueError(f"rank {rank} holds {len(held)} blocks of "
+                             "this layout: read them with rank_blocks")
         counts = self.split_counts(len(shape))
         return tuple(slice(None) if c == 1 else slice(0, 0) for c in counts)
 
     def local_index(self, shape) -> tuple:
-        """The index of this process's block (the whole array in one
-        process)."""
+        """The index of this process's one block (the whole array in one
+        process); see :meth:`rank_index`."""
         if self.mesh.ranks is None:
             return tuple(slice(None) for _ in shape)
         from ramba_tpu_torch.parallel import distributed
 
         return self.rank_index(distributed.process_index(), shape)
 
+    def held_shape(self, rank: int, shape) -> tuple:
+        """The shape of the tensor ``rank`` holds: its one block's, the
+        empty block of a rank outside the mesh, or ``(n,)`` for several
+        blocks packed (:func:`pack`: each flattened, in grid order)."""
+        shape = tuple(int(s) for s in shape)
+        held = self.rank_blocks(rank, shape)
+        if len(held) > 1:
+            return (sum(math.prod(index_shape(i, shape)) for _p, i in held),)
+        return index_shape(self.rank_index(rank, shape), shape)
+
     def rank_shapes(self, shape) -> list:
-        """Per rank of the group, the shape of the block it holds."""
+        """Per rank of the group, the shape of the tensor it holds
+        (:meth:`held_shape`)."""
         from ramba_tpu_torch.parallel import distributed
 
-        shape = tuple(int(s) for s in shape)
-        return [index_shape(self.rank_index(r, shape), shape)
+        return [self.held_shape(r, shape)
                 for r in range(distributed.process_count())]
+
+    def split_held(self, value, rank: int, shape) -> list:
+        """The blocks in the tensor ``rank`` holds, in :meth:`rank_blocks`
+        order: the tensor itself for one block, views into the packed
+        tensor for several, none for a rank outside the mesh."""
+        shape = tuple(int(s) for s in shape)
+        held = self.rank_blocks(rank, shape)
+        if len(held) <= 1:
+            return [value] if held else []
+        out, off = [], 0
+        for _pos, idx in held:
+            bs = index_shape(idx, shape)
+            n = math.prod(bs)
+            out.append(value[off:off + n].view(bs))
+            off += n
+        return out
+
+    def split_local(self, value, shape) -> list:
+        """:meth:`split_held` of this process's tensor."""
+        if self.mesh.ranks is None:
+            return [value]
+        from ramba_tpu_torch.parallel import distributed
+
+        return self.split_held(value, distributed.process_index(), shape)
+
+
+def pack(blocks) -> "torch.Tensor":
+    """The tensor a rank holds for its ``blocks`` (:meth:`NamedSharding.
+    held_shape`): one block as it is, several flattened and concatenated
+    in grid order."""
+    if len(blocks) == 1:
+        return blocks[0]
+    return torch.cat([b.reshape(-1) for b in blocks])
 
 
 def index_box(idx, shape) -> tuple:

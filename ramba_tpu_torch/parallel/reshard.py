@@ -306,26 +306,38 @@ def _run_one_process(src, plan, dst_sh, ep):
     return Const(dst, sharding=dst_sh)
 
 
+def _boxes(sh, q, shape) -> list:
+    """The boxes of the blocks rank ``q`` holds (one empty block outside
+    the mesh)."""
+    held = sh.rank_blocks(q, shape)
+    return [_mesh.index_box(i, shape) for _p, i in held] or [
+        _mesh.index_box(sh.rank_index(q, shape), shape)]
+
+
 def _run_ranks(src, plan, src_sh, dst_sh, ep):
-    """Every stage's pieces across ranks in one exchange round."""
+    """Every stage's pieces across ranks in one exchange round: each
+    destination block of each rank takes every piece of it from a rank
+    holding the source block (itself where it holds one: a device copy);
+    every rank lists the moves in the same order."""
     shape = plan.shape
     world = _distributed.process_count()
     me = _distributed.process_index()
-    src_box = [_mesh.index_box(src_sh.rank_index(q, shape), shape)
-               for q in range(world)]
-    dst_box = [_mesh.index_box(dst_sh.rank_index(q, shape), shape)
-               for q in range(world)]
+    src_box = [_boxes(src_sh, q, shape) for q in range(world)]
+    dst_box = [_boxes(dst_sh, q, shape) for q in range(world)]
+    src_blocks = dict(zip(src_box[me], src_sh.split_local(src, shape)))
     # the distinct source blocks, each with the ranks that hold it
     holders: dict = {}
-    for q, box in enumerate(src_box):
-        if all(lo < hi for lo, hi in box):
-            holders.setdefault(box, []).append(q)
-    mine = dst_box[me]
+    for q, boxes in enumerate(src_box):
+        for box in boxes:
+            if all(lo < hi for lo, hi in box):
+                holders.setdefault(box, []).append(q)
     item = plan.dtype.itemsize
-    dst_bytes = math.prod(hi - lo for lo, hi in mine) * item
+    dst_bytes = sum(math.prod(hi - lo for lo, hi in box)
+                    for box in dst_box[me]) * item
     _memory.reserve_headroom(dst_bytes, site="reshard:dst")
-    dst = torch.empty(tuple(hi - lo for lo, hi in mine),
-                      dtype=to_torch_dtype(plan.dtype), device=src.device)
+    dsts = [torch.empty(tuple(hi - lo for lo, hi in box),
+                        dtype=to_torch_dtype(plan.dtype), device=src.device)
+            for box in dst_box[me]]
     led = _memory.ledger
     led._begin_transient(dst_bytes)
     try:
@@ -334,37 +346,40 @@ def _run_ranks(src, plan, src_sh, dst_sh, ep):
             slab = _slab(plan, st)
             sends, recvs, into = [], [], []
             for q in range(world):
-                want = _meet(dst_box[q], slab)
-                if want is None:
-                    continue
-                for box, hs in holders.items():
-                    piece = _meet(box, want)
-                    if piece is None:
+                for k, dbox in enumerate(dst_box[q]):
+                    want = _meet(dbox, slab)
+                    if want is None:
                         continue
-                    sender = q if q in hs else hs[q % len(hs)]
-                    if sender == me and q == me:
-                        dst[_rel(piece, mine)] = src[_rel(piece, src_box[me])]
-                    elif sender == me:
-                        sends.append((src[_rel(piece, src_box[me])], q))
-                    elif q == me:
-                        recvs.append((tuple(hi - lo for lo, hi in piece),
-                                      dst.dtype, sender))
-                        into.append(_rel(piece, mine))
+                    for box, hs in holders.items():
+                        piece = _meet(box, want)
+                        if piece is None:
+                            continue
+                        sender = q if q in hs else hs[q % len(hs)]
+                        if sender == me:
+                            part = src_blocks[box][_rel(piece, box)]
+                        if sender == me and q == me:
+                            dsts[k][_rel(piece, dbox)] = part
+                        elif sender == me:
+                            sends.append((part, q))
+                        elif q == me:
+                            recvs.append((tuple(hi - lo for lo, hi in piece),
+                                          dsts[k].dtype, sender))
+                            into.append((k, _rel(piece, dbox)))
             flight = item * (sum(t.numel() for t, _q in sends)
                              + sum(math.prod(s) for s, _d, _r in recvs))
             _memory.reserve_headroom(flight, site="reshard:stage")
             led._begin_transient(flight)
             try:
                 got = _distributed.exchange(sends, recvs)
-                for idx, v in zip(into, got):
-                    dst[idx] = v
+                for (k, idx), v in zip(into, got):
+                    dsts[k][idx] = v
                 del got
             finally:
                 led._end_transient(flight)
             _stage_done(ep, st)
     finally:
         led._end_transient(dst_bytes)
-    return Const(dst, sharding=dst_sh, shape=shape)
+    return Const(_mesh.pack(dsts), sharding=dst_sh, shape=shape)
 
 
 def execute_plan(value: Const, plan: ReshardPlan, *,

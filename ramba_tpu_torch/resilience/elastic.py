@@ -863,15 +863,16 @@ class _LeafSpec:
 
 
 def _local_bytes(shape, dtype, sharding) -> int:
-    """The bytes this process holds of a leaf in ``sharding``: its block
-    on a mesh of ranks, the whole leaf in one process."""
+    """The bytes this process holds of a leaf in ``sharding``: its blocks
+    on a mesh of ranks (every one it holds), the whole leaf in one
+    process."""
     if sharding.mesh.ranks is None:
         n = int(np.prod(shape, dtype=np.int64))
     else:
-        from ramba_tpu_torch.parallel import mesh as _mesh
+        from ramba_tpu_torch.parallel import distributed
 
-        n = int(np.prod(_mesh.index_shape(sharding.local_index(shape), shape),
-                        dtype=np.int64))
+        n = int(np.prod(sharding.held_shape(distributed.process_index(),
+                                            shape), dtype=np.int64))
     return n * dtype.itemsize
 
 

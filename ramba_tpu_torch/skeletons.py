@@ -842,21 +842,30 @@ defop("stencil_iter", _aval_stencil)(_eval_stencil_iter)
 
 @defop("stencil_block")
 def _eval_stencil_block(static, *blocks):
-    """One rank's block of a stencil (``sstencil``) or of ``iters`` sweeps
+    """A rank's blocks of a stencil (``sstencil``) or of ``iters`` sweeps
     (``sstencil_iterate``) over a mesh of ranks (``core/rankflush.py``):
-    halos over send/recv, the kernel on the extended block."""
+    ``blocks`` holds each slot's block of every position the rank holds
+    (slot-major, grid order); halos from the neighbouring blocks, the kernel
+    on each extended block.  One held block: the result block; several:
+    the results packed (``parallel.mesh.pack``)."""
+    from ramba_tpu_torch.core.rankflush import held_positions
     from ramba_tpu_torch.ops import stencil_sharded
 
     (func, lo, hi, slots, _taps), iters, shape, sharding = static
-    if iters is None:
-        return stencil_sharded.run_block(func, lo, hi, slots, blocks, shape,
-                                         sharding)
-    out_dt = E.to_torch_dtype(_sweep_dtype(
-        func, lo, hi, slots, [E.to_np_dtype(b.dtype) for b in blocks]))
-    a0 = blocks[0] if blocks[0].dtype == out_dt else blocks[0].to(out_dt)
-    return stencil_sharded.run_block(func, lo, hi, slots,
-                                     [a0] + list(blocks[1:]), shape,
-                                     sharding, iters)
+    held = held_positions(sharding, shape)
+    k = len(held)
+    per_slot = [list(blocks[s * k:(s + 1) * k])
+                for s in range(len(blocks) // k)]
+    if iters is not None:
+        out_dt = E.to_torch_dtype(_sweep_dtype(
+            func, lo, hi, slots, [E.to_np_dtype(b[0].dtype)
+                                  for b in per_slot]))
+        per_slot[0] = [b if b.dtype == out_dt else b.to(out_dt)
+                       for b in per_slot[0]]
+    outs = stencil_sharded.run_block(func, lo, hi, slots, per_slot, shape,
+                                     sharding, 1 if iters is None else iters,
+                                     held)
+    return _mesh.pack(outs)
 
 
 # --- user surface ------------------------------------------------------------
@@ -1131,20 +1140,24 @@ defop("scumulative", lambda static, x: Aval(x.shape, x.dtype, False))(
 
 
 @defop("scumulative_block")
-def _eval_scumulative_block(static, x):
-    """One rank's block of an ``scumulative`` over a mesh of ranks
-    (``core/rankflush.py``): where the scan axis is split, the block scans
-    along it (on the scan kernel when the kernel is a float sum or
-    product: one launch per rank; in one process the shards scan in
-    ``jax.lax.associative_scan``'s order, as ramba_tpu's do), the blocks'
-    totals are all-gathered, and each block rebases on the fold of the
-    totals of the blocks before it along the axis, in order."""
+def _eval_scumulative_block(static, *xs):
+    """A rank's blocks of an ``scumulative`` over a mesh of ranks
+    (``core/rankflush.py``), one per position it holds: where the
+    scan axis is split, each block scans along it (on the scan kernel
+    when the kernel is a float sum or product: one launch per block; in
+    one process the shards scan in ``jax.lax.associative_scan``'s order,
+    as ramba_tpu's do), the blocks' totals are all-gathered, and each
+    block rebases on the fold of the totals of the blocks before it along
+    the axis, in order.  One held block: its result; several: the results
+    packed."""
+    from ramba_tpu_torch.core.rankflush import held_positions
     from ramba_tpu_torch.parallel import distributed
 
-    (local_func, final_func, associative, axis, _d), shape, sharding = static
-    dev = x.device
-    xm = x.movedim(axis, 0)
-    rest = tuple(xm.shape[1:])
+    (local_func, final_func, associative, axis, _d), shape, sharding = \
+        static
+    held = held_positions(sharding, shape)
+    dev = xs[0].device
+    nd = len(shape)
 
     def call(fn, a, b):
         out = np.broadcast_shapes(tuple(a.shape), tuple(b.shape))
@@ -1156,34 +1169,55 @@ def _eval_scumulative_block(static, x):
             return associative_scan(lambda a, c: kernel(c, a), b)
         return sequential_scan(kernel, b)
 
-    counts = sharding.split_counts(len(shape))
+    counts = sharding.split_counts(nd)
     if counts[axis] == 1:
-        return local_scan(xm).movedim(0, axis).contiguous() \
-            if xm.shape[0] else x
-    (ys,) = _block_scans([xm], local_func, final_func, local_scan)
-    tot = ys[-1] if xm.shape[0] else torch.zeros(rest, dtype=x.dtype,
-                                                 device=dev)
-    shapes = [tuple(t[:axis] + t[axis + 1:])
-              for t in sharding.rank_shapes(shape)]
-    totals = distributed.all_gather(tot.contiguous(), shapes)
-    mesh = sharding.mesh
-    me = mesh.position_of(distributed.process_index())
-    if me is None:  # outside the mesh: an empty block
-        return x
-    mine = sharding.block_coords(me, len(shape))
-    carry = None
-    for k in range(mine[axis]):
-        want = mine[:axis] + (k,) + mine[axis + 1:]
-        for pos in np.ndindex(mesh.devices.shape):
-            if sharding.block_coords(pos, len(shape)) == want:
-                t = totals[mesh.rank_at(pos)]
-                if t.numel() or not rest:
-                    carry = t if carry is None else call(final_func,
-                                                         carry, t)
-                break
-    if carry is not None and xm.shape[0]:
-        ys = call(final_func, carry, ys)
-    return ys.movedim(0, axis).contiguous()
+        return _mesh.pack([
+            local_scan(x.movedim(axis, 0)).movedim(0, axis).contiguous()
+            if x.shape[axis] else x for x in xs])
+    scans, tots = [], []
+    for x in xs:
+        xm = x.movedim(axis, 0)
+        (ys,) = _block_scans([xm], local_func, final_func, local_scan)
+        scans.append(ys)
+        tots.append(ys[-1] if xm.shape[0] else torch.zeros(
+            tuple(xm.shape[1:]), dtype=x.dtype, device=dev))
+    world = distributed.process_count()
+
+    def rest_shape(idx):
+        t = _mesh.index_shape(idx, shape)
+        return tuple(t[:axis] + t[axis + 1:])
+
+    shapes = [(sum(math.prod(rest_shape(i))
+                   for _p, i in sharding.rank_blocks(q, shape)),)
+              for q in range(world)]
+    mine = [t.reshape(-1) for t, p in zip(tots, held) if p is not None]
+    buf = torch.cat(mine) if mine else torch.empty(0, dtype=xs[0].dtype,
+                                                   device=dev)
+    everyone = distributed.all_gather(buf.contiguous(), shapes)
+    totals = {}  # block coords -> total
+    for q in range(world):
+        off = 0
+        for p, idx in sharding.rank_blocks(q, shape):
+            rs = rest_shape(idx)
+            n = math.prod(rs)
+            totals.setdefault(sharding.block_coords(p, nd),
+                              everyone[q][off:off + n].view(rs))
+            off += n
+    outs = []
+    for x, ys, me in zip(xs, scans, held):
+        if me is None:  # outside the mesh: an empty block
+            outs.append(x)
+            continue
+        coords = sharding.block_coords(me, nd)
+        carry = None
+        for kk in range(coords[axis]):
+            t = totals[coords[:axis] + (kk,) + coords[axis + 1:]]
+            if t.numel() or not t.shape:
+                carry = t if carry is None else call(final_func, carry, t)
+        if carry is not None and x.shape[axis]:
+            ys = call(final_func, carry, ys)
+        outs.append(ys.movedim(0, axis).contiguous())
+    return _mesh.pack(outs)
 
 
 def _scan_axis_shards(arr, axis, mesh) -> int:
@@ -1316,6 +1350,10 @@ class _Shard(threading.local):
     position = None
     rendezvous = None
     round = 0
+    # on a mesh of ranks: the rendezvous of this rank's held positions
+    # (None: it holds one) and this thread's index among them
+    held = None
+    held_index = 0
 
     def collective(self, tag, value) -> dict:
         self.round += 1
@@ -1429,27 +1467,58 @@ class LocalView:
 
     def _rank_halo(self, x, d, amt):
         """``[lower slab, x, upper slab]`` along dim ``d`` from the
-        neighbouring ranks over send/recv: the lower one's last ``amt``
-        cells, the upper one's first (zeros past the end of the mesh)."""
+        neighbouring positions: the lower one's last ``amt`` cells, the
+        upper one's first (zeros past the end of the mesh).  A neighbour
+        this rank holds hands its slab over in the rank's rendezvous; the
+        others' come over send/recv, one exchange a rank, every rank
+        listing the moves in the same order (each receiving position in
+        grid order, its lower then its upper neighbour)."""
         from ramba_tpu_torch.parallel import distributed
 
         sh = _mesh.NamedSharding(self._mesh, self._spec)
-        down = sh.neighbour_rank(_shard.position, x.ndim, d, -1)
-        up = sh.neighbour_rank(_shard.position, x.ndim, d, 1)
+        me = distributed.process_index()
         t = x._value()
         n = t.shape[d]
         first = t.narrow(d, 0, amt)
         last = t.narrow(d, n - amt, amt)
-        sends = [(first, down)] if down is not None else []
-        if up is not None:
-            sends.append((last, up))
-        slab = tuple(first.shape)
-        recvs = [(slab, t.dtype, r) for r in (down, up) if r is not None]
-        got = iter(distributed.exchange(sends, recvs))
+        mine = {_shard.position: (first, last)}
+        rv = _shard.held
+        if rv is not None:
+            _shard.round += 1
+            posts = rv.exchange(_shard.held_index, _shard.round,
+                                ("halo", d), (_shard.position, first, last))
+            mine = {p: (f, l) for p, f, l in posts.values()}
+        got = {}
+        if rv is None or _shard.held_index == 0:
+            sends, recvs, keys = [], [], []
+            for pos in np.ndindex(self._mesh.devices.shape):
+                to = self._mesh.rank_at(pos)
+                for step in (-1, 1):
+                    nb = sh.neighbour_pos(pos, x.ndim, d, step)
+                    if nb is None:
+                        continue
+                    frm = self._mesh.rank_at(nb)
+                    slab = None if nb not in mine else \
+                        mine[nb][1 if step == -1 else 0]
+                    if to == me and frm == me:
+                        got[pos, step] = slab
+                    elif frm == me:
+                        sends.append((slab, to))
+                    elif to == me:
+                        recvs.append((tuple(first.shape), t.dtype, frm))
+                        keys.append((pos, step))
+            for k, v in zip(keys, distributed.exchange(sends, recvs)):
+                got[k] = v
+        if rv is not None:
+            _shard.round += 1
+            got = rv.exchange(_shard.held_index, _shard.round,
+                              ("halo-recv", d), got)[0]
         parts = []
-        for r in (down, up):
-            v = next(got) if r is not None else torch.zeros(
-                slab, dtype=t.dtype, device=t.device)
+        for step in (-1, 1):
+            v = got.get((_shard.position, step))
+            if v is None:
+                v = torch.zeros(tuple(first.shape), dtype=t.dtype,
+                                device=t.device)
             parts.append(ndarray(E.Const(v)))
         return [parts[0], x, parts[1]]
 
@@ -1683,20 +1752,21 @@ def spmd(func, *args):
 
 
 def _spmd_ranks(func, args, positions, arrays, mesh):
-    """``spmd`` over a mesh of ranks: this rank runs the kernel once, on
-    its own position, in the calling thread and inside
-    ``mesh.local_scope`` (what the kernel computes is rank-local);
-    ``halo`` exchanges slabs with the neighbouring ranks over send/recv.
-    The ranks agree on the outcome (a kernel that raised anywhere raises
-    everywhere), then each rank's ``set_local`` block becomes its block of
-    the array.  A rank outside the mesh runs no kernel but takes part in
-    the agreement and the write-back."""
+    """``spmd`` over a mesh of ranks: this rank runs the kernel once per
+    position it holds, inside ``mesh.local_scope`` (what the kernel
+    computes is rank-local): in the calling thread for one position, in a
+    thread per position for several, which meet at each ``halo`` (a
+    neighbour on this rank hands its slab over; the others' come over
+    send/recv).  The ranks agree on the outcome (a kernel that raised
+    anywhere raises everywhere), then each position's ``set_local`` block
+    becomes its block of the array.  A rank outside the mesh runs no
+    kernel but takes part in the agreement and the write-back."""
     from ramba_tpu_torch.core import fuser
     from ramba_tpu_torch.core.rankflush import gather_const
     from ramba_tpu_torch.parallel import distributed
 
     fuser.flush()
-    me = mesh.position_of(distributed.process_index())
+    held = mesh.local_positions()
     layouts = []
     for a in arrays:
         sh = _mesh.NamedSharding(mesh, _spmd_layout(a, mesh))
@@ -1704,63 +1774,109 @@ def _spmd_ranks(func, args, positions, arrays, mesh):
         local = tuple(-(-n // c) for n, c in zip(a.shape, counts))
         c = a._expr if a._base is None else None
         if isinstance(c, E.Const) and c.is_block and c.sharding == sh:
-            block = fuser.leaf_value(c)
-        else:  # another layout: every rank cuts its block from the whole
-            block = a._value()[sh.local_index(a.shape)]
-        layouts.append((sh, counts, local, block))
-    err = None
-    updates = [None] * len(arrays)
-    if me is not None:
+            blocks = {sh.block_coords(p, a.ndim): b for (p, _i), b in zip(
+                sh.local_blocks(a.shape),
+                sh.split_local(fuser.leaf_value(c), a.shape))}
+        else:  # another layout: every rank cuts its blocks from the whole
+            whole = a._value()
+            blocks = {sh.block_coords(p, a.ndim):
+                      whole[sh.block_index(p, a.shape)] for p in held}
+        layouts.append((sh, counts, local, blocks))
+    views = {}
+    for i, me in enumerate(held):
+        for j, (a, (sh, counts, local, blocks)) in enumerate(zip(arrays,
+                                                                layouts)):
+            block = blocks[sh.block_coords(me, a.ndim)]
+            start = tuple(k * l for k, l in
+                          zip(sh.block_coords(me, a.ndim), local))
+            padded = block if tuple(block.shape) == local else \
+                _pad_to(block, local)
+            views[i, j] = (ndarray(E.Const(padded)), start)
+    rv = _Rendezvous(len(held)) if len(held) > 1 else None
+    errors: dict = {}
+    updates: dict = {}
+
+    def run(i, me):
         try:
             with _mesh.local_scope():
-                views = []
-                for a, (sh, counts, local, block) in zip(arrays, layouts):
-                    start = tuple(k * l for k, l in
-                                  zip(sh.block_coords(me, a.ndim), local))
-                    padded = block if tuple(block.shape) == local else \
-                        _pad_to(block, local)
-                    views.append(LocalView(
-                        ndarray(E.Const(padded)),
-                        tuple(_int32(v) for v in start), a.shape, sh.spec,
-                        mesh, tuple(max(0, min(g - v, l)) for g, v, l in
-                                    zip(a.shape, start, local))))
+                vs = []
+                for j, a in enumerate(arrays):
+                    blk, start = views[i, j]
+                    vs.append(LocalView(
+                        blk, tuple(_int32(v) for v in start), a.shape,
+                        layouts[j][0].spec, mesh,
+                        tuple(max(0, min(g - v, l)) for g, v, l in
+                              zip(a.shape, start, layouts[j][2]))))
                 call_args = list(args)
-                for p, v in zip(positions, views):
+                for p, v in zip(positions, vs):
                     call_args[p] = v
                 _shard.rank = int(np.ravel_multi_index(
                     me, mesh.devices.shape))
                 _shard.position, _shard.rendezvous = me, None
+                _shard.held, _shard.held_index, _shard.round = rv, i, 0
                 try:
                     func(*call_args)
                 finally:
-                    _shard.rank = _shard.position = None
-                for j, v in enumerate(views):
+                    _shard.rank = _shard.position = _shard.held = None
+                for j, v in enumerate(vs):
                     if v._updated is not None:
-                        updates[j] = _fit(v._updated,
-                                          layouts[j][2])._value()
-        except Exception as e:  # every rank must learn of it
-            err = e
+                        updates[i, j] = _fit(v._updated,
+                                             layouts[j][2])._value()
+        except BaseException as e:  # every rank must learn of it
+            errors[i] = e
+            if rv is not None:
+                rv.fail(e)
+
+    if rv is None:
+        for i, me in enumerate(held):
+            run(i, me)
+    else:
+        threads = [threading.Thread(target=run, args=(i, me),
+                                    name=f"spmd-position-{i}")
+                   for i, me in enumerate(held)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    err = None
+    if errors:
+        first = [e for _i, e in sorted(errors.items())
+                 if not isinstance(e, _ShardAborted)]
+        err = (first or list(errors.values()))[0]
     failed = distributed.all_reduce_int(0 if err is None else 1, "max")
     if err is not None:
         raise err
     if failed:
         raise RuntimeError("spmd: the kernel raised on another rank")
     written = distributed.all_reduce_int(
-        sum(1 << j for j, u in enumerate(updates) if u is not None), "max")
-    for j, (a, (sh, counts, local, block)) in enumerate(zip(arrays,
+        sum(1 << j for j in {j for (_i, j) in updates}), "max")
+    for j, (a, (sh, counts, local, blocks)) in enumerate(zip(arrays,
                                                             layouts)):
         if not written >> j & 1:
             continue
-        real = _mesh.index_shape(sh.local_index(a.shape), a.shape)
-        new = block if updates[j] is None else updates[j]
-        new = new[tuple(slice(0, r) for r in real)].contiguous()
-        leaf = E.Const(new, sharding=sh, shape=tuple(a.shape))
+        new = []
+        for p, idx in sh.local_blocks(a.shape):
+            coords = sh.block_coords(p, a.ndim)
+            # the first held position of the block (grid order) wins
+            got = next((updates[i, j] for i, q in enumerate(held)
+                        if (i, j) in updates
+                        and sh.block_coords(q, a.ndim) == coords),
+                       blocks[coords])
+            real = _mesh.index_shape(idx, a.shape)
+            new.append(got[tuple(slice(0, r) for r in real)].contiguous())
+        if not new:  # outside the mesh: its empty block
+            real = _mesh.index_shape(sh.local_index(a.shape), a.shape)
+            new = [torch.empty(real, dtype=E.to_torch_dtype(a.dtype),
+                               device=common.device())]
+        leaf = E.Const(_mesh.pack(new), sharding=sh, shape=tuple(a.shape))
         used = {nm for e in sh.spec for nm in _mesh.entry_names(e)}
         if any(nm not in used for nm in mesh.axis_names):
             # whole along some mesh axes: the coordinate-0 copy wins
             whole = gather_const(leaf)
-            leaf = E.Const(whole[sh.local_index(a.shape)].clone(),
-                           sharding=sh, shape=tuple(a.shape))
+            held_blocks = sh.local_blocks(a.shape)
+            cut = _mesh.pack([whole[idx] for _p, idx in held_blocks]) \
+                if held_blocks else whole[sh.local_index(a.shape)]
+            leaf = E.Const(cut.clone(), sharding=sh, shape=tuple(a.shape))
         a.write_expr(leaf)
 
 

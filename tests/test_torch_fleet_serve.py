@@ -44,8 +44,8 @@ from ramba_tpu_torch.core import memo
 from ramba_tpu_torch.fleet import artifacts, migrate, replica
 from ramba_tpu_torch.fleet.router import (NoHealthyReplica, ReplicaRefusal,
                                           ReplicaUnavailable, Router)
-from ramba_tpu_torch.observe import fleet, registry
-from ramba_tpu_torch.resilience import retry
+from ramba_tpu_torch.observe import fleet, registry, slo
+from ramba_tpu_torch.resilience import elastic, integrity, retry
 from ramba_tpu_torch.serve import overload
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -66,6 +66,12 @@ def _clean(monkeypatch):
         monkeypatch.delenv(k, raising=False)
     artifacts.reset()
     overload.reset()
+    # state another file's tests leave in this process reaches the
+    # published signals: a latched SLO breach, the integrity window, a
+    # heartbeat still running
+    slo.reset()
+    integrity.reset()
+    elastic.stop_heartbeat()
     yield
     serve.shutdown()
     artifacts.reset()
@@ -373,9 +379,9 @@ def test_poll_is_health_plus_rollup(tmp_path, monkeypatch):
     now = time.time()
     polled = fleet.poll(d, now=now)
     assert polled["dir"] == d
-    assert polled["health"]["counts"]["healthy"] == 1
     ((rid, row),) = polled["health"]["replicas"].items()
-    assert row["state"] == "healthy"
+    assert polled["health"]["counts"]["healthy"] == 1, row["reason"]
+    assert row["state"] == "healthy", row["reason"]
     assert row["signals"]["endpoint"] == "127.0.0.1:4242"
     assert polled["health"] == fleet.health(d, now=now)
     assert "goodput" in polled["rollup"]

@@ -23,7 +23,7 @@ PORT_FILES = sorted(
      "scripts/scan_ab.py", "scripts/stencil_sweep.py",
      "scripts/fence_probe.py", "tests/torch_dist_worker.py",
      "scripts/fleet_router_torch.py", "scripts/fleet_collector_torch.py",
-     "scripts/warm_pool_torch.py"]
+     "scripts/warm_pool_torch.py", "scripts/ramba_fsck_torch.py"]
 
 
 def _forbidden(name: str) -> bool:

@@ -255,3 +255,150 @@ def test_sqrt_is_correctly_rounded(dtype):
     sd = rt.std(rt.fromarray(m), axis=1).asarray()
     var = rt.var(rt.fromarray(m), axis=1).asarray()
     assert sd.tobytes() == np.sqrt(var).tobytes()
+
+
+# -- C.15 -----------------------------------------------------------------
+#
+# A reduction with no identity over an empty extent raises at the call,
+# with NumPy's class and message (ramba_tpu raises jnp's ValueError there
+# too, with jnp's wording); ``initial=`` gives NumPy's answer, where
+# ramba_tpu raises (held against NumPy).
+
+NO_IDENTITY = ["min", "max", "amin", "amax", "nanmin", "nanmax", "ptp",
+               "argmin", "argmax", "nanargmin", "nanargmax"]
+EMPTY = [((0,), None), ((3, 0), 1), ((0, 4), 0), ((2, 0, 3), (0, 1))]
+
+
+def _numpy_error(fn):
+    try:
+        fn()
+    except Exception as e:  # the class and message the port must give
+        return e
+    raise AssertionError("NumPy did not raise")
+
+
+@pytest.mark.parametrize("shape,axis", EMPTY)
+@pytest.mark.parametrize("op", NO_IDENTITY)
+def test_empty_reduction_raises_numpys_error_at_the_call(op, shape, axis):
+    if op in ("argmin", "argmax", "nanargmin", "nanargmax") and \
+            isinstance(axis, tuple):
+        axis = axis[1]  # one axis: the empty one
+    x = np.zeros(shape)
+    want = _numpy_error(lambda: getattr(np, op)(x, axis=axis))
+    a = rt.array(x)
+    with pytest.raises(type(want)) as got:
+        getattr(rt, op)(a, axis=axis)  # no flush: the call raises
+    assert str(got.value) == str(want)
+    rjerr = _numpy_error(lambda: getattr(rtj, op)(rtj.array(x), axis=axis))
+    assert isinstance(rjerr, type(want))
+    if op in ("min", "max", "argmin", "argmax"):
+        with pytest.raises(type(want)) as got:
+            getattr(a, op)(axis=axis)
+        assert str(got.value) == str(want)
+
+
+def test_a_nonempty_reduced_axis_of_an_empty_array_is_fine():
+    x = np.zeros((3, 0))
+    for op in ("min", "max", "argmax", "nanmin"):
+        _same(getattr(rt, op)(rt.array(x), axis=0).asarray(),
+              getattr(np, op)(x, axis=0))
+
+
+@pytest.mark.parametrize("dtype", ["float64", "int64", "int32", "float32"])
+@pytest.mark.parametrize("op", ["min", "max", "amin", "amax", "nanmin",
+                                "nanmax"])
+def test_empty_reduction_with_initial_is_numpys_value(op, dtype):
+    for shape, axis, kd in (((0,), None, False), ((3, 0), 1, False),
+                            ((3, 0), 1, True), ((0, 2), (0, 1), True)):
+        x = np.zeros(shape, dtype)
+        want = getattr(np, op)(x, axis=axis, initial=2.5, keepdims=kd)
+        got = getattr(rt, op)(rt.array(x), axis=axis, initial=2.5,
+                              keepdims=kd)
+        _same(got.asarray(), np.asarray(want))
+
+
+@pytest.mark.parametrize("fn", ["percentile", "quantile"])
+def test_empty_quantiles_raise_at_the_call(fn):
+    q = 50 if fn == "percentile" else 0.5
+    for shape, axis in (((0,), None), ((3, 0), 1)):
+        x = np.zeros(shape)
+        want = _numpy_error(lambda: getattr(np, fn)(x, q, axis=axis))
+        with pytest.raises(type(want)) as got:
+            getattr(rt, fn)(rt.array(x), q, axis=axis)
+        assert str(got.value) == str(want)
+
+
+@pytest.mark.parametrize("fn", ["nanpercentile", "nanquantile", "median",
+                                "nanmedian"])
+def test_empty_nan_quantiles_and_medians_are_nan(fn):
+    args = (50,) if fn == "nanpercentile" else (0.5,) if fn == \
+        "nanquantile" else ()
+    for shape, axis in (((0,), None), ((3, 0), 1)):
+        x = np.zeros(shape)
+        with np.errstate(all="ignore"), pytest.warns(RuntimeWarning):
+            want = getattr(np, fn)(x, *args, axis=axis)
+        _same(getattr(rt, fn)(rt.array(x), *args, axis=axis).asarray(),
+              np.asarray(want))
+
+
+# -- C.16 and C.17 --------------------------------------------------------
+#
+# Groupby var/std square in the result's float dtype (integers no longer
+# wrap) and centre on each group's mean (a large mean no longer cancels
+# every digit).  ramba_tpu is wrong on both (it squares in the data's dtype
+# and subtracts mean**2), so both are held against NumPy's per-group var:
+# integers within 1e-12 relative (float64 results), f64 1e8 + N(0, 1)
+# within 1e-12 relative.  f32 data is held within 2e-6 relative of the
+# group's var: its mean is rounded once to f32 (|mean| * 2**-24 off), and
+# that error enters the centred sum only squared, so what is left is the
+# f32 summation of n_g squares, a few n_g * 2**-24 of the result.
+
+INT_WRAP = {"int8": 120, "int16": 30000, "int32": 2 * 10 ** 9,
+            "int64": 10 ** 17, "uint8": 250, "uint16": 65000,
+            "uint32": 4 * 10 ** 9, "uint64": 10 ** 18}
+
+
+def _per_group(x, labels, G, fn):
+    return np.array([fn(x[labels == g].astype(np.float64))
+                     for g in range(G)])
+
+
+@pytest.mark.parametrize("kind", ["var", "std"])
+@pytest.mark.parametrize("dtype", sorted(INT_WRAP))
+def test_groupby_spread_of_integers_does_not_wrap(dtype, kind):
+    rs = np.random.RandomState(3)
+    hi = INT_WRAP[dtype]
+    lo = 0 if dtype.startswith("u") else -hi
+    x = rs.randint(lo, hi, 300, dtype=np.int64 if hi < 2 ** 62 else
+                   np.uint64).astype(dtype)
+    labels = rs.randint(0, 5, 300)
+    got = getattr(rt.fromarray(x).groupby(0, labels, 5), kind)().asarray()
+    want = _per_group(x, labels, 5, getattr(np, kind))
+    assert got.dtype == np.float64
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+
+
+@pytest.mark.parametrize("kind", ["var", "std", "nanvar", "nanstd"])
+def test_groupby_spread_keeps_its_digits_when_the_mean_is_large(kind):
+    rs = np.random.RandomState(0)
+    x = 1e8 + rs.randn(400)
+    labels = rs.randint(0, 3, 400)
+    got = getattr(rt.fromarray(x).groupby(0, labels, 3), kind)().asarray()
+    want = _per_group(x, labels, 3, getattr(np, kind.replace("nan", "")))
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+    # 2-D data grouped along either dim
+    x2 = 1e8 + rs.randn(400, 3)
+    got = getattr(rt.fromarray(x2).groupby(0, labels, 3), kind)().asarray()
+    want = np.stack([getattr(np, kind.replace("nan", ""))(
+        x2[labels == g], axis=0) for g in range(3)])
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+
+
+def test_groupby_var_of_float32_with_a_large_mean():
+    rs = np.random.RandomState(1)
+    x = (1e4 + rs.randn(400)).astype(np.float32)
+    labels = rs.randint(0, 3, 400)
+    got = rt.fromarray(x).groupby(0, labels, 3).var().asarray()
+    assert got.dtype == np.float32
+    want = _per_group(x, labels, 3, np.var)
+    np.testing.assert_allclose(got, want, rtol=2e-6)

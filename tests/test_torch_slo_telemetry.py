@@ -498,6 +498,9 @@ def test_an_incident_is_dumped_after_its_flush(tmp_path, monkeypatch):
     flush's span is final, so it is not in that flush's wall and the
     slow-flush sentinel does not read it as an incident of its own."""
     monkeypatch.setenv("RAMBA_FLIGHT_DIR", str(tmp_path / "flight"))
+    # the counts below read the bounded event ring: another file's tests
+    # in this worker may have filled it
+    events.ring.clear()
     telemetry.flight_reset()
     ledger.reconfigure(factor=0.0)  # no slow_flush on a loaded host
     attrib.reset()

@@ -22,7 +22,8 @@ attribution plane (each rank's stage signatures and sampled fence
 logs); ``serve`` star2 flushes of a serve session on every rank through
 the pipeline under a rank-skewed ``serve:admit`` fault (the shed set
 each rank records, with its agreed epochs, and its blocks against the
-same programs on the default stream).  On the card
+same programs on the default stream); ``positions`` ranks that hold
+several positions of a (2, 2) mesh (:func:`_positions`).  On the card
 (``tests/test_torch_cuda.py``), ``card`` runs star2
 through the CUDA stencil kernel on each rank's block and ``nccl`` one
 rank's collectives over NCCL.  :func:`programs` takes the package as an argument, so the test runs
@@ -849,6 +850,192 @@ def _serve(rt, rank, outdir):
         json.dump(info, f)
 
 
+# a rank holding several positions: the (2, 2) mesh's ranks in grid
+# order, from RAMBA_POSITIONS_RANKS ("0,0,1,1", the checkerboard
+# "0,1,1,0", "0,0,0,0" for one rank)
+POSITIONS_GRID = (23, 19)
+POSITIONS_SERIES = 203
+POSITIONS_G = 5
+
+
+def positions_inputs():
+    """The positions mode's arrays as NumPy, from a seed: a float64 grid
+    with NaNs, a float64 series with a large mean and NaNs, labels of the
+    series and of the grid's rows, a complex series."""
+    rng = np.random.default_rng(23)
+    grid = rng.standard_normal(POSITIONS_GRID)
+    grid_nan = grid.copy()
+    grid_nan[rng.random(POSITIONS_GRID) < 0.1] = np.nan
+    grid_nan[3, :] = np.nan  # an all-NaN row
+    series = 1e8 + rng.standard_normal(POSITIONS_SERIES)
+    series_nan = series.copy()
+    series_nan[rng.random(POSITIONS_SERIES) < 0.1] = np.nan
+    labels = rng.integers(0, POSITIONS_G, POSITIONS_SERIES)
+    rows = rng.integers(0, POSITIONS_G, POSITIONS_GRID[0])
+    cplx = rng.standard_normal(64) + 1j * rng.standard_normal(64)
+    return grid, grid_nan, series, series_nan, labels, rows, cplx
+
+
+def positions_programs(rt):
+    """The programs every world of the positions mode runs (each a dict of
+    results), ``rt`` either package on a one-device mesh for the
+    reference (its folds only: the grid's stencils and groupby are held
+    against NumPy where ramba_tpu is wrong)."""
+    grid, grid_nan, series, series_nan, labels, rows, cplx = \
+        positions_inputs()
+
+    def stencils():
+        st = rt.stencil(star2_body)
+        out = {}
+        for name, shape in (("even", (24, 20)), ("odd", POSITIONS_GRID)):
+            x = rt.fromarray(grid[:shape[0], :shape[1]].copy()
+                             if shape[0] <= grid.shape[0] else
+                             np.resize(grid, shape))
+            y = x
+            for _ in range(3):
+                y = rt.sstencil(st, y)
+            out[f"{name}_chained"] = np.asarray(y)
+            out[f"{name}_iterate"] = np.asarray(rt.sstencil_iterate(st, x, 4))
+        return out
+
+    def folds():
+        x = rt.fromarray(grid_nan)
+        g = rt.fromarray(grid)
+        out = {}
+        for fn in ("nansum", "nanprod", "nanmin", "nanmax", "nanmean"):
+            out[fn] = np.asarray(getattr(rt, fn)(x))
+            for ax in (0, 1):
+                out[f"{fn}{ax}"] = np.asarray(getattr(rt, fn)(x, axis=ax))
+        for fn in ("var", "std"):
+            for ddof in (0, 1):
+                out[f"{fn}_d{ddof}"] = np.asarray(getattr(rt, fn)(g, ddof=ddof))
+                for ax in (0, 1):
+                    out[f"{fn}{ax}_d{ddof}"] = np.asarray(
+                        getattr(rt, fn)(g, axis=ax, ddof=ddof))
+        for fn in ("argmin", "argmax"):
+            out[fn] = np.asarray(getattr(rt, fn)(g))
+            out[f"{fn}_nan"] = np.asarray(getattr(rt, fn)(x))
+            for ax in (0, 1):
+                out[f"{fn}{ax}"] = np.asarray(getattr(rt, fn)(g, axis=ax))
+                out[f"{fn}{ax}_nan"] = np.asarray(getattr(rt, fn)(x, axis=ax))
+        c = rt.fromarray(np.resize(cplx, (16, 12)))
+        out["csum"] = np.asarray(rt.sum(c))
+        out["cprod"] = np.asarray(rt.prod(c / 1.5))
+        out["cmean"] = np.asarray(rt.mean(c))
+        out["csum0"] = np.asarray(rt.sum(c, axis=0))
+        return out
+
+    def groupby():
+        out = {}
+        x = rt.fromarray(series)
+        xn = rt.fromarray(series_nan)
+        for kind in ("sum", "mean", "var", "std", "count"):
+            out[f"s_{kind}"] = np.asarray(
+                getattr(x.groupby(0, labels, POSITIONS_G), kind)())
+        for kind in ("nansum", "nanmean", "nanvar", "nanstd"):
+            out[f"n_{kind}"] = np.asarray(
+                getattr(xn.groupby(0, labels, POSITIONS_G), kind)())
+        g = rt.fromarray(grid)
+        gn = rt.fromarray(grid_nan)
+        for kind in ("sum", "max", "mean", "var"):
+            out[f"g0_{kind}"] = np.asarray(
+                getattr(g.groupby(0, rows, POSITIONS_G), kind)())
+            out[f"g1_{kind}"] = np.asarray(
+                getattr(g.groupby(1, rows[:POSITIONS_GRID[1]] % 3, 3),
+                        kind)())
+        for kind in ("nansum", "nanmean", "nanvar"):
+            out[f"gn_{kind}"] = np.asarray(
+                getattr(gn.groupby(0, rows, POSITIONS_G), kind)())
+        return out
+
+    def scans():
+        g = rt.fromarray(grid)
+        return {"scum0": np.asarray(rt.scumulative(
+                    lambda v, c: v + c, lambda c, b: c + b, g, axis=0)),
+                "scum1": np.asarray(rt.scumulative(
+                    lambda v, c: v + c, lambda c, b: c + b, g, axis=1))}
+
+    return {"stencils": stencils, "folds": folds, "groupby": groupby,
+            "scans": scans}
+
+
+def _positions(rt, rank, outdir):
+    """A rank holding several positions of a (2, 2) mesh
+    (``RAMBA_POSITIONS_RANKS``); ``RAMBA_POSITIONS_CASE``: ``main`` runs
+    :func:`positions_programs`, spmd ``halo(1)`` and a reshard there and
+    back, recording each program's gathered flushes and all-gathered
+    bytes; ``save`` checkpoints the grid and the series under
+    ``RAMBA_POSITIONS_ROOT``; ``resume`` reads the newest step back into
+    this world, records it, and saves it again as the next step."""
+    from ramba_tpu_torch import parallel
+    from ramba_tpu_torch.core import fuser
+    from ramba_tpu_torch.parallel import mesh as pm
+    from ramba_tpu_torch.resilience import elastic
+
+    ranks = [int(r) for r in os.environ["RAMBA_POSITIONS_RANKS"].split(",")]
+    rt.set_mesh(pm.rank_mesh((2, 2), ranks=ranks))
+    case = os.environ.get("RAMBA_POSITIONS_CASE", "main")
+    root = os.environ.get("RAMBA_POSITIONS_ROOT", os.path.join(outdir, "ck"))
+    grid, _gn, series, *_rest = positions_inputs()
+    res, info = {}, {"gathered": {}, "allgather_bytes": {}}
+    if case == "main":
+        progs = positions_programs(rt)
+
+        def spmd_halo():
+            x = rt.fromarray(grid)
+            dst = rt.zeros(grid.shape)
+
+            def k(src, out):
+                h = src.halo(1)
+                out.set_local(h[1:-1, 2:] + h[1:-1, :-2] + h[2:, 1:-1]
+                              + h[:-2, 1:-1])
+
+            rt.spmd(k, x, dst)
+            return {"halo1": np.asarray(dst)}
+
+        def reshard():
+            x = rt.fromarray(grid)
+            rt.reshard(x, (None, ("d0", "d1")), max_stage_bytes=1 << 10)
+            mid = np.asarray(x)
+            info["reshard_spec"] = str(x.sharding.spec)
+            rt.reshard(x, ("d0", "d1"))
+            return {"mid": mid, "back": np.asarray(x),
+                    "sum": np.asarray(rt.sum(x * 2.0))}
+
+        progs.update({"spmd": spmd_halo, "reshard": reshard})
+        for name, fn in progs.items():
+            g0 = fuser.stats["gathered"]
+            b0 = parallel.comm_stats["allgather_bytes"]
+            for key, v in fn().items():
+                res[f"{name}/{key}"] = np.asarray(v)
+            info["gathered"][name] = fuser.stats["gathered"] - g0
+            info["allgather_bytes"][name] = \
+                parallel.comm_stats["allgather_bytes"] - b0
+        x = rt.fromarray(grid)
+        info["blocks"] = [[list(s.position), [[sl.start, sl.stop]
+                                              for sl in s.index]]
+                          for s in x.addressable_shards]
+        info["held"] = [list(p) for p in rt.get_mesh().local_positions()]
+    elif case == "save":
+        mgr = elastic.CheckpointManager(root, keep=4)
+        mgr.save(1, {"grid": rt.fromarray(grid), "series":
+                     rt.fromarray(series), "step": 1})
+    else:
+        back = elastic.resume(root)
+        st = back.state
+        info["step"] = back.step
+        info["from_processes"] = back.manifest["process_count"]
+        res["grid"] = np.asarray(st["grid"])
+        res["series"] = np.asarray(st["series"])
+        res["sum"] = np.asarray(rt.sum(st["grid"] * 3.0))
+        elastic.CheckpointManager(root, keep=4).save(
+            back.step + 1, {"grid": st["grid"], "series": st["series"],
+                            "step": back.step + 1})
+    np.savez(os.path.join(outdir, f"rank{rank}.npz"), **res)
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+
+
 def card_grid():
     return np.random.default_rng(5).random(CARD_GRID).astype(np.float32)
 
@@ -942,7 +1129,8 @@ def main(argv) -> int:
     {"main": _main, "fail": _fail, "card": _card, "nccl": _nccl,
      "compile": _compile, "analyze": _analyze,
      "ladder": _ladder, "elastic": _elastic,
-     "observe": _observe, "serve": _serve}[mode](rt, rank, outdir)
+     "observe": _observe, "serve": _serve,
+     "positions": _positions}[mode](rt, rank, outdir)
     distributed.shutdown()
     return 0
 
