@@ -18,6 +18,8 @@
     python3 chip_smoke.py --fleet    # phase 1 and the fleet
     python3 chip_smoke.py --positions  # phase 1 and ranks holding several
                                        # positions of a mesh
+    python3 chip_smoke.py --select   # phase 1 and medians, quantiles and
+                                     # the last folds across ranks
 
 Phases, each reported on its own line:
 
@@ -284,7 +286,21 @@ Phases, each reported on its own line:
    2^26, a groupby of an 8192^2 f32 grid along dim 0: every result the
    same bytes in all three worlds and within its bound of one process,
    no gathered program, each fold's flush all-gathering exactly its
-   partials, the kernels launched once per held block.
+   partials, the kernels launched once per held block; then the
+   selections across ranks (``select_path``, alone with ``--select``) in
+   layout_path's four ranks and positions_path's three worlds (first,
+   in one process, the sign of the middle of 2^20 + 1 signed zeros under
+   torch.sort against the stable order, the port's median held to the
+   stable one): the median of a 4097^2 grid of signed zeros, median,
+   nanmedian, quantile (five q, linear, and each other method at 0.5),
+   nanpercentile, nanvar/nanstd (ddof 0, 1), count_nonzero and ptp whole
+   and along each axis of the 16384^2 f64 grid, complex min/max/var/std
+   of 8192^2 complex128, and a hint over 2.5 x + 1 from rows into
+   columns: every result the same bytes in all four worlds, the
+   selections and counts byte-equal to one process, the folds within
+   their bounds, no gathered program, per world the rounds, the bytes
+   all-gathered against the gathered lowering's, elemred launches per
+   held block and the peak allocation.
    Every kernel's launch count is set to 0 just before each path and
    read just after; a path that does not launch its kernel fails the
    run;
@@ -995,6 +1011,8 @@ def elemred_plans(rt, er, np):
             plans.append(er.plan_for(*_program(
                 lambda: [rt.sum(2.5 * x + y)])))
             plans.append(er.plan_for(*_program(lambda: [x * x])))
+        if dt == "float64":  # select_path: the folds' partials a block
+            plans += select_plans(er, x, y)
         if dt == "float32":  # compile_path: the bucketed program and soak
             plans.append(er.plan_for(*_program(lambda: [x * 2.0 + 1.0])))
         if dt == "float64":  # compile_path: the chain's segments at 64
@@ -1011,6 +1029,39 @@ def elemred_plans(rt, er, np):
             plans.append(er.plan_for(*_program(lambda: [a.min()])))
             plans.append(er.plan_for(*_program(lambda: [a.max()])))
     return plans
+
+
+def select_plans(er, x, y):
+    """The plans of the programs ``select_path``'s ranks launch on every
+    held block (``core/rankflush.py``'s partials of a whole fold, over
+    the block flattened): nanvar/nanstd's sums of the non-NaN values and
+    their count, its centred pass's two sums (the mean a 0-d leaf on the
+    card), count_nonzero's sum, ptp's max and min, the hinted sum of two
+    leaves, and the hinted subtree ``2.5 x + 1`` on a block."""
+    import torch
+
+    from ramba_tpu_torch.core import fuser
+    from ramba_tpu_torch.core.expr import Const, Node, Scalar
+
+    c = Const(x._value())
+    m = Const(torch.zeros((), dtype=torch.float64, device=c.value.device))
+
+    def red(name, e):
+        return Node("reduce", (name, None, False, None), [e])
+
+    def where(ok, e):
+        return Node("map", ("where",), [ok, e, Scalar(0)])
+
+    ok = Node("map", ("logical_not",), [Node("map", ("isnan",), [c])])
+    d = where(ok, Node("map", ("subtract",), [c, m]))
+    programs = [[red("sum", where(ok, c)), red("sum", ok)],
+                [red("sum", d)],
+                [red("sum", Node("map", ("multiply",), [d, d]))],
+                [red("sum", Node("map", ("not_equal",), [c, Scalar(0)]))],
+                [red("max", c), red("min", c)],
+                [red("sum", Node("map", ("add",), [c, Const(y._value())]))]]
+    return [er.plan_for(*fuser.prepare_program(p)) for p in programs] + [
+        er.plan_for(*_program(lambda: [2.5 * x + 1]))]
 
 
 def mc_hits(rt, x, y):
@@ -1829,6 +1880,12 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
     dist["positions"] = timed(
         "positions_path", positions_path, rt, torch, np, card, totals,
         dist["layout"].get("star2_ms_per_sweep_slowest_rank"))
+    log("  select_path: medians, quantiles and the last folds across ranks")
+    e0 = totals["elemred"]
+    dist["select"] = timed("select_path", select_path, rt, torch, np, card,
+                           totals)
+    if totals["elemred"] == e0:
+        raise Fail("select_path launched no elemred")
     log("  compile_path: segments, compile classes, the kernel cache and the "
         "backend race")
     e0, g0 = totals["elemred"], totals["segred"]
@@ -3805,6 +3862,10 @@ def dist_rank(argv) -> int:
             er, sk, sc, "axpy", lambda: float(rt.sum(2.5 * a + b)), rep)
     elif "--layout" in argv:
         layout_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, out)
+    elif "--select" in argv:
+        select_rank_programs(
+            rt, np, torch, er, sk, sc, fuser, rep, out,
+            [int(r) for r in arg["--select"].split(",")])
     elif "--positions" in argv:
         positions_rank_programs(
             rt, np, torch, er, sk, sc, fuser, rep, out,
@@ -5162,6 +5223,400 @@ def positions_path(rt, torch, np, card, totals, layout_ms=None):
     out["world_walls_s"] = walls
     out["wall_s"] = time.perf_counter() - t0
     log(f"  positions_path: {out['wall_s']:.1f} s, worlds (s) "
+        f"{json.dumps(walls)} [{card}]")
+    return out
+
+
+# select_path's sizes: the positions grid (16384^2 f64, 2 GiB, NaN where
+# (i + 3 j) % 97 == 5), a complex128 8192^2 (1 GiB), q for the quantiles
+SEL_COMPLEX = 8192
+SEL_ZEROS = 4097  # the signed-zero grid, float64 (odd: one middle value)
+SEL_PROBE_N = (1 << 20) + 1  # the signed zeros torch.sort orders
+SEL_PROBE_SEEDS = 8
+SEL_QS = (0.001, 0.25, 0.5, 0.75, 0.999)
+SEL_METHODS = ("lower", "higher", "midpoint", "nearest")
+# the worlds: layout_path's four ranks, then positions_path's three
+SEL_WORLDS = (("four", 4, (0, 1, 2, 3)),) + POS_WORLDS
+SEL_LIMIT_S = 300
+# the programs whose results are floats folded in another order than one
+# process folds them (held within a bound); the others select or count,
+# and are held byte for byte
+SEL_FOLDS = ("nanvar", "nanstd", "cvar", "cstd", "hint_sum")
+
+
+def select_programs(rt, np, torch, win, rep, keep=None):
+    """Every program of ``select_path`` through the user API, on this
+    process's mesh (a (2, 2) mesh of ranks, or one process): per program
+    the digest of its whole result, the bytes its flush all-gathered, the
+    selection rounds it ran, its operand's bytes and its wall.
+    ``win(name, fn)`` counts the launches around ``fn``; ``keep(name,
+    tensor)`` keeps a result for the comparison with one process."""
+    from ramba_tpu_torch import parallel
+    from ramba_tpu_torch.core import fuser, rankselect
+
+    dig, ag, rounds, opnd, prep_s, round_s = (rep.setdefault(k, {}) for k in (
+        "digests", "allgather", "rounds", "operand", "prep_s", "round_s"))
+    walls, gathered = rep.setdefault("wall_s", {}), rep.setdefault(
+        "gathered_by", {})
+
+    def flushed(name, make, nbytes):
+        a0 = parallel.comm_stats.get("allgather_bytes", 0)
+        r0, g0 = rankselect.stats["rounds"], fuser.stats["gathered"]
+        p0, q0 = rankselect.stats["prep_s"], rankselect.stats["round_s"]
+        t0 = time.perf_counter()
+
+        def go():
+            r = make()
+            rt.sync()
+            torch.cuda.synchronize()
+            return r
+
+        r = win(name, go)
+        walls[name] = time.perf_counter() - t0
+        ag[name] = parallel.comm_stats.get("allgather_bytes", 0) - a0
+        rounds[name] = rankselect.stats["rounds"] - r0
+        gathered[name] = fuser.stats["gathered"] - g0
+        prep_s[name] = rankselect.stats["prep_s"] - p0
+        round_s[name] = rankselect.stats["round_s"] - q0
+        opnd[name] = nbytes
+        v = r._value()
+        dig[name] = card_digest(v)
+        if keep:
+            keep(name, v)
+        return v
+
+    z = signed_zero_grid(rt, np)
+    rt.sync()
+    for a in (None, 0, 1):
+        flushed(f"zeros_median_{'whole' if a is None else f'ax{a}'}",
+                lambda a=a: rt.median(z, axis=a), SEL_ZEROS * SEL_ZEROS * 8)
+    del z
+    x, xn = pos_fold_grid(rt, np)
+    rt.sync()
+    gb = POS_FOLD * POS_FOLD * 8
+    for a in (None, 0, 1):
+        k = "whole" if a is None else f"ax{a}"
+        flushed(f"median_{k}", lambda a=a: rt.median(x, axis=a), gb)
+        flushed(f"nanmedian_{k}", lambda a=a: rt.nanmedian(xn, axis=a), gb)
+        flushed(f"quantile_{k}", lambda a=a: rt.quantile(
+            x, list(SEL_QS), axis=a), gb)
+        for m in SEL_METHODS:
+            flushed(f"quantile_{m}_{k}", lambda a=a, m=m: rt.quantile(
+                x, 0.5, axis=a, method=m), gb)
+        flushed(f"nanpercentile_{k}", lambda a=a: rt.nanpercentile(
+            xn, 37, axis=a), gb)
+        for fn in ("nanvar", "nanstd"):
+            for ddof in (0, 1):
+                flushed(f"{fn}_d{ddof}_{k}", lambda a=a, f=fn, d=ddof:
+                        getattr(rt, f)(xn, axis=a, ddof=d), gb)
+        flushed(f"count_nonzero_{k}", lambda a=a: rt.count_nonzero(
+            xn, axis=a), gb)
+        flushed(f"ptp_{k}", lambda a=a: rt.ptp(x, axis=a), gb)
+    # a hint over a computed value: 2.5 x + 1 of x in rows, into columns,
+    # then summed with y in columns
+    xr = dist_grid(rt, np, (POS_FOLD, POS_FOLD), (4, 1), np.float64)
+    yc = dist_grid(rt, np, (POS_FOLD, POS_FOLD), (1, 4), np.float64,
+                   k=(104729, 7919))
+    rt.sync()
+    c0 = dict(parallel.comm_stats)
+
+    def hinted():
+        h = 2.5 * xr + 1
+        rt.add_constraint([h], 1)
+        return rt.sum(h + yc)
+
+    v = flushed("hint_sum", hinted, 2 * gb)
+    rep.setdefault("values", {})["hint_sum"] = v.item()
+    rep["hint_comm"] = {kk: vv - c0.get(kk, 0)
+                        for kk, vv in parallel.comm_stats.items()
+                        if vv != c0.get(kk, 0)}
+    rt.clear_constraints()
+    del x, xn, xr, yc
+    torch.cuda.empty_cache()
+    dev = rt.common.device()
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    full = torch.randn((SEL_COMPLEX, SEL_COMPLEX), generator=g, device=dev,
+                       dtype=torch.complex128)
+    parts = torch.view_as_real(full)
+    parts[::1031, ::7, 0] = float("nan")  # NaN real parts
+    parts[3::977, 5::11, 1] = float("nan")  # NaN imaginary parts
+    c = rt.fromarray(full)
+    del full, parts
+    rt.sync()
+    cb = SEL_COMPLEX * SEL_COMPLEX * 16
+    for a in (None, 0, 1):
+        k = "whole" if a is None else f"ax{a}"
+        for fn in ("min", "max", "var", "std"):
+            flushed(f"{'c' + fn}_{k}", lambda a=a, f=fn: getattr(rt, f)(
+                c, axis=a), cb)
+    del c
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def signed_zero_grid(rt, np):
+    """-0.0 and +0.0 from indices, a fifth -1.5 and a fifth 2.5, so a
+    median lands on a zero of either sign (its sign is the one of the
+    zero at that rank in index order)."""
+    h = rt.fromfunction(lambda i, j: (i * 7919 + j * 104729) % 10,
+                        (SEL_ZEROS, SEL_ZEROS), dtype=np.int64)
+    return rt.where(h < 2, -1.5, rt.where(h >= 8, 2.5, rt.where(
+        h % 2 == 0, -0.0, 0.0)))
+
+
+def signed_zero_probe(rt, torch, np, card):
+    """One process on the card: the sign of the middle of an odd run of
+    signed zeros under ``torch.sort`` (not stable) and under the stable
+    order (NumPy's on the host), over seeds, and the port's median held
+    to the stable order (``jnp.sort``'s rule, C.18)."""
+    dev = rt.common.device()
+    differ = 0
+    for seed in range(SEL_PROBE_SEEDS):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        z = torch.where(torch.rand(SEL_PROBE_N, generator=g, device=dev)
+                        < 0.5, -0.0, 0.0).to(torch.float64)
+        host = z.cpu().numpy()
+        want = bool(np.signbit(host[np.argsort(host, kind="stable")]
+                               [SEL_PROBE_N // 2]))
+        plain = bool(torch.signbit(torch.sort(z).values[SEL_PROBE_N // 2]))
+        differ += int(plain != want)
+        got = bool(np.signbit(float(rt.median(rt.fromarray(z)))))
+        if got != want:
+            raise Fail(f"select: the median of signed zeros (seed {seed}) "
+                       f"has sign {got}, the stable order {want}")
+    log(f"  select: signed zeros, {SEL_PROBE_N} f64 on the card: "
+        f"torch.sort's middle differs from the stable order's sign in "
+        f"{differ} of {SEL_PROBE_SEEDS} seeds; the port's median holds "
+        f"the stable order's in all [{card}]")
+    return {"torch_sort_differs": differ, "seeds": SEL_PROBE_SEEDS}
+
+
+def select_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, out, ranks):
+    """One rank of ``select_path``: the (2, 2) mesh of ranks ``ranks``,
+    :func:`select_programs` on this rank's blocks, its wall and its peak
+    allocation."""
+    import os
+
+    from ramba_tpu_torch.ops import segred as sg
+    from ramba_tpu_torch.parallel import mesh as pm
+
+    rt.set_mesh(pm.rank_mesh((2, 2), ranks=list(ranks)))
+    rep["held"] = [list(p) for p in rt.get_mesh().local_positions()]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+
+    def keep(name, v):
+        if rep["rank"] == 0 and v.numel() < (1 << 20):
+            np.save(os.path.join(out, f"{name}.npy"), v.cpu().numpy())
+
+    select_programs(rt, np, torch, lambda name, fn: _rank_window(
+        er, sk, sc, name, fn, rep, sg), rep, keep)
+    rep["leg_s"] = time.perf_counter() - t0
+    rep["peak_bytes"] = torch.cuda.max_memory_allocated()
+
+
+def select_check(worlds, ref, totals, card, tmp):
+    """Hold the worlds against each other (the same bytes) and against one
+    process (selections, counts and complex extremes byte for byte; the
+    folds within the bounds stated); the per-world report."""
+    import os
+
+    import numpy as np
+    import torch
+
+    names = sorted(ref["digests"])
+    for w, reps in worlds.items():
+        for r in reps:
+            bad = {k: v for k, v in r["gathered_by"].items() if v}
+            if bad:
+                raise Fail(f"select {w} rank {r['rank']}: gathered {bad}")
+            if r["digests"] != reps[0]["digests"]:
+                raise Fail(f"select {w}: ranks disagree")
+            if r["rounds"] != reps[0]["rounds"]:
+                raise Fail(f"select {w}: ranks ran different rounds")
+        bad = [k for k in names
+               if reps[0]["digests"][k] != worlds["four"][0]["digests"][k]]
+        if bad:
+            raise Fail(f"select {w} differs from four ranks in {bad}")
+    exact = [k for k in names if not k.startswith(SEL_FOLDS)]
+    bad = [k for k in exact
+           if worlds["four"][0]["digests"][k] != ref["digests"][k]]
+    if bad:
+        raise Fail(f"select: {bad} differ from one process")
+    log(f"  select: {len(names)} results byte-equal on every rank of four "
+        f"worlds (4 ranks, [[0, 0], [1, 1]], [[0, 1], [1, 0]], one rank "
+        f"holding four); {len(exact)} (medians, quantiles, counts, ptp, "
+        f"complex min/max) byte-equal to one process; no gathered program")
+    eps = EPS["float64"]
+    errs = {}
+    n = POS_FOLD * POS_FOLD
+    for k in names:
+        if not k.startswith(SEL_FOLDS) or k == "hint_sum":
+            continue
+        got = torch.from_numpy(np.load(os.path.join(tmp, "four", "w4",
+                                                    f"{k}.npy")))
+        want = ref["kept"][k]
+        terms = n if k.endswith("whole") else POS_FOLD
+        if k.startswith(("cvar", "cstd")):
+            terms = SEL_COMPLEX * SEL_COMPLEX if k.endswith("whole") \
+                else SEL_COMPLEX
+            # E|z|^2 = 2 for randn complex: 2 n eps E|z|^2, std by its root
+            bound = 2 * terms * eps * 2.0 * (
+                1.0 if k.startswith("cvar") else 1 / want.abs())
+            why = "2 n eps E|z|^2"
+        else:
+            bound = 2 * terms * eps * (1.0 / 3) * (
+                1.0 if k.startswith("nanvar") else 1 / want.abs())
+            why = "2 n eps E[x^2]"
+        # NaN where one process has it (a slice with a NaN part), the
+        # bound elsewhere
+        nan = torch.isnan(want)
+        if not torch.equal(torch.isnan(got), nan):
+            raise Fail(f"select {k}: NaN positions differ from one process")
+        bound = torch.as_tensor(bound, dtype=torch.float64).expand(
+            want.shape)
+        if bool(nan.all()):
+            errs[k] = 0.0
+            continue
+        errs[k] = check_sums(f"select {k} vs one process", got[~nan],
+                             want[~nan], bound[~nan], why + ", NaN where "
+                             "one process has it")
+    hs = worlds["four"][0]["values"]["hint_sum"]
+    hw = ref["values"]["hint_sum"]
+    hb = 2 * n * eps * abs(hw)
+    if abs(hs - hw) > hb:
+        raise Fail(f"select hint sum {hs} vs one process {hw}")
+    errs["hint_sum"] = abs(hs - hw)
+    log(f"  select: hint over 2.5 x + 1 (rows into columns) + y: sum {hs!r} "
+        f"vs one process {hw!r}, within {hb:.3e} (2 n eps |sum|)")
+    report, full = {}, {}
+    for w, reps in worlds.items():
+        world = len(reps)
+        held = max(len(r["held"]) for r in reps)
+        per = {}
+        for k in names:
+            ob = reps[0]["operand"][k]
+            # a rank's all-gathered bytes (what ``comm_stats`` counts on
+            # it) beside what the gathered lowering would bring it
+            per[k] = {"rounds": reps[0]["rounds"][k],
+                      "allgather_per_rank": max(r["allgather"][k]
+                                                for r in reps),
+                      "gathered_lowering_per_rank": (world - 1) / world * ob,
+                      "wall_s_slowest": max(r["wall_s"][k] for r in reps),
+                      "sort_census_s": max(r["prep_s"][k] for r in reps),
+                      "rounds_s": max(r["round_s"][k] for r in reps)}
+        lr = {k: max(r["launches"][k]["elemred"] for r in reps) / held
+              for k in ("nanvar_d0_whole", "count_nonzero_whole",
+                        "ptp_whole")}
+        for k, want in (("nanvar_d0_whole", 3), ("count_nonzero_whole", 1),
+                        ("ptp_whole", 1)):
+            if lr[k] != want:
+                raise Fail(f"select {w} {k}: {lr[k]} elemred launches a "
+                           f"held block, want {want}")
+        for r in reps:
+            for kk in totals:
+                totals[kk] += sum(c.get(kk, 0) for c in r["launches"]
+                                  .values())
+        full[w] = per
+        sel = [k for k in names if per[k]["rounds"]]
+        report[w] = {
+            "wall_s_slowest_rank": max(r["leg_s"] for r in reps),
+            "peak_bytes_per_rank": [r["peak_bytes"] for r in reps],
+            "gathered": sum(sum(r["gathered_by"].values()) for r in reps),
+            "elemred_per_held_block": lr, "hint_comm": reps[0]["hint_comm"],
+            "rounds": sorted({per[k]["rounds"] for k in sel}),
+            "sort_census_s": sum(per[k]["sort_census_s"] for k in sel),
+            "rounds_s": sum(per[k]["rounds_s"] for k in sel),
+            "selections_wall_s": sum(per[k]["wall_s_slowest"] for k in sel),
+            "programs": {k: per[k] for k in (
+                "median_whole", "median_ax0", "quantile_whole",
+                "quantile_ax1", "nanvar_d0_whole", "cmax_ax1",
+                "hint_sum")}}
+        log(f"  select {w} ({world} ranks, {held} held blocks a rank): "
+            f"{report[w]['wall_s_slowest_rank']:.2f} s at the slowest rank; "
+            f"rounds {report[w]['rounds']} (median_whole "
+            f"{per['median_whole']['rounds']}, cmax_whole "
+            f"{per['cmax_whole']['rounds']}); "
+            f"median_whole all-gathered "
+            f"{per['median_whole']['allgather_per_rank']:.0f} B a rank "
+            f"against the gathered lowering's "
+            f"{per['median_whole']['gathered_lowering_per_rank']:.0f}, "
+            f"quantile_ax1 {per['quantile_ax1']['allgather_per_rank']:.0f} "
+            f"against {per['quantile_ax1']['gathered_lowering_per_rank']:.0f}"
+            f"; gathered programs {report[w]['gathered']}; elemred launches "
+            f"a held block {json.dumps(lr)}; peak allocation a rank "
+            f"{max(report[w]['peak_bytes_per_rank']) / 2 ** 30:.2f} GiB; "
+            f"{len(sel)} programs with rounds "
+            f"{report[w]['selections_wall_s']:.2f} s "
+            f"(sorts and censuses {report[w]['sort_census_s']:.2f} s, "
+            f"rounds {report[w]['rounds_s']:.2f} s, slowest rank) "
+            f"[{card}]")
+    # every program's numbers, too long for the end of the output
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "select_report.json"), "w") as f:
+        json.dump({"card": card, "worlds": full, "max_abs_err": errs}, f)
+    report["max_abs_err"] = errs
+    report["report_file"] = "chiprun_out/select_report.json"
+    return report
+
+
+def select_refs(rt, torch, np, card):
+    """The one-process results ``select_path`` holds the worlds against."""
+    ref = {"values": {}, "launches": {}}
+    kept = {}
+
+    def win(name, fn):
+        return fn()
+
+    select_programs(rt, np, torch, win, ref,
+                    lambda name, v: kept.__setitem__(name, v.cpu())
+                    if v.numel() < (1 << 20) else None)
+    ref["kept"] = kept
+    return ref
+
+
+def select_path(rt, torch, np, card, totals):
+    """Medians, quantiles, the last folds and a hint over a computed value
+    across ranks on cuda:0 over gloo: layout_path's four ranks and
+    positions_path's three worlds, every result the same bytes in each
+    world and held against one process."""
+    import os
+    import tempfile
+
+    log("  select_path: 4 ranks, [[0, 0], [1, 1]], [[0, 1], [1, 0]] and one "
+        "rank; medians of 4097^2 signed zeros, medians, quantiles, "
+        "nanvar/nanstd, count_nonzero, ptp of a 16384^2 f64 grid, complex "
+        "min/max/var/std of 8192^2, a hint over 2.5 x + 1")
+    t0 = time.perf_counter()
+    probe = signed_zero_probe(rt, torch, np, card)
+    ref = select_refs(rt, torch, np, card)
+    log(f"  select_path: one-process references in "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    worlds, walls = {}, {}
+    with tempfile.TemporaryDirectory(prefix="ramba_select_") as tmp:
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RAMBA_HBM_BUDGET", "RAMBA_RESHARD_STAGE_BYTES")}
+        for name, world, ranks in SEL_WORLDS:
+            d = os.path.join(tmp, name)
+            os.makedirs(os.path.join(d, f"w{world}"))
+            t1 = time.perf_counter()
+            procs = dist_start(world, d, ("--select", ",".join(
+                str(r) for r in ranks)), env)
+            try:
+                worlds[name] = dist_wait(procs, d, time.time() + SEL_LIMIT_S)
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            walls[name] = time.perf_counter() - t1
+        out = select_check(worlds, ref, totals, card, tmp)
+    out["world_walls_s"] = walls
+    out["signed_zeros"] = probe
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"  select_path: {out['wall_s']:.1f} s, worlds (s) "
         f"{json.dumps(walls)} [{card}]")
     return out
 
@@ -10818,6 +11273,15 @@ def main(argv) -> int:
         for k in ("elemred", "stencil", "segred"):
             if not totals[k]:
                 raise Fail(f"positions_path launched no {k}")
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        print(card, flush=True)
+        return 0
+    if "--select" in argv:  # phase 1 and select_path alone
+        totals = dict.fromkeys(("elemred", "stencil", "segred", "scan"), 0)
+        log(json.dumps({"select": select_path(rt, torch, np, card, totals),
+                        "launches": totals}, default=str))
+        if not totals["elemred"]:
+            raise Fail("select_path launched no elemred")
         log(f"total {time.perf_counter() - t_all:.1f} s")
         print(card, flush=True)
         return 0

@@ -1377,11 +1377,86 @@ def _arg_reduce(fname, x, axis, keepdims):
     return r
 
 
+# ---------------------------------------------------------------------------
+# order statistics: the medians here, the quantiles in ops/extras.py, and
+# across ranks core/rankselect.py all take their positions and their
+# finish from these functions, so each path rounds alike by construction
+# ---------------------------------------------------------------------------
+
+_KEY_DTYPES = {torch.float16: torch.int16, torch.bfloat16: torch.int16,
+               torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def order_values(z: torch.Tensor, skip_nan: bool) -> torch.Tensor:
+    """The values a median or quantile orders along the last dim: every
+    NaN the one positive NaN (a nan kind skips them: they order last),
+    or, for the plain kinds, every slice holding a NaN all NaN (as
+    ``jnp.quantile`` squashes them)."""
+    nan = torch.isnan(z)
+    if not skip_nan:
+        nan = torch.any(nan, dim=-1, keepdim=True)
+    return torch.where(nan, torch.full((), float("nan"), dtype=z.dtype,
+                                       device=z.device), z)
+
+
+def order_key(v: torch.Tensor) -> torch.Tensor:
+    """The order-preserving integer image of float values (the signed
+    integer of their width): negative values' magnitude bits flipped,
+    both zeros the key 0, every NaN the positive NaN's, the largest key.  ``jnp.sort``
+    orders by these keys, equal keys in index order (it canonicalizes
+    zeros and NaNs in its comparator), so a stable sort of them is its
+    order, on the CPU and on the card alike."""
+    kdt = _KEY_DTYPES[v.dtype]
+    bits = v.view(kdt)
+    flip = torch.iinfo(kdt).max
+    key = torch.where(bits < 0, bits ^ flip, bits)
+    key = torch.where(v == 0, torch.zeros((), dtype=kdt, device=v.device),
+                      key)
+    nan = torch.full((), float("nan"), dtype=v.dtype, device=v.device)
+    return torch.where(torch.isnan(v), nan.view(kdt), key)
+
+
+def key_value(key: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The float of an order key (:func:`order_key`'s inverse; the key 0
+    is +0.0)."""
+    flip = torch.iinfo(key.dtype).max
+    return torch.where(key < 0, key ^ flip, key).view(dtype)
+
+
+def sorted_values(z: torch.Tensor) -> torch.Tensor:
+    """``z`` sorted along its last dim as ``jnp.sort`` sorts it: by
+    :func:`order_key`, stably, so equal values (the two zeros) keep their
+    index order."""
+    idx = torch.sort(order_key(z), dim=-1, stable=True).indices
+    return torch.gather(z, -1, idx)
+
+
+def median_positions(n: int, cnt=None):
+    """``(low, high)``: the positions of a median's two middle values in
+    a slice of ``n`` sorted values, or of ``cnt`` non-NaN ones (a nan
+    kind: a tensor of counts; an empty slice reads position 0)."""
+    if cnt is None:
+        return (n - 1) // 2, n // 2
+    top = torch.clamp(cnt - 1, min=0)
+    lo = torch.div(cnt - 1, 2, rounding_mode="floor")
+    hi = cnt - 1 - lo
+    lo = torch.minimum(torch.clamp(lo, min=0), top)
+    hi = torch.minimum(torch.clamp(hi, min=0), top)
+    return lo, hi
+
+
+def median_finish(low: torch.Tensor, high: torch.Tensor) -> torch.Tensor:
+    """The midpoint ``(low + high) * 0.5`` of a median's middle values,
+    in their dtype."""
+    half = torch.full((), 0.5, dtype=low.dtype, device=low.device)
+    return (low + high) * half
+
+
 def _median(y, dims, keepdims, skip_nan):
     """``jnp.median`` (a NaN anywhere in the slice gives NaN) and
-    ``jnp.nanmedian``: sort the reduced dims flattened last, then the
-    midpoint ``(low + high) * 0.5`` of the two middle values (of the
-    non-NaN ones for ``nanmedian``, which sort to the end)."""
+    ``jnp.nanmedian``: order the reduced dims flattened last
+    (:func:`order_values`, :func:`sorted_values`), then the midpoint of
+    the two middle values (of the non-NaN ones for ``nanmedian``)."""
     nd = y.ndim
     keep = [d for d in range(nd) if d not in dims]
     out_shape = tuple(1 if d in dims else y.shape[d] for d in range(nd)) \
@@ -1390,23 +1465,17 @@ def _median(y, dims, keepdims, skip_nan):
     n = z.shape[-1]
     if n == 0:
         return torch.full(out_shape, float("nan"), dtype=y.dtype, device=y.device)
-    if not skip_nan:
-        z = torch.where(torch.any(torch.isnan(z), dim=-1, keepdim=True),
-                        torch.full_like(z, float("nan")), z)
-    s = torch.sort(z, dim=-1).values
+    z = order_values(z, skip_nan)
+    s = sorted_values(z)
     if skip_nan:
-        cnt = torch.sum(~torch.isnan(z), dim=-1, keepdim=True)
-        top = torch.clamp(cnt - 1, min=0)
-        lo = torch.div(cnt - 1, 2, rounding_mode="floor")
-        hi = cnt - 1 - lo
-        lo = torch.minimum(torch.clamp(lo, min=0), top)
-        hi = torch.minimum(torch.clamp(hi, min=0), top)
+        lo, hi = median_positions(
+            n, torch.sum(~torch.isnan(z), dim=-1, keepdim=True))
         low = torch.gather(s, -1, lo)[..., 0]
         high = torch.gather(s, -1, hi)[..., 0]
     else:
-        low, high = s[..., (n - 1) // 2], s[..., n // 2]
-    half = torch.full((), 0.5, dtype=s.dtype, device=s.device)
-    return ((low + high) * half).reshape(out_shape)
+        lo, hi = median_positions(n)
+        low, high = s[..., lo], s[..., hi]
+    return median_finish(low, high).reshape(out_shape)
 
 
 @defop("reduce")

@@ -7,9 +7,12 @@ several (``parallel/mesh.py``: ``rank_mesh((2, 2), ranks=[0, 0, 1, 1])``,
 the checkerboard ``[[0, 1], [1, 0]]``).  Before anything runs, a
 ``shard_hint`` over a leaf of another layout (the layout-aligning rewrite,
 ``core/rewrite.py``; a co-partitioning constraint) is lowered to a
-reshard of that leaf (``parallel/reshard.py``), and the flush sorts the
-program into one of three cases, the same on every rank because it reads
-only the graph and the leaves' layouts:
+reshard of that leaf (``parallel/reshard.py``); a hint over a computed
+value whose subtree is shard-local in its leaves' layout runs that
+subtree as a plan of its own first, then reshards its result
+(:func:`lower_hints`).  The flush then sorts the program into one of
+three cases, the same on every rank because it reads only the graph and
+the leaves' layouts:
 
 * **shard-local** (:func:`local_plan`): every array leaf has the same
   global shape and the same layout (a block of it, a value every rank
@@ -23,12 +26,28 @@ only the graph and the leaves' layouts:
 
   - a whole-array fold: ``sum``/``prod``/``min``/``max``/``mean``/
     ``any``/``all``, the nan-reductions (``nansum``, ``nanprod``,
-    ``nanmin``, ``nanmax``, ``nanmean``), ``var``/``std`` of any
-    ``ddof`` (per block ``(count, mean, M2)``, the mean carried as
+    ``nanmin``, ``nanmax``, ``nanmean``), ``var``/``std`` and
+    ``nanvar``/``nanstd`` of any ``ddof`` (per block ``(count, mean,
+    M2)`` over the values, or the non-NaN ones, the mean carried as
     ``hi + lo``: the block's sum, then a centred pass, the sums of
-    ``x - hi`` and of their squares), ``argmin``/``argmax`` (per block
-    the extreme and its global index), complex ``sum``/``prod``/
-    ``mean``, or an ``sreduce``;
+    ``x - hi`` and of their squares; a complex value's mean complex, its
+    M2 of ``|x - hi|**2``), ``count_nonzero`` (an int64 sum of ``x !=
+    0``), ``ptp`` (a fold of max and min, one subtraction in the input
+    dtype), ``argmin``/``argmax`` (per block the extreme and its global
+    index), complex ``sum``/``prod``/``mean``, or an ``sreduce``;
+  - a selection (:mod:`core.rankselect`): ``median``, ``nanmedian`` and
+    the ``quantile`` node (``q`` a constant every rank holds: the
+    quantiles and percentiles, plain and nan), and complex
+    ``min``/``max``/``ptp`` (XLA folds complex extremes in order, so the
+    partials are positions), whole or along axes.  Where the layout
+    leaves every reduced axis whole, each block holds whole slices and
+    runs the reduction itself (no exchange; the result keeps the
+    source's layout on the axes left); otherwise every owner position's
+    block is sorted once and the ranks run rounds of all-gathered counts
+    that find each slice's values at the positions one process reads,
+    exactly, then finish as one process does (the shared positions and
+    finish: ``expr.median_positions``/``median_finish``,
+    ``extras.quantile_positions``/``quantile_finish``);
   - the same folds along some axes (an arg-reduction along one): each
     block is reduced; where a reduced axis is split, the partials of the
     positions that hold the same block of the other axes are folded; the
@@ -64,12 +83,16 @@ only the graph and the leaves' layouts:
   its blocks of every array result.  This is the lowering those programs
   have across processes, chosen before the run; it is counted
   (``fuser.stats["gathered"]``, ``parallel.comm_stats["allgather_bytes"]``).
-  It takes: any other op (indexing, sort, matmul, reshapes), leaves of
-  different shapes or layouts that no hint aligns (a lazy subtree of
-  another layout), the medians and quantiles (a selection across ranks,
-  not a fold), the reductions this module does not fold (nanvar/nanstd,
-  count_nonzero, ptp, complex min/max/var), a ``shard_hint`` over a
-  computed value of another layout.
+  What still takes it, and why:
+
+  - indexing (gathers, scatters, masks): an index may read any block;
+  - sort and argsort: a whole-array permutation, not a per-slice value;
+  - matmul and the other contractions: a product reads a row of one
+    operand against a column of the other;
+  - reshapes: a block of the result is no block of the operand;
+  - leaves of different shapes, or of layouts that no hint aligns;
+  - a ``shard_hint`` over a subtree that is not shard-local itself;
+  - a quantile whose ``q`` is a computed array.
 
 Roots that no one plan takes together (arrays of other shapes or
 layouts pending in one flush) are grouped into plans of their own, each
@@ -94,6 +117,13 @@ the ladder behind one ``memory:admit`` round.  No other round runs
 inside a rung: a retried attempt must not meet a collective the other
 ranks skip.  A rank that fails before its first ladder joins the rounds
 the others enter next (:func:`_join_and_raise`).
+
+A plan with selections opens its gate at the start of every attempt,
+before any launch, and runs the selections' rounds inside the attempt
+(under the watchdog's deadline): a rank that fails after the gate (a
+program, a sort) joins the first selection's census with a failure
+flag, so every rank raises there, together.  Nothing retreats to the
+gathered lowering.
 
 With the elastic watchdog armed (``RAMBA_WATCHDOG_S``, read once a
 flush) each rank's attempt runs under ``elastic.with_deadline``: a rank
@@ -126,9 +156,15 @@ STENCILS = frozenset({"stencil", "stencil_iter"})
 _EXCHANGING = STENCILS | {"scumulative"}
 FOLDS = frozenset({"sum", "prod", "min", "max", "mean", "any", "all",
                    "nansum", "nanprod", "nanmin", "nanmax", "nanmean",
-                   "var", "std", "argmin", "argmax"})
-# the folds of complex values (the others compare or square them)
-COMPLEX_FOLDS = frozenset({"sum", "prod", "mean"})
+                   "var", "std", "nanvar", "nanstd", "argmin", "argmax",
+                   "count_nonzero", "ptp"})
+# the folds of complex values (their min/max/ptp are selections: XLA
+# folds complex extremes in order, so the partials are positions)
+COMPLEX_FOLDS = frozenset({"sum", "prod", "mean", "var", "std", "nanvar",
+                           "nanstd", "count_nonzero"})
+# the reductions that select across ranks (core/rankselect.py)
+SELECTS = frozenset({"median", "nanmedian"})
+COMPLEX_SELECTS = frozenset({"min", "max", "ptp"})
 _ARGS = frozenset({"argmin", "argmax"})
 SEGMENTS = frozenset({"sum", "prod", "min", "max", "count", "mean", "var",
                       "std", "nansum", "nanmean", "nanvar", "nanstd"})
@@ -137,22 +173,26 @@ _SPREADS = frozenset({"var", "std", "nanvar", "nanstd"})
 
 class _Root:
     """One root of a shard-local plan.  ``kind``: "block", "reduce"
-    (whole array), "axis" (along ``axes``), "segment" (groupby) or
-    "sreduce"; ``exprs[j]`` the local expressions of held block ``j``
-    (None: the block is empty and nothing runs; a fold's main-program
-    partials otherwise); ``labels[j]`` a segment root's local labels;
-    ``out`` an axis or N-d segment root's result layout and global
-    shape; ``xdt`` the dtype of what it reduces."""
+    (whole array), "axis" (along ``axes``), "segment" (groupby),
+    "sreduce" or "select" (a median, a quantile or a complex extreme,
+    whole or along ``axes``); ``exprs[j]`` the local expressions of held
+    block ``j`` (None: the block is empty and nothing runs; a fold's
+    main-program partials otherwise); ``labels[j]`` a segment root's
+    local labels; ``out`` an axis, select or N-d segment root's result
+    layout and global shape; ``xdt`` the dtype of what it reduces;
+    ``node`` a select root's node; ``local`` a select root that leaves
+    every reduced axis whole, so each block runs ``node`` itself."""
 
     __slots__ = ("kind", "exprs", "fname", "static", "dtype", "axes",
-                 "keepdims", "labels", "out", "xdt", "ddof", "dim")
+                 "keepdims", "labels", "out", "xdt", "ddof", "dim", "node",
+                 "local")
 
     def __init__(self, kind, fname=None, static=None, dtype=None):
         self.kind, self.fname = kind, fname
         self.static, self.dtype = static, dtype
         self.exprs = self.labels = None
         self.axes = self.keepdims = self.out = self.xdt = None
-        self.ddof = self.dim = None
+        self.ddof = self.dim = self.node = self.local = None
 
 
 class Plan:
@@ -194,16 +234,32 @@ def _axes(axis, nd) -> tuple:
     return (int(axis) % nd,)
 
 
+def _replicated(q) -> bool:
+    """A quantile's q that every rank holds whole."""
+    return isinstance(q, Scalar) or (isinstance(q, Const)
+                                     and not q.is_block)
+
+
 def _fold_root(e):
     """``(kind, inner, fname, extra)`` of a root: a reduction the ranks
-    can fold (whole or along axes), a groupby, an sreduce, or a plain
-    block."""
+    can fold (whole or along axes), a selection, a groupby, an sreduce,
+    or a plain block."""
+    if isinstance(e, Node) and e.op == "call" and e.static[0] == "quantile":
+        a, q = e.args
+        kw = dict(e.static[1])
+        if len(a.shape) and _replicated(q):
+            axes = _axes(kw.get("axis"), len(a.shape))
+            return "select", a, "quantile", (axes, kw["keepdims"], None)
     if isinstance(e, Node) and e.op == "reduce":
         fname, axis, keepdims, ddof = e.static
         x = e.args[0]
         nd = len(x.shape)
         if x.dtype.kind not in "fc":
             fname = E.NAN_PLAIN.get(fname, fname)  # nothing to ignore
+        if nd and (fname in SELECTS or (x.dtype.kind == "c"
+                                        and fname in COMPLEX_SELECTS)):
+            return "select", x, fname, (_axes(axis, nd), bool(keepdims),
+                                        None)
         if fname in FOLDS and nd and (x.dtype.kind != "c"
                                       or fname in COMPLEX_FOLDS):
             axes = _axes(axis, nd)
@@ -333,14 +389,26 @@ def _plan_root(plan, kind, inner, fname, extra, e, memo, stencil, scan):
         if len(shape) > 1:
             r.out = _axis_layout(plan.sharding, shape, (r.dim,), True,
                                  groups=int(e.static[1]))
-    if kind in ("reduce", "axis"):
+    if kind in ("reduce", "axis", "select"):
         r.axes, r.keepdims, r.ddof = extra
         if kind == "axis":
             r.out = _axis_layout(plan.sharding, shape, r.axes, r.keepdims)
+    if kind == "select":
+        r.node = e
+        r.out = _select_layout(plan.sharding, shape, r)
+        r.local = not _split_axes(plan, r)
+        owned = {plan.sharding.block_coords(p, len(shape))
+                 for p in plan.owners}
     if kind == "sreduce":
         r.static = e.static
     for j, (pos, index) in enumerate(plan.blocks):
         nonempty = math.prod(_mesh.index_shape(index, shape)) > 0
+        if kind == "select" and not r.local:
+            # the owner position's copy selects
+            nonempty = nonempty and pos is not None and \
+                plan.sharding.block_coords(pos, len(shape)) in owned
+        elif kind == "select":  # an empty extent still has a result
+            nonempty = pos is not None
         # an empty block folds nothing (a min of nothing would raise); a
         # block of a position runs a stencil for the halo exchange, and
         # every rank joins a scan's all-gather of totals
@@ -353,6 +421,9 @@ def _plan_root(plan, kind, inner, fname, extra, e, memo, stencil, scan):
         loc = _localize(inner, plan, j, memo)
         if kind in ("reduce", "axis"):
             r.exprs.append(_fold_parts(r, loc))
+        elif kind == "select":
+            r.exprs.append(Node(e.op, e.static, [loc] + list(e.args[1:]))
+                           if r.local else loc)
         elif kind == "segment":
             r.exprs.append(loc)
             lab = extra
@@ -376,6 +447,21 @@ def _cast(e, dt):
     return Node("cast", (str(dt),), [e]) if e.dtype != dt else e
 
 
+def _select_layout(sharding, shape, r):
+    """``(NamedSharding, shape)`` of a select root's result: a
+    reduction's (:func:`_axis_layout`), a quantile's with q's dims first,
+    whole."""
+    osh, oshape = _axis_layout(sharding, shape, r.axes, r.keepdims)
+    if r.fname != "quantile":
+        return osh, oshape
+    qshape = tuple(r.node.args[1].shape)
+    spec = (None,) * len(qshape) + tuple(osh.spec) + (None,) * (
+        len(oshape) - len(osh.spec))
+    return (_mesh.NamedSharding(sharding.mesh,
+                                _mesh.P(*_mesh.canonical(spec))),
+            qshape + oshape)
+
+
 def _fold_parts(r, loc):
     """The main program's partials of a reduce/axis root over one block:
     the block's own reduction (a mean's sum in the result dtype), a
@@ -390,14 +476,26 @@ def _fold_parts(r, loc):
             axes[0] if name in _ARGS else axes
         return Node("reduce", (name, axis, keepdims, None), [x])
 
+    def valid():
+        return Node("map", ("logical_not",), [Node("map", ("isnan",),
+                                                   [loc])])
+
     if fname == "mean":
         return [red("sum", _cast(loc, r.dtype))]
     if fname == "nanmean":
-        valid = Node("map", ("logical_not",), [Node("map", ("isnan",),
-                                                    [loc])])
-        return [red("nansum", _cast(loc, r.dtype)), red("sum", valid)]
+        return [red("nansum", _cast(loc, r.dtype)), red("sum", valid())]
     if fname in _SPREADS:
-        return [red("sum", _cast(loc, r.dtype))]
+        # a complex value's mean and deviations stay complex
+        w = loc if r.xdt.kind == "c" else _cast(loc, r.dtype)
+        if fname.startswith("nan"):
+            ok = valid()
+            return [red("sum", Node("map", ("where",), [ok, w, Scalar(0)])),
+                    red("sum", ok)]
+        return [red("sum", w)]
+    if fname == "count_nonzero":
+        return [red("sum", Node("map", ("not_equal",), [loc, Scalar(0)]))]
+    if fname == "ptp":
+        return [red("max", loc), red("min", loc)]
     if fname in _ARGS:
         ext = "max" if fname == "argmax" else "min"
         return [red(ext, loc), red(fname, loc)]
@@ -436,7 +534,7 @@ def _group(plan, r, out_index) -> list:
 def _split_axes(plan, r) -> bool:
     """True when a reduced (or grouped) axis is split: the result blocks
     fold partials across positions."""
-    axes = r.axes if r.kind == "axis" else (r.dim,)
+    axes = (r.dim,) if r.kind == "segment" else r.axes
     counts = plan.sharding.split_counts(len(plan.shape))
     return any(counts[d] > 1 for d in axes)
 
@@ -551,7 +649,7 @@ def _creation_block(e, shape, index):
 
 
 def _combine(fname, a, b):
-    if fname in ("sum", "mean", "count", "nansum"):
+    if fname in ("sum", "mean", "count", "nansum", "count_nonzero"):
         return a + b
     if fname in ("prod", "nanprod"):
         return a * b
@@ -563,7 +661,12 @@ def _combine(fname, a, b):
         return torch.fmin(a, b)
     if fname == "nanmax":
         return torch.fmax(a, b)
-    return torch.minimum(a, b) if fname == "min" else torch.maximum(a, b)
+    fn = torch.minimum if fname == "min" else torch.maximum
+    w = E._WIDE_UNSIGNED.get(a.dtype)
+    if w is not None:  # through the order-preserving signed carrier
+        k = fn(E._ukey(E._to_carrier(a), w), E._ukey(E._to_carrier(b), w))
+        return E._from_carrier(E._ukey(k, w), a.dtype)
+    return fn(a, b)
 
 
 def chan(a, b):
@@ -576,14 +679,17 @@ def chan(a, b):
     na, ha, la, qa = a
     nb, hb, lb, qb = b
     n = na + nb
-    nf = n.to(ha.dtype)
+    nf = n.to(qa.dtype)
     safe = torch.where(n > 0, nf, torch.ones_like(nf))
-    wb = nb.to(ha.dtype) / safe
+    wb = nb.to(qa.dtype) / safe
     delta = (hb - ha) + (lb - la)
     step = delta * wb
     hi = ha + step
     lo = la + ((ha - hi) + step)
-    m2 = qa + qb + delta * delta * (na.to(ha.dtype) * wb)
+    # |delta|**2: a complex mean's spread is real, as jnp.var's
+    sq = delta.real * delta.real + delta.imag * delta.imag \
+        if delta.is_complex() else delta * delta
+    m2 = qa + qb + sq * (na.to(qa.dtype) * wb)
     out = []
     for x, y, z in ((ha, hb, hi), (la, lb, lo), (qa, qb, m2)):
         out.append(torch.where(nb == 0, x, torch.where(na == 0, y, z)))
@@ -628,7 +734,7 @@ def _segment_parts(r):
 def _part_specs(plan, r, p) -> list:
     """``[(shape, torch dtype)]`` of position ``p``'s partials of root
     ``r`` (empty where the root folds none)."""
-    if r.kind == "block" or (r.kind in ("axis", "segment")
+    if r.kind in ("block", "select") or (r.kind in ("axis", "segment")
                              and r.out is not None
                              and not _split_axes(plan, r)):
         return []
@@ -651,10 +757,11 @@ def _part_specs(plan, r, p) -> list:
     if r.fname == "nanmean":
         return [(shp, tdt), (shp, i64)]
     if r.fname in _SPREADS:
-        f = E.to_torch_dtype(r.dtype)
-        return [(shp, i64), (shp, f), (shp, f), (shp, f)]
+        return _part_specs_of(r, shp)
     if r.fname in _ARGS:
         return [(shp, E.to_torch_dtype(r.xdt)), (shp, i64)]
+    if r.fname == "ptp":
+        return [(shp, tdt), (shp, tdt)]
     return [(shp, tdt)]
 
 
@@ -774,9 +881,8 @@ def _fold_group(r, vals, shape, dev, _tree_reduce, call_kernel):
             return [torch.zeros(shape, dtype=dt, device=dev)
                     for _k, dt in _segment_parts(r)]
         if r.fname in _SPREADS:
-            f = E.to_torch_dtype(r.dtype)
-            return [torch.zeros(shape, dtype=torch.int64 if n == 0 else f,
-                                device=dev) for n in range(4)]
+            return [torch.zeros(shape, dtype=dt, device=dev)
+                    for _s, dt in _part_specs_of(r, shape)]
         if r.fname == "nanmean":
             return [torch.zeros(shape, dtype=E.to_torch_dtype(r.dtype),
                                 device=dev),
@@ -788,12 +894,22 @@ def _fold_group(r, vals, shape, dev, _tree_reduce, call_kernel):
     return acc
 
 
+def _part_specs_of(r, shp):
+    """A var/std's partials: ``(count, mean hi, mean lo, M2)``, the mean
+    complex for complex values (its M2 real)."""
+    f = E.to_torch_dtype(r.dtype)
+    m = E.to_torch_dtype(r.xdt) if r.xdt.kind == "c" else f
+    return [(shp, torch.int64), (shp, m), (shp, m), (shp, f)]
+
+
 def _combine_parts(r, a, b):
     kind = r.fname
     if kind in _SPREADS:
         return list(chan(a, b))
     if kind in _ARGS:
         return list(_pick(kind == "argmax", a, b))
+    if kind == "ptp":
+        return [_combine("max", a[0], b[0]), _combine("min", a[1], b[1])]
     if kind in ("mean", "nanmean") and len(a) == 2:
         return [a[0] + b[0], a[1] + b[1]]
     return [_combine(kind, a[0], b[0])]
@@ -832,9 +948,11 @@ def _fold_finish(plan, r, parts):
         bad = n <= 0
         s = torch.where(bad, torch.full_like(m2, float("nan")), m2)
         v = s / torch.where(bad, torch.ones_like(n), n).to(s.dtype)
-        return E.apply_map("sqrt", [v]) if r.fname == "std" else v
+        return E.apply_map("sqrt", [v]) if r.fname.endswith("std") else v
     if r.fname in _ARGS:
         return parts[1]
+    if r.fname == "ptp":  # in the input dtype: an integer's wraps
+        return E.apply_map("subtract", parts)
     return parts[0]
 
 
@@ -1033,17 +1151,48 @@ def _rebuild(exprs, fn):
     return out
 
 
-def lower_hints(exprs, mesh):
+def _block_specs(e) -> set:
+    """The layouts of the block leaves under ``e``."""
+    specs, stack, seen = set(), [e], set()
+    while stack:
+        x = stack.pop()
+        if id(x) in seen:
+            continue
+        seen.add(id(x))
+        if isinstance(x, Const) and x.is_block:
+            specs.add(tuple(_mesh.canonical(x.sharding.spec)))
+        elif isinstance(x, Node) and x.op not in CREATION:
+            stack.extend(x.args)
+    return specs
+
+
+def lower_hints(exprs, mesh, wd=None):
     """Every ``shard_hint`` over a leaf becomes the leaf under that layout:
     a reshard where the layouts differ (collectives: every rank runs the
-    same ones, in graph order)."""
+    same ones, in graph order).  A hint over a computed value whose
+    subtree is shard-local in the layout of its block leaves runs that
+    subtree as a plan of its own (:func:`local_plan`; its result a block
+    leaf in that layout), then reshards the result; a subtree that is not
+    shard-local keeps its hint (the program takes the gathered
+    lowering)."""
     from ramba_tpu_torch.parallel.reshard import reshard_value
 
     def lower(e):
-        if e.op != "shard_hint" or not isinstance(e.args[0], Const) \
-                or e.static[0].mesh != mesh:
+        if e.op != "shard_hint" or e.static[0].mesh != mesh:
             return None
-        return reshard_value(e.args[0], e.static[0].spec, mesh=mesh)
+        src, want = e.args[0], _mesh.canonical(e.static[0].spec)
+        if isinstance(src, Const):
+            return reshard_value(src, e.static[0].spec, mesh=mesh)
+        specs = _block_specs(src)
+        if not isinstance(src, Node) or len(specs) != 1 \
+                or list(specs)[0] == tuple(want):
+            return None
+        plan = local_plan([src], mesh)
+        if plan is None or plan.roots[0].kind != "block":
+            return None
+        outs, _n = _run_local(plan, False, wd)
+        (c,) = _finish_local(plan, outs)
+        return reshard_value(c, e.static[0].spec, mesh=mesh)
 
     return _rebuild(exprs, lower)
 
@@ -1075,7 +1224,7 @@ def _flush_roots(stream, roots, exprs, mesh, wd):
                 from ramba_tpu_torch.core.rewrite import rewrite_roots
 
                 exprs = rewrite_roots(exprs)
-            exprs = lower_hints(exprs, mesh)
+            exprs = lower_hints(exprs, mesh, wd)
             split = fuser.verify_whole(exprs)
             plans = _plans(exprs, mesh)
         except Exception as e:
@@ -1283,17 +1432,32 @@ def _partials(plan, r, j, raw, split=False, rung="fused"):
                                                 plan.shape)]
     if r.fname in _SPREADS:
         s = raw[0]
-        n = math.prod(bshape[d] for d in r.axes)
-        cnt = torch.full(s.shape, n, dtype=torch.int64, device=s.device)
-        mean = s / torch.tensor(n, dtype=s.dtype, device=s.device)
+        ok = None
+        if r.fname.startswith("nan"):  # the non-NaN values only
+            cnt = raw[1]
+            mean = s / torch.where(cnt > 0, cnt, torch.ones_like(cnt)).to(
+                s.dtype)
+            ok, xf = r.exprs[j][0].args[0].args[:2]
+        else:
+            n = math.prod(bshape[d] for d in r.axes)
+            cnt = torch.full(s.shape, n, dtype=torch.int64, device=s.device)
+            mean = s / torch.tensor(n, dtype=s.dtype, device=s.device)
+            xf = r.exprs[j][0].args[0]
         kshape = tuple(1 if d in r.axes else bshape[d]
                        for d in range(len(bshape)))
         m = mean if r.kind == "reduce" else mean.reshape(kshape)
-        xf = r.exprs[j][0].args[0]
         d = Node("map", ("subtract",), [xf, Const(m)])
+        if ok is not None:
+            d = Node("map", ("where",), [ok, d, Scalar(0)])
+        if xf.dtype.kind == "c":  # |d|**2, real
+            re, im = (Node("map", (f,), [d]) for f in ("real", "imag"))
+            sq = Node("map", ("add",), [Node("map", ("multiply",), [re, re]),
+                                        Node("map", ("multiply",), [im, im])])
+        else:
+            sq = Node("map", ("multiply",), [d, d])
         axis = None if r.kind == "reduce" else r.axes
         sums = []
-        for term in (d, Node("map", ("multiply",), [d, d])):
+        for term in (d, sq):
             # one program each: elemred takes each whole fold
             e = Node("reduce", ("sum", axis, bool(r.keepdims), None), [term])
             flat = _flattened([e], bshape) if r.kind == "reduce" else None
@@ -1321,6 +1485,8 @@ def _centred_parts(s1, s2, cnt):
     squares: ``lo = sum(d) / n`` and ``M2 = sum(d**2) - n lo**2``."""
     n = torch.where(cnt > 0, cnt, torch.ones_like(cnt)).to(s1.dtype)
     lo = s1 / n
+    if lo.is_complex():  # n |lo|**2 = re(s1 conj(lo))
+        return [lo, s2 - (s1 * lo.conj()).real]
     return [lo, s2 - s1 * lo]
 
 
@@ -1335,10 +1501,13 @@ def _run_local(plan, split=False, wd=None):
     k = len(plan.blocks)
     groups = [list(range(k))] if plan.joint else [[j] for j in range(k)]
 
+    selects = [i for i, r in enumerate(plan.roots)
+               if r.kind == "select" and not r.local]
+
     def items(g):
         out = []
         for i, r in enumerate(plan.roots):
-            if r.kind == "segment":
+            if r.kind == "segment" or i in selects:
                 continue
             for j in g:
                 e = r.exprs[j]
@@ -1365,6 +1534,28 @@ def _run_local(plan, split=False, wd=None):
         return next((prep(gi) for gi, its in enumerate(work) if its), None)
 
     def run(rung):
+        if selects:
+            # the selections' rounds are collectives inside the attempt:
+            # every rank opens its gate here, before any launch, and a
+            # failure from here on joins the first selection's census
+            from ramba_tpu_torch.core import fuser
+
+            gate = fuser.launch_gate.get()
+            if gate is not None:
+                gate()
+        err = None
+        try:
+            outs, n_instrs = blocks(rung)
+        except Exception as e:
+            if not selects:
+                raise
+            err, outs, n_instrs = e, None, 0
+        for i in selects:
+            got = _run_select(plan, plan.roots[i], split, rung, err)
+            outs[i] = got
+        return outs, n_instrs
+
+    def blocks(rung):
         raw = {}
         n_instrs = 0
         for gi, its in enumerate(work):
@@ -1378,10 +1569,12 @@ def _run_local(plan, split=False, wd=None):
         outs = [[None] * k for _ in plan.roots]
         for i, r in enumerate(plan.roots):
             for j in range(k):
-                if r.exprs[j] is None:
+                if r.exprs[j] is None or i in selects:
                     continue
                 if r.kind == "block":
                     outs[i][j] = raw[(i, j, 0)].reshape(plan.block_shape(j))
+                elif r.kind == "select":  # its block's own result
+                    outs[i][j] = raw[(i, j, 0)]
                 elif r.kind == "segment":
                     outs[i][j] = _run_segment(r, j, split, rung)
                     n_instrs += len(outs[i][j])
@@ -1395,6 +1588,121 @@ def _run_local(plan, split=False, wd=None):
         return outs, n_instrs
 
     return _laddered(run, split, _admission(prepare), wd)
+
+
+def _select_dtype(r):
+    """The dtype a select root orders (its operand cast as one process
+    casts it): the medians' and quantiles' inexact dtype, a complex
+    extreme's own."""
+    if r.fname == "quantile":
+        from ramba_tpu_torch.ops.extras import inexact
+
+        return E.to_torch_dtype(inexact(r.xdt))
+    if r.fname in SELECTS:
+        return E.to_torch_dtype(E.reduce_dtype(r.fname, r.xdt))
+    return E.to_torch_dtype(r.xdt)
+
+
+def _run_select(plan, r, split=False, rung="fused", err=None):
+    """A select root that a split axis spreads over positions: every
+    owner position's block (this rank's computed here, cast and laid out
+    with the reduced dims last), then ``core/rankselect.py``'s rounds,
+    then the one-process finish on this rank's device.  ``err``: this
+    rank already failed (every rank raises at the first round).  Returns
+    the whole result on every rank."""
+    from ramba_tpu_torch.core import rankselect
+
+    shape = plan.shape
+    nd = len(shape)
+    axes = tuple(r.axes)
+    kept = [d for d in range(nd) if d not in axes]
+    gsizes = [shape[d] for d in axes]
+    kshape = tuple(shape[d] for d in kept)
+    nslices = math.prod(kshape)
+    mesh = plan.sharding.mesh
+    me = distributed.process_index()
+    tdt = _select_dtype(r)
+    dev = E.common.device()
+    parts = []
+    for p in plan.owners:
+        box = plan.boxes[p]
+        rows = torch.zeros((), dtype=torch.int64)
+        for d in kept:
+            lo, hi = box[d]
+            rows = rows.unsqueeze(-1) * shape[d] + torch.arange(lo, hi)
+        rows = rows.reshape(-1)
+        part = rankselect.Part(rows, [box[d][0] for d in axes],
+                               [box[d][1] - box[d][0] for d in axes],
+                               mesh.rank_at(p))
+        if part.rank == me and err is None:
+            try:
+                v = E.convert(_value(r.exprs[plan.local_block(p)], split,
+                                     rung), tdt)
+                part.values = v.permute(*kept, *axes).reshape(len(rows), -1)
+            except Exception as e:  # joins the first round, then raises
+                err = e
+        parts.append(part)
+    keep_shape = tuple(1 if d in axes else shape[d] for d in range(nd)) \
+        if r.keepdims else kshape
+    if r.fname in COMPLEX_SELECTS:
+        got = {}
+        for want_max in ((True, False) if r.fname == "ptp"
+                         else (r.fname == "max",)):
+            got[want_max] = rankselect.extreme(
+                parts, nslices, gsizes, want_max, tdt, err).to(dev)
+        res = E.apply_map("subtract", [got[True], got[False]]) \
+            if r.fname == "ptp" else got[r.fname == "max"]
+        return res.reshape(keep_shape)
+    L = math.prod(gsizes)
+    if r.fname != "quantile":
+        skip_nan = r.fname == "nanmedian"
+
+        def positions(valid):
+            if skip_nan:
+                return torch.stack(E.median_positions(L, valid))
+            lo, hi = E.median_positions(L)
+            return torch.tensor([[lo], [hi]]).expand(2, len(valid))
+
+        vals, _n = rankselect.select(parts, nslices, gsizes, skip_nan,
+                                     positions, tdt, err)
+        low, high = vals.to(dev).unbind(0)
+        return E.median_finish(low, high).reshape(keep_shape)
+    from ramba_tpu_torch.core.fuser import leaf_value
+    from ramba_tpu_torch.ops import extras
+
+    kw = dict(r.node.static[1])
+    q = r.node.args[1]
+    qv = E.as_tensor(q.value) if isinstance(q, Scalar) else leaf_value(q)
+    qshape = tuple(qv.shape)
+    nan = kw["nan"]
+    static_count = not nan or r.xdt.kind != "f"
+
+    def weights(valid, where):
+        qb = qv.to(where).reshape(qshape + (1,))
+        top = valid.to(where, qv.dtype) - 1 if nan else torch.full(
+            (), L - 1.0, dtype=qv.dtype, device=where)
+        return extras.quantile_positions(qb, float(L), top, kw["percent"],
+                                         static_count)
+
+    seen = {}
+
+    def positions(valid):
+        seen["valid"] = valid
+        low, high, _lw, _hw = weights(valid, "cpu")
+        return torch.cat([x.expand(qshape + (nslices,)).reshape(-1, nslices)
+                          for x in (low, high)])
+
+    vals, _n = rankselect.select(parts, nslices, gsizes,
+                                 nan and r.xdt.kind == "f", positions, tdt,
+                                 err)
+    nq = vals.shape[0] // 2
+    lv, hv = (v.reshape(qshape + (nslices,)).to(dev)
+              for v in (vals[:nq], vals[nq:]))
+    _lo, _hi, lw, hw = weights(seen["valid"], dev)
+    res = extras.quantile_finish(lv, hv, lw, hw, kw["method"], tdt)
+    res = res.reshape(qshape + kshape)
+    return extras.quantile_shape(qshape, shape, kw.get("axis"),
+                                 kw["keepdims"], res)
 
 
 def _finish_local(plan, outs):
@@ -1425,6 +1733,19 @@ def _finish_local(plan, outs):
             continue
         if r.kind == "segment" and r.out is None:
             consts.append(Const(_segment_finish(r, folded[i][0])))
+            continue
+        if r.kind == "select" and not r.local:
+            osh, oshape = r.out
+            v = outs[i]
+            consts.append(_block_const(v, plan.sharding.mesh, osh)
+                          if v.ndim else Const(v))
+            continue
+        if r.kind == "select":
+            osh, oshape = r.out
+            vals = local(r, i, osh, oshape, lambda v: v)
+            consts.append(Const(_mesh.pack(vals), sharding=osh,
+                                shape=oshape) if oshape else
+                          Const(vals[0]))
             continue
         if r.kind in ("axis", "segment"):
             osh, oshape = r.out

@@ -1019,19 +1019,72 @@ def _aval_quantile(kw, a, q):
     return Aval(tuple(q.shape) + tuple(red), inexact(a.dtype))
 
 
+QUANTILE_METHODS = ("linear", "lower", "higher", "midpoint", "nearest")
+
+
+def quantile_positions(qb, n, top, percent, static_count):
+    """``(low, high, lw, hw)`` of a quantile: the positions of the two
+    values it reads in a sorted slice of ``n`` (``top``: the last valid
+    position, in q's dtype: ``n - 1``, or a nan kind's count less one)
+    and their weights, for ``qb`` (q broadcast against ``top``).
+
+    ``percent``: q is in percent.  ramba_tpu divides by 100 under XLA,
+    which turns ``q / 100 * (n - 1)`` into ``q * ((n - 1) / 100)`` where
+    the count is static (``static_count``: a plain kind, or a dtype with
+    no NaN, whose count XLA knows) and into ``(q * 0.01) * (count - 1)``
+    where it is not; the position is formed the same way, so it rounds
+    the same."""
+    if percent and static_count:
+        qq = qb * ((n - 1) / 100)
+    elif percent:
+        qq = (qb * (1 / 100)) * top
+    else:
+        qq = qb * top
+    low, high = torch.floor(qq), torch.ceil(qq)
+    hw = qq - low
+    lw = 1 - hw
+    zero = torch.zeros((), dtype=qb.dtype, device=qb.device)
+    low = torch.maximum(zero, torch.minimum(low, top)).to(torch.int64)
+    high = torch.maximum(zero, torch.minimum(high, top)).to(torch.int64)
+    return low, high, lw, hw
+
+
+def quantile_finish(lv, hv, lw, hw, method, out_dt):
+    """A quantile from the values at its two positions: ``method``'s
+    interpolation in q's dtype (the weights'), cast to ``out_dt``."""
+    qd = lw.dtype
+    if method == "linear":
+        r = lv.to(qd) * lw + hv.to(qd) * hw
+    elif method == "lower":
+        r = lv
+    elif method == "higher":
+        r = hv
+    elif method == "nearest":
+        r = torch.where(hw <= 0.5, lv, hv)
+    else:
+        r = (lv + hv) * 0.5
+    return r.to(out_dt)
+
+
+def quantile_shape(qshape, shape, axis, keepdims, r):
+    """The quantile's result ``r`` (``qshape + kept dims``) with the
+    reduced dims kept as 1 where ``keepdims``."""
+    if not keepdims:
+        return r
+    if axis is None:
+        return r.reshape(tuple(qshape) + (1,) * len(shape))
+    return r.unsqueeze(len(qshape) + axis % len(shape))
+
+
 @register_call("quantile", _aval_quantile)
 def _quantile(a, q, axis=None, keepdims=False, method="linear", nan=False,
               percent=False):
     """``jnp.quantile``/``nanquantile`` on the port's sort (torch.quantile
-    refuses more than 2**24 elements): the interpolation is computed in
-    q's dtype and cast to the inexact dtype of ``a`` at the end.
-
-    ``percent``: q is in percent.  ramba_tpu divides by 100 under XLA,
-    which turns ``q / 100 * (n - 1)`` into ``q * ((n - 1) / 100)`` where
-    the count is static (and for a dtype with no NaN, whose count XLA
-    knows) and into ``(q * 0.01) * (count - 1)`` where it is not; the
-    port forms the position the same way, so it rounds the same."""
-    if method not in ("linear", "lower", "higher", "midpoint", "nearest"):
+    refuses more than 2**24 elements): the positions
+    (:func:`quantile_positions`) and the interpolation
+    (:func:`quantile_finish`) are computed in q's dtype and cast to the
+    inexact dtype of ``a`` at the end."""
+    if method not in QUANTILE_METHODS:
         raise ValueError("method can only be 'linear', 'lower', 'higher', "
                          "'midpoint', or 'nearest'")
     out_dt = E.to_torch_dtype(inexact(E.to_np_dtype(a.dtype)))
@@ -1045,57 +1098,29 @@ def _quantile(a, q, axis=None, keepdims=False, method="linear", nan=False,
     if x.shape[-1] == 0:  # nanquantile of nothing: NaN, as NumPy
         r = torch.full(tuple(q.shape) + tuple(x.shape[:-1]), float("nan"),
                        dtype=out_dt, device=x.device)
-        if keepdims:
-            r = r.unsqueeze(len(q.shape) + ax) if axis is not None \
-                else r.reshape(q.shape + (1,) * a.ndim)
-        return r
+        return quantile_shape(q.shape, a.shape, axis, keepdims, r)
     qb = q.reshape(q.shape + (1,) * x.ndim)
     n = float(x.shape[-1])
     static_count = not nan or not a.is_floating_point()
+    x = E.order_values(x, nan)
     if nan:
-        x = torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
-        s = torch.sort(x, dim=-1).values
-        cnt = (~torch.isnan(s)).sum(-1, keepdim=True).to(qd)
-        top = cnt - 1
+        top = (~torch.isnan(x)).sum(-1, keepdim=True).to(qd) - 1
     else:
-        x = torch.where(torch.isnan(x).any(-1, keepdim=True),
-                        torch.full_like(x, float("nan")), x)
-        s = torch.sort(x, dim=-1).values
         top = torch.full((), n - 1, dtype=qd, device=x.device)
-    if percent and static_count:
-        qq = qb * ((n - 1) / 100)
-    elif percent:
-        qq = (qb * (1 / 100)) * top
-    else:
-        qq = qb * top
-    low, high = torch.floor(qq), torch.ceil(qq)
-    hw = qq - low
-    lw = 1 - hw
-    zero = torch.zeros((), dtype=qd, device=x.device)
-    low = torch.maximum(zero, torch.minimum(low, top)).to(torch.int64)
-    high = torch.maximum(zero, torch.minimum(high, top)).to(torch.int64)
+    low, high, lw, hw = quantile_positions(qb, n, top, percent,
+                                           static_count)
+    s = E.sorted_values(x)
     sx = s.expand(q.shape + tuple(s.shape))
     lv = torch.gather(sx, -1, low.expand(q.shape + tuple(s.shape[:-1]) + (1,)))
     hv = torch.gather(sx, -1, high.expand(q.shape + tuple(s.shape[:-1]) + (1,)))
-    if method == "linear":
-        r = lv.to(qd) * lw + hv.to(qd) * hw
-    elif method == "lower":
-        r = lv
-    elif method == "higher":
-        r = hv
-    elif method == "nearest":
-        r = torch.where(hw <= 0.5, lv, hv)
-    else:
-        r = (lv + hv) * 0.5
-    r = r[..., 0]  # (q..., rest...)
-    if keepdims:
-        r = r.unsqueeze(len(q.shape) + (0 if axis is None else ax)) \
-            if axis is not None else r.reshape(q.shape + (1,) * a.ndim)
-    return r.to(out_dt)
+    r = quantile_finish(lv, hv, lw, hw, method, out_dt)[..., 0]
+    return quantile_shape(q.shape, a.shape, axis, keepdims, r)
 
 
 def _q_arg(q):
-    return asarray(np.asarray(q, dtype=float))
+    """q as a constant every rank holds whole (on a mesh of ranks the
+    quantile's selection reads it on every rank)."""
+    return E.Const(E.tensor_from_numpy(np.asarray(q, dtype=float)))
 
 
 def _quantile_call(a, q, axis, keepdims, method, nan, percent=False):

@@ -23,7 +23,9 @@ logs); ``serve`` star2 flushes of a serve session on every rank through
 the pipeline under a rank-skewed ``serve:admit`` fault (the shed set
 each rank records, with its agreed epochs, and its blocks against the
 same programs on the default stream); ``positions`` ranks that hold
-several positions of a (2, 2) mesh (:func:`_positions`).  On the card
+several positions of a (2, 2) mesh (:func:`_positions`); ``select``
+medians, quantiles and the last folds across those worlds
+(:func:`_select`).  On the card
 (``tests/test_torch_cuda.py``), ``card`` runs star2
 through the CUDA stencil kernel on each rank's block and ``nccl`` one
 rank's collectives over NCCL.  :func:`programs` takes the package as an argument, so the test runs
@@ -1036,6 +1038,294 @@ def _positions(rt, rank, outdir):
         json.dump(info, f)
 
 
+# order statistics across ranks (core/rankselect.py): the worlds of the
+# positions mode, over its grid
+SELECT_QS = (0.001, 0.25, 0.5, 0.75, 0.999)
+SELECT_METHODS = ("lower", "higher", "midpoint", "nearest")
+SELECT_DTYPES = ("int8", "uint8", "uint16", "uint32", "uint64", "int64",
+                 "float16", "float32", "bool")
+
+
+def select_inputs(shape=POSITIONS_GRID):
+    """The select mode's arrays as NumPy, from a seed: the positions
+    grid with NaNs (an all-NaN row), the grid in every dtype of the sweep
+    (int64 and uint64 near their limits), signed zeros around the middle,
+    complex values with NaN parts."""
+    grid, grid_nan, *_r = positions_inputs()
+    if shape != POSITIONS_GRID:
+        rng = np.random.default_rng(29)
+        grid = rng.standard_normal(shape)
+        grid_nan = np.where(rng.random(shape) < 0.1, np.nan, grid)
+        grid_nan[3, :] = np.nan
+    rng = np.random.default_rng(31)
+    out = {"f64": grid_nan, "g64": grid}
+    ints = np.round(grid * 40)
+    out["int8"] = np.clip(ints, -128, 127).astype(np.int8)
+    for dt in ("uint8", "uint16", "uint32"):
+        out[dt] = np.abs(ints).astype(dt)
+    out["uint64"] = (np.uint64(2 ** 64 - 1)
+                     - np.abs(ints).astype(np.uint64) * np.uint64(997))
+    big = np.abs(ints).astype(np.int64) * 1009
+    out["int64"] = np.where(grid > 0, np.int64(2 ** 63 - 1) - big,
+                            np.int64(-2 ** 63) + big)
+    out["float16"] = grid_nan.astype(np.float16)
+    out["float32"] = grid_nan.astype(np.float32)
+    out["bool"] = grid > 0.3
+    z = np.where(rng.random(shape) < 0.5, -0.0, 0.0)
+    r = rng.random(shape)
+    z[r < 0.2] = -1.5
+    z[r > 0.8] = 2.5
+    out["zeros"] = z
+    c = grid + 1j * np.roll(grid, 1, axis=1)
+    c[np.round(grid * 7) == 3] = np.nan  # NaN real and imaginary parts
+    c.imag[np.round(grid * 9) == -4] = np.nan
+    c.real[np.round(grid * 11) == 5] = np.nan
+    c.real[:, 4] = np.round(c.real[:, 4])  # ties on the real part
+    out["c128"] = c
+    out["c64"] = c.astype(np.complex64)
+    out["c128full"] = grid + 1j * np.roll(grid, 1, axis=1)
+    return out
+
+
+def select_programs(rt, shape=POSITIONS_GRID):
+    """The programs every world of the select mode runs (each a dict of
+    NumPy results), ``rt`` either package (``ramba_tpu`` on a one-device
+    mesh for the reference)."""
+    d = select_inputs(shape)
+    axes = (None, 0, 1)
+
+    def key(a):
+        return "w" if a is None else f"a{a}"
+
+    def medians():
+        out = {}
+        x, g = rt.fromarray(d["f64"]), rt.fromarray(d["g64"])
+        for a in axes:
+            for src, nm in ((x, "nan"), (g, "full")):
+                out[f"median_{nm}_{key(a)}"] = np.asarray(rt.median(src, axis=a))
+                out[f"nanmedian_{nm}_{key(a)}"] = np.asarray(
+                    rt.nanmedian(src, axis=a))
+        out["median_keep"] = np.asarray(rt.median(g, axis=0, keepdims=True))
+        out["nanmedian_keep"] = np.asarray(rt.nanmedian(x, keepdims=True))
+        return out
+
+    def quantiles():
+        out = {}
+        x, g = rt.fromarray(d["f64"]), rt.fromarray(d["g64"])
+        qs = list(SELECT_QS)
+        for a in axes:
+            k = key(a)
+            out[f"quantile_nan_{k}"] = np.asarray(rt.quantile(x, qs, axis=a))
+            for m in ("linear",) + SELECT_METHODS:
+                out[f"quantile_{m}_{k}"] = np.asarray(rt.quantile(
+                    g, qs if m == "linear" else 0.5, axis=a, method=m))
+                out[f"nanquantile_{m}_{k}"] = np.asarray(
+                    rt.nanquantile(x, qs, axis=a, method=m))
+                out[f"percentile_{m}_{k}"] = np.asarray(rt.percentile(
+                    g, [1.0, 37.0, 99.0], axis=a, method=m))
+                out[f"nanpercentile_{m}_{k}"] = np.asarray(
+                    rt.nanpercentile(x, 37, axis=a, method=m))
+        out["quantile_keep"] = np.asarray(
+            rt.quantile(g, qs, axis=1, keepdims=True))
+        out["nanquantile_keep"] = np.asarray(
+            rt.nanquantile(x, 0.3, keepdims=True))
+        return out
+
+    def dtypes():
+        out = {}
+        for dt in SELECT_DTYPES:
+            v = rt.fromarray(d[dt])
+            out[f"{dt}_median_w"] = np.asarray(rt.median(v))
+            out[f"{dt}_median_a0"] = np.asarray(rt.median(v, axis=0))
+            out[f"{dt}_quantile_a1"] = np.asarray(
+                rt.quantile(v, [0.25, 0.999], axis=1))
+            out[f"{dt}_nanpercentile_a0"] = np.asarray(
+                rt.nanpercentile(v, 37, axis=0, method="nearest"))
+        z = rt.fromarray(d["zeros"])
+        for a in axes:
+            out[f"zeros_median_{key(a)}"] = np.asarray(rt.median(z, axis=a))
+        out["zeros_nanmedian_a1"] = np.asarray(rt.nanmedian(z, axis=1))
+        for a in (None, 1):
+            for m in ("linear",) + SELECT_METHODS:
+                out[f"zeros_quantile_{m}_{key(a)}"] = np.asarray(
+                    rt.quantile(z, [0.3, 0.5, 0.7], axis=a, method=m))
+        return out
+
+    def folds():
+        out = {}
+        for dt in ("f64", "float32", "c128"):
+            v = rt.fromarray(d[dt])
+            for fn in ("nanvar", "nanstd"):
+                for ddof in (0, 1):
+                    for a in axes:
+                        out[f"{dt}_{fn}_d{ddof}_{key(a)}"] = np.asarray(
+                            getattr(rt, fn)(v, axis=a, ddof=ddof))
+        for dt in ("f64", "int8", "uint64", "bool", "c128"):
+            v = rt.fromarray(d[dt])
+            for a in axes:
+                out[f"{dt}_count_nonzero_{key(a)}"] = np.asarray(
+                    rt.count_nonzero(v, axis=a))
+        for dt in ("f64", "g64", "int8", "uint64", "float32"):
+            v = rt.fromarray(d[dt])
+            for a in axes:
+                out[f"{dt}_ptp_{key(a)}"] = np.asarray(rt.ptp(v, axis=a))
+        return out
+
+    def complexes():
+        out = {}
+        for dt in ("c128", "c64", "c128full"):
+            v = rt.fromarray(d[dt])
+            for fn in ("min", "max", "ptp", "var", "std"):
+                for a in axes:
+                    out[f"{dt}_{fn}_{key(a)}"] = np.asarray(
+                        getattr(rt, fn)(v, axis=a))
+        out["c128_max_keep"] = np.asarray(rt.max(rt.fromarray(d["c128"]),
+                                                 axis=0, keepdims=True))
+        return out
+
+    def local():
+        # rows over all four positions: a reduction along axis 1 reads
+        # whole slices in every block, so each block reduces its own
+        out = {}
+        x = rt.fromarray(d["f64"], distribution=(4, 1))
+        g = rt.fromarray(d["g64"], distribution=(4, 1))
+        c = rt.fromarray(d["c128"], distribution=(4, 1))
+        qs = list(SELECT_QS)
+        out["median_a1"] = np.asarray(rt.median(g, axis=1))
+        out["nanmedian_a1"] = np.asarray(rt.nanmedian(x, axis=1))
+        out["quantile_a1"] = np.asarray(rt.quantile(g, qs, axis=1))
+        out["nanquantile_keep_a1"] = np.asarray(
+            rt.nanquantile(x, qs, axis=1, keepdims=True))
+        out["cmax_a1"] = np.asarray(rt.max(c, axis=1))
+        out["cptp_a1"] = np.asarray(rt.ptp(c, axis=1))
+        return out
+
+    return {"medians": medians, "quantiles": quantiles, "dtypes": dtypes,
+            "folds": folds, "complex": complexes, "local": local}
+
+
+def _select(rt, rank, outdir):
+    """The select mode (``RAMBA_POSITIONS_RANKS``: the (2, 2) mesh's
+    ranks); ``RAMBA_SELECT_CASE``: ``main`` runs :func:`select_programs`,
+    recording each program's gathered flushes, all-gathered bytes and
+    selection rounds, the empty extents' errors, and a hint over a
+    computed value of another layout (and one over a subtree that is not
+    shard-local); ``sizes`` runs whole and axis selections at two sizes
+    and records each one's all-gathered bytes and rounds; ``stall``
+    stalls rank 1 inside a selection under the watchdog."""
+    from ramba_tpu_torch import parallel
+    from ramba_tpu_torch.core import fuser, rankselect
+    from ramba_tpu_torch.parallel import distributed
+    from ramba_tpu_torch.parallel import mesh as pm
+    from ramba_tpu_torch.resilience import faults
+
+    ranks = [int(r) for r in os.environ["RAMBA_POSITIONS_RANKS"].split(",")]
+    rt.set_mesh(pm.rank_mesh((2, 2), ranks=ranks))
+    case = os.environ.get("RAMBA_SELECT_CASE", "main")
+    res, info = {}, {"gathered": {}, "allgather_bytes": {}, "rounds": {}}
+
+    def record():
+        np.savez(os.path.join(outdir, f"rank{rank}.npz"), **res)
+        with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+            json.dump(info, f)
+
+    def flushed(name, make):
+        """``make()`` flushed alone: its gathered programs, all-gathered
+        bytes and selection rounds recorded, then read back."""
+        g0 = fuser.stats["gathered"]
+        b0 = parallel.comm_stats.get("allgather_bytes", 0)
+        r0 = rankselect.stats["rounds"]
+        out = make()
+        rt.sync()
+        info["gathered"][name] = fuser.stats["gathered"] - g0
+        info["allgather_bytes"][name] = \
+            parallel.comm_stats.get("allgather_bytes", 0) - b0
+        info["rounds"][name] = rankselect.stats["rounds"] - r0
+        res[name] = np.asarray(out)
+
+    if case == "stall":
+        x = rt.fromarray(select_inputs()["g64"])
+        rt.sync()
+        t0 = time.monotonic()
+        try:
+            with faults.active("select:round:hang:ms=4000:after=5:rank=1"):
+                float(rt.median(x))
+            info["error"] = None
+        except Exception as e:  # noqa: BLE001 - the class is the result
+            info["error"] = type(e).__name__
+        info["seconds"] = time.monotonic() - t0
+        info["broken"] = distributed.broken() is not None
+        record()
+        os._exit(0)  # a helper thread may still wait in gloo
+    if case == "sizes":
+        for tag, shape in (("small", POSITIONS_GRID), ("large", (92, 76))):
+            g = rt.fromarray(select_inputs(shape)["g64"])
+            rt.sync()
+            flushed(f"{tag}_median", lambda: rt.median(g))
+            flushed(f"{tag}_quantile", lambda: rt.quantile(g, [0.25, 0.75]))
+            flushed(f"{tag}_median_a0", lambda: rt.median(g, axis=0))
+        record()
+        return
+    progs = select_programs(rt)
+    for name, fn in progs.items():
+        g0 = fuser.stats["gathered"]
+        b0 = parallel.comm_stats.get("allgather_bytes", 0)
+        r0 = rankselect.stats["rounds"]
+        for k, v in fn().items():
+            res[f"{name}/{k}"] = np.asarray(v)
+        info["gathered"][name] = fuser.stats["gathered"] - g0
+        info["allgather_bytes"][name] = \
+            parallel.comm_stats.get("allgather_bytes", 0) - b0
+        info["rounds"][name] = rankselect.stats["rounds"] - r0
+    d = select_inputs()
+    g = rt.fromarray(d["g64"])
+    flushed("sel/median", lambda: rt.median(g))
+    flushed("sel/quantile5", lambda: rt.quantile(g, list(SELECT_QS)))
+    flushed("sel/nanvar", lambda: rt.nanvar(rt.fromarray(d["f64"])))
+    # the empty extents raise at the call, from the shapes
+    e = rt.fromarray(np.zeros((0, 5)))
+    errs = {}
+    for nm, fn in (("quantile", lambda: rt.quantile(e, 0.5, axis=0)),
+                   ("ptp", lambda: rt.ptp(e, axis=0)),
+                   ("cmax", lambda: rt.max(rt.fromarray(
+                       np.zeros((0, 5), complex)), axis=0))):
+        try:
+            fn()
+            errs[nm] = None
+        except Exception as ex:  # noqa: BLE001 - the class is the result
+            errs[nm] = type(ex).__name__
+    res["empty/nanmedian"] = np.asarray(rt.nanmedian(e, axis=0))
+    res["empty/nanquantile"] = np.asarray(rt.nanquantile(e, 0.5, axis=0))
+    info["empty_errors"] = errs
+    # a hint over a computed value: 2.5 x + 1 of x in rows, into columns
+    x = rt.fromarray(d["g64"], distribution=(4, 1))
+    y2 = rt.fromarray(d["g64"][::-1].copy(), distribution=(1, 4))
+    rt.sync()
+    info["hint_from"] = str(x.sharding.spec)
+    s0 = dict(parallel.comm_stats)
+    g0 = fuser.stats["gathered"]
+    y = 2.5 * x + 1
+    rt.add_constraint([y], 1)
+    total = rt.sum(y + y2)
+    rt.sync()
+    info["hint_gathered"] = fuser.stats["gathered"] - g0
+    info["hint_comm"] = {k: v - s0.get(k, 0)
+                         for k, v in parallel.comm_stats.items()
+                         if v != s0.get(k, 0)}
+    info["hint_to"] = str(y.sharding.spec)
+    res["hint/y"] = np.asarray(y)
+    res["hint/sum"] = np.asarray(total)
+    # a subtree that is not shard-local keeps its hint: gathered
+    g0 = fuser.stats["gathered"]
+    w = rt.fromarray(d["g64"], distribution=(4, 1))
+    v = w[::-1] * 2.0
+    rt.add_constraint([v], 1)
+    res["hint/gathered_sum"] = np.asarray(rt.sum(v + y2))
+    info["hint_not_local_gathered"] = fuser.stats["gathered"] - g0
+    rt.clear_constraints()
+    record()
+
+
 def card_grid():
     return np.random.default_rng(5).random(CARD_GRID).astype(np.float32)
 
@@ -1130,7 +1420,7 @@ def main(argv) -> int:
      "compile": _compile, "analyze": _analyze,
      "ladder": _ladder, "elastic": _elastic,
      "observe": _observe, "serve": _serve,
-     "positions": _positions}[mode](rt, rank, outdir)
+     "positions": _positions, "select": _select}[mode](rt, rank, outdir)
     distributed.shutdown()
     return 0
 
