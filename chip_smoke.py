@@ -20,6 +20,8 @@
                                        # positions of a mesh
     python3 chip_smoke.py --select   # phase 1 and medians, quantiles and
                                      # the last folds across ranks
+    python3 chip_smoke.py --dot      # phase 1 and matmul and the
+                                     # contractions across ranks
 
 Phases, each reported on its own line:
 
@@ -204,7 +206,7 @@ Phases, each reported on its own line:
    heartbeat during 100 star2 sweeps and a seeded miss; (e) the
    ``CheckpointManager`` solver (8192^2, saves every 25, keep 2) and a
    child killed after step 50 resumed by a fresh process to the same
-   bytes; (f) a checkpoint of the 8192^2 grid and a 2^28 float64 series
+   bytes; (f) a checkpoint of the 8192^2 grid and a 2^26 float64 series
    resumed 4 -> 2 ranks -> this process (under a budget that spills) ->
    4 ranks, byte-equal; (g) ``live_reshape`` between meshes of shards
    (2x2 -> 4x1 -> one shard), of ranks ((2, 2) -> (4, 1)), and its
@@ -252,7 +254,7 @@ Phases, each reported on its own line:
    --replica``) on this card share one temporary RAMBA_ARTIFACTS,
    RAMBA_CACHE and RAMBA_FLEET_DIR (0.5 s interval), and every session
    runs the step log ``init``, ``affine(1.01, 1.0)``, ``affine(1.01,
-   2.0)``, ``sum``, ``digest`` over 2^28 float64; (a) three replicas
+   2.0)``, ``sum``, ``digest`` over 2^27 float64; (a) three replicas
    healthy with the same kernel fingerprints, the collector CLI's goodput
    against the raw documents, a torn document stale, a publish (on this
    process, on its thread too) leaving a spin kernel running and adding
@@ -264,14 +266,14 @@ Phases, each reported on its own line:
    replica SIGKILLed after step 2: redirects, heals, a fleet-breaker
    trip, four reference digests, the survivor's elemred launches with
    the replays; (c) the warm pool: a cold child (``--fleet-child
-   trace``) runs the sin/cos chain over a 2^28 float64 base, axpy + sum
+   trace``) runs the sin/cos chain over a 2^27 float64 base, axpy + sum
    and the hourly groupby sum under RAMBA_TRACE, a fresh one warms that
    trace's programs, then builds, loads and plans nothing in its first
    flushes and gives the same bytes, and a red brownout sheds the warm
    work; (d) under ``RAMBA_AUTOTUNE=race`` with a live pipeline the
    first axpy + sum flush runs the generic lowering, named in its span,
    while the pipeline builds elemred, and the second launches it; (e) a
-   2^28 float64 session drained on one replica and adopted on another,
+   2^27 float64 session drained on one replica and adopted on another,
    the same digest; then ``scripts/ramba_fsck_torch.py`` over the
    fleet's artifact tier and kernel cache, and over ``elastic_path``'s
    checkpoints: a clean scan exits 0, one flipped byte 1, ``--repair``
@@ -300,7 +302,17 @@ Phases, each reported on its own line:
    selections and counts byte-equal to one process, the folds within
    their bounds, no gathered program, per world the rounds, the bytes
    all-gathered against the gathered lowering's, elemred launches per
-   held block and the peak allocation.
+   held block and the peak allocation; then matmul and the
+   contractions across ranks (``dot_path``, alone with ``--dot``) in the
+   same four worlds: ``A @ B`` 8192^2 f64 and 16384^2 f32 (both
+   ``P('d0', 'd1')``), rows @ rows, cols @ rows (split-K), a 16384^2
+   matvec, ``sum(2 (A @ B) + D)``, int64 2048^2, ``einsum`` and
+   ``tensordot``: every result block the same bytes in all four worlds,
+   GSPMD's layouts, no gathered program, int64 byte-equal and the floats
+   within gamma_K of one process, the bytes each rank receives equal to
+   the schedule's closed form (against the gathered lowering's), the
+   peak allocation within the schedule's bound, the wall at the slowest
+   rank beside one process's ``torch.matmul``.
    Every kernel's launch count is set to 0 just before each path and
    read just after; a path that does not launch its kernel fails the
    run;
@@ -1880,12 +1892,20 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
     dist["positions"] = timed(
         "positions_path", positions_path, rt, torch, np, card, totals,
         dist["layout"].get("star2_ms_per_sweep_slowest_rank"))
-    log("  select_path: medians, quantiles and the last folds across ranks")
+    log("  select_path: medians, quantiles and the last folds across ranks "
+        "(its rank processes then run dot_path's programs)")
     e0 = totals["elemred"]
+    shared = {}
     dist["select"] = timed("select_path", select_path, rt, torch, np, card,
-                           totals)
+                           totals, shared)
     if totals["elemred"] == e0:
         raise Fail("select_path launched no elemred")
+    log("  dot_path: matmul and the contractions across ranks")
+    e0 = totals["elemred"]
+    dist["dot"] = timed("dot_path", dot_path, rt, torch, np, card, totals,
+                        shared["worlds"])
+    if totals["elemred"] == e0:
+        raise Fail("dot_path launched no elemred")
     log("  compile_path: segments, compile classes, the kernel cache and the "
         "backend race")
     e0, g0 = totals["elemred"], totals["segred"]
@@ -3862,10 +3882,15 @@ def dist_rank(argv) -> int:
             er, sk, sc, "axpy", lambda: float(rt.sum(2.5 * a + b)), rep)
     elif "--layout" in argv:
         layout_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, out)
-    elif "--select" in argv:
-        select_rank_programs(
-            rt, np, torch, er, sk, sc, fuser, rep, out,
-            [int(r) for r in arg["--select"].split(",")])
+    elif "--select" in argv or "--dot" in argv:
+        if "--select" in argv:
+            select_rank_programs(
+                rt, np, torch, er, sk, sc, fuser, rep, out,
+                [int(r) for r in arg["--select"].split(",")])
+        if "--dot" in argv:
+            rep["ranks"] = arg["--dot"]
+            dot_rank_programs(rt, np, torch, er, sk, sc, fuser, rep,
+                              [int(r) for r in arg["--dot"].split(",")])
     elif "--positions" in argv:
         positions_rank_programs(
             rt, np, torch, er, sk, sc, fuser, rep, out,
@@ -5577,11 +5602,13 @@ def select_refs(rt, torch, np, card):
     return ref
 
 
-def select_path(rt, torch, np, card, totals):
+def select_path(rt, torch, np, card, totals, shared=None):
     """Medians, quantiles, the last folds and a hint over a computed value
     across ranks on cuda:0 over gloo: layout_path's four ranks and
     positions_path's three worlds, every result the same bytes in each
-    world and held against one process."""
+    world and held against one process.  With ``shared`` (a dict) the
+    same rank processes then run ``dot_path``'s programs (one start-up a
+    world for both), and their reports go to ``shared["worlds"]``."""
     import os
     import tempfile
 
@@ -5602,8 +5629,9 @@ def select_path(rt, torch, np, card, totals):
             d = os.path.join(tmp, name)
             os.makedirs(os.path.join(d, f"w{world}"))
             t1 = time.perf_counter()
-            procs = dist_start(world, d, ("--select", ",".join(
-                str(r) for r in ranks)), env)
+            arg = ",".join(str(r) for r in ranks)
+            procs = dist_start(world, d, ("--select", arg) + (
+                ("--dot", arg) if shared is not None else ()), env)
             try:
                 worlds[name] = dist_wait(procs, d, time.time() + SEL_LIMIT_S)
             finally:
@@ -5613,11 +5641,392 @@ def select_path(rt, torch, np, card, totals):
                         p.wait()
             walls[name] = time.perf_counter() - t1
         out = select_check(worlds, ref, totals, card, tmp)
+    if shared is not None:
+        shared["worlds"] = worlds
     out["world_walls_s"] = walls
     out["signed_zeros"] = probe
     out["wall_s"] = time.perf_counter() - t0
     log(f"  select_path: {out['wall_s']:.1f} s, worlds (s) "
         f"{json.dumps(walls)} [{card}]")
+    return out
+
+
+# dot_path's sizes: (a), (c), (d), (f) and (h) 8192^2 f64; (b) 16384^2 f32;
+# (e) 16384^2 f64 @ 16384; (g) int64 2048^2
+DOT_N = 8192
+DOT_N32 = 16384
+DOT_MV = 16384
+DOT_INT = 2048
+DOT_LIMIT_S = 300
+DD = (("d0", "d1"), ("d0", "d1"))
+# per program: dtype, (M, K, N) (N None: a vector), the operands' specs,
+# the call, and the schedule's closed form (``dot_formula``); (h) reuses
+# (a)'s operands
+DOT_PROGRAMS = {
+    "a_dd_f64": ("float64", (DOT_N, DOT_N, DOT_N), DD, "matmul", "dd"),
+    "h_einsum": ("float64", (DOT_N, DOT_N, DOT_N), DD, "einsum", "dd"),
+    "h_tensordot": ("float64", (DOT_N, DOT_N, DOT_N), DD, "tensordot", "dd"),
+    "f_epilogue": ("float64", (DOT_N, DOT_N, DOT_N), DD, "epilogue", "dd"),
+    "b_dd_f32": ("float32", (DOT_N32, DOT_N32, DOT_N32), DD, "matmul", "dd"),
+    "c_rows_rows": ("float64", (DOT_N, DOT_N, DOT_N),
+                    (("d0", None), ("d0", None)), "matmul", "rows"),
+    "d_cols_rows": ("float64", (DOT_N, DOT_N, DOT_N),
+                    ((None, "d0"), ("d0", None)), "matmul", "cols_rows"),
+    "e_matvec": ("float64", (DOT_MV, DOT_MV, None), (("d0", "d1"), ("d0",)),
+                 "matmul", "mv"),
+    "g_int64": ("int64", (DOT_INT, DOT_INT, DOT_INT), DD, "matmul", "dd"),
+}
+
+
+def _dot_span(n, i):
+    c = -(-n // 2)
+    return max(0, min((i + 1) * c, n) - min(i * c, n))
+
+
+def dot_formula(form, mkn, item, ranks, rank):
+    """The bytes ``rank`` receives, written out from the blocks' ranges on
+    the (2, 2) mesh held as ``ranks`` (grid order): ``dd``
+    (output-stationary) A's box (i, t) and B's (t, j) of each K half t
+    that none of its positions holds, for each result block (i, j); ``rows``
+    B's K halves it holds no row of; ``cols_rows`` (split-K, replicated)
+    an M x N product for each K half it holds no row of; ``mv``
+    (split-K) per result block i and K half t the product (M_i) where it
+    lacks A's block (i, t), else v's half t where it holds no row t."""
+    M, K, N = mkn
+    own = [(i, j) for i in range(2) for j in range(2)
+           if ranks[2 * i + j] == rank]
+    rows = {i for i, _j in own}
+    if form == "dd":
+        boxes = {("A", i, t) for i, j in own for t in range(2)
+                 if (i, t) not in own}
+        boxes |= {("B", t, j) for i, j in own for t in range(2)
+                  if (t, j) not in own}
+        return item * sum(_dot_span(M, i) * _dot_span(K, t) if w == "A"
+                          else _dot_span(K, i) * _dot_span(N, t)
+                          for w, i, t in boxes)
+    if form == "rows":
+        return item * N * sum(_dot_span(K, t) for t in range(2)
+                              if t not in rows)
+    if form == "cols_rows":
+        return item * M * N * sum(1 for t in range(2) if t not in rows)
+    got, halves = 0, set()
+    for i in rows:
+        for t in range(2):
+            if (i, t) not in own:
+                got += item * _dot_span(M, i)
+            elif t not in rows:
+                halves.add(t)
+    return got + item * sum(_dot_span(K, t) for t in halves)
+
+
+def _dot_operands(rt, torch, pm, name, cache):
+    """A program's operands, made on the card from a seed (every rank
+    the same values), laid out by its specs; whole copies kept only in
+    ``cache`` for the one-process checks."""
+    import zlib
+
+    dt, (M, K, N), (sa, sb), _call, _form = DOT_PROGRAMS[name]
+    key = (dt, M, K, N, sa, sb, name == "f_epilogue")
+    if key in cache:
+        return cache[key]
+    tdt = getattr(torch, dt)
+    g = torch.Generator(device="cuda").manual_seed(zlib.crc32(
+        repr(key).encode()))
+
+    def make(shape):
+        if dt == "int64":  # products and sums that wrap modulo 2**64
+            return torch.randint(-2 ** 62, 2 ** 62, shape, generator=g,
+                                 device="cuda", dtype=tdt)
+        return torch.randn(shape, generator=g, device="cuda", dtype=tdt)
+
+    A = make((M, K))
+    B = make((K, N) if N else (K,))
+    D = make((M, N)) if name == "f_epilogue" else None
+    ops = (rt.fromarray(A, distribution=pm.P(*sa)),
+           rt.fromarray(B, distribution=pm.P(*sb)),
+           None if D is None else rt.fromarray(D, distribution=pm.P(*sa)))
+    rt.sync()
+    cache.clear()  # the last program's operands go
+    cache[key] = (ops, (A, B, D))
+    return cache[key]
+
+
+def _dot_call(rt, name, a, b, d):
+    call = DOT_PROGRAMS[name][3]
+    if call == "einsum":
+        return rt.einsum("ij,jk->ik", a, b)
+    if call == "tensordot":
+        return rt.tensordot(a, b, axes=1)
+    if call == "epilogue":
+        return rt.sum(2.0 * (a @ b) + d)
+    return a @ b
+
+
+def _gamma(k, eps):
+    return k * eps / (1 - k * eps)
+
+
+def dot_one_process(torch, name, whole, got, rep):
+    """World one's rank (it holds every block): the result against one
+    process's product of the whole operands (floats within gamma_K (|A|
+    @ |B|); integers byte for byte against the port's one-process path),
+    and one process's ``torch.matmul`` wall."""
+    from ramba_tpu_torch.core import expr as E
+
+    A, B, D = whole
+    dt = DOT_PROGRAMS[name][0]
+    K = A.shape[1]
+    if dt == "int64":
+        want = E._bmm(A[None], B[None], None)[0]
+        ms = cuda_ms(lambda: E._bmm(A[None], B[None], None), 2)
+        if not torch.equal(got, want):
+            raise Fail(f"dot {name}: differs from one process")
+        rep["one"][name] = {"ms": ms, "byte_equal": True}
+        return
+    ms = cuda_ms(lambda: torch.matmul(A, B), 3)
+    want = torch.matmul(A, B)
+    absprod = torch.matmul(A.double().abs(), B.double().abs())
+    eps = EPS[dt]
+    g = _gamma(K, eps)
+    if name == "f_epilogue":
+        want = torch.sum(2.0 * want + D)
+        n = D.numel()
+        bound = 2 * g * absprod.sum() + _gamma(n, EPS["float64"]) * (
+            2 * absprod + D.abs()).sum()
+        why = "2 gamma_K sum(|A||B|) + gamma_n sum(|2 C + D|)"
+    else:
+        bound = g * absprod
+        why = "gamma_K (|A| @ |B|)"
+    err = check_sums(f"dot {name} vs one process", got, want, bound, why)
+    ratio = float(((got.double() - want.double()).abs()
+                   / torch.as_tensor(bound, dtype=torch.float64)).max())
+    del absprod
+    rep["one"][name] = {"ms": ms, "max_abs_err": err, "err_over_bound": ratio,
+                        "bound": why}
+
+
+def dot_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, ranks):
+    """One rank of ``dot_path``: the (2, 2) mesh of ranks ``ranks``, each
+    program of :data:`DOT_PROGRAMS` on this rank's blocks: its held
+    result blocks' digests, wall, ``rankdot`` counters, peak allocation
+    against the schedule's bound, gathered flushes and launches; world
+    one's rank also holds every result against one process."""
+    from ramba_tpu_torch.core import rankdot
+    from ramba_tpu_torch.ops import segred as sg
+    from ramba_tpu_torch.parallel import mesh as pm
+
+    rt.set_mesh(pm.rank_mesh((2, 2), ranks=list(ranks)))
+    rep["held"] = [list(p) for p in rt.get_mesh().local_positions()]
+    one = len(set(ranks)) == 1
+    # apart from select_path's, which may run in this process first
+    rep.update(dot={}, one={}, dot_launches={})
+    counts = {"launches": rep["dot_launches"]}
+    cache = {}
+    t_leg = time.perf_counter()
+    # a process's first products load cuBLAS's kernels and its first
+    # exchange connects gloo's pairs: a small contraction of each dtype,
+    # and a matvec, first, untimed
+    for dt in ("float64", "float32", "int64"):
+        w = rt.ones((256, 256), dtype=dt, distribution=pm.P("d0", "d1"))
+        v = rt.ones(256, dtype=dt, distribution=pm.P("d0"))
+        (w @ w)._blocks()
+        (w @ v)._blocks()
+    rt.sync()
+    for name in DOT_PROGRAMS:
+        (a, b, d), whole = _dot_operands(rt, torch, pm, name, cache)
+        torch.cuda.synchronize()
+        g0 = fuser.stats["gathered"]
+        s0 = dict(rankdot.stats)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+
+        def run():
+            c = _dot_call(rt, name, a, b, d)
+            rt.sync()
+            return c
+
+        c = _rank_window(er, sk, sc, name, run, counts, sg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        if c.ndim:
+            blocks = {json.dumps(list(c.sharding.block_coords(p, c.ndim))):
+                      card_digest(v) for (p, _i), v in zip(
+                          c.sharding.local_blocks(c.shape), c._blocks())}
+            spec = repr(c.sharding.spec)
+        else:
+            blocks = {"()": card_digest(c._value().reshape(1))}
+            spec = "scalar"
+        rep["dot"][name] = {
+            "wall_s": wall, "peak_bytes": peak, "blocks": blocks,
+            "spec": spec, "gathered": fuser.stats["gathered"] - g0,
+            "stats": {k: rankdot.stats[k] - s0[k] for k in rankdot.stats},
+            "last": dict(rankdot.last)}
+        if one:
+            dot_one_process(torch, name, whole, c._value(), rep)
+        del c
+        torch.cuda.empty_cache()
+    rep["dot_leg_s"] = time.perf_counter() - t_leg
+
+
+def dot_check(worlds, totals, card):
+    """Hold the worlds against each other (every result block the same
+    bytes), the layouts against GSPMD's, the bytes against the formula
+    and the peaks against the bound; the per-world report."""
+    want_spec = {"a_dd_f64": "PartitionSpec('d0', 'd1')",
+                 "b_dd_f32": "PartitionSpec('d0', 'd1')",
+                 "c_rows_rows": "PartitionSpec('d0',)",
+                 "d_cols_rows": "PartitionSpec()",
+                 "e_matvec": "PartitionSpec('d0',)",
+                 "f_epilogue": "scalar",
+                 "g_int64": "PartitionSpec('d0', 'd1')",
+                 "h_einsum": "PartitionSpec('d0', 'd1')",
+                 "h_tensordot": "PartitionSpec('d0', 'd1')"}
+    merged = {}
+    for w, reps in worlds.items():
+        merged[w] = {}
+        for name in DOT_PROGRAMS:
+            got = {}
+            for r in reps:
+                got.update(r["dot"][name]["blocks"])
+                if r["dot"][name]["spec"] != want_spec[name]:
+                    raise Fail(f"dot {w} {name}: layout "
+                               f"{r['dot'][name]['spec']}, GSPMD's "
+                               f"{want_spec[name]}")
+                if r["dot"][name]["gathered"]:
+                    raise Fail(f"dot {w} {name}: gathered")
+            merged[w][name] = got
+    for w in worlds:
+        if merged[w] != merged["four"]:
+            bad = [n for n in DOT_PROGRAMS
+                   if merged[w][n] != merged["four"][n]]
+            raise Fail(f"dot {w} differs from four ranks in {bad}")
+    (one,) = worlds["one"]
+    log(f"  dot: {len(DOT_PROGRAMS)} results, every block the same bytes in "
+        f"four worlds (4 ranks, [[0, 0], [1, 1]], [[0, 1], [1, 0]], one rank "
+        f"holding four); layouts GSPMD's; no gathered program; g_int64 "
+        f"byte-equal to one process, the floats within gamma_K: " + "; ".join(
+            f"{n} max_abs_err {v['max_abs_err']:.3e}, err/bound "
+            f"{v['err_over_bound']:.2e} ({v['bound']})"
+            for n, v in one["one"].items() if "max_abs_err" in v))
+    report = {"one_process": one["one"]}
+    for w, reps in worlds.items():
+        world = len(reps)
+        ranks = [int(x) for x in reps[0]["ranks"].split(",")]
+        held = max(len(r["held"]) for r in reps)
+        per = {}
+        for name, (dt, (M, K, N), _specs, _call, form) in \
+                DOT_PROGRAMS.items():
+            item = 8 if dt in ("float64", "int64") else 4
+            ab = item * (M * K + K * (N or 1))
+            flops = 2 * M * K * (N or 1)
+            rows = [r["dot"][name] for r in reps]
+            recv = [x["stats"]["bytes_received"] for x in rows]
+            want = [dot_formula(form, (M, K, N or 1), item, ranks,
+                                r["rank"]) for r in reps]
+            if recv != want:
+                raise Fail(f"dot {w} {name}: received {recv} B, the "
+                           f"formula {want}")
+            over = [(x["peak_bytes"], x["last"]["bound_bytes"])
+                    for x in rows if x["peak_bytes"] > x["last"]
+                    ["bound_bytes"]]
+            if over:
+                raise Fail(f"dot {w} {name}: peak over the bound {over}")
+            wall = max(x["wall_s"] for x in rows)
+            per[name] = {
+                "wall_s_slowest": wall,
+                "tflops": flops / wall / 1e12,
+                "schedule": rows[0]["last"]["schedule"],
+                "received_per_rank": recv,
+                "gathered_lowering_per_rank": (world - 1) / world * ab,
+                "products": [x["stats"]["products"] for x in rows],
+                "terms": rows[0]["stats"]["terms"],
+                "flops_share": max(x["stats"]["flops"] for x in rows)
+                / flops,
+                "folds": [x["stats"]["folds"] for x in rows],
+                "exchange_s": max(x["stats"]["exchange_s"] for x in rows),
+                "product_s": max(x["stats"]["product_s"] for x in rows),
+                "peak_bytes": [x["peak_bytes"] for x in rows],
+                "bound_bytes": [x["last"]["bound_bytes"] for x in rows],
+                "one_process_ms": one["one"][name]["ms"]}
+            if name == "f_epilogue":
+                lr = max(r["dot_launches"][name]["elemred"]
+                         for r in reps) / held
+                if lr != 1:
+                    raise Fail(f"dot {w} f_epilogue: {lr} elemred launches "
+                               "a held block, want 1")
+                per[name]["elemred_per_held_block"] = lr
+            p = per[name]
+            log(f"  dot {w} {name} ({dt}, {p['schedule']}, {p['terms']} "
+                f"terms): {wall * 1e3:.1f} ms at the slowest rank "
+                f"({p['tflops']:.3f} TFLOP/s against 67) beside one "
+                f"process's {p['one_process_ms']:.3f} ms; received a rank "
+                f"{max(recv)} B, the formula's, against the gathered "
+                f"lowering's {p['gathered_lowering_per_rank']:.0f}"
+                f"; products a rank {p['products']}, flops share "
+                f"{p['flops_share']:.4f}; exchange {p['exchange_s']:.3f} s, "
+                f"products {p['product_s']:.3f} s; peak a rank "
+                f"{max(p['peak_bytes'])} B within {max(p['bound_bytes'])}" + (
+                    f"; elemred a held block {p['elemred_per_held_block']}"
+                    if name == "f_epilogue" else "") + f" [{card}]")
+        for r in reps:
+            for kk in totals:
+                totals[kk] += sum(c.get(kk, 0) for c in r["dot_launches"]
+                                  .values())
+        report[w] = {"wall_s_slowest_rank": max(r["dot_leg_s"]
+                                                for r in reps),
+                     "held_blocks": held, "gathered": 0, "programs": per}
+    return report
+
+
+def dot_path(rt, torch, np, card, totals, worlds=None):
+    """Matmul and the contractions across ranks on cuda:0 over gloo:
+    select_path's four worlds, every result the same bytes in each,
+    GSPMD's layouts, the bytes each rank receives against the schedule's
+    formula, held against one process.  ``worlds``: the reports of
+    select_path's rank processes, which ran these programs too (the
+    whole run); else this path starts its own."""
+    import os
+    import tempfile
+
+    log(f"  dot_path: 4 ranks, [[0, 0], [1, 1]], [[0, 1], [1, 0]] and one "
+        f"rank; A @ B {DOT_N}^2 f64 and {DOT_N32}^2 f32 (P('d0', 'd1') both), "
+        f"rows @ rows, cols @ rows, matvec {DOT_MV}^2, sum(2 (A @ B) + D), "
+        f"int64 {DOT_INT}^2, einsum and tensordot" + (
+            "; in select_path's rank processes" if worlds else ""))
+    t0 = time.perf_counter()
+    walls = {}
+    if worlds is None:
+        worlds = {}
+        with tempfile.TemporaryDirectory(prefix="ramba_dot_") as tmp:
+            env = {k: v for k, v in os.environ.items() if k not in (
+                "RAMBA_HBM_BUDGET", "RAMBA_RESHARD_STAGE_BYTES")}
+            for name, world, ranks in SEL_WORLDS:
+                d = os.path.join(tmp, name)
+                os.makedirs(os.path.join(d, f"w{world}"))
+                t1 = time.perf_counter()
+                procs = dist_start(world, d, ("--dot", ",".join(
+                    str(r) for r in ranks)), env)
+                try:
+                    worlds[name] = dist_wait(procs, d,
+                                             time.time() + DOT_LIMIT_S)
+                finally:
+                    for p in procs:
+                        if p.poll() is None:
+                            p.kill()
+                            p.wait()
+                walls[name] = time.perf_counter() - t1
+    out = dot_check(worlds, totals, card)
+    out["world_walls_s"] = walls
+    out["wall_s"] = time.perf_counter() - t0
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "dot_report.json"), "w") as f:
+        json.dump({"card": card, **out}, f, default=str)
+    log(f"  dot_path: {out['wall_s']:.1f} s, worlds (s) {json.dumps(walls)}, "
+        f"the leg a world at the slowest rank (s) " + json.dumps(
+            {w: out[w]["wall_s_slowest_rank"] for w in worlds}) +
+        f" [{card}]")
     return out
 
 
@@ -7649,7 +8058,9 @@ def ladder_path(rt, er, sk, sg, sc, torch, np, card, window, totals,
     return out
 
 
-ELASTIC_N = 1 << 28                # the series and the 1-D programs, float64
+# the series and the 1-D programs, float64: 2^28 until the whole run
+# neared its time limit (cut to 2^26 with dot_path's leg)
+ELASTIC_N = 1 << 26
 ELASTIC_GRID = 8192                # star2 and the solver, float32 (TMA)
 ELASTIC_SWEEPS = 20                # the iterated sweeps of (c)
 ELASTIC_FLUSHES = 200              # flushes timing the armed watchdog
@@ -7779,13 +8190,13 @@ def _launch_spy(mod):
 
 
 def elastic_stall(rt, np, torch, sc, card, window, star2):
-    """(b) A seeded ``dispatch`` hang on axpy + sum 2^28, the lower rungs
-    not planned before: degrade-class stalls within two deadlines each
+    """(b) A seeded ``dispatch`` hang on axpy + sum ELASTIC_N, the lower
+    rungs not planned before: degrade-class stalls within two deadlines each
     (a lower rung whose first plan builds past the deadline stalls too),
     the result of the rung it recovers on within the ladder's bound.
     Then a first plan abandoned during its nvcc build: ``arctan`` over
-    2^28 f64, a kernel no path built before, under a deadline below the
-    build's time; the eager rung gives ``torch.atan``'s bytes, and the
+    ELASTIC_N f64, a kernel no path built before, under a deadline below
+    the build's time; the eager rung gives ``torch.atan``'s bytes, and the
     same program unarmed launches the built kernel.  Every zombie, when
     it wakes, launches and commits nothing, and the card's allocation
     returns to its level."""
@@ -7835,7 +8246,8 @@ def elastic_stall(rt, np, torch, sc, card, window, star2):
         _elastic_env(RAMBA_WATCHDOG_S=ELASTIC_BUILD_S)
         try:
             got, bwall, bspan, bsteps = window(
-                "elastic (b) arctan 2^28 f64, built under a deadline",
+                f"elastic (b) arctan {ELASTIC_N} f64, built under a "
+                "deadline",
                 lambda: _ladder_run(torch, lambda: [rt.arctan(x)._value()]),
                 {})
         finally:
@@ -10421,7 +10833,9 @@ def serve_path(rt, er, sk, sg, sc, torch, np, card, window, totals,
 # fleet_path: the fleet on the card (ROADMAP A.10 part two)
 # ---------------------------------------------------------------------------
 
-FLEET_N = 1 << 28                  # the sessions' state, float64 (2 GiB)
+# the sessions' state, float64 (1 GiB): 2^28 until the whole run neared its
+# time limit (cut to 2^27 with dot_path's leg)
+FLEET_N = 1 << 27
 FLEET_SMALL_N = 1 << 20            # the shared memo lane's leg (8 MiB: its cap)
 FLEET_INTERVAL_S = 0.5             # every replica's RAMBA_FLEET_INTERVAL_S
 FLEET_TENANTS = ("acme", "globex", "initech", "umbrella")
@@ -10876,7 +11290,8 @@ def fleet_spool(fl, np, torch, er, sk, sg, sc, card):
     if dead_s is None or dead_s > 2 * FLEET_INTERVAL_S + 0.1:
         raise Fail(f"fleet (a): the killed replica read dead after "
                    f"{dead_s} s (interval {FLEET_INTERVAL_S} s)")
-    log(f"  fleet (a) 3 replicas, step log at 2^28 f64 in {drive_s:.2f} s: "
+    log(f"  fleet (a) 3 replicas, step log at {FLEET_N} f64 in "
+        f"{drive_s:.2f} s: "
         f"healthy, lockstep fingerprints ({len(fps['spool1'])}), goodput "
         f"{gp['flushes']} flushes = raw {raw}; torn document stale "
         f"(collector rc {rc_torn}); publish on this process {pub_ms:.2f} "
@@ -10966,7 +11381,7 @@ def fleet_router_leg(fl, np, torch, card):
         "RAMBA_BREAKER_THRESHOLD", "RAMBA_FLEET_STALE_X",
         "RAMBA_FLEET_DEAD_X")}
     # the first transport failure trips a replica's fleet breaker; the
-    # health feed tolerates a replica busy with a 2 GiB read-back
+    # health feed tolerates a replica busy with a state's read-back
     os.environ.update(RAMBA_BREAKER_THRESHOLD="1", RAMBA_FLEET_STALE_X="4",
                       RAMBA_FLEET_DEAD_X="8")
     try:
@@ -11019,7 +11434,8 @@ def fleet_router_leg(fl, np, torch, card):
                    "heals": rs["heals"], "trips": trips,
                    "survivor_elemred": st["launches"]["elemred"],
                    "survivor_nvcc_builds": st["nvcc_builds"]}
-    log(f"  fleet (b) router leg at 2^28 f64: cold replica {cold_s:.2f} s "
+    log(f"  fleet (b) router leg at {FLEET_N} f64: cold replica "
+        f"{cold_s:.2f} s "
         f"for two sessions (digests NumPy's), saved {saved}; lane-off "
         f"replica {warm_s:.2f} s, nvcc builds 0, cross-writer persist hits "
         f"{cross}, entry hits {out['nomemo']['entry_hits']}; 2^20 replica "
@@ -11054,16 +11470,16 @@ def fleet_migrate(fl, np, card):
         raise Fail(f"fleet (e): digests before {before == want}, after "
                    f"{after == want}, adopt reply {reply}")
     nbytes = reply.get("payload_bytes")
-    log(f"  fleet (e) migration of a 2^28 f64 session: {nbytes} bytes "
+    log(f"  fleet (e) migration of a {FLEET_N} f64 session: {nbytes} bytes "
         f"drained and adopted in {wall:.3f} s, digest unchanged (NumPy's) "
         f"[{card}]")
     return {"bytes": nbytes, "wall_s": wall}
 
 
 def fleet_warm(tmp, np, card, kids):
-    """(c) The warm pool: a cold child runs the sin/cos chain over a 2^28
-    f64 base, axpy + sum 2^28 and the hourly groupby sum (2^28 f64,
-    G=24) under RAMBA_TRACE, saving skeletons; a fresh child warms that
+    """(c) The warm pool: a cold child runs the sin/cos chain over a
+    FLEET_N f64 base, axpy + sum FLEET_N and the hourly groupby sum
+    (FLEET_N f64, G=24) under RAMBA_TRACE, saving skeletons; a fresh child warms that
     trace's top-K programs before any traffic: every one warmed, none
     unresolved, and its first real flush of each builds nothing and
     makes no new plan, the same bytes; a red brownout sheds the warm
@@ -11118,7 +11534,7 @@ def fleet_warm(tmp, np, card, kids):
         f"first flushes 0 builds, 0 loads, 0 new plans, all compile-cache "
         f"hits, byte-equal to the cold ones; red brownout shed "
         f"{shed['shed']} of {shed['submitted']} [{card}]")
-    log(f"  fleet (d) race pre-warm: first axpy + sum 2^28 f64 on "
+    log(f"  fleet (d) race pre-warm: first axpy + sum {FLEET_N} f64 on "
         f"{r1['backends']} with prewarm {r1['prewarm']}, its kernel built "
         f"({race['nvcc_builds']} nvcc) and launched on the pipeline, "
         f"{race['warm_wait_s']:.2f} s more; second on {r2['backends']} "
@@ -11282,6 +11698,15 @@ def main(argv) -> int:
                         "launches": totals}, default=str))
         if not totals["elemred"]:
             raise Fail("select_path launched no elemred")
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        print(card, flush=True)
+        return 0
+    if "--dot" in argv:  # phase 1 and dot_path alone
+        totals = dict.fromkeys(("elemred", "stencil", "segred", "scan"), 0)
+        log(json.dumps({"dot": dot_path(rt, torch, np, card, totals),
+                        "launches": totals}, default=str))
+        if not totals["elemred"]:
+            raise Fail("dot_path launched no elemred")
         log(f"total {time.perf_counter() - t_all:.1f} s")
         print(card, flush=True)
         return 0

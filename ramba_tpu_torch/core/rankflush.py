@@ -10,7 +10,11 @@ the checkerboard ``[[0, 1], [1, 0]]``).  Before anything runs, a
 reshard of that leaf (``parallel/reshard.py``); a hint over a computed
 value whose subtree is shard-local in its leaves' layout runs that
 subtree as a plan of its own first, then reshards its result
-(:func:`lower_hints`).  The flush then sorts the program into one of
+(:func:`lower_hints`).  Then every contraction ``core/rankdot.py`` takes
+(matmul, dot, tensordot, inner, a two-operand einsum) runs partitioned,
+each operand a leaf or a shard-local subtree run first, and becomes a
+block leaf in GSPMD's layout (:func:`lower_contractions`), so what lies
+above it is shard-local.  The flush then sorts the program into one of
 three cases, the same on every rank because it reads only the graph and
 the leaves' layouts:
 
@@ -85,11 +89,20 @@ the leaves' layouts:
   (``fuser.stats["gathered"]``, ``parallel.comm_stats["allgather_bytes"]``).
   What still takes it, and why:
 
-  - indexing (gathers, scatters, masks): an index may read any block;
-  - sort and argsort: a whole-array permutation, not a per-slice value;
-  - matmul and the other contractions: a product reads a row of one
-    operand against a column of the other;
-  - reshapes: a block of the result is no block of the operand;
+  - indexing (gathers, scatters, masks): an index may read any block
+    (GSPMD all-gathers most gathers and scatters too);
+  - sort and argsort: a whole-array permutation, not a per-slice value
+    (GSPMD all-gathers a sort along a split axis too);
+  - reshapes: a block of the result is no block of the operand (a later
+    slice);
+  - an einsum of three or more operands: one pairwise order is not
+    chosen here;
+  - batched matmul whose operands split a batch dim differently (or
+    broadcast one): no result layout holds both;
+  - a contraction of two or more dims of an operand, of an operand of
+    more than two dims besides the batch dims, or whose operand is no
+    leaf and no shard-local subtree;
+  - ``outer`` and ``kron``: not contractions;
   - leaves of different shapes, or of layouts that no hint aligns;
   - a ``shard_hint`` over a subtree that is not shard-local itself;
   - a quantile whose ``q`` is a computed array.
@@ -122,7 +135,10 @@ A plan with selections opens its gate at the start of every attempt,
 before any launch, and runs the selections' rounds inside the attempt
 (under the watchdog's deadline): a rank that fails after the gate (a
 program, a sort) joins the first selection's census with a failure
-flag, so every rank raises there, together.  Nothing retreats to the
+flag, so every rank raises there, together.  A contraction runs the
+same way, its own ladder behind one ``memory:admit`` round: each attempt
+opens its gate, and every exchange round of ``core/rankdot.py`` starts
+with the ranks agreeing whether one failed.  Nothing retreats to the
 gathered lowering.
 
 With the elastic watchdog armed (``RAMBA_WATCHDOG_S``, read once a
@@ -1197,6 +1213,96 @@ def lower_hints(exprs, mesh, wd=None):
     return _rebuild(exprs, lower)
 
 
+def _dot_operand(e, mesh):
+    """``(layout, plan)`` of a contraction's operand: a leaf's own layout
+    (replicated for a value every rank holds whole) and no plan, or the
+    shard-local plan of a subtree, to run first; None where the operand
+    is neither (the contraction takes the gathered lowering)."""
+    if isinstance(e, Const):
+        if not e.shape:
+            return None
+        if e.is_block:
+            return (e.sharding, None) if e.sharding.mesh == mesh else None
+        return _mesh.NamedSharding(mesh, _mesh.P()), None
+    if not isinstance(e, Node):
+        return None
+    plan = local_plan([e], mesh)
+    if plan is None or plan.roots[0].kind != "block":
+        return None
+    return plan.sharding, plan
+
+
+def _contract(con, consts, wd):
+    """One contraction through :mod:`core.rankdot` down the ladder, its
+    operands pinned against spilling: one ``memory:admit`` round (room
+    made first for the bytes it may hold), then each attempt opens its
+    gate before any launch and runs the contraction's rounds inside it
+    (a failure joins the next round)."""
+    from ramba_tpu_torch.core import fuser, rankdot
+    from ramba_tpu_torch.core.fuser import leaf_value
+    from ramba_tpu_torch.resilience import memory
+
+    values = [leaf_value(c) for c in consts]
+    me = distributed.process_index()
+
+    def prepare():
+        memory.reserve_headroom(con.bound_bytes(me), site="rankdot")
+
+    def run(_rung):
+        gate = fuser.launch_gate.get()
+        if gate is not None:
+            gate()
+        return rankdot.contract(con, values)
+
+    pins = memory.ledger.pin_values(values)
+    try:
+        return _laddered(run, False, _admission(prepare), wd)
+    finally:
+        memory.ledger.unpin(pins)
+
+
+def lower_contractions(exprs, mesh, wd=None):
+    """Every contraction :mod:`core.rankdot` takes (matmul, dot,
+    tensordot, inner, two-operand einsum) becomes its result: a block
+    leaf in GSPMD's layout, computed partitioned across the ranks.
+    Whether a contraction is taken is read from the graph and the
+    leaves' layouts only (the same on every rank): each operand a leaf
+    or a shard-local subtree (run first as a plan of its own); what is
+    not taken keeps its node, and its program takes the gathered
+    lowering.  A ``shard_hint`` over a contraction's result reshards
+    it."""
+    from ramba_tpu_torch.core import rankdot
+    from ramba_tpu_torch.parallel.reshard import reshard_value
+
+    made = set()
+
+    def lower(e):
+        if e.op == "shard_hint" and id(e.args[0]) in made \
+                and e.static[0].mesh == mesh:
+            return reshard_value(e.args[0], e.static[0].spec, mesh=mesh)
+        if e.op not in rankdot.OPS or rankdot.form(e) is None:
+            return None
+        ops = [_dot_operand(x, mesh) for x in e.args]
+        if None in ops:
+            return None
+        con = rankdot.plan(e, *[(tuple(x.shape), sh)
+                                for x, (sh, _p) in zip(e.args, ops)], mesh)
+        if con is None:
+            return None
+        consts = []
+        for x, (_sh, plan) in zip(e.args, ops):
+            if plan is None:
+                consts.append(x)
+            else:
+                outs, _n = _run_local(plan, False, wd)
+                consts.append(_finish_local(plan, outs)[0])
+        out = _contract(con, consts, wd)
+        made.add(id(out))
+        return out
+
+    return _rebuild(exprs, lower)
+
+
 def flush_roots(stream, roots, extra, mesh):
     """``fuser._flush_roots`` on a mesh of ranks: materialize ``roots``
     (port arrays) and ``extra`` expressions; returns the whole values of
@@ -1225,6 +1331,7 @@ def _flush_roots(stream, roots, exprs, mesh, wd):
 
                 exprs = rewrite_roots(exprs)
             exprs = lower_hints(exprs, mesh, wd)
+            exprs = lower_contractions(exprs, mesh, wd)
             split = fuser.verify_whole(exprs)
             plans = _plans(exprs, mesh)
         except Exception as e:

@@ -6,7 +6,9 @@ products to XLA (no Pallas kernel), so the port leaves them to
 runs in full float32 (TF32 off) unless :func:`set_matmul_precision` asks
 for a reduced precision; integer and bool products run in int64 on the
 device, exact modulo 2**64 as NumPy wraps.  Result dtypes follow
-``jnp``'s promotion, as in ``ramba_tpu``.
+``jnp``'s promotion, as in ``ramba_tpu``.  On a mesh of ranks the flush
+runs ``matmul``, ``dot``, ``tensordot``, ``inner`` and a two-operand
+``einsum`` partitioned, in GSPMD's layout (``core/rankdot.py``).
 """
 
 from __future__ import annotations

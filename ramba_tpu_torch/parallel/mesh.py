@@ -653,6 +653,48 @@ def pack(blocks) -> "torch.Tensor":
     return torch.cat([b.reshape(-1) for b in blocks])
 
 
+def covering(sharding: NamedSharding, shape, box) -> list:
+    """``[(coords, block box)]``: the distinct blocks of an array of
+    ``shape`` under ``sharding`` that meet the index box ``box``
+    (``(start, stop)`` per dim), in C order of their block coordinates;
+    none for an empty box."""
+    shape = tuple(int(s) for s in shape)
+    per_dim = []
+    for n, c, (lo, hi) in zip(shape, sharding.split_counts(len(shape)),
+                              box):
+        hits = []
+        for i in range(c):
+            sl = _block_range(n, c, i)
+            if max(lo, sl.start) < min(hi, sl.stop):
+                hits.append((i, (sl.start, sl.stop)))
+        if not hits:
+            return []
+        per_dim.append(hits)
+    return [(tuple(i for i, _r in combo), tuple(r for _i, r in combo))
+            for combo in itertools.product(*per_dim)]
+
+
+def holders(sharding: NamedSharding, ndim: int, coords) -> list:
+    """Every mesh position holding the block at ``coords``, grid order."""
+    coords = tuple(coords)
+    return [p for p in np.ndindex(sharding.mesh.devices.shape)
+            if sharding.block_coords(p, ndim) == coords]
+
+
+def nearest_holder(sharding: NamedSharding, ndim: int, coords, anchor):
+    """The position holding the block at ``coords`` that agrees with
+    ``anchor`` on every mesh axis the layout leaves whole (the block's
+    holders differ only there), so the ranks that fetch one block spread
+    over its copies."""
+    used = {nm for e in sharding.spec for nm in entry_names(e)}
+    keep = [i for i, nm in enumerate(sharding.mesh.axis_names)
+            if nm not in used]
+    for p in holders(sharding, ndim, coords):
+        if all(p[i] == anchor[i] for i in keep):
+            return p
+    raise KeyError(coords)
+
+
 def index_box(idx, shape) -> tuple:
     """An index of slices as ``(start, stop)`` per dim."""
     out = []

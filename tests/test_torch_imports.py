@@ -67,6 +67,7 @@ def test_importing_the_port_loads_no_jax():
         " ramba_tpu_torch.linalg, ramba_tpu_torch.core.rewrite,"
         " ramba_tpu_torch.models.pi, ramba_tpu_torch.models.kmeans,"
         " ramba_tpu_torch.parallel.distributed, ramba_tpu_torch.core.rankflush,"
+        " ramba_tpu_torch.core.rankselect, ramba_tpu_torch.core.rankdot,"
         " ramba_tpu_torch.compile.classes, ramba_tpu_torch.compile.persist,"
         " ramba_tpu_torch.observe.ledger, ramba_tpu_torch.core.autotune,"
         " ramba_tpu_torch.analyze, ramba_tpu_torch.analyze.lint,"

@@ -25,7 +25,8 @@ each rank records, with its agreed epochs, and its blocks against the
 same programs on the default stream); ``positions`` ranks that hold
 several positions of a (2, 2) mesh (:func:`_positions`); ``select``
 medians, quantiles and the last folds across those worlds
-(:func:`_select`).  On the card
+(:func:`_select`); ``dot`` matmul and the contractions across them
+(:func:`_dot`).  On the card
 (``tests/test_torch_cuda.py``), ``card`` runs star2
 through the CUDA stencil kernel on each rank's block and ``nccl`` one
 rank's collectives over NCCL.  :func:`programs` takes the package as an argument, so the test runs
@@ -1326,6 +1327,208 @@ def _select(rt, rank, outdir):
     record()
 
 
+# contractions across ranks (core/rankdot.py): the worlds of the positions
+# mode, over uneven shapes
+DOT_M, DOT_K, DOT_N = 23, 19, 17
+DOT_EVEN = (24, 20, 16)
+# the result layouts GSPMD gives (jax.jit(jnp.matmul) over a (2, 2) mesh):
+# per program its operands' specs, as tuples of entries
+DOT_LAYOUTS = {
+    "dd": (("d0", "d1"), ("d0", "d1")),
+    "rows": (("d0", None), ("d0", None)),
+    "cols_rows": ((None, "d0"), ("d0", None)),
+    "rows_cols": (("d0", None), (None, "d1")),
+    "rows_rep": (("d0", None), ()),
+    "cols_cols": ((None, "d1"), (None, "d1")),
+    "mv": (("d0", "d1"), ("d0",)),
+    "vm": (("d0",), ("d0", "d1")),
+    "truncated": (("d0", None), (None, ("d1", "d0"))),
+    # both free dims on d0: the larger operand (here B) keeps it
+    "conflict": (("d0", None), (None, "d0")),
+    "batched": (("d0", None, "d1"), ("d0", "d1", None)),
+}
+DOT_DTYPES = ("float32", "complex128", "int64", "uint8", "bool")
+
+
+def dot_inputs():
+    rng = np.random.default_rng(23)
+    M, K, N = DOT_M, DOT_K, DOT_N
+    d = {"A": rng.standard_normal((M, K)), "B": rng.standard_normal((K, N)),
+         "At": rng.standard_normal((K, M)), "Bt": rng.standard_normal((N, K)),
+         "E": rng.standard_normal((N, 13)), "D": rng.standard_normal((M, N)),
+         "v": rng.standard_normal(K), "w": rng.standard_normal(M),
+         "u": rng.standard_normal(K),
+         "A3": rng.standard_normal((4, M, K)),
+         "B3": rng.standard_normal((4, K, N))}
+    m, k, n = DOT_EVEN
+    d["Ae"], d["Be"] = rng.standard_normal((m, k)), rng.standard_normal((k, n))
+    for dt in DOT_DTYPES:
+        for nm, shape in (("A", (M, K)), ("B", (K, N))):
+            if dt == "bool":
+                x = rng.random(shape) < 0.3
+            elif dt == "uint8":
+                x = rng.integers(0, 256, shape).astype(np.uint8)
+            elif dt == "int64":  # products and sums that wrap modulo 2**64
+                x = rng.integers(-2 ** 62, 2 ** 62, shape, dtype=np.int64)
+            elif dt == "complex128":
+                x = rng.standard_normal(shape) + 1j * rng.standard_normal(
+                    shape)
+            else:
+                x = rng.standard_normal(shape).astype(dt)
+            d[f"{nm}_{dt}"] = x
+    return d
+
+
+def dot_programs(rt, put):
+    """Every contraction program: ``put(x, spec)`` lays a host array out
+    (a spec of the (2, 2) mesh's axes; in one process it is ignored).
+    Each program returns ``{key: result}``."""
+    d = dot_inputs()
+    L = DOT_LAYOUTS
+
+    def mm(name, x, y, fn=None):
+        sa, sb = L[name]
+        a, b = put(x, sa), put(y, sb)
+        return (fn or rt.matmul)(a, b)
+
+    progs = {name: (lambda name=name, x=x, y=y: {"c": mm(name, d[x], d[y])})
+             for name, x, y in (("dd", "A", "B"), ("rows", "A", "B"),
+                                ("cols_rows", "A", "B"),
+                                ("rows_cols", "A", "B"),
+                                ("rows_rep", "A", "B"),
+                                ("cols_cols", "A", "B"), ("mv", "A", "v"),
+                                ("vm", "w", "A"), ("truncated", "A", "B"),
+                                ("conflict", "Bt", "At"),
+                                ("batched", "A3", "B3"))}
+    dd = L["dd"]
+    progs["dd_even"] = lambda: {"c": put(d["Ae"], dd[0]) @ put(d["Be"], dd[1])}
+    progs["einsum"] = lambda: {
+        "ik": rt.einsum("ij,jk->ik", put(d["A"], dd[0]), put(d["B"], dd[1])),
+        "ki": rt.einsum("ij,jk->ki", put(d["A"], dd[0]), put(d["B"], dd[1]))}
+    progs["tensordot"] = lambda: {
+        "axes1": rt.tensordot(put(d["A"], dd[0]), put(d["B"], dd[1]), axes=1),
+        "at_b": rt.tensordot(put(d["At"], dd[0]), put(d["B"], dd[1]),
+                             axes=((0,), (0,)))}
+    progs["inner"] = lambda: {
+        "mat": rt.inner(put(d["A"], dd[0]), put(d["Bt"], dd[1])),
+        "vec": rt.inner(put(d["v"], ("d0",)), put(d["u"], ("d0",)))}
+    progs["dot"] = lambda: {
+        "mat": rt.dot(put(d["A"], dd[0]), put(d["B"], dd[1])),
+        "vv": rt.dot(put(d["v"], ("d0",)), put(d["u"], ("d1",)))}
+    # what lies above a product is shard-local; a computed operand runs
+    # first; a product of a product
+    progs["epilogue"] = lambda: {"sum": rt.sum(
+        2.0 * (put(d["A"], dd[0]) @ put(d["B"], dd[1]))
+        + put(d["D"], dd[0]))}
+    progs["computed"] = lambda: {"c": (2.0 * put(d["A"], dd[0]) + 1.0)
+                                 @ put(d["B"], dd[1])}
+    progs["chain"] = lambda: {"c": (put(d["A"], dd[0]) @ put(d["B"], dd[1]))
+                              @ put(d["E"], dd[1])}
+    for dt in DOT_DTYPES:
+        progs[f"dd_{dt}"] = (lambda dt=dt: {"c": put(d[f"A_{dt}"], dd[0])
+                                            @ put(d[f"B_{dt}"], dd[1])})
+    cr = L["cols_rows"]
+    progs["cols_rows_int64"] = lambda: {
+        "c": put(d["A_int64"], cr[0]) @ put(d["B_int64"], cr[1])}
+    progs["mv_bool"] = lambda: {
+        "c": put(d["A_bool"], ("d0", "d1")) @ put(d["A_bool"][0], ("d0",))}
+    return progs
+
+
+# what still takes the gathered lowering: per program, its operands
+DOT_GATHERED = ("einsum3", "outer", "batch_split")
+
+
+def dot_gathered(rt, put):
+    d = dot_inputs()
+    return {
+        "einsum3": lambda: rt.einsum("ij,jk,kl->il", put(d["A"], ("d0", "d1")),
+                                     put(d["B"], ("d0", "d1")),
+                                     put(d["E"], ("d0", "d1"))),
+        "outer": lambda: rt.outer(put(d["v"], ("d0",)), put(d["w"], ("d0",))),
+        "batch_split": lambda: rt.matmul(put(d["A3"], ("d0",)),
+                                         put(d["B3"], (None, "d0")))}
+
+
+def _dot(rt, rank, outdir):
+    """The dot mode (``RAMBA_POSITIONS_RANKS``: the (2, 2) mesh's ranks);
+    ``RAMBA_DOT_CASE``: ``main`` runs :func:`dot_programs`, recording
+    each program's gathered flushes, result layouts and the counters of
+    ``rankdot.stats``, then :func:`dot_gathered`; ``fail`` runs ``dd``
+    under ``RAMBA_DOT_FAULT`` and records what it raised (or its
+    result); ``stall`` stalls rank 1 before a round under the
+    watchdog."""
+    from ramba_tpu_torch.core import fuser, rankdot
+    from ramba_tpu_torch.parallel import distributed
+    from ramba_tpu_torch.parallel import mesh as pm
+    from ramba_tpu_torch.resilience import faults
+
+    ranks = [int(r) for r in os.environ["RAMBA_POSITIONS_RANKS"].split(",")]
+    rt.set_mesh(pm.rank_mesh((2, 2), ranks=ranks))
+    case = os.environ.get("RAMBA_DOT_CASE", "main")
+    res, info = {}, {"gathered": {}, "spec": {}, "stats": {}}
+
+    def put(x, spec):
+        return rt.fromarray(x, distribution=pm.P(*spec))
+
+    def record():
+        np.savez(os.path.join(outdir, f"rank{rank}.npz"), **res)
+        with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+            json.dump(info, f)
+
+    if case in ("fail", "stall"):
+        d = dot_inputs()
+        a, b = put(d["A"], ("d0", "d1")), put(d["B"], ("d0", "d1"))
+        rt.sync()
+        spec = os.environ["RAMBA_DOT_FAULT"]
+        g0 = fuser.stats["gathered"]
+        t0 = time.monotonic()
+        try:
+            with faults.active(spec):
+                res["c"] = np.asarray(a @ b)
+            info["error"] = None
+        except Exception as e:  # noqa: BLE001 - the class is the result
+            info["error"] = type(e).__name__
+        info["seconds"] = time.monotonic() - t0
+        info["gathered"] = fuser.stats["gathered"] - g0
+        info["products"] = rankdot.stats["products"]
+        record()
+        if case == "stall":
+            os._exit(0)  # a helper thread may still wait in gloo
+        return
+    for table, progs in (("main", dot_programs(rt, put)),
+                         ("gathered", dot_gathered(rt, put))):
+        for name, fn in progs.items():
+            rt.sync()
+            g0 = fuser.stats["gathered"]
+            s0 = dict(rankdot.stats)
+            out = fn()
+            rt.sync()
+            for k, v in (out.items() if isinstance(out, dict)
+                         else [("c", out)]):
+                res[f"{name}/{k}"] = np.asarray(v)
+                sh = getattr(v, "sharding", None)
+                info["spec"][f"{name}/{k}"] = None if not v.shape else \
+                    list(pm.canonical(sh.spec))
+            info["gathered"][name] = fuser.stats["gathered"] - g0
+            info["stats"][name] = {k: rankdot.stats[k] - s0[k]
+                                   for k in ("contractions", "products",
+                                             "terms", "flops",
+                                             "bytes_received", "folds")}
+        info[f"{table}_programs"] = list(progs)
+    # a hint over a product's result reshards it
+    d = dot_inputs()
+    g0 = fuser.stats["gathered"]
+    c = put(d["A"], ("d0", "d1")) @ put(d["B"], ("d0", "d1"))
+    rt.add_constraint([c], 1)
+    res["hinted/c"] = np.asarray(c)
+    info["hinted"] = {"spec": list(pm.canonical(c.sharding.spec)),
+                      "gathered": fuser.stats["gathered"] - g0}
+    rt.clear_constraints()
+    info["held"] = [list(p) for p in rt.get_mesh().local_positions()]
+    record()
+
+
 def card_grid():
     return np.random.default_rng(5).random(CARD_GRID).astype(np.float32)
 
@@ -1420,7 +1623,8 @@ def main(argv) -> int:
      "compile": _compile, "analyze": _analyze,
      "ladder": _ladder, "elastic": _elastic,
      "observe": _observe, "serve": _serve,
-     "positions": _positions, "select": _select}[mode](rt, rank, outdir)
+     "positions": _positions, "select": _select,
+     "dot": _dot}[mode](rt, rank, outdir)
     distributed.shutdown()
     return 0
 
