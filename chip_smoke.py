@@ -22,6 +22,8 @@
                                      # the last folds across ranks
     python3 chip_smoke.py --dot      # phase 1 and matmul and the
                                      # contractions across ranks
+    python3 chip_smoke.py --move     # phase 1 and the movement ops
+                                     # across ranks
 
 Phases, each reported on its own line:
 
@@ -312,7 +314,18 @@ Phases, each reported on its own line:
    within gamma_K of one process, the bytes each rank receives equal to
    the schedule's closed form (against the gathered lowering's), the
    peak allocation within the schedule's bound, the wall at the slowest
-   rank beside one process's ``torch.matmul``.
+   rank beside one process's ``torch.matmul``; then slices, transposes,
+   reshapes and the other movement ops across ranks (``move_path``,
+   alone with ``--move``) in the same four worlds: (a) ``sum((a[2:] - 2
+   a[1:-1] + a[:-2])**2)`` and (c) ``sum(a * flip(a))`` of 2^28 f64
+   ``P(('d0', 'd1'))``, (b) ten Jacobi sweeps written with slices on
+   16384^2 f64 and ``models/jacobi.residual``, (d) ``ravel`` and a
+   reshape of rows, (e) ``roll`` and ``pad``: every result block the
+   same bytes in all four worlds, world one's byte-equal to one process
+   (the folds within 2 n eps sum|terms|), no gathered program, the bytes
+   each rank receives equal to closed forms (against the gathered
+   lowering's), one elemred launch a held block for (a) and (c), the
+   wall at the slowest rank beside one process's.
    Every kernel's launch count is set to 0 just before each path and
    read just after; a path that does not launch its kernel fails the
    run;
@@ -1025,6 +1038,11 @@ def elemred_plans(rt, er, np):
             plans.append(er.plan_for(*_program(lambda: [x * x])))
         if dt == "float64":  # select_path: the folds' partials a block
             plans += select_plans(er, x, y)
+        if dt == "float64":  # move_path: (a)'s and (c)'s program a block
+            z = rt.fromarray(rs.rand(64))
+            plans.append(er.plan_for(*_program(
+                lambda: [rt.sum((x - 2.0 * y + z) ** 2)])))
+            plans.append(er.plan_for(*_program(lambda: [rt.sum(x * y)])))
         if dt == "float32":  # compile_path: the bucketed program and soak
             plans.append(er.plan_for(*_program(lambda: [x * 2.0 + 1.0])))
         if dt == "float64":  # compile_path: the chain's segments at 64
@@ -1893,7 +1911,7 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
         "positions_path", positions_path, rt, torch, np, card, totals,
         dist["layout"].get("star2_ms_per_sweep_slowest_rank"))
     log("  select_path: medians, quantiles and the last folds across ranks "
-        "(its rank processes then run dot_path's programs)")
+        "(its rank processes then run dot_path's and move_path's programs)")
     e0 = totals["elemred"]
     shared = {}
     dist["select"] = timed("select_path", select_path, rt, torch, np, card,
@@ -1906,6 +1924,13 @@ def phase_main_path(rt, er, sk, sg, jacobi, torch, np, card, sc):
                         shared["worlds"])
     if totals["elemred"] == e0:
         raise Fail("dot_path launched no elemred")
+    log("  move_path: slices, transposes, reshapes and the other movement "
+        "ops across ranks")
+    e0 = totals["elemred"]
+    dist["move"] = timed("move_path", move_path, rt, torch, np, card, totals,
+                         shared["worlds"])
+    if totals["elemred"] == e0:
+        raise Fail("move_path launched no elemred")
     log("  compile_path: segments, compile classes, the kernel cache and the "
         "backend race")
     e0, g0 = totals["elemred"], totals["segred"]
@@ -3882,7 +3907,7 @@ def dist_rank(argv) -> int:
             er, sk, sc, "axpy", lambda: float(rt.sum(2.5 * a + b)), rep)
     elif "--layout" in argv:
         layout_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, out)
-    elif "--select" in argv or "--dot" in argv:
+    elif "--select" in argv or "--dot" in argv or "--move" in argv:
         if "--select" in argv:
             select_rank_programs(
                 rt, np, torch, er, sk, sc, fuser, rep, out,
@@ -3891,6 +3916,9 @@ def dist_rank(argv) -> int:
             rep["ranks"] = arg["--dot"]
             dot_rank_programs(rt, np, torch, er, sk, sc, fuser, rep,
                               [int(r) for r in arg["--dot"].split(",")])
+        if "--move" in argv:
+            move_rank_programs(rt, np, torch, er, sk, sc, fuser, rep,
+                               [int(r) for r in arg["--move"].split(",")])
     elif "--positions" in argv:
         positions_rank_programs(
             rt, np, torch, er, sk, sc, fuser, rep, out,
@@ -5607,8 +5635,9 @@ def select_path(rt, torch, np, card, totals, shared=None):
     across ranks on cuda:0 over gloo: layout_path's four ranks and
     positions_path's three worlds, every result the same bytes in each
     world and held against one process.  With ``shared`` (a dict) the
-    same rank processes then run ``dot_path``'s programs (one start-up a
-    world for both), and their reports go to ``shared["worlds"]``."""
+    same rank processes then run ``dot_path``'s and ``move_path``'s
+    programs (one start-up a world for the three), and their reports go
+    to ``shared["worlds"]``."""
     import os
     import tempfile
 
@@ -5631,7 +5660,8 @@ def select_path(rt, torch, np, card, totals, shared=None):
             t1 = time.perf_counter()
             arg = ",".join(str(r) for r in ranks)
             procs = dist_start(world, d, ("--select", arg) + (
-                ("--dot", arg) if shared is not None else ()), env)
+                ("--dot", arg, "--move", arg) if shared is not None
+                else ()), env)
             try:
                 worlds[name] = dist_wait(procs, d, time.time() + SEL_LIMIT_S)
             finally:
@@ -6025,6 +6055,349 @@ def dot_path(rt, torch, np, card, totals, worlds=None):
         json.dump({"card": card, **out}, f, default=str)
     log(f"  dot_path: {out['wall_s']:.1f} s, worlds (s) {json.dumps(walls)}, "
         f"the leg a world at the slowest rank (s) " + json.dumps(
+            {w: out[w]["wall_s_slowest_rank"] for w in worlds}) +
+        f" [{card}]")
+    return out
+
+
+# move_path's sizes: (a), (c), (e) roll a 2^28 f64 vector P(('d0', 'd1'));
+# (b), (d), (e) pad 16384^2 f64 grids P('d0', 'd1') (rows for (d)'s
+# second reshape); (b) ten Jacobi sweeps written with slices
+MOVE_N = 1 << 28
+MOVE_GRID = 16384
+MOVE_SWEEPS = 10
+MOVE_LIMIT_S = 300
+# per program: its operand leaves (for the gathered lowering's bytes), and
+# whether it folds (held within 2 n eps sum|x| of one process)
+MOVE_PROGRAMS = {"a_three": (1, True), "b_jacobi": (2, False),
+                 "b_residual": (2, False), "c_flip": (1, True),
+                 "d_ravel": (1, False), "d_rows": (1, False),
+                 "e_roll": (1, False), "e_pad": (1, False)}
+
+
+def move_inputs(rt, np, pm=None):
+    """(a)'s vector and the grids, float64, from indices alone (every rank
+    the same values), in their layouts (``pm``: the rank mesh's module;
+    None in one process)."""
+    lay = (lambda *s: None) if pm is None else pm.P
+    a = rt.fromfunction(lambda i: ((i * 7919) % 65536) * (1.0 / 65536),
+                        (MOVE_N,), dtype=np.float64,
+                        distribution=lay(("d0", "d1")))
+    g = (MOVE_GRID, MOVE_GRID)
+    x = {"a": a, "u": dist_grid(rt, np, g, lay("d0", "d1"), np.float64),
+         "f": dist_grid(rt, np, g, lay("d0", "d1"), np.float64,
+                        k=(104729, 7919)),
+         "ur": dist_grid(rt, np, g, lay("d0"), np.float64)}
+    rt.sync()
+    return x
+
+
+def move_program(rt, name, x):
+    """One of (a)-(e) through the user API, its result realized."""
+    from ramba_tpu_torch.models import jacobi
+
+    a, f = x["a"], x["f"]
+    if name == "a_three":
+        return float(rt.sum((a[2:] - 2.0 * a[1:-1] + a[:-2]) ** 2))
+    if name == "c_flip":
+        return float(rt.sum(a * rt.flip(a)))
+    if name == "b_jacobi":
+        u = x["u"].copy()
+        for _ in range(MOVE_SWEEPS):
+            u[1:-1, 1:-1] = 0.25 * (u[:-2, 1:-1] + u[2:, 1:-1]
+                                    + u[1:-1, :-2] + u[1:-1, 2:]
+                                    - f[1:-1, 1:-1])
+        rt.sync()
+        x["swept"] = u
+        return u
+    if name == "b_residual":
+        return float(jacobi.residual(x["swept"], f))
+    if name == "d_ravel":
+        out = x["u"].ravel().copy()
+    elif name == "d_rows":
+        out = x["ur"].reshape(MOVE_GRID // 2, 2 * MOVE_GRID).copy()
+    elif name == "e_roll":
+        out = rt.roll(a, 1)
+    else:
+        out = rt.pad(x["u"], 1)
+    rt.sync()
+    return out
+
+
+def move_terms(torch, name, a):
+    """sum|terms| of a fold over (a)'s vector, for its bound."""
+    if name == "a_three":
+        return float(((a[2:] - 2.0 * a[1:-1] + a[:-2]) ** 2).sum())
+    return float((a * torch.flip(a, [0])).abs().sum())
+
+
+def move_formula(name, ranks, rank):
+    """The bytes ``rank`` receives in program ``name``, written out from
+    the blocks' ranges on the (2, 2) mesh held as ``ranks`` (grid order;
+    a vector's block of position (i, j) is block 2 i + j, 2^26 long; a
+    grid's blocks 8192^2): (a) result block b < 3 reads two elements of
+    block b + 1; (c) result block b reads block 3 - b; (b) each sweep,
+    block (i, j) reads a row of 8191 from (1 - i, j), a column of 8191
+    from (i, 1 - j) and the corner from (1 - i, 1 - j) (the write moves
+    nothing, nor does the residual's slice); (d) ``ravel``'s result block
+    i reads the grid's blocks (i, 0) and (i, 1), a reshape of rows
+    nothing; (e) ``roll``: the last element to block 0, and block b >= 1
+    the element before it; ``pad`` nothing."""
+    own = {(i, j) for i in range(2) for j in range(2)
+           if ranks[2 * i + j] == rank}
+    flat = {2 * i + j for i, j in own}
+    blk = MOVE_N // 4
+    L = MOVE_GRID // 2
+    if name == "a_three":
+        return 16 * sum(1 for b in flat if b < 3 and b + 1 not in flat)
+    if name == "c_flip":
+        return 8 * blk * sum(1 for b in flat if 3 - b not in flat)
+    if name == "b_jacobi":
+        return 8 * MOVE_SWEEPS * sum(
+            (L - 1) * ((1 - i, j) not in own) + (L - 1) * ((i, 1 - j)
+                                                           not in own)
+            + ((1 - i, 1 - j) not in own) for i, j in own)
+    if name == "d_ravel":
+        rows = {i for i, _j in own}
+        return 8 * L * L * sum((i, j) not in own for i in rows
+                               for j in range(2))
+    if name == "e_roll":
+        return 8 * ((0 in flat and 3 not in flat)
+                    + sum(1 for b in flat if b >= 1 and b - 1 not in flat))
+    return 0
+
+
+def move_rank_programs(rt, np, torch, er, sk, sc, fuser, rep, ranks):
+    """One rank of ``move_path``: the (2, 2) mesh of ranks ``ranks``,
+    (a)-(e) on this rank's blocks: each result's held blocks' digests (a
+    fold's value), wall, ``rankmove`` counters, gathered flushes,
+    launches and peak allocation; world one's rank also the digest of
+    each whole result."""
+    from ramba_tpu_torch.core import rankmove
+    from ramba_tpu_torch.ops import segred as sg
+    from ramba_tpu_torch.parallel import mesh as pm
+
+    rt.set_mesh(pm.rank_mesh((2, 2), ranks=list(ranks)))
+    rep["held"] = [list(p) for p in rt.get_mesh().local_positions()]
+    rep["ranks"] = ",".join(str(r) for r in ranks)
+    one = len(set(ranks)) == 1
+    rep.update(move={}, move_launches={})
+    counts = {"launches": rep["move_launches"]}
+    t_leg = time.perf_counter()
+    # a process's first exchange of this shape connects gloo's pairs: a
+    # small slice and flip first, untimed
+    w = rt.arange(1024.0, distribution=pm.P(("d0", "d1")))
+    float(rt.sum(w[1:] * rt.flip(w)[:-1]))
+    x = move_inputs(rt, np, pm)
+    for name in MOVE_PROGRAMS:
+        torch.cuda.synchronize()
+        g0 = fuser.stats["gathered"]
+        s0 = dict(rankmove.stats)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        c = _rank_window(er, sk, sc, name, lambda: move_program(rt, name, x),
+                         counts, sg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        row = {"wall_s": wall,
+               "peak_bytes": torch.cuda.max_memory_allocated() - base,
+               "gathered": fuser.stats["gathered"] - g0,
+               "stats": {k: rankmove.stats[k] - s0[k]
+                         for k in rankmove.stats},
+               "bound_bytes": rankmove.last.get("bound_bytes")}
+        if isinstance(c, float):
+            row["value"] = c
+        else:
+            row["spec"] = repr(c.sharding.spec)
+            row["blocks"] = {json.dumps(list(c.sharding.block_coords(
+                p, c.ndim))): card_digest(v) for (p, _i), v in zip(
+                    c.sharding.local_blocks(c.shape), c._blocks())}
+            if one:
+                row["whole"] = card_digest(c._value())
+        rep["move"][name] = row
+        del c
+    del x
+    torch.cuda.empty_cache()
+    rep["move_leg_s"] = time.perf_counter() - t_leg
+
+
+def move_refs(rt, torch, np, card):
+    """The one-process results ``move_path`` holds the worlds against:
+    each result's whole digest (a fold's value and sum|terms|) and its
+    wall."""
+    ref = {"digests": {}, "values": {}, "terms": {}, "ms": {}}
+    x = move_inputs(rt, np)
+    av = x["a"]._value()
+    for name, (_leaves, folds) in MOVE_PROGRAMS.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c = move_program(rt, name, x)
+        torch.cuda.synchronize()
+        ref["ms"][name] = (time.perf_counter() - t0) * 1e3
+        if isinstance(c, float):
+            ref["values"][name] = c
+            if folds:
+                ref["terms"][name] = move_terms(torch, name, av)
+        else:
+            ref["digests"][name] = card_digest(c._value())
+        del c
+    del x, av
+    torch.cuda.empty_cache()
+    return ref
+
+
+def move_check(worlds, ref, totals, card):
+    """Hold the worlds against each other (every result block the same
+    bytes, a fold the same value), world one's whole results against one
+    process (movements and elementwise results byte for byte, the folds
+    within 2 n eps sum|terms|), the bytes against the closed forms; the
+    per-world report."""
+    merged = {}
+    for w, reps in worlds.items():
+        merged[w] = {}
+        for name in MOVE_PROGRAMS:
+            got = {}
+            for r in reps:
+                row = r["move"][name]
+                if row["gathered"]:
+                    raise Fail(f"move {w} {name}: gathered")
+                got.update(row.get("blocks", {"()": row.get("value")}))
+                if "value" in row and row["value"] != reps[0]["move"][
+                        name]["value"]:
+                    raise Fail(f"move {w} {name}: ranks disagree")
+            merged[w][name] = got
+    for w in worlds:
+        bad = [n for n in MOVE_PROGRAMS if merged[w][n] != merged["four"][n]]
+        if bad:
+            raise Fail(f"move {w} differs from four ranks in {bad}")
+    (one,) = worlds["one"]
+    exact = [n for n, (_l, folds) in MOVE_PROGRAMS.items() if not folds]
+    for n in exact:
+        got = one["move"][n].get("whole", one["move"][n].get("value"))
+        want = ref["digests"].get(n, ref["values"].get(n))
+        if got != want:
+            raise Fail(f"move {n}: differs from one process")
+    eps = EPS["float64"]
+    errs = {}
+    for n, (_l, folds) in MOVE_PROGRAMS.items():
+        if not folds:
+            continue
+        got, want = one["move"][n]["value"], ref["values"][n]
+        bound = 2 * MOVE_N * eps * ref["terms"][n]
+        errs[n] = abs(got - want)
+        if errs[n] > bound:
+            raise Fail(f"move {n}: {got!r} vs one process {want!r}, past "
+                       f"{bound:.3e}")
+        log(f"  move {n}: {got!r} vs one process {want!r}, |err| "
+            f"{errs[n]:.3e} within {bound:.3e} (2 n eps sum|terms|)")
+    log(f"  move: {len(MOVE_PROGRAMS)} results, every block the same bytes "
+        f"in four worlds (4 ranks, [[0, 0], [1, 1]], [[0, 1], [1, 0]], one "
+        f"rank holding four); no gathered program; {exact} byte-equal to "
+        f"one process")
+    report = {"one_process_ms": ref["ms"], "max_abs_err": errs}
+    for w, reps in worlds.items():
+        world = len(reps)
+        ranks = [int(v) for v in reps[0]["ranks"].split(",")]
+        held = max(len(r["held"]) for r in reps)
+        per = {}
+        for name, (leaves, _folds) in MOVE_PROGRAMS.items():
+            rows = [r["move"][name] for r in reps]
+            recv = [x["stats"]["bytes_received"] for x in rows]
+            want = [move_formula(name, ranks, r["rank"]) for r in reps]
+            if recv != want:
+                raise Fail(f"move {w} {name}: received {recv} B, the "
+                           f"closed form {want}")
+            per[name] = {
+                "wall_s_slowest": max(x["wall_s"] for x in rows),
+                "received_per_rank": recv,
+                "gathered_lowering_per_rank": (world - 1) / world * leaves
+                * 8 * (MOVE_N if name in ("a_three", "c_flip", "e_roll")
+                       else MOVE_GRID ** 2),
+                "copies": [x["stats"]["copies"] for x in rows],
+                "views": [x["stats"]["views"] for x in rows],
+                "rounds": rows[0]["stats"]["rounds"],
+                "peak_bytes": [x["peak_bytes"] for x in rows],
+                "one_process_ms": ref["ms"][name]}
+            if name in ("a_three", "c_flip"):
+                lr = max(r["move_launches"][name]["elemred"]
+                         for r in reps) / held
+                if lr != 1:
+                    raise Fail(f"move {w} {name}: {lr} elemred launches a "
+                               "held block, want 1")
+                per[name]["elemred_per_held_block"] = lr
+            p = per[name]
+            log(f"  move {w} {name}: {p['wall_s_slowest'] * 1e3:.1f} ms at "
+                f"the slowest rank beside one process's "
+                f"{p['one_process_ms']:.1f}; received a rank {recv} B (the "
+                f"closed form's) against the gathered lowering's "
+                f"{p['gathered_lowering_per_rank']:.0f}; copies {p['copies']}"
+                f", rounds {p['rounds']}, peak a rank "
+                f"{max(p['peak_bytes'])} B" + (
+                    f"; elemred a held block {p['elemred_per_held_block']}"
+                    if "elemred_per_held_block" in p else "")
+                + f" [{card}]")
+        for r in reps:
+            for kk in totals:
+                totals[kk] += sum(c.get(kk, 0) for c in r["move_launches"]
+                                  .values())
+        report[w] = {"wall_s_slowest_rank": max(r["move_leg_s"]
+                                                for r in reps),
+                     "held_blocks": held, "gathered": 0, "programs": per}
+    return report
+
+
+def move_path(rt, torch, np, card, totals, worlds=None):
+    """Slices, transposes, reshapes and the other movement ops across
+    ranks on cuda:0 over gloo: select_path's four worlds, every result
+    the same bytes in each, world one's byte-equal to one process (the
+    folds within their bound), the bytes each rank receives against the
+    closed forms.  ``worlds``: the reports of select_path's rank
+    processes, which ran these programs too (the whole run); else this
+    path starts its own."""
+    import os
+    import tempfile
+
+    log(f"  move_path: 4 ranks, [[0, 0], [1, 1]], [[0, 1], [1, 0]] and one "
+        f"rank; (a) sum((a[2:] - 2 a[1:-1] + a[:-2])**2) and (c) sum(a * "
+        f"flip(a)) of 2^28 f64 P(('d0', 'd1')); (b) {MOVE_SWEEPS} Jacobi "
+        f"sweeps written with slices on {MOVE_GRID}^2 f64 P('d0', 'd1') and "
+        f"its residual; (d) ravel, a reshape of rows; (e) roll(a, 1), "
+        f"pad(u, 1)" + ("; in select_path's rank processes" if worlds
+                         else ""))
+    t0 = time.perf_counter()
+    ref = move_refs(rt, torch, np, card)
+    log(f"  move_path: one-process references in "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    walls = {}
+    if worlds is None:
+        worlds = {}
+        with tempfile.TemporaryDirectory(prefix="ramba_move_") as tmp:
+            env = {k: v for k, v in os.environ.items() if k not in (
+                "RAMBA_HBM_BUDGET", "RAMBA_RESHARD_STAGE_BYTES")}
+            for name, world, ranks in SEL_WORLDS:
+                d = os.path.join(tmp, name)
+                os.makedirs(os.path.join(d, f"w{world}"))
+                t1 = time.perf_counter()
+                procs = dist_start(world, d, ("--move", ",".join(
+                    str(r) for r in ranks)), env)
+                try:
+                    worlds[name] = dist_wait(procs, d,
+                                             time.time() + MOVE_LIMIT_S)
+                finally:
+                    for p in procs:
+                        if p.poll() is None:
+                            p.kill()
+                            p.wait()
+                walls[name] = time.perf_counter() - t1
+    out = move_check(worlds, ref, totals, card)
+    out["world_walls_s"] = walls
+    out["wall_s"] = time.perf_counter() - t0
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open(os.path.join("chiprun_out", "move_report.json"), "w") as f:
+        json.dump({"card": card, **out}, f, default=str)
+    log(f"  move_path: {out['wall_s']:.1f} s, worlds (s) {json.dumps(walls)}"
+        f", the leg a world at the slowest rank (s) " + json.dumps(
             {w: out[w]["wall_s_slowest_rank"] for w in worlds}) +
         f" [{card}]")
     return out
@@ -10833,9 +11206,10 @@ def serve_path(rt, er, sk, sg, sc, torch, np, card, window, totals,
 # fleet_path: the fleet on the card (ROADMAP A.10 part two)
 # ---------------------------------------------------------------------------
 
-# the sessions' state, float64 (1 GiB): 2^28 until the whole run neared its
-# time limit (cut to 2^27 with dot_path's leg)
-FLEET_N = 1 << 27
+# the sessions' state, float64 (512 MiB): 2^28 until the whole run neared
+# its time limit (cut to 2^27 with dot_path's leg, to 2^26 with
+# move_path's)
+FLEET_N = 1 << 26
 FLEET_SMALL_N = 1 << 20            # the shared memo lane's leg (8 MiB: its cap)
 FLEET_INTERVAL_S = 0.5             # every replica's RAMBA_FLEET_INTERVAL_S
 FLEET_TENANTS = ("acme", "globex", "initech", "umbrella")
@@ -11707,6 +12081,15 @@ def main(argv) -> int:
                         "launches": totals}, default=str))
         if not totals["elemred"]:
             raise Fail("dot_path launched no elemred")
+        log(f"total {time.perf_counter() - t_all:.1f} s")
+        print(card, flush=True)
+        return 0
+    if "--move" in argv:  # phase 1 and move_path alone
+        totals = dict.fromkeys(("elemred", "stencil", "segred", "scan"), 0)
+        log(json.dumps({"move": move_path(rt, torch, np, card, totals),
+                        "launches": totals}, default=str))
+        if not totals["elemred"]:
+            raise Fail("move_path launched no elemred")
         log(f"total {time.perf_counter() - t_all:.1f} s")
         print(card, flush=True)
         return 0

@@ -490,25 +490,26 @@ def _ready(t):
 _MAGIC = 0x72616E6B646F74  # marks a contraction's round
 
 
-def _round(err, site, tag):
-    """One round: every rank learns whether any rank failed (the
-    ``dot:round`` fault site first: a raised fault is this rank's
-    failure); the failed rank raises its error, the others a retryable
+def _round(err, site, tag, check="dot:round", magic=_MAGIC, counts=None):
+    """One round: every rank learns whether any rank failed (the fault
+    site ``check`` first: a raised fault is this rank's failure); the
+    failed rank raises its error, the others a retryable
     ``CoherentAbort``.  The round is an all-gather of ``(flag, marker)``,
     wider than a coherence round's all-reduce, so a peer that left this
-    contraction (abandoned under the watchdog) and entered another round
-    does not pair with it unnoticed: the collectives disagree, or the
-    marker does, and the group is broken."""
+    contraction (or movement: its own ``magic``; abandoned under the
+    watchdog) and entered another round does not pair with it unnoticed:
+    the collectives disagree, or the marker does, and the group is
+    broken.  ``counts``: the counters whose ``rounds`` it adds to."""
     try:
-        faults.check("dot:round", round=tag)
+        faults.check(check, round=tag)
     except Exception as e:  # noqa: BLE001 - joins the round as a failure
         err = err or e
-    stats["rounds"] += 1
+    (stats if counts is None else counts)["rounds"] += 1
     got = distributed.all_gather_small(torch.tensor(
-        [0 if err is None else 1, _MAGIC], dtype=torch.int64))
-    if any(int(g[1]) != _MAGIC for g in got):
-        distributed.mark_broken(f"a contraction's round {tag!r} met "
-                                "another collective")
+        [0 if err is None else 1, magic], dtype=torch.int64))
+    if any(int(g[1]) != magic for g in got):
+        distributed.mark_broken(f"the round {site}/{tag!r} met another "
+                                "collective")
         from ramba_tpu_torch.resilience import elastic
 
         raise elastic.GroupBrokenError(site, distributed.broken(),

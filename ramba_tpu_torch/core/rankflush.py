@@ -10,23 +10,35 @@ the checkerboard ``[[0, 1], [1, 0]]``).  Before anything runs, a
 reshard of that leaf (``parallel/reshard.py``); a hint over a computed
 value whose subtree is shard-local in its leaves' layout runs that
 subtree as a plan of its own first, then reshards its result
-(:func:`lower_hints`).  Then every contraction ``core/rankdot.py`` takes
+(:func:`lower_hints`).  Then, in one bottom-up pass
+(:func:`lower_movements`), every contraction ``core/rankdot.py`` takes
 (matmul, dot, tensordot, inner, a two-operand einsum) runs partitioned,
-each operand a leaf or a shard-local subtree run first, and becomes a
-block leaf in GSPMD's layout (:func:`lower_contractions`), so what lies
-above it is shard-local.  The flush then sorts the program into one of
-three cases, the same on every rank because it reads only the graph and
-the leaves' layouts:
+and every movement ``core/rankmove.py`` takes (a basic getitem or
+setitem, permute, reshape, broadcast_to, flip, pad, concatenate and
+stack of operands of one layout) moves box by box; each operand is a
+leaf or a subtree the rank flush takes without gathering, run first,
+and each result becomes a block leaf in GSPMD's layout, so what lies
+above it is shard-local.  In the same pass a fold under an elementwise
+node runs first as a plan of its own (``x - x.mean()``), an index over
+leaves inside a larger program runs on the gathered lowering as a
+program of its own, and a block operand of a broadcasting shape that
+splits its dims otherwise than the elementwise node it feeds is
+resharded first.  The flush then sorts the program into one of three
+cases, the same on every rank because it reads only the graph and the
+leaves' layouts:
 
 * **shard-local** (:func:`local_plan`): every array leaf has the same
   global shape and the same layout (a block of it, a value every rank
   holds whole and cuts its block from, or a creation node that builds the
   block from global indices: ``arange``, ``full``, ``linspace``,
   ``fromfunction``; a ``shard_hint`` names the layout of what is under
-  it, ``distribution=`` on a creation op among them), every instruction
-  is elementwise (map, cast, round, ``masked_fill``, ``smap`` and
-  ``smap_index``, whose kernel sees global indices) or a stencil (under
-  any layout) or ``scumulative``, and a root may end in
+  it, ``distribution=`` on a creation op among them), or a shape that
+  broadcasts into it (fewer dims, dims of 1) under a layout that splits
+  only dims it has at full length, the way the program's layout splits
+  them; every instruction is elementwise (map, cast, round,
+  ``masked_fill``, ``smap`` and ``smap_index``, whose kernel sees global
+  indices), ``tril``/``triu`` (each block masked by its global indices),
+  a stencil (under any layout) or ``scumulative``, and a root may end in
 
   - a whole-array fold: ``sum``/``prod``/``min``/``max``/``mean``/
     ``any``/``all``, the nan-reductions (``nansum``, ``nanprod``,
@@ -89,12 +101,17 @@ the leaves' layouts:
   (``fuser.stats["gathered"]``, ``parallel.comm_stats["allgather_bytes"]``).
   What still takes it, and why:
 
-  - indexing (gathers, scatters, masks): an index may read any block
-    (GSPMD all-gathers most gathers and scatters too);
+  - indexing (``getitem_adv``, ``setitem_adv``, ``take``): an index may
+    read any block (GSPMD all-gathers most gathers and scatters too);
+    inside a larger program an index over leaves runs as a gathered
+    program of its own, and what lies above it stays partitioned;
   - sort and argsort: a whole-array permutation, not a per-slice value
     (GSPMD all-gathers a sort along a split axis too);
-  - reshapes: a block of the result is no block of the operand (a later
-    slice);
+  - ``repeat``, ``tile`` and ``diag``: GSPMD replicates their results
+    (``tile`` along the tiled dim, ``diag`` whole);
+  - ``concatenate``/``stack`` of operands of different layouts: no one
+    layout holds them (GSPMD reshards them into one it picks);
+  - a ``pad`` wider than its dim: its index map wraps more than once;
   - an einsum of three or more operands: one pairwise order is not
     chosen here;
   - batched matmul whose operands split a batch dim differently (or
@@ -103,7 +120,9 @@ the leaves' layouts:
     more than two dims besides the batch dims, or whose operand is no
     leaf and no shard-local subtree;
   - ``outer`` and ``kron``: not contractions;
-  - leaves of different shapes, or of layouts that no hint aligns;
+  - leaves of shapes that do not broadcast into one, or of layouts that
+    no hint aligns: an elementwise op whose operands no one layout holds
+    (``A + A.T``: GSPMD all-gathers it too);
   - a ``shard_hint`` over a subtree that is not shard-local itself;
   - a quantile whose ``q`` is a computed array.
 
@@ -138,8 +157,9 @@ program, a sort) joins the first selection's census with a failure
 flag, so every rank raises there, together.  A contraction runs the
 same way, its own ladder behind one ``memory:admit`` round: each attempt
 opens its gate, and every exchange round of ``core/rankdot.py`` starts
-with the ranks agreeing whether one failed.  Nothing retreats to the
-gathered lowering.
+with the ranks agreeing whether one failed; so does a group of
+movements (``core/rankmove.py``: a ``move:round`` before its exchange
+and after its pieces).  Nothing retreats to the gathered lowering.
 
 With the elastic watchdog armed (``RAMBA_WATCHDOG_S``, read once a
 flush) each rank's attempt runs under ``elastic.with_deadline``: a rank
@@ -160,6 +180,7 @@ import torch
 
 from ramba_tpu_torch.core import expr as E
 from ramba_tpu_torch.core.expr import Const, Node, Scalar
+from ramba_tpu_torch.core.rankdot import _entries
 from ramba_tpu_torch.parallel import distributed
 from ramba_tpu_torch.parallel import mesh as _mesh
 from ramba_tpu_torch.resilience import coherence
@@ -167,6 +188,12 @@ from ramba_tpu_torch.resilience import coherence
 ELEMENTWISE = frozenset({"map", "cast", "round", "masked_fill"})
 CREATION = frozenset({"arange", "full", "linspace", "fromfunction"})
 STENCILS = frozenset({"stencil", "stencil_iter"})
+TRI = frozenset({"tril", "triu"})
+# an index over leaves inside a larger program runs as a gathered program
+# of its own (lower_movements)
+INDEXING = frozenset({"getitem_adv", "setitem_adv", "take"})
+# the nodes a fold root is (_fold_root)
+FOLD_OPS = frozenset({"reduce", "segment_reduce", "sreduce", "call"})
 # ops whose block reads other blocks (halos, carries): on a rank holding
 # several blocks they take all of them at once
 _EXCHANGING = STENCILS | {"scumulative"}
@@ -298,17 +325,38 @@ def _fold_root(e):
     return "block", e, None, None
 
 
+def _broadcasts(s, shape) -> bool:
+    """An operand of shape ``s`` broadcasts into ``shape`` (fewer dims,
+    dims of 1)."""
+    return len(s) <= len(shape) and all(
+        a in (1, b) for a, b in zip(tuple(s)[::-1], tuple(shape)[::-1]))
+
+
 def _is_local_op(node, shape) -> bool:
     op = node.op
-    if op in ELEMENTWISE or op == "smap":
+    if op in ELEMENTWISE:
+        return True  # its operands broadcast into it (checked by the walk)
+    if op == "smap":
         return all(a.shape in ((), shape) for a in node.args) and (
-            not (op == "smap" and node.static[2])
-            or node.args[0].shape == shape)
+            not node.static[2] or node.args[0].shape == shape)
     if op in CREATION:
         return op != "full" or node.args[0].shape == ()
-    if op in STENCILS or op == "scumulative":
+    if op in STENCILS or op == "scumulative" or op in TRI:
         return all(a.shape == shape for a in node.args)
     return op == "shard_hint"
+
+
+def _fits(c, sharding, shape) -> bool:
+    """A block leaf of a shape that broadcasts into ``shape`` is
+    shard-local under ``sharding`` where it splits only dims it has at
+    full length, the way ``sharding`` splits them."""
+    if c.sharding.mesh != sharding.mesh:
+        return False
+    lead = len(shape) - len(c.shape)
+    mine = _entries(c.sharding, len(c.shape))
+    theirs = _entries(sharding, len(shape))
+    return all(mine[d] == (theirs[d + lead] if n == shape[d + lead] else ())
+               for d, n in enumerate(c.shape))
 
 
 def local_plan(exprs, mesh):
@@ -321,6 +369,8 @@ def local_plan(exprs, mesh):
     if not shape:
         return None
     spec = None
+    whole = False  # a replicated block leaf of the full shape
+    bcast = []  # block leaves that broadcast into the shape
     stencil = exchanging = scan = False
     stencils = []
     seen = set()
@@ -338,16 +388,28 @@ def local_plan(exprs, mesh):
             if e.shape == ():
                 continue
             if e.shape != shape:
-                return None
-            if e.is_block:
-                if e.sharding.mesh != mesh or (
-                        spec is not None
-                        and _mesh.canonical(e.sharding.spec) != spec):
+                if not _broadcasts(e.shape, shape):
                     return None
-                spec = _mesh.canonical(e.sharding.spec)
+                if e.is_block and _mesh.canonical(e.sharding.spec):
+                    bcast.append(e)
+                continue
+            if e.is_block:
+                c = _mesh.canonical(e.sharding.spec)
+                if e.sharding.mesh != mesh or (spec is not None and c
+                                               and c != spec):
+                    return None
+                if not c:  # every rank holds it whole
+                    whole = True
+                    continue
+                spec = c
             continue
-        if not isinstance(e, Node) or e.shape != shape \
-                or not _is_local_op(e, shape):
+        if not isinstance(e, Node):
+            return None
+        if e.shape != shape:
+            # an elementwise operand that broadcasts into the shape
+            if e.op not in ELEMENTWISE or not _broadcasts(e.shape, shape):
+                return None
+        elif not _is_local_op(e, shape):
             return None
         if e.op == "shard_hint":
             hint = e.static[0]
@@ -362,8 +424,12 @@ def local_plan(exprs, mesh):
         scan = scan or e.op == "scumulative"
         if e.op not in CREATION:
             stack.extend(e.args)
+    if spec is None and whole:
+        spec = ()
     sharding = _mesh.NamedSharding(mesh, _mesh.P(*(
         spec if spec is not None else _mesh.default_spec(shape, mesh))))
+    if not all(_fits(c, sharding, shape) for c in bcast):
+        return None
     if stencil:
         from ramba_tpu_torch.ops.stencil_sharded import fits
 
@@ -568,11 +634,16 @@ def _localize(e, plan, j, memo):
         out = e
     elif isinstance(e, Const):
         v = leaf_value(e)
-        if e.is_block:
-            held = sharding.split_local(v, shape)
-            out = Const(held[j] if held else v)
-        else:
-            out = Const(v[index].contiguous())
+        full = tuple(e.shape) == tuple(shape)
+        if e.is_block and _mesh.canonical(e.sharding.spec):
+            if full:
+                held = sharding.split_local(v, shape)
+                out = Const(held[j] if held else v)
+            else:
+                out = Const(_operand_block(e, v, plan, j))
+        else:  # every rank holds it whole: its block cut out
+            out = Const(v[_broadcast_index(index, e.shape, shape)]
+                        .contiguous())
     elif e.op == "shard_hint":  # the layout is the plan's
         out = _localize(e.args[0], plan, j, memo)
     elif e.op in CREATION:
@@ -584,11 +655,41 @@ def _localize(e, plan, j, memo):
                    aval=E.Aval(args[0].shape, e.dtype, False))
     elif e.op in _EXCHANGING:
         out = _exchanging_block(e, plan, j, memo)
+    elif e.op in TRI:  # masked by the block's global indices
+        (k,) = e.static
+        loc = _localize(e.args[0], plan, j, memo)
+        r0, c0 = (sl.indices(n)[0] for sl, n in zip(index[-2:], shape[-2:]))
+        out = Node("tri_block", (e.op, k + r0 - c0), [loc],
+                   aval=E.Aval(loc.shape, e.dtype, False))
     else:
         args = [_localize(a, plan, j, memo) for a in e.args]
         out = Node(e.op, e.static, args)
     memo[(id(e), j)] = out
     return out
+
+
+def _broadcast_index(index, s, shape) -> tuple:
+    """A block's index of an operand of shape ``s`` broadcast into
+    ``shape``: whole along its dims of 1 that broadcast."""
+    lead = len(shape) - len(s)
+    return tuple(index[d + lead] if n == shape[d + lead] else slice(None)
+                 for d, n in enumerate(s))
+
+
+def _operand_block(c, v, plan, j):
+    """Held block ``j`` of the plan, of a block leaf in another layout
+    that broadcasts into it (:func:`_fits`): the leaf's own block at the
+    same mesh position."""
+    pos, index = plan.blocks[j]
+    nd = len(c.shape)
+    if pos is None:  # a rank outside the mesh: an empty block
+        return v[_broadcast_index(index, c.shape, plan.shape)]
+    want = c.sharding.block_coords(pos, nd)
+    held = c.sharding.split_local(v, c.shape)
+    for (p, _i), b in zip(c.sharding.local_blocks(c.shape), held):
+        if c.sharding.block_coords(p, nd) == want:
+            return b
+    raise KeyError(pos)
 
 
 def _exchanging_block(e, plan, j, memo):
@@ -636,6 +737,15 @@ def _op_block_view(static, packed):
     """One block of a packed tensor of several."""
     off, shape = static
     return packed[off:off + math.prod(shape)].view(shape)
+
+
+@E.defop("tri_block")
+def _op_tri_block(static, x):
+    """``tril``/``triu`` of a block, its diagonal moved by the block's
+    global offset (``k + row start - column start``)."""
+    kind, k = static
+    fn = torch.tril if kind == "tril" else torch.triu
+    return E._unbits(fn(E._bits(x), k), x.dtype)
 
 
 def _creation_block(e, shape, index):
@@ -1140,9 +1250,23 @@ def _laddered(run, split=False, route=False, wd=None):
     return degrade.run_ladder("flush", [(n, rung(n)) for n in names])[0]
 
 
-def _rebuild(exprs, fn):
-    """``exprs`` with every node ``fn`` replaces (``fn(node)``: a new
-    expression, or None to keep it; parents rebuilt bottom-up)."""
+def _rebuild(exprs, fn, orig=False):
+    """``exprs`` with every node ``fn`` replaces (``fn(node)``, or
+    ``fn(node, original node)`` with ``orig``: a new expression, or None
+    to keep it; parents rebuilt bottom-up).  A node's replacement is
+    dropped once every parent is rebuilt, so the values a pass computes
+    (a sweep's boxes and blocks) live no longer than their readers."""
+    uses: dict = {}  # id(node) -> its parents not yet rebuilt
+    stack, seen = list(exprs), set()
+    while stack:
+        e = stack.pop()
+        if id(e) in seen or not isinstance(e, Node):
+            continue
+        seen.add(id(e))
+        for a in e.args:
+            uses[id(a)] = uses.get(id(a), 0) + 1
+            stack.append(a)
+    keep = {id(e) for e in exprs}
     memo: dict = {}
     out = []
     for root in exprs:
@@ -1161,8 +1285,13 @@ def _rebuild(exprs, fn):
             args = [memo[id(a)] for a in e.args]
             cand = e if all(a is b for a, b in zip(args, e.args)) else \
                 Node(e.op, e.static, args, aval=e.aval)
-            new = fn(cand)
+            new = fn(cand, e) if orig else fn(cand)
             memo[id(e)] = cand if new is None else new
+            del args, cand, new
+            for a in e.args:
+                uses[id(a)] -= 1
+                if not uses[id(a)] and id(a) not in keep:
+                    memo.pop(id(a), None)
         out.append(memo[id(root)])
     return out
 
@@ -1261,46 +1390,312 @@ def _contract(con, consts, wd):
         memory.ledger.unpin(pins)
 
 
-def lower_contractions(exprs, mesh, wd=None):
-    """Every contraction :mod:`core.rankdot` takes (matmul, dot,
-    tensordot, inner, two-operand einsum) becomes its result: a block
-    leaf in GSPMD's layout, computed partitioned across the ranks.
-    Whether a contraction is taken is read from the graph and the
-    leaves' layouts only (the same on every rank): each operand a leaf
-    or a shard-local subtree (run first as a plan of its own); what is
-    not taken keeps its node, and its program takes the gathered
-    lowering.  A ``shard_hint`` over a contraction's result reshards
-    it."""
+def _lower_contraction(e, mesh, wd):
+    """A contraction :mod:`core.rankdot` takes (matmul, dot, tensordot,
+    inner, two-operand einsum), run partitioned: its result, a block leaf
+    in GSPMD's layout, or None where it is not taken.  Whether it is
+    taken is read from the graph and the leaves' layouts only (the same
+    on every rank): each operand a leaf or a shard-local subtree (run
+    first as a plan of its own)."""
     from ramba_tpu_torch.core import rankdot
+
+    if e.op not in rankdot.OPS or rankdot.form(e) is None:
+        return None
+    ops = [_dot_operand(x, mesh) for x in e.args]
+    if None in ops:
+        return None
+    con = rankdot.plan(e, *[(tuple(x.shape), sh)
+                            for x, (sh, _p) in zip(e.args, ops)], mesh)
+    if con is None:
+        return None
+    consts = []
+    for x, (_sh, plan) in zip(e.args, ops):
+        if plan is None:
+            consts.append(x)
+        else:
+            outs, _n = _run_local(plan, False, wd)
+            consts.append(_finish_local(plan, outs)[0])
+    return _contract(con, consts, wd)
+
+
+def _move_arrays(e):
+    """The indices of a movement node's array operands, or None where
+    the node is not taken (a pad whose fill is an array)."""
+    if e.op in ("concatenate", "stack"):
+        return list(range(len(e.args)))
+    if e.op == "setitem":
+        return [0] if isinstance(e.args[1], Scalar) else [0, 1]
+    if e.op == "pad" and len(e.args) > 1 and not (
+            isinstance(e.args[1], Scalar) or (isinstance(e.args[1], Const)
+                                              and not e.args[1].is_block
+                                              and e.args[1].shape == ())):
+        return None
+    return [0]
+
+
+def _move_operands(e, idx, mesh, wd):
+    """A movement's array operands as leaves: a leaf as it is, a subtree
+    that the rank flush takes without gathering run first as a plan of
+    its own; None where one is neither (nothing runs)."""
+    plans = []
+    for i in idx:
+        x = e.args[i]
+        if isinstance(x, Const):
+            if x.is_block and x.sharding.mesh != mesh:
+                return None
+            plans.append(None)
+        elif isinstance(x, Node):
+            p = local_plan([x], mesh)
+            if p is None:
+                return None
+            plans.append(p)
+        else:
+            return None
+    out = []
+    for i, p in zip(idx, plans):
+        if p is None:
+            out.append(e.args[i])
+        else:
+            outs, _n = _run_local(p, False, wd)
+            out.append(_finish_local(p, outs)[0])
+    return out
+
+
+def _layout(c, mesh):
+    """A leaf's layout: its own, or replicated for a value every rank
+    holds whole."""
+    return c.sharding if c.is_block else _mesh.NamedSharding(mesh,
+                                                             _mesh.P())
+
+
+def _full_layout(e, shape, mesh):
+    """The layout a shard-local plan of ``e`` takes: its first
+    full-shape block leaf's (or hint's) reached through full-shape
+    elementwise nodes, replicated where only replicated blocks are
+    there, else the default."""
+    stack, seen, whole = [e], set(), False
+    while stack:
+        x = stack.pop()
+        if id(x) in seen:
+            continue
+        seen.add(id(x))
+        if isinstance(x, Const) and x.is_block and x.shape == shape:
+            c = _mesh.canonical(x.sharding.spec)
+            if c:
+                return x.sharding
+            whole = True
+        elif isinstance(x, Node) and x.shape == shape:
+            if x.op == "shard_hint":
+                return x.static[0]
+            if x.op in ELEMENTWISE:
+                stack.extend(x.args)
+    return _mesh.NamedSharding(mesh, _mesh.P() if whole else
+                               _mesh.default_spec(shape, mesh))
+
+
+def _align_broadcast(e, mesh):
+    """An elementwise node whose block operands of a broadcasting shape
+    split dims the way its layout does not (:func:`_fits`): each such
+    operand resharded first, to the node's entries on the dims it has at
+    full length (GSPMD moves it too)."""
     from ramba_tpu_torch.parallel.reshard import reshard_value
 
-    made = set()
+    shape = tuple(e.shape)
+    bad = [i for i, a in enumerate(e.args)
+           if isinstance(a, Const) and a.is_block and a.shape not in (
+               (), shape) and a.sharding.mesh == mesh
+           and _broadcasts(a.shape, shape)]
+    if not bad:
+        return None
+    target = _full_layout(e, shape, mesh)
+    args = list(e.args)
+    names = _entries(target, len(shape))
+    changed = False
+    for i in bad:
+        a = args[i]
+        if _fits(a, target, shape):
+            continue
+        lead = len(shape) - len(a.shape)
+        want = [names[d + lead] if n == shape[d + lead] else ()
+                for d, n in enumerate(a.shape)]
+        args[i] = reshard_value(a, _mesh.P(*_mesh.canonical(
+            [None if not w else w[0] if len(w) == 1 else tuple(w)
+             for w in want])), mesh=mesh)
+        changed = True
+    return Node(e.op, e.static, args, aval=e.aval) if changed else None
 
-    def lower(e):
+
+def _isolated(e, mesh, wd):
+    """An index (a gather, a scatter, a take) over leaves, some of them
+    blocks, inside a larger program: run on the gathered lowering as a
+    program of its own (counted), its result cut to the default layout,
+    so what lies above it stays partitioned.  None where its operands
+    are not all leaves."""
+    if not all(isinstance(a, (Const, Scalar)) for a in e.args) or not any(
+            isinstance(a, Const) and a.is_block for a in e.args):
+        return None
+    outs, _n = _run_whole([e], False, wd)
+    return _block_const(outs[0], mesh)
+
+
+def _folds_first(e, mesh, wd):
+    """An elementwise node whose operands include a fold (a reduction,
+    whole or along axes, a groupby, a selection) that the rank flush
+    takes: each such fold run first as a plan of its own, its result a
+    leaf (``x - x.mean()``, ``sums / counts[:, None]``); None where there
+    is none."""
+    args = list(e.args)
+    changed = False
+    for i, a in enumerate(args):
+        if not (isinstance(a, Node) and a.op in FOLD_OPS):
+            continue
+        plan = local_plan([a], mesh)
+        if plan is None or plan.roots[0].kind == "block":
+            continue
+        outs, _n = _run_local(plan, False, wd)
+        args[i] = _finish_local(plan, outs)[0]
+        changed = True
+    return Node(e.op, e.static, args, aval=e.aval) if changed else None
+
+
+def _move(group, consts, wd):
+    """A group of movements through :mod:`core.rankmove` down the
+    ladder, their operands pinned against spilling: one ``memory:admit``
+    round (room made first for the bytes it may hold), then each attempt
+    opens its gate before any launch and runs the group's rounds inside
+    it."""
+    from ramba_tpu_torch.core import fuser, rankmove
+    from ramba_tpu_torch.core.fuser import leaf_value
+    from ramba_tpu_torch.resilience import memory
+
+    values = [leaf_value(c) for c in consts]
+    me = distributed.process_index()
+
+    def prepare():
+        memory.reserve_headroom(group.bound_bytes(me), site="rankmove")
+
+    def run(_rung):
+        gate = fuser.launch_gate.get()
+        if gate is not None:
+            gate()
+        return rankmove.move(group, values)
+
+    pins = memory.ledger.pin_values(values)
+    try:
+        return _laddered(run, False, _admission(prepare), wd)
+    finally:
+        memory.ledger.unpin(pins)
+
+
+def lower_movements(exprs, mesh, wd=None):
+    """Every movement :mod:`core.rankmove` takes (a basic getitem or
+    setitem, permute, reshape, broadcast_to, flip, pad, concatenate and
+    stack of operands of one layout) becomes its result: a block leaf in
+    GSPMD's layout, moved box by box across the ranks; every contraction
+    :func:`_lower_contraction` takes, in the same bottom-up pass, so each
+    may be the other's operand.  An operand is a leaf or a subtree that
+    the rank flush takes without gathering (run first as a plan of its
+    own).  The reads of one operand (its slices, flips, transposes,
+    broadcasts, pads and reshapes in the program) run as one group: one
+    exchange, and the boxes they need merged (``rankmove.Group``).  An
+    elementwise node whose block operand of a broadcasting shape splits
+    its dims otherwise reshards that operand first.  What is not taken
+    keeps its node, and its program takes the gathered lowering.  Every
+    decision reads the graph and the leaves' layouts only, the same on
+    every rank.  A ``shard_hint`` over a contraction's or a movement's
+    result reshards it."""
+    from ramba_tpu_torch.core import rankmove
+    from ramba_tpu_torch.parallel.reshard import reshard_value
+
+    readers: dict = {}  # id(operand) -> the original reads of it
+    stack, seen = list(exprs), set()
+    while stack:
+        x = stack.pop()
+        if id(x) in seen or not isinstance(x, Node):
+            continue
+        seen.add(id(x))
+        if x.op in rankmove.READS:
+            readers.setdefault(id(x.args[0]), []).append(x)
+        stack.extend(x.args)
+    done: dict = {}  # id(original read) -> its result, lowered in a group
+    made = set()
+    roots = {id(e) for e in exprs}
+
+    def lower(e, orig):
         if e.op == "shard_hint" and id(e.args[0]) in made \
                 and e.static[0].mesh == mesh:
             return reshard_value(e.args[0], e.static[0].spec, mesh=mesh)
-        if e.op not in rankdot.OPS or rankdot.form(e) is None:
-            return None
-        ops = [_dot_operand(x, mesh) for x in e.args]
-        if None in ops:
-            return None
-        con = rankdot.plan(e, *[(tuple(x.shape), sh)
-                                for x, (sh, _p) in zip(e.args, ops)], mesh)
-        if con is None:
-            return None
-        consts = []
-        for x, (_sh, plan) in zip(e.args, ops):
-            if plan is None:
-                consts.append(x)
-            else:
-                outs, _n = _run_local(plan, False, wd)
-                consts.append(_finish_local(plan, outs)[0])
-        out = _contract(con, consts, wd)
-        made.add(id(out))
+        if id(orig) in done:
+            return done.pop(id(orig))
+        if e.op in INDEXING and id(orig) not in roots:
+            return _isolated(e, mesh, wd)
+        out = _lower_contraction(e, mesh, wd)
+        if out is None and e.op in rankmove.OPS:
+            out = _lower_move(e, orig, mesh, wd, readers, done)
+        if out is None and e.op in ELEMENTWISE:
+            folded = _folds_first(e, mesh, wd)
+            return _align_broadcast(folded or e, mesh) or folded
+        if isinstance(out, Const):
+            made.add(id(out))
         return out
 
-    return _rebuild(exprs, lower)
+    return _rebuild(exprs, lower, orig=True)
+
+
+def _lower_move(e, orig, mesh, wd, readers, done):
+    """A movement and the other reads of its operand, run as one group
+    (one movement for reads that are the same read, as a loop's slices of
+    an array it does not write); its result leaf, its node over leaves
+    where its operands ran but the op is not taken, or None."""
+    from ramba_tpu_torch.core import rankmove
+
+    idx = _move_arrays(e)
+    if idx is None:
+        return None
+    consts = _move_operands(e, idx, mesh, wd)
+    if consts is None:
+        return None
+    args = list(e.args)
+    for i, c in zip(idx, consts):
+        args[i] = c
+    node = Node(e.op, e.static, args, aval=e.aval)
+    layouts = [_layout(c, mesh) for c in consts]
+    spec = rankmove.result_spec(node, layouts)
+    if spec is None:
+        return node if any(c is not a for c, a in zip(args, e.args)) \
+            else None
+    operands = [rankmove.Operand(c.shape, sh, E.to_torch_dtype(c.dtype))
+                for c, sh in zip(consts, layouts)]
+
+    def same(n):  # reads that are one read share one result
+        return n.op, n.static, tuple(id(a) for a in n.args[1:])
+
+    nodes, index, sibs = [node], {same(node): 0}, []
+    if e.op in rankmove.READS:
+        for sib in readers.get(id(orig.args[0]), []):
+            if sib is orig or id(sib) in done or (
+                    sib.op == "pad" and _move_arrays(sib) is None):
+                continue
+            n = Node(sib.op, sib.static, [consts[0]] + list(sib.args[1:]),
+                     aval=sib.aval)
+            if same(n) not in index:
+                if rankmove.result_spec(n, layouts) is None:
+                    continue
+                index[same(n)] = len(nodes)
+                nodes.append(n)
+            sibs.append((sib, index[same(n)]))
+    moves = []
+    for n in nodes:
+        tdt = E.to_torch_dtype(n.dtype)
+        scalar = n.args[1].value if n.op == "setitem" and isinstance(
+            n.args[1], Scalar) else None
+        osh = _mesh.NamedSharding(mesh, rankmove.result_spec(n, layouts))
+        moves.append(rankmove.Move(rankmove.op_of(n, tdt, scalar), n.shape,
+                                   osh, tdt, list(range(len(consts)))))
+    outs = _move(rankmove.Group(moves, operands, mesh), consts, wd)
+    for o, i in sibs:
+        done[id(o)] = outs[i]
+    return outs[0]
 
 
 def flush_roots(stream, roots, extra, mesh):
@@ -1331,7 +1726,7 @@ def _flush_roots(stream, roots, exprs, mesh, wd):
 
                 exprs = rewrite_roots(exprs)
             exprs = lower_hints(exprs, mesh, wd)
-            exprs = lower_contractions(exprs, mesh, wd)
+            exprs = lower_movements(exprs, mesh, wd)
             split = fuser.verify_whole(exprs)
             plans = _plans(exprs, mesh)
         except Exception as e:

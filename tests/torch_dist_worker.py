@@ -26,7 +26,8 @@ same programs on the default stream); ``positions`` ranks that hold
 several positions of a (2, 2) mesh (:func:`_positions`); ``select``
 medians, quantiles and the last folds across those worlds
 (:func:`_select`); ``dot`` matmul and the contractions across them
-(:func:`_dot`).  On the card
+(:func:`_dot`); ``move`` slices, transposes, reshapes and the other
+movement ops across them (:func:`_move`).  On the card
 (``tests/test_torch_cuda.py``), ``card`` runs star2
 through the CUDA stencil kernel on each rank's block and ``nccl`` one
 rank's collectives over NCCL.  :func:`programs` takes the package as an argument, so the test runs
@@ -1529,6 +1530,372 @@ def _dot(rt, rank, outdir):
     record()
 
 
+# movements across ranks (core/rankmove.py): the worlds of the positions
+# mode; an uneven grid and vector, an even grid and vector for GSPMD's
+# layouts, a square grid for the Jacobi sweeps
+MOVE_GRID = (23, 19)
+MOVE_N = 257
+MOVE_EVEN = (16, 16)
+MOVE_EVEN_N = 256
+MOVE_SQUARE = 24
+MOVE_SWEEPS = 3
+MOVE_DTYPES = ("bool", "int8", "uint64", "float16", "float32", "float64",
+               "complex128")
+DD = ("d0", "d1")
+FLAT = (("d0", "d1"),)
+
+
+def move_inputs():
+    rng = np.random.default_rng(24)
+    m, n = MOVE_GRID
+    d = {"A": rng.standard_normal((m, n)), "A2": rng.standard_normal((m, n)),
+         "C": rng.standard_normal((6, m, n)),
+         "a": rng.standard_normal(MOVE_N),
+         "E": rng.standard_normal(MOVE_EVEN),
+         "E2": rng.standard_normal(MOVE_EVEN),
+         "e": rng.standard_normal(MOVE_EVEN_N),
+         "F": rng.standard_normal((MOVE_SQUARE, MOVE_SQUARE)),
+         "P": rng.standard_normal((64, 4)),
+         "idx": np.array([1, 5, 7, 200])}
+    for dt in MOVE_DTYPES:
+        if dt == "bool":
+            x = rng.random((m, n)) < 0.5
+        elif dt in ("int8", "uint64"):
+            info = np.iinfo(dt)
+            x = rng.integers(info.max - 100, info.max, (m, n), dtype=dt,
+                             endpoint=True)
+            x[::3] = rng.integers(info.min, info.min + 100, (len(x[::3]), n),
+                                  dtype=dt, endpoint=True)
+        elif dt == "complex128":
+            x = (rng.standard_normal((m, n)) * 1e300
+                 + 1j * rng.standard_normal((m, n)) * 1e-300)
+            x[2, 3] = complex(np.nan, -0.0)
+        else:
+            big = np.finfo(dt).max
+            x = (rng.standard_normal((m, n)) * (big / 8)).astype(dt)
+            x[1, ::2] = -0.0
+            x[4, 5], x[6, 7], x[8, 9] = np.nan, np.inf, -np.inf
+            x[10, 1] = np.finfo(dt).smallest_subnormal
+        d[f"x_{dt}"] = x
+    return d
+
+
+def move_programs(rt, put):
+    """Every movement program: ``put(x, spec)`` lays a host array out (a
+    spec of the (2, 2) mesh's axes; in one process it is ignored).  Each
+    returns ``{key: result}``."""
+    d = move_inputs()
+    A = lambda: put(d["A"], DD)  # noqa: E731
+    a = lambda: put(d["a"], FLAT)  # noqa: E731
+    progs = {}
+
+    def three(x):
+        return x[2:] - 2.0 * x[1:-1] + x[:-2]
+    progs["slice"] = lambda: {
+        "inner": A()[1:-1, 2:], "neg": A()[::-2, 3], "ell": A()[..., None, 1:5],
+        "last": A()[-1], "rev": A()[3:4, ::-1], "none": A()[None, :, 5],
+        "step": A()[1::3, ::-4], "vec2": a()[::3], "vrev": a()[::-1],
+        "three": three(a())}
+    progs["split"] = lambda: dict(
+        [(f"s{i}", v) for i, v in enumerate(rt.split(a()[:256], 4))]
+        + [(f"as{i}", v) for i, v in enumerate(rt.array_split(A(), 3,
+                                                              axis=1))]
+        + [("diff0", rt.diff(A(), axis=0)), ("diff", rt.diff(a()))])
+
+    def setitem():
+        x = A()
+        x[1:-1, 1:-1] = 0.25 * (x[:-2, 1:-1] + x[2:, 1:-1] + x[1:-1, :-2]
+                                + x[1:-1, 2:])
+        y = A()
+        y[::-2, 3] = 7.0
+        y[5] = a()[:19]
+        y[2:6, None, 1:4] = a()[:3]
+        y[-3:] = put(d["A2"], DD)[:3]
+        z = A()
+        t = z.T
+        t[2:5] = -1.0
+        w = A()
+        r = w.reshape(-1)
+        r[3:40] = 1.5
+        return {"sweep": x, "writes": y, "through_t": z, "through_r": w}
+    progs["setitem"] = setitem
+    C = lambda: put(d["C"], ("d0", None, "d1"))  # noqa: E731
+    progs["permute"] = lambda: {
+        "T": A().T, "swap": rt.swapaxes(C(), 0, 2),
+        "move": rt.moveaxis(C(), 0, -1), "roll": rt.rollaxis(C(), 2),
+        "T_sum": A().T + put(d["A2"].T.copy(), ("d1", "d0"))}
+    progs["reshape"] = lambda: {
+        "ravel": A().ravel(), "flatten": A().flatten(),
+        "rows": put(d["E"], ("d0",)).reshape(8, 32),
+        "split": A().reshape(23, 1, 19), "merge": C().reshape(6 * 23, 19),
+        "odd": A().reshape(19, 23), "expand": rt.expand_dims(A(), 1),
+        "squeeze": rt.squeeze(A()[:, None]), "vec": a()[:256].reshape(16, 16)}
+    progs["broadcast"] = lambda: {
+        "to": rt.broadcast_to(put(d["A"][0], ("d1",)), (23, 19)),
+        "to3": rt.broadcast_to(A(), (2, 23, 19)),
+        "bmap": put(d["A"][:, 0], ("d0",))[:, None] - 2.0 * A()
+        + put(d["A"][0], ("d1",))[None, :],
+        "moved": put(d["A"][0], ("d0",))[None, :] * A(),
+        "keep": A() - A().mean(axis=1, keepdims=True)}
+    progs["flip"] = lambda: {
+        "all": rt.flip(A()), "lr": rt.fliplr(A()), "ud": rt.flipud(A()),
+        "rot": rt.rot90(A()), "rot2": rt.rot90(A(), 2), "vec": rt.flip(a())}
+    progs["join"] = lambda: {
+        "cat0": rt.concatenate([A(), put(d["A2"], DD)]),
+        "cat1": rt.concatenate([A(), put(d["A2"], DD)], axis=1),
+        "stack0": rt.stack([A(), put(d["A2"], DD)]),
+        "stack2": rt.stack([A(), put(d["A2"], DD)], axis=2),
+        "hstack": rt.hstack([A(), put(d["A2"], DD)]),
+        "vstack": rt.vstack([a(), a()]),
+        "roll": rt.roll(a(), 1), "roll2": rt.roll(A(), (2, -3), axis=(0, 1)),
+        "rollflat": rt.roll(A(), 5)}
+    progs["pad"] = lambda: {
+        mode: rt.pad(A(), ((2, 3), (1, 4)), mode=mode)
+        for mode in ("constant", "empty", "edge", "wrap", "reflect",
+                     "symmetric")} | {
+        "value": rt.pad(A(), 1, constant_values=-2.5),
+        "vec": rt.pad(a(), (3, 0), mode="reflect")}
+    progs["tri"] = lambda: {"tril": rt.tril(A(), 1), "triu": rt.triu(A(), -2),
+                            "tril3": rt.tril(C(), 0)}
+    def folds(x):
+        return {"three": rt.sum(three(x) ** 2), "flip": rt.sum(x * rt.flip(x))}
+    progs["folds"] = lambda: folds(a())
+    # the programs whose received bytes have closed forms: an even vector
+    progs["bytes_three"] = lambda: {"c": rt.sum(three(put(d["e"], FLAT))
+                                                 ** 2)}
+    progs["bytes_flip"] = lambda: (lambda x: {"c": rt.sum(x * rt.flip(x))})(
+        put(d["e"], FLAT))
+
+    def sweeps():
+        f = put(d["F"], DD)
+        u = put(np.zeros((MOVE_SQUARE, MOVE_SQUARE)), DD)
+        for _ in range(MOVE_SWEEPS):
+            u[1:-1, 1:-1] = 0.25 * (u[:-2, 1:-1] + u[2:, 1:-1]
+                                    + u[1:-1, :-2] + u[1:-1, 2:]
+                                    - f[1:-1, 1:-1])
+        return {"u": u}
+    progs["sweeps"] = sweeps
+
+    def dtypes():
+        out = {}
+        for dt in MOVE_DTYPES:
+            x = put(d[f"x_{dt}"], DD)
+            out[f"{dt}_chain"] = rt.pad(x[::-1, 2:].T, 1)
+            out[f"{dt}_cat"] = rt.concatenate([x[:, 3:], x[:, :3]], axis=1)
+            out[f"{dt}_ravel"] = x.ravel()[5:300]
+        # a join in NumPy's common dtype
+        out["mixed_cat"] = rt.concatenate([put(d["x_bool"], DD),
+                                           put(d["x_int8"], DD),
+                                           put(d["x_float16"], DD)], axis=1)
+        return out
+    progs["dtypes"] = dtypes
+    return progs
+
+
+# the even programs whose layouts are held against GSPMD's: per key, the
+# port's call on operands laid out by their specs (tests/test_torch_
+# rankmove.py holds the same calls through jax.numpy)
+MOVE_EVEN_PROGRAMS = {
+    "slice4": (("E", DD),), "sliceoff": (("E", DD),),
+    "stride": (("E", DD),), "stride_whole": (("E", DD),),
+    "int": (("E", DD),), "newaxis": (("e", FLAT),), "revslice": (("E", DD),),
+    "vec_three": (("e", FLAT),), "vec_step": (("e", FLAT),),
+    "T": (("E", DD),), "ravel": (("E", DD),), "rows": (("E", ("d0",)),),
+    "cols": (("E", (None, "d0")),), "vec_reshape": (("e", FLAT),),
+    "vec_split2": (("e", FLAT),), "expand": (("E", DD),),
+    "bcast": (("E", DD),), "bcast_vec": (("e16", ("d1",)),),
+    "flip": (("E", DD),), "cat0": (("E", DD), ("E2", DD)),
+    "cat1": (("E", DD), ("E2", DD)), "stack1": (("E", DD), ("E2", DD)),
+    "pad": (("E", DD),), "pad_reflect": (("E", DD),), "roll": (("e", FLAT),),
+    "tril": (("E", DD),), "jacobi": (("E", DD), ("E2", DD)),
+    "bmap": (("e64", ("d0",)), ("C64", ("d0",))),
+}
+
+
+def move_even_call(np_or_rt, name, *x):
+    """One even program through ``rt`` (the port, ``ramba_tpu``) or
+    ``jax.numpy``: the same NumPy call."""
+    m = np_or_rt
+    if name == "slice4":
+        return x[0][4:12]
+    if name == "sliceoff":
+        return x[0][1:-1, 2:-2]
+    if name == "stride":
+        return x[0][::2]
+    if name == "stride_whole":
+        return x[0][:, ::2]
+    if name == "int":
+        return x[0][3]
+    if name == "newaxis":
+        return x[0][:, None]
+    if name == "revslice":
+        return x[0][::-1, 2:14]
+    if name == "vec_three":
+        return x[0][4:] - 2.0 * x[0][2:-2] + x[0][:-4]
+    if name == "vec_step":
+        return x[0][1::2]
+    if name == "T":
+        return x[0].T
+    if name in ("ravel", "cols"):
+        return x[0].reshape(-1)
+    if name == "rows":
+        return x[0].reshape(8, 32)
+    if name == "vec_reshape":
+        return x[0].reshape(16, 16)
+    if name == "vec_split2":
+        return x[0].reshape(2, 128)
+    if name == "expand":
+        return x[0][None]
+    if name == "bcast":
+        return m.broadcast_to(x[0], (4, 16, 16))
+    if name == "bcast_vec":
+        return m.broadcast_to(x[0], (8, 16))
+    if name == "flip":
+        return m.flip(x[0])
+    if name == "cat0":
+        return m.concatenate([x[0], x[1]])
+    if name == "cat1":
+        return m.concatenate([x[0], x[1]], axis=1)
+    if name == "stack1":
+        return m.stack([x[0], x[1]], axis=1)
+    if name == "pad":
+        return m.pad(x[0], 1)
+    if name == "pad_reflect":
+        return m.pad(x[0], 2, mode="reflect")
+    if name == "roll":
+        return m.roll(x[0], 1)
+    if name == "tril":
+        return m.tril(x[0])
+    if name == "jacobi":
+        u, f = x
+        return 0.25 * (u[:-2, 1:-1] + u[2:, 1:-1] + u[1:-1, :-2]
+                       + u[1:-1, 2:] - f[1:-1, 1:-1])
+    assert name == "bmap"
+    return x[0][:, None] - 2.0 * x[1]
+
+
+def move_even_inputs():
+    d = move_inputs()
+    rng = np.random.default_rng(25)
+    return {"E": d["E"], "E2": d["E2"], "e": d["e"],
+            "e16": rng.standard_normal(16), "e64": rng.standard_normal(64),
+            "C64": rng.standard_normal((64, 8))}
+
+
+# what still takes the gathered lowering, one program each
+MOVE_GATHERED = ("adv", "scatter", "take", "repeat", "tile", "diag",
+                 "cat_layouts", "pad_wide", "a_plus_at")
+
+
+def move_gathered(rt, put):
+    d = move_inputs()
+    E = lambda: put(d["E"], DD)  # noqa: E731
+
+    def scatter():
+        x = E()
+        x[[1, 2], 3] = 5.0
+        return x
+    return {
+        "adv": lambda: E()[[1, 5, 7]],
+        "scatter": scatter,
+        "take": lambda: rt.take(put(d["a"], FLAT), d["idx"]),
+        "repeat": lambda: rt.repeat(E(), 2, axis=0),
+        "tile": lambda: rt.tile(E(), (2, 1)),
+        "diag": lambda: rt.diag(E()),
+        "cat_layouts": lambda: rt.concatenate([E(), put(d["E2"], ("d0",))]),
+        "pad_wide": lambda: rt.pad(E(), 20),
+        "a_plus_at": lambda: E() + E().T}
+
+
+def move_models(rt, put):
+    """The port's models across ranks: the Jacobi sweeps written with
+    slices, their residual (``models/jacobi.residual``), one k-means
+    iteration (``models/kmeans``)."""
+    from ramba_tpu_torch.models import jacobi, kmeans
+
+    d = move_inputs()
+    f = put(d["F"], DD)
+    u = np.asarray(move_programs(rt, put)["sweeps"]()["u"])
+    res = jacobi.residual(put(u, DD), f)
+    cent, labels = kmeans.kmeans(put(d["P"], DD), 3, iters=1, seed=0)
+    return {"u": u, "residual": np.float64(res), "centroids": cent,
+            "labels": labels}
+
+
+def _move(rt, rank, outdir):
+    """The move mode (``RAMBA_POSITIONS_RANKS``: the (2, 2) mesh's ranks);
+    ``RAMBA_MOVE_CASE``: ``main`` runs :func:`move_programs`, the even
+    programs, :func:`move_gathered` and :func:`move_models`, recording
+    each program's gathered flushes, result layouts and the counters of
+    ``rankmove.stats``; ``fail`` runs ``a[2:] + a[:-2]`` under
+    ``RAMBA_MOVE_FAULT`` and records what it raised (or its result);
+    ``stall`` stalls rank 1 before a round under the watchdog."""
+    from ramba_tpu_torch.core import fuser, rankmove
+    from ramba_tpu_torch.parallel import mesh as pm
+    from ramba_tpu_torch.resilience import faults
+
+    ranks = [int(r) for r in os.environ["RAMBA_POSITIONS_RANKS"].split(",")]
+    rt.set_mesh(pm.rank_mesh((2, 2), ranks=ranks))
+    case = os.environ.get("RAMBA_MOVE_CASE", "main")
+    res, info = {}, {"gathered": {}, "spec": {}, "stats": {}}
+
+    def put(x, spec):
+        return rt.fromarray(x, distribution=pm.P(*spec))
+
+    def record():
+        np.savez(os.path.join(outdir, f"rank{rank}.npz"), **res)
+        with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+            json.dump(info, f)
+
+    if case in ("fail", "stall"):
+        e = move_inputs()["e"]
+        x = put(e, FLAT)
+        rt.sync()
+        g0 = fuser.stats["gathered"]
+        t0 = time.monotonic()
+        try:
+            with faults.active(os.environ["RAMBA_MOVE_FAULT"]):
+                res["c"] = np.asarray(x[2:] + x[:-2])
+            info["error"] = None
+        except Exception as err:  # noqa: BLE001 - the class is the result
+            info["error"] = type(err).__name__
+        info["seconds"] = time.monotonic() - t0
+        info["gathered"] = fuser.stats["gathered"] - g0
+        record()
+        if case == "stall":
+            os._exit(0)  # a helper thread may still wait in gloo
+        return
+    ev = move_even_inputs()
+    even = {name: (lambda name=name, ops=ops: {"c": move_even_call(
+        rt, name, *[put(ev[k], spec) for k, spec in ops])})
+        for name, ops in MOVE_EVEN_PROGRAMS.items()}
+    for table, progs in (("main", move_programs(rt, put)), ("even", even),
+                         ("gathered", move_gathered(rt, put)),
+                         ("models", {"models": lambda: move_models(rt,
+                                                                   put)})):
+        for name, fn in progs.items():
+            rt.sync()
+            g0 = fuser.stats["gathered"]
+            s0 = dict(rankmove.stats)
+            out = fn()
+            rt.sync()
+            key = name if table != "even" else f"even/{name}"
+            for k, v in (out.items() if isinstance(out, dict)
+                         else [("c", out)]):
+                if getattr(v, "_base", None) is not None:
+                    v = v.copy()  # a view's own layout: its value realized
+                res[f"{key}/{k}"] = np.asarray(v)
+                sh = getattr(v, "sharding", None)
+                info["spec"][f"{key}/{k}"] = None if sh is None or \
+                    not v.shape else list(pm.canonical(sh.spec))
+            info["gathered"][key] = fuser.stats["gathered"] - g0
+            info["stats"][key] = {k: rankmove.stats[k] - s0[k]
+                                  for k in rankmove.stats}
+        info[f"{table}_programs"] = list(progs)
+    info["held"] = [list(p) for p in rt.get_mesh().local_positions()]
+    record()
+
+
 def card_grid():
     return np.random.default_rng(5).random(CARD_GRID).astype(np.float32)
 
@@ -1624,7 +1991,7 @@ def main(argv) -> int:
      "ladder": _ladder, "elastic": _elastic,
      "observe": _observe, "serve": _serve,
      "positions": _positions, "select": _select,
-     "dot": _dot}[mode](rt, rank, outdir)
+     "dot": _dot, "move": _move}[mode](rt, rank, outdir)
     distributed.shutdown()
     return 0
 
